@@ -1,0 +1,842 @@
+"""Inference engine: continuous batching over one paged KV cache, with
+bucketed prefill and a per-token decode step over the active batch
+(counterpart of the core of the JAX package's ``engine/engine.py``).
+
+Sessions are pinned to batch rows of ONE preallocated page pool, admitted and
+evicted between steps. The port runs eagerly: there is no per-shape compile,
+so the JAX engine's executable warm-ups have no counterpart, but the padded
+dispatch shapes of the :class:`AttentionPlan` are kept — the admission
+partition and the order of sampling-key draws depend on them.
+
+Step anatomy (host orchestrates, device computes):
+  1. admit — move waiting sessions into free slots (pages allocated from the
+     pool), run batched or single-row prefill(s), sample the first token;
+     long greedy prompts park and walk their prompt one chunk per granted
+     tick beside the live decode batch.
+  2. decode — one model step over all slots; inactive rows carry
+     ``num_new = 0`` and write to the null page.
+  3. retire — EOS / length / capacity sessions leave their slots; pages
+     return to the allocator.
+
+What this slice serves: a dense Llama-family model, the paged cache, one
+token per decode dispatch. The constructor raises ``NotImplementedError``,
+naming the ``ROADMAP.md`` queue item, for every feature that waits.
+"""
+
+from __future__ import annotations
+
+import collections
+import math
+import threading
+import time
+from typing import Dict, List, Optional, Sequence, Tuple, Union
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..cache.base import window_ladder
+from ..cache.paged import PageAllocator, PagedKVCache
+from ..config import CacheConfig, EngineConfig, ModelConfig
+from ..models import llama
+from ..utils.device import resolve_device
+from ..utils.metrics import Metrics
+from .plan import AttentionPlan
+from .sampling import SamplingOptions, SamplingParams, sample
+from .session import Session, SessionState
+
+
+def _waits(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported yet (ROADMAP.md queue 1, {item})"
+    )
+
+
+class InferenceEngine:
+    """Single-device continuous-batching engine over one model replica.
+
+    ``generator`` is the root of the engine's randomness: a CPU
+    ``torch.Generator`` from which one sampling key is drawn per dispatch
+    (seed 0 when None). ``device`` defaults to ``"cuda"`` and the constructor
+    raises when there is no such device. ``attention_backend`` is what the
+    :class:`AttentionPlan` resolves kernels for; it defaults to the device's
+    type, and tests pass ``"cuda"`` with ``device="cpu"`` to route attention
+    through the kernel wrappers, which take their plain versions for CPU
+    tensors.
+    """
+
+    def __init__(
+        self,
+        cfg: ModelConfig,
+        params,
+        engine_cfg: Optional[EngineConfig] = None,
+        cache_cfg: Optional[CacheConfig] = None,
+        generator: Optional[torch.Generator] = None,
+        mesh_cfg=None,
+        draft=None,
+        prefix_cfg=None,
+        trace_cfg=None,
+        device: Union[str, torch.device] = "cuda",
+        attention_backend: Optional[str] = None,
+    ):
+        self.cfg = cfg
+        self.ecfg = engine_cfg or EngineConfig()
+        self.ccfg = cache_cfg or CacheConfig()
+        ecfg, cc = self.ecfg, self.ccfg
+        if ecfg.decode_steps is not None and ecfg.decode_steps > 1:
+            raise _waits("decode_steps > 1 (fused K-step decode)", "item 2")
+        if ecfg.decode_steps is not None and ecfg.decode_steps < 1:
+            raise ValueError(f"decode_steps must be >= 1, got {ecfg.decode_steps}")
+        if cc.kind not in ("paged", "dense", "sink"):
+            raise ValueError(f"unknown cache kind {cc.kind}")
+        if cc.kind != "paged":
+            raise _waits(f"cache kind {cc.kind!r}", "item 5")
+        if cc.kv_quant is not None:
+            raise _waits(f"kv_quant={cc.kv_quant!r}", "item 7")
+        if ecfg.quantization is not None:
+            raise _waits(f"quantization={ecfg.quantization!r}", "item 6")
+        if mesh_cfg is not None:
+            raise _waits("mesh_cfg (sharded serving)", "item 12")
+        if draft is not None:
+            raise _waits("a draft model (speculative decoding)", "item 9")
+        if cc.prefix_caching or prefix_cfg is not None:
+            raise _waits("prefix caching", "item 11")
+        if cfg.use_latent:
+            raise _waits("a latent (mla) model config", "item 10")
+        if trace_cfg is not None:
+            raise _waits("trace_cfg (spans and the flight recorder)", "item 16")
+
+        self.device = resolve_device(device)
+        self.params = params
+        self.generator = (
+            generator if generator is not None
+            else torch.Generator().manual_seed(0)
+        )
+        self.metrics = Metrics()
+        # Scheduler lock: slots/cache/allocator are mutated only by
+        # step()/collect_finished() under this lock (single writer).
+        # submit()/cancel() are deliberately LOCK-FREE — step() holds the
+        # lock across whole device steps, and request admission/cancellation
+        # must not stall on that; they rely on GIL-atomic deque/dict ops and
+        # state flags the scheduler observes at tick boundaries.
+        self._lock = threading.Lock()
+        # Deferred page-table installs: (row, slot_idx, page) triples applied
+        # by one scatter right before the dispatch that needs them.
+        self._pending_installs: List[Tuple[int, int, int]] = []
+
+        self.batch = ecfg.max_batch_size
+        self.dtype = getattr(torch, ecfg.dtype)
+        self.plan = AttentionPlan(
+            ecfg, cc, metrics=self.metrics,
+            backend=attention_backend or self.device.type,
+        )
+        sel = self.plan.select()
+        self._use_pallas = sel.use_pallas
+        # Sessions parked mid chunked-prefill (slot held, decode-ineligible;
+        # advanced by _chunk_dispatch on the decode cadence).
+        self._chunking: List[Session] = []
+
+        # The gather path materializes [B, table_width * page_size, ...] per
+        # layer, so its traffic tracks the TABLE WIDTH: start narrow and pad
+        # columns as sessions lengthen (the pool never moves);
+        # max_pages_per_session is the cap.
+        self._windows = self._window_ladder(
+            cap=min(ecfg.max_seq_len, cc.max_pages_per_session * cc.page_size),
+            strict=False,
+        )
+        self._first_slots = (
+            max(1, -(-self._windows[0] // cc.page_size))
+            if self._windows else cc.max_pages_per_session
+        )
+        self.cache = PagedKVCache.create(
+            cfg.num_layers, self.batch, cc.num_pages, cc.page_size,
+            self._first_slots, cfg.num_kv_heads, cfg.head_dim, self.dtype,
+            use_kernel=self._use_pallas, use_ragged=sel.use_ragged,
+            device=self.device,
+        )
+        self.allocator = PageAllocator(cc.num_pages)
+        self.metrics.gauge(
+            "kv_bytes_per_token",
+            float(sum(
+                pool.shape[0] * pool.element_size()
+                * math.prod(pool.shape[2:]) // cc.page_size
+                for pool in self.cache.layer_stacks
+            )),
+        )
+
+        self.sessions: Dict[str, Session] = {}
+        self.waiting: collections.deque[Session] = collections.deque()
+        self.slots: List[Optional[str]] = [None] * self.batch
+        self.decode_steps = 1
+        # Admission-ordering hook (set_admission_order): None = FIFO.
+        self._admission_order = None
+
+    # -- device programs (eager) ----------------------------------------------
+
+    def _i32(self, values) -> torch.Tensor:
+        return torch.as_tensor(
+            np.asarray(values, np.int32), device=self.device
+        )
+
+    def _prefill(self, tokens, row: int, n_valid: int, key, sp) -> torch.Tensor:
+        """One row's (final) prefill chunk; samples at its last position."""
+        sub = self.cache.select_row(row)
+        logits, sub = llama.model_apply(
+            self.cfg, self.params, tokens, sub, self._i32([n_valid]),
+            head="last",
+        )
+        self.cache.merge_row(sub, row)
+        return sample(logits[:, 0], key, sp)[0]
+
+    def _prefill_ns(self, tokens, row: int, n_valid: int) -> None:
+        """Chunked-prefill interior: fill the cache; the head is skipped
+        entirely (an interior chunk samples nothing)."""
+        sub = self.cache.select_row(row)
+        _, sub = llama.model_apply(
+            self.cfg, self.params, tokens, sub, self._i32([n_valid]),
+            head="none",
+        )
+        self.cache.merge_row(sub, row)
+
+    def _prefill_batch(self, tokens, rows, n_valid, key, sp) -> torch.Tensor:
+        """Batched admission: k sessions' prompts in ONE padded dispatch over
+        a compact k-row view of the cache (the page pool is shared, so the
+        prefill writes straight into it)."""
+        sub = self.cache.select_rows(rows)
+        logits, sub = llama.model_apply(
+            self.cfg, self.params, tokens, sub, self._i32(n_valid),
+            head="last",
+        )
+        self.cache.merge_rows(sub, rows)
+        return sample(logits[:, 0], key, sp)
+
+    def _decode(self, tokens, active, key, sp) -> torch.Tensor:
+        logits, _ = llama.model_apply(
+            self.cfg, self.params, tokens, self.cache,
+            active.to(torch.int32),
+        )
+        return sample(logits[:, 0], key, sp)
+
+    # -- capacity ---------------------------------------------------------------
+
+    def _window_ladder(
+        self, cap: Optional[int] = None, strict: bool = True
+    ) -> Tuple[int, ...]:
+        """See :func:`cache.base.window_ladder`; ``decode_windows`` is the
+        custom override."""
+        return window_ladder(
+            cap if cap is not None else self.ecfg.max_seq_len,
+            custom=self.ecfg.decode_windows, strict=strict,
+        )
+
+    def _ensure_capacity(self, needed_len: int) -> None:
+        """Grow the cache's attended span to the smallest ladder bucket
+        covering ``needed_len``: the paged kind just pads TABLE columns (the
+        pool never moves)."""
+        if not self._windows or needed_len <= self.cache.max_len:
+            return
+        ps = self.ccfg.page_size
+        slots_needed = -(-needed_len // ps)
+        # Ladder entries never exceed max_pages_per_session * page_size
+        # (the __init__ cap), so each candidate slot count is in range.
+        new_slots = next(
+            (-(-w // ps) for w in self._windows
+             if -(-w // ps) >= slots_needed),
+            self.ccfg.max_pages_per_session,
+        )
+        pad = new_slots - self.cache.page_table.shape[1]
+        if pad > 0:
+            self.cache.page_table = F.pad(self.cache.page_table, (0, pad))
+            self.metrics.counter("cache_growths")
+
+    def _queue_install(self, row: int, slot_idx: int, page: int) -> None:
+        """Defer a page-table install; :meth:`_flush_installs` applies every
+        pending one in a single batched scatter."""
+        self._pending_installs.append((row, slot_idx, page))
+
+    def _flush_installs(self) -> None:
+        if not self._pending_installs:
+            return
+        rows, slots_, pages = zip(*self._pending_installs)
+        self._pending_installs = []
+        self.cache.assign_pages_batch(rows, slots_, pages)
+
+    # -- public API -------------------------------------------------------------
+
+    def submit(
+        self,
+        prompt: Sequence[int],
+        options: Optional[SamplingOptions] = None,
+        deadline: Optional[float] = None,
+        sched_key: Optional[tuple] = None,
+    ) -> str:
+        """Queue a prompt; returns its generation_id. Thread-safe.
+
+        ``deadline`` is an absolute ``time.monotonic()`` instant: past it the
+        scheduler reaps the session like a cancel (finish_reason
+        ``"deadline"``), whether it is still queued or actively decoding.
+
+        ``sched_key`` is a scheduler's admission-ordering stamp (see
+        :meth:`set_admission_order`); sessions without one are admitted
+        FIFO."""
+        return self._submit_session(
+            prompt, options, deadline, sched_key=sched_key
+        ).generation_id
+
+    def _submit_session(self, prompt, options, deadline=None,
+                        sched_key=None) -> Session:
+        # Lock-free on purpose (see __init__): deque.append and dict
+        # insertion are GIL-atomic; the scheduler only observes the session
+        # at its next admission pass.
+        if len(prompt) == 0:
+            raise ValueError("empty prompt")
+        s = Session(
+            prompt=list(prompt),
+            options=options or SamplingOptions(),
+            deadline=deadline,
+            sched_key=sched_key,
+        )
+        self.sessions[s.generation_id] = s
+        self.waiting.append(s)
+        self.metrics.counter("sessions_submitted")
+        return s
+
+    def set_admission_order(self, fn) -> None:
+        """Install an admission-ordering hook:
+        ``fn(pending_sessions) -> ordered_sessions``, called under the
+        engine lock at each tick with the reaped waiting queue. The engine
+        admits a PREFIX of the returned order (free slots and page-pool
+        pressure permitting) instead of FIFO-popping. The hook must be a
+        pure reordering — a result that drops or invents sessions is
+        discarded and the tick falls back to FIFO. Ordering affects WHICH
+        sessions are admitted each tick, never the tokens any individual
+        session produces. ``None`` restores FIFO."""
+        self._admission_order = fn
+
+    def cancel(self, generation_id: str) -> None:
+        """Thread-safe and non-blocking: sets a monotonic flag; the
+        scheduler converts it to the CANCELLED state at the next tick
+        boundary (state transitions stay single-writer)."""
+        s = self.sessions.get(generation_id)
+        if s is None or s.state == SessionState.FINISHED:
+            return
+        s.cancel_requested = True
+
+    def step(self) -> List[Tuple[str, int, bool]]:
+        """One scheduler tick: admit + decode. Returns
+        ``[(generation_id, token, finished), …]`` events. ``token == -1``
+        signals a finish without a new token (capacity rejection/exhaustion,
+        cancel, deadline) — streaming consumers must not append it."""
+        produced: List[Tuple[str, int, bool]] = []
+        with self._lock:
+            self._admit(produced)
+            self._chunk_dispatch(produced)
+            if any(
+                gid is not None and not self.sessions[gid].chunking
+                for gid in self.slots
+            ):
+                self._decode_tick(produced)
+        return produced
+
+    def has_work(self) -> bool:
+        with self._lock:
+            return bool(self.waiting) or any(
+                s is not None for s in self.slots
+            )
+
+    def active_sessions(self) -> int:
+        """Resident sessions. Lock-free snapshot for observability."""
+        return sum(1 for g in self.slots if g is not None)
+
+    def queue_depth(self) -> int:
+        """Sessions waiting for a slot. Lock-free snapshot."""
+        return len(self.waiting)
+
+    def generate(
+        self,
+        prompts: Sequence[Sequence[int]],
+        options: Optional[SamplingOptions] = None,
+        max_steps: int = 100_000,
+    ) -> List[List[int]]:
+        """Blocking convenience API: run all prompts to completion."""
+        # Hold the Session objects themselves: a concurrent
+        # collect_finished() may reap the dict entries at any point.
+        subs = [self._submit_session(p, options) for p in prompts]
+        for _ in range(max_steps):
+            if not self.has_work():
+                break
+            self.step()
+        return [s.generated for s in subs]
+
+    def collect_finished(self) -> Dict[str, Session]:
+        """Remove and return finished/cancelled sessions. Callers that stream
+        via ``step()`` must collect periodically or host memory grows with
+        total requests served."""
+        with self._lock:
+            # list(): submit() inserts into the dict lock-free; a snapshot
+            # keeps concurrent submission from breaking this iteration.
+            done = {
+                gid: s
+                for gid, s in list(self.sessions.items())
+                if s.state in (SessionState.FINISHED, SessionState.CANCELLED)
+                and s.slot is None
+            }
+            for gid in done:
+                del self.sessions[gid]
+            return done
+
+    # -- scheduler ----------------------------------------------------------------
+
+    def _next_key(self) -> int:
+        """One sampling key (a seed for :func:`sample`) from the engine's
+        generator. Drawn once per dispatch, greedy or not, so the key order
+        depends on the dispatch sequence alone."""
+        return int(
+            torch.randint(0, 2**62, (1,), generator=self.generator).item()
+        )
+
+    def _bucket_for(self, n: int) -> int:
+        # The admission-partition key, in ragged mode too (plan docstring:
+        # partition == sampling-key order), even though pad widths differ.
+        return self.plan.bucket_for(n)
+
+    def _max_chunk(self) -> int:
+        """Largest prefill chunk the cache accepts."""
+        return self.ecfg.prefill_buckets[-1]
+
+    def _capacity_ok(self, s: Session) -> bool:
+        limit = self.ccfg.max_pages_per_session * self.ccfg.page_size
+        return len(s.prompt) + 1 <= limit
+
+    def _shrink_if_idle(self) -> None:
+        """With no resident sessions, truncate the page table back to its
+        first width: one long-context session must not pin its high-water
+        table width (the gather path's traffic) for the rest of the
+        process."""
+        if not self._windows or any(g is not None for g in self.slots):
+            return
+        if self.cache.page_table.shape[1] > self._first_slots:
+            # With no resident sessions every row is either already reset or
+            # will be reset at its next admission.
+            self.cache.page_table = self.cache.page_table[
+                :, : self._first_slots
+            ].contiguous()
+
+    def _admit(self, produced) -> None:
+        # Installs queued by a tick that ended up dispatching nothing must
+        # land before _shrink_if_idle can re-shape the table.
+        self._flush_installs()
+        # Reap sessions cancelled or deadline-expired since the last tick
+        # (cancel() only sets the flag; deadlines are observed here, at tick
+        # boundaries). Each reap emits a terminal ``(gid, -1, True)`` event
+        # so streaming consumers see every stream end.
+        now = time.monotonic()
+        for slot, gid in enumerate(self.slots):
+            if gid is None:
+                continue
+            s = self.sessions[gid]
+            expired = (
+                not s.cancel_requested
+                and s.deadline is not None
+                and now >= s.deadline
+            )
+            if (s.cancel_requested or expired) and s.slot is not None:
+                s.state = SessionState.CANCELLED
+                s.finish_reason = "deadline" if expired else "cancelled"
+                if expired:
+                    self.metrics.counter("sessions_deadline_expired")
+                self._release(s)
+                produced.append((gid, -1, True))
+        self._shrink_if_idle()
+        admitted: List[Session] = []
+        free_slots = [i for i in range(self.batch) if self.slots[i] is None]
+        candidates: List[Session] = []
+        if free_slots and self.waiting:
+            # Reap cancelled/expired entries anywhere in the queue; each reap
+            # emits the terminal event streaming consumers are owed.
+            for dropped in [
+                w for w in self.waiting
+                if w.cancel_requested
+                or (w.deadline is not None and now >= w.deadline)
+            ]:
+                self.waiting.remove(dropped)
+                dropped.state = SessionState.CANCELLED
+                if dropped.cancel_requested:
+                    dropped.finish_reason = "cancelled"
+                else:
+                    dropped.finish_reason = "deadline"
+                    self.metrics.counter("sessions_deadline_expired")
+                produced.append((dropped.generation_id, -1, True))
+            candidates = list(self.waiting)
+            if self._admission_order is not None and len(candidates) > 1:
+                # Defensive: a result that is not a permutation of the queue
+                # is discarded — a buggy policy must never lose or invent
+                # sessions.
+                try:
+                    ordered = list(self._admission_order(candidates))
+                except Exception:  # noqa: BLE001 - policy must not kill ticks
+                    ordered = candidates
+                if len(ordered) == len(candidates) and (
+                    {id(x) for x in ordered} == {id(x) for x in candidates}
+                ):
+                    candidates = ordered
+        if candidates and free_slots:
+            # ONE capacity widen for the whole admission burst (the
+            # per-session _ensure_capacity below then no-ops).
+            needs = [
+                len(c.prompt) + 1
+                for c in candidates[: len(free_slots)]
+                if self._capacity_ok(c)
+            ]
+            if needs:
+                self._ensure_capacity(max(needs))
+        ci = 0
+        for slot in free_slots:
+            if ci >= len(candidates):
+                break
+            s = candidates[ci]
+            ci += 1
+            if not self._capacity_ok(s):
+                self.waiting.remove(s)
+                self._finish(s, "capacity", produced)
+                self.metrics.counter("sessions_rejected")
+                continue
+            self._ensure_capacity(len(s.prompt) + 1)
+            need = math.ceil((len(s.prompt) + 1) / self.ccfg.page_size)
+            if need > self.allocator.free_count:
+                break  # pool pressure: hold the queue, retry next tick
+            # Reset the row BEFORE installing pages (reset wipes the row's
+            # page table); the installs are queued and flushed once, right
+            # before the prefill dispatch.
+            self.cache.reset_rows(
+                torch.arange(self.batch, device=self.device) == slot
+            )
+            s.pages = self.allocator.alloc(need)  # owned: _release frees them
+            for i, pg in enumerate(s.pages):
+                self._queue_install(slot, i, pg)
+            self.waiting.remove(s)
+            s.slot = slot
+            s.state = SessionState.ACTIVE
+            self.slots[slot] = s.generation_id
+            admitted.append(s)
+        self._dispatch_prefills(admitted, produced)
+
+    def _dispatch_prefills(self, admitted, produced) -> None:
+        """Prefill freshly admitted sessions: same-bucket groups of >= 2
+        prompts that need no chunking go through ONE batched dispatch each;
+        the rest keep the single-row path."""
+        if not admitted:
+            return
+        singles: List[Session] = []
+        groups: Dict[int, List[Session]] = {}
+        chunk_cap = self._max_chunk()
+        for s in admitted:
+            if len(s.prompt) <= chunk_cap:
+                groups.setdefault(
+                    self._bucket_for(len(s.prompt)), []
+                ).append(s)
+            else:
+                singles.append(s)
+        for bucket, group in groups.items():
+            if len(group) < 2:
+                singles.extend(group)
+                continue
+            while group:
+                self._prefill_group(group[:8], bucket, produced)
+                group = group[8:]
+        for s in singles:
+            # Long greedy prompts may park for chunk/decode co-scheduling
+            # instead of a monolithic synchronous prefill; _chunk_admit draws
+            # the session's key HERE — the same stream position the
+            # synchronous path would consume — so parking never perturbs the
+            # engine's key order.
+            if self._chunk_admit(s):
+                continue
+            self._run_prefill(s, produced)
+
+    def _prefill_group(self, group, bucket, produced) -> None:
+        """One batched prefill dispatch for <= 8 same-bucket sessions. Rows
+        pad to a power of two with placeholder rows (``n_valid = 0``: no
+        write, no delivery)."""
+        self._flush_installs()
+        k = len(group)
+        nr = 2
+        while nr < k:
+            nr *= 2
+        # Padding entries use an OUT-OF-RANGE row: select_rows clamps the
+        # gather, merge_rows drops the write-back.
+        rows = np.full((nr,), self.batch, np.int32)
+        n_valid = np.zeros((nr,), np.int32)
+        # Ragged mode pads every group to ONE width per row count (the group
+        # keeps its bucket-keyed MEMBERSHIP — that is the key partition —
+        # only the pad width changes).
+        width = self.plan.group_shape(bucket, self._max_chunk())
+        tokens = np.zeros((nr, width), np.int32)
+        opts = [SamplingOptions()] * nr
+        for i, s in enumerate(group):
+            rows[i] = s.slot
+            n_valid[i] = len(s.prompt)
+            tokens[i, : len(s.prompt)] = s.prompt
+            opts[i] = s.options
+        sp = SamplingParams.stack(opts, self.device)
+        self.plan.note_dispatch("prefill", (nr, width), int(n_valid.sum()))
+        with self.metrics.timer("prefill"):
+            toks = self._prefill_batch(
+                self._i32(tokens), rows, n_valid, self._next_key(), sp
+            )
+            toks = toks.cpu().numpy()  # the one sync of this admission
+        self.metrics.counter("batched_prefills", k)
+        self.metrics.counter("admit_sync_sessions", k)
+        for i, s in enumerate(group):
+            self._finish_prefill(s, int(toks[i]), produced)
+
+    def _run_prefill(self, s: Session, produced) -> None:
+        """Chunked, padded prefill of one admitted session; samples the
+        first generated token from the final chunk."""
+        self._flush_installs()  # prefill writes through the page table
+        chunk_cap = self._max_chunk()
+        prompt = np.asarray(s.prompt, np.int32)
+        sp = SamplingParams.create(
+            1, s.options.temperature, s.options.top_k, s.options.top_p,
+            self.device,
+        )
+        offset = 0
+        stride = self.plan.prefill_stride(chunk_cap)
+        with self.metrics.timer("prefill"):
+            while len(prompt) - offset > stride:
+                chunk = prompt[offset : offset + stride]
+                self.plan.note_dispatch("chunk", (1, stride), len(chunk))
+                self._prefill_ns(self._i32(chunk[None, :]), s.slot, len(chunk))
+                offset += stride
+            rest = prompt[offset:]
+            width = self.plan.final_shape(len(rest), chunk_cap)
+            padded = np.zeros((1, width), np.int32)
+            padded[0, : len(rest)] = rest
+            self.plan.note_dispatch("prefill", (1, width), len(rest))
+            token = int(self._prefill(
+                self._i32(padded), s.slot, len(rest), self._next_key(), sp
+            ))
+        self.metrics.counter("admit_sync_sessions")
+        self._finish_prefill(s, token, produced)
+
+    def _chunk_admit(self, s: Session) -> bool:
+        """Park an admitted long GREEDY prompt for chunk/decode
+        co-scheduling instead of a monolithic synchronous prefill: the
+        session holds its slot (decode-ineligible) while _chunk_dispatch
+        walks the prompt one ``plan.prefill_stride`` chunk per granted tick
+        beside the live decode batch. Returns False — caller runs the
+        synchronous path — unless eligible (ragged mode on, greedy, long
+        enough, and at least one OTHER live row to ride beside; alone, the
+        standalone prefill is strictly better for TTFT)."""
+        if not self.plan.co_schedule_ok(
+            len(s.prompt), s.options.temperature, self._max_chunk()
+        ):
+            return False
+        # Park only when another row is decode-LIVE (first token already
+        # sampled — a same-tick co-admission that has not prefilled yet does
+        # not count).
+        others = any(
+            gid is not None
+            and gid != s.generation_id
+            and not self.sessions[gid].chunking
+            and self.sessions[gid].generated
+            for gid in self.slots
+        )
+        if not others:
+            return False
+        s.chunking = True
+        s.chunk_off = 0
+        s.chunk_skip = 0
+        # Draw the admission key NOW — the stream position the synchronous
+        # prefill would have consumed — and park it for the final chunk's
+        # sample, so co-scheduling never perturbs the engine's key order.
+        s.parked_key = self._next_key()
+        self._chunking.append(s)
+        return True
+
+    def _chunk_dispatch(self, produced) -> None:
+        """Advance co-scheduled chunked prefills by one chunk per granted
+        tick (``plan.take_chunk_credit`` rations grants at
+        ``chunk_decode_share`` against live decode; full speed when no decode
+        rows remain). Interior chunks are keyless cache writes — the same
+        program the synchronous chunk loop runs — and the final chunk
+        samples the first token with the session's parked admission key."""
+        if not self._chunking:
+            return
+        decode_active = any(
+            gid is not None and not self.sessions[gid].chunking
+            for gid in self.slots
+        )
+        if not self.plan.take_chunk_credit(decode_active):
+            return
+        chunk_cap = self._max_chunk()
+        stride = self.plan.prefill_stride(chunk_cap)
+        for s in list(self._chunking):
+            if s.state is not SessionState.ACTIVE or s.slot is None:
+                # A cancel/deadline reap already released the row (and
+                # cleared the chunking flags) — just drop the parked entry.
+                if s in self._chunking:
+                    self._chunking.remove(s)
+                continue
+            self._flush_installs()  # chunk writes go through the table
+            prompt = np.asarray(s.prompt, np.int32)
+            rest = len(prompt) - s.chunk_off
+            if rest > stride:
+                chunk = prompt[s.chunk_off : s.chunk_off + stride]
+                self.plan.note_dispatch("chunk", (1, stride), len(chunk))
+                with self.metrics.timer("prefill"):
+                    self._prefill_ns(
+                        self._i32(chunk[None, :]), s.slot, len(chunk)
+                    )
+                s.chunk_off += stride
+                self.plan.note_chunk_rows()
+                continue
+            width = self.plan.final_shape(rest, chunk_cap)
+            padded = np.zeros((1, width), np.int32)
+            padded[0, :rest] = prompt[s.chunk_off :]
+            sp = SamplingParams.create(
+                1, s.options.temperature, s.options.top_k, s.options.top_p,
+                self.device,
+            )
+            self.plan.note_dispatch("prefill", (1, width), rest)
+            with self.metrics.timer("prefill"):
+                # int(): the one sync per admission, as in _run_prefill.
+                token = int(self._prefill(
+                    self._i32(padded), s.slot, rest, s.parked_key, sp
+                ))
+            self.plan.note_chunk_rows()
+            s.chunking = False
+            s.parked_key = None
+            self._chunking.remove(s)
+            self.metrics.counter("admit_sync_sessions")
+            self._finish_prefill(s, token, produced)
+
+    def _finish_prefill(self, s, token, produced):
+        self._deliver(s, int(token), produced)
+        self.metrics.counter("prefill_tokens", len(s.prompt))
+
+    def _decode_tick(self, produced) -> None:
+        tokens = np.zeros((self.batch, 1), np.int32)
+        opts: List[SamplingOptions] = [SamplingOptions()] * self.batch
+        # Per-row token budget for this tick (0 or 1): remaining
+        # max_new_tokens and page capacity. Page tables grow to cover it
+        # before the step.
+        budget = np.zeros((self.batch,), np.int32)
+        for slot, gid in enumerate(self.slots):
+            if gid is None:
+                continue
+            s = self.sessions[gid]
+            if s.chunking:  # mid chunked-prefill: not decode-eligible
+                continue
+            tokens[slot, 0] = s.last_token
+            opts[slot] = s.options
+            want = min(1, s.options.max_new_tokens - len(s.generated))
+            cap = self._grow_pages_for(s, want, produced)
+            if cap is None:
+                continue
+            budget[slot] = min(want, cap - s.total_len)
+
+        # Chunking rows hold slots but must NOT be decode-written (their
+        # rows are mid-prefill; a decode write would land at the chunk
+        # offset and corrupt the prompt KV).
+        active = np.array(
+            [
+                self.slots[i] is not None
+                and not self.sessions[self.slots[i]].chunking
+                for i in range(self.batch)
+            ],
+            np.bool_,
+        )
+        if not active.any():
+            return
+
+        if self._windows:
+            self._ensure_capacity(max(
+                self.sessions[g].total_len + int(budget[i])
+                for i, g in enumerate(self.slots) if g is not None
+            ))
+
+        sp = SamplingParams.stack(opts, self.device)
+        self._flush_installs()
+        self.plan.note_dispatch(
+            "decode", (self.batch, 1, self.cache.page_table.shape[1])
+        )
+        with self.metrics.timer("decode_step"):
+            next_tokens = self._decode(
+                self._i32(tokens),
+                torch.as_tensor(active, device=self.device),
+                self._next_key(), sp,
+            )
+            emitted = next_tokens.cpu().numpy()  # the one per-tick fetch
+
+        delivered = 0
+        for slot, gid in enumerate(list(self.slots)):
+            if gid is None or not active[slot]:
+                continue
+            s = self.sessions[gid]
+            if budget[slot] and s.state == SessionState.ACTIVE:
+                self._deliver(s, int(emitted[slot]), produced)
+                delivered += 1
+        self.metrics.counter("decode_tokens", delivered)
+
+    def _grow_pages(self, s: Session, want: int) -> int:
+        """Grow ``s``'s page run to cover ``want`` more tokens (best
+        effort); returns the mapped capacity."""
+        ps = self.ccfg.page_size
+        while len(s.pages) * ps < s.total_len + want:
+            if (
+                len(s.pages) >= self.ccfg.max_pages_per_session
+                or self.allocator.free_count == 0
+            ):
+                break
+            # Widen the page table first: the new slot index must exist.
+            self._ensure_capacity(len(s.pages) * ps + 1)
+            new = self.allocator.alloc(1)
+            self._queue_install(s.slot, len(s.pages), new[0])
+            s.pages.extend(new)
+        return len(s.pages) * ps
+
+    def _grow_pages_for(self, s: Session, want: int, produced) -> Optional[int]:
+        """:meth:`_grow_pages` plus the tick's rule: a session without room
+        for even one more token finishes (capacity)."""
+        cap = self._grow_pages(s, want)
+        if s.total_len + 1 > cap:
+            self._finish(s, "capacity", produced)
+            return None
+        return cap
+
+    def _deliver(self, s: Session, token: int, produced) -> None:
+        if s.cancel_requested or s.state == SessionState.CANCELLED:
+            return  # cancelled mid-step; the scheduler reaps the slot next tick
+        s.record_token(token)
+        done_eos = token == s.options.eos_token_id
+        done_len = len(s.generated) >= s.options.max_new_tokens
+        if done_eos or done_len:
+            self._finish(s, "eos" if done_eos else "length", produced, token_emitted=token)
+        else:
+            produced.append((s.generation_id, token, False))
+
+    def _finish(self, s: Session, reason: str, produced, token_emitted=None) -> None:
+        s.state = SessionState.FINISHED
+        s.finish_reason = reason
+        s.finish_time = time.monotonic()
+        # -1 = finish without a new token (the last real token was already
+        # streamed on a prior step); consumers must not append it.
+        produced.append(
+            (s.generation_id, token_emitted if token_emitted is not None else -1, True)
+        )
+        self._release(s)
+        self.metrics.counter("sessions_finished")
+
+    def _release(self, s: Session) -> None:
+        if s.chunking:
+            s.chunking = False
+            s.parked_key = None
+        if s in self._chunking:
+            self._chunking.remove(s)
+        if s.slot is not None:
+            self.slots[s.slot] = None
+            s.slot = None
+        if s.pages:
+            self.allocator.free(s.pages)
+            s.pages = []

@@ -1,0 +1,284 @@
+"""Llama-family decoder stack as plain functions on tensors (counterpart of
+the JAX package's ``models/llama.py``, dense per-head attention branch).
+
+Parameters are a plain dict of tensors with every decoder layer's weights
+STACKED on a leading layer axis, as in the JAX package:
+``embed [V, H]``, ``layers.{attn_norm, wq, wk, wv, wo, mlp_norm, wg, wu, wd
+[, bq, bk, bv]} [L, ...]``, ``final_norm [H]``, optional ``lm_head [H, V]``.
+All projections are stored ``[in_features, out_features]`` so the forward is
+plain ``x @ w``. ``block_apply`` walks the layer axis in a Python loop (the
+JAX package scans it) and hands each layer its own slice of the cache's page
+pool, which the cache updates in place.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping, Optional, Tuple, Union
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..config import ModelConfig
+from ..ops.attention import gqa_attention
+from ..ops.norms import rms_norm
+from ..ops.rotary import RopeAngles, rope_cos_sin, rope_inv_freq
+from ..utils.device import resolve_device
+
+Params = Dict[str, Any]
+
+
+def _require_dense(cfg: ModelConfig) -> None:
+    if cfg.use_latent:
+        raise NotImplementedError(
+            "latent (MLA) attention is not ported yet (ROADMAP.md queue 1, "
+            "item 10)"
+        )
+    if cfg.num_experts > 0:
+        raise NotImplementedError(
+            "MoE layers are not ported yet (ROADMAP.md queue 1, item 8)"
+        )
+
+
+# ---------------------------------------------------------------------------
+# Initialization
+# ---------------------------------------------------------------------------
+
+
+def _normal_stack(gen, num_layers, shape, dtype, device):
+    """``[num_layers, *shape]`` normal(0, 0.02) weights, drawn one layer at a
+    time in f32 so the temporary stays one layer large."""
+    out = torch.empty((num_layers, *shape), dtype=dtype, device=device)
+    for i in range(num_layers):
+        out[i] = torch.randn(
+            shape, generator=gen, dtype=torch.float32, device=device
+        ) * 0.02
+    return out
+
+
+def init_layer_params(
+    cfg: ModelConfig,
+    generator: Optional[torch.Generator],
+    num_layers: int,
+    dtype=torch.bfloat16,
+    device: Union[str, torch.device] = "cuda",
+) -> Params:
+    """Random (normal 0.02) stacked parameters for ``num_layers`` layers."""
+    _require_dense(cfg)
+    dev = resolve_device(device)
+    gen = generator if generator is not None else _default_generator(dev)
+    h, d = cfg.hidden_size, cfg.head_dim
+    hq, hkv, inter = cfg.num_heads, cfg.num_kv_heads, cfg.intermediate_size
+
+    def w(*shape):
+        return _normal_stack(gen, num_layers, shape, dtype, dev)
+
+    p = {
+        "attn_norm": torch.ones((num_layers, h), dtype=dtype, device=dev),
+        "wq": w(h, hq * d),
+        "wk": w(h, hkv * d),
+        "wv": w(h, hkv * d),
+        "wo": w(hq * d, h),
+        "mlp_norm": torch.ones((num_layers, h), dtype=dtype, device=dev),
+        "wg": w(h, inter),
+        "wu": w(h, inter),
+        "wd": w(inter, h),
+    }
+    if cfg.qkv_bias:
+        p["bq"] = torch.zeros((num_layers, hq * d), dtype=dtype, device=dev)
+        p["bk"] = torch.zeros((num_layers, hkv * d), dtype=dtype, device=dev)
+        p["bv"] = torch.zeros((num_layers, hkv * d), dtype=dtype, device=dev)
+    return p
+
+
+def _default_generator(dev: torch.device) -> torch.Generator:
+    return torch.Generator(device=dev).manual_seed(0)
+
+
+def init_params(
+    cfg: ModelConfig,
+    generator: Optional[torch.Generator] = None,
+    dtype=torch.bfloat16,
+    device: Union[str, torch.device] = "cuda",
+) -> Params:
+    """Full-model parameters (embedding + stacked layers + head), drawn from
+    ``generator`` (a ``torch.Generator`` on ``device``; seed 0 when None)."""
+    dev = resolve_device(device)
+    gen = generator if generator is not None else _default_generator(dev)
+    params: Params = {
+        "embed": _normal_stack(
+            gen, 1, (cfg.vocab_size, cfg.hidden_size), dtype, dev
+        )[0],
+        "layers": init_layer_params(cfg, gen, cfg.num_layers, dtype, dev),
+        "final_norm": torch.ones((cfg.hidden_size,), dtype=dtype, device=dev),
+    }
+    if not cfg.tie_word_embeddings:
+        params["lm_head"] = _normal_stack(
+            gen, 1, (cfg.hidden_size, cfg.vocab_size), dtype, dev
+        )[0]
+    return params
+
+
+def params_from_numpy(
+    cfg: ModelConfig,
+    tree: Mapping[str, Any],
+    dtype=torch.bfloat16,
+    device: Union[str, torch.device] = "cuda",
+) -> Params:
+    """The port's parameters from the JAX package's parameter tree given as
+    numpy arrays (same keys, same ``[in, out]`` layout, layers stacked
+    ``[L, ...]``): a straight copy onto ``device`` in ``dtype``."""
+    _require_dense(cfg)
+    dev = resolve_device(device)
+
+    def conv(a):
+        return torch.tensor(np.asarray(a)).to(device=dev, dtype=dtype)
+
+    want = {"attn_norm", "wq", "wk", "wv", "wo", "mlp_norm", "wg", "wu", "wd"}
+    layers = {k: conv(v) for k, v in tree["layers"].items()}
+    missing = want - set(layers)
+    if missing:
+        raise ValueError(f"parameter tree lacks layer weights {sorted(missing)}")
+    extra = set(layers) - want - {"bq", "bk", "bv"}
+    if extra:
+        raise NotImplementedError(
+            f"layer weights {sorted(extra)} belong to a family that is not "
+            "ported yet (ROADMAP.md queue 1, items 8 and 10)"
+        )
+    if layers["wq"].shape[0] != cfg.num_layers:
+        raise ValueError(
+            f"tree has {layers['wq'].shape[0]} layers, config {cfg.num_layers}"
+        )
+    params: Params = {
+        "embed": conv(tree["embed"]),
+        "layers": layers,
+        "final_norm": conv(tree["final_norm"]),
+    }
+    if tree.get("lm_head") is not None:
+        params["lm_head"] = conv(tree["lm_head"])
+    return params
+
+
+# ---------------------------------------------------------------------------
+# Forward
+# ---------------------------------------------------------------------------
+
+
+def _decoder_layer(
+    cfg: ModelConfig,
+    p: Params,
+    x: torch.Tensor,
+    layer_state: Tuple[torch.Tensor, ...],
+    cache,
+    rope: RopeAngles,
+    q_pos: torch.Tensor,
+    num_new: torch.Tensor,
+    attention_fn=gqa_attention,
+) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
+    """One decoder layer: pre-norm attention + pre-norm SwiGLU MLP."""
+    b, s, _ = x.shape
+    hq, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+
+    h = rms_norm(x, p["attn_norm"], cfg.rms_norm_eps)
+    q = h @ p["wq"]
+    k = h @ p["wk"]
+    v = h @ p["wv"]
+    # Biases applied iff the checkpoint carries them (HF `attention_bias`).
+    if "bq" in p:
+        q = q + p["bq"]
+        k = k + p["bk"]
+        v = v + p["bv"]
+    q = q.reshape(b, s, hq, d)
+    k = k.reshape(b, s, hkv, d)
+    v = v.reshape(b, s, hkv, d)
+
+    attn, new_state = cache.attend(
+        layer_state, q, k, v, rope, q_pos, num_new,
+        cfg.sliding_window, attention_fn, d**-0.5,
+    )
+    x = x + attn.reshape(b, s, hq * d) @ p["wo"]
+    return _mlp_residual(cfg, p, x), new_state
+
+
+def _mlp_residual(cfg, p, x):
+    """Pre-norm SwiGLU MLP + residual."""
+    h2 = rms_norm(x, p["mlp_norm"], cfg.rms_norm_eps)
+    return x + (F.silu(h2 @ p["wg"]) * (h2 @ p["wu"])) @ p["wd"]
+
+
+def block_apply(
+    cfg: ModelConfig,
+    layer_params: Params,
+    x: torch.Tensor,
+    cache,
+    num_new: torch.Tensor,
+    attention_fn=gqa_attention,
+):
+    """Run a block of decoder layers over hidden states: hidden states in,
+    hidden states out. ``cache`` holds stacked per-layer pools with leading
+    dim equal to this block's layer count; layer ``i`` gets the views
+    ``stack[i]`` and writes its new k/v into them in place.
+
+    Returns ``(x, cache)`` — the same cache object, lengths NOT advanced
+    (call ``cache.advance(num_new)`` after the last block of the model so
+    that several blocks of one pipeline see consistent write offsets).
+    """
+    _require_dense(cfg)
+    inv_freq = rope_inv_freq(
+        cfg.head_dim, cfg.rope_theta, cfg.rope_scaling, device=x.device
+    )
+    q_pos = cache.q_positions(x.shape[1])
+    rot_pos = cache.rope_positions(x.shape[1], num_new)
+    cos, sin = rope_cos_sin(rot_pos, inv_freq)
+    rope = RopeAngles(inv_freq, cos, sin)
+
+    stacks = cache.layer_stacks  # tuple of [L, ...] tensors
+    for i in range(stacks[0].shape[0]):
+        p = {name: w[i] for name, w in layer_params.items()}
+        layer_state = tuple(stack[i] for stack in stacks)
+        x, _ = _decoder_layer(
+            cfg, p, x, layer_state, cache, rope, q_pos, num_new, attention_fn
+        )
+    return x, cache
+
+
+def model_apply(
+    cfg: ModelConfig,
+    params: Params,
+    tokens: torch.Tensor,
+    cache,
+    num_new: torch.Tensor,
+    attention_fn=gqa_attention,
+    head: str = "all",
+):
+    """Full model forward: embed → layers → final norm → logits.
+
+    Returns ``(logits, cache)`` with the cache advanced by ``num_new``.
+    ``head``: "all" computes logits at every position (``[B, S, V]``);
+    "last" only at each row's final valid position ``max(num_new - 1, 0)``
+    (``[B, 1, V]`` — a prefill only samples there; a row with
+    ``num_new == 0`` still yields a token's worth of logits, which callers
+    discard); "none" skips the head (chunked-prefill interiors), returning
+    ``None`` logits.
+    """
+    x = F.embedding(tokens.long(), params["embed"])
+    x, cache = block_apply(
+        cfg, params["layers"], x, cache, num_new, attention_fn
+    )
+    if head == "none":
+        return None, cache.advance(num_new)
+    if head == "last":
+        idx = (num_new - 1).clamp_min(0).long()[:, None, None]
+        x = torch.gather(x, 1, idx.expand(-1, 1, x.shape[-1]))
+    logits = apply_head(cfg, params, x)
+    return logits, cache.advance(num_new)
+
+
+def apply_head(cfg: ModelConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
+    """Final norm + lm_head (tied to the embedding when absent): ``[..., H]``
+    hidden states → fp32 logits ``[..., V]``."""
+    x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
+    head = params.get("lm_head")
+    if head is None:
+        head = params["embed"].T
+    return (x @ head).float()

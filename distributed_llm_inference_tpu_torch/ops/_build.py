@@ -1,0 +1,93 @@
+"""Build and load the port's CUDA kernels (no JAX counterpart: Pallas kernels
+are traced by JAX itself).
+
+Each ``csrc/<name>.cu`` has a plain C interface and includes no PyTorch
+header, so ``nvcc`` compiles it in seconds. The shared library lands in a
+directory ``build/`` beside the package, named by a hash of the source and
+the flags, at first use; ``ctypes`` loads it. Nothing here runs at import time: the CPU tests import every module on a
+machine with no compiler.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict, Sequence, Tuple
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = CSRC.parent.parent / "build"
+KERNEL_SOURCES = ("paged_attention", "ragged_attention")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC",
+)
+
+_libs: Dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if root and (Path(root) / "bin" / "nvcc").exists():
+            return str(Path(root) / "bin" / "nvcc")
+    raise RuntimeError(
+        "nvcc not found (looked on PATH, $CUDA_HOME and /usr/local/cuda): "
+        "the CUDA kernels cannot be built here"
+    )
+
+
+def _target(name: str) -> Tuple[Path, Path]:
+    src = CSRC / f"{name}.cu"
+    digest = hashlib.sha256(
+        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+    ).hexdigest()[:16]
+    return src, BUILD_DIR / f"lib{name}_{digest}.so"
+
+
+def _finish(name: str, proc: subprocess.Popen, tmp: Path, out: Path) -> None:
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed for {name}.cu (exit {proc.returncode}):\n"
+            + log.decode(errors="replace")
+        )
+    os.replace(tmp, out)  # atomic: a concurrent process sees all or nothing
+
+
+def build_all(names: Sequence[str] = KERNEL_SOURCES) -> Dict[str, Path]:
+    """Compile every missing library, one ``nvcc`` process per source, all
+    started together. Returns ``{name: library path}``."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    started = []
+    paths: Dict[str, Path] = {}
+    for name in names:
+        src, out = _target(name)
+        paths[name] = out
+        if out.exists():
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        proc = subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+            stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT,
+        )
+        started.append((name, proc, tmp, out))
+    for item in started:
+        _finish(*item)
+    return paths
+
+
+def load_library(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, built first if its hash is
+    not in the build directory yet."""
+    lib = _libs.get(name)
+    if lib is None:
+        lib = ctypes.CDLL(str(build_all([name])[name]))
+        _libs[name] = lib
+    return lib

@@ -1,0 +1,133 @@
+"""Plain GQA attention and mask construction (counterpart of the JAX
+package's ``ops/attention.py``).
+
+The always-correct gather path of the caches, and the oracle the kernels'
+plain versions are held against.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+# Finite on purpose (not ``-inf``): a fully masked row then softmaxes to a
+# uniform row that the mask zeroes again, instead of NaN.
+_NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
+
+
+def causal_mask(
+    q_positions: torch.Tensor,
+    kv_positions: torch.Tensor,
+    kv_valid: Optional[torch.Tensor] = None,
+    sliding_window: Optional[int] = None,
+) -> torch.Tensor:
+    """Boolean attend-mask ``[..., S, T]`` from per-token positions.
+
+    ``q_positions``: ``[..., S]``; ``kv_positions``: ``[..., T]``;
+    ``kv_valid``: optional ``[..., T]`` slot validity; ``sliding_window``:
+    key visible iff ``q_pos - w < k_pos <= q_pos``.
+    """
+    q = q_positions[..., :, None]
+    k = kv_positions[..., None, :]
+    mask = k <= q
+    if sliding_window is not None:
+        mask = mask & (k > (q - sliding_window))
+    if kv_valid is not None:
+        mask = mask & kv_valid[..., None, :]
+    return mask
+
+
+def gqa_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    mask: Optional[torch.Tensor] = None,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Grouped-query attention.
+
+    ``q``: ``[B, S, Hq, D]``; ``k``/``v``: ``[B, T, Hkv, D]`` with
+    ``Hq = G * Hkv``. ``mask``: boolean ``[B, S, T]`` or ``[B, 1, S, T]``
+    (True = attend). Returns ``[B, S, Hq, D]`` in q's dtype; scores and
+    softmax in fp32.
+    """
+    b, s, hq, d = q.shape
+    hkv = k.shape[2]
+    g = hq // hkv
+    if scale is None:
+        scale = d**-0.5
+
+    qg = q.reshape(b, s, hkv, g, d)
+    # [B, Hkv, G, S, T]
+    scores = torch.einsum("bskgd,btkd->bkgst", qg.float(), k.float()) * scale
+
+    m = None
+    if mask is not None:
+        if mask.ndim == 3:
+            m = mask[:, None, None, :, :]
+        elif mask.ndim == 4:  # [B, 1, S, T]
+            m = mask[:, :, None, :, :]
+        else:
+            raise ValueError(f"mask ndim {mask.ndim}")
+        scores = torch.where(m, scores, _NEG_INF)
+
+    weights = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
+    if m is not None:
+        # Fully masked rows (padded slots) come out as zeros.
+        weights = torch.where(m, weights, 0.0)
+    denom = weights.sum(dim=-1, keepdim=True)
+    weights = weights / denom.clamp_min(1e-20)
+
+    out = torch.einsum(
+        "bkgst,btkd->bskgd", weights.to(v.dtype).float(), v.float()
+    )
+    return out.reshape(b, s, hq, d).to(q.dtype)
+
+
+def merge_softmax_segments(
+    q: torch.Tensor,
+    out_a: torch.Tensor,
+    m_a: torch.Tensor,
+    l_a: torch.Tensor,
+    k_tail: torch.Tensor,
+    v_tail: torch.Tensor,
+    tail_valid: torch.Tensor,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Joint softmax of a pre-computed attention segment with a small tail.
+
+    ``out_a`` (``[B, 1, Hq, D]``, already normalized) with online-softmax
+    stats ``m_a``/``l_a`` (``[B, Hkv, G]``) comes from ``paged_attention``
+    with ``return_stats``; the tail segment (``k_tail``/``v_tail``
+    ``[B, K, Hkv, D]``, ``tail_valid`` ``[B, K]``) holds fresh tokens. The
+    flash-attention merge: exact, not an approximation.
+    """
+    b, s, hq, d = q.shape
+    hkv = k_tail.shape[2]
+    g = hq // hkv
+    if scale is None:
+        scale = d**-0.5
+    qg = q.reshape(b, s, hkv, g, d)
+
+    sc = torch.einsum("bskgd,btkd->bkgst", qg.float(), k_tail.float()) * scale
+    mask = tail_valid[:, None, None, None, :]
+    sc = torch.where(mask, sc, _NEG_INF)                 # [B, Hkv, G, 1, K]
+    m_t = sc.amax(dim=-1)                                # [B, Hkv, G, 1]
+    w = torch.where(mask, torch.exp(sc - m_t[..., None]), 0.0)
+    l_t = w.sum(dim=-1)
+    pv_t = torch.einsum(
+        "bkgst,btkd->bskgd", w.to(v_tail.dtype).float(), v_tail.float()
+    )                                                    # [B, 1, Hkv, G, D]
+    out_t = pv_t / l_t.clamp_min(1e-20).reshape(b, 1, hkv, g, 1)
+
+    m_t = m_t[..., 0]
+    l_t = l_t[..., 0]
+    m = torch.maximum(m_a, m_t)                          # [B, Hkv, G]
+    w_a = l_a * torch.exp(m_a - m)
+    w_t = l_t * torch.exp(m_t - m)
+    denom = (w_a + w_t).clamp_min(1e-20)
+    fa = (w_a / denom)[:, None, :, :, None]
+    ft = (w_t / denom)[:, None, :, :, None]
+    out = out_a.reshape(b, s, hkv, g, d).float() * fa + out_t * ft
+    return out.reshape(b, s, hq, d).to(q.dtype)

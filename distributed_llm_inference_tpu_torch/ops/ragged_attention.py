@@ -1,0 +1,204 @@
+"""Ragged mixed-phase paged attention: a CUDA kernel that serves prefill,
+chunked-prefill and decode rows in one launch, and its plain PyTorch version.
+
+Replaces the TPU kernel ``_ragged_kernel`` behind ``ragged_paged_attention``
+in the JAX package's ``ops/ragged_attention.py``. On this card the function
+is bound by operations (the products Q K^T and P V), so
+``csrc/ragged_attention.cu`` cuts the work to what the data needs: a block
+per (query tile, kv head, row) stops at its tile's causal frontier, tiles of
+pad queries exit at once, and pages are read in place (no contiguous
+gather copy). The products run on the tensor cores (``mma.sync``) for bf16
+and as register-tiled f32 FMAs for f32, which the engine's exact-parity
+checks need.
+
+The wrapper launches the kernel for CUDA tensors and raises on anything the
+kernel does not take; it uses the plain version only for tensors that lie on
+the CPU. ``launches`` counts kernel launches (and nothing else).
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from . import _build
+from .attention import _NEG_INF
+from .paged_attention import check_kernel_inputs, gather_pages
+
+__all__ = [
+    "ragged_paged_attention",
+    "ragged_paged_attention_plain",
+    "ragged_attention_reference",
+    "launches",
+]
+
+# Kernel launches made by :func:`ragged_paged_attention` in this process.
+launches = 0
+
+_fn = None
+
+
+def _kernel():
+    global _fn
+    if _fn is None:
+        fn = _build.load_library("ragged_attention").dli_ragged_paged_attention
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [
+            ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ]
+        fn.restype = ctypes.c_int
+        _fn = fn
+    return _fn
+
+
+def ragged_paged_attention_plain(
+    q: torch.Tensor,
+    k_pages: torch.Tensor,
+    v_pages: torch.Tensor,
+    page_table: torch.Tensor,
+    kv_lengths: torch.Tensor,
+    num_new: torch.Tensor,
+    q_start: Optional[torch.Tensor] = None,
+    scale: Optional[float] = None,
+    sliding_window: Optional[int] = None,
+):
+    """Plain PyTorch version of :func:`ragged_paged_attention`: gather the
+    row's pages, mask per (query, slot), softmax in f32; pad queries and
+    empty rows give zeros. Same arguments and result."""
+    b, s, hq, d = q.shape
+    hkv = k_pages.shape[1]
+    g = hq // hkv
+    if scale is None:
+        scale = d**-0.5
+    if q_start is None:
+        q_start = kv_lengths - num_new
+
+    k = gather_pages(k_pages, page_table).float()      # [B, KV, Hkv, D]
+    v = gather_pages(v_pages, page_table).float()
+    qr = q.reshape(b, s, hkv, g, d).float()
+    scores = torch.einsum("bshgd,bthd->bhgst", qr, k) * scale
+
+    q_rel = torch.arange(s, device=q.device)[None, :]            # [1, S]
+    q_pos = q_start[:, None] + q_rel                             # [B, S]
+    pos = torch.arange(k.shape[1], device=q.device)[None, None, :]
+    valid = (
+        (pos < kv_lengths[:, None, None])
+        & (pos <= q_pos[:, :, None])
+        & (q_rel < num_new[:, None])[:, :, None]
+    )                                                            # [B, S, KV]
+    if sliding_window is not None:
+        valid = valid & (pos > q_pos[:, :, None] - sliding_window)
+    valid = valid[:, None, None]
+    scores = torch.where(valid, scores, _NEG_INF)
+    m = scores.amax(dim=-1, keepdim=True)
+    p = torch.where(valid, torch.exp(scores - m), 0.0)
+    l = p.sum(dim=-1, keepdim=True)
+    out = torch.einsum("bhgst,bthd->bshgd", p / l.clamp_min(1e-20), v)
+    return out.reshape(b, s, hq, d).to(q.dtype)
+
+
+def ragged_paged_attention(
+    q: torch.Tensor,
+    k_pages: torch.Tensor,
+    v_pages: torch.Tensor,
+    page_table: torch.Tensor,
+    kv_lengths: torch.Tensor,
+    num_new: torch.Tensor,
+    q_start: Optional[torch.Tensor] = None,
+    scale: Optional[float] = None,
+    sliding_window: Optional[int] = None,
+    block_q: Optional[int] = None,
+):
+    """Ragged mixed-phase attention straight over the page pool.
+
+    ``q``: ``[B, S, Hq, D]`` (already rotated; row ``b``'s first
+    ``num_new[b]`` tokens are real, the rest pad); ``k_pages``/``v_pages``:
+    ``[P, Hkv, page_size, D]`` one layer's pool, keys stored rotated;
+    ``page_table``: ``[B, T]`` int32 physical page ids (0 = null page);
+    ``kv_lengths``: ``[B]`` int32 live kv per row INCLUDING this call's
+    scattered tokens; ``num_new``: ``[B]`` int32 valid query count per row
+    (1 = decode row, a chunk, or a full prompt); ``q_start``: ``[B]`` int32
+    absolute position of each row's first query (defaults to
+    ``kv_lengths - num_new``). Returns ``[B, S, Hq, D]`` with pad query rows
+    zeroed. ``block_q`` is accepted for signature parity with the JAX
+    function; the CUDA kernel fixes its own query tile (64 score rows).
+    """
+    global launches
+    del block_q
+    if q.device.type == "cpu":
+        return ragged_paged_attention_plain(
+            q, k_pages, v_pages, page_table, kv_lengths, num_new, q_start,
+            scale, sliding_window,
+        )
+    if q.device.type != "cuda":
+        raise ValueError(f"ragged_paged_attention: unsupported device {q.device}")
+    if q_start is None:
+        q_start = kv_lengths - num_new
+    code = check_kernel_inputs(
+        "ragged_paged_attention", q, k_pages, v_pages, page_table,
+        (("kv_lengths", kv_lengths), ("num_new", num_new),
+         ("q_start", q_start)),
+    )
+    b, s, hq, d = q.shape
+    _, hkv, page_size, _ = k_pages.shape
+    if scale is None:
+        scale = d**-0.5
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _kernel()(
+            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            page_table.data_ptr(), kv_lengths.data_ptr(), q_start.data_ptr(),
+            num_new.data_ptr(), out.data_ptr(), b, s, hkv, hq // hkv, d,
+            page_size, page_table.shape[1], float(scale),
+            int(sliding_window or 0), code, stream,
+        )
+    if err != 0:
+        raise RuntimeError(
+            f"ragged_paged_attention: kernel launch failed ({err})"
+        )
+    launches += 1
+    return out
+
+
+def ragged_attention_reference(
+    q: torch.Tensor,
+    k_pages: torch.Tensor,
+    v_pages: torch.Tensor,
+    page_table: torch.Tensor,
+    kv_lengths: torch.Tensor,
+    num_new: torch.Tensor,
+    q_start: Optional[torch.Tensor] = None,
+    scale: Optional[float] = None,
+    sliding_window: Optional[int] = None,
+):
+    """Oracle as the JAX file has it: contiguous gather, masked
+    ``softmax`` over every slot, pad query rows zeroed afterwards. (The int8
+    scale planes of the JAX oracle come with the quantized kernels.)"""
+    b, s, hq, d = q.shape
+    hkv = k_pages.shape[1]
+    g = hq // hkv
+    if scale is None:
+        scale = d**-0.5
+    if q_start is None:
+        q_start = kv_lengths - num_new
+
+    k = gather_pages(k_pages, page_table).float()
+    v = gather_pages(v_pages, page_table).float()
+    qr = q.reshape(b, s, hkv, g, d).float()
+    scores = torch.einsum("bshgd,bthd->bhgst", qr, k) * scale
+
+    q_pos = q_start[:, None] + torch.arange(s, device=q.device)[None, :]
+    kv_pos = torch.arange(k.shape[1], device=q.device)[None, :]
+    valid = (kv_pos[:, None, :] <= q_pos[:, :, None]) & (
+        kv_pos[:, None, :] < kv_lengths[:, None, None]
+    )
+    if sliding_window is not None:
+        valid = valid & (kv_pos[:, None, :] > q_pos[:, :, None] - sliding_window)
+    scores = torch.where(valid[:, None, None], scores, _NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhgst,bthd->bshgd", probs, v)
+    q_valid = torch.arange(s, device=q.device)[None, :] < num_new[:, None]
+    out = torch.where(q_valid[..., None, None, None], out, 0.0)
+    return out.reshape(b, s, hq, d).to(q.dtype)

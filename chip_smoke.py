@@ -7,34 +7,45 @@ Run it from the repository root with no arguments:
 
 It needs one CUDA device and `nvcc`; with no device it exits non-zero and
 prints no result. It imports only the port (`distributed_llm_inference_tpu_torch`),
-builds both CUDA kernels from `csrc/` into `build/`, and runs four phases, one
-JSON line each:
+builds the CUDA kernels from `csrc/` into `build/` (one `nvcc` per source, all
+started together), and runs four phases, one JSON line each (phase 3 one
+line per engine configuration):
 
 1. device   - the card's name and power limit, as `nvidia-smi` gives them.
-2. kernels  - `paged_attention` and `ragged_paged_attention` at Llama-3-8B
-              shapes (32 query heads, 8 kv heads, head_dim 128, page size 64),
-              in bf16 and f32, against their plain PyTorch versions on the
-              card, each case with its tolerance (and once as MHA, the other
-              grouping the kernels are built for); then, at one decode and
-              one prefill shape, each kernel's output against the plain
-              version's on the same inputs and its time beside the plain
-              version, one `scaled_dot_product_attention` call (a yardstick
-              only) and the card's bound for the same work.
-3. engine   - `InferenceEngine` at the full width and depth of Llama-3-8B in
-              bf16 with random seeded weights: 12 greedy prompts queue for 8
-              slots, then a 3000-token greedy prompt chunk-admits beside live
-              decode, two sampled prompts ride along, one stream is cancelled.
-              The run is made twice with the same seed and must repeat itself.
-              The kernels' launch counters are zeroed before the first run
-              and read after it. Every attention dispatch shape that run
-              made (rows, token width, page-table width) is then given to
-              both kernels again, in bf16 and f32 with mixed lengths, and
-              held against the plain versions. A few decode ticks and
-              prefill dispatches are profiled for the device's idle share
-              and the kernels that take the time.
-4. parity   - the same engine at 2 layers in f32 (TF32 off), once through the
+2. kernels  - every kernel against its plain PyTorch version on the card, in
+              bf16 and f32, each case with its tolerance: `paged_attention`,
+              `ragged_paged_attention` and their int8-page forms
+              `quantized_paged_attention`, `quantized_ragged_paged_attention`
+              at Llama-3-8B shapes (32 query heads, 8 kv heads, head_dim 128,
+              page size 64; once as MHA too), mixed lengths and an empty row;
+              `int4_matmul` and `int4_matmul_stacked` at the model's
+              projection shapes and odd ones. Then, at the shapes of the main
+              path, each kernel's output against the plain version's on the
+              same inputs and its time beside the plain version's, a library
+              yardstick where one PyTorch call computes the same function
+              (`scaled_dot_product_attention` on contiguous K/V; for the int4
+              matmuls there is none: a bf16 `torch.matmul` on the dequantized
+              weight is shown as a yardstick of its own) and the card's bound
+              for the same work.
+3. engine   - `InferenceEngine` at the full width and depth of Llama-3-8B
+              with random seeded weights, twice: in bf16, and with int4
+              weights over the int8 page pool (the quantized deployment).
+              The traffic: 12 greedy prompts queue for 8 slots, then a
+              3000-token greedy prompt chunk-admits beside live decode, two
+              sampled prompts ride along, one stream is cancelled. Each
+              configuration runs twice with the same seed and must repeat
+              itself; the launch counters of its kernels are zeroed before its
+              first run and read after it. Every dispatch shape that run made
+              is then given to its kernels again, in bf16 and f32 with mixed
+              lengths, and held against the plain versions. A few decode
+              ticks and prefill dispatches are profiled for the device's idle
+              share and the kernels that take the time. A third, shorter run
+              serves int8 weights over the int8 pool (4 layers at full
+              width), whose prefill projections take the int8 x int8 product.
+4. parity   - 2 layers of the same widths in f32 (TF32 off), once through the
               kernels and once through the gather path: identical greedy
-              streams.
+              streams, for the bf16 pool and for int4 weights over the int8
+              pool.
 
 Then a line `{"kernels": [...]}` with one entry per kernel (the only line
 with that key: phase 2 lists its results under `checked`), and the last line
@@ -62,8 +73,10 @@ from distributed_llm_inference_tpu_torch.config import (
 from distributed_llm_inference_tpu_torch.engine.engine import InferenceEngine
 from distributed_llm_inference_tpu_torch.engine.sampling import SamplingOptions
 from distributed_llm_inference_tpu_torch.models import llama
-from distributed_llm_inference_tpu_torch.ops import _build
+from distributed_llm_inference_tpu_torch.cache.dense import _quantize_kv
+from distributed_llm_inference_tpu_torch.ops import _build, quant
 from distributed_llm_inference_tpu_torch.ops import paged_attention as pa
+from distributed_llm_inference_tpu_torch.ops import quant_matmul as qm
 from distributed_llm_inference_tpu_torch.ops import ragged_attention as ra
 
 # bench.py:48 LLAMA3_8B of the JAX package's benchmark, restated.
@@ -85,8 +98,22 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 # bf16: the kernel and the plain version both accumulate in f32 from the same
 # bf16 inputs and round once at the end, in another order of summation, so
 # they differ by at most one bf16 step of an output of magnitude < 4 (2^-6).
+# The int8-page forms add one rounding of p * vs to bf16 before P V (the TPU
+# kernel keeps it in f32), 2^-9 relative per term, averaging out over the
+# slots: still inside the same bound.
 # f32: only the order of summation differs.
 TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
+# int4 matmuls, relative to max |out|. bf16: products of bf16 x and int4 w
+# are exact in f32 and both sides sum in f32, so they differ only where the
+# one final rounding to bf16 falls differently: at most one bf16 step, 2^-7
+# of the largest output. f32: the products round, and K <= 14336 terms are
+# summed in another order: well under 1e-5 of the largest output.
+TOL4 = {torch.bfloat16: 1e-2, torch.float32: 1e-5}
+# Llama-3-8B's projections (in, out) in the order a layer runs them.
+PROJECTIONS = {"wq": (4096, 4096), "wk": (4096, 1024), "wv": (4096, 1024),
+               "wo": (4096, 4096), "wg": (4096, 14336), "wu": (4096, 14336),
+               "wd": (14336, 4096)}
+HEAD = (4096, 128256)
 
 DEV = "cuda"
 SPIN_CYCLES = 10_000_000  # about 5 ms of device spin at 1.7-2 GHz
@@ -127,6 +154,15 @@ def make_pool(rng, num_pages, dtype, hkv=HKV, ps=PS, d=D):
     return normal(rng, shape, dtype), normal(rng, shape, dtype)
 
 
+def make_qpool(rng, num_pages, hkv=HKV, ps=PS, d=D):
+    """An int8 pool as the cache stores it: ``(k, ks, v, vs)``, values
+    quantized per (slot, head) from normal data."""
+    k, v = make_pool(rng, num_pages, torch.float32, hkv, ps, d)
+    kq, ks = _quantize_kv(k)
+    vq, vs = _quantize_kv(v)
+    return kq, ks, vq, vs
+
+
 def make_table(rng, batch, width, num_pages):
     """Distinct non-null pages per slot, in a shuffled order."""
     assert batch * width <= num_pages - 1
@@ -142,27 +178,41 @@ def max_err(a, b):
     return float((a.float() - b.float()).abs().max())
 
 
-def ragged_plain_by_rows(q, k, v, table, kv_len, num_new, q_start=None,
+# A pool is (k, v) in the working type or (k, ks, v, vs) with int8 pages;
+# these pick the kernel wrapper and plain version for it.
+def paged_fns(pool):
+    if len(pool) == 4:
+        return "qpaged", pa.quantized_paged_attention, pa.quantized_paged_attention_plain
+    return "paged", pa.paged_attention, pa.paged_attention_plain
+
+
+def ragged_fns(pool):
+    if len(pool) == 4:
+        return ("qragged", ra.quantized_ragged_paged_attention,
+                ra.quantized_ragged_paged_attention_plain)
+    return "ragged", ra.ragged_paged_attention, ra.ragged_paged_attention_plain
+
+
+def ragged_plain_by_rows(pool, q, table, kv_len, num_new, q_start=None,
                          sliding_window=None):
     """The plain version one row at a time: it materialises the whole
     [heads, S, slots] score tensor in f32, about 1 GiB a row at S = 2048 over
     4096 slots, so a batch is not given to it in one piece."""
+    plain = ragged_fns(pool)[2]
     return torch.cat([
-        ra.ragged_paged_attention_plain(
-            q[i:i + 1], k, v, table[i:i + 1], kv_len[i:i + 1],
-            num_new[i:i + 1], None if q_start is None else q_start[i:i + 1],
-            sliding_window=sliding_window)
+        plain(q[i:i + 1], *pool, table[i:i + 1], kv_len[i:i + 1],
+              num_new[i:i + 1], None if q_start is None else q_start[i:i + 1],
+              sliding_window=sliding_window)
         for i in range(q.shape[0])])
 
 
-def compare_paged(cases, tag, dtype, q, k, v, table, kv_len, **kw):
-    """`paged_attention` against its plain version on the same inputs: the
-    output and both softmax stats, appended to ``cases``. Returns the
-    output's max abs error."""
-    got, gm, gl = pa.paged_attention(q, k, v, table, kv_len,
-                                     return_stats=True, **kw)
-    want, wm, wl = pa.paged_attention_plain(q, k, v, table, kv_len,
-                                            return_stats=True, **kw)
+def compare_paged(cases, tag, dtype, q, pool, table, kv_len, **kw):
+    """The decode kernel for ``pool`` against its plain version on the same
+    inputs: the output and both softmax stats, appended to ``cases``.
+    Returns the output's max abs error."""
+    _, kernel, plain = paged_fns(pool)
+    got, gm, gl = kernel(q, *pool, table, kv_len, return_stats=True, **kw)
+    want, wm, wl = plain(q, *pool, table, kv_len, return_stats=True, **kw)
     torch.cuda.synchronize()
     err = max_err(got, want)
     cases.append((tag, err, TOL[dtype]))
@@ -177,17 +227,44 @@ def compare_paged(cases, tag, dtype, q, k, v, table, kv_len, **kw):
     return err
 
 
-def compare_ragged(cases, tag, dtype, q, k, v, table, kv_len, num_new, **kw):
-    """`ragged_paged_attention` against its plain version on the same inputs,
-    appended to ``cases``; pad queries must come out as exact zeros."""
-    got = ra.ragged_paged_attention(q, k, v, table, kv_len, num_new, **kw)
-    want = ragged_plain_by_rows(q, k, v, table, kv_len, num_new, **kw)
+def compare_ragged(cases, tag, dtype, q, pool, table, kv_len, num_new, **kw):
+    """The ragged kernel for ``pool`` against its plain version on the same
+    inputs, appended to ``cases``; pad queries must come out as exact
+    zeros."""
+    kernel = ragged_fns(pool)[1]
+    got = kernel(q, *pool, table, kv_len, num_new, **kw)
+    want = ragged_plain_by_rows(pool, q, table, kv_len, num_new, **kw)
     torch.cuda.synchronize()
     pad = torch.arange(q.shape[1], device=DEV)[None, :] >= num_new[:, None]
     if bool(pad.any()):
         assert float(got[pad].abs().max()) == 0.0, "pad queries must be zero"
     err = max_err(got, want)
     cases.append((tag, err, TOL[dtype]))
+    return err
+
+
+def int4_weight(gen, shape):
+    """A random stacked weight ``[L, in, out]``, int4-quantized."""
+    return quant.quantize_int4_split(
+        torch.randn(shape, generator=gen, device=DEV) * 0.02)
+
+
+def compare_int4(cases, tag, dtype, x, w, layer=None):
+    """`int4_matmul_stacked` at ``layer`` (or `int4_matmul` on the layer's 2-D
+    weight when ``layer`` is None, layer 0) against its plain version;
+    error relative to the largest output."""
+    if layer is None:
+        args = (x, w.q[0], w.scale_lo[0], w.scale_hi[0], w.out_dim)
+        got, want = qm.int4_matmul(*args), qm.int4_matmul_plain(*args)
+        name = "int4"
+    else:
+        args = (x, w.q, w.scale_lo, w.scale_hi, layer, w.out_dim)
+        got = qm.int4_matmul_stacked(*args)
+        want = qm.int4_matmul_stacked_plain(*args)
+        name = "int4s"
+    torch.cuda.synchronize()
+    err = max_err(got, want) / max(float(want.float().abs().max()), 1e-30)
+    cases.append((f"{name}_{tag}", err, TOL4[dtype]))
     return err
 
 
@@ -202,56 +279,76 @@ def check_cases(dtype):
     rng = np.random.default_rng(1234)
     cases = []
 
-    # Ragged: a full-prompt row, a chunk row with q_start > 0, a decode row
-    # and an empty row in one launch, padded to S = 256.
     pages, width, s = 160, 16, 256
-    k, v = make_pool(rng, pages, dtype)
+    pools = {"": make_pool(rng, pages, dtype), "int8": make_qpool(rng, pages)}
     table = make_table(rng, 4, width, pages)
     q = normal(rng, (4, s, HQ, D), dtype)
     num_new = i32([200, 128, 1, 0])
     kv_len = i32([200, 428, 777, 0])
-    for window in (None, 100):
-        compare_ragged(cases, f"ragged_mixed_window_{window}", dtype, q, k, v,
-                       table, kv_len, num_new, sliding_window=window)
-    # Explicit q_start (a chunk whose queries are not the newest tokens).
-    compare_ragged(cases, "ragged_q_start", dtype, q, k, v, table, kv_len,
-                   num_new, q_start=i32([0, 250, 776, 0]))
-
-    # Paged decode: ragged lengths including 0 and page edges, stats, a
-    # sliding window, and q_positions past the pool contents.
     lens = [0, 1, 64, 65, 1000, 1024, 513, 37]
     qd = normal(rng, (8, 1, HQ, D), dtype)
     table8 = make_table(rng, 8, width, pages)
     kv8 = i32(lens)
-    for window, qpos in ((None, None), (200, None),
-                         (200, i32([n + 7 for n in lens]))):
-        tag = f"paged_window_{window}_qpos_{'past' if qpos is not None else 'default'}"
-        compare_paged(cases, tag, dtype, qd, k, v, table8, kv8,
-                      sliding_window=window, q_positions=qpos)
+    for pool in pools.values():
+        rname, pname = ragged_fns(pool)[0], paged_fns(pool)[0]
+        # Ragged: a full-prompt row, a chunk row with q_start > 0, a decode
+        # row and an empty row in one launch, padded to S = 256.
+        for window in (None, 100):
+            compare_ragged(cases, f"{rname}_mixed_window_{window}", dtype, q,
+                           pool, table, kv_len, num_new, sliding_window=window)
+        # Explicit q_start (a chunk whose queries are not the newest tokens).
+        compare_ragged(cases, f"{rname}_q_start", dtype, q, pool, table,
+                       kv_len, num_new, q_start=i32([0, 250, 776, 0]))
+        # Paged decode: ragged lengths including 0 and page edges, stats, a
+        # sliding window, and q_positions past the pool contents.
+        for window, qpos in ((None, None), (200, None),
+                             (200, i32([n + 7 for n in lens]))):
+            tag = (f"{pname}_window_{window}_qpos_"
+                   f"{'past' if qpos is not None else 'default'}")
+            compare_paged(cases, tag, dtype, qd, pool, table8, kv8,
+                          sliding_window=window, q_positions=qpos)
+        # MHA (one query head per kv head): the other grouping the kernels
+        # are built for, same pool, 8 query heads.
+        compare_ragged(cases, f"{rname}_mha", dtype,
+                       q[:, :, :HKV].contiguous(), pool, table, kv_len,
+                       num_new, sliding_window=100)
+        compare_paged(cases, f"{pname}_mha", dtype,
+                      qd[:, :, :HKV].contiguous(), pool, table8, kv8,
+                      sliding_window=200)
 
-    # MHA (one query head per kv head): the other grouping the kernels are
-    # built for, same pool, 8 query heads.
-    compare_ragged(cases, "ragged_mha", dtype, q[:, :, :HKV].contiguous(), k,
-                   v, table, kv_len, num_new, sliding_window=100)
-    compare_paged(cases, "paged_mha", dtype, qd[:, :, :HKV].contiguous(), k,
-                  v, table8, kv8, sliding_window=200)
+    # int4 matmuls: the projection shapes, odd widths (padding on both
+    # axes), 1 to 20 rows (20 = three row blocks), layers of a stack.
+    gen = torch.Generator(device=DEV).manual_seed(5)
+    for rows, (ind, outd), num_l, layer in (
+            (8, PROJECTIONS["wq"], 3, 2), (3, PROJECTIONS["wk"], 2, 1),
+            (1, PROJECTIONS["wd"], 1, 0), (8, PROJECTIONS["wg"], 1, 0),
+            (20, (4100, 1030), 2, 1), (5, (72, 24), 1, 0)):
+        w = int4_weight(gen, (num_l, ind, outd))
+        x = torch.randn((rows, ind), generator=gen, device=DEV).to(dtype)
+        tag = f"r{rows}_{ind}x{outd}"
+        compare_int4(cases, f"{tag}_l{layer}", dtype, x, w, layer)
+        if num_l == 1:
+            compare_int4(cases, tag, dtype, x, w)
     assert_cases(cases, dtype)
     return cases
 
 
 def time_ms(fn, iters, flush):
     """Mean device milliseconds of what ``fn()`` enqueues, over ``iters``
-    calls: CUDA events around each call, the L2 cache overwritten before each
-    one. The card first spins for a few milliseconds so that the host has
-    enqueued the whole call before the start event is reached; without that,
-    an idle card waits for the host and the events measure Python."""
+    calls: CUDA events around each call, the L2 cache emptied of the call's
+    data before each one by READING a 128 MB buffer (writing it, as this
+    script did before, left up to 50 MB of dirty lines whose write-back, about
+    15 µs, was charged to the timed call). The card first spins for a few
+    milliseconds so that the host has enqueued the whole call before the
+    start event is reached; without that, an idle card waits for the host and
+    the events measure Python."""
     fn()
     fn()
     torch.cuda.synchronize()
     total = 0.0
     for _ in range(iters):
         torch.cuda._sleep(SPIN_CYCLES)
-        flush.zero_()
+        flush.sum()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -282,46 +379,62 @@ def ladder_pages(tokens):
     return -(-rung // PS)
 
 
-def time_kernels():
-    """Both kernels in bf16 at one shape each of the main path: decode at
-    B=8 over 2048 cached tokens a row, prefill of one 2048-token prompt, the
-    page table as wide as the engine makes it for such rows. Each kernel's
-    output is first held against the plain version's on these very inputs;
-    that error is the one reported beside the times."""
-    dtype = torch.bfloat16
-    esz = 2
-    rng = np.random.default_rng(99)
-    flush = torch.empty(128 * 1024 * 1024, dtype=torch.uint8, device=DEV)
-    width = ladder_pages(2048)
-    pages = 9 * width + 1
-    k, v = make_pool(rng, pages, dtype)
-    out = {}
-    cases = []
+def dequantized(pool, table):
+    """Contiguous ``[B, H, T, D]`` bf16 K and V of ``pool`` under ``table``
+    (int8 pools dequantized) for the library yardstick."""
+    if len(pool) == 4:
+        k, ks, v, vs = pool
+        kg = pa.gather_pages(k, table).to(torch.bfloat16) * pa.gather_scales(
+            ks, table).to(torch.bfloat16)[..., None]
+        vg = pa.gather_pages(v, table).to(torch.bfloat16) * pa.gather_scales(
+            vs, table).to(torch.bfloat16)[..., None]
+    else:
+        kg, vg = pa.gather_pages(pool[0], table), pa.gather_pages(pool[1], table)
+    return (kg.permute(0, 2, 1, 3).contiguous(),
+            vg.permute(0, 2, 1, 3).contiguous())
+
+
+def pool_bytes_per_slot(pool):
+    """Bytes of one (slot, kv head) of K and V together, scales included."""
+    if len(pool) == 4:
+        return 2 * (D + 4)
+    return 2 * D * pool[0].element_size()
+
+
+def time_attention(out, cases, rng, flush, width, pool):
+    """The decode and the ragged kernel for ``pool`` at one shape each of
+    the main path, bf16 queries: decode at B=8 over 2048 cached tokens a row,
+    prefill of one 2048-token prompt, the page table as wide as the engine
+    makes it for such rows."""
+    dtype, esz = torch.bfloat16, 2
+    pname, pkernel, pplain = paged_fns(pool)
+    rname, rkernel, rplain = ragged_fns(pool)
+    pages = pool[0].shape[0]
+    per_slot = pool_bytes_per_slot(pool)
+    kind = "int8 pages" if len(pool) == 4 else "bf16 pages"
 
     # decode
     b, kv = 8, 2048
     table = make_table(rng, b, width, pages)
     q = normal(rng, (b, 1, HQ, D), dtype)
     lens = i32([kv] * b)
-    kg = pa.gather_pages(k, table).permute(0, 2, 1, 3).contiguous()
-    vg = pa.gather_pages(v, table).permute(0, 2, 1, 3).contiguous()
+    kg, vg = dequantized(pool, table)
     qh = q.permute(0, 2, 1, 3).contiguous()
     live = b * kv
-    bytes_moved = (2 * live * HKV * D * esz       # K and V slots, once
+    bytes_moved = (live * HKV * per_slot          # K and V slots, once
                    + 2 * q.numel() * esz          # q in, out out
                    + 2 * b * HQ * 4               # m, l
                    + table.numel() * 4 + 2 * b * 4)
     flops = 4 * live * HQ * D
     bms, by = bound(bytes_moved, flops, dtype)
-    out["paged_attention"] = {
-        "shape": f"B={b} kv={kv} table={width} Hq={HQ} Hkv={HKV} D={D} PS={PS} bf16",
+    out[pkernel.__name__] = {
+        "shape": f"B={b} kv={kv} table={width} Hq={HQ} Hkv={HKV} D={D} PS={PS} bf16 q, {kind}",
         "max_abs_err": compare_paged(
-            cases, "paged_timed", dtype, q, k, v, table, lens),
-        "ms": time_ms(lambda: pa.paged_attention(q, k, v, table, lens), 20, flush),
-        "plain_ms": time_ms(
-            lambda: pa.paged_attention_plain(q, k, v, table, lens), 5, flush),
+            cases, f"{pname}_timed", dtype, q, pool, table, lens),
+        "ms": time_ms(lambda: pkernel(q, *pool, table, lens), 20, flush),
+        "plain_ms": time_ms(lambda: pplain(q, *pool, table, lens), 5, flush),
         "library_ms": time_ms(lambda: sdpa(qh, kg, vg, False), 20, flush),
-        "bound_ms": bms, "bound_by": by,
+        "bound_ms": bms, "bound_by": by, "bytes": bytes_moved,
     }
     del kg, vg
 
@@ -330,29 +443,135 @@ def time_kernels():
     table1 = make_table(rng, 1, width, pages)
     q = normal(rng, (1, s, HQ, D), dtype)
     lens1, new1 = i32([s]), i32([s])
-    kg = pa.gather_pages(k, table1).permute(0, 2, 1, 3).contiguous()
-    vg = pa.gather_pages(v, table1).permute(0, 2, 1, 3).contiguous()
+    kg, vg = dequantized(pool, table1)
     qh = q.permute(0, 2, 1, 3).contiguous()
     visible = s * (s + 1) // 2                    # causal (query, slot) pairs
-    bytes_moved = (2 * s * HKV * D * esz + 2 * q.numel() * esz
+    bytes_moved = (s * HKV * per_slot + 2 * q.numel() * esz
                    + table1.numel() * 4 + 3 * 4)
     flops = 4 * visible * HQ * D
     bms, by = bound(bytes_moved, flops, dtype)
-    out["ragged_paged_attention"] = {
-        "shape": f"B=1 S={s} table={width} Hq={HQ} Hkv={HKV} D={D} PS={PS} bf16",
+    out[rkernel.__name__] = {
+        "shape": f"B=1 S={s} table={width} Hq={HQ} Hkv={HKV} D={D} PS={PS} bf16 q, {kind}",
         "max_abs_err": compare_ragged(
-            cases, "ragged_timed", dtype, q, k, v, table1, lens1, new1),
-        "ms": time_ms(
-            lambda: ra.ragged_paged_attention(q, k, v, table1, lens1, new1),
-            5, flush),
+            cases, f"{rname}_timed", dtype, q, pool, table1, lens1, new1),
+        "ms": time_ms(lambda: rkernel(q, *pool, table1, lens1, new1), 5, flush),
         "plain_ms": time_ms(
-            lambda: ra.ragged_paged_attention_plain(
-                q, k, v, table1, lens1, new1), 3, flush),
+            lambda: rplain(q, *pool, table1, lens1, new1), 3, flush),
         "library_ms": time_ms(lambda: sdpa(qh, kg, vg, True), 10, flush),
-        "bound_ms": bms, "bound_by": by,
+        "bound_ms": bms, "bound_by": by, "flops": flops,
     }
-    assert_cases(cases, dtype)
+
+
+def int4_bound(rows, ind, outd):
+    """Bytes and operations of one int4 matmul: the packed weight rows that
+    hold x's inputs, the f32 scales, x in and the output out, bf16."""
+    outp = -(-outd // 1024) * 512
+    bytes_moved = ind * outp + 2 * outp * 4 + rows * (ind + outd) * 2
+    return bytes_moved, 2 * rows * ind * outd
+
+
+def dequantized_weight(w, layer):
+    """The bf16 weight an int4 one stands for, for the yardstick."""
+    full = qm.unpack_int4_split(w.q[layer])[: w.in_dim].float()
+    sc = torch.cat([w.scale_lo[layer], w.scale_hi[layer]], dim=-1)
+    return (full * sc)[:, : w.out_dim].to(torch.bfloat16).contiguous()
+
+
+def time_int4(out, cases, flush, rows=8):
+    """The int4 matmuls at decode: `int4_matmul_stacked` over one layer's
+    seven projections (8 rows, a stack of 2 layers, layer 1), each timed too,
+    and `int4_matmul` over the 128256-wide head. No single PyTorch call
+    computes a half-split int4 product; a bf16 `torch.matmul` on the
+    dequantized weight is timed as a yardstick of its own."""
+    dtype = torch.bfloat16
+    gen = torch.Generator(device=DEV).manual_seed(7)
+    xs = {n: torch.randn((rows, n), generator=gen, device=DEV).to(dtype)
+          for n in (4096, 14336)}
+    stacks = {name: int4_weight(gen, (2, ind, outd))
+              for name, (ind, outd) in PROJECTIONS.items()}
+    per = {}
+    total = {"bytes": 0, "flops": 0}
+    for name, (ind, outd) in PROJECTIONS.items():
+        w, x = stacks[name], xs[ind]
+        args = (x, w.q, w.scale_lo, w.scale_hi, 1, w.out_dim)
+        err = compare_int4(cases, f"timed_{name}_l1", dtype, x, w, 1)
+        bytes_moved, flops = int4_bound(rows, ind, outd)
+        total["bytes"] += bytes_moved
+        total["flops"] += flops
+        wd = dequantized_weight(w, 1)
+        per[name] = {
+            "shape": f"rows={rows} {ind}x{outd}",
+            "max_rel_err": err,
+            "ms": time_ms(lambda: qm.int4_matmul_stacked(*args), 20, flush),
+            "bound_ms": bound(bytes_moved, flops, dtype)[0],
+            "dequantized_bf16_matmul_ms": time_ms(lambda: x @ wd, 20, flush),
+        }
+        del wd
+
+    def layer(fn):
+        return lambda: [fn(xs[PROJECTIONS[n][0]], stacks[n].q,
+                           stacks[n].scale_lo, stacks[n].scale_hi, 1,
+                           stacks[n].out_dim) for n in PROJECTIONS]
+
+    bms, by = bound(total["bytes"], total["flops"], dtype)
+    out["int4_matmul_stacked"] = {
+        "shape": f"rows={rows}, one layer's 7 projections of Llama-3-8B (wq, wk, wv, wo, wg, wu, wd), bf16 x",
+        "max_abs_err": max(p["max_rel_err"] for p in per.values()),
+        "error_is": "relative to max |out|",
+        "ms": time_ms(layer(qm.int4_matmul_stacked), 20, flush),
+        "plain_ms": time_ms(layer(qm.int4_matmul_stacked_plain), 3, flush),
+        "library_ms": None,
+        "dequantized_bf16_matmul_ms": sum(
+            p["dequantized_bf16_matmul_ms"] for p in per.values()),
+        "bound_ms": bms, "bound_by": by, "bytes": total["bytes"],
+        "per_projection": per,
+    }
+    del stacks
+
+    ind, outd = HEAD
+    w = int4_weight(gen, (1, ind, outd))
+    x = xs[ind]
+    args = (x, w.q[0], w.scale_lo[0], w.scale_hi[0], w.out_dim)
+    bytes_moved, flops = int4_bound(rows, ind, outd)
+    bms, by = bound(bytes_moved, flops, dtype)
+    wd = dequantized_weight(w, 0)
+    out["int4_matmul"] = {
+        "shape": f"rows={rows} {ind}x{outd} (the lm_head), bf16 x",
+        "max_abs_err": compare_int4(cases, "timed_head", dtype, x, w),
+        "error_is": "relative to max |out|",
+        "ms": time_ms(lambda: qm.int4_matmul(*args), 20, flush),
+        "plain_ms": time_ms(lambda: qm.int4_matmul_plain(*args), 3, flush),
+        "library_ms": None,
+        "dequantized_bf16_matmul_ms": time_ms(lambda: x @ wd, 20, flush),
+        "bound_ms": bms, "bound_by": by, "bytes": bytes_moved,
+    }
+
+
+def time_kernels():
+    """Every kernel in bf16 at the shapes of the main path (see
+    :func:`time_attention`, :func:`time_int4`). Each kernel's output is
+    first held against the plain version's on these very inputs; that error
+    is the one reported beside the times."""
+    rng = np.random.default_rng(99)
+    flush = torch.ones(16 * 1024 * 1024, dtype=torch.int64, device=DEV)
+    width = ladder_pages(2048)
+    pages = 9 * width + 1
+    out, cases = {}, []
+    time_attention(out, cases, rng, flush, width,
+                   make_pool(rng, pages, torch.bfloat16))
+    time_attention(out, cases, rng, flush, width, make_qpool(rng, pages))
+    time_int4(out, cases, flush)
+    assert_cases(cases, torch.bfloat16)
     return out
+
+
+# Kernel name -> the prefix of its cases in phase 2.
+CASE_PREFIX = {
+    "paged_attention": "paged_", "ragged_paged_attention": "ragged_",
+    "quantized_paged_attention": "qpaged_",
+    "quantized_ragged_paged_attention": "qragged_",
+    "int4_matmul": "int4_", "int4_matmul_stacked": "int4s_",
+}
 
 
 def phase_kernels():
@@ -365,14 +584,14 @@ def phase_kernels():
         errs[dtype] = check_cases(dtype)
     times = time_kernels()
     kernels = []
-    for name in ("paged_attention", "ragged_paged_attention"):
-        prefix = "paged" if name == "paged_attention" else "ragged"
+    for name, prefix in CASE_PREFIX.items():
         entry = {"name": name}
+        tol = TOL4 if name.startswith("int4") else TOL
         for dtype, label in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
             mine = [(n, e, t) for n, e, t in errs[dtype] if n.startswith(prefix)]
             entry[f"max_abs_err_{label}"] = max(
                 e for n, e, t in mine if not n.endswith(("_m", "_l")))
-            entry[f"tolerance_{label}"] = TOL[dtype]
+            entry[f"tolerance_{label}"] = tol[dtype]
             entry[f"cases_{label}"] = {n: e for n, e, _ in mine}
         entry["timed"] = times[name]
         kernels.append(entry)
@@ -484,12 +703,15 @@ def device_breakdown(prof, wall_ms, steps):
     }
 
 
-def profile_steps(engine, before_step, steps):
+def profile_steps(engine, before_step, steps, counters=None):
     """``steps`` engine steps on the host clock (synchronised), then ``steps``
     more under ``torch.profiler``; ``before_step`` runs ahead of each one,
-    outside the timed region."""
+    outside the timed region. With ``counters`` (name -> (module, attribute)
+    of a launch counter) the launches per step are reported too."""
     from torch.profiler import ProfilerActivity, profile
 
+    counters = counters or {}
+    before = {n: getattr(m, a) for n, (m, a) in counters.items()}
     wall = 0.0
     for _ in range(steps):
         before_step()
@@ -503,15 +725,20 @@ def profile_steps(engine, before_step, steps):
             before_step()
             engine.step()
         torch.cuda.synchronize()
-    return device_breakdown(prof, wall * 1e3 / steps, steps)
+    out = device_breakdown(prof, wall * 1e3 / steps, steps)
+    if counters:
+        out["kernel_launches_per_step"] = {
+            n: (getattr(m, a) - before[n]) / (2 * steps)
+            for n, (m, a) in counters.items()}
+    return out
 
 
-def profile_decode(cfg, params, ticks=5):
+def profile_decode(cfg, params, ekw, ckw, counters, ticks=5):
     """Where a decode tick's time goes, for a full batch of 8 rows of about
     600 cached tokens each."""
     engine = InferenceEngine(
-        cfg, params, EngineConfig(max_batch_size=8),
-        CacheConfig(num_pages=2048),
+        cfg, params, EngineConfig(max_batch_size=8, **ekw),
+        CacheConfig(num_pages=2048, **ckw),
         generator=torch.Generator().manual_seed(3), device=DEV)
     rng = np.random.default_rng(17)
     for _ in range(8):
@@ -519,16 +746,16 @@ def profile_decode(cfg, params, ticks=5):
                       SamplingOptions(max_new_tokens=64))
     for _ in range(3):
         engine.step()  # admission, prefill, first decode ticks
-    return profile_steps(engine, lambda: None, ticks)
+    return profile_steps(engine, lambda: None, ticks, counters)
 
 
-def profile_prefill(cfg, params, steps=2):
+def profile_prefill(cfg, params, ekw, ckw, counters, steps=2):
     """Where a prefill dispatch's time goes: one 2048-token greedy prompt
     admitted into an idle engine and asked for a single token, so that the
     step is exactly one [1, 2048] prefill dispatch and its sample."""
     engine = InferenceEngine(
-        cfg, params, EngineConfig(max_batch_size=8),
-        CacheConfig(num_pages=2048),
+        cfg, params, EngineConfig(max_batch_size=8, **ekw),
+        CacheConfig(num_pages=2048, **ckw),
         generator=torch.Generator().manual_seed(4), device=DEV)
     rng = np.random.default_rng(19)
 
@@ -538,27 +765,37 @@ def profile_prefill(cfg, params, steps=2):
 
     submit()
     engine.step()  # warm-up
-    out = profile_steps(engine, submit, steps)
+    out = profile_steps(engine, submit, steps, counters)
     assert not engine.has_work()
     assert engine.metrics.get_counter("prefill_tokens") == 2048 * (1 + 2 * steps)
     return out
 
 
-def check_engine_shapes(shapes, table_width):
-    """Both kernels against their plain versions at every attention dispatch
-    shape the engine run made, in bf16 (the run's type) and f32, on mixed
-    lengths. ``shapes`` is `AttentionPlan.dispatch_shapes`: ("prefill" or
-    "chunk", rows, token width) reach the ragged kernel, under the table as
-    wide as it grew (``table_width``); ("decode", rows, 1, table width) reach
-    the decode kernel. Each prefill-family shape is run twice: fresh prompts
-    (q_start 0) and rows continuing a longer prompt (q_start > 0, as the
-    later chunks of a long prompt are). Returns per kernel and type the
-    largest error and the number of comparisons."""
+def check_engine_shapes(shapes, table_width, quantized, int4):
+    """The kernels of a run against their plain versions at every dispatch
+    shape it made, in bf16 (the run's type) and f32, on mixed lengths.
+    ``shapes`` is `AttentionPlan.dispatch_shapes`: ("prefill" or "chunk",
+    rows, token width) reach the ragged kernel, under the table as wide as
+    it grew (``table_width``); ("decode", rows, 1, table width) reach the
+    decode kernel; the int8-page forms when ``quantized``. Each
+    prefill-family shape is run twice: fresh prompts (q_start 0) and rows
+    continuing a longer prompt (q_start > 0, as the later chunks of a long
+    prompt are). With ``int4``: decode rows reach `int4_matmul_stacked` at
+    every projection shape, and the head rows of every dispatch (its rows)
+    reach `int4_matmul` (many-row prefill projections take the plain
+    unpacked product, no kernel). Returns per kernel and type the largest
+    error and the number of comparisons."""
     out = {}
     rows_max = max(sh[1] for sh in shapes)
+    kinds = ["qpaged", "qragged"] if quantized else ["paged", "ragged"]
+    if int4:
+        kinds += ["int4s", "int4"]
     for dtype, label in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
         rng = np.random.default_rng(4321)
-        k, v = make_pool(rng, rows_max * table_width + 1, dtype)
+        pages = rows_max * table_width + 1
+        pool = (make_qpool(rng, pages) if quantized
+                else make_pool(rng, pages, dtype))
+        pname, rname = paged_fns(pool)[0], ragged_fns(pool)[0]
         cases = []
         for kind, rows, *rest in sorted(shapes):
             tag = "_".join(str(x) for x in (kind, rows, *rest))
@@ -570,54 +807,73 @@ def check_engine_shapes(shapes, table_width):
                 if rows > 1:
                     lens[-1] = 0             # an inactive row
                 compare_paged(
-                    cases, "paged_" + tag, dtype,
-                    normal(rng, (rows, 1, HQ, D), dtype), k, v,
-                    make_table(rng, rows, width, k.shape[0]), i32(lens))
+                    cases, f"{pname}_{tag}", dtype,
+                    normal(rng, (rows, 1, HQ, D), dtype), pool,
+                    make_table(rng, rows, width, pages), i32(lens))
                 continue
             s, slots = rest[0], table_width * PS
             q = normal(rng, (rows, s, HQ, D), dtype)
-            table = make_table(rng, rows, table_width, k.shape[0])
+            table = make_table(rng, rows, table_width, pages)
             num_new = rng.integers(1, s + 1, size=rows)
             num_new[0] = s                   # a row with no pad query
-            compare_ragged(cases, f"ragged_{tag}_fresh", dtype, q, k, v,
+            compare_ragged(cases, f"{rname}_{tag}_fresh", dtype, q, pool,
                            table, i32(num_new), i32(num_new))
             if slots > s:
                 start = rng.integers(1, slots - num_new + 1)
-                compare_ragged(cases, f"ragged_{tag}_continued", dtype, q, k,
-                               v, table, i32(start + num_new), i32(num_new))
+                compare_ragged(cases, f"{rname}_{tag}_continued", dtype, q,
+                               pool, table, i32(start + num_new),
+                               i32(num_new))
+        del pool
+        if int4:
+            gen = torch.Generator(device=DEV).manual_seed(6)
+            decode_rows = sorted({sh[1] for sh in shapes if sh[0] == "decode"})
+            for name, (ind, outd) in PROJECTIONS.items():
+                w = int4_weight(gen, (2, ind, outd))
+                for rows in decode_rows:
+                    x = torch.randn((rows, ind), generator=gen,
+                                    device=DEV).to(dtype)
+                    compare_int4(cases, f"decode_{rows}_{name}", dtype, x, w, 1)
+                del w
+            w = int4_weight(gen, (1, *HEAD))
+            for rows in sorted({sh[1] for sh in shapes}):
+                x = torch.randn((rows, HEAD[0]), generator=gen,
+                                device=DEV).to(dtype)
+                compare_int4(cases, f"head_{rows}", dtype, x, w)
+            del w
         assert_cases(cases, dtype)
-        for name in ("paged", "ragged"):
+        for name in kinds:
             mine = [e for n, e, _ in cases
-                    if n.startswith(name) and not n.endswith(("_m", "_l"))]
-            assert mine, f"the engine run dispatched nothing to the {name} kernel"
+                    if n.startswith(name + "_") and not n.endswith(("_m", "_l"))]
+            assert mine, f"the engine run dispatched nothing to {name}"
             out[f"{name}_{label}"] = {"max_abs_err": max(mine),
                                       "comparisons": len(mine)}
-        del k, v
     return out
 
 
-def phase_engine():
-    cfg = LLAMA3_8B
+def run_config(label, cfg, params, ekw, ckw, counters, profile=True):
+    """The smoke's traffic through one engine configuration, twice with one
+    seed (the streams must repeat); the launch counters in ``counters``
+    (name -> (module, attribute)) are zeroed before the first run and read
+    after it. Then the run's dispatch shapes go through its kernels again
+    and, with ``profile``, a decode tick and a prefill dispatch are
+    profiled. Returns (report, launches)."""
     torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    params = llama.init_params(
-        cfg, torch.Generator(device=DEV).manual_seed(0), torch.bfloat16, DEV)
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
     rng = np.random.default_rng(7)
     short_lens = [30, 1500] + rng.integers(30, 1500, size=10).tolist()
     new_tokens, long_len = 32, 3000
-
     runs = []
     for attempt in range(2):
+        t0 = time.perf_counter()
         engine = InferenceEngine(
-            cfg, params, EngineConfig(max_batch_size=8),
-            CacheConfig(num_pages=2048),
+            cfg, params, EngineConfig(max_batch_size=8, **ekw),
+            CacheConfig(num_pages=2048, **ckw),
             generator=torch.Generator().manual_seed(11), device=DEV)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
         assert engine.cache.use_kernel and engine.cache.use_ragged
         if attempt == 0:
-            pa.launches = 0
-            ra.launches = 0
+            for module, attr in counters.values():
+                setattr(module, attr, 0)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         streams, cancelled = drive(
@@ -626,8 +882,7 @@ def phase_engine():
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         if attempt == 0:
-            launches = {"paged_attention": pa.launches,
-                        "ragged_paged_attention": ra.launches}
+            launches = {n: getattr(m, a) for n, (m, a) in counters.items()}
             shapes = engine.plan.dispatch_shapes
             table_width = engine.cache.page_table.shape[1]
         check_streams(streams, cancelled, new_tokens, cfg.vocab_size)
@@ -639,6 +894,7 @@ def phase_engine():
         snap = m.snapshot()
         runs.append({
             "streams": streams,
+            "engine_init_s": build_s,
             "wall_s": wall,
             "generated_tokens": sum(len(s) for s in streams),
             "tokens_per_s": sum(len(s) for s in streams) / wall,
@@ -651,35 +907,89 @@ def phase_engine():
             "decode_tick_ms_p50": snap["decode_step_p50_s"] * 1e3,
             "chunked_rows": m.get_counter("attn_chunked_rows"),
             "batched_prefills": m.get_counter("batched_prefills"),
+            "kv_bytes_per_token": snap["kv_bytes_per_token"],
         })
         del engine
         torch.cuda.empty_cache()
-    assert launches["paged_attention"] > 0, "decode kernel never launched"
-    assert launches["ragged_paged_attention"] > 0, "ragged kernel never launched"
+    for name, n in launches.items():
+        assert n > 0, f"{name} was never launched on the main path"
     assert runs[0]["streams"] == runs[1]["streams"], (
         "two runs with one seed gave different streams")
-    report = {"phase": "engine", "model": "llama-3-8b, 32 layers, bf16, random weights",
-              "init_s": init_s, "launches": launches,
-              "launches_per_decode_tick": cfg.num_layers,
-              "repeatable": True,
+    report = {"phase": "engine", "config": label,
+              "model": f"llama-3-8b widths, {cfg.num_layers} layers, random weights",
+              "launches": launches, "repeatable": True,
               "max_memory_allocated": torch.cuda.max_memory_allocated()}
     for i, r in enumerate(runs):
         report[f"run{i}"] = {k: v for k, v in r.items() if k != "streams"}
     report["dispatch_shapes"] = sorted(shapes)
     report["table_width"] = table_width
     report["kernels_at_dispatch_shapes"] = check_engine_shapes(
-        shapes, table_width)
-    report["decode_profile"] = profile_decode(cfg, params)
-    report["prefill_profile"] = profile_prefill(cfg, params)
+        shapes, table_width, bool(ckw.get("kv_quant")),
+        ekw.get("quantization") == "int4")
+    if profile:
+        report["decode_profile"] = profile_decode(cfg, params, ekw, ckw,
+                                                  counters)
+        report["prefill_profile"] = profile_prefill(cfg, params, ekw, ckw,
+                                                    counters)
     emit(report)
-    del params
+    return report, launches
+
+
+BF16_COUNTERS = {"paged_attention": (pa, "launches"),
+                 "ragged_paged_attention": (ra, "launches")}
+INT4_COUNTERS = {"quantized_paged_attention": (pa, "quantized_launches"),
+                 "quantized_ragged_paged_attention": (ra, "quantized_launches"),
+                 "int4_matmul": (qm, "launches"),
+                 "int4_matmul_stacked": (qm, "stacked_launches")}
+
+
+def phase_engine():
+    cfg = LLAMA3_8B
+    t0 = time.perf_counter()
+    params = llama.init_params(
+        cfg, torch.Generator(device=DEV).manual_seed(0), torch.bfloat16, DEV)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    _, launches = run_config("bf16 weights, bf16 pages", cfg, params, {}, {},
+                             BF16_COUNTERS)
+    # The quantized deployment: int4 weights over the int8 page pool.
+    _, qlaunches = run_config(
+        "int4 weights (half-split), int8 pages", cfg, params,
+        {"quantization": "int4"}, {"kv_quant": "int8"}, INT4_COUNTERS)
+    launches.update(qlaunches)
+    # int8 weights over the int8 pool at 4 layers: prefill projections take
+    # the int8 x int8 product (W8A8), decode the weight-only one.
+    cfg4 = dataclasses.replace(cfg, num_layers=min(4, cfg.num_layers))
+    params4 = {**params, "layers": {
+        k: v[: cfg4.num_layers] for k, v in params["layers"].items()}}
+    w8a8 = [0]
+    real = quant.w8a8_matmul
+
+    def counted(x, w):
+        w8a8[0] += 1
+        return real(x, w)
+
+    quant.w8a8_matmul = counted
+    try:
+        report, _ = run_config(
+            "int8 weights, int8 pages", cfg4, params4, {"quantization": "int8"},
+            {"kv_quant": "int8"},
+            {k: v for k, v in INT4_COUNTERS.items() if not k.startswith("int4")},
+            profile=False)
+    finally:
+        quant.w8a8_matmul = real
+    assert w8a8[0] > 0, "no prefill projection took the int8 x int8 product"
+    emit({"phase": "engine_int8_w8a8", "init_s": init_s,
+          "w8a8_matmul_calls": w8a8[0]})
+    del params, params4
     torch.cuda.empty_cache()
     return launches
 
 
 def phase_parity():
     """Kernels against the gather path through the whole engine: 2 layers of
-    the same widths in f32, TF32 off, greedy streams compared exactly."""
+    the same widths in f32, TF32 off, greedy streams compared exactly; for
+    the bf16 pool and for int4 weights over the int8 pool."""
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = dataclasses.replace(LLAMA3_8B, num_layers=2)
     params = llama.init_params(
@@ -690,12 +1000,13 @@ def phase_parity():
     long_prompt = rng.integers(0, cfg.vocab_size, size=600).tolist()
     opts = SamplingOptions(max_new_tokens=16)
 
-    def run(**ekw):
+    def run(ekw, ckw):
         engine = InferenceEngine(
             cfg, params,
             EngineConfig(max_batch_size=4, prefill_buckets=(64, 256),
                          max_seq_len=1024, dtype="float32", **ekw),
-            CacheConfig(num_pages=128, max_pages_per_session=16), device=DEV)
+            CacheConfig(num_pages=128, max_pages_per_session=16, **ckw),
+            device=DEV)
         client = Client(engine)
         for p in prompts:
             client.submit(p, opts)
@@ -706,19 +1017,33 @@ def phase_parity():
         assert engine.allocator.free_count == 127
         return streams, engine
 
-    before = (pa.launches, ra.launches)
-    kern, e1 = run()
-    assert e1.cache.use_kernel and e1.cache.use_ragged
-    assert pa.launches > before[0] and ra.launches > before[1]
-    mid = (pa.launches, ra.launches)
-    gath, e2 = run(use_pallas_attention=False, ragged_attention=False)
-    assert not e2.cache.use_kernel and not e2.cache.use_ragged
-    assert (pa.launches, ra.launches) == mid, "gather path launched a kernel"
-    assert all(len(s) == 16 for s in kern)
-    assert kern == gath, "kernel path and gather path streams differ"
-    emit({"phase": "parity", "model": "llama-3-8b widths, 2 layers, f32, tf32 off",
-          "streams": len(kern), "tokens_each": 16, "identical": True,
-          "chunked_rows_kernel_run": e1.metrics.get_counter("attn_chunked_rows")})
+    report = {"phase": "parity",
+              "model": "llama-3-8b widths, 2 layers, f32, tf32 off"}
+    gather = dict(use_pallas_attention=False, ragged_attention=False)
+    for label, ekw, ckw, (pmod, pattr), (rmod, rattr) in (
+            ("bf16", {}, {}, (pa, "launches"), (ra, "launches")),
+            ("int4_int8kv", {"quantization": "int4"}, {"kv_quant": "int8"},
+             (pa, "quantized_launches"), (ra, "quantized_launches"))):
+        before = (getattr(pmod, pattr), getattr(rmod, rattr), qm.launches,
+                  qm.stacked_launches)
+        kern, e1 = run(ekw, ckw)
+        assert e1.cache.use_kernel and e1.cache.use_ragged
+        mid = (getattr(pmod, pattr), getattr(rmod, rattr), qm.launches,
+               qm.stacked_launches)
+        assert mid[0] > before[0] and mid[1] > before[1]
+        if ekw:
+            assert mid[2] > before[2] and mid[3] > before[3]
+        gath, e2 = run({**ekw, **gather}, ckw)
+        assert not e2.cache.use_kernel and not e2.cache.use_ragged
+        assert (getattr(pmod, pattr), getattr(rmod, rattr)) == mid[:2], (
+            "gather path launched an attention kernel")
+        assert all(len(s) == 16 for s in kern)
+        assert kern == gath, f"{label}: kernel path and gather path streams differ"
+        report[label] = {
+            "streams": len(kern), "tokens_each": 16, "identical": True,
+            "chunked_rows_kernel_run": e1.metrics.get_counter(
+                "attn_chunked_rows")}
+    emit(report)
 
 
 # ---------------------------------------------------------------------------
@@ -726,10 +1051,18 @@ def phase_parity():
 REPLACES = {
     "paged_attention": "distributed_llm_inference_tpu/ops/paged_attention.py:154",
     "ragged_paged_attention": "distributed_llm_inference_tpu/ops/ragged_attention.py:252",
+    "quantized_paged_attention": "distributed_llm_inference_tpu/ops/paged_attention.py:349",
+    "quantized_ragged_paged_attention": "distributed_llm_inference_tpu/ops/ragged_attention.py:345",
+    "int4_matmul": "distributed_llm_inference_tpu/ops/quant_matmul.py:126",
+    "int4_matmul_stacked": "distributed_llm_inference_tpu/ops/quant_matmul.py:214",
 }
 SOURCES = {
     "paged_attention": "distributed_llm_inference_tpu_torch/csrc/paged_attention.cu",
     "ragged_paged_attention": "distributed_llm_inference_tpu_torch/csrc/ragged_attention.cu",
+    "quantized_paged_attention": "distributed_llm_inference_tpu_torch/csrc/paged_attention.cu",
+    "quantized_ragged_paged_attention": "distributed_llm_inference_tpu_torch/csrc/ragged_attention.cu",
+    "int4_matmul": "distributed_llm_inference_tpu_torch/csrc/int4_matmul.cu",
+    "int4_matmul_stacked": "distributed_llm_inference_tpu_torch/csrc/int4_matmul.cu",
 }
 
 

@@ -1,4 +1,10 @@
 from .base import GatherAttendMixin, window_ladder
-from .paged import PageAllocator, PagedKVCache
+from .paged import PageAllocator, PagedKVCache, QuantizedPagedKVCache
 
-__all__ = ["GatherAttendMixin", "PageAllocator", "PagedKVCache", "window_ladder"]
+__all__ = [
+    "GatherAttendMixin",
+    "PageAllocator",
+    "PagedKVCache",
+    "QuantizedPagedKVCache",
+    "window_ladder",
+]

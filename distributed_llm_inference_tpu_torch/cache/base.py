@@ -5,12 +5,15 @@
 new k/v into the cache, run attention, return ``(attn_out, layer_state)``.
 The default is the always-correct gather path — ``update_and_gather`` into a
 contiguous view, then the caller-supplied ``attention_fn``. ``PagedKVCache``
-overrides it to read pages in place through the CUDA kernels.
+and ``QuantizedPagedKVCache`` override it to read pages in place through
+the CUDA kernels.
 """
 
 from __future__ import annotations
 
 from typing import Optional, Sequence, Tuple
+
+import torch
 
 
 def window_ladder(
@@ -43,6 +46,35 @@ def window_ladder(
         w = nxt if nxt > w else w + 32
     ws.append(cap)
     return tuple(ws)
+
+
+# Prefills at least this long route the quantized caches' gather path
+# through the flash kernel in the JAX package (its ``cache/base.py``).
+FLASH_PREFILL_MIN_S = 1024
+
+
+def flash_prefill_fn(s: int, t: int, attention_fn, device):
+    """The flash-for-long-prefill policy of the quantized caches' gather
+    path. The flash kernel is not ported yet (``ROADMAP.md`` queue 2, item
+    3): where the JAX package would take it, a CUDA device raises, and CPU
+    tensors keep ``attention_fn`` (returns None). With the default plan a
+    CUDA engine never gets here: its multi-token rows take the ragged
+    kernel. ``s``/``t`` = query/buffer lengths."""
+    from ..ops.attention import gqa_attention
+
+    if (
+        attention_fn is gqa_attention
+        and s >= FLASH_PREFILL_MIN_S
+        and s % 128 == 0
+        and t % 128 == 0
+        and torch.device(device).type == "cuda"
+    ):
+        raise NotImplementedError(
+            "a gather-path prefill of >= 1024 tokens over an int8 cache takes "
+            "the flash kernel, which is not ported yet (ROADMAP.md queue 2, "
+            "item 3)"
+        )
+    return None
 
 
 class GatherAttendMixin:

@@ -11,6 +11,9 @@ Layout:
     ``page_table``: ``[B, table_width]`` int32 page ids
     ``lengths``: ``[B]`` int32 tokens currently cached per session row
 
+``QuantizedPagedKVCache`` holds int8 ``k_pages``/``v_pages`` and two f32
+``[L, num_pages, Hkv, page_size]`` scale planes ``ks_pages``/``vs_pages``.
+
 Page 0 is the NULL page: never allocated to a session, absorbing writes from
 padding tokens and unallocated table slots, so a misconfigured row can never
 corrupt another session's pages. Nothing reads page 0 as live content.
@@ -29,6 +32,7 @@ there is no traced index to keep on the device.
 from __future__ import annotations
 
 import collections
+import copy
 import hashlib
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
@@ -38,7 +42,8 @@ import torch
 from ..ops.attention import causal_mask
 from ..ops.rotary import RopeAngles, apply_rope
 from ..utils.device import resolve_device
-from .base import GatherAttendMixin
+from .base import GatherAttendMixin, flash_prefill_fn
+from .dense import _quantize_kv
 
 
 class PagedKVCache(GatherAttendMixin):
@@ -92,10 +97,12 @@ class PagedKVCache(GatherAttendMixin):
         )
 
     def _view(self, page_table, lengths) -> "PagedKVCache":
-        return PagedKVCache(
-            self.k_pages, self.v_pages, page_table, lengths, self.page_size,
-            self.use_kernel, self.use_ragged,
-        )
+        """A cache of the same kind over the SAME planes with its own table
+        and lengths."""
+        view = copy.copy(self)
+        view.page_table = page_table
+        view.lengths = lengths
+        return view
 
     @property
     def device(self) -> torch.device:
@@ -105,9 +112,16 @@ class PagedKVCache(GatherAttendMixin):
     def max_len(self) -> int:
         return self.page_table.shape[1] * self.page_size
 
+    # Plane name -> attribute, as in the JAX package (``kv_bytes_per_token``
+    # counts every plane).
+    PLANE_FIELDS = {"k": "k_pages", "v": "v_pages"}
+
     @property
     def layer_stacks(self):
-        return (self.k_pages, self.v_pages)
+        """The planes, ``[L, ...]`` each. (The JAX cache's
+        ``with_layer_stacks`` has no counterpart: the planes are updated in
+        place, so there is nothing to put back.)"""
+        return tuple(getattr(self, f) for f in self.PLANE_FIELDS.values())
 
     def q_positions(self, seq_len: int) -> torch.Tensor:
         return self.lengths[:, None] + torch.arange(
@@ -316,6 +330,159 @@ class PagedKVCache(GatherAttendMixin):
             torch.as_tensor(slots, dtype=torch.int64, device=dev),
         ] = torch.as_tensor(pages, dtype=torch.int32, device=dev)
         return self
+
+
+class QuantizedPagedKVCache(PagedKVCache):
+    """Page pool with int8 K/V + per-(slot, head) f32 scale planes
+    (counterpart of the JAX package's ``QuantizedPagedKVCache``).
+
+    Decode reads every live page each step, so int8 pages halve the pool's
+    bytes. Scales ride separate ``[L, P, Hkv, PS]`` planes; the kernels
+    apply them to the scores and probabilities (``q·(k·s) = s·(q·k)``), so
+    the int8 pages are read as they are, and the gather path dequantizes its
+    contiguous view in the model dtype. New K/V are quantized per (token,
+    head) on the way in (``cache/dense.py:_quantize_kv``). The planes are
+    updated in place, so ``merge_row(s)`` (inherited) writes only the table
+    and lengths back, and ``select_row(s)`` views carry all four planes.
+    """
+
+    PLANE_FIELDS = {
+        "k": "k_pages", "v": "v_pages", "ks": "ks_pages", "vs": "vs_pages",
+    }
+
+    def __init__(
+        self,
+        k_pages: torch.Tensor,
+        v_pages: torch.Tensor,
+        ks_pages: torch.Tensor,
+        vs_pages: torch.Tensor,
+        page_table: torch.Tensor,
+        lengths: torch.Tensor,
+        page_size: int,
+        use_kernel: bool = False,
+        use_ragged: bool = False,
+    ):
+        super().__init__(k_pages, v_pages, page_table, lengths, page_size,
+                         use_kernel, use_ragged)
+        self.ks_pages = ks_pages
+        self.vs_pages = vs_pages
+
+    @staticmethod
+    def create(
+        num_layers: int,
+        batch: int,
+        num_pages: int,
+        page_size: int,
+        max_pages_per_session: int,
+        num_kv_heads: int,
+        head_dim: int,
+        dtype=torch.bfloat16,  # interface parity; values are int8
+        use_kernel: bool = False,
+        use_ragged: bool = False,
+        device: Union[str, torch.device] = "cuda",
+    ) -> "QuantizedPagedKVCache":
+        dev = resolve_device(device)
+        shape = (num_layers, num_pages, num_kv_heads, page_size, head_dim)
+        return QuantizedPagedKVCache(
+            k_pages=torch.zeros(shape, dtype=torch.int8, device=dev),
+            v_pages=torch.zeros(shape, dtype=torch.int8, device=dev),
+            ks_pages=torch.zeros(shape[:-1], dtype=torch.float32, device=dev),
+            vs_pages=torch.zeros(shape[:-1], dtype=torch.float32, device=dev),
+            page_table=torch.zeros(
+                (batch, max_pages_per_session), dtype=torch.int32, device=dev
+            ),
+            lengths=torch.zeros((batch,), dtype=torch.int32, device=dev),
+            page_size=page_size,
+            use_kernel=use_kernel,
+            use_ragged=use_ragged,
+        )
+
+    def _scatter_q(self, layer_k, layer_v, layer_ks, layer_vs, k_rot, v_new,
+                   q_pos, num_new):
+        """Quantize incoming k/v, then the :meth:`_scatter` write pattern
+        over the four planes."""
+        k_q, k_s = _quantize_kv(k_rot)
+        v_q, v_s = _quantize_kv(v_new)
+        return self._scatter_planes(
+            layer_k, layer_v, layer_ks, layer_vs, k_q, v_q, k_s, v_s, q_pos,
+            num_new,
+        )
+
+    def _scatter_planes(self, layer_k, layer_v, layer_ks, layer_vs,
+                        k_q, v_q, k_s, v_s, q_pos, num_new):
+        """Scatter PRE-QUANTIZED ``[B, S, Hkv(, D)]`` values + scales INTO
+        the pool planes (padding tokens land on the null page)."""
+        b, s, hkv, d = k_q.shape
+        phys_page, offset = self._slot_pages(q_pos, num_new)
+        flat_page = phys_page.reshape(-1)
+        flat_off = offset.reshape(-1)
+        layer_k[flat_page, :, flat_off] = k_q.reshape(b * s, hkv, d)
+        layer_v[flat_page, :, flat_off] = v_q.reshape(b * s, hkv, d)
+        layer_ks[flat_page, :, flat_off] = k_s.reshape(b * s, hkv)
+        layer_vs[flat_page, :, flat_off] = v_s.reshape(b * s, hkv)
+        return layer_k, layer_v, layer_ks, layer_vs
+
+    def attend(self, layer_state, q, k_new, v_new, rope, q_pos, num_new,
+               sliding_window, attention_fn, scale=None):
+        """Multi-token rows with ``use_ragged`` and decode steps with
+        ``use_kernel``: quantize and scatter into the pool, then the int8
+        kernel wrapper over the pages in place. Everything else takes the
+        gather path (dequantized view + ``attention_fn``)."""
+        s = q.shape[1]
+        if not ((self.use_ragged and s > 1) or (self.use_kernel and s == 1)):
+            flash_prefill_fn(s, self.max_len, attention_fn, self.device)
+            return GatherAttendMixin.attend(
+                self, layer_state, q, k_new, v_new, rope, q_pos, num_new,
+                sliding_window, attention_fn, scale,
+            )
+        lk, lv, lks, lvs = layer_state
+        q_rot = apply_rope(q, rope.cos, rope.sin)
+        k_rot = apply_rope(k_new, rope.cos, rope.sin)
+        self._scatter_q(lk, lv, lks, lvs, k_rot, v_new, q_pos, num_new)
+        kv_lengths = self.lengths + num_new
+        if s > 1:
+            from ..ops.ragged_attention import quantized_ragged_paged_attention
+
+            out = quantized_ragged_paged_attention(
+                q_rot, lk, lks, lv, lvs, self.page_table, kv_lengths,
+                num_new, scale=scale, sliding_window=sliding_window,
+            )
+        else:
+            from ..ops.paged_attention import quantized_paged_attention
+
+            out = quantized_paged_attention(
+                q_rot, lk, lks, lv, lvs, self.page_table, kv_lengths,
+                scale=scale, sliding_window=sliding_window,
+            )
+        return out, layer_state
+
+    def update_and_gather(self, layer_state, q, k_new, v_new, rope, q_pos,
+                          num_new, sliding_window=None):
+        """Gather fallback: the contiguous int8 view dequantized in the
+        model dtype (``values.to(dt) * scales.to(dt)``, as the JAX cache
+        does)."""
+        from ..ops.paged_attention import gather_pages, gather_scales
+
+        lk, lv, lks, lvs = layer_state
+        b = k_new.shape[0]
+        q_rot = apply_rope(q, rope.cos, rope.sin)
+        k_rot = apply_rope(k_new, rope.cos, rope.sin)
+        self._scatter_q(lk, lv, lks, lvs, k_rot, v_new, q_pos, num_new)
+        dt = q.dtype
+
+        def view(pages, scales):
+            return gather_pages(pages, self.page_table).to(dt) * gather_scales(
+                scales, self.page_table
+            ).to(dt)[..., None]
+
+        k_all = view(lk, lks)
+        v_all = view(lv, lvs)
+        kv_pos = torch.arange(
+            self.max_len, dtype=torch.int32, device=self.device
+        )[None, :].expand(b, self.max_len)
+        kv_valid = kv_pos < (self.lengths + num_new)[:, None]
+        mask = causal_mask(q_pos, kv_pos, kv_valid, sliding_window)
+        return q_rot, k_all, v_all, mask, layer_state
 
 
 class PageAllocator:

@@ -1,11 +1,21 @@
 // Paged decode attention for Hopper (sm_90a), plain C interface.
 //
-// Replaces the TPU kernel `_paged_kernel` behind `paged_attention` in
-// distributed_llm_inference_tpu/ops/paged_attention.py: one query token per
-// row (S = 1) attends over the first kv_lengths[b] slots of the row's pages,
-// read in place from the page pool through the page table. The per-head
-// online-softmax stats (running max m, denominator l) are written as well,
-// so a caller can merge this segment with another under one softmax.
+// Replaces two TPU kernels of
+// distributed_llm_inference_tpu/ops/paged_attention.py: `_paged_kernel`
+// behind `paged_attention` and `_qpaged_kernel` behind
+// `quantized_paged_attention`. One query token per row (S = 1) attends over
+// the first kv_lengths[b] slots of the row's pages, read in place from the
+// page pool through the page table. The per-head online-softmax stats
+// (running max m, denominator l) are written as well, so a caller can merge
+// this segment with another under one softmax.
+//
+// The pages hold the query's type (bf16 or f32), or int8 with an f32 scale
+// per (slot, kv head) in two planes beside them. For int8 pages the page
+// walk below is the same, 16 int8 values a lane in one 16-byte load (half
+// the bytes of bf16), converted to f32 in registers: the K scale multiplies
+// the score, s = (q . k) * ks * scale, and the V scale the probability
+// before P V, acc += (p * vs) * v, while l sums p, as `_qpaged_kernel` does.
+// Everything stays f32, as there.
 //
 // What bounds it on this card: bytes. Every live K and V slot is read once
 // and used for G dot products of D elements, far below the ~295 flop/byte
@@ -74,6 +84,20 @@ struct Chunk<__nv_bfloat16> {
   }
 };
 
+template <>
+struct Chunk<int8_t> {
+  static constexpr int N = 16;
+  static __device__ __forceinline__ void load(const int8_t* p, float* o) {
+    const uint4 v = *reinterpret_cast<const uint4*>(p);
+    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        o[4 * i + j] = (float)((int32_t)(w[i] << (24 - 8 * j)) >> 24);
+  }
+};
+
 __device__ __forceinline__ void store_one(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store_one(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);
@@ -81,11 +105,14 @@ __device__ __forceinline__ void store_one(__nv_bfloat16* p, float v) {
 
 // Partial attention of one (row, kv head) over the positions
 // [split * chunk, (split + 1) * chunk) that are live and inside the window.
-template <typename T, int D, int G>
+// KV is T, or int8_t with the scale planes ks / vs (null otherwise).
+template <typename T, typename KV, int D, int G>
 __global__ void __launch_bounds__(kThreads) paged_partial_kernel(
     const T* __restrict__ q,          // [B, Hkv*G, D]
-    const T* __restrict__ k_pages,    // [P, Hkv, PS, D]
-    const T* __restrict__ v_pages,    // [P, Hkv, PS, D]
+    const KV* __restrict__ k_pages,   // [P, Hkv, PS, D]
+    const KV* __restrict__ v_pages,   // [P, Hkv, PS, D]
+    const float* __restrict__ ks,     // [P, Hkv, PS] (int8 pages)
+    const float* __restrict__ vs,     // [P, Hkv, PS] (int8 pages)
     const int* __restrict__ table,    // [B, Tw]
     const int* __restrict__ kv_lens,  // [B]
     const int* __restrict__ q_pos,    // [B]
@@ -96,8 +123,11 @@ __global__ void __launch_bounds__(kThreads) paged_partial_kernel(
   constexpr int EPL = 16;                 // elements per lane
   constexpr int LPP = D / EPL;            // lanes per position
   constexpr int PPW = 32 / LPP;           // positions per warp instruction
+  constexpr bool kQuant = sizeof(KV) == 1;
   constexpr int CN = Chunk<T>::N;
-  constexpr int NCH = EPL / CN;           // 16-byte chunks per lane
+  constexpr int NCH = EPL / CN;           // 16-byte chunks of q per lane
+  constexpr int KCN = Chunk<KV>::N;
+  constexpr int KCH = EPL / KCN;          // 16-byte chunks of K or V per lane
   const int b = blockIdx.x;
   const int h = blockIdx.y;
   const int split = blockIdx.z;
@@ -138,14 +168,19 @@ __global__ void __launch_bounds__(kThreads) paged_partial_kernel(
     const int pos = p0 + grp;
     const bool live = pos < hi;
     float kk[EPL], vv[EPL];
+    float ksc = 1.f, vsc = 1.f;
     if (live) {
       const int page = trow[pos / PS];
-      const size_t base =
-          (((size_t)page * Hkv + h) * PS + pos % PS) * D + sub * EPL;
+      const size_t slot = ((size_t)page * Hkv + h) * PS + pos % PS;
+      const size_t base = slot * D + sub * EPL;
 #pragma unroll
-      for (int c = 0; c < NCH; ++c) {
-        Chunk<T>::load(k_pages + base + c * CN, kk + c * CN);
-        Chunk<T>::load(v_pages + base + c * CN, vv + c * CN);
+      for (int c = 0; c < KCH; ++c) {
+        Chunk<KV>::load(k_pages + base + c * KCN, kk + c * KCN);
+        Chunk<KV>::load(v_pages + base + c * KCN, vv + c * KCN);
+      }
+      if constexpr (kQuant) {
+        ksc = ks[slot];
+        vsc = vs[slot];
       }
     } else {
 #pragma unroll
@@ -160,13 +195,14 @@ __global__ void __launch_bounds__(kThreads) paged_partial_kernel(
       for (int o = LPP / 2; o > 0; o >>= 1)
         dot += __shfl_xor_sync(0xffffffffu, dot, o);
       if (live) {
-        const float s = dot * scale;
+        const float s = kQuant ? dot * ksc * scale : dot * scale;
         const float m_new = fmaxf(m[g], s);
         const float alpha = expf(m[g] - m_new);
         const float p = expf(s - m_new);
         l[g] = l[g] * alpha + p;
+        const float pw = kQuant ? p * vsc : p;
 #pragma unroll
-        for (int i = 0; i < EPL; ++i) acc[g][i] = acc[g][i] * alpha + p * vv[i];
+        for (int i = 0; i < EPL; ++i) acc[g][i] = acc[g][i] * alpha + pw * vv[i];
         m[g] = m_new;
       }
     }
@@ -266,6 +302,7 @@ __global__ void __launch_bounds__(kThreads) paged_combine_kernel(
 
 struct Args {
   const void *q, *k, *v;
+  const float *ks, *vs;
   const int *table, *kv_lens, *q_pos;
   void* out;
   float *m_out, *l_out, *part_o, *part_m, *part_l;
@@ -274,12 +311,13 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <typename T, int D, int G>
+template <typename T, typename KV, int D, int G>
 int launch(const Args& a) {
   dim3 grid(a.B, a.Hkv, a.NS);
-  paged_partial_kernel<T, D, G><<<grid, kThreads, 0, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), a.table, a.kv_lens, a.q_pos, a.part_o,
+  paged_partial_kernel<T, KV, D, G><<<grid, kThreads, 0, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const KV*>(a.k),
+      static_cast<const KV*>(a.v), a.ks, a.vs, a.table, a.kv_lens, a.q_pos,
+      a.part_o,
       a.part_m, a.part_l, a.Hkv, a.PS, a.Tw, a.chunk, a.scale, a.window);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -289,18 +327,49 @@ int launch(const Args& a) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int D>
+template <typename T, typename KV, int D>
 int dispatch_g(int G, const Args& a) {
   switch (G) {
-    case 1: return launch<T, D, 1>(a);
-    case 4: return launch<T, D, 4>(a);
+    case 1: return launch<T, KV, D, 1>(a);
+    case 4: return launch<T, KV, D, 4>(a);
   }
   return -1;
 }
 
-template <typename T>
+template <typename T, typename KV>
 int dispatch_d(int D, int G, const Args& a) {
-  if (D == 128) return dispatch_g<T, 128>(G, a);
+  if (D == 128) return dispatch_g<T, KV, 128>(G, a);
+  return -1;
+}
+
+int fill_and_dispatch(Args& a, const void* q, const void* table,
+                      const void* kv_lens, const void* q_pos, void* out,
+                      void* m_out, void* l_out, void* part_o, void* part_m,
+                      void* part_l, int B, int Hkv, int G, int D, int PS,
+                      int Tw, int NS, int chunk, float scale, int window,
+                      int dtype, bool quant, void* stream) {
+  if (B <= 0) return 0;
+  if (NS <= 0 || (long long)NS * chunk < (long long)Tw * PS) return -1;
+  a.q = q;
+  a.table = static_cast<const int*>(table);
+  a.kv_lens = static_cast<const int*>(kv_lens);
+  a.q_pos = static_cast<const int*>(q_pos);
+  a.out = out;
+  a.m_out = static_cast<float*>(m_out);
+  a.l_out = static_cast<float*>(l_out);
+  a.part_o = static_cast<float*>(part_o);
+  a.part_m = static_cast<float*>(part_m);
+  a.part_l = static_cast<float*>(part_l);
+  a.B = B; a.Hkv = Hkv; a.PS = PS; a.Tw = Tw; a.NS = NS; a.chunk = chunk;
+  a.window = window; a.scale = scale;
+  a.stream = static_cast<cudaStream_t>(stream);
+  if (quant) {
+    if (dtype == 0) return dispatch_d<__nv_bfloat16, int8_t>(D, G, a);
+    if (dtype == 1) return dispatch_d<float, int8_t>(D, G, a);
+    return -1;
+  }
+  if (dtype == 0) return dispatch_d<__nv_bfloat16, __nv_bfloat16>(D, G, a);
+  if (dtype == 1) return dispatch_d<float, float>(D, G, a);
   return -1;
 }
 
@@ -317,23 +386,28 @@ extern "C" int dli_paged_attention(
     void* m_out, void* l_out, void* part_o, void* part_m, void* part_l,
     int B, int Hkv, int G, int D, int PS, int Tw, int NS, int chunk,
     float scale, int window, int dtype, void* stream) {
-  if (B <= 0) return 0;
-  if (NS <= 0 || (long long)NS * chunk < (long long)Tw * PS) return -1;
   Args a;
-  a.q = q; a.k = k_pages; a.v = v_pages;
-  a.table = static_cast<const int*>(table);
-  a.kv_lens = static_cast<const int*>(kv_lens);
-  a.q_pos = static_cast<const int*>(q_pos);
-  a.out = out;
-  a.m_out = static_cast<float*>(m_out);
-  a.l_out = static_cast<float*>(l_out);
-  a.part_o = static_cast<float*>(part_o);
-  a.part_m = static_cast<float*>(part_m);
-  a.part_l = static_cast<float*>(part_l);
-  a.B = B; a.Hkv = Hkv; a.PS = PS; a.Tw = Tw; a.NS = NS; a.chunk = chunk;
-  a.window = window; a.scale = scale;
-  a.stream = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch_d<__nv_bfloat16>(D, G, a);
-  if (dtype == 1) return dispatch_d<float>(D, G, a);
-  return -1;
+  a.k = k_pages; a.v = v_pages; a.ks = nullptr; a.vs = nullptr;
+  return fill_and_dispatch(a, q, table, kv_lens, q_pos, out, m_out, l_out,
+                           part_o, part_m, part_l, B, Hkv, G, D, PS, Tw, NS,
+                           chunk, scale, window, dtype, false, stream);
+}
+
+// As dli_paged_attention over int8 pages: k_pages / v_pages int8
+// [P, Hkv, PS, D], ks_pages / vs_pages f32 [P, Hkv, PS]; dtype is q's and
+// out's.
+extern "C" int dli_quantized_paged_attention(
+    const void* q, const void* k_pages, const void* ks_pages,
+    const void* v_pages, const void* vs_pages, const void* table,
+    const void* kv_lens, const void* q_pos, void* out, void* m_out,
+    void* l_out, void* part_o, void* part_m, void* part_l, int B, int Hkv,
+    int G, int D, int PS, int Tw, int NS, int chunk, float scale, int window,
+    int dtype, void* stream) {
+  Args a;
+  a.k = k_pages; a.v = v_pages;
+  a.ks = static_cast<const float*>(ks_pages);
+  a.vs = static_cast<const float*>(vs_pages);
+  return fill_and_dispatch(a, q, table, kv_lens, q_pos, out, m_out, l_out,
+                           part_o, part_m, part_l, B, Hkv, G, D, PS, Tw, NS,
+                           chunk, scale, window, dtype, true, stream);
 }

@@ -1,7 +1,9 @@
 // Ragged mixed-phase paged attention for Hopper (sm_90a), plain C interface.
 //
-// Replaces the TPU kernel `_ragged_kernel` behind `ragged_paged_attention` in
-// distributed_llm_inference_tpu/ops/ragged_attention.py: row b carries
+// Replaces two TPU kernels of
+// distributed_llm_inference_tpu/ops/ragged_attention.py: `_ragged_kernel`
+// behind `ragged_paged_attention` and `_qragged_kernel` behind
+// `quantized_ragged_paged_attention` (the same over int8 pages). Row b carries
 // num_new[b] real query tokens starting at absolute position q_start[b] and
 // attends causally (optionally inside a sliding window) over the first
 // kv_lengths[b] slots of its pages, read in place through the page table. A
@@ -35,6 +37,18 @@
 //   going through shared memory. Full float32 products: the exact-parity
 //   checks of the engine run in this type, and TF32 would not pass them.
 //
+// int8 pages (Q8 below): the pages hold int8 values and two f32 planes an
+// f32 scale per (slot, kv head). Staging converts the int8 K and V rows to
+// the working type in shared memory (int8 -> bf16 is exact for |v| <= 127,
+// so Q K^T on the tensor cores loses nothing) and stages the step's 64 K and
+// V scales beside them. The K scale multiplies each score, s = (q . k) * ks
+// * scale; the V scale multiplies each probability before P V, while l sums
+// the probabilities themselves, as `_qragged_kernel` does. The TPU kernel
+// keeps p * vs and V in f32 for P V; the bf16 kernel here rounds p * vs to
+// bf16 for the tensor cores, as it rounds P in the bf16 pool's case (the
+// error stays inside the smoke's bf16 tolerance). The f32 kernel keeps
+// p * vs in f32. Reading int8 halves the page bytes of a bf16 pool.
+//
 // Built for head_dim 128 with 1 or 4 query heads per kv head (MHA, and the
 // Llama-3 grouping this package serves); a model with other widths adds its
 // instance to dispatch_g / dispatch_d below.
@@ -45,6 +59,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -93,6 +109,49 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// 16 int8 of a row (16-byte chunk `chunk`) as bf16 into shared memory; a
+// null source stores zeros.
+__device__ __forceinline__ void stage_i8_bf16(__nv_bfloat16* dst_row,
+                                              const int8_t* src_row,
+                                              int chunk) {
+  uint4 v = make_uint4(0u, 0u, 0u, 0u);
+  if (src_row != nullptr)
+    v = *reinterpret_cast<const uint4*>(src_row + chunk * 16);
+  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+  uint32_t o[8];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float b0 = (float)((int32_t)(w[i] << 24) >> 24);
+    const float b1 = (float)((int32_t)(w[i] << 16) >> 24);
+    const float b2 = (float)((int32_t)(w[i] << 8) >> 24);
+    const float b3 = (float)((int32_t)w[i] >> 24);
+    o[2 * i] = pack_bf16(b0, b1);
+    o[2 * i + 1] = pack_bf16(b2, b3);
+  }
+  uint4* d = reinterpret_cast<uint4*>(dst_row + chunk * 16);
+  d[0] = make_uint4(o[0], o[1], o[2], o[3]);
+  d[1] = make_uint4(o[4], o[5], o[6], o[7]);
+}
+
+// The two scales of positions kv0 .. kv0 + kTile - 1 (0 past `end`).
+__device__ __forceinline__ void stage_scales(float* ks_s, float* vs_s,
+                                             const float* ks, const float* vs,
+                                             const int* trow, int kv0, int end,
+                                             int Hkv, int h, int PS, int tid,
+                                             int nthreads) {
+  for (int r = tid; r < kTile; r += nthreads) {
+    const int pos = kv0 + r;
+    float a = 0.f, b = 0.f;
+    if (pos < end) {
+      const size_t slot = ((size_t)trow[pos / PS] * Hkv + h) * PS + pos % PS;
+      a = ks[slot];
+      b = vs[slot];
+    }
+    ks_s[r] = a;
+    vs_s[r] = b;
+  }
+}
+
 // One row of D bf16 from global to shared memory in 16-byte chunks; a null
 // source stores zeros.
 __device__ __forceinline__ void stage_chunk16(__nv_bfloat16* dst_row,
@@ -104,11 +163,14 @@ __device__ __forceinline__ void stage_chunk16(__nv_bfloat16* dst_row,
   *reinterpret_cast<uint4*>(dst_row + chunk * 8) = v;
 }
 
-template <int D, int G>
+// KV is __nv_bfloat16, or int8_t with the scale planes ks / vs.
+template <int D, int G, typename KV>
 __global__ void __launch_bounds__(kMmaThreads) ragged_kernel_mma(
     const __nv_bfloat16* __restrict__ q,          // [B, S, Hkv*G, D]
-    const __nv_bfloat16* __restrict__ k_pages,    // [P, Hkv, PS, D]
-    const __nv_bfloat16* __restrict__ v_pages,    // [P, Hkv, PS, D]
+    const KV* __restrict__ k_pages,               // [P, Hkv, PS, D]
+    const KV* __restrict__ v_pages,               // [P, Hkv, PS, D]
+    const float* __restrict__ ks,                 // [P, Hkv, PS] (int8)
+    const float* __restrict__ vs,                 // [P, Hkv, PS] (int8)
     const int* __restrict__ table,                // [B, Tw]
     const int* __restrict__ kv_lens,              // [B]
     const int* __restrict__ q_starts,             // [B]
@@ -116,6 +178,7 @@ __global__ void __launch_bounds__(kMmaThreads) ragged_kernel_mma(
     __nv_bfloat16* __restrict__ out,              // [B, S, Hkv*G, D]
     int S, int Hkv, int PS, int Tw, float scale, int window) {
   using bf16 = __nv_bfloat16;
+  constexpr bool Q8 = sizeof(KV) == 1;
   constexpr int SE = D + kRowPad;     // shared row stride in elements
   constexpr int KS = D / 16;          // k-steps of Q K^T
   constexpr int NT = kTile / 8;       // score n-tiles per step
@@ -127,6 +190,8 @@ __global__ void __launch_bounds__(kMmaThreads) ragged_kernel_mma(
   bf16* q_s = reinterpret_cast<bf16*>(smem_mma);   // [kRows][SE]
   bf16* k_s = q_s + kRows * SE;                    // [kTile][SE]
   bf16* v_s = k_s + kTile * SE;                    // [kTile][SE]
+  float* ks_s = reinterpret_cast<float*>(v_s + kTile * SE);  // [kTile] (Q8)
+  float* vs_s = ks_s + kTile;                                // [kTile] (Q8)
 
   const int tile_start = blockIdx.x * BQ;
   const int h = blockIdx.y;
@@ -200,20 +265,29 @@ __global__ void __launch_bounds__(kMmaThreads) ragged_kernel_mma(
   const int* trow = table + (size_t)b * Tw;
   for (int kv0 = first; kv0 < end; kv0 += kTile) {
     __syncthreads();  // every warp is done with the previous k_s and v_s
-    for (int c = tid; c < kTile * CPR; c += kMmaThreads) {
-      const int r = c / CPR;
+    constexpr int CPS = Q8 ? D / 16 : CPR;  // 16-byte source chunks per row
+    for (int c = tid; c < kTile * CPS; c += kMmaThreads) {
+      const int r = c / CPS;
       const int pos = kv0 + r;
-      const bf16* ksrc = nullptr;
-      const bf16* vsrc = nullptr;
+      const KV* ksrc = nullptr;
+      const KV* vsrc = nullptr;
       if (pos < end) {
         const int page = trow[pos / PS];
         const size_t base = (((size_t)page * Hkv + h) * PS + pos % PS) * D;
         ksrc = k_pages + base;
         vsrc = v_pages + base;
       }
-      stage_chunk16(k_s + r * SE, ksrc, c % CPR);
-      stage_chunk16(v_s + r * SE, vsrc, c % CPR);
+      if constexpr (Q8) {
+        stage_i8_bf16(k_s + r * SE, ksrc, c % CPS);
+        stage_i8_bf16(v_s + r * SE, vsrc, c % CPS);
+      } else {
+        stage_chunk16(k_s + r * SE, ksrc, c % CPS);
+        stage_chunk16(v_s + r * SE, vsrc, c % CPS);
+      }
     }
+    if constexpr (Q8)
+      stage_scales(ks_s, vs_s, ks, vs, trow, kv0, end, Hkv, h, PS, tid,
+                   kMmaThreads);
     __syncthreads();
 
     // S = Q K^T for this warp's 16 rows: s[nt] covers slots nt*8 .. nt*8+7.
@@ -247,8 +321,14 @@ __global__ void __launch_bounds__(kMmaThreads) ragged_kernel_mma(
                         (window <= 0 || pos > q_pos0 - window);
         const bool v1 = ok1 && live && pos <= q_pos1 &&
                         (window <= 0 || pos > q_pos1 - window);
-        s[nt][e] = v0 ? s[nt][e] * scale : kNegInf;
-        s[nt][2 + e] = v1 ? s[nt][2 + e] * scale : kNegInf;
+        if constexpr (Q8) {
+          const float kq = ks_s[nt * 8 + 2 * t4 + e];
+          s[nt][e] = v0 ? s[nt][e] * kq * scale : kNegInf;
+          s[nt][2 + e] = v1 ? s[nt][2 + e] * kq * scale : kNegInf;
+        } else {
+          s[nt][e] = v0 ? s[nt][e] * scale : kNegInf;
+          s[nt][2 + e] = v1 ? s[nt][2 + e] * scale : kNegInf;
+        }
         mx0 = fmaxf(mx0, s[nt][e]);
         mx1 = fmaxf(mx1, s[nt][2 + e]);
       }
@@ -291,6 +371,18 @@ __global__ void __launch_bounds__(kMmaThreads) ragged_kernel_mma(
       o[nd][3] *= alpha1;
     }
 
+    // int8 pages: p * vs is what multiplies V (l above summed p itself).
+    if constexpr (Q8) {
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float vq = vs_s[nt * 8 + 2 * t4 + e];
+          s[nt][e] *= vq;
+          s[nt][2 + e] *= vq;
+        }
+    }
+
     // O += P V, 16 slots per k-step: the score fragments of n-tiles 2j and
     // 2j+1 are the A operand as they lie.
 #pragma unroll
@@ -329,23 +421,25 @@ __global__ void __launch_bounds__(kMmaThreads) ragged_kernel_mma(
   }
 }
 
-template <int D, int G>
-int launch_mma(const void* q, const void* k, const void* v, const int* table,
-               const int* kv_lens, const int* q_starts, const int* num_news,
-               void* out, int B, int S, int Hkv, int PS, int Tw, float scale,
-               int window, cudaStream_t stream) {
+template <int D, int G, typename KV>
+int launch_mma(const void* q, const void* k, const void* v, const float* ks,
+               const float* vs, const int* table, const int* kv_lens,
+               const int* q_starts, const int* num_news, void* out, int B,
+               int S, int Hkv, int PS, int Tw, float scale, int window,
+               cudaStream_t stream) {
   using bf16 = __nv_bfloat16;
   constexpr int BQ = kRows / G;
   const size_t smem_bytes =
-      (size_t)(kRows + 2 * kTile) * (D + kRowPad) * sizeof(bf16);
+      (size_t)(kRows + 2 * kTile) * (D + kRowPad) * sizeof(bf16) +
+      (sizeof(KV) == 1 ? 2 * kTile * sizeof(float) : 0);
   cudaError_t err = cudaFuncSetAttribute(
-      ragged_kernel_mma<D, G>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      ragged_kernel_mma<D, G, KV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem_bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid((S + BQ - 1) / BQ, Hkv, B);
-  ragged_kernel_mma<D, G><<<grid, kMmaThreads, smem_bytes, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), table, kv_lens, q_starts, num_news,
+  ragged_kernel_mma<D, G, KV><<<grid, kMmaThreads, smem_bytes, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const KV*>(k),
+      static_cast<const KV*>(v), ks, vs, table, kv_lens, q_starts, num_news,
       static_cast<bf16*>(out), S, Hkv, PS, Tw, scale, window);
   return static_cast<int>(cudaGetLastError());
 }
@@ -369,11 +463,31 @@ __device__ __forceinline__ void stage_chunk(float* dst_row,
   d[0] = v.x; d[1] = v.y; d[2] = v.z; d[3] = v.w;
 }
 
-template <int D, int G>
+// 16 int8 of a row (16-byte chunk `chunk`) as f32 into shared memory; a
+// null source stores zeros.
+__device__ __forceinline__ void stage_chunk_i8(float* dst_row,
+                                               const int8_t* src_row,
+                                               int chunk) {
+  uint4 v = make_uint4(0u, 0u, 0u, 0u);
+  if (src_row != nullptr)
+    v = *reinterpret_cast<const uint4*>(src_row + chunk * 16);
+  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+  float* d = dst_row + chunk * 16;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      d[4 * i + j] = (float)((int32_t)(w[i] << (24 - 8 * j)) >> 24);
+}
+
+// KV is float, or int8_t with the scale planes ks / vs.
+template <int D, int G, typename KV>
 __global__ void __launch_bounds__(kThreads) ragged_kernel_f32(
     const float* __restrict__ q,          // [B, S, Hkv*G, D]
-    const float* __restrict__ k_pages,    // [P, Hkv, PS, D]
-    const float* __restrict__ v_pages,    // [P, Hkv, PS, D]
+    const KV* __restrict__ k_pages,       // [P, Hkv, PS, D]
+    const KV* __restrict__ v_pages,       // [P, Hkv, PS, D]
+    const float* __restrict__ ks,         // [P, Hkv, PS] (int8)
+    const float* __restrict__ vs,         // [P, Hkv, PS] (int8)
     const int* __restrict__ table,        // [B, Tw]
     const int* __restrict__ kv_lens,      // [B] live slots incl. this call's
     const int* __restrict__ q_starts,     // [B]
@@ -382,8 +496,9 @@ __global__ void __launch_bounds__(kThreads) ragged_kernel_f32(
     int S, int Hkv, int PS, int Tw, float scale, int window) {
   // Rows padded to an odd stride: the strided reads below (row tx + 16*j of
   // k_s, column tx + 16*jj of v_s) then hit distinct banks.
+  constexpr bool Q8 = sizeof(KV) == 1;
   constexpr int SW = D + 1;
-  constexpr int CPR = D / 4;          // 16-byte chunks per row
+  constexpr int CPR = D / 4;          // 16-byte chunks per row of q
   constexpr int BQ = kRows / G;       // queries per tile
   constexpr int NW = D / 16;          // output columns per thread
 
@@ -392,6 +507,8 @@ __global__ void __launch_bounds__(kThreads) ragged_kernel_f32(
   float* k_s = q_s + kRows * SW;             // [kTile][SW]
   float* v_s = k_s + kTile * SW;             // [kTile][SW]
   float* p_s = v_s + kTile * SW;             // [kRows][kPStride]
+  float* ks_s = p_s + kRows * kPStride;      // [kTile] (Q8)
+  float* vs_s = ks_s + kTile;                // [kTile] (Q8)
 
   const int tile_start = blockIdx.x * BQ;
   const int h = blockIdx.y;
@@ -447,20 +564,29 @@ __global__ void __launch_bounds__(kThreads) ragged_kernel_f32(
   const int* trow = table + (size_t)b * Tw;
   for (int kv0 = first; kv0 < end; kv0 += kTile) {
     __syncthreads();  // the previous step is done with k_s, v_s and p_s
-    for (int c = tid; c < kTile * CPR; c += kThreads) {
-      const int r = c / CPR;
+    constexpr int CPS = Q8 ? D / 16 : CPR;  // 16-byte source chunks per row
+    for (int c = tid; c < kTile * CPS; c += kThreads) {
+      const int r = c / CPS;
       const int pos = kv0 + r;
-      const float* ksrc = nullptr;
-      const float* vsrc = nullptr;
+      const KV* ksrc = nullptr;
+      const KV* vsrc = nullptr;
       if (pos < end) {
         const int page = trow[pos / PS];
         const size_t base = (((size_t)page * Hkv + h) * PS + pos % PS) * D;
         ksrc = k_pages + base;
         vsrc = v_pages + base;
       }
-      stage_chunk(k_s + r * SW, ksrc, c % CPR);
-      stage_chunk(v_s + r * SW, vsrc, c % CPR);
+      if constexpr (Q8) {
+        stage_chunk_i8(k_s + r * SW, ksrc, c % CPS);
+        stage_chunk_i8(v_s + r * SW, vsrc, c % CPS);
+      } else {
+        stage_chunk(k_s + r * SW, ksrc, c % CPS);
+        stage_chunk(v_s + r * SW, vsrc, c % CPS);
+      }
     }
+    if constexpr (Q8)
+      stage_scales(ks_s, vs_s, ks, vs, trow, kv0, end, Hkv, h, PS, tid,
+                   kThreads);
     __syncthreads();
 
     // Scores: rows ty*4+i, slots tx+16*j.
@@ -495,7 +621,10 @@ __global__ void __launch_bounds__(kThreads) ragged_kernel_f32(
         const int pos = kv0 + tx + 16 * j;
         valid[j] = row_ok && pos < kv_len && pos <= q_pos &&
                    (window <= 0 || pos > q_pos - window);
-        s[i][j] = valid[j] ? s[i][j] * scale : kNegInf;
+        if constexpr (Q8)
+          s[i][j] = valid[j] ? s[i][j] * ks_s[tx + 16 * j] * scale : kNegInf;
+        else
+          s[i][j] = valid[j] ? s[i][j] * scale : kNegInf;
         mx = fmaxf(mx, s[i][j]);
       }
 #pragma unroll
@@ -509,7 +638,9 @@ __global__ void __launch_bounds__(kThreads) ragged_kernel_f32(
         // Masked entries are exactly 0: exp(kNegInf - kNegInf) would be 1.
         const float p = valid[j] ? expf(s[i][j] - m_new) : 0.f;
         sum += p;
-        p_s[(ty * 4 + i) * kPStride + tx + 16 * j] = p;
+        // int8 pages: V is weighted by p * vs; l sums p.
+        p_s[(ty * 4 + i) * kPStride + tx + 16 * j] =
+            Q8 ? p * vs_s[tx + 16 * j] : p;
       }
 #pragma unroll
       for (int o = 8; o > 0; o >>= 1)
@@ -548,23 +679,25 @@ __global__ void __launch_bounds__(kThreads) ragged_kernel_f32(
   }
 }
 
-template <int D, int G>
-int launch_f32(const void* q, const void* k, const void* v, const int* table,
-               const int* kv_lens, const int* q_starts, const int* num_news,
-               void* out, int B, int S, int Hkv, int PS, int Tw, float scale,
-               int window, cudaStream_t stream) {
+template <int D, int G, typename KV>
+int launch_f32(const void* q, const void* k, const void* v, const float* ks,
+               const float* vs, const int* table, const int* kv_lens,
+               const int* q_starts, const int* num_news, void* out, int B,
+               int S, int Hkv, int PS, int Tw, float scale, int window,
+               cudaStream_t stream) {
   constexpr int BQ = kRows / G;
   const size_t smem_bytes =
-      ((size_t)(kRows + 2 * kTile) * (D + 1) + (size_t)kRows * kPStride) *
+      ((size_t)(kRows + 2 * kTile) * (D + 1) + (size_t)kRows * kPStride +
+       (sizeof(KV) == 1 ? 2 * kTile : 0)) *
       sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      ragged_kernel_f32<D, G>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      ragged_kernel_f32<D, G, KV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem_bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid((S + BQ - 1) / BQ, Hkv, B);
-  ragged_kernel_f32<D, G><<<grid, kThreads, smem_bytes, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), table, kv_lens, q_starts, num_news,
+  ragged_kernel_f32<D, G, KV><<<grid, kThreads, smem_bytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const KV*>(k),
+      static_cast<const KV*>(v), ks, vs, table, kv_lens, q_starts, num_news,
       static_cast<float*>(out), S, Hkv, PS, Tw, scale, window);
   return static_cast<int>(cudaGetLastError());
 }
@@ -573,38 +706,67 @@ int launch_f32(const void* q, const void* k, const void* v, const int* table,
 // dispatch
 // ---------------------------------------------------------------------------
 
-template <bool BF16, int D>
-int dispatch_g(int G, const void* q, const void* k, const void* v,
-               const int* table, const int* kv_lens, const int* q_starts,
-               const int* num_news, void* out, int B, int S, int Hkv, int PS,
-               int Tw, float scale, int window, cudaStream_t stream) {
-#define DLI_CASE(GG)                                                         \
-  case GG:                                                                   \
-    if constexpr (BF16)                                                      \
-      return launch_mma<D, GG>(q, k, v, table, kv_lens, q_starts, num_news,  \
-                               out, B, S, Hkv, PS, Tw, scale, window,        \
-                               stream);                                      \
-    else                                                                     \
-      return launch_f32<D, GG>(q, k, v, table, kv_lens, q_starts, num_news,  \
-                               out, B, S, Hkv, PS, Tw, scale, window,        \
-                               stream);
-  switch (G) {
-    DLI_CASE(1)
-    DLI_CASE(4)
+struct Args {
+  const void *q, *k, *v;
+  const float *ks, *vs;
+  const int *table, *kv_lens, *q_starts, *num_news;
+  void* out;
+  int B, S, Hkv, PS, Tw, window;
+  float scale;
+  cudaStream_t stream;
+};
+
+// BF16 picks the tensor-core kernel; Q8 the int8 pages.
+template <bool BF16, bool Q8, int D, int G>
+int launch(const Args& a) {
+  if constexpr (BF16) {
+    using KV = typename std::conditional<Q8, int8_t, __nv_bfloat16>::type;
+    return launch_mma<D, G, KV>(a.q, a.k, a.v, a.ks, a.vs, a.table,
+                                a.kv_lens, a.q_starts, a.num_news, a.out, a.B,
+                                a.S, a.Hkv, a.PS, a.Tw, a.scale, a.window,
+                                a.stream);
+  } else {
+    using KV = typename std::conditional<Q8, int8_t, float>::type;
+    return launch_f32<D, G, KV>(a.q, a.k, a.v, a.ks, a.vs, a.table,
+                                a.kv_lens, a.q_starts, a.num_news, a.out, a.B,
+                                a.S, a.Hkv, a.PS, a.Tw, a.scale, a.window,
+                                a.stream);
   }
-#undef DLI_CASE
+}
+
+template <bool BF16, bool Q8>
+int dispatch(int D, int G, const Args& a) {
+  if (D != 128) return -1;
+  switch (G) {
+    case 1: return launch<BF16, Q8, 128, 1>(a);
+    case 4: return launch<BF16, Q8, 128, 4>(a);
+  }
   return -1;
 }
 
-template <bool BF16>
-int dispatch_d(int D, int G, const void* q, const void* k, const void* v,
-               const int* table, const int* kv_lens, const int* q_starts,
-               const int* num_news, void* out, int B, int S, int Hkv, int PS,
-               int Tw, float scale, int window, cudaStream_t stream) {
-  if (D == 128)
-    return dispatch_g<BF16, 128>(G, q, k, v, table, kv_lens, q_starts,
-                                 num_news, out, B, S, Hkv, PS, Tw, scale,
-                                 window, stream);
+int run(const void* q, const void* k_pages, const void* ks_pages,
+        const void* v_pages, const void* vs_pages, const void* table,
+        const void* kv_lens, const void* q_starts, const void* num_news,
+        void* out, int B, int S, int Hkv, int G, int D, int PS, int Tw,
+        float scale, int window, int dtype, void* stream) {
+  if (B <= 0 || S <= 0) return 0;
+  Args a;
+  a.q = q; a.k = k_pages; a.v = v_pages;
+  a.ks = static_cast<const float*>(ks_pages);
+  a.vs = static_cast<const float*>(vs_pages);
+  a.table = static_cast<const int*>(table);
+  a.kv_lens = static_cast<const int*>(kv_lens);
+  a.q_starts = static_cast<const int*>(q_starts);
+  a.num_news = static_cast<const int*>(num_news);
+  a.out = out;
+  a.B = B; a.S = S; a.Hkv = Hkv; a.PS = PS; a.Tw = Tw; a.window = window;
+  a.scale = scale;
+  a.stream = static_cast<cudaStream_t>(stream);
+  const bool q8 = ks_pages != nullptr;
+  if (dtype == 0) return q8 ? dispatch<true, true>(D, G, a)
+                            : dispatch<true, false>(D, G, a);
+  if (dtype == 1) return q8 ? dispatch<false, true>(D, G, a)
+                            : dispatch<false, false>(D, G, a);
   return -1;
 }
 
@@ -618,17 +780,22 @@ extern "C" int dli_ragged_paged_attention(
     const void* table, const void* kv_lens, const void* q_starts,
     const void* num_news, void* out, int B, int S, int Hkv, int G, int D,
     int PS, int Tw, float scale, int window, int dtype, void* stream) {
-  if (B <= 0 || S <= 0) return 0;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int* t = static_cast<const int*>(table);
-  const int* kl = static_cast<const int*>(kv_lens);
-  const int* qs = static_cast<const int*>(q_starts);
-  const int* nn = static_cast<const int*>(num_news);
-  if (dtype == 0)
-    return dispatch_d<true>(D, G, q, k_pages, v_pages, t, kl, qs, nn, out, B,
-                            S, Hkv, PS, Tw, scale, window, st);
-  if (dtype == 1)
-    return dispatch_d<false>(D, G, q, k_pages, v_pages, t, kl, qs, nn, out, B,
-                             S, Hkv, PS, Tw, scale, window, st);
-  return -1;
+  return run(q, k_pages, nullptr, v_pages, nullptr, table, kv_lens, q_starts,
+             num_news, out, B, S, Hkv, G, D, PS, Tw, scale, window, dtype,
+             stream);
+}
+
+// As dli_ragged_paged_attention over int8 pages: k_pages / v_pages int8
+// [P, Hkv, PS, D], ks_pages / vs_pages f32 [P, Hkv, PS] (both non-null);
+// dtype is q's and out's.
+extern "C" int dli_quantized_ragged_paged_attention(
+    const void* q, const void* k_pages, const void* ks_pages,
+    const void* v_pages, const void* vs_pages, const void* table,
+    const void* kv_lens, const void* q_starts, const void* num_news,
+    void* out, int B, int S, int Hkv, int G, int D, int PS, int Tw,
+    float scale, int window, int dtype, void* stream) {
+  if (ks_pages == nullptr || vs_pages == nullptr) return -1;
+  return run(q, k_pages, ks_pages, v_pages, vs_pages, table, kv_lens,
+             q_starts, num_news, out, B, S, Hkv, G, D, PS, Tw, scale, window,
+             dtype, stream);
 }

@@ -18,7 +18,9 @@ Step anatomy (host orchestrates, device computes):
   3. retire — EOS / length / capacity sessions leave their slots; pages
      return to the allocator.
 
-What this slice serves: a dense Llama-family model, the paged cache, one
+What the port serves: a dense Llama-family model in bf16/f32, or with int4
+(half-split) or int8 weights (``EngineConfig.quantization``), over the paged
+cache in the model dtype or int8 (``CacheConfig.kv_quant="int8"``), one
 token per decode dispatch. The constructor raises ``NotImplementedError``,
 naming the ``ROADMAP.md`` queue item, for every feature that waits.
 """
@@ -36,9 +38,10 @@ import torch
 import torch.nn.functional as F
 
 from ..cache.base import window_ladder
-from ..cache.paged import PageAllocator, PagedKVCache
+from ..cache.paged import PageAllocator, PagedKVCache, QuantizedPagedKVCache
 from ..config import CacheConfig, EngineConfig, ModelConfig
 from ..models import llama
+from ..ops import quant
 from ..utils.device import resolve_device
 from ..utils.metrics import Metrics
 from .plan import AttentionPlan
@@ -89,12 +92,16 @@ class InferenceEngine:
             raise ValueError(f"decode_steps must be >= 1, got {ecfg.decode_steps}")
         if cc.kind not in ("paged", "dense", "sink"):
             raise ValueError(f"unknown cache kind {cc.kind}")
+        if cc.kv_quant not in (None, "int8"):
+            raise ValueError(f"unknown kv_quant {cc.kv_quant!r}")
+        if cc.kv_quant is not None and cc.kind != "paged":
+            raise _waits(f"kv_quant on cache kind {cc.kind!r}", "item 7")
         if cc.kind != "paged":
             raise _waits(f"cache kind {cc.kind!r}", "item 5")
-        if cc.kv_quant is not None:
-            raise _waits(f"kv_quant={cc.kv_quant!r}", "item 7")
-        if ecfg.quantization is not None:
-            raise _waits(f"quantization={ecfg.quantization!r}", "item 6")
+        if ecfg.quantization == "int8_outlier":
+            raise _waits("quantization='int8_outlier'", "item 6")
+        if ecfg.quantization not in (None, "int8", "int4"):
+            raise ValueError(f"unknown quantization {ecfg.quantization!r}")
         if mesh_cfg is not None:
             raise _waits("mesh_cfg (sharded serving)", "item 12")
         if draft is not None:
@@ -107,6 +114,19 @@ class InferenceEngine:
             raise _waits("trace_cfg (spans and the flight recorder)", "item 16")
 
         self.device = resolve_device(device)
+        # Pin the W8A8 prefill-activation policy for this deployment (module
+        # flags, as in the JAX package; EngineConfig is the way to set them).
+        if ecfg.act_quant_prefill is not None:
+            quant.ACT_QUANT_PREFILL = ecfg.act_quant_prefill
+        if ecfg.act_quant_min_seq is not None:
+            quant.ACT_QUANT_MIN_SEQ = ecfg.act_quant_min_seq
+        if ecfg.quantization is not None:
+            # Quantized where the weights lie (the engine's device), one
+            # layer of one stack at a time. A single device takes the
+            # half-split int4 layout, as the JAX engine does without a mesh.
+            params = quant.quantize_params(
+                params, bits=4 if ecfg.quantization == "int4" else 8,
+            )
         self.params = params
         self.generator = (
             generator if generator is not None
@@ -148,13 +168,16 @@ class InferenceEngine:
             max(1, -(-self._windows[0] // cc.page_size))
             if self._windows else cc.max_pages_per_session
         )
-        self.cache = PagedKVCache.create(
+        cache_cls = QuantizedPagedKVCache if cc.kv_quant else PagedKVCache
+        self.cache = cache_cls.create(
             cfg.num_layers, self.batch, cc.num_pages, cc.page_size,
             self._first_slots, cfg.num_kv_heads, cfg.head_dim, self.dtype,
             use_kernel=self._use_pallas, use_ragged=sel.use_ragged,
             device=self.device,
         )
         self.allocator = PageAllocator(cc.num_pages)
+        # Stored KV bytes per token over every plane of the pool (values and,
+        # for the int8 pool, the scale planes).
         self.metrics.gauge(
             "kv_bytes_per_token",
             float(sum(

@@ -5,10 +5,14 @@ Parameters are a plain dict of tensors with every decoder layer's weights
 STACKED on a leading layer axis, as in the JAX package:
 ``embed [V, H]``, ``layers.{attn_norm, wq, wk, wv, wo, mlp_norm, wg, wu, wd
 [, bq, bk, bv]} [L, ...]``, ``final_norm [H]``, optional ``lm_head [H, V]``.
-All projections are stored ``[in_features, out_features]`` so the forward is
-plain ``x @ w``. ``block_apply`` walks the layer axis in a Python loop (the
-JAX package scans it) and hands each layer its own slice of the cache's page
-pool, which the cache updates in place.
+All projections are stored ``[in_features, out_features]``; the forward runs
+each through ``ops/quant.py:matmul``, so a projection may also be a quantized
+leaf (``QuantizedTensor`` int8, ``QuantizedTensor4Split`` int4).
+``block_apply`` walks the layer axis in a Python loop (the JAX package scans
+it) and hands each layer its own slice of the cache's page pool, which the
+cache updates in place, and of each weight — except half-split int4 stacks,
+which every layer receives whole with its layer index, so that the int4
+kernel reads the layer in place.
 """
 
 from __future__ import annotations
@@ -22,6 +26,12 @@ import torch.nn.functional as F
 from ..config import ModelConfig
 from ..ops.attention import gqa_attention
 from ..ops.norms import rms_norm
+from ..ops.quant import (
+    QuantizedTensor,
+    QuantizedTensor4Split,
+    QuantizedTensor4SplitView,
+)
+from ..ops.quant import matmul as qmatmul
 from ..ops.rotary import RopeAngles, rope_cos_sin, rope_inv_freq
 from ..utils.device import resolve_device
 
@@ -119,6 +129,21 @@ def init_params(
     return params
 
 
+def _numpy_to_torch(a) -> torch.Tensor:
+    """A numpy array as a tensor of the same type; numpy's bfloat16 (an
+    extension type) goes over by its bits."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(a.copy())
+
+
+def _field(leaf, name, default=None):
+    if isinstance(leaf, Mapping):
+        return leaf.get(name, default)
+    return getattr(leaf, name, default)
+
+
 def params_from_numpy(
     cfg: ModelConfig,
     tree: Mapping[str, Any],
@@ -127,12 +152,31 @@ def params_from_numpy(
 ) -> Params:
     """The port's parameters from the JAX package's parameter tree given as
     numpy arrays (same keys, same ``[in, out]`` layout, layers stacked
-    ``[L, ...]``): a straight copy onto ``device`` in ``dtype``."""
+    ``[L, ...]``): a straight copy onto ``device`` in ``dtype``.
+
+    Quantized leaves (the JAX package's ``QuantizedTensor`` and
+    ``QuantizedTensor4Split`` with numpy fields, or mappings of the same
+    fields: ``{q, scale}``, ``{q, scale_lo, scale_hi, in_dim, out_dim}``)
+    become the port's classes and keep their own dtypes: int8 values stay
+    int8, scales keep theirs."""
     _require_dense(cfg)
     dev = resolve_device(device)
 
     def conv(a):
-        return torch.tensor(np.asarray(a)).to(device=dev, dtype=dtype)
+        if isinstance(a, Mapping) or hasattr(a, "q"):
+            q = _numpy_to_torch(_field(a, "q")).to(dev)
+            if _field(a, "scale_lo") is not None:
+                return QuantizedTensor4Split(
+                    q=q,
+                    scale_lo=_numpy_to_torch(_field(a, "scale_lo")).to(dev),
+                    scale_hi=_numpy_to_torch(_field(a, "scale_hi")).to(dev),
+                    in_dim=int(_field(a, "in_dim")),
+                    out_dim=int(_field(a, "out_dim")),
+                )
+            return QuantizedTensor(
+                q=q, scale=_numpy_to_torch(_field(a, "scale")).to(dev)
+            )
+        return _numpy_to_torch(a).to(device=dev, dtype=dtype)
 
     want = {"attn_norm", "wq", "wk", "wv", "wo", "mlp_norm", "wg", "wu", "wd"}
     layers = {k: conv(v) for k, v in tree["layers"].items()}
@@ -180,9 +224,9 @@ def _decoder_layer(
     hq, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
 
     h = rms_norm(x, p["attn_norm"], cfg.rms_norm_eps)
-    q = h @ p["wq"]
-    k = h @ p["wk"]
-    v = h @ p["wv"]
+    q = qmatmul(h, p["wq"])
+    k = qmatmul(h, p["wk"])
+    v = qmatmul(h, p["wv"])
     # Biases applied iff the checkpoint carries them (HF `attention_bias`).
     if "bq" in p:
         q = q + p["bq"]
@@ -196,14 +240,37 @@ def _decoder_layer(
         layer_state, q, k, v, rope, q_pos, num_new,
         cfg.sliding_window, attention_fn, d**-0.5,
     )
-    x = x + attn.reshape(b, s, hq * d) @ p["wo"]
+    x = x + qmatmul(attn.reshape(b, s, hq * d), p["wo"])
     return _mlp_residual(cfg, p, x), new_state
 
 
 def _mlp_residual(cfg, p, x):
     """Pre-norm SwiGLU MLP + residual."""
     h2 = rms_norm(x, p["mlp_norm"], cfg.rms_norm_eps)
-    return x + (F.silu(h2 @ p["wg"]) * (h2 @ p["wu"])) @ p["wd"]
+    return x + qmatmul(
+        F.silu(qmatmul(h2, p["wg"])) * qmatmul(h2, p["wu"]), p["wd"]
+    )
+
+
+def _split_int4_stacks(layer_params: Params):
+    """Partition the layer dict: half-split int4 stacks are handed to every
+    layer WHOLE (their kernel takes a layer index); everything else is
+    sliced per layer."""
+    whole = {
+        k: v for k, v in layer_params.items()
+        if isinstance(v, QuantizedTensor4Split)
+    }
+    sliced = {k: v for k, v in layer_params.items() if k not in whole}
+    return whole, sliced
+
+
+def _int4_views(whole: Params, idx: int) -> Params:
+    return {
+        k: QuantizedTensor4SplitView(
+            v.q, v.scale_lo, v.scale_hi, idx, v.in_dim, v.out_dim
+        )
+        for k, v in whole.items()
+    }
 
 
 def block_apply(
@@ -233,8 +300,10 @@ def block_apply(
     rope = RopeAngles(inv_freq, cos, sin)
 
     stacks = cache.layer_stacks  # tuple of [L, ...] tensors
+    whole_w, sliced_w = _split_int4_stacks(layer_params)
     for i in range(stacks[0].shape[0]):
-        p = {name: w[i] for name, w in layer_params.items()}
+        p = {name: w[i] for name, w in sliced_w.items()}
+        p.update(_int4_views(whole_w, i))
         layer_state = tuple(stack[i] for stack in stacks)
         x, _ = _decoder_layer(
             cfg, p, x, layer_state, cache, rope, q_pos, num_new, attention_fn
@@ -281,4 +350,4 @@ def apply_head(cfg: ModelConfig, params: Params, x: torch.Tensor) -> torch.Tenso
     head = params.get("lm_head")
     if head is None:
         head = params["embed"].T
-    return (x @ head).float()
+    return qmatmul(x, head).float()

@@ -1,19 +1,24 @@
 """Paged decode attention: a CUDA kernel that reads K/V in place from the
-page pool, and its plain PyTorch version.
+page pool, and its plain PyTorch version; the same over int8 pages.
 
-Replaces the TPU kernel ``_paged_kernel`` behind ``paged_attention`` in the
-JAX package's ``ops/paged_attention.py``. On this card the function is bound
+Replaces the TPU kernels ``_paged_kernel`` behind ``paged_attention`` and
+``_qpaged_kernel`` behind ``quantized_paged_attention`` in the JAX package's
+``ops/paged_attention.py``. On this card the function is bound
 by bytes: every live K and V slot is read once for a handful of dot
 products. ``csrc/paged_attention.cu`` walks only the live positions of each
 row (nothing is fetched for dead table slots), gives each position to a
 group of 8 lanes with 16-byte loads, keeps the online-softmax state in
 f32 registers, and splits a row's positions over several blocks whose
 partial results a second small kernel merges; this wrapper sizes the split
-and allocates its scratch.
+and allocates its scratch. Over int8 pages (per-(slot, head) f32 scale
+planes beside them) the same page walk reads half the bytes: the K scale
+multiplies the score and the V scale the probability before P V, so the
+pages are never dequantized into a copy.
 
-The wrapper launches the kernel for CUDA tensors and raises on anything the
-kernel does not take; it uses the plain version only for tensors that lie on
-the CPU. ``launches`` counts kernel launches (and nothing else).
+The wrappers launch the kernel for CUDA tensors and raise on anything the
+kernel does not take; they use the plain version only for tensors that lie
+on the CPU. ``launches`` and ``quantized_launches`` count kernel launches
+(and nothing else).
 """
 
 from __future__ import annotations
@@ -26,14 +31,23 @@ import torch
 from . import _build
 from .attention import _NEG_INF
 
-__all__ = ["paged_attention", "paged_attention_plain", "launches"]
+__all__ = [
+    "paged_attention",
+    "paged_attention_plain",
+    "quantized_paged_attention",
+    "quantized_paged_attention_plain",
+    "launches",
+    "quantized_launches",
+]
 
-# Kernel launches made by :func:`paged_attention` in this process.
+# Kernel launches made by :func:`paged_attention` /
+# :func:`quantized_paged_attention` in this process.
 launches = 0
+quantized_launches = 0
 
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
 _MIN_SPLIT = 256  # positions: a block is not worth less
-_fn = None
+_fn = {}
 _sm_count = {}
 
 
@@ -52,33 +66,49 @@ def split_plan(device, pairs: int, span: int):
     return num, chunk
 
 
-def _kernel():
-    global _fn
-    if _fn is None:
-        fn = _build.load_library("paged_attention").dli_paged_attention
-        fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 8 + [
+def _kernel(quantized: bool = False):
+    fn = _fn.get(quantized)
+    if fn is None:
+        lib = _build.load_library("paged_attention")
+        if quantized:
+            fn = lib.dli_quantized_paged_attention
+            pointers = 14
+        else:
+            fn = lib.dli_paged_attention
+            pointers = 12
+        fn.argtypes = [ctypes.c_void_p] * pointers + [ctypes.c_int] * 8 + [
             ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
         ]
         fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+        _fn[quantized] = fn
+    return fn
 
 
-def check_kernel_inputs(name, q, k_pages, v_pages, page_table, vectors):
-    """Shared argument checks of the two kernel wrappers: one CUDA device,
-    bf16 or f32 throughout, contiguous, int32 indices, supported widths."""
+def check_kernel_inputs(name, q, k_pages, v_pages, page_table, vectors,
+                        scales=()):
+    """Shared argument checks of the kernel wrappers: one CUDA device,
+    bf16 or f32 queries, contiguous, int32 indices, supported widths. Pools
+    have q's type, or with ``scales`` (``(("ks_pages", ks), ("vs_pages",
+    vs))``) are int8 with f32 ``[P, Hkv, PS]`` scale planes."""
     dev = q.device
     for label, t in (("k_pages", k_pages), ("v_pages", v_pages),
-                     ("page_table", page_table), *vectors):
+                     ("page_table", page_table), *vectors, *scales):
         if t.device != dev:
             raise ValueError(f"{name}: {label} on {t.device}, q on {dev}")
     if q.dtype not in _DTYPE_CODE:
         raise TypeError(f"{name}: dtype {q.dtype} (kernel takes bf16, f32)")
-    if k_pages.dtype != q.dtype or v_pages.dtype != q.dtype:
+    pool_dtype = torch.int8 if scales else q.dtype
+    if k_pages.dtype != pool_dtype or v_pages.dtype != pool_dtype:
         raise TypeError(
             f"{name}: q {q.dtype}, k_pages {k_pages.dtype}, v_pages "
-            f"{v_pages.dtype} must agree"
+            f"{v_pages.dtype}: pools must be {pool_dtype}"
         )
+    for label, t in scales:
+        if t.dtype != torch.float32 or tuple(t.shape) != tuple(k_pages.shape[:3]):
+            raise ValueError(
+                f"{name}: {label} must be f32 {tuple(k_pages.shape[:3])}, got "
+                f"{t.dtype} {tuple(t.shape)}"
+            )
     if k_pages.shape != v_pages.shape or k_pages.ndim != 4:
         raise ValueError(
             f"{name}: pools must both be [P, Hkv, PS, D], got "
@@ -106,7 +136,7 @@ def check_kernel_inputs(name, q, k_pages, v_pages, page_table, vectors):
         if tuple(t.shape) != (b,):
             raise ValueError(f"{name}: {label} {tuple(t.shape)}, want ({b},)")
     for label, t in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages),
-                     ("page_table", page_table), *vectors):
+                     ("page_table", page_table), *vectors, *scales):
         if not t.is_contiguous():
             raise ValueError(f"{name}: {label} must be contiguous")
     for label, t in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages)):
@@ -124,19 +154,20 @@ def gather_pages(pages: torch.Tensor, page_table: torch.Tensor) -> torch.Tensor:
     return g.permute(0, 1, 3, 2, 4).reshape(b, t * ps, hkv, d)
 
 
-def paged_attention_plain(
-    q: torch.Tensor,
-    k_pages: torch.Tensor,
-    v_pages: torch.Tensor,
-    page_table: torch.Tensor,
-    kv_lengths: torch.Tensor,
-    scale: Optional[float] = None,
-    sliding_window: Optional[int] = None,
-    q_positions: Optional[torch.Tensor] = None,
-    return_stats: bool = False,
-):
-    """Plain PyTorch version of :func:`paged_attention`: gather the row's
-    pages, mask, softmax in f32. Same arguments and results."""
+def gather_scales(scales: torch.Tensor, page_table: torch.Tensor) -> torch.Tensor:
+    """``[P, Hkv, PS]`` scale plane + ``[B, T]`` table → ``[B, T*PS, Hkv]``."""
+    b, t = page_table.shape
+    _, hkv, ps = scales.shape
+    g = scales[page_table.long()]             # [B, T, Hkv, PS]
+    return g.permute(0, 1, 3, 2).reshape(b, t * ps, hkv)
+
+
+def _plain(q, k_pages, v_pages, page_table, kv_lengths, scale,
+           sliding_window, q_positions, return_stats, ks_pages=None,
+           vs_pages=None):
+    """Gather the row's pages, mask, softmax in f32. With scale planes the
+    pages are int8: the K scale multiplies the score, the V scale the
+    probability before P V, as the TPU kernel does."""
     b, s, hq, d = q.shape
     if s != 1:
         raise ValueError(f"paged_attention is decode-only (S=1), got S={s}")
@@ -150,7 +181,11 @@ def paged_attention_plain(
     k = gather_pages(k_pages, page_table).float()      # [B, KV, Hkv, D]
     v = gather_pages(v_pages, page_table).float()
     qr = q.reshape(b, hkv, g, d).float()
-    scores = torch.einsum("bhgd,bthd->bhgt", qr, k) * scale
+    scores = torch.einsum("bhgd,bthd->bhgt", qr, k)
+    if ks_pages is not None:
+        ks = gather_scales(ks_pages, page_table)       # [B, KV, Hkv]
+        scores = scores * ks.permute(0, 2, 1)[:, :, None, :]
+    scores = scores * scale
     pos = torch.arange(k.shape[1], device=q.device)[None, :]
     valid = pos < kv_lengths[:, None]
     if sliding_window is not None:
@@ -160,8 +195,98 @@ def paged_attention_plain(
     m = scores.amax(dim=-1)                            # [B, Hkv, G]
     p = torch.where(valid, torch.exp(scores - m[..., None]), 0.0)
     l = p.sum(dim=-1)
-    out = torch.einsum("bhgt,bthd->bhgd", p, v) / l.clamp_min(1e-20)[..., None]
+    pw = p
+    if vs_pages is not None:
+        vs = gather_scales(vs_pages, page_table)
+        pw = p * vs.permute(0, 2, 1)[:, :, None, :]
+    out = torch.einsum("bhgt,bthd->bhgd", pw, v) / l.clamp_min(1e-20)[..., None]
     out = out.reshape(b, 1, hq, d).to(q.dtype)
+    if return_stats:
+        return out, m, l
+    return out
+
+
+def paged_attention_plain(
+    q: torch.Tensor,
+    k_pages: torch.Tensor,
+    v_pages: torch.Tensor,
+    page_table: torch.Tensor,
+    kv_lengths: torch.Tensor,
+    scale: Optional[float] = None,
+    sliding_window: Optional[int] = None,
+    q_positions: Optional[torch.Tensor] = None,
+    return_stats: bool = False,
+):
+    """Plain PyTorch version of :func:`paged_attention`: gather the row's
+    pages, mask, softmax in f32. Same arguments and results."""
+    return _plain(q, k_pages, v_pages, page_table, kv_lengths, scale,
+                  sliding_window, q_positions, return_stats)
+
+
+def quantized_paged_attention_plain(
+    q: torch.Tensor,
+    k_pages: torch.Tensor,
+    ks_pages: torch.Tensor,
+    v_pages: torch.Tensor,
+    vs_pages: torch.Tensor,
+    page_table: torch.Tensor,
+    kv_lengths: torch.Tensor,
+    scale: Optional[float] = None,
+    sliding_window: Optional[int] = None,
+    q_positions: Optional[torch.Tensor] = None,
+    return_stats: bool = False,
+):
+    """Plain PyTorch version of :func:`quantized_paged_attention`."""
+    return _plain(q, k_pages, v_pages, page_table, kv_lengths, scale,
+                  sliding_window, q_positions, return_stats, ks_pages,
+                  vs_pages)
+
+
+def _launch(name, q, k_pages, v_pages, page_table, kv_lengths, scale,
+            sliding_window, q_positions, return_stats, scales=()):
+    """Checks, scratch and one launch of the split kernel and its merge,
+    for bf16/f32 pools or (with ``scales``) int8 pools."""
+    b, s, hq, d = q.shape
+    if s != 1:
+        raise ValueError(f"{name} is decode-only (S=1), got S={s}")
+    if q_positions is None:
+        q_positions = kv_lengths - 1
+    code = check_kernel_inputs(
+        name, q, k_pages, v_pages, page_table,
+        (("kv_lengths", kv_lengths), ("q_positions", q_positions)), scales,
+    )
+    _, hkv, page_size, _ = k_pages.shape
+    g = hq // hkv
+    if scale is None:
+        scale = d**-0.5
+    width = page_table.shape[1]
+    num_splits, chunk = split_plan(q.device, b * hkv, width * page_size)
+    out = torch.empty_like(q)
+    m = torch.empty((b, hkv, g), dtype=torch.float32, device=q.device)
+    l = torch.empty_like(m)
+    part_o = torch.empty(
+        (b, hkv, num_splits, g, d), dtype=torch.float32, device=q.device
+    )
+    part_ml = torch.empty(
+        (2, b, hkv, num_splits, g), dtype=torch.float32, device=q.device
+    )
+    if scales:
+        pools = (k_pages.data_ptr(), scales[0][1].data_ptr(),
+                 v_pages.data_ptr(), scales[1][1].data_ptr())
+    else:
+        pools = (k_pages.data_ptr(), v_pages.data_ptr())
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _kernel(bool(scales))(
+            q.data_ptr(), *pools, page_table.data_ptr(),
+            kv_lengths.data_ptr(), q_positions.data_ptr(), out.data_ptr(),
+            m.data_ptr(), l.data_ptr(), part_o.data_ptr(),
+            part_ml[0].data_ptr(), part_ml[1].data_ptr(), b, hkv, g, d,
+            page_size, width, num_splits, chunk, float(scale),
+            int(sliding_window or 0), code, stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"{name}: kernel launch failed ({err})")
     if return_stats:
         return out, m, l
     return out
@@ -199,44 +324,40 @@ def paged_attention(
         )
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention: unsupported device {q.device}")
-    b, s, hq, d = q.shape
-    if s != 1:
-        raise ValueError(f"paged_attention is decode-only (S=1), got S={s}")
-    if q_positions is None:
-        q_positions = kv_lengths - 1
-    code = check_kernel_inputs(
-        "paged_attention", q, k_pages, v_pages, page_table,
-        (("kv_lengths", kv_lengths), ("q_positions", q_positions)),
-    )
-    _, hkv, page_size, _ = k_pages.shape
-    g = hq // hkv
-    if scale is None:
-        scale = d**-0.5
-    width = page_table.shape[1]
-    num_splits, chunk = split_plan(q.device, b * hkv, width * page_size)
-    out = torch.empty_like(q)
-    m = torch.empty((b, hkv, g), dtype=torch.float32, device=q.device)
-    l = torch.empty_like(m)
-    part_o = torch.empty(
-        (b, hkv, num_splits, g, d), dtype=torch.float32, device=q.device
-    )
-    part_ml = torch.empty(
-        (2, b, hkv, num_splits, g), dtype=torch.float32, device=q.device
-    )
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _kernel()(
-            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-            page_table.data_ptr(), kv_lengths.data_ptr(),
-            q_positions.data_ptr(), out.data_ptr(), m.data_ptr(),
-            l.data_ptr(), part_o.data_ptr(), part_ml[0].data_ptr(),
-            part_ml[1].data_ptr(), b, hkv, g, d, page_size, width,
-            num_splits, chunk, float(scale), int(sliding_window or 0), code,
-            stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"paged_attention: kernel launch failed ({err})")
+    out = _launch("paged_attention", q, k_pages, v_pages, page_table,
+                  kv_lengths, scale, sliding_window, q_positions,
+                  return_stats)
     launches += 1
-    if return_stats:
-        return out, m, l
+    return out
+
+
+def quantized_paged_attention(
+    q: torch.Tensor,
+    k_pages: torch.Tensor,
+    ks_pages: torch.Tensor,
+    v_pages: torch.Tensor,
+    vs_pages: torch.Tensor,
+    page_table: torch.Tensor,
+    kv_lengths: torch.Tensor,
+    scale: Optional[float] = None,
+    sliding_window: Optional[int] = None,
+    q_positions: Optional[torch.Tensor] = None,
+    return_stats: bool = False,
+):
+    """As :func:`paged_attention` over int8 pages with per-(slot, head)
+    scale planes (``ks_pages``/``vs_pages``: ``[P, Hkv, page_size]`` f32)."""
+    global quantized_launches
+    if q.device.type == "cpu":
+        return quantized_paged_attention_plain(
+            q, k_pages, ks_pages, v_pages, vs_pages, page_table, kv_lengths,
+            scale, sliding_window, q_positions, return_stats,
+        )
+    if q.device.type != "cuda":
+        raise ValueError(
+            f"quantized_paged_attention: unsupported device {q.device}"
+        )
+    out = _launch("quantized_paged_attention", q, k_pages, v_pages,
+                  page_table, kv_lengths, scale, sliding_window, q_positions,
+                  return_stats, (("ks_pages", ks_pages), ("vs_pages", vs_pages)))
+    quantized_launches += 1
     return out

@@ -1,19 +1,24 @@
 """Ragged mixed-phase paged attention: a CUDA kernel that serves prefill,
 chunked-prefill and decode rows in one launch, and its plain PyTorch version.
 
-Replaces the TPU kernel ``_ragged_kernel`` behind ``ragged_paged_attention``
-in the JAX package's ``ops/ragged_attention.py``. On this card the function
+Replaces the TPU kernels ``_ragged_kernel`` behind ``ragged_paged_attention``
+and ``_qragged_kernel`` behind ``quantized_ragged_paged_attention`` (the same
+over int8 pages with per-(slot, head) f32 scale planes) in the JAX package's
+``ops/ragged_attention.py``. On this card the function
 is bound by operations (the products Q K^T and P V), so
 ``csrc/ragged_attention.cu`` cuts the work to what the data needs: a block
 per (query tile, kv head, row) stops at its tile's causal frontier, tiles of
 pad queries exit at once, and pages are read in place (no contiguous
 gather copy). The products run on the tensor cores (``mma.sync``) for bf16
 and as register-tiled f32 FMAs for f32, which the engine's exact-parity
-checks need.
+checks need. Over int8 pages the staging converts K and V rows to the
+working type in shared memory and the scales apply to the scores (K) and to
+the probabilities before P V (V).
 
-The wrapper launches the kernel for CUDA tensors and raises on anything the
-kernel does not take; it uses the plain version only for tensors that lie on
-the CPU. ``launches`` counts kernel launches (and nothing else).
+The wrappers launch the kernel for CUDA tensors and raise on anything the
+kernel does not take; they use the plain version only for tensors that lie
+on the CPU. ``launches`` and ``quantized_launches`` count kernel launches
+(and nothing else).
 """
 
 from __future__ import annotations
@@ -25,47 +30,50 @@ import torch
 
 from . import _build
 from .attention import _NEG_INF
-from .paged_attention import check_kernel_inputs, gather_pages
+from .paged_attention import check_kernel_inputs, gather_pages, gather_scales
 
 __all__ = [
     "ragged_paged_attention",
     "ragged_paged_attention_plain",
+    "quantized_ragged_paged_attention",
+    "quantized_ragged_paged_attention_plain",
     "ragged_attention_reference",
     "launches",
+    "quantized_launches",
 ]
 
-# Kernel launches made by :func:`ragged_paged_attention` in this process.
+# Kernel launches made by :func:`ragged_paged_attention` /
+# :func:`quantized_ragged_paged_attention` in this process.
 launches = 0
+quantized_launches = 0
 
-_fn = None
+_fn = {}
 
 
-def _kernel():
-    global _fn
-    if _fn is None:
-        fn = _build.load_library("ragged_attention").dli_ragged_paged_attention
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [
+def _kernel(quantized: bool = False):
+    fn = _fn.get(quantized)
+    if fn is None:
+        lib = _build.load_library("ragged_attention")
+        if quantized:
+            fn = lib.dli_quantized_ragged_paged_attention
+            pointers = 10
+        else:
+            fn = lib.dli_ragged_paged_attention
+            pointers = 8
+        fn.argtypes = [ctypes.c_void_p] * pointers + [ctypes.c_int] * 7 + [
             ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
         ]
         fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+        _fn[quantized] = fn
+    return fn
 
 
-def ragged_paged_attention_plain(
-    q: torch.Tensor,
-    k_pages: torch.Tensor,
-    v_pages: torch.Tensor,
-    page_table: torch.Tensor,
-    kv_lengths: torch.Tensor,
-    num_new: torch.Tensor,
-    q_start: Optional[torch.Tensor] = None,
-    scale: Optional[float] = None,
-    sliding_window: Optional[int] = None,
-):
-    """Plain PyTorch version of :func:`ragged_paged_attention`: gather the
-    row's pages, mask per (query, slot), softmax in f32; pad queries and
-    empty rows give zeros. Same arguments and result."""
+def _plain(q, k_pages, v_pages, page_table, kv_lengths, num_new, q_start,
+           scale, sliding_window, ks_pages=None, vs_pages=None):
+    """Gather the row's pages, mask per (query, slot), softmax in f32; pad
+    queries and empty rows give zeros. With scale planes the pages are int8:
+    the K scale multiplies the score, the V scale the probability before
+    P V, as the TPU kernel does."""
     b, s, hq, d = q.shape
     hkv = k_pages.shape[1]
     g = hq // hkv
@@ -77,7 +85,11 @@ def ragged_paged_attention_plain(
     k = gather_pages(k_pages, page_table).float()      # [B, KV, Hkv, D]
     v = gather_pages(v_pages, page_table).float()
     qr = q.reshape(b, s, hkv, g, d).float()
-    scores = torch.einsum("bshgd,bthd->bhgst", qr, k) * scale
+    scores = torch.einsum("bshgd,bthd->bhgst", qr, k)
+    if ks_pages is not None:
+        ks = gather_scales(ks_pages, page_table)       # [B, KV, Hkv]
+        scores = scores * ks.permute(0, 2, 1)[:, :, None, None, :]
+    scores = scores * scale
 
     q_rel = torch.arange(s, device=q.device)[None, :]            # [1, S]
     q_pos = q_start[:, None] + q_rel                             # [B, S]
@@ -94,8 +106,80 @@ def ragged_paged_attention_plain(
     m = scores.amax(dim=-1, keepdim=True)
     p = torch.where(valid, torch.exp(scores - m), 0.0)
     l = p.sum(dim=-1, keepdim=True)
+    if vs_pages is not None:
+        vs = gather_scales(vs_pages, page_table)
+        p = p * vs.permute(0, 2, 1)[:, :, None, None, :]
     out = torch.einsum("bhgst,bthd->bshgd", p / l.clamp_min(1e-20), v)
     return out.reshape(b, s, hq, d).to(q.dtype)
+
+
+def ragged_paged_attention_plain(
+    q: torch.Tensor,
+    k_pages: torch.Tensor,
+    v_pages: torch.Tensor,
+    page_table: torch.Tensor,
+    kv_lengths: torch.Tensor,
+    num_new: torch.Tensor,
+    q_start: Optional[torch.Tensor] = None,
+    scale: Optional[float] = None,
+    sliding_window: Optional[int] = None,
+):
+    """Plain PyTorch version of :func:`ragged_paged_attention`: gather the
+    row's pages, mask per (query, slot), softmax in f32; pad queries and
+    empty rows give zeros. Same arguments and result."""
+    return _plain(q, k_pages, v_pages, page_table, kv_lengths, num_new,
+                  q_start, scale, sliding_window)
+
+
+def quantized_ragged_paged_attention_plain(
+    q: torch.Tensor,
+    k_pages: torch.Tensor,
+    ks_pages: torch.Tensor,
+    v_pages: torch.Tensor,
+    vs_pages: torch.Tensor,
+    page_table: torch.Tensor,
+    kv_lengths: torch.Tensor,
+    num_new: torch.Tensor,
+    q_start: Optional[torch.Tensor] = None,
+    scale: Optional[float] = None,
+    sliding_window: Optional[int] = None,
+):
+    """Plain PyTorch version of :func:`quantized_ragged_paged_attention`."""
+    return _plain(q, k_pages, v_pages, page_table, kv_lengths, num_new,
+                  q_start, scale, sliding_window, ks_pages, vs_pages)
+
+
+def _launch(name, q, k_pages, v_pages, page_table, kv_lengths, num_new,
+            q_start, scale, sliding_window, scales=()):
+    if q_start is None:
+        q_start = kv_lengths - num_new
+    code = check_kernel_inputs(
+        name, q, k_pages, v_pages, page_table,
+        (("kv_lengths", kv_lengths), ("num_new", num_new),
+         ("q_start", q_start)), scales,
+    )
+    b, s, hq, d = q.shape
+    _, hkv, page_size, _ = k_pages.shape
+    if scale is None:
+        scale = d**-0.5
+    if scales:
+        pools = (k_pages.data_ptr(), scales[0][1].data_ptr(),
+                 v_pages.data_ptr(), scales[1][1].data_ptr())
+    else:
+        pools = (k_pages.data_ptr(), v_pages.data_ptr())
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _kernel(bool(scales))(
+            q.data_ptr(), *pools, page_table.data_ptr(),
+            kv_lengths.data_ptr(), q_start.data_ptr(), num_new.data_ptr(),
+            out.data_ptr(), b, s, hkv, hq // hkv, d, page_size,
+            page_table.shape[1], float(scale), int(sliding_window or 0),
+            code, stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"{name}: kernel launch failed ({err})")
+    return out
 
 
 def ragged_paged_attention(
@@ -133,32 +217,45 @@ def ragged_paged_attention(
         )
     if q.device.type != "cuda":
         raise ValueError(f"ragged_paged_attention: unsupported device {q.device}")
-    if q_start is None:
-        q_start = kv_lengths - num_new
-    code = check_kernel_inputs(
-        "ragged_paged_attention", q, k_pages, v_pages, page_table,
-        (("kv_lengths", kv_lengths), ("num_new", num_new),
-         ("q_start", q_start)),
-    )
-    b, s, hq, d = q.shape
-    _, hkv, page_size, _ = k_pages.shape
-    if scale is None:
-        scale = d**-0.5
-    out = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _kernel()(
-            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-            page_table.data_ptr(), kv_lengths.data_ptr(), q_start.data_ptr(),
-            num_new.data_ptr(), out.data_ptr(), b, s, hkv, hq // hkv, d,
-            page_size, page_table.shape[1], float(scale),
-            int(sliding_window or 0), code, stream,
-        )
-    if err != 0:
-        raise RuntimeError(
-            f"ragged_paged_attention: kernel launch failed ({err})"
-        )
+    out = _launch("ragged_paged_attention", q, k_pages, v_pages, page_table,
+                  kv_lengths, num_new, q_start, scale, sliding_window)
     launches += 1
+    return out
+
+
+def quantized_ragged_paged_attention(
+    q: torch.Tensor,
+    k_pages: torch.Tensor,
+    ks_pages: torch.Tensor,
+    v_pages: torch.Tensor,
+    vs_pages: torch.Tensor,
+    page_table: torch.Tensor,
+    kv_lengths: torch.Tensor,
+    num_new: torch.Tensor,
+    q_start: Optional[torch.Tensor] = None,
+    scale: Optional[float] = None,
+    sliding_window: Optional[int] = None,
+    block_q: Optional[int] = None,
+):
+    """As :func:`ragged_paged_attention` over int8 pages with per-(slot,
+    head) scale planes (``ks_pages``/``vs_pages``: ``[P, Hkv, page_size]``
+    f32)."""
+    global quantized_launches
+    del block_q
+    if q.device.type == "cpu":
+        return quantized_ragged_paged_attention_plain(
+            q, k_pages, ks_pages, v_pages, vs_pages, page_table, kv_lengths,
+            num_new, q_start, scale, sliding_window,
+        )
+    if q.device.type != "cuda":
+        raise ValueError(
+            f"quantized_ragged_paged_attention: unsupported device {q.device}"
+        )
+    out = _launch("quantized_ragged_paged_attention", q, k_pages, v_pages,
+                  page_table, kv_lengths, num_new, q_start, scale,
+                  sliding_window,
+                  (("ks_pages", ks_pages), ("vs_pages", vs_pages)))
+    quantized_launches += 1
     return out
 
 
@@ -172,10 +269,13 @@ def ragged_attention_reference(
     q_start: Optional[torch.Tensor] = None,
     scale: Optional[float] = None,
     sliding_window: Optional[int] = None,
+    ks_pages: Optional[torch.Tensor] = None,
+    vs_pages: Optional[torch.Tensor] = None,
 ):
     """Oracle as the JAX file has it: contiguous gather, masked
-    ``softmax`` over every slot, pad query rows zeroed afterwards. (The int8
-    scale planes of the JAX oracle come with the quantized kernels.)"""
+    ``softmax`` over every slot, pad query rows zeroed afterwards; int8
+    pools are dequantized when scale planes are given (keyword arguments
+    here, positional after ``num_new`` in the JAX function)."""
     b, s, hq, d = q.shape
     hkv = k_pages.shape[1]
     g = hq // hkv
@@ -186,6 +286,9 @@ def ragged_attention_reference(
 
     k = gather_pages(k_pages, page_table).float()
     v = gather_pages(v_pages, page_table).float()
+    if ks_pages is not None:
+        k = k * gather_scales(ks_pages, page_table)[..., None]
+        v = v * gather_scales(vs_pages, page_table)[..., None]
     qr = q.reshape(b, s, hkv, g, d).float()
     scores = torch.einsum("bshgd,bthd->bhgst", qr, k) * scale
 

@@ -5,6 +5,7 @@ submissions go to the JAX ``InferenceEngine`` (paged cache, float32,
 plain versions, since the tensors lie on the CPU). Greedy token streams, the
 events of every tick and the finish reasons must be IDENTICAL."""
 
+import collections
 import dataclasses
 
 import jax
@@ -22,6 +23,7 @@ from distributed_llm_inference_tpu_torch.engine.engine import InferenceEngine
 from distributed_llm_inference_tpu_torch.engine.sampling import SamplingOptions
 from distributed_llm_inference_tpu_torch.models import llama as tllama
 from distributed_llm_inference_tpu_torch.ops import paged_attention as tpa
+from distributed_llm_inference_tpu_torch.ops import quant_matmul as tqm
 from distributed_llm_inference_tpu_torch.ops import ragged_attention as tra
 
 torch.set_num_threads(1)
@@ -34,19 +36,22 @@ TPARAMS = tllama.params_from_numpy(
     torch.float32, "cpu")
 
 
-def engines(batch=4, chunk=None, num_pages=64, **ekw):
+def engines(batch=4, chunk=None, num_pages=64, kv_quant=None,
+            attention_backend="cuda", **ekw):
     e = dict(max_batch_size=batch, prefill_buckets=(8, 16, 32), max_seq_len=64,
              dtype="float32", ragged_attention=True, prefill_chunk_tokens=chunk,
              decode_steps=1, pipelined_ticks=False, **ekw)
     c = dict(kind="paged", page_size=8, num_pages=num_pages,
-             max_pages_per_session=8)
+             max_pages_per_session=8, kv_quant=kv_quant)
     jax_engine = JaxEngine(
         jcfg.ModelConfig(**MODEL), JPARAMS, jcfg.EngineConfig(**e),
         jcfg.CacheConfig(**c))
     port = InferenceEngine(
         tcfg.ModelConfig(**MODEL), TPARAMS, tcfg.EngineConfig(**e),
-        tcfg.CacheConfig(**c), device="cpu", attention_backend="cuda")
-    assert port.cache.use_kernel and port.cache.use_ragged
+        tcfg.CacheConfig(**c), device="cpu",
+        attention_backend=attention_backend)
+    kernels = attention_backend == "cuda"
+    assert port.cache.use_kernel == kernels and port.cache.use_ragged == kernels
     return jax_engine, port
 
 
@@ -254,12 +259,99 @@ def test_capacity_rejection_matches():
     assert got[2] == ["capacity", "length"] and got[0][0] == []
 
 
+# Quantized serving: int4 (half-split) or int8 weights over the int8 page
+# pool. The JAX engine runs once per configuration (its int4 projections are
+# interpret-mode kernels); the port runs twice against it: through the
+# kernel wrappers (attention_backend "cuda", their plain versions on the
+# CPU) and on the default plan (the gather path).
+QUANT_SCRIPT = [
+    {"submit": [(p, dict(max_new_tokens=6)) for p in prompts(5, seed=12)]},
+    {},
+    {"submit": [(list(range(7, 47)), dict(max_new_tokens=6))],
+     "cancel": [1]},
+]
+_QUANT_WANT = {}
+
+
+@pytest.mark.parametrize("backend", ["cuda", None], ids=["kernels", "default"])
+@pytest.mark.parametrize("quantization", ["int4", "int8"])
+def test_quantized_serving_matches_jax(quantization, backend):
+    kw = dict(chunk=16, chunk_decode_share=0.5, kv_quant="int8",
+              quantization=quantization)
+    jax_engine, port = engines(attention_backend=backend, **kw)
+    if quantization not in _QUANT_WANT:
+        _QUANT_WANT[quantization] = (
+            drive(jax_engine, JaxOptions, QUANT_SCRIPT),
+            jax_engine.metrics.get_counter("attn_chunked_rows"),
+            jax_engine.metrics.snapshot()["kv_bytes_per_token"],
+        )
+    want, chunked, kv_bytes = _QUANT_WANT[quantization]
+    before = (tpa.quantized_launches, tra.quantized_launches,
+              tqm.launches, tqm.stacked_launches)
+    got = drive(port, SamplingOptions, QUANT_SCRIPT)
+    assert_identical(got, want)
+    assert got[2] == ["length", "cancelled", "length", "length", "length",
+                      "length"]
+    assert all(len(s) == 6 for i, s in enumerate(got[0]) if i != 1)
+    assert port.metrics.snapshot()["kv_bytes_per_token"] == kv_bytes
+    assert port.allocator.free_count == 63
+    if backend == "cuda":
+        # The long prompt rode the decode cadence, as in the JAX engine.
+        assert port.metrics.get_counter("attn_chunked_rows") == chunked > 0
+    assert before == (tpa.quantized_launches, tra.quantized_launches,
+                      tqm.launches, tqm.stacked_launches), (
+        "no kernel ran on the CPU")
+
+
+def test_quantized_engine_goes_through_the_int8_and_int4_wrappers(monkeypatch):
+    calls = collections.Counter()
+    for mod, name in ((tpa, "quantized_paged_attention"),
+                      (tra, "quantized_ragged_paged_attention"),
+                      (tqm, "int4_matmul"), (tqm, "int4_matmul_stacked")):
+        real = getattr(mod, name)
+
+        def counted(*a, _real=real, _name=name, **k):
+            calls[_name] += 1
+            return _real(*a, **k)
+
+        monkeypatch.setattr(mod, name, counted)
+    port = InferenceEngine(
+        tcfg.ModelConfig(**MODEL), TPARAMS,
+        tcfg.EngineConfig(max_batch_size=4, prefill_buckets=(8, 16, 32),
+                          max_seq_len=64, dtype="float32", quantization="int4"),
+        tcfg.CacheConfig(page_size=8, num_pages=64, max_pages_per_session=8,
+                         kv_quant="int8"),
+        device="cpu", attention_backend="cuda")
+    out = port.generate(prompts(3), SamplingOptions(max_new_tokens=4))
+    assert all(len(s) == 4 for s in out)
+    layers = MODEL["num_layers"]
+    ticks = int(port.metrics.snapshot()["decode_step_count"])
+    prefills = int(port.metrics.snapshot()["prefill_count"])
+    assert calls["quantized_paged_attention"] == layers * ticks
+    assert calls["quantized_ragged_paged_attention"] == layers * prefills
+    # Every projection of every layer, decode and (short) prefill alike; the
+    # head (lm_head, 2-D) through the flat kernel once per dispatch.
+    assert calls["int4_matmul_stacked"] == 7 * layers * (ticks + prefills)
+    assert calls["int4_matmul"] == ticks + prefills
+
+
+def test_plan_selects_the_kernels_for_the_int8_pool():
+    from distributed_llm_inference_tpu_torch.engine.plan import AttentionPlan
+
+    for kv_quant in (None, "int8"):
+        cc = tcfg.CacheConfig(kv_quant=kv_quant)
+        sel = AttentionPlan(tcfg.EngineConfig(), cc, backend="cuda").select()
+        assert sel.use_pallas and sel.use_ragged
+        sel = AttentionPlan(tcfg.EngineConfig(), cc, backend="cpu").select()
+        assert not sel.use_pallas and not sel.use_ragged
+
+
 WAITING = [
     ("decode_steps", dict(engine=dict(decode_steps=4))),
     ("dense", dict(cache=dict(kind="dense"))),
     ("sink", dict(cache=dict(kind="sink"))),
-    ("kv_quant", dict(cache=dict(kv_quant="int8"))),
-    ("quantization", dict(engine=dict(quantization="int8"))),
+    ("kv_quant", dict(cache=dict(kind="dense", kv_quant="int8"))),
+    ("quantization", dict(engine=dict(quantization="int8_outlier"))),
     ("mesh_cfg", dict(mesh_cfg=object())),
     ("draft", dict(draft=(None, None))),
     ("prefix_caching", dict(cache=dict(prefix_caching=True))),

@@ -93,7 +93,7 @@ def test_port_mirrors_the_reference_file_names():
             continue
         assert (REFERENCE / rel).exists(), f"{rel} has no counterpart"
     assert sorted(p.name for p in (PORT / "csrc").glob("*.cu")) == [
-        "paged_attention.cu", "ragged_attention.cu"]
+        "int4_matmul.cu", "paged_attention.cu", "ragged_attention.cu"]
 
 
 def test_chip_smoke_refuses_to_run_without_a_gpu():

@@ -8,8 +8,8 @@ Run it from the repository root with no arguments:
 It needs one CUDA device and `nvcc`; with no device it exits non-zero and
 prints no result. It imports only the port (`distributed_llm_inference_tpu_torch`),
 builds the CUDA kernels from `csrc/` into `build/` (one `nvcc` per source, all
-started together), and runs four phases, one JSON line each (phase 3 one
-line per engine configuration):
+started together), and runs four phases, one JSON line each (phases 3 and 4
+one line per engine configuration or comparison):
 
 1. device   - the card's name and power limit, as `nvidia-smi` gives them.
 2. kernels  - every kernel against its plain PyTorch version on the card, in
@@ -19,33 +19,49 @@ line per engine configuration):
               at Llama-3-8B shapes (32 query heads, 8 kv heads, head_dim 128,
               page size 64; once as MHA too), mixed lengths and an empty row;
               `int4_matmul` and `int4_matmul_stacked` at the model's
-              projection shapes and odd ones. Then, at the shapes of the main
-              path, each kernel's output against the plain version's on the
-              same inputs and its time beside the plain version's, a library
-              yardstick where one PyTorch call computes the same function
-              (`scaled_dot_product_attention` on contiguous K/V; for the int4
-              matmuls there is none: a bf16 `torch.matmul` on the dequantized
-              weight is shown as a yardstick of its own) and the card's bound
-              for the same work.
-3. engine   - `InferenceEngine` at the full width and depth of Llama-3-8B
-              with random seeded weights, twice: in bf16, and with int4
-              weights over the int8 page pool (the quantized deployment).
-              The traffic: 12 greedy prompts queue for 8 slots, then a
+              projection shapes and odd ones; the fused window's
+              `quantized_paged_fused_attention` (the int8 pool in place),
+              `quantized_fused_decode_attention` (gathered stacks, T = 640)
+              over four steps of a window (B = 8, KT = 16; a row that stops,
+              a sliding window, MHA), their int8 tails EQUAL to the plain
+              version's, and `paged_tail_flush`, the pool's bytes EQUAL.
+              Then, at the shapes of the main path, each kernel's output
+              against the plain version's on the same inputs and its time
+              beside the plain version's, a library yardstick where one
+              PyTorch call computes the same function
+              (`scaled_dot_product_attention` on contiguous K/V; for the
+              flush four `index_put_` calls; for the int4 matmuls there is
+              none: a bf16 `torch.matmul` on the dequantized weight is shown
+              as a yardstick of its own) and the card's bound for the same
+              work.
+3. engine   - `InferenceEngine` at Llama-3-8B widths with random seeded
+              weights. The main path is the default `decode_steps=None`:
+              K = 16 fused steps a window, each step replayed from a CUDA
+              graph, ticks pipelined, admission overlapped. It runs at full
+              depth in bf16 and with int4 weights over the int8 page pool;
+              then int8 weights over the int8 pool at 4 layers on short
+              traffic (every row under 640 slots, so that the window gathers
+              its stacks: `quantized_fused_decode_attention`; W8A8
+              prefill); then the paths of slices 1 and 2 (`decode_steps=1`),
+              cut to 8 layers. The traffic: 12 greedy prompts queue for 8
+              slots, a stream is cancelled as soon as it starts, a
               3000-token greedy prompt chunk-admits beside live decode, two
-              sampled prompts ride along, one stream is cancelled. Each
-              configuration runs twice with the same seed and must repeat
-              itself; the launch counters of its kernels are zeroed before its
-              first run and read after it. Every dispatch shape that run made
-              is then given to its kernels again, in bf16 and f32 with mixed
-              lengths, and held against the plain versions. A few decode
-              ticks and prefill dispatches are profiled for the device's idle
-              share and the kernels that take the time. A third, shorter run
-              serves int8 weights over the int8 pool (4 layers at full
-              width), whose prefill projections take the int8 x int8 product.
-4. parity   - 2 layers of the same widths in f32 (TF32 off), once through the
-              kernels and once through the gather path: identical greedy
-              streams, for the bf16 pool and for int4 weights over the int8
-              pool.
+              sampled prompts ride along. Each configuration runs twice with
+              the same seed and must repeat itself; the launch counters of
+              its path's kernels are zeroed before its first run and read
+              after it (every one must be non-zero). Every dispatch shape
+              that run made is then given to its kernels again, in bf16 and
+              f32, and held against the plain versions. For the main path at
+              full depth, a few windows and prefill dispatches are profiled
+              for the device's idle share and the kernels that take the
+              time. Last, captured against eager: the same greedy traffic at
+              full width and depth in bf16 with the window's step replayed
+              from graphs and run eagerly must give identical streams.
+4. parity   - 2 layers of the same widths in f32 (TF32 off): the bf16 pool
+              at K = 16, at K = 1 and on the gather path, identical greedy
+              streams; int4 weights over the int8 pool, kernels against the
+              gather path at K = 1, identical, and K = 16 against K = 1 with
+              the share of equal tokens and the first divergence printed.
 
 Then a line `{"kernels": [...]}` with one entry per kernel (the only line
 with that key: phase 2 lists its results under `checked`), and the last line
@@ -76,6 +92,7 @@ from distributed_llm_inference_tpu_torch.models import llama
 from distributed_llm_inference_tpu_torch.cache.dense import _quantize_kv
 from distributed_llm_inference_tpu_torch.ops import _build, quant
 from distributed_llm_inference_tpu_torch.ops import paged_attention as pa
+from distributed_llm_inference_tpu_torch.ops import quant_attention as qa
 from distributed_llm_inference_tpu_torch.ops import quant_matmul as qm
 from distributed_llm_inference_tpu_torch.ops import ragged_attention as ra
 
@@ -90,6 +107,7 @@ LLAMA3_8B = ModelConfig(
     ),
 )
 HQ, HKV, D, PS = 32, 8, 128, 64
+KT = 16  # the fused window: decode_steps=None resolves to 16
 
 # Published peaks of one H100 SXM (dense, no sparsity).
 HBM_BYTES_PER_S = 3.35e12
@@ -243,6 +261,101 @@ def compare_ragged(cases, tag, dtype, q, pool, table, kv_len, num_new, **kw):
     return err
 
 
+def make_qplanes(rng, lead, n):
+    """int8 planes as the cache and the tail store them: ``(k, ks, v,
+    vs)``, ``lead + (n, D)`` int8 and ``lead + (n,)`` f32, quantized per
+    (slot, head) from normal data."""
+    k = normal(rng, (*lead, n, D), torch.float32)
+    v = normal(rng, (*lead, n, D), torch.float32)
+    kq, ks = _quantize_kv(k)
+    vq, vs = _quantize_kv(v)
+    return kq, ks, vq, vs
+
+
+def fused_fns(form):
+    """(case prefix, wrapper, plain version) of the fused step: "inplace"
+    (#6, the pool through its table) or "gathered" (#9, the stacks)."""
+    if form == "inplace":
+        return ("qfusedp", pa.quantized_paged_fused_attention,
+                pa.quantized_paged_fused_attention_plain)
+    return ("qfusedd", qa.quantized_fused_decode_attention,
+            qa.quantized_fused_decode_attention_plain)
+
+
+def compare_fused(cases, tag, dtype, form, big, base, rng, table=None,
+                  window=None, g=HQ // HKV, steps=4, layer=1):
+    """The fused step (#6 over the pool ``big`` through ``table``, or #9
+    over the stacks ``big``) against its plain version over ``steps`` steps
+    of one window on the same inputs, each side with its own copy of the
+    tail: the output within TOL, the tail's int8 values and scales EQUAL.
+    The last row stops after the first step. Returns the output's error."""
+    _, kernel, plain = fused_fns(form)
+    b = base.shape[0]
+    tail = make_qplanes(rng, (big[0].shape[0], b, HKV), KT)
+    tail2 = [t.clone() for t in tail]
+    tail_len = torch.zeros(b, dtype=torch.int32, device=DEV)
+    alive = torch.ones(b, dtype=torch.int32, device=DEV)
+    extra = {} if table is None else {"page_table": table}
+    err = tail_err = 0.0
+    for step in range(steps):
+        q = normal(rng, (b, 1, HKV * g, D), dtype)
+        kn = normal(rng, (b, 1, HKV, D), dtype)
+        vn = normal(rng, (b, 1, HKV, D), dtype)
+        kw = dict(layer_idx=layer, step_idx=i32([step]), base_len=base,
+                  tail_valid_len=tail_len + alive, q_positions=base + tail_len,
+                  sliding_window=window, **extra)
+        got = kernel(q, kn, vn, *big, *tail, **kw)[0]
+        want = plain(q, kn, vn, *big, *tail2, **kw)[0]
+        torch.cuda.synchronize()
+        err = max(err, max_err(got, want))
+        tail_err = max(tail_err, *(max_err(a, w) for a, w in zip(tail, tail2)))
+        tail_len += alive
+        alive[-1] = 0
+    cases.append((tag, err, TOL[dtype]))
+    cases.append((tag + "_tail_bytes", tail_err, 0.0))
+    return err
+
+
+def compare_flush(cases, tag, pool, table, base, tail_len, rng):
+    """`paged_tail_flush` (#7) against its plain version on copies of one
+    pool: every byte of every plane EQUAL. Returns the error (0)."""
+    tail = make_qplanes(rng, (pool[0].shape[0], table.shape[0], HKV), KT)
+    mine = [p.clone() for p in pool]
+    ref = [p.clone() for p in pool]
+    pa.paged_tail_flush(*mine, *tail, table, base, tail_len)
+    pa.paged_tail_flush_plain(*ref, *tail, table, base, tail_len)
+    torch.cuda.synchronize()
+    err = max(max_err(a, w) for a, w in zip(mine, ref))
+    cases.append((tag, err, 0.0))
+    return err
+
+
+def fused_cases(cases, dtype, rng):
+    """#6 and #9 at B = 8, KT = 16, over a window's first steps: fresh,
+    continued, page-edge and long rows, a row that stops, a sliding window,
+    GQA (4 query heads per kv head) and MHA. #7 over mixed tail lengths,
+    windows that straddle a page and an unmapped table slot."""
+    width, b = 40, 8
+    pages = b * width + 1
+    pool = make_qplanes(rng, (2, pages, HKV), PS)
+    table = make_table(rng, b, width, pages)
+    base6 = i32([0, 1, 63, 64, 65, 1000, 2048, 2500])
+    stacks = make_qplanes(rng, (2, b, HKV), 640)
+    base9 = i32([0, 1, 63, 64, 65, 300, 600, 624])
+    for window in (None, 200):
+        for g in (HQ // HKV, 1):
+            compare_fused(cases, f"qfusedp_g{g}_window_{window}", dtype,
+                          "inplace", pool, base6, rng, table=table,
+                          window=window, g=g)
+            compare_fused(cases, f"qfusedd_g{g}_window_{window}", dtype,
+                          "gathered", stacks, base9, rng, window=window, g=g)
+    flush_table = table.clone()
+    flush_table[7, 5] = 0
+    compare_flush(cases, "flush_mixed", pool, flush_table,
+                  i32([0, 1, 63, 64, 60, 1000, 2040, 330]),
+                  i32([16, 3, 16, 0, 16, 9, 16, 1]), rng)
+
+
 def int4_weight(gen, shape):
     """A random stacked weight ``[L, in, out]``, int4-quantized."""
     return quant.quantize_int4_split(
@@ -329,6 +442,7 @@ def check_cases(dtype):
         compare_int4(cases, f"{tag}_l{layer}", dtype, x, w, layer)
         if num_l == 1:
             compare_int4(cases, tag, dtype, x, w)
+    fused_cases(cases, dtype, rng)
     assert_cases(cases, dtype)
     return cases
 
@@ -547,6 +661,118 @@ def time_int4(out, cases, flush, rows=8):
     }
 
 
+def fused_bytes(b, big_slots, tail_slots, g=HQ // HKV, esz=2):
+    """Bytes one fused step must move: the live big-segment and tail slots
+    (int8 K and V, two f32 scales a (slot, head)), the new slot written,
+    q, k_new, v_new in and the output out, the per-row vectors."""
+    per_slot = HKV * (2 * D + 8)
+    return ((big_slots + tail_slots + b) * per_slot
+            + (2 * HKV * g + 2 * HKV) * b * D * esz + 4 * b * 4 + 4)
+
+
+def time_fused(out, cases, rng, flush):
+    """The fused window's kernels at the shapes of the main path, bf16
+    queries, B = 8, KT = 16, at the window's last step (the tail full):
+    #6 over 2048 tokens a row (2032 in the pool), the table as wide as the
+    engine makes it; #9 over gathered stacks of T = 640 (624 + 16), the
+    widest capacity below INPLACE_CTX that the ladder reaches at page size
+    64; #7 flushing one full window of all 32 layers, every row's window
+    straddling a page. Library yardsticks: `scaled_dot_product_attention`
+    on the dequantized, pre-gathered K/V of pool (or stacks) and tail; for
+    #7 four `index_put_` calls (one per plane) of the same slots."""
+    dtype, b = torch.bfloat16, 8
+    q = normal(rng, (b, 1, HQ, D), dtype)
+    kn = normal(rng, (b, 1, HKV, D), dtype)
+    vn = normal(rng, (b, 1, HKV, D), dtype)
+    qh = q.permute(0, 2, 1, 3).contiguous()
+
+    def tail_kv(tail):
+        k, ks, v, vs = (t[1] for t in tail)          # layer 1, [B, H, KT(, D)]
+        return (k.to(dtype) * ks.to(dtype)[..., None],
+                v.to(dtype) * vs.to(dtype)[..., None])
+
+    for form, kv in (("inplace", 2048), ("gathered", 640)):
+        name, kernel, plain = fused_fns(form)
+        base_len = kv - KT
+        if form == "inplace":
+            width = ladder_pages(kv)
+            pages = b * width + 1
+            big = make_qplanes(rng, (2, pages, HKV), PS)
+            table = make_table(rng, b, width, pages)
+            extra = {"page_table": table}
+            kg, vg = dequantized([p[1] for p in big], table)
+            kg, vg = kg[:, :, :base_len], vg[:, :, :base_len]
+            shape = f"B={b} kv={kv} (pool {base_len} + tail {KT}) table={width} Hq={HQ} Hkv={HKV} D={D} PS={PS} KT={KT} bf16 q, int8 pages"
+        else:
+            big = make_qplanes(rng, (2, b, HKV), kv)
+            extra = {}
+            kg = big[0][1][:, :, :base_len].to(dtype) * big[1][1][:, :, :base_len].to(dtype)[..., None]
+            vg = big[2][1][:, :, :base_len].to(dtype) * big[3][1][:, :, :base_len].to(dtype)[..., None]
+            shape = f"B={b} T={kv} (stacks {base_len} + tail {KT}) Hq={HQ} Hkv={HKV} D={D} KT={KT} bf16 q, int8 stacks"
+        tail = make_qplanes(rng, (2, b, HKV), KT)
+        tk, tv = tail_kv(tail)
+        kfull = torch.cat([kg, tk], dim=2).contiguous()
+        vfull = torch.cat([vg, tv], dim=2).contiguous()
+        kw = dict(layer_idx=1, step_idx=i32([KT - 1]), base_len=i32([base_len] * b),
+                  tail_valid_len=i32([KT] * b), q_positions=i32([kv - 1] * b),
+                  **extra)
+        tail2 = [t.clone() for t in tail]
+        got = kernel(q, kn, vn, *big, *tail, **kw)[0]
+        want = plain(q, kn, vn, *big, *tail2, **kw)[0]
+        torch.cuda.synchronize()
+        err = max_err(got, want)
+        cases.append((f"{name}_timed", err, TOL[dtype]))
+        cases.append((f"{name}_timed_tail_bytes", max(
+            max_err(a, w) for a, w in zip(tail, tail2)), 0.0))
+        bytes_moved = fused_bytes(b, b * base_len, b * (KT - 1))
+        if form == "inplace":
+            bytes_moved += table.numel() * 4
+        bms, by = bound(bytes_moved, 4 * b * kv * HQ * D, dtype)
+        out[kernel.__name__] = {
+            "shape": shape, "max_abs_err": err,
+            "ms": time_ms(lambda: kernel(q, kn, vn, *big, *tail, **kw), 20, flush),
+            "plain_ms": time_ms(lambda: plain(q, kn, vn, *big, *tail2, **kw), 3, flush),
+            "library_ms": time_ms(lambda: sdpa(qh, kfull, vfull, False), 20, flush),
+            "bound_ms": bms, "bound_by": by, "bytes": bytes_moved,
+        }
+        del big, kg, vg, kfull, vfull
+
+    # #7: one window of all 32 layers.
+    layers = LLAMA3_8B.num_layers
+    base_len = 2040                        # positions 2040..2055: two pages
+    width = ladder_pages(base_len + KT)
+    pages = b * width + 1
+    pool = make_qplanes(rng, (layers, pages, HKV), PS)
+    table = make_table(rng, b, width, pages)
+    tail = make_qplanes(rng, (layers, b, HKV), KT)
+    base, tl = i32([base_len] * b), i32([KT] * b)
+    ref = [p.clone() for p in pool]
+    pa.paged_tail_flush(*pool, *tail, table, base, tl)
+    pa.paged_tail_flush_plain(*ref, *tail, table, base, tl)
+    torch.cuda.synchronize()
+    err = max(max_err(a, w) for a, w in zip(pool, ref))
+    cases.append(("flush_timed", err, 0.0))
+    del ref
+    rows, slots, pg, offs = pa._flush_targets(pool[0], table, base, tl, KT)
+
+    def index_put():
+        for dst, src in zip(pool, tail):
+            dst[:, pg, :, offs] = src[:, rows, :, slots]
+
+    bytes_moved = 2 * layers * b * HKV * KT * (2 * D + 8) + table.numel() * 4 + 2 * b * 4
+    bms, by = bound(bytes_moved, 0, dtype)
+    out["paged_tail_flush"] = {
+        "shape": f"L={layers} B={b} KT={KT} (each row's window over two pages) Hkv={HKV} D={D} PS={PS}, int8 + f32 scales",
+        "max_abs_err": err,
+        "ms": time_ms(lambda: pa.paged_tail_flush(*pool, *tail, table, base, tl), 20, flush),
+        "plain_ms": time_ms(lambda: pa.paged_tail_flush_plain(*pool, *tail, table, base, tl), 3, flush),
+        "library_ms": time_ms(index_put, 20, flush),
+        "library": "index_put_ x4 (one per plane) of the same slots",
+        "bound_ms": bms, "bound_by": by, "bytes": bytes_moved,
+    }
+    del pool, tail
+
+
 def time_kernels():
     """Every kernel in bf16 at the shapes of the main path (see
     :func:`time_attention`, :func:`time_int4`). Each kernel's output is
@@ -561,6 +787,7 @@ def time_kernels():
                    make_pool(rng, pages, torch.bfloat16))
     time_attention(out, cases, rng, flush, width, make_qpool(rng, pages))
     time_int4(out, cases, flush)
+    time_fused(out, cases, rng, flush)
     assert_cases(cases, torch.bfloat16)
     return out
 
@@ -571,6 +798,9 @@ CASE_PREFIX = {
     "quantized_paged_attention": "qpaged_",
     "quantized_ragged_paged_attention": "qragged_",
     "int4_matmul": "int4_", "int4_matmul_stacked": "int4s_",
+    "quantized_paged_fused_attention": "qfusedp_",
+    "quantized_fused_decode_attention": "qfusedd_",
+    "paged_tail_flush": "flush_",
 }
 
 
@@ -586,7 +816,9 @@ def phase_kernels():
     kernels = []
     for name, prefix in CASE_PREFIX.items():
         entry = {"name": name}
-        tol = TOL4 if name.startswith("int4") else TOL
+        tol = (TOL4 if name.startswith("int4")
+               else {t: 0.0 for t in TOL} if name == "paged_tail_flush"
+               else TOL)
         for dtype, label in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
             mine = [(n, e, t) for n, e, t in errs[dtype] if n.startswith(prefix)]
             entry[f"max_abs_err_{label}"] = max(
@@ -642,11 +874,12 @@ class Client:
         return [self.streams[gid] for gid in self.order]
 
 
-def drive(engine, vocab, seed, short_lens, long_len, new_tokens, warm_steps):
+def drive(engine, vocab, seed, short_lens, long_len, new_tokens):
     """The smoke's traffic: `short_lens` greedy prompts at once (more than
-    the batch), then — while those decode — one long greedy prompt and two
-    sampled ones, and one cancel. Returns (streams by submission order,
-    index of the cancelled stream)."""
+    the batch); as soon as stream 2 has its first token, it is cancelled
+    and — while the others decode — one long greedy prompt (`long_len`,
+    None for none) and two sampled ones arrive. Returns (streams by
+    submission order, index of the cancelled stream)."""
     rng = np.random.default_rng(seed)
     greedy = SamplingOptions(max_new_tokens=new_tokens)
     sampled = SamplingOptions(max_new_tokens=new_tokens, temperature=0.8,
@@ -654,12 +887,16 @@ def drive(engine, vocab, seed, short_lens, long_len, new_tokens, warm_steps):
     client = Client(engine)
     for n in short_lens:
         client.submit(rng.integers(0, vocab, size=n).tolist(), greedy)
-    for _ in range(warm_steps):
-        client.step()
     cancelled = 2
-    assert 0 < len(client.streams[client.order[cancelled]]) < new_tokens
+    steps = 0
+    while not client.streams[client.order[cancelled]]:
+        client.step()
+        steps += 1
+        assert steps < 100, "stream 2 never started"
+    assert len(client.streams[client.order[cancelled]]) < new_tokens
     engine.cancel(client.order[cancelled])
-    client.submit(rng.integers(0, vocab, size=long_len).tolist(), greedy)
+    if long_len:
+        client.submit(rng.integers(0, vocab, size=long_len).tolist(), greedy)
     for n in (90, 400):
         client.submit(rng.integers(0, vocab, size=n).tolist(), sampled)
     return client.drain(), cancelled
@@ -678,7 +915,9 @@ def device_breakdown(prof, wall_ms, steps):
     """Per-step summary of a ``torch.profiler`` run over ``steps`` engine
     steps whose unprofiled wall time was ``wall_ms`` each: summed device time
     of the step's kernels, the share of the step in which the card ran
-    nothing, the number of kernels launched, and the kernels that take most
+    nothing (``1 - device/wall``, not clamped: the profiled steps are not
+    the timed ones, so it can fall below 0 where the card is never idle),
+    the number of kernels launched, and the kernels that take most
     of the device time. The profiler's own overhead stretches the host side,
     so only its device times are used."""
     from torch.autograd import DeviceType
@@ -695,7 +934,7 @@ def device_breakdown(prof, wall_ms, steps):
     return {
         "wall_ms": wall_ms,
         "device_ms": device_ms,
-        "device_idle_share": max(0.0, 1.0 - device_ms / wall_ms),
+        "device_idle_share": 1.0 - device_ms / wall_ms,
         "kernels": sum(ev.count for ev in kernels) / steps,
         "top_kernels": [
             {"name": ev.key[:70], "ms": device_us(ev) / 1e3 / steps,
@@ -703,15 +942,24 @@ def device_breakdown(prof, wall_ms, steps):
     }
 
 
+SPIN_AHEAD_CYCLES = 1_000_000_000  # about 0.5 s of device spin
+
+
 def profile_steps(engine, before_step, steps, counters=None):
     """``steps`` engine steps on the host clock (synchronised), then ``steps``
-    more under ``torch.profiler``; ``before_step`` runs ahead of each one,
-    outside the timed region. With ``counters`` (name -> (module, attribute)
-    of a launch counter) the launches per step are reported too."""
+    more under ``torch.profiler``, then ``steps`` more each enqueued behind
+    a 0.5 s device spin: CUDA events around such a step time the card's
+    work alone (the host has enqueued all of it before the card reaches
+    it), and the host clock around ``step()`` the host's own work (for a
+    decode window, which waits for nothing on the card; a prefill waits for
+    its first token). ``before_step`` runs ahead of each step, outside the
+    timed region. With ``counters`` (name -> (module, attribute) of a
+    launch counter) the launches per step are reported too."""
     from torch.profiler import ProfilerActivity, profile
 
     counters = counters or {}
     before = {n: getattr(m, a) for n, (m, a) in counters.items()}
+    replays = engine.metrics.get_counter("decode_graph_replays")
     wall = 0.0
     for _ in range(steps):
         before_step()
@@ -725,28 +973,57 @@ def profile_steps(engine, before_step, steps, counters=None):
             before_step()
             engine.step()
         torch.cuda.synchronize()
+    device = host = 0.0
+    for _ in range(steps):
+        before_step()
+        torch.cuda.synchronize()
+        torch.cuda._sleep(SPIN_AHEAD_CYCLES)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        t0 = time.perf_counter()
+        engine.step()
+        host += time.perf_counter() - t0
+        end.record()
+        torch.cuda.synchronize()
+        device += start.elapsed_time(end)
     out = device_breakdown(prof, wall * 1e3 / steps, steps)
+    out["device_ms_events"] = device / steps
+    # The idle share again, with the device time from the events.
+    out["device_idle_share_events"] = 1.0 - device / steps / out["wall_ms"]
+    out["host_ms_behind_spin"] = host * 1e3 / steps
+    out["graph_replays_per_step"] = (
+        engine.metrics.get_counter("decode_graph_replays") - replays
+    ) / (3 * steps)
     if counters:
         out["kernel_launches_per_step"] = {
-            n: (getattr(m, a) - before[n]) / (2 * steps)
+            n: (getattr(m, a) - before[n]) / (3 * steps)
             for n, (m, a) in counters.items()}
     return out
 
 
 def profile_decode(cfg, params, ekw, ckw, counters, ticks=5):
     """Where a decode tick's time goes, for a full batch of 8 rows of about
-    600 cached tokens each."""
+    600 cached tokens each. With K = 16 a tick is one captured window of 16
+    steps (pipelined, but synchronised around each timed step)."""
+    # The table is fixed at 1024 slots, so that no widening (and no
+    # capture) falls among the measured steps.
     engine = InferenceEngine(
-        cfg, params, EngineConfig(max_batch_size=8, **ekw),
+        cfg, params,
+        EngineConfig(max_batch_size=8, decode_windows=(1024,), **ekw),
         CacheConfig(num_pages=2048, **ckw),
         generator=torch.Generator().manual_seed(3), device=DEV)
     rng = np.random.default_rng(17)
+    k = engine.decode_steps
     for _ in range(8):
         engine.submit(rng.integers(0, cfg.vocab_size, size=600).tolist(),
-                      SamplingOptions(max_new_tokens=64))
-    for _ in range(3):
-        engine.step()  # admission, prefill, first decode ticks
-    return profile_steps(engine, lambda: None, ticks, counters)
+                      SamplingOptions(max_new_tokens=k * (3 * ticks + 6)))
+    for _ in range(4):
+        engine.step()  # admission, prefill, first decode ticks (captures)
+    out = profile_steps(engine, lambda: None, ticks, counters)
+    out["decode_steps"] = k
+    out["table_width"] = engine.cache.page_table.shape[1]
+    return out
 
 
 def profile_prefill(cfg, params, ekw, ckw, counters, steps=2):
@@ -767,7 +1044,7 @@ def profile_prefill(cfg, params, ekw, ckw, counters, steps=2):
     engine.step()  # warm-up
     out = profile_steps(engine, submit, steps, counters)
     assert not engine.has_work()
-    assert engine.metrics.get_counter("prefill_tokens") == 2048 * (1 + 2 * steps)
+    assert engine.metrics.get_counter("prefill_tokens") == 2048 * (1 + 3 * steps)
     return out
 
 
@@ -776,8 +1053,10 @@ def check_engine_shapes(shapes, table_width, quantized, int4):
     shape it made, in bf16 (the run's type) and f32, on mixed lengths.
     ``shapes`` is `AttentionPlan.dispatch_shapes`: ("prefill" or "chunk",
     rows, token width) reach the ragged kernel, under the table as wide as
-    it grew (``table_width``); ("decode", rows, 1, table width) reach the
-    decode kernel; the int8-page forms when ``quantized``. Each
+    it grew (``table_width``); ("decode", rows, K, table width) reach the
+    decode kernel and, over the int8 pool with K > 1, the fused window's
+    step in the form the engine takes at that width (#6 from 768 slots,
+    #9 below); the int8-page forms when ``quantized``. Each
     prefill-family shape is run twice: fresh prompts (q_start 0) and rows
     continuing a longer prompt (q_start > 0, as the later chunks of a long
     prompt are). With ``int4``: decode rows reach `int4_matmul_stacked` at
@@ -800,16 +1079,31 @@ def check_engine_shapes(shapes, table_width, quantized, int4):
         for kind, rows, *rest in sorted(shapes):
             tag = "_".join(str(x) for x in (kind, rows, *rest))
             if kind == "decode":
-                width = rest[1]
+                k_steps, width = rest
                 slots = width * PS
                 lens = rng.integers(1, slots + 1, size=rows)
                 lens[0] = slots              # a row that fills its table
                 if rows > 1:
                     lens[-1] = 0             # an inactive row
+                table = make_table(rng, rows, width, pages)
                 compare_paged(
                     cases, f"{pname}_{tag}", dtype,
                     normal(rng, (rows, 1, HQ, D), dtype), pool,
-                    make_table(rng, rows, width, pages), i32(lens))
+                    table, i32(lens))
+                if quantized and k_steps > 1:
+                    # The fused window's step at this width: its form is
+                    # the engine's (in place from 768 slots).
+                    base = i32(np.minimum(lens, slots - 4))
+                    if slots >= 768:
+                        compare_fused(
+                            cases, f"qfusedp_{tag}", dtype, "inplace",
+                            [p[None] for p in pool], base, rng, table=table,
+                            layer=0)
+                    else:
+                        compare_fused(
+                            cases, f"qfusedd_{tag}", dtype, "gathered",
+                            make_qplanes(rng, (1, rows, HKV), slots), base,
+                            rng, layer=0)
                 continue
             s, slots = rest[0], table_width * PS
             q = normal(rng, (rows, s, HQ, D), dtype)
@@ -841,7 +1135,9 @@ def check_engine_shapes(shapes, table_width, quantized, int4):
                 compare_int4(cases, f"head_{rows}", dtype, x, w)
             del w
         assert_cases(cases, dtype)
-        for name in kinds:
+        fused = [k for k in ("qfusedp", "qfusedd")
+                 if any(n.startswith(k + "_") for n, _, _ in cases)]
+        for name in kinds + fused:
             mine = [e for n, e, _ in cases
                     if n.startswith(name + "_") and not n.endswith(("_m", "_l"))]
             assert mine, f"the engine run dispatched nothing to {name}"
@@ -850,7 +1146,19 @@ def check_engine_shapes(shapes, table_width, quantized, int4):
     return out
 
 
-def run_config(label, cfg, params, ekw, ckw, counters, profile=True):
+# The smoke's traffic: 12 greedy prompts of 30-1500 tokens, then one
+# 3000-token greedy prompt (chunk-admitted beside live decode), two sampled
+# ones and a cancel, 32 new tokens each. SHORT keeps every row under 640
+# slots (prompts of 100-500 tokens, no long prompt): the int8 pool's window
+# then gathers (#9) instead of reading the pool in place (#6).
+_lens = np.random.default_rng(7).integers(30, 1500, size=10).tolist()
+MIXED = {"short_lens": [30, 1500] + _lens, "long_len": 3000, "new_tokens": 32}
+SHORT = {"short_lens": np.random.default_rng(8).integers(100, 500, size=12).tolist(),
+         "long_len": None, "new_tokens": 32}
+
+
+def run_config(label, cfg, params, ekw, ckw, counters, profile=True,
+               traffic=MIXED):
     """The smoke's traffic through one engine configuration, twice with one
     seed (the streams must repeat); the launch counters in ``counters``
     (name -> (module, attribute)) are zeroed before the first run and read
@@ -858,9 +1166,7 @@ def run_config(label, cfg, params, ekw, ckw, counters, profile=True):
     and, with ``profile``, a decode tick and a prefill dispatch are
     profiled. Returns (report, launches)."""
     torch.cuda.reset_peak_memory_stats()
-    rng = np.random.default_rng(7)
-    short_lens = [30, 1500] + rng.integers(30, 1500, size=10).tolist()
-    new_tokens, long_len = 32, 3000
+    new_tokens = traffic["new_tokens"]
     runs = []
     for attempt in range(2):
         t0 = time.perf_counter()
@@ -871,28 +1177,35 @@ def run_config(label, cfg, params, ekw, ckw, counters, profile=True):
         torch.cuda.synchronize()
         build_s = time.perf_counter() - t0
         assert engine.cache.use_kernel and engine.cache.use_ragged
+        fused = engine.decode_steps > 1
+        if fused:
+            assert engine._pipelined and engine._fused.capture
         if attempt == 0:
             for module, attr in counters.values():
                 setattr(module, attr, 0)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         streams, cancelled = drive(
-            engine, cfg.vocab_size, 5, short_lens, long_len, new_tokens,
-            warm_steps=6)
+            engine, cfg.vocab_size, 5, traffic["short_lens"],
+            traffic["long_len"], new_tokens)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         if attempt == 0:
             launches = {n: getattr(m, a) for n, (m, a) in counters.items()}
             shapes = engine.plan.dispatch_shapes
-            table_width = engine.cache.page_table.shape[1]
+            # The widest the table grew (an idle engine shrinks it again).
+            table_width = max(
+                [engine.cache.page_table.shape[1]]
+                + [sh[3] for sh in shapes if sh[0] == "decode"])
         check_streams(streams, cancelled, new_tokens, cfg.vocab_size)
         m = engine.metrics
         assert engine.allocator.free_count == 2048 - 1, "pages leaked"
-        assert m.get_counter("attn_chunked_rows") > 0, (
-            "the long prompt was not chunk-admitted beside live decode")
+        if traffic["long_len"]:
+            assert m.get_counter("attn_chunked_rows") > 0, (
+                "the long prompt was not chunk-admitted beside live decode")
         assert m.get_counter("batched_prefills") > 0
         snap = m.snapshot()
-        runs.append({
+        run = {
             "streams": streams,
             "engine_init_s": build_s,
             "wall_s": wall,
@@ -902,17 +1215,34 @@ def run_config(label, cfg, params, ekw, ckw, counters, profile=True):
             "prefill_dispatches": snap["prefill_count"],
             "prefill_ms_mean": snap["prefill_mean_s"] * 1e3,
             "prefill_ms_total": snap["prefill_mean_s"] * snap["prefill_count"] * 1e3,
+            "decode_steps": engine.decode_steps,
             "decode_ticks": snap["decode_step_count"],
             "decode_tick_ms_mean": snap["decode_step_mean_s"] * 1e3,
             "decode_tick_ms_p50": snap["decode_step_p50_s"] * 1e3,
             "chunked_rows": m.get_counter("attn_chunked_rows"),
             "batched_prefills": m.get_counter("batched_prefills"),
             "kv_bytes_per_token": snap["kv_bytes_per_token"],
-        })
+        }
+        if fused:
+            assert m.get_counter("decode_graph_captures") > 0
+            run.update({
+                "graph_captures": m.get_counter("decode_graph_captures"),
+                "graph_capture_s_total": snap["decode_graph_capture_mean_s"]
+                * snap["decode_graph_capture_count"],
+                "graph_capture_s_max": max(
+                    m._timings["decode_graph_capture"]),
+                "graph_replays": m.get_counter("decode_graph_replays"),
+                "graph_pool_bytes": snap["decode_graph_pool_bytes"],
+                "graphs_alive_at_end": engine._fused.graph_count(),
+                "admit_overlap_sessions": m.get_counter("admit_overlap_sessions"),
+                "admit_sync_sessions": m.get_counter("admit_sync_sessions"),
+                "decode_resolve_ms_mean": snap["decode_resolve_mean_s"] * 1e3,
+            })
+        runs.append(run)
         del engine
         torch.cuda.empty_cache()
     for name, n in launches.items():
-        assert n > 0, f"{name} was never launched on the main path"
+        assert n > 0, f"{name} was never launched on the path of {label}"
     assert runs[0]["streams"] == runs[1]["streams"], (
         "two runs with one seed gave different streams")
     report = {"phase": "engine", "config": label,
@@ -935,33 +1265,54 @@ def run_config(label, cfg, params, ekw, ckw, counters, profile=True):
     return report, launches
 
 
-BF16_COUNTERS = {"paged_attention": (pa, "launches"),
-                 "ragged_paged_attention": (ra, "launches")}
-INT4_COUNTERS = {"quantized_paged_attention": (pa, "quantized_launches"),
-                 "quantized_ragged_paged_attention": (ra, "quantized_launches"),
-                 "int4_matmul": (qm, "launches"),
-                 "int4_matmul_stacked": (qm, "stacked_launches")}
+# Each path's kernels: (module, launch counter). Slices 1 and 2 decode one
+# token per dispatch (decode_steps=1); slice 3's fused window is the
+# engine's default, on the int8 pool over gathered stacks (#9) below 768
+# slots of table and over the pool in place (#6) from there.
+RAGGED = {"ragged_paged_attention": (ra, "launches")}
+QRAGGED = {"quantized_ragged_paged_attention": (ra, "quantized_launches")}
+INT4 = {"int4_matmul": (qm, "launches"),
+        "int4_matmul_stacked": (qm, "stacked_launches")}
+SLICE1 = {"paged_attention": (pa, "launches"), **RAGGED}
+SLICE2 = {"quantized_paged_attention": (pa, "quantized_launches"), **QRAGGED,
+          **INT4}
+MAIN_BF16 = SLICE1
+MAIN_INT4 = {"quantized_paged_fused_attention": (pa, "fused_launches"),
+             "paged_tail_flush": (pa, "flush_launches"), **QRAGGED, **INT4}
+SHORT_INT8 = {"quantized_fused_decode_attention": (qa, "fused_launches"),
+              "paged_tail_flush": (pa, "flush_launches"), **QRAGGED}
+
+
+def depth(params, cfg, layers):
+    """The first ``layers`` layers of ``params`` (a cut of depth)."""
+    cut = dataclasses.replace(cfg, num_layers=min(layers, cfg.num_layers))
+    return cut, {**params, "layers": {
+        k: v[: cut.num_layers] for k, v in params["layers"].items()}}
 
 
 def phase_engine():
+    """The engine at Llama-3-8B widths. The main path (the default
+    ``decode_steps=None``: K = 16, captured and pipelined) at full depth in
+    bf16 and with int4 weights over int8 pages; int8 weights over int8
+    pages at 4 layers on SHORT traffic (the gathered window, #9, and W8A8
+    prefill); then the paths of slices 1 and 2 (``decode_steps=1``), cut to
+    8 layers. Each path's counters are zeroed before its first run and read
+    after it. Returns launches by kernel, from the path that runs it."""
     cfg = LLAMA3_8B
     t0 = time.perf_counter()
     params = llama.init_params(
         cfg, torch.Generator(device=DEV).manual_seed(0), torch.bfloat16, DEV)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    _, launches = run_config("bf16 weights, bf16 pages", cfg, params, {}, {},
-                             BF16_COUNTERS)
-    # The quantized deployment: int4 weights over the int8 page pool.
-    _, qlaunches = run_config(
-        "int4 weights (half-split), int8 pages", cfg, params,
-        {"quantization": "int4"}, {"kv_quant": "int8"}, INT4_COUNTERS)
-    launches.update(qlaunches)
-    # int8 weights over the int8 pool at 4 layers: prefill projections take
-    # the int8 x int8 product (W8A8), decode the weight-only one.
-    cfg4 = dataclasses.replace(cfg, num_layers=min(4, cfg.num_layers))
-    params4 = {**params, "layers": {
-        k: v[: cfg4.num_layers] for k, v in params["layers"].items()}}
+    launches = {}
+    _, got = run_config("main path: bf16 weights, bf16 pages, K=16", cfg,
+                        params, {}, {}, MAIN_BF16)
+    launches.update(got)
+    _, got = run_config(
+        "main path: int4 weights (half-split), int8 pages, K=16", cfg,
+        params, {"quantization": "int4"}, {"kv_quant": "int8"}, MAIN_INT4)
+    launches.update(got)
+    cfg4, params4 = depth(params, cfg, 4)
     w8a8 = [0]
     real = quant.w8a8_matmul
 
@@ -971,25 +1322,67 @@ def phase_engine():
 
     quant.w8a8_matmul = counted
     try:
-        report, _ = run_config(
-            "int8 weights, int8 pages", cfg4, params4, {"quantization": "int8"},
-            {"kv_quant": "int8"},
-            {k: v for k, v in INT4_COUNTERS.items() if not k.startswith("int4")},
-            profile=False)
+        _, got = run_config(
+            "main path: int8 weights, int8 pages, K=16, short traffic",
+            cfg4, params4, {"quantization": "int8"}, {"kv_quant": "int8"},
+            SHORT_INT8, profile=False, traffic=SHORT)
     finally:
         quant.w8a8_matmul = real
+    launches["quantized_fused_decode_attention"] = got[
+        "quantized_fused_decode_attention"]
     assert w8a8[0] > 0, "no prefill projection took the int8 x int8 product"
     emit({"phase": "engine_int8_w8a8", "init_s": init_s,
           "w8a8_matmul_calls": w8a8[0]})
-    del params, params4
+    cfg8, params8 = depth(params, cfg, 8)
+    run_config("slice 1 path: bf16, K=1, 8 layers", cfg8, params8,
+               {"decode_steps": 1}, {}, SLICE1, profile=False)
+    _, got = run_config("slice 2 path: int4 weights, int8 pages, K=1, 8 layers",
+                        cfg8, params8, {"decode_steps": 1, "quantization": "int4"},
+                        {"kv_quant": "int8"}, SLICE2, profile=False)
+    launches["quantized_paged_attention"] = got["quantized_paged_attention"]
+    captured_vs_eager(cfg, params)
+    del params, params4, params8
     torch.cuda.empty_cache()
     return launches
 
 
+def captured_vs_eager(cfg, params):
+    """Full width and depth, bf16, K = 16: the same greedy traffic with the
+    window's step replayed from CUDA graphs and run eagerly. The same
+    kernels in the same order: the streams must be identical."""
+    rng = np.random.default_rng(23)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).tolist()
+               for n in (30, 200, 500, 900, 60, 1200, 300, 700)]
+    out = {}
+    for capture in (True, False):
+        engine = InferenceEngine(
+            cfg, params, EngineConfig(max_batch_size=8),
+            CacheConfig(num_pages=2048), device=DEV)
+        engine._fused.capture = capture
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        streams = engine.generate(prompts, SamplingOptions(max_new_tokens=48))
+        torch.cuda.synchronize()
+        out[capture] = (streams, time.perf_counter() - t0,
+                        engine.metrics.get_counter("decode_graph_replays"))
+        del engine
+    assert all(len(x) == 48 for x in out[True][0])
+    assert out[True][0] == out[False][0], "captured and eager streams differ"
+    emit({"phase": "captured_vs_eager",
+          "model": f"llama-3-8b widths, {cfg.num_layers} layers, bf16, K=16",
+          "streams": len(prompts), "tokens_each": 48, "identical": True,
+          "captured_wall_s": out[True][1], "eager_wall_s": out[False][1],
+          "graph_replays": out[True][2]})
+
+
 def phase_parity():
-    """Kernels against the gather path through the whole engine: 2 layers of
-    the same widths in f32, TF32 off, greedy streams compared exactly; for
-    the bf16 pool and for int4 weights over the int8 pool."""
+    """Through the whole engine, 2 layers of the same widths in f32, TF32
+    off, greedy streams: the bf16 pool at K = 16 and K = 1 and on the gather
+    path, all identical; int4 weights over the int8 pool, kernels against
+    the gather path at K = 1, identical, and K = 16 against K = 1, the share
+    of equal tokens and the first divergence printed (the fused kernels
+    round p * vs to bf16 as the TPU kernel does, #5 does not; the binding
+    parity of that pool is the CPU test against the JAX package)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = dataclasses.replace(LLAMA3_8B, num_layers=2)
     params = llama.init_params(
@@ -1020,29 +1413,54 @@ def phase_parity():
     report = {"phase": "parity",
               "model": "llama-3-8b widths, 2 layers, f32, tf32 off"}
     gather = dict(use_pallas_attention=False, ragged_attention=False)
-    for label, ekw, ckw, (pmod, pattr), (rmod, rattr) in (
-            ("bf16", {}, {}, (pa, "launches"), (ra, "launches")),
-            ("int4_int8kv", {"quantization": "int4"}, {"kv_quant": "int8"},
-             (pa, "quantized_launches"), (ra, "quantized_launches"))):
-        before = (getattr(pmod, pattr), getattr(rmod, rattr), qm.launches,
-                  qm.stacked_launches)
-        kern, e1 = run(ekw, ckw)
-        assert e1.cache.use_kernel and e1.cache.use_ragged
-        mid = (getattr(pmod, pattr), getattr(rmod, rattr), qm.launches,
-               qm.stacked_launches)
-        assert mid[0] > before[0] and mid[1] > before[1]
-        if ekw:
-            assert mid[2] > before[2] and mid[3] > before[3]
-        gath, e2 = run({**ekw, **gather}, ckw)
-        assert not e2.cache.use_kernel and not e2.cache.use_ragged
-        assert (getattr(pmod, pattr), getattr(rmod, rattr)) == mid[:2], (
-            "gather path launched an attention kernel")
-        assert all(len(s) == 16 for s in kern)
-        assert kern == gath, f"{label}: kernel path and gather path streams differ"
-        report[label] = {
-            "streams": len(kern), "tokens_each": 16, "identical": True,
-            "chunked_rows_kernel_run": e1.metrics.get_counter(
-                "attn_chunked_rows")}
+    k1 = {"decode_steps": 1}
+
+    # The model-dtype pool: the kernel route at K = 16 (the default) and at
+    # K = 1, and the gather path (K = 1: no tail without the kernel).
+    before = pa.launches
+    kern16, e16 = run({}, {})
+    assert e16.decode_steps == 16 and pa.launches > before
+    kern1, _ = run(k1, {})
+    gath, e2 = run(gather, {})
+    assert e2.decode_steps == 1 and not e2.cache.use_kernel
+    assert all(len(x) == 16 for x in kern16)
+    assert kern16 == kern1, "bf16 pool: K=16 and K=1 streams differ"
+    assert kern1 == gath, "bf16 pool: kernel path and gather path streams differ"
+    report["bf16"] = {"streams": len(kern16), "tokens_each": 16,
+                      "k16_equals_k1": True, "kernel_equals_gather": True,
+                      "chunked_rows_kernel_run": e16.metrics.get_counter(
+                          "attn_chunked_rows")}
+
+    # int4 weights over the int8 pool: kernels against the gather path at
+    # K = 1 (#5 and the gather take p * vs in f32); the fused window (#6,
+    # #9 round p * vs to bf16 as the TPU kernels do) against K = 1, shown.
+    ekw, ckw = {"quantization": "int4"}, {"kv_quant": "int8"}
+    before = (pa.quantized_launches, ra.quantized_launches, qm.launches,
+              qm.stacked_launches)
+    kern1, e1 = run({**ekw, **k1}, ckw)
+    assert e1.cache.use_kernel and e1.cache.use_ragged
+    mid = (pa.quantized_launches, ra.quantized_launches, qm.launches,
+           qm.stacked_launches)
+    assert all(m > b for m, b in zip(mid, before))
+    gath, e2 = run({**ekw, **k1, **gather}, ckw)
+    assert not e2.cache.use_kernel and not e2.cache.use_ragged
+    assert (pa.quantized_launches, ra.quantized_launches) == mid[:2], (
+        "gather path launched an attention kernel")
+    assert kern1 == gath, "int4/int8: kernel path and gather path streams differ"
+    fused_before = pa.fused_launches + qa.fused_launches
+    kern16, e16 = run(ekw, ckw)
+    assert e16.decode_steps == 16
+    assert pa.fused_launches + qa.fused_launches > fused_before
+    equal = sum(a == b for x, y in zip(kern16, kern1) for a, b in zip(x, y))
+    total = sum(len(x) for x in kern1)
+    first = next(((i, j) for i, (x, y) in enumerate(zip(kern16, kern1))
+                  for j, (a, b) in enumerate(zip(x, y)) if a != b), None)
+    report["int4_int8kv"] = {
+        "streams": len(kern1), "tokens_each": 16,
+        "kernel_equals_gather_k1": True,
+        "k16_vs_k1_equal_token_share": equal / total,
+        "k16_vs_k1_first_divergence": first,
+    }
     emit(report)
 
 
@@ -1055,6 +1473,9 @@ REPLACES = {
     "quantized_ragged_paged_attention": "distributed_llm_inference_tpu/ops/ragged_attention.py:345",
     "int4_matmul": "distributed_llm_inference_tpu/ops/quant_matmul.py:126",
     "int4_matmul_stacked": "distributed_llm_inference_tpu/ops/quant_matmul.py:214",
+    "quantized_paged_fused_attention": "distributed_llm_inference_tpu/ops/paged_attention.py:490",
+    "quantized_fused_decode_attention": "distributed_llm_inference_tpu/ops/quant_attention.py:231",
+    "paged_tail_flush": "distributed_llm_inference_tpu/ops/paged_attention.py:751",
 }
 SOURCES = {
     "paged_attention": "distributed_llm_inference_tpu_torch/csrc/paged_attention.cu",
@@ -1063,6 +1484,9 @@ SOURCES = {
     "quantized_ragged_paged_attention": "distributed_llm_inference_tpu_torch/csrc/ragged_attention.cu",
     "int4_matmul": "distributed_llm_inference_tpu_torch/csrc/int4_matmul.cu",
     "int4_matmul_stacked": "distributed_llm_inference_tpu_torch/csrc/int4_matmul.cu",
+    "quantized_paged_fused_attention": "distributed_llm_inference_tpu_torch/csrc/paged_attention.cu",
+    "quantized_fused_decode_attention": "distributed_llm_inference_tpu_torch/csrc/quant_attention.cu",
+    "paged_tail_flush": "distributed_llm_inference_tpu_torch/csrc/paged_attention.cu",
 }
 
 
@@ -1076,6 +1500,8 @@ def main() -> int:
     timed = phase_kernels()
     launches = phase_engine()
     phase_parity()
+    assert set(timed) == set(REPLACES) == set(launches), (
+        sorted(timed), sorted(launches))
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name],
          "replaces": REPLACES[name], "launches": launches[name],

@@ -27,6 +27,14 @@ ones. ``select_row(s)`` returns a small view object that SHARES the pool and
 owns copies of its rows' table and lengths; ``merge_row(s)`` writes only
 those two back. Row arguments are host integers: the port runs eagerly, so
 there is no traced index to keep on the device.
+
+**Write-behind tail.** The fused K-step decode window
+(``models/llama.py:multi_decode_apply``) keeps the pool read-only for K
+steps: each step's K/V lands in a small per-layer tail (``tail_init``),
+attention runs over the pool plus the tail (``tail_attend``), and
+``tail_flush`` writes the tail into the pages once per window. The tail is
+updated in place, and its slot index ``step_idx`` is a device tensor, so
+that one captured step serves the whole window.
 """
 
 from __future__ import annotations
@@ -41,9 +49,9 @@ import torch
 
 from ..ops.attention import causal_mask
 from ..ops.rotary import RopeAngles, apply_rope
-from ..utils.device import resolve_device
+from ..utils.device import resolve_device, to_device
 from .base import GatherAttendMixin, flash_prefill_fn
-from .dense import _quantize_kv
+from .dense import _quantize_kv, segment_valids
 
 
 class PagedKVCache(GatherAttendMixin):
@@ -229,6 +237,68 @@ class PagedKVCache(GatherAttendMixin):
             )
         return out, (layer_k, layer_v)
 
+    # -- write-behind tail (fused multi-step decode) --------------------------
+    #
+    # Kernel-only, as in the JAX package: the engine gates the tail on
+    # use_kernel for this cache. The pool segment runs the paged kernel with
+    # its softmax stats, merged with the tail under one softmax.
+
+    def tail_init(self, k_steps: int):
+        """Two distinct ``[L, B, K, Hkv, D]`` planes in the pool's type."""
+        l, _, hkv, _, d = self.k_pages.shape
+        shape = (l, self.page_table.shape[0], k_steps, hkv, d)
+        return tuple(
+            torch.zeros(shape, dtype=self.k_pages.dtype, device=self.device)
+            for _ in range(2)
+        )
+
+    def tail_attend(self, big_state, tail_state, q, k_new, v_new, rope,
+                    base_len, tail_len, step_idx, num_new, sliding_window,
+                    scale=None):
+        """One layer of a fused step: the rotated K and V into tail slot
+        ``step_idx`` (``[B, K, Hkv, D]`` planes of this layer, in place),
+        the pool segment through :func:`paged_attention` with its stats, the
+        tail merged by ``merge_softmax_segments``."""
+        from ..ops.attention import merge_softmax_segments
+        from ..ops.paged_attention import paged_attention
+
+        pool_k, pool_v = big_state
+        tk, tv = tail_state
+        q_rot = apply_rope(q, rope.cos, rope.sin)
+        k_rot = apply_rope(k_new, rope.cos, rope.sin)
+        slot = step_idx.reshape(1).long()
+        tk.index_copy_(1, slot, k_rot.to(tk.dtype))
+        tv.index_copy_(1, slot, v_new.to(tv.dtype))
+
+        q_pos = base_len + tail_len
+        out_pool, m_pool, l_pool = paged_attention(
+            q_rot, pool_k, pool_v, self.page_table, base_len,
+            scale=scale, sliding_window=sliding_window,
+            q_positions=q_pos, return_stats=True,
+        )
+        slots = torch.arange(tk.shape[1], dtype=torch.int32,
+                             device=self.device)[None, :]
+        tail_valid = slots < (tail_len + num_new)[:, None]
+        if sliding_window is not None:
+            tail_valid &= base_len[:, None] + slots > (
+                q_pos[:, None] - sliding_window)
+        out = merge_softmax_segments(
+            q_rot, out_pool, m_pool, l_pool, tk, tv, tail_valid, scale
+        )
+        return out, (tk, tv)
+
+    def tail_flush(self, tail, tail_len):
+        """Write each row's ``tail_len`` tail slots into its pages (the
+        prefill scatter, one layer at a time) and advance ``lengths``."""
+        wk, wv = tail  # [L, B, K, Hkv, D]
+        q_pos = self.lengths[:, None] + torch.arange(
+            wk.shape[2], dtype=torch.int32, device=self.device)[None, :]
+        for i in range(wk.shape[0]):
+            self._scatter(self.k_pages[i], self.v_pages[i], wk[i], wv[i],
+                          q_pos, tail_len)
+        self.lengths += tail_len
+        return self
+
     def update_and_gather(
         self,
         layer_state: Tuple[torch.Tensor, ...],
@@ -295,9 +365,9 @@ class PagedKVCache(GatherAttendMixin):
         entries are out-of-range rows, clamped here and dropped on merge. A
         clamped padding row's table is harmless: its ``num_new = 0`` prefill
         diverts every write to the null page."""
-        idx = torch.as_tensor(
+        idx = to_device(
             np.minimum(np.asarray(rows, np.int64), self.lengths.shape[0] - 1),
-            device=self.device,
+            torch.int64, self.device,
         )
         return self._view(
             self.page_table.index_select(0, idx),
@@ -310,8 +380,8 @@ class PagedKVCache(GatherAttendMixin):
         it."""
         rows = np.asarray(rows, np.int64)
         keep = np.nonzero(rows < self.lengths.shape[0])[0]
-        src = torch.as_tensor(keep, device=self.device)
-        dst = torch.as_tensor(rows[keep], device=self.device)
+        src = to_device(keep, torch.int64, self.device)
+        dst = to_device(rows[keep], torch.int64, self.device)
         self.page_table.index_copy_(0, dst, sub.page_table.index_select(0, src))
         self.lengths.index_copy_(0, dst, sub.lengths.index_select(0, src))
         return self
@@ -326,9 +396,8 @@ class PagedKVCache(GatherAttendMixin):
         """Install N (row, slot) ← page mappings in one scatter."""
         dev = self.device
         self.page_table[
-            torch.as_tensor(rows, dtype=torch.int64, device=dev),
-            torch.as_tensor(slots, dtype=torch.int64, device=dev),
-        ] = torch.as_tensor(pages, dtype=torch.int32, device=dev)
+            to_device(rows, torch.int64, dev), to_device(slots, torch.int64, dev),
+        ] = to_device(pages, torch.int32, dev)
         return self
 
 
@@ -455,6 +524,188 @@ class QuantizedPagedKVCache(PagedKVCache):
                 scale=scale, sliding_window=sliding_window,
             )
         return out, layer_state
+
+    # -- write-behind tail ----------------------------------------------------
+    #
+    # The fused window's two forms, as in the JAX package. Below INPLACE_CTX
+    # of table capacity, each row's pages are gathered once per window into
+    # contiguous head-major stacks (``tail_big_stacks``), which every step
+    # reads; from INPLACE_CTX on, every step reads the pool in place. With
+    # the kernels, both forms keep an int8 tail that each step's kernel
+    # quantizes into (#9 over the stacks, #6 over the pool) and the flush
+    # kernel (#7) writes into the pages; without them, a bf16 tail, the
+    # joint softmax in plain PyTorch, and the quantizing scatter at flush.
+
+    #: Table capacity (table width x page size) from which the kernel form
+    #: reads the pool in place instead of gathering it per window. The JAX
+    #: package's value, measured on its TPU; the port keeps it so that it
+    #: runs the reference's program (re-tuning it for the card is open).
+    INPLACE_CTX = 768
+
+    @property
+    def _fused_inplace(self) -> bool:
+        return self.use_kernel and self.max_len >= self.INPLACE_CTX
+
+    def tail_big_stacks(self, out=None):
+        """Read-only big planes for the fused window, ``(k, v, ks, vs)``:
+        from ``INPLACE_CTX`` on the pool planes themselves; below it a
+        contiguous head-major gather of every row's table span, ``[L, B,
+        Hkv, T*PS, D]`` int8 and ``[L, B, Hkv, T*PS]`` f32 (unmapped slots
+        read the null page, masked by ``pos < base_len``). ``out``: planes
+        of that shape from an earlier call to gather into, so that their
+        storage (which a CUDA graph captured) is kept."""
+        planes = (self.k_pages, self.v_pages, self.ks_pages, self.vs_pages)
+        if self._fused_inplace:
+            return planes
+        table = self.page_table.long()
+        b, t = table.shape
+
+        def g(pages):  # [L, P, H, PS(, D)] -> [L, B, H, T*PS(, D)]
+            v = pages[:, table]                       # [L, B, T, H, PS(, D)]
+            v = v.transpose(2, 3)                     # [L, B, H, T, PS(, D)]
+            return v.reshape(v.shape[0], b, v.shape[2], t * v.shape[4],
+                             *v.shape[5:])
+
+        if out is None:
+            return tuple(g(p) for p in planes)
+        for dst, p in zip(out, planes):
+            dst.copy_(g(p))
+        return out
+
+    @property
+    def _kernel_tail_ok(self) -> bool:
+        """The kernel forms: in place, or gathered with a capacity that is a
+        multiple of 32 (the JAX kernel's io-aliased stacks cannot pad; the
+        port keeps the same switch). Other capacities take the plain
+        segments path."""
+        return self.use_kernel and (
+            self._fused_inplace or self.max_len % 32 == 0
+        )
+
+    @property
+    def tail_reads_whole_big(self) -> bool:
+        """Kernel forms: the big planes pass whole, with the layer index."""
+        return self._kernel_tail_ok
+
+    @property
+    def tail_in_kernel(self) -> bool:
+        """Kernel forms: the tail planes pass whole; the kernel writes its
+        layer's slot."""
+        return self._kernel_tail_ok
+
+    def tail_init(self, k_steps: int):
+        """Kernel forms: int8 ``[L, B, Hkv, K, D]`` planes and f32 ``[L, B,
+        Hkv, K]`` scales ``(k, v, ks, vs)``, quantized in the kernel as the
+        pool is. Otherwise bf16 ``(k, v)``, quantized at flush."""
+        l, _, hkv, _, d = self.k_pages.shape
+        b = self.page_table.shape[0]
+        dev = self.device
+        if self._kernel_tail_ok:
+            return (
+                torch.zeros((l, b, hkv, k_steps, d), dtype=torch.int8, device=dev),
+                torch.zeros((l, b, hkv, k_steps, d), dtype=torch.int8, device=dev),
+                torch.zeros((l, b, hkv, k_steps), dtype=torch.float32, device=dev),
+                torch.zeros((l, b, hkv, k_steps), dtype=torch.float32, device=dev),
+            )
+        shape = (l, b, hkv, k_steps, d)
+        return tuple(
+            torch.zeros(shape, dtype=torch.bfloat16, device=dev)
+            for _ in range(2)
+        )
+
+    def tail_attend(self, big_state, tail_state, q, k_new, v_new, rope,
+                    base_len, tail_len, step_idx, num_new, sliding_window,
+                    scale=None):
+        """One layer of a fused step. Kernel forms: ``big_state`` is the
+        whole big planes plus the layer index, ``tail_state`` the whole
+        tail; one kernel call (#6 in place, #9 gathered). Otherwise the
+        layer's gathered slices and bf16 tail, plain PyTorch."""
+        from ..ops.attention import gqa_attention_quantized_segments
+
+        q_rot = apply_rope(q, rope.cos, rope.sin)
+        k_rot = apply_rope(k_new, rope.cos, rope.sin)
+        if self._kernel_tail_ok and q.shape[1] == 1:
+            gk, gv, gks, gvs, lidx = big_state
+            tk, tv, tks, tvs = tail_state
+            kw = dict(
+                layer_idx=lidx, step_idx=step_idx, base_len=base_len,
+                tail_valid_len=tail_len + num_new,
+                q_positions=base_len + tail_len,
+                scale=scale, sliding_window=sliding_window,
+            )
+            if self._fused_inplace:
+                from ..ops.paged_attention import (
+                    quantized_paged_fused_attention,
+                )
+
+                out, ntk, ntks, ntv, ntvs = quantized_paged_fused_attention(
+                    q_rot, k_rot, v_new, gk, gks, gv, gvs, tk, tks, tv, tvs,
+                    page_table=self.page_table, **kw,
+                )
+            else:
+                from ..ops.quant_attention import (
+                    quantized_fused_decode_attention,
+                )
+
+                out, ntk, ntks, ntv, ntvs = quantized_fused_decode_attention(
+                    q_rot, k_rot, v_new, gk, gks, gv, gvs, tk, tks, tv, tvs,
+                    **kw,
+                )
+            return out, (ntk, ntv, ntks, ntvs)
+        gk, gv, gks, gvs = big_state   # [B, Hkv, Tmax(, D)] of this layer
+        tk, tv = tail_state            # [B, Hkv, K, D] bf16
+        slot = step_idx.reshape(1).long()
+        tk.index_copy_(2, slot, k_rot.transpose(1, 2).to(tk.dtype))
+        tv.index_copy_(2, slot, v_new.transpose(1, 2).to(tv.dtype))
+        big_valid, tail_valid = segment_valids(
+            base_len, tail_len, num_new, gk.shape[2], tk.shape[2],
+            sliding_window,
+        )
+        ones = torch.ones(tk.shape[:3], dtype=torch.float32, device=self.device)
+        out = gqa_attention_quantized_segments(
+            q_rot,
+            [(gk, gks, gv, gvs, big_valid), (tk, ones, tv, ones, tail_valid)],
+            scale,
+        )
+        return out, (tk, tv)
+
+    def tail_flush(self, tail, tail_len):
+        """Write each row's ``tail_len`` tail slots into its pages and
+        advance ``lengths``: the flush kernel (#7) for the int8 tail when it
+        fits one page, as in the JAX package; otherwise the scatter, one
+        layer at a time (the bf16 tail quantized on the way, as the per-step
+        write would)."""
+        kk = tail[0].shape[3]
+        q_pos = self.lengths[:, None] + torch.arange(
+            kk, dtype=torch.int32, device=self.device)[None, :]
+        num_l = self.k_pages.shape[0]
+        if len(tail) == 4:  # kernel forms: int8 + scales
+            wk, wv, wks, wvs = tail
+            if kk <= self.page_size:
+                from ..ops.paged_attention import paged_tail_flush
+
+                paged_tail_flush(
+                    self.k_pages, self.ks_pages, self.v_pages, self.vs_pages,
+                    wk, wks, wv, wvs, self.page_table, self.lengths, tail_len,
+                )
+            else:
+                for i in range(num_l):
+                    self._scatter_planes(
+                        self.k_pages[i], self.v_pages[i], self.ks_pages[i],
+                        self.vs_pages[i], wk[i].transpose(1, 2),
+                        wv[i].transpose(1, 2), wks[i].transpose(1, 2),
+                        wvs[i].transpose(1, 2), q_pos, tail_len,
+                    )
+        else:
+            wk, wv = tail  # [L, B, Hkv, K, D] bf16, keys rotated
+            for i in range(num_l):
+                self._scatter_q(
+                    self.k_pages[i], self.v_pages[i], self.ks_pages[i],
+                    self.vs_pages[i], wk[i].transpose(1, 2),
+                    wv[i].transpose(1, 2), q_pos, tail_len,
+                )
+        self.lengths += tail_len
+        return self
 
     def update_and_gather(self, layer_state, q, k_new, v_new, rope, q_pos,
                           num_new, sliding_window=None):

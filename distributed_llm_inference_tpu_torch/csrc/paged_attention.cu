@@ -51,6 +51,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "fused_decode.cuh"
+
 namespace {
 
 constexpr int kWarps = 4;
@@ -410,4 +412,116 @@ extern "C" int dli_quantized_paged_attention(
   return fill_and_dispatch(a, q, table, kv_lens, q_pos, out, m_out, l_out,
                            part_o, part_m, part_l, B, Hkv, G, D, PS, Tw, NS,
                            chunk, scale, window, dtype, true, stream);
+}
+
+// ---------------------------------------------------------------------------
+// The fused K-step decode window over the int8 pool (slice 3).
+// ---------------------------------------------------------------------------
+
+// Replaces `quantized_paged_fused_attention` (the TPU kernel
+// `_qpaged_fused_kernel`): one (layer, step) of the fused window over the
+// int8 page pool read in place, the step's K/V quantized into the tail.
+// See fused_decode.cuh. The whole [L, P, Hkv, PS, D] pool and [L, B, Hkv,
+// KT, D] tail are passed; `layer` picks the layer, `step` is read from
+// device memory; `scratch` holds B * Hkv * G * NT * (W + 3 + D) floats,
+// NT >= Tw + 1 tiles a row, W >= max(PS, KT). Returns cudaGetLastError()
+// after the launches, -1 for a shape outside D = 128, G in {1, 4}, PS and
+// KT in 1..256.
+extern "C" int dli_quantized_paged_fused_attention(
+    const void* q, const void* k_new, const void* v_new, const void* pool_k,
+    const void* pool_ks, const void* pool_v, const void* pool_vs,
+    void* tail_k, void* tail_ks, void* tail_v, void* tail_vs,
+    const void* table, const void* base_len, const void* tail_vlen,
+    const void* q_pos, const void* step, void* out, void* scratch, int B,
+    int Hkv, int G, int D, int P, int PS, int Tw, int KT, int layer, int NT,
+    int W, float scale, int window, int dtype, void* stream) {
+  fused::Args a;
+  a.q = q; a.k_new = k_new; a.v_new = v_new;
+  a.big_k = static_cast<const int8_t*>(pool_k);
+  a.big_v = static_cast<const int8_t*>(pool_v);
+  a.big_ks = static_cast<const float*>(pool_ks);
+  a.big_vs = static_cast<const float*>(pool_vs);
+  a.tail_k = static_cast<int8_t*>(tail_k);
+  a.tail_v = static_cast<int8_t*>(tail_v);
+  a.tail_ks = static_cast<float*>(tail_ks);
+  a.tail_vs = static_cast<float*>(tail_vs);
+  a.table = static_cast<const int*>(table);
+  a.base_len = static_cast<const int*>(base_len);
+  a.tail_vlen = static_cast<const int*>(tail_vlen);
+  a.q_pos = static_cast<const int*>(q_pos);
+  a.step = static_cast<const int*>(step);
+  a.out = out;
+  a.scratch = static_cast<float*>(scratch);
+  a.NT = NT; a.W = W;
+  a.B = B; a.Hkv = Hkv; a.rows = P; a.ps = PS; a.tw = Tw; a.tile_w = PS;
+  a.KT = KT; a.layer = layer; a.window = window; a.scale = scale;
+  return fused::launch<true>(a, G, D, dtype, stream);
+}
+
+namespace {
+
+// Replaces `paged_tail_flush` (its TPU kernel read-modify-writes whole
+// pages through VMEM, with clamped duplicate visits): a direct scatter. One
+// block per (row, layer) copies each of the row's tail_len[b] tail slots, 16
+// bytes a thread, to position base_len[b] + i of its pages, scales beside
+// them. Nothing is written for a position past the table or on the null
+// page 0. Bound by bytes: each tail byte is read once and written once.
+__global__ void __launch_bounds__(kThreads) tail_flush_kernel(
+    int8_t* __restrict__ pk, float* __restrict__ pks,
+    int8_t* __restrict__ pv, float* __restrict__ pvs,  // [L, P, Hkv, PS(, D)]
+    const int8_t* __restrict__ tk, const float* __restrict__ tks,
+    const int8_t* __restrict__ tv, const float* __restrict__ tvs,  // [L, B, Hkv, KT(, D)]
+    const int* __restrict__ table, const int* __restrict__ base_len,
+    const int* __restrict__ tail_len, int B, int P, int Hkv, int PS, int Tw,
+    int KT, int D) {
+  const int b = blockIdx.x;
+  const int l = blockIdx.y;
+  const int start = base_len[b];
+  const int n = min(tail_len[b], KT);
+  const int chunks = D / 16;
+  const int total = n * Hkv * chunks;
+  for (int idx = threadIdx.x; idx < total; idx += kThreads) {
+    const int c = idx % chunks;
+    const int h = (idx / chunks) % Hkv;
+    const int i = idx / (chunks * Hkv);
+    const int pos = start + i;
+    const int slot = pos / PS;
+    if (slot >= Tw) continue;
+    const int page = table[(size_t)b * Tw + slot];
+    if (page <= 0 || page >= P) continue;
+    const size_t dst = (((size_t)l * P + page) * Hkv + h) * PS + pos % PS;
+    const size_t src = (((size_t)l * B + b) * Hkv + h) * KT + i;
+    reinterpret_cast<uint4*>(pk + dst * D)[c] =
+        reinterpret_cast<const uint4*>(tk + src * D)[c];
+    reinterpret_cast<uint4*>(pv + dst * D)[c] =
+        reinterpret_cast<const uint4*>(tv + src * D)[c];
+    if (c == 0) {
+      pks[dst] = tks[src];
+      pvs[dst] = tvs[src];
+    }
+  }
+}
+
+}  // namespace
+
+// pool planes [L, P, Hkv, PS, D] int8 / [L, P, Hkv, PS] f32, tail planes
+// [L, B, Hkv, KT, D] / [L, B, Hkv, KT], table [B, Tw], base_len and tail_len
+// [B] int32. D a multiple of 16. Returns cudaGetLastError() after the launch.
+extern "C" int dli_paged_tail_flush(
+    void* pool_k, void* pool_ks, void* pool_v, void* pool_vs,
+    const void* tail_k, const void* tail_ks, const void* tail_v,
+    const void* tail_vs, const void* table, const void* base_len,
+    const void* tail_len, int L, int B, int P, int Hkv, int PS, int Tw,
+    int KT, int D, void* stream) {
+  if (L <= 0 || B <= 0) return 0;
+  if (D % 16 != 0) return -1;
+  tail_flush_kernel<<<dim3(B, L), kThreads, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
+      static_cast<int8_t*>(pool_k), static_cast<float*>(pool_ks),
+      static_cast<int8_t*>(pool_v), static_cast<float*>(pool_vs),
+      static_cast<const int8_t*>(tail_k), static_cast<const float*>(tail_ks),
+      static_cast<const int8_t*>(tail_v), static_cast<const float*>(tail_vs),
+      static_cast<const int*>(table), static_cast<const int*>(base_len),
+      static_cast<const int*>(tail_len), B, P, Hkv, PS, Tw, KT, D);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -13,16 +13,28 @@ Step anatomy (host orchestrates, device computes):
      pool), run batched or single-row prefill(s), sample the first token;
      long greedy prompts park and walk their prompt one chunk per granted
      tick beside the live decode batch.
-  2. decode — one model step over all slots; inactive rows carry
-     ``num_new = 0`` and write to the null page.
+  2. decode — K fused steps over all slots (``decode_steps``; None resolves
+     to 16 where the cache has the write-behind tail, as in the JAX
+     engine): sampling, EOS stops and per-row budgets run on the device,
+     the cache stays read-only until one flush per window, and on a CUDA
+     device each step replays a CUDA graph (``engine/graphs.py``). Inactive
+     rows carry ``num_new = 0`` and write nothing.
   3. retire — EOS / length / capacity sessions leave their slots; pages
      return to the allocator.
 
+Pipelined ticks (``pipelined_ticks``, K > 1): ``step()`` enqueues tick N
+from a device-resident carry of tick N-1's last tokens BEFORE it resolves
+tick N-1, whose emitted tokens were copied to pinned host memory behind it;
+a tick's tokens reach the caller one ``step()`` after their dispatch.
+Overlapped admission (``overlap_admission``): with a tick in flight,
+prefills are enqueued behind it and their first tokens are fetched at the
+next tick boundary, scattered into the carry meanwhile.
+
 What the port serves: a dense Llama-family model in bf16/f32, or with int4
 (half-split) or int8 weights (``EngineConfig.quantization``), over the paged
-cache in the model dtype or int8 (``CacheConfig.kv_quant="int8"``), one
-token per decode dispatch. The constructor raises ``NotImplementedError``,
-naming the ``ROADMAP.md`` queue item, for every feature that waits.
+cache in the model dtype or int8 (``CacheConfig.kv_quant="int8"``). The
+constructor raises ``NotImplementedError``, naming the ``ROADMAP.md`` queue
+item, for every feature that waits.
 """
 
 from __future__ import annotations
@@ -42,8 +54,9 @@ from ..cache.paged import PageAllocator, PagedKVCache, QuantizedPagedKVCache
 from ..config import CacheConfig, EngineConfig, ModelConfig
 from ..models import llama
 from ..ops import quant
-from ..utils.device import resolve_device
+from ..utils.device import resolve_device, to_device
 from ..utils.metrics import Metrics
+from .graphs import FusedDecode
 from .plan import AttentionPlan
 from .sampling import SamplingOptions, SamplingParams, sample
 from .session import Session, SessionState
@@ -65,7 +78,8 @@ class InferenceEngine:
     :class:`AttentionPlan` resolves kernels for; it defaults to the device's
     type, and tests pass ``"cuda"`` with ``device="cpu"`` to route attention
     through the kernel wrappers, which take their plain versions for CPU
-    tensors.
+    tensors. On a CUDA device each fused decode step is replayed from a
+    CUDA graph (``engine/graphs.py``).
     """
 
     def __init__(
@@ -86,8 +100,6 @@ class InferenceEngine:
         self.ecfg = engine_cfg or EngineConfig()
         self.ccfg = cache_cfg or CacheConfig()
         ecfg, cc = self.ecfg, self.ccfg
-        if ecfg.decode_steps is not None and ecfg.decode_steps > 1:
-            raise _waits("decode_steps > 1 (fused K-step decode)", "item 2")
         if ecfg.decode_steps is not None and ecfg.decode_steps < 1:
             raise ValueError(f"decode_steps must be >= 1, got {ecfg.decode_steps}")
         if cc.kind not in ("paged", "dense", "sink"):
@@ -190,16 +202,54 @@ class InferenceEngine:
         self.sessions: Dict[str, Session] = {}
         self.waiting: collections.deque[Session] = collections.deque()
         self.slots: List[Optional[str]] = [None] * self.batch
-        self.decode_steps = 1
         # Admission-ordering hook (set_admission_order): None = FIFO.
         self._admission_order = None
+
+        # The write-behind tail (the fused K-step window) needs the cache's
+        # tail protocol: the int8 pool always, the model-dtype pool with its
+        # decode kernel, as in the JAX engine (its dense, sink, latent and
+        # pipeline-parallel branches wait with their caches).
+        tail_capable = (
+            isinstance(self.cache, QuantizedPagedKVCache)
+            or self.cache.use_kernel
+        )
+        # decode_steps=None resolves to the fused window wherever it
+        # composes, as in the JAX engine.
+        self.decode_steps = (
+            ecfg.decode_steps if ecfg.decode_steps is not None
+            else (16 if tail_capable else 1)
+        )
+        K = self.decode_steps
+        self._fused = (
+            FusedDecode(cfg, self.params, K, self.batch, self.device,
+                        self.metrics)
+            if tail_capable and K > 1 else None
+        )
+
+        # -- pipelined decode ticks -------------------------------------------
+        # Dispatch tick N from a device-resident carry of tick N-1's final
+        # tokens, THEN resolve tick N-1's emitted tokens (their copy to the
+        # host overlaps tick N's compute).
+        self._pending = None
+        self._carry: Optional[torch.Tensor] = None
+        self._carry_ok = np.zeros(self.batch, np.bool_)
+        # -- overlapped admission ------------------------------------------------
+        # With a pipelined tick in flight, admission prefills are enqueued
+        # behind it, but the blocking first-token fetch is deferred: each
+        # record holds (sessions, device tokens, host copy, copy event) until
+        # the next tick boundary. The tokens scatter into the carry, so the
+        # next tick consumes them with no host round trip, and
+        # ``_admit_pend`` charges one in-flight token per row. Device
+        # programs and key order are those of the synchronous path.
+        self._inflight_admits: List[Tuple[List[Session], torch.Tensor,
+                                          torch.Tensor, object]] = []
+        self._admit_pend = np.zeros(self.batch, np.int32)
+        self._pipelined = ecfg.pipelined_ticks and K > 1 and tail_capable
 
     # -- device programs (eager) ----------------------------------------------
 
     def _i32(self, values) -> torch.Tensor:
-        return torch.as_tensor(
-            np.asarray(values, np.int32), device=self.device
-        )
+        return to_device(np.asarray(values, np.int32), torch.int32, self.device)
 
     def _prefill(self, tokens, row: int, n_valid: int, key, sp) -> torch.Tensor:
         """One row's (final) prefill chunk; samples at its last position."""
@@ -239,6 +289,28 @@ class InferenceEngine:
             active.to(torch.int32),
         )
         return sample(logits[:, 0], key, sp)
+
+    def _decode_k(self, tokens, active, key, sp, eos_ids, budget):
+        """``K`` fused decode steps in one dispatch (the JAX engine's
+        ``_decode_scan``): sampling, EOS stops and per-row token budgets on
+        the device. Rows that stop keep computing but write nothing
+        (``num_new = 0``) and emit -1. Returns ``emitted [K, B]``.
+
+        Tail-capable caches run the write-behind window
+        (``engine/graphs.py``); the others step ``model_apply`` K times."""
+        if self._fused is not None:
+            return self._fused.run(self.cache, tokens, active, key, sp,
+                                   eos_ids, budget)
+        tok, alive, emits = tokens, active, []
+        for i in range(self.decode_steps):
+            logits, _ = llama.model_apply(
+                self.cfg, self.params, tok, self.cache, alive.to(torch.int32),
+            )
+            nxt = sample(logits[:, 0], key, sp, i)
+            emits.append(torch.where(alive, nxt, -1))
+            alive = alive & (nxt != eos_ids) & (i + 1 < budget)
+            tok = nxt[:, None]
+        return torch.stack(emits)
 
     # -- capacity ---------------------------------------------------------------
 
@@ -349,22 +421,40 @@ class InferenceEngine:
         """One scheduler tick: admit + decode. Returns
         ``[(generation_id, token, finished), …]`` events. ``token == -1``
         signals a finish without a new token (capacity rejection/exhaustion,
-        cancel, deadline) — streaming consumers must not append it."""
+        cancel, deadline) — streaming consumers must not append it.
+
+        Pipelined engines (``EngineConfig.pipelined_ticks``) dispatch the
+        next device tick BEFORE resolving the previous one, so a tick's
+        tokens arrive one ``step()`` later than they were dispatched."""
         produced: List[Tuple[str, int, bool]] = []
         with self._lock:
-            self._admit(produced)
-            self._chunk_dispatch(produced)
-            if any(
-                gid is not None and not self.sessions[gid].chunking
-                for gid in self.slots
-            ):
-                self._decode_tick(produced)
+            if self._pipelined:
+                prev = self._pending
+                self._pending = self._dispatch_tick(produced, prev)
+                self._resolve_pending(produced, prev)
+                # Chunked-prefill co-scheduling rides BEHIND the decode
+                # dispatch and after the resolve, so a final chunk's
+                # deferred first token rides the NEXT tick's fetch exactly
+                # like an overlapped admission.
+                self._chunk_dispatch(produced)
+                self._admit(produced)
+            else:
+                self._admit(produced)
+                self._chunk_dispatch(produced)
+                if any(
+                    gid is not None and not self.sessions[gid].chunking
+                    for gid in self.slots
+                ):
+                    self._decode_tick(produced)
         return produced
 
     def has_work(self) -> bool:
         with self._lock:
-            return bool(self.waiting) or any(
-                s is not None for s in self.slots
+            return (
+                bool(self.waiting)
+                or any(s is not None for s in self.slots)
+                or self._pending is not None
+                or bool(self._inflight_admits)
             )
 
     def active_sessions(self) -> int:
@@ -577,6 +667,84 @@ class InferenceEngine:
                 continue
             self._run_prefill(s, produced)
 
+    def _overlap_ok(self) -> bool:
+        """Overlap THIS admission with the in-flight tick? Requires the
+        pipelined carry (so the next tick consumes the deferred first token
+        without a host fetch), a tick actually in flight (otherwise the
+        synchronous path is already stall-free), and head-room under the
+        in-flight cap (back-pressure: an admission flood spills to the
+        synchronous path instead of queueing unbounded prefill work)."""
+        if not (
+            self.ecfg.overlap_admission
+            and self._pipelined
+            and self._pending is not None
+        ):
+            return False
+        if (
+            len(self._inflight_admits)
+            >= max(1, self.ecfg.overlap_admission_max_inflight)
+        ):
+            self.metrics.counter("admit_overlap_spill")
+            return False
+        return True
+
+    def _defer_admit(self, group, toks_dev, rows) -> None:
+        """Record an overlapped admission: the prefill is enqueued; the
+        sampled first tokens stay on the device, scatter into the pipelined
+        carry (the next tick consumes them with no host round trip), and
+        start their copy to pinned host memory. ``_admit_pend`` charges one
+        in-flight token per row; ``_resolve_pending`` delivers at the next
+        tick boundary."""
+        toks_dev = toks_dev.reshape(-1)
+        self._carry_scatter(toks_dev, rows)
+        host, ready = self._to_host(toks_dev)
+        now = time.monotonic()
+        for s in group:
+            s.prefill_inflight = True
+            s.prefill_dispatch_t = now
+            self._carry_ok[s.slot] = True
+            self._admit_pend[s.slot] = 1
+        self._inflight_admits.append((list(group), toks_dev, host, ready))
+        self.metrics.counter("admit_overlap_sessions", len(group))
+        self.metrics.gauge(
+            "admit_overlap_inflight", float(len(self._inflight_admits))
+        )
+
+    def _to_host(self, t: torch.Tensor):
+        """Start copying ``t`` to pinned host memory behind the work queued
+        on the card; returns ``(host tensor, event)`` — the copy is complete
+        once the event is (None on the CPU, where there is nothing to
+        wait for)."""
+        if t.device.type != "cuda":
+            return t.clone(), None
+        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        host.copy_(t, non_blocking=True)
+        ready = torch.cuda.Event()
+        ready.record()
+        return host, ready
+
+    # Device-side carry updates (the JAX engine's jitted helpers).
+
+    def _carry_combine(self, fresh, use_carry) -> torch.Tensor:
+        return torch.where(use_carry[:, None], self._carry, fresh)
+
+    def _carry_merge(self, em_last, act) -> None:
+        old = (
+            self._carry if self._carry is not None
+            else torch.zeros((self.batch, 1), dtype=torch.int32,
+                             device=self.device)
+        )
+        self._carry = torch.where(act[:, None], em_last[:, None], old)
+
+    def _carry_scatter(self, toks, rows) -> None:
+        """Deferred first tokens land in the carry at their rows; padding
+        entries (an out-of-range row) are dropped."""
+        rows = np.asarray(rows)
+        keep = np.nonzero(rows < self.batch)[0]
+        self._carry[to_device(rows[keep], torch.int64, self.device), 0] = (
+            toks[to_device(keep, torch.int64, self.device)]
+        )
+
     def _prefill_group(self, group, bucket, produced) -> None:
         """One batched prefill dispatch for <= 8 same-bucket sessions. Rows
         pad to a power of two with placeholder rows (``n_valid = 0``: no
@@ -607,6 +775,12 @@ class InferenceEngine:
             toks = self._prefill_batch(
                 self._i32(tokens), rows, n_valid, self._next_key(), sp
             )
+            if self._overlap_ok():
+                # Everything above was enqueued only; the token fetch waits
+                # for the next tick boundary.
+                self.metrics.counter("batched_prefills", k)
+                self._defer_admit(group, toks, rows)
+                return
             toks = toks.cpu().numpy()  # the one sync of this admission
         self.metrics.counter("batched_prefills", k)
         self.metrics.counter("admit_sync_sessions", k)
@@ -636,11 +810,16 @@ class InferenceEngine:
             padded = np.zeros((1, width), np.int32)
             padded[0, : len(rest)] = rest
             self.plan.note_dispatch("prefill", (1, width), len(rest))
-            token = int(self._prefill(
+            token = self._prefill(
                 self._i32(padded), s.slot, len(rest), self._next_key(), sp
-            ))
+            )
+        if self._overlap_ok():
+            # Single-row admissions defer the token fetch exactly like the
+            # batched path.
+            self._defer_admit([s], token, np.asarray([s.slot], np.int32))
+            return
         self.metrics.counter("admit_sync_sessions")
-        self._finish_prefill(s, token, produced)
+        self._finish_prefill(s, int(token), produced)
 
     def _chunk_admit(self, s: Session) -> bool:
         """Park an admitted long GREEDY prompt for chunk/decode
@@ -723,27 +902,197 @@ class InferenceEngine:
             )
             self.plan.note_dispatch("prefill", (1, width), rest)
             with self.metrics.timer("prefill"):
-                # int(): the one sync per admission, as in _run_prefill.
-                token = int(self._prefill(
+                token = self._prefill(
                     self._i32(padded), s.slot, rest, s.parked_key, sp
-                ))
+                )
             self.plan.note_chunk_rows()
             s.chunking = False
             s.parked_key = None
             self._chunking.remove(s)
+            if self._overlap_ok():
+                self._defer_admit([s], token, np.asarray([s.slot], np.int32))
+                continue
             self.metrics.counter("admit_sync_sessions")
-            self._finish_prefill(s, token, produced)
+            # int(): the one sync per admission, as in _run_prefill.
+            self._finish_prefill(s, int(token), produced)
 
     def _finish_prefill(self, s, token, produced):
         self._deliver(s, int(token), produced)
         self.metrics.counter("prefill_tokens", len(s.prompt))
 
+    def _dispatch_tick(self, produced, prev):
+        """Enqueue the next fused K-step tick from the device-resident
+        token carry (tick N-1's final sampled tokens): no host fetch on the
+        input path, so the card's queue never drains between ticks.
+        Returns the new pending record, or None when nothing was
+        dispatched.
+
+        Budgets are CONSERVATIVE: they assume the in-flight tick (``prev``)
+        delivers its full budget, so a session never over-writes its
+        ``max_new_tokens`` or its pages; a row whose conservative budget
+        is zero idles one tick instead of rolling anything back."""
+        K = self.decode_steps
+        if prev is not None:
+            # A slot whose tenant changed since the in-flight tick was
+            # dispatched (finish -> admit) is not charged the previous
+            # tenant's pending budget.
+            pend_b = np.where(
+                np.array([g == pg for g, pg in zip(self.slots, prev[3])]),
+                prev[1], 0,
+            )
+        else:
+            pend_b = np.zeros((self.batch,), np.int32)
+        # A row whose in-flight budget was cut below K (page capacity) stops
+        # before that window's last step: its carry will hold -1, and the
+        # host learns its last token only at the resolve. It idles a tick.
+        cut = (pend_b > 0) & (pend_b < K)
+        if self._admit_pend.any():
+            # Overlapped admissions dispatched last tick: each row's first
+            # token is still in flight (this tick consumes it via the
+            # carry) — charged like in-flight tick budget.
+            pend_b = pend_b + self._admit_pend
+        fresh = np.zeros((self.batch, 1), np.int32)
+        use_carry = np.zeros((self.batch,), np.bool_)
+        opts: List[SamplingOptions] = [SamplingOptions()] * self.batch
+        budget = np.zeros((self.batch,), np.int32)
+        for slot, gid in enumerate(self.slots):
+            if gid is None:
+                continue
+            s = self.sessions[gid]
+            if s.chunking or cut[slot]:
+                # Mid chunked-prefill (holds its slot but is not
+                # decode-eligible until its final chunk samples), or cut.
+                continue
+            opts[slot] = s.options
+            fresh[slot, 0] = s.last_token
+            use_carry[slot] = self._carry_ok[slot]
+            pend = int(pend_b[slot])
+            cap = len(s.pages) * self.ccfg.page_size
+            if pend == 0 and s.total_len + 1 > cap:
+                # One more growth attempt before declaring capacity.
+                cap = self._grow_pages(s, 1)
+                if s.total_len + 1 > cap:
+                    # Nothing in flight for this row and no room for one
+                    # more token: the session ends here.
+                    self._finish(s, "capacity", produced)
+                    continue
+            desired = max(0, min(
+                K, s.options.max_new_tokens - len(s.generated) - pend
+            ))
+            if desired > 0:
+                # Pages must cover the in-flight tick's budget AND this one.
+                cap = self._grow_pages(s, pend + desired)
+            budget[slot] = max(0, min(desired, cap - s.total_len - pend))
+        active = np.array(
+            [g is not None for g in self.slots], np.bool_
+        ) & (budget > 0)
+        if not active.any():
+            return None
+        if self._windows:
+            self._ensure_capacity(max(
+                self.sessions[g].total_len + int(pend_b[i]) + int(budget[i])
+                for i, g in enumerate(self.slots) if g is not None
+            ))
+        sp = SamplingParams.stack(opts, self.device)
+        eos_ids = np.asarray([o.eos_token_id for o in opts], np.int32)
+        fresh_dev = self._i32(fresh)
+        tokens_dev = (
+            fresh_dev if self._carry is None
+            else self._carry_combine(
+                fresh_dev, to_device(use_carry, torch.bool, self.device))
+        )
+        # An idle row's carry may hold -1 (it stopped before its last
+        # window's end, or its budget was cut): it computes without writing
+        # or emitting, but its token must still index the embedding.
+        tokens_dev = tokens_dev.clamp_min(0)
+        act_dev = to_device(active, torch.bool, self.device)
+        self._flush_installs()
+        self.plan.note_dispatch(
+            "decode", (self.batch, K, self.cache.page_table.shape[1])
+        )
+        with self.metrics.timer("decode_step"):
+            emitted = self._decode_k(
+                tokens_dev, act_dev, self._next_key(), sp,
+                self._i32(eos_ids), self._i32(budget),
+            )
+        self._carry_merge(emitted[-1], act_dev)
+        self._carry_ok = self._carry_ok | active
+        host, ready = self._to_host(emitted)
+        return (host, budget, active, list(self.slots), ready)
+
+    def _resolve_pending(self, produced, prev) -> None:
+        """Deliver the PREVIOUS tick's tokens (their copy overlapped the
+        tick just dispatched). A row that stopped before its window's last
+        step but keeps serving gets its device carry invalidated: the next
+        dispatch feeds it the host-known last token.
+
+        Overlapped admissions dispatched last step resolve here too: their
+        first tokens were copied behind the same queue; then the usual
+        prefill bookkeeping runs. Sessions cancelled while their prefill
+        was in flight drop the token (``_deliver``'s guard); the admission
+        reap frees their slot and pages right after."""
+        admits, self._inflight_admits = self._inflight_admits, []
+        if prev is None and not admits:
+            return
+        with self.metrics.timer("decode_resolve"):
+            for _, _, _, ready in admits:
+                if ready is not None:
+                    ready.synchronize()
+            if prev is not None and prev[4] is not None:
+                prev[4].synchronize()
+        if admits:
+            self._admit_pend[:] = 0
+            self.metrics.gauge("admit_overlap_inflight", 0.0)
+            now = time.monotonic()
+            for group, _, host, _ in admits:
+                toks = host.numpy().reshape(-1)
+                for i, s in enumerate(group):
+                    s.prefill_inflight = False
+                    if s.prefill_dispatch_t is not None:
+                        self.metrics.observe(
+                            "admit_to_merge", now - s.prefill_dispatch_t
+                        )
+                        s.prefill_dispatch_t = None
+                    self._finish_prefill(s, int(toks[i]), produced)
+        if prev is None:
+            return
+        host, budget, active, gids, _ = prev
+        emitted = host.numpy()
+        delivered_total = 0
+        for slot, gid in enumerate(gids):
+            if gid is None or not active[slot]:
+                continue
+            s = self.sessions.get(gid)
+            if s is None or self.slots[slot] != gid:
+                continue  # cancelled/reaped since dispatch
+            delivered = 0
+            for i in range(int(budget[slot])):
+                if s.state != SessionState.ACTIVE:
+                    break
+                tok = int(emitted[i, slot])
+                if tok == -1:  # stopped on the device at an earlier step
+                    break
+                self._deliver(s, tok, produced)
+                delivered += 1
+            delivered_total += delivered
+            # The carry holds this row's token of the window's LAST step:
+            # -1 if the row stopped before it. (The JAX engine tests
+            # delivered < budget, which leaves a -1 carry behind a
+            # capacity-cut budget; see ROADMAP.md queue 3.)
+            if (delivered < self.decode_steps
+                    and s.state == SessionState.ACTIVE):
+                self._carry_ok[slot] = False
+        self.metrics.counter("decode_tokens", delivered_total)
+
     def _decode_tick(self, produced) -> None:
+        """The synchronous tick: K steps (K = ``decode_steps``) for every
+        decode-eligible row, fetched and delivered before returning."""
+        K = self.decode_steps
         tokens = np.zeros((self.batch, 1), np.int32)
         opts: List[SamplingOptions] = [SamplingOptions()] * self.batch
-        # Per-row token budget for this tick (0 or 1): remaining
-        # max_new_tokens and page capacity. Page tables grow to cover it
-        # before the step.
+        # Per-row token budget for this tick: how many of the K steps may
+        # append (remaining max_new_tokens and page capacity). Page tables
+        # grow to cover it before the step.
         budget = np.zeros((self.batch,), np.int32)
         for slot, gid in enumerate(self.slots):
             if gid is None:
@@ -753,7 +1102,7 @@ class InferenceEngine:
                 continue
             tokens[slot, 0] = s.last_token
             opts[slot] = s.options
-            want = min(1, s.options.max_new_tokens - len(s.generated))
+            want = min(K, s.options.max_new_tokens - len(s.generated))
             cap = self._grow_pages_for(s, want, produced)
             if cap is None:
                 continue
@@ -782,23 +1131,32 @@ class InferenceEngine:
         sp = SamplingParams.stack(opts, self.device)
         self._flush_installs()
         self.plan.note_dispatch(
-            "decode", (self.batch, 1, self.cache.page_table.shape[1])
+            "decode", (self.batch, K, self.cache.page_table.shape[1])
         )
+        act_dev = to_device(active, torch.bool, self.device)
         with self.metrics.timer("decode_step"):
-            next_tokens = self._decode(
-                self._i32(tokens),
-                torch.as_tensor(active, device=self.device),
-                self._next_key(), sp,
-            )
-            emitted = next_tokens.cpu().numpy()  # the one per-tick fetch
+            if K == 1:
+                next_tokens = self._decode(
+                    self._i32(tokens), act_dev, self._next_key(), sp,
+                )
+                # The one per-tick fetch.
+                emitted = next_tokens.cpu().numpy()[None, :]
+            else:
+                eos_ids = np.asarray([o.eos_token_id for o in opts], np.int32)
+                emitted = self._decode_k(
+                    self._i32(tokens), act_dev, self._next_key(), sp,
+                    self._i32(eos_ids), self._i32(budget),
+                ).cpu().numpy()
 
         delivered = 0
         for slot, gid in enumerate(list(self.slots)):
             if gid is None or not active[slot]:
                 continue
             s = self.sessions[gid]
-            if budget[slot] and s.state == SessionState.ACTIVE:
-                self._deliver(s, int(emitted[slot]), produced)
+            for i in range(int(budget[slot])):
+                if s.state != SessionState.ACTIVE:
+                    break
+                self._deliver(s, int(emitted[i, slot]), produced)
                 delivered += 1
         self.metrics.counter("decode_tokens", delivered)
 
@@ -859,6 +1217,9 @@ class InferenceEngine:
             self._chunking.remove(s)
         if s.slot is not None:
             self.slots[s.slot] = None
+            # The device carry holds THIS session's last token; the slot's
+            # next tenant must be fed its own.
+            self._carry_ok[s.slot] = False
             s.slot = None
         if s.pages:
             self.allocator.free(s.pages)

@@ -351,3 +351,168 @@ def apply_head(cfg: ModelConfig, params: Params, x: torch.Tensor) -> torch.Tenso
     if head is None:
         head = params["embed"].T
     return qmatmul(x, head).float()
+
+
+# ---------------------------------------------------------------------------
+# Fused K-step decode with a write-behind KV tail
+# ---------------------------------------------------------------------------
+
+
+class _TailView:
+    """Cache stand-in handed to ``_decoder_layer`` inside a fused window:
+    its layer state is the cache's read-only big planes followed by the
+    tail planes; ``attend`` splits them and delegates to the cache's
+    ``tail_attend``, which updates the tail in place."""
+
+    def __init__(self, cache, base_len, tail_len, step_idx, num_big):
+        self.cache = cache
+        self.base_len = base_len
+        self.tail_len = tail_len
+        self.step_idx = step_idx
+        self.num_big = num_big
+
+    def q_positions(self, seq_len):
+        return (self.base_len + self.tail_len)[:, None]
+
+    def rope_positions(self, seq_len, num_new):
+        return self.q_positions(seq_len)
+
+    def attend(self, layer_state, q, k_new, v_new, rope, q_pos, num_new,
+               sliding_window, attention_fn, scale=None):
+        big = layer_state[: self.num_big]
+        tail = layer_state[self.num_big:]
+        out, new_tail = self.cache.tail_attend(
+            big, tail, q, k_new, v_new, rope, self.base_len, self.tail_len,
+            self.step_idx, num_new, sliding_window, scale,
+        )
+        return out, (*big, *new_tail)
+
+
+class DecodeWindow:
+    """The device state of one fused K-step decode window over ``cache``,
+    all of it updated in place: the next input tokens ``[B, 1]``, each
+    row's ``num_new`` (1 while it writes, 0 once stopped) and ``tail_len``,
+    the step index (one int32 on the device), the step function's state,
+    the emitted tokens ``[K, B]``, the cache's tail planes and its read-only
+    big planes.
+
+    :meth:`begin` loads a window's inputs, :meth:`step` runs one token step
+    (no host synchronisation, no allocation that outlives it), :meth:`end`
+    flushes the tail into the cache. A window object is reused from window
+    to window with the same storage, so a CUDA graph of :meth:`step`
+    captured once serves every step of every later window (the engine's
+    ``engine/graphs.py``); a window is tied to the cache's page table, and
+    a new table needs a new window.
+    """
+
+    def __init__(self, cache, num_steps: int, state: torch.Tensor):
+        self.cache = cache
+        self.num_steps = num_steps
+        b = cache.page_table.shape[0]
+        dev = cache.device
+        self.page_table = cache.page_table
+        self.tail = cache.tail_init(num_steps)
+        self.whole_big = getattr(cache, "tail_reads_whole_big", False)
+        self.whole_tail = getattr(cache, "tail_in_kernel", False)
+        self.big = None
+        self.tokens = torch.zeros((b, 1), dtype=torch.int32, device=dev)
+        self.num_new = torch.zeros((b,), dtype=torch.int32, device=dev)
+        self.tail_len = torch.zeros((b,), dtype=torch.int32, device=dev)
+        self.step_idx = torch.zeros((1,), dtype=torch.int32, device=dev)
+        self.state = torch.zeros_like(state)
+        self.emits = torch.zeros((num_steps, b), dtype=torch.int32, device=dev)
+
+    def begin(self, tokens, init_state, init_num_new) -> None:
+        """Load a window's inputs: ``tokens`` ``[B, 1]``, the step
+        function's initial state, ``init_num_new`` ``[B]``. The big planes
+        are gathered here, once per window, where the cache gathers."""
+        if self.cache.page_table is not self.page_table:
+            raise RuntimeError("the cache's page table changed under a window")
+        self.tokens.copy_(tokens)
+        self.state.copy_(init_state)
+        self.num_new.copy_(init_num_new)
+        self.tail_len.zero_()
+        self.step_idx.zero_()
+        for t in self.tail:
+            t.zero_()
+        if hasattr(self.cache, "tail_big_stacks"):
+            self.big = self.cache.tail_big_stacks(out=self.big)
+        else:
+            self.big = self.cache.layer_stacks
+
+    def step(self, cfg: ModelConfig, params: Params, step_fn) -> None:
+        """One fused decode step. ``step_fn(i, logits, state)`` → ``(next
+        tokens [B], next num_new [B] int32, state, emit [B])`` with ``i``
+        the step index tensor; ``num_new`` must not increase (a stopped row
+        stays stopped), so each row's tail slots stay contiguous."""
+        cache = self.cache
+        x = F.embedding(self.tokens.long(), params["embed"])
+        view_num_big = len(self.big) + 1 if self.whole_big else len(self.big)
+        view = _TailView(cache, cache.lengths, self.tail_len, self.step_idx,
+                         view_num_big)
+        q_pos = view.q_positions(1)
+        inv_freq = rope_inv_freq(
+            cfg.head_dim, cfg.rope_theta, cfg.rope_scaling, device=x.device
+        )
+        cos, sin = rope_cos_sin(q_pos, inv_freq)
+        rope = RopeAngles(inv_freq, cos, sin)
+        whole_w, sliced_w = _split_int4_stacks(params["layers"])
+        for i in range(self.big[0].shape[0]):
+            p = {name: w[i] for name, w in sliced_w.items()}
+            p.update(_int4_views(whole_w, i))
+            if self.whole_big:
+                big_state = (*self.big, i)
+            else:
+                big_state = tuple(b[i] for b in self.big)
+            if self.whole_tail:
+                tail_state = self.tail
+            else:
+                tail_state = tuple(t[i] for t in self.tail)
+            x, _ = _decoder_layer(
+                cfg, p, x, (*big_state, *tail_state), view, rope, q_pos,
+                self.num_new,
+            )
+        logits = apply_head(cfg, params, x)
+        nxt, num_new, state, emit = step_fn(self.step_idx, logits[:, 0],
+                                            self.state)
+        self.emits.index_copy_(0, self.step_idx.long(),
+                               emit.to(torch.int32)[None])
+        self.tail_len.add_(self.num_new)
+        self.tokens.copy_(nxt.reshape(-1, 1))
+        self.num_new.copy_(num_new)
+        self.state.copy_(state)
+        self.step_idx.add_(1)
+
+    def end(self) -> torch.Tensor:
+        """Flush the tail into the cache (its ``lengths`` advance by each
+        row's ``tail_len``); returns the emitted tokens ``[K, B]``."""
+        self.cache.tail_flush(self.tail, self.tail_len)
+        return self.emits
+
+
+def multi_decode_apply(
+    cfg: ModelConfig,
+    params: Params,
+    tokens: torch.Tensor,
+    cache,
+    num_steps: int,
+    step_fn,
+    init_state: torch.Tensor,
+    init_num_new: torch.Tensor,
+):
+    """``num_steps`` fused decode steps with a write-behind KV tail
+    (counterpart of the JAX package's ``multi_decode_apply``).
+
+    The cache's big planes stay read-only for all K steps; each step's new
+    K/V land in a small tail (``tail_init``) that the attention reads as a
+    second segment under one softmax (``tail_attend``), and the tail is
+    merged into the cache once at the end (``tail_flush``). ``tokens``:
+    ``[B, 1]`` first inputs; ``step_fn`` as in :meth:`DecodeWindow.step`.
+    Returns ``(emits [K, B] int32, cache)`` with the cache flushed and
+    advanced. Caches with the tail protocol: ``PagedKVCache`` with the
+    kernel, ``QuantizedPagedKVCache``."""
+    win = DecodeWindow(cache, num_steps, init_state)
+    win.begin(tokens, init_state, init_num_new)
+    for _ in range(num_steps):
+        win.step(cfg, params, step_fn)
+    return win.end(), cache

@@ -3,8 +3,8 @@ are traced by JAX itself).
 
 Each ``csrc/<name>.cu`` has a plain C interface and includes no PyTorch
 header, so ``nvcc`` compiles it in seconds. The shared library lands in a
-directory ``build/`` beside the package, named by a hash of the source and
-the flags, at first use; ``ctypes`` loads it. Nothing here runs at import time: the CPU tests import every module on a
+directory ``build/`` beside the package, named by a hash of the source, of
+every ``csrc/*.cuh`` header and of the flags, at first use; ``ctypes`` loads it. Nothing here runs at import time: the CPU tests import every module on a
 machine with no compiler.
 """
 
@@ -20,7 +20,9 @@ from typing import Dict, Sequence, Tuple
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC.parent.parent / "build"
-KERNEL_SOURCES = ("int4_matmul", "paged_attention", "ragged_attention")
+KERNEL_SOURCES = (
+    "int4_matmul", "paged_attention", "quant_attention", "ragged_attention",
+)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
@@ -44,8 +46,9 @@ def _nvcc() -> str:
 
 def _target(name: str) -> Tuple[Path, Path]:
     src = CSRC / f"{name}.cu"
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+        src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()
     ).hexdigest()[:16]
     return src, BUILD_DIR / f"lib{name}_{digest}.so"
 

@@ -131,3 +131,49 @@ def merge_softmax_segments(
     ft = (w_t / denom)[:, None, :, :, None]
     out = out_a.reshape(b, s, hkv, g, d).float() * fa + out_t * ft
     return out.reshape(b, s, hq, d).to(q.dtype)
+
+
+def gqa_attention_quantized_segments(
+    q: torch.Tensor,
+    segments,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Joint softmax over int8 head-major segments sharing one query
+    (counterpart of the JAX package's ``gqa_attention_quantized_segments``).
+
+    ``q``: ``[B, S, Hq, D]``; each segment is ``(k_q, ks, v_q, vs, valid)``
+    with ``k_q``/``v_q`` ``[B, Hkv, Ti, D]`` (int8, or any type: the bf16
+    write-behind tail rides along with unit scales), ``ks``/``vs`` f32
+    ``[B, Hkv, Ti]`` and ``valid`` ``[B, Ti]``. The K scale multiplies the
+    score and the V scale the probability, which is rounded to q's type
+    before P V, as the JAX function does. Returns ``[B, S, Hq, D]`` in q's
+    type.
+    """
+    b, s, hq, d = q.shape
+    hkv = segments[0][0].shape[1]
+    g = hq // hkv
+    if scale is None:
+        scale = d**-0.5
+    qg = q.reshape(b, s, hkv, g, d).float()
+
+    scored = []
+    for k_q, ks, _, _, valid in segments:
+        sc = torch.einsum("bskgd,bktd->bkgst", qg, k_q.to(q.dtype).float())
+        sc = sc * (ks[:, :, None, None, :] * scale)
+        m = valid[:, None, None, None, :]                # [B, 1, 1, 1, T]
+        scored.append((torch.where(m, sc, _NEG_INF), m))
+
+    gmax = scored[0][0].amax(dim=-1, keepdim=True)
+    for sc, _ in scored[1:]:
+        gmax = torch.maximum(gmax, sc.amax(dim=-1, keepdim=True))
+    denom = 0.0
+    out = 0.0
+    for (sc, m), (_, _, v_q, vs, _) in zip(scored, segments):
+        w = torch.where(m, torch.exp(sc - gmax), 0.0)
+        denom = denom + w.sum(dim=-1, keepdim=True)
+        wv = (w * vs[:, :, None, None, :]).to(q.dtype).float()
+        out = out + torch.einsum(
+            "bkgst,bktd->bskgd", wv, v_q.to(q.dtype).float()
+        )
+    denom = denom.clamp_min(1e-20).permute(0, 3, 1, 2, 4)
+    return (out / denom).reshape(b, s, hq, d).to(q.dtype)

@@ -1,5 +1,7 @@
 """Paged decode attention: a CUDA kernel that reads K/V in place from the
-page pool, and its plain PyTorch version; the same over int8 pages.
+page pool, and its plain PyTorch version; the same over int8 pages; and the
+int8 pool's fused decode window: the fused step over the pool in place and
+the flush of its write-behind tail into the pages.
 
 Replaces the TPU kernels ``_paged_kernel`` behind ``paged_attention`` and
 ``_qpaged_kernel`` behind ``quantized_paged_attention`` in the JAX package's
@@ -15,10 +17,22 @@ planes beside them) the same page walk reads half the bytes: the K scale
 multiplies the score and the V scale the probability before P V, so the
 pages are never dequantized into a copy.
 
+The fused window (``models/llama.py:multi_decode_apply``) adds two kernels.
+``quantized_paged_fused_attention`` replaces ``_qpaged_fused_kernel``: one
+(layer, step) over the whole int8 pool in place, the step's K/V quantized
+into the int8 tail, the tail the last online-softmax tile
+(``csrc/fused_decode.cuh``, which says what bounds it; its rounding and
+tiles are the TPU kernel's, see ``ops/quant_attention.py``).
+``paged_tail_flush`` replaces the TPU kernel of the same name: it writes
+each row's ``tail_len`` tail slots to positions ``base_len + i`` of its
+pages, a direct scatter (the TPU kernel's whole-page read-modify-write with
+clamped visits is a VMEM device that has no use here), nothing on the null
+page 0 or past the table.
+
 The wrappers launch the kernel for CUDA tensors and raise on anything the
 kernel does not take; they use the plain version only for tensors that lie
-on the CPU. ``launches`` and ``quantized_launches`` count kernel launches
-(and nothing else).
+on the CPU. ``launches``, ``quantized_launches``, ``fused_launches`` and
+``flush_launches`` count kernel launches (and nothing else).
 """
 
 from __future__ import annotations
@@ -36,14 +50,23 @@ __all__ = [
     "paged_attention_plain",
     "quantized_paged_attention",
     "quantized_paged_attention_plain",
+    "quantized_paged_fused_attention",
+    "quantized_paged_fused_attention_plain",
+    "paged_tail_flush",
+    "paged_tail_flush_plain",
     "launches",
     "quantized_launches",
+    "fused_launches",
+    "flush_launches",
 ]
 
 # Kernel launches made by :func:`paged_attention` /
-# :func:`quantized_paged_attention` in this process.
+# :func:`quantized_paged_attention` / :func:`quantized_paged_fused_attention`
+# / :func:`paged_tail_flush` in this process.
 launches = 0
 quantized_launches = 0
+fused_launches = 0
+flush_launches = 0
 
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
 _MIN_SPLIT = 256  # positions: a block is not worth less
@@ -361,3 +384,250 @@ def quantized_paged_attention(
                   return_stats, (("ks_pages", ks_pages), ("vs_pages", vs_pages)))
     quantized_launches += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# The int8 pool's fused decode window
+# ---------------------------------------------------------------------------
+
+
+def quantized_paged_fused_attention_plain(
+    q, k_new, v_new, pool_k, pool_ks, pool_v, pool_vs,
+    tail_k, tail_ks, tail_v, tail_vs, layer_idx: int,
+    step_idx: torch.Tensor, page_table, base_len, tail_valid_len,
+    q_positions, scale: Optional[float] = None,
+    sliding_window: Optional[int] = None,
+):
+    """Plain PyTorch version of :func:`quantized_paged_fused_attention`:
+    the same arguments and results, one tile per table slot (page) in
+    order, then the tail."""
+    from .quant_attention import online_softmax_tiles, tail_tile, write_tail_slot
+
+    b, _, hq, d = q.shape
+    hkv, ps = pool_k.shape[2], pool_k.shape[3]
+    if scale is None:
+        scale = d**-0.5
+    write_tail_slot(k_new, v_new, tail_k, tail_ks, tail_v, tail_vs,
+                    layer_idx, step_idx)
+    table = page_table.long()
+
+    def tiles():
+        for j in range(table.shape[1]):
+            page = table[:, j]
+            pos = j * ps + torch.arange(ps, dtype=torch.int32, device=q.device)
+            valid = pos[None, :] < base_len[:, None]
+            if sliding_window is not None:
+                valid &= pos[None, :] > q_positions[:, None] - sliding_window
+            yield (pool_k[layer_idx, page], pool_ks[layer_idx, page],
+                   pool_v[layer_idx, page], pool_vs[layer_idx, page], valid)
+        yield tail_tile(tail_k, tail_ks, tail_v, tail_vs, layer_idx,
+                        base_len, tail_valid_len, q_positions, sliding_window)
+
+    out = online_softmax_tiles(q.reshape(b, hkv, hq // hkv, d), tiles(), scale)
+    return (out.reshape(b, 1, hq, d).to(q.dtype), tail_k, tail_ks, tail_v,
+            tail_vs)
+
+
+def _fused_kernel():
+    fn = _fn.get("fused")
+    if fn is None:
+        fn = _build.load_library(
+            "paged_attention").dli_quantized_paged_fused_attention
+        fn.argtypes = [ctypes.c_void_p] * 18 + [ctypes.c_int] * 11 + [
+            ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ]
+        fn.restype = ctypes.c_int
+        _fn["fused"] = fn
+    return fn
+
+
+def quantized_paged_fused_attention(
+    q: torch.Tensor,
+    k_new: torch.Tensor,
+    v_new: torch.Tensor,
+    pool_k: torch.Tensor,
+    pool_ks: torch.Tensor,
+    pool_v: torch.Tensor,
+    pool_vs: torch.Tensor,
+    tail_k: torch.Tensor,
+    tail_ks: torch.Tensor,
+    tail_v: torch.Tensor,
+    tail_vs: torch.Tensor,
+    layer_idx: int,
+    step_idx: torch.Tensor,
+    page_table: torch.Tensor,
+    base_len: torch.Tensor,
+    tail_valid_len: torch.Tensor,
+    q_positions: torch.Tensor,
+    scale: Optional[float] = None,
+    sliding_window: Optional[int] = None,
+):
+    """One fused-decode attention step over the int8 page pool in place.
+
+    As ``ops/quant_attention.py:quantized_fused_decode_attention``, with the
+    big segment the WHOLE pool, ``[L, P, Hkv, PS, D]`` int8 (+ ``[L, P, Hkv,
+    PS]`` f32 scales), read through ``page_table`` ``[B, T]`` int32.
+    Returns ``(out [B, 1, Hq, D], tail_k, tail_ks, tail_v, tail_vs)``, the
+    tail planes updated in place."""
+    global fused_launches
+    args = (q, k_new, v_new, pool_k, pool_ks, pool_v, pool_vs, tail_k,
+            tail_ks, tail_v, tail_vs, layer_idx, step_idx, page_table,
+            base_len, tail_valid_len, q_positions, scale, sliding_window)
+    if q.device.type == "cpu":
+        return quantized_paged_fused_attention_plain(*args)
+    if q.device.type != "cuda":
+        raise ValueError(f"quantized_paged_fused_attention: device {q.device}")
+    from .quant_attention import (
+        MAX_TILE, _tail_planes, check_fused_inputs, fused_scratch,
+    )
+
+    name = "quantized_paged_fused_attention"
+    code = check_fused_inputs(
+        name, q, k_new, v_new,
+        (("pool_k", pool_k, torch.int8), ("pool_v", pool_v, torch.int8),
+         ("pool_ks", pool_ks, torch.float32),
+         ("pool_vs", pool_vs, torch.float32),
+         ("tail_k", tail_k, torch.int8), ("tail_v", tail_v, torch.int8),
+         ("tail_ks", tail_ks, torch.float32),
+         ("tail_vs", tail_vs, torch.float32)),
+        (("base_len", base_len), ("tail_valid_len", tail_valid_len),
+         ("q_positions", q_positions)), step_idx)
+    b, _, hq, d = q.shape
+    num_l, num_p, hkv, ps, _ = pool_k.shape
+    if pool_v.shape != pool_k.shape or d != pool_k.shape[4]:
+        raise ValueError(f"{name}: pools {tuple(pool_k.shape)}")
+    if (tuple(pool_ks.shape) != (num_l, num_p, hkv, ps)
+            or pool_vs.shape != pool_ks.shape):
+        raise ValueError(f"{name}: pool scales {tuple(pool_ks.shape)}")
+    if ps > MAX_TILE:
+        raise ValueError(f"{name}: page size {ps} above {MAX_TILE}")
+    if (page_table.dtype != torch.int32 or page_table.ndim != 2
+            or page_table.shape[0] != b or not page_table.is_contiguous()
+            or page_table.device != q.device):
+        raise ValueError(f"{name}: page_table {page_table.dtype} "
+                         f"{tuple(page_table.shape)} on {page_table.device}")
+    kt = _tail_planes(tail_k, tail_ks, tail_v, tail_vs, num_l, b, hkv, d)
+    if not 0 <= layer_idx < num_l:
+        raise ValueError(f"{name}: layer {layer_idx} outside 0..{num_l - 1}")
+    if scale is None:
+        scale = d**-0.5
+    width = page_table.shape[1]
+    nt, w = width + 1, max(ps, kt)
+    out = torch.empty_like(q)
+    scratch = fused_scratch(b * hq, nt, w, d, q.device)
+    with torch.cuda.device(q.device):
+        err = _fused_kernel()(
+            q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
+            pool_k.data_ptr(), pool_ks.data_ptr(), pool_v.data_ptr(),
+            pool_vs.data_ptr(), tail_k.data_ptr(), tail_ks.data_ptr(),
+            tail_v.data_ptr(), tail_vs.data_ptr(), page_table.data_ptr(),
+            base_len.data_ptr(), tail_valid_len.data_ptr(),
+            q_positions.data_ptr(), step_idx.data_ptr(), out.data_ptr(),
+            scratch.data_ptr(), b, hkv, hq // hkv, d, num_p, ps, width, kt,
+            int(layer_idx), nt, w, float(scale), int(sliding_window or 0),
+            code, torch.cuda.current_stream().cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"{name}: kernel launch failed ({err})")
+    fused_launches += 1
+    return out, tail_k, tail_ks, tail_v, tail_vs
+
+
+def _flush_targets(pool_k, page_table, base_len, tail_len, kt):
+    """Where each tail slot lands: ``(rows, slots i, pages, offsets)`` of
+    the slots ``i < tail_len`` whose position ``base_len + i`` has a table
+    slot holding a page other than the null page 0."""
+    ps = pool_k.shape[3]
+    width = page_table.shape[1]
+    i = torch.arange(kt, device=base_len.device)[None, :]
+    pos = base_len[:, None].long() + i
+    slot = torch.div(pos, ps, rounding_mode="floor")
+    page = torch.gather(page_table.long(), 1, slot.clamp(0, width - 1))
+    keep = (i < tail_len[:, None]) & (slot < width) & (page != 0)
+    rows, slots = keep.nonzero(as_tuple=True)
+    return rows, slots, page[rows, slots], (pos % ps)[rows, slots]
+
+
+def paged_tail_flush_plain(pool_k, pool_ks, pool_v, pool_vs, tail_k, tail_ks,
+                           tail_v, tail_vs, page_table, base_len, tail_len):
+    """Plain PyTorch version of :func:`paged_tail_flush`: the same
+    arguments and results."""
+    rows, slots, pages, offs = _flush_targets(
+        pool_k, page_table, base_len, tail_len, tail_k.shape[3])
+    # [L, N, Hkv(, D)] values of the kept slots, into [L, P, Hkv, PS(, D)].
+    pool_k[:, pages, :, offs] = tail_k[:, rows, :, slots]
+    pool_v[:, pages, :, offs] = tail_v[:, rows, :, slots]
+    pool_ks[:, pages, :, offs] = tail_ks[:, rows, :, slots]
+    pool_vs[:, pages, :, offs] = tail_vs[:, rows, :, slots]
+    return pool_k, pool_ks, pool_v, pool_vs
+
+
+def paged_tail_flush(
+    pool_k: torch.Tensor,
+    pool_ks: torch.Tensor,
+    pool_v: torch.Tensor,
+    pool_vs: torch.Tensor,
+    tail_k: torch.Tensor,
+    tail_ks: torch.Tensor,
+    tail_v: torch.Tensor,
+    tail_vs: torch.Tensor,
+    page_table: torch.Tensor,
+    base_len: torch.Tensor,
+    tail_len: torch.Tensor,
+):
+    """Merge the fused window's int8 tail into the page pool, in place.
+
+    ``pool_*``: ``[L, P, Hkv, PS, D]`` int8 / ``[L, P, Hkv, PS]`` f32;
+    ``tail_*``: ``[L, B, Hkv, KT, D]`` / ``[L, B, Hkv, KT]``; ``page_table``
+    ``[B, T]``, ``base_len``/``tail_len`` ``[B]`` int32. Tail slot ``i <
+    tail_len[b]`` of row ``b`` goes to position ``base_len[b] + i``; nothing
+    is written past the table or on the null page. Returns the four pool
+    planes."""
+    global flush_launches
+    args = (pool_k, pool_ks, pool_v, pool_vs, tail_k, tail_ks, tail_v,
+            tail_vs, page_table, base_len, tail_len)
+    if pool_k.device.type == "cpu":
+        return paged_tail_flush_plain(*args)
+    if pool_k.device.type != "cuda":
+        raise ValueError(f"paged_tail_flush: device {pool_k.device}")
+    num_l, num_p, hkv, ps, d = pool_k.shape
+    b, width = page_table.shape
+    kt = tail_k.shape[3]
+    for label, t_, dt, shape in (
+            ("pool_k", pool_k, torch.int8, (num_l, num_p, hkv, ps, d)),
+            ("pool_v", pool_v, torch.int8, (num_l, num_p, hkv, ps, d)),
+            ("pool_ks", pool_ks, torch.float32, (num_l, num_p, hkv, ps)),
+            ("pool_vs", pool_vs, torch.float32, (num_l, num_p, hkv, ps)),
+            ("tail_k", tail_k, torch.int8, (num_l, b, hkv, kt, d)),
+            ("tail_v", tail_v, torch.int8, (num_l, b, hkv, kt, d)),
+            ("tail_ks", tail_ks, torch.float32, (num_l, b, hkv, kt)),
+            ("tail_vs", tail_vs, torch.float32, (num_l, b, hkv, kt)),
+            ("page_table", page_table, torch.int32, (b, width)),
+            ("base_len", base_len, torch.int32, (b,)),
+            ("tail_len", tail_len, torch.int32, (b,))):
+        if t_.dtype != dt or tuple(t_.shape) != shape:
+            raise ValueError(f"paged_tail_flush: {label} {t_.dtype} "
+                             f"{tuple(t_.shape)}, want {dt} {shape}")
+        if t_.device != pool_k.device or not t_.is_contiguous():
+            raise ValueError(f"paged_tail_flush: {label} must be contiguous "
+                             f"on {pool_k.device}")
+    if d % 16:
+        raise ValueError(f"paged_tail_flush: head_dim {d} not a multiple of 16")
+    fn = _fn.get("flush")
+    if fn is None:
+        fn = _build.load_library("paged_attention").dli_paged_tail_flush
+        fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8 + [
+            ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _fn["flush"] = fn
+    with torch.cuda.device(pool_k.device):
+        err = fn(pool_k.data_ptr(), pool_ks.data_ptr(), pool_v.data_ptr(),
+                 pool_vs.data_ptr(), tail_k.data_ptr(), tail_ks.data_ptr(),
+                 tail_v.data_ptr(), tail_vs.data_ptr(), page_table.data_ptr(),
+                 base_len.data_ptr(), tail_len.data_ptr(), num_l, b, num_p,
+                 hkv, ps, width, kt, d,
+                 torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"paged_tail_flush: kernel launch failed ({err})")
+    flush_launches += 1
+    return pool_k, pool_ks, pool_v, pool_vs

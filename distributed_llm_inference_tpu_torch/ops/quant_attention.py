@@ -1,0 +1,338 @@
+"""Fused decode step over int8 K/V with an int8 write-behind tail: a CUDA
+kernel over contiguous int8 stacks, and its plain PyTorch version
+(counterpart of ``quantized_fused_decode_attention`` in the JAX package's
+``ops/quant_attention.py``).
+
+One call is one (layer, step) of the fused K-step decode window
+(``models/llama.py:multi_decode_apply``): it quantizes the step's new K/V
+per (row, kv head) as ``cache/dense.py:_quantize_kv`` does, writes them into
+tail slot ``step_idx`` of layer ``layer_idx`` for every row (a finished
+row's write is garbage that its shorter ``tail_valid_len`` never reads),
+and runs one online softmax over the row's live big-segment positions and
+then the tail. The tail planes are updated IN PLACE (the JAX kernel aliases
+them) and returned.
+
+The arithmetic is the TPU kernel's, rounding included: ``q`` and ``p * vs``
+are rounded to bf16 before the products (int8 K and V are exact in bf16),
+scores are ``(q . k) * ks * scale``, and the softmax walks the same tiles
+in the same order: ``min(256, T)`` positions of the stacks, then the tail
+as one tile. The running max at each tile decides how ``p * vs`` rounds, so
+an f32 run agrees with the JAX kernel to 2e-5 only on the same tiles.
+:func:`online_softmax_tiles` is that walk, shared with the paged form in
+``ops/paged_attention.py``.
+
+``csrc/quant_attention.cu`` (the kernel, via ``csrc/fused_decode.cuh``)
+replaces the TPU kernel ``_qfused_kernel``. ``step_idx`` is a one-element
+int32 tensor on the data's device, read by the kernel from device memory,
+so a CUDA graph of the step serves every step of a window; ``layer_idx``
+is a host integer. The wrapper launches the kernel for CUDA tensors and
+raises on anything the kernel does not take; it uses the plain version only
+for tensors that lie on the CPU. ``fused_launches`` counts kernel launches
+(and nothing else).
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Iterable, Optional, Tuple
+
+import torch
+
+from . import _build
+from .attention import _NEG_INF
+
+__all__ = [
+    "quantized_fused_decode_attention",
+    "quantized_fused_decode_attention_plain",
+    "online_softmax_tiles",
+    "write_tail_slot",
+    "fused_launches",
+]
+
+# Kernel launches made by :func:`quantized_fused_decode_attention` in this
+# process.
+fused_launches = 0
+
+BLOCK_T = 256  # the TPU kernel's time tile over the stacks
+MAX_TILE = 256  # widest tile the CUDA kernel takes (csrc/fused_decode.cuh)
+_DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
+_fn = []
+
+
+def _lane_order_dot(qb: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """``q . k`` over D summed in the CUDA kernel's order: D split into
+    lanes of 16 elements, each lane adding its 16 products in turn, then
+    the lanes combined pairwise (halves, quarters, ...). The products of a
+    bf16 q and int8 k are exact in f32, so the score comes out bit for bit
+    as the kernel's; ``p = exp(s - m)`` then does too, and so does its
+    rounding to bf16 (a score one ulp apart can round ``p * vs`` to the
+    neighbouring bf16 value). ``qb`` ``[B, H, G, D]``, ``k`` ``[B, H, W,
+    D]`` → ``[B, H, G, W]``."""
+    d = qb.shape[-1]
+    prods = qb[:, :, :, None, :] * k[:, :, None, :, :].float()
+    lanes = prods.reshape(*prods.shape[:-1], max(1, d // 16), min(16, d))
+    acc = lanes[..., 0]
+    for e in range(1, lanes.shape[-1]):
+        acc = acc + lanes[..., e]
+    while acc.shape[-1] > 1:
+        half = acc.shape[-1] // 2
+        acc = acc[..., :half] + acc[..., half:]
+    return acc[..., 0]
+
+
+def online_softmax_tiles(q: torch.Tensor, tiles: Iterable, scale: float):
+    """The fused kernels' softmax walk, tile by tile in order.
+
+    ``q``: ``[B, Hkv, G, D]``; each tile ``(k, ks, v, vs, valid)`` with int8
+    ``k``/``v`` ``[B, Hkv, W, D]``, f32 scales ``[B, Hkv, W]`` and ``valid``
+    ``[B, W]``. ``q`` and ``p * vs`` are rounded to bf16 before the
+    products, as the TPU kernels do, and the scores are summed in the CUDA
+    kernel's order (:func:`_lane_order_dot`). Returns ``[B, Hkv, G, D]``
+    f32; a row with nothing valid gives zeros."""
+    b, hkv, g, d = q.shape
+    qb = q.to(torch.bfloat16).float()
+    m = torch.full((b, hkv, g), _NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((b, hkv, g, d), dtype=torch.float32, device=q.device)
+    for k, ks, v, vs, valid in tiles:
+        s = _lane_order_dot(qb, k) * ks[:, :, None, :] * scale
+        vmask = valid[:, None, None, :]
+        s = torch.where(vmask, s, _NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.where(vmask, torch.exp(s - m_new[..., None]), 0.0)
+        l = alpha * l + p.sum(dim=-1)
+        pw = (p * vs[:, :, None, :]).to(torch.bfloat16).float()
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bhgw,bhwd->bhgd", pw, v.float()
+        )
+        m = m_new
+    return acc / l.clamp_min(1e-20)[..., None]
+
+
+def write_tail_slot(k_new, v_new, tail_k, tail_ks, tail_v, tail_vs,
+                    layer_idx: int, step_idx: torch.Tensor) -> None:
+    """Quantize the step's ``[B, 1, Hkv, D]`` K/V (``_quantize_kv``) into
+    tail slot ``step_idx`` of layer ``layer_idx``, in place."""
+    from ..cache.dense import _quantize_kv
+
+    kq, ksc = _quantize_kv(k_new)       # [B, 1, Hkv, D], [B, 1, Hkv]
+    vq, vsc = _quantize_kv(v_new)
+    slot = step_idx.reshape(1).long()
+    tail_k[layer_idx].index_copy_(2, slot, kq.transpose(1, 2))
+    tail_v[layer_idx].index_copy_(2, slot, vq.transpose(1, 2))
+    tail_ks[layer_idx].index_copy_(2, slot, ksc.transpose(1, 2))
+    tail_vs[layer_idx].index_copy_(2, slot, vsc.transpose(1, 2))
+
+
+def tail_tile(tail_k, tail_ks, tail_v, tail_vs, layer_idx, base_len,
+              tail_valid_len, q_positions, sliding_window):
+    """The tail of layer ``layer_idx`` as the walk's last tile."""
+    kt = tail_k.shape[3]
+    slots = torch.arange(kt, dtype=torch.int32, device=base_len.device)[None]
+    valid = slots < tail_valid_len[:, None]
+    if sliding_window is not None:
+        valid &= base_len[:, None] + slots > q_positions[:, None] - sliding_window
+    return (tail_k[layer_idx], tail_ks[layer_idx], tail_v[layer_idx],
+            tail_vs[layer_idx], valid)
+
+
+def _positions_valid(pos, base_len, q_positions, sliding_window):
+    valid = pos[None, :] < base_len[:, None]
+    if sliding_window is not None:
+        valid &= pos[None, :] > q_positions[:, None] - sliding_window
+    return valid
+
+
+def quantized_fused_decode_attention_plain(
+    q, k_new, v_new, big_k, big_ks, big_v, big_vs,
+    tail_k, tail_ks, tail_v, tail_vs, layer_idx: int,
+    step_idx: torch.Tensor, base_len, tail_valid_len, q_positions,
+    scale: Optional[float] = None, sliding_window: Optional[int] = None,
+):
+    """Plain PyTorch version of :func:`quantized_fused_decode_attention`:
+    the same arguments and results, the same tiles."""
+    b, _, hq, d = q.shape
+    hkv, t = big_k.shape[2], big_k.shape[3]
+    if scale is None:
+        scale = d**-0.5
+    write_tail_slot(k_new, v_new, tail_k, tail_ks, tail_v, tail_vs,
+                    layer_idx, step_idx)
+    bt = min(BLOCK_T, t)
+
+    def tiles():
+        for j in range(0, t, bt):
+            pos = torch.arange(j, min(j + bt, t), dtype=torch.int32,
+                               device=q.device)
+            yield (big_k[layer_idx, :, :, j:j + bt],
+                   big_ks[layer_idx, :, :, j:j + bt],
+                   big_v[layer_idx, :, :, j:j + bt],
+                   big_vs[layer_idx, :, :, j:j + bt],
+                   _positions_valid(pos, base_len, q_positions,
+                                    sliding_window))
+        yield tail_tile(tail_k, tail_ks, tail_v, tail_vs, layer_idx,
+                        base_len, tail_valid_len, q_positions, sliding_window)
+
+    out = online_softmax_tiles(q.reshape(b, hkv, hq // hkv, d), tiles(), scale)
+    return (out.reshape(b, 1, hq, d).to(q.dtype), tail_k, tail_ks, tail_v,
+            tail_vs)
+
+
+def check_fused_inputs(name, q, k_new, v_new, planes, vectors, step_idx):
+    """Argument checks shared by the fused kernels' wrappers: one CUDA
+    device, bf16/f32 q, k_new, v_new of one type, int8 planes with f32
+    scale planes, int32 ``[B]`` vectors and step, contiguous, head_dim 128,
+    1 or 4 query heads per kv head. ``planes``: ``(label, tensor, dtype)``."""
+    dev = q.device
+    b, s, hq, d = q.shape
+    if s != 1:
+        raise ValueError(f"{name} is decode-only (S=1), got S={s}")
+    if q.dtype not in _DTYPE_CODE:
+        raise TypeError(f"{name}: dtype {q.dtype} (kernel takes bf16, f32)")
+    hkv = k_new.shape[2]
+    for label, t_ in (("k_new", k_new), ("v_new", v_new)):
+        if t_.dtype != q.dtype or tuple(t_.shape) != (b, 1, hkv, d):
+            raise ValueError(
+                f"{name}: {label} {t_.dtype} {tuple(t_.shape)}, want "
+                f"{q.dtype} {(b, 1, hkv, d)}")
+    if d != 128 or hq % hkv or hq // hkv not in (1, 4):
+        raise ValueError(
+            f"{name}: the kernels are built for head_dim 128 and 1 or 4 "
+            f"query heads per kv head, got head_dim {d}, {hq} / {hkv} heads")
+    for label, t_, dt in planes:
+        if t_.dtype != dt:
+            raise TypeError(f"{name}: {label} must be {dt}, got {t_.dtype}")
+    for label, t_ in (*vectors, ("step_idx", step_idx)):
+        if t_.dtype != torch.int32:
+            raise TypeError(f"{name}: {label} must be int32, got {t_.dtype}")
+    for label, t_ in vectors:
+        if tuple(t_.shape) != (b,):
+            raise ValueError(f"{name}: {label} {tuple(t_.shape)}, want ({b},)")
+    if step_idx.numel() != 1:
+        raise ValueError(f"{name}: step_idx must hold one value")
+    every = (("q", q), ("k_new", k_new), ("v_new", v_new),
+             *((lab, t_) for lab, t_, _ in planes), *vectors,
+             ("step_idx", step_idx))
+    for label, t_ in every:
+        if t_.device != dev:
+            raise ValueError(f"{name}: {label} on {t_.device}, q on {dev}")
+        if not t_.is_contiguous():
+            raise ValueError(f"{name}: {label} must be contiguous")
+        if t_.data_ptr() % 16 and t_.dim() >= 4:
+            raise ValueError(f"{name}: {label} must be 16-byte aligned")
+    return _DTYPE_CODE[q.dtype]
+
+
+def fused_scratch(heads: int, tiles: int, width: int, d: int, device):
+    """f32 scratch of the kernels' three passes (``csrc/fused_decode.cuh``):
+    per (row, query head) ``tiles`` tiles of ``width`` scores, three
+    per-tile values and a ``d``-wide P V sum."""
+    return torch.empty(heads * tiles * (width + 3 + d), dtype=torch.float32,
+                       device=device)
+
+
+def _tail_planes(tail_k, tail_ks, tail_v, tail_vs, num_l, b, hkv, d):
+    kt = tail_k.shape[3]
+    if kt < 1 or kt > MAX_TILE:
+        raise ValueError(f"tail length {kt} outside 1..{MAX_TILE}")
+    for label, t_, shape in (("tail_k", tail_k, (num_l, b, hkv, kt, d)),
+                             ("tail_v", tail_v, (num_l, b, hkv, kt, d)),
+                             ("tail_ks", tail_ks, (num_l, b, hkv, kt)),
+                             ("tail_vs", tail_vs, (num_l, b, hkv, kt))):
+        if tuple(t_.shape) != shape:
+            raise ValueError(f"{label} {tuple(t_.shape)}, want {shape}")
+    return kt
+
+
+def _kernel():
+    if not _fn:
+        fn = _build.load_library(
+            "quant_attention").dli_quantized_fused_decode_attention
+        fn.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 10 + [
+            ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ]
+        fn.restype = ctypes.c_int
+        _fn.append(fn)
+    return _fn[0]
+
+
+def quantized_fused_decode_attention(
+    q: torch.Tensor,
+    k_new: torch.Tensor,
+    v_new: torch.Tensor,
+    big_k: torch.Tensor,
+    big_ks: torch.Tensor,
+    big_v: torch.Tensor,
+    big_vs: torch.Tensor,
+    tail_k: torch.Tensor,
+    tail_ks: torch.Tensor,
+    tail_v: torch.Tensor,
+    tail_vs: torch.Tensor,
+    layer_idx: int,
+    step_idx: torch.Tensor,
+    base_len: torch.Tensor,
+    tail_valid_len: torch.Tensor,
+    q_positions: torch.Tensor,
+    scale: Optional[float] = None,
+    sliding_window: Optional[int] = None,
+) -> Tuple[torch.Tensor, ...]:
+    """One fused-decode attention step over contiguous int8 stacks.
+
+    ``q``: ``[B, 1, Hq, D]`` (rotated); ``k_new``/``v_new`` ``[B, 1, Hkv,
+    D]`` (k rotated); big stacks ``[L, B, Hkv, T, D]`` int8 (+ ``[L, B, Hkv,
+    T]`` f32 scales); tail planes ``[L, B, Hkv, KT, D]`` (+ scales).
+    ``layer_idx``: host int; ``step_idx``: one int32 on the device;
+    ``base_len`` ``[B]`` live big-segment length; ``tail_valid_len`` ``[B]``
+    = ``tail_len + num_new`` (valid tail slots after this write);
+    ``q_positions`` ``[B]`` = ``base_len + tail_len`` anchors the sliding
+    window. Returns ``(out [B, 1, Hq, D], tail_k, tail_ks, tail_v,
+    tail_vs)``, the tail planes updated in place."""
+    global fused_launches
+    args = (q, k_new, v_new, big_k, big_ks, big_v, big_vs, tail_k, tail_ks,
+            tail_v, tail_vs, layer_idx, step_idx, base_len, tail_valid_len,
+            q_positions, scale, sliding_window)
+    if q.device.type == "cpu":
+        return quantized_fused_decode_attention_plain(*args)
+    if q.device.type != "cuda":
+        raise ValueError(f"quantized_fused_decode_attention: device {q.device}")
+    name = "quantized_fused_decode_attention"
+    code = check_fused_inputs(
+        name, q, k_new, v_new,
+        (("big_k", big_k, torch.int8), ("big_v", big_v, torch.int8),
+         ("big_ks", big_ks, torch.float32), ("big_vs", big_vs, torch.float32),
+         ("tail_k", tail_k, torch.int8), ("tail_v", tail_v, torch.int8),
+         ("tail_ks", tail_ks, torch.float32),
+         ("tail_vs", tail_vs, torch.float32)),
+        (("base_len", base_len), ("tail_valid_len", tail_valid_len),
+         ("q_positions", q_positions)), step_idx)
+    b, _, hq, d = q.shape
+    num_l, _, hkv, t, _ = big_k.shape
+    if tuple(big_k.shape) != (num_l, b, hkv, t, d) or big_v.shape != big_k.shape:
+        raise ValueError(f"{name}: big stacks {tuple(big_k.shape)}")
+    if tuple(big_ks.shape) != (num_l, b, hkv, t) or big_vs.shape != big_ks.shape:
+        raise ValueError(f"{name}: big scales {tuple(big_ks.shape)}")
+    kt = _tail_planes(tail_k, tail_ks, tail_v, tail_vs, num_l, b, hkv, d)
+    if not 0 <= layer_idx < num_l:
+        raise ValueError(f"{name}: layer {layer_idx} outside 0..{num_l - 1}")
+    if scale is None:
+        scale = d**-0.5
+    tile = min(BLOCK_T, t)
+    nt, w = -(-t // tile) + 1, max(tile, kt)
+    out = torch.empty_like(q)
+    scratch = fused_scratch(b * hq, nt, w, d, q.device)
+    with torch.cuda.device(q.device):
+        err = _kernel()(
+            q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
+            big_k.data_ptr(), big_ks.data_ptr(), big_v.data_ptr(),
+            big_vs.data_ptr(), tail_k.data_ptr(), tail_ks.data_ptr(),
+            tail_v.data_ptr(), tail_vs.data_ptr(), base_len.data_ptr(),
+            tail_valid_len.data_ptr(), q_positions.data_ptr(),
+            step_idx.data_ptr(), out.data_ptr(), scratch.data_ptr(), b, hkv,
+            hq // hkv, d, t, tile, kt, int(layer_idx), nt, w, float(scale),
+            int(sliding_window or 0), code,
+            torch.cuda.current_stream().cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"{name}: kernel launch failed ({err})")
+    fused_launches += 1
+    return out, tail_k, tail_ks, tail_v, tail_vs

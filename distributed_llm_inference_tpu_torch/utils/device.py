@@ -1,9 +1,11 @@
-"""Device resolution shared by the port's entry points."""
+"""Device resolution and host-to-device copies shared by the port's entry
+points."""
 
 from __future__ import annotations
 
 from typing import Union
 
+import numpy as np
 import torch
 
 
@@ -17,3 +19,14 @@ def resolve_device(device: Union[str, torch.device] = "cuda") -> torch.device:
             "False; pass device='cpu' explicitly to run on the CPU"
         )
     return dev
+
+
+def to_device(values, dtype, device: torch.device) -> torch.Tensor:
+    """Host values (a numpy array, a list) as a new tensor of ``dtype`` on
+    ``device``. To a CUDA device the copy goes through pinned memory and is
+    asynchronous, so that the host does not wait for the work already
+    queued on the card (a pipelined decode window, an overlapped prefill)."""
+    t = torch.as_tensor(np.asarray(values), dtype=dtype)
+    if torch.device(device).type != "cuda":
+        return t.clone().to(device)
+    return t.pin_memory().to(device, non_blocking=True)

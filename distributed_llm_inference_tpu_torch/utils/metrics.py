@@ -24,6 +24,10 @@ METRICS = {
     "sessions_rejected": ("counter", "Sessions refused at admission"),
     "sessions_deadline_expired": ("counter", "Sessions reaped past deadline"),
     "admit_sync_sessions": ("counter", "Sessions admitted synchronously"),
+    "admit_overlap_sessions": ("counter", "Sessions admitted via overlap"),
+    "admit_overlap_spill": ("counter", "Overlap admissions spilled to sync"),
+    "admit_overlap_inflight": ("gauge", "Prefills in flight behind decode"),
+    "admit_to_merge": ("summary", "Overlap admission to KV-merge latency"),
     # engine: prefill / decode hot path
     "prefill": ("summary", "Prefill dispatch latency"),
     "prefill_tokens": ("counter", "Prompt tokens prefilled"),
@@ -35,6 +39,14 @@ METRICS = {
     "attn_grid_occupancy": ("gauge", "Valid/padded tokens, last dispatch"),
     "decode_step": ("summary", "One decode tick (dispatch+resolve)"),
     "decode_tokens": ("counter", "Tokens emitted by decode"),
+    "decode_resolve": ("summary", "Deferred decode fetch latency"),
+    # engine/graphs.py: the fused window's captured step (no JAX
+    # counterpart: jax.jit compiles instead)
+    "decode_graph_captures": ("counter", "Fused decode steps captured"),
+    "decode_graph_replays": ("counter", "Captured decode steps replayed"),
+    "decode_graph_capture": ("summary", "Capture time of one decode step"),
+    "decode_graphs": ("gauge", "Captured decode steps alive"),
+    "decode_graph_pool_bytes": ("gauge", "Memory reserved by captures"),
     "cache_growths": ("counter", "Page-table widenings"),
     "kv_bytes_per_token": ("gauge", "Stored KV bytes per token, all layers"),
 }

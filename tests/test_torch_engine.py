@@ -1,9 +1,12 @@
-"""Port parity, the slice as a whole: the same weights and the same
-submissions go to the JAX ``InferenceEngine`` (paged cache, float32,
-``decode_steps=1``, ``pipelined_ticks=False``) and to the port's on
-``device="cpu"`` with attention routed through the kernel wrappers (their
-plain versions, since the tensors lie on the CPU). Greedy token streams, the
-events of every tick and the finish reasons must be IDENTICAL."""
+"""Port parity, the engine's single-step decode path: the same weights and
+the same submissions go to the JAX ``InferenceEngine`` (paged cache,
+float32, ``decode_steps=1``, ``pipelined_ticks=False``) and to the port's
+on ``device="cpu"`` with attention routed through the kernel wrappers
+(their plain versions, since the tensors lie on the CPU). Greedy token
+streams, the events of every tick and the finish reasons must be
+IDENTICAL. ``decode_steps=1`` stays reachable on both engines; the fused
+K-step windows, the default, are held to the JAX engine in
+``test_torch_engine_window.py``."""
 
 import collections
 import dataclasses
@@ -318,7 +321,8 @@ def test_quantized_engine_goes_through_the_int8_and_int4_wrappers(monkeypatch):
     port = InferenceEngine(
         tcfg.ModelConfig(**MODEL), TPARAMS,
         tcfg.EngineConfig(max_batch_size=4, prefill_buckets=(8, 16, 32),
-                          max_seq_len=64, dtype="float32", quantization="int4"),
+                          max_seq_len=64, dtype="float32", quantization="int4",
+                          decode_steps=1),
         tcfg.CacheConfig(page_size=8, num_pages=64, max_pages_per_session=8,
                          kv_quant="int8"),
         device="cpu", attention_backend="cuda")
@@ -347,7 +351,6 @@ def test_plan_selects_the_kernels_for_the_int8_pool():
 
 
 WAITING = [
-    ("decode_steps", dict(engine=dict(decode_steps=4))),
     ("dense", dict(cache=dict(kind="dense"))),
     ("sink", dict(cache=dict(kind="sink"))),
     ("kv_quant", dict(cache=dict(kind="dense", kv_quant="int8"))),

@@ -1,0 +1,205 @@
+"""Port parity: the fused decode window's three kernels on the int8 pool
+(on CPU tensors, so their plain versions) against the JAX package's Pallas
+kernels in interpret mode, on the same numpy inputs:
+``quantized_paged_fused_attention`` (the pool read in place),
+``quantized_fused_decode_attention`` (contiguous gathered stacks) and
+``paged_tail_flush``.
+
+Tolerances: outputs 2e-5 absolute in f32 (both sides round q and p * vs to
+bf16 at the same points over the same tiles, and sum in another order) and
+2e-2 in bf16 (the output's own rounding); the tail's scales equal to 1e-6
+relative (one f32 division on both sides); the flushed pool bytes equal.
+The tail's int8 planes are equal from f32 inputs. From bf16 inputs they
+are within 1 LSB, on at most 1% of the values: the port divides by the
+scale as ``_quantize_kv`` specifies, while XLA's CPU compiler, under the
+jit that interpret mode runs in, rewrites that division, and for the few
+values a bf16 input puts next to a rounding tie the quotient falls on the
+other side (the JAX package's own eager ``_quantize_kv`` agrees with the
+port there). Rows cover a fresh row, continued rows,
+a finished row (its slot write is never read), a row whose window straddles
+a page, a sliding window, and 1 or 2 query heads per kv head."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from distributed_llm_inference_tpu.cache.dense import _quantize_kv as jax_quantize_kv
+from distributed_llm_inference_tpu.ops.paged_attention import (
+    paged_tail_flush as jax_flush,
+    quantized_paged_fused_attention as jax_paged_fused,
+)
+from distributed_llm_inference_tpu.ops.quant_attention import (
+    quantized_fused_decode_attention as jax_fused,
+)
+from distributed_llm_inference_tpu_torch.ops import paged_attention as tpa
+from distributed_llm_inference_tpu_torch.ops import quant_attention as tqa
+
+torch.set_num_threads(1)
+L, B, HKV, D, PS, WIDTH, KT = 2, 4, 2, 16, 8, 6, 4
+ATOL = {"float32": 2e-5, "bfloat16": 2e-2}
+# Rows: fresh (nothing cached), continued, continued across a page edge
+# during the window, and one that finished after its first step.
+BASE = [0, 13, 38, 21]
+
+
+def jx(a, dtype=None):
+    return jnp.asarray(a) if dtype is None else jnp.asarray(a, getattr(jnp, dtype))
+
+
+def tt(a, dtype=None):
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    return t if dtype is None else t.to(getattr(torch, dtype))
+
+
+def int8_planes(rng, lead, n):
+    """int8 values and f32 scales as the cache stores them, ``lead + (n,
+    D)`` / ``lead + (n,)``."""
+    x = rng.standard_normal((2, *lead, n, D)).astype(np.float32)
+    q, s = jax_quantize_kv(jnp.asarray(x))
+    q, s = np.asarray(q), np.asarray(s)
+    return q[0], s[0], q[1], s[1]
+
+
+def table(rng):
+    ids = rng.permutation(np.arange(1, 1 + B * WIDTH)).reshape(B, WIDTH)
+    return ids.astype(np.int32)
+
+
+def step_inputs(rng, g, dtype):
+    q = rng.standard_normal((B, 1, HKV * g, D)).astype(np.float32)
+    kn = rng.standard_normal((B, 1, HKV, D)).astype(np.float32)
+    vn = rng.standard_normal((B, 1, HKV, D)).astype(np.float32)
+    return q, kn, vn
+
+
+def run_window(jax_fn, port_fn, big_np, rng, g, dtype, window, extra,
+               base=BASE):
+    """Three steps of a window through both sides; after each the outputs
+    and the tails are compared. Row 3 stops after its first step."""
+    tails_np = int8_planes(rng, (L, B, HKV), KT)
+    tail_j = [jx(t) for t in tails_np]
+    tail_t = [tt(t).clone() for t in tails_np]
+    base = np.asarray(base, np.int32)
+    tail_len = np.zeros(B, np.int32)
+    alive = np.ones(B, np.int32)
+    layer = 1
+    for step in range(3):
+        q, kn, vn = step_inputs(rng, g, dtype)
+        num_new = alive.copy()
+        vlen = tail_len + num_new
+        qpos = base + tail_len
+        out_j, *tail_j = jax_fn(
+            jx(q, dtype), jx(kn, dtype), jx(vn, dtype),
+            *[jx(a) for a in big_np], *tail_j,
+            layer_idx=jnp.int32(layer), step_idx=jnp.int32(step),
+            base_len=jx(base), tail_valid_len=jx(vlen),
+            q_positions=jx(qpos), sliding_window=window, interpret=True,
+            **{k: jx(v) for k, v in extra.items()})
+        out_t, *tail_t = port_fn(
+            tt(q, dtype), tt(kn, dtype), tt(vn, dtype),
+            *[tt(a) for a in big_np], *tail_t,
+            layer_idx=layer, step_idx=torch.tensor([step], dtype=torch.int32),
+            base_len=tt(base), tail_valid_len=tt(vlen), q_positions=tt(qpos),
+            sliding_window=window, **{k: tt(v) for k, v in extra.items()})
+        np.testing.assert_allclose(
+            out_t.float().numpy(), np.asarray(out_j, np.float32),
+            atol=ATOL[dtype], rtol=0)
+        for got, want in zip(tail_t, tail_j):
+            want = np.asarray(want)
+            if want.dtype == np.int8 and dtype == "float32":
+                np.testing.assert_array_equal(got.numpy(), want)
+            elif want.dtype == np.int8:
+                diff = np.abs(got.numpy().astype(np.int32) - want)
+                assert diff.max() <= 1 and (diff > 0).mean() <= 0.01
+            else:
+                np.testing.assert_allclose(got.numpy(), want, rtol=1e-6,
+                                           atol=0)
+        tail_len += num_new
+        alive[3] = 0
+    return tail_t, tail_len
+
+
+# (type, query heads per kv head, sliding window): every value of each
+# axis, in fewer cases than their product (interpret mode takes seconds).
+CASES = [("float32", 1, None), ("float32", 2, 9), ("float32", 1, 9),
+         ("bfloat16", 2, None), ("bfloat16", 1, 9)]
+
+
+@pytest.mark.parametrize("dtype,g,window", CASES)
+def test_paged_fused_attention_matches_jax(dtype, g, window):
+    rng = np.random.default_rng(10 * g + (window or 0))
+    pages = 1 + B * WIDTH
+    pool = int8_planes(rng, (L, pages, HKV), PS)
+    before = tpa.fused_launches
+    run_window(jax_paged_fused, tpa.quantized_paged_fused_attention, pool,
+               rng, g, dtype, window, {"page_table": table(rng)})
+    assert tpa.fused_launches == before, "no kernel runs on the CPU"
+
+
+# Stack lengths: one tile, and two whole 256-wide tiles (interpret mode pads
+# a partial last tile with NaN, which P V then carries into the output: the
+# JAX kernel is held to whole tiles here, the port's partial tiles are
+# compared on the card).
+@pytest.mark.parametrize("dtype,g,window,t", [
+    *((d, g, w, 48) for d, g, w in CASES[:3]), ("float32", 2, None, 512),
+    ("bfloat16", 1, 9, 512)])
+def test_gathered_fused_attention_matches_jax(dtype, g, window, t):
+    rng = np.random.default_rng(100 * g + t + (window or 0))
+    stacks = int8_planes(rng, (L, B, HKV), t)
+    # Past 256 slots, live positions reach into the second tile too.
+    base = BASE if t < 256 else [0, 260, 300, 255]
+    run_window(jax_fused, tqa.quantized_fused_decode_attention, stacks,
+               rng, g, dtype, window, {}, base)
+
+
+def test_tail_flush_matches_jax_pool_bytes():
+    """A window's tails through both flushes: every byte of the real pages
+    equal, including pages no row touched. Row 3's position sits in an
+    unmapped table slot: the JAX kernel writes it into the null page 0, the
+    port writes nothing there (page 0 keeps its sentinel bytes)."""
+    rng = np.random.default_rng(3)
+    pages = 1 + B * WIDTH
+    pool = [np.array(a) for a in int8_planes(rng, (L, pages, HKV), PS)]
+    for a in pool:
+        a[:, 0] = 7 if a.dtype == np.int8 else 0.5
+    tails = int8_planes(rng, (L, B, HKV), KT)
+    tab = table(rng)
+    base = np.asarray(BASE, np.int32)           # row 2 crosses into page 5
+    tail_len = np.asarray([4, 3, 4, 1], np.int32)
+    tab[3, 2] = 0                               # row 3's slot: unmapped
+    want = jax_flush(*[jx(a) for a in pool], *[jx(a) for a in tails],
+                     jx(tab), jx(base), jx(tail_len), interpret=True)
+    port = [tt(a).clone() for a in pool]
+    before = tpa.flush_launches
+    got = tpa.paged_tail_flush(*port, *[tt(a) for a in tails], tt(tab),
+                               tt(base), tt(tail_len))
+    assert tpa.flush_launches == before
+    for g_, w_ in zip(got, want):
+        np.testing.assert_array_equal(g_.numpy()[:, 1:], np.asarray(w_)[:, 1:])
+    assert (got[0][:, 0] == 7).all() and (got[1][:, 0] == 0.5).all()
+    moved = sum(int((g_.numpy() != a).any(axis=-1).sum()) if a.ndim == 5
+                else 0 for g_, a in zip(got, pool))
+    assert moved > 0, "the flush wrote nothing"
+
+
+def test_wrappers_refuse_what_the_kernel_does_not_take():
+    q = torch.zeros((B, 1, HKV, D))
+    kn = torch.zeros((B, 1, HKV, D))
+    planes = [torch.zeros((L, B, HKV, 8, D), dtype=torch.int8),
+              torch.zeros((L, B, HKV, 8)),
+              torch.zeros((L, B, HKV, 8, D), dtype=torch.int8),
+              torch.zeros((L, B, HKV, 8))]
+    tail = [torch.zeros((L, B, HKV, KT, D), dtype=torch.int8),
+            torch.zeros((L, B, HKV, KT)),
+            torch.zeros((L, B, HKV, KT, D), dtype=torch.int8),
+            torch.zeros((L, B, HKV, KT))]
+    vec = torch.zeros((B,), dtype=torch.int32)
+    with pytest.raises(ValueError, match="head_dim 128"):
+        tqa.check_fused_inputs(
+            "fused", q, kn, kn, (("big_k", planes[0], torch.int8),),
+            (("base_len", vec),), torch.zeros((1,), dtype=torch.int32))
+    with pytest.raises(ValueError, match="unsupported device|device"):
+        tqa.quantized_fused_decode_attention(
+            q.to("meta"), kn, kn, *planes, *tail, 0,
+            torch.zeros((1,), dtype=torch.int32), vec, vec, vec)

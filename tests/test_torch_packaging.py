@@ -89,11 +89,12 @@ def test_from_hf_config_matches_the_reference():
 def test_port_mirrors_the_reference_file_names():
     for path in PORT.rglob("*.py"):
         rel = path.relative_to(PORT)
-        if rel.name in ("_build.py", "device.py"):  # no JAX counterpart
-            continue
+        if rel.name in ("_build.py", "device.py", "graphs.py"):
+            continue  # no JAX counterpart
         assert (REFERENCE / rel).exists(), f"{rel} has no counterpart"
     assert sorted(p.name for p in (PORT / "csrc").glob("*.cu")) == [
-        "int4_matmul.cu", "paged_attention.cu", "ragged_attention.cu"]
+        "int4_matmul.cu", "paged_attention.cu", "quant_attention.cu",
+        "ragged_attention.cu"]
 
 
 def test_chip_smoke_refuses_to_run_without_a_gpu():

@@ -67,7 +67,7 @@ def test_seeded_draws_repeat_and_respect_the_filter():
     sp = tsamp.SamplingParams.stack(rows)
     a = tsamp.sample(x, 1234, sp)
     b = tsamp.sample(x, 1234, sp)
-    c = tsamp.sample(x, torch.Generator().manual_seed(1234), sp)
+    c = tsamp.sample(x, torch.tensor([1234]), sp, torch.tensor([0]))
     assert a.tolist() == b.tolist() == c.tolist()
     draws = torch.stack([tsamp.sample(x, seed, sp) for seed in range(200)])
     assert len(set(draws[:, 3].tolist())) > 10, "a stochastic row varies"

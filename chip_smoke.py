@@ -21,47 +21,64 @@ one line per engine configuration or comparison):
               `int4_matmul` and `int4_matmul_stacked` at the model's
               projection shapes and odd ones; the fused window's
               `quantized_paged_fused_attention` (the int8 pool in place),
-              `quantized_fused_decode_attention` (gathered stacks, T = 640)
+              `quantized_fused_decode_attention` (contiguous stacks, T = 640)
               over four steps of a window (B = 8, KT = 16; a row that stops,
               a sliding window, MHA), their int8 tails EQUAL to the plain
-              version's, and `paged_tail_flush`, the pool's bytes EQUAL.
-              Then, at the shapes of the main path, each kernel's output
-              against the plain version's on the same inputs and its time
-              beside the plain version's, a library yardstick where one
+              version's, and `paged_tail_flush`, the pool's bytes EQUAL; the
+              dense caches' `flash_attention` (a buffer wider than the
+              prompts, an empty row, a sliding window, MHA, strided K/V),
+              `quantized_decode_attention` (rows of 0 to 2048 live positions)
+              and `fused_tail_flush` (KT = 16 and 48, edge windows; bytes
+              EQUAL). Then, at the shapes of the main paths, each kernel's
+              output against the plain version's on the same inputs and its
+              time beside the plain version's, a library yardstick where one
               PyTorch call computes the same function
-              (`scaled_dot_product_attention` on contiguous K/V; for the
-              flush four `index_put_` calls; for the int4 matmuls there is
-              none: a bf16 `torch.matmul` on the dequantized weight is shown
-              as a yardstick of its own) and the card's bound for the same
-              work.
+              (`scaled_dot_product_attention` on contiguous K/V, with the
+              same mask for flash; for the flushes four `index_put_` calls;
+              for the int4 matmuls there is none: a bf16 `torch.matmul` on
+              the dequantized weight is shown as a yardstick of its own) and
+              the card's bound for the same work.
 3. engine   - `InferenceEngine` at Llama-3-8B widths with random seeded
-              weights. The main path is the default `decode_steps=None`:
-              K = 16 fused steps a window, each step replayed from a CUDA
-              graph, ticks pipelined, admission overlapped. It runs at full
-              depth in bf16 and with int4 weights over the int8 page pool;
-              then int8 weights over the int8 pool at 4 layers on short
-              traffic (every row under 640 slots, so that the window gathers
-              its stacks: `quantized_fused_decode_attention`; W8A8
-              prefill); then the paths of slices 1 and 2 (`decode_steps=1`),
-              cut to 8 layers. The traffic: 12 greedy prompts queue for 8
-              slots, a stream is cancelled as soon as it starts, a
-              3000-token greedy prompt chunk-admits beside live decode, two
-              sampled prompts ride along. Each configuration runs twice with
-              the same seed and must repeat itself; the launch counters of
-              its path's kernels are zeroed before its first run and read
-              after it (every one must be non-zero). Every dispatch shape
-              that run made is then given to its kernels again, in bf16 and
-              f32, and held against the plain versions. For the main path at
-              full depth, a few windows and prefill dispatches are profiled
-              for the device's idle share and the kernels that take the
-              time. Last, captured against eager: the same greedy traffic at
-              full width and depth in bf16 with the window's step replayed
-              from graphs and run eagerly must give identical streams.
+              weights, at the default `decode_steps=None`: K = 16 fused steps
+              a window, each step replayed from a CUDA graph, ticks
+              pipelined, admission overlapped. This slice's main path runs
+              at full depth: int4 weights over the int8 dense cache (the
+              window on the cache's own buffers, its flush kernel, flash for
+              the long batched prefill of the first admission wave). Then
+              the paged pools' main paths at full depth, in bf16 and with
+              int4 weights over int8 pages; int8 weights over int8 pages at 4
+              layers on short traffic (every row under 640 slots, so that the
+              window gathers its stacks; W8A8 prefill); the dense caches'
+              other paths at 8 layers (the int8 cache at `decode_steps=1`:
+              `quantized_decode_attention`; the model-dtype cache with
+              `use_pallas_attention`: flash prefill, K = 1; the model-dtype
+              cache at K = 16, its tail in plain PyTorch, captured); the
+              paths of slices 1 and 2 (`decode_steps=1`), cut to 4 layers.
+              The traffic: 12 greedy prompts queue for 8 slots, a stream is
+              cancelled as soon as it starts, a 3000-token greedy prompt
+              arrives beside live decode (chunk-admitted on the paged pools,
+              chunked synchronously on the dense caches), two sampled
+              prompts ride along. Each configuration runs twice with the
+              same seed and must repeat itself; the launch counters of its
+              path's kernels are zeroed before its first run and read after
+              it (every one must be non-zero). Every dispatch shape that run
+              made (for the dense caches every shape each kernel was called
+              at) is then given to its kernels again, in bf16 and f32, and
+              held against the plain versions. For the main paths at full
+              depth, a few windows and prefill dispatches are profiled for
+              the device's idle share and the kernels that take the time.
+              Last, captured against eager: the same greedy traffic at full
+              width and depth in bf16 with the window's step replayed from
+              graphs and run eagerly must give identical streams.
 4. parity   - 2 layers of the same widths in f32 (TF32 off): the bf16 pool
               at K = 16, at K = 1 and on the gather path, identical greedy
               streams; int4 weights over the int8 pool, kernels against the
               gather path at K = 1, identical, and K = 16 against K = 1 with
-              the share of equal tokens and the first divergence printed.
+              the share of equal tokens and the first divergence printed;
+              the model-dtype dense cache with flash against without, at
+              K = 1 and K = 16, identical; the int8 dense cache at K = 1 with
+              `quantized_decode_attention` against without, identical, and
+              K = 16 against K = 1, shown as above.
 
 Then a line `{"kernels": [...]}` with one entry per kernel (the only line
 with that key: phase 2 lists its results under `checked`), and the last line
@@ -70,6 +87,7 @@ with that key: phase 2 lists its results under `checked`), and the last line
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import subprocess
@@ -91,6 +109,7 @@ from distributed_llm_inference_tpu_torch.engine.sampling import SamplingOptions
 from distributed_llm_inference_tpu_torch.models import llama
 from distributed_llm_inference_tpu_torch.cache.dense import _quantize_kv
 from distributed_llm_inference_tpu_torch.ops import _build, quant
+from distributed_llm_inference_tpu_torch.ops import flash_attention as fa
 from distributed_llm_inference_tpu_torch.ops import paged_attention as pa
 from distributed_llm_inference_tpu_torch.ops import quant_attention as qa
 from distributed_llm_inference_tpu_torch.ops import quant_matmul as qm
@@ -137,7 +156,13 @@ DEV = "cuda"
 SPIN_CYCLES = 10_000_000  # about 5 ms of device spin at 1.7-2 GHz
 
 
+START = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase's line carries the seconds since the start."""
+    if "phase" in obj:
+        obj = {**obj, "t_s": time.perf_counter() - START}
     print(json.dumps(obj), flush=True)
 
 
@@ -163,8 +188,10 @@ def phase_device():
 # ---------------------------------------------------------------------------
 
 def normal(rng, shape, dtype):
-    return torch.as_tensor(
-        rng.standard_normal(shape, dtype=np.float32)).to(DEV, dtype)
+    """Standard normal values drawn on the card, from a seed that ``rng``
+    (a numpy generator) draws: repeatable, and quick at full depth."""
+    gen = torch.Generator(device=DEV).manual_seed(int(rng.integers(2**62)))
+    return torch.randn(shape, generator=gen, device=DEV).to(dtype)
 
 
 def make_pool(rng, num_pages, dtype, hkv=HKV, ps=PS, d=D):
@@ -443,8 +470,113 @@ def check_cases(dtype):
         if num_l == 1:
             compare_int4(cases, tag, dtype, x, w)
     fused_cases(cases, dtype, rng)
+    dense_cases(cases, dtype, rng)
     assert_cases(cases, dtype)
     return cases
+
+
+# ---------------------------------------------------------------------------
+# phase 2, the dense caches' kernels (slice 4): flash prefill (#3), int8
+# dense decode (#8), the dense tail flush (#10)
+# ---------------------------------------------------------------------------
+
+def causal(b, s, t, lens, q0, window=None):
+    """Bool mask [B, S, T] as the dense caches build it: query i of row r at
+    position q0[r] + i sees positions <= its own, below lens[r], inside the
+    window."""
+    q = i32(q0)[:, None, None] + torch.arange(s, device=DEV)[None, :, None]
+    k = torch.arange(t, device=DEV)[None, None, :]
+    m = (k <= q) & (k < i32(lens)[:, None, None])
+    if window is not None:
+        m &= k > q - window
+    return m.contiguous()
+
+
+def compare_flash(cases, tag, dtype, q, k, v, mask):
+    """`flash_attention` (#3) against its plain version on the same inputs;
+    rows whose mask is empty must come out as exact zeros."""
+    got = fa.flash_attention(q, k, v, mask)
+    want = fa.flash_attention_plain(q, k, v, mask)
+    torch.cuda.synchronize()
+    empty = ~mask.any(dim=-1)                       # [B, S]
+    if bool(empty.any()):
+        assert float(got[empty].abs().max()) == 0.0, "masked rows must be zero"
+    err = max_err(got, want)
+    cases.append((tag, err, TOL[dtype]))
+    return err
+
+
+def compare_qdense(cases, tag, dtype, q, planes, lens, **kw):
+    """`quantized_decode_attention` (#8) against its plain version; a row
+    with no live position must be zero."""
+    got = qa.quantized_decode_attention(q, *planes, lens, **kw)
+    want = qa.quantized_decode_attention_plain(q, *planes, lens, **kw)
+    torch.cuda.synchronize()
+    if bool((lens == 0).any()):
+        assert float(got[lens == 0].abs().max()) == 0.0, "empty row must be zero"
+    err = max_err(got, want)
+    cases.append((tag, err, TOL[dtype]))
+    return err
+
+
+def compare_qflush(cases, tag, big, tail, base, tail_len):
+    """`fused_tail_flush` (#10) against its plain version on copies of the
+    same buffers: every byte of every plane EQUAL."""
+    mine = [p.clone() for p in big]
+    ref = [p.clone() for p in big]
+    qa.fused_tail_flush(*mine, *tail, base, tail_len)
+    qa.fused_tail_flush_plain(*ref, *tail, base, tail_len)
+    torch.cuda.synchronize()
+    err = max(max_err(a, w) for a, w in zip(mine, ref))
+    cases.append((tag, err, 0.0))
+    return err
+
+
+def dense_cases(cases, dtype, rng):
+    """#3 over a buffer wider than the prompts (a continued row, a fresh
+    one, an empty one), with and without a sliding window, GQA and MHA, and
+    on strided K/V (the int8 cache's gather path hands time-major views of
+    head-major tensors); #8 over 2048 positions with rows of 0 to 2048 live
+    positions, a sliding window, GQA and MHA; #10 at KT = 16 and 48 with
+    in-block, block-spanning, empty, edge-partial, buffer-end and past-end
+    windows."""
+    b, s, t = 3, 256, 384
+    q = normal(rng, (b, s, HQ, D), dtype)
+    k = normal(rng, (b, t, HKV, D), dtype)
+    v = normal(rng, (b, t, HKV, D), dtype)
+    for window in (None, 100):
+        mask = causal(b, s, t, [300, 200, 0], [44, 0, 0], window)
+        compare_flash(cases, f"flash_window_{window}", dtype, q, k, v, mask)
+        compare_flash(cases, f"flash_mha_window_{window}", dtype,
+                      q[:, :, :HKV].contiguous(), k, v, mask)
+    kh = normal(rng, (b, HKV, t, D), dtype)
+    vh = normal(rng, (b, HKV, t, D), dtype)
+    compare_flash(cases, "flash_strided", dtype, q, kh.transpose(1, 2),
+                  vh.transpose(1, 2), causal(b, s, t, [384, 256, 100],
+                                             [128, 0, 0]))
+    # Shapes the tiling rule admits but the kernel's tiles do not divide: a
+    # partial last query tile (S = 24) and kv step (T = 40).
+    qs, ks, vs = (normal(rng, (2, n, h, D), dtype)
+                  for n, h in ((24, HQ), (40, HKV), (40, HKV)))
+    for g in (HQ // HKV, 1):
+        compare_flash(cases, f"flash_odd_g{g}", dtype,
+                      qs[:, :, :HKV * g].contiguous(), ks, vs,
+                      causal(2, 24, 40, [40, 30], [16, 0]))
+    bq, tq = 8, 2048
+    planes = make_qplanes(rng, (bq, HKV), tq)
+    lens = i32([0, 1, 127, 128, 129, 1000, 2047, 2048])
+    qd = normal(rng, (bq, 1, HQ, D), dtype)
+    for window in (None, 200):
+        compare_qdense(cases, f"qdense_window_{window}", dtype, qd, planes,
+                       lens, sliding_window=window)
+    compare_qdense(cases, "qdense_mha", dtype, qd[:, :, :HKV].contiguous(),
+                   planes, lens, sliding_window=200)
+    for kt in (16, 48):
+        big = make_qplanes(rng, (2, bq, HKV), tq)
+        tail = make_qplanes(rng, (2, bq, HKV), kt)
+        compare_qflush(cases, f"qflush_kt{kt}", big, tail,
+                       i32([0, 10, 30, 70, tq - 10, tq - kt, tq, 1000]),
+                       i32([kt, kt, 0, 10, kt, kt, 3, 5]))
 
 
 def time_ms(fn, iters, flush):
@@ -691,8 +823,8 @@ def time_fused(out, cases, rng, flush):
         return (k.to(dtype) * ks.to(dtype)[..., None],
                 v.to(dtype) * vs.to(dtype)[..., None])
 
-    for form, kv in (("inplace", 2048), ("gathered", 640)):
-        name, kernel, plain = fused_fns(form)
+    for form, kv in (("inplace", 2048), ("gathered", 640), ("dense", 2048)):
+        name, kernel, plain = fused_fns("gathered" if form == "dense" else form)
         base_len = kv - KT
         if form == "inplace":
             width = ladder_pages(kv)
@@ -708,7 +840,9 @@ def time_fused(out, cases, rng, flush):
             extra = {}
             kg = big[0][1][:, :, :base_len].to(dtype) * big[1][1][:, :, :base_len].to(dtype)[..., None]
             vg = big[2][1][:, :, :base_len].to(dtype) * big[3][1][:, :, :base_len].to(dtype)[..., None]
-            shape = f"B={b} T={kv} (stacks {base_len} + tail {KT}) Hq={HQ} Hkv={HKV} D={D} KT={KT} bf16 q, int8 stacks"
+            what = ("the int8 dense cache's own buffers" if form == "dense"
+                    else "int8 stacks")
+            shape = f"B={b} T={kv} (stacks {base_len} + tail {KT}) Hq={HQ} Hkv={HKV} D={D} KT={KT} bf16 q, {what}"
         tail = make_qplanes(rng, (2, b, HKV), KT)
         tk, tv = tail_kv(tail)
         kfull = torch.cat([kg, tk], dim=2).contiguous()
@@ -721,20 +855,25 @@ def time_fused(out, cases, rng, flush):
         want = plain(q, kn, vn, *big, *tail2, **kw)[0]
         torch.cuda.synchronize()
         err = max_err(got, want)
-        cases.append((f"{name}_timed", err, TOL[dtype]))
-        cases.append((f"{name}_timed_tail_bytes", max(
+        cases.append((f"{name}_timed_{form}", err, TOL[dtype]))
+        cases.append((f"{name}_timed_{form}_tail_bytes", max(
             max_err(a, w) for a, w in zip(tail, tail2)), 0.0))
         bytes_moved = fused_bytes(b, b * base_len, b * (KT - 1))
         if form == "inplace":
             bytes_moved += table.numel() * 4
         bms, by = bound(bytes_moved, 4 * b * kv * HQ * D, dtype)
-        out[kernel.__name__] = {
+        entry = {
             "shape": shape, "max_abs_err": err,
             "ms": time_ms(lambda: kernel(q, kn, vn, *big, *tail, **kw), 20, flush),
             "plain_ms": time_ms(lambda: plain(q, kn, vn, *big, *tail2, **kw), 3, flush),
             "library_ms": time_ms(lambda: sdpa(qh, kfull, vfull, False), 20, flush),
             "bound_ms": bms, "bound_by": by, "bytes": bytes_moved,
         }
+        if form == "dense":
+            # #9 at the int8 dense cache's shape, beside its T = 640 entry.
+            out[kernel.__name__]["at_dense_shape"] = entry
+        else:
+            out[kernel.__name__] = entry
         del big, kg, vg, kfull, vfull
 
     # #7: one window of all 32 layers.
@@ -773,6 +912,94 @@ def time_fused(out, cases, rng, flush):
     del pool, tail
 
 
+def time_dense(out, cases, rng, flush):
+    """The dense caches' kernels at the shapes of the main path, bf16: #3
+    over one 2048-token causal prefill into a 2048-wide buffer; #8 at B = 8
+    over 2048 live positions a row; #10 flushing one window (KT = 16) of
+    all 32 layers at B = 8 into buffers 2400 wide (the ladder's rung for
+    such rows), every row's window at position 2040 (across a 32-position
+    and a 128-position boundary). Library yardsticks:
+    `scaled_dot_product_attention` with the same boolean mask (#3), on the
+    dequantized contiguous K/V (#8); four `index_put_` calls (#10)."""
+    dtype, esz = torch.bfloat16, 2
+
+    # #3
+    s = t = 2048
+    q = normal(rng, (1, s, HQ, D), dtype)
+    k = normal(rng, (1, t, HKV, D), dtype)
+    v = normal(rng, (1, t, HKV, D), dtype)
+    mask = causal(1, s, t, [t], [0])
+    err = compare_flash(cases, "flash_timed", dtype, q, k, v, mask)
+    qh, kh, vh = (x.permute(0, 2, 1, 3).contiguous() for x in (q, k, v))
+    visible = s * (s + 1) // 2
+    flops = 4 * visible * HQ * D
+    bytes_moved = (2 * q.numel() + 2 * k.numel()) * esz + mask.numel()
+    bms, by = bound(bytes_moved, flops, dtype)
+    out["flash_attention"] = {
+        "shape": f"B=1 S={s} T={t} Hq={HQ} Hkv={HKV} D={D} bf16, causal mask",
+        "max_abs_err": err,
+        "ms": time_ms(lambda: fa.flash_attention(q, k, v, mask), 10, flush),
+        "plain_ms": time_ms(
+            lambda: fa.flash_attention_plain(q, k, v, mask), 3, flush),
+        "library_ms": time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            qh, kh, vh, attn_mask=mask[:, None], enable_gqa=True), 10, flush),
+        "bound_ms": bms, "bound_by": by, "flops": flops,
+        "bound_counts": "the causal lower triangle with its diagonal: "
+                        "S (S + 1) / 2 visible (query, position) pairs",
+    }
+    del q, k, v, qh, kh, vh, mask
+
+    # #8
+    b, t = 8, 2048
+    planes = make_qplanes(rng, (b, HKV), t)
+    q = normal(rng, (b, 1, HQ, D), dtype)
+    lens = i32([t] * b)
+    err = compare_qdense(cases, "qdense_timed", dtype, q, planes, lens)
+    kd = (planes[0].to(dtype) * planes[1].to(dtype)[..., None]).contiguous()
+    vd = (planes[2].to(dtype) * planes[3].to(dtype)[..., None]).contiguous()
+    qh = q.permute(0, 2, 1, 3).contiguous()
+    bytes_moved = (b * HKV * t * (2 * D + 8) + 2 * q.numel() * esz
+                   + 2 * b * 4)
+    bms, by = bound(bytes_moved, 4 * b * t * HQ * D, dtype)
+    out["quantized_decode_attention"] = {
+        "shape": f"B={b} T={t} (all live) Hq={HQ} Hkv={HKV} D={D} bf16 q, int8 head-major buffer",
+        "max_abs_err": err,
+        "ms": time_ms(lambda: qa.quantized_decode_attention(q, *planes, lens), 20, flush),
+        "plain_ms": time_ms(
+            lambda: qa.quantized_decode_attention_plain(q, *planes, lens), 5, flush),
+        "library_ms": time_ms(lambda: sdpa(qh, kd, vd, False), 20, flush),
+        "library": "scaled_dot_product_attention on the dequantized contiguous K/V",
+        "bound_ms": bms, "bound_by": by, "bytes": bytes_moved,
+    }
+    del planes, kd, vd
+
+    # #10
+    layers, base_len = LLAMA3_8B.num_layers, 2040
+    big = make_qplanes(rng, (layers, b, HKV), 2400)
+    tail = make_qplanes(rng, (layers, b, HKV), KT)
+    base, tl = i32([base_len] * b), i32([KT] * b)
+    err = compare_qflush(cases, "qflush_timed", big, tail, base, tl)
+    rows, slots, pos = qa._flush_targets(big[0].shape[3], base, tl, KT)
+
+    def index_put():
+        for dst, src in zip(big, tail):
+            dst[:, rows, :, pos] = src[:, rows, :, slots]
+
+    bytes_moved = 2 * layers * b * HKV * KT * (2 * D + 8) + 2 * b * 4
+    bms, by = bound(bytes_moved, 0, dtype)
+    out["fused_tail_flush"] = {
+        "shape": f"L={layers} B={b} T=2400 KT={KT} (each row's window at 2040) Hkv={HKV} D={D}, int8 + f32 scales",
+        "max_abs_err": err,
+        "ms": time_ms(lambda: qa.fused_tail_flush(*big, *tail, base, tl), 20, flush),
+        "plain_ms": time_ms(
+            lambda: qa.fused_tail_flush_plain(*big, *tail, base, tl), 3, flush),
+        "library_ms": time_ms(index_put, 20, flush),
+        "library": "index_put_ x4 (one per plane) of the same slots",
+        "bound_ms": bms, "bound_by": by, "bytes": bytes_moved,
+    }
+    del big, tail
+
+
 def time_kernels():
     """Every kernel in bf16 at the shapes of the main path (see
     :func:`time_attention`, :func:`time_int4`). Each kernel's output is
@@ -788,6 +1015,7 @@ def time_kernels():
     time_attention(out, cases, rng, flush, width, make_qpool(rng, pages))
     time_int4(out, cases, flush)
     time_fused(out, cases, rng, flush)
+    time_dense(out, cases, rng, flush)
     assert_cases(cases, torch.bfloat16)
     return out
 
@@ -801,6 +1029,9 @@ CASE_PREFIX = {
     "quantized_paged_fused_attention": "qfusedp_",
     "quantized_fused_decode_attention": "qfusedd_",
     "paged_tail_flush": "flush_",
+    "flash_attention": "flash_",
+    "quantized_decode_attention": "qdense_",
+    "fused_tail_flush": "qflush_",
 }
 
 
@@ -817,7 +1048,7 @@ def phase_kernels():
     for name, prefix in CASE_PREFIX.items():
         entry = {"name": name}
         tol = (TOL4 if name.startswith("int4")
-               else {t: 0.0 for t in TOL} if name == "paged_tail_flush"
+               else {t: 0.0 for t in TOL} if name.endswith("tail_flush")
                else TOL)
         for dtype, label in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
             mine = [(n, e, t) for n, e, t in errs[dtype] if n.startswith(prefix)]
@@ -1022,14 +1253,19 @@ def profile_decode(cfg, params, ekw, ckw, counters, ticks=5):
         engine.step()  # admission, prefill, first decode ticks (captures)
     out = profile_steps(engine, lambda: None, ticks, counters)
     out["decode_steps"] = k
-    out["table_width"] = engine.cache.page_table.shape[1]
+    width = "table_width" if engine.allocator is not None else "buffer_width"
+    out[width] = engine._span()
     return out
 
 
 def profile_prefill(cfg, params, ekw, ckw, counters, steps=2):
     """Where a prefill dispatch's time goes: one 2048-token greedy prompt
     admitted into an idle engine and asked for a single token, so that the
-    step is exactly one [1, 2048] prefill dispatch and its sample."""
+    step is exactly one [1, 2048] prefill dispatch and its sample. A dense
+    cache is held at 4096 positions wide, where the prefill takes the flash
+    kernel."""
+    if ckw.get("kind") == "dense":
+        ekw = {**ekw, "decode_windows": (4096,)}
     engine = InferenceEngine(
         cfg, params, EngineConfig(max_batch_size=8, **ekw),
         CacheConfig(num_pages=2048, **ckw),
@@ -1046,6 +1282,26 @@ def profile_prefill(cfg, params, ekw, ckw, counters, steps=2):
     assert not engine.has_work()
     assert engine.metrics.get_counter("prefill_tokens") == 2048 * (1 + 3 * steps)
     return out
+
+
+def int4_cases(cases, dtype, shapes):
+    """The int4 kernels at a run's dispatch shapes (`AttentionPlan.
+    dispatch_shapes`): decode rows at every projection shape
+    (`int4_matmul_stacked`), the head rows of every dispatch
+    (`int4_matmul`)."""
+    gen = torch.Generator(device=DEV).manual_seed(6)
+    decode_rows = sorted({sh[1] for sh in shapes if sh[0] == "decode"})
+    for name, (ind, outd) in PROJECTIONS.items():
+        w = int4_weight(gen, (2, ind, outd))
+        for rows in decode_rows:
+            x = torch.randn((rows, ind), generator=gen, device=DEV).to(dtype)
+            compare_int4(cases, f"decode_{rows}_{name}", dtype, x, w, 1)
+        del w
+    w = int4_weight(gen, (1, *HEAD))
+    for rows in sorted({sh[1] for sh in shapes}):
+        x = torch.randn((rows, HEAD[0]), generator=gen, device=DEV).to(dtype)
+        compare_int4(cases, f"head_{rows}", dtype, x, w)
+    del w
 
 
 def check_engine_shapes(shapes, table_width, quantized, int4):
@@ -1119,21 +1375,7 @@ def check_engine_shapes(shapes, table_width, quantized, int4):
                                i32(num_new))
         del pool
         if int4:
-            gen = torch.Generator(device=DEV).manual_seed(6)
-            decode_rows = sorted({sh[1] for sh in shapes if sh[0] == "decode"})
-            for name, (ind, outd) in PROJECTIONS.items():
-                w = int4_weight(gen, (2, ind, outd))
-                for rows in decode_rows:
-                    x = torch.randn((rows, ind), generator=gen,
-                                    device=DEV).to(dtype)
-                    compare_int4(cases, f"decode_{rows}_{name}", dtype, x, w, 1)
-                del w
-            w = int4_weight(gen, (1, *HEAD))
-            for rows in sorted({sh[1] for sh in shapes}):
-                x = torch.randn((rows, HEAD[0]), generator=gen,
-                                device=DEV).to(dtype)
-                compare_int4(cases, f"head_{rows}", dtype, x, w)
-            del w
+            int4_cases(cases, dtype, shapes)
         assert_cases(cases, dtype)
         fused = [k for k in ("qfusedp", "qfusedd")
                  if any(n.startswith(k + "_") for n, _, _ in cases)]
@@ -1157,6 +1399,118 @@ SHORT = {"short_lens": np.random.default_rng(8).integers(100, 500, size=12).toli
          "long_len": None, "new_tokens": 32}
 
 
+class DenseShapes:
+    """Records the shapes each of the dense caches' kernels is launched at
+    while it is installed (the wrappers replaced by recording ones, the
+    engine built inside; a call that launches nothing, as flash on a decode
+    step, is not recorded): (B, S, T, G) of #3, (B, T, G) of #8, (B, T,
+    KT, G) of #9, (L, B, T, KT) of #10."""
+
+    TARGETS = {(fa, "flash_attention"): "launches",
+               (qa, "quantized_decode_attention"): "decode_launches",
+               (qa, "quantized_fused_decode_attention"): "fused_launches",
+               (qa, "fused_tail_flush"): "flush_launches"}
+
+    def __init__(self):
+        self.shapes = set()
+        self._real = {}
+
+    def _shape(self, name, a):
+        if name == "flash_attention":
+            q, k = a[0], a[1]
+            return (q.shape[0], q.shape[1], k.shape[1], q.shape[2] // k.shape[2])
+        if name == "quantized_decode_attention":
+            q, k = a[0], a[1]
+            return (q.shape[0], k.shape[2], q.shape[2] // k.shape[1])
+        if name == "quantized_fused_decode_attention":
+            q, big, tail = a[0], a[3], a[7]
+            return (q.shape[0], big.shape[3], tail.shape[3],
+                    q.shape[2] // big.shape[2])
+        big, tail = a[0], a[4]
+        return (big.shape[0], big.shape[1], big.shape[3], tail.shape[3])
+
+    def __enter__(self):
+        for (mod, name), counter in self.TARGETS.items():
+            real = getattr(mod, name)
+            self._real[(mod, name)] = real
+
+            def rec(*a, _real=real, _name=name, _mod=mod, _c=counter, **kw):
+                before = getattr(_mod, _c)
+                out = _real(*a, **kw)
+                if getattr(_mod, _c) > before:
+                    self.shapes.add((_name, *self._shape(_name, a)))
+                return out
+
+            setattr(mod, name, rec)
+        return self
+
+    def __exit__(self, *exc):
+        for (mod, name), real in self._real.items():
+            setattr(mod, name, real)
+
+
+def check_dense_shapes(shapes, dispatch_shapes=(), int4=False):
+    """The dense caches' kernels against their plain versions at every
+    shape a run called them at (:class:`DenseShapes`), in bf16 and f32
+    where the queries' type matters: #3 over rows of mixed lengths (one
+    prompt longer than the buffer's remaining room, as a padded bucket
+    is), #8 with a full and an empty row, #9 over a window's steps (its
+    tail EQUAL), #10 at the run's depth (bytes EQUAL); with ``int4`` the
+    int4 kernels at the run's ``dispatch_shapes`` (:func:`int4_cases`).
+    Returns per kernel and type the largest error and the number of
+    comparisons."""
+    out = {}
+    for dtype, label in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+        rng = np.random.default_rng(5678)
+        cases = []
+        for name, *shape in sorted(shapes):
+            tag = "_".join(str(x) for x in shape)
+            if name == "flash_attention":
+                b, s, t, g = shape
+                q = normal(rng, (b, s, HKV * g, D), dtype)
+                k = normal(rng, (b, t, HKV, D), dtype)
+                v = normal(rng, (b, t, HKV, D), dtype)
+                lens = rng.integers(1, t + 1, size=b)
+                lens[0] = t
+                q0 = np.maximum(lens - s, 0)
+                compare_flash(cases, f"flash_{tag}", dtype, q, k, v,
+                              causal(b, s, t, lens, q0))
+            elif name == "quantized_decode_attention":
+                b, t, g = shape
+                lens = rng.integers(0, t + 1, size=b)
+                lens[0] = t
+                if b > 1:
+                    lens[-1] = 0
+                compare_qdense(cases, f"qdense_{tag}", dtype,
+                               normal(rng, (b, 1, HKV * g, D), dtype),
+                               make_qplanes(rng, (b, HKV), t), i32(lens))
+            elif name == "quantized_fused_decode_attention":
+                b, t, kt, g = shape
+                assert kt == KT
+                base = np.minimum(rng.integers(0, t + 1, size=b), t - KT)
+                compare_fused(cases, f"qfusedd_{tag}", dtype, "gathered",
+                              make_qplanes(rng, (1, b, HKV), t), i32(base),
+                              rng, g=g, layer=0)
+            elif dtype == torch.bfloat16:          # the flush moves bytes
+                num_l, b, t, kt = shape
+                base = rng.integers(0, t + 1, size=b)
+                base[0] = t - kt // 2              # a window past the end
+                compare_qflush(cases, f"qflush_{tag}",
+                               make_qplanes(rng, (num_l, b, HKV), t),
+                               make_qplanes(rng, (num_l, b, HKV), kt),
+                               i32(base), i32(rng.integers(0, kt + 1, size=b)))
+        if int4:
+            int4_cases(cases, dtype, dispatch_shapes)
+        assert_cases(cases, dtype)
+        for prefix in ("flash", "qdense", "qfusedd", "qflush", "int4s", "int4"):
+            mine = [e for n, e, _ in cases if n.startswith(prefix + "_")
+                    and not n.endswith("_tail_bytes")]
+            if mine:
+                out[f"{prefix}_{label}"] = {"max_abs_err": max(mine),
+                                            "comparisons": len(mine)}
+    return out
+
+
 def run_config(label, cfg, params, ekw, ckw, counters, profile=True,
                traffic=MIXED):
     """The smoke's traffic through one engine configuration, twice with one
@@ -1164,43 +1518,54 @@ def run_config(label, cfg, params, ekw, ckw, counters, profile=True,
     (name -> (module, attribute)) are zeroed before the first run and read
     after it. Then the run's dispatch shapes go through its kernels again
     and, with ``profile``, a decode tick and a prefill dispatch are
-    profiled. Returns (report, launches)."""
+    profiled. A dense cache (``ckw["kind"] == "dense"``) has no pages and
+    no co-scheduled chunks (its long prompt is chunked synchronously); its
+    kernels are replayed at the shapes recorded in the first run. Returns
+    (report, launches)."""
     torch.cuda.reset_peak_memory_stats()
     new_tokens = traffic["new_tokens"]
+    dense = ckw.get("kind") == "dense"
+    recorder = DenseShapes()
     runs = []
     for attempt in range(2):
-        t0 = time.perf_counter()
-        engine = InferenceEngine(
-            cfg, params, EngineConfig(max_batch_size=8, **ekw),
-            CacheConfig(num_pages=2048, **ckw),
-            generator=torch.Generator().manual_seed(11), device=DEV)
-        torch.cuda.synchronize()
-        build_s = time.perf_counter() - t0
-        assert engine.cache.use_kernel and engine.cache.use_ragged
-        fused = engine.decode_steps > 1
-        if fused:
-            assert engine._pipelined and engine._fused.capture
-        if attempt == 0:
-            for module, attr in counters.values():
-                setattr(module, attr, 0)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        streams, cancelled = drive(
-            engine, cfg.vocab_size, 5, traffic["short_lens"],
-            traffic["long_len"], new_tokens)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        with recorder if dense and attempt == 0 else contextlib.nullcontext():
+            t0 = time.perf_counter()
+            engine = InferenceEngine(
+                cfg, params, EngineConfig(max_batch_size=8, **ekw),
+                CacheConfig(num_pages=2048, **ckw),
+                generator=torch.Generator().manual_seed(11), device=DEV)
+            torch.cuda.synchronize()
+            build_s = time.perf_counter() - t0
+            if not dense:
+                assert engine.cache.use_kernel and engine.cache.use_ragged
+            fused = engine.decode_steps > 1
+            if fused:
+                assert engine._pipelined and engine._fused.capture
+            if attempt == 0:
+                for module, attr in counters.values():
+                    setattr(module, attr, 0)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            streams, cancelled = drive(
+                engine, cfg.vocab_size, 5, traffic["short_lens"],
+                traffic["long_len"], new_tokens)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
         if attempt == 0:
             launches = {n: getattr(m, a) for n, (m, a) in counters.items()}
             shapes = engine.plan.dispatch_shapes
-            # The widest the table grew (an idle engine shrinks it again).
+            # The widest the table (or the dense buffers) grew: an idle
+            # engine shrinks it again.
             table_width = max(
-                [engine.cache.page_table.shape[1]]
+                [engine._span()]
                 + [sh[3] for sh in shapes if sh[0] == "decode"])
         check_streams(streams, cancelled, new_tokens, cfg.vocab_size)
         m = engine.metrics
-        assert engine.allocator.free_count == 2048 - 1, "pages leaked"
-        if traffic["long_len"]:
+        if not dense:
+            assert engine.allocator.free_count == 2048 - 1, "pages leaked"
+        if traffic["long_len"] and dense:
+            assert ("chunk", 1, 2048) in shapes, "the long prompt was not chunked"
+        elif traffic["long_len"]:
             assert m.get_counter("attn_chunked_rows") > 0, (
                 "the long prompt was not chunk-admitted beside live decode")
         assert m.get_counter("batched_prefills") > 0
@@ -1252,10 +1617,16 @@ def run_config(label, cfg, params, ekw, ckw, counters, profile=True,
     for i, r in enumerate(runs):
         report[f"run{i}"] = {k: v for k, v in r.items() if k != "streams"}
     report["dispatch_shapes"] = sorted(shapes)
-    report["table_width"] = table_width
-    report["kernels_at_dispatch_shapes"] = check_engine_shapes(
-        shapes, table_width, bool(ckw.get("kv_quant")),
-        ekw.get("quantization") == "int4")
+    if dense:
+        report["buffer_width"] = table_width
+        report["kernel_shapes"] = sorted(recorder.shapes)
+        report["kernels_at_dispatch_shapes"] = check_dense_shapes(
+            recorder.shapes, shapes, ekw.get("quantization") == "int4")
+    else:
+        report["table_width"] = table_width
+        report["kernels_at_dispatch_shapes"] = check_engine_shapes(
+            shapes, table_width, bool(ckw.get("kv_quant")),
+            ekw.get("quantization") == "int4")
     if profile:
         report["decode_profile"] = profile_decode(cfg, params, ekw, ckw,
                                                   counters)
@@ -1281,6 +1652,15 @@ MAIN_INT4 = {"quantized_paged_fused_attention": (pa, "fused_launches"),
              "paged_tail_flush": (pa, "flush_launches"), **QRAGGED, **INT4}
 SHORT_INT8 = {"quantized_fused_decode_attention": (qa, "fused_launches"),
               "paged_tail_flush": (pa, "flush_launches"), **QRAGGED}
+# Slice 4, the dense caches. Its main path: int4 weights over the int8
+# dense cache (the fused window on the cache's own buffers, #9, its flush,
+# #10; flash for the batched 2048-token prefill into the 1536-wide buffers
+# of the first admission wave, #3).
+FLASH = {"flash_attention": (fa, "launches")}
+MAIN_DENSE = {"quantized_fused_decode_attention": (qa, "fused_launches"),
+              "fused_tail_flush": (qa, "flush_launches"), **FLASH, **INT4}
+QDENSE = {"quantized_decode_attention": (qa, "decode_launches"), **FLASH}
+DENSE = {"kind": "dense"}
 
 
 def depth(params, cfg, layers):
@@ -1291,13 +1671,19 @@ def depth(params, cfg, layers):
 
 
 def phase_engine():
-    """The engine at Llama-3-8B widths. The main path (the default
-    ``decode_steps=None``: K = 16, captured and pipelined) at full depth in
-    bf16 and with int4 weights over int8 pages; int8 weights over int8
-    pages at 4 layers on SHORT traffic (the gathered window, #9, and W8A8
-    prefill); then the paths of slices 1 and 2 (``decode_steps=1``), cut to
-    8 layers. Each path's counters are zeroed before its first run and read
-    after it. Returns launches by kernel, from the path that runs it."""
+    """The engine at Llama-3-8B widths. This slice's main path at full
+    depth: int4 weights over the int8 dense cache, the default
+    ``decode_steps=None`` (K = 16, captured and pipelined). Then the main
+    paths of the paged pools at full depth in bf16 and with int4 weights
+    over int8 pages; int8 weights over int8 pages at 4 layers on SHORT
+    traffic (the gathered window, #9, and W8A8 prefill); the dense caches'
+    other paths at 8 layers (the int8 cache at ``decode_steps=1``, #8; the
+    model-dtype cache with ``use_pallas_attention``, flash prefill and
+    K = 1; the model-dtype cache at K = 16, its tail in plain PyTorch,
+    captured); the paths of slices 1 and 2 (``decode_steps=1``), cut to 4
+    layers. Each path's counters are zeroed before its first run and read
+    after it. Returns launches by kernel, from the first path that runs
+    it in that order."""
     cfg = LLAMA3_8B
     t0 = time.perf_counter()
     params = llama.init_params(
@@ -1305,13 +1691,20 @@ def phase_engine():
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     launches = {}
-    _, got = run_config("main path: bf16 weights, bf16 pages, K=16", cfg,
-                        params, {}, {}, MAIN_BF16)
-    launches.update(got)
-    _, got = run_config(
-        "main path: int4 weights (half-split), int8 pages, K=16", cfg,
-        params, {"quantization": "int4"}, {"kv_quant": "int8"}, MAIN_INT4)
-    launches.update(got)
+
+    def take(got):
+        for name, n in got.items():
+            launches.setdefault(name, n)
+
+    take(run_config(
+        "main path: int4 weights (half-split), int8 dense KV, K=16", cfg,
+        params, {"quantization": "int4"}, {"kv_quant": "int8", **DENSE},
+        MAIN_DENSE)[1])
+    take(run_config("paged main path: bf16 weights, bf16 pages, K=16", cfg,
+                    params, {}, {}, MAIN_BF16)[1])
+    take(run_config(
+        "paged main path: int4 weights (half-split), int8 pages, K=16", cfg,
+        params, {"quantization": "int4"}, {"kv_quant": "int8"}, MAIN_INT4)[1])
     cfg4, params4 = depth(params, cfg, 4)
     w8a8 = [0]
     real = quant.w8a8_matmul
@@ -1322,24 +1715,29 @@ def phase_engine():
 
     quant.w8a8_matmul = counted
     try:
-        _, got = run_config(
-            "main path: int8 weights, int8 pages, K=16, short traffic",
+        take(run_config(
+            "paged: int8 weights, int8 pages, K=16, short traffic",
             cfg4, params4, {"quantization": "int8"}, {"kv_quant": "int8"},
-            SHORT_INT8, profile=False, traffic=SHORT)
+            SHORT_INT8, profile=False, traffic=SHORT)[1])
     finally:
         quant.w8a8_matmul = real
-    launches["quantized_fused_decode_attention"] = got[
-        "quantized_fused_decode_attention"]
     assert w8a8[0] > 0, "no prefill projection took the int8 x int8 product"
     emit({"phase": "engine_int8_w8a8", "init_s": init_s,
           "w8a8_matmul_calls": w8a8[0]})
     cfg8, params8 = depth(params, cfg, 8)
-    run_config("slice 1 path: bf16, K=1, 8 layers", cfg8, params8,
+    take(run_config("slice 4 path: bf16 weights, int8 dense KV, K=1, 8 layers",
+                    cfg8, params8, {"decode_steps": 1},
+                    {"kv_quant": "int8", **DENSE}, QDENSE, profile=False)[1])
+    run_config("slice 4 path: bf16 weights, bf16 dense KV, flash, K=1, 8 layers",
+               cfg8, params8, {"use_pallas_attention": True}, DENSE, FLASH,
+               profile=False)
+    run_config("slice 4 path: bf16 weights, bf16 dense KV, K=16, 8 layers",
+               cfg8, params8, {}, DENSE, {}, profile=False)
+    run_config("slice 1 path: bf16, K=1, 4 layers", cfg4, params4,
                {"decode_steps": 1}, {}, SLICE1, profile=False)
-    _, got = run_config("slice 2 path: int4 weights, int8 pages, K=1, 8 layers",
-                        cfg8, params8, {"decode_steps": 1, "quantization": "int4"},
-                        {"kv_quant": "int8"}, SLICE2, profile=False)
-    launches["quantized_paged_attention"] = got["quantized_paged_attention"]
+    take(run_config("slice 2 path: int4 weights, int8 pages, K=1, 4 layers",
+                    cfg4, params4, {"decode_steps": 1, "quantization": "int4"},
+                    {"kv_quant": "int8"}, SLICE2, profile=False)[1])
     captured_vs_eager(cfg, params)
     del params, params4, params8
     torch.cuda.empty_cache()
@@ -1382,7 +1780,12 @@ def phase_parity():
     the gather path at K = 1, identical, and K = 16 against K = 1, the share
     of equal tokens and the first divergence printed (the fused kernels
     round p * vs to bf16 as the TPU kernel does, #5 does not; the binding
-    parity of that pool is the CPU test against the JAX package)."""
+    parity of that pool is the CPU test against the JAX package). The
+    dense caches, held to rungs of 384, 768 and 1024 positions (multiples
+    of 128, so that flash takes their prefills): the model-dtype cache with
+    flash (K = 1) against without it at K = 1 and at K = 16, identical; the
+    int8 cache at K = 1 with #8 against without it, identical, and K = 16
+    (#9, #10) against K = 1, shown as above."""
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = dataclasses.replace(LLAMA3_8B, num_layers=2)
     params = llama.init_params(
@@ -1394,6 +1797,9 @@ def phase_parity():
     opts = SamplingOptions(max_new_tokens=16)
 
     def run(ekw, ckw):
+        dense = ckw.get("kind") == "dense"
+        if dense:
+            ekw = {**ekw, "decode_windows": (384, 768, 1024)}
         engine = InferenceEngine(
             cfg, params,
             EngineConfig(max_batch_size=4, prefill_buckets=(64, 256),
@@ -1407,8 +1813,17 @@ def phase_parity():
             client.step()
         client.submit(long_prompt, opts)
         streams = client.drain()
-        assert engine.allocator.free_count == 127
+        if not dense:
+            assert engine.allocator.free_count == 127
         return streams, engine
+
+    def shares(a, b):
+        """Share of equal tokens of two stream sets, and the first
+        (stream, token) where they part."""
+        equal = sum(x == y for s, t in zip(a, b) for x, y in zip(s, t))
+        first = next(((i, j) for i, (s, t) in enumerate(zip(a, b))
+                      for j, (x, y) in enumerate(zip(s, t)) if x != y), None)
+        return equal / sum(len(s) for s in b), first
 
     report = {"phase": "parity",
               "model": "llama-3-8b widths, 2 layers, f32, tf32 off"}
@@ -1451,14 +1866,48 @@ def phase_parity():
     kern16, e16 = run(ekw, ckw)
     assert e16.decode_steps == 16
     assert pa.fused_launches + qa.fused_launches > fused_before
-    equal = sum(a == b for x, y in zip(kern16, kern1) for a, b in zip(x, y))
-    total = sum(len(x) for x in kern1)
-    first = next(((i, j) for i, (x, y) in enumerate(zip(kern16, kern1))
-                  for j, (a, b) in enumerate(zip(x, y)) if a != b), None)
+    share, first = shares(kern16, kern1)
     report["int4_int8kv"] = {
         "streams": len(kern1), "tokens_each": 16,
         "kernel_equals_gather_k1": True,
-        "k16_vs_k1_equal_token_share": equal / total,
+        "k16_vs_k1_equal_token_share": share,
+        "k16_vs_k1_first_divergence": first,
+    }
+
+    # The model-dtype dense cache: flash (K = 1) against the plain route at
+    # K = 1 and at K = 16 (its tail in plain PyTorch).
+    before = fa.launches
+    flash, ef = run({"use_pallas_attention": True}, DENSE)
+    assert ef.decode_steps == 1 and fa.launches > before
+    plain1, _ = run({"use_pallas_attention": False, **k1}, DENSE)
+    plain16, ep = run({"use_pallas_attention": False}, DENSE)
+    assert ep.decode_steps == 16
+    assert all(len(x) == 16 for x in flash)
+    assert flash == plain1, "bf16 dense: flash and plain streams differ"
+    assert plain1 == plain16, "bf16 dense: K=16 and K=1 streams differ"
+    report["bf16_dense"] = {"streams": len(flash), "tokens_each": 16,
+                            "flash_equals_plain_k1": True,
+                            "k16_equals_k1": True,
+                            "flash_launches": fa.launches - before}
+
+    # The int8 dense cache: #8 against the plain int8-score path at K = 1;
+    # the window (#9, #10) against K = 1, shown.
+    ckw = {"kv_quant": "int8", **DENSE}
+    before = qa.decode_launches
+    kern1, e1 = run(k1, ckw)
+    assert e1.cache.use_kernel and qa.decode_launches > before
+    plain1, e2 = run({"use_pallas_attention": False, **k1}, ckw)
+    assert not e2.cache.use_kernel
+    assert kern1 == plain1, "int8 dense: #8 and plain streams differ"
+    before = (qa.fused_launches, qa.flush_launches)
+    kern16, e16 = run({}, ckw)
+    assert e16.decode_steps == 16
+    assert qa.fused_launches > before[0] and qa.flush_launches > before[1]
+    share, first = shares(kern16, kern1)
+    report["int8_dense"] = {
+        "streams": len(kern1), "tokens_each": 16,
+        "kernel_equals_plain_k1": True,
+        "k16_vs_k1_equal_token_share": share,
         "k16_vs_k1_first_divergence": first,
     }
     emit(report)
@@ -1476,6 +1925,9 @@ REPLACES = {
     "quantized_paged_fused_attention": "distributed_llm_inference_tpu/ops/paged_attention.py:490",
     "quantized_fused_decode_attention": "distributed_llm_inference_tpu/ops/quant_attention.py:231",
     "paged_tail_flush": "distributed_llm_inference_tpu/ops/paged_attention.py:751",
+    "flash_attention": "distributed_llm_inference_tpu/ops/flash_attention.py:97",
+    "quantized_decode_attention": "distributed_llm_inference_tpu/ops/quant_attention.py:136",
+    "fused_tail_flush": "distributed_llm_inference_tpu/ops/quant_attention.py:569",
 }
 SOURCES = {
     "paged_attention": "distributed_llm_inference_tpu_torch/csrc/paged_attention.cu",
@@ -1487,6 +1939,9 @@ SOURCES = {
     "quantized_paged_fused_attention": "distributed_llm_inference_tpu_torch/csrc/paged_attention.cu",
     "quantized_fused_decode_attention": "distributed_llm_inference_tpu_torch/csrc/quant_attention.cu",
     "paged_tail_flush": "distributed_llm_inference_tpu_torch/csrc/paged_attention.cu",
+    "flash_attention": "distributed_llm_inference_tpu_torch/csrc/flash_attention.cu",
+    "quantized_decode_attention": "distributed_llm_inference_tpu_torch/csrc/quant_attention.cu",
+    "fused_tail_flush": "distributed_llm_inference_tpu_torch/csrc/quant_attention.cu",
 }
 
 

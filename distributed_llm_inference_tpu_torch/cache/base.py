@@ -4,16 +4,14 @@
 ``attend`` is the single entry the model calls per decoder layer: write the
 new k/v into the cache, run attention, return ``(attn_out, layer_state)``.
 The default is the always-correct gather path — ``update_and_gather`` into a
-contiguous view, then the caller-supplied ``attention_fn``. ``PagedKVCache``
-and ``QuantizedPagedKVCache`` override it to read pages in place through
-the CUDA kernels.
+contiguous view, then the caller-supplied ``attention_fn``. The paged caches
+override it to read pages in place through the CUDA kernels, the int8 dense
+cache to attend over its int8 buffers directly.
 """
 
 from __future__ import annotations
 
 from typing import Optional, Sequence, Tuple
-
-import torch
 
 
 def window_ladder(
@@ -48,18 +46,19 @@ def window_ladder(
     return tuple(ws)
 
 
-# Prefills at least this long route the quantized caches' gather path
-# through the flash kernel in the JAX package (its ``cache/base.py``).
+# Prefills at least this long route the quantized caches' attention through
+# the flash kernel's gather path instead of the int8-score formulation: the
+# materialised [B, Hq, S, T] scores turn dominant around S ~ 1k (the JAX
+# package's measurement, in its ``cache/base.py``).
 FLASH_PREFILL_MIN_S = 1024
 
 
-def flash_prefill_fn(s: int, t: int, attention_fn, device):
-    """The flash-for-long-prefill policy of the quantized caches' gather
-    path. The flash kernel is not ported yet (``ROADMAP.md`` queue 2, item
-    3): where the JAX package would take it, a CUDA device raises, and CPU
-    tensors keep ``attention_fn`` (returns None). With the default plan a
-    CUDA engine never gets here: its multi-token rows take the ragged
-    kernel. ``s``/``t`` = query/buffer lengths."""
+def flash_prefill_fn(s: int, t: int, attention_fn):
+    """The flash-for-long-prefill policy, in ONE place for every quantized
+    cache kind: returns :func:`ops.flash_attention.flash_attention` when the
+    caller's default-attention prefill is long enough and tiles cleanly,
+    else None (keep the int8-score path). ``s``/``t`` = query/buffer
+    lengths."""
     from ..ops.attention import gqa_attention
 
     if (
@@ -67,13 +66,10 @@ def flash_prefill_fn(s: int, t: int, attention_fn, device):
         and s >= FLASH_PREFILL_MIN_S
         and s % 128 == 0
         and t % 128 == 0
-        and torch.device(device).type == "cuda"
     ):
-        raise NotImplementedError(
-            "a gather-path prefill of >= 1024 tokens over an int8 cache takes "
-            "the flash kernel, which is not ported yet (ROADMAP.md queue 2, "
-            "item 3)"
-        )
+        from ..ops.flash_attention import flash_attention
+
+        return flash_attention
     return None
 
 

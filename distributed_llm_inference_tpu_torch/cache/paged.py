@@ -120,6 +120,14 @@ class PagedKVCache(GatherAttendMixin):
     def max_len(self) -> int:
         return self.page_table.shape[1] * self.page_size
 
+    @property
+    def window_anchor(self) -> torch.Tensor:
+        """The tensor whose identity fixes this cache's shapes: a fused
+        window (or a CUDA graph of its step) captured over the cache stays
+        valid while it stands. Here the page table, which a widening or a
+        shrink replaces (the pool never moves)."""
+        return self.page_table
+
     # Plane name -> attribute, as in the JAX package (``kv_bytes_per_token``
     # counts every plane).
     PLANE_FIELDS = {"k": "k_pages", "v": "v_pages"}
@@ -499,7 +507,11 @@ class QuantizedPagedKVCache(PagedKVCache):
         gather path (dequantized view + ``attention_fn``)."""
         s = q.shape[1]
         if not ((self.use_ragged and s > 1) or (self.use_kernel and s == 1)):
-            flash_prefill_fn(s, self.max_len, attention_fn, self.device)
+            # Long prefill: flash over the dequantized pool view (the
+            # full-score path dominates from S ~ 1k).
+            flash = flash_prefill_fn(s, self.max_len, attention_fn)
+            if flash is not None:
+                attention_fn = flash
             return GatherAttendMixin.attend(
                 self, layer_state, q, k_new, v_new, rope, q_pos, num_new,
                 sliding_window, attention_fn, scale,

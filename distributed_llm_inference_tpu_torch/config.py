@@ -137,8 +137,9 @@ class ModelConfig:
 
 @dataclasses.dataclass(frozen=True)
 class CacheConfig:
-    """KV-cache policy. The port serves ``kind="paged"`` without
-    ``kv_quant`` and without ``prefix_caching``."""
+    """KV-cache policy. The port serves ``kind="paged"`` and
+    ``kind="dense"``, each in the model dtype or with ``kv_quant="int8"``;
+    ``kind="sink"`` and ``prefix_caching`` wait (``ROADMAP.md`` queue 1)."""
 
     kind: str = "paged"  # "paged" | "sink" | "dense"
     kv_quant: Optional[str] = None  # None | "int8"
@@ -163,11 +164,15 @@ class EngineConfig:
     dtype: str = "bfloat16"
     # None | "int8" | "int4" | "int8_outlier" (not ported yet).
     quantization: Optional[str] = None
-    # Page-table width ladder: the table starts narrow and gains columns as
+    # Width ladder of the attended span: a paged table starts narrow and
+    # gains columns, dense buffers start at the first rung and regrow, as
     # sessions lengthen. None = auto ladder; () disables.
     decode_windows: Optional[Tuple[int, ...]] = None
-    # Kernel for decode rows (ops/paged_attention.py). None = auto: ON for
-    # the paged cache on a CUDA device, OFF on the CPU.
+    # The attention kernels of the cache: decode rows of the paged pools
+    # (ops/paged_attention.py), the int8 dense cache's own kernels
+    # (ops/quant_attention.py), flash prefill for the model-dtype dense cache
+    # (ops/flash_attention.py). None = auto: ON for the paged cache and the
+    # int8 dense cache on a CUDA device, OFF on the CPU.
     use_pallas_attention: Optional[bool] = None
     # Ragged mixed-phase attention (engine/plan.py + ops/ragged_attention.py):
     # every prefill-family dispatch pads to ONE width, multi-token rows read
@@ -181,7 +186,8 @@ class EngineConfig:
     # Fraction of decode ticks that may also carry a chunked-prefill
     # dispatch (credit accumulator; 1.0 = every tick, 0 = never).
     chunk_decode_share: float = 0.5
-    # Tokens decoded per dispatch. The port serves 1 (None resolves to 1).
+    # Tokens decoded per dispatch. None resolves as in the JAX engine: 16
+    # where the cache's write-behind tail composes, else 1.
     decode_steps: Optional[int] = None
     ring_prefill_threshold: Optional[int] = None
     # Pipelined ticks and overlapped admission apply to decode_steps > 1

@@ -1,17 +1,23 @@
-// Fused decode step over a contiguous int8 K/V stack, for Hopper (sm_90a),
-// plain C interface.
+// Kernels over the int8 dense cache's contiguous head-major buffers
+// [L, B, Hkv, T, D] (+ [L, B, Hkv, T] f32 scales), for Hopper (sm_90a),
+// plain C interface. They replace three TPU kernels of
+// distributed_llm_inference_tpu/ops/quant_attention.py:
 //
-// Replaces the TPU kernel `_qfused_kernel` behind
-// `quantized_fused_decode_attention` in
-// distributed_llm_inference_tpu/ops/quant_attention.py. The int8 page pool's
-// fused window below INPLACE_CTX (cache/paged.py) gathers every row's pages
-// once per window into contiguous [L, B, Hkv, T, D] stacks (plain PyTorch
-// indexing, outside any kernel, as the JAX package leaves it to XLA); each
-// (layer, step) of the window then runs these kernels over those stacks, in
-// tiles of min(256, T) positions as the TPU kernel tiles them, with the
-// step's K/V quantized into the int8 tail as the last tile. The kernels are
-// fused_decode.cuh's with Paged = false; that file says what bounds them.
+// * `_qfused_kernel` behind `quantized_fused_decode_attention`: one (layer,
+//   step) of the fused K-step decode window over contiguous int8 stacks
+//   (the dense cache's own buffers, or the int8 page pool's rows gathered
+//   once per window below INPLACE_CTX, cache/paged.py), in tiles of
+//   min(256, T) positions as the TPU kernel tiles them, with the step's K/V
+//   quantized into the int8 tail as the last tile. The kernels are
+//   fused_decode.cuh's with Paged = false; that file says what bounds them.
+// * `_qdense_kernel` behind `quantized_decode_attention`: one decode token a
+//   row over one layer's [B, Hkv, T, D] buffer, the int8 paged decode walk of
+//   decode_attention.cuh with no table (row b is its own page of T slots).
+//   Bound by bytes; everything f32, p * vs included.
+// * `fused_tail_flush`: the fused window's int8 tail merged into the
+//   buffers, a direct scatter (below).
 
+#include "decode_attention.cuh"
 #include "fused_decode.cuh"
 
 // big stacks [L, B, Hkv, T, D] int8 / [L, B, Hkv, T] f32, tail planes
@@ -50,4 +56,92 @@ extern "C" int dli_quantized_fused_decode_attention(
   a.B = B; a.Hkv = Hkv; a.rows = T; a.ps = 0; a.tw = 0; a.tile_w = tile_w;
   a.KT = KT; a.layer = layer; a.window = window; a.scale = scale;
   return fused::launch<false>(a, G, D, dtype, stream);
+}
+
+// q [B, Hkv*G, D] and out in `dtype` (0 = bf16, 1 = f32); k / v int8
+// [B, Hkv, T, D] and ks / vs f32 [B, Hkv, T] (one layer of the cache);
+// kv_lens and q_pos [B] int32; NS blocks share a row's T positions, `chunk`
+// each (NS * chunk >= T); m_out / l_out f32 [B, Hkv, G]; part_o / part_m /
+// part_l f32 scratch of [B, Hkv, NS, G, D] and twice [B, Hkv, NS, G]. window
+// 0 = none. Returns cudaGetLastError() after the launches, -1 for a shape
+// outside D = 128, G in {1, 4}.
+extern "C" int dli_quantized_decode_attention(
+    const void* q, const void* k, const void* ks, const void* v,
+    const void* vs, const void* kv_lens, const void* q_pos, void* out,
+    void* m_out, void* l_out, void* part_o, void* part_m, void* part_l,
+    int B, int Hkv, int G, int D, int T, int NS, int chunk, float scale,
+    int window, int dtype, void* stream) {
+  decode::Args a;
+  a.k = k; a.v = v;
+  a.ks = static_cast<const float*>(ks);
+  a.vs = static_cast<const float*>(vs);
+  return decode::fill_and_dispatch(
+      a, q, nullptr, kv_lens, q_pos, out, m_out, l_out, part_o, part_m,
+      part_l, B, Hkv, G, D, T, 1, NS, chunk, scale, window, dtype, true,
+      stream);
+}
+
+namespace {
+
+// Replaces `fused_tail_flush` (its TPU kernel read-modify-writes the
+// 32-token value blocks and 128-slot scale blocks a row's window touches,
+// with clamped duplicate visits): a direct scatter. One block per (row,
+// layer) copies each of the row's tail_len[b] tail slots, 16 bytes a
+// thread, to position base_len[b] + i of the buffers, scales beside them.
+// Nothing is written at or past T. Bound by bytes: each tail byte is read
+// once and written once.
+__global__ void __launch_bounds__(decode::kThreads) dense_tail_flush_kernel(
+    int8_t* __restrict__ bk, float* __restrict__ bks,
+    int8_t* __restrict__ bv, float* __restrict__ bvs,  // [L, B, Hkv, T(, D)]
+    const int8_t* __restrict__ tk, const float* __restrict__ tks,
+    const int8_t* __restrict__ tv, const float* __restrict__ tvs,  // [L, B, Hkv, KT(, D)]
+    const int* __restrict__ base_len, const int* __restrict__ tail_len,
+    int B, int Hkv, int T, int KT, int D) {
+  const int b = blockIdx.x;
+  const int l = blockIdx.y;
+  const int start = base_len[b];
+  const int n = min(tail_len[b], KT);
+  const int chunks = D / 16;
+  const int total = n * Hkv * chunks;
+  for (int idx = threadIdx.x; idx < total; idx += decode::kThreads) {
+    const int c = idx % chunks;
+    const int h = (idx / chunks) % Hkv;
+    const int i = idx / (chunks * Hkv);
+    const int pos = start + i;
+    if (pos < 0 || pos >= T) continue;
+    const size_t row = ((size_t)l * B + b) * Hkv + h;
+    const size_t dst = row * T + pos;
+    const size_t src = row * KT + i;
+    reinterpret_cast<uint4*>(bk + dst * D)[c] =
+        reinterpret_cast<const uint4*>(tk + src * D)[c];
+    reinterpret_cast<uint4*>(bv + dst * D)[c] =
+        reinterpret_cast<const uint4*>(tv + src * D)[c];
+    if (c == 0) {
+      bks[dst] = tks[src];
+      bvs[dst] = tvs[src];
+    }
+  }
+}
+
+}  // namespace
+
+// big planes [L, B, Hkv, T, D] int8 / [L, B, Hkv, T] f32, tail planes
+// [L, B, Hkv, KT, D] / [L, B, Hkv, KT], base_len and tail_len [B] int32. D a
+// multiple of 16. Returns cudaGetLastError() after the launch.
+extern "C" int dli_fused_tail_flush(
+    void* big_k, void* big_ks, void* big_v, void* big_vs, const void* tail_k,
+    const void* tail_ks, const void* tail_v, const void* tail_vs,
+    const void* base_len, const void* tail_len, int L, int B, int Hkv, int T,
+    int KT, int D, void* stream) {
+  if (L <= 0 || B <= 0) return 0;
+  if (D % 16 != 0) return -1;
+  dense_tail_flush_kernel<<<dim3(B, L), decode::kThreads, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
+      static_cast<int8_t*>(big_k), static_cast<float*>(big_ks),
+      static_cast<int8_t*>(big_v), static_cast<float*>(big_vs),
+      static_cast<const int8_t*>(tail_k), static_cast<const float*>(tail_ks),
+      static_cast<const int8_t*>(tail_v), static_cast<const float*>(tail_vs),
+      static_cast<const int*>(base_len), static_cast<const int*>(tail_len), B,
+      Hkv, T, KT, D);
+  return static_cast<int>(cudaGetLastError());
 }

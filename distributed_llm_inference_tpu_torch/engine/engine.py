@@ -1,8 +1,9 @@
-"""Inference engine: continuous batching over one paged KV cache, with
-bucketed prefill and a per-token decode step over the active batch
-(counterpart of the core of the JAX package's ``engine/engine.py``).
+"""Inference engine: continuous batching over one KV cache (a paged pool or
+dense per-row buffers), with bucketed prefill and a decode step over the
+active batch (counterpart of the core of the JAX package's
+``engine/engine.py``).
 
-Sessions are pinned to batch rows of ONE preallocated page pool, admitted and
+Sessions are pinned to batch rows of ONE preallocated cache, admitted and
 evicted between steps. The port runs eagerly: there is no per-shape compile,
 so the JAX engine's executable warm-ups have no counterpart, but the padded
 dispatch shapes of the :class:`AttentionPlan` are kept — the admission
@@ -10,7 +11,8 @@ partition and the order of sampling-key draws depend on them.
 
 Step anatomy (host orchestrates, device computes):
   1. admit — move waiting sessions into free slots (pages allocated from the
-     pool), run batched or single-row prefill(s), sample the first token;
+     pool; a dense cache grows its buffers along the window ladder), run
+     batched or single-row prefill(s), sample the first token;
      long greedy prompts park and walk their prompt one chunk per granted
      tick beside the live decode batch.
   2. decode — K fused steps over all slots (``decode_steps``; None resolves
@@ -32,9 +34,10 @@ next tick boundary, scattered into the carry meanwhile.
 
 What the port serves: a dense Llama-family model in bf16/f32, or with int4
 (half-split) or int8 weights (``EngineConfig.quantization``), over the paged
-cache in the model dtype or int8 (``CacheConfig.kv_quant="int8"``). The
-constructor raises ``NotImplementedError``, naming the ``ROADMAP.md`` queue
-item, for every feature that waits.
+or the dense cache (``CacheConfig.kind``), in the model dtype or int8
+(``CacheConfig.kv_quant="int8"``). The constructor raises
+``NotImplementedError``, naming the ``ROADMAP.md`` queue item, for every
+feature that waits (the sink ring among them).
 """
 
 from __future__ import annotations
@@ -50,6 +53,7 @@ import torch
 import torch.nn.functional as F
 
 from ..cache.base import window_ladder
+from ..cache.dense import DenseKVCache, QuantizedDenseKVCache
 from ..cache.paged import PageAllocator, PagedKVCache, QuantizedPagedKVCache
 from ..config import CacheConfig, EngineConfig, ModelConfig
 from ..models import llama
@@ -106,10 +110,12 @@ class InferenceEngine:
             raise ValueError(f"unknown cache kind {cc.kind}")
         if cc.kv_quant not in (None, "int8"):
             raise ValueError(f"unknown kv_quant {cc.kv_quant!r}")
-        if cc.kv_quant is not None and cc.kind != "paged":
-            raise _waits(f"kv_quant on cache kind {cc.kind!r}", "item 7")
-        if cc.kind != "paged":
-            raise _waits(f"cache kind {cc.kind!r}", "item 5")
+        if cc.kind == "sink":
+            # The StreamingLLM ring, bf16 (item 5) and int8 (item 7, with
+            # its two kernels), is the next slice.
+            if cc.kv_quant is not None:
+                raise _waits("kv_quant on cache kind 'sink'", "item 7")
+            raise _waits("cache kind 'sink'", "item 5")
         if ecfg.quantization == "int8_outlier":
             raise _waits("quantization='int8_outlier'", "item 6")
         if ecfg.quantization not in (None, "int8", "int4"):
@@ -168,34 +174,58 @@ class InferenceEngine:
         # advanced by _chunk_dispatch on the decode cadence).
         self._chunking: List[Session] = []
 
-        # The gather path materializes [B, table_width * page_size, ...] per
-        # layer, so its traffic tracks the TABLE WIDTH: start narrow and pad
-        # columns as sessions lengthen (the pool never moves);
-        # max_pages_per_session is the cap.
-        self._windows = self._window_ladder(
-            cap=min(ecfg.max_seq_len, cc.max_pages_per_session * cc.page_size),
-            strict=False,
-        )
-        self._first_slots = (
-            max(1, -(-self._windows[0] // cc.page_size))
-            if self._windows else cc.max_pages_per_session
-        )
-        cache_cls = QuantizedPagedKVCache if cc.kv_quant else PagedKVCache
-        self.cache = cache_cls.create(
-            cfg.num_layers, self.batch, cc.num_pages, cc.page_size,
-            self._first_slots, cfg.num_kv_heads, cfg.head_dim, self.dtype,
-            use_kernel=self._use_pallas, use_ragged=sel.use_ragged,
-            device=self.device,
-        )
-        self.allocator = PageAllocator(cc.num_pages)
-        # Stored KV bytes per token over every plane of the pool (values and,
-        # for the int8 pool, the scale planes).
+        if cc.kind == "dense":
+            # Start at the smallest bucket; _ensure_capacity grows the
+            # buffers (one pad-copy per growth) as sequences lengthen: decode
+            # traffic tracks the LIVE context, not max_seq_len. For the int8
+            # cache use_pallas_attention selects its OWN kernels (#8, and
+            # #9/#10 in the window).
+            self._windows = self._window_ladder()
+            first = self._windows[0] if self._windows else ecfg.max_seq_len
+            if cc.kv_quant:
+                self.cache = QuantizedDenseKVCache.create(
+                    cfg.num_layers, self.batch, first, cfg.num_kv_heads,
+                    cfg.head_dim, self.dtype, use_kernel=self._use_pallas,
+                    device=self.device,
+                )
+            else:
+                self.cache = DenseKVCache.create(
+                    cfg.num_layers, self.batch, first, cfg.num_kv_heads,
+                    cfg.head_dim, self.dtype, device=self.device,
+                )
+            self.allocator = None
+        else:
+            # The gather path materializes [B, table_width * page_size, ...]
+            # per layer, so its traffic tracks the TABLE WIDTH: start narrow
+            # and pad columns as sessions lengthen (the pool never moves);
+            # max_pages_per_session is the cap.
+            self._windows = self._window_ladder(
+                cap=min(ecfg.max_seq_len,
+                        cc.max_pages_per_session * cc.page_size),
+                strict=False,
+            )
+            self._first_slots = (
+                max(1, -(-self._windows[0] // cc.page_size))
+                if self._windows else cc.max_pages_per_session
+            )
+            cache_cls = QuantizedPagedKVCache if cc.kv_quant else PagedKVCache
+            self.cache = cache_cls.create(
+                cfg.num_layers, self.batch, cc.num_pages, cc.page_size,
+                self._first_slots, cfg.num_kv_heads, cfg.head_dim, self.dtype,
+                use_kernel=self._use_pallas, use_ragged=sel.use_ragged,
+                device=self.device,
+            )
+            self.allocator = PageAllocator(cc.num_pages)
+        # Stored KV bytes per token over every plane (values and, for the
+        # int8 kinds, the scale planes): a plane's bytes past its two
+        # leading axes, over the slots they hold (a page, or a row's T).
+        slots = cc.page_size if self.allocator is not None else self.cache.max_len
         self.metrics.gauge(
             "kv_bytes_per_token",
             float(sum(
-                pool.shape[0] * pool.element_size()
-                * math.prod(pool.shape[2:]) // cc.page_size
-                for pool in self.cache.layer_stacks
+                plane.shape[0] * plane.element_size()
+                * math.prod(plane.shape[2:]) // slots
+                for plane in self.cache.layer_stacks
             )),
         )
 
@@ -205,13 +235,28 @@ class InferenceEngine:
         # Admission-ordering hook (set_admission_order): None = FIFO.
         self._admission_order = None
 
+        # The model-dtype dense cache under use_pallas takes the flash kernel
+        # for its prefills (decode shapes fall back inside it). Caches with
+        # their OWN kernels (int8 dense, paged) keep attention unset: flash
+        # there would force their gather paths and disable the window.
+        self._attention = None
+        if self._use_pallas and isinstance(self.cache, DenseKVCache):
+            from ..ops.flash_attention import flash_attention
+
+            self._attention = flash_attention
+        self._mkw = (
+            {} if self._attention is None
+            else {"attention_fn": self._attention}
+        )
         # The write-behind tail (the fused K-step window) needs the cache's
-        # tail protocol: the int8 pool always, the model-dtype pool with its
-        # decode kernel, as in the JAX engine (its dense, sink, latent and
-        # pipeline-parallel branches wait with their caches).
-        tail_capable = (
-            isinstance(self.cache, QuantizedPagedKVCache)
-            or self.cache.use_kernel
+        # tail protocol and the default attention: both dense kinds, the
+        # int8 pool always, the model-dtype pool with its decode kernel, as
+        # in the JAX engine (its sink, latent and pipeline-parallel branches
+        # wait with their caches).
+        tail_capable = self._attention is None and (
+            isinstance(self.cache, (DenseKVCache, QuantizedDenseKVCache,
+                                    QuantizedPagedKVCache))
+            or (isinstance(self.cache, PagedKVCache) and self.cache.use_kernel)
         )
         # decode_steps=None resolves to the fused window wherever it
         # composes, as in the JAX engine.
@@ -256,7 +301,7 @@ class InferenceEngine:
         sub = self.cache.select_row(row)
         logits, sub = llama.model_apply(
             self.cfg, self.params, tokens, sub, self._i32([n_valid]),
-            head="last",
+            head="last", **self._mkw,
         )
         self.cache.merge_row(sub, row)
         return sample(logits[:, 0], key, sp)[0]
@@ -267,18 +312,19 @@ class InferenceEngine:
         sub = self.cache.select_row(row)
         _, sub = llama.model_apply(
             self.cfg, self.params, tokens, sub, self._i32([n_valid]),
-            head="none",
+            head="none", **self._mkw,
         )
         self.cache.merge_row(sub, row)
 
     def _prefill_batch(self, tokens, rows, n_valid, key, sp) -> torch.Tensor:
         """Batched admission: k sessions' prompts in ONE padded dispatch over
         a compact k-row view of the cache (the page pool is shared, so the
-        prefill writes straight into it)."""
+        prefill writes straight into it; a dense cache's rows are a gathered
+        copy that ``merge_rows`` writes back)."""
         sub = self.cache.select_rows(rows)
         logits, sub = llama.model_apply(
             self.cfg, self.params, tokens, sub, self._i32(n_valid),
-            head="last",
+            head="last", **self._mkw,
         )
         self.cache.merge_rows(sub, rows)
         return sample(logits[:, 0], key, sp)
@@ -286,7 +332,7 @@ class InferenceEngine:
     def _decode(self, tokens, active, key, sp) -> torch.Tensor:
         logits, _ = llama.model_apply(
             self.cfg, self.params, tokens, self.cache,
-            active.to(torch.int32),
+            active.to(torch.int32), **self._mkw,
         )
         return sample(logits[:, 0], key, sp)
 
@@ -305,6 +351,7 @@ class InferenceEngine:
         for i in range(self.decode_steps):
             logits, _ = llama.model_apply(
                 self.cfg, self.params, tok, self.cache, alive.to(torch.int32),
+                **self._mkw,
             )
             nxt = sample(logits[:, 0], key, sp, i)
             emits.append(torch.where(alive, nxt, -1))
@@ -326,9 +373,17 @@ class InferenceEngine:
 
     def _ensure_capacity(self, needed_len: int) -> None:
         """Grow the cache's attended span to the smallest ladder bucket
-        covering ``needed_len``: the paged kind just pads TABLE columns (the
-        pool never moves)."""
+        covering ``needed_len``: dense kinds zero-pad-copy their buffers
+        (new buffers: the windows over the old ones go); the paged kind just
+        pads TABLE columns (the pool never moves)."""
         if not self._windows or needed_len <= self.cache.max_len:
+            return
+        if self.allocator is None:
+            new_t = next((w for w in self._windows if w >= needed_len),
+                         self.ecfg.max_seq_len)
+            if new_t > self.cache.max_len:
+                self.cache.grow_to(new_t)
+                self.metrics.counter("cache_growths")
             return
         ps = self.ccfg.page_size
         slots_needed = -(-needed_len // ps)
@@ -518,15 +573,37 @@ class InferenceEngine:
         return self.ecfg.prefill_buckets[-1]
 
     def _capacity_ok(self, s: Session) -> bool:
-        limit = self.ccfg.max_pages_per_session * self.ccfg.page_size
+        """The prompt and one token fit a session: the dense buffers' cap,
+        or the pages a session may map."""
+        limit = (self.ecfg.max_seq_len if self.allocator is None
+                 else self.ccfg.max_pages_per_session * self.ccfg.page_size)
         return len(s.prompt) + 1 <= limit
 
+    def _span(self) -> int:
+        """The cache width a decode dispatch attends over, for the plan's
+        dispatch shapes: the page table's columns, or the dense T."""
+        if self.allocator is None:
+            return self.cache.max_len
+        return self.cache.page_table.shape[1]
+
     def _shrink_if_idle(self) -> None:
-        """With no resident sessions, truncate the page table back to its
-        first width: one long-context session must not pin its high-water
-        table width (the gather path's traffic) for the rest of the
-        process."""
+        """With no resident sessions, shrink the cache back to its first
+        width: one long-context session must not pin its high-water buffer
+        or table width (the decode traffic) for the rest of the process. A
+        dense cache is re-created at the first rung (nothing to copy); the
+        paged table is truncated."""
         if not self._windows or any(g is not None for g in self.slots):
+            return
+        if self.allocator is None:
+            if self.cache.max_len > self._windows[0]:
+                c = self.cache
+                self.cache = type(c).create(
+                    self.cfg.num_layers, self.batch, self._windows[0],
+                    self.cfg.num_kv_heads, self.cfg.head_dim, self.dtype,
+                    device=self.device,
+                    **({"use_kernel": c.use_kernel}
+                       if isinstance(c, QuantizedDenseKVCache) else {}),
+                )
             return
         if self.cache.page_table.shape[1] > self._first_slots:
             # With no resident sessions every row is either already reset or
@@ -615,18 +692,20 @@ class InferenceEngine:
                 self.metrics.counter("sessions_rejected")
                 continue
             self._ensure_capacity(len(s.prompt) + 1)
-            need = math.ceil((len(s.prompt) + 1) / self.ccfg.page_size)
-            if need > self.allocator.free_count:
-                break  # pool pressure: hold the queue, retry next tick
+            if self.allocator is not None:
+                need = math.ceil((len(s.prompt) + 1) / self.ccfg.page_size)
+                if need > self.allocator.free_count:
+                    break  # pool pressure: hold the queue, retry next tick
             # Reset the row BEFORE installing pages (reset wipes the row's
             # page table); the installs are queued and flushed once, right
             # before the prefill dispatch.
             self.cache.reset_rows(
                 torch.arange(self.batch, device=self.device) == slot
             )
-            s.pages = self.allocator.alloc(need)  # owned: _release frees them
-            for i, pg in enumerate(s.pages):
-                self._queue_install(slot, i, pg)
+            if self.allocator is not None:
+                s.pages = self.allocator.alloc(need)  # owned: _release frees
+                for i, pg in enumerate(s.pages):
+                    self._queue_install(slot, i, pg)
             self.waiting.remove(s)
             s.slot = slot
             s.state = SessionState.ACTIVE
@@ -967,10 +1046,13 @@ class InferenceEngine:
             fresh[slot, 0] = s.last_token
             use_carry[slot] = self._carry_ok[slot]
             pend = int(pend_b[slot])
-            cap = len(s.pages) * self.ccfg.page_size
+            paged = self.allocator is not None
+            cap = (len(s.pages) * self.ccfg.page_size if paged
+                   else self.ecfg.max_seq_len)
             if pend == 0 and s.total_len + 1 > cap:
-                # One more growth attempt before declaring capacity.
-                cap = self._grow_pages(s, 1)
+                if paged:
+                    # One more growth attempt before declaring capacity.
+                    cap = self._grow_pages(s, 1)
                 if s.total_len + 1 > cap:
                     # Nothing in flight for this row and no room for one
                     # more token: the session ends here.
@@ -979,7 +1061,7 @@ class InferenceEngine:
             desired = max(0, min(
                 K, s.options.max_new_tokens - len(s.generated) - pend
             ))
-            if desired > 0:
+            if paged and desired > 0:
                 # Pages must cover the in-flight tick's budget AND this one.
                 cap = self._grow_pages(s, pend + desired)
             budget[slot] = max(0, min(desired, cap - s.total_len - pend))
@@ -1007,9 +1089,7 @@ class InferenceEngine:
         tokens_dev = tokens_dev.clamp_min(0)
         act_dev = to_device(active, torch.bool, self.device)
         self._flush_installs()
-        self.plan.note_dispatch(
-            "decode", (self.batch, K, self.cache.page_table.shape[1])
-        )
+        self.plan.note_dispatch("decode", (self.batch, K, self._span()))
         with self.metrics.timer("decode_step"):
             emitted = self._decode_k(
                 tokens_dev, act_dev, self._next_key(), sp,
@@ -1103,9 +1183,15 @@ class InferenceEngine:
             tokens[slot, 0] = s.last_token
             opts[slot] = s.options
             want = min(K, s.options.max_new_tokens - len(s.generated))
-            cap = self._grow_pages_for(s, want, produced)
-            if cap is None:
-                continue
+            if self.allocator is None:
+                cap = self.ecfg.max_seq_len
+                if s.total_len + 1 > cap:
+                    self._finish(s, "capacity", produced)
+                    continue
+            else:
+                cap = self._grow_pages_for(s, want, produced)
+                if cap is None:
+                    continue
             budget[slot] = min(want, cap - s.total_len)
 
         # Chunking rows hold slots but must NOT be decode-written (their
@@ -1130,9 +1216,7 @@ class InferenceEngine:
 
         sp = SamplingParams.stack(opts, self.device)
         self._flush_installs()
-        self.plan.note_dispatch(
-            "decode", (self.batch, K, self.cache.page_table.shape[1])
-        )
+        self.plan.note_dispatch("decode", (self.batch, K, self._span()))
         act_dev = to_device(active, torch.bool, self.device)
         with self.metrics.timer("decode_step"):
             if K == 1:

@@ -13,13 +13,16 @@ step index from device memory, and nothing in the step synchronises with
 the host. The flush and the per-window gather of the big planes run
 eagerly around the replays.
 
-Graphs are keyed by (page-table width, ``all_greedy``): the width fixes
-every shape and the window's form (the int8 pool gathers below
-``INPLACE_CTX`` and reads in place above it), and ``all_greedy`` is the
-sampler's host flag. A graph holds the addresses it captured, the page
-table's among them, so when the cache's table is replaced (a widening or a
-shrink) every graph and window goes. The graphs of one table share one
-memory pool.
+Graphs are keyed by (the cache's width ``max_len``, ``all_greedy``): the
+width (a page table's columns times the page size, or a dense buffer's T)
+fixes every shape and the window's form (the int8 pool gathers below
+``INPLACE_CTX`` and reads in place above it; the int8 dense cache runs its
+kernels at widths that are multiples of 32), and ``all_greedy`` is the
+sampler's host flag. A graph holds the addresses it captured, so when what
+fixes the cache's shapes is replaced (``cache.window_anchor``: a paged
+pool's table, widened or shrunk; a dense cache's buffers, regrown, or the
+cache itself, re-created when idle) every graph and window goes. The graphs
+of one anchor share one memory pool.
 The first window of a key runs its first step eagerly (on a side stream,
 the warm-up capture needs), captures the step, and replays the rest; a
 failed capture raises.
@@ -38,6 +41,7 @@ from typing import Dict, Tuple
 import torch
 
 from ..models.llama import DecodeWindow
+from ..ops import flash_attention as _fa
 from ..ops import paged_attention as _pa
 from ..ops import quant_attention as _qa
 from ..ops import quant_matmul as _qm
@@ -47,7 +51,8 @@ from .sampling import SamplingParams, sample
 # Every kernel wrapper's launch counter: (module, attribute).
 LAUNCH_COUNTERS = (
     (_pa, "launches"), (_pa, "quantized_launches"), (_pa, "fused_launches"),
-    (_pa, "flush_launches"), (_qa, "fused_launches"), (_qm, "launches"),
+    (_pa, "flush_launches"), (_qa, "fused_launches"), (_qa, "decode_launches"),
+    (_qa, "flush_launches"), (_fa, "launches"), (_qm, "launches"),
     (_qm, "stacked_launches"), (_ra, "launches"), (_ra, "quantized_launches"),
 )
 
@@ -80,7 +85,7 @@ class FusedDecode:
             top_k=torch.zeros((batch,), dtype=torch.int32, device=device),
             top_p=torch.ones((batch,), dtype=torch.float32, device=device),
         )
-        self._table = None
+        self._anchor = None
         self._windows: Dict[int, DecodeWindow] = {}
         self._graphs: Dict[Tuple[int, bool], Tuple] = {}
         self._pool = torch.cuda.graph_pool_handle() if self.capture else None
@@ -95,13 +100,13 @@ class FusedDecode:
         return nxt, alive.to(torch.int32), alive, emitted
 
     def drop(self) -> None:
-        """Forget every window and graph (their table is gone). Their
-        memory pool goes with them: the next graphs share a new one (the
-        allocator does not take captures into a pool whose graphs are
-        all gone)."""
+        """Forget every window and graph (the shapes they captured are
+        gone). Their memory pool goes with them: the next graphs share a
+        new one (the allocator does not take captures into a pool whose
+        graphs are all gone)."""
         self._windows.clear()
         self._graphs.clear()
-        self._table = None
+        self._anchor = None
         if self.capture:
             self._pool = torch.cuda.graph_pool_handle()
         self.metrics.gauge("decode_graphs", 0.0)
@@ -116,10 +121,10 @@ class FusedDecode:
         stopped row writes nothing more and emits -1. Returns the emitted
         tokens ``[K, B]`` (a tensor of its own); the cache is flushed and
         advanced."""
-        if cache.page_table is not self._table:
+        if cache.window_anchor is not self._anchor:
             self.drop()
-            self._table = cache.page_table
-        width = cache.page_table.shape[1]
+            self._anchor = cache.window_anchor
+        width = cache.max_len
         win = self._windows.get(width)
         if win is None:
             win = DecodeWindow(cache, self.num_steps, active)

@@ -9,10 +9,10 @@ All projections are stored ``[in_features, out_features]``; the forward runs
 each through ``ops/quant.py:matmul``, so a projection may also be a quantized
 leaf (``QuantizedTensor`` int8, ``QuantizedTensor4Split`` int4).
 ``block_apply`` walks the layer axis in a Python loop (the JAX package scans
-it) and hands each layer its own slice of the cache's page pool, which the
-cache updates in place, and of each weight — except half-split int4 stacks,
-which every layer receives whole with its layer index, so that the int4
-kernel reads the layer in place.
+it) and hands each layer its own slice of the cache's planes (a page pool,
+or dense per-row buffers), which the cache updates in place, and of each
+weight — except half-split int4 stacks, which every layer receives whole
+with its layer index, so that the int4 kernel reads the layer in place.
 """
 
 from __future__ import annotations
@@ -401,16 +401,18 @@ class DecodeWindow:
     flushes the tail into the cache. A window object is reused from window
     to window with the same storage, so a CUDA graph of :meth:`step`
     captured once serves every step of every later window (the engine's
-    ``engine/graphs.py``); a window is tied to the cache's page table, and
-    a new table needs a new window.
+    ``engine/graphs.py``). A window is tied to what fixes the cache's
+    shapes, ``cache.window_anchor``: the page table of a paged pool, the
+    buffers of a dense cache. A new table or a regrown buffer needs a new
+    window.
     """
 
     def __init__(self, cache, num_steps: int, state: torch.Tensor):
         self.cache = cache
         self.num_steps = num_steps
-        b = cache.page_table.shape[0]
+        b = cache.lengths.shape[0]
         dev = cache.device
-        self.page_table = cache.page_table
+        self.anchor = cache.window_anchor
         self.tail = cache.tail_init(num_steps)
         self.whole_big = getattr(cache, "tail_reads_whole_big", False)
         self.whole_tail = getattr(cache, "tail_in_kernel", False)
@@ -426,8 +428,8 @@ class DecodeWindow:
         """Load a window's inputs: ``tokens`` ``[B, 1]``, the step
         function's initial state, ``init_num_new`` ``[B]``. The big planes
         are gathered here, once per window, where the cache gathers."""
-        if self.cache.page_table is not self.page_table:
-            raise RuntimeError("the cache's page table changed under a window")
+        if self.cache.window_anchor is not self.anchor:
+            raise RuntimeError("the cache's shapes changed under a window")
         self.tokens.copy_(tokens)
         self.state.copy_(init_state)
         self.num_new.copy_(init_num_new)
@@ -510,7 +512,8 @@ def multi_decode_apply(
     ``[B, 1]`` first inputs; ``step_fn`` as in :meth:`DecodeWindow.step`.
     Returns ``(emits [K, B] int32, cache)`` with the cache flushed and
     advanced. Caches with the tail protocol: ``PagedKVCache`` with the
-    kernel, ``QuantizedPagedKVCache``."""
+    kernel, ``QuantizedPagedKVCache``, ``DenseKVCache``,
+    ``QuantizedDenseKVCache``."""
     win = DecodeWindow(cache, num_steps, init_state)
     win.begin(tokens, init_state, init_num_new)
     for _ in range(num_steps):

@@ -21,7 +21,8 @@ from typing import Dict, Sequence, Tuple
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC.parent.parent / "build"
 KERNEL_SOURCES = (
-    "int4_matmul", "paged_attention", "quant_attention", "ragged_attention",
+    "flash_attention", "int4_matmul", "paged_attention", "quant_attention",
+    "ragged_attention",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

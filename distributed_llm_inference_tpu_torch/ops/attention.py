@@ -133,6 +133,94 @@ def merge_softmax_segments(
     return out.reshape(b, s, hq, d).to(q.dtype)
 
 
+def gqa_attention_quantized(
+    q: torch.Tensor,
+    k_q: torch.Tensor,
+    ks: torch.Tensor,
+    v_q: torch.Tensor,
+    vs: torch.Tensor,
+    mask: Optional[torch.Tensor] = None,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """GQA attention over an int8 head-major cache without dequantizing it
+    (counterpart of the JAX package's ``gqa_attention_quantized``).
+
+    ``k_q``/``v_q``: int8 ``[B, Hkv, T, D]``; ``ks``/``vs``: f32 ``[B, Hkv,
+    T]`` per-(token, head) scales. The K scale multiplies the scores
+    (``q·(k·s) = s·(q·k)``); the softmax is normalised first, then each
+    weight times its V scale is rounded to q's type before P V, as the JAX
+    function does. ``mask``: boolean ``[B, S, T]`` or ``[B, 1, S, T]``.
+    Returns ``[B, S, Hq, D]`` in q's type.
+    """
+    b, s, hq, d = q.shape
+    hkv = k_q.shape[1]
+    g = hq // hkv
+    if scale is None:
+        scale = d**-0.5
+    qg = q.reshape(b, s, hkv, g, d).float()
+    scores = torch.einsum("bskgd,bktd->bkgst", qg, k_q.to(q.dtype).float())
+    scores = scores * (ks[:, :, None, None, :] * scale)
+    m = None
+    if mask is not None:
+        if mask.ndim == 3:
+            m = mask[:, None, None, :, :]
+        elif mask.ndim == 4:  # [B, 1, S, T]
+            m = mask[:, :, None, :, :]
+        else:
+            raise ValueError(f"mask ndim {mask.ndim}")
+        scores = torch.where(m, scores, _NEG_INF)
+    weights = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
+    if m is not None:
+        weights = torch.where(m, weights, 0.0)
+    denom = weights.sum(dim=-1, keepdim=True)
+    weights = weights / denom.clamp_min(1e-20)
+    wv = (weights * vs[:, :, None, None, :]).to(q.dtype).float()
+    out = torch.einsum("bkgst,bktd->bskgd", wv, v_q.to(q.dtype).float())
+    return out.reshape(b, s, hq, d).to(q.dtype)
+
+
+def gqa_attention_segments(
+    q: torch.Tensor,
+    segments,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """GQA attention over several time-major KV segments under one joint
+    softmax (counterpart of the JAX package's ``gqa_attention_segments``):
+    the model-dtype dense cache's fused window, segment 0 the read-only
+    buffer, segment 1 the write-behind tail.
+
+    ``q``: ``[B, S, Hq, D]``; each segment ``(k, v, valid)`` with ``k``/``v``
+    ``[B, Ti, Hkv, D]`` and ``valid`` ``[B, Ti]``. The unnormalised weights
+    are rounded to v's type before P V, and the sum divided last, as the JAX
+    function does. Returns ``[B, S, Hq, D]`` in q's type.
+    """
+    b, s, hq, d = q.shape
+    hkv = segments[0][0].shape[2]
+    g = hq // hkv
+    if scale is None:
+        scale = d**-0.5
+    qg = q.reshape(b, s, hkv, g, d).float()
+
+    scored = []
+    for k, _, valid in segments:
+        sc = torch.einsum("bskgd,btkd->bkgst", qg, k.float()) * scale
+        m = valid[:, None, None, None, :]
+        scored.append((torch.where(m, sc, _NEG_INF), m))
+    gmax = scored[0][0].amax(dim=-1, keepdim=True)
+    for sc, _ in scored[1:]:
+        gmax = torch.maximum(gmax, sc.amax(dim=-1, keepdim=True))
+    denom = 0.0
+    out = 0.0
+    for (sc, m), (_, v, _) in zip(scored, segments):
+        w = torch.where(m, torch.exp(sc - gmax), 0.0)
+        denom = denom + w.sum(dim=-1, keepdim=True)
+        out = out + torch.einsum(
+            "bkgst,btkd->bskgd", w.to(v.dtype).float(), v.float()
+        )
+    denom = denom.clamp_min(1e-20).permute(0, 3, 1, 2, 4)
+    return (out / denom).reshape(b, s, hq, d).to(q.dtype)
+
+
 def gqa_attention_quantized_segments(
     q: torch.Tensor,
     segments,

@@ -29,6 +29,18 @@ is a host integer. The wrapper launches the kernel for CUDA tensors and
 raises on anything the kernel does not take; it uses the plain version only
 for tensors that lie on the CPU. ``fused_launches`` counts kernel launches
 (and nothing else).
+
+The int8 dense cache (``cache/dense.py:QuantizedDenseKVCache``, head-major
+``[L, B, Hkv, T, D]`` int8 with ``[L, B, Hkv, T]`` f32 scales) adds two
+kernels in the same source. ``quantized_decode_attention`` replaces
+``_qdense_kernel``: one decode token a row over one layer's buffer, scores
+``(q . k) * ks * scale`` and ``p * vs`` in f32 (no bf16 rounding, unlike the
+fused step), the int8 paged decode walk of ``csrc/decode_attention.cuh``
+with no table. ``fused_tail_flush`` replaces the TPU kernel of that name:
+the fused window's int8 tail written into the buffers at each row's
+``base_len``, in place (the TPU kernel aliases them), nothing at or past T;
+the bytes equal ``cache/dense.py:_tail_flush_rows``'s. ``decode_launches``
+and ``flush_launches`` count their launches.
 """
 
 from __future__ import annotations
@@ -46,17 +58,26 @@ __all__ = [
     "quantized_fused_decode_attention_plain",
     "online_softmax_tiles",
     "write_tail_slot",
+    "quantized_decode_attention",
+    "quantized_decode_attention_plain",
+    "fused_tail_flush",
+    "fused_tail_flush_plain",
     "fused_launches",
+    "decode_launches",
+    "flush_launches",
 ]
 
-# Kernel launches made by :func:`quantized_fused_decode_attention` in this
+# Kernel launches made by :func:`quantized_fused_decode_attention` /
+# :func:`quantized_decode_attention` / :func:`fused_tail_flush` in this
 # process.
 fused_launches = 0
+decode_launches = 0
+flush_launches = 0
 
 BLOCK_T = 256  # the TPU kernel's time tile over the stacks
 MAX_TILE = 256  # widest tile the CUDA kernel takes (csrc/fused_decode.cuh)
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
-_fn = []
+_fns = {}
 
 
 def _lane_order_dot(qb: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
@@ -245,15 +266,16 @@ def _tail_planes(tail_k, tail_ks, tail_v, tail_vs, num_l, b, hkv, d):
 
 
 def _kernel():
-    if not _fn:
+    fn = _fns.get("fused")
+    if fn is None:
         fn = _build.load_library(
             "quant_attention").dli_quantized_fused_decode_attention
         fn.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 10 + [
             ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
         ]
         fn.restype = ctypes.c_int
-        _fn.append(fn)
-    return _fn[0]
+        _fns["fused"] = fn
+    return fn
 
 
 def quantized_fused_decode_attention(
@@ -336,3 +358,225 @@ def quantized_fused_decode_attention(
         raise RuntimeError(f"{name}: kernel launch failed ({err})")
     fused_launches += 1
     return out, tail_k, tail_ks, tail_v, tail_vs
+
+
+# ---------------------------------------------------------------------------
+# The int8 dense cache: decode at one token per dispatch, and the tail flush
+# ---------------------------------------------------------------------------
+
+
+def quantized_decode_attention_plain(
+    q: torch.Tensor,
+    k_q: torch.Tensor,
+    ks: torch.Tensor,
+    v_q: torch.Tensor,
+    vs: torch.Tensor,
+    kv_lengths: torch.Tensor,
+    scale: Optional[float] = None,
+    sliding_window: Optional[int] = None,
+    q_positions: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Plain PyTorch version of :func:`quantized_decode_attention`: one
+    softmax over the row's positions, everything f32."""
+    b, s, hq, d = q.shape
+    if s != 1:
+        raise ValueError(f"quantized_decode_attention is decode-only (S=1), got S={s}")
+    hkv, t = k_q.shape[1], k_q.shape[2]
+    g = hq // hkv
+    if scale is None:
+        scale = d**-0.5
+    if q_positions is None:
+        q_positions = kv_lengths - 1
+    qr = q.reshape(b, hkv, g, d).float()
+    scores = torch.einsum("bhgd,bhtd->bhgt", qr, k_q.float())
+    scores = scores * ks[:, :, None, :] * scale
+    pos = torch.arange(t, device=q.device)[None, :]
+    valid = pos < kv_lengths[:, None]
+    if sliding_window is not None:
+        valid = valid & (pos > q_positions[:, None] - sliding_window)
+    valid = valid[:, None, None, :]
+    scores = torch.where(valid, scores, _NEG_INF)
+    m = scores.amax(dim=-1, keepdim=True)
+    p = torch.where(valid, torch.exp(scores - m), 0.0)
+    l = p.sum(dim=-1)
+    out = torch.einsum("bhgt,bhtd->bhgd", p * vs[:, :, None, :], v_q.float())
+    out = out / l.clamp_min(1e-20)[..., None]
+    return out.reshape(b, 1, hq, d).to(q.dtype)
+
+
+def quantized_decode_attention(
+    q: torch.Tensor,
+    k_q: torch.Tensor,
+    ks: torch.Tensor,
+    v_q: torch.Tensor,
+    vs: torch.Tensor,
+    kv_lengths: torch.Tensor,
+    scale: Optional[float] = None,
+    sliding_window: Optional[int] = None,
+    q_positions: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Decode attention straight over one layer of the int8 head-major
+    dense cache.
+
+    ``q``: ``[B, 1, Hq, D]`` (rotated); ``k_q``/``v_q``: int8 ``[B, Hkv, T,
+    D]`` (keys rotated); ``ks``/``vs``: f32 ``[B, Hkv, T]``; ``kv_lengths``
+    ``[B]`` int32 live positions a row, this step's included;
+    ``q_positions`` ``[B]`` (default ``kv_lengths - 1``) anchors the
+    sliding window. Returns ``[B, 1, Hq, D]`` in q's type; a row with no
+    live position gives zeros."""
+    global decode_launches
+    args = (q, k_q, ks, v_q, vs, kv_lengths, scale, sliding_window,
+            q_positions)
+    if q.device.type == "cpu":
+        return quantized_decode_attention_plain(*args)
+    if q.device.type != "cuda":
+        raise ValueError(f"quantized_decode_attention: device {q.device}")
+    from .paged_attention import split_plan
+
+    name = "quantized_decode_attention"
+    b, s, hq, d = q.shape
+    if s != 1:
+        raise ValueError(f"{name} is decode-only (S=1), got S={s}")
+    if q_positions is None:
+        q_positions = kv_lengths - 1
+    if q.dtype not in _DTYPE_CODE:
+        raise TypeError(f"{name}: dtype {q.dtype} (kernel takes bf16, f32)")
+    hkv, t = k_q.shape[1], k_q.shape[2]
+    if d != 128 or hq % hkv or hq // hkv not in (1, 4):
+        raise ValueError(
+            f"{name}: the kernels are built for head_dim 128 and 1 or 4 "
+            f"query heads per kv head, got head_dim {d}, {hq} / {hkv} heads")
+    for label, t_, dt, shape in (
+            ("k_q", k_q, torch.int8, (b, hkv, t, d)),
+            ("v_q", v_q, torch.int8, (b, hkv, t, d)),
+            ("ks", ks, torch.float32, (b, hkv, t)),
+            ("vs", vs, torch.float32, (b, hkv, t)),
+            ("kv_lengths", kv_lengths, torch.int32, (b,)),
+            ("q_positions", q_positions, torch.int32, (b,))):
+        if t_.dtype != dt or tuple(t_.shape) != shape:
+            raise ValueError(f"{name}: {label} {t_.dtype} {tuple(t_.shape)}, "
+                             f"want {dt} {shape}")
+        if t_.device != q.device or not t_.is_contiguous():
+            raise ValueError(f"{name}: {label} must be contiguous on {q.device}")
+    q = q.contiguous()
+    g = hq // hkv
+    if scale is None:
+        scale = d**-0.5
+    num_splits, chunk = split_plan(q.device, b * hkv, t)
+    out = torch.empty_like(q)
+    ml = torch.empty((2, b, hkv, g), dtype=torch.float32, device=q.device)
+    part_o = torch.empty((b, hkv, num_splits, g, d), dtype=torch.float32,
+                         device=q.device)
+    part_ml = torch.empty((2, b, hkv, num_splits, g), dtype=torch.float32,
+                          device=q.device)
+    fn = _fns.get("decode")
+    if fn is None:
+        fn = _build.load_library(
+            "quant_attention").dli_quantized_decode_attention
+        fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 7 + [
+            ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _fns["decode"] = fn
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), k_q.data_ptr(), ks.data_ptr(), v_q.data_ptr(),
+                 vs.data_ptr(), kv_lengths.data_ptr(), q_positions.data_ptr(),
+                 out.data_ptr(), ml[0].data_ptr(), ml[1].data_ptr(),
+                 part_o.data_ptr(), part_ml[0].data_ptr(),
+                 part_ml[1].data_ptr(), b, hkv, g, d, t, num_splits, chunk,
+                 float(scale), int(sliding_window or 0), _DTYPE_CODE[q.dtype],
+                 torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: kernel launch failed ({err})")
+    decode_launches += 1
+    return out
+
+
+def _flush_targets(t: int, base_len, tail_len, kt: int):
+    """``(rows, tail slots, positions)`` of every tail slot ``i <
+    tail_len`` whose position ``base_len + i`` lies below ``t``."""
+    i = torch.arange(kt, device=base_len.device)[None, :]
+    pos = base_len[:, None].long() + i
+    keep = (i < tail_len[:, None]) & (pos < t)
+    rows, slots = keep.nonzero(as_tuple=True)
+    return rows, slots, pos[rows, slots]
+
+
+def fused_tail_flush_plain(big_k, big_ks, big_v, big_vs, tail_k, tail_ks,
+                           tail_v, tail_vs, base_len, tail_len):
+    """Plain PyTorch version of :func:`fused_tail_flush`: the same
+    arguments and results."""
+    rows, slots, pos = _flush_targets(big_k.shape[3], base_len, tail_len,
+                                      tail_k.shape[3])
+    # [N, L, Hkv(, D)] values of the kept slots on both sides.
+    big_k[:, rows, :, pos] = tail_k[:, rows, :, slots]
+    big_v[:, rows, :, pos] = tail_v[:, rows, :, slots]
+    big_ks[:, rows, :, pos] = tail_ks[:, rows, :, slots]
+    big_vs[:, rows, :, pos] = tail_vs[:, rows, :, slots]
+    return big_k, big_ks, big_v, big_vs
+
+
+def fused_tail_flush(
+    big_k: torch.Tensor,
+    big_ks: torch.Tensor,
+    big_v: torch.Tensor,
+    big_vs: torch.Tensor,
+    tail_k: torch.Tensor,
+    tail_ks: torch.Tensor,
+    tail_v: torch.Tensor,
+    tail_vs: torch.Tensor,
+    base_len: torch.Tensor,
+    tail_len: torch.Tensor,
+):
+    """Merge the fused window's int8 tail into the dense buffers, in place.
+
+    ``big_*``: ``[L, B, Hkv, T, D]`` int8 / ``[L, B, Hkv, T]`` f32;
+    ``tail_*``: ``[L, B, Hkv, KT, D]`` / ``[L, B, Hkv, KT]``;
+    ``base_len``/``tail_len`` ``[B]`` int32, ``tail_len`` in ``[0, KT]``.
+    Tail slot ``i < tail_len[b]`` of row ``b`` goes to position
+    ``base_len[b] + i``; nothing is written at or past T. Returns the four
+    big planes ``(k, ks, v, vs)``."""
+    global flush_launches
+    args = (big_k, big_ks, big_v, big_vs, tail_k, tail_ks, tail_v, tail_vs,
+            base_len, tail_len)
+    if big_k.device.type == "cpu":
+        return fused_tail_flush_plain(*args)
+    if big_k.device.type != "cuda":
+        raise ValueError(f"fused_tail_flush: device {big_k.device}")
+    num_l, b, hkv, t, d = big_k.shape
+    kt = tail_k.shape[3]
+    for label, t_, dt, shape in (
+            ("big_k", big_k, torch.int8, (num_l, b, hkv, t, d)),
+            ("big_v", big_v, torch.int8, (num_l, b, hkv, t, d)),
+            ("big_ks", big_ks, torch.float32, (num_l, b, hkv, t)),
+            ("big_vs", big_vs, torch.float32, (num_l, b, hkv, t)),
+            ("tail_k", tail_k, torch.int8, (num_l, b, hkv, kt, d)),
+            ("tail_v", tail_v, torch.int8, (num_l, b, hkv, kt, d)),
+            ("tail_ks", tail_ks, torch.float32, (num_l, b, hkv, kt)),
+            ("tail_vs", tail_vs, torch.float32, (num_l, b, hkv, kt)),
+            ("base_len", base_len, torch.int32, (b,)),
+            ("tail_len", tail_len, torch.int32, (b,))):
+        if t_.dtype != dt or tuple(t_.shape) != shape:
+            raise ValueError(f"fused_tail_flush: {label} {t_.dtype} "
+                             f"{tuple(t_.shape)}, want {dt} {shape}")
+        if t_.device != big_k.device or not t_.is_contiguous():
+            raise ValueError(f"fused_tail_flush: {label} must be contiguous "
+                             f"on {big_k.device}")
+    if d % 16:
+        raise ValueError(f"fused_tail_flush: head_dim {d} not a multiple of 16")
+    fn = _fns.get("flush")
+    if fn is None:
+        fn = _build.load_library("quant_attention").dli_fused_tail_flush
+        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [
+            ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _fns["flush"] = fn
+    with torch.cuda.device(big_k.device):
+        err = fn(big_k.data_ptr(), big_ks.data_ptr(), big_v.data_ptr(),
+                 big_vs.data_ptr(), tail_k.data_ptr(), tail_ks.data_ptr(),
+                 tail_v.data_ptr(), tail_vs.data_ptr(), base_len.data_ptr(),
+                 tail_len.data_ptr(), num_l, b, hkv, t, kt, d,
+                 torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"fused_tail_flush: kernel launch failed ({err})")
+    flush_launches += 1
+    return big_k, big_ks, big_v, big_vs

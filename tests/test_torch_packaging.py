@@ -92,9 +92,13 @@ def test_port_mirrors_the_reference_file_names():
         if rel.name in ("_build.py", "device.py", "graphs.py"):
             continue  # no JAX counterpart
         assert (REFERENCE / rel).exists(), f"{rel} has no counterpart"
-    assert sorted(p.name for p in (PORT / "csrc").glob("*.cu")) == [
-        "int4_matmul.cu", "paged_attention.cu", "quant_attention.cu",
-        "ragged_attention.cu"]
+    from distributed_llm_inference_tpu_torch.ops import _build
+
+    sources = sorted(p.name for p in (PORT / "csrc").glob("*.cu"))
+    assert sources == [
+        "flash_attention.cu", "int4_matmul.cu", "paged_attention.cu",
+        "quant_attention.cu", "ragged_attention.cu"]
+    assert sources == sorted(f"{n}.cu" for n in _build.KERNEL_SOURCES)
 
 
 def test_chip_smoke_refuses_to_run_without_a_gpu():

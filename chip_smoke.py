@@ -29,24 +29,42 @@ one line per engine configuration or comparison):
               prompts, an empty row, a sliding window, MHA, strided K/V),
               `quantized_decode_attention` (rows of 0 to 2048 live positions)
               and `fused_tail_flush` (KT = 16 and 48, edge windows; bytes
-              EQUAL). Then, at the shapes of the main paths, each kernel's
+              EQUAL); the int8 sink ring's `sink_fused_decode_attention`
+              over four steps of a window (B = 8, KT = 16; the sink phase,
+              a partly filled, a just-full and wrapped rings, an evicted
+              range across the ring's end, a row that stops; window 1024
+              with 4 sinks and with none, GQA and MHA, and a span of 1050
+              whose tiles are 96 wide), its tails EQUAL, and
+              `sink_tail_flush` (spans 1020 and 50, KT = 16 and 48,
+              pointers near the ring's end, sink-bound heads, empty tails;
+              bytes EQUAL, the padding slots untouched). Then, at the shapes of the main
+              paths, each kernel's
               output against the plain version's on the same inputs and its
               time beside the plain version's, a library yardstick where one
               PyTorch call computes the same function
               (`scaled_dot_product_attention` on contiguous K/V, with the
               same mask for flash; for the flushes four `index_put_` calls;
               for the int4 matmuls there is none: a bf16 `torch.matmul` on
-              the dequantized weight is shown as a yardstick of its own) and
-              the card's bound for the same work.
+              the dequantized weight is shown as a yardstick of its own; for
+              the sink step none, as no one call scores with two queries)
+              and the card's bound for the same work.
 3. engine   - `InferenceEngine` at Llama-3-8B widths with random seeded
               weights, at the default `decode_steps=None`: K = 16 fused steps
               a window, each step replayed from a CUDA graph, ticks
               pipelined, admission overlapped. This slice's main path runs
+              at full depth: int4 weights over the int8 sink ring (window
+              1024, 4 sinks, as the JAX package's `sink_1k`: the window's
+              step and flush kernels), on traffic of its own: ten greedy
+              prompts of 1 to 2100 tokens (the longest two chunked at the
+              ring span, the rings wrapping inside the windows, one stream
+              of 37 tokens), 48 new tokens each. Then the dense main path
               at full depth: int4 weights over the int8 dense cache (the
               window on the cache's own buffers, its flush kernel, flash for
-              the long batched prefill of the first admission wave). Then
-              the paged pools' main paths at full depth, in bf16 and with
-              int4 weights over int8 pages; int8 weights over int8 pages at 4
+              the long batched prefill of the first admission wave); the
+              paged pools' main paths at full depth, in bf16 and with int4
+              weights over int8 pages; the model-dtype sink ring at 4
+              layers (K = 1, with and without flash prefill); int8 weights
+              over int8 pages at 4
               layers on short traffic (every row under 640 slots, so that the
               window gathers its stacks; W8A8 prefill); the dense caches'
               other paths at 8 layers (the int8 cache at `decode_steps=1`:
@@ -78,7 +96,11 @@ one line per engine configuration or comparison):
               the model-dtype dense cache with flash against without, at
               K = 1 and K = 16, identical; the int8 dense cache at K = 1 with
               `quantized_decode_attention` against without, identical, and
-              K = 16 against K = 1, shown as above.
+              K = 16 against K = 1, shown as above; the int8 sink ring
+              (window 256) with its kernels against their plain versions
+              and captured against eager, identical, and against the
+              segments path and K = 1, shown; the model-dtype sink ring
+              (window 256) with flash prefill against without, identical.
 
 Then a line `{"kernels": [...]}` with one entry per kernel (the only line
 with that key: phase 2 lists its results under `checked`), and the last line
@@ -471,6 +493,7 @@ def check_cases(dtype):
             compare_int4(cases, tag, dtype, x, w)
     fused_cases(cases, dtype, rng)
     dense_cases(cases, dtype, rng)
+    sink_cases(cases, dtype, rng)
     assert_cases(cases, dtype)
     return cases
 
@@ -577,6 +600,106 @@ def dense_cases(cases, dtype, rng):
         compare_qflush(cases, f"qflush_kt{kt}", big, tail,
                        i32([0, 10, 30, 70, tq - 10, tq - kt, tq, 1000]),
                        i32([kt, kt, 0, 10, kt, kt, 3, 5]))
+
+
+# ---------------------------------------------------------------------------
+# phase 2, the int8 sink ring's kernels (slice 5): the fused sink decode step
+# (#11), the mod-ring tail flush (#12)
+# ---------------------------------------------------------------------------
+
+def sink_scalars(base, tail_len, alive, sinks, r):
+    """The int8 ring's per-row arguments of a window step
+    (`QuantizedSinkKVCache._tail_scalars`): live ring prefix, write pointer,
+    slots evicted by the in-flight tail with this step's token, valid sinks,
+    valid tail slots."""
+    ring_len = (base - sinks).clamp(0, r)
+    ring_ptr = torch.remainder((base - sinks).clamp_min(0), r)
+    evict = tail_len + alive
+    return dict(ring_len=ring_len, ring_ptr=ring_ptr, evict_len=evict,
+                sink_len=base.clamp_max(sinks), tail_valid_len=evict)
+
+
+def compare_sink(cases, tag, dtype, ring, sink, base, sinks, r, rng,
+                 g=HQ // HKV, steps=4, layer=1):
+    """`sink_fused_decode_attention` (#11) against its plain version over
+    ``steps`` steps of one window (KT = 16) on the same inputs, each side
+    with its own copy of the tail: the output within TOL, the tail's int8
+    values and scales EQUAL. The last row stops after the first step.
+    Returns the output's error."""
+    b = base.shape[0]
+    tail = make_qplanes(rng, (ring[0].shape[0], b, HKV), KT)
+    tail2 = [t.clone() for t in tail]
+    tail_len = torch.zeros(b, dtype=torch.int32, device=DEV)
+    alive = torch.ones(b, dtype=torch.int32, device=DEV)
+    err = tail_err = 0.0
+    for step in range(steps):
+        q, qs = (normal(rng, (b, 1, HKV * g, D), dtype) for _ in range(2))
+        kn, vn = (normal(rng, (b, 1, HKV, D), dtype) for _ in range(2))
+        kw = dict(layer_idx=layer, step_idx=i32([step]), ring_slots=r,
+                  **sink_scalars(base, tail_len, alive, sinks, r))
+        got = qa.sink_fused_decode_attention(q, qs, kn, vn, *ring, *sink,
+                                             *tail, **kw)[0]
+        want = qa.sink_fused_decode_attention_plain(q, qs, kn, vn, *ring,
+                                                    *sink, *tail2, **kw)[0]
+        torch.cuda.synchronize()
+        err = max(err, max_err(got, want))
+        tail_err = max(tail_err, *(max_err(a, w) for a, w in zip(tail, tail2)))
+        tail_len += alive
+        alive[-1] = 0
+    cases.append((tag, err, TOL[dtype]))
+    cases.append((tag + "_tail_bytes", tail_err, 0.0))
+    return err
+
+
+def compare_sink_flush(cases, tag, big, tail, ring_ptr, skip, tail_len, r):
+    """`sink_tail_flush` (#12) against its plain version on copies of the
+    same ring planes: every byte EQUAL, the padding slots untouched."""
+    mine = [p.clone() for p in big]
+    ref = [p.clone() for p in big]
+    qa.sink_tail_flush(*mine, *tail, ring_ptr, skip, tail_len, r)
+    qa.sink_tail_flush_plain(*ref, *tail, ring_ptr, skip, tail_len, r)
+    torch.cuda.synchronize()
+    err = max(max_err(a, w) for a, w in zip(mine, ref))
+    pad = max(max_err(a[:, :, :, r:], o[:, :, :, r:])
+              for a, o in zip(mine, big))
+    cases.append((tag, err, 0.0))
+    cases.append((tag + "_padding", pad, 0.0))
+    return err
+
+
+def sink_rows(sinks, r):
+    """Stream lengths of 8 rows at a window's start: empty, in the sink
+    phase, a partly filled ring, a just-full ring, a wrapped ring whose
+    write pointer sits 2 slots before the ring's end (the evicted range
+    crosses it from the window's third step), two deeper wraps, and a row
+    that stops after the first step."""
+    return i32([0, min(2, sinks), sinks + 300, sinks + r,
+                sinks + 3 * r + r - 2, sinks + r + 77, 5000, 777])
+
+
+def sink_cases(cases, dtype, rng):
+    """#11 at B = 8 over the main path's ring (window 1024, 4 sinks: r =
+    1020, TR = 1024, 256-wide tiles) with 4 and 1 query heads per kv head,
+    without sinks, and over r = 1050 (TR = 1056: 96-wide tiles); #12 over
+    the main ring and r = 50 (TR = 64) at KT = 16 and 48, pointers near the
+    ring's end, sink-bound heads, empty and full tails."""
+    for sinks, r, g in ((4, 1020, HQ // HKV), (4, 1020, 1), (0, 1020, HQ // HKV),
+                        (4, 1050, HQ // HKV)):
+        tr = -(-r // 32) * 32
+        ring = make_qplanes(rng, (2, 8, HKV), tr)
+        sink = make_qplanes(rng, (2, 8, HKV), 32)
+        compare_sink(cases, f"qsink_g{g}_s{sinks}_r{r}", dtype, ring, sink,
+                     sink_rows(sinks, r), sinks, r, rng, g=g)
+    for r in (1020, 50):
+        tr = -(-r // 32) * 32
+        for kt in (KT, 48):
+            big = make_qplanes(rng, (2, 8, HKV), tr)
+            tail = make_qplanes(rng, (2, 8, HKV), kt)
+            compare_sink_flush(
+                cases, f"qsflush_r{r}_kt{kt}", big, tail,
+                i32([r - 3, r - 1, 0, 0, 17, r - kt, 5, 0]),
+                i32([0, 0, 1, 3, 0, 0, kt, 0]),
+                i32([kt, kt, kt, 4, 0, kt, kt, 9]), r)
 
 
 def time_ms(fn, iters, flush):
@@ -1000,6 +1123,83 @@ def time_dense(out, cases, rng, flush):
     del big, tail
 
 
+def time_sink(out, cases, rng, flush):
+    """The int8 sink ring's kernels at the main path's shape, bf16: B = 8,
+    window 1024 with 4 sinks (r = 1020, TR = 1024), KT = 16, mid-stream
+    (every row's window starts at window + 7 = 1031 tokens, so the ring is
+    full and every step evicts), at the window's last step (the tail
+    full). #11
+    reads what this run's data needs: the 1004 live ring slots (1020 less
+    the 16 the tail has evicted), 4 sinks and 16 tail slots a (row, kv
+    head); no single PyTorch call computes it (two queries, one for the
+    sinks). #12 flushes one full window of all 32 layers into that ring,
+    every row's window across the ring's end; its library yardstick is four
+    `index_put_` calls of the same slots, as for #7 and #10."""
+    dtype, esz, b, sinks, r, tr = torch.bfloat16, 2, 8, 4, 1020, 1024
+    ring = make_qplanes(rng, (2, b, HKV), tr)
+    sink = make_qplanes(rng, (2, b, HKV), 32)
+    tail = make_qplanes(rng, (2, b, HKV), KT)
+    tail2 = [t.clone() for t in tail]
+    q, qs = (normal(rng, (b, 1, HQ, D), dtype) for _ in range(2))
+    kn, vn = (normal(rng, (b, 1, HKV, D), dtype) for _ in range(2))
+    base = i32([1031] * b)
+    kw = dict(layer_idx=1, step_idx=i32([KT - 1]), ring_slots=r,
+              **sink_scalars(base, i32([KT - 1] * b), i32([1] * b), sinks, r))
+    got = qa.sink_fused_decode_attention(q, qs, kn, vn, *ring, *sink, *tail, **kw)[0]
+    want = qa.sink_fused_decode_attention_plain(q, qs, kn, vn, *ring, *sink,
+                                                *tail2, **kw)[0]
+    torch.cuda.synchronize()
+    err = max_err(got, want)
+    cases.append(("qsink_timed", err, TOL[dtype]))
+    cases.append(("qsink_timed_tail_bytes", max(
+        max_err(a, w) for a, w in zip(tail, tail2)), 0.0))
+    live = r - KT + sinks + KT                     # ring, sinks, tail a row
+    per_slot = HKV * (2 * D + 8)
+    bytes_moved = ((b * live + b) * per_slot + (3 * HQ + 2 * HKV) * b * D * esz
+                   + 5 * b * 4 + 4)
+    bms, by = bound(bytes_moved, 4 * b * live * HQ * D, dtype)
+    out["sink_fused_decode_attention"] = {
+        "shape": f"B={b} window=1024 sinks={sinks} (ring {r} in TR={tr}, tiles {qa.ring_tile_width(tr)}; live {r - KT} ring + {sinks} sinks + {KT} tail) Hq={HQ} Hkv={HKV} D={D} KT={KT} bf16 q, int8 planes",
+        "max_abs_err": err,
+        "ms": time_ms(lambda: qa.sink_fused_decode_attention(
+            q, qs, kn, vn, *ring, *sink, *tail, **kw), 20, flush),
+        "plain_ms": time_ms(lambda: qa.sink_fused_decode_attention_plain(
+            q, qs, kn, vn, *ring, *sink, *tail2, **kw), 3, flush),
+        "library_ms": None,
+        "library": "none: no single PyTorch call computes one softmax over "
+                   "segments scored with two different queries",
+        "bound_ms": bms, "bound_by": by, "bytes": bytes_moved,
+        "bound_counts": "the live slots only (what this run's data needs)",
+    }
+    del ring, sink, tail, tail2
+
+    layers = LLAMA3_8B.num_layers
+    big = make_qplanes(rng, (layers, b, HKV), tr)
+    tail = make_qplanes(rng, (layers, b, HKV), KT)
+    ptr, skip, tl = i32([r - 7] * b), i32([0] * b), i32([KT] * b)
+    err = compare_sink_flush(cases, "qsflush_timed", big, tail, ptr, skip, tl, r)
+    rows, slots, pos = qa._sink_flush_targets(ptr, skip, tl, KT, r)
+
+    def index_put():
+        for dst, src in zip(big, tail):
+            dst[:, rows, :, pos] = src[:, rows, :, slots]
+
+    bytes_moved = 2 * layers * b * HKV * KT * (2 * D + 8) + 3 * b * 4
+    bms, by = bound(bytes_moved, 0, dtype)
+    out["sink_tail_flush"] = {
+        "shape": f"L={layers} B={b} TR={tr} r={r} KT={KT} (each row's window from slot {r - 7}, across the ring's end) Hkv={HKV} D={D}, int8 + f32 scales",
+        "max_abs_err": err,
+        "ms": time_ms(lambda: qa.sink_tail_flush(*big, *tail, ptr, skip, tl, r),
+                      20, flush),
+        "plain_ms": time_ms(lambda: qa.sink_tail_flush_plain(
+            *big, *tail, ptr, skip, tl, r), 3, flush),
+        "library_ms": time_ms(index_put, 20, flush),
+        "library": "index_put_ x4 (one per plane) of the same slots",
+        "bound_ms": bms, "bound_by": by, "bytes": bytes_moved,
+    }
+    del big, tail
+
+
 def time_kernels():
     """Every kernel in bf16 at the shapes of the main path (see
     :func:`time_attention`, :func:`time_int4`). Each kernel's output is
@@ -1016,6 +1216,7 @@ def time_kernels():
     time_int4(out, cases, flush)
     time_fused(out, cases, rng, flush)
     time_dense(out, cases, rng, flush)
+    time_sink(out, cases, rng, flush)
     assert_cases(cases, torch.bfloat16)
     return out
 
@@ -1032,6 +1233,8 @@ CASE_PREFIX = {
     "flash_attention": "flash_",
     "quantized_decode_attention": "qdense_",
     "fused_tail_flush": "qflush_",
+    "sink_fused_decode_attention": "qsink_",
+    "sink_tail_flush": "qsflush_",
 }
 
 
@@ -1105,19 +1308,22 @@ class Client:
         return [self.streams[gid] for gid in self.order]
 
 
-def drive(engine, vocab, seed, short_lens, long_len, new_tokens):
+def drive(engine, vocab, seed, short_lens, long_len, new_tokens, odd=None):
     """The smoke's traffic: `short_lens` greedy prompts at once (more than
-    the batch); as soon as stream 2 has its first token, it is cancelled
-    and — while the others decode — one long greedy prompt (`long_len`,
-    None for none) and two sampled ones arrive. Returns (streams by
-    submission order, index of the cancelled stream)."""
+    the batch; stream i asks for `odd[i]` new tokens where `odd` names it);
+    as soon as stream 2 has its first token, it is cancelled and — while
+    the others decode — one long greedy prompt (`long_len`, None for none)
+    and two sampled ones arrive. Returns (streams by submission order,
+    index of the cancelled stream)."""
     rng = np.random.default_rng(seed)
-    greedy = SamplingOptions(max_new_tokens=new_tokens)
+    odd = odd or {}
     sampled = SamplingOptions(max_new_tokens=new_tokens, temperature=0.8,
                               top_p=0.9)
     client = Client(engine)
-    for n in short_lens:
-        client.submit(rng.integers(0, vocab, size=n).tolist(), greedy)
+    for i, n in enumerate(short_lens):
+        client.submit(rng.integers(0, vocab, size=n).tolist(),
+                      SamplingOptions(max_new_tokens=odd.get(i, new_tokens)))
+    greedy = SamplingOptions(max_new_tokens=new_tokens)
     cancelled = 2
     steps = 0
     while not client.streams[client.order[cancelled]]:
@@ -1133,12 +1339,14 @@ def drive(engine, vocab, seed, short_lens, long_len, new_tokens):
     return client.drain(), cancelled
 
 
-def check_streams(streams, cancelled, new_tokens, vocab):
+def check_streams(streams, cancelled, new_tokens, vocab, odd=None):
+    odd = odd or {}
     for i, toks in enumerate(streams):
         if i == cancelled:
             assert len(toks) < new_tokens, "cancelled stream ran to its end"
             continue
-        assert len(toks) == new_tokens, f"stream {i}: {len(toks)} tokens"
+        want = odd.get(i, new_tokens)
+        assert len(toks) == want, f"stream {i}: {len(toks)} tokens, not {want}"
         assert all(0 <= t < vocab for t in toks), f"stream {i} out of range"
 
 
@@ -1235,7 +1443,9 @@ def profile_steps(engine, before_step, steps, counters=None):
 
 def profile_decode(cfg, params, ekw, ckw, counters, ticks=5):
     """Where a decode tick's time goes, for a full batch of 8 rows of about
-    600 cached tokens each. With K = 16 a tick is one captured window of 16
+    600 cached tokens each (on the sink ring, streams of window + 7 tokens
+    at the start, the JAX package's `sink_1k` measurement: the ring full,
+    every step evicting). With K = 16 a tick is one captured window of 16
     steps (pipelined, but synchronised around each timed step)."""
     # The table is fixed at 1024 slots, so that no widening (and no
     # capture) falls among the measured steps.
@@ -1246,8 +1456,9 @@ def profile_decode(cfg, params, ekw, ckw, counters, ticks=5):
         generator=torch.Generator().manual_seed(3), device=DEV)
     rng = np.random.default_rng(17)
     k = engine.decode_steps
+    n = ckw["window_length"] + 7 if ckw.get("kind") == "sink" else 600
     for _ in range(8):
-        engine.submit(rng.integers(0, cfg.vocab_size, size=600).tolist(),
+        engine.submit(rng.integers(0, cfg.vocab_size, size=n).tolist(),
                       SamplingOptions(max_new_tokens=k * (3 * ticks + 6)))
     for _ in range(4):
         engine.step()  # admission, prefill, first decode ticks (captures)
@@ -1255,6 +1466,7 @@ def profile_decode(cfg, params, ekw, ckw, counters, ticks=5):
     out["decode_steps"] = k
     width = "table_width" if engine.allocator is not None else "buffer_width"
     out[width] = engine._span()
+    out["prompt_tokens"] = n
     return out
 
 
@@ -1263,9 +1475,13 @@ def profile_prefill(cfg, params, ekw, ckw, counters, steps=2):
     admitted into an idle engine and asked for a single token, so that the
     step is exactly one [1, 2048] prefill dispatch and its sample. A dense
     cache is held at 4096 positions wide, where the prefill takes the flash
-    kernel."""
+    kernel. On the sink ring the prompt is its span long (1020 tokens, the
+    longest one dispatch takes), padded to the 2048 bucket."""
+    n = 2048
     if ckw.get("kind") == "dense":
         ekw = {**ekw, "decode_windows": (4096,)}
+    if ckw.get("kind") == "sink":
+        n = ckw["window_length"] - ckw["num_sink_tokens"]
     engine = InferenceEngine(
         cfg, params, EngineConfig(max_batch_size=8, **ekw),
         CacheConfig(num_pages=2048, **ckw),
@@ -1273,14 +1489,15 @@ def profile_prefill(cfg, params, ekw, ckw, counters, steps=2):
     rng = np.random.default_rng(19)
 
     def submit():
-        engine.submit(rng.integers(0, cfg.vocab_size, size=2048).tolist(),
+        engine.submit(rng.integers(0, cfg.vocab_size, size=n).tolist(),
                       SamplingOptions(max_new_tokens=1))
 
     submit()
     engine.step()  # warm-up
     out = profile_steps(engine, submit, steps, counters)
     assert not engine.has_work()
-    assert engine.metrics.get_counter("prefill_tokens") == 2048 * (1 + 3 * steps)
+    assert engine.metrics.get_counter("prefill_tokens") == n * (1 + 3 * steps)
+    out["prompt_tokens"] = n
     return out
 
 
@@ -1399,23 +1616,26 @@ SHORT = {"short_lens": np.random.default_rng(8).integers(100, 500, size=12).toli
          "long_len": None, "new_tokens": 32}
 
 
-class DenseShapes:
-    """Records the shapes each of the dense caches' kernels is launched at
-    while it is installed (the wrappers replaced by recording ones, the
-    engine built inside; a call that launches nothing, as flash on a decode
-    step, is not recorded): (B, S, T, G) of #3, (B, T, G) of #8, (B, T,
-    KT, G) of #9, (L, B, T, KT) of #10."""
+class CacheShapes:
+    """Records the shapes each of the dense caches' and the sink ring's
+    kernels is launched at while it is installed (the wrappers replaced by
+    recording ones, the engine built inside; a call that launches nothing,
+    as flash on a decode step, is not recorded): (B, S, T, G) of #3, (B, T,
+    G) of #8, (B, T, KT, G) of #9, (L, B, T, KT) of #10, (B, TR, KT, G,
+    ring slots) of #11, (L, B, TR, KT, ring slots) of #12."""
 
     TARGETS = {(fa, "flash_attention"): "launches",
                (qa, "quantized_decode_attention"): "decode_launches",
                (qa, "quantized_fused_decode_attention"): "fused_launches",
-               (qa, "fused_tail_flush"): "flush_launches"}
+               (qa, "fused_tail_flush"): "flush_launches",
+               (qa, "sink_fused_decode_attention"): "sink_launches",
+               (qa, "sink_tail_flush"): "sink_flush_launches"}
 
     def __init__(self):
         self.shapes = set()
         self._real = {}
 
-    def _shape(self, name, a):
+    def _shape(self, name, a, kw):
         if name == "flash_attention":
             q, k = a[0], a[1]
             return (q.shape[0], q.shape[1], k.shape[1], q.shape[2] // k.shape[2])
@@ -1426,7 +1646,14 @@ class DenseShapes:
             q, big, tail = a[0], a[3], a[7]
             return (q.shape[0], big.shape[3], tail.shape[3],
                     q.shape[2] // big.shape[2])
+        if name == "sink_fused_decode_attention":
+            q, big, tail = a[0], a[4], a[12]
+            return (q.shape[0], big.shape[3], tail.shape[3],
+                    q.shape[2] // big.shape[2], kw["ring_slots"])
         big, tail = a[0], a[4]
+        if name == "sink_tail_flush":
+            return (big.shape[0], big.shape[1], big.shape[3], tail.shape[3],
+                    a[11])
         return (big.shape[0], big.shape[1], big.shape[3], tail.shape[3])
 
     def __enter__(self):
@@ -1438,7 +1665,7 @@ class DenseShapes:
                 before = getattr(_mod, _c)
                 out = _real(*a, **kw)
                 if getattr(_mod, _c) > before:
-                    self.shapes.add((_name, *self._shape(_name, a)))
+                    self.shapes.add((_name, *self._shape(_name, a, kw)))
                 return out
 
             setattr(mod, name, rec)
@@ -1450,15 +1677,16 @@ class DenseShapes:
 
 
 def check_dense_shapes(shapes, dispatch_shapes=(), int4=False):
-    """The dense caches' kernels against their plain versions at every
-    shape a run called them at (:class:`DenseShapes`), in bf16 and f32
-    where the queries' type matters: #3 over rows of mixed lengths (one
-    prompt longer than the buffer's remaining room, as a padded bucket
-    is), #8 with a full and an empty row, #9 over a window's steps (its
-    tail EQUAL), #10 at the run's depth (bytes EQUAL); with ``int4`` the
-    int4 kernels at the run's ``dispatch_shapes`` (:func:`int4_cases`).
-    Returns per kernel and type the largest error and the number of
-    comparisons."""
+    """The dense caches' and the sink ring's kernels against their plain
+    versions at every shape a run called them at (:class:`CacheShapes`),
+    in bf16 and f32 where the queries' type matters: #3 over rows of mixed
+    lengths (one prompt longer than the buffer's remaining room, as a
+    padded bucket is), #8 with a full and an empty row, #9 and #11 over a
+    window's steps (their tails EQUAL; #11 on the rows of
+    :func:`sink_rows`), #10 and #12 at the run's depth (bytes EQUAL); with
+    ``int4`` the int4 kernels at the run's ``dispatch_shapes``
+    (:func:`int4_cases`). Returns per kernel and type the largest error and
+    the number of comparisons."""
     out = {}
     for dtype, label in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
         rng = np.random.default_rng(5678)
@@ -1491,6 +1719,25 @@ def check_dense_shapes(shapes, dispatch_shapes=(), int4=False):
                 compare_fused(cases, f"qfusedd_{tag}", dtype, "gathered",
                               make_qplanes(rng, (1, b, HKV), t), i32(base),
                               rng, g=g, layer=0)
+            elif name == "sink_fused_decode_attention":
+                b, tr, kt, g, r = shape
+                assert kt == KT and b == 8
+                sinks = 4
+                compare_sink(cases, f"qsink_{tag}", dtype,
+                             make_qplanes(rng, (1, b, HKV), tr),
+                             make_qplanes(rng, (1, b, HKV), 32),
+                             sink_rows(sinks, r), sinks, r, rng, g=g, layer=0)
+            elif name == "sink_tail_flush":
+                if dtype != torch.bfloat16:
+                    continue                       # the flush moves bytes
+                num_l, b, tr, kt, r = shape
+                compare_sink_flush(
+                    cases, f"qsflush_{tag}",
+                    make_qplanes(rng, (num_l, b, HKV), tr),
+                    make_qplanes(rng, (num_l, b, HKV), kt),
+                    i32(rng.integers(0, r, size=b)),
+                    i32(rng.integers(0, 3, size=b)),
+                    i32(rng.integers(0, kt + 1, size=b)), r)
             elif dtype == torch.bfloat16:          # the flush moves bytes
                 num_l, b, t, kt = shape
                 base = rng.integers(0, t + 1, size=b)
@@ -1502,7 +1749,8 @@ def check_dense_shapes(shapes, dispatch_shapes=(), int4=False):
         if int4:
             int4_cases(cases, dtype, dispatch_shapes)
         assert_cases(cases, dtype)
-        for prefix in ("flash", "qdense", "qfusedd", "qflush", "int4s", "int4"):
+        for prefix in ("flash", "qdense", "qfusedd", "qflush", "qsink",
+                       "qsflush", "int4s", "int4"):
             mine = [e for n, e, _ in cases if n.startswith(prefix + "_")
                     and not n.endswith("_tail_bytes")]
             if mine:
@@ -1518,17 +1766,19 @@ def run_config(label, cfg, params, ekw, ckw, counters, profile=True,
     (name -> (module, attribute)) are zeroed before the first run and read
     after it. Then the run's dispatch shapes go through its kernels again
     and, with ``profile``, a decode tick and a prefill dispatch are
-    profiled. A dense cache (``ckw["kind"] == "dense"``) has no pages and
-    no co-scheduled chunks (its long prompt is chunked synchronously); its
-    kernels are replayed at the shapes recorded in the first run. Returns
-    (report, launches)."""
+    profiled. A dense cache or sink ring (``ckw["kind"]`` "dense" or
+    "sink") has no pages and no co-scheduled chunks (a long prompt is
+    chunked synchronously); its kernels are replayed at the shapes recorded
+    in the first run. Returns (report, launches)."""
     torch.cuda.reset_peak_memory_stats()
-    new_tokens = traffic["new_tokens"]
+    new_tokens, odd = traffic["new_tokens"], traffic.get("odd")
     dense = ckw.get("kind") == "dense"
-    recorder = DenseShapes()
+    sink = ckw.get("kind") == "sink"
+    rows = dense or sink
+    recorder = CacheShapes()
     runs = []
     for attempt in range(2):
-        with recorder if dense and attempt == 0 else contextlib.nullcontext():
+        with recorder if rows and attempt == 0 else contextlib.nullcontext():
             t0 = time.perf_counter()
             engine = InferenceEngine(
                 cfg, params, EngineConfig(max_batch_size=8, **ekw),
@@ -1536,7 +1786,7 @@ def run_config(label, cfg, params, ekw, ckw, counters, profile=True,
                 generator=torch.Generator().manual_seed(11), device=DEV)
             torch.cuda.synchronize()
             build_s = time.perf_counter() - t0
-            if not dense:
+            if not rows:
                 assert engine.cache.use_kernel and engine.cache.use_ragged
             fused = engine.decode_steps > 1
             if fused:
@@ -1548,7 +1798,7 @@ def run_config(label, cfg, params, ekw, ckw, counters, profile=True,
             t0 = time.perf_counter()
             streams, cancelled = drive(
                 engine, cfg.vocab_size, 5, traffic["short_lens"],
-                traffic["long_len"], new_tokens)
+                traffic["long_len"], new_tokens, odd)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         if attempt == 0:
@@ -1559,16 +1809,21 @@ def run_config(label, cfg, params, ekw, ckw, counters, profile=True,
             table_width = max(
                 [engine._span()]
                 + [sh[3] for sh in shapes if sh[0] == "decode"])
-        check_streams(streams, cancelled, new_tokens, cfg.vocab_size)
+        check_streams(streams, cancelled, new_tokens, cfg.vocab_size, odd)
         m = engine.metrics
-        if not dense:
+        if not rows:
             assert engine.allocator.free_count == 2048 - 1, "pages leaked"
-        if traffic["long_len"] and dense:
+        if sink:
+            span = ckw["window_length"] - ckw["num_sink_tokens"]
+            assert ("chunk", 1, span) in shapes, (
+                "no prompt was chunked at the ring span")
+        elif traffic["long_len"] and dense:
             assert ("chunk", 1, 2048) in shapes, "the long prompt was not chunked"
         elif traffic["long_len"]:
             assert m.get_counter("attn_chunked_rows") > 0, (
                 "the long prompt was not chunk-admitted beside live decode")
-        assert m.get_counter("batched_prefills") > 0
+        # The model-dtype sink ring prefills one row at a time.
+        assert (m.get_counter("batched_prefills") > 0) == engine._batch_admission
         snap = m.snapshot()
         run = {
             "streams": streams,
@@ -1617,7 +1872,7 @@ def run_config(label, cfg, params, ekw, ckw, counters, profile=True,
     for i, r in enumerate(runs):
         report[f"run{i}"] = {k: v for k, v in r.items() if k != "streams"}
     report["dispatch_shapes"] = sorted(shapes)
-    if dense:
+    if rows:
         report["buffer_width"] = table_width
         report["kernel_shapes"] = sorted(recorder.shapes)
         report["kernels_at_dispatch_shapes"] = check_dense_shapes(
@@ -1661,6 +1916,19 @@ MAIN_DENSE = {"quantized_fused_decode_attention": (qa, "fused_launches"),
               "fused_tail_flush": (qa, "flush_launches"), **FLASH, **INT4}
 QDENSE = {"quantized_decode_attention": (qa, "decode_launches"), **FLASH}
 DENSE = {"kind": "dense"}
+# Slice 5, the StreamingLLM sink ring at the JAX package's `sink_1k` values
+# (bench.py:388-455: window 1024, 4 sinks). Its main path: int4 weights over
+# the int8 ring (the fused window's step, #11, and flush, #12).
+SINK = {"kind": "sink", "window_length": 1024, "num_sink_tokens": 4}
+MAIN_SINK = {"sink_fused_decode_attention": (qa, "sink_launches"),
+             "sink_tail_flush": (qa, "sink_flush_launches"), **INT4}
+# Ten greedy prompts for 8 slots: 1 and 3 tokens (their tails flush into
+# the sink planes), about 1000 (the rings wrap inside the decode windows),
+# two longer than the ring span of 1020 (chunked at it); stream 5 asks for
+# 37 tokens (not a multiple of K), stream 2 is cancelled, two sampled
+# prompts ride along; 48 new tokens each.
+SINK_TRAFFIC = {"short_lens": [1, 3, 1000, 1010, 990, 700, 1500, 2100, 400, 1020],
+                "long_len": None, "new_tokens": 48, "odd": {5: 37}}
 
 
 def depth(params, cfg, layers):
@@ -1672,10 +1940,12 @@ def depth(params, cfg, layers):
 
 def phase_engine():
     """The engine at Llama-3-8B widths. This slice's main path at full
-    depth: int4 weights over the int8 dense cache, the default
-    ``decode_steps=None`` (K = 16, captured and pipelined). Then the main
-    paths of the paged pools at full depth in bf16 and with int4 weights
-    over int8 pages; int8 weights over int8 pages at 4 layers on SHORT
+    depth: int4 weights over the int8 sink ring (window 1024, 4 sinks), the
+    default ``decode_steps=None`` (K = 16, captured and pipelined). Then
+    the dense main path (int4 weights over the int8 dense cache) and the
+    main paths of the paged pools at full depth in bf16 and with int4
+    weights over int8 pages; the model-dtype sink ring at 4 layers (K = 1,
+    with and without flash prefill); int8 weights over int8 pages at 4 layers on SHORT
     traffic (the gathered window, #9, and W8A8 prefill); the dense caches'
     other paths at 8 layers (the int8 cache at ``decode_steps=1``, #8; the
     model-dtype cache with ``use_pallas_attention``, flash prefill and
@@ -1697,7 +1967,11 @@ def phase_engine():
             launches.setdefault(name, n)
 
     take(run_config(
-        "main path: int4 weights (half-split), int8 dense KV, K=16", cfg,
+        "main path: int4 weights (half-split), int8 sink ring (window 1024, "
+        "4 sinks), K=16", cfg, params, {"quantization": "int4"},
+        {"kv_quant": "int8", **SINK}, MAIN_SINK, traffic=SINK_TRAFFIC)[1])
+    take(run_config(
+        "dense main path: int4 weights (half-split), int8 dense KV, K=16", cfg,
         params, {"quantization": "int4"}, {"kv_quant": "int8", **DENSE},
         MAIN_DENSE)[1])
     take(run_config("paged main path: bf16 weights, bf16 pages, K=16", cfg,
@@ -1706,6 +1980,12 @@ def phase_engine():
         "paged main path: int4 weights (half-split), int8 pages, K=16", cfg,
         params, {"quantization": "int4"}, {"kv_quant": "int8"}, MAIN_INT4)[1])
     cfg4, params4 = depth(params, cfg, 4)
+    run_config("slice 5 path: bf16 weights, bf16 sink ring, K=1, 4 layers",
+               cfg4, params4, {}, SINK, {}, profile=False,
+               traffic=SINK_TRAFFIC)
+    run_config("slice 5 path: bf16 weights, bf16 sink ring, flash, K=1, "
+               "4 layers", cfg4, params4, {"use_pallas_attention": True},
+               SINK, FLASH, profile=False, traffic=SINK_TRAFFIC)
     w8a8 = [0]
     real = quant.w8a8_matmul
 
@@ -1785,7 +2065,11 @@ def phase_parity():
     of 128, so that flash takes their prefills): the model-dtype cache with
     flash (K = 1) against without it at K = 1 and at K = 16, identical; the
     int8 cache at K = 1 with #8 against without it, identical, and K = 16
-    (#9, #10) against K = 1, shown as above."""
+    (#9, #10) against K = 1, shown as above. The int8 sink ring (window
+    256): its kernels (#11, #12) against their plain versions and captured
+    against eager, identical; against the segments path and K = 1,
+    shown. The model-dtype sink ring (window 256, K = 1): flash prefill
+    against without, identical."""
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = dataclasses.replace(LLAMA3_8B, num_layers=2)
     params = llama.init_params(
@@ -1796,7 +2080,7 @@ def phase_parity():
     long_prompt = rng.integers(0, cfg.vocab_size, size=600).tolist()
     opts = SamplingOptions(max_new_tokens=16)
 
-    def run(ekw, ckw):
+    def run(ekw, ckw, capture=True):
         dense = ckw.get("kind") == "dense"
         if dense:
             ekw = {**ekw, "decode_windows": (384, 768, 1024)}
@@ -1806,6 +2090,8 @@ def phase_parity():
                          max_seq_len=1024, dtype="float32", **ekw),
             CacheConfig(num_pages=128, max_pages_per_session=16, **ckw),
             device=DEV)
+        if not capture:
+            engine._fused.capture = False
         client = Client(engine)
         for p in prompts:
             client.submit(p, opts)
@@ -1813,7 +2099,7 @@ def phase_parity():
             client.step()
         client.submit(long_prompt, opts)
         streams = client.drain()
-        if not dense:
+        if engine.allocator is not None:
             assert engine.allocator.free_count == 127
         return streams, engine
 
@@ -1910,6 +2196,61 @@ def phase_parity():
         "k16_vs_k1_equal_token_share": share,
         "k16_vs_k1_first_divergence": first,
     }
+
+    # The int8 sink ring (window 256, 4 sinks: the 600-token prompt is
+    # chunked at 252 and wraps the ring): the window on its kernels (#11,
+    # #12, captured) against the same path through their plain versions
+    # (eager) and against itself eager, identical; against the segments
+    # path (use_kernel off) and K = 1, shown.
+    ckw = {"kind": "sink", "kv_quant": "int8", "window_length": 256,
+           "num_sink_tokens": 4}
+    before = (qa.sink_launches, qa.sink_flush_launches)
+    kern16, e16 = run({}, ckw)
+    assert e16.decode_steps == 16 and e16.cache.use_kernel
+    assert qa.sink_launches > before[0] and qa.sink_flush_launches > before[1]
+    eager16, _ = run({}, ckw, capture=False)
+    assert kern16 == eager16, "int8 sink: captured and eager streams differ"
+    real = (qa.sink_fused_decode_attention, qa.sink_tail_flush)
+    qa.sink_fused_decode_attention = qa.sink_fused_decode_attention_plain
+    qa.sink_tail_flush = qa.sink_tail_flush_plain
+    try:
+        mid = (qa.sink_launches, qa.sink_flush_launches)
+        plain16, _ = run({}, ckw, capture=False)
+        assert (qa.sink_launches, qa.sink_flush_launches) == mid
+    finally:
+        qa.sink_fused_decode_attention, qa.sink_tail_flush = real
+    assert kern16 == plain16, "int8 sink: kernel and plain streams differ"
+    seg16, es = run({"use_pallas_attention": False}, ckw)
+    assert es.decode_steps == 16 and not es.cache.use_kernel
+    k1, e1 = run({"decode_steps": 1}, ckw)
+    assert e1.decode_steps == 1
+    share_seg, first_seg = shares(kern16, seg16)
+    share_k1, first_k1 = shares(kern16, k1)
+    report["int8_sink"] = {
+        "streams": len(kern16), "tokens_each": 16,
+        "kernel_equals_plain": True, "captured_equals_eager": True,
+        "kernel_vs_segments_equal_token_share": share_seg,
+        "kernel_vs_segments_first_divergence": first_seg,
+        "k16_vs_k1_equal_token_share": share_k1,
+        "k16_vs_k1_first_divergence": first_k1,
+    }
+
+    # The model-dtype sink ring (window 256, 4 sinks, K = 1): flash (#3)
+    # under the ring's re-rotated keys and liveness mask against the same
+    # path without it. Every prefill tiles (buckets of 64 and 256 queries
+    # over 256 slots); the 600-token prompt is chunked at 252 and wraps.
+    ckw = {"kind": "sink", "window_length": 256, "num_sink_tokens": 4}
+    before = fa.launches
+    flash, ef = run({"use_pallas_attention": True}, ckw)
+    assert ef.decode_steps == 1 and fa.launches > before
+    mid = fa.launches
+    plain, ep = run({"use_pallas_attention": False}, ckw)
+    assert ep.decode_steps == 1 and fa.launches == mid
+    assert all(len(x) == 16 for x in flash)
+    assert flash == plain, "bf16 sink: flash and plain streams differ"
+    report["bf16_sink"] = {"streams": len(flash), "tokens_each": 16,
+                           "flash_equals_plain": True,
+                           "flash_launches": mid - before}
     emit(report)
 
 
@@ -1928,6 +2269,8 @@ REPLACES = {
     "flash_attention": "distributed_llm_inference_tpu/ops/flash_attention.py:97",
     "quantized_decode_attention": "distributed_llm_inference_tpu/ops/quant_attention.py:136",
     "fused_tail_flush": "distributed_llm_inference_tpu/ops/quant_attention.py:569",
+    "sink_fused_decode_attention": "distributed_llm_inference_tpu/ops/quant_attention.py:710",
+    "sink_tail_flush": "distributed_llm_inference_tpu/ops/quant_attention.py:1044",
 }
 SOURCES = {
     "paged_attention": "distributed_llm_inference_tpu_torch/csrc/paged_attention.cu",
@@ -1942,6 +2285,8 @@ SOURCES = {
     "flash_attention": "distributed_llm_inference_tpu_torch/csrc/flash_attention.cu",
     "quantized_decode_attention": "distributed_llm_inference_tpu_torch/csrc/quant_attention.cu",
     "fused_tail_flush": "distributed_llm_inference_tpu_torch/csrc/quant_attention.cu",
+    "sink_fused_decode_attention": "distributed_llm_inference_tpu_torch/csrc/sink_attention.cu",
+    "sink_tail_flush": "distributed_llm_inference_tpu_torch/csrc/sink_attention.cu",
 }
 
 

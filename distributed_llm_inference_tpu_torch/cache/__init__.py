@@ -1,6 +1,7 @@
 from .base import GatherAttendMixin, window_ladder
 from .dense import DenseKVCache, QuantizedDenseKVCache
 from .paged import PageAllocator, PagedKVCache, QuantizedPagedKVCache
+from .sink import QuantizedSinkKVCache, SinkKVCache
 
 __all__ = [
     "DenseKVCache",
@@ -9,5 +10,7 @@ __all__ = [
     "PagedKVCache",
     "QuantizedDenseKVCache",
     "QuantizedPagedKVCache",
+    "QuantizedSinkKVCache",
+    "SinkKVCache",
     "window_ladder",
 ]

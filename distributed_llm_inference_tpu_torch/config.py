@@ -137,9 +137,11 @@ class ModelConfig:
 
 @dataclasses.dataclass(frozen=True)
 class CacheConfig:
-    """KV-cache policy. The port serves ``kind="paged"`` and
-    ``kind="dense"``, each in the model dtype or with ``kv_quant="int8"``;
-    ``kind="sink"`` and ``prefix_caching`` wait (``ROADMAP.md`` queue 1)."""
+    """KV-cache policy. The port serves ``kind="paged"``, ``kind="dense"``
+    and ``kind="sink"`` (the StreamingLLM ring of ``window_length`` slots,
+    ``num_sink_tokens`` of them sinks), each in the model dtype or with
+    ``kv_quant="int8"``; ``prefix_caching`` waits (``ROADMAP.md`` queue
+    1)."""
 
     kind: str = "paged"  # "paged" | "sink" | "dense"
     kv_quant: Optional[str] = None  # None | "int8"

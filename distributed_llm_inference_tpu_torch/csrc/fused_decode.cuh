@@ -1,13 +1,20 @@
 // Fused decode step over int8 K/V with an int8 write-behind tail, for
-// Hopper (sm_90a). Shared by two TPU kernels' replacements:
+// Hopper (sm_90a). Shared by three TPU kernels' replacements, each a
+// geometry policy of the passes below:
 //
 // * `quantized_paged_fused_attention` (distributed_llm_inference_tpu/ops/
 //   paged_attention.py), whose big segment is the int8 page pool read in
-//   place through the page table (Paged = true, csrc/paged_attention.cu);
+//   place through the page table (BigThenTail<true>, csrc/paged_attention.cu);
 // * `quantized_fused_decode_attention` (distributed_llm_inference_tpu/ops/
 //   quant_attention.py), whose big segment is a contiguous [L, B, Hkv, T, D]
-//   stack gathered once per window (Paged = false,
-//   csrc/quant_attention.cu).
+//   stack gathered once per window (BigThenTail<false>,
+//   csrc/quant_attention.cu);
+// * `sink_fused_decode_attention` (the same file), the int8 sink ring: masked
+//   ring tiles, a tile of sinks with a query of its own, then the tail
+//   (csrc/sink_attention.cu).
+//
+// tail_scatter_kernel at the end is the window's flush into contiguous
+// planes, shared by the dense cache and the sink ring in the same way.
 //
 // One call (three launches, below) is one (layer, step) of a fused K-step
 // decode window. It quantizes the step's new K and V per (row, kv head)
@@ -144,23 +151,31 @@ struct DenseRows {
   __device__ __forceinline__ size_t row(int pos) const { return pos; }
 };
 
-struct Args {
+// What every form passes: the queries, the step's K/V, the tail planes it is
+// quantized into, the output and the scratch.
+struct Common {
   const void *q, *k_new, *v_new;          // [B, Hq, D], [B, Hkv, D] x2
-  const int8_t *big_k, *big_v;            // pool or stack, all layers
-  const float *big_ks, *big_vs;
   int8_t *tail_k, *tail_v;                // [L, B, Hkv, KT, D]
   float *tail_ks, *tail_vs;               // [L, B, Hkv, KT]
-  const int *table;                       // [B, Tw] (paged)
-  const int *base_len, *tail_vlen, *q_pos, *step;
+  const int* step;                        // one int32 in device memory
   void* out;                              // [B, Hq, D]
   float* scratch;     // B * Hq * NT * (W + 3 + D) floats: scores [NT, W],
                       // tile max, running max, sum of p [NT], P V [NT, D]
                       // of each (row, query head), in that order
-  int B, Hkv, rows;   // rows: pages P (paged) or stack length T
-  int ps, tw;         // page size and table width (paged)
-  int tile_w, KT, layer, window;
-  int NT, W;          // tiles a row may have (big + tail), widest tile
+  int B, Hkv, KT, layer;
+  int NT, W;          // tiles a row may have (tail included), widest tile
   float scale;
+};
+
+// The paged and contiguous forms: a big segment, then the tail.
+struct Args : Common {
+  const int8_t *big_k, *big_v;            // pool or stack, all layers
+  const float *big_ks, *big_vs;
+  const int *table;                       // [B, Tw] (paged)
+  const int *base_len, *tail_vlen, *q_pos;
+  int rows;           // pages P (paged) or stack length T
+  int ps, tw;         // page size and table width (paged)
+  int tile_w, window;
 };
 
 // A row's tiles: big-segment tiles holding a live position inside the
@@ -194,6 +209,29 @@ struct Geometry {
   }
 };
 
+__device__ __forceinline__ DenseRows tail_rows(const Common& a, int b,
+                                               int h) {
+  const size_t trow = ((size_t)a.layer * a.B + b) * a.Hkv + h;
+  return DenseRows{a.tail_k + trow * a.KT * kD, a.tail_v + trow * a.KT * kD,
+                   a.tail_ks + trow * a.KT, a.tail_vs + trow * a.KT};
+}
+
+// Every position of a tile is valid (the paged and contiguous forms, whose
+// tiles are ranges of valid positions).
+struct AllLive {
+  __device__ __forceinline__ bool operator()(int) const { return true; }
+};
+
+// The passes below are written against a geometry policy P, the kernels'
+// argument struct (Common and the form's own fields), which provides:
+//   P::Geo geo(b)           a row's tiles; Geo::ntiles counts them;
+//   bool is_tail(geo, j)    tile j is the tail (quantize the step there);
+//   const void* query(geo, j)         the query tile j is scored with;
+//   visit(geo, b, h, j, f)  calls f(rows, vlo, n, live): tile j is
+//                           positions [vlo, vlo + n) of `rows`, valid
+//                           where live(i).
+// BigThenTail is the paged and contiguous forms' policy;
+// csrc/sink_attention.cu has the sink ring's.
 template <bool Paged>
 struct BigRows;
 template <>
@@ -214,29 +252,44 @@ struct BigRows<false> {
   }
 };
 
-__device__ __forceinline__ DenseRows tail_rows(const Args& a, int b, int h) {
-  const size_t trow = ((size_t)a.layer * a.B + b) * a.Hkv + h;
-  return DenseRows{a.tail_k + trow * a.KT * kD, a.tail_v + trow * a.KT * kD,
-                   a.tail_ks + trow * a.KT, a.tail_vs + trow * a.KT};
-}
+template <bool Paged>
+struct BigThenTail : Args {
+  using Geo = Geometry;
+  __device__ Geo geo(int b) const { return Geometry(*this, b, Paged); }
+  __device__ bool is_tail(const Geo& g, int j) const { return j == g.nbig; }
+  __device__ const void* query(const Geo&, int) const { return q; }
+  template <class F>
+  __device__ void visit(const Geo& g, int b, int h, int j, F&& f) const {
+    int vlo, n;
+    g.range(j, vlo, n);
+    if (j == g.nbig)
+      f(tail_rows(*this, b, h), vlo, n, AllLive());
+    else
+      f(BigRows<Paged>::make(*this, b, h), vlo, n, AllLive());
+  }
+};
 
 // Pass 1, scores of one tile for the G query heads of kv head h. Position
-// `fresh` reads the step's quantized K from shared memory.
-template <int G, class Rows>
-__device__ __forceinline__ void tile_scores(const Args& a, const Rows& rows,
+// `fresh` reads the step's quantized K from shared memory. A position i of
+// the tile for which `is_live(i)` is false (the sink ring's masked slots)
+// reads nothing, scores kNegInf and leaves the tile's max alone.
+template <int G, class Rows, class Live>
+__device__ __forceinline__ void tile_scores(float scale, const Rows& rows,
                                             int vlo, int n, int fresh,
                                             const int8_t* fresh_k,
                                             float fresh_ks,
                                             const float (&qr)[G][kEPL],
                                             float* const (&s)[G],
-                                            float (&mloc)[G]) {
+                                            float (&mloc)[G],
+                                            const Live& is_live) {
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int grp = lane / kLPP;
   const int sub = lane % kLPP;
   for (int i0 = warp * kPPW; i0 < n; i0 += kWarps * kPPW) {
     const int i = i0 + grp;
-    const bool live = i < n;
+    const bool in = i < n;
+    const bool live = in && is_live(i);
     float kk[kEPL];
     float ksc = 0.f;
     if (live) {
@@ -263,8 +316,8 @@ __device__ __forceinline__ void tile_scores(const Args& a, const Rows& rows,
 #pragma unroll
       for (int o = kLPP / 2; o > 0; o >>= 1)
         dot += __shfl_xor_sync(0xffffffffu, dot, o);
-      if (live && sub == 0) {
-        const float sc = dot * ksc * a.scale;
+      if (in && sub == 0) {
+        const float sc = live ? dot * ksc * scale : kNegInf;
         s[g][i] = sc;
         mloc[g] = fmaxf(mloc[g], sc);
       }
@@ -272,8 +325,8 @@ __device__ __forceinline__ void tile_scores(const Args& a, const Rows& rows,
   }
 }
 
-template <typename T, bool Paged, int G>
-__global__ void __launch_bounds__(kThreads) fused_scores_kernel(Args a) {
+template <typename T, class P, int G>
+__global__ void __launch_bounds__(kThreads) fused_scores_kernel(P a) {
   __shared__ __align__(16) int8_t fresh_k[kD];
   __shared__ float fresh_ks;
   __shared__ float red[kWarps];
@@ -281,10 +334,10 @@ __global__ void __launch_bounds__(kThreads) fused_scores_kernel(Args a) {
   const int h = blockIdx.y;
   const int j = blockIdx.z;
   const int t = threadIdx.x;
-  const Geometry geo(a, b, Paged);
+  const auto geo = a.geo(b);
   if (j >= geo.ntiles) return;
   const size_t bh = (size_t)b * a.Hkv + h;
-  const bool is_tail = j == geo.nbig;
+  const bool is_tail = a.is_tail(geo, j);
   const int step = *a.step;
   if (is_tail) {
     // This step's K/V, quantized as _quantize_kv does, into tail slot
@@ -306,13 +359,14 @@ __global__ void __launch_bounds__(kThreads) fused_scores_kernel(Args a) {
     fresh_k[t] = kq;
     __syncthreads();
   }
-  // The query heads' slices of q, rounded to bf16 as the TPU kernel's
-  // product does, in the lane layout of tile_scores.
+  // The query heads' slices of the tile's query, rounded to bf16 as the TPU
+  // kernel's product does, in the lane layout of tile_scores.
+  const T* qsrc = static_cast<const T*>(a.query(geo, j));
   const int sub = (t & 31) % kLPP;
   float qr[G][kEPL];
 #pragma unroll
   for (int g = 0; g < G; ++g) {
-    const T* qp = static_cast<const T*>(a.q) + (bh * G + g) * kD + sub * kEPL;
+    const T* qp = qsrc + (bh * G + g) * kD + sub * kEPL;
 #pragma unroll
     for (int e = 0; e < kEPL; ++e) qr[g][e] = bf16_round(to_f(qp[e]));
   }
@@ -323,14 +377,14 @@ __global__ void __launch_bounds__(kThreads) fused_scores_kernel(Args a) {
     s[g] = a.scratch + ((bh * G + g) * a.NT + j) * a.W;
     mloc[g] = kNegInf;
   }
-  int vlo, n;
-  geo.range(j, vlo, n);
-  if (is_tail)
-    tile_scores<G>(a, tail_rows(a, b, h), vlo, n, step, fresh_k, fresh_ks,
-                   qr, s, mloc);
-  else
-    tile_scores<G>(a, BigRows<Paged>::make(a, b, h), vlo, n, -1, fresh_k,
-                   0.f, qr, s, mloc);
+  const int fresh = is_tail ? step : -1;
+  const float fks = is_tail ? fresh_ks : 0.f;
+  const int8_t* fk = fresh_k;
+  a.visit(geo, b, h, j,
+          [&](const auto& rows, int vlo, int n, const auto& live) {
+            tile_scores<G>(a.scale, rows, vlo, n, fresh, fk, fks, qr, s,
+                           mloc, live);
+          });
   float* tmax = a.scratch + (size_t)a.B * a.Hkv * G * a.NT * a.W;
 #pragma unroll
   for (int g = 0; g < G; ++g) {
@@ -339,9 +393,10 @@ __global__ void __launch_bounds__(kThreads) fused_scores_kernel(Args a) {
   }
 }
 
-// Pass 2, the sums of one tile under the running max at it.
-template <bool Paged, int G>
-__global__ void __launch_bounds__(kThreads) fused_sums_kernel(Args a) {
+// Pass 2, the sums of one tile under the running max at it; a slot that is
+// not live takes p = 0.
+template <class P, int G>
+__global__ void __launch_bounds__(kThreads) fused_sums_kernel(P a) {
   __shared__ float pw[G][kMaxTile];
   __shared__ __align__(16) int8_t v[kMaxTile][kD];
   __shared__ float vsm[kMaxTile];
@@ -351,7 +406,7 @@ __global__ void __launch_bounds__(kThreads) fused_sums_kernel(Args a) {
   const int h = blockIdx.y;
   const int j = blockIdx.z;
   const int t = threadIdx.x;
-  const Geometry geo(a, b, Paged);
+  const auto geo = a.geo(b);
   if (j >= geo.ntiles) return;
   const size_t bh = (size_t)b * a.Hkv + h;
   const size_t heads = (size_t)a.B * a.Hkv * G;
@@ -365,10 +420,9 @@ __global__ void __launch_bounds__(kThreads) fused_sums_kernel(Args a) {
     for (int k = 0; k <= j; ++k) m = fmaxf(m, tmax[(bh * G + t) * a.NT + k]);
     mj[t] = m;
   }
-  int vlo, n;
-  geo.range(j, vlo, n);
-  constexpr int kChunks = kD / 16;
-  auto stage = [&](const auto& rows) {
+  a.visit(geo, b, h, j, [&](const auto& rows, int vlo, int n,
+                            const auto& live) {
+    constexpr int kChunks = kD / 16;
     for (int idx = t; idx < n * kChunks; idx += kThreads) {
       const int i = idx / kChunks;
       const int c = idx % kChunks;
@@ -377,56 +431,51 @@ __global__ void __launch_bounds__(kThreads) fused_sums_kernel(Args a) {
           reinterpret_cast<const uint4*>(rows.v + r * kD)[c];
     }
     for (int i = t; i < n; i += kThreads) vsm[i] = rows.vs[rows.row(vlo + i)];
-  };
-  if (j == geo.nbig)
-    stage(tail_rows(a, b, h));
-  else
-    stage(BigRows<Paged>::make(a, b, h));
-  __syncthreads();
-  float lsum[G];
+    __syncthreads();
+    float lsum[G];
 #pragma unroll
-  for (int g = 0; g < G; ++g) {
-    lsum[g] = 0.f;
-    const float* sg = scores + ((bh * G + g) * a.NT + j) * a.W;
-    for (int i = t; i < n; i += kThreads) {
-      const float p = expf(sg[i] - mj[g]);
-      lsum[g] += p;
-      pw[g][i] = bf16_round(p * vsm[i]);
+    for (int g = 0; g < G; ++g) {
+      lsum[g] = 0.f;
+      const float* sg = scores + ((bh * G + g) * a.NT + j) * a.W;
+      for (int i = t; i < n; i += kThreads) {
+        const float p = live(i) ? expf(sg[i] - mj[g]) : 0.f;
+        lsum[g] += p;
+        pw[g][i] = bf16_round(p * vsm[i]);
+      }
     }
-  }
 #pragma unroll
-  for (int g = 0; g < G; ++g) {
-    // block_sum's barriers also publish pw to every thread.
-    const float l = block_sum(lsum[g], red);
-    const size_t o = (bh * G + g) * a.NT + j;
-    float acc = 0.f;
-    for (int i = 0; i < n; ++i) acc += pw[g][i] * (float)v[i][t];
-    sum_pv[o * kD + t] = acc;
-    if (t == 0) {
-      run_m[o] = mj[g];
-      sum_l[o] = l;
+    for (int g = 0; g < G; ++g) {
+      // block_sum's barriers also publish pw to every thread.
+      const float l = block_sum(lsum[g], red);
+      const size_t o = (bh * G + g) * a.NT + j;
+      float acc = 0.f;
+      for (int i = 0; i < n; ++i) acc += pw[g][i] * (float)v[i][t];
+      sum_pv[o * kD + t] = acc;
+      if (t == 0) {
+        run_m[o] = mj[g];
+        sum_l[o] = l;
+      }
     }
-  }
+  });
 }
 
 // Pass 3, one (row, query head): the tiles' sums, each scaled by
 // exp(m_tile - m_last), normalised.
-template <typename T, bool Paged>
-__global__ void __launch_bounds__(kThreads) fused_combine_kernel(Args a,
-                                                                 int G) {
+template <typename T, class P>
+__global__ void __launch_bounds__(kThreads) fused_combine_kernel(P a, int G) {
   const int b = blockIdx.x;
   const int hq = blockIdx.y;
   const int t = threadIdx.x;
-  const Geometry geo(a, b, Paged);
+  const int ntiles = a.geo(b).ntiles;
   const size_t heads = (size_t)a.B * a.Hkv * G;
   const float* run_m = a.scratch + heads * a.NT * a.W + heads * a.NT;
   const float* sum_l = run_m + heads * a.NT;
   const float* sum_pv = sum_l + heads * a.NT;
   const size_t o = ((size_t)b * a.Hkv * G + hq) * a.NT;
   float num = 0.f, den = 0.f;
-  if (geo.ntiles > 0) {
-    const float m_last = run_m[o + geo.ntiles - 1];
-    for (int k = 0; k < geo.ntiles; ++k) {
+  if (ntiles > 0) {
+    const float m_last = run_m[o + ntiles - 1];
+    for (int k = 0; k < ntiles; ++k) {
       const float w = expf(run_m[o + k] - m_last);
       num += w * sum_pv[(o + k) * kD + t];
       den += w * sum_l[o + k];
@@ -437,26 +486,28 @@ __global__ void __launch_bounds__(kThreads) fused_combine_kernel(Args a,
         num / fmaxf(den, 1e-20f));
 }
 
-template <typename T, bool Paged, int G>
-int launch_passes(const Args& a, cudaStream_t s) {
+template <typename T, class P, int G>
+int launch_passes(const P& a, cudaStream_t s) {
   const dim3 grid(a.B, a.Hkv, a.NT);
-  fused_scores_kernel<T, Paged, G><<<grid, kThreads, 0, s>>>(a);
+  fused_scores_kernel<T, P, G><<<grid, kThreads, 0, s>>>(a);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  fused_sums_kernel<Paged, G><<<grid, kThreads, 0, s>>>(a);
+  fused_sums_kernel<P, G><<<grid, kThreads, 0, s>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  fused_combine_kernel<T, Paged><<<dim3(a.B, a.Hkv * G), kThreads, 0, s>>>(
-      a, G);
+  fused_combine_kernel<T, P><<<dim3(a.B, a.Hkv * G), kThreads, 0, s>>>(a, G);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, bool Paged>
-int dispatch_g(const Args& a, int G, cudaStream_t s) {
-  switch (G) {
-    case 1: return launch_passes<T, Paged, 1>(a, s);
-    case 4: return launch_passes<T, Paged, 4>(a, s);
-  }
+// The instances: G in {1, 4} query heads a kv head, q in bf16 (dtype 0) or
+// f32 (1). -1 for any other.
+template <class P>
+int dispatch(const P& a, int G, int dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0 && G == 1) return launch_passes<__nv_bfloat16, P, 1>(a, s);
+  if (dtype == 0 && G == 4) return launch_passes<__nv_bfloat16, P, 4>(a, s);
+  if (dtype == 1 && G == 1) return launch_passes<float, P, 1>(a, s);
+  if (dtype == 1 && G == 4) return launch_passes<float, P, 4>(a, s);
   return -1;
 }
 
@@ -472,10 +523,69 @@ int launch(const Args& a, int G, int D, int dtype, void* stream) {
   if (D != kD || a.KT < 1 || a.KT > kMaxTile || tw < 1 || tw > kMaxTile)
     return -1;
   if (a.W < tw || a.W < a.KT || a.NT < (cap + tw - 1) / tw + 1) return -1;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch_g<__nv_bfloat16, Paged>(a, G, s);
-  if (dtype == 1) return dispatch_g<float, Paged>(a, G, s);
-  return -1;
+  BigThenTail<Paged> p;
+  static_cast<Args&>(p) = a;
+  return dispatch(p, G, dtype, stream);
+}
+
+// The fused window's int8 tail merged into contiguous planes, a direct
+// scatter (the dense cache's flush and the sink ring's). One block per
+// (row, layer) binds its row's destination once, `r = dest.row(b)`, and
+// copies tail slots [r.first, r.end) of row b, 16 bytes a thread, to slot
+// r.slot(i) of the big planes [L, B, Hkv, T, D] (scales [L, B, Hkv, T]
+// beside them); a slot < 0 is skipped. Bound by bytes: each tail byte is
+// read once and written once.
+template <class Dest>
+__global__ void __launch_bounds__(kThreads) tail_scatter_kernel(
+    int8_t* __restrict__ bk, float* __restrict__ bks,
+    int8_t* __restrict__ bv, float* __restrict__ bvs,  // [L, B, Hkv, T(, D)]
+    const int8_t* __restrict__ tk, const float* __restrict__ tks,
+    const int8_t* __restrict__ tv, const float* __restrict__ tvs,  // [L, B, Hkv, KT(, D)]
+    int B, int Hkv, int T, int KT, int D, Dest dest) {
+  const int b = blockIdx.x;
+  const int l = blockIdx.y;
+  const auto r = dest.row(b);
+  const int first = r.first;
+  const int n = min(r.end, KT);
+  const int chunks = D / 16;
+  const int total = max(n - first, 0) * Hkv * chunks;
+  for (int idx = threadIdx.x; idx < total; idx += kThreads) {
+    const int c = idx % chunks;
+    const int h = (idx / chunks) % Hkv;
+    const int i = first + idx / (chunks * Hkv);
+    const int slot = r.slot(i);
+    if (slot < 0) continue;
+    const size_t row = ((size_t)l * B + b) * Hkv + h;
+    const size_t dst = row * T + slot;
+    const size_t src = row * KT + i;
+    reinterpret_cast<uint4*>(bk + dst * D)[c] =
+        reinterpret_cast<const uint4*>(tk + src * D)[c];
+    reinterpret_cast<uint4*>(bv + dst * D)[c] =
+        reinterpret_cast<const uint4*>(tv + src * D)[c];
+    if (c == 0) {
+      bks[dst] = tks[src];
+      bvs[dst] = tvs[src];
+    }
+  }
+}
+
+// Launches tail_scatter_kernel; D a multiple of 16. Returns
+// cudaGetLastError() after the launch, -1 for another D.
+template <class Dest>
+int launch_tail_scatter(void* bk, void* bks, void* bv, void* bvs,
+                        const void* tk, const void* tks, const void* tv,
+                        const void* tvs, int L, int B, int Hkv, int T, int KT,
+                        int D, const Dest& dest, void* stream) {
+  if (L <= 0 || B <= 0) return 0;
+  if (D % 16 != 0) return -1;
+  tail_scatter_kernel<<<dim3(B, L), kThreads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      static_cast<int8_t*>(bk), static_cast<float*>(bks),
+      static_cast<int8_t*>(bv), static_cast<float*>(bvs),
+      static_cast<const int8_t*>(tk), static_cast<const float*>(tks),
+      static_cast<const int8_t*>(tv), static_cast<const float*>(tvs), B, Hkv,
+      T, KT, D, dest);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace fused

@@ -15,7 +15,7 @@
 //   decode_attention.cuh with no table (row b is its own page of T slots).
 //   Bound by bytes; everything f32, p * vs included.
 // * `fused_tail_flush`: the fused window's int8 tail merged into the
-//   buffers, a direct scatter (below).
+//   buffers, a direct scatter (fused_decode.cuh's, below).
 
 #include "decode_attention.cuh"
 #include "fused_decode.cuh"
@@ -85,43 +85,23 @@ namespace {
 
 // Replaces `fused_tail_flush` (its TPU kernel read-modify-writes the
 // 32-token value blocks and 128-slot scale blocks a row's window touches,
-// with clamped duplicate visits): a direct scatter. One block per (row,
-// layer) copies each of the row's tail_len[b] tail slots, 16 bytes a
-// thread, to position base_len[b] + i of the buffers, scales beside them.
-// Nothing is written at or past T. Bound by bytes: each tail byte is read
-// once and written once.
-__global__ void __launch_bounds__(decode::kThreads) dense_tail_flush_kernel(
-    int8_t* __restrict__ bk, float* __restrict__ bks,
-    int8_t* __restrict__ bv, float* __restrict__ bvs,  // [L, B, Hkv, T(, D)]
-    const int8_t* __restrict__ tk, const float* __restrict__ tks,
-    const int8_t* __restrict__ tv, const float* __restrict__ tvs,  // [L, B, Hkv, KT(, D)]
-    const int* __restrict__ base_len, const int* __restrict__ tail_len,
-    int B, int Hkv, int T, int KT, int D) {
-  const int b = blockIdx.x;
-  const int l = blockIdx.y;
-  const int start = base_len[b];
-  const int n = min(tail_len[b], KT);
-  const int chunks = D / 16;
-  const int total = n * Hkv * chunks;
-  for (int idx = threadIdx.x; idx < total; idx += decode::kThreads) {
-    const int c = idx % chunks;
-    const int h = (idx / chunks) % Hkv;
-    const int i = idx / (chunks * Hkv);
-    const int pos = start + i;
-    if (pos < 0 || pos >= T) continue;
-    const size_t row = ((size_t)l * B + b) * Hkv + h;
-    const size_t dst = row * T + pos;
-    const size_t src = row * KT + i;
-    reinterpret_cast<uint4*>(bk + dst * D)[c] =
-        reinterpret_cast<const uint4*>(tk + src * D)[c];
-    reinterpret_cast<uint4*>(bv + dst * D)[c] =
-        reinterpret_cast<const uint4*>(tv + src * D)[c];
-    if (c == 0) {
-      bks[dst] = tks[src];
-      bvs[dst] = tvs[src];
+// with clamped duplicate visits): a direct scatter, fused_decode.cuh's
+// tail_scatter_kernel. Each of a row's tail_len[b] tail slots goes to
+// position base_len[b] + i of the buffers; nothing is written at or past T.
+struct DenseDest {
+  const int *base_len, *tail_len;
+  int T;
+  struct Row {
+    int first, end, start, T;
+    __device__ int slot(int i) const {
+      const int pos = start + i;
+      return pos < 0 || pos >= T ? -1 : pos;
     }
+  };
+  __device__ Row row(int b) const {
+    return Row{0, tail_len[b], base_len[b], T};
   }
-}
+};
 
 }  // namespace
 
@@ -133,15 +113,9 @@ extern "C" int dli_fused_tail_flush(
     const void* tail_ks, const void* tail_v, const void* tail_vs,
     const void* base_len, const void* tail_len, int L, int B, int Hkv, int T,
     int KT, int D, void* stream) {
-  if (L <= 0 || B <= 0) return 0;
-  if (D % 16 != 0) return -1;
-  dense_tail_flush_kernel<<<dim3(B, L), decode::kThreads, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
-      static_cast<int8_t*>(big_k), static_cast<float*>(big_ks),
-      static_cast<int8_t*>(big_v), static_cast<float*>(big_vs),
-      static_cast<const int8_t*>(tail_k), static_cast<const float*>(tail_ks),
-      static_cast<const int8_t*>(tail_v), static_cast<const float*>(tail_vs),
-      static_cast<const int*>(base_len), static_cast<const int*>(tail_len), B,
-      Hkv, T, KT, D);
-  return static_cast<int>(cudaGetLastError());
+  const DenseDest dest{static_cast<const int*>(base_len),
+                       static_cast<const int*>(tail_len), T};
+  return fused::launch_tail_scatter(big_k, big_ks, big_v, big_vs, tail_k,
+                                    tail_ks, tail_v, tail_vs, L, B, Hkv, T,
+                                    KT, D, dest, stream);
 }

@@ -34,10 +34,14 @@ next tick boundary, scattered into the carry meanwhile.
 
 What the port serves: a dense Llama-family model in bf16/f32, or with int4
 (half-split) or int8 weights (``EngineConfig.quantization``), over the paged
-or the dense cache (``CacheConfig.kind``), in the model dtype or int8
-(``CacheConfig.kv_quant="int8"``). The constructor raises
+or the dense cache or the StreamingLLM sink ring (``CacheConfig.kind``), in
+the model dtype or int8 (``CacheConfig.kv_quant="int8"``). The sink ring
+never grows and never fills: its streams run to ``max_new_tokens`` (or a
+bound of 2^20 tokens on the int8 ring, 2^30 on the other), prompts longer
+than the ring span are chunked, and only the int8 ring has the fused
+window (when its span holds K tokens). The constructor raises
 ``NotImplementedError``, naming the ``ROADMAP.md`` queue item, for every
-feature that waits (the sink ring among them).
+feature that waits.
 """
 
 from __future__ import annotations
@@ -55,6 +59,7 @@ import torch.nn.functional as F
 from ..cache.base import window_ladder
 from ..cache.dense import DenseKVCache, QuantizedDenseKVCache
 from ..cache.paged import PageAllocator, PagedKVCache, QuantizedPagedKVCache
+from ..cache.sink import QuantizedSinkKVCache, SinkKVCache
 from ..config import CacheConfig, EngineConfig, ModelConfig
 from ..models import llama
 from ..ops import quant
@@ -64,6 +69,11 @@ from .graphs import FusedDecode
 from .plan import AttentionPlan
 from .sampling import SamplingOptions, SamplingParams, sample
 from .session import Session, SessionState
+
+
+# The cache kinds of the StreamingLLM sink ring: unbounded streams in fixed
+# memory, so the scheduler's capacity and growth paths skip them.
+_SINK_KINDS = (SinkKVCache, QuantizedSinkKVCache)
 
 
 def _waits(what: str, item: str) -> NotImplementedError:
@@ -110,12 +120,6 @@ class InferenceEngine:
             raise ValueError(f"unknown cache kind {cc.kind}")
         if cc.kv_quant not in (None, "int8"):
             raise ValueError(f"unknown kv_quant {cc.kv_quant!r}")
-        if cc.kind == "sink":
-            # The StreamingLLM ring, bf16 (item 5) and int8 (item 7, with
-            # its two kernels), is the next slice.
-            if cc.kv_quant is not None:
-                raise _waits("kv_quant on cache kind 'sink'", "item 7")
-            raise _waits("cache kind 'sink'", "item 5")
         if ecfg.quantization == "int8_outlier":
             raise _waits("quantization='int8_outlier'", "item 6")
         if ecfg.quantization not in (None, "int8", "int4"):
@@ -194,6 +198,25 @@ class InferenceEngine:
                     cfg.head_dim, self.dtype, device=self.device,
                 )
             self.allocator = None
+        elif cc.kind == "sink":
+            # A fixed ring: no ladder, no growth, no idle shrink. The int8
+            # ring under use_pallas_attention takes its own kernels (#11,
+            # #12 in the window).
+            self._windows = ()
+            if cc.kv_quant:
+                self.cache = QuantizedSinkKVCache.create(
+                    cfg.num_layers, self.batch, cc.window_length,
+                    cc.num_sink_tokens, cfg.num_kv_heads, cfg.head_dim,
+                    self.dtype, use_kernel=self._use_pallas,
+                    device=self.device,
+                )
+            else:
+                self.cache = SinkKVCache.create(
+                    cfg.num_layers, self.batch, cc.window_length,
+                    cc.num_sink_tokens, cfg.num_kv_heads, cfg.head_dim,
+                    self.dtype, device=self.device,
+                )
+            self.allocator = None
         else:
             # The gather path materializes [B, table_width * page_size, ...]
             # per layer, so its traffic tracks the TABLE WIDTH: start narrow
@@ -219,10 +242,12 @@ class InferenceEngine:
         # Stored KV bytes per token over every plane (values and, for the
         # int8 kinds, the scale planes): a plane's bytes past its two
         # leading axes, over the slots they hold (a page, or a row's T).
+        # The int8 sink ring states its own: its sink planes are not
+        # per-token storage.
         slots = cc.page_size if self.allocator is not None else self.cache.max_len
         self.metrics.gauge(
             "kv_bytes_per_token",
-            float(sum(
+            float(getattr(self.cache, "kv_bytes_per_token", None) or sum(
                 plane.shape[0] * plane.element_size()
                 * math.prod(plane.shape[2:]) // slots
                 for plane in self.cache.layer_stacks
@@ -235,12 +260,14 @@ class InferenceEngine:
         # Admission-ordering hook (set_admission_order): None = FIFO.
         self._admission_order = None
 
-        # The model-dtype dense cache under use_pallas takes the flash kernel
-        # for its prefills (decode shapes fall back inside it). Caches with
-        # their OWN kernels (int8 dense, paged) keep attention unset: flash
-        # there would force their gather paths and disable the window.
+        # The model-dtype dense cache and sink ring under use_pallas take
+        # the flash kernel for their prefills (decode shapes fall back
+        # inside it). Caches with their OWN kernels (int8 dense and sink,
+        # paged) keep attention unset: flash there would force their
+        # gather paths and disable the window.
         self._attention = None
-        if self._use_pallas and isinstance(self.cache, DenseKVCache):
+        if self._use_pallas and isinstance(self.cache, (DenseKVCache,
+                                                        SinkKVCache)):
             from ..ops.flash_attention import flash_attention
 
             self._attention = flash_attention
@@ -250,14 +277,21 @@ class InferenceEngine:
         )
         # The write-behind tail (the fused K-step window) needs the cache's
         # tail protocol and the default attention: both dense kinds, the
-        # int8 pool always, the model-dtype pool with its decode kernel, as
-        # in the JAX engine (its sink, latent and pipeline-parallel branches
-        # wait with their caches).
+        # int8 pool always, the model-dtype pool with its decode kernel, the
+        # int8 sink ring, as in the JAX engine (its latent and
+        # pipeline-parallel branches wait with their caches). The model-
+        # dtype sink ring has no tail.
         tail_capable = self._attention is None and (
             isinstance(self.cache, (DenseKVCache, QuantizedDenseKVCache,
-                                    QuantizedPagedKVCache))
+                                    QuantizedPagedKVCache,
+                                    QuantizedSinkKVCache))
             or (isinstance(self.cache, PagedKVCache) and self.cache.use_kernel)
         )
+        if tail_capable and isinstance(self.cache, QuantizedSinkKVCache):
+            # The window must fit the ring span: tail tokens evicting each
+            # other is more than the tail's prefix validity can express.
+            k_want = ecfg.decode_steps if ecfg.decode_steps is not None else 16
+            tail_capable = self.cache.ring_slots >= max(1, k_want)
         # decode_steps=None resolves to the fused window wherever it
         # composes, as in the JAX engine.
         self.decode_steps = (
@@ -290,6 +324,10 @@ class InferenceEngine:
                                           torch.Tensor, object]] = []
         self._admit_pend = np.zeros(self.batch, np.int32)
         self._pipelined = ecfg.pipelined_ticks and K > 1 and tail_capable
+        # Batched admission gathers and scatters rows (select_rows /
+        # merge_rows): the model-dtype sink ring has neither, so its
+        # admissions prefill one row at a time, as in the JAX engine.
+        self._batch_admission = hasattr(self.cache, "select_rows")
 
     # -- device programs (eager) ----------------------------------------------
 
@@ -569,15 +607,30 @@ class InferenceEngine:
         return self.plan.bucket_for(n)
 
     def _max_chunk(self) -> int:
-        """Largest prefill chunk the cache accepts."""
+        """Largest prefill chunk the cache accepts: the sink ring's span at
+        most."""
+        if isinstance(self.cache, _SINK_KINDS):
+            return min(self.ecfg.prefill_buckets[-1],
+                       self.ccfg.window_length - self.ccfg.num_sink_tokens)
         return self.ecfg.prefill_buckets[-1]
 
     def _capacity_ok(self, s: Session) -> bool:
         """The prompt and one token fit a session: the dense buffers' cap,
-        or the pages a session may map."""
+        or the pages a session may map; any prompt fits the sink ring."""
+        if isinstance(self.cache, _SINK_KINDS):
+            return True
         limit = (self.ecfg.max_seq_len if self.allocator is None
                  else self.ccfg.max_pages_per_session * self.ccfg.page_size)
         return len(s.prompt) + 1 <= limit
+
+    def _sink_cap(self) -> int:
+        """Stream-length bound of a sink session. The model-dtype ring
+        rotates at window-relative (bounded) positions: only its int32
+        counter bounds it. The int8 ring stores keys rotated at ABSOLUTE
+        positions, whose f32 angles (``pos * inv_freq``) lose about ``pos *
+        6e-8`` rad on the fastest channel: 2^20 tokens (about 0.06 rad)."""
+        return (1 << 20) if isinstance(self.cache, QuantizedSinkKVCache) else (
+            1 << 30)
 
     def _span(self) -> int:
         """The cache width a decode dispatch attends over, for the plan's
@@ -723,7 +776,7 @@ class InferenceEngine:
         groups: Dict[int, List[Session]] = {}
         chunk_cap = self._max_chunk()
         for s in admitted:
-            if len(s.prompt) <= chunk_cap:
+            if self._batch_admission and len(s.prompt) <= chunk_cap:
                 groups.setdefault(
                     self._bucket_for(len(s.prompt)), []
                 ).append(s)
@@ -1047,8 +1100,12 @@ class InferenceEngine:
             use_carry[slot] = self._carry_ok[slot]
             pend = int(pend_b[slot])
             paged = self.allocator is not None
-            cap = (len(s.pages) * self.ccfg.page_size if paged
-                   else self.ecfg.max_seq_len)
+            if isinstance(self.cache, _SINK_KINDS):
+                cap = self._sink_cap()  # the ring evicts: no capacity
+            elif paged:
+                cap = len(s.pages) * self.ccfg.page_size
+            else:
+                cap = self.ecfg.max_seq_len
             if pend == 0 and s.total_len + 1 > cap:
                 if paged:
                     # One more growth attempt before declaring capacity.
@@ -1184,7 +1241,8 @@ class InferenceEngine:
             opts[slot] = s.options
             want = min(K, s.options.max_new_tokens - len(s.generated))
             if self.allocator is None:
-                cap = self.ecfg.max_seq_len
+                cap = (self._sink_cap() if isinstance(self.cache, _SINK_KINDS)
+                       else self.ecfg.max_seq_len)
                 if s.total_len + 1 > cap:
                     self._finish(s, "capacity", produced)
                     continue

@@ -52,7 +52,8 @@ from .sampling import SamplingParams, sample
 LAUNCH_COUNTERS = (
     (_pa, "launches"), (_pa, "quantized_launches"), (_pa, "fused_launches"),
     (_pa, "flush_launches"), (_qa, "fused_launches"), (_qa, "decode_launches"),
-    (_qa, "flush_launches"), (_fa, "launches"), (_qm, "launches"),
+    (_qa, "flush_launches"), (_qa, "sink_launches"),
+    (_qa, "sink_flush_launches"), (_fa, "launches"), (_qm, "launches"),
     (_qm, "stacked_launches"), (_ra, "launches"), (_ra, "quantized_launches"),
 )
 

@@ -513,7 +513,7 @@ def multi_decode_apply(
     Returns ``(emits [K, B] int32, cache)`` with the cache flushed and
     advanced. Caches with the tail protocol: ``PagedKVCache`` with the
     kernel, ``QuantizedPagedKVCache``, ``DenseKVCache``,
-    ``QuantizedDenseKVCache``."""
+    ``QuantizedDenseKVCache``, ``QuantizedSinkKVCache``."""
     win = DecodeWindow(cache, num_steps, init_state)
     win.begin(tokens, init_state, init_num_new)
     for _ in range(num_steps):

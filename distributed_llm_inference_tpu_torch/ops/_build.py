@@ -22,7 +22,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC.parent.parent / "build"
 KERNEL_SOURCES = (
     "flash_attention", "int4_matmul", "paged_attention", "quant_attention",
-    "ragged_attention",
+    "ragged_attention", "sink_attention",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -265,3 +265,51 @@ def gqa_attention_quantized_segments(
         )
     denom = denom.clamp_min(1e-20).permute(0, 3, 1, 2, 4)
     return (out / denom).reshape(b, s, hq, d).to(q.dtype)
+
+
+def gqa_attention_quantized_multi_q_segments(
+    segments,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Joint softmax over int8 head-major segments, each with its OWN query
+    and mask (counterpart of the JAX package's
+    ``gqa_attention_quantized_multi_q_segments``): the int8 sink ring's
+    sink segment is attended with the window-relative-rotated query, its
+    ring and tail segments with the absolute-rotated one
+    (``cache/sink.py``).
+
+    Each segment is ``(q [B, S, Hq, D], k_q [B, Hkv, Ti, D] int8, ks [B,
+    Hkv, Ti] f32, v_q, vs, mask)`` with ``mask`` ``[B, S, Ti]`` or a
+    broadcastable ``[B, 1, Ti]``. Scores in f32, the K scale on the score,
+    the V scale on the unnormalised weight, which is rounded to the first
+    query's type before P V; the sum is divided last. Returns ``[B, S, Hq,
+    D]`` in the first query's type."""
+    q0 = segments[0][0]
+    b, s, hq, d = q0.shape
+    hkv = segments[0][1].shape[1]
+    g = hq // hkv
+    if scale is None:
+        scale = d**-0.5
+
+    scored = []
+    for q, k_q, ks, _, _, mask in segments:
+        qg = q.reshape(b, s, hkv, g, d).float()
+        sc = torch.einsum("bskgd,bktd->bkgst", qg, k_q.to(q.dtype).float())
+        sc = sc * (ks[:, :, None, None, :] * scale)
+        m = mask[:, None, None, :, :]                  # [B, 1, 1, S|1, T]
+        scored.append((torch.where(m, sc, _NEG_INF), m))
+
+    gmax = scored[0][0].amax(dim=-1, keepdim=True)
+    for sc, _ in scored[1:]:
+        gmax = torch.maximum(gmax, sc.amax(dim=-1, keepdim=True))
+    denom = 0.0
+    out = 0.0
+    for (sc, m), (_, _, _, v_q, vs, _) in zip(scored, segments):
+        w = torch.where(m, torch.exp(sc - gmax), 0.0)
+        denom = denom + w.sum(dim=-1, keepdim=True)
+        wv = (w * vs[:, :, None, None, :]).to(q0.dtype).float()
+        out = out + torch.einsum(
+            "bkgst,bktd->bskgd", wv, v_q.to(q0.dtype).float()
+        )
+    denom = denom.clamp_min(1e-20).permute(0, 3, 1, 2, 4)
+    return (out / denom).reshape(b, s, hq, d).to(q0.dtype)

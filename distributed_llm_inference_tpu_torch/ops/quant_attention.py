@@ -41,6 +41,16 @@ the fused window's int8 tail written into the buffers at each row's
 ``base_len``, in place (the TPU kernel aliases them), nothing at or past T;
 the bytes equal ``cache/dense.py:_tail_flush_rows``'s. ``decode_launches``
 and ``flush_launches`` count their launches.
+
+The int8 sink ring (``cache/sink.py:QuantizedSinkKVCache``) adds two more,
+in ``csrc/sink_attention.cu``. ``sink_fused_decode_attention`` replaces
+``_qsink_kernel``: the fused step as above over three segments in this
+order, the ring in tiles of :func:`ring_tile_width` (its evicted slots
+masked), one tile of sinks scored with a second query, the tail.
+``sink_tail_flush`` replaces the TPU kernel of that name: the tail written
+into the ring at slots that wrap mod ``ring_slots``, a direct scatter whose
+bytes equal ``cache/sink.py``'s gather-and-select merge. ``sink_launches``
+and ``sink_flush_launches`` count their launches.
 """
 
 from __future__ import annotations
@@ -62,17 +72,27 @@ __all__ = [
     "quantized_decode_attention_plain",
     "fused_tail_flush",
     "fused_tail_flush_plain",
+    "sink_fused_decode_attention",
+    "sink_fused_decode_attention_plain",
+    "sink_tail_flush",
+    "sink_tail_flush_plain",
+    "ring_tile_width",
     "fused_launches",
     "decode_launches",
     "flush_launches",
+    "sink_launches",
+    "sink_flush_launches",
 ]
 
 # Kernel launches made by :func:`quantized_fused_decode_attention` /
-# :func:`quantized_decode_attention` / :func:`fused_tail_flush` in this
+# :func:`quantized_decode_attention` / :func:`fused_tail_flush` /
+# :func:`sink_fused_decode_attention` / :func:`sink_tail_flush` in this
 # process.
 fused_launches = 0
 decode_launches = 0
 flush_launches = 0
+sink_launches = 0
+sink_flush_launches = 0
 
 BLOCK_T = 256  # the TPU kernel's time tile over the stacks
 MAX_TILE = 256  # widest tile the CUDA kernel takes (csrc/fused_decode.cuh)
@@ -106,17 +126,20 @@ def online_softmax_tiles(q: torch.Tensor, tiles: Iterable, scale: float):
 
     ``q``: ``[B, Hkv, G, D]``; each tile ``(k, ks, v, vs, valid)`` with int8
     ``k``/``v`` ``[B, Hkv, W, D]``, f32 scales ``[B, Hkv, W]`` and ``valid``
-    ``[B, W]``. ``q`` and ``p * vs`` are rounded to bf16 before the
-    products, as the TPU kernels do, and the scores are summed in the CUDA
-    kernel's order (:func:`_lane_order_dot`). Returns ``[B, Hkv, G, D]``
-    f32; a row with nothing valid gives zeros."""
+    ``[B, W]``, or ``(k, ks, v, vs, valid, q_tile)`` to score that tile
+    with a query of its own (the sink ring's sink tile). ``q`` and ``p *
+    vs`` are rounded to bf16 before the products, as the TPU kernels do,
+    and the scores are summed in the CUDA kernel's order
+    (:func:`_lane_order_dot`). Returns ``[B, Hkv, G, D]`` f32; a row with
+    nothing valid gives zeros."""
     b, hkv, g, d = q.shape
     qb = q.to(torch.bfloat16).float()
     m = torch.full((b, hkv, g), _NEG_INF, dtype=torch.float32, device=q.device)
     l = torch.zeros_like(m)
     acc = torch.zeros((b, hkv, g, d), dtype=torch.float32, device=q.device)
-    for k, ks, v, vs, valid in tiles:
-        s = _lane_order_dot(qb, k) * ks[:, :, None, :] * scale
+    for k, ks, v, vs, valid, *own in tiles:
+        qt = own[0].to(torch.bfloat16).float() if own else qb
+        s = _lane_order_dot(qt, k) * ks[:, :, None, :] * scale
         vmask = valid[:, None, None, :]
         s = torch.where(vmask, s, _NEG_INF)
         m_new = torch.maximum(m, s.amax(dim=-1))
@@ -579,4 +602,286 @@ def fused_tail_flush(
     if err != 0:
         raise RuntimeError(f"fused_tail_flush: kernel launch failed ({err})")
     flush_launches += 1
+    return big_k, big_ks, big_v, big_vs
+
+
+# ---------------------------------------------------------------------------
+# The int8 sink ring: the fused decode step (#11) and the mod-ring flush (#12)
+# ---------------------------------------------------------------------------
+
+
+def ring_tile_width(tr: int) -> int:
+    """The sink step's tile over the ring: the largest multiple of 32 up to
+    ``BLOCK_T`` that divides ``tr`` (the ring pads its span to a multiple
+    of 32), so that no tile straddles the planes' end; 32 at worst. Window
+    1024 with 4 sinks: 256; ``tr`` 1056: 96."""
+    for cand in range(min(BLOCK_T, tr), 31, -32):
+        if tr % cand == 0:
+            return cand
+    return 32
+
+
+def sink_fused_decode_attention_plain(
+    q, q_sink, k_new, v_new, big_k, big_ks, big_v, big_vs,
+    sink_k, sink_ks, sink_v, sink_vs, tail_k, tail_ks, tail_v, tail_vs,
+    layer_idx: int, step_idx: torch.Tensor, ring_len, ring_ptr, evict_len,
+    sink_len, tail_valid_len, ring_slots: int, scale: Optional[float] = None,
+):
+    """Plain PyTorch version of :func:`sink_fused_decode_attention`: the
+    same arguments and results, the same tiles in the same order (the ring
+    in :func:`ring_tile_width` tiles, the sink tile scored with
+    ``q_sink``, the tail)."""
+    b, _, hq, d = q.shape
+    hkv, t = big_k.shape[2], big_k.shape[3]
+    g = hq // hkv
+    if scale is None:
+        scale = d**-0.5
+    write_tail_slot(k_new, v_new, tail_k, tail_ks, tail_v, tail_vs,
+                    layer_idx, step_idx)
+    bt = ring_tile_width(t)
+    dev = q.device
+
+    def tiles():
+        for j in range(0, t, bt):
+            slot = torch.arange(j, j + bt, dtype=torch.int32, device=dev)[None]
+            dd = slot - ring_ptr[:, None]
+            dd = dd + torch.where(dd < 0, ring_slots, 0)
+            valid = (slot < ring_len[:, None]) & (dd >= evict_len[:, None])
+            yield (big_k[layer_idx, :, :, j:j + bt],
+                   big_ks[layer_idx, :, :, j:j + bt],
+                   big_v[layer_idx, :, :, j:j + bt],
+                   big_vs[layer_idx, :, :, j:j + bt], valid)
+        sp = sink_k.shape[3]
+        sslot = torch.arange(sp, dtype=torch.int32, device=dev)[None]
+        yield (sink_k[layer_idx], sink_ks[layer_idx], sink_v[layer_idx],
+               sink_vs[layer_idx], sslot < sink_len[:, None],
+               q_sink.reshape(b, hkv, g, d))
+        kt = tail_k.shape[3]
+        tslot = torch.arange(kt, dtype=torch.int32, device=dev)[None]
+        yield (tail_k[layer_idx], tail_ks[layer_idx], tail_v[layer_idx],
+               tail_vs[layer_idx], tslot < tail_valid_len[:, None])
+
+    out = online_softmax_tiles(q.reshape(b, hkv, g, d), tiles(), scale)
+    return (out.reshape(b, 1, hq, d).to(q.dtype), tail_k, tail_ks, tail_v,
+            tail_vs)
+
+
+def sink_fused_decode_attention(
+    q: torch.Tensor,
+    q_sink: torch.Tensor,
+    k_new: torch.Tensor,
+    v_new: torch.Tensor,
+    big_k: torch.Tensor,
+    big_ks: torch.Tensor,
+    big_v: torch.Tensor,
+    big_vs: torch.Tensor,
+    sink_k: torch.Tensor,
+    sink_ks: torch.Tensor,
+    sink_v: torch.Tensor,
+    sink_vs: torch.Tensor,
+    tail_k: torch.Tensor,
+    tail_ks: torch.Tensor,
+    tail_v: torch.Tensor,
+    tail_vs: torch.Tensor,
+    layer_idx: int,
+    step_idx: torch.Tensor,
+    ring_len: torch.Tensor,
+    ring_ptr: torch.Tensor,
+    evict_len: torch.Tensor,
+    sink_len: torch.Tensor,
+    tail_valid_len: torch.Tensor,
+    ring_slots: int,
+    scale: Optional[float] = None,
+) -> Tuple[torch.Tensor, ...]:
+    """One fused decode step over the int8 sink ring: one softmax over the
+    ring, the sinks and the write-behind tail.
+
+    ``q`` ``[B, 1, Hq, D]`` rotated at the absolute query position,
+    ``q_sink`` the same query rotated at its window-relative position;
+    ``k_new``/``v_new`` ``[B, 1, Hkv, D]`` (k rotated); ring planes ``[L,
+    B, Hkv, TR, D]`` int8 (+ ``[L, B, Hkv, TR]`` f32 scales); sink planes
+    ``[L, B, Hkv, SP, D]`` (+ scales); tail planes ``[L, B, Hkv, KT, D]``
+    (+ scales), updated IN PLACE. ``layer_idx`` a host int, ``step_idx``
+    one int32 on the device. Per row (int32 ``[B]``): ring slots below
+    ``ring_len`` are live, except the ``evict_len`` slots from
+    ``ring_ptr`` on (mod ``ring_slots``), which the in-flight tail has
+    evicted; sink slots below ``sink_len``; tail slots below
+    ``tail_valid_len``. Returns ``(out [B, 1, Hq, D], tail_k, tail_ks,
+    tail_v, tail_vs)``."""
+    global sink_launches
+    args = (q, q_sink, k_new, v_new, big_k, big_ks, big_v, big_vs, sink_k,
+            sink_ks, sink_v, sink_vs, tail_k, tail_ks, tail_v, tail_vs,
+            layer_idx, step_idx, ring_len, ring_ptr, evict_len, sink_len,
+            tail_valid_len, ring_slots, scale)
+    if q.device.type == "cpu":
+        return sink_fused_decode_attention_plain(*args)
+    if q.device.type != "cuda":
+        raise ValueError(f"sink_fused_decode_attention: device {q.device}")
+    name = "sink_fused_decode_attention"
+    vectors = (("ring_len", ring_len), ("ring_ptr", ring_ptr),
+               ("evict_len", evict_len), ("sink_len", sink_len),
+               ("tail_valid_len", tail_valid_len))
+    code = check_fused_inputs(
+        name, q, k_new, v_new,
+        (("big_k", big_k, torch.int8), ("big_v", big_v, torch.int8),
+         ("big_ks", big_ks, torch.float32), ("big_vs", big_vs, torch.float32),
+         ("sink_k", sink_k, torch.int8), ("sink_v", sink_v, torch.int8),
+         ("sink_ks", sink_ks, torch.float32),
+         ("sink_vs", sink_vs, torch.float32),
+         ("tail_k", tail_k, torch.int8), ("tail_v", tail_v, torch.int8),
+         ("tail_ks", tail_ks, torch.float32),
+         ("tail_vs", tail_vs, torch.float32)),
+        vectors, step_idx)
+    if (q_sink.dtype != q.dtype or q_sink.shape != q.shape
+            or q_sink.device != q.device or not q_sink.is_contiguous()):
+        raise ValueError(f"{name}: q_sink {q_sink.dtype} {tuple(q_sink.shape)} "
+                         f"must match q {q.dtype} {tuple(q.shape)}, contiguous")
+    b, _, hq, d = q.shape
+    num_l, _, hkv, t, _ = big_k.shape
+    sp = sink_k.shape[3]
+    for label, t_, shape in (
+            ("big_k", big_k, (num_l, b, hkv, t, d)),
+            ("big_v", big_v, (num_l, b, hkv, t, d)),
+            ("big_ks", big_ks, (num_l, b, hkv, t)),
+            ("big_vs", big_vs, (num_l, b, hkv, t)),
+            ("sink_k", sink_k, (num_l, b, hkv, sp, d)),
+            ("sink_v", sink_v, (num_l, b, hkv, sp, d)),
+            ("sink_ks", sink_ks, (num_l, b, hkv, sp)),
+            ("sink_vs", sink_vs, (num_l, b, hkv, sp))):
+        if tuple(t_.shape) != shape:
+            raise ValueError(f"{name}: {label} {tuple(t_.shape)}, want {shape}")
+    kt = _tail_planes(tail_k, tail_ks, tail_v, tail_vs, num_l, b, hkv, d)
+    if t % 32 or not 0 < ring_slots <= t or not 1 <= sp <= MAX_TILE:
+        raise ValueError(f"{name}: ring of {ring_slots} slots in planes {t} "
+                         f"wide (a multiple of 32), {sp} sink slots")
+    if not 0 <= layer_idx < num_l:
+        raise ValueError(f"{name}: layer {layer_idx} outside 0..{num_l - 1}")
+    if scale is None:
+        scale = d**-0.5
+    tile = ring_tile_width(t)
+    nt, w = t // tile + 2, max(tile, sp, kt)
+    out = torch.empty_like(q)
+    scratch = fused_scratch(b * hq, nt, w, d, q.device)
+    fn = _fns.get("sink")
+    if fn is None:
+        fn = _build.load_library(
+            "sink_attention").dli_sink_fused_decode_attention
+        fn.argtypes = [ctypes.c_void_p] * 24 + [ctypes.c_int] * 12 + [
+            ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _fns["sink"] = fn
+    with torch.cuda.device(q.device):
+        err = fn(
+            q.data_ptr(), q_sink.data_ptr(), k_new.data_ptr(),
+            v_new.data_ptr(), big_k.data_ptr(), big_ks.data_ptr(),
+            big_v.data_ptr(), big_vs.data_ptr(), sink_k.data_ptr(),
+            sink_ks.data_ptr(), sink_v.data_ptr(), sink_vs.data_ptr(),
+            tail_k.data_ptr(), tail_ks.data_ptr(), tail_v.data_ptr(),
+            tail_vs.data_ptr(), ring_len.data_ptr(), ring_ptr.data_ptr(),
+            evict_len.data_ptr(), sink_len.data_ptr(),
+            tail_valid_len.data_ptr(), step_idx.data_ptr(), out.data_ptr(),
+            scratch.data_ptr(), b, hkv, hq // hkv, d, t, sp, kt, tile,
+            int(layer_idx), int(ring_slots), nt, w, float(scale), code,
+            torch.cuda.current_stream().cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"{name}: kernel launch failed ({err})")
+    sink_launches += 1
+    return out, tail_k, tail_ks, tail_v, tail_vs
+
+
+def _sink_flush_targets(ring_ptr, skip, tail_len, kt: int, ring_slots: int):
+    """``(rows, tail slots, ring slots)`` of every tail slot ``skip <= i <
+    tail_len``: ring slot ``(ring_ptr + i - skip) % ring_slots``."""
+    i = torch.arange(kt, device=tail_len.device)[None, :]
+    keep = (i >= skip[:, None]) & (i < tail_len[:, None])
+    rows, slots = keep.nonzero(as_tuple=True)
+    return rows, slots, torch.remainder(
+        ring_ptr[rows].long() + slots - skip[rows], ring_slots)
+
+
+def sink_tail_flush_plain(big_k, big_ks, big_v, big_vs, tail_k, tail_ks,
+                          tail_v, tail_vs, ring_ptr, skip, tail_len,
+                          ring_slots: int):
+    """Plain PyTorch version of :func:`sink_tail_flush`: the same arguments
+    and results."""
+    rows, slots, pos = _sink_flush_targets(ring_ptr, skip, tail_len,
+                                           tail_k.shape[3], ring_slots)
+    big_k[:, rows, :, pos] = tail_k[:, rows, :, slots]
+    big_v[:, rows, :, pos] = tail_v[:, rows, :, slots]
+    big_ks[:, rows, :, pos] = tail_ks[:, rows, :, slots]
+    big_vs[:, rows, :, pos] = tail_vs[:, rows, :, slots]
+    return big_k, big_ks, big_v, big_vs
+
+
+def sink_tail_flush(
+    big_k: torch.Tensor,
+    big_ks: torch.Tensor,
+    big_v: torch.Tensor,
+    big_vs: torch.Tensor,
+    tail_k: torch.Tensor,
+    tail_ks: torch.Tensor,
+    tail_v: torch.Tensor,
+    tail_vs: torch.Tensor,
+    ring_ptr: torch.Tensor,
+    skip: torch.Tensor,
+    tail_len: torch.Tensor,
+    ring_slots: int,
+):
+    """Merge the fused window's int8 tail into the sink ring's planes, in
+    place: tail token ``i`` of row ``b``, for ``skip[b] <= i <
+    tail_len[b]``, goes to ring slot ``(ring_ptr[b] + i - skip[b]) %
+    ring_slots``; the first ``skip`` tokens are sink-bound and the caller
+    merges them. ``big_*`` ``[L, B, Hkv, TR, D]`` int8 / ``[L, B, Hkv,
+    TR]`` f32, ``tail_*`` ``[L, B, Hkv, KT(, D)]``; ``ring_ptr``, ``skip``,
+    ``tail_len`` ``[B]`` int32 with ``0 <= ring_ptr < ring_slots`` and
+    ``tail_len - skip <= ring_slots`` (no two tokens share a slot).
+    Slots at or past ``ring_slots`` are never written. Returns the four
+    ring planes ``(k, ks, v, vs)``."""
+    global sink_flush_launches
+    args = (big_k, big_ks, big_v, big_vs, tail_k, tail_ks, tail_v, tail_vs,
+            ring_ptr, skip, tail_len, ring_slots)
+    if big_k.device.type == "cpu":
+        return sink_tail_flush_plain(*args)
+    if big_k.device.type != "cuda":
+        raise ValueError(f"sink_tail_flush: device {big_k.device}")
+    num_l, b, hkv, t, d = big_k.shape
+    kt = tail_k.shape[3]
+    for label, t_, dt, shape in (
+            ("big_k", big_k, torch.int8, (num_l, b, hkv, t, d)),
+            ("big_v", big_v, torch.int8, (num_l, b, hkv, t, d)),
+            ("big_ks", big_ks, torch.float32, (num_l, b, hkv, t)),
+            ("big_vs", big_vs, torch.float32, (num_l, b, hkv, t)),
+            ("tail_k", tail_k, torch.int8, (num_l, b, hkv, kt, d)),
+            ("tail_v", tail_v, torch.int8, (num_l, b, hkv, kt, d)),
+            ("tail_ks", tail_ks, torch.float32, (num_l, b, hkv, kt)),
+            ("tail_vs", tail_vs, torch.float32, (num_l, b, hkv, kt)),
+            ("ring_ptr", ring_ptr, torch.int32, (b,)),
+            ("skip", skip, torch.int32, (b,)),
+            ("tail_len", tail_len, torch.int32, (b,))):
+        if t_.dtype != dt or tuple(t_.shape) != shape:
+            raise ValueError(f"sink_tail_flush: {label} {t_.dtype} "
+                             f"{tuple(t_.shape)}, want {dt} {shape}")
+        if t_.device != big_k.device or not t_.is_contiguous():
+            raise ValueError(f"sink_tail_flush: {label} must be contiguous "
+                             f"on {big_k.device}")
+    if d % 16 or not 0 < ring_slots <= t:
+        raise ValueError(f"sink_tail_flush: head_dim {d} (a multiple of 16), "
+                         f"ring of {ring_slots} slots in {t}")
+    fn = _fns.get("sink_flush")
+    if fn is None:
+        fn = _build.load_library("sink_attention").dli_sink_tail_flush
+        fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7 + [
+            ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _fns["sink_flush"] = fn
+    with torch.cuda.device(big_k.device):
+        err = fn(big_k.data_ptr(), big_ks.data_ptr(), big_v.data_ptr(),
+                 big_vs.data_ptr(), tail_k.data_ptr(), tail_ks.data_ptr(),
+                 tail_v.data_ptr(), tail_vs.data_ptr(), ring_ptr.data_ptr(),
+                 skip.data_ptr(), tail_len.data_ptr(), num_l, b, hkv, t, kt,
+                 d, int(ring_slots), torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"sink_tail_flush: kernel launch failed ({err})")
+    sink_flush_launches += 1
     return big_k, big_ks, big_v, big_vs

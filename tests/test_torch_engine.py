@@ -351,8 +351,6 @@ def test_plan_selects_the_kernels_for_the_int8_pool():
 
 
 WAITING = [
-    ("sink", dict(cache=dict(kind="sink"))),
-    ("kv_quant", dict(cache=dict(kind="sink", kv_quant="int8"))),
     ("quantization", dict(engine=dict(quantization="int8_outlier"))),
     ("mesh_cfg", dict(mesh_cfg=object())),
     ("draft", dict(draft=(None, None))),

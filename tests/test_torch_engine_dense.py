@@ -265,13 +265,27 @@ def test_shrink_when_idle_and_capacity_inside_a_window():
     check_shrink({})
 
 
-def test_sink_waits_with_its_roadmap_items():
-    for kv_quant, item in ((None, "item 5"), ("int8", "item 7")):
-        with pytest.raises(NotImplementedError, match=item):
-            InferenceEngine(
-                tcfg.ModelConfig(**MODEL), TPARAMS,
-                tcfg.EngineConfig(dtype="float32"),
-                tcfg.CacheConfig(kind="sink", kv_quant=kv_quant), device="cpu")
+def test_sink_caches_are_created():
+    """Both sink kinds: the cache type and the bytes a window token holds
+    over all layers (model dtype: K and V; int8: K and V and two f32
+    scales); K resolves to 16 on the int8 ring with the kernels (ring span
+    1020 >= 16), to 1 on the model-dtype ring (no tail)."""
+    from distributed_llm_inference_tpu_torch.cache.sink import (
+        QuantizedSinkKVCache,
+        SinkKVCache,
+    )
+
+    for kv_quant, cls in ((None, SinkKVCache), ("int8", QuantizedSinkKVCache)):
+        port = InferenceEngine(
+            tcfg.ModelConfig(**MODEL), TPARAMS,
+            tcfg.EngineConfig(dtype="float32", use_pallas_attention=True),
+            tcfg.CacheConfig(kind="sink", kv_quant=kv_quant), device="cpu",
+            attention_backend="cuda")
+        assert type(port.cache) is cls
+        assert port.decode_steps == (1 if kv_quant is None else 16)
+        assert port.metrics.snapshot()["kv_bytes_per_token"] == (
+            2 * 2 * 2 * 16 * 4 if kv_quant is None
+            else 2 * 2 * (2 * 16 + 8))
 
 
 def test_dense_caches_are_created():

@@ -1,0 +1,304 @@
+"""Port parity, the int8 sink ring's kernels and its fused window: the plain
+versions of ``sink_fused_decode_attention`` (#11) and ``sink_tail_flush``
+(#12) against the JAX package's Pallas kernels in interpret mode, and
+``multi_decode_apply`` over ``QuantizedSinkKVCache`` against the JAX one,
+on the same numpy inputs (CPU tensors, so the wrappers take their plain
+versions).
+
+#11 is held over four steps of a window (KT = 8) at TR = 64 (a ring span of
+50: one 64-wide tile), rows in the sink phase, partly filled, wrapped with
+the evicted range crossing the ring's end, and one that stops after its
+first step; 1 and 2 query heads per kv head, and no sinks at all. Outputs
+within 2e-5 in f32 (both sides round q and p * vs to bf16 at the same
+points over the same tiles and sum in another order), 2e-2 in bf16; the
+tail's int8 values EQUAL from f32 inputs (from bf16 inputs within 1 LSB on
+at most 1% of the values) and its scales within 1e-6 relative (XLA's jit
+rewrites the division by 127), as ``test_torch_fused_attention``
+explains. #12 byte-equal to the JAX kernel and to the cache's own gather
+and select (the JAX cache's ``_ring_flush_xla``): a pointer near the
+ring's end, sink-bound heads (``skip > 0``), an empty tail, a span that is
+not a multiple of 32. The window: identical tokens and planes, the kernel
+form and the segments form, with a one-token prompt whose tail flushes
+into the sink planes and a row that stops inside a window. The planes the
+model computed: int8 values within 1 LSB, scales within 1e-5 relative (the
+projections sum in another order, about 1e-6 relative after some 50
+positions of f32 hidden states)."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from distributed_llm_inference_tpu import config as jcfg
+from distributed_llm_inference_tpu.cache import sink as jsink
+from distributed_llm_inference_tpu.cache.dense import _quantize_kv as jax_quantize_kv
+from distributed_llm_inference_tpu.models import llama as jllama
+from distributed_llm_inference_tpu.ops.quant_attention import (
+    sink_fused_decode_attention as jax_sink_fused,
+    sink_tail_flush as jax_sink_flush,
+)
+from distributed_llm_inference_tpu_torch import config as tcfg
+from distributed_llm_inference_tpu_torch.cache import sink as tsink
+from distributed_llm_inference_tpu_torch.models import llama as tllama
+from distributed_llm_inference_tpu_torch.ops import quant_attention as tqa
+
+torch.set_num_threads(1)
+L, B, HKV, D, KT, SP = 2, 4, 2, 16, 8, 32
+R, TR = 50, 64
+ATOL = {"float32": 2e-5, "bfloat16": 2e-2}
+
+
+def jx(a, dtype=None):
+    return jnp.asarray(a) if dtype is None else jnp.asarray(a, getattr(jnp, dtype))
+
+
+def tt(a, dtype=None):
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    return t if dtype is None else t.to(getattr(torch, dtype))
+
+
+def int8_planes(rng, lead, n):
+    x = rng.standard_normal((2, *lead, n, D)).astype(np.float32)
+    q, s = (np.array(a) for a in jax_quantize_kv(jnp.asarray(x)))
+    return q[0], s[0], q[1], s[1]
+
+
+# Stream lengths at the window's start: a row in the sink phase, a partly
+# filled ring, a wrapped ring whose pointer sits 2 slots before the ring's
+# end (the evicted range crosses it from step 2 on), a row that stops after
+# its first step.
+BASE = [1, 30, 2 + 3 * R + 48, 77]
+
+
+def check_steps(dtype, g, sinks, seed):
+    rng = np.random.default_rng(seed)
+    ring = int8_planes(rng, (L, B, HKV), TR)
+    sink = int8_planes(rng, (L, B, HKV), SP)
+    tail_np = int8_planes(rng, (L, B, HKV), KT)
+    tail_j = [jx(t) for t in tail_np]
+    tail_t = [tt(t).clone() for t in tail_np]
+    base = np.asarray(BASE, np.int32)
+    tail_len = np.zeros(B, np.int32)
+    alive = np.ones(B, np.int32)
+    ring_len = np.clip(base - sinks, 0, R).astype(np.int32)
+    ring_ptr = (np.maximum(base - sinks, 0) % R).astype(np.int32)
+    sink_len = np.minimum(base, sinks).astype(np.int32)
+    layer = 1
+    for step in range(4):
+        q, qs = (rng.standard_normal((B, 1, HKV * g, D)).astype(np.float32)
+                 for _ in range(2))
+        kn, vn = (rng.standard_normal((B, 1, HKV, D)).astype(np.float32)
+                  for _ in range(2))
+        evict = tail_len + alive
+        scalars = dict(ring_len=ring_len, ring_ptr=ring_ptr, evict_len=evict,
+                       sink_len=sink_len, tail_valid_len=evict)
+        out_j, *tail_j = jax_sink_fused(
+            jx(q, dtype), jx(qs, dtype), jx(kn, dtype), jx(vn, dtype),
+            *[jx(a) for a in ring], *[jx(a) for a in sink], *tail_j,
+            layer_idx=jnp.int32(layer), step_idx=jnp.int32(step),
+            ring_slots=R, interpret=True,
+            **{k: jx(v) for k, v in scalars.items()})
+        before = tqa.sink_launches
+        out_t, *tail_t = tqa.sink_fused_decode_attention(
+            tt(q, dtype), tt(qs, dtype), tt(kn, dtype), tt(vn, dtype),
+            *[tt(a) for a in ring], *[tt(a) for a in sink], *tail_t,
+            layer_idx=layer, step_idx=torch.tensor([step], dtype=torch.int32),
+            ring_slots=R, **{k: tt(v) for k, v in scalars.items()})
+        assert tqa.sink_launches == before, "no kernel runs on the CPU"
+        np.testing.assert_allclose(
+            out_t.float().numpy(), np.asarray(out_j, np.float32),
+            atol=ATOL[dtype], rtol=0)
+        for got, want in zip(tail_t, tail_j):
+            want = np.asarray(want)
+            if want.dtype != np.int8:
+                np.testing.assert_allclose(got.numpy(), want, rtol=1e-6,
+                                           atol=0)
+            elif dtype == "float32":
+                np.testing.assert_array_equal(got.numpy(), want)
+            else:
+                diff = np.abs(got.numpy().astype(np.int32) - want)
+                assert diff.max() <= 1 and (diff > 0).mean() <= 0.01
+        tail_len += alive
+        alive[3] = 0
+
+
+# (type, query heads per kv head, sinks): every value of each axis.
+@pytest.mark.parametrize("dtype,g,sinks", [
+    ("float32", 1, 2), ("float32", 2, 2), ("float32", 2, 0),
+    ("bfloat16", 2, 2)])
+def test_sink_fused_decode_attention_matches_jax(dtype, g, sinks):
+    check_steps(dtype, g, sinks, seed=10 * g + sinks)
+
+
+def test_ring_tile_width_follows_the_tpu_kernel():
+    assert [tqa.ring_tile_width(t) for t in (32, 64, 96, 1024, 1056, 160)] == [
+        32, 64, 96, 256, 96, 160]
+
+
+@pytest.mark.parametrize("kt", [8, 16])
+def test_sink_tail_flush_matches_jax(kt):
+    """Rows: a pointer 3 slots before the ring's end (the tail wraps to slot
+    0), sink-bound heads of 1 and of kt tokens, an empty tail, a full tail
+    from slot 0."""
+    rng = np.random.default_rng(kt)
+    mk = lambda *s: rng.integers(-100, 100, s).astype(np.int8)
+    big = [mk(L, 5, HKV, TR, D), rng.random((L, 5, HKV, TR)).astype(np.float32),
+           mk(L, 5, HKV, TR, D), rng.random((L, 5, HKV, TR)).astype(np.float32)]
+    tail = [mk(L, 5, HKV, kt, D), rng.random((L, 5, HKV, kt)).astype(np.float32),
+            mk(L, 5, HKV, kt, D), rng.random((L, 5, HKV, kt)).astype(np.float32)]
+    ring_ptr = np.asarray([R - 3, 0, 0, 17, 0], np.int32)
+    skip = np.asarray([0, 1, kt, 0, 0], np.int32)
+    tail_len = np.asarray([kt, kt, kt, 0, kt], np.int32)
+    want = jax_sink_flush(*[jx(a) for a in big], *[jx(a) for a in tail],
+                          jx(ring_ptr), jx(skip), jx(tail_len), R,
+                          interpret=True)
+    port = [tt(a).clone() for a in big]
+    before = tqa.sink_flush_launches
+    got = tqa.sink_tail_flush(*port, *[tt(a) for a in tail], tt(ring_ptr),
+                              tt(skip), tt(tail_len), R)
+    assert tqa.sink_flush_launches == before
+    # The cache's own gather-and-select merge, on a cache over copies.
+    cache = tsink.QuantizedSinkKVCache(
+        *(tt(a).clone() for a in (big[0], big[2], big[1], big[3])),
+        *(torch.zeros(1) for _ in range(4)), torch.zeros(5, dtype=torch.int32),
+        2, R)
+    for plane, tl in zip((cache.k, cache.ks, cache.v, cache.vs), tail):
+        cache._ring_flush_rows(plane, tt(tl), tt(tail_len), tt(skip),
+                               tt(ring_ptr))
+    for g_, w_, c_, a in zip(got, want, (cache.k, cache.ks, cache.v, cache.vs),
+                             big):
+        np.testing.assert_array_equal(g_.numpy(), np.asarray(w_))
+        np.testing.assert_array_equal(c_.numpy(), np.asarray(w_))
+        assert (g_.numpy()[:, :, :, R:] == a[:, :, :, R:]).all(), "padding"
+    assert (got[0].numpy() != big[0]).any(), "the flush wrote nothing"
+
+
+@pytest.mark.parametrize("use_kernel", [True, False])
+def test_cache_tail_flush_of_a_wide_tail_matches_jax(use_kernel, monkeypatch):
+    """``QuantizedSinkKVCache.tail_flush`` at KT = 48, wider than the TPU
+    kernel's 32-slot blocks (the JAX cache takes its gather-and-select
+    there): the kernel form still goes through ``sink_tail_flush``, and
+    both forms place the bytes the JAX cache places, ring and sink planes
+    alike. Rows: empty, in the sink phase (a sink-bound head), a pointer 3
+    slots before the ring's end, a wrapped ring."""
+    kt, s = 48, 2
+    rng = np.random.default_rng(48)
+    mk = lambda *sh: rng.integers(-100, 100, sh).astype(np.int8)
+    fl = lambda *sh: rng.random(sh).astype(np.float32)
+    planes = dict(k=mk(L, B, HKV, TR, D), v=mk(L, B, HKV, TR, D),
+                  ks=fl(L, B, HKV, TR), vs=fl(L, B, HKV, TR),
+                  sk=mk(L, B, HKV, SP, D), sv=mk(L, B, HKV, SP, D),
+                  sks=fl(L, B, HKV, SP), svs=fl(L, B, HKV, SP))
+    tail = (mk(L, B, HKV, kt, D), mk(L, B, HKV, kt, D), fl(L, B, HKV, kt),
+            fl(L, B, HKV, kt))
+    lengths = np.asarray([0, 1, s + R - 3, s + 3 * R + 11], np.int32)
+    tail_len = np.asarray([kt, 5, kt, 30], np.int32)
+    jc = jsink.QuantizedSinkKVCache.create(L, B, R + s, s, HKV, D)
+    jc = jc.replace(lengths=jx(lengths), **{n: jx(a) for n, a in planes.items()})
+    want = jc.tail_flush(tuple(jx(a) for a in tail), jx(tail_len))
+    tc = tsink.QuantizedSinkKVCache.create(L, B, R + s, s, HKV, D,
+                                           use_kernel=use_kernel, device="cpu")
+    for name, a in planes.items():
+        getattr(tc, name).copy_(tt(a))
+    tc.lengths.copy_(tt(lengths))
+    seen = []
+    real = tqa.sink_tail_flush
+    monkeypatch.setattr(tqa, "sink_tail_flush",
+                        lambda *a: seen.append(1) or real(*a))
+    tc.tail_flush(tuple(tt(a) for a in tail), tt(tail_len))
+    assert len(seen) == (1 if use_kernel else 0)
+    for name in (*planes, "lengths"):
+        np.testing.assert_array_equal(getattr(tc, name).numpy(),
+                                      np.asarray(getattr(want, name)), name)
+    assert (tc.sk.numpy() != planes["sk"]).any(), "no sink-bound head"
+
+
+# ---------------------------------------------------------------------------
+# The fused window over the int8 ring
+# ---------------------------------------------------------------------------
+
+HQ = 4
+MODEL = dict(vocab_size=64, hidden_size=32, intermediate_size=96,
+             num_layers=L, num_heads=HQ, num_kv_heads=HKV, head_dim=8)
+JCFG, TCFG = jcfg.ModelConfig(**MODEL), tcfg.ModelConfig(**MODEL)
+JPARAMS = jllama.init_params(JCFG, jax.random.PRNGKey(1), dtype=jnp.float32)
+TPARAMS = tllama.params_from_numpy(
+    TCFG, jax.tree_util.tree_map(np.asarray, JPARAMS), torch.float32, "cpu")
+
+
+@pytest.fixture
+def calls(monkeypatch):
+    counts = {}
+    for name in ("sink_fused_decode_attention", "sink_tail_flush"):
+        real = getattr(tqa, name)
+
+        def spy(*a, _real=real, _name=name, **k):
+            counts[_name] = counts.get(_name, 0) + 1
+            return _real(*a, **k)
+
+        monkeypatch.setattr(tqa, name, spy)
+    return counts
+
+
+@pytest.mark.parametrize("use_kernel", [True, False], ids=["kernel", "segments"])
+def test_multi_decode_apply_matches_jax(use_kernel, calls):
+    """Window 40 with 2 sinks (r = 38, TR = 64), three windows of K = 8
+    after a prefill of 30, 1 and 17 tokens: the first row wraps, the second
+    flushes its head into the sinks, the third stops two steps into the
+    second window and stays idle. Tokens identical every window, planes
+    equal at the end."""
+    window, sinks, k_steps = 40, 2, 8
+    jc = jsink.QuantizedSinkKVCache.create(L, 3, window, sinks, HKV, 8,
+                                           use_kernel=use_kernel)
+    tc = tsink.QuantizedSinkKVCache.create(L, 3, window, sinks, HKV, 8,
+                                           use_kernel=use_kernel, device="cpu")
+    rng = np.random.default_rng(5)
+    tokens = rng.integers(0, 64, (3, 30)).astype(np.int32)
+    n = np.asarray([30, 1, 17], np.int32)
+    _, jc = jllama.model_apply(JCFG, JPARAMS, jnp.asarray(tokens), jc,
+                               jnp.asarray(n))
+    _, tc = tllama.model_apply(TCFG, TPARAMS, tt(tokens), tc, tt(n))
+    first = rng.integers(0, 64, (3, 1)).astype(np.int32)
+    jt, ttok = jnp.asarray(first), tt(first)
+    for w in range(3):
+        budget = np.asarray([k_steps, k_steps, 2 if w == 1 else
+                             (k_steps if w == 0 else 0)], np.int32)
+        active = budget > 0
+
+        def jstep(i, logits, alive, _b=jnp.asarray(budget)):
+            nxt = jnp.argmax(logits, axis=-1).astype(jnp.int32)
+            emitted = jnp.where(alive, nxt, -1)
+            alive = alive & (i + 1 < _b)
+            return nxt, alive.astype(jnp.int32), alive, emitted
+
+        def tstep(i, logits, alive, _b=tt(budget)):
+            nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+            emitted = torch.where(alive, nxt, -1)
+            alive = alive & (i + 1 < _b)
+            return nxt, alive.to(torch.int32), alive, emitted
+
+        want, jc = jllama.multi_decode_apply(
+            JCFG, JPARAMS, jt, jc, k_steps, jstep, jnp.asarray(active),
+            jnp.asarray(active.astype(np.int32)))
+        got, tc = tllama.multi_decode_apply(
+            TCFG, TPARAMS, ttok, tc, k_steps, tstep, tt(active),
+            tt(active.astype(np.int32)))
+        want = np.asarray(want)
+        np.testing.assert_array_equal(got.numpy(), want, err_msg=f"window {w}")
+        last = np.where(want[-1] >= 0, want[-1], 0)[:, None].astype(np.int32)
+        jt, ttok = jnp.asarray(last), tt(last)
+    np.testing.assert_array_equal(tc.lengths.numpy(), np.asarray(jc.lengths))
+    assert tc.lengths.tolist() == [30 + 24, 1 + 24, 17 + 10]
+    for name in tsink.QuantizedSinkKVCache.PLANE_FIELDS:
+        got, want = getattr(tc, name).numpy(), np.asarray(getattr(jc, name))
+        if got.dtype == np.int8:
+            assert np.abs(got.astype(np.int32) - want).max() <= 1, name
+        else:
+            np.testing.assert_allclose(got, want, rtol=1e-5, atol=0,
+                                       err_msg=name)
+    if use_kernel:
+        assert calls == {"sink_fused_decode_attention": 3 * k_steps * L,
+                         "sink_tail_flush": 3}
+    else:
+        assert calls == {}

@@ -18,6 +18,14 @@ one line per engine configuration or comparison):
               `quantized_paged_attention`, `quantized_ragged_paged_attention`
               at Llama-3-8B shapes (32 query heads, 8 kv heads, head_dim 128,
               page size 64; once as MHA too), mixed lengths and an empty row;
+              the ragged pair also over pools of page size 16, 48, 128 and 12
+              in one B = 8 launch (a prompt, a chunk of 600 queries from
+              position 1500, a decode token, an empty row, lengths off the
+              kernel's 128-slot step), without a window and with windows of
+              300 and 77 slots, and as MHA; besides, `nvcc -Xptxas -v`'s
+              registers, shared memory and spills of their wgmma instances,
+              their launch plans (C against the wrapper's `launch_plan`) and
+              the host time a launch spends encoding its tensor maps;
               `int4_matmul` and `int4_matmul_stacked` at the model's
               projection shapes and odd ones; the fused window's
               `quantized_paged_fused_attention` (the int8 pool in place),
@@ -110,6 +118,7 @@ with that key: phase 2 lists its results under `checked`), and the last line
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import dataclasses
 import json
 import subprocess
@@ -491,11 +500,51 @@ def check_cases(dtype):
         compare_int4(cases, f"{tag}_l{layer}", dtype, x, w, layer)
         if num_l == 1:
             compare_int4(cases, tag, dtype, x, w)
+    ragged_cases(cases, dtype, rng)
     fused_cases(cases, dtype, rng)
     dense_cases(cases, dtype, rng)
     sink_cases(cases, dtype, rng)
     assert_cases(cases, dtype)
     return cases
+
+
+# The ragged kernels' edges: one B = 8 launch padded to S = 640 that mixes a
+# prompt, a chunk of 600 queries from q_start 1500 (five 128-slot ring steps
+# and more, q_start off the step grid), a decode token whose position lies
+# before the row's newest slot, an empty row, prompts and chunks whose
+# lengths are not multiples of 128 (and one of 129); kv rows of up to 2100
+# slots.
+RAGGED_ROWS = {"q_start": [0, 1500, 990, 0, 0, 200, 130, 0],
+               "num_new": [300, 600, 1, 0, 640, 77, 5, 129],
+               "kv_len": [300, 2100, 1000, 0, 640, 277, 135, 129]}
+
+
+def ragged_cases(cases, dtype, rng):
+    """#1 and #4 over pools of page size 16, 48 and 128 (64 is above) and
+    12 (boxes of 4 rows): the B = 8 launch of ``RAGGED_ROWS``, without a
+    window and with windows of 300 and 77 slots, which start inside a
+    128-slot step; the same rows as MHA at page size 48."""
+    rows = {k: i32(v) for k, v in RAGGED_ROWS.items()}
+    s = max(RAGGED_ROWS["num_new"])
+    q = normal(rng, (8, s, HQ, D), dtype)
+    for ps in (16, 48, 128, 12):
+        width = -(-max(RAGGED_ROWS["kv_len"]) // ps) + 1
+        pages = 8 * width + 1
+        pools = (make_pool(rng, pages, dtype, ps=ps),
+                 make_qpool(rng, pages, ps=ps))
+        table = make_table(rng, 8, width, pages)
+        for pool in pools:
+            rname = ragged_fns(pool)[0]
+            for window in (None, 300, 77):
+                compare_ragged(cases, f"{rname}_ps{ps}_b8_window_{window}",
+                               dtype, q, pool, table, rows["kv_len"],
+                               rows["num_new"], q_start=rows["q_start"],
+                               sliding_window=window)
+            if ps == 48:
+                compare_ragged(cases, f"{rname}_ps{ps}_b8_mha", dtype,
+                               q[:, :, :HKV].contiguous(), pool, table,
+                               rows["kv_len"], rows["num_new"],
+                               q_start=rows["q_start"], sliding_window=300)
 
 
 # ---------------------------------------------------------------------------
@@ -1238,15 +1287,94 @@ CASE_PREFIX = {
 }
 
 
+def ptxas_lines(proc):
+    """Registers, shared memory and spills of the bf16 ragged kernels'
+    instances (``ragged_kernel_wgmma<G, int8 pages>``) from ``nvcc -Xptxas
+    -v``."""
+    out, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError("nvcc -Xptxas -v failed:\n" + out[-4000:])
+    report, name = {}, None
+    for line in out.splitlines():
+        if "Compiling entry function" in line:
+            mangled = line.split("'")[1]
+            name = None
+            if "ragged_kernel_wgmma" in mangled:
+                # ...ragged_kernel_wgmmaILi<G>ELb<Q8>E...
+                args = mangled.split("ragged_kernel_wgmmaILi")[1]
+                g, q8 = args[0], args[4] == "1"
+                name = f"G={g} {'int8' if q8 else 'bf16'} pages"
+        elif name and ("Used" in line or "spill" in line):
+            report.setdefault(name, []).append(
+                line.split("info    :")[-1].strip())
+    assert len(report) == 4, report
+    return report
+
+
+def check_launch_plans():
+    """The C side's launch of the bf16 ragged kernels against the wrapper's
+    ``launch_plan`` at the shapes phase 2 uses."""
+    fn = _build.load_library("ragged_attention").dli_ragged_launch_plan
+    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    got = (ctypes.c_longlong * 5)()
+    plans = []
+    for s, g, ps, q8 in ((2048, 4, 64, 0), (2048, 4, 64, 1), (640, 1, 48, 1),
+                         (640, 4, 12, 0), (256, 4, 16, 1), (640, 1, 128, 0)):
+        assert fn(s, g, D, ps, q8, ctypes.addressof(got)) == 0
+        plan = ra.launch_plan(1, s, HKV, g, D, ps, 64, bool(q8))
+        want = [plan["box_rows"], plan["tiles"], plan["threads"],
+                plan["smem_bytes"], plan["stage_bytes"]]
+        assert list(got) == want, (s, g, ps, q8, list(got), want)
+        plans.append({"S": s, "G": g, "PS": ps, "int8": bool(q8),
+                      "box_rows": want[0], "tiles": want[1],
+                      "threads": want[2], "smem_bytes": want[3],
+                      "stage_bytes": want[4]})
+    return plans
+
+
+def tensor_map_host_us(calls=200):
+    """Host microseconds of one call of the ragged kernels' C entry point
+    on a one-token row, bf16 (three tensor maps encoded, the wgmma kernel)
+    and f32 (no maps, the FMA kernel), behind a device spin: their
+    difference is what encoding the maps costs a launch."""
+    fn = ra._kernel(False)
+    stream = torch.cuda.current_stream().cuda_stream
+    rows = i32([1])
+    table = i32([[1]])
+    got = {}
+    for dtype, code in ((torch.bfloat16, 0), (torch.float32, 1)):
+        k = torch.zeros((2, HKV, PS, D), dtype=dtype, device=DEV)
+        q = torch.zeros((1, 1, HQ, D), dtype=dtype, device=DEV)
+        out = torch.empty_like(q)
+        args = (q.data_ptr(), k.data_ptr(), k.data_ptr(), table.data_ptr(),
+                rows.data_ptr(), i32([0]).data_ptr(), rows.data_ptr(),
+                out.data_ptr(), 1, 1, HKV, HQ // HKV, D, PS, 1, 0.1, 0, code,
+                stream)
+        assert fn(*args) == 0
+        torch.cuda.synchronize()
+        torch.cuda._sleep(40 * SPIN_CYCLES)
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn(*args)
+        got[str(dtype).split(".")[1]] = (time.perf_counter() - t0) / calls * 1e6
+        torch.cuda.synchronize()
+    got["maps"] = got["bfloat16"] - got["float32"]
+    return got
+
+
 def phase_kernels():
     t0 = time.perf_counter()
+    ptxas = _build.ptxas_report("ragged_attention")
     built = _build.build_all()
     build_s = time.perf_counter() - t0
+    resources = ptxas_lines(ptxas)
+    plans = check_launch_plans()
     torch.backends.cuda.matmul.allow_tf32 = False  # plain f32 stays f32
     errs = {}
     for dtype in (torch.bfloat16, torch.float32):
         errs[dtype] = check_cases(dtype)
     times = time_kernels()
+    map_us = tensor_map_host_us()
     kernels = []
     for name, prefix in CASE_PREFIX.items():
         entry = {"name": name}
@@ -1263,6 +1391,8 @@ def phase_kernels():
         kernels.append(entry)
     emit({"phase": "kernels", "build_s": build_s,
           "libraries": {k: str(p.name) for k, p in built.items()},
+          "ragged_wgmma_ptxas": resources, "ragged_launch_plans": plans,
+          "ragged_c_call_host_us": map_us,
           "checked": kernels})
     return times
 

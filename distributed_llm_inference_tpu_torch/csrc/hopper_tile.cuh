@@ -1,0 +1,358 @@
+// Hopper (sm_90a) building blocks for attention kernels fed by the Tensor
+// Memory Accelerator: mbarriers, TMA tile loads and stores, the warpgroup
+// product (wgmma) with its shared-memory descriptors, and the host-side
+// encoding of tensor maps. Used by ragged_attention.cu (the ragged paged
+// prefill kernels); flash_attention.cu can take the same blocks.
+//
+// Tensor maps are encoded with cuTensorMapEncodeTiled, reached through
+// cudaGetDriverEntryPoint: the libraries link only the CUDA runtime, never
+// -lcuda. cuda.h is included for the types alone.
+#pragma once
+
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace hopper {
+
+// ---------------------------------------------------------------------------
+// device: barriers and copies
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(count) : "memory");
+}
+
+// Makes the initialised barriers visible to the async proxy (TMA); follow
+// with __syncthreads().
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(smem_u32(bar)) : "memory");
+}
+
+// One arrival that also announces `bytes` of TMA traffic for this phase.
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar,
+                                                      uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+// Spins until the phase of parity `parity` has completed. A fresh barrier
+// is in phase 0, so waiting on parity 1 returns at once (a producer's first
+// wait on an empty slot).
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  }
+}
+
+// A box of a 2-D tensor map, coordinates innermost first, into shared
+// memory; completion is counted in bytes on `bar`. Coordinates outside the
+// map (negative ones included) read as zeros and still count.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// A box of a 4-D tensor map from shared memory, coordinates innermost
+// first; rows outside the map are not written. Then commit the bulk group
+// and wait until its shared memory has been read.
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map,
+                                             const void* src, int c0, int c1,
+                                             int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4, %5}], [%1];\n"
+      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(src)), "r"(c0),
+         "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_store_wait() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// 4 bytes global -> shared, asynchronously; zeros when !live (no read).
+__device__ __forceinline__ void cp_async_4(void* dst, const void* src,
+                                           bool live) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(live ? 4 : 0)
+               : "memory");
+}
+
+// `bar` receives one arrival (counted in its init) once every cp.async
+// this thread issued before has landed.
+__device__ __forceinline__ void cp_async_arrive_noinc(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n"
+               :: "r"(smem_u32(bar)) : "memory");
+}
+
+// Writes of the generic proxy (ordinary stores) become visible to the async
+// proxy (wgmma operand reads, TMA).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Barrier `id` (1..15) over `threads` threads (a multiple of 32): wait
+// until `threads` have arrived, or arrive without waiting.
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
+}
+
+__device__ __forceinline__ void named_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
+}
+
+// Moves registers between the warpgroups of a block: a whole warpgroup
+// lowers or raises its per-thread count (a multiple of 8 in 24..256); raising
+// waits until other warpgroups have released enough.
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(N));
+}
+
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(N));
+}
+
+// 2^x on the special function unit; 2^-inf is exactly 0.
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t prmt(uint32_t a, uint32_t b,
+                                         uint32_t sel) {
+  uint32_t r;
+  asm("prmt.b32 %0, %1, %2, %3;\n" : "=r"(r) : "r"(a), "r"(b), "r"(sel));
+  return r;
+}
+
+// 4 int8 (one word, element 0 in the low byte) as two bf16x2 words,
+// exactly and without conversion instructions: each byte, biased to
+// b + 128, becomes the low mantissa byte of 2^23 (f32 bits 0x4B0000uu);
+// subtracting 2^23 + 128 leaves b as an f32 integer, whose top 16 bits are
+// its bf16 (|b| <= 128 needs 8 significant bits).
+__device__ __forceinline__ void i8x4_to_bf16x2(uint32_t w, uint32_t& lo,
+                                               uint32_t& hi) {
+  const uint32_t u = w ^ 0x80808080u;
+  const float x0 = __uint_as_float(prmt(u, 0x4B000000u, 0x7650)) - 8388736.f;
+  const float x1 = __uint_as_float(prmt(u, 0x4B000000u, 0x7651)) - 8388736.f;
+  const float x2 = __uint_as_float(prmt(u, 0x4B000000u, 0x7652)) - 8388736.f;
+  const float x3 = __uint_as_float(prmt(u, 0x4B000000u, 0x7653)) - 8388736.f;
+  lo = prmt(__float_as_uint(x0), __float_as_uint(x1), 0x7632);
+  hi = prmt(__float_as_uint(x2), __float_as_uint(x3), 0x7632);
+}
+
+// ---------------------------------------------------------------------------
+// device: the warpgroup product
+// ---------------------------------------------------------------------------
+
+// Shared-memory operand descriptor, 128-byte swizzle: start address, the
+// leading and stride byte offsets (16-byte units), layout type 1 (B128).
+// K-major tiles (rows of 128 bytes, 8-row groups 1024 bytes apart): SBO =
+// 1024, LBO unused. MN-major tiles: LBO = the distance between 64-element
+// column blocks, SBO = 1024 between groups of 8 k-rows. The tile's base must
+// be 1024-aligned; a k offset inside the 128-byte row is added to the start
+// address (the swizzle is applied to the address bits).
+__device__ __forceinline__ uint64_t desc_sw128(const void* p, uint32_t lbo,
+                                               uint32_t sbo) {
+  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+
+// Keeps the compiler from moving reads or writes of an accumulator across
+// the asynchronous product (call after wgmma_wait, before wgmma_fence).
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+
+#define HOPPER_D8(i)                                                    \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),           \
+      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+#define HOPPER_D64                                                      \
+  HOPPER_D8(0), HOPPER_D8(8), HOPPER_D8(16), HOPPER_D8(24), HOPPER_D8(32), \
+      HOPPER_D8(40), HOPPER_D8(48), HOPPER_D8(56)
+#define HOPPER_R64                                                      \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "  \
+  "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "   \
+  "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "   \
+  "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "   \
+  "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
+
+#define HOPPER_O8(i)                                                    \
+  "=f"(d[i]), "=f"(d[i + 1]), "=f"(d[i + 2]), "=f"(d[i + 3]),           \
+      "=f"(d[i + 4]), "=f"(d[i + 5]), "=f"(d[i + 6]), "=f"(d[i + 7])
+#define HOPPER_O64                                                      \
+  HOPPER_O8(0), HOPPER_O8(8), HOPPER_O8(16), HOPPER_O8(24), HOPPER_O8(32), \
+      HOPPER_O8(40), HOPPER_O8(48), HOPPER_O8(56)
+
+// D[64 x 128] += A[64 x 16] B[16 x 128], bf16 in, f32 accumulators; A and
+// B in shared memory, both K-major. Warp w of the warpgroup holds rows
+// 16w + g and 16w + g + 8 (g = lane / 4): d[4j], d[4j+1] at columns
+// 8j + 2t, 8j + 2t + 1 of the first, d[4j+2], d[4j+3] of the second
+// (t = lane % 4).
+__device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64],
+                                                    uint64_t desc_a,
+                                                    uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " HOPPER_R64
+      ", %64, %65, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : HOPPER_D64
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
+// As wgmma_m64n128k16_ss, D = A B: the first k-step of a product, which
+// reads nothing of d (so d is not live before it).
+__device__ __forceinline__ void wgmma_m64n128k16_ss_first(float (&d)[64],
+                                                          uint64_t desc_a,
+                                                          uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " HOPPER_R64
+      ", %64, %65, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : HOPPER_O64
+      : "l"(desc_a), "l"(desc_b), "r"(0));
+}
+
+// D[64 x 128] += A[64 x 16] B[16 x 128], A from registers (the mma.sync
+// m16n8k16 A fragment per warp: a[0] = A[g][2t..], a[1] = A[g+8][2t..],
+// a[2] = A[g][2t+8..], a[3] = A[g+8][2t+8..]), B MN-major in shared memory
+// (transposed on the way in).
+__device__ __forceinline__ void wgmma_m64n128k16_rs_tb(float (&d)[64],
+                                                       const uint32_t (&a)[4],
+                                                       uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " HOPPER_R64
+      ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n"
+      "}\n"
+      : HOPPER_D64
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+#undef HOPPER_D8
+#undef HOPPER_D64
+#undef HOPPER_O8
+#undef HOPPER_O64
+#undef HOPPER_R64
+
+// ---------------------------------------------------------------------------
+// host: tensor maps
+// ---------------------------------------------------------------------------
+
+using EncodeTiledFn = CUresult (*)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+// The driver's cuTensorMapEncodeTiled, looked up once; null if the driver
+// has none.
+inline EncodeTiledFn encode_tiled_fn() {
+  static const EncodeTiledFn fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess)
+      return EncodeTiledFn(nullptr);
+    return reinterpret_cast<EncodeTiledFn>(p);
+  }();
+  return fn;
+}
+
+// A tiled map of `rank` dimensions, innermost first: `dims` in elements,
+// `strides` in bytes for dimensions 1.. (rank - 1 of them), `box` in
+// elements, unit element strides, zeros out of bounds. Returns 0, or -2 if
+// the driver refused it.
+inline int encode_map(CUtensorMap* map, CUtensorMapDataType type, int rank,
+                      const void* base, const uint64_t* dims,
+                      const uint64_t* strides, const uint32_t* box,
+                      CUtensorMapSwizzle swizzle) {
+  const EncodeTiledFn fn = encode_tiled_fn();
+  if (fn == nullptr) return -2;
+  cuuint64_t d[5], s[4];
+  cuuint32_t b[5], e[5];
+  for (int i = 0; i < rank; ++i) {
+    d[i] = dims[i];
+    b[i] = box[i];
+    e[i] = 1;
+    if (i + 1 < rank) s[i] = strides[i];
+  }
+  const CUresult r = fn(map, type, (cuuint32_t)rank, const_cast<void*>(base),
+                        d, s, b, e, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : -2;
+}
+
+}  // namespace hopper

@@ -24,10 +24,10 @@ KERNEL_SOURCES = (
     "flash_attention", "int4_matmul", "paged_attention", "quant_attention",
     "ragged_attention", "sink_attention",
 )
-NVCC_FLAGS = (
+COMPILE_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
 )
+NVCC_FLAGS = (*COMPILE_FLAGS, "-shared", "-Xcompiler", "-fPIC")
 
 _libs: Dict[str, ctypes.CDLL] = {}
 
@@ -85,6 +85,19 @@ def build_all(names: Sequence[str] = KERNEL_SOURCES) -> Dict[str, Path]:
     for item in started:
         _finish(*item)
     return paths
+
+
+def ptxas_report(name: str) -> subprocess.Popen:
+    """Start ``nvcc -Xptxas -v`` on ``csrc/<name>.cu``, device code only
+    (a cubin in the build directory, not loaded). Its output, read from the
+    process's stdout, gives each kernel instance's registers, shared memory
+    and spills."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    return subprocess.Popen(
+        [_nvcc(), *COMPILE_FLAGS, "-Xptxas", "-v", "-cubin",
+         "-o", str(BUILD_DIR / f"{name}.cubin"), str(CSRC / f"{name}.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+    )
 
 
 def load_library(name: str) -> ctypes.CDLL:

@@ -9,11 +9,14 @@ is bound by operations (the products Q K^T and P V), so
 ``csrc/ragged_attention.cu`` cuts the work to what the data needs: a block
 per (query tile, kv head, row) stops at its tile's causal frontier, tiles of
 pad queries exit at once, and pages are read in place (no contiguous
-gather copy). The products run on the tensor cores (``mma.sync``) for bf16
-and as register-tiled f32 FMAs for f32, which the engine's exact-parity
-checks need. Over int8 pages the staging converts K and V rows to the
-working type in shared memory and the scales apply to the scores (K) and to
-the probabilities before P V (V).
+gather copy). For bf16 queries a block holds 128 score rows in two
+warpgroups that run ``wgmma``, fed by a producer warpgroup that keeps a ring
+of K/V tiles in flight by TMA, in boxes of ``box_rows(page_size)`` rows,
+the heaviest query tiles launched first (:func:`launch_plan`). For f32
+the products are register-tiled FMAs, which the engine's exact-parity
+checks need. Over int8 pages K and V are converted to the working type in
+shared memory and the scales apply to the scores (K) and to the
+probabilities before P V (V).
 
 The wrappers launch the kernel for CUDA tensors and raise on anything the
 kernel does not take; they use the plain version only for tensors that lie
@@ -24,6 +27,7 @@ on the CPU. ``launches`` and ``quantized_launches`` count kernel launches
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Optional
 
 import torch
@@ -40,6 +44,9 @@ __all__ = [
     "ragged_attention_reference",
     "launches",
     "quantized_launches",
+    "box_rows",
+    "tile_of",
+    "launch_plan",
 ]
 
 # Kernel launches made by :func:`ragged_paged_attention` /
@@ -48,6 +55,84 @@ launches = 0
 quantized_launches = 0
 
 _fn = {}
+
+# The bf16 kernel's tiles (csrc/ragged_attention.cu): score rows a block
+# (two warpgroups of 64), kv slots a ring step, the most pool rows one TMA
+# box brings.
+BLOCK_ROWS = 128
+STEP = 128
+MAX_BOX_ROWS = 64
+_HALF = STEP * 128  # one 64-column bf16 half (or one int8 plane) of a step
+
+
+def box_rows(page_size: int) -> int:
+    """Pool rows one TMA box of the bf16 kernel brings: ``gcd(page_size,
+    64)``, so that a box never crosses a page whatever the page size."""
+    if page_size <= 0:
+        raise ValueError(f"page_size must be positive, got {page_size}")
+    return math.gcd(page_size, MAX_BOX_ROWS)
+
+
+def tile_of(z: int, tiles: int) -> int:
+    """The query tile that the bf16 kernel's blocks at grid index ``z``
+    serve: the last tile first. A later tile's causal walk is never
+    shorter, so the longest walks start in the first wave and the short
+    ones fill in behind."""
+    return tiles - 1 - z
+
+
+def launch_plan(batch: int, seq: int, num_kv_heads: int, group: int,
+                head_dim: int, page_size: int, num_pages: int,
+                quantized: bool) -> dict:
+    """The bf16 kernel's launch as ``csrc/ragged_attention.cu`` makes it
+    (its ``dli_ragged_launch_plan`` reports the same numbers): the grid
+    ``(Hkv, B, query tiles)`` (tiles launched in :func:`tile_of`'s order),
+    the tensor maps (dimensions innermost first, byte strides of the outer
+    dimensions, box), the bytes each ring stage receives and the dynamic
+    shared memory. The pools are viewed as rows
+    ``[P * Hkv * PS, D]``; the map's row extent is 2^31, so every row a
+    page table can name must lie below it. Raises ``ValueError`` on what
+    the launch cannot take."""
+    hq = num_kv_heads * group
+    if head_dim != 128 or group not in (1, 4):
+        raise ValueError(f"no bf16 instance for head_dim {head_dim}, group {group}")
+    rows = box_rows(page_size)
+    tiles = -(-seq // (BLOCK_ROWS // group))
+    pool_rows = num_pages * num_kv_heads * page_size
+    if pool_rows > 2**31:
+        raise ValueError(
+            f"the pool's {pool_rows} rows exceed the tensor map's 2^31")
+    if tiles > 65535:
+        raise ValueError(f"{tiles} query tiles exceed the grid's 65535")
+    esz = 1 if quantized else 2
+    # Q, then bf16 pages: a ring of 3 stages of K and V; int8 pages: 2
+    # converted bf16 stages, 2 int8 stages and their K and V scales. Then
+    # one barrier for Q and 2 (bf16) or 7 (int8) a stage.
+    stages = 2 if quantized else 3
+    stage_tx = (2 if quantized else 4) * _HALF
+    smem = 2 * _HALF + stages * 4 * _HALF
+    if quantized:
+        smem += stages * (stage_tx + 2 * STEP * 4)
+    smem += (1 + (7 if quantized else 2) * stages) * 8
+    return {
+        "grid": (num_kv_heads, batch, tiles),
+        "tiles": tiles,
+        # two consumer warpgroups and a producer one: the TMA warp, and 3
+        # converter warps for int8 pages
+        "threads": 384,
+        "stages": stages,
+        "box_rows": rows,
+        "boxes_per_step": STEP // rows * (1 if quantized else 2) * 2,
+        "q_map": {"dims": (head_dim, hq, seq, batch),
+                  "strides": (head_dim * 2, hq * head_dim * 2,
+                              seq * hq * head_dim * 2),
+                  "box": (64, group, BLOCK_ROWS // group, 1), "swizzle": 128},
+        "kv_map": {"dims": (head_dim, 2**31), "strides": (head_dim * esz,),
+                   "box": (128 if quantized else 64, rows),
+                   "swizzle": 0 if quantized else 128},
+        "stage_bytes": stage_tx,
+        "smem_bytes": smem,
+    }
 
 
 def _kernel(quantized: bool = False):
@@ -159,7 +244,10 @@ def _launch(name, q, k_pages, v_pages, page_table, kv_lengths, num_new,
          ("q_start", q_start)), scales,
     )
     b, s, hq, d = q.shape
-    _, hkv, page_size, _ = k_pages.shape
+    num_pages, hkv, page_size, _ = k_pages.shape
+    if q.dtype == torch.bfloat16:  # raises on what the launch cannot take
+        launch_plan(b, s, hkv, hq // hkv, d, page_size, num_pages,
+                    bool(scales))
     if scale is None:
         scale = d**-0.5
     if scales:
@@ -206,7 +294,8 @@ def ragged_paged_attention(
     absolute position of each row's first query (defaults to
     ``kv_lengths - num_new``). Returns ``[B, S, Hq, D]`` with pad query rows
     zeroed. ``block_q`` is accepted for signature parity with the JAX
-    function; the CUDA kernel fixes its own query tile (64 score rows).
+    function; the CUDA kernel fixes its own query tile (128 score rows for
+    bf16, 64 for f32).
     """
     global launches
     del block_q

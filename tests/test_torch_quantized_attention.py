@@ -136,6 +136,29 @@ def test_ragged_explicit_q_start():
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
 
 
+@pytest.mark.parametrize("page_size", [16, 48, 128])
+def test_ragged_page_sizes_match_jax_kernel(page_size):
+    """The page sizes whose TMA boxes the CUDA kernel cuts differently
+    (gcd(PS, 64) rows), with rows off its 128-slot step: a 20-query prompt
+    over 200 slots, a 17-query chunk, a decode row and an empty row, and a
+    window of 40 that starts inside a step; atol 2e-5, f32 on both sides."""
+    rng = np.random.default_rng(page_size)
+    B, S, hq, hkv, D = 4, 20, 4, 2, 16
+    kv_len = np.asarray([200, 150, 133, 0], np.int32)
+    T = -(-int(kv_len.max()) // page_size) + 1
+    P = B * T + 1
+    q = rng.standard_normal((B, S, hq, D)).astype(np.float32)
+    pool = int8_pool(rng, P, hkv, page_size, D)
+    table = (rng.permutation(P - 1)[: B * T].reshape(B, T) + 1).astype(np.int32)
+    args = (q, *pool, table, kv_len, np.asarray([20, 17, 1, 0], np.int32))
+    got = tra.quantized_ragged_paged_attention(
+        *[torch.as_tensor(a) for a in args], sliding_window=40).numpy()
+    want = np.asarray(jax_qragged(*[jnp.asarray(a) for a in args],
+                                  interpret=True, sliding_window=40))
+    np.testing.assert_allclose(got, want, atol=ATOL)
+    assert np.abs(got[3]).max() == 0.0 and np.abs(got[2, 1:]).max() == 0.0
+
+
 def test_wrappers_never_fall_back_for_other_devices():
     meta = [torch.as_tensor(a).to("meta") for a in paged_inputs(4, 4, 2, [5])]
     with pytest.raises(ValueError, match="unsupported device"):

@@ -120,3 +120,112 @@ def test_wrapper_never_falls_back_for_other_devices():
     args = [torch.as_tensor(a).to("meta") for a in mixed_phase_inputs()]
     with pytest.raises(ValueError):
         tra.ragged_paged_attention(*args)
+
+
+def page_size_inputs(page_size, seed):
+    """Rows whose lengths are off the CUDA kernel's 128-slot step (200 and
+    150 slots, a prompt of 20 and a chunk of 17 queries), a decode row and
+    an empty row, over a pool of ``page_size`` slots a page."""
+    rng = np.random.default_rng(seed)
+    B, S, Hq, Hkv, D = 4, 20, 4, 2, 16
+    kv_len = np.asarray([200, 150, 133, 0], np.int32)
+    T = -(-int(kv_len.max()) // page_size) + 1
+    P = B * T + 1
+    return (
+        rng.standard_normal((B, S, Hq, D)).astype(np.float32),
+        rng.standard_normal((P, Hkv, page_size, D)).astype(np.float32),
+        rng.standard_normal((P, Hkv, page_size, D)).astype(np.float32),
+        (rng.permutation(P - 1)[: B * T].reshape(B, T) + 1).astype(np.int32),
+        kv_len,
+        np.asarray([20, 17, 1, 0], np.int32),
+    )
+
+
+@pytest.mark.parametrize("sliding_window", [None, 40])
+@pytest.mark.parametrize("page_size", [16, 48, 128])
+def test_page_sizes_match_jax(page_size, sliding_window):
+    """The page sizes whose TMA boxes the CUDA kernel cuts differently
+    (gcd(PS, 64) rows: 16, 16 and 64, two pages a step at 64, one at 128),
+    against the Pallas kernel in interpret mode; atol 2e-5, f32 on both
+    sides."""
+    outs = run_all(page_size_inputs(page_size, page_size),
+                   sliding_window=sliding_window)
+    for name in ("torch_reference", "jax_kernel", "jax_reference"):
+        np.testing.assert_allclose(
+            outs["torch"], outs[name], atol=ATOL, err_msg=name)
+
+
+@pytest.mark.parametrize("page_size,rows", [
+    (16, 16), (48, 16), (64, 64), (128, 64), (12, 4), (100, 4), (1, 1)])
+def test_box_rows_never_cross_a_page(page_size, rows):
+    got = tra.box_rows(page_size)
+    assert got == rows
+    # A box starts at a multiple of its rows inside a 128-slot step, and a
+    # step starts at a multiple of 128: the box lies inside one page.
+    assert page_size % got == 0 and tra.STEP % got == 0
+
+
+def test_box_rows_refuses_empty_pages():
+    with pytest.raises(ValueError):
+        tra.box_rows(0)
+
+
+def walk_steps(tile, group, q_start, num_new, kv_len, window=None):
+    """128-slot steps the bf16 kernel's block of query ``tile`` walks, as
+    ``ragged_kernel_wgmma`` bounds its walk (0 for a tile of pad queries)."""
+    bq = tra.BLOCK_ROWS // group
+    start = tile * bq
+    if start >= num_new:
+        return 0
+    end = min(kv_len, q_start + min(start + bq, num_new))
+    first = max(0, q_start + start - window + 1) if window else 0
+    first -= first % tra.STEP
+    return max(0, -(-(end - first) // tra.STEP))
+
+
+@pytest.mark.parametrize("group", [1, 4])
+@pytest.mark.parametrize("q_start,num_new,window", [
+    (0, 2048, None), (1500, 600, None), (0, 2048, 700), (0, 300, None)])
+def test_tiles_launch_longest_walk_first(group, q_start, num_new, window):
+    tiles = tra.launch_plan(1, num_new, 8, group, 128, 64, 512,
+                            False)["grid"][2]
+    order = [tra.tile_of(z, tiles) for z in range(tiles)]
+    assert sorted(order) == list(range(tiles))
+    walks = [walk_steps(t, group, q_start, num_new, q_start + num_new,
+                        window) for t in order]
+    if window is None:
+        assert walks == sorted(walks, reverse=True)
+    else:
+        # Inside a window every later tile walks window / 128 steps, give
+        # or take the one its start rounds down into.
+        assert max(walks) - walks[0] <= 1
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+def test_launch_plan_at_llama3_widths(quantized):
+    plan = tra.launch_plan(2, 2048, 8, 4, 128, 64, 2049, quantized)
+    assert plan["grid"] == (8, 2, 64) and plan["tiles"] == 64
+    assert plan["threads"] == 384
+    assert plan["stages"] == (2 if quantized else 3)
+    assert plan["box_rows"] == 64
+    # K and V, two boxes of 64 rows a step, two column halves in bf16.
+    assert plan["boxes_per_step"] == (4 if quantized else 8)
+    assert plan["q_map"] == {
+        "dims": (128, 32, 2048, 2), "strides": (256, 8192, 16777216),
+        "box": (64, 4, 32, 1), "swizzle": 128}
+    assert plan["kv_map"]["box"] == ((128, 64) if quantized else (64, 64))
+    assert plan["kv_map"]["strides"] == ((128,) if quantized else (256,))
+    assert plan["stage_bytes"] == (32768 if quantized else 65536)
+    # Q, the stages, the barriers: under the 227 KB a block can have.
+    assert plan["smem_bytes"] == (231544 if quantized else 229432)
+    assert plan["smem_bytes"] <= 232448
+
+
+def test_launch_plan_refuses_what_the_kernel_cannot_take():
+    with pytest.raises(ValueError, match="2\\^31"):
+        tra.launch_plan(1, 16, 8, 4, 128, 64, 2**22 + 1, False)
+    with pytest.raises(ValueError, match="head_dim"):
+        tra.launch_plan(1, 16, 8, 4, 64, 64, 10, False)
+    with pytest.raises(ValueError, match="group"):
+        tra.launch_plan(1, 16, 8, 2, 128, 64, 10, False)
+    assert tra.launch_plan(1, 128, 8, 1, 128, 64, 10, False)["tiles"] == 1

@@ -23,18 +23,28 @@ one line per engine configuration or comparison):
               position 1500, a decode token, an empty row, lengths off the
               kernel's 128-slot step), without a window and with windows of
               300 and 77 slots, and as MHA; besides, `nvcc -Xptxas -v`'s
-              registers, shared memory and spills of their wgmma instances,
-              their launch plans (C against the wrapper's `launch_plan`) and
-              the host time a launch spends encoding its tensor maps;
+              registers, shared memory and spills of the wgmma instances
+              (the ragged kernels' and flash's) and of the fused step's
+              cluster kernel, the ragged kernels' launch plans (C against
+              the wrapper's `launch_plan`), the fused step's cluster plan
+              (blocks a cluster, ring stages, shared memory) and the host
+              time a launch spends encoding its tensor maps;
               `int4_matmul` and `int4_matmul_stacked` at the model's
               projection shapes and odd ones; the fused window's
-              `quantized_paged_fused_attention` (the int8 pool in place),
+              `quantized_paged_fused_attention` (the int8 pool in place, one
+              launch of a cluster a (row, kv head)),
               `quantized_fused_decode_attention` (contiguous stacks, T = 640)
               over four steps of a window (B = 8, KT = 16; a row that stops,
-              a sliding window, MHA), their int8 tails EQUAL to the plain
+              a sliding window, MHA; the former also over pages of 16, 48
+              and 128 slots with an empty row, short rows and windows that
+              start inside a page), their int8 tails EQUAL to the plain
               version's, and `paged_tail_flush`, the pool's bytes EQUAL; the
               dense caches' `flash_attention` (a buffer wider than the
-              prompts, an empty row, a sliding window, MHA, strided K/V),
+              prompts, an empty row, a sliding window, MHA, strided K/V; the
+              causal, window, sink, random and empty-row mask families at S
+              and T multiples of 128 and below 128, rows that see nothing
+              exact zeros; its first pass, the packed mask and tile
+              classes, EQUAL to `mask_tiles`),
               `quantized_decode_attention` (rows of 0 to 2048 live positions)
               and `fused_tail_flush` (KT = 16 and 48, edge windows; bytes
               EQUAL); the int8 sink ring's `sink_fused_decode_attention`
@@ -51,7 +61,9 @@ one line per engine configuration or comparison):
               time beside the plain version's, a library yardstick where one
               PyTorch call computes the same function
               (`scaled_dot_product_attention` on contiguous K/V, with the
-              same mask for flash; for the flushes four `index_put_` calls;
+              same mask for flash, which is also timed at its path's own
+              shape, S = 2048 into a 4096-wide buffer; for the flushes four
+              `index_put_` calls;
               for the int4 matmuls there is none: a bf16 `torch.matmul` on
               the dequantized weight is shown as a yardstick of its own; for
               the sink step none, as no one call scores with two queries)
@@ -341,18 +353,21 @@ def fused_fns(form):
 
 
 def compare_fused(cases, tag, dtype, form, big, base, rng, table=None,
-                  window=None, g=HQ // HKV, steps=4, layer=1):
+                  window=None, g=HQ // HKV, steps=4, layer=1, dead=()):
     """The fused step (#6 over the pool ``big`` through ``table``, or #9
     over the stacks ``big``) against its plain version over ``steps`` steps
     of one window on the same inputs, each side with its own copy of the
     tail: the output within TOL, the tail's int8 values and scales EQUAL.
-    The last row stops after the first step. Returns the output's error."""
+    The last row stops after the first step; the rows in ``dead`` take no
+    token at all (with ``base`` 0, a row with nothing to attend, whose
+    output must be zeros). Returns the output's error."""
     _, kernel, plain = fused_fns(form)
     b = base.shape[0]
     tail = make_qplanes(rng, (big[0].shape[0], b, HKV), KT)
     tail2 = [t.clone() for t in tail]
     tail_len = torch.zeros(b, dtype=torch.int32, device=DEV)
     alive = torch.ones(b, dtype=torch.int32, device=DEV)
+    alive[list(dead)] = 0
     extra = {} if table is None else {"page_table": table}
     err = tail_err = 0.0
     for step in range(steps):
@@ -366,6 +381,9 @@ def compare_fused(cases, tag, dtype, form, big, base, rng, table=None,
         want = plain(q, kn, vn, *big, *tail2, **kw)[0]
         torch.cuda.synchronize()
         err = max(err, max_err(got, want))
+        empty = (base == 0) & (kw["tail_valid_len"] == 0)
+        if bool(empty.any()):
+            assert float(got[empty].abs().max()) == 0.0, "empty rows must be zero"
         tail_err = max(tail_err, *(max_err(a, w) for a, w in zip(tail, tail2)))
         tail_len += alive
         alive[-1] = 0
@@ -391,8 +409,10 @@ def compare_flush(cases, tag, pool, table, base, tail_len, rng):
 def fused_cases(cases, dtype, rng):
     """#6 and #9 at B = 8, KT = 16, over a window's first steps: fresh,
     continued, page-edge and long rows, a row that stops, a sliding window,
-    GQA (4 query heads per kv head) and MHA. #7 over mixed tail lengths,
-    windows that straddle a page and an unmapped table slot."""
+    GQA (4 query heads per kv head) and MHA; #6 also over pages of 16, 48
+    and 128 slots with an empty row and windows that start inside a page.
+    #7 over mixed tail lengths, windows that straddle a page and an
+    unmapped table slot."""
     width, b = 40, 8
     pages = b * width + 1
     pool = make_qplanes(rng, (2, pages, HKV), PS)
@@ -407,6 +427,23 @@ def fused_cases(cases, dtype, rng):
                           window=window, g=g)
             compare_fused(cases, f"qfusedd_g{g}_window_{window}", dtype,
                           "gathered", stacks, base9, rng, window=window, g=g)
+    # #6 over pages of 16, 48 and 128 slots: an empty row (nothing cached,
+    # no token), short rows with fewer live tiles than the cluster has
+    # blocks, rows across and at page edges, long rows; windows of 37 and
+    # 300 slots start inside a page.
+    for ps, rows in ((16, [0, 1, 15, 16, 17, 100, 600, 639]),
+                     (48, [0, 1, 47, 48, 49, 700, 1500, 1919]),
+                     (128, [0, 1, 127, 128, 129, 1000, 2000, 2559])):
+        width = -(-(max(rows) + KT) // ps)
+        pages = b * width + 1
+        pps = make_qplanes(rng, (2, pages, HKV), ps)
+        tps = make_table(rng, b, width, pages)
+        for window in (None, 37, 300):
+            for g in ((HQ // HKV, 1) if window == 37 else (HQ // HKV,)):
+                compare_fused(cases, f"qfusedp_ps{ps}_g{g}_window_{window}",
+                              dtype, "inplace", pps, i32(rows), rng,
+                              table=tps, window=window, g=g, dead=(0,))
+        del pps
     flush_table = table.clone()
     flush_table[7, 5] = 0
     compare_flush(cases, "flush_mixed", pool, flush_table,
@@ -578,6 +615,48 @@ def compare_flash(cases, tag, dtype, q, k, v, mask):
     return err
 
 
+def flash_masks(b, s, t, rng):
+    """The mask families #3 is held to, ``{name: bool [B, S, T]}`` on the
+    card: causal over a longer buffer with a shorter row, a sliding window,
+    sinks beside a window (the sink ring's), random bits, and a row that
+    sees nothing beside a row whose later queries see nothing."""
+    q0 = [t - s] * b
+    sink = causal(b, s, t, [t] * b, q0, max(2, s // 4))
+    sink |= causal(b, s, t, [4] * b, q0)
+    empty = causal(b, s, t, [0] + [t] * (b - 1), q0)
+    empty[-1, s // 2:] = False
+    gen = torch.Generator(device=DEV).manual_seed(int(rng.integers(2**62)))
+    return {"causal": causal(b, s, t, [t] + [t // 2] * (b - 1), [0] * b),
+            "window": causal(b, s, t, [t] * b, q0, max(2, s // 3)),
+            "sinks": sink.contiguous(),
+            "random": (torch.rand((b, s, t), generator=gen, device=DEV)
+                       < 0.3).contiguous(),
+            "empty_rows": empty.contiguous()}
+
+
+def flash_family_cases(cases, dtype, rng):
+    """#3 over every mask family at S, T multiples of 128 (256 x 384) and
+    below 128 (40 x 72), GQA and MHA; in bf16 also its first pass (the
+    packed mask and the tile classes) against ``mask_tiles``, EQUAL."""
+    for s, t in ((256, 384), (40, 72)):
+        q = normal(rng, (2, s, HQ, D), dtype)
+        k = normal(rng, (2, t, HKV, D), dtype)
+        v = normal(rng, (2, t, HKV, D), dtype)
+        for name, mask in flash_masks(2, s, t, rng).items():
+            for g in (HQ // HKV, 1):
+                compare_flash(cases, f"flash_{name}_{s}x{t}_g{g}", dtype,
+                              q[:, :, :HKV * g].contiguous(), k, v, mask)
+            if dtype != torch.bfloat16:
+                continue
+            for bq in (32, 128):
+                got = fa.device_mask_tiles(mask, bq)
+                want = fa.mask_tiles(mask, bq)
+                torch.cuda.synchronize()
+                same = all(torch.equal(a, w) for a, w in zip(got, want))
+                cases.append((f"flash_tiles_{name}_{s}x{t}_bq{bq}",
+                              0.0 if same else 1.0, 0.0))
+
+
 def compare_qdense(cases, tag, dtype, q, planes, lens, **kw):
     """`quantized_decode_attention` (#8) against its plain version; a row
     with no live position must be zero."""
@@ -608,7 +687,7 @@ def dense_cases(cases, dtype, rng):
     """#3 over a buffer wider than the prompts (a continued row, a fresh
     one, an empty one), with and without a sliding window, GQA and MHA, and
     on strided K/V (the int8 cache's gather path hands time-major views of
-    head-major tensors); #8 over 2048 positions with rows of 0 to 2048 live
+    head-major tensors), and over the mask families of ``flash_masks``; #8 over 2048 positions with rows of 0 to 2048 live
     positions, a sliding window, GQA and MHA; #10 at KT = 16 and 48 with
     in-block, block-spanning, empty, edge-partial, buffer-end and past-end
     windows."""
@@ -634,6 +713,7 @@ def dense_cases(cases, dtype, rng):
         compare_flash(cases, f"flash_odd_g{g}", dtype,
                       qs[:, :, :HKV * g].contiguous(), ks, vs,
                       causal(2, 24, 40, [40, 30], [16, 0]))
+    flash_family_cases(cases, dtype, rng)
     bq, tq = 8, 2048
     planes = make_qplanes(rng, (bq, HKV), tq)
     lens = i32([0, 1, 127, 128, 129, 1000, 2047, 2048])
@@ -1120,6 +1200,32 @@ def time_dense(out, cases, rng, flush):
                         "S (S + 1) / 2 visible (query, position) pairs",
     }
     del q, k, v, qh, kh, vh, mask
+    # The int8 dense cache's prefill dispatch: S = 2048 into a T = 4096
+    # buffer, K/V the time-major views of its dequantized head-major copy.
+    t = 4096
+    q = normal(rng, (1, s, HQ, D), dtype)
+    k = normal(rng, (1, HKV, t, D), dtype).transpose(1, 2)
+    v = normal(rng, (1, HKV, t, D), dtype).transpose(1, 2)
+    mask = causal(1, s, t, [s], [0])
+    err = compare_flash(cases, "flash_timed_t4096", dtype, q, k, v, mask)
+    qh = q.permute(0, 2, 1, 3).contiguous()
+    kh, vh = k.transpose(1, 2), v.transpose(1, 2)
+    bytes_moved = (2 * q.numel() + 2 * s * HKV * D) * esz + mask.numel()
+    bms, by = bound(bytes_moved, flops, dtype)
+    out["flash_attention"]["at_path_shape"] = {
+        "shape": f"B=1 S={s} T={t} Hq={HQ} Hkv={HKV} D={D} bf16, causal mask "
+                 "over the first 2048 positions, head-major K/V",
+        "max_abs_err": err,
+        "ms": time_ms(lambda: fa.flash_attention(q, k, v, mask), 10, flush),
+        "plain_ms": time_ms(
+            lambda: fa.flash_attention_plain(q, k, v, mask), 3, flush),
+        "library_ms": time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            qh, kh, vh, attn_mask=mask[:, None], enable_gqa=True), 10, flush),
+        "bound_ms": bms, "bound_by": by, "flops": flops,
+        "bound_counts": "the same visible pairs; K/V bytes of the 2048 "
+                        "positions the mask reaches",
+    }
+    del q, k, v, qh, kh, vh, mask
 
     # #8
     b, t = 8, 2048
@@ -1287,28 +1393,59 @@ CASE_PREFIX = {
 }
 
 
-def ptxas_lines(proc):
-    """Registers, shared memory and spills of the bf16 ragged kernels'
-    instances (``ragged_kernel_wgmma<G, int8 pages>``) from ``nvcc -Xptxas
-    -v``."""
+def ragged_instance(mangled):
+    """``ragged_kernel_wgmma<G, int8 pages>`` -> its label, else None."""
+    if "ragged_kernel_wgmmaILi" not in mangled:
+        return None
+    args = mangled.split("ragged_kernel_wgmmaILi")[1]
+    return f"G={args[0]} {'int8' if args[4] == '1' else 'bf16'} pages"
+
+
+def flash_instance(mangled):
+    """``flash_kernel_wgmma<G>`` -> its label, else None."""
+    if "flash_kernel_wgmmaILi" not in mangled:
+        return None
+    return f"G={mangled.split('flash_kernel_wgmmaILi')[1][0]}"
+
+
+def cluster_instance(mangled):
+    """``fused::fused_cluster_kernel<T, BigThenTail<true>, G>`` -> its
+    label, else None."""
+    if "fused_cluster_kernelI" not in mangled:
+        return None
+    q = "bf16" if "fused_cluster_kernelI13__nv_bfloat16" in mangled else "f32"
+    return f"G={mangled.split('ELi')[-1][0]} {q} q"
+
+
+def ptxas_lines(proc, label, count):
+    """Registers, shared memory and spills from ``nvcc -Xptxas -v`` of the
+    ``count`` kernel instances that ``label`` names (mangled name -> label
+    or None)."""
     out, _ = proc.communicate()
     if proc.returncode != 0:
         raise RuntimeError("nvcc -Xptxas -v failed:\n" + out[-4000:])
     report, name = {}, None
     for line in out.splitlines():
         if "Compiling entry function" in line:
-            mangled = line.split("'")[1]
-            name = None
-            if "ragged_kernel_wgmma" in mangled:
-                # ...ragged_kernel_wgmmaILi<G>ELb<Q8>E...
-                args = mangled.split("ragged_kernel_wgmmaILi")[1]
-                g, q8 = args[0], args[4] == "1"
-                name = f"G={g} {'int8' if q8 else 'bf16'} pages"
+            name = label(line.split("'")[1])
         elif name and ("Used" in line or "spill" in line):
             report.setdefault(name, []).append(
                 line.split("info    :")[-1].strip())
-    assert len(report) == 4, report
+    assert len(report) == count, report
     return report
+
+
+def cluster_plan(nt, w, g):
+    """The fused step's cluster launch (``dli_fused_cluster_plan``) at a
+    table of ``nt - 1`` pages, ``w``-slot tiles and ``g`` query heads a kv
+    head."""
+    fn = _build.load_library("paged_attention").dli_fused_cluster_plan
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    got = (ctypes.c_longlong * 6)()
+    assert fn(nt, w, g, ctypes.addressof(got)) == 0
+    return dict(zip(("cluster_blocks", "tiles_a_block", "ring_stages",
+                     "stage_bytes", "smem_bytes", "clusters_at_once"),
+                    list(got)))
 
 
 def check_launch_plans():
@@ -1364,11 +1501,21 @@ def tensor_map_host_us(calls=200):
 
 def phase_kernels():
     t0 = time.perf_counter()
-    ptxas = _build.ptxas_report("ragged_attention")
+    ptxas = {name: _build.ptxas_report(name) for name in (
+        "ragged_attention", "flash_attention", "paged_attention")}
     built = _build.build_all()
     build_s = time.perf_counter() - t0
-    resources = ptxas_lines(ptxas)
+    resources = {
+        "ragged_kernel_wgmma": ptxas_lines(
+            ptxas["ragged_attention"], ragged_instance, 4),
+        "flash_kernel_wgmma": ptxas_lines(
+            ptxas["flash_attention"], flash_instance, 2),
+        "fused_cluster_kernel": ptxas_lines(
+            ptxas["paged_attention"], cluster_instance, 4)}
     plans = check_launch_plans()
+    width = ladder_pages(2048)
+    fused_plan = {f"table={width} PS={PS} KT={KT} G={g}": cluster_plan(
+        width + 1, max(PS, KT), g) for g in (HQ // HKV, 1)}
     torch.backends.cuda.matmul.allow_tf32 = False  # plain f32 stays f32
     errs = {}
     for dtype in (torch.bfloat16, torch.float32):
@@ -1391,7 +1538,8 @@ def phase_kernels():
         kernels.append(entry)
     emit({"phase": "kernels", "build_s": build_s,
           "libraries": {k: str(p.name) for k, p in built.items()},
-          "ragged_wgmma_ptxas": resources, "ragged_launch_plans": plans,
+          "wgmma_and_cluster_ptxas": resources,
+          "ragged_launch_plans": plans, "fused_cluster_plans": fused_plan,
           "ragged_c_call_host_us": map_us,
           "checked": kernels})
     return times

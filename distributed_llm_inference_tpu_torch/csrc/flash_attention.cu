@@ -8,7 +8,8 @@
 // byte per (query, position), nonzero = attend. The mask alone says what a
 // query sees: causality, cache validity, a sliding window and sink
 // structure are all in it, and nothing is assumed in its place. Scores are
-// f32, (q . k) * scale; a fully masked row gives zeros.
+// f32, (q . k) * scale; p is rounded to V's type before P V; a fully masked
+// row gives zeros.
 //
 // What bounds it on this card: operations, the two products Q K^T and P V
 // (4 * D flops per (query, head, visible position)). A mask tile with no
@@ -17,21 +18,53 @@
 // skipped here without reading K or V. Under a causal mask that skips the
 // upper half.
 //
-// Design, the ragged kernel's (ragged_attention.cu) over a contiguous buffer:
-// one block per (query tile, kv head, row). The G query heads of the kv head
-// fold into the rows: a tile is 64 / G queries, 64 score rows. The block
-// walks the positions 64 at a time: it stages the step's mask tile in shared
-// memory, skips the step when the tile is empty, else stages K and V and
-// runs one online-softmax step. The element type picks the products:
+// bfloat16 (`flash_kernel_wgmma`), the ragged kernel's Hopper design
+// (ragged_attention.cu, hopper_tile.cuh) over a contiguous buffer:
 //
-// * bfloat16: tensor cores, mma.sync m16n8k16 with f32 accumulation
-//   (attention_tile.cuh); P is rounded to bf16 for P V, as the TPU kernel
-//   rounds p to V's type.
-// * float32: register-tiled f32 FMAs, as the ragged f32 kernel.
+// * The mask first: `mask_tiles_kernel` reads the byte mask once a call
+//   (it is shared by every kv head) and writes it bit-packed, [B, S, 4 nKT]
+//   32-bit words (bit i of word w of a row: position 32 w + i), and the
+//   class of every (row, query tile, kv step) tile: empty (no visible
+//   position), full (every position below T visible to every query below
+//   S) or partial. A step is kStep = 128 positions wide, the TPU kernel's
+//   block_k, so p is rounded at the running maxima the TPU kernel and the
+//   plain version hold.
+// * Work tile: 128 score rows a block, 128 / G queries x the G query heads
+//   of one kv head. The block first lists its non-empty steps from the
+//   classes, then walks only those. Two consumer warpgroups own 64 rows
+//   each and share every staged K/V tile; a producer warpgroup feeds them
+//   and gives up registers to them (setmaxnreg).
+// * Staging: a ring of 3 stages of K and V in shared memory with full /
+//   empty mbarriers. One producer thread brings Q once and each listed
+//   step's K and V by TMA through 4-D tensor maps over the strided views
+//   (dimensions ordered by stride, 128-byte swizzle, two 64-column boxes of
+//   128 rows a tile); rows past T (and queries past S) arrive as zeros.
+// * Products on wgmma m64n128k16, bf16 in, f32 accumulators: S = Q K^T with
+//   Q and K K-major in shared memory; P V with P from registers, rounded to
+//   bf16 (the score accumulator's fragment is already the A operand), V
+//   MN-major. The two warpgroups take turns at the tensor cores (named
+//   barriers): one issues its next Q K^T and its P V while the other runs
+//   its softmax, and a warpgroup's softmax runs while its own P V is in
+//   flight.
+// * Softmax in the log2 domain (log2(e) folded into the scale, ex2.approx).
+//   A full step applies no mask; a partial one takes each thread's two rows'
+//   128 bits of the step from the packed mask (loaded while Q K^T runs). A
+//   masked score is -inf, so its probability is exactly 0; the running max
+//   starts at the finite kNegInf, so m_old - m_new is never inf - inf, and
+//   a row that sees nothing keeps l = 0 and writes zeros.
+// * Output: each warpgroup writes its 64 rows, normalised and in bf16, into
+//   its rows of the Q tile (free after its last Q K^T) and stores them by
+//   TMA, which leaves rows past S unwritten.
+// * Schedule: the grid is (Hkv, B, query tiles) with the tile index
+//   reversed, so that under a causal mask the longest walks start first.
+// * The tensor maps are encoded per launch on the host and passed as
+//   __grid_constant__ parameters; prefill runs eagerly.
 //
-// The TPU kernel walks 128-wide tiles; this one 64-wide ones. In f32 that
-// changes only the order of the sums; in bf16 also where p is rounded
-// (relative to the running max at each tile), within one bf16 step.
+// float32 (`flash_kernel_f32`): register-tiled f32 FMAs, 256 threads, 64
+// score rows and 64 positions a step, staging the step's byte mask and
+// skipping an empty one. Full float32 products: the exact-parity checks of
+// the engine run in this type. Its 64-wide steps change only the order of
+// the sums against the TPU kernel's 128-wide ones.
 //
 // Built for head_dim 128 with 1 or 4 query heads per kv head; a model with
 // other widths adds its instance to dispatch below.
@@ -41,17 +74,13 @@
 #include <stdint.h>
 
 #include "attention_tile.cuh"
+#include "hopper_tile.cuh"
 
 namespace {
 
-using tile::ldmatrix_x2_trans;
-using tile::mma_bf16;
 using tile::pack_bf16;
 using tile::stage_chunk;
-using tile::stage_chunk16;
 
-constexpr int kRows = 64;   // score rows per block = (64 / G) queries x G
-constexpr int kTile = 64;   // kv positions per step
 // ops/attention.py:_NEG_INF, -0.7 * float32 max: finite, so that
 // (m_old - m_new) never becomes inf - inf.
 constexpr float kNegInf = -0.7f * 3.402823466e+38f;
@@ -60,11 +89,505 @@ struct Args {
   const void *q, *k, *v;
   const uint8_t* mask;
   void* out;
+  uint32_t* bits;       // bf16: [B, S, 4 nKT] packed mask
+  uint8_t* classes;     // bf16: [B, nQT, nKT] tile classes
   int B, S, T, Hkv;
   long long ksb, kst, ksh, vsb, vst, vsh;  // element strides of K and V
   float scale;
   cudaStream_t stream;
 };
+
+// ---------------------------------------------------------------------------
+// bfloat16: the mask's tiles, then TMA ring and wgmma
+// ---------------------------------------------------------------------------
+
+constexpr int kBlockRows = 128;  // score rows a block: two warpgroups of 64
+constexpr int kStep = 128;       // kv positions a step (the TPU's block_k)
+constexpr int kWords = kStep / 32;  // packed mask words of a row's step
+constexpr int kConsumers = 256;  // two consumer warpgroups
+constexpr int kThreadsWg = kConsumers + 128;
+constexpr int kRowBytes = 128;   // a staged row: 64 bf16
+constexpr int kHalfBytes = kStep * kRowBytes;  // 128 rows of one half, 16 KB
+constexpr int kStages = 3;
+constexpr int kMaxSteps = 1024;  // kv steps a block can list: T <= 131072
+constexpr float kLog2e = 1.4426950408889634f;
+// Tile classes as mask_tiles_kernel writes them.
+constexpr uint8_t kEmpty = 0, kFull = 1, kPartial = 2;
+constexpr uint16_t kPartialBit = 0x8000;  // in a listed step: kt | bit
+
+// Shared memory, from a 1024-aligned base (the TMA's and wgmma's 128-byte
+// swizzle repeats every 1024 bytes): Q (two 64-column halves of 128 rows)
+// | a ring of 3 stages, each K's halves then V's | the block's list of
+// non-empty steps and its length | barriers (q_full, full[3], empty[3]).
+// 226 KB of the 227 a block can have.
+struct WgLayout {
+  static constexpr int kQBytes = 2 * kHalfBytes;
+  static constexpr int kTile = kQBytes;
+  static constexpr int kTileBytes = 4 * kHalfBytes;
+  static constexpr int kList = kTile + kStages * kTileBytes;
+  static constexpr int kCount = kList + kMaxSteps * 2;
+  static constexpr int kBars = kCount + 16;
+  static constexpr int kNumBars = 1 + 2 * kStages;
+  static constexpr int kBytes = kBars + kNumBars * 8;
+};
+static_assert(WgLayout::kBytes <= 232448, "shared memory of one block");
+
+// 16 mask bytes as 16 bits, byte i -> bit i.
+__device__ __forceinline__ uint32_t pack_bytes(uint4 v) {
+  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+  uint32_t r = 0;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      r |= ((w[i] >> (8 * j)) & 0xffu) != 0 ? 1u << (4 * i + j) : 0u;
+  return r;
+}
+
+// One block per (kv step, query tile of BQ rows, row), BQ * 4 threads: the
+// thread of (query r, word w) packs the 32 mask bytes of its word; then the
+// block classes its tile. Queries past S and positions past T are not
+// visible.
+__global__ void mask_tiles_kernel(const uint8_t* __restrict__ mask,
+                                  uint32_t* __restrict__ bits,
+                                  uint8_t* __restrict__ classes, int S, int T,
+                                  int BQ) {
+  const int kt = blockIdx.x;
+  const int qt = blockIdx.y;
+  const int b = blockIdx.z;
+  const int nkt = gridDim.x;
+  const int q = qt * BQ + (threadIdx.x >> 2);
+  const int w = threadIdx.x & 3;
+  const int kv0 = kt * kStep + w * 32;
+  uint32_t word = 0;
+  if (q < S) {
+    const uint8_t* row = mask + ((size_t)b * S + q) * T;
+    if (kv0 + 32 <= T && ((reinterpret_cast<uintptr_t>(row) + kv0) & 15) == 0) {
+      const uint4* p = reinterpret_cast<const uint4*>(row + kv0);
+      word = pack_bytes(p[0]) | (pack_bytes(p[1]) << 16);
+    } else {
+      for (int i = 0; i < 32 && kv0 + i < T; ++i)
+        word |= row[kv0 + i] != 0 ? 1u << i : 0u;
+    }
+    bits[((size_t)b * S + q) * (nkt * kWords) + kt * kWords + w] = word;
+  }
+  const int any = __syncthreads_or(q < S && word != 0u);
+  const int all = __syncthreads_and(q >= S || word == 0xffffffffu);
+  if (threadIdx.x == 0)
+    classes[((size_t)b * gridDim.y + qt) * nkt + kt] =
+        !any ? kEmpty : all ? kFull : kPartial;
+}
+
+// The consumers' loop over the block's listed steps: warpgroup wg (0 or 1)
+// owns block rows 64 wg .. 64 wg + 63. Every listed step is walked by both
+// warpgroups; the products stay outside any branch, which keeps them
+// pipelined.
+template <int G>
+__device__ __forceinline__ void consume(
+    uint8_t* smem, uint64_t* q_full, uint64_t* full, uint64_t* empty,
+    const uint16_t* list, int steps, const CUtensorMap* o_map,
+    const uint32_t* __restrict__ bits, int b, int h, int tile_start, int S,
+    int row_words, float scale_log2, int wg, int tid) {
+  constexpr int D = 128;
+  using L = WgLayout;
+  const int warp = (tid >> 5) & 3;
+  const int lane = tid & 31;
+  const int g4 = lane >> 2;
+  const int t4 = lane & 3;
+  const int row0 = wg * 64 + warp * 16 + g4;  // this thread's two rows
+  const int row1 = row0 + 8;
+  const int q_rel0 = tile_start + row0 / G;
+  const int q_rel1 = tile_start + row1 / G;
+  // The packed mask rows of the two queries (none past S: not visible).
+  const uint32_t* bits0 =
+      q_rel0 < S ? bits + ((size_t)b * S + q_rel0) * row_words : nullptr;
+  const uint32_t* bits1 =
+      q_rel1 < S ? bits + ((size_t)b * S + q_rel1) * row_words : nullptr;
+  const uint8_t* q_wg = smem + wg * 64 * kRowBytes;
+  auto k_tile = [&](int i) {
+    return smem + L::kTile + (i % kStages) * L::kTileBytes;
+  };
+
+  float o[64], s[64];
+  uint32_t pa[kStep / 16][4];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) o[i] = 0.f;
+  float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
+  uint32_t mw0[kWords], mw1[kWords];  // a partial step's mask bits
+
+  // S = Q K^T over the warpgroup's 64 rows and step i's 128 positions.
+  auto issue_s = [&](int i) {
+    const uint8_t* k_t = k_tile(i);
+    hopper::wgmma_fence();
+    hopper::wgmma_m64n128k16_ss_first(
+        s, hopper::desc_sw128(q_wg, 16, 1024),
+        hopper::desc_sw128(k_t, 16, 1024));
+#pragma unroll
+    for (int kk = 1; kk < D / 16; ++kk) {
+      const int off = (kk / 4) * kHalfBytes + (kk % 4) * 32;
+      hopper::wgmma_m64n128k16_ss(s, hopper::desc_sw128(q_wg + off, 16, 1024),
+                                  hopper::desc_sw128(k_t + off, 16, 1024));
+    }
+    hopper::wgmma_commit();
+  };
+  // O = alpha O + P V over step i's 128 positions.
+  float alpha0 = 1.f, alpha1 = 1.f;
+  auto issue_pv = [&](int i) {
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      o[4 * j] *= alpha0;
+      o[4 * j + 1] *= alpha0;
+      o[4 * j + 2] *= alpha1;
+      o[4 * j + 3] *= alpha1;
+    }
+    const uint8_t* v_t = k_tile(i) + 2 * kHalfBytes;
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kStep / 16; ++kk)
+      hopper::wgmma_m64n128k16_rs_tb(
+          o, pa[kk],
+          hopper::desc_sw128(v_t + kk * 16 * kRowBytes, kHalfBytes, 1024));
+    hopper::wgmma_commit();
+  };
+  // P in bf16, as the TPU kernel rounds it: the score fragments of n-tiles
+  // 2kk and 2kk + 1 are the A operand of k-step kk as they lie.
+  auto pack_p = [&]() {
+#pragma unroll
+    for (int kk = 0; kk < kStep / 16; ++kk) {
+      pa[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
+      pa[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+      pa[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+      pa[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+    }
+  };
+  // A partial step's mask bits of the two rows, loaded before the step's
+  // Q K^T so that the load overlaps it.
+  auto load_mask = [&](int i) {
+    const uint16_t e = list[i];
+    if (!(e & kPartialBit)) return;
+    const int kt = e & ~kPartialBit;
+    uint4 a = make_uint4(0u, 0u, 0u, 0u), c = a;
+    if (bits0 != nullptr)
+      a = *reinterpret_cast<const uint4*>(bits0 + kt * kWords);
+    if (bits1 != nullptr)
+      c = *reinterpret_cast<const uint4*>(bits1 + kt * kWords);
+    mw0[0] = a.x; mw0[1] = a.y; mw0[2] = a.z; mw0[3] = a.w;
+    mw1[0] = c.x; mw1[1] = c.y; mw1[2] = c.z; mw1[3] = c.w;
+  };
+  // Online softmax of step i: the probabilities into s, l and m updated,
+  // alpha the factor o takes before this step's P V. s[4 nt + e] is row0 at
+  // position nt * 8 + 2 t4 + e of the step, s[4 nt + 2 + e] row1; a row's
+  // 128 scores sit in the 4 lanes that share g4. Only a partial step is
+  // masked: position c of a row is bit c % 32 of its word c / 32.
+  auto softmax = [&](int i) {
+    const bool partial = (list[i] & kPartialBit) != 0;
+    float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+    for (int nt = 0; nt < kStep / 8; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float x0 = s[4 * nt + e];
+        float x1 = s[4 * nt + 2 + e];
+        if (partial) {
+          const int bit = (nt % 4) * 8 + 2 * t4 + e;
+          if (!((mw0[nt / 4] >> bit) & 1u)) x0 = -INFINITY;
+          if (!((mw1[nt / 4] >> bit) & 1u)) x1 = -INFINITY;
+        }
+        s[4 * nt + e] = x0;
+        s[4 * nt + 2 + e] = x1;
+        mx0 = fmaxf(mx0, x0);
+        mx1 = fmaxf(mx1, x1);
+      }
+    }
+#pragma unroll
+    for (int x = 1; x <= 2; x <<= 1) {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, x));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, x));
+    }
+    const float mn0 = fmaxf(m0, mx0 * scale_log2);
+    const float mn1 = fmaxf(m1, mx1 * scale_log2);
+    alpha0 = hopper::exp2_approx(m0 - mn0);
+    alpha1 = hopper::exp2_approx(m1 - mn1);
+    float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+    for (int nt = 0; nt < kStep / 8; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float p0 =
+            hopper::exp2_approx(fmaf(s[4 * nt + e], scale_log2, -mn0));
+        const float p1 =
+            hopper::exp2_approx(fmaf(s[4 * nt + 2 + e], scale_log2, -mn1));
+        sum0 += p0;
+        sum1 += p1;
+        s[4 * nt + e] = p0;
+        s[4 * nt + 2 + e] = p1;
+      }
+    }
+#pragma unroll
+    for (int x = 1; x <= 2; x <<= 1) {
+      sum0 += __shfl_xor_sync(0xffffffffu, sum0, x);
+      sum1 += __shfl_xor_sync(0xffffffffu, sum1, x);
+    }
+    l0 = l0 * alpha0 + sum0;
+    l1 = l1 * alpha1 + sum1;
+    m0 = mn0;
+    m1 = mn1;
+  };
+  auto wait_full = [&](int i) {
+    hopper::mbar_wait(&full[i % kStages], (i / kStages) & 1);
+  };
+  auto release = [&](int i) {
+    __syncwarp();
+    if (lane == 0) hopper::mbar_arrive(&empty[i % kStages]);
+  };
+
+  hopper::mbar_wait(q_full, 0);
+  if (steps > 0) {
+    // Ping-pong, as in ragged_attention.cu: a warpgroup issues its products
+    // (Q K^T of this step, then P V of the previous one) only after the
+    // other has issued its own. Warpgroup 0 starts; the arrivals on each
+    // barrier match its waits.
+    if (wg == 1) hopper::named_arrive(2, kConsumers);
+    load_mask(0);
+    wait_full(0);
+    hopper::named_sync(2 + wg, kConsumers);
+    issue_s(0);
+    if (wg == 0 || steps > 1) hopper::named_arrive(2 + (wg ^ 1), kConsumers);
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(s);
+    softmax(0);
+    pack_p();
+    for (int i = 1; i < steps; ++i) {
+      load_mask(i);
+      wait_full(i);
+      hopper::named_sync(2 + wg, kConsumers);
+      issue_s(i);
+      issue_pv(i - 1);
+      if (wg == 0 || i + 1 < steps)
+        hopper::named_arrive(2 + (wg ^ 1), kConsumers);
+      hopper::wgmma_wait<1>();  // Q K^T of step i
+      hopper::fence_regs(s);
+      softmax(i);
+      hopper::wgmma_wait<0>();  // P V of step i - 1
+      hopper::fence_regs(o);
+      release(i - 1);
+      pack_p();
+    }
+    issue_pv(steps - 1);
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(o);
+    release(steps - 1);
+  }
+
+  // The output goes through the warpgroup's Q rows, free since its last
+  // Q K^T, in the layout of Q's tile, and out by TMA (rows past S are not
+  // written). A row that saw nothing has o = 0 and l = 0: zeros.
+  const float inv0 = 1.f / fmaxf(l0, 1e-20f);
+  const float inv1 = 1.f / fmaxf(l1, 1e-20f);
+  uint8_t* o_s = const_cast<uint8_t*>(q_wg);
+  const int r0 = warp * 16 + g4;  // row0 and row1 in the warpgroup's rows
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    uint8_t* half = o_s + (j / 8) * kHalfBytes + 4 * t4;
+    *reinterpret_cast<uint32_t*>(half + r0 * kRowBytes +
+                                 (((j % 8) ^ (r0 & 7)) << 4)) =
+        pack_bf16(o[4 * j] * inv0, o[4 * j + 1] * inv0);
+    *reinterpret_cast<uint32_t*>(half + (r0 + 8) * kRowBytes +
+                                 (((j % 8) ^ (r0 & 7)) << 4)) =
+        pack_bf16(o[4 * j + 2] * inv1, o[4 * j + 3] * inv1);
+  }
+  hopper::fence_proxy_async();
+  hopper::named_sync(4 + wg, 128);
+  if ((tid & 127) == 0) {
+#pragma unroll
+    for (int c = 0; c < 2; ++c)
+      hopper::tma_store_4d(o_map, o_s + c * kHalfBytes, c * 64, h * G,
+                           tile_start + wg * 64 / G, b);
+    hopper::tma_store_wait();
+  }
+}
+
+// Registers a thread after the producer warpgroup has given some up:
+// 128 x 40 + 256 x 232 = 384 x 168.
+constexpr int kProducerRegs = 40;
+constexpr int kConsumerRegs = 232;
+
+template <int G>
+__global__ void __launch_bounds__(kThreadsWg, 1) flash_kernel_wgmma(
+    const __grid_constant__ CUtensorMap q_map,  // q as {D, Hq, S, B}
+    const __grid_constant__ CUtensorMap k_map,  // K, 4-D, by stride
+    const __grid_constant__ CUtensorMap v_map,
+    const __grid_constant__ CUtensorMap o_map,  // out, as q's, 64-row boxes
+    const uint32_t* __restrict__ bits,          // [B, S, 4 nKT]
+    const uint8_t* __restrict__ classes,        // [B, nQT, nKT]
+    int S, int nkt, int k_t_inner, int v_t_inner, float scale_log2) {
+  using L = WgLayout;
+  constexpr int BQ = kBlockRows / G;
+
+  extern __shared__ __align__(1024) uint8_t smem[];
+  uint16_t* list = reinterpret_cast<uint16_t*>(smem + L::kList);
+  int* count = reinterpret_cast<int*>(smem + L::kCount);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::kBars);
+  uint64_t* q_full = bars;
+  uint64_t* full = bars + 1;
+  uint64_t* empty = full + kStages;
+
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int qt = gridDim.z - 1 - blockIdx.z;
+  const int tile_start = qt * BQ;
+  const int tid = threadIdx.x;
+  // The layout needs the base the swizzle repeats on; a block without it
+  // stops here rather than read misplaced rows.
+  if (hopper::smem_u32(smem) & 1023) __trap();
+
+  // The warp index, broadcast so that the compiler sees it warp-uniform
+  // (the products below must not sit in a divergent path).
+  const int warp = __shfl_sync(0xffffffffu, tid >> 5, 0);
+  const int lane = tid & 31;
+  if (warp == 0) {
+    if (lane == 0) {
+      hopper::mbar_init(q_full, 1);
+      for (int s = 0; s < kStages; ++s) {
+        hopper::mbar_init(&full[s], 1);
+        hopper::mbar_init(&empty[s], kConsumers / 32);
+      }
+      hopper::mbar_fence_init();
+    }
+    // The tile's non-empty steps in order, kt | kPartialBit for a partial
+    // one (the wrapper keeps nkt <= kMaxSteps).
+    const uint8_t* cls = classes + ((size_t)b * gridDim.z + qt) * nkt;
+    int n = 0;
+    for (int base = 0; base < nkt; base += 32) {
+      const int kt = base + lane;
+      const uint8_t c = kt < nkt ? cls[kt] : kEmpty;
+      const uint32_t live = __ballot_sync(0xffffffffu, c != kEmpty);
+      const int at = n + __popc(live & ((1u << lane) - 1u));
+      if (c != kEmpty && at < kMaxSteps)
+        list[at] = (uint16_t)(kt | (c == kPartial ? kPartialBit : 0));
+      n += __popc(live);
+    }
+    if (lane == 0) *count = min(n, kMaxSteps);
+  }
+  __syncthreads();
+  const int steps = *count;
+
+  if (warp >= kConsumers / 32) {
+    hopper::setmaxnreg_dec<kProducerRegs>();
+    if (warp == kConsumers / 32 && lane == 0) {
+      // Q once, then each listed step's K and V: per tile two 64-column
+      // boxes of 128 rows, coordinates innermost first in the map's order.
+      hopper::mbar_arrive_expect_tx(q_full, L::kQBytes);
+      hopper::tma_load_4d(smem, &q_map, q_full, 0, h * G, tile_start, b);
+      hopper::tma_load_4d(smem + kHalfBytes, &q_map, q_full, 64, h * G,
+                          tile_start, b);
+      for (int i = 0; i < steps; ++i) {
+        const int st = i % kStages;
+        const int kv0 = (list[i] & ~kPartialBit) * kStep;
+        hopper::mbar_wait(&empty[st], ((i / kStages) & 1) ^ 1);
+        hopper::mbar_arrive_expect_tx(&full[st], L::kTileBytes);
+        uint8_t* dst = smem + L::kTile + st * L::kTileBytes;
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          if (k_t_inner)
+            hopper::tma_load_4d(dst + c * kHalfBytes, &k_map, &full[st],
+                                c * 64, kv0, h, b);
+          else
+            hopper::tma_load_4d(dst + c * kHalfBytes, &k_map, &full[st],
+                                c * 64, h, kv0, b);
+          if (v_t_inner)
+            hopper::tma_load_4d(dst + (2 + c) * kHalfBytes, &v_map, &full[st],
+                                c * 64, kv0, h, b);
+          else
+            hopper::tma_load_4d(dst + (2 + c) * kHalfBytes, &v_map, &full[st],
+                                c * 64, h, kv0, b);
+        }
+      }
+    }
+  } else {
+    hopper::setmaxnreg_inc<kConsumerRegs>();
+    consume<G>(smem, q_full, full, empty, list, steps, &o_map, bits, b, h,
+               tile_start, S, nkt * kWords, scale_log2, warp >> 2, tid);
+  }
+}
+
+// A 4-D map over a strided [B, T, Hkv, D] view: D, then T and the head in
+// the order of their strides (time-major or head-major storage), then B.
+// Sets t_inner when T comes before the head.
+int kv_map(CUtensorMap* map, const void* base, int B, int T, int Hkv,
+           long long sb, long long st, long long sh, int& t_inner) {
+  constexpr uint64_t D = 128;
+  t_inner = st <= sh;
+  const uint64_t dims[4] = {D, (uint64_t)(t_inner ? T : Hkv),
+                            (uint64_t)(t_inner ? Hkv : T), (uint64_t)B};
+  const uint64_t strides[3] = {(uint64_t)(t_inner ? st : sh) * 2,
+                               (uint64_t)(t_inner ? sh : st) * 2,
+                               (uint64_t)sb * 2};
+  const uint32_t box[4] = {64, t_inner ? (uint32_t)kStep : 1u,
+                           t_inner ? 1u : (uint32_t)kStep, 1};
+  return hopper::encode_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, base,
+                            dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+int launch_mask_tiles(const uint8_t* mask, uint32_t* bits, uint8_t* classes,
+                      int B, int S, int T, int BQ, cudaStream_t stream) {
+  const int nkt = (T + kStep - 1) / kStep;
+  const dim3 grid(nkt, (S + BQ - 1) / BQ, B);
+  mask_tiles_kernel<<<grid, BQ * kWords, 0, stream>>>(mask, bits, classes, S,
+                                                      T, BQ);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int G>
+int launch_wgmma(const Args& a) {
+  using L = WgLayout;
+  constexpr int BQ = kBlockRows / G;
+  constexpr uint64_t D = 128;
+  const int nkt = (a.T + kStep - 1) / kStep;
+  if (nkt > kMaxSteps) return -1;
+  int err = launch_mask_tiles(a.mask, a.bits, a.classes, a.B, a.S, a.T, BQ,
+                              a.stream);
+  if (err != 0) return err;
+  const uint64_t Hq = (uint64_t)a.Hkv * G;
+  CUtensorMap q_map, o_map, k_map, v_map;
+  const uint64_t q_dims[4] = {D, Hq, (uint64_t)a.S, (uint64_t)a.B};
+  const uint64_t q_strides[3] = {D * 2, Hq * D * 2,
+                                 (uint64_t)a.S * Hq * D * 2};
+  const uint32_t q_box[4] = {64, (uint32_t)G, (uint32_t)BQ, 1};
+  err = hopper::encode_map(&q_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, a.q,
+                           q_dims, q_strides, q_box,
+                           CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err != 0) return err;
+  const uint32_t o_box[4] = {64, (uint32_t)G, (uint32_t)(64 / G), 1};
+  err = hopper::encode_map(&o_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, a.out,
+                           q_dims, q_strides, o_box,
+                           CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err != 0) return err;
+  int k_t_inner = 0, v_t_inner = 0;
+  err = kv_map(&k_map, a.k, a.B, a.T, a.Hkv, a.ksb, a.kst, a.ksh, k_t_inner);
+  if (err != 0) return err;
+  err = kv_map(&v_map, a.v, a.B, a.T, a.Hkv, a.vsb, a.vst, a.vsh, v_t_inner);
+  if (err != 0) return err;
+
+  cudaError_t cerr = cudaFuncSetAttribute(
+      flash_kernel_wgmma<G>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      L::kBytes);
+  if (cerr != cudaSuccess) return static_cast<int>(cerr);
+  const dim3 grid(a.Hkv, a.B, (a.S + BQ - 1) / BQ);
+  flash_kernel_wgmma<G><<<grid, kThreadsWg, L::kBytes, a.stream>>>(
+      q_map, k_map, v_map, o_map, a.bits, a.classes, a.S, nkt, k_t_inner,
+      v_t_inner, a.scale * kLog2e);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// float32: register-tiled FMA products
+// ---------------------------------------------------------------------------
+
+constexpr int kRows = 64;   // score rows per block = (64 / G) queries x G
+constexpr int kTile = 64;   // kv positions per step
+constexpr int kThreads = 256;
+constexpr int kPStride = kTile + 1;
 
 // The step's mask tile [BQ][kTile] into shared memory (0 past S or T);
 // returns, in every thread, whether any position of it is visible.
@@ -84,227 +607,6 @@ __device__ __forceinline__ bool stage_mask(uint8_t* mask_s,
   return __syncthreads_or(any) != 0;
 }
 
-// ---------------------------------------------------------------------------
-// bfloat16: tensor-core products
-// ---------------------------------------------------------------------------
-
-constexpr int kMmaThreads = 128;
-constexpr int kRowPad = 8;  // bf16 elements (16 bytes) of padding per row
-
-template <int D, int G>
-__global__ void __launch_bounds__(kMmaThreads) flash_kernel_mma(Args a) {
-  using bf16 = __nv_bfloat16;
-  constexpr int SE = D + kRowPad;     // shared row stride in elements
-  constexpr int KS = D / 16;          // k-steps of Q K^T
-  constexpr int NT = kTile / 8;       // score n-tiles per step
-  constexpr int ND = D / 8;           // output n-tiles
-  constexpr int CPR = D / 8;          // 16-byte chunks per row
-  constexpr int BQ = kRows / G;
-
-  extern __shared__ uint4 smem_mma[];
-  bf16* q_s = reinterpret_cast<bf16*>(smem_mma);   // [kRows][SE]
-  bf16* k_s = q_s + kRows * SE;                    // [kTile][SE]
-  bf16* v_s = k_s + kTile * SE;                    // [kTile][SE]
-  uint8_t* mask_s = reinterpret_cast<uint8_t*>(v_s + kTile * SE);  // [BQ][kTile]
-
-  const bf16* q = static_cast<const bf16*>(a.q);
-  const bf16* k = static_cast<const bf16*>(a.k);
-  const bf16* v = static_cast<const bf16*>(a.v);
-  const int S = a.S, T = a.T;
-  const int tile_start = blockIdx.x * BQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g4 = lane >> 2;  // 0..7
-  const int t4 = lane & 3;   // 0..3
-  const int Hq = a.Hkv * G;
-
-  for (int c = tid; c < kRows * CPR; c += kMmaThreads) {
-    const int r = c / CPR;
-    const int q_rel = tile_start + r / G;
-    const bf16* src = nullptr;
-    if (q_rel < S) src = q + (((size_t)b * S + q_rel) * Hq + h * G + r % G) * D;
-    stage_chunk16(q_s + r * SE, src, c % CPR);
-  }
-  __syncthreads();
-
-  // This thread's two score rows, and their Q fragments for every k-step.
-  const int row0 = warp * 16 + g4;
-  const int row1 = row0 + 8;
-  uint32_t qa[KS][4];
-#pragma unroll
-  for (int ks = 0; ks < KS; ++ks) {
-    const int col = ks * 16 + 2 * t4;
-    qa[ks][0] = *reinterpret_cast<const uint32_t*>(q_s + row0 * SE + col);
-    qa[ks][1] = *reinterpret_cast<const uint32_t*>(q_s + row1 * SE + col);
-    qa[ks][2] = *reinterpret_cast<const uint32_t*>(q_s + row0 * SE + col + 8);
-    qa[ks][3] = *reinterpret_cast<const uint32_t*>(q_s + row1 * SE + col + 8);
-  }
-  const uint8_t* mrow0 = mask_s + (row0 / G) * kTile;
-  const uint8_t* mrow1 = mask_s + (row1 / G) * kTile;
-
-  float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
-  float o[ND][4];
-#pragma unroll
-  for (int nd = 0; nd < ND; ++nd)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[nd][e] = 0.f;
-
-  const bf16* kb = k + (size_t)b * a.ksb + (size_t)h * a.ksh;
-  const bf16* vb = v + (size_t)b * a.vsb + (size_t)h * a.vsh;
-  for (int kv0 = 0; kv0 < T; kv0 += kTile) {
-    __syncthreads();  // every warp is done with the previous tiles
-    if (!stage_mask<BQ, kMmaThreads>(mask_s, a.mask, b, S, T, tile_start, kv0))
-      continue;
-    for (int c = tid; c < kTile * CPR; c += kMmaThreads) {
-      const int r = c / CPR;
-      const int pos = kv0 + r;
-      const bf16* ksrc = nullptr;
-      const bf16* vsrc = nullptr;
-      if (pos < T) {
-        ksrc = kb + (size_t)pos * a.kst;
-        vsrc = vb + (size_t)pos * a.vst;
-      }
-      stage_chunk16(k_s + r * SE, ksrc, c % CPR);
-      stage_chunk16(v_s + r * SE, vsrc, c % CPR);
-    }
-    __syncthreads();
-
-    // S = Q K^T for this warp's 16 rows: s[nt] covers slots nt*8 .. nt*8+7.
-    float s[NT][4];
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < KS; ++ks) {
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        const bf16* krow = k_s + (nt * 8 + g4) * SE + ks * 16 + 2 * t4;
-        mma_bf16(s[nt], qa[ks],
-                 *reinterpret_cast<const uint32_t*>(krow),
-                 *reinterpret_cast<const uint32_t*>(krow + 8));
-      }
-    }
-
-    // Mask, scale, online softmax. s[nt][0..1] belong to row0 at slots
-    // nt*8 + 2*t4 (+1), s[nt][2..3] to row1; a row's 64 scores sit in the 4
-    // lanes that share g4.
-    float mx0 = kNegInf, mx1 = kNegInf;
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int col = nt * 8 + 2 * t4 + e;
-        s[nt][e] = mrow0[col] ? s[nt][e] * a.scale : kNegInf;
-        s[nt][2 + e] = mrow1[col] ? s[nt][2 + e] * a.scale : kNegInf;
-        mx0 = fmaxf(mx0, s[nt][e]);
-        mx1 = fmaxf(mx1, s[nt][2 + e]);
-      }
-    }
-#pragma unroll
-    for (int x = 1; x <= 2; x <<= 1) {
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, x));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, x));
-    }
-    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-    const float alpha0 = expf(m0 - mn0), alpha1 = expf(m1 - mn1);
-    float sum0 = 0.f, sum1 = 0.f;
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int col = nt * 8 + 2 * t4 + e;
-        // Masked entries are exactly 0: exp(kNegInf - kNegInf) would be 1.
-        const float p0 = mrow0[col] ? expf(s[nt][e] - mn0) : 0.f;
-        const float p1 = mrow1[col] ? expf(s[nt][2 + e] - mn1) : 0.f;
-        s[nt][e] = p0;
-        s[nt][2 + e] = p1;
-        sum0 += p0;
-        sum1 += p1;
-      }
-    }
-#pragma unroll
-    for (int x = 1; x <= 2; x <<= 1) {
-      sum0 += __shfl_xor_sync(0xffffffffu, sum0, x);
-      sum1 += __shfl_xor_sync(0xffffffffu, sum1, x);
-    }
-    l0 = l0 * alpha0 + sum0;
-    l1 = l1 * alpha1 + sum1;
-    m0 = mn0;
-    m1 = mn1;
-#pragma unroll
-    for (int nd = 0; nd < ND; ++nd) {
-      o[nd][0] *= alpha0;
-      o[nd][1] *= alpha0;
-      o[nd][2] *= alpha1;
-      o[nd][3] *= alpha1;
-    }
-
-    // O += P V, 16 slots per k-step: the score fragments of n-tiles 2j and
-    // 2j+1 are the A operand as they lie.
-#pragma unroll
-    for (int j = 0; j < kTile / 16; ++j) {
-      uint32_t pa[4];
-      pa[0] = pack_bf16(s[2 * j][0], s[2 * j][1]);
-      pa[1] = pack_bf16(s[2 * j][2], s[2 * j][3]);
-      pa[2] = pack_bf16(s[2 * j + 1][0], s[2 * j + 1][1]);
-      pa[3] = pack_bf16(s[2 * j + 1][2], s[2 * j + 1][3]);
-      const bf16* vrow = v_s + (j * 16 + (lane & 15)) * SE;
-#pragma unroll
-      for (int nd = 0; nd < ND; ++nd) {
-        uint32_t b0, b1;
-        ldmatrix_x2_trans(b0, b1, vrow + nd * 8);
-        mma_bf16(o[nd], pa, b0, b1);
-      }
-    }
-  }
-
-  // A row that saw nothing (fully masked, or past S) has l == 0: zeros.
-  bf16* out = static_cast<bf16*>(a.out);
-  const int q_rel0 = tile_start + row0 / G;
-  const int q_rel1 = tile_start + row1 / G;
-  const float inv0 = 1.f / fmaxf(l0, 1e-20f);
-  const float inv1 = 1.f / fmaxf(l1, 1e-20f);
-  if (q_rel0 < S) {
-    bf16* orow = out + (((size_t)b * S + q_rel0) * Hq + h * G + row0 % G) * D;
-#pragma unroll
-    for (int nd = 0; nd < ND; ++nd)
-      *reinterpret_cast<__nv_bfloat162*>(orow + nd * 8 + 2 * t4) =
-          __floats2bfloat162_rn(o[nd][0] * inv0, o[nd][1] * inv0);
-  }
-  if (q_rel1 < S) {
-    bf16* orow = out + (((size_t)b * S + q_rel1) * Hq + h * G + row1 % G) * D;
-#pragma unroll
-    for (int nd = 0; nd < ND; ++nd)
-      *reinterpret_cast<__nv_bfloat162*>(orow + nd * 8 + 2 * t4) =
-          __floats2bfloat162_rn(o[nd][2] * inv1, o[nd][3] * inv1);
-  }
-}
-
-template <int D, int G>
-int launch_mma(const Args& a) {
-  constexpr int BQ = kRows / G;
-  const size_t smem_bytes =
-      (size_t)(kRows + 2 * kTile) * (D + kRowPad) * sizeof(__nv_bfloat16) +
-      (size_t)BQ * kTile;
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_kernel_mma<D, G>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem_bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid((a.S + BQ - 1) / BQ, a.Hkv, a.B);
-  flash_kernel_mma<D, G><<<grid, kMmaThreads, smem_bytes, a.stream>>>(a);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// ---------------------------------------------------------------------------
-// float32: register-tiled FMA products
-// ---------------------------------------------------------------------------
-
-constexpr int kThreads = 256;
-constexpr int kPStride = kTile + 1;
 
 template <int D, int G>
 __global__ void __launch_bounds__(kThreads) flash_kernel_f32(Args a) {
@@ -471,12 +773,10 @@ int launch_f32(const Args& a) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool BF16, int D>
-int dispatch_g(int G, const Args& a) {
-  switch (G) {
-    case 1: return BF16 ? launch_mma<D, 1>(a) : launch_f32<D, 1>(a);
-    case 4: return BF16 ? launch_mma<D, 4>(a) : launch_f32<D, 4>(a);
-  }
+template <int G>
+int dispatch_g(int dtype, const Args& a) {
+  if (dtype == 0) return launch_wgmma<G>(a);
+  if (dtype == 1) return launch_f32<128, G>(a);
   return -1;
 }
 
@@ -484,27 +784,50 @@ int dispatch_g(int G, const Args& a) {
 
 // q [B, S, Hkv*G, D] contiguous; k / v [B, T, Hkv, D] with element strides
 // (k_sb, k_st, k_sh) / (v_sb, v_st, v_sh) over B, T and the head, rows of D
-// contiguous and 16-byte aligned; mask [B, S, T] bytes (nonzero = attend);
-// out [B, S, Hkv*G, D]. dtype: 0 = bfloat16, 1 = float32 (q, k, v, out).
-// Returns cudaGetLastError() after the launch, -1 for a shape outside
-// D = 128, G in {1, 4}.
+// contiguous and 16-byte aligned (strides too, for the tensor maps); mask
+// [B, S, T] bytes (nonzero = attend); out [B, S, Hkv*G, D]. dtype: 0 =
+// bfloat16, 1 = float32 (q, k, v, out). bf16 also takes the packed mask
+// `bits` [B, S, 4 nKT] int32 and the tile `classes` [B, nQT, nKT] uint8 as
+// scratch, nKT = ceil(T / 128) <= 1024, nQT = ceil(S / (128 / G)); f32
+// ignores them. Returns cudaGetLastError() after the launches, -1 for a
+// shape outside D = 128, G in {1, 4}, nKT <= 1024, or -2 if the driver
+// refused a tensor map.
 extern "C" int dli_flash_attention(
     const void* q, const void* k, const void* v, const void* mask, void* out,
-    int B, int S, int T, int Hkv, int G, int D, long long k_sb,
-    long long k_st, long long k_sh, long long v_sb, long long v_st,
-    long long v_sh, float scale, int dtype, void* stream) {
+    void* bits, void* classes, int B, int S, int T, int Hkv, int G, int D,
+    long long k_sb, long long k_st, long long k_sh, long long v_sb,
+    long long v_st, long long v_sh, float scale, int dtype, void* stream) {
   if (B <= 0 || S <= 0) return 0;
   if (D != 128) return -1;
   Args a;
   a.q = q; a.k = k; a.v = v;
   a.mask = static_cast<const uint8_t*>(mask);
   a.out = out;
+  a.bits = static_cast<uint32_t*>(bits);
+  a.classes = static_cast<uint8_t*>(classes);
   a.B = B; a.S = S; a.T = T; a.Hkv = Hkv;
   a.ksb = k_sb; a.kst = k_st; a.ksh = k_sh;
   a.vsb = v_sb; a.vst = v_st; a.vsh = v_sh;
   a.scale = scale;
   a.stream = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch_g<true, 128>(G, a);
-  if (dtype == 1) return dispatch_g<false, 128>(G, a);
+  switch (G) {
+    case 1: return dispatch_g<1>(dtype, a);
+    case 4: return dispatch_g<4>(dtype, a);
+  }
   return -1;
+}
+
+// The bf16 kernel's first pass alone: mask [B, S, T] bytes into `bits`
+// [B, S, 4 ceil(T / 128)] and `classes` [B, ceil(S / BQ), ceil(T / 128)]
+// (0 empty, 1 full, 2 partial) for query tiles of BQ rows (BQ * 4 <= 1024).
+// Returns cudaGetLastError() after the launch.
+extern "C" int dli_flash_mask_tiles(const void* mask, void* bits,
+                                    void* classes, int B, int S, int T,
+                                    int BQ, void* stream) {
+  if (B <= 0 || S <= 0 || T <= 0) return 0;
+  if (BQ <= 0 || BQ * kWords > 1024) return -1;
+  return launch_mask_tiles(static_cast<const uint8_t*>(mask),
+                           static_cast<uint32_t*>(bits),
+                           static_cast<uint8_t*>(classes), B, S, T, BQ,
+                           static_cast<cudaStream_t>(stream));
 }

@@ -1,28 +1,28 @@
 // Fused decode step over int8 K/V with an int8 write-behind tail, for
 // Hopper (sm_90a). Shared by three TPU kernels' replacements, each a
-// geometry policy of the passes below:
+// geometry policy of the kernels below:
 //
 // * `quantized_paged_fused_attention` (distributed_llm_inference_tpu/ops/
 //   paged_attention.py), whose big segment is the int8 page pool read in
-//   place through the page table (BigThenTail<true>, csrc/paged_attention.cu);
+//   place through the page table (BigThenTail<true>, csrc/paged_attention.cu):
+//   one launch, a thread-block cluster a (row, kv head) (below);
 // * `quantized_fused_decode_attention` (distributed_llm_inference_tpu/ops/
 //   quant_attention.py), whose big segment is a contiguous [L, B, Hkv, T, D]
 //   stack gathered once per window (BigThenTail<false>,
-//   csrc/quant_attention.cu);
+//   csrc/quant_attention.cu): three launches over a scratch;
 // * `sink_fused_decode_attention` (the same file), the int8 sink ring: masked
 //   ring tiles, a tile of sinks with a query of its own, then the tail
-//   (csrc/sink_attention.cu).
+//   (csrc/sink_attention.cu): three launches over a scratch.
 //
 // tail_scatter_kernel at the end is the window's flush into contiguous
 // planes, shared by the dense cache and the sink ring in the same way.
 //
-// One call (three launches, below) is one (layer, step) of a fused K-step
-// decode window. It quantizes the step's new K and V per (row, kv head)
-// exactly as cache/dense.py:_quantize_kv does (f32 amax over D,
-// max(amax, 1e-8) / 127, round half to even, clip to +-127), writes them
-// into tail slot `step` of layer `layer` for every row, and runs one online
-// softmax over the row's live big-segment positions, then over the tail as
-// the last tile.
+// One call is one (layer, step) of a fused K-step decode window. It
+// quantizes the step's new K and V per (row, kv head) exactly as
+// cache/dense.py:_quantize_kv does (f32 amax over D, max(amax, 1e-8) / 127,
+// round half to even, clip to +-127), writes them into tail slot `step` of
+// layer `layer` for every row, and runs one online softmax over the row's
+// live big-segment positions, then over the tail as the last tile.
 //
 // The arithmetic is the TPU kernel's, rounding included, so that the f32
 // instance agrees with the plain version (and the JAX kernel) to 2e-5:
@@ -39,38 +39,43 @@
 // one ulp apart can round p * vs to the neighbouring bf16 value, which a
 // short row feels at 1e-3.
 //
-// Three launches, so that the tiles of a row run in parallel and still see
-// the running max of the sequential walk:
-//   1. scores: one block per (row, kv head, tile) computes the tile's
-//      scores for the G query heads (K read once for all of them) into
-//      scratch, and the tile's max; the tail's block first quantizes the
-//      step's K/V and writes slot `step`;
-//   2. sums: one block per (row, kv head, tile) takes the running max at
-//      its tile (the prefix max of the tile maxes, what the sequential walk
-//      holds there), p = exp(s - m), the tile's sum of p, bf16(p * vs) and
-//      its P V, into scratch;
-//   3. combine: one block per (row, query head) adds the tiles' sums,
-//      each scaled by exp(m_tile - m_last) (the product of the walk's
-//      alpha factors after the tile), and normalises.
-// Scores, maxima, p and bf16(p * vs) are bit for bit those of the walk;
-// only the order of the final f32 sums differs.
+// The tiles of a row run in parallel and still see the running max of the
+// sequential walk: each tile's max is taken first, and the running max at
+// tile j is the prefix max of the tile maxima, exactly what the walk holds
+// there; each tile's sums are scaled by exp(m_j - m_last) (the product of
+// the walk's alpha factors after it) when they are added up. Two ways:
 //
-// The tail: the step's K/V are quantized and written to slot `step` by the
-// one block that scores the tail tile (it reads the slot from its shared
-// memory); the sums pass, a later launch, reads the slot from the tail
-// planes. `step` is read from device memory, so a CUDA graph that captures
-// the launches stays valid for every step of the window.
+// * Three launches (`launch_passes`, the contiguous form and the sink
+//   ring): 1. one block per (row, kv head, tile) computes the tile's scores
+//   for the G query heads (K read once for all of them) into scratch, and
+//   the tile's max; the tail's block first quantizes the step's K/V and
+//   writes slot `step`; 2. one block per (row, kv head, tile) takes the
+//   prefix max, p = exp(s - m), the tile's sum of p, bf16(p * vs) and its
+//   P V, into scratch; 3. one block per (row, query head) adds the tiles'
+//   sums and normalises. The grid is (B, Hkv, NT), NT fixed by the table.
+// * One launch (`launch_cluster`, the paged form): a thread-block cluster
+//   per (row, kv head) deals the row's tiles to its blocks and exchanges
+//   the tile maxima and the sums through distributed shared memory behind
+//   cluster barriers; nothing goes through device memory but the inputs,
+//   the tail slot and the output (see the section below).
+//
+// `step` is read from device memory, so a CUDA graph that captures the
+// launches stays valid for every step of the window.
 //
 // What bounds it on this card: bytes (every live K and V byte is read once
-// for a few flops; the scratch adds 4 bytes a score, written and read, and
-// D floats a tile). A first form walked all tiles of a (row, query head) in
-// one block, 256 blocks at batch 8: bound by that chain, 13.9x the bytes
-// bound on an H100 (PERF.md); staging its tiles by cp.async did not help.
+// for a few flops). The three passes add 4 bytes a score of scratch,
+// written and read, D floats a tile, and blocks past a row's live tiles that
+// start only to return; their sums pass stages V with plain loads and runs
+// an n-long loop a thread (7.0x the bytes bound for #6 on an H100,
+// PERF.md). The cluster kernel keeps every stage of a block in flight at
+// once by bulk copies, and splits P V over the warps.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hopper_tile.cuh"
 
 namespace fused {
 
@@ -152,16 +157,17 @@ struct DenseRows {
 };
 
 // What every form passes: the queries, the step's K/V, the tail planes it is
-// quantized into, the output and the scratch.
+// quantized into, the output and (three passes) the scratch.
 struct Common {
   const void *q, *k_new, *v_new;          // [B, Hq, D], [B, Hkv, D] x2
   int8_t *tail_k, *tail_v;                // [L, B, Hkv, KT, D]
   float *tail_ks, *tail_vs;               // [L, B, Hkv, KT]
   const int* step;                        // one int32 in device memory
   void* out;                              // [B, Hq, D]
-  float* scratch;     // B * Hq * NT * (W + 3 + D) floats: scores [NT, W],
-                      // tile max, running max, sum of p [NT], P V [NT, D]
-                      // of each (row, query head), in that order
+  float* scratch;     // the three passes: B * Hq * NT * (W + 3 + D) floats:
+                      // scores [NT, W], tile max, running max, sum of p
+                      // [NT], P V [NT, D] of each (row, query head), in
+                      // that order (null for the cluster kernel)
   int B, Hkv, KT, layer;
   int NT, W;          // tiles a row may have (tail included), widest tile
   float scale;
@@ -499,6 +505,504 @@ int launch_passes(const P& a, cudaStream_t s) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// One launch: a thread-block cluster a (row, kv head)
+// ---------------------------------------------------------------------------
+//
+// The same walk as the three passes above, in one launch (the paged form,
+// #6; the contiguous form and the sink ring keep the passes). A cluster of
+// kCluster blocks serves one (row, kv head); the row's tiles, read from
+// base_len, tail_valid_len and q_positions at run time, are dealt to its
+// blocks in turn (tile j to block j % kCluster), so one fixed grid of
+// (kCluster, Hkv, B) blocks serves every row length, and a block with no
+// tile only takes part in the exchanges.
+//
+// 1. Scores. Each block brings its tiles' K rows (a tile's rows are
+//    contiguous: one page of one head, or a range of the tail) by bulk copy
+//    and their scales by 4-byte cp.async into a ring of stages, every stage
+//    in flight at once; its V rows follow into the stages its K rows free,
+//    so they arrive while the scores are computed and exchanged. The
+//    scores of the G query heads stay in shared memory, as in
+//    `tile_scores`, and so does each tile's max.
+// 2. Exchange. Behind a cluster barrier every block reads the tile maxima
+//    of the whole row from the blocks' shared memory (distributed shared
+//    memory) and takes their prefix maxima: the running max the sequential
+//    walk holds at each tile, exactly.
+// 3. Sums. Each block forms, for its tiles, p = exp(s - m_j), the sum of p,
+//    bf16(p * vs) and its P V (the warps take positions in turn, each lane
+//    4 columns), each tile's sums scaled by exp(m_j - m_last) into the
+//    block's accumulators.
+// 4. Reduce. Behind a second cluster barrier each block adds up its share
+//    of the output elements over the cluster's blocks, normalises and
+//    writes it; a third barrier keeps every block's shared memory alive
+//    until the others have read it.
+//
+// The block that owns the tail tile (block 0 if no tile is the tail)
+// quantizes the step's K/V first and writes slot `step`; it patches its
+// staged copy of that slot from shared memory, since the bulk copy of the
+// tail may read the slot before or after the write. Scores, maxima, p and
+// bf16(p * vs) are bit for bit those of the walk; only the order of the
+// f32 sums of P V, l and the combine differs. No scratch in device memory.
+//
+// A policy for this path provides what the passes' policies do (geo,
+// is_tail, query, visit), and its tiles' rows must be contiguous from
+// rows.row(vlo) (true of pages, of the tail and of the contiguous stacks).
+
+// 4 int8 (one word, element 0 in the low byte) as exact floats, without
+// conversion instructions: each byte, biased to b + 128, becomes the low
+// mantissa byte of 2^23; subtracting 2^23 + 128 leaves b.
+__device__ __forceinline__ void i8x4_to_f32(uint32_t w, float* o) {
+  const uint32_t u = w ^ 0x80808080u;
+  o[0] = __uint_as_float(hopper::prmt(u, 0x4B000000u, 0x7650)) - 8388736.f;
+  o[1] = __uint_as_float(hopper::prmt(u, 0x4B000000u, 0x7651)) - 8388736.f;
+  o[2] = __uint_as_float(hopper::prmt(u, 0x4B000000u, 0x7652)) - 8388736.f;
+  o[3] = __uint_as_float(hopper::prmt(u, 0x4B000000u, 0x7653)) - 8388736.f;
+}
+
+// Blocks a (row, kv head), and blocks an SM. A cluster is placed whole
+// inside one GPC, so how many fit at once depends on the GPCs' sizes:
+// seven, not the portable maximum of eight, lets a batch of 8 rows x 8 kv
+// heads (64 clusters) be resident at once at four blocks an SM (128
+// registers a thread: no spills), and an SM then carries at most 4 blocks
+// against 3.4 on average (`dli_fused_cluster_plan` reports how many fit;
+// PERF.md).
+constexpr int kCluster = 7;
+constexpr int kClusterBlocksPerSM = 4;
+constexpr int kRingBudget = 32 * 1024;  // stage bytes a block aims at
+
+__host__ __device__ __forceinline__ int cluster_align(int x) {
+  return (x + 127) & ~127;
+}
+
+// Dynamic shared memory of one block, the same in every block of a launch:
+// a ring of `stages` stages (W rows of D int8, then W f32 scales), the
+// scores [M][G][W], bf16(p * vs) [W][G], the tile maxima [M][G] (and the
+// warps' [M][kWarps][G]) and sizes [M], the prefix maxima [NT][G], the step's K/V and scales, the block's
+// sums of l [G], the sources of its loads (rows, scales) [2M][2], the
+// ring's barriers. The warps' P V partials, [kWarps][G]
+// [D], then the block's P V [G][D] in their first slot, reuse the ring
+// when it is large enough.
+struct ClusterSmem {
+  int stage_bytes, stages, scores, pw, tmax, tmw, tn, pm, fresh, den, srcs,
+      red, bars, bytes;
+  __host__ __device__ ClusterSmem(int W, int M, int NT, int G) {
+    stage_bytes = cluster_align(W * kD + W * 4);
+    stages = kRingBudget / stage_bytes;
+    if (stages < 2) stages = 2;
+    if (stages > 2 * M) stages = 2 * M;
+    int off = stages * stage_bytes;
+    scores = off;
+    off += M * G * W * 4;
+    pw = off;
+    off += G * W * 4;
+    tmax = off;
+    off += M * G * 4;
+    tmw = off;
+    off += M * kWarps * G * 4;
+    tn = off;
+    off += M * 4;
+    pm = off;
+    off += NT * G * 4;
+    fresh = cluster_align(off);
+    off = fresh + 2 * kD + 16;
+    den = cluster_align(off);
+    off = den + G * 4;
+    srcs = (off + 7) & ~7;
+    off = srcs + 2 * M * 16;
+    const int red_bytes = kWarps * G * kD * 4;
+    if (stages * stage_bytes >= red_bytes) {
+      red = 0;
+    } else {
+      red = cluster_align(off);
+      off = red + red_bytes;
+    }
+    bars = (off + 7) & ~7;
+    bytes = bars + stages * 8;
+  }
+};
+
+template <typename T, class P, int G>
+__global__ void __launch_bounds__(kThreads, kClusterBlocksPerSM)
+    fused_cluster_kernel(P a, int M) {
+  static_assert(G == 1 || G == 4, "the instances this kernel is built for");
+  extern __shared__ __align__(128) uint8_t csm[];
+  __shared__ float red_s[kWarps];
+  const ClusterSmem L(a.W, M, a.NT, G);
+  const int r = hopper::cluster_rank();
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int t = threadIdx.x;
+  const int warp = t >> 5;
+  const int lane = t & 31;
+  const int grp = lane / kLPP;
+  const int sub = lane % kLPP;
+  // The step's K/V element of this thread, loaded before the memory
+  // system fills with the ring's copies (only the tail's block uses them).
+  const size_t bh = (size_t)b * a.Hkv + h;
+  const float kx = to_f(static_cast<const T*>(a.k_new)[bh * kD + t]);
+  const float vx = to_f(static_cast<const T*>(a.v_new)[bh * kD + t]);
+  const auto geo = a.geo(b);
+  const int ntiles = geo.ntiles;
+  // This block's tiles: j = r + u * kCluster, u < mine.
+  const int mine = ntiles > r ? (ntiles - r + kCluster - 1) / kCluster : 0;
+  const int loads = 2 * mine;  // K of each, then V of each
+  float* scores = reinterpret_cast<float*>(csm + L.scores);   // [M][G][W]
+  float* pw = reinterpret_cast<float*>(csm + L.pw);           // [W][G]
+  float* tmax = reinterpret_cast<float*>(csm + L.tmax);       // [M][G]
+  float* tmw = reinterpret_cast<float*>(csm + L.tmw);         // [M][kWarps][G]
+  int* tn = reinterpret_cast<int*>(csm + L.tn);               // [M]
+  float* pm = reinterpret_cast<float*>(csm + L.pm);           // [NT][G]
+  int8_t* fresh_k = reinterpret_cast<int8_t*>(csm + L.fresh);
+  int8_t* fresh_v = fresh_k + kD;
+  float* fresh_s = reinterpret_cast<float*>(fresh_v + kD);    // ks, vs
+  float* den_s = reinterpret_cast<float*>(csm + L.den);       // [G]
+  float* red = reinterpret_cast<float*>(csm + L.red);         // [kWarps][G][D]
+  uint64_t* srcs = reinterpret_cast<uint64_t*>(csm + L.srcs);  // [2M][2]
+  uint64_t* full = reinterpret_cast<uint64_t*>(csm + L.bars);
+  const int R = L.stages;
+
+  if (t == 0) {
+    // The TMA-side arrival with its bytes, and one from each lane of warp
+    // 0 once its scale copies have landed.
+    for (int s = 0; s < R; ++s) hopper::mbar_init(&full[s], 1 + 32);
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  auto stage = [&](int idx) { return csm + (idx % R) * L.stage_bytes; };
+  // Load idx (warp 0): K rows of tile u = idx, or V rows of u = idx - mine,
+  // and their scales, from the sources the prologue found.
+  auto issue = [&](int idx) {
+    const int n = tn[idx < mine ? idx : idx - mine];
+    uint8_t* st = stage(idx);
+    float* sc = reinterpret_cast<float*>(st + a.W * kD);
+    const float* ssrc = reinterpret_cast<const float*>(srcs[2 * idx + 1]);
+    uint64_t* bar = &full[idx % R];
+    if (lane == 0) {
+      hopper::mbar_arrive_expect_tx(bar, n * kD);
+      hopper::bulk_load(st, reinterpret_cast<const void*>(srcs[2 * idx]),
+                        n * kD, bar);
+    }
+    for (int i = lane; i < n; i += 32) hopper::cp_async_4(sc + i, ssrc + i, true);
+    hopper::cp_async_arrive_noinc(bar);
+  };
+  auto wait_load = [&](int idx) { hopper::mbar_wait(&full[idx % R], (idx / R) & 1); };
+
+  if (warp == 0) {
+    // The lanes find the loads' sources together (the page table's reads
+    // overlap), then the ring's first stages go out.
+    for (int idx = lane; idx < loads; idx += 32) {
+      const bool is_v = idx >= mine;
+      const int u = is_v ? idx - mine : idx;
+      a.visit(geo, b, h, r + u * kCluster,
+              [&](const auto& rows, int vlo, int n, const auto&) {
+                const size_t r0 = rows.row(vlo);
+                srcs[2 * idx] = reinterpret_cast<uint64_t>(
+                    (is_v ? rows.v : rows.k) + r0 * kD);
+                srcs[2 * idx + 1] = reinterpret_cast<uint64_t>(
+                    (is_v ? rows.vs : rows.ks) + r0);
+                if (!is_v) tn[u] = n;
+              });
+    }
+    __syncwarp();
+    for (int idx = 0; idx < min(R, loads); ++idx) issue(idx);
+  }
+
+  // The step's K/V, quantized as _quantize_kv does, into tail slot `step`
+  // (one block alone writes it) and into shared memory: by the tail's
+  // block just before it scores the tail, or by block 0 at the end of the
+  // scores when no tile is the tail.
+  const int step = *a.step;
+  const bool tail_live = ntiles > 0 && a.is_tail(geo, ntiles - 1);
+  auto quantize = [&]() {
+    const float ksc = fmaxf(block_max(fabsf(kx), red_s), 1e-8f) / 127.f;
+    const float vsc = fmaxf(block_max(fabsf(vx), red_s), 1e-8f) / 127.f;
+    const int8_t kq = (int8_t)fminf(fmaxf(rintf(kx / ksc), -127.f), 127.f);
+    const int8_t vq = (int8_t)fminf(fmaxf(rintf(vx / vsc), -127.f), 127.f);
+    const size_t trow = ((size_t)a.layer * a.B + b) * a.Hkv + h;
+    a.tail_k[(trow * a.KT + step) * kD + t] = kq;
+    a.tail_v[(trow * a.KT + step) * kD + t] = vq;
+    if (t == 0) {
+      a.tail_ks[trow * a.KT + step] = ksc;
+      a.tail_vs[trow * a.KT + step] = vsc;
+      fresh_s[0] = ksc;
+      fresh_s[1] = vsc;
+    }
+    fresh_k[t] = kq;
+    fresh_v[t] = vq;
+    __syncthreads();
+  };
+  // Puts the step's row (K or V) into the staged tail tile, where the tile
+  // holds slot `step`; the next bulk copy into the stage comes after a
+  // proxy fence and a barrier.
+  auto patch = [&](int j, int vlo, int n, uint8_t* st, bool is_v) {
+    const int i = step - vlo;
+    if (!a.is_tail(geo, j) || i < 0 || i >= n) return;
+    st[i * kD + t] = static_cast<uint8_t>((is_v ? fresh_v : fresh_k)[t]);
+    if (t == 0)
+      reinterpret_cast<float*>(st + a.W * kD)[i] = fresh_s[is_v ? 1 : 0];
+    hopper::fence_proxy_async();
+    __syncthreads();
+  };
+
+  // 1. Scores of each tile for the G query heads, K read once for all.
+  const T* qcur = nullptr;
+  float qr[G][kEPL];
+  for (int u = 0; u < mine; ++u) {
+    const int j = r + u * kCluster;
+    const T* qsrc = static_cast<const T*>(a.query(geo, j));
+    if (qsrc != qcur) {
+      // The query heads' slices, rounded to bf16 as the TPU kernel's
+      // product does, in the lane layout of tile_scores.
+      qcur = qsrc;
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        const T* qp = qsrc + (bh * G + g) * kD + sub * kEPL;
+#pragma unroll
+        for (int e = 0; e < kEPL; ++e) qr[g][e] = bf16_round(to_f(qp[e]));
+      }
+    }
+    if (a.is_tail(geo, j)) quantize();
+    wait_load(u);
+    uint8_t* st = stage(u);
+    a.visit(geo, b, h, j, [&](const auto&, int vlo, int n, const auto& live) {
+      patch(j, vlo, n, st, false);
+      const float* sc = reinterpret_cast<const float*>(st + a.W * kD);
+      float* s_u = scores + (size_t)u * G * a.W;
+      // The max of the scores this lane writes (head sub / 2 for G = 4,
+      // head 0 on lane 0 of a position for G = 1).
+      float tm = kNegInf;
+      for (int i0 = warp * kPPW; i0 < n; i0 += kWarps * kPPW) {
+        const int i = i0 + grp;
+        const bool in = i < n;
+        const bool lv = in && live(i);
+        float kk[kEPL];
+        float ksc = 0.f;
+        if (lv) {
+          const uint4 w = reinterpret_cast<const uint4*>(st + i * kD)[sub];
+          i8x4_to_f32(w.x, kk);
+          i8x4_to_f32(w.y, kk + 4);
+          i8x4_to_f32(w.z, kk + 8);
+          i8x4_to_f32(w.w, kk + 12);
+          ksc = sc[i];
+        } else {
+#pragma unroll
+          for (int e = 0; e < kEPL; ++e) kk[e] = 0.f;
+        }
+        float dot[G];
+#pragma unroll
+        for (int g = 0; g < G; ++g) {
+          dot[g] = 0.f;
+#pragma unroll
+          for (int e = 0; e < kEPL; ++e) dot[g] += qr[g][e] * kk[e];
+        }
+        if constexpr (G == 4) {
+          // The butterfly over the 8 lanes of a position (xor 4, 2, 1) as
+          // a reduce-scatter: each step a lane adds its partner's value of
+          // the heads it keeps, every sum in the butterfly's order (a + b
+          // on one lane is b + a on the other). Head g ends on lanes
+          // 2g, 2g + 1 of the position.
+          const bool hi4 = sub & 4, hi2 = sub & 2;
+          const float x0 = __shfl_xor_sync(0xffffffffu, hi4 ? dot[0] : dot[2], 4);
+          const float x1 = __shfl_xor_sync(0xffffffffu, hi4 ? dot[1] : dot[3], 4);
+          const float a0 = (hi4 ? dot[2] : dot[0]) + x0;
+          const float a1 = (hi4 ? dot[3] : dot[1]) + x1;
+          const float y = __shfl_xor_sync(0xffffffffu, hi2 ? a0 : a1, 2);
+          float c = (hi2 ? a1 : a0) + y;
+          c += __shfl_xor_sync(0xffffffffu, c, 1);
+          if (in && (sub & 1) == 0) {
+            const float sv = lv ? c * ksc * a.scale : kNegInf;
+            s_u[(sub >> 1) * a.W + i] = sv;
+            tm = fmaxf(tm, sv);
+          }
+        } else {
+#pragma unroll
+          for (int o = kLPP / 2; o > 0; o >>= 1)
+            dot[0] += __shfl_xor_sync(0xffffffffu, dot[0], o);
+          if (in && sub == 0) {
+            const float sv = lv ? dot[0] * ksc * a.scale : kNegInf;
+            s_u[i] = sv;
+            tm = fmaxf(tm, sv);
+          }
+        }
+      }
+      // Over the warp's positions (lanes 8 apart hold the same head), then
+      // one value a (warp, head) for the tile's max below.
+      tm = fmaxf(tm, __shfl_xor_sync(0xffffffffu, tm, 8));
+      tm = fmaxf(tm, __shfl_xor_sync(0xffffffffu, tm, 16));
+      const bool writer = G == 4 ? (sub & 1) == 0 : sub == 0;
+      if (grp == 0 && writer)
+        tmw[((size_t)u * kWarps + warp) * G + (G == 4 ? sub >> 1 : 0)] = tm;
+    });
+    __syncthreads();  // the stage is read
+    if (warp == 0 && u + R < loads) issue(u + R);
+  }
+  if (!tail_live && r == 0) quantize();
+  // Each tile's max over the warps.
+  for (int e = t; e < mine * G; e += kThreads) {
+    const int u = e / G, g = e % G;
+    float m = kNegInf;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w)
+      m = fmaxf(m, tmw[((size_t)u * kWarps + w) * G + g]);
+    tmax[e] = m;
+  }
+
+  // 2. The row's tile maxima from the cluster, and their prefix maxima.
+  hopper::cluster_sync();
+  for (int e = t; e < ntiles * G; e += kThreads) {
+    const int k = e / G, g = e % G;
+    pm[e] = hopper::cluster_load(tmax + (k / kCluster) * G + g, k % kCluster);
+  }
+  __syncthreads();
+  if (t < G) {
+    float m = kNegInf;
+    for (int k = 0; k < ntiles; ++k) {
+      m = fmaxf(m, pm[k * G + t]);
+      pm[k * G + t] = m;
+    }
+  }
+  __syncthreads();
+
+  // 3. Sums of each tile under the running max at it.
+  float m_last[G], acc[G][4], den[G];
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    m_last[g] = ntiles > 0 ? pm[(ntiles - 1) * G + g] : kNegInf;
+    den[g] = 0.f;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[g][c] = 0.f;
+  }
+  for (int u = 0; u < mine; ++u) {
+    const int j = r + u * kCluster;
+    const int idx = mine + u;
+    wait_load(idx);
+    uint8_t* st = stage(idx);
+    a.visit(geo, b, h, j, [&](const auto&, int vlo, int n, const auto& live) {
+      patch(j, vlo, n, st, true);
+      const float* vsc = reinterpret_cast<const float*>(st + a.W * kD);
+      const float* s_u = scores + (size_t)u * G * a.W;
+      float mj[G], wj[G];
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        mj[g] = pm[j * G + g];
+        wj[g] = expf(mj[g] - m_last[g]);
+        float lsum = 0.f;
+        for (int i = t; i < n; i += kThreads) {
+          const float p = live(i) ? expf(s_u[g * a.W + i] - mj[g]) : 0.f;
+          lsum += p;
+          pw[i * G + g] = bf16_round(p * vsc[i]);
+        }
+        den[g] += wj[g] * lsum;
+      }
+      __syncthreads();  // pw
+      float pv[G][4];
+#pragma unroll
+      for (int g = 0; g < G; ++g)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) pv[g][c] = 0.f;
+      for (int i = warp; i < n; i += kWarps) {
+        float v[4];
+        i8x4_to_f32(reinterpret_cast<const uint32_t*>(st + i * kD)[lane], v);
+        float p[G];
+        if constexpr (G == 4) {
+          const float4 p4 = *reinterpret_cast<const float4*>(pw + i * G);
+          p[0] = p4.x; p[1] = p4.y; p[2] = p4.z; p[3] = p4.w;
+        } else {
+#pragma unroll
+          for (int g = 0; g < G; ++g) p[g] = pw[i * G + g];
+        }
+#pragma unroll
+        for (int g = 0; g < G; ++g)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) pv[g][c] += p[g] * v[c];
+      }
+#pragma unroll
+      for (int g = 0; g < G; ++g)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[g][c] += wj[g] * pv[g][c];
+    });
+    __syncthreads();  // the stage and pw are read
+    if (warp == 0 && idx + R < loads) issue(idx + R);
+  }
+
+  // The block's sums: P V over its warps (red, over the drained ring), l
+  // over its threads (a warp's sum into tmw, free since the maxima).
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    *reinterpret_cast<float4*>(red + ((size_t)warp * G + g) * kD + 4 * lane) =
+        make_float4(acc[g][0], acc[g][1], acc[g][2], acc[g][3]);
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      den[g] += __shfl_xor_sync(0xffffffffu, den[g], o);
+    if (lane == 0) tmw[warp * G + g] = den[g];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    float s = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) s += red[((size_t)w * G + g) * kD + t];
+    red[(size_t)g * kD + t] = s;  // slot of warp 0: only this thread reads it
+  }
+  if (t < G) {
+    float l = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) l += tmw[w * G + t];
+    den_s[t] = l;
+  }
+
+  // 4. The cluster's sums of this block's share of the outputs.
+  hopper::cluster_sync();
+  constexpr int kShare = (G * kD + kCluster - 1) / kCluster;
+  if (t < kShare && r * kShare + t < G * kD) {
+    const int e = r * kShare + t;
+    const int g = e / kD;
+    float num = 0.f, l = 0.f;
+    for (int k = 0; k < kCluster; ++k) {
+      num += hopper::cluster_load(red + e, k);
+      l += hopper::cluster_load(den_s + g, k);
+    }
+    // A row with nothing to attend gives zeros.
+    store(static_cast<T*>(a.out) + ((size_t)b * a.Hkv + h) * G * kD + e,
+          num / fmaxf(l, 1e-20f));
+  }
+  hopper::cluster_sync();
+}
+
+// The cluster launch of fused_cluster_kernel<T, P, G> for `a`: M tiles a
+// block at most, the shared memory it needs set on the kernel. `clusters`,
+// when not null, receives how many such clusters the card holds at once
+// instead of a launch.
+template <typename T, class P, int G>
+int launch_cluster(const P& a, cudaStream_t s, int* clusters = nullptr) {
+  const int M = (a.NT + kCluster - 1) / kCluster;
+  const ClusterSmem L(a.W, M, a.NT, G);
+  if (L.bytes > 232448) return -1;
+  auto* kernel = fused_cluster_kernel<T, P, G>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L.bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(kCluster, a.Hkv, a.B);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = L.bytes;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kCluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  if (clusters != nullptr)
+    return static_cast<int>(cudaOccupancyMaxActiveClusters(
+        clusters, reinterpret_cast<const void*>(kernel), &cfg));
+  err = cudaLaunchKernelEx(&cfg, kernel, a, M);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // The instances: G in {1, 4} query heads a kv head, q in bf16 (dtype 0) or
 // f32 (1). -1 for any other.
 template <class P>
@@ -511,10 +1015,22 @@ int dispatch(const P& a, int G, int dtype, void* stream) {
   return -1;
 }
 
-// dtype: 0 = bfloat16, 1 = float32 (q, k_new, v_new, out). Returns
-// cudaGetLastError() after the launches, or -1 for a shape the kernels are
-// not built for (D = 128, G in {1, 4}, tiles and tail of 1..256, NT and W
-// that hold every row's tiles).
+template <class P>
+int dispatch_cluster(const P& a, int G, int dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0 && G == 1) return launch_cluster<__nv_bfloat16, P, 1>(a, s);
+  if (dtype == 0 && G == 4) return launch_cluster<__nv_bfloat16, P, 4>(a, s);
+  if (dtype == 1 && G == 1) return launch_cluster<float, P, 1>(a, s);
+  if (dtype == 1 && G == 4) return launch_cluster<float, P, 4>(a, s);
+  return -1;
+}
+
+// dtype: 0 = bfloat16, 1 = float32 (q, k_new, v_new, out). The paged form
+// takes the one-launch cluster kernel, the contiguous one the three passes.
+// Returns cudaGetLastError() after the launches, or -1 for a shape the
+// kernels are not built for (D = 128, G in {1, 4}, tiles and tail of
+// 1..256, NT and W that hold every row's tiles, and for the cluster kernel
+// shared memory within a block's 227 KB).
 template <bool Paged>
 int launch(const Args& a, int G, int D, int dtype, void* stream) {
   if (a.B <= 0) return 0;
@@ -525,7 +1041,10 @@ int launch(const Args& a, int G, int D, int dtype, void* stream) {
   if (a.W < tw || a.W < a.KT || a.NT < (cap + tw - 1) / tw + 1) return -1;
   BigThenTail<Paged> p;
   static_cast<Args&>(p) = a;
-  return dispatch(p, G, dtype, stream);
+  if constexpr (Paged)
+    return dispatch_cluster(p, G, dtype, stream);
+  else
+    return dispatch(p, G, dtype, stream);
 }
 
 // The fused window's int8 tail merged into contiguous planes, a direct

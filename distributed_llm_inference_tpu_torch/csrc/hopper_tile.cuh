@@ -1,8 +1,11 @@
 // Hopper (sm_90a) building blocks for attention kernels fed by the Tensor
-// Memory Accelerator: mbarriers, TMA tile loads and stores, the warpgroup
-// product (wgmma) with its shared-memory descriptors, and the host-side
-// encoding of tensor maps. Used by ragged_attention.cu (the ragged paged
-// prefill kernels); flash_attention.cu can take the same blocks.
+// Memory Accelerator: mbarriers, TMA tile loads and stores, bulk copies,
+// thread-block clusters (their barrier and distributed shared memory), the
+// warpgroup product (wgmma) with its shared-memory descriptors, and the
+// host-side encoding of tensor maps. Used by ragged_attention.cu (the ragged
+// paged prefill kernels), flash_attention.cu (the dense caches' flash
+// prefill, on the same blocks as the ragged kernels) and fused_decode.cuh
+// (the fused decode step over the page pool, one cluster a (row, kv head)).
 //
 // Tensor maps are encoded with cuTensorMapEncodeTiled, reached through
 // cudaGetDriverEntryPoint: the libraries link only the CUDA runtime, never
@@ -106,6 +109,44 @@ __device__ __forceinline__ void tma_store_4d(const CUtensorMap* map,
 __device__ __forceinline__ void tma_store_wait() {
   asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
   asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// `bytes` (a multiple of 16, both addresses 16-byte aligned) global ->
+// shared by the bulk-copy engine; completion is counted in bytes on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n"
+      :: "r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// This block's rank in its cluster.
+__device__ __forceinline__ int cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return static_cast<int>(r);
+}
+
+// Every thread of every block of the cluster: shared-memory writes before
+// it are visible to the cluster's reads after it.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// The float at `p` (an address in this block's shared memory) in the
+// shared memory of the cluster's block `rank`, which has the same layout.
+__device__ __forceinline__ float cluster_load(const float* p, int rank) {
+  uint32_t remote;
+  float v;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(remote) : "r"(smem_u32(p)), "r"(rank));
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n"
+               : "=f"(v) : "r"(remote) : "memory");
+  return v;
 }
 
 // 4 bytes global -> shared, asynchronously; zeros when !live (no read).

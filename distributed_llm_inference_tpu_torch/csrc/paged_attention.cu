@@ -99,21 +99,22 @@ extern "C" int dli_quantized_paged_attention(
 
 // Replaces `quantized_paged_fused_attention` (the TPU kernel
 // `_qpaged_fused_kernel`): one (layer, step) of the fused window over the
-// int8 page pool read in place, the step's K/V quantized into the tail.
-// See fused_decode.cuh. The whole [L, P, Hkv, PS, D] pool and [L, B, Hkv,
-// KT, D] tail are passed; `layer` picks the layer, `step` is read from
-// device memory; `scratch` holds B * Hkv * G * NT * (W + 3 + D) floats,
-// NT >= Tw + 1 tiles a row, W >= max(PS, KT). Returns cudaGetLastError()
-// after the launches, -1 for a shape outside D = 128, G in {1, 4}, PS and
-// KT in 1..256.
+// int8 page pool read in place, the step's K/V quantized into the tail, in
+// one launch of a thread-block cluster a (row, kv head). See
+// fused_decode.cuh. The whole [L, P, Hkv, PS, D] pool and [L, B, Hkv, KT,
+// D] tail are passed; `layer` picks the layer, `step` is read from device
+// memory; NT >= Tw + 1 tiles a row and W >= max(PS, KT) size the shared
+// memory. Returns cudaGetLastError() after the launch, -1 for a shape
+// outside D = 128, G in {1, 4}, PS and KT in 1..256, or one whose shared
+// memory does not fit a block.
 extern "C" int dli_quantized_paged_fused_attention(
     const void* q, const void* k_new, const void* v_new, const void* pool_k,
     const void* pool_ks, const void* pool_v, const void* pool_vs,
     void* tail_k, void* tail_ks, void* tail_v, void* tail_vs,
     const void* table, const void* base_len, const void* tail_vlen,
-    const void* q_pos, const void* step, void* out, void* scratch, int B,
-    int Hkv, int G, int D, int P, int PS, int Tw, int KT, int layer, int NT,
-    int W, float scale, int window, int dtype, void* stream) {
+    const void* q_pos, const void* step, void* out, int B, int Hkv, int G,
+    int D, int P, int PS, int Tw, int KT, int layer, int NT, int W,
+    float scale, int window, int dtype, void* stream) {
   fused::Args a;
   a.q = q; a.k_new = k_new; a.v_new = v_new;
   a.big_k = static_cast<const int8_t*>(pool_k);
@@ -130,7 +131,7 @@ extern "C" int dli_quantized_paged_fused_attention(
   a.q_pos = static_cast<const int*>(q_pos);
   a.step = static_cast<const int*>(step);
   a.out = out;
-  a.scratch = static_cast<float*>(scratch);
+  a.scratch = nullptr;
   a.NT = NT; a.W = W;
   a.B = B; a.Hkv = Hkv; a.rows = P; a.ps = PS; a.tw = Tw; a.tile_w = PS;
   a.KT = KT; a.layer = layer; a.window = window; a.scale = scale;
@@ -205,4 +206,35 @@ extern "C" int dli_paged_tail_flush(
       static_cast<const int*>(table), static_cast<const int*>(base_len),
       static_cast<const int*>(tail_len), B, P, Hkv, PS, Tw, KT, D);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The fused step's cluster launch at these widths (bf16 queries), as
+// fused::launch_cluster makes it: out[0] blocks a cluster (a (row, kv
+// head)), out[1] tiles a block can hold (M), out[2] ring stages, out[3]
+// bytes a stage, out[4] dynamic shared memory bytes a block, out[5] the
+// clusters the card holds at once. Returns 0, -1 outside G in {1, 4}, or
+// the CUDA error of the occupancy query.
+extern "C" int dli_fused_cluster_plan(int NT, int W, int G, long long* out) {
+  if ((G != 1 && G != 4) || NT < 1 || W < 1) return -1;
+  const int M = (NT + fused::kCluster - 1) / fused::kCluster;
+  const fused::ClusterSmem L(W, M, NT, G);
+  fused::BigThenTail<true> a;
+  a.NT = NT;
+  a.W = W;
+  a.B = 1;
+  a.Hkv = 1;
+  int clusters = 0;
+  const int err =
+      G == 1 ? fused::launch_cluster<__nv_bfloat16, fused::BigThenTail<true>, 1>(
+                   a, nullptr, &clusters)
+             : fused::launch_cluster<__nv_bfloat16, fused::BigThenTail<true>, 4>(
+                   a, nullptr, &clusters);
+  if (err != 0) return err;
+  out[0] = fused::kCluster;
+  out[1] = M;
+  out[2] = L.stages;
+  out[3] = L.stage_bytes;
+  out[4] = L.bytes;
+  out[5] = clusters;
+  return 0;
 }

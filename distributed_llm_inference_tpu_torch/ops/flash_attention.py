@@ -18,13 +18,20 @@ or raises there for a head_dim or grouping it was not built for; CPU
 tensors take :func:`flash_attention_plain`, which walks the TPU kernel's
 ``bk``-wide tiles.
 
-``csrc/flash_attention.cu`` replaces the TPU kernel ``_flash_kernel``: one
-block per (query tile, kv head, row) with the G query heads folded into the
-rows, 64-position steps, an empty mask tile skipped, bf16 products on the
-tensor cores and f32 ones on FMAs (the file says what bounds it). K and V
-may be any strided view whose rows of D are contiguous (the int8 dense
-cache's gather path hands a transposed head-major view). ``launches``
-counts kernel launches (and nothing else).
+``csrc/flash_attention.cu`` replaces the TPU kernel ``_flash_kernel``. In
+bf16 a first pass reads the byte mask once (it is shared by every kv head)
+into a bit-packed mask and a class per tile of 128 / G queries by 128
+positions (empty, full or partial, :func:`mask_tiles` is its plain
+version); the main kernel then walks, per (query tile, kv head, row), only
+the non-empty 128-wide steps (the TPU kernel's ``block_k``) with the
+ragged kernel's Hopper design: K and V by TMA into a ring of stages, both
+products on ``wgmma``, two consumer warpgroups in turn, a partial step
+masked from the packed bits, the output by TMA. f32 runs FMA products over
+64-wide steps (the file says what bounds it). K and V may be any strided
+view whose rows of D are contiguous and whose strides are 16-byte
+multiples (the int8 dense cache's gather path hands a transposed
+head-major view). ``launches`` counts calls that launch the kernels (and
+nothing else).
 """
 
 from __future__ import annotations
@@ -37,13 +44,17 @@ import torch
 from . import _build
 from .attention import _NEG_INF, gqa_attention
 
-__all__ = ["flash_attention", "flash_attention_plain", "launches"]
+__all__ = ["flash_attention", "flash_attention_plain", "mask_tiles",
+           "device_mask_tiles", "launches"]
 
-# Kernel launches made by :func:`flash_attention` in this process.
+# Calls of :func:`flash_attention` in this process that launched the kernels.
 launches = 0
 
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
-_fn = []
+STEP = 128          # kv positions a step of the bf16 kernel
+MAX_STEPS = 1024    # steps a query tile can list (csrc/flash_attention.cu)
+EMPTY, FULL, PARTIAL = 0, 1, 2
+_fn = {}
 
 
 def flash_attention_plain(
@@ -85,15 +96,72 @@ def flash_attention_plain(
     return out.permute(0, 3, 1, 2, 4).reshape(b, s, hq, d).to(q.dtype)
 
 
-def _kernel():
-    if not _fn:
-        fn = _build.load_library("flash_attention").dli_flash_attention
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
-            ctypes.c_longlong] * 6 + [ctypes.c_float, ctypes.c_int,
-                                      ctypes.c_void_p]
+def mask_tiles(mask: torch.Tensor, block_q: int, step: int = STEP):
+    """Plain version of the bf16 kernel's first pass: the boolean mask
+    ``[B, S, T]`` bit-packed, ``bits`` int32 ``[B, S, 4 nKT]`` (bit i of
+    word w of a row is position 32 w + i; nKT = ceil(T / step)), and the
+    class of every tile of ``block_q`` queries by ``step`` positions,
+    ``classes`` uint8 ``[B, nQT, nKT]``: EMPTY (no visible position), FULL
+    (every position below T visible to every query below S) or PARTIAL.
+    Positions past T are not visible."""
+    b, s, t = mask.shape
+    nkt, nqt = -(-t // step), -(-s // block_q)
+    m = torch.zeros((b, s, nkt * step), dtype=torch.bool, device=mask.device)
+    m[:, :, :t] = mask
+    weights = 2 ** torch.arange(32, dtype=torch.int64, device=mask.device)
+    words = (m.reshape(b, s, nkt * step // 32, 32).long() * weights).sum(-1)
+    bits = torch.where(words >= 2**31, words - 2**32, words).to(torch.int32)
+    tiles = torch.zeros((b, nqt * block_q, nkt * step), dtype=torch.bool,
+                        device=mask.device)
+    tiles[:, :s] = m
+    tiles = tiles.reshape(b, nqt, block_q, nkt, step)
+    rows = (torch.arange(nqt * block_q, device=mask.device) < s).reshape(
+        1, nqt, block_q, 1)
+    cols = (torch.arange(nkt * step, device=mask.device) < t).reshape(
+        nkt, step)
+    any_ = tiles.any(dim=(2, 4))
+    all_ = ((tiles | ~rows[..., None]) & cols).all(dim=(2, 4))
+    classes = torch.where(any_, torch.where(all_, FULL, PARTIAL), EMPTY)
+    return bits, classes.to(torch.uint8)
+
+
+def _kernel(name: str = "dli_flash_attention"):
+    fn = _fn.get(name)
+    if fn is None:
+        fn = getattr(_build.load_library("flash_attention"), name)
+        if name == "dli_flash_attention":
+            fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [
+                ctypes.c_longlong] * 6 + [ctypes.c_float, ctypes.c_int,
+                                          ctypes.c_void_p]
+        else:
+            fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [
+                ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        _fn.append(fn)
-    return _fn[0]
+        _fn[name] = fn
+    return fn
+
+
+def _tile_scratch(b, s, t, block_q, device):
+    """The bf16 kernel's packed mask and tile classes (see
+    :func:`mask_tiles`) for query tiles of ``block_q`` queries."""
+    nkt, nqt = -(-t // STEP), -(-s // block_q)
+    return (torch.empty((b, s, 4 * nkt), dtype=torch.int32, device=device),
+            torch.empty((b, nqt, nkt), dtype=torch.uint8, device=device))
+
+
+def device_mask_tiles(mask: torch.Tensor, block_q: int):
+    """The bf16 kernel's first pass alone on a CUDA ``mask``: what
+    :func:`mask_tiles` computes, from the card."""
+    b, s, t = mask.shape
+    mask = mask.contiguous()
+    bits, classes = _tile_scratch(b, s, t, block_q, mask.device)
+    with torch.cuda.device(mask.device):
+        err = _kernel("dli_flash_mask_tiles")(
+            mask.data_ptr(), bits.data_ptr(), classes.data_ptr(), b, s, t,
+            block_q, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flash mask tiles: kernel launch failed ({err})")
+    return bits, classes
 
 
 def _launch(q, k, v, mask, scale):
@@ -126,13 +194,17 @@ def _launch(q, k, v, mask, scale):
             raise ValueError(
                 f"{name}: {label} rows of D must be contiguous and 16-byte "
                 f"aligned, strides {x.stride()}")
+    if -(-t // STEP) > MAX_STEPS:
+        raise ValueError(f"{name}: T = {t} above {STEP * MAX_STEPS}")
     if scale is None:
         scale = d**-0.5
     out = torch.empty_like(q)
+    bits, classes = _tile_scratch(b, s, t, 128 // (hq // hkv), q.device)
     with torch.cuda.device(q.device):
         err = _kernel()(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
-            out.data_ptr(), b, s, t, hkv, hq // hkv, d, k.stride(0),
+            out.data_ptr(), bits.data_ptr(), classes.data_ptr(), b, s, t,
+            hkv, hq // hkv, d, k.stride(0),
             k.stride(1), k.stride(2), v.stride(0), v.stride(1), v.stride(2),
             float(scale), _DTYPE_CODE[q.dtype],
             torch.cuda.current_stream().cuda_stream,

@@ -20,9 +20,12 @@ pages are never dequantized into a copy.
 The fused window (``models/llama.py:multi_decode_apply``) adds two kernels.
 ``quantized_paged_fused_attention`` replaces ``_qpaged_fused_kernel``: one
 (layer, step) over the whole int8 pool in place, the step's K/V quantized
-into the int8 tail, the tail the last online-softmax tile
-(``csrc/fused_decode.cuh``, which says what bounds it; its rounding and
-tiles are the TPU kernel's, see ``ops/quant_attention.py``).
+into the int8 tail, the tail the last online-softmax tile, in one launch:
+a thread-block cluster per (row, kv head) deals the row's live tiles to its
+blocks and exchanges their maxima and sums through distributed shared
+memory, with no scratch in device memory (``csrc/fused_decode.cuh``, which
+says what bounds it; its rounding and tiles are the TPU kernel's, see
+``ops/quant_attention.py``).
 ``paged_tail_flush`` replaces the TPU kernel of the same name: it writes
 each row's ``tail_len`` tail slots to positions ``base_len + i`` of its
 pages, a direct scatter (the TPU kernel's whole-page read-modify-write with
@@ -433,7 +436,7 @@ def _fused_kernel():
     if fn is None:
         fn = _build.load_library(
             "paged_attention").dli_quantized_paged_fused_attention
-        fn.argtypes = [ctypes.c_void_p] * 18 + [ctypes.c_int] * 11 + [
+        fn.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 11 + [
             ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
         ]
         fn.restype = ctypes.c_int
@@ -477,9 +480,7 @@ def quantized_paged_fused_attention(
         return quantized_paged_fused_attention_plain(*args)
     if q.device.type != "cuda":
         raise ValueError(f"quantized_paged_fused_attention: device {q.device}")
-    from .quant_attention import (
-        MAX_TILE, _tail_planes, check_fused_inputs, fused_scratch,
-    )
+    from .quant_attention import MAX_TILE, _tail_planes, check_fused_inputs
 
     name = "quantized_paged_fused_attention"
     code = check_fused_inputs(
@@ -514,7 +515,6 @@ def quantized_paged_fused_attention(
     width = page_table.shape[1]
     nt, w = width + 1, max(ps, kt)
     out = torch.empty_like(q)
-    scratch = fused_scratch(b * hq, nt, w, d, q.device)
     with torch.cuda.device(q.device):
         err = _fused_kernel()(
             q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
@@ -523,7 +523,7 @@ def quantized_paged_fused_attention(
             tail_v.data_ptr(), tail_vs.data_ptr(), page_table.data_ptr(),
             base_len.data_ptr(), tail_valid_len.data_ptr(),
             q_positions.data_ptr(), step_idx.data_ptr(), out.data_ptr(),
-            scratch.data_ptr(), b, hkv, hq // hkv, d, num_p, ps, width, kt,
+            b, hkv, hq // hkv, d, num_p, ps, width, kt,
             int(layer_idx), nt, w, float(scale), int(sliding_window or 0),
             code, torch.cuda.current_stream().cuda_stream,
         )

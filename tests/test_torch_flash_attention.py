@@ -132,3 +132,114 @@ def test_wrapper_refuses_other_devices():
     mask = torch.zeros((1, 16, 16), dtype=torch.bool, device="meta")
     with pytest.raises(ValueError, match="device"):
         tfa.flash_attention(q, k, k, mask)
+
+
+# ---------------------------------------------------------------------------
+# The bf16 kernel's first pass (``mask_tiles``): the mask bit-packed and a
+# class per (query tile, 128-wide step), and the walk the kernel makes
+# from them (only non-empty steps, a mask only on partial ones).
+# ---------------------------------------------------------------------------
+
+def mask_family(name, b, s, t, rng):
+    """Masks the dense caches and the sink ring hand the kernel: causal over
+    a longer buffer, a sliding window, sinks beside a window, random bits,
+    and rows (and a whole row) that see nothing."""
+    q0 = [t - s, 0][:b]
+    if name == "causal":
+        return mask_np(b, s, t, lengths=[t, max(1, t // 2)][:b], q0=0)
+    if name == "window":
+        return mask_np(b, s, t, window=max(2, s // 3), q0=t - s)
+    if name == "sinks":
+        m = mask_np(b, s, t, window=max(2, s // 4), q0=t - s)
+        q = (t - s) + np.arange(s)[None, :, None]
+        m |= (np.arange(t)[None, None, :] < 4) & (np.arange(t) <= q)
+        return m
+    if name == "random":
+        return rng.random((b, s, t)) < 0.3
+    m = mask_np(b, s, t, lengths=[0, t][:b], q0=q0[-1])
+    m[-1, s // 2:] = False
+    return m
+
+
+FAMILIES = ["causal", "window", "sinks", "random", "empty_rows"]
+
+
+@pytest.mark.parametrize("family", FAMILIES)
+@pytest.mark.parametrize("s,t", [(256, 384), (40, 72)])
+def test_mask_tiles_match_the_byte_mask(family, s, t):
+    """Unpacking the bits gives the mask back (positions past T unset);
+    every tile's class is what its bytes say, for query tiles of 32 (G = 4)
+    and 128 (G = 1) queries, at S and T multiples of 128 and below 128."""
+    rng = np.random.default_rng(7)
+    mask = mask_family(family, 2, s, t, rng)
+    for bq in (32, 128):
+        bits, classes = tfa.mask_tiles(torch.from_numpy(mask), bq)
+        nkt, nqt = -(-t // 128), -(-s // bq)
+        assert bits.shape == (2, s, 4 * nkt) and bits.dtype == torch.int32
+        assert classes.shape == (2, nqt, nkt)
+        words = bits.numpy().astype(np.int64) & 0xFFFFFFFF
+        unpacked = (words[..., None] >> np.arange(32)) & 1
+        unpacked = unpacked.reshape(2, s, nkt * 128).astype(bool)
+        np.testing.assert_array_equal(unpacked[..., :t], mask)
+        assert not unpacked[..., t:].any()
+        for b in range(2):
+            for qt in range(nqt):
+                for kt in range(nkt):
+                    tile = mask[b, qt * bq:(qt + 1) * bq, kt * 128:(kt + 1) * 128]
+                    whole = kt * 128 + 128 <= t
+                    want = (tfa.EMPTY if not tile.any() else
+                            tfa.FULL if whole and tile.all() else tfa.PARTIAL)
+                    assert classes[b, qt, kt] == want, (b, qt, kt)
+
+
+def walk_listed_tiles(q, k, v, mask, g):
+    """The bf16 kernel's walk in f32: per (row, query tile of 128 / g
+    queries), only the steps ``mask_tiles`` lists, a mask applied only on
+    partial ones, 128-wide steps, online softmax as the TPU kernel's."""
+    b, s, hq, d = q.shape
+    hkv, t = k.shape[2], k.shape[1]
+    bq = 128 // g
+    _, classes = tfa.mask_tiles(mask, bq)
+    out = torch.zeros_like(q)
+    for bi in range(b):
+        for qt in range(classes.shape[1]):
+            rows = slice(qt * bq, min((qt + 1) * bq, s))
+            qg = q[bi, rows].reshape(-1, hkv, g, d)          # [n, Hkv, G, D]
+            m = torch.full(qg.shape[:3], -0.7 * 3.4028234663852886e38)
+            l = torch.zeros(qg.shape[:3])
+            acc = torch.zeros(qg.shape)
+            for kt in range(classes.shape[2]):
+                cls = int(classes[bi, qt, kt])
+                if cls == tfa.EMPTY:
+                    continue
+                pos = slice(kt * 128, min(kt * 128 + 128, t))
+                sc = torch.einsum("nhgd,thd->nhgt", qg, k[bi, pos]) * d**-0.5
+                if cls == tfa.PARTIAL:
+                    vis = mask[bi, rows, pos][:, None, None, :]
+                    sc = torch.where(vis, sc, float("-inf"))
+                m_new = torch.maximum(m, sc.amax(-1))
+                p = torch.exp(sc - m_new[..., None])
+                l = torch.exp(m - m_new) * l + p.sum(-1)
+                acc = acc * torch.exp(m - m_new)[..., None] + torch.einsum(
+                    "nhgt,thd->nhgd", p, v[bi, pos])
+                m = m_new
+            out[bi, rows] = (acc / l.clamp_min(1e-20)[..., None]).reshape(
+                -1, hq, d)
+    return out
+
+
+@pytest.mark.parametrize("family", FAMILIES)
+@pytest.mark.parametrize("g", [4, 1])
+def test_listed_walk_matches_jax(family, g):
+    """Skipping empty tiles and masking only partial ones gives the TPU
+    kernel's result (JAX in interpret mode, its 128-wide tiles), and rows
+    that see nothing are exact zeros."""
+    s, t = 48, 256
+    q, k, v = inputs(11, 2, s, t, 2 * g, 2, 16)
+    mask = mask_family(family, 2, s, t, np.random.default_rng(3))
+    want = jax_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                     jnp.asarray(mask), interpret=True)
+    got = walk_listed_tiles(*(torch.from_numpy(x) for x in (q, k, v, mask)), g)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=F32, rtol=0)
+    empty = ~mask.any(-1)
+    assert (got.numpy()[empty] == 0).all()

@@ -203,3 +203,135 @@ def test_wrappers_refuse_what_the_kernel_does_not_take():
         tqa.quantized_fused_decode_attention(
             q.to("meta"), kn, kn, *planes, *tail, 0,
             torch.zeros((1,), dtype=torch.int32), vec, vec, vec)
+
+
+# ---------------------------------------------------------------------------
+# The one-launch kernel's decomposition (csrc/fused_decode.cuh, the cluster
+# section): a row's tiles dealt to the blocks of a cluster in turn, each
+# block's tile maxima exchanged and their prefix maxima taken, each tile's
+# sums scaled by exp(m_j - m_last), the blocks' sums added up. Held to the
+# sequential walk of ``quantized_paged_fused_attention_plain``.
+# ---------------------------------------------------------------------------
+
+def row_tiles(base, vlen, qpos, window, ps, width, kt):
+    """The kernel's Geometry: ``(vlo, n, is_tail)`` of each live tile of a
+    row, in the walk's order: pages holding a live position inside the
+    window, then the tail."""
+    lo = max(0, qpos - window + 1) if window else 0
+    hi = min(base, width * ps)
+    first = (lo // ps) * ps
+    nbig = -(-(hi - first) // ps) if hi > lo else 0
+    tiles = [(max(lo, first + j * ps),
+              min(hi, first + j * ps + ps) - max(lo, first + j * ps), False)
+             for j in range(nbig)]
+    vlen = min(vlen, kt)
+    tlo = max(0, qpos - window + 1 - base) if window else 0
+    if tlo < vlen:
+        tiles.append((tlo, vlen - tlo, True))
+    return tiles
+
+
+def cluster_model(q, pool, tail, table, base, vlen, qpos, window, layer,
+                  blocks):
+    """Output ``[B, Hq, D]`` f32 of the cluster decomposition with
+    ``blocks`` blocks a (row, kv head), and for every (row, kv head) the
+    prefix maxima the exchange gives ``[tiles, G]`` beside the running
+    maxima of the sequential walk."""
+    pk, pks, pv, pvs = (x[layer] for x in pool)
+    tk, tks, tv, tvs = (x[layer] for x in tail)
+    b, hq, d = q.shape
+    hkv, ps = pk.shape[1], pk.shape[2]
+    g = hq // hkv
+    qb = q.to(torch.bfloat16).float().reshape(b, hkv, g, d)
+    out = torch.zeros(b, hkv, g, d)
+    maxima = []
+    for r in range(b):
+        tiles = row_tiles(int(base[r]), int(vlen[r]), int(qpos[r]), window,
+                          ps, table.shape[1], tk.shape[2])
+        for h in range(hkv):
+            def rows(tile):
+                vlo, n, is_tail = tile
+                if is_tail:
+                    sl = slice(vlo, vlo + n)
+                    return tk[r, h, sl], tks[r, h, sl], tv[r, h, sl], tvs[r, h, sl]
+                page = int(table[r, vlo // ps])
+                sl = slice(vlo % ps, vlo % ps + n)
+                return pk[page, h, sl], pks[page, h, sl], pv[page, h, sl], pvs[page, h, sl]
+
+            data = [rows(tile) for tile in tiles]
+            # 1. each block scores its tiles (j % blocks == rank) and takes
+            #    their maxima
+            scores, tmax = {}, {}
+            for rank in range(blocks):
+                for j in range(rank, len(tiles), blocks):
+                    k, ks = data[j][0], data[j][1]
+                    s = tqa._lane_order_dot(qb[r, h][None, None], k[None, None])[0, 0]
+                    scores[j] = s * ks[None, :] * d**-0.5
+                    tmax[j] = scores[j].amax(-1)
+            # 2. the exchange: every tile's max by index, prefix maxima
+            pm, m = [], torch.full((g,), -0.7 * 3.4028234663852886e38)
+            for j in range(len(tiles)):
+                m = torch.maximum(m, tmax[j])
+                pm.append(m)
+            walk, m = [], torch.full((g,), -0.7 * 3.4028234663852886e38)
+            for j in range(len(tiles)):       # the sequential walk's max
+                m = torch.maximum(m, scores[j].amax(-1))
+                walk.append(m)
+            maxima.append((pm, walk))
+            # 3. each block's sums, each tile scaled by exp(m_j - m_last)
+            num, den = torch.zeros(g, d), torch.zeros(g)
+            for rank in range(blocks):
+                bnum, bden = torch.zeros(g, d), torch.zeros(g)
+                for j in range(rank, len(tiles), blocks):
+                    _, _, v, vs = data[j]
+                    p = torch.exp(scores[j] - pm[j][:, None])
+                    pw = (p * vs[None, :]).to(torch.bfloat16).float()
+                    w = torch.exp(pm[j] - pm[-1])
+                    bnum += w[:, None] * (pw @ v.float())
+                    bden += w * p.sum(-1)
+                # 4. the cluster adds up the blocks' sums
+                num += bnum
+                den += bden
+            out[r, h] = num / den.clamp_min(1e-20)[:, None]
+    return out.reshape(b, hq, d), maxima
+
+
+@pytest.mark.parametrize("ps", [16, 48, 64])
+@pytest.mark.parametrize("window", [None, 37])
+@pytest.mark.parametrize("blocks", [1, 3, 8])
+def test_cluster_split_matches_the_walk(ps, window, blocks):
+    """Rows: empty (nothing cached, no tail), tail only, short (fewer tiles
+    than blocks), across pages, and long; a window that starts inside a
+    page; one and two query heads per kv head."""
+    rng = np.random.default_rng(ps + blocks + (window or 0))
+    b, width, kt, g = 5, 6, 8, 2
+    pages = 1 + b * width
+    pool = [tt(x).clone() for x in int8_planes(rng, (L, pages, HKV), ps)]
+    tail = [tt(x).clone() for x in int8_planes(rng, (L, b, HKV), kt)]
+    tab = tt(table_for(rng, b, width, pages))
+    base = torch.tensor([0, 0, 5, ps + 3, width * ps - 2], dtype=torch.int32)
+    tail_len = torch.tensor([0, 3, 2, 5, 7], dtype=torch.int32)
+    vlen = tail_len + torch.tensor([0, 1, 1, 1, 1], dtype=torch.int32)
+    qpos = base + tail_len
+    q, kn, vn = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+                 for shape in ((b, 1, HKV * g, D), (b, 1, HKV, D),
+                               (b, 1, HKV, D)))
+    step = 3
+    kw = dict(layer_idx=1, step_idx=torch.tensor([step], dtype=torch.int32),
+              page_table=tab, base_len=base, tail_valid_len=vlen,
+              q_positions=qpos, sliding_window=window)
+    want, *tail_w = tpa.quantized_paged_fused_attention_plain(
+        q, kn, vn, *pool, *[t.clone() for t in tail], **kw)
+    got, maxima = cluster_model(q[:, 0], pool, tail_w, tab, base, vlen, qpos,
+                                window, 1, blocks)
+    np.testing.assert_allclose(got.numpy(), want[:, 0].numpy(), atol=2e-5,
+                               rtol=0)
+    assert (got[0] == 0).all(), "a row with no live tile gives zeros"
+    for pm, walk in maxima:
+        for a, w in zip(pm, walk):
+            assert torch.equal(a, w)
+
+
+def table_for(rng, b, width, pages):
+    ids = rng.permutation(np.arange(1, pages)).reshape(b, width)
+    return ids.astype(np.int32)

@@ -18,27 +18,36 @@ one line per engine configuration or comparison):
               `quantized_paged_attention`, `quantized_ragged_paged_attention`
               at Llama-3-8B shapes (32 query heads, 8 kv heads, head_dim 128,
               page size 64; once as MHA too), mixed lengths and an empty row;
+              `paged_attention` also over pages of 16, 48 and 128 slots
+              (empty, one-slot and page-edge rows, windows of 37 and 300
+              slots, the query past the cache, MHA), its m and l beside
+              the output;
               the ragged pair also over pools of page size 16, 48, 128 and 12
               in one B = 8 launch (a prompt, a chunk of 600 queries from
               position 1500, a decode token, an empty row, lengths off the
               kernel's 128-slot step), without a window and with windows of
               300 and 77 slots, and as MHA; besides, `nvcc -Xptxas -v`'s
               registers, shared memory and spills of the wgmma instances
-              (the ragged kernels' and flash's) and of the fused step's
-              cluster kernel, the ragged kernels' launch plans (C against
-              the wrapper's `launch_plan`), the fused step's cluster plan
-              (blocks a cluster, ring stages, shared memory) and the host
-              time a launch spends encoding its tensor maps;
+              (the ragged kernels' and flash's), of the fused step's
+              cluster kernel over the pool and over stacks, and of the bf16
+              decode kernel, the ragged kernels' launch plans (C against
+              the wrapper's `launch_plan`), the fused step's cluster plans
+              (blocks a cluster, ring stages, shared memory; over stacks
+              of T = 640 to 80000) and the host time a launch spends
+              encoding its tensor maps;
               `int4_matmul` and `int4_matmul_stacked` at the model's
               projection shapes and odd ones; the fused window's
               `quantized_paged_fused_attention` (the int8 pool in place, one
               launch of a cluster a (row, kv head)),
-              `quantized_fused_decode_attention` (contiguous stacks, T = 640)
+              `quantized_fused_decode_attention` (contiguous stacks, T = 640,
+              and 2048 and 4096 with an empty and a tail-only row; one
+              launch of the same cluster kernel, pieces of 64)
               over four steps of a window (B = 8, KT = 16; a row that stops,
               a sliding window, MHA; the former also over pages of 16, 48
               and 128 slots with an empty row, short rows and windows that
-              start inside a page), their int8 tails EQUAL to the plain
-              version's, and `paged_tail_flush`, the pool's bytes EQUAL; the
+              start inside a page; the latter also over stacks of 80000,
+              where the kernel forms the scores twice), their int8 tails
+              EQUAL to the plain version's, and `paged_tail_flush`, the pool's bytes EQUAL; the
               dense caches' `flash_attention` (a buffer wider than the
               prompts, an empty row, a sliding window, MHA, strided K/V; the
               causal, window, sink, random and empty-row mask families at S
@@ -62,7 +71,8 @@ one line per engine configuration or comparison):
               PyTorch call computes the same function
               (`scaled_dot_product_attention` on contiguous K/V, with the
               same mask for flash, which is also timed at its path's own
-              shape, S = 2048 into a 4096-wide buffer; for the flushes four
+              shape, S = 2048 into a 4096-wide buffer; `paged_attention` is
+              also timed at B = 1; for the flushes four
               `index_put_` calls;
               for the int4 matmuls there is none: a bf16 `torch.matmul` on
               the dequantized weight is shown as a yardstick of its own; for
@@ -104,7 +114,9 @@ one line per engine configuration or comparison):
               at) is then given to its kernels again, in bf16 and f32, and
               held against the plain versions. For the main paths at full
               depth, a few windows and prefill dispatches are profiled for
-              the device's idle share and the kernels that take the time.
+              the device's idle share and the kernels that take the time;
+              the windows over the int8 dense cache and over int8 and bf16
+              pages must launch their attention kernel once a call.
               Last, captured against eager: the same greedy traffic at full
               width and depth in bf16 with the window's step replayed from
               graphs and run eagerly must give identical streams.
@@ -451,6 +463,80 @@ def fused_cases(cases, dtype, rng):
                   i32([16, 3, 16, 0, 16, 9, 16, 1]), rng)
 
 
+def paged_decode_cases(cases, dtype, rng):
+    """#2 (bf16: the cluster kernel, csrc/paged_decode.cuh) over pools of
+    page size 16, 48 and 128 (64 is above), B = 8: an empty row, a row of
+    one position, rows at and across a page's edge and long rows over many
+    steps of 64; no window and windows of 37 and 300 positions (starting
+    inside a page and a step), the query 7 positions past the cache under
+    the first; 4 query heads a kv head and 1. Output, m and l against the
+    plain version."""
+    for ps in (16, 48, 128):
+        lens = [0, 1, ps - 1, ps, ps + 1, 700, 1500, 2000]
+        width = -(-max(lens) // ps) + 1
+        pages = 8 * width + 1
+        pool = make_pool(rng, pages, dtype, ps=ps)
+        table = make_table(rng, 8, width, pages)
+        kv = i32(lens)
+        q = normal(rng, (8, 1, HQ, D), dtype)
+        for window, qpos in ((None, None), (37, i32([n + 7 for n in lens])),
+                             (300, None)):
+            for g in ((HQ // HKV, 1) if window == 37 else (HQ // HKV,)):
+                qg = q if g == HQ // HKV else q[:, :, :HKV * g].contiguous()
+                compare_paged(cases, f"paged_ps{ps}_g{g}_window_{window}",
+                              dtype, qg, pool, table, kv,
+                              sliding_window=window, q_positions=qpos)
+        del pool
+
+
+def random_qplanes(gen, lead, n):
+    """int8 planes of random bytes and positive scales, made on the card
+    (the widest stacks, where drawing normal values and quantizing them
+    would take seconds): ``(k, ks, v, vs)``."""
+    def plane():
+        return torch.randint(-127, 128, (*lead, n, D), generator=gen,
+                             device=DEV, dtype=torch.int8)
+
+    def scales():
+        return torch.rand((*lead, n), generator=gen, device=DEV) * 0.02 + 1e-3
+
+    return plane(), scales(), plane(), scales()
+
+
+# Stacks past which a block of #9's cluster cannot keep every piece's
+# scores (4 query heads a kv head): the kernel then reads K twice.
+RECOMPUTE_T = 80000
+
+
+def contiguous_fused_cases(cases, dtype, rng):
+    """#9 (one cluster launch) at the engine's widths beyond phase 2's
+    T = 640: T = 2048 and 4096 (the dense cache's default `max_seq_len`),
+    B = 8, over a window's first steps: an empty row (nothing cached, no
+    token), a tail-only row, rows at and across tile and piece edges, long
+    rows; no window and a window of 200; 4 query heads a kv head and 1.
+    Then T = 80000, where a block's scores do not all fit its shared memory
+    (its plan says so) and the kernel forms them twice: two rows over most
+    of the stacks, with and without a window. Tails EQUAL."""
+    for t in (2048, 4096):
+        stacks = make_qplanes(rng, (2, 8, HKV), t)
+        base = i32([0, 0, 1, 255, 256, 257, t // 2 + 5, t - KT])
+        for window in (None, 200):
+            for g in (HQ // HKV, 1):
+                compare_fused(cases, f"qfusedd_T{t}_g{g}_window_{window}",
+                              dtype, "gathered", stacks, base, rng,
+                              window=window, g=g, dead=(0,))
+        del stacks
+    plan = dense_plan(RECOMPUTE_T, HQ // HKV)
+    assert plan["scores_kept"] == 0, plan
+    gen = torch.Generator(device=DEV).manual_seed(int(rng.integers(2**62)))
+    stacks = random_qplanes(gen, (2, 2, HKV), RECOMPUTE_T)
+    for window in (None, 1000):
+        compare_fused(cases, f"qfusedd_T{RECOMPUTE_T}_window_{window}", dtype,
+                      "gathered", stacks, i32([70001, RECOMPUTE_T - KT]),
+                      rng, window=window, steps=2)
+    del stacks
+
+
 def int4_weight(gen, shape):
     """A random stacked weight ``[L, in, out]``, int4-quantized."""
     return quant.quantize_int4_split(
@@ -537,8 +623,10 @@ def check_cases(dtype):
         compare_int4(cases, f"{tag}_l{layer}", dtype, x, w, layer)
         if num_l == 1:
             compare_int4(cases, tag, dtype, x, w)
+    paged_decode_cases(cases, dtype, rng)
     ragged_cases(cases, dtype, rng)
     fused_cases(cases, dtype, rng)
+    contiguous_fused_cases(cases, dtype, rng)
     dense_cases(cases, dtype, rng)
     sink_cases(cases, dtype, rng)
     assert_cases(cases, dtype)
@@ -911,30 +999,36 @@ def time_attention(out, cases, rng, flush, width, pool):
     per_slot = pool_bytes_per_slot(pool)
     kind = "int8 pages" if len(pool) == 4 else "bf16 pages"
 
-    # decode
-    b, kv = 8, 2048
-    table = make_table(rng, b, width, pages)
-    q = normal(rng, (b, 1, HQ, D), dtype)
-    lens = i32([kv] * b)
-    kg, vg = dequantized(pool, table)
-    qh = q.permute(0, 2, 1, 3).contiguous()
-    live = b * kv
-    bytes_moved = (live * HKV * per_slot          # K and V slots, once
-                   + 2 * q.numel() * esz          # q in, out out
-                   + 2 * b * HQ * 4               # m, l
-                   + table.numel() * 4 + 2 * b * 4)
-    flops = 4 * live * HQ * D
-    bms, by = bound(bytes_moved, flops, dtype)
-    out[pkernel.__name__] = {
-        "shape": f"B={b} kv={kv} table={width} Hq={HQ} Hkv={HKV} D={D} PS={PS} bf16 q, {kind}",
-        "max_abs_err": compare_paged(
-            cases, f"{pname}_timed", dtype, q, pool, table, lens),
-        "ms": time_ms(lambda: pkernel(q, *pool, table, lens), 20, flush),
-        "plain_ms": time_ms(lambda: pplain(q, *pool, table, lens), 5, flush),
-        "library_ms": time_ms(lambda: sdpa(qh, kg, vg, False), 20, flush),
-        "bound_ms": bms, "bound_by": by, "bytes": bytes_moved,
-    }
-    del kg, vg
+    # decode: B = 8, and for bf16 pages B = 1 too (one row must fill the
+    # card as well)
+    for b in ((8, 1) if len(pool) == 2 else (8,)):
+        kv = 2048
+        table = make_table(rng, b, width, pages)
+        q = normal(rng, (b, 1, HQ, D), dtype)
+        lens = i32([kv] * b)
+        kg, vg = dequantized(pool, table)
+        qh = q.permute(0, 2, 1, 3).contiguous()
+        live = b * kv
+        bytes_moved = (live * HKV * per_slot          # K and V slots, once
+                       + 2 * q.numel() * esz          # q in, out out
+                       + 2 * b * HQ * 4               # m, l
+                       + table.numel() * 4 + 2 * b * 4)
+        flops = 4 * live * HQ * D
+        bms, by = bound(bytes_moved, flops, dtype)
+        entry = {
+            "shape": f"B={b} kv={kv} table={width} Hq={HQ} Hkv={HKV} D={D} PS={PS} bf16 q, {kind}",
+            "max_abs_err": compare_paged(
+                cases, f"{pname}_timed_b{b}", dtype, q, pool, table, lens),
+            "ms": time_ms(lambda: pkernel(q, *pool, table, lens), 20, flush),
+            "plain_ms": time_ms(lambda: pplain(q, *pool, table, lens), 5, flush),
+            "library_ms": time_ms(lambda: sdpa(qh, kg, vg, False), 20, flush),
+            "bound_ms": bms, "bound_by": by, "bytes": bytes_moved,
+        }
+        if b == 8:
+            out[pkernel.__name__] = entry
+        else:
+            out[pkernel.__name__]["at_b1"] = entry
+        del kg, vg
 
     # prefill
     s = 2048
@@ -1409,21 +1503,35 @@ def flash_instance(mangled):
 
 
 def cluster_instance(mangled):
-    """``fused::fused_cluster_kernel<T, BigThenTail<true>, G>`` -> its
-    label, else None."""
+    """``fused::fused_cluster_kernel<T, BigThenTail<Paged>, G, Keep>`` ->
+    its label, else None."""
     if "fused_cluster_kernelI" not in mangled:
         return None
     q = "bf16" if "fused_cluster_kernelI13__nv_bfloat16" in mangled else "f32"
-    return f"G={mangled.split('ELi')[-1][0]} {q} q"
+    last = mangled.split("ELi")[-1]
+    keep = "scores kept" if last[1:].startswith("ELb1") else "K read twice"
+    return f"G={last[0]} {q} q, {keep}"
 
 
-def ptxas_lines(proc, label, count):
-    """Registers, shared memory and spills from ``nvcc -Xptxas -v`` of the
-    ``count`` kernel instances that ``label`` names (mangled name -> label
-    or None)."""
+def decode_instance(mangled):
+    """``pdec::paged_decode_kernel<G, PageRows>`` -> its label, else None."""
+    if "paged_decode_kernelILi" not in mangled:
+        return None
+    return f"G={mangled.split('paged_decode_kernelILi')[1][0]}"
+
+
+def ptxas_text(proc):
+    """The output of a finished ``nvcc -Xptxas -v`` (``ptxas_report``)."""
     out, _ = proc.communicate()
     if proc.returncode != 0:
         raise RuntimeError("nvcc -Xptxas -v failed:\n" + out[-4000:])
+    return out
+
+
+def ptxas_lines(out, label, count):
+    """Registers, shared memory and spills from ``nvcc -Xptxas -v``'s
+    output ``out`` of the ``count`` kernel instances that ``label`` names
+    (mangled name -> label or None)."""
     report, name = {}, None
     for line in out.splitlines():
         if "Compiling entry function" in line:
@@ -1435,17 +1543,29 @@ def ptxas_lines(proc, label, count):
     return report
 
 
+PLAN_KEYS = ("cluster_blocks", "pieces_a_block", "ring_stages", "stage_bytes",
+             "smem_bytes", "clusters_at_once", "scores_kept", "piece_width")
+
+
 def cluster_plan(nt, w, g):
-    """The fused step's cluster launch (``dli_fused_cluster_plan``) at a
-    table of ``nt - 1`` pages, ``w``-slot tiles and ``g`` query heads a kv
-    head."""
+    """The fused step's cluster launch over the pool (#6,
+    ``dli_fused_cluster_plan``) at a table of ``nt - 1`` pages, ``w``-slot
+    tiles and ``g`` query heads a kv head."""
     fn = _build.load_library("paged_attention").dli_fused_cluster_plan
     fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    got = (ctypes.c_longlong * 6)()
+    got = (ctypes.c_longlong * 7)()
     assert fn(nt, w, g, ctypes.addressof(got)) == 0
-    return dict(zip(("cluster_blocks", "tiles_a_block", "ring_stages",
-                     "stage_bytes", "smem_bytes", "clusters_at_once"),
-                    list(got)))
+    return dict(zip(PLAN_KEYS, list(got)))
+
+
+def dense_plan(t, g):
+    """#9's cluster launch over stacks of ``t`` positions
+    (``dli_fused_dense_plan``, tiles of min(256, t), KT = 16)."""
+    fn = _build.load_library("quant_attention").dli_fused_dense_plan
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    got = (ctypes.c_longlong * 8)()
+    assert fn(t, min(256, t), KT, g, ctypes.addressof(got)) == 0
+    return dict(zip(PLAN_KEYS, list(got)))
 
 
 def check_launch_plans():
@@ -1502,20 +1622,29 @@ def tensor_map_host_us(calls=200):
 def phase_kernels():
     t0 = time.perf_counter()
     ptxas = {name: _build.ptxas_report(name) for name in (
-        "ragged_attention", "flash_attention", "paged_attention")}
+        "ragged_attention", "flash_attention", "paged_attention",
+        "quant_attention")}
     built = _build.build_all()
     build_s = time.perf_counter() - t0
+    ptxas = {name: ptxas_text(proc) for name, proc in ptxas.items()}
     resources = {
         "ragged_kernel_wgmma": ptxas_lines(
             ptxas["ragged_attention"], ragged_instance, 4),
         "flash_kernel_wgmma": ptxas_lines(
             ptxas["flash_attention"], flash_instance, 2),
-        "fused_cluster_kernel": ptxas_lines(
-            ptxas["paged_attention"], cluster_instance, 4)}
+        "fused_cluster_kernel (pool, #6)": ptxas_lines(
+            ptxas["paged_attention"], cluster_instance, 8),
+        "fused_cluster_kernel (stacks, #9)": ptxas_lines(
+            ptxas["quant_attention"], cluster_instance, 8),
+        "paged_decode_kernel (#2)": ptxas_lines(
+            ptxas["paged_attention"], decode_instance, 2)}
     plans = check_launch_plans()
     width = ladder_pages(2048)
-    fused_plan = {f"table={width} PS={PS} KT={KT} G={g}": cluster_plan(
+    fused_plan = {f"#6 table={width} PS={PS} KT={KT} G={g}": cluster_plan(
         width + 1, max(PS, KT), g) for g in (HQ // HKV, 1)}
+    for t in (640, 2048, 4096, RECOMPUTE_T):
+        for g in (HQ // HKV, 1):
+            fused_plan[f"#9 T={t} KT={KT} G={g}"] = dense_plan(t, g)
     torch.backends.cuda.matmul.allow_tf32 = False  # plain f32 stays f32
     errs = {}
     for dtype in (torch.bfloat16, torch.float32):
@@ -1648,11 +1777,19 @@ def device_breakdown(prof, wall_ms, steps):
         raise RuntimeError("the profiler recorded no device time")
     device_ms = sum(device_us(ev) for ev in kernels) / 1e3 / steps
     top = sorted(kernels, key=device_us, reverse=True)[:10]
+    attention = {}
+    for ev in kernels:
+        for name in ATTENTION_KERNELS:
+            if name in ev.key:
+                got = attention.setdefault(name, {"ms": 0.0, "launches": 0.0})
+                got["ms"] += device_us(ev) / 1e3 / steps
+                got["launches"] += ev.count / steps
     return {
         "wall_ms": wall_ms,
         "device_ms": device_ms,
         "device_idle_share": 1.0 - device_ms / wall_ms,
         "kernels": sum(ev.count for ev in kernels) / steps,
+        "attention_kernels": attention,
         "top_kernels": [
             {"name": ev.key[:70], "ms": device_us(ev) / 1e3 / steps,
              "launches": ev.count / steps} for ev in top],
@@ -1660,6 +1797,13 @@ def device_breakdown(prof, wall_ms, steps):
 
 
 SPIN_AHEAD_CYCLES = 1_000_000_000  # about 0.5 s of device spin
+# The decode attention kernels, by the names the profiler gives them: the
+# one-launch forms, the three passes (#11 and, before, #6 and #9) and the
+# split walk with its merge (#5, #8 and f32 #2; bf16 #2 before).
+ATTENTION_KERNELS = ("fused_cluster_kernel", "paged_decode_kernel",
+                     "fused_scores_kernel", "fused_sums_kernel",
+                     "fused_combine_kernel", "paged_partial_kernel",
+                     "paged_combine_kernel")
 
 
 def profile_steps(engine, before_step, steps, counters=None):
@@ -2038,7 +2182,7 @@ def check_dense_shapes(shapes, dispatch_shapes=(), int4=False):
 
 
 def run_config(label, cfg, params, ekw, ckw, counters, profile=True,
-               traffic=MIXED):
+               traffic=MIXED, one_launch=None):
     """The smoke's traffic through one engine configuration, twice with one
     seed (the streams must repeat); the launch counters in ``counters``
     (name -> (module, attribute)) are zeroed before the first run and read
@@ -2047,7 +2191,9 @@ def run_config(label, cfg, params, ekw, ckw, counters, profile=True,
     profiled. A dense cache or sink ring (``ckw["kind"]`` "dense" or
     "sink") has no pages and no co-scheduled chunks (a long prompt is
     chunked synchronously); its kernels are replayed at the shapes recorded
-    in the first run. Returns (report, launches)."""
+    in the first run. With ``one_launch`` (a kernel's name), the profiled
+    decode window must launch that kernel once a call: once a layer a step.
+    Returns (report, launches)."""
     torch.cuda.reset_peak_memory_stats()
     new_tokens, odd = traffic["new_tokens"], traffic.get("odd")
     dense = ckw.get("kind") == "dense"
@@ -2163,6 +2309,16 @@ def run_config(label, cfg, params, ekw, ckw, counters, profile=True,
     if profile:
         report["decode_profile"] = profile_decode(cfg, params, ekw, ckw,
                                                   counters)
+        if one_launch:
+            # The profiler misses the odd kernel at a window's edge (2559
+            # of 2560 over five windows on an H100), so within 1% of one a
+            # call; three launches a call would be 200% off.
+            window = report["decode_profile"]
+            calls = cfg.num_layers * window["decode_steps"]
+            got = window["attention_kernels"].get(one_launch, {})
+            assert abs(got.get("launches", 0) - calls) <= 0.01 * calls, (
+                f"{one_launch}: {got} launches a window, want one a call "
+                f"({calls})")
         report["prefill_profile"] = profile_prefill(cfg, params, ekw, ckw,
                                                     counters)
     emit(report)
@@ -2251,12 +2407,14 @@ def phase_engine():
     take(run_config(
         "dense main path: int4 weights (half-split), int8 dense KV, K=16", cfg,
         params, {"quantization": "int4"}, {"kv_quant": "int8", **DENSE},
-        MAIN_DENSE)[1])
+        MAIN_DENSE, one_launch="fused_cluster_kernel")[1])
     take(run_config("paged main path: bf16 weights, bf16 pages, K=16", cfg,
-                    params, {}, {}, MAIN_BF16)[1])
+                    params, {}, {}, MAIN_BF16,
+                    one_launch="paged_decode_kernel")[1])
     take(run_config(
         "paged main path: int4 weights (half-split), int8 pages, K=16", cfg,
-        params, {"quantization": "int4"}, {"kv_quant": "int8"}, MAIN_INT4)[1])
+        params, {"quantization": "int4"}, {"kv_quant": "int8"}, MAIN_INT4,
+        one_launch="fused_cluster_kernel")[1])
     cfg4, params4 = depth(params, cfg, 4)
     run_config("slice 5 path: bf16 weights, bf16 sink ring, K=1, 4 layers",
                cfg4, params4, {}, SINK, {}, profile=False,

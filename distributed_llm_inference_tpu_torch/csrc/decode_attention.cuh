@@ -1,8 +1,9 @@
-// Decode attention (one query token a row) over int8, bf16 or f32 K/V, for
+// Decode attention (one query token a row) over int8 or f32 K/V, for
 // Hopper (sm_90a): the device code of two kernel files.
 //
-// * paged_attention.cu: `paged_attention` and `quantized_paged_attention`,
-//   K/V read in place from a page pool [P, Hkv, PS, D] through a page table
+// * paged_attention.cu: `quantized_paged_attention` and the f32 instance of
+//   `paged_attention` (its bf16 instance is paged_decode.cuh's kernel), K/V
+//   read in place from a page pool [P, Hkv, PS, D] through a page table
 //   [B, Tw];
 // * quant_attention.cu: `quantized_decode_attention`, K/V read from the
 //   int8 dense cache's contiguous head-major buffer [B, Hkv, T, D]: the same
@@ -337,7 +338,7 @@ inline int fill_and_dispatch(Args& a, const void* q, const void* table,
     if (dtype == 1) return dispatch_d<float, int8_t>(D, G, a);
     return -1;
   }
-  if (dtype == 0) return dispatch_d<__nv_bfloat16, __nv_bfloat16>(D, G, a);
+  // bf16 pages: csrc/paged_decode.cuh's kernel (paged_attention.cu).
   if (dtype == 1) return dispatch_d<float, float>(D, G, a);
   return -1;
 }

@@ -8,8 +8,9 @@
 //   one launch, a thread-block cluster a (row, kv head) (below);
 // * `quantized_fused_decode_attention` (distributed_llm_inference_tpu/ops/
 //   quant_attention.py), whose big segment is a contiguous [L, B, Hkv, T, D]
-//   stack gathered once per window (BigThenTail<false>,
-//   csrc/quant_attention.cu): three launches over a scratch;
+//   stack, the dense cache's own buffers or the int8 pool's rows gathered
+//   once per window (BigThenTail<false>, csrc/quant_attention.cu): the same
+//   one launch, its 256-wide tiles dealt to the cluster as pieces of 64;
 // * `sink_fused_decode_attention` (the same file), the int8 sink ring: masked
 //   ring tiles, a tile of sinks with a query of its own, then the tail
 //   (csrc/sink_attention.cu): three launches over a scratch.
@@ -45,19 +46,20 @@
 // there; each tile's sums are scaled by exp(m_j - m_last) (the product of
 // the walk's alpha factors after it) when they are added up. Two ways:
 //
-// * Three launches (`launch_passes`, the contiguous form and the sink
-//   ring): 1. one block per (row, kv head, tile) computes the tile's scores
-//   for the G query heads (K read once for all of them) into scratch, and
-//   the tile's max; the tail's block first quantizes the step's K/V and
-//   writes slot `step`; 2. one block per (row, kv head, tile) takes the
-//   prefix max, p = exp(s - m), the tile's sum of p, bf16(p * vs) and its
-//   P V, into scratch; 3. one block per (row, query head) adds the tiles'
-//   sums and normalises. The grid is (B, Hkv, NT), NT fixed by the table.
-// * One launch (`launch_cluster`, the paged form): a thread-block cluster
-//   per (row, kv head) deals the row's tiles to its blocks and exchanges
-//   the tile maxima and the sums through distributed shared memory behind
-//   cluster barriers; nothing goes through device memory but the inputs,
-//   the tail slot and the output (see the section below).
+// * Three launches (`launch_passes`, the sink ring): 1. one block per
+//   (row, kv head, tile) computes the tile's scores for the G query heads
+//   (K read once for all of them) into scratch, and the tile's max; the
+//   tail's block first quantizes the step's K/V and writes slot `step`;
+//   2. one block per (row, kv head, tile) takes the prefix max,
+//   p = exp(s - m), the tile's sum of p, bf16(p * vs) and its P V, into
+//   scratch; 3. one block per (row, query head) adds the tiles' sums and
+//   normalises. The grid is (B, Hkv, NT), NT fixed by the table.
+// * One launch (`launch_cluster`, the paged and contiguous forms): a
+//   thread-block cluster per (row, kv head) deals the row's pieces of tiles
+//   to its blocks and exchanges their maxima and the sums through
+//   distributed shared memory behind cluster barriers; nothing goes through
+//   device memory but the inputs, the tail slot and the output (see the
+//   section below).
 //
 // `step` is read from device memory, so a CUDA graph that captures the
 // launches stays valid for every step of the window.
@@ -170,6 +172,8 @@ struct Common {
                       // that order (null for the cluster kernel)
   int B, Hkv, KT, layer;
   int NT, W;          // tiles a row may have (tail included), widest tile
+                      // (the cluster kernel: widest piece, a stage's rows)
+  int NP;             // the cluster kernel: pieces a row may have
   float scale;
 };
 
@@ -182,13 +186,24 @@ struct Args : Common {
   int rows;           // pages P (paged) or stack length T
   int ps, tw;         // page size and table width (paged)
   int tile_w, window;
+  int piece_w;        // contiguous: the cluster kernel's piece width
 };
+
+// Positions of the contiguous form's pieces: a 256-wide tile is dealt to
+// the cluster's blocks as pieces of at most 64 (min(256, T) positions
+// give 4 tiles at T = 640, but 11 pieces for 7 blocks).
+constexpr int kPiece = 64;
 
 // A row's tiles: big-segment tiles holding a live position inside the
 // sliding window, in order, then the tail (slots below tail_vlen, this
-// step's included, inside the window of the query).
+// step's included, inside the window of the query). The cluster kernel
+// deals them as pieces: positions aligned on multiples of the piece width
+// pw (tpw in the tail), inside one tile each since pw divides the tile
+// width (or the stack is one tile); a page and the paged form's tail are
+// one piece each, as they are one tile.
 struct Geometry {
-  int lo, hi, tw, first, nbig, tlo, vlen, ntiles;
+  int lo, hi, tw, first, nbig, tlo, vlen;
+  int pw, tpw, fp, nbp, ftp, npieces;
   __device__ Geometry(const Args& a, int b, bool paged) {
     const int base = a.base_len[b];
     const int qpos = a.q_pos[b];
@@ -200,18 +215,37 @@ struct Geometry {
     nbig = hi > lo ? (hi - first + tw - 1) / tw : 0;
     vlen = min(a.tail_vlen[b], a.KT);
     tlo = a.window > 0 ? max(0, qpos - a.window + 1 - base) : 0;
-    ntiles = nbig + (tlo < vlen ? 1 : 0);
+    pw = paged ? a.ps : a.piece_w;
+    tpw = paged ? a.KT : a.piece_w;
+    fp = (lo / pw) * pw;
+    nbp = hi > lo ? (hi - fp + pw - 1) / pw : 0;
+    ftp = (tlo / tpw) * tpw;
+    npieces = nbp + (tlo < vlen ? (vlen - ftp + tpw - 1) / tpw : 0);
   }
-  // Positions [vlo, vlo + n) of tile j, every one of them valid.
-  __device__ void range(int j, int& vlo, int& n) const {
-    if (j < nbig) {
-      const int start = first + j * tw;
+  // Positions [vlo, vlo + n) of piece k, every one valid; the tail's
+  // pieces are those from nbp on.
+  __device__ void piece(int k, int& vlo, int& n) const {
+    if (k < nbp) {
+      const int start = fp + k * pw;
       vlo = max(lo, start);
-      n = min(hi, start + tw) - vlo;
+      n = min(hi, start + pw) - vlo;
     } else {
-      vlo = tlo;
-      n = vlen - tlo;
+      const int start = ftp + (k - nbp) * tpw;
+      vlo = max(tlo, start);
+      n = min(vlen, start + tpw) - vlo;
     }
+  }
+  // The last piece of the tile that holds piece k.
+  __device__ int tile_last_piece(int k) const {
+    if (k >= nbp) return npieces - 1;
+    const int j = (fp + k * pw - first) / tw;       // tile of piece k
+    const int end = min(hi, first + (j + 1) * tw);  // past its last position
+    return (end - 1 - fp) / pw;
+  }
+  // The piece that holds tail slot `step`, or -1.
+  __device__ int step_piece(int step) const {
+    if (tlo >= vlen || step < tlo || step >= vlen) return -1;
+    return nbp + (step - ftp) / tpw;
   }
 };
 
@@ -222,8 +256,8 @@ __device__ __forceinline__ DenseRows tail_rows(const Common& a, int b,
                    a.tail_ks + trow * a.KT, a.tail_vs + trow * a.KT};
 }
 
-// Every position of a tile is valid (the paged and contiguous forms, whose
-// tiles are ranges of valid positions).
+// Every position of a piece is valid (the paged and contiguous forms, whose
+// pieces are ranges of valid positions).
 struct AllLive {
   __device__ __forceinline__ bool operator()(int) const { return true; }
 };
@@ -236,8 +270,9 @@ struct AllLive {
 //   visit(geo, b, h, j, f)  calls f(rows, vlo, n, live): tile j is
 //                           positions [vlo, vlo + n) of `rows`, valid
 //                           where live(i).
-// BigThenTail is the paged and contiguous forms' policy;
-// csrc/sink_attention.cu has the sink ring's.
+// csrc/sink_attention.cu has the sink ring's. BigThenTail, the paged and
+// contiguous forms' policy, serves the cluster kernel instead: geo, query
+// and visit_piece (the same over pieces, Geometry::piece).
 template <bool Paged>
 struct BigRows;
 template <>
@@ -262,13 +297,14 @@ template <bool Paged>
 struct BigThenTail : Args {
   using Geo = Geometry;
   __device__ Geo geo(int b) const { return Geometry(*this, b, Paged); }
-  __device__ bool is_tail(const Geo& g, int j) const { return j == g.nbig; }
   __device__ const void* query(const Geo&, int) const { return q; }
+  // Piece k (Geo::piece): f(rows, vlo, n, live) as a passes policy's visit.
   template <class F>
-  __device__ void visit(const Geo& g, int b, int h, int j, F&& f) const {
+  __device__ void visit_piece(const Geo& g, int b, int h, int k,
+                              F&& f) const {
     int vlo, n;
-    g.range(j, vlo, n);
-    if (j == g.nbig)
+    g.piece(k, vlo, n);
+    if (k >= g.nbp)
       f(tail_rows(*this, b, h), vlo, n, AllLive());
     else
       f(BigRows<Paged>::make(*this, b, h), vlo, n, AllLive());
@@ -510,42 +546,56 @@ int launch_passes(const P& a, cudaStream_t s) {
 // ---------------------------------------------------------------------------
 //
 // The same walk as the three passes above, in one launch (the paged form,
-// #6; the contiguous form and the sink ring keep the passes). A cluster of
-// kCluster blocks serves one (row, kv head); the row's tiles, read from
+// #6, and the contiguous form, #9; the sink ring keeps the passes). A
+// cluster of kCluster blocks serves one (row, kv head); the row's pieces of
+// tiles (Geometry::piece: a page, the paged tail, or up to kPiece positions
+// of a contiguous tile or tail, never across a tile's edge), read from
 // base_len, tail_valid_len and q_positions at run time, are dealt to its
-// blocks in turn (tile j to block j % kCluster), so one fixed grid of
+// blocks in turn (piece k to block k % kCluster), so one fixed grid of
 // (kCluster, Hkv, B) blocks serves every row length, and a block with no
-// tile only takes part in the exchanges.
+// piece only takes part in the exchanges. Pieces narrower than the TPU
+// kernel's 256-wide tiles keep all seven blocks at work on a short row
+// (T = 640: 11 pieces of 64, against 4 tiles).
 //
-// 1. Scores. Each block brings its tiles' K rows (a tile's rows are
-//    contiguous: one page of one head, or a range of the tail) by bulk copy
-//    and their scales by 4-byte cp.async into a ring of stages, every stage
-//    in flight at once; its V rows follow into the stages its K rows free,
-//    so they arrive while the scores are computed and exchanged. The
-//    scores of the G query heads stay in shared memory, as in
-//    `tile_scores`, and so does each tile's max.
-// 2. Exchange. Behind a cluster barrier every block reads the tile maxima
+// 1. Scores. Each block brings its pieces' K rows (a piece's rows are
+//    contiguous: part of one page of one head, of the tail or of a stack)
+//    by bulk copy and their scales by 4-byte cp.async into a ring of
+//    stages, every stage in flight at once; its V rows follow into the
+//    stages its K rows free, so they arrive while the scores are computed
+//    and exchanged. The scores of the G query heads stay in shared memory,
+//    as in `tile_scores`, and so does each piece's max.
+// 2. Exchange. Behind a cluster barrier every block reads the piece maxima
 //    of the whole row from the blocks' shared memory (distributed shared
-//    memory) and takes their prefix maxima: the running max the sequential
-//    walk holds at each tile, exactly.
-// 3. Sums. Each block forms, for its tiles, p = exp(s - m_j), the sum of p,
-//    bf16(p * vs) and its P V (the warps take positions in turn, each lane
-//    4 columns), each tile's sums scaled by exp(m_j - m_last) into the
-//    block's accumulators.
+//    memory), takes their running maxima in order, and gives each piece the
+//    running max at the end of its tile: the max of the tile's pieces
+//    after the tiles before it, which is the running max the sequential
+//    walk holds at that tile, exactly.
+// 3. Sums. Each block forms, for its pieces, p = exp(s - m_j) under the
+//    max of the piece's tile j, the sum of p, bf16(p * vs) and its P V (the
+//    warps take positions in turn, each lane 4 columns), each piece's sums
+//    scaled by exp(m_j - m_last) into the block's accumulators.
 // 4. Reduce. Behind a second cluster barrier each block adds up its share
 //    of the output elements over the cluster's blocks, normalises and
 //    writes it; a third barrier keeps every block's shared memory alive
 //    until the others have read it.
 //
-// The block that owns the tail tile (block 0 if no tile is the tail)
-// quantizes the step's K/V first and writes slot `step`; it patches its
-// staged copy of that slot from shared memory, since the bulk copy of the
-// tail may read the slot before or after the write. Scores, maxima, p and
-// bf16(p * vs) are bit for bit those of the walk; only the order of the
-// f32 sums of P V, l and the combine differs. No scratch in device memory.
+// Where a block's scores of every piece it holds do not fit its shared
+// memory (stacks of ~70,000 positions and more), the layout keeps one
+// piece's scores only and the block reads each piece's K twice: once for
+// the maxima, once more just before its sums, where the scores are formed
+// again, bit for bit, by the same code. This costs one more read of the K
+// bytes (half the call's bytes); the results are the same.
+//
+// The block that owns the piece holding tail slot `step` (block 0 if no
+// piece holds it) quantizes the step's K/V first and writes slot `step`; it
+// patches its staged copy of that slot from shared memory, since the bulk
+// copy of the piece may read the slot before or after the write. Scores,
+// maxima, p and bf16(p * vs) are bit for bit those of the walk; only the
+// order of the f32 sums of P V, l and the combine differs. No scratch in
+// device memory.
 //
 // A policy for this path provides what the passes' policies do (geo,
-// is_tail, query, visit), and its tiles' rows must be contiguous from
+// query) and visit_piece, and its pieces' rows must be contiguous from
 // rows.row(vlo) (true of pages, of the tail and of the contiguous stacks).
 
 // 4 int8 (one word, element 0 in the low byte) as exact floats, without
@@ -569,30 +619,35 @@ __device__ __forceinline__ void i8x4_to_f32(uint32_t w, float* o) {
 constexpr int kCluster = 7;
 constexpr int kClusterBlocksPerSM = 4;
 constexpr int kRingBudget = 32 * 1024;  // stage bytes a block aims at
+constexpr int kSmemLimit = 232448;      // dynamic shared memory of a block
 
 __host__ __device__ __forceinline__ int cluster_align(int x) {
   return (x + 127) & ~127;
 }
 
-// Dynamic shared memory of one block, the same in every block of a launch:
-// a ring of `stages` stages (W rows of D int8, then W f32 scales), the
-// scores [M][G][W], bf16(p * vs) [W][G], the tile maxima [M][G] (and the
-// warps' [M][kWarps][G]) and sizes [M], the prefix maxima [NT][G], the step's K/V and scales, the block's
-// sums of l [G], the sources of its loads (rows, scales) [2M][2], the
-// ring's barriers. The warps' P V partials, [kWarps][G]
-// [D], then the block's P V [G][D] in their first slot, reuse the ring
-// when it is large enough.
+// Dynamic shared memory of one block, the same in every block of a launch,
+// for M pieces a block, NP pieces a row and W rows a piece: a ring of
+// `stages` stages (W rows of D int8, then W f32 scales), the scores
+// [M][G][W] (or [1][G][W] where `keep` is false), bf16(p * vs) [W][G], the
+// piece maxima [M][G] (and the warps' [M][kWarps][G]) and sizes [M], the
+// row's maxima [NP][G], the step's K/V and scales, the block's sums of l
+// [G], the sources of its loads (rows, scales) [loads][2], the ring's
+// barriers. The warps' P V partials, [kWarps][G][D], then the block's P V
+// [G][D] in their first slot, reuse the ring when it is large enough.
 struct ClusterSmem {
   int stage_bytes, stages, scores, pw, tmax, tmw, tn, pm, fresh, den, srcs,
       red, bars, bytes;
-  __host__ __device__ ClusterSmem(int W, int M, int NT, int G) {
+  bool keep;  // the scores of every piece kept from phase 1 to the sums
+  __host__ __device__ ClusterSmem(int W, int M, int NP, int G, bool keep_all)
+      : keep(keep_all) {
+    const int loads = (keep ? 2 : 3) * M;
     stage_bytes = cluster_align(W * kD + W * 4);
     stages = kRingBudget / stage_bytes;
     if (stages < 2) stages = 2;
-    if (stages > 2 * M) stages = 2 * M;
+    if (stages > loads) stages = loads;
     int off = stages * stage_bytes;
     scores = off;
-    off += M * G * W * 4;
+    off += (keep ? M : 1) * G * W * 4;
     pw = off;
     off += G * W * 4;
     tmax = off;
@@ -602,13 +657,13 @@ struct ClusterSmem {
     tn = off;
     off += M * 4;
     pm = off;
-    off += NT * G * 4;
+    off += NP * G * 4;
     fresh = cluster_align(off);
     off = fresh + 2 * kD + 16;
     den = cluster_align(off);
     off = den + G * 4;
     srcs = (off + 7) & ~7;
-    off = srcs + 2 * M * 16;
+    off = srcs + loads * 16;
     const int red_bytes = kWarps * G * kD * 4;
     if (stages * stage_bytes >= red_bytes) {
       red = 0;
@@ -621,13 +676,25 @@ struct ClusterSmem {
   }
 };
 
-template <typename T, class P, int G>
+// The layout of a launch: every piece's scores kept where that fits a
+// block, else one piece's (K read twice).
+__host__ __device__ inline ClusterSmem cluster_layout(int W, int M, int NP,
+                                                      int G) {
+  const ClusterSmem keep(W, M, NP, G, true);
+  return keep.bytes <= kSmemLimit ? keep : ClusterSmem(W, M, NP, G, false);
+}
+
+// Keep: the layout keeps every piece's scores (the instance a launch takes
+// follows cluster_layout). Two instances, so that the one that keeps them
+// holds no query registers past the scores.
+template <typename T, class P, int G, bool Keep>
 __global__ void __launch_bounds__(kThreads, kClusterBlocksPerSM)
     fused_cluster_kernel(P a, int M) {
   static_assert(G == 1 || G == 4, "the instances this kernel is built for");
   extern __shared__ __align__(128) uint8_t csm[];
   __shared__ float red_s[kWarps];
-  const ClusterSmem L(a.W, M, a.NT, G);
+  const ClusterSmem L = cluster_layout(a.W, M, a.NP, G);
+  constexpr bool keep = Keep;
   const int r = hopper::cluster_rank();
   const int h = blockIdx.y;
   const int b = blockIdx.z;
@@ -637,27 +704,31 @@ __global__ void __launch_bounds__(kThreads, kClusterBlocksPerSM)
   const int grp = lane / kLPP;
   const int sub = lane % kLPP;
   // The step's K/V element of this thread, loaded before the memory
-  // system fills with the ring's copies (only the tail's block uses them).
+  // system fills with the ring's copies (only the quantizing block uses
+  // them).
   const size_t bh = (size_t)b * a.Hkv + h;
   const float kx = to_f(static_cast<const T*>(a.k_new)[bh * kD + t]);
   const float vx = to_f(static_cast<const T*>(a.v_new)[bh * kD + t]);
   const auto geo = a.geo(b);
-  const int ntiles = geo.ntiles;
-  // This block's tiles: j = r + u * kCluster, u < mine.
-  const int mine = ntiles > r ? (ntiles - r + kCluster - 1) / kCluster : 0;
-  const int loads = 2 * mine;  // K of each, then V of each
-  float* scores = reinterpret_cast<float*>(csm + L.scores);   // [M][G][W]
+  const int npieces = geo.npieces;
+  // This block's pieces: k = r + u * C, u < mine.
+  constexpr int C = kCluster;
+  const int mine = npieces > r ? (npieces - r + C - 1) / C : 0;
+  // Loads: K of each piece, then V of each (keep), or K of each, then K
+  // and V of each in turn (the scores formed again before the sums).
+  const int loads = (keep ? 2 : 3) * mine;
+  float* scores = reinterpret_cast<float*>(csm + L.scores);   // [M|1][G][W]
   float* pw = reinterpret_cast<float*>(csm + L.pw);           // [W][G]
   float* tmax = reinterpret_cast<float*>(csm + L.tmax);       // [M][G]
   float* tmw = reinterpret_cast<float*>(csm + L.tmw);         // [M][kWarps][G]
   int* tn = reinterpret_cast<int*>(csm + L.tn);               // [M]
-  float* pm = reinterpret_cast<float*>(csm + L.pm);           // [NT][G]
+  float* pm = reinterpret_cast<float*>(csm + L.pm);           // [NP][G]
   int8_t* fresh_k = reinterpret_cast<int8_t*>(csm + L.fresh);
   int8_t* fresh_v = fresh_k + kD;
   float* fresh_s = reinterpret_cast<float*>(fresh_v + kD);    // ks, vs
   float* den_s = reinterpret_cast<float*>(csm + L.den);       // [G]
   float* red = reinterpret_cast<float*>(csm + L.red);         // [kWarps][G][D]
-  uint64_t* srcs = reinterpret_cast<uint64_t*>(csm + L.srcs);  // [2M][2]
+  uint64_t* srcs = reinterpret_cast<uint64_t*>(csm + L.srcs);  // [loads][2]
   uint64_t* full = reinterpret_cast<uint64_t*>(csm + L.bars);
   const int R = L.stages;
 
@@ -669,11 +740,27 @@ __global__ void __launch_bounds__(kThreads, kClusterBlocksPerSM)
   }
   __syncthreads();
 
+  // Load idx as (piece u of this block, V or K).
+  auto load_of = [&](int idx, int& u, bool& is_v) {
+    if (idx < mine) {
+      u = idx;
+      is_v = false;
+    } else if (keep) {
+      u = idx - mine;
+      is_v = true;
+    } else {
+      u = (idx - mine) >> 1;
+      is_v = (idx - mine) & 1;
+    }
+  };
   auto stage = [&](int idx) { return csm + (idx % R) * L.stage_bytes; };
-  // Load idx (warp 0): K rows of tile u = idx, or V rows of u = idx - mine,
-  // and their scales, from the sources the prologue found.
+  // Load idx (warp 0): its rows and their scales, from the sources the
+  // prologue found.
   auto issue = [&](int idx) {
-    const int n = tn[idx < mine ? idx : idx - mine];
+    int u;
+    bool is_v;
+    load_of(idx, u, is_v);
+    const int n = tn[u];
     uint8_t* st = stage(idx);
     float* sc = reinterpret_cast<float*>(st + a.W * kD);
     const float* ssrc = reinterpret_cast<const float*>(srcs[2 * idx + 1]);
@@ -692,28 +779,29 @@ __global__ void __launch_bounds__(kThreads, kClusterBlocksPerSM)
     // The lanes find the loads' sources together (the page table's reads
     // overlap), then the ring's first stages go out.
     for (int idx = lane; idx < loads; idx += 32) {
-      const bool is_v = idx >= mine;
-      const int u = is_v ? idx - mine : idx;
-      a.visit(geo, b, h, r + u * kCluster,
-              [&](const auto& rows, int vlo, int n, const auto&) {
-                const size_t r0 = rows.row(vlo);
-                srcs[2 * idx] = reinterpret_cast<uint64_t>(
-                    (is_v ? rows.v : rows.k) + r0 * kD);
-                srcs[2 * idx + 1] = reinterpret_cast<uint64_t>(
-                    (is_v ? rows.vs : rows.ks) + r0);
-                if (!is_v) tn[u] = n;
-              });
+      int u;
+      bool is_v;
+      load_of(idx, u, is_v);
+      a.visit_piece(geo, b, h, r + u * C,
+                    [&](const auto& rows, int vlo, int n, const auto&) {
+                      const size_t r0 = rows.row(vlo);
+                      srcs[2 * idx] = reinterpret_cast<uint64_t>(
+                          (is_v ? rows.v : rows.k) + r0 * kD);
+                      srcs[2 * idx + 1] = reinterpret_cast<uint64_t>(
+                          (is_v ? rows.vs : rows.ks) + r0);
+                      if (idx < mine) tn[u] = n;
+                    });
     }
     __syncwarp();
     for (int idx = 0; idx < min(R, loads); ++idx) issue(idx);
   }
 
   // The step's K/V, quantized as _quantize_kv does, into tail slot `step`
-  // (one block alone writes it) and into shared memory: by the tail's
-  // block just before it scores the tail, or by block 0 at the end of the
-  // scores when no tile is the tail.
+  // (one block alone writes it) and into shared memory: by the block of
+  // the piece that holds the slot just before it scores that piece, or by
+  // block 0 at the end of the scores when no piece holds it.
   const int step = *a.step;
-  const bool tail_live = ntiles > 0 && a.is_tail(geo, ntiles - 1);
+  const int sk = geo.step_piece(step);
   auto quantize = [&]() {
     const float ksc = fmaxf(block_max(fabsf(kx), red_s), 1e-8f) / 127.f;
     const float vsc = fmaxf(block_max(fabsf(vx), red_s), 1e-8f) / 127.f;
@@ -732,12 +820,12 @@ __global__ void __launch_bounds__(kThreads, kClusterBlocksPerSM)
     fresh_v[t] = vq;
     __syncthreads();
   };
-  // Puts the step's row (K or V) into the staged tail tile, where the tile
-  // holds slot `step`; the next bulk copy into the stage comes after a
-  // proxy fence and a barrier.
-  auto patch = [&](int j, int vlo, int n, uint8_t* st, bool is_v) {
+  // Puts the step's row (K or V) into the staged piece that holds slot
+  // `step`; the next bulk copy into the stage comes after a proxy fence
+  // and a barrier.
+  auto patch = [&](int k, int vlo, int n, uint8_t* st, bool is_v) {
     const int i = step - vlo;
-    if (!a.is_tail(geo, j) || i < 0 || i >= n) return;
+    if (k != sk || i < 0 || i >= n) return;
     st[i * kD + t] = static_cast<uint8_t>((is_v ? fresh_v : fresh_k)[t]);
     if (t == 0)
       reinterpret_cast<float*>(st + a.W * kD)[i] = fresh_s[is_v ? 1 : 0];
@@ -745,30 +833,26 @@ __global__ void __launch_bounds__(kThreads, kClusterBlocksPerSM)
     __syncthreads();
   };
 
-  // 1. Scores of each tile for the G query heads, K read once for all.
-  const T* qcur = nullptr;
+  // The query heads' slices, rounded to bf16 as the TPU kernel's product
+  // does, in the lane layout of tile_scores.
   float qr[G][kEPL];
-  for (int u = 0; u < mine; ++u) {
-    const int j = r + u * kCluster;
-    const T* qsrc = static_cast<const T*>(a.query(geo, j));
-    if (qsrc != qcur) {
-      // The query heads' slices, rounded to bf16 as the TPU kernel's
-      // product does, in the lane layout of tile_scores.
-      qcur = qsrc;
+  {
+    const T* qsrc = static_cast<const T*>(a.query(geo, 0));
 #pragma unroll
-      for (int g = 0; g < G; ++g) {
-        const T* qp = qsrc + (bh * G + g) * kD + sub * kEPL;
+    for (int g = 0; g < G; ++g) {
+      const T* qp = qsrc + (bh * G + g) * kD + sub * kEPL;
 #pragma unroll
-        for (int e = 0; e < kEPL; ++e) qr[g][e] = bf16_round(to_f(qp[e]));
-      }
+      for (int e = 0; e < kEPL; ++e) qr[g][e] = bf16_round(to_f(qp[e]));
     }
-    if (a.is_tail(geo, j)) quantize();
-    wait_load(u);
-    uint8_t* st = stage(u);
-    a.visit(geo, b, h, j, [&](const auto&, int vlo, int n, const auto& live) {
-      patch(j, vlo, n, st, false);
+  }
+  // Scores of piece k, staged at st, for the G query heads (K read once for
+  // all) into s_u [G][W]; with `maxima`, the warps' maxima of them into
+  // tmw's slot u.
+  auto score = [&](int k, uint8_t* st, float* s_u, bool maxima, int u) {
+    a.visit_piece(geo, b, h, k, [&](const auto&, int vlo, int n,
+                                    const auto& live) {
+      patch(k, vlo, n, st, false);
       const float* sc = reinterpret_cast<const float*>(st + a.W * kD);
-      float* s_u = scores + (size_t)u * G * a.W;
       // The max of the scores this lane writes (head sub / 2 for G = 4,
       // head 0 on lane 0 of a position for G = 1).
       float tm = kNegInf;
@@ -826,19 +910,29 @@ __global__ void __launch_bounds__(kThreads, kClusterBlocksPerSM)
           }
         }
       }
-      // Over the warp's positions (lanes 8 apart hold the same head), then
-      // one value a (warp, head) for the tile's max below.
-      tm = fmaxf(tm, __shfl_xor_sync(0xffffffffu, tm, 8));
-      tm = fmaxf(tm, __shfl_xor_sync(0xffffffffu, tm, 16));
-      const bool writer = G == 4 ? (sub & 1) == 0 : sub == 0;
-      if (grp == 0 && writer)
-        tmw[((size_t)u * kWarps + warp) * G + (G == 4 ? sub >> 1 : 0)] = tm;
+      if (maxima) {
+        // Over the warp's positions (lanes 8 apart hold the same head),
+        // then one value a (warp, head) for the piece's max below.
+        tm = fmaxf(tm, __shfl_xor_sync(0xffffffffu, tm, 8));
+        tm = fmaxf(tm, __shfl_xor_sync(0xffffffffu, tm, 16));
+        const bool writer = G == 4 ? (sub & 1) == 0 : sub == 0;
+        if (grp == 0 && writer)
+          tmw[((size_t)u * kWarps + warp) * G + (G == 4 ? sub >> 1 : 0)] = tm;
+      }
     });
+  };
+
+  // 1. Scores of each piece and the warps' maxima.
+  for (int u = 0; u < mine; ++u) {
+    const int k = r + u * C;
+    if (k == sk) quantize();
+    wait_load(u);
+    score(k, stage(u), scores + (keep ? (size_t)u * G * a.W : 0), true, u);
     __syncthreads();  // the stage is read
     if (warp == 0 && u + R < loads) issue(u + R);
   }
-  if (!tail_live && r == 0) quantize();
-  // Each tile's max over the warps.
+  if (sk < 0 && r == 0) quantize();
+  // Each piece's max over the warps.
   for (int e = t; e < mine * G; e += kThreads) {
     const int u = e / G, g = e % G;
     float m = kNegInf;
@@ -848,44 +942,68 @@ __global__ void __launch_bounds__(kThreads, kClusterBlocksPerSM)
     tmax[e] = m;
   }
 
-  // 2. The row's tile maxima from the cluster, and their prefix maxima.
+  // 2. The row's piece maxima from the cluster; their running maxima; each
+  //    piece then takes the running max at the end of its tile.
   hopper::cluster_sync();
-  for (int e = t; e < ntiles * G; e += kThreads) {
+  for (int e = t; e < npieces * G; e += kThreads) {
     const int k = e / G, g = e % G;
-    pm[e] = hopper::cluster_load(tmax + (k / kCluster) * G + g, k % kCluster);
+    pm[e] = hopper::cluster_load(tmax + (k / C) * G + g, k % C);
   }
   __syncthreads();
-  if (t < G) {
-    float m = kNegInf;
-    for (int k = 0; k < ntiles; ++k) {
-      m = fmaxf(m, pm[k * G + t]);
-      pm[k * G + t] = m;
+  if (warp < G) {
+    // Warp g, head g: the running maxima by a max-scan over the lanes, 32
+    // pieces at a time; then each piece takes the value of its tile's last
+    // piece (which keeps its own, so the pass needs no second buffer).
+    float carry = kNegInf;
+    for (int k0 = 0; k0 < npieces; k0 += 32) {
+      const int k = k0 + lane;
+      float m = k < npieces ? pm[k * G + warp] : kNegInf;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const float y = __shfl_up_sync(0xffffffffu, m, o);
+        if (lane >= o) m = fmaxf(m, y);
+      }
+      m = fmaxf(m, carry);
+      if (k < npieces) pm[k * G + warp] = m;
+      carry = __shfl_sync(0xffffffffu, m, 31);
     }
+    __syncwarp();
+    for (int k = lane; k < npieces; k += 32)
+      pm[k * G + warp] = pm[geo.tile_last_piece(k) * G + warp];
   }
   __syncthreads();
 
-  // 3. Sums of each tile under the running max at it.
+  // 3. Sums of each piece under the running max at its tile.
   float m_last[G], acc[G][4], den[G];
 #pragma unroll
   for (int g = 0; g < G; ++g) {
-    m_last[g] = ntiles > 0 ? pm[(ntiles - 1) * G + g] : kNegInf;
+    m_last[g] = npieces > 0 ? pm[(npieces - 1) * G + g] : kNegInf;
     den[g] = 0.f;
 #pragma unroll
     for (int c = 0; c < 4; ++c) acc[g][c] = 0.f;
   }
   for (int u = 0; u < mine; ++u) {
-    const int j = r + u * kCluster;
-    const int idx = mine + u;
+    const int k = r + u * C;
+    int idx = keep ? mine + u : mine + 2 * u;
+    const float* s_u = scores + (keep ? (size_t)u * G * a.W : 0);
+    if constexpr (!keep) {
+      // The piece's scores again, from a second copy of its K.
+      wait_load(idx);
+      score(k, stage(idx), scores, false, 0);
+      __syncthreads();  // the stage is read, the scores written
+      if (warp == 0 && idx + R < loads) issue(idx + R);
+      ++idx;
+    }
     wait_load(idx);
     uint8_t* st = stage(idx);
-    a.visit(geo, b, h, j, [&](const auto&, int vlo, int n, const auto& live) {
-      patch(j, vlo, n, st, true);
+    a.visit_piece(geo, b, h, k, [&](const auto&, int vlo, int n,
+                                    const auto& live) {
+      patch(k, vlo, n, st, true);
       const float* vsc = reinterpret_cast<const float*>(st + a.W * kD);
-      const float* s_u = scores + (size_t)u * G * a.W;
       float mj[G], wj[G];
 #pragma unroll
       for (int g = 0; g < G; ++g) {
-        mj[g] = pm[j * G + g];
+        mj[g] = pm[k * G + g];
         wj[g] = expf(mj[g] - m_last[g]);
         float lsum = 0.f;
         for (int i = t; i < n; i += kThreads) {
@@ -922,7 +1040,7 @@ __global__ void __launch_bounds__(kThreads, kClusterBlocksPerSM)
 #pragma unroll
         for (int c = 0; c < 4; ++c) acc[g][c] += wj[g] * pv[g][c];
     });
-    __syncthreads();  // the stage and pw are read
+    __syncthreads();  // the stage, pw and the scores are read
     if (warp == 0 && idx + R < loads) issue(idx + R);
   }
 
@@ -954,12 +1072,12 @@ __global__ void __launch_bounds__(kThreads, kClusterBlocksPerSM)
 
   // 4. The cluster's sums of this block's share of the outputs.
   hopper::cluster_sync();
-  constexpr int kShare = (G * kD + kCluster - 1) / kCluster;
-  if (t < kShare && r * kShare + t < G * kD) {
-    const int e = r * kShare + t;
+  const int share = (G * kD + C - 1) / C;
+  const int end = min((r + 1) * share, G * kD);
+  for (int e = r * share + t; e < end; e += kThreads) {
     const int g = e / kD;
     float num = 0.f, l = 0.f;
-    for (int k = 0; k < kCluster; ++k) {
+    for (int k = 0; k < C; ++k) {
       num += hopper::cluster_load(red + e, k);
       l += hopper::cluster_load(den_s + g, k);
     }
@@ -970,27 +1088,29 @@ __global__ void __launch_bounds__(kThreads, kClusterBlocksPerSM)
   hopper::cluster_sync();
 }
 
-// The cluster launch of fused_cluster_kernel<T, P, G> for `a`: M tiles a
-// block at most, the shared memory it needs set on the kernel. `clusters`,
-// when not null, receives how many such clusters the card holds at once
-// instead of a launch.
+// The cluster launch of fused_cluster_kernel<T, P, G, keep> for `a`: M
+// pieces a block at most, the shared memory it needs set on the kernel.
+// `clusters`, when not null, receives how many such clusters the card holds
+// at once instead of a launch.
 template <typename T, class P, int G>
 int launch_cluster(const P& a, cudaStream_t s, int* clusters = nullptr) {
-  const int M = (a.NT + kCluster - 1) / kCluster;
-  const ClusterSmem L(a.W, M, a.NT, G);
-  if (L.bytes > 232448) return -1;
-  auto* kernel = fused_cluster_kernel<T, P, G>;
+  constexpr int C = kCluster;
+  const int M = (a.NP + C - 1) / C;
+  const ClusterSmem L = cluster_layout(a.W, M, a.NP, G);
+  if (L.bytes > kSmemLimit) return -1;
+  auto* kernel = L.keep ? fused_cluster_kernel<T, P, G, true>
+                        : fused_cluster_kernel<T, P, G, false>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L.bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(kCluster, a.Hkv, a.B);
+  cfg.gridDim = dim3(C, a.Hkv, a.B);
   cfg.blockDim = dim3(kThreads);
   cfg.dynamicSmemBytes = L.bytes;
   cfg.stream = s;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = kCluster;
+  attr[0].val.clusterDim.x = C;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
@@ -1001,6 +1121,40 @@ int launch_cluster(const P& a, cudaStream_t s, int* clusters = nullptr) {
   err = cudaLaunchKernelEx(&cfg, kernel, a, M);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The cluster launch's plan for pieces of W rows, NP a row, G query heads a
+// kv head (bf16 queries): out[0] blocks a cluster, out[1] pieces a block
+// can hold (M), out[2] ring stages, out[3] bytes a stage, out[4] dynamic
+// shared memory bytes a block, out[5] the clusters the card holds at once,
+// out[6] 1 if every piece's scores are kept (0: K is read twice). Returns
+// 0, -1 outside G in {1, 4} or past a block's shared memory, or the CUDA
+// error of the occupancy query.
+template <bool Paged>
+int cluster_plan(int NP, int W, int G, long long* out) {
+  if ((G != 1 && G != 4) || NP < 1 || W < 1) return -1;
+  const int M = (NP + kCluster - 1) / kCluster;
+  const ClusterSmem L = cluster_layout(W, M, NP, G);
+  BigThenTail<Paged> a;
+  a.NP = NP;
+  a.W = W;
+  a.B = 1;
+  a.Hkv = 1;
+  int clusters = 0;
+  const int err =
+      G == 1 ? launch_cluster<__nv_bfloat16, BigThenTail<Paged>, 1>(
+                   a, nullptr, &clusters)
+             : launch_cluster<__nv_bfloat16, BigThenTail<Paged>, 4>(
+                   a, nullptr, &clusters);
+  if (err != 0) return err;
+  out[0] = kCluster;
+  out[1] = M;
+  out[2] = L.stages;
+  out[3] = L.stage_bytes;
+  out[4] = L.bytes;
+  out[5] = clusters;
+  out[6] = L.keep ? 1 : 0;
+  return 0;
 }
 
 // The instances: G in {1, 4} query heads a kv head, q in bf16 (dtype 0) or
@@ -1025,12 +1179,11 @@ int dispatch_cluster(const P& a, int G, int dtype, void* stream) {
   return -1;
 }
 
-// dtype: 0 = bfloat16, 1 = float32 (q, k_new, v_new, out). The paged form
-// takes the one-launch cluster kernel, the contiguous one the three passes.
-// Returns cudaGetLastError() after the launches, or -1 for a shape the
-// kernels are not built for (D = 128, G in {1, 4}, tiles and tail of
-// 1..256, NT and W that hold every row's tiles, and for the cluster kernel
-// shared memory within a block's 227 KB).
+// dtype: 0 = bfloat16, 1 = float32 (q, k_new, v_new, out). Both forms take
+// the one-launch cluster kernel. Returns cudaGetLastError() after the
+// launch, or -1 for a shape the kernel is not built for (D = 128, G in
+// {1, 4}, tiles and tail of 1..256, pieces inside one tile each, NP and W
+// that hold every row's pieces, shared memory within a block's 227 KB).
 template <bool Paged>
 int launch(const Args& a, int G, int D, int dtype, void* stream) {
   if (a.B <= 0) return 0;
@@ -1038,13 +1191,15 @@ int launch(const Args& a, int G, int D, int dtype, void* stream) {
   const int cap = Paged ? a.tw * a.ps : a.rows;
   if (D != kD || a.KT < 1 || a.KT > kMaxTile || tw < 1 || tw > kMaxTile)
     return -1;
-  if (a.W < tw || a.W < a.KT || a.NT < (cap + tw - 1) / tw + 1) return -1;
+  const int pw = Paged ? a.ps : a.piece_w;
+  const int tpw = Paged ? a.KT : a.piece_w;
+  if (pw < 1 || (tw % pw != 0 && tw < cap)) return -1;
+  if (a.W < pw || a.W < (tpw < a.KT ? tpw : a.KT) ||
+      a.NP < (cap + pw - 1) / pw + (a.KT + tpw - 1) / tpw)
+    return -1;
   BigThenTail<Paged> p;
   static_cast<Args&>(p) = a;
-  if constexpr (Paged)
-    return dispatch_cluster(p, G, dtype, stream);
-  else
-    return dispatch(p, G, dtype, stream);
+  return dispatch_cluster(p, G, dtype, stream);
 }
 
 // The fused window's int8 tail merged into contiguous planes, a direct

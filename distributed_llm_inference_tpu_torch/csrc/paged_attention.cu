@@ -3,7 +3,11 @@
 // Replaces two TPU kernels of
 // distributed_llm_inference_tpu/ops/paged_attention.py: `_paged_kernel`
 // behind `paged_attention` and `_qpaged_kernel` behind
-// `quantized_paged_attention`. One query token per row (S = 1) attends over
+// `quantized_paged_attention`. Over bf16 pages `paged_attention` is one
+// launch of paged_decode.cuh's kernel (a cluster a (row, kv head), TMA-fed
+// ring, the products on the tensor cores; that file says what bounds it
+// and why). What follows describes the walk that the int8 pages and the
+// f32 instance still take (decode_attention.cuh). One query token per row (S = 1) attends over
 // the first kv_lengths[b] slots of the row's pages, read in place from the
 // page pool through the page table. The per-head online-softmax stats
 // (running max m, denominator l) are written as well, so a caller can merge
@@ -55,12 +59,33 @@
 
 #include "decode_attention.cuh"
 #include "fused_decode.cuh"
+#include "paged_decode.cuh"
 
-// dtype: 0 = bfloat16, 1 = float32. window: 0 = no sliding window. NS blocks
-// share a row's positions, `chunk` positions each (NS * chunk >= Tw * PS);
-// part_o / part_m / part_l are f32 scratch of [B, Hkv, NS, G, D] and twice
-// [B, Hkv, NS, G]. Returns cudaGetLastError() after the launches, or -1 for
-// a shape outside D = 128, G in {1, 4}.
+// bf16 q [B, Hkv*G, D] and pages [P, Hkv, PS, D], table [B, Tw], kv_lens and
+// q_pos [B] int32; out as q, m_out / l_out f32 [B, Hkv, G]. window: 0 = no
+// sliding window. One launch of paged_decode.cuh's kernel, a cluster of C
+// blocks (1..8) a (row, kv head). Returns cudaGetLastError() after the
+// launch, -1 for a shape outside D = 128, G in {1, 4}, -2 if the driver
+// refused a tensor map.
+extern "C" int dli_paged_attention_bf16(
+    const void* q, const void* k_pages, const void* v_pages,
+    const void* table, const void* kv_lens, const void* q_pos, void* out,
+    void* m_out, void* l_out, int B, int Hkv, int G, int D, int PS, int Tw,
+    int C, float scale, int window, void* stream) {
+  return pdec::dispatch(q, k_pages, v_pages, static_cast<const int*>(table),
+                        static_cast<const int*>(kv_lens),
+                        static_cast<const int*>(q_pos), out,
+                        static_cast<float*>(m_out), static_cast<float*>(l_out),
+                        B, Hkv, G, D, PS, Tw, C, scale, window,
+                        static_cast<cudaStream_t>(stream));
+}
+
+// The f32 instance (dtype 1; bf16 takes dli_paged_attention_bf16): the
+// split walk of decode_attention.cuh. window: 0 = no sliding window. NS
+// blocks share a row's positions, `chunk` positions each (NS * chunk >= Tw *
+// PS); part_o / part_m / part_l are f32 scratch of [B, Hkv, NS, G, D] and
+// twice [B, Hkv, NS, G]. Returns cudaGetLastError() after the launches, or
+// -1 for a shape outside D = 128, G in {1, 4}, or another dtype.
 extern "C" int dli_paged_attention(
     const void* q, const void* k_pages, const void* v_pages,
     const void* table, const void* kv_lens, const void* q_pos, void* out,
@@ -132,8 +157,9 @@ extern "C" int dli_quantized_paged_fused_attention(
   a.step = static_cast<const int*>(step);
   a.out = out;
   a.scratch = nullptr;
-  a.NT = NT; a.W = W;
+  a.NT = NT; a.NP = NT; a.W = W;
   a.B = B; a.Hkv = Hkv; a.rows = P; a.ps = PS; a.tw = Tw; a.tile_w = PS;
+  a.piece_w = PS;
   a.KT = KT; a.layer = layer; a.window = window; a.scale = scale;
   return fused::launch<true>(a, G, D, dtype, stream);
 }
@@ -209,32 +235,9 @@ extern "C" int dli_paged_tail_flush(
 }
 
 // The fused step's cluster launch at these widths (bf16 queries), as
-// fused::launch_cluster makes it: out[0] blocks a cluster (a (row, kv
-// head)), out[1] tiles a block can hold (M), out[2] ring stages, out[3]
-// bytes a stage, out[4] dynamic shared memory bytes a block, out[5] the
-// clusters the card holds at once. Returns 0, -1 outside G in {1, 4}, or
-// the CUDA error of the occupancy query.
+// fused::launch_cluster makes it, NT tiles a row (a page each) of W rows:
+// fused::cluster_plan's seven values. Returns 0, -1 outside G in {1, 4},
+// or the CUDA error of the occupancy query.
 extern "C" int dli_fused_cluster_plan(int NT, int W, int G, long long* out) {
-  if ((G != 1 && G != 4) || NT < 1 || W < 1) return -1;
-  const int M = (NT + fused::kCluster - 1) / fused::kCluster;
-  const fused::ClusterSmem L(W, M, NT, G);
-  fused::BigThenTail<true> a;
-  a.NT = NT;
-  a.W = W;
-  a.B = 1;
-  a.Hkv = 1;
-  int clusters = 0;
-  const int err =
-      G == 1 ? fused::launch_cluster<__nv_bfloat16, fused::BigThenTail<true>, 1>(
-                   a, nullptr, &clusters)
-             : fused::launch_cluster<__nv_bfloat16, fused::BigThenTail<true>, 4>(
-                   a, nullptr, &clusters);
-  if (err != 0) return err;
-  out[0] = fused::kCluster;
-  out[1] = M;
-  out[2] = L.stages;
-  out[3] = L.stage_bytes;
-  out[4] = L.bytes;
-  out[5] = clusters;
-  return 0;
+  return fused::cluster_plan<true>(NT, W, G, out);
 }

@@ -8,8 +8,10 @@
 //   (the dense cache's own buffers, or the int8 page pool's rows gathered
 //   once per window below INPLACE_CTX, cache/paged.py), in tiles of
 //   min(256, T) positions as the TPU kernel tiles them, with the step's K/V
-//   quantized into the int8 tail as the last tile. The kernels are
-//   fused_decode.cuh's with Paged = false; that file says what bounds them.
+//   quantized into the int8 tail as the last tile. One launch of
+//   fused_decode.cuh's cluster kernel with Paged = false, the tiles dealt
+//   to the cluster's blocks as pieces of 64; that file says what bounds
+//   it.
 // * `_qdense_kernel` behind `quantized_decode_attention`: one decode token a
 //   row over one layer's [B, Hkv, T, D] buffer, the int8 paged decode walk of
 //   decode_attention.cuh with no table (row b is its own page of T slots).
@@ -23,18 +25,18 @@
 // big stacks [L, B, Hkv, T, D] int8 / [L, B, Hkv, T] f32, tail planes
 // [L, B, Hkv, KT, D] / [L, B, Hkv, KT]; q [B, Hkv*G, D], k_new / v_new
 // [B, Hkv, D] and out in `dtype` (0 = bf16, 1 = f32); base_len, tail_vlen,
-// q_pos [B] int32; step one int32 in device memory; `scratch` holds
-// B * Hkv * G * NT * (W + 3 + D) floats, NT >= ceil(T / tile_w) + 1,
-// W >= max(tile_w, KT). Returns cudaGetLastError() after the launches, -1
-// for a shape outside D = 128, G in {1, 4}, tile_w and KT in 1..256.
+// q_pos [B] int32; step one int32 in device memory; tile_w the TPU
+// kernel's tile, min(256, T). One launch of fused_decode.cuh's cluster
+// kernel, pieces of min(kPiece, tile_w) positions. Returns
+// cudaGetLastError() after the launch, -1 for a shape outside D = 128, G
+// in {1, 4}, tile_w and KT in 1..256, or past a block's shared memory.
 extern "C" int dli_quantized_fused_decode_attention(
     const void* q, const void* k_new, const void* v_new, const void* big_k,
     const void* big_ks, const void* big_v, const void* big_vs, void* tail_k,
     void* tail_ks, void* tail_v, void* tail_vs, const void* base_len,
     const void* tail_vlen, const void* q_pos, const void* step, void* out,
-    void* scratch, int B, int Hkv, int G, int D, int T, int tile_w, int KT,
-    int layer, int NT, int W, float scale, int window, int dtype,
-    void* stream) {
+    int B, int Hkv, int G, int D, int T, int tile_w, int KT, int layer,
+    float scale, int window, int dtype, void* stream) {
   fused::Args a;
   a.q = q; a.k_new = k_new; a.v_new = v_new;
   a.big_k = static_cast<const int8_t*>(big_k);
@@ -51,11 +53,30 @@ extern "C" int dli_quantized_fused_decode_attention(
   a.q_pos = static_cast<const int*>(q_pos);
   a.step = static_cast<const int*>(step);
   a.out = out;
-  a.scratch = static_cast<float*>(scratch);
-  a.NT = NT; a.W = W;
+  a.scratch = nullptr;
+  if (tile_w < 1 || KT < 1) return -1;
+  const int pw = tile_w < fused::kPiece ? tile_w : fused::kPiece;
+  a.piece_w = pw;
+  a.NP = (T + pw - 1) / pw + (KT + pw - 1) / pw;
+  a.NT = (T + tile_w - 1) / tile_w + 1;
+  a.W = pw;
   a.B = B; a.Hkv = Hkv; a.rows = T; a.ps = 0; a.tw = 0; a.tile_w = tile_w;
   a.KT = KT; a.layer = layer; a.window = window; a.scale = scale;
   return fused::launch<false>(a, G, D, dtype, stream);
+}
+
+// The cluster launch of dli_quantized_fused_decode_attention at stacks of T
+// positions, tiles of tile_w, a tail of KT and G query heads a kv head
+// (bf16 queries): fused::cluster_plan's seven values, out[7] the piece
+// width. Returns 0, -1 for shapes it does not take, or the CUDA error of
+// the occupancy query.
+extern "C" int dli_fused_dense_plan(int T, int tile_w, int KT, int G,
+                                    long long* out) {
+  if (T < 1 || tile_w < 1 || KT < 1) return -1;
+  const int pw = tile_w < fused::kPiece ? tile_w : fused::kPiece;
+  out[7] = pw;
+  return fused::cluster_plan<false>(
+      (T + pw - 1) / pw + (KT + pw - 1) / pw, pw, G, out);
 }
 
 // q [B, Hkv*G, D] and out in `dtype` (0 = bf16, 1 = f32); k / v int8

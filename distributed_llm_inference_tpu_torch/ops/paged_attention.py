@@ -7,13 +7,18 @@ Replaces the TPU kernels ``_paged_kernel`` behind ``paged_attention`` and
 ``_qpaged_kernel`` behind ``quantized_paged_attention`` in the JAX package's
 ``ops/paged_attention.py``. On this card the function is bound
 by bytes: every live K and V slot is read once for a handful of dot
-products. ``csrc/paged_attention.cu`` walks only the live positions of each
-row (nothing is fetched for dead table slots), gives each position to a
-group of 8 lanes with 16-byte loads, keeps the online-softmax state in
-f32 registers, and splits a row's positions over several blocks whose
-partial results a second small kernel merges; this wrapper sizes the split
-and allocates its scratch. Over int8 pages (per-(slot, head) f32 scale
-planes beside them) the same page walk reads half the bytes: the K scale
+products. Over bf16 pages it is one launch of ``csrc/paged_decode.cuh``: a
+thread-block cluster per (row, kv head) whose blocks take the row's live
+64-position steps in turn, a producer warp bringing them by TMA into a
+ring, the scores and P V on the tensor cores with one max a head per 16
+positions, and the blocks' states merged through distributed shared
+memory; this wrapper sizes the cluster (:func:`cluster_size`). Over int8
+pages (per-(slot, head) f32 scale planes beside them), and for f32, the
+walk of ``csrc/decode_attention.cuh`` gives each position to a group of 8
+lanes with 16-byte loads, keeps the online-softmax state in f32 registers,
+and splits a row's positions over several blocks whose partial results a
+second small kernel merges; this wrapper sizes the split and allocates its
+scratch. Over int8 pages the walk reads half the bytes: the K scale
 multiplies the score and the V scale the probability before P V, so the
 pages are never dequantized into a copy.
 
@@ -92,21 +97,40 @@ def split_plan(device, pairs: int, span: int):
     return num, chunk
 
 
-def _kernel(quantized: bool = False):
-    fn = _fn.get(quantized)
+def cluster_size(device, pairs: int, span: int) -> int:
+    """Blocks of the bf16 kernel's cluster for one (row, kv head): about one
+    block an SM over all ``pairs`` (more only add merges; see
+    ``csrc/paged_decode.cuh``), at most 8 (the portable cluster), and no
+    more than the 64-position steps of ``span`` table positions. The steps
+    a block takes follow the live length at run time."""
+    sms = _sm_count.get(device)
+    if sms is None:
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        _sm_count[device] = sms
+    return max(1, min(8, sms // pairs, -(-span // 64)))
+
+
+# C entry of each decode form: (symbol, pointer arguments, int arguments
+# before the scale, int arguments after it).
+_ENTRIES = {
+    "bf16": ("dli_paged_attention_bf16", 9, 7, 1),
+    "f32": ("dli_paged_attention", 12, 8, 2),
+    "int8": ("dli_quantized_paged_attention", 14, 8, 2),
+}
+
+
+def _kernel(form: str):
+    """The C entry of the decode ``form``: "bf16" (the cluster kernel),
+    "f32" or "int8" (the split walk)."""
+    fn = _fn.get(form)
     if fn is None:
-        lib = _build.load_library("paged_attention")
-        if quantized:
-            fn = lib.dli_quantized_paged_attention
-            pointers = 14
-        else:
-            fn = lib.dli_paged_attention
-            pointers = 12
-        fn.argtypes = [ctypes.c_void_p] * pointers + [ctypes.c_int] * 8 + [
-            ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        symbol, pointers, ints, after = _ENTRIES[form]
+        fn = getattr(_build.load_library("paged_attention"), symbol)
+        fn.argtypes = [ctypes.c_void_p] * pointers + [ctypes.c_int] * ints + [
+            ctypes.c_float, *[ctypes.c_int] * after, ctypes.c_void_p,
         ]
         fn.restype = ctypes.c_int
-        _fn[quantized] = fn
+        _fn[form] = fn
     return fn
 
 
@@ -270,8 +294,9 @@ def quantized_paged_attention_plain(
 
 def _launch(name, q, k_pages, v_pages, page_table, kv_lengths, scale,
             sliding_window, q_positions, return_stats, scales=()):
-    """Checks, scratch and one launch of the split kernel and its merge,
-    for bf16/f32 pools or (with ``scales``) int8 pools."""
+    """Checks and the launch: bf16 pools take the one-launch cluster kernel;
+    f32 pools and (with ``scales``) int8 pools the split kernel and its
+    merge, over scratch allocated here."""
     b, s, hq, d = q.shape
     if s != 1:
         raise ValueError(f"{name} is decode-only (S=1), got S={s}")
@@ -286,10 +311,29 @@ def _launch(name, q, k_pages, v_pages, page_table, kv_lengths, scale,
     if scale is None:
         scale = d**-0.5
     width = page_table.shape[1]
-    num_splits, chunk = split_plan(q.device, b * hkv, width * page_size)
     out = torch.empty_like(q)
     m = torch.empty((b, hkv, g), dtype=torch.float32, device=q.device)
     l = torch.empty_like(m)
+    if not scales and q.dtype == torch.bfloat16:
+        # One launch of the cluster kernel (csrc/paged_decode.cuh): no
+        # scratch. Its TMA map names pool rows by 32-bit coordinates.
+        if k_pages.shape[0] * hkv * page_size >= 2**31:
+            raise ValueError(f"{name}: pool of {k_pages.shape[0]} pages "
+                             f"has 2^31 rows or more")
+        with torch.cuda.device(q.device):
+            err = _kernel("bf16")(
+                q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+                page_table.data_ptr(), kv_lengths.data_ptr(),
+                q_positions.data_ptr(), out.data_ptr(), m.data_ptr(),
+                l.data_ptr(), b, hkv, g, d, page_size, width,
+                cluster_size(q.device, b * hkv, width * page_size),
+                float(scale), int(sliding_window or 0),
+                torch.cuda.current_stream().cuda_stream,
+            )
+        if err != 0:
+            raise RuntimeError(f"{name}: kernel launch failed ({err})")
+        return (out, m, l) if return_stats else out
+    num_splits, chunk = split_plan(q.device, b * hkv, width * page_size)
     part_o = torch.empty(
         (b, hkv, num_splits, g, d), dtype=torch.float32, device=q.device
     )
@@ -303,7 +347,7 @@ def _launch(name, q, k_pages, v_pages, page_table, kv_lengths, scale,
         pools = (k_pages.data_ptr(), v_pages.data_ptr())
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _kernel(bool(scales))(
+        err = _kernel("int8" if scales else "f32")(
             q.data_ptr(), *pools, page_table.data_ptr(),
             kv_lengths.data_ptr(), q_positions.data_ptr(), out.data_ptr(),
             m.data_ptr(), l.data_ptr(), part_o.data_ptr(),

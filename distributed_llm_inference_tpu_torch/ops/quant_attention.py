@@ -22,7 +22,11 @@ an f32 run agrees with the JAX kernel to 2e-5 only on the same tiles.
 ``ops/paged_attention.py``.
 
 ``csrc/quant_attention.cu`` (the kernel, via ``csrc/fused_decode.cuh``)
-replaces the TPU kernel ``_qfused_kernel``. ``step_idx`` is a one-element
+replaces the TPU kernel ``_qfused_kernel``: one launch of a thread-block
+cluster per (row, kv head) that deals the tiles to its blocks as pieces
+of at most 64 positions (never across a tile's edge), exchanges
+their maxima and sums through distributed shared memory and allocates no
+scratch. ``step_idx`` is a one-element
 int32 tensor on the data's device, read by the kernel from device memory,
 so a CUDA graph of the step serves every step of a window; ``layer_idx``
 is a host integer. The wrapper launches the kernel for CUDA tensors and
@@ -293,7 +297,7 @@ def _kernel():
     if fn is None:
         fn = _build.load_library(
             "quant_attention").dli_quantized_fused_decode_attention
-        fn.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 10 + [
+        fn.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 8 + [
             ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
         ]
         fn.restype = ctypes.c_int
@@ -361,10 +365,7 @@ def quantized_fused_decode_attention(
         raise ValueError(f"{name}: layer {layer_idx} outside 0..{num_l - 1}")
     if scale is None:
         scale = d**-0.5
-    tile = min(BLOCK_T, t)
-    nt, w = -(-t // tile) + 1, max(tile, kt)
     out = torch.empty_like(q)
-    scratch = fused_scratch(b * hq, nt, w, d, q.device)
     with torch.cuda.device(q.device):
         err = _kernel()(
             q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
@@ -372,8 +373,8 @@ def quantized_fused_decode_attention(
             big_vs.data_ptr(), tail_k.data_ptr(), tail_ks.data_ptr(),
             tail_v.data_ptr(), tail_vs.data_ptr(), base_len.data_ptr(),
             tail_valid_len.data_ptr(), q_positions.data_ptr(),
-            step_idx.data_ptr(), out.data_ptr(), scratch.data_ptr(), b, hkv,
-            hq // hkv, d, t, tile, kt, int(layer_idx), nt, w, float(scale),
+            step_idx.data_ptr(), out.data_ptr(), b, hkv, hq // hkv, d, t,
+            min(BLOCK_T, t), kt, int(layer_idx), float(scale),
             int(sliding_window or 0), code,
             torch.cuda.current_stream().cuda_stream,
         )

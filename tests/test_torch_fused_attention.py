@@ -335,3 +335,155 @@ def test_cluster_split_matches_the_walk(ps, window, blocks):
 def table_for(rng, b, width, pages):
     ids = rng.permutation(np.arange(1, pages)).reshape(b, width)
     return ids.astype(np.int32)
+
+
+# ---------------------------------------------------------------------------
+# The same one-launch decomposition over contiguous stacks (#9): the TPU
+# kernel's tiles of min(256, T) positions, dealt to the cluster's 7 blocks as
+# pieces of at most 64 positions (fused::kPiece) that never cross a tile's
+# edge; a tile's max is the max of its pieces' maxima, so the running max
+# at each tile, and every rounding of p * vs, stay the walk's. Held to the
+# sequential walk of ``quantized_fused_decode_attention_plain`` and, on
+# stacks of whole tiles, to the JAX kernel in interpret mode.
+# ---------------------------------------------------------------------------
+
+PIECE, CLUSTER = 64, 7  # fused::kPiece, fused::kCluster
+
+
+def row_pieces(base, vlen, qpos, window, t, kt):
+    """The kernel's Geometry over stacks of ``t`` positions: ``(vlo, n,
+    tile, is_tail)`` of each piece of a row, in the walk's order."""
+    tw = min(256, t)
+    pw = min(PIECE, tw)
+    lo = max(0, qpos - window + 1) if window else 0
+    hi = min(base, t)
+    first = (lo // tw) * tw
+    nbig = -(-(hi - first) // tw) if hi > lo else 0
+    fp = (lo // pw) * pw
+    pieces = []
+    for k in range(-(-(hi - fp) // pw) if hi > lo else 0):
+        start = fp + k * pw
+        vlo = max(lo, start)
+        pieces.append((vlo, min(hi, start + pw) - vlo,
+                       start // tw - first // tw, False))
+    vlen = min(vlen, kt)
+    tlo = max(0, qpos - window + 1 - base) if window else 0
+    if tlo < vlen:
+        for start in range((tlo // pw) * pw, vlen, pw):
+            vlo = max(tlo, start)
+            pieces.append((vlo, min(vlen, start + pw) - vlo, nbig, True))
+    assert len({p[2] for p in pieces}) == (nbig + (tlo < vlen)), "tiles"
+    return pieces
+
+
+def contiguous_cluster_model(q, stacks, tail, base, vlen, qpos, window,
+                             layer):
+    """Output ``[B, Hq, D]`` f32 of the pieces dealt to the cluster's
+    blocks, and for every (row, kv head) the running max each tile gets from
+    the exchange ``[tiles, G]`` beside the sequential walk's."""
+    sk, sks, sv, svs = (x[layer] for x in stacks)
+    tk, tks, tv, tvs = (x[layer] for x in tail)
+    b, hq, d = q.shape
+    hkv, t = sk.shape[1], sk.shape[2]
+    g = hq // hkv
+    neg = torch.full((g,), -0.7 * 3.4028234663852886e38)
+    qb = q.to(torch.bfloat16).float().reshape(b, hkv, g, d)
+    out = torch.zeros(b, hkv, g, d)
+    maxima = []
+    for r in range(b):
+        pieces = row_pieces(int(base[r]), int(vlen[r]), int(qpos[r]), window,
+                            t, tk.shape[2])
+        for h in range(hkv):
+            def rows(vlo, n, is_tail):
+                sl = slice(vlo, vlo + n)
+                if is_tail:
+                    return tk[r, h, sl], tks[r, h, sl], tv[r, h, sl], tvs[r, h, sl]
+                return sk[r, h, sl], sks[r, h, sl], sv[r, h, sl], svs[r, h, sl]
+
+            data = [rows(vlo, n, is_tail) for vlo, n, _, is_tail in pieces]
+            # 1. each block scores its pieces (k % 7 == rank), and their maxima
+            scores = []
+            for k, ks, _, _ in data:
+                s = tqa._lane_order_dot(qb[r, h][None, None], k[None, None])[0, 0]
+                scores.append(s * ks[None, :] * d**-0.5)
+            # 2. running maxima over the pieces; each piece takes the one at
+            #    the end of its tile
+            run, m = [], neg
+            for s in scores:
+                m = torch.maximum(m, s.amax(-1))
+                run.append(m)
+            tile_max = {}
+            for k, (_, _, j, _) in enumerate(pieces):
+                tile_max[j] = run[k]
+            walk, m = [], neg             # the sequential walk's, by tile
+            for j in sorted(tile_max):
+                tile_scores = torch.cat([s for s, p in zip(scores, pieces)
+                                         if p[2] == j], dim=-1)
+                m = torch.maximum(m, tile_scores.amax(-1))
+                walk.append(m)
+            maxima.append(([tile_max[j] for j in sorted(tile_max)], walk))
+            # 3. each block's sums, each piece under its tile's max, scaled
+            #    by exp(m_j - m_last); 4. the cluster adds up the blocks'
+            num, den = torch.zeros(g, d), torch.zeros(g)
+            m_last = run[-1] if run else neg
+            for rank in range(CLUSTER):
+                bnum, bden = torch.zeros(g, d), torch.zeros(g)
+                for k in range(rank, len(pieces), CLUSTER):
+                    _, _, v, vs = data[k]
+                    mj = tile_max[pieces[k][2]]
+                    p = torch.exp(scores[k] - mj[:, None])
+                    pw = (p * vs[None, :]).to(torch.bfloat16).float()
+                    w = torch.exp(mj - m_last)
+                    bnum += w[:, None] * (pw @ v.float())
+                    bden += w * p.sum(-1)
+                num += bnum
+                den += bden
+            out[r, h] = num / den.clamp_min(1e-20)[:, None]
+    return out.reshape(b, hq, d), maxima
+
+
+@pytest.mark.parametrize("t", [40, 256, 300, 640])
+@pytest.mark.parametrize("window", [None, 37])
+@pytest.mark.parametrize("g", [1, 4])
+def test_contiguous_cluster_split_matches_the_walk(t, window, g):
+    """Rows: empty (nothing cached, no tail), tail only, short (one piece),
+    across pieces and tiles, and long (the last tile partial where T is not
+    a multiple of 256); a window that starts inside a piece; 1 and 4 query
+    heads per kv head. Stacks of whole tiles (T = 40, 256) also against the
+    JAX kernel (its interpret mode pads a partial tile with NaN)."""
+    rng = np.random.default_rng(t + 10 * g + (window or 0))
+    b, kt = 5, 8
+    stacks = [tt(x).clone() for x in int8_planes(rng, (L, b, HKV), t)]
+    tail = [tt(x).clone() for x in int8_planes(rng, (L, b, HKV), kt)]
+    base = torch.tensor([0, 0, 5, t // 2 + 3, t - 2], dtype=torch.int32)
+    tail_len = torch.tensor([0, 3, 2, 5, 7], dtype=torch.int32)
+    vlen = tail_len + torch.tensor([0, 1, 1, 1, 1], dtype=torch.int32)
+    qpos = base + tail_len
+    q, kn, vn = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+                 for shape in ((b, 1, HKV * g, D), (b, 1, HKV, D),
+                               (b, 1, HKV, D)))
+    step = 3
+    kw = dict(layer_idx=1, step_idx=torch.tensor([step], dtype=torch.int32),
+              base_len=base, tail_valid_len=vlen, q_positions=qpos,
+              sliding_window=window)
+    want, *tail_w = tqa.quantized_fused_decode_attention_plain(
+        q, kn, vn, *stacks, *[x.clone() for x in tail], **kw)
+    got, maxima = contiguous_cluster_model(q[:, 0], stacks, tail_w, base,
+                                           vlen, qpos, window, 1)
+    np.testing.assert_allclose(got.numpy(), want[:, 0].numpy(), atol=2e-5,
+                               rtol=0)
+    assert (got[0] == 0).all(), "a row with no live tile gives zeros"
+    for pm, walk in maxima:
+        assert len(pm) == len(walk)
+        for a, w in zip(pm, walk):
+            assert torch.equal(a, w)
+    if t % 256 and t > 256:
+        return
+    out_j, *_ = jax_fused(
+        jx(q.numpy()), jx(kn.numpy()), jx(vn.numpy()),
+        *[jx(x.numpy()) for x in stacks], *[jx(x.numpy()) for x in tail],
+        layer_idx=jnp.int32(1), step_idx=jnp.int32(step),
+        base_len=jx(base.numpy()), tail_valid_len=jx(vlen.numpy()),
+        q_positions=jx(qpos.numpy()), sliding_window=window, interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(out_j)[:, 0],
+                               atol=2e-5, rtol=0)

@@ -18,10 +18,11 @@ one line per engine configuration or comparison):
               `quantized_paged_attention`, `quantized_ragged_paged_attention`
               at Llama-3-8B shapes (32 query heads, 8 kv heads, head_dim 128,
               page size 64; once as MHA too), mixed lengths and an empty row;
-              `paged_attention` also over pages of 16, 48 and 128 slots
-              (empty, one-slot and page-edge rows, windows of 37 and 300
-              slots, the query past the cache, MHA), its m and l beside
-              the output;
+              `paged_attention` and `quantized_paged_attention` also over
+              pages of 16, 48 and 128 slots, the latter of 1 too (empty,
+              one-slot and page-edge rows, windows of 37 and 300 slots,
+              the query past the cache, MHA, B = 1), m and l beside the
+              output;
               the ragged pair also over pools of page size 16, 48, 128 and 12
               in one B = 8 launch (a prompt, a chunk of 600 queries from
               position 1500, a decode token, an empty row, lengths off the
@@ -29,8 +30,9 @@ one line per engine configuration or comparison):
               300 and 77 slots, and as MHA; besides, `nvcc -Xptxas -v`'s
               registers, shared memory and spills of the wgmma instances
               (the ragged kernels' and flash's), of the fused step's
-              cluster kernel over the pool and over stacks, and of the bf16
-              decode kernel, the ragged kernels' launch plans (C against
+              cluster kernel over the pool and over stacks, and of the
+              decode cluster kernel over bf16 and int8 pages and the int8
+              dense buffer, the ragged kernels' launch plans (C against
               the wrapper's `launch_plan`), the fused step's cluster plans
               (blocks a cluster, ring stages, shared memory; over stacks
               of T = 640 to 80000) and the host time a launch spends
@@ -54,7 +56,10 @@ one line per engine configuration or comparison):
               and T multiples of 128 and below 128, rows that see nothing
               exact zeros; its first pass, the packed mask and tile
               classes, EQUAL to `mask_tiles`),
-              `quantized_decode_attention` (rows of 0 to 2048 live positions)
+              `quantized_decode_attention` (rows of 0 to 2048 live
+              positions; buffers of 40, 200 and 300 positions, not
+              multiples of 64, whose last (row, head) runs to the buffer's
+              end, windows, MHA, B = 8 and 1)
               and `fused_tail_flush` (KT = 16 and 48, edge windows; bytes
               EQUAL); the int8 sink ring's `sink_fused_decode_attention`
               over four steps of a window (B = 8, KT = 16; the sink phase,
@@ -71,8 +76,11 @@ one line per engine configuration or comparison):
               PyTorch call computes the same function
               (`scaled_dot_product_attention` on contiguous K/V, with the
               same mask for flash, which is also timed at its path's own
-              shape, S = 2048 into a 4096-wide buffer; `paged_attention` is
-              also timed at B = 1; for the flushes four
+              shape, S = 2048 into a 4096-wide buffer; the three decode
+              kernels `paged_attention`, `quantized_paged_attention` and
+              `quantized_decode_attention` are also timed at B = 1, and
+              their launches a call counted by the profiler; for the
+              flushes four
               `index_put_` calls;
               for the int4 matmuls there is none: a bf16 `torch.matmul` on
               the dequantized weight is shown as a yardstick of its own; for
@@ -116,7 +124,11 @@ one line per engine configuration or comparison):
               depth, a few windows and prefill dispatches are profiled for
               the device's idle share and the kernels that take the time;
               the windows over the int8 dense cache and over int8 and bf16
-              pages must launch their attention kernel once a call.
+              pages must launch their attention kernel once a call. The
+              K = 1 paths over the int8 dense cache and over int8 pages
+              profile a few decode ticks at their depth, which must launch
+              `quantized_decode_attention` / `quantized_paged_attention`
+              once a layer.
               Last, captured against eager: the same greedy traffic at full
               width and depth in bf16 with the window's step replayed from
               graphs and run eagerly must give identical streams.
@@ -489,6 +501,54 @@ def paged_decode_cases(cases, dtype, rng):
         del pool
 
 
+def quantized_decode_cases(cases, dtype, rng):
+    """#5 (int8 pages) and #8 (the int8 dense buffer), with bf16 queries
+    the cluster kernel (csrc/paged_decode.cuh) over int8 rows. #5 over
+    pools of page size 1 (boxes of one row), 16, 48 and 128 (64 is in
+    ``check_cases``), B = 8: an empty row, a row of one position, rows at
+    and across a page's edge and long rows over many steps of 64; no window
+    and windows of 37 and 300 positions (starting inside a page and a
+    step), the query 7 positions past the cache under the first; 4 query
+    heads a kv head and 1; then B = 1, one long row. Output, m and l
+    against the plain version. #8 over buffers of T = 40, 200 and 300
+    positions (widths of the window ladder that are not multiples of 64:
+    a step's box runs into the next (row, head)'s rows, and at the last
+    (row, head) past the buffer's end), B = 8 with full, empty, one-slot
+    and partial rows, windows of 37 (the query past the cache) and 100,
+    4 query heads a kv head and 1; then B = 1, its one row full."""
+    for ps in (1, 16, 48, 128):
+        lens = [0, 1, ps - 1, ps, ps + 1, 700, 1500, 2000]
+        width = -(-max(lens) // ps) + 1
+        pages = 8 * width + 1
+        pool = make_qpool(rng, pages, ps=ps)
+        table = make_table(rng, 8, width, pages)
+        kv = i32(lens)
+        q = normal(rng, (8, 1, HQ, D), dtype)
+        for window, qpos in ((None, None), (37, i32([n + 7 for n in lens])),
+                             (300, None)):
+            for g in ((HQ // HKV, 1) if window == 37 else (HQ // HKV,)):
+                qg = q if g == HQ // HKV else q[:, :, :HKV * g].contiguous()
+                compare_paged(cases, f"qpaged_ps{ps}_g{g}_window_{window}",
+                              dtype, qg, pool, table, kv,
+                              sliding_window=window, q_positions=qpos)
+        compare_paged(cases, f"qpaged_ps{ps}_b1", dtype, q[:1], pool,
+                      table[:1], i32([1999]))
+        del pool
+    qd = normal(rng, (8, 1, HQ, D), dtype)
+    for t in (40, 200, 300):
+        planes = make_qplanes(rng, (8, HKV), t)
+        lens = [0, 1, t // 2 + 3, t - 1, 33, t, t // 3, t]
+        qpos = i32([n + 7 for n in lens])
+        for window, qp in ((None, None), (37, qpos), (100, None)):
+            for g in ((HQ // HKV, 1) if window == 37 else (HQ // HKV,)):
+                qg = qd if g == HQ // HKV else qd[:, :, :HKV * g].contiguous()
+                compare_qdense(cases, f"qdense_t{t}_g{g}_window_{window}",
+                               dtype, qg, planes, i32(lens),
+                               sliding_window=window, q_positions=qp)
+        compare_qdense(cases, f"qdense_t{t}_b1", dtype, qd[:1],
+                       [p[:1].contiguous() for p in planes], i32([t]))
+
+
 def random_qplanes(gen, lead, n):
     """int8 planes of random bytes and positive scales, made on the card
     (the widest stacks, where drawing normal values and quantizing them
@@ -629,6 +689,7 @@ def check_cases(dtype):
     contiguous_fused_cases(cases, dtype, rng)
     dense_cases(cases, dtype, rng)
     sink_cases(cases, dtype, rng)
+    quantized_decode_cases(cases, dtype, rng)
     assert_cases(cases, dtype)
     return cases
 
@@ -987,6 +1048,19 @@ def pool_bytes_per_slot(pool):
     return 2 * D * pool[0].element_size()
 
 
+def launches_a_call(fn):
+    """Decode attention kernels (``ATTENTION_KERNELS``) that one call of
+    ``fn`` launches, as the profiler counts them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(ev.count for ev in prof.key_averages()
+               if any(n in ev.key for n in ATTENTION_KERNELS))
+
+
 def time_attention(out, cases, rng, flush, width, pool):
     """The decode and the ragged kernel for ``pool`` at one shape each of
     the main path, bf16 queries: decode at B=8 over 2048 cached tokens a row,
@@ -999,12 +1073,15 @@ def time_attention(out, cases, rng, flush, width, pool):
     per_slot = pool_bytes_per_slot(pool)
     kind = "int8 pages" if len(pool) == 4 else "bf16 pages"
 
-    # decode: B = 8, and for bf16 pages B = 1 too (one row must fill the
-    # card as well)
-    for b in ((8, 1) if len(pool) == 2 else (8,)):
+    # decode: B = 8 and B = 1 (one row must fill the card as well); int8
+    # pages' B = 1 draws from a generator of its own, so that the inputs of
+    # everything timed after it stay as they were
+    for b in (8, 1):
         kv = 2048
-        table = make_table(rng, b, width, pages)
-        q = normal(rng, (b, 1, HQ, D), dtype)
+        gen = (np.random.default_rng(98) if b == 1 and len(pool) == 4
+               else rng)
+        table = make_table(gen, b, width, pages)
+        q = normal(gen, (b, 1, HQ, D), dtype)
         lens = i32([kv] * b)
         kg, vg = dequantized(pool, table)
         qh = q.permute(0, 2, 1, 3).contiguous()
@@ -1023,6 +1100,8 @@ def time_attention(out, cases, rng, flush, width, pool):
             "plain_ms": time_ms(lambda: pplain(q, *pool, table, lens), 5, flush),
             "library_ms": time_ms(lambda: sdpa(qh, kg, vg, False), 20, flush),
             "bound_ms": bms, "bound_by": by, "bytes": bytes_moved,
+            "launches_a_call": launches_a_call(
+                lambda: pkernel(q, *pool, table, lens)),
         }
         if b == 8:
             out[pkernel.__name__] = entry
@@ -1321,29 +1400,39 @@ def time_dense(out, cases, rng, flush):
     }
     del q, k, v, qh, kh, vh, mask
 
-    # #8
-    b, t = 8, 2048
-    planes = make_qplanes(rng, (b, HKV), t)
-    q = normal(rng, (b, 1, HQ, D), dtype)
-    lens = i32([t] * b)
-    err = compare_qdense(cases, "qdense_timed", dtype, q, planes, lens)
-    kd = (planes[0].to(dtype) * planes[1].to(dtype)[..., None]).contiguous()
-    vd = (planes[2].to(dtype) * planes[3].to(dtype)[..., None]).contiguous()
-    qh = q.permute(0, 2, 1, 3).contiguous()
-    bytes_moved = (b * HKV * t * (2 * D + 8) + 2 * q.numel() * esz
-                   + 2 * b * 4)
-    bms, by = bound(bytes_moved, 4 * b * t * HQ * D, dtype)
-    out["quantized_decode_attention"] = {
-        "shape": f"B={b} T={t} (all live) Hq={HQ} Hkv={HKV} D={D} bf16 q, int8 head-major buffer",
-        "max_abs_err": err,
-        "ms": time_ms(lambda: qa.quantized_decode_attention(q, *planes, lens), 20, flush),
-        "plain_ms": time_ms(
-            lambda: qa.quantized_decode_attention_plain(q, *planes, lens), 5, flush),
-        "library_ms": time_ms(lambda: sdpa(qh, kd, vd, False), 20, flush),
-        "library": "scaled_dot_product_attention on the dequantized contiguous K/V",
-        "bound_ms": bms, "bound_by": by, "bytes": bytes_moved,
-    }
-    del planes, kd, vd
+    # #8, at B = 8 and B = 1 (from a generator of its own, as above)
+    t = 2048
+    for b in (8, 1):
+        gen = np.random.default_rng(97) if b == 1 else rng
+        planes = make_qplanes(gen, (b, HKV), t)
+        q = normal(gen, (b, 1, HQ, D), dtype)
+        lens = i32([t] * b)
+        err = compare_qdense(cases, "qdense_timed" if b == 8
+                             else "qdense_timed_b1", dtype, q, planes, lens)
+        kd = (planes[0].to(dtype) * planes[1].to(dtype)[..., None]).contiguous()
+        vd = (planes[2].to(dtype) * planes[3].to(dtype)[..., None]).contiguous()
+        qh = q.permute(0, 2, 1, 3).contiguous()
+        bytes_moved = (b * HKV * t * (2 * D + 8) + 2 * q.numel() * esz
+                       + 2 * b * 4)
+        bms, by = bound(bytes_moved, 4 * b * t * HQ * D, dtype)
+        entry = {
+            "shape": f"B={b} T={t} (all live) Hq={HQ} Hkv={HKV} D={D} bf16 q, int8 head-major buffer",
+            "max_abs_err": err,
+            "ms": time_ms(lambda: qa.quantized_decode_attention(q, *planes, lens), 20, flush),
+            "plain_ms": time_ms(
+                lambda: qa.quantized_decode_attention_plain(q, *planes, lens), 5, flush),
+            "library_ms": time_ms(lambda: sdpa(qh, kd, vd, False), 20, flush),
+            "library": "scaled_dot_product_attention on the dequantized contiguous K/V",
+            "bound_ms": bms, "bound_by": by, "bytes": bytes_moved,
+            "launches_a_call": launches_a_call(
+                lambda: qa.quantized_decode_attention(q, *planes, lens)),
+        }
+        if b == 8:
+            out["quantized_decode_attention"] = entry
+        else:
+            out["quantized_decode_attention"]["at_b1"] = entry
+        del planes, kd, vd
+    b = 8
 
     # #10
     layers, base_len = LLAMA3_8B.num_layers, 2040
@@ -1514,10 +1603,13 @@ def cluster_instance(mangled):
 
 
 def decode_instance(mangled):
-    """``pdec::paged_decode_kernel<G, PageRows>`` -> its label, else None."""
+    """``pdec::paged_decode_kernel<G, KV, Rows>`` -> its label, else None."""
     if "paged_decode_kernelILi" not in mangled:
         return None
-    return f"G={mangled.split('paged_decode_kernelILi')[1][0]}"
+    args = mangled.split("paged_decode_kernelILi")[1]
+    kv = "bf16" if args[2:].startswith("13__nv_bfloat16") else "int8"
+    rows = "dense" if "DenseRows" in args else "pages"
+    return f"G={args[0]} {kv} {rows}"
 
 
 def ptxas_text(proc):
@@ -1566,6 +1658,18 @@ def dense_plan(t, g):
     got = (ctypes.c_longlong * 8)()
     assert fn(t, min(256, t), KT, g, ctypes.addressof(got)) == 0
     return dict(zip(PLAN_KEYS, list(got)))
+
+
+def decode_plan(int8, g, c):
+    """The decode cluster kernel's occupancy (``dli_decode_occupancy``)
+    over bf16 or int8 rows, ``g`` query heads a kv head, clusters of ``c``
+    blocks: shared memory a block, blocks an SM, clusters at once."""
+    fn = _build.load_library("paged_attention").dli_decode_occupancy
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    got = (ctypes.c_longlong * 3)()
+    assert fn(int(int8), g, c, ctypes.addressof(got)) == 0
+    return dict(zip(("smem_bytes", "blocks_an_sm", "clusters_at_once"),
+                    list(got)))
 
 
 def check_launch_plans():
@@ -1636,8 +1740,10 @@ def phase_kernels():
             ptxas["paged_attention"], cluster_instance, 8),
         "fused_cluster_kernel (stacks, #9)": ptxas_lines(
             ptxas["quant_attention"], cluster_instance, 8),
-        "paged_decode_kernel (#2)": ptxas_lines(
-            ptxas["paged_attention"], decode_instance, 2)}
+        "paged_decode_kernel (#2, #5)": ptxas_lines(
+            ptxas["paged_attention"], decode_instance, 4),
+        "paged_decode_kernel (#8)": ptxas_lines(
+            ptxas["quant_attention"], decode_instance, 2)}
     plans = check_launch_plans()
     width = ladder_pages(2048)
     fused_plan = {f"#6 table={width} PS={PS} KT={KT} G={g}": cluster_plan(
@@ -1645,6 +1751,9 @@ def phase_kernels():
     for t in (640, 2048, 4096, RECOMPUTE_T):
         for g in (HQ // HKV, 1):
             fused_plan[f"#9 T={t} KT={KT} G={g}"] = dense_plan(t, g)
+    decode_plans = {
+        f"{'int8' if int8 else 'bf16'} G={g} C={c}": decode_plan(int8, g, c)
+        for int8 in (False, True) for g in (HQ // HKV, 1) for c in (2, 4, 8)}
     torch.backends.cuda.matmul.allow_tf32 = False  # plain f32 stays f32
     errs = {}
     for dtype in (torch.bfloat16, torch.float32):
@@ -1669,6 +1778,7 @@ def phase_kernels():
           "libraries": {k: str(p.name) for k, p in built.items()},
           "wgmma_and_cluster_ptxas": resources,
           "ragged_launch_plans": plans, "fused_cluster_plans": fused_plan,
+          "decode_cluster_plans": decode_plans,
           "ragged_c_call_host_us": map_us,
           "checked": kernels})
     return times
@@ -2188,12 +2298,13 @@ def run_config(label, cfg, params, ekw, ckw, counters, profile=True,
     (name -> (module, attribute)) are zeroed before the first run and read
     after it. Then the run's dispatch shapes go through its kernels again
     and, with ``profile``, a decode tick and a prefill dispatch are
-    profiled. A dense cache or sink ring (``ckw["kind"]`` "dense" or
-    "sink") has no pages and no co-scheduled chunks (a long prompt is
-    chunked synchronously); its kernels are replayed at the shapes recorded
-    in the first run. With ``one_launch`` (a kernel's name), the profiled
-    decode window must launch that kernel once a call: once a layer a step.
-    Returns (report, launches)."""
+    profiled (with ``profile="decode"`` the decode tick alone). A dense
+    cache or sink ring (``ckw["kind"]`` "dense" or "sink") has no pages and
+    no co-scheduled chunks (a long prompt is chunked synchronously); its
+    kernels are replayed at the shapes recorded in the first run. With
+    ``one_launch`` (a kernel's name), the profiled decode tick must launch
+    that kernel once a call: once a layer a step. Returns (report,
+    launches)."""
     torch.cuda.reset_peak_memory_stats()
     new_tokens, odd = traffic["new_tokens"], traffic.get("odd")
     dense = ckw.get("kind") == "dense"
@@ -2310,17 +2421,29 @@ def run_config(label, cfg, params, ekw, ckw, counters, profile=True,
         report["decode_profile"] = profile_decode(cfg, params, ekw, ckw,
                                                   counters)
         if one_launch:
-            # The profiler misses the odd kernel at a window's edge (2559
-            # of 2560 over five windows on an H100), so within 1% of one a
-            # call; three launches a call would be 200% off.
-            window = report["decode_profile"]
-            calls = cfg.num_layers * window["decode_steps"]
-            got = window["attention_kernels"].get(one_launch, {})
-            assert abs(got.get("launches", 0) - calls) <= 0.01 * calls, (
-                f"{one_launch}: {got} launches a window, want one a call "
-                f"({calls})")
-        report["prefill_profile"] = profile_prefill(cfg, params, ekw, ckw,
-                                                    counters)
+            # The profiler drops records now and then, never adds any: one
+            # session on an H100 lost 1.1% of every kind of kernel alike
+            # (506.2 of 512 a tick), most lose none. So a session that
+            # counts too few is profiled again, three at most, and the
+            # last is held to within 1% of one a call; two launches a call
+            # would be 100% off.
+            calls = cfg.num_layers * report["decode_profile"]["decode_steps"]
+            sessions = []
+            while True:
+                got = report["decode_profile"]["attention_kernels"].get(
+                    one_launch, {})
+                sessions.append(got.get("launches", 0))
+                if sessions[-1] >= 0.99 * calls or len(sessions) == 3:
+                    break
+                report["decode_profile"] = profile_decode(
+                    cfg, params, ekw, ckw, counters)
+            report["decode_profile"]["launches_by_session"] = sessions
+            assert abs(sessions[-1] - calls) <= 0.01 * calls, (
+                f"{one_launch}: {got} launches a tick in the last of "
+                f"{sessions}, want one a call ({calls})")
+        if profile != "decode":
+            report["prefill_profile"] = profile_prefill(cfg, params, ekw,
+                                                        ckw, counters)
     emit(report)
     return report, launches
 
@@ -2381,12 +2504,13 @@ def phase_engine():
     weights over int8 pages; the model-dtype sink ring at 4 layers (K = 1,
     with and without flash prefill); int8 weights over int8 pages at 4 layers on SHORT
     traffic (the gathered window, #9, and W8A8 prefill); the dense caches'
-    other paths at 8 layers (the int8 cache at ``decode_steps=1``, #8; the
-    model-dtype cache with ``use_pallas_attention``, flash prefill and
-    K = 1; the model-dtype cache at K = 16, its tail in plain PyTorch,
-    captured); the paths of slices 1 and 2 (``decode_steps=1``), cut to 4
-    layers. Each path's counters are zeroed before its first run and read
-    after it. Returns launches by kernel, from the first path that runs
+    other paths at 8 layers (the int8 cache at ``decode_steps=1``, #8, its
+    decode tick profiled; the model-dtype cache with
+    ``use_pallas_attention``, flash prefill and K = 1; the model-dtype
+    cache at K = 16, its tail in plain PyTorch, captured); the paths of
+    slices 1 and 2 (``decode_steps=1``), cut to 4 layers, slice 2's (#5)
+    decode tick profiled. Each path's counters are zeroed before its first
+    run and read after it. Returns launches by kernel, from the first path that runs
     it in that order."""
     cfg = LLAMA3_8B
     t0 = time.perf_counter()
@@ -2443,7 +2567,8 @@ def phase_engine():
     cfg8, params8 = depth(params, cfg, 8)
     take(run_config("slice 4 path: bf16 weights, int8 dense KV, K=1, 8 layers",
                     cfg8, params8, {"decode_steps": 1},
-                    {"kv_quant": "int8", **DENSE}, QDENSE, profile=False)[1])
+                    {"kv_quant": "int8", **DENSE}, QDENSE, profile="decode",
+                    one_launch="paged_decode_kernel")[1])
     run_config("slice 4 path: bf16 weights, bf16 dense KV, flash, K=1, 8 layers",
                cfg8, params8, {"use_pallas_attention": True}, DENSE, FLASH,
                profile=False)
@@ -2453,7 +2578,8 @@ def phase_engine():
                {"decode_steps": 1}, {}, SLICE1, profile=False)
     take(run_config("slice 2 path: int4 weights, int8 pages, K=1, 4 layers",
                     cfg4, params4, {"decode_steps": 1, "quantization": "int4"},
-                    {"kv_quant": "int8"}, SLICE2, profile=False)[1])
+                    {"kv_quant": "int8"}, SLICE2, profile="decode",
+                    one_launch="paged_decode_kernel")[1])
     captured_vs_eager(cfg, params)
     del params, params4, params8
     torch.cuda.empty_cache()

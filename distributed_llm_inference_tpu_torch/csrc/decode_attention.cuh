@@ -1,22 +1,31 @@
-// Decode attention (one query token a row) over int8 or f32 K/V, for
-// Hopper (sm_90a): the device code of two kernel files.
+// Decode attention (one query token a row) over f32 or int8 K/V with f32
+// queries, for Hopper (sm_90a): the device code of the f32 instances of two
+// kernel files (their bf16-query instances are paged_decode.cuh's cluster
+// kernel).
 //
-// * paged_attention.cu: `quantized_paged_attention` and the f32 instance of
-//   `paged_attention` (its bf16 instance is paged_decode.cuh's kernel), K/V
-//   read in place from a page pool [P, Hkv, PS, D] through a page table
+// * paged_attention.cu: `paged_attention` and `quantized_paged_attention`,
+//   K/V read in place from a page pool [P, Hkv, PS, D] through a page table
 //   [B, Tw];
 // * quant_attention.cu: `quantized_decode_attention`, K/V read from the
 //   int8 dense cache's contiguous head-major buffer [B, Hkv, T, D]: the same
 //   walk with no table (`table` null): row b is its own page of PS = T
 //   slots.
 //
-// paged_attention.cu says what bounds the walk and how it is laid out. The
-// int8 forms keep everything in f32: the K scale multiplies the score, the
-// V scale the probability before P V (no bf16 rounding), as the TPU kernels
-// `_qpaged_kernel` and `_qdense_kernel` do.
+// What bounds it on this card: bytes; what a simple kernel runs into
+// first, though, is instruction issue: with a whole warp on one position,
+// ten shuffle instructions go with every four useful FMAs. Hence a
+// position belongs to a group of 8 lanes, each holding 16 contiguous
+// elements of the K and V slot, loaded 16 bytes at a time (a dot product
+// needs 3 shuffle steps, a warp works on 4 positions per instruction); each
+// lane group keeps its own running (m, l, acc) in f32 registers; a row's
+// positions are split over several blocks (grid z), sized by the wrapper
+// from the table width, and a second small kernel merges their partials.
+// The int8 forms keep everything in f32: the K scale multiplies the score,
+// the V scale the probability before P V (no bf16 rounding), as the TPU
+// kernels `_qpaged_kernel` and `_qdense_kernel` do. The engine's
+// exact-parity runs are the only callers.
 #pragma once
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -40,20 +49,6 @@ struct Chunk<float> {
   }
 };
 template <>
-struct Chunk<__nv_bfloat16> {
-  static constexpr int N = 8;
-  static __device__ __forceinline__ void load(const __nv_bfloat16* p, float* o) {
-    const uint4 v = *reinterpret_cast<const uint4*>(p);
-    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      o[2 * i] = __uint_as_float(w[i] << 16);
-      o[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-    }
-  }
-};
-
-template <>
 struct Chunk<int8_t> {
   static constexpr int N = 16;
   static __device__ __forceinline__ void load(const int8_t* p, float* o) {
@@ -68,9 +63,6 @@ struct Chunk<int8_t> {
 };
 
 __device__ __forceinline__ void store_one(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store_one(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
 
 // Partial attention of one (row, kv head) over the positions
 // [split * chunk, (split + 1) * chunk) that are live and inside the window.
@@ -333,14 +325,10 @@ inline int fill_and_dispatch(Args& a, const void* q, const void* table,
   a.B = B; a.Hkv = Hkv; a.PS = PS; a.Tw = Tw; a.NS = NS; a.chunk = chunk;
   a.window = window; a.scale = scale;
   a.stream = static_cast<cudaStream_t>(stream);
-  if (quant) {
-    if (dtype == 0) return dispatch_d<__nv_bfloat16, int8_t>(D, G, a);
-    if (dtype == 1) return dispatch_d<float, int8_t>(D, G, a);
-    return -1;
-  }
-  // bf16 pages: csrc/paged_decode.cuh's kernel (paged_attention.cu).
-  if (dtype == 1) return dispatch_d<float, float>(D, G, a);
-  return -1;
+  // bf16 queries: csrc/paged_decode.cuh's kernel.
+  if (dtype != 1) return -1;
+  if (quant) return dispatch_d<float, int8_t>(D, G, a);
+  return dispatch_d<float, float>(D, G, a);
 }
 
 }  // namespace decode

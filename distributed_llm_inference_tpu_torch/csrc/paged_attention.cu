@@ -3,55 +3,38 @@
 // Replaces two TPU kernels of
 // distributed_llm_inference_tpu/ops/paged_attention.py: `_paged_kernel`
 // behind `paged_attention` and `_qpaged_kernel` behind
-// `quantized_paged_attention`. Over bf16 pages `paged_attention` is one
-// launch of paged_decode.cuh's kernel (a cluster a (row, kv head), TMA-fed
-// ring, the products on the tensor cores; that file says what bounds it
-// and why). What follows describes the walk that the int8 pages and the
-// f32 instance still take (decode_attention.cuh). One query token per row (S = 1) attends over
+// `quantized_paged_attention`. One query token per row (S = 1) attends over
 // the first kv_lengths[b] slots of the row's pages, read in place from the
-// page pool through the page table. The per-head online-softmax stats
+// page pool through the page table; the per-head online-softmax stats
 // (running max m, denominator l) are written as well, so a caller can merge
-// this segment with another under one softmax.
+// this segment with another under one softmax. The pages hold the query's
+// type, or int8 with an f32 scale per (slot, kv head) in two planes beside
+// them: the K scale multiplies the score, s = (q . k) * ks * scale, and the
+// V scale the probability before P V, acc += (p * vs) * v, while l sums p,
+// as `_qpaged_kernel` does; the pages are never dequantized into a copy.
 //
-// The pages hold the query's type (bf16 or f32), or int8 with an f32 scale
-// per (slot, kv head) in two planes beside them. For int8 pages the page
-// walk below is the same, 16 int8 values a lane in one 16-byte load (half
-// the bytes of bf16), converted to f32 in registers: the K scale multiplies
-// the score, s = (q . k) * ks * scale, and the V scale the probability
-// before P V, acc += (p * vs) * v, while l sums p, as `_qpaged_kernel` does.
-// Everything stays f32, as there.
+// Which form takes which kernel:
 //
-// What bounds it on this card: bytes. Every live K and V slot is read once
-// and used for G dot products of D elements, far below the ~295 flop/byte
-// where the tensor cores would matter. What a simple kernel runs into first,
-// though, is instruction issue: with a whole warp on one position, ten
-// shuffle instructions go with every four useful FMAs, and the few warps of
-// one block per (row, kv head) cannot hide those chains. Hence:
-//
-// * A position belongs to a group of lanes, not a warp: each lane holds 16
-//   contiguous elements of the K and V slot, loaded 16 bytes at a time, so a
-//   dot product needs 3 shuffle steps and a warp works on 4 consecutive
-//   positions per instruction. The G query heads of the group sit in
-//   registers, and each lane group keeps its own running (m, l, acc) in f32
-//   registers.
-// * A row's positions are split over several blocks (grid z), sized by the
-//   wrapper from the table width so that about two blocks per SM exist at
-//   any batch size. Each block merges its lane groups (shuffles) and warps
-//   (shared memory) and writes one partial (m, l, unnormalised acc); a second
-//   small kernel merges the partials of a (row, kv head), normalises, and
-//   writes out, m and l.
-//
-// Blocks cover live positions only (and only those inside the sliding
-// window): nothing is fetched for dead table slots, so the TPU version's
-// clamp of dead blocks to the null page has no counterpart. A block whose
-// range holds no live position writes (m = -0.7 * float32 max, l = 0) and
-// leaves. MHA (G = 1) is the same code path.
+// * bf16 queries, over bf16 pages (`paged_attention`) or int8 pages
+//   (`quantized_paged_attention`): one launch of paged_decode.cuh's kernel,
+//   a thread-block cluster a (row, kv head), a TMA-fed ring, the products
+//   on the tensor cores, no scratch (that file says what bounds it and what
+//   its design does about it). Over int8 pages p * vs enters P V as two
+//   bf16 terms (hi and the rest), about 2^-17 of a term.
+// * f32 queries, over f32 or int8 pages: the split walk of
+//   decode_attention.cuh, everything in f32 (the engine's exact-parity runs
+//   are its only callers). It gives a position to a group of 8 lanes, 16
+//   elements a lane in 16-byte loads, keeps the online-softmax state in f32
+//   registers, splits a row's positions over blocks sized by the wrapper
+//   from the table width, and a second small kernel merges their partials
+//   from scratch the wrapper allocates. Blocks cover live positions only
+//   (and only those inside the sliding window); a block whose range holds
+//   no live position writes (m = -0.7 * float32 max, l = 0) and leaves.
 //
 // Built for head_dim 128 with 1 or 4 query heads per kv head (MHA, and the
 // Llama-3 grouping this package serves); a model with other widths adds its
-// instance to dispatch_g / dispatch_d. The device code of these two kernels
-// is in decode_attention.cuh, which quant_attention.cu shares for the same
-// walk over the int8 dense cache's contiguous buffer.
+// instance to paged_decode.cuh's dispatch and decode_attention.cuh's
+// dispatch_g / dispatch_d.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -72,20 +55,57 @@ extern "C" int dli_paged_attention_bf16(
     const void* table, const void* kv_lens, const void* q_pos, void* out,
     void* m_out, void* l_out, int B, int Hkv, int G, int D, int PS, int Tw,
     int C, float scale, int window, void* stream) {
-  return pdec::dispatch(q, k_pages, v_pages, static_cast<const int*>(table),
-                        static_cast<const int*>(kv_lens),
-                        static_cast<const int*>(q_pos), out,
-                        static_cast<float*>(m_out), static_cast<float*>(l_out),
-                        B, Hkv, G, D, PS, Tw, C, scale, window,
-                        static_cast<cudaStream_t>(stream));
+  if (PS < 1 || Tw < 1) return -1;
+  return pdec::dispatch<__nv_bfloat16>(
+      q, k_pages, v_pages, nullptr, nullptr,
+      pdec::PageRows{static_cast<const int*>(table), Tw, PS, Hkv},
+      static_cast<const int*>(kv_lens), static_cast<const int*>(q_pos), out,
+      static_cast<float*>(m_out), static_cast<float*>(l_out), B, Hkv, G, D,
+      Tw * PS, pdec::box_rows_for(PS), C, scale, window,
+      static_cast<cudaStream_t>(stream));
 }
 
-// The f32 instance (dtype 1; bf16 takes dli_paged_attention_bf16): the
-// split walk of decode_attention.cuh. window: 0 = no sliding window. NS
-// blocks share a row's positions, `chunk` positions each (NS * chunk >= Tw *
-// PS); part_o / part_m / part_l are f32 scratch of [B, Hkv, NS, G, D] and
-// twice [B, Hkv, NS, G]. Returns cudaGetLastError() after the launches, or
-// -1 for a shape outside D = 128, G in {1, 4}, or another dtype.
+// bf16 q [B, Hkv*G, D] and int8 pages [P, Hkv, PS, D] with f32 scale
+// planes ks_pages / vs_pages [P, Hkv, PS]; the rest as
+// dli_paged_attention_bf16, one launch of the same kernel over int8 rows.
+extern "C" int dli_quantized_paged_attention_bf16(
+    const void* q, const void* k_pages, const void* ks_pages,
+    const void* v_pages, const void* vs_pages, const void* table,
+    const void* kv_lens, const void* q_pos, void* out, void* m_out,
+    void* l_out, int B, int Hkv, int G, int D, int PS, int Tw, int C,
+    float scale, int window, void* stream) {
+  if (PS < 1 || Tw < 1) return -1;
+  return pdec::dispatch<int8_t>(
+      q, k_pages, v_pages, static_cast<const float*>(ks_pages),
+      static_cast<const float*>(vs_pages),
+      pdec::PageRows{static_cast<const int*>(table), Tw, PS, Hkv},
+      static_cast<const int*>(kv_lens), static_cast<const int*>(q_pos), out,
+      static_cast<float*>(m_out), static_cast<float*>(l_out), B, Hkv, G, D,
+      Tw * PS, pdec::box_rows_for(PS), C, scale, window,
+      static_cast<cudaStream_t>(stream));
+}
+
+// The occupancy of the cluster kernel over bf16 (int8 = 0) or int8 rows
+// with G query heads a kv head, clusters of C blocks: out[0] shared memory
+// a block, out[1] blocks an SM, out[2] clusters the card holds at once.
+// Returns 0, -1 outside G in {1, 4} and C in 1..8, or a CUDA error.
+extern "C" int dli_decode_occupancy(int int8, int G, int C, long long* out) {
+  if (C < 1 || C > pdec::kMaxCluster) return -1;
+  if (G == 1)
+    return int8 ? pdec::occupancy<1, int8_t>(C, out)
+                : pdec::occupancy<1, __nv_bfloat16>(C, out);
+  if (G == 4)
+    return int8 ? pdec::occupancy<4, int8_t>(C, out)
+                : pdec::occupancy<4, __nv_bfloat16>(C, out);
+  return -1;
+}
+
+// The f32 instances (dtype 1; bf16 takes the entries above): the split
+// walk of decode_attention.cuh. window: 0 = no sliding window. NS blocks
+// share a row's positions, `chunk` positions each (NS * chunk >= Tw * PS);
+// part_o / part_m / part_l are f32 scratch of [B, Hkv, NS, G, D] and twice
+// [B, Hkv, NS, G]. Returns cudaGetLastError() after the launches, or -1 for
+// a shape outside D = 128, G in {1, 4}, or another dtype.
 extern "C" int dli_paged_attention(
     const void* q, const void* k_pages, const void* v_pages,
     const void* table, const void* kv_lens, const void* q_pos, void* out,
@@ -100,8 +120,7 @@ extern "C" int dli_paged_attention(
 }
 
 // As dli_paged_attention over int8 pages: k_pages / v_pages int8
-// [P, Hkv, PS, D], ks_pages / vs_pages f32 [P, Hkv, PS]; dtype is q's and
-// out's.
+// [P, Hkv, PS, D], ks_pages / vs_pages f32 [P, Hkv, PS].
 extern "C" int dli_quantized_paged_attention(
     const void* q, const void* k_pages, const void* ks_pages,
     const void* v_pages, const void* vs_pages, const void* table,

@@ -13,14 +13,18 @@
 //   to the cluster's blocks as pieces of 64; that file says what bounds
 //   it.
 // * `_qdense_kernel` behind `quantized_decode_attention`: one decode token a
-//   row over one layer's [B, Hkv, T, D] buffer, the int8 paged decode walk of
-//   decode_attention.cuh with no table (row b is its own page of T slots).
-//   Bound by bytes; everything f32, p * vs included.
+//   row over one layer's [B, Hkv, T, D] buffer. Bound by bytes. bf16
+//   queries: one launch of paged_decode.cuh's cluster kernel over the
+//   buffer as one run of B * Hkv * T rows (DenseRows), no scratch; p * vs
+//   enters P V as two bf16 terms. f32 queries: the split walk of
+//   decode_attention.cuh with no table (row b is its own page of T slots),
+//   everything f32, p * vs included.
 // * `fused_tail_flush`: the fused window's int8 tail merged into the
 //   buffers, a direct scatter (fused_decode.cuh's, below).
 
 #include "decode_attention.cuh"
 #include "fused_decode.cuh"
+#include "paged_decode.cuh"
 
 // big stacks [L, B, Hkv, T, D] int8 / [L, B, Hkv, T] f32, tail planes
 // [L, B, Hkv, KT, D] / [L, B, Hkv, KT]; q [B, Hkv*G, D], k_new / v_new
@@ -79,13 +83,34 @@ extern "C" int dli_fused_dense_plan(int T, int tile_w, int KT, int G,
       (T + pw - 1) / pw + (KT + pw - 1) / pw, pw, G, out);
 }
 
-// q [B, Hkv*G, D] and out in `dtype` (0 = bf16, 1 = f32); k / v int8
-// [B, Hkv, T, D] and ks / vs f32 [B, Hkv, T] (one layer of the cache);
-// kv_lens and q_pos [B] int32; NS blocks share a row's T positions, `chunk`
-// each (NS * chunk >= T); m_out / l_out f32 [B, Hkv, G]; part_o / part_m /
-// part_l f32 scratch of [B, Hkv, NS, G, D] and twice [B, Hkv, NS, G]. window
-// 0 = none. Returns cudaGetLastError() after the launches, -1 for a shape
-// outside D = 128, G in {1, 4}.
+// bf16 q [B, Hkv*G, D] and out; k / v int8 [B, Hkv, T, D] and ks / vs f32
+// [B, Hkv, T] (one layer of the cache); kv_lens and q_pos [B] int32; m_out
+// / l_out f32 [B, Hkv, G] or null. window 0 = none. One launch of
+// paged_decode.cuh's kernel, a cluster of C blocks (1..8) a (row, kv head),
+// boxes of 64 rows over the buffer's B * Hkv * T rows (below 2^31). Returns
+// cudaGetLastError() after the launch, -1 for a shape outside D = 128, G
+// in {1, 4}, -2 if the driver refused a tensor map.
+extern "C" int dli_quantized_decode_attention_bf16(
+    const void* q, const void* k, const void* ks, const void* v,
+    const void* vs, const void* kv_lens, const void* q_pos, void* out,
+    void* m_out, void* l_out, int B, int Hkv, int G, int D, int T, int C,
+    float scale, int window, void* stream) {
+  const long long rows = (long long)B * Hkv * T;
+  if (T < 1 || rows >= (1ll << 31)) return -1;
+  return pdec::dispatch<int8_t>(
+      q, k, v, static_cast<const float*>(ks), static_cast<const float*>(vs),
+      pdec::DenseRows{T, Hkv, static_cast<int>(rows)},
+      static_cast<const int*>(kv_lens), static_cast<const int*>(q_pos), out,
+      static_cast<float*>(m_out), static_cast<float*>(l_out), B, Hkv, G, D, T,
+      pdec::kStep, C, scale, window, static_cast<cudaStream_t>(stream));
+}
+
+// The f32 instance (dtype 1; bf16 takes the entry above): q [B, Hkv*G, D]
+// and out f32, the planes as above; NS blocks share a row's T positions,
+// `chunk` each (NS * chunk >= T); m_out / l_out f32 [B, Hkv, G]; part_o /
+// part_m / part_l f32 scratch of [B, Hkv, NS, G, D] and twice [B, Hkv, NS,
+// G]. window 0 = none. Returns cudaGetLastError() after the launches, -1
+// for a shape outside D = 128, G in {1, 4}, or another dtype.
 extern "C" int dli_quantized_decode_attention(
     const void* q, const void* k, const void* ks, const void* v,
     const void* vs, const void* kv_lens, const void* q_pos, void* out,

@@ -7,20 +7,24 @@ Replaces the TPU kernels ``_paged_kernel`` behind ``paged_attention`` and
 ``_qpaged_kernel`` behind ``quantized_paged_attention`` in the JAX package's
 ``ops/paged_attention.py``. On this card the function is bound
 by bytes: every live K and V slot is read once for a handful of dot
-products. Over bf16 pages it is one launch of ``csrc/paged_decode.cuh``: a
-thread-block cluster per (row, kv head) whose blocks take the row's live
-64-position steps in turn, a producer warp bringing them by TMA into a
-ring, the scores and P V on the tensor cores with one max a head per 16
-positions, and the blocks' states merged through distributed shared
-memory; this wrapper sizes the cluster (:func:`cluster_size`). Over int8
-pages (per-(slot, head) f32 scale planes beside them), and for f32, the
-walk of ``csrc/decode_attention.cuh`` gives each position to a group of 8
-lanes with 16-byte loads, keeps the online-softmax state in f32 registers,
+products. For bf16 queries, over bf16 pages or int8 pages (per-(slot,
+head) f32 scale planes beside them), it is one launch of
+``csrc/paged_decode.cuh``: a thread-block cluster per (row, kv head) whose
+blocks take the row's live 64-position steps in turn, a producer warp
+bringing them by TMA into a ring (over int8 its lanes bring the steps'
+scales beside them), the scores and P V on the tensor cores with one max a
+head per 16 positions, and the blocks' states merged through distributed
+shared memory, with no scratch; this wrapper sizes the cluster
+(:func:`cluster_size`). Over int8 pages the kernel reads half the bytes:
+the K scale multiplies the score and the V scale the probability before P
+V (as two bf16 terms, hi and the rest), so the pages are never dequantized
+into a copy.
+For f32 queries (the engine's exact-parity runs), the walk of
+``csrc/decode_attention.cuh`` gives each position to a group of 8 lanes
+with 16-byte loads, keeps the online-softmax state and ``p * vs`` in f32,
 and splits a row's positions over several blocks whose partial results a
 second small kernel merges; this wrapper sizes the split and allocates its
-scratch. Over int8 pages the walk reads half the bytes: the K scale
-multiplies the score and the V scale the probability before P V, so the
-pages are never dequantized into a copy.
+scratch.
 
 The fused window (``models/llama.py:multi_decode_apply``) adds two kernels.
 ``quantized_paged_fused_attention`` replaces ``_qpaged_fused_kernel``: one
@@ -98,11 +102,12 @@ def split_plan(device, pairs: int, span: int):
 
 
 def cluster_size(device, pairs: int, span: int) -> int:
-    """Blocks of the bf16 kernel's cluster for one (row, kv head): about one
-    block an SM over all ``pairs`` (more only add merges; see
-    ``csrc/paged_decode.cuh``), at most 8 (the portable cluster), and no
-    more than the 64-position steps of ``span`` table positions. The steps
-    a block takes follow the live length at run time."""
+    """Blocks of the cluster kernel (``csrc/paged_decode.cuh``, bf16
+    queries, over bf16 or int8 rows) for one (row, kv head): about one
+    block an SM over all ``pairs`` (more only add merges), at most 8 (the
+    portable cluster), and no more than the 64-position steps of ``span``
+    positions (a table's, or a dense buffer's width). The steps a block
+    takes follow the live length at run time."""
     sms = _sm_count.get(device)
     if sms is None:
         sms = torch.cuda.get_device_properties(device).multi_processor_count
@@ -114,14 +119,16 @@ def cluster_size(device, pairs: int, span: int) -> int:
 # before the scale, int arguments after it).
 _ENTRIES = {
     "bf16": ("dli_paged_attention_bf16", 9, 7, 1),
+    "int8_bf16": ("dli_quantized_paged_attention_bf16", 11, 7, 1),
     "f32": ("dli_paged_attention", 12, 8, 2),
-    "int8": ("dli_quantized_paged_attention", 14, 8, 2),
+    "int8_f32": ("dli_quantized_paged_attention", 14, 8, 2),
 }
 
 
 def _kernel(form: str):
-    """The C entry of the decode ``form``: "bf16" (the cluster kernel),
-    "f32" or "int8" (the split walk)."""
+    """The C entry of the decode ``form``: bf16 queries over bf16 or int8
+    pages ("bf16", "int8_bf16": the cluster kernel), f32 queries over f32
+    or int8 pages ("f32", "int8_f32": the split walk)."""
     fn = _fn.get(form)
     if fn is None:
         symbol, pointers, ints, after = _ENTRIES[form]
@@ -294,14 +301,16 @@ def quantized_paged_attention_plain(
 
 def _launch(name, q, k_pages, v_pages, page_table, kv_lengths, scale,
             sliding_window, q_positions, return_stats, scales=()):
-    """Checks and the launch: bf16 pools take the one-launch cluster kernel;
-    f32 pools and (with ``scales``) int8 pools the split kernel and its
-    merge, over scratch allocated here."""
+    """Checks and the launch: bf16 queries take the one-launch cluster
+    kernel over bf16 pools or (with ``scales``) int8 pools; f32 queries the
+    split kernel and its merge, over scratch allocated here."""
     b, s, hq, d = q.shape
     if s != 1:
         raise ValueError(f"{name} is decode-only (S=1), got S={s}")
     if q_positions is None:
-        q_positions = kv_lengths - 1
+        # Only the sliding window reads the query positions: without one
+        # the kernels never do, and no kernel is launched to make them.
+        q_positions = kv_lengths - 1 if sliding_window else kv_lengths
     code = check_kernel_inputs(
         name, q, k_pages, v_pages, page_table,
         (("kv_lengths", kv_lengths), ("q_positions", q_positions)), scales,
@@ -314,18 +323,22 @@ def _launch(name, q, k_pages, v_pages, page_table, kv_lengths, scale,
     out = torch.empty_like(q)
     m = torch.empty((b, hkv, g), dtype=torch.float32, device=q.device)
     l = torch.empty_like(m)
-    if not scales and q.dtype == torch.bfloat16:
+    if scales:
+        pools = (k_pages.data_ptr(), scales[0][1].data_ptr(),
+                 v_pages.data_ptr(), scales[1][1].data_ptr())
+    else:
+        pools = (k_pages.data_ptr(), v_pages.data_ptr())
+    if q.dtype == torch.bfloat16:
         # One launch of the cluster kernel (csrc/paged_decode.cuh): no
-        # scratch. Its TMA map names pool rows by 32-bit coordinates.
+        # scratch. Its TMA maps name pool rows by 32-bit coordinates.
         if k_pages.shape[0] * hkv * page_size >= 2**31:
             raise ValueError(f"{name}: pool of {k_pages.shape[0]} pages "
                              f"has 2^31 rows or more")
         with torch.cuda.device(q.device):
-            err = _kernel("bf16")(
-                q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-                page_table.data_ptr(), kv_lengths.data_ptr(),
-                q_positions.data_ptr(), out.data_ptr(), m.data_ptr(),
-                l.data_ptr(), b, hkv, g, d, page_size, width,
+            err = _kernel("int8_bf16" if scales else "bf16")(
+                q.data_ptr(), *pools, page_table.data_ptr(),
+                kv_lengths.data_ptr(), q_positions.data_ptr(), out.data_ptr(),
+                m.data_ptr(), l.data_ptr(), b, hkv, g, d, page_size, width,
                 cluster_size(q.device, b * hkv, width * page_size),
                 float(scale), int(sliding_window or 0),
                 torch.cuda.current_stream().cuda_stream,
@@ -340,14 +353,9 @@ def _launch(name, q, k_pages, v_pages, page_table, kv_lengths, scale,
     part_ml = torch.empty(
         (2, b, hkv, num_splits, g), dtype=torch.float32, device=q.device
     )
-    if scales:
-        pools = (k_pages.data_ptr(), scales[0][1].data_ptr(),
-                 v_pages.data_ptr(), scales[1][1].data_ptr())
-    else:
-        pools = (k_pages.data_ptr(), v_pages.data_ptr())
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _kernel("int8" if scales else "f32")(
+        err = _kernel("int8_f32" if scales else "f32")(
             q.data_ptr(), *pools, page_table.data_ptr(),
             kv_lengths.data_ptr(), q_positions.data_ptr(), out.data_ptr(),
             m.data_ptr(), l.data_ptr(), part_o.data_ptr(),

@@ -38,9 +38,12 @@ The int8 dense cache (``cache/dense.py:QuantizedDenseKVCache``, head-major
 ``[L, B, Hkv, T, D]`` int8 with ``[L, B, Hkv, T]`` f32 scales) adds two
 kernels in the same source. ``quantized_decode_attention`` replaces
 ``_qdense_kernel``: one decode token a row over one layer's buffer, scores
-``(q . k) * ks * scale`` and ``p * vs`` in f32 (no bf16 rounding, unlike the
-fused step), the int8 paged decode walk of ``csrc/decode_attention.cuh``
-with no table. ``fused_tail_flush`` replaces the TPU kernel of that name:
+``(q . k) * ks * scale``. For bf16 queries it is one launch of the paged
+decode cluster kernel (``csrc/paged_decode.cuh``) over the buffer as one
+run of ``B * Hkv * T`` rows, with no scratch, ``p * vs`` entering P V as
+two bf16 terms (hi and the rest); for f32 queries the walk of
+``csrc/decode_attention.cuh`` with no table, ``p * vs`` in f32.
+``fused_tail_flush`` replaces the TPU kernel of that name:
 the fused window's int8 tail written into the buffers at each row's
 ``base_len``, in place (the TPU kernel aliases them), nothing at or past T;
 the bytes equal ``cache/dense.py:_tail_flush_rows``'s. ``decode_launches``
@@ -455,14 +458,16 @@ def quantized_decode_attention(
         return quantized_decode_attention_plain(*args)
     if q.device.type != "cuda":
         raise ValueError(f"quantized_decode_attention: device {q.device}")
-    from .paged_attention import split_plan
+    from . import paged_attention as pa
 
     name = "quantized_decode_attention"
     b, s, hq, d = q.shape
     if s != 1:
         raise ValueError(f"{name} is decode-only (S=1), got S={s}")
     if q_positions is None:
-        q_positions = kv_lengths - 1
+        # Only the sliding window reads the query positions: without one
+        # the kernels never do, and no kernel is launched to make them.
+        q_positions = kv_lengths - 1 if sliding_window else kv_lengths
     if q.dtype not in _DTYPE_CODE:
         raise TypeError(f"{name}: dtype {q.dtype} (kernel takes bf16, f32)")
     hkv, t = k_q.shape[1], k_q.shape[2]
@@ -486,33 +491,64 @@ def quantized_decode_attention(
     g = hq // hkv
     if scale is None:
         scale = d**-0.5
-    num_splits, chunk = split_plan(q.device, b * hkv, t)
     out = torch.empty_like(q)
-    ml = torch.empty((2, b, hkv, g), dtype=torch.float32, device=q.device)
-    part_o = torch.empty((b, hkv, num_splits, g, d), dtype=torch.float32,
-                         device=q.device)
-    part_ml = torch.empty((2, b, hkv, num_splits, g), dtype=torch.float32,
-                          device=q.device)
-    fn = _fns.get("decode")
-    if fn is None:
-        fn = _build.load_library(
-            "quant_attention").dli_quantized_decode_attention
-        fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 7 + [
-            ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _fns["decode"] = fn
-    with torch.cuda.device(q.device):
-        err = fn(q.data_ptr(), k_q.data_ptr(), ks.data_ptr(), v_q.data_ptr(),
-                 vs.data_ptr(), kv_lengths.data_ptr(), q_positions.data_ptr(),
-                 out.data_ptr(), ml[0].data_ptr(), ml[1].data_ptr(),
-                 part_o.data_ptr(), part_ml[0].data_ptr(),
-                 part_ml[1].data_ptr(), b, hkv, g, d, t, num_splits, chunk,
-                 float(scale), int(sliding_window or 0), _DTYPE_CODE[q.dtype],
-                 torch.cuda.current_stream().cuda_stream)
+    planes = (q.data_ptr(), k_q.data_ptr(), ks.data_ptr(), v_q.data_ptr(),
+              vs.data_ptr(), kv_lengths.data_ptr(), q_positions.data_ptr(),
+              out.data_ptr())
+    if q.dtype == torch.bfloat16:
+        # One launch of the cluster kernel (csrc/paged_decode.cuh), no
+        # scratch: its TMA maps name the buffer's B * Hkv * T rows by 32-bit
+        # coordinates, 16-byte aligned.
+        if b * hkv * t >= 2**31:
+            raise ValueError(f"{name}: {b} x {hkv} x {t} rows is 2^31 or more")
+        if k_q.data_ptr() % 16 or v_q.data_ptr() % 16:
+            raise ValueError(f"{name}: k_q and v_q must be 16-byte aligned")
+        with torch.cuda.device(q.device):
+            err = _decode_fn("bf16")(
+                *planes, None, None, b, hkv, g, d, t,
+                pa.cluster_size(q.device, b * hkv, t),
+                float(scale), int(sliding_window or 0),
+                torch.cuda.current_stream().cuda_stream)
+    else:
+        num_splits, chunk = pa.split_plan(q.device, b * hkv, t)
+        ml = torch.empty((2, b, hkv, g), dtype=torch.float32, device=q.device)
+        part_o = torch.empty((b, hkv, num_splits, g, d), dtype=torch.float32,
+                             device=q.device)
+        part_ml = torch.empty((2, b, hkv, num_splits, g), dtype=torch.float32,
+                              device=q.device)
+        with torch.cuda.device(q.device):
+            err = _decode_fn("f32")(
+                *planes, ml[0].data_ptr(), ml[1].data_ptr(),
+                part_o.data_ptr(), part_ml[0].data_ptr(),
+                part_ml[1].data_ptr(), b, hkv, g, d, t, num_splits, chunk,
+                float(scale), int(sliding_window or 0), _DTYPE_CODE[q.dtype],
+                torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed ({err})")
     decode_launches += 1
     return out
+
+
+# C entry of each form of quantized_decode_attention: (symbol, pointer
+# arguments, int arguments before the scale, int arguments after it).
+_DECODE_ENTRIES = {
+    "bf16": ("dli_quantized_decode_attention_bf16", 10, 6, 1),
+    "f32": ("dli_quantized_decode_attention", 13, 7, 2),
+}
+
+
+def _decode_fn(form: str):
+    """The C entry of ``quantized_decode_attention``: "bf16" queries (the
+    cluster kernel) or "f32" (the split walk)."""
+    fn = _fns.get(("decode", form))
+    if fn is None:
+        symbol, pointers, ints, after = _DECODE_ENTRIES[form]
+        fn = getattr(_build.load_library("quant_attention"), symbol)
+        fn.argtypes = [ctypes.c_void_p] * pointers + [ctypes.c_int] * ints + [
+            ctypes.c_float, *[ctypes.c_int] * after, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _fns[("decode", form)] = fn
+    return fn
 
 
 def _flush_targets(t: int, base_len, tail_len, kt: int):

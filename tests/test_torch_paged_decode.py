@@ -163,10 +163,10 @@ def test_cluster_split_matches_jax(ps, g, blocks, window, past):
 
 @pytest.mark.parametrize("pairs,span,want", [
     (64, 2048, 2), (8, 2048, 8), (1, 2048, 8), (16, 2048, 8), (32, 2048, 4),
-    (8, 100, 2), (128, 2048, 1), (512, 4096, 1)])
+    (8, 100, 2), (128, 2048, 1), (512, 4096, 1), (64, 40, 1), (8, 300, 5)])
 def test_cluster_size(pairs, span, want, monkeypatch):
-    """The wrapper's cluster size on a card of 132 SMs: about one block an
-    SM over all (row, kv head) pairs, at most 8, at most the table's
-    64-position steps."""
+    """The wrappers' cluster size on a card of 132 SMs: about one block an
+    SM over all (row, kv head) pairs, at most 8, at most the 64-position
+    steps of the table or of the dense buffer (widths of 40 and 300)."""
     monkeypatch.setitem(tpa._sm_count, "card", 132)
     assert tpa.cluster_size("card", pairs, span) == want

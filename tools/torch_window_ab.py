@@ -5,11 +5,14 @@ weights:
 * kernels (CUDA events, L2 emptied, bf16): `quantized_fused_decode_attention`
   (#9) over stacks of T = 640 and 2048 (B = 8, the tail full),
   `quantized_paged_fused_attention` (#6, which shares #9's kernel) over
-  2032 + 16 tokens, and `paged_attention` (#2) over 2048 tokens at B = 8
-  and B = 1, each with its launches a call;
+  2032 + 16 tokens, and the decode kernels `paged_attention` (#2),
+  `quantized_paged_attention` (#5) and `quantized_decode_attention` (#8)
+  over 2048 tokens at B = 8 and B = 1, each with its launches a call;
 * decode windows (a captured K = 16 window over 8 rows of ~600 tokens):
   int4 weights over int8 pages (#6), int4 weights over the int8 dense
-  cache (#9), bf16 weights over bf16 pages (#2);
+  cache (#9), bf16 weights over bf16 pages (#2); and K = 1 decode ticks
+  over the same rows: bf16 weights over the int8 dense cache at 8 layers
+  (#8), int4 weights over int8 pages at 4 layers (#5);
 * the int4 weights + int8 dense cache `[1, 2048]` prefill dispatch (#3).
 
 Usage, from the root of the change's checkout, on a machine with one GPU:
@@ -19,10 +22,10 @@ Usage, from the root of the change's checkout, on a machine with one GPU:
 PARENT_DIR is a checkout of the parent commit (for example unpacked from
 `git archive` into a directory that `.gitignore` lists). Each tree runs in
 a process of its own, in the order parent, change, change, parent; each
-prints one JSON line: the kernels' milliseconds, and for each window and
-the prefill the wall and device milliseconds (the profiler's kernel sum
-and the CUDA events' span), kernels run, and the decode attention kernels
-with their milliseconds and launches.
+prints one JSON line: the kernels' milliseconds, and for each window,
+K = 1 tick and the prefill the wall and device milliseconds (the
+profiler's kernel sum and the CUDA events' span), kernels run, and the
+decode attention kernels with their milliseconds and launches.
 """
 
 import json
@@ -38,8 +41,8 @@ ATTENTION = ("fused_cluster_kernel", "paged_decode_kernel",
 
 
 def kernel_times(smoke):
-    """#9, #6 and #2 at phase 2's shapes in this tree, bf16: milliseconds a
-    call and launches a call (counted by the profiler)."""
+    """#9, #6, #2, #5 and #8 at phase 2's shapes in this tree, bf16:
+    milliseconds a call and launches a call (counted by the profiler)."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -83,6 +86,21 @@ def kernel_times(smoke):
         calls[f"#2 B={rows}"] = (
             lambda table=table, qd=qd, lens=lens:
             pa.paged_attention(qd, *pool, table, lens))
+    pool5 = smoke.make_qpool(rng, 9 * width + 1)
+    for rows in (8, 1):
+        table = smoke.make_table(rng, rows, width, 9 * width + 1)
+        qd = smoke.normal(rng, (rows, 1, smoke.HQ, smoke.D), dtype)
+        lens = smoke.i32([2048] * rows)
+        calls[f"#5 B={rows}"] = (
+            lambda table=table, qd=qd, lens=lens:
+            pa.quantized_paged_attention(qd, *pool5, table, lens))
+    for rows in (8, 1):
+        planes = smoke.make_qplanes(rng, (rows, smoke.HKV), 2048)
+        qd = smoke.normal(rng, (rows, 1, smoke.HQ, smoke.D), dtype)
+        lens = smoke.i32([2048] * rows)
+        calls[f"#8 B={rows}"] = (
+            lambda planes=planes, qd=qd, lens=lens:
+            qa.quantized_decode_attention(qd, *planes, lens))
     out = {}
     for name, fn in calls.items():
         ms = smoke.time_ms(fn, 20, flush)
@@ -118,6 +136,14 @@ def run_tree(root):
         "bf16 pages": smoke.profile_decode(cfg, params, {}, {},
                                            smoke.MAIN_BF16),
     }
+    cfg8, params8 = smoke.depth(params, cfg, 8)
+    windows["K=1 int8 dense, 8 layers"] = smoke.profile_decode(
+        cfg8, params8, {"decode_steps": 1}, {"kv_quant": "int8", **smoke.DENSE},
+        smoke.QDENSE)
+    cfg4, params4 = smoke.depth(params, cfg, 4)
+    windows["K=1 int4 + int8 pages, 4 layers"] = smoke.profile_decode(
+        cfg4, params4, {"decode_steps": 1, "quantization": "int4"},
+        {"kv_quant": "int8"}, smoke.SLICE2)
     prefill = smoke.profile_prefill(
         cfg, params, int4, {"kv_quant": "int8", **smoke.DENSE},
         smoke.MAIN_DENSE)
@@ -133,7 +159,7 @@ def run_tree(root):
         "kernels": kernels,
         "windows": {
             name: {**{k: w[k] for k in keys},
-                   "attention": attention(w, ATTENTION)}
+                   "attention": w["attention_kernels"]}
             for name, w in windows.items()},
         "prefill": {k: prefill[k] for k in keys},
         "prefill_attention": attention(prefill, ("flash", "mask_tiles")),

@@ -38,7 +38,11 @@ one line per engine configuration or comparison):
               of T = 640 to 80000) and the host time a launch spends
               encoding its tensor maps;
               `int4_matmul` and `int4_matmul_stacked` at the model's
-              projection shapes and odd ones; the fused window's
+              projection shapes and odd ones, and at 1, 8, 64 and 256 rows
+              of the projections and the head, each call repeated (the
+              same bytes); for their bf16 kernel, `-Xptxas -v`, the count
+              of I2F in its SASS (`cuobjdump -sass`, must be 0) and its
+              split plans with their occupancy; the fused window's
               `quantized_paged_fused_attention` (the int8 pool in place, one
               launch of a cluster a (row, kv head)),
               `quantized_fused_decode_attention` (contiguous stacks, T = 640,
@@ -69,7 +73,9 @@ one line per engine configuration or comparison):
               whose tiles are 96 wide), its tails EQUAL, and
               `sink_tail_flush` (spans 1020 and 50, KT = 16 and 48,
               pointers near the ring's end, sink-bound heads, empty tails;
-              bytes EQUAL, the padding slots untouched). Then, at the shapes of the main
+              bytes EQUAL, the padding slots untouched); last, #4's pinned
+              case (seed 0, pages of 48, B = 8: the bf16 excursion that
+              rounding p * vs to bf16 caused). Then, at the shapes of the main
               paths, each kernel's
               output against the plain version's on the same inputs and its
               time beside the plain version's, a library yardstick where one
@@ -83,7 +89,8 @@ one line per engine configuration or comparison):
               flushes four
               `index_put_` calls;
               for the int4 matmuls there is none: a bf16 `torch.matmul` on
-              the dequantized weight is shown as a yardstick of its own; for
+              the dequantized weight is shown as a yardstick of its own,
+              per projection, at 8 rows and at 1 and 64; for
               the sink step none, as no one call scores with two queries)
               and the card's bound for the same work.
 3. engine   - `InferenceEngine` at Llama-3-8B widths with random seeded
@@ -124,11 +131,15 @@ one line per engine configuration or comparison):
               depth, a few windows and prefill dispatches are profiled for
               the device's idle share and the kernels that take the time;
               the windows over the int8 dense cache and over int8 and bf16
-              pages must launch their attention kernel once a call. The
+              pages must launch their attention kernel once a call, and
+              the int4 windows (dense, pages, sink ring) the int4 matmul's
+              bf16 kernel once a call (7 a layer and the head, each step)
+              and no combine kernel. The
               K = 1 paths over the int8 dense cache and over int8 pages
               profile a few decode ticks at their depth, which must launch
               `quantized_decode_attention` / `quantized_paged_attention`
-              once a layer.
+              once a layer (and, over int8 pages, the int4 matmul once a
+              call).
               Last, captured against eager: the same greedy traffic at full
               width and depth in bf16 with the window's step replayed from
               graphs and run eagerly must give identical streams.
@@ -160,6 +171,7 @@ import json
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -202,9 +214,8 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 # bf16: the kernel and the plain version both accumulate in f32 from the same
 # bf16 inputs and round once at the end, in another order of summation, so
 # they differ by at most one bf16 step of an output of magnitude < 4 (2^-6).
-# The int8-page forms add one rounding of p * vs to bf16 before P V (the TPU
-# kernel keeps it in f32), 2^-9 relative per term, averaging out over the
-# slots: still inside the same bound.
+# The int8-page forms take p * vs into P V as two bf16 terms, hi + lo (the
+# TPU kernel keeps it in f32), about 2^-17 relative per term.
 # f32: only the order of summation differs.
 TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
 # int4 matmuls, relative to max |out|. bf16: products of bf16 x and int4 w
@@ -622,6 +633,65 @@ def compare_int4(cases, tag, dtype, x, w, layer=None):
     return err
 
 
+def int4_repeat(cases, tag, x, w, layer=None):
+    """The int4 kernel called twice on the same inputs: the outputs must
+    be the same bytes (the split over input rows is summed in a fixed
+    order). Appended with tolerance 0."""
+    if layer is None:
+        args = (x, w.q[0], w.scale_lo[0], w.scale_hi[0], w.out_dim)
+        a, b = qm.int4_matmul(*args), qm.int4_matmul(*args)
+        name = "int4"
+    else:
+        args = (x, w.q, w.scale_lo, w.scale_hi, layer, w.out_dim)
+        a, b = qm.int4_matmul_stacked(*args), qm.int4_matmul_stacked(*args)
+        name = "int4s"
+    torch.cuda.synchronize()
+    cases.append((f"{name}_{tag}_repeat", 0.0 if torch.equal(a, b) else 1.0,
+                  0.0))
+
+
+def int4_route_cases(cases, dtype):
+    """The int4 kernels at the rows the routing sends them (`ops/quant.py`:
+    decode, and calls of at most 256 rows): 1, 8, 64 and 256 rows at
+    Llama-3-8B's projection shapes (a stack of 2 layers, layer 1) and the
+    head (the flat form), each call repeated (the same bytes). Drawn after
+    every other int4 case, from a generator of their own."""
+    gen = torch.Generator(device=DEV).manual_seed(13)
+    shapes = {n: PROJECTIONS[n] for n in ("wq", "wk", "wg", "wd")}
+    for name, (ind, outd) in [*shapes.items(), ("head", HEAD)]:
+        layer = None if name == "head" else 1
+        w = int4_weight(gen, (1 if layer is None else 2, ind, outd))
+        for rows in (1, 8, 64, 256):
+            x = torch.randn((rows, ind), generator=gen, device=DEV).to(dtype)
+            tag = f"route_{name}_r{rows}"
+            compare_int4(cases, tag, dtype, x, w, layer)
+            int4_repeat(cases, tag, x, w, layer)
+        del w
+
+
+# #4's bf16 excursion, pinned: the B = 8 launch of ``RAGGED_ROWS`` over
+# int8 pages of 48 slots, no window, inputs drawn from seed 0 of a
+# generator of their own. Before p * vs went into P V as hi + lo, the
+# kernel was 0.03125 off the plain version here (one bf16 step at
+# |out| >= 4, past the 2e-2 tolerance); after it, 0.0039.
+PINNED_RAGGED_SEED = 0
+
+
+def pinned_ragged_case(cases, dtype):
+    rng = np.random.default_rng(PINNED_RAGGED_SEED)
+    rows = {k: i32(v) for k, v in RAGGED_ROWS.items()}
+    s, ps = max(RAGGED_ROWS["num_new"]), 48
+    q = normal(rng, (8, s, HQ, D), dtype)
+    width = -(-max(RAGGED_ROWS["kv_len"]) // ps) + 1
+    pages = 8 * width + 1
+    pool = make_qpool(rng, pages, ps=ps)
+    table = make_table(rng, 8, width, pages)
+    compare_ragged(cases, f"qragged_pinned_seed{PINNED_RAGGED_SEED}_ps{ps}"
+                   "_b8_window_None", dtype, q, pool, table, rows["kv_len"],
+                   rows["num_new"], q_start=rows["q_start"],
+                   sliding_window=None)
+
+
 def assert_cases(cases, dtype):
     for name, err, limit in cases:
         assert np.isfinite(err) and err <= limit, (
@@ -690,6 +760,8 @@ def check_cases(dtype):
     dense_cases(cases, dtype, rng)
     sink_cases(cases, dtype, rng)
     quantized_decode_cases(cases, dtype, rng)
+    int4_route_cases(cases, dtype)
+    pinned_ragged_case(cases, dtype)
     assert_cases(cases, dtype)
     return cases
 
@@ -1148,74 +1220,95 @@ def dequantized_weight(w, layer):
     return (full * sc)[:, : w.out_dim].to(torch.bfloat16).contiguous()
 
 
-def time_int4(out, cases, flush, rows=8):
+def time_int4(out, cases, flush):
     """The int4 matmuls at decode: `int4_matmul_stacked` over one layer's
     seven projections (8 rows, a stack of 2 layers, layer 1), each timed too,
-    and `int4_matmul` over the 128256-wide head. No single PyTorch call
-    computes a half-split int4 product; a bf16 `torch.matmul` on the
-    dequantized weight is timed as a yardstick of its own."""
+    and `int4_matmul` over the 128256-wide head; then both again at 1 and 64
+    rows (inputs of their own). No single PyTorch call computes a
+    half-split int4 product; a bf16 `torch.matmul` on the dequantized
+    weight is timed as a yardstick of its own, per projection."""
     dtype = torch.bfloat16
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     gen = torch.Generator(device=DEV).manual_seed(7)
-    xs = {n: torch.randn((rows, n), generator=gen, device=DEV).to(dtype)
-          for n in (4096, 14336)}
     stacks = {name: int4_weight(gen, (2, ind, outd))
               for name, (ind, outd) in PROJECTIONS.items()}
-    per = {}
-    total = {"bytes": 0, "flops": 0}
-    for name, (ind, outd) in PROJECTIONS.items():
-        w, x = stacks[name], xs[ind]
-        args = (x, w.q, w.scale_lo, w.scale_hi, 1, w.out_dim)
-        err = compare_int4(cases, f"timed_{name}_l1", dtype, x, w, 1)
-        bytes_moved, flops = int4_bound(rows, ind, outd)
-        total["bytes"] += bytes_moved
-        total["flops"] += flops
-        wd = dequantized_weight(w, 1)
-        per[name] = {
-            "shape": f"rows={rows} {ind}x{outd}",
-            "max_rel_err": err,
-            "ms": time_ms(lambda: qm.int4_matmul_stacked(*args), 20, flush),
-            "bound_ms": bound(bytes_moved, flops, dtype)[0],
-            "dequantized_bf16_matmul_ms": time_ms(lambda: x @ wd, 20, flush),
+    xs = {8: {n: torch.randn((8, n), generator=gen, device=DEV).to(dtype)
+              for n in (4096, 14336)}}
+    other = torch.Generator(device=DEV).manual_seed(8)
+    for rows in (1, 64):
+        xs[rows] = {n: torch.randn((rows, n), generator=other,
+                                   device=DEV).to(dtype)
+                    for n in (4096, 14336)}
+
+    def projections(rows):
+        per, total = {}, {"bytes": 0, "flops": 0}
+        for name, (ind, outd) in PROJECTIONS.items():
+            w, x = stacks[name], xs[rows][ind]
+            args = (x, w.q, w.scale_lo, w.scale_hi, 1, w.out_dim)
+            err = compare_int4(cases, f"timed_{name}_r{rows}_l1", dtype, x, w, 1)
+            bytes_moved, flops = int4_bound(rows, ind, outd)
+            total["bytes"] += bytes_moved
+            total["flops"] += flops
+            wd = dequantized_weight(w, 1)
+            per[name] = {
+                "shape": f"rows={rows} {ind}x{outd}",
+                "max_rel_err": err,
+                "ms": time_ms(lambda: qm.int4_matmul_stacked(*args), 20, flush),
+                "bound_ms": bound(bytes_moved, flops, dtype)[0],
+                "dequantized_bf16_matmul_ms": time_ms(lambda: x @ wd, 20,
+                                                      flush),
+                "plan": qm.mma_plan(sms, rows, ind, w.q.shape[-1]),
+            }
+            del wd
+
+        def layer(fn):
+            return lambda: [fn(xs[rows][PROJECTIONS[n][0]], stacks[n].q,
+                               stacks[n].scale_lo, stacks[n].scale_hi, 1,
+                               stacks[n].out_dim) for n in PROJECTIONS]
+
+        bms, by = bound(total["bytes"], total["flops"], dtype)
+        return {
+            "shape": f"rows={rows}, one layer's 7 projections of Llama-3-8B (wq, wk, wv, wo, wg, wu, wd), bf16 x",
+            "max_abs_err": max(p["max_rel_err"] for p in per.values()),
+            "error_is": "relative to max |out|",
+            "ms": time_ms(layer(qm.int4_matmul_stacked), 20, flush),
+            "plain_ms": time_ms(layer(qm.int4_matmul_stacked_plain), 3, flush),
+            "library_ms": None,
+            "dequantized_bf16_matmul_ms": sum(
+                p["dequantized_bf16_matmul_ms"] for p in per.values()),
+            "bound_ms": bms, "bound_by": by, "bytes": total["bytes"],
+            "per_projection": per,
         }
-        del wd
 
-    def layer(fn):
-        return lambda: [fn(xs[PROJECTIONS[n][0]], stacks[n].q,
-                           stacks[n].scale_lo, stacks[n].scale_hi, 1,
-                           stacks[n].out_dim) for n in PROJECTIONS]
-
-    bms, by = bound(total["bytes"], total["flops"], dtype)
-    out["int4_matmul_stacked"] = {
-        "shape": f"rows={rows}, one layer's 7 projections of Llama-3-8B (wq, wk, wv, wo, wg, wu, wd), bf16 x",
-        "max_abs_err": max(p["max_rel_err"] for p in per.values()),
-        "error_is": "relative to max |out|",
-        "ms": time_ms(layer(qm.int4_matmul_stacked), 20, flush),
-        "plain_ms": time_ms(layer(qm.int4_matmul_stacked_plain), 3, flush),
-        "library_ms": None,
-        "dequantized_bf16_matmul_ms": sum(
-            p["dequantized_bf16_matmul_ms"] for p in per.values()),
-        "bound_ms": bms, "bound_by": by, "bytes": total["bytes"],
-        "per_projection": per,
-    }
+    out["int4_matmul_stacked"] = projections(8)
+    out["int4_matmul_stacked"]["at_rows"] = {r: projections(r) for r in (1, 64)}
     del stacks
 
     ind, outd = HEAD
     w = int4_weight(gen, (1, ind, outd))
-    x = xs[ind]
-    args = (x, w.q[0], w.scale_lo[0], w.scale_hi[0], w.out_dim)
-    bytes_moved, flops = int4_bound(rows, ind, outd)
-    bms, by = bound(bytes_moved, flops, dtype)
     wd = dequantized_weight(w, 0)
-    out["int4_matmul"] = {
-        "shape": f"rows={rows} {ind}x{outd} (the lm_head), bf16 x",
-        "max_abs_err": compare_int4(cases, "timed_head", dtype, x, w),
-        "error_is": "relative to max |out|",
-        "ms": time_ms(lambda: qm.int4_matmul(*args), 20, flush),
-        "plain_ms": time_ms(lambda: qm.int4_matmul_plain(*args), 3, flush),
-        "library_ms": None,
-        "dequantized_bf16_matmul_ms": time_ms(lambda: x @ wd, 20, flush),
-        "bound_ms": bms, "bound_by": by, "bytes": bytes_moved,
-    }
+
+    def head(rows):
+        x = xs[rows][ind]
+        args = (x, w.q[0], w.scale_lo[0], w.scale_hi[0], w.out_dim)
+        bytes_moved, flops = int4_bound(rows, ind, outd)
+        bms, by = bound(bytes_moved, flops, dtype)
+        tag = "timed_head" if rows == 8 else f"timed_head_r{rows}"
+        return {
+            "shape": f"rows={rows} {ind}x{outd} (the lm_head), bf16 x",
+            "max_abs_err": compare_int4(cases, tag, dtype, x, w),
+            "error_is": "relative to max |out|",
+            "ms": time_ms(lambda: qm.int4_matmul(*args), 20, flush),
+            "plain_ms": time_ms(lambda: qm.int4_matmul_plain(*args), 3, flush),
+            "library_ms": None,
+            "dequantized_bf16_matmul_ms": time_ms(lambda: x @ wd, 20, flush),
+            "bound_ms": bms, "bound_by": by, "bytes": bytes_moved,
+            "plan": qm.mma_plan(sms, rows, ind, w.q.shape[-1]),
+        }
+
+    out["int4_matmul"] = head(8)
+    out["int4_matmul"]["at_rows"] = {r: head(r) for r in (1, 64)}
+    del wd
 
 
 def fused_bytes(b, big_slots, tail_slots, g=HQ // HKV, esz=2):
@@ -1612,6 +1705,64 @@ def decode_instance(mangled):
     return f"G={args[0]} {kv} {rows}"
 
 
+def int4_instance(mangled):
+    """``int4_mma_kernel<NT>`` (bf16 x, NT n-tiles of 8 rows) -> its label,
+    else None."""
+    if "int4_mma_kernelILi" not in mangled:
+        return None
+    return f"NT={mangled.split('int4_mma_kernelILi')[1].split('E')[0]}"
+
+
+def sass_counts(cubin, label):
+    """Instructions of each kernel instance that ``label`` names in the
+    SASS of ``cubin`` (``cuobjdump -sass``): integer-to-float conversions
+    (I2F, I2FP), tensor-core products (HMMA) and all."""
+    cuobjdump = str(Path(_build._nvcc()).parent / "cuobjdump")
+    text = subprocess.run([cuobjdump, "-sass", str(cubin)], check=True,
+                          capture_output=True, text=True).stdout
+    got, name = {}, None
+    for line in text.splitlines():
+        if "Function :" in line:
+            name = label(line.split("Function :")[1].strip())
+            if name:
+                got[name] = {"I2F": 0, "HMMA": 0, "instructions": 0}
+            continue
+        op = line.split("*/", 1)[1].split(";")[0].split() if (
+            name and line.strip().startswith("/*") and ";" in line) else []
+        if op and op[0].startswith("@"):
+            op = op[1:]
+        if op:
+            got[name]["instructions"] += 1
+            got[name]["I2F"] += op[0].startswith("I2F")
+            got[name]["HMMA"] += op[0].startswith("HMMA")
+    return got
+
+
+def int4_plans():
+    """The bf16 int4 kernel's launch at Llama-3-8B's projections and the
+    head, 1, 8 and 64 rows: the wrapper's ``mma_plan`` and the C side's
+    occupancy (``dli_int4_mma_occupancy``: shared memory a block, blocks an
+    SM, clusters the card holds at once, registers, spills, x rows staged
+    at once)."""
+    fn = _build.load_library("int4_matmul").dli_int4_mma_occupancy
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    keys = ("smem_bytes", "blocks_an_sm", "clusters_at_once", "registers",
+            "spill_bytes", "x_rows_staged")
+    plans = {}
+    for name, (ind, outd) in [*PROJECTIONS.items(), ("head", HEAD)]:
+        if name in ("wv", "wu", "wo"):
+            continue
+        outp = -(-outd // 1024) * 512
+        for rows in (1, 8, 64):
+            plan = qm.mma_plan(sms, rows, ind, outp)
+            got = (ctypes.c_longlong * 6)()
+            assert fn(rows, plan["cluster"], plan["k_block"],
+                      ctypes.addressof(got)) == 0
+            plans[f"{name} rows={rows}"] = {**plan, **dict(zip(keys, got))}
+    return plans
+
+
 def ptxas_text(proc):
     """The output of a finished ``nvcc -Xptxas -v`` (``ptxas_report``)."""
     out, _ = proc.communicate()
@@ -1727,7 +1878,7 @@ def phase_kernels():
     t0 = time.perf_counter()
     ptxas = {name: _build.ptxas_report(name) for name in (
         "ragged_attention", "flash_attention", "paged_attention",
-        "quant_attention")}
+        "quant_attention", "int4_matmul")}
     built = _build.build_all()
     build_s = time.perf_counter() - t0
     ptxas = {name: ptxas_text(proc) for name, proc in ptxas.items()}
@@ -1743,7 +1894,15 @@ def phase_kernels():
         "paged_decode_kernel (#2, #5)": ptxas_lines(
             ptxas["paged_attention"], decode_instance, 4),
         "paged_decode_kernel (#8)": ptxas_lines(
-            ptxas["quant_attention"], decode_instance, 2)}
+            ptxas["quant_attention"], decode_instance, 2),
+        "int4_mma_kernel (#13, #14, bf16 x)": ptxas_lines(
+            ptxas["int4_matmul"], int4_instance, 4)}
+    # The bf16 int4 kernel turns nibbles into bf16 by a bit trick: no
+    # conversion instruction, products on the tensor cores.
+    int4_sass = sass_counts(_build.BUILD_DIR / "int4_matmul.cubin",
+                            int4_instance)
+    assert len(int4_sass) == 4 and all(
+        c["I2F"] == 0 and c["HMMA"] > 0 for c in int4_sass.values()), int4_sass
     plans = check_launch_plans()
     width = ladder_pages(2048)
     fused_plan = {f"#6 table={width} PS={PS} KT={KT} G={g}": cluster_plan(
@@ -1779,6 +1938,7 @@ def phase_kernels():
           "wgmma_and_cluster_ptxas": resources,
           "ragged_launch_plans": plans, "fused_cluster_plans": fused_plan,
           "decode_cluster_plans": decode_plans,
+          "int4_mma_sass": int4_sass, "int4_mma_plans": int4_plans(),
           "ragged_c_call_host_us": map_us,
           "checked": kernels})
     return times
@@ -1887,19 +2047,22 @@ def device_breakdown(prof, wall_ms, steps):
         raise RuntimeError("the profiler recorded no device time")
     device_ms = sum(device_us(ev) for ev in kernels) / 1e3 / steps
     top = sorted(kernels, key=device_us, reverse=True)[:10]
-    attention = {}
+    attention, int4 = {}, {}
     for ev in kernels:
-        for name in ATTENTION_KERNELS:
-            if name in ev.key:
-                got = attention.setdefault(name, {"ms": 0.0, "launches": 0.0})
-                got["ms"] += device_us(ev) / 1e3 / steps
-                got["launches"] += ev.count / steps
+        for names, into in ((ATTENTION_KERNELS, attention),
+                            (INT4_KERNELS, int4)):
+            for name in names:
+                if name in ev.key:
+                    got = into.setdefault(name, {"ms": 0.0, "launches": 0.0})
+                    got["ms"] += device_us(ev) / 1e3 / steps
+                    got["launches"] += ev.count / steps
     return {
         "wall_ms": wall_ms,
         "device_ms": device_ms,
         "device_idle_share": 1.0 - device_ms / wall_ms,
         "kernels": sum(ev.count for ev in kernels) / steps,
         "attention_kernels": attention,
+        "int4_kernels": int4,
         "top_kernels": [
             {"name": ev.key[:70], "ms": device_us(ev) / 1e3 / steps,
              "launches": ev.count / steps} for ev in top],
@@ -1914,6 +2077,9 @@ ATTENTION_KERNELS = ("fused_cluster_kernel", "paged_decode_kernel",
                      "fused_scores_kernel", "fused_sums_kernel",
                      "fused_combine_kernel", "paged_partial_kernel",
                      "paged_combine_kernel")
+# The int4 matmul's kernels: bf16 x (one launch a call), f32 x (the
+# CUDA-core kernel, with the combine of its split partials).
+INT4_KERNELS = ("int4_mma_kernel", "int4_matmul_kernel", "int4_combine_kernel")
 
 
 def profile_steps(engine, before_step, steps, counters=None):
@@ -2292,7 +2458,7 @@ def check_dense_shapes(shapes, dispatch_shapes=(), int4=False):
 
 
 def run_config(label, cfg, params, ekw, ckw, counters, profile=True,
-               traffic=MIXED, one_launch=None):
+               traffic=MIXED, one_launch=None, int4_launch=False):
     """The smoke's traffic through one engine configuration, twice with one
     seed (the streams must repeat); the launch counters in ``counters``
     (name -> (module, attribute)) are zeroed before the first run and read
@@ -2303,8 +2469,10 @@ def run_config(label, cfg, params, ekw, ckw, counters, profile=True,
     no co-scheduled chunks (a long prompt is chunked synchronously); its
     kernels are replayed at the shapes recorded in the first run. With
     ``one_launch`` (a kernel's name), the profiled decode tick must launch
-    that kernel once a call: once a layer a step. Returns (report,
-    launches)."""
+    that kernel once a call: once a layer a step. With ``int4_launch`` it
+    must launch the int4 matmul's bf16 kernel once a call, 7 a layer and
+    the head, each step, and no other int4 kernel (no combine). Returns
+    (report, launches)."""
     torch.cuda.reset_peak_memory_stats()
     new_tokens, odd = traffic["new_tokens"], traffic.get("odd")
     dense = ckw.get("kind") == "dense"
@@ -2420,27 +2588,39 @@ def run_config(label, cfg, params, ekw, ckw, counters, profile=True,
     if profile:
         report["decode_profile"] = profile_decode(cfg, params, ekw, ckw,
                                                   counters)
+        # The profiler drops records now and then, never adds any: one
+        # session on an H100 lost 1.1% of every kind of kernel alike
+        # (506.2 of 512 a tick), most lose none. So a session that counts
+        # too few is profiled again, three at most, and the last is held to
+        # within 1% of one a call; two launches a call would be 100% off.
+        steps = report["decode_profile"]["decode_steps"]
+        want = {}
         if one_launch:
-            # The profiler drops records now and then, never adds any: one
-            # session on an H100 lost 1.1% of every kind of kernel alike
-            # (506.2 of 512 a tick), most lose none. So a session that
-            # counts too few is profiled again, three at most, and the
-            # last is held to within 1% of one a call; two launches a call
-            # would be 100% off.
-            calls = cfg.num_layers * report["decode_profile"]["decode_steps"]
-            sessions = []
-            while True:
-                got = report["decode_profile"]["attention_kernels"].get(
-                    one_launch, {})
-                sessions.append(got.get("launches", 0))
-                if sessions[-1] >= 0.99 * calls or len(sessions) == 3:
-                    break
-                report["decode_profile"] = profile_decode(
-                    cfg, params, ekw, ckw, counters)
+            want["attention_kernels", one_launch] = cfg.num_layers * steps
+        if int4_launch:
+            want["int4_kernels", "int4_mma_kernel"] = (
+                (7 * cfg.num_layers + 1) * steps)
+        sessions = []
+        while want:
+            got = {name: report["decode_profile"][kind].get(
+                name, {}).get("launches", 0) for kind, name in want}
+            sessions.append(got)
+            if all(got[name] >= 0.99 * n for (_, name), n in want.items()) or (
+                    len(sessions) == 3):
+                break
+            report["decode_profile"] = profile_decode(
+                cfg, params, ekw, ckw, counters)
+        if want:
             report["decode_profile"]["launches_by_session"] = sessions
-            assert abs(sessions[-1] - calls) <= 0.01 * calls, (
-                f"{one_launch}: {got} launches a tick in the last of "
-                f"{sessions}, want one a call ({calls})")
+            for (_, name), n in want.items():
+                assert abs(sessions[-1][name] - n) <= 0.01 * n, (
+                    f"{name}: {sessions[-1][name]} launches a tick in the "
+                    f"last of {sessions}, want one a call ({n})")
+        if int4_launch:
+            other = {k: v for k, v in
+                     report["decode_profile"]["int4_kernels"].items()
+                     if k != "int4_mma_kernel"}
+            assert not other, f"bf16 int4 calls launched {other}"
         if profile != "decode":
             report["prefill_profile"] = profile_prefill(cfg, params, ekw,
                                                         ckw, counters)
@@ -2527,18 +2707,19 @@ def phase_engine():
     take(run_config(
         "main path: int4 weights (half-split), int8 sink ring (window 1024, "
         "4 sinks), K=16", cfg, params, {"quantization": "int4"},
-        {"kv_quant": "int8", **SINK}, MAIN_SINK, traffic=SINK_TRAFFIC)[1])
+        {"kv_quant": "int8", **SINK}, MAIN_SINK, traffic=SINK_TRAFFIC,
+        int4_launch=True)[1])
     take(run_config(
         "dense main path: int4 weights (half-split), int8 dense KV, K=16", cfg,
         params, {"quantization": "int4"}, {"kv_quant": "int8", **DENSE},
-        MAIN_DENSE, one_launch="fused_cluster_kernel")[1])
+        MAIN_DENSE, one_launch="fused_cluster_kernel", int4_launch=True)[1])
     take(run_config("paged main path: bf16 weights, bf16 pages, K=16", cfg,
                     params, {}, {}, MAIN_BF16,
                     one_launch="paged_decode_kernel")[1])
     take(run_config(
         "paged main path: int4 weights (half-split), int8 pages, K=16", cfg,
         params, {"quantization": "int4"}, {"kv_quant": "int8"}, MAIN_INT4,
-        one_launch="fused_cluster_kernel")[1])
+        one_launch="fused_cluster_kernel", int4_launch=True)[1])
     cfg4, params4 = depth(params, cfg, 4)
     run_config("slice 5 path: bf16 weights, bf16 sink ring, K=1, 4 layers",
                cfg4, params4, {}, SINK, {}, profile=False,
@@ -2579,7 +2760,7 @@ def phase_engine():
     take(run_config("slice 2 path: int4 weights, int8 pages, K=1, 4 layers",
                     cfg4, params4, {"decode_steps": 1, "quantization": "int4"},
                     {"kv_quant": "int8"}, SLICE2, profile="decode",
-                    one_launch="paged_decode_kernel")[1])
+                    one_launch="paged_decode_kernel", int4_launch=True)[1])
     captured_vs_eager(cfg, params)
     del params, params4, params8
     torch.cuda.empty_cache()

@@ -5,7 +5,9 @@
 // host-side encoding of tensor maps. Used by ragged_attention.cu (the ragged
 // paged prefill kernels), flash_attention.cu (the dense caches' flash
 // prefill, on the same blocks as the ragged kernels) and fused_decode.cuh
-// (the fused decode step over the page pool, one cluster a (row, kv head)).
+// (the fused decode step over the page pool, one cluster a (row, kv head))
+// and int4_matmul.cu (the int4 matmul's bf16 instance: a TMA ring of packed
+// tiles, the split over input rows summed in a cluster).
 //
 // Tensor maps are encoded with cuTensorMapEncodeTiled, reached through
 // cudaGetDriverEntryPoint: the libraries link only the CUDA runtime, never
@@ -129,6 +131,13 @@ __device__ __forceinline__ int cluster_rank() {
   return static_cast<int>(r);
 }
 
+// The number of blocks in this block's cluster.
+__device__ __forceinline__ int cluster_blocks() {
+  uint32_t n;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(n));
+  return static_cast<int>(n);
+}
+
 // Every thread of every block of the cluster: shared-memory writes before
 // it are visible to the cluster's reads after it.
 __device__ __forceinline__ void cluster_sync() {
@@ -149,12 +158,30 @@ __device__ __forceinline__ float cluster_load(const float* p, int rank) {
   return v;
 }
 
+// The 4 floats at `p` (16-byte aligned, in this block's shared memory) in
+// the shared memory of the cluster's block `rank`.
+__device__ __forceinline__ float4 cluster_load4(const float* p, int rank) {
+  uint32_t remote;
+  float4 v;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(remote) : "r"(smem_u32(p)), "r"(rank));
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(remote) : "memory");
+  return v;
+}
+
 // 4 bytes global -> shared, asynchronously; zeros when !live (no read).
 __device__ __forceinline__ void cp_async_4(void* dst, const void* src,
                                            bool live) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
                :: "r"(smem_u32(dst)), "l"(src), "r"(live ? 4 : 0)
                : "memory");
+}
+
+// Waits until every cp.async this thread issued has landed.
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
 // `bar` receives one arrival (counted in its init) once every cp.async

@@ -66,7 +66,11 @@
 //   is released once Q K^T is done and its V once P V is, a step later, so
 //   the next K is converted while this V is still read. The scale arithmetic
 //   is the TPU kernel's: the K scale multiplies each score, the V scale each
-//   probability before P V (p * vs rounded to bf16), and l sums p itself.
+//   probability before P V, and l sums p itself. The TPU kernel keeps
+//   p * vs in f32; one bf16 operand would round it to 2^-9 relative, a
+//   bf16 output step at |out| >= 4 past the tolerance. So P V takes it as
+//   two bf16 terms, hi = bf16(p * vs) and lo = bf16(p * vs - hi), two
+//   products on the same V stage (about 2^-17 relative left).
 // * The tensor maps are encoded per launch on the host
 //   (cuTensorMapEncodeTiled through cudaGetDriverEntryPoint, hopper_tile.cuh)
 //   and passed as __grid_constant__ parameters; prefill runs eagerly.
@@ -186,6 +190,8 @@ __device__ __forceinline__ void consume(
 
   float o[64], s[64];
   uint32_t pa[kStep / 16][4];
+  // int8 pages: the rounding of p * vs to bf16, P V's second operand.
+  uint32_t pa_lo[Q8 ? kStep / 16 : 1][4];
 #pragma unroll
   for (int i = 0; i < 64; ++i) o[i] = 0.f;
   float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
@@ -223,17 +229,31 @@ __device__ __forceinline__ void consume(
       hopper::wgmma_m64n128k16_rs_tb(
           o, pa[kk],
           hopper::desc_sw128(v_t + kk * 16 * kRowBytes, kHalfBytes, 1024));
+    if constexpr (Q8) {
+#pragma unroll
+      for (int kk = 0; kk < kStep / 16; ++kk)
+        hopper::wgmma_m64n128k16_rs_tb(
+            o, pa_lo[kk],
+            hopper::desc_sw128(v_t + kk * 16 * kRowBytes, kHalfBytes, 1024));
+    }
     hopper::wgmma_commit();
   };
   // P in bf16, as the TPU kernel rounds it: the score fragments of n-tiles
-  // 2kk and 2kk + 1 are the A operand of k-step kk as they lie.
+  // 2kk and 2kk + 1 are the A operand of k-step kk as they lie. int8 pages:
+  // p * vs as hi = bf16(p * vs) and lo = bf16(p * vs - hi).
   auto pack_p = [&]() {
 #pragma unroll
     for (int kk = 0; kk < kStep / 16; ++kk) {
-      pa[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
-      pa[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
-      pa[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
-      pa[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const float a = s[8 * kk + 2 * r], b = s[8 * kk + 2 * r + 1];
+        pa[kk][r] = pack_bf16(a, b);
+        if constexpr (Q8) {
+          const __nv_bfloat162 h =
+              *reinterpret_cast<const __nv_bfloat162*>(&pa[kk][r]);
+          pa_lo[kk][r] = pack_bf16(a - __low2float(h), b - __high2float(h));
+        }
+      }
     }
   };
   // Online softmax of step i: the probabilities into s, l and m updated,

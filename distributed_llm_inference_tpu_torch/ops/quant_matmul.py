@@ -1,13 +1,14 @@
-"""int4-weight matmul for decode: a CUDA kernel that reads the half-split
-packed weight once and unpacks it in registers, and its plain PyTorch
+"""int4-weight matmul for decode: CUDA kernels that read the half-split
+packed weight once and unpack it in registers, and their plain PyTorch
 version (counterpart of the JAX package's ``ops/quant_matmul.py``).
 
 Replaces the TPU kernels ``_int4_kernel`` behind ``int4_matmul`` and
 ``_int4_stacked_kernel`` behind ``int4_matmul_stacked``. Both are one CUDA
 source, ``csrc/int4_matmul.cu``: the stacked form is the flat one with the
-layer index turned into an offset of the weight's and the scales' base
-pointers, so a layer's packed weight is never sliced out or copied. They
-stay two functions with two launch counters, as they are two TPU kernels.
+layer index turned into an offset of the weight's rows and the scales'
+base pointers, so a layer's packed weight is never sliced out or copied.
+They stay two functions with two launch counters, as they are two TPU
+kernels.
 
 Packing layout ("half-split"): byte column ``j`` of the packed weight holds
 output channel ``j`` in its low nibble and channel ``j + out_pad/2`` in its
@@ -19,15 +20,21 @@ packages. Nibbles are unpacked by shift and sign extension of a signed byte
 int4.
 
 On this card the function is bound by bytes at decode (at most 8 rows of
-activations against the whole packed weight). The kernel accumulates in
-f32, multiplies the per-channel f32 scales in at the epilogue, rounds once
-to x's type, and writes both halves of the output into one ``[rows,
-out_dim]`` tensor (no concatenation, no slice).
+activations against the whole packed weight). bf16 x takes one launch of
+``int4_mma_kernel``: tensor-core products (``mma.sync``, the weight as the
+A operand, its nibbles turned into bf16 by a bit trick), the packed tiles
+streamed into a ring by TMA, the split over input rows summed inside a
+thread-block cluster (:func:`mma_plan` sizes it). f32 x (exact-parity runs)
+takes a CUDA-core kernel and, when its input rows are split, a second
+kernel that adds the partials. Both accumulate in f32, multiply the
+per-channel f32 scales in at the epilogue, round once to x's type, and
+write both halves of the output into one ``[rows, out_dim]`` tensor (no
+concatenation, no slice).
 
-The wrappers launch the kernel for CUDA tensors and raise on anything the
+The wrappers launch a kernel for CUDA tensors and raise on anything the
 kernel does not take; they use the plain version only for tensors that lie
-on the CPU. ``launches`` and ``stacked_launches`` count kernel launches (and
-nothing else).
+on the CPU. ``launches`` and ``stacked_launches`` count wrapper calls that
+launch (one a call, whatever the route).
 """
 
 from __future__ import annotations
@@ -59,10 +66,18 @@ stacked_launches = 0
 # The JAX kernel's tile sizes, kept as the padding rule of the packed layout.
 _BIN = 1024
 _BOUTP = 512
-# Rows the kernel takes in one pass over the weight; more rows take several.
-_ROW_BLOCK = 8
-_DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
-_fn = None
+_DTYPES = (torch.bfloat16, torch.float32)
+# The bf16 kernel (``csrc/int4_matmul.cu``): a cluster's tile of packed
+# byte columns, the packed rows of a ring stage, the x rows of one pass over
+# the weight, the largest cluster (16 needs the non-portable attribute).
+MMA_TILE_BYTES = 128
+MMA_STAGE_ROWS = 128
+MMA_PASS_ROWS = 64
+MMA_MAX_CLUSTER = 16
+# mma_plan's targets: blocks a grid, packed bytes a block.
+MMA_MIN_BLOCKS = 64
+MMA_BLOCK_BYTES = 128 * 1024
+_fns = {}
 _sm_count = {}
 
 
@@ -127,26 +142,71 @@ def int4_matmul_stacked_plain(
     )
 
 
-def _kernel():
-    global _fn
-    if _fn is None:
-        fn = _build.load_library("int4_matmul").dli_int4_matmul
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [
-            ctypes.c_void_p,
-        ]
+# The C entries: f32 x (the CUDA-core kernel, its partials and their
+# combine) and bf16 x (one launch of the tensor-core kernel).
+_ENTRIES = {
+    "dli_int4_matmul": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
+    + [ctypes.c_void_p],
+    "dli_int4_matmul_mma": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9
+    + [ctypes.c_void_p],
+}
+
+
+def _kernel(name: str):
+    fn = _fns.get(name)
+    if fn is None:
+        fn = getattr(_build.load_library("int4_matmul"), name)
+        fn.argtypes = _ENTRIES[name]
         fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+        _fns[name] = fn
+    return fn
 
 
-def split_k(device, col_tiles: int, in_dim: int) -> int:
-    """How many blocks share the input rows of one column tile: enough that
-    about two blocks per SM exist, each at least 256 rows, at most 16."""
+def _sms(device) -> int:
     sms = _sm_count.get(device)
     if sms is None:
         sms = torch.cuda.get_device_properties(device).multi_processor_count
         _sm_count[device] = sms
+    return sms
+
+
+def split_k(sms: int, col_tiles: int, in_dim: int) -> int:
+    """f32 kernel: how many blocks share the input rows of one column tile:
+    enough that about two blocks per SM exist, each at least 256 rows, at
+    most 16."""
     return max(1, min(16, -(-2 * sms // col_tiles), -(-in_dim // 256)))
+
+
+def mma_plan(sms: int, rows: int, in_dim: int, outp: int) -> dict:
+    """bf16 kernel: how one call is cut. A cluster of ``cluster`` blocks
+    owns a tile of ``tile_bytes`` packed byte columns (twice as many output
+    channels) for one pass of up to 64 rows of x; its blocks split the
+    input rows, ``k_block`` (a multiple of the ring's 128-row stage) each,
+    in rank order, and add their partial sums inside the cluster.
+    ``clusters`` = tiles x passes.
+
+    The cluster is the smallest power of two that gives the grid
+    ``MMA_MIN_BLOCKS`` blocks, and one for every ``MMA_BLOCK_BYTES`` of the
+    packed weight, within one wave of the card (two blocks an SM up to 16
+    rows of x, one above: the kernel's registers) and at most 16 (8 where a
+    block takes an SM alone) and the input's stages. A sweep on an H100
+    (``tools/torch_cluster_sweep.py --int4``) put the fastest cluster of
+    every Llama-3-8B projection there: larger clusters add a partial per
+    output and move too few bytes a block."""
+    tiles = -(-outp // MMA_TILE_BYTES)
+    passes = -(-rows // MMA_PASS_ROWS)
+    stages = -(-in_dim // MMA_STAGE_ROWS)
+    slots = sms * (2 if rows <= 16 else 1)
+    most = min(MMA_MAX_CLUSTER if rows <= 16 else 8, stages)
+    want = min(slots, max(MMA_MIN_BLOCKS, -(-in_dim * outp // MMA_BLOCK_BYTES)))
+    grid = tiles * passes
+    cluster = 1
+    while (2 * cluster <= most and grid * cluster < want
+           and grid * 2 * cluster <= slots):
+        cluster *= 2
+    return {"tile_bytes": MMA_TILE_BYTES, "cluster": cluster,
+            "clusters": grid,
+            "k_block": -(-stages // cluster) * MMA_STAGE_ROWS}
 
 
 def _launch(name, x, packed, scale_lo, scale_hi, layer, out_dim):
@@ -158,7 +218,7 @@ def _launch(name, x, packed, scale_lo, scale_hi, layer, out_dim):
                      ("scale_hi", scale_hi)):
         if t.device != dev:
             raise ValueError(f"{name}: {label} on {t.device}, x on {dev}")
-    if x.dtype not in _DTYPE_CODE:
+    if x.dtype not in _DTYPES:
         raise TypeError(f"{name}: dtype {x.dtype} (kernel takes bf16, f32)")
     if packed.dtype != torch.int8:
         raise TypeError(f"{name}: packed must be int8, got {packed.dtype}")
@@ -184,25 +244,45 @@ def _launch(name, x, packed, scale_lo, scale_hi, layer, out_dim):
             raise ValueError(f"{name}: {label} must be contiguous")
     if packed.data_ptr() % 16:
         raise ValueError(f"{name}: packed must be 16-byte aligned")
-    rows = x2.shape[0]
-    out = torch.empty((rows, out_dim), dtype=x.dtype, device=dev)
-    col_tiles = -(-outp // 128)
-    splits = split_k(dev, col_tiles, in_dim)
-    part = torch.empty(
-        (splits if splits > 1 else 0, rows, 2 * outp),
-        dtype=torch.float32, device=dev,
-    )
+    if x.dtype == torch.bfloat16 and outp % 16:
+        raise ValueError(
+            f"{name}: the bf16 kernel takes out_pad // 2 a multiple of 16, "
+            f"got {outp}")
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _kernel()(
+        out = _dispatch(x2, packed, scale_lo, scale_hi, layer, out_dim,
+                        torch.cuda.current_stream().cuda_stream, _sms(dev))
+    return out.reshape(*x.shape[:-1], out_dim)
+
+
+def _dispatch(x2, packed, scale_lo, scale_hi, layer, out_dim, stream, sms):
+    """One call's launch, checks done: bf16 x takes the tensor-core kernel
+    (one launch, cut by :func:`mma_plan`), f32 x the CUDA-core kernel (with f32
+    partials and their combine when :func:`split_k` splits the input rows).
+    Returns the ``[rows, out_dim]`` output."""
+    num_l, in_pad, outp = packed.shape
+    rows, in_dim = x2.shape
+    out = torch.empty((rows, out_dim), dtype=x2.dtype, device=x2.device)
+    if x2.dtype == torch.bfloat16:
+        plan = mma_plan(sms, rows, in_dim, outp)
+        err = _kernel("dli_int4_matmul_mma")(
+            x2.data_ptr(), packed.data_ptr(), scale_lo.data_ptr(),
+            scale_hi.data_ptr(), out.data_ptr(), rows, in_dim, in_pad, outp,
+            out_dim, layer, num_l, plan["cluster"], plan["k_block"], stream,
+        )
+    else:
+        splits = split_k(sms, -(-outp // 128), in_dim)
+        part = torch.empty(
+            (splits if splits > 1 else 0, rows, 2 * outp),
+            dtype=torch.float32, device=x2.device,
+        )
+        err = _kernel("dli_int4_matmul")(
             x2.data_ptr(), packed.data_ptr(), scale_lo.data_ptr(),
             scale_hi.data_ptr(), out.data_ptr(), part.data_ptr(),
-            rows, in_dim, in_pad, outp, out_dim, layer, splits,
-            _DTYPE_CODE[x.dtype], stream,
+            rows, in_dim, in_pad, outp, out_dim, layer, splits, stream,
         )
     if err != 0:
-        raise RuntimeError(f"{name}: kernel launch failed ({err})")
-    return out.reshape(*x.shape[:-1], out_dim)
+        raise RuntimeError(f"int4 kernel launch failed ({err})")
+    return out
 
 
 def int4_matmul(

@@ -10,9 +10,17 @@ the int8 ring's depth: the two sources rebuilt with 3, 4, 6, 8 and 12
 stages of 16 KB (``-DPDEC_INT8_STAGES``; past 6 a block takes an SM of its
 own), #5 and #8 timed under each at the rule's C.
 
+With ``--int4``, the int4 matmul's bf16 kernel (``csrc/int4_matmul.cu``)
+instead: `int4_matmul_stacked` over Llama-3-8B's projection shapes and
+`int4_matmul` over the 128256-wide head, at 8 and 1 rows, timed with the
+cluster forced to C = 1, 2, 4, 8 and 16 blocks (each block's input rows a
+whole number of ring stages) and with the wrapper's ``mma_plan``; then the
+ring's depth, the source rebuilt with 2, 3, 4 and 6 stages of 16 KB
+(``-DINT4_STAGES``), each shape timed under the plan.
+
 Usage, from the root of a checkout, on a machine with one GPU:
 
-    python tools/torch_cluster_sweep.py
+    python tools/torch_cluster_sweep.py [--int4]
 
 Prints the card's name and power limit, then one JSON line per (form, B,
 live length): milliseconds a call for each C (CUDA events, L2 emptied, as
@@ -29,18 +37,21 @@ import sys
 
 STAGES = (3, 4, 6, 8, 12)
 RING_SOURCES = ("paged_attention", "quant_attention")
+INT4_STAGES = (2, 3, 4, 6)
 
 
-def build_rings(build):
-    """Each source of the int8 decode forms built once per count of stages,
-    every ``nvcc`` started together. Returns {stages: {source: path}}."""
+def build_rings(build, stages=STAGES, sources=RING_SOURCES,
+                macro="PDEC_INT8_STAGES"):
+    """Each of ``sources`` built once per count of ``stages`` (the macro
+    ``macro``), every ``nvcc`` started together. Returns {stages: {source:
+    path}}."""
     build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     started = {}
-    for n in STAGES:
-        for name in RING_SOURCES:
-            out = build.BUILD_DIR / f"lib{name}_int8stages{n}.so"
+    for n in stages:
+        for name in sources:
+            out = build.BUILD_DIR / f"lib{name}_{macro.lower()}{n}.so"
             started[n, name] = out, subprocess.Popen(
-                [build._nvcc(), *build.NVCC_FLAGS, f"-DPDEC_INT8_STAGES={n}",
+                [build._nvcc(), *build.NVCC_FLAGS, f"-D{macro}={n}",
                  "-o", str(out), str(build.CSRC / f"{name}.cu")],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     paths = {}
@@ -67,6 +78,9 @@ def main():
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, capture_output=True, text=True).stdout.strip(), flush=True)
+    if sys.argv[1:] == ["--int4"]:
+        int4_sweep(smoke)
+        return 0
     rule = pa.cluster_size
     rng = np.random.default_rng(7)
     flush = torch.ones(16 * 1024 * 1024, dtype=torch.int64, device="cuda")
@@ -157,6 +171,72 @@ def ring_sweep(smoke, pa, qa, rng, flush):
         _build._libs.update(saved)
         pa._fn.clear()
         qa._fns.clear()
+
+
+def int4_sweep(smoke):
+    """The int4 matmul's bf16 kernel: each shape at 8 and 1 rows under
+    clusters of 1 to 16 blocks and the plan's; then under each count of
+    ring stages, at the plan's cluster."""
+    import torch
+
+    from distributed_llm_inference_tpu_torch.ops import _build
+    from distributed_llm_inference_tpu_torch.ops import quant_matmul as qm
+
+    flush = torch.ones(16 * 1024 * 1024, dtype=torch.int64, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    shapes = {n: smoke.PROJECTIONS[n] for n in ("wq", "wk", "wg", "wd")}
+    shapes["head"] = smoke.HEAD
+    weights = {n: smoke.int4_weight(gen, (1, *shape))
+               for n, shape in shapes.items()}
+    calls = {}
+    for rows in (8, 1):
+        for n, w in weights.items():
+            x = torch.randn((rows, w.in_dim), generator=gen,
+                            device="cuda").to(torch.bfloat16)
+            calls[n, rows] = (lambda x=x, w=w: qm.int4_matmul_stacked(
+                x, w.q, w.scale_lo, w.scale_hi, 0, w.out_dim))
+    rule = qm.mma_plan
+    for (n, rows), fn in calls.items():
+        w = weights[n]
+        stages = -(-w.in_dim // qm.MMA_STAGE_ROWS)
+        got = {}
+        for c in (1, 2, 4, 8, 16):
+            if c > stages:
+                continue
+            qm.mma_plan = lambda *a, c=c: {
+                **rule(*a), "cluster": c,
+                "k_block": -(-stages // c) * qm.MMA_STAGE_ROWS}
+            try:
+                got[c] = smoke.time_ms(fn, 20, flush)
+            finally:
+                qm.mma_plan = rule
+        plan = rule(sms, rows, w.in_dim, w.q.shape[-1])
+        print(json.dumps({
+            "shape": n, "in": w.in_dim, "out": w.out_dim, "rows": rows,
+            "ms_by_cluster": got, "plan": plan,
+            "plan_ms": smoke.time_ms(fn, 20, flush)}), flush=True)
+    saved = dict(_build._libs)
+    try:
+        for n, paths in build_rings(_build, INT4_STAGES, ("int4_matmul",),
+                                    "INT4_STAGES").items():
+            _build._libs["int4_matmul"] = ctypes.CDLL(str(paths["int4_matmul"]))
+            qm._fns.clear()
+            occ = _build._libs["int4_matmul"].dli_int4_mma_occupancy
+            occ.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+            got = (ctypes.c_longlong * 6)()
+            plan = rule(sms, 8, 4096, 64512)
+            assert occ(8, plan["cluster"], plan["k_block"],
+                       ctypes.addressof(got)) == 0
+            print(json.dumps({
+                "int4_stages": n, "head_rows8_smem_bytes": got[0],
+                "head_rows8_blocks_an_sm": got[1],
+                "ms_rows8": {shape: smoke.time_ms(calls[shape, 8], 20, flush)
+                             for shape in weights}}), flush=True)
+    finally:
+        _build._libs.clear()
+        _build._libs.update(saved)
+        qm._fns.clear()
 
 
 if __name__ == "__main__":

@@ -2,7 +2,13 @@
 `chip_smoke.py` measures them, at Llama-3-8B width and depth with random
 weights:
 
-* kernels (CUDA events, L2 emptied, bf16): `quantized_fused_decode_attention`
+* kernels (CUDA events, L2 emptied, bf16): the int4 matmuls at 8 rows,
+  `int4_matmul_stacked` (#14) over each of a Llama-3-8B layer's seven
+  projections and the layer, `int4_matmul` (#13) over the 128256-wide
+  head; `quantized_ragged_paged_attention` (#4, one 2048-token prompt over
+  int8 pages of 64), and its error against the plain version on
+  `chip_smoke.py`'s pinned case (the B = 8 launch of `RAGGED_ROWS` over
+  int8 pages of 48, inputs from seed 0); `quantized_fused_decode_attention`
   (#9) over stacks of T = 640 and 2048 (B = 8, the tail full),
   `quantized_paged_fused_attention` (#6, which shares #9's kernel) over
   2032 + 16 tokens, and the decode kernels `paged_attention` (#2),
@@ -10,7 +16,8 @@ weights:
   over 2048 tokens at B = 8 and B = 1, each with its launches a call;
 * decode windows (a captured K = 16 window over 8 rows of ~600 tokens):
   int4 weights over int8 pages (#6), int4 weights over the int8 dense
-  cache (#9), bf16 weights over bf16 pages (#2); and K = 1 decode ticks
+  cache (#9), bf16 weights over bf16 pages (#2), each with the int4
+  matmul's kernels, their milliseconds and launches a window; and K = 1 decode ticks
   over the same rows: bf16 weights over the int8 dense cache at 8 layers
   (#8), int4 weights over int8 pages at 4 layers (#5);
 * the int4 weights + int8 dense cache `[1, 2048]` prefill dispatch (#3).
@@ -33,27 +40,92 @@ import os
 import subprocess
 import sys
 
-# The decode attention kernels, by the names the profiler gives them.
+# The kernels whose launches a call are counted, by the names the profiler
+# gives them: the decode attention kernels, the ragged kernels, the int4
+# matmul's kernels (either tree's).
 ATTENTION = ("fused_cluster_kernel", "paged_decode_kernel",
              "fused_scores_kernel", "fused_sums_kernel",
              "fused_combine_kernel", "paged_partial_kernel",
-             "paged_combine_kernel")
+             "paged_combine_kernel", "ragged_kernel", "int4_")
+
+
+def int4_calls(smoke, calls):
+    """#14 over each projection of one layer and the layer, #13 over the
+    head, 8 rows of bf16 x (a stack of 2 layers, layer 1)."""
+    import torch
+
+    from distributed_llm_inference_tpu_torch.ops import quant_matmul as qm
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    stacks = {n: smoke.int4_weight(gen, (2, *shape))
+              for n, shape in smoke.PROJECTIONS.items()}
+    xs = {n: torch.randn((8, n), generator=gen, device="cuda").to(
+        torch.bfloat16) for n in (4096, 14336)}
+
+    def stacked(n):
+        w = stacks[n]
+        return lambda: qm.int4_matmul_stacked(
+            xs[w.in_dim], w.q, w.scale_lo, w.scale_hi, 1, w.out_dim)
+
+    for n in smoke.PROJECTIONS:
+        calls[f"#14 {n} rows=8"] = stacked(n)
+    layer = [stacked(n) for n in smoke.PROJECTIONS]
+    calls["#14 layer rows=8"] = lambda: [f() for f in layer]
+    head = smoke.int4_weight(gen, (1, *smoke.HEAD))
+    calls["#13 head rows=8"] = lambda: qm.int4_matmul(
+        xs[4096], head.q[0], head.scale_lo[0], head.scale_hi[0], head.out_dim)
+
+
+def pinned_ragged_error(smoke):
+    """#4 (bf16) against its plain version on the inputs of `chip_smoke.py`'s
+    pinned case, drawn here as the change's smoke draws them, so that
+    either tree can be held to them."""
+    import numpy as np
+    import torch
+
+    from distributed_llm_inference_tpu_torch.ops import ragged_attention as ra
+
+    rng = np.random.default_rng(0)
+    rows = {k: smoke.i32(v) for k, v in smoke.RAGGED_ROWS.items()}
+    s, ps = max(smoke.RAGGED_ROWS["num_new"]), 48
+    q = smoke.normal(rng, (8, s, smoke.HQ, smoke.D), torch.bfloat16)
+    width = -(-max(smoke.RAGGED_ROWS["kv_len"]) // ps) + 1
+    pages = 8 * width + 1
+    pool = smoke.make_qpool(rng, pages, ps=ps)
+    table = smoke.make_table(rng, 8, width, pages)
+    kw = dict(q_start=rows["q_start"], sliding_window=None)
+    got = ra.quantized_ragged_paged_attention(
+        q, *pool, table, rows["kv_len"], rows["num_new"], **kw)
+    want = smoke.ragged_plain_by_rows(pool, q, table, rows["kv_len"],
+                                      rows["num_new"], **kw)
+    torch.cuda.synchronize()
+    return smoke.max_err(got, want)
 
 
 def kernel_times(smoke):
-    """#9, #6, #2, #5 and #8 at phase 2's shapes in this tree, bf16:
-    milliseconds a call and launches a call (counted by the profiler)."""
+    """#14, #13, #4, #9, #6, #2, #5 and #8 at phase 2's shapes in this tree,
+    bf16: milliseconds a call and launches a call (counted by the
+    profiler)."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from distributed_llm_inference_tpu_torch.ops import paged_attention as pa
     from distributed_llm_inference_tpu_torch.ops import quant_attention as qa
+    from distributed_llm_inference_tpu_torch.ops import ragged_attention as ra
 
     rng = np.random.default_rng(99)
     flush = torch.ones(16 * 1024 * 1024, dtype=torch.int64, device="cuda")
     dtype, kt, b = torch.bfloat16, smoke.KT, 8
     calls = {}
+    int4_calls(smoke, calls)
+    width = smoke.ladder_pages(2048)
+    pool4 = smoke.make_qpool(rng, 9 * width + 1)
+    table4 = smoke.make_table(rng, 1, width, 9 * width + 1)
+    q4 = smoke.normal(rng, (1, 2048, smoke.HQ, smoke.D), dtype)
+    lens4 = smoke.i32([2048])
+    calls["#4 S=2048"] = lambda: ra.quantized_ragged_paged_attention(
+        q4, *pool4, table4, lens4, lens4)
     q = smoke.normal(rng, (b, 1, smoke.HQ, smoke.D), dtype)
     kn = smoke.normal(rng, (b, 1, smoke.HKV, smoke.D), dtype)
     vn = smoke.normal(rng, (b, 1, smoke.HKV, smoke.D), dtype)
@@ -153,13 +225,19 @@ def run_tree(root):
                 for k in profile["top_kernels"]
                 if any(n in k["name"] for n in names)}
 
+    def int4(profile):
+        """The int4 matmul's kernels among the ten that take the most time
+        (found by name in either tree): milliseconds and launches a window."""
+        return attention(profile, ("int4_",))
+
     keys = ("wall_ms", "device_ms", "device_ms_events", "kernels")
     print(json.dumps({
         "tree": root,
         "kernels": kernels,
+        "pinned_ragged_error_bf16": pinned_ragged_error(smoke),
         "windows": {
             name: {**{k: w[k] for k in keys},
-                   "attention": w["attention_kernels"]}
+                   "attention": w["attention_kernels"], "int4": int4(w)}
             for name, w in windows.items()},
         "prefill": {k: prefill[k] for k in keys},
         "prefill_attention": attention(prefill, ("flash", "mask_tiles")),

@@ -32,11 +32,13 @@ one line per engine configuration or comparison):
               (the ragged kernels' and flash's), of the fused step's
               cluster kernel over the pool and over stacks, and of the
               decode cluster kernel over bf16 and int8 pages and the int8
-              dense buffer, the ragged kernels' launch plans (C against
+              dense buffer, of the fused step's cluster kernel over the
+              sink ring and of the pool's tail flush, the ragged
+              kernels' launch plans (C against
               the wrapper's `launch_plan`), the fused step's cluster plans
               (blocks a cluster, ring stages, shared memory; over stacks
-              of T = 640 to 80000) and the host time a launch spends
-              encoding its tensor maps;
+              of T = 640 to 80000, over rings of TR = 1024 and 1056) and
+              the host time a launch spends encoding its tensor maps;
               `int4_matmul` and `int4_matmul_stacked` at the model's
               projection shapes and odd ones, and at 1, 8, 64 and 256 rows
               of the projections and the head, each call repeated (the
@@ -53,7 +55,9 @@ one line per engine configuration or comparison):
               and 128 slots with an empty row, short rows and windows that
               start inside a page; the latter also over stacks of 80000,
               where the kernel forms the scores twice), their int8 tails
-              EQUAL to the plain version's, and `paged_tail_flush`, the pool's bytes EQUAL; the
+              EQUAL to the plain version's, and `paged_tail_flush`, the pool's bytes EQUAL
+              (also KT = 48 over pages of 16, null table entries, rows
+              past the table's width, empty tails); the
               dense caches' `flash_attention` (a buffer wider than the
               prompts, an empty row, a sliding window, MHA, strided K/V; the
               causal, window, sink, random and empty-row mask families at S
@@ -70,13 +74,16 @@ one line per engine configuration or comparison):
               a partly filled, a just-full and wrapped rings, an evicted
               range across the ring's end, a row that stops; window 1024
               with 4 sinks and with none, GQA and MHA, and a span of 1050
-              whose tiles are 96 wide), its tails EQUAL, and
+              whose tiles are 96 wide; longer in-flight tails, KT = 80 and
+              48, that evict whole pieces of the cluster kernel, one of
+              them across the ring's end), its tails EQUAL, and
               `sink_tail_flush` (spans 1020 and 50, KT = 16 and 48,
               pointers near the ring's end, sink-bound heads, empty tails;
               bytes EQUAL, the padding slots untouched); last, #4's pinned
               case (seed 0, pages of 48, B = 8: the bf16 excursion that
-              rounding p * vs to bf16 caused). Then, at the shapes of the main
-              paths, each kernel's
+              rounding p * vs to bf16 caused). Then the timed call's floor
+              (an empty kernel timed as the kernels are), and, at the
+              shapes of the main paths, each kernel's
               output against the plain version's on the same inputs and its
               time beside the plain version's, a library yardstick where one
               PyTorch call computes the same function
@@ -130,8 +137,9 @@ one line per engine configuration or comparison):
               held against the plain versions. For the main paths at full
               depth, a few windows and prefill dispatches are profiled for
               the device's idle share and the kernels that take the time;
-              the windows over the int8 dense cache and over int8 and bf16
-              pages must launch their attention kernel once a call, and
+              the windows over the int8 sink ring, the int8 dense cache
+              and int8 and bf16 pages must launch their attention kernel
+              once a call (and none of the three passes), and
               the int4 windows (dense, pages, sink ring) the int4 matmul's
               bf16 kernel once a call (7 a layer and the head, each step)
               and no combine kernel. The
@@ -427,10 +435,11 @@ def compare_fused(cases, tag, dtype, form, big, base, rng, table=None,
     return err
 
 
-def compare_flush(cases, tag, pool, table, base, tail_len, rng):
+def compare_flush(cases, tag, pool, table, base, tail_len, rng, kt=KT):
     """`paged_tail_flush` (#7) against its plain version on copies of one
-    pool: every byte of every plane EQUAL. Returns the error (0)."""
-    tail = make_qplanes(rng, (pool[0].shape[0], table.shape[0], HKV), KT)
+    pool, a tail of ``kt`` slots: every byte of every plane EQUAL. Returns
+    the error (0)."""
+    tail = make_qplanes(rng, (pool[0].shape[0], table.shape[0], HKV), kt)
     mine = [p.clone() for p in pool]
     ref = [p.clone() for p in pool]
     pa.paged_tail_flush(*mine, *tail, table, base, tail_len)
@@ -447,7 +456,9 @@ def fused_cases(cases, dtype, rng):
     GQA (4 query heads per kv head) and MHA; #6 also over pages of 16, 48
     and 128 slots with an empty row and windows that start inside a page.
     #7 over mixed tail lengths, windows that straddle a page and an
-    unmapped table slot."""
+    unmapped table slot; and KT = 48 over pages of 16 (a tail across three
+    or four pages), null table entries (page 0) inside the mapped range,
+    rows that run past the table's width and rows with an empty tail."""
     width, b = 40, 8
     pages = b * width + 1
     pool = make_qplanes(rng, (2, pages, HKV), PS)
@@ -484,6 +495,16 @@ def fused_cases(cases, dtype, rng):
     compare_flush(cases, "flush_mixed", pool, flush_table,
                   i32([0, 1, 63, 64, 60, 1000, 2040, 330]),
                   i32([16, 3, 16, 0, 16, 9, 16, 1]), rng)
+    ps16, width16 = 16, 12
+    pool16 = make_qplanes(rng, (2, b * width16 + 1, HKV), ps16)
+    table16 = make_table(rng, b, width16, b * width16 + 1)
+    table16[1, 2] = 0
+    table16[2, 0:2] = 0
+    table16[6, 9] = 0
+    compare_flush(cases, "flush_kt48_ps16", pool16, table16,
+                  i32([0, 20, 0, 15, 100, 150, 140, 33]),
+                  i32([48, 48, 40, 0, 48, 48, 47, 0]), rng, kt=48)
+    del pool16
 
 
 def paged_decode_cases(cases, dtype, rng):
@@ -970,22 +991,23 @@ def sink_scalars(base, tail_len, alive, sinks, r):
 
 
 def compare_sink(cases, tag, dtype, ring, sink, base, sinks, r, rng,
-                 g=HQ // HKV, steps=4, layer=1):
+                 g=HQ // HKV, steps=4, layer=1, kt=KT, start=0):
     """`sink_fused_decode_attention` (#11) against its plain version over
-    ``steps`` steps of one window (KT = 16) on the same inputs, each side
-    with its own copy of the tail: the output within TOL, the tail's int8
-    values and scales EQUAL. The last row stops after the first step.
-    Returns the output's error."""
+    ``steps`` steps of one window (a tail of ``kt`` slots, the steps from
+    slot ``start`` on, every row's tail that long before them) on the same
+    inputs, each side with its own copy of the tail: the output within TOL,
+    the tail's int8 values and scales EQUAL. The last row stops after the
+    first step. Returns the output's error."""
     b = base.shape[0]
-    tail = make_qplanes(rng, (ring[0].shape[0], b, HKV), KT)
+    tail = make_qplanes(rng, (ring[0].shape[0], b, HKV), kt)
     tail2 = [t.clone() for t in tail]
-    tail_len = torch.zeros(b, dtype=torch.int32, device=DEV)
+    tail_len = torch.full((b,), start, dtype=torch.int32, device=DEV)
     alive = torch.ones(b, dtype=torch.int32, device=DEV)
     err = tail_err = 0.0
     for step in range(steps):
         q, qs = (normal(rng, (b, 1, HKV * g, D), dtype) for _ in range(2))
         kn, vn = (normal(rng, (b, 1, HKV, D), dtype) for _ in range(2))
-        kw = dict(layer_idx=layer, step_idx=i32([step]), ring_slots=r,
+        kw = dict(layer_idx=layer, step_idx=i32([start + step]), ring_slots=r,
                   **sink_scalars(base, tail_len, alive, sinks, r))
         got = qa.sink_fused_decode_attention(q, qs, kn, vn, *ring, *sink,
                                              *tail, **kw)[0]
@@ -1027,12 +1049,29 @@ def sink_rows(sinks, r):
                 sinks + 3 * r + r - 2, sinks + r + 77, 5000, 777])
 
 
+def evict_rows(sinks, r, pw):
+    """Stream lengths of 8 rows whose in-flight tail (``evict_len`` of 41
+    or more, a tail of 48 or 80) evicts whole pieces of ``pw`` slots: a
+    full ring whose pointer sits on a piece's edge (the piece from it
+    evicted whole), a pointer 2 slots before the ring's end (the evicted
+    range wraps past it, the ring's first piece evicted whole), a pointer
+    one piece in; an empty row (the tail alone), a row in the sink phase, a
+    partly filled ring, a pointer inside a piece, and a row that stops
+    after the first step."""
+    return i32([sinks + r + 5 * pw, sinks + 3 * r - 2, sinks + r + pw, 0,
+                min(2, sinks), sinks + 300, sinks + r + 7, 777])
+
+
 def sink_cases(cases, dtype, rng):
     """#11 at B = 8 over the main path's ring (window 1024, 4 sinks: r =
-    1020, TR = 1024, 256-wide tiles) with 4 and 1 query heads per kv head,
-    without sinks, and over r = 1050 (TR = 1056: 96-wide tiles); #12 over
-    the main ring and r = 50 (TR = 64) at KT = 16 and 48, pointers near the
-    ring's end, sink-bound heads, empty and full tails."""
+    1020, TR = 1024, 256-wide tiles dealt as pieces of 64) with 4 and 1
+    query heads per kv head, without sinks, and over r = 1050 (TR = 1056:
+    96-wide tiles, pieces of 32); over both again with a longer in-flight
+    tail (KT = 80 from slot 66, KT = 48 from slot 40) that evicts whole
+    pieces, one of them past the ring's end; over a ring of TR = 90112,
+    where the kernel forms the scores twice; #12 over the main ring and r
+    = 50 (TR = 64) at KT = 16 and 48, pointers near the ring's end,
+    sink-bound heads, empty and full tails."""
     for sinks, r, g in ((4, 1020, HQ // HKV), (4, 1020, 1), (0, 1020, HQ // HKV),
                         (4, 1050, HQ // HKV)):
         tr = -(-r // 32) * 32
@@ -1040,6 +1079,27 @@ def sink_cases(cases, dtype, rng):
         sink = make_qplanes(rng, (2, 8, HKV), 32)
         compare_sink(cases, f"qsink_g{g}_s{sinks}_r{r}", dtype, ring, sink,
                      sink_rows(sinks, r), sinks, r, rng, g=g)
+    for r, kt, start, g in ((1020, 80, 66, HQ // HKV), (1050, 48, 40, 1)):
+        tr = -(-r // 32) * 32
+        pw = qa.ring_piece_width(qa.ring_tile_width(tr))
+        ring = make_qplanes(rng, (2, 8, HKV), tr)
+        sink = make_qplanes(rng, (2, 8, HKV), 32)
+        compare_sink(cases, f"qsink_evict_g{g}_r{r}_kt{kt}", dtype, ring,
+                     sink, evict_rows(4, r, pw), 4, r, rng, g=g, kt=kt,
+                     start=start)
+    # The instance that forms the scores twice: a ring so wide (TR = 90112,
+    # 1410 pieces a row) that at 4 query heads a kv head a block's scores
+    # do not all fit its shared memory (its plan says so); two rows, a
+    # wrapped and a partly filled ring.
+    wide = 90112
+    assert sink_plan(wide, KT, HQ // HKV)["scores_kept"] == 0
+    gen = torch.Generator(device=DEV).manual_seed(int(rng.integers(2**62)))
+    ring = random_qplanes(gen, (2, 2, HKV), wide)
+    sink = make_qplanes(rng, (2, 2, HKV), 32)
+    r = wide - 4
+    compare_sink(cases, f"qsink_g4_s4_r{r}", dtype, ring, sink,
+                 i32([4 + 3 * r - 2, 4 + 70001]), 4, r, rng, steps=2)
+    del ring
     for r in (1020, 50):
         tr = -(-r // 32) * 32
         for kt in (KT, 48):
@@ -1631,13 +1691,23 @@ def time_sink(out, cases, rng, flush):
     del big, tail
 
 
+def timed_call_floor_ms(flush, iters=50):
+    """What :func:`time_ms` reads for an empty kernel (PyTorch's spin
+    kernel asked for 0 cycles) behind the same spin and L2 read: the fixed
+    cost of a timed call, against which a kernel's gap to its bound is
+    read."""
+    return time_ms(lambda: torch.cuda._sleep(0), iters, flush)
+
+
 def time_kernels():
     """Every kernel in bf16 at the shapes of the main path (see
     :func:`time_attention`, :func:`time_int4`). Each kernel's output is
     first held against the plain version's on these very inputs; that error
-    is the one reported beside the times."""
+    is the one reported beside the times. Returns the times and the timed
+    call's floor (:func:`timed_call_floor_ms`)."""
     rng = np.random.default_rng(99)
     flush = torch.ones(16 * 1024 * 1024, dtype=torch.int64, device=DEV)
+    floor = timed_call_floor_ms(flush)
     width = ladder_pages(2048)
     pages = 9 * width + 1
     out, cases = {}, []
@@ -1649,7 +1719,7 @@ def time_kernels():
     time_dense(out, cases, rng, flush)
     time_sink(out, cases, rng, flush)
     assert_cases(cases, torch.bfloat16)
-    return out
+    return out, floor
 
 
 # Kernel name -> the prefix of its cases in phase 2.
@@ -1693,6 +1763,13 @@ def cluster_instance(mangled):
     last = mangled.split("ELi")[-1]
     keep = "scores kept" if last[1:].startswith("ELb1") else "K read twice"
     return f"G={last[0]} {q} q, {keep}"
+
+
+def flush_instance(mangled):
+    """``tail_flush_kernel<WORDS>`` (#7) -> its label, else None."""
+    if "tail_flush_kernelILi" not in mangled:
+        return None
+    return f"WORDS={mangled.split('tail_flush_kernelILi')[1][0]}"
 
 
 def decode_instance(mangled):
@@ -1811,6 +1888,21 @@ def dense_plan(t, g):
     return dict(zip(PLAN_KEYS, list(got)))
 
 
+def sink_plan(tr, kt, g):
+    """#11's cluster launch over a ring of ``tr`` slots (its tiles of
+    ``ring_tile_width``, pieces of ``ring_piece_width``), 32 sink slots, a
+    tail of ``kt`` (``dli_sink_cluster_plan``): the plan's values, the
+    pieces a row may have and the widest piece."""
+    fn = _build.load_library("sink_attention").dli_sink_cluster_plan
+    fn.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    got = (ctypes.c_longlong * 9)()
+    tile = qa.ring_tile_width(tr)
+    assert fn(tr, 32, kt, tile, qa.ring_piece_width(tile), g,
+              ctypes.addressof(got)) == 0
+    return dict(zip(PLAN_KEYS[:7] + ("pieces_a_row", "widest_piece"),
+                    list(got)))
+
+
 def decode_plan(int8, g, c):
     """The decode cluster kernel's occupancy (``dli_decode_occupancy``)
     over bf16 or int8 rows, ``g`` query heads a kv head, clusters of ``c``
@@ -1878,7 +1970,7 @@ def phase_kernels():
     t0 = time.perf_counter()
     ptxas = {name: _build.ptxas_report(name) for name in (
         "ragged_attention", "flash_attention", "paged_attention",
-        "quant_attention", "int4_matmul")}
+        "quant_attention", "int4_matmul", "sink_attention")}
     built = _build.build_all()
     build_s = time.perf_counter() - t0
     ptxas = {name: ptxas_text(proc) for name, proc in ptxas.items()}
@@ -1891,6 +1983,10 @@ def phase_kernels():
             ptxas["paged_attention"], cluster_instance, 8),
         "fused_cluster_kernel (stacks, #9)": ptxas_lines(
             ptxas["quant_attention"], cluster_instance, 8),
+        "fused_cluster_kernel (sink ring, #11)": ptxas_lines(
+            ptxas["sink_attention"], cluster_instance, 8),
+        "tail_flush_kernel (#7)": ptxas_lines(
+            ptxas["paged_attention"], flush_instance, 1),
         "paged_decode_kernel (#2, #5)": ptxas_lines(
             ptxas["paged_attention"], decode_instance, 4),
         "paged_decode_kernel (#8)": ptxas_lines(
@@ -1910,6 +2006,9 @@ def phase_kernels():
     for t in (640, 2048, 4096, RECOMPUTE_T):
         for g in (HQ // HKV, 1):
             fused_plan[f"#9 T={t} KT={KT} G={g}"] = dense_plan(t, g)
+    for tr, kt in ((1024, KT), (1056, 48), (1024, 80)):
+        for g in (HQ // HKV, 1):
+            fused_plan[f"#11 TR={tr} KT={kt} G={g}"] = sink_plan(tr, kt, g)
     decode_plans = {
         f"{'int8' if int8 else 'bf16'} G={g} C={c}": decode_plan(int8, g, c)
         for int8 in (False, True) for g in (HQ // HKV, 1) for c in (2, 4, 8)}
@@ -1917,7 +2016,7 @@ def phase_kernels():
     errs = {}
     for dtype in (torch.bfloat16, torch.float32):
         errs[dtype] = check_cases(dtype)
-    times = time_kernels()
+    times, floor = time_kernels()
     map_us = tensor_map_host_us()
     kernels = []
     for name, prefix in CASE_PREFIX.items():
@@ -1940,8 +2039,9 @@ def phase_kernels():
           "decode_cluster_plans": decode_plans,
           "int4_mma_sass": int4_sass, "int4_mma_plans": int4_plans(),
           "ragged_c_call_host_us": map_us,
+          "timed_call_floor_ms": floor,
           "checked": kernels})
-    return times
+    return times, floor
 
 
 # ---------------------------------------------------------------------------
@@ -2071,11 +2171,14 @@ def device_breakdown(prof, wall_ms, steps):
 
 SPIN_AHEAD_CYCLES = 1_000_000_000  # about 0.5 s of device spin
 # The decode attention kernels, by the names the profiler gives them: the
-# one-launch forms, the three passes (#11 and, before, #6 and #9) and the
-# split walk with its merge (#5, #8 and f32 #2; bf16 #2 before).
+# one-launch forms, the split walk with its merge (the f32 instances of #2,
+# #5 and #8) and, by name only, the three passes that #6, #9 and #11 took
+# before their cluster kernel (PASS_KERNELS: no code defines them now, and
+# a path held to one launch a call must run none).
+PASS_KERNELS = ("fused_scores_kernel", "fused_sums_kernel",
+                "fused_combine_kernel")
 ATTENTION_KERNELS = ("fused_cluster_kernel", "paged_decode_kernel",
-                     "fused_scores_kernel", "fused_sums_kernel",
-                     "fused_combine_kernel", "paged_partial_kernel",
+                     *PASS_KERNELS, "paged_partial_kernel",
                      "paged_combine_kernel")
 # The int4 matmul's kernels: bf16 x (one launch a call), f32 x (the
 # CUDA-core kernel, with the combine of its split partials).
@@ -2610,6 +2713,10 @@ def run_config(label, cfg, params, ekw, ckw, counters, profile=True,
                 break
             report["decode_profile"] = profile_decode(
                 cfg, params, ekw, ckw, counters)
+        if one_launch:
+            ran = [n for n in PASS_KERNELS
+                   if n in report["decode_profile"]["attention_kernels"]]
+            assert not ran, f"{label}: the three passes ran ({ran})"
         if want:
             report["decode_profile"]["launches_by_session"] = sessions
             for (_, name), n in want.items():
@@ -2708,7 +2815,7 @@ def phase_engine():
         "main path: int4 weights (half-split), int8 sink ring (window 1024, "
         "4 sinks), K=16", cfg, params, {"quantization": "int4"},
         {"kv_quant": "int8", **SINK}, MAIN_SINK, traffic=SINK_TRAFFIC,
-        int4_launch=True)[1])
+        one_launch="fused_cluster_kernel", int4_launch=True)[1])
     take(run_config(
         "dense main path: int4 weights (half-split), int8 dense KV, K=16", cfg,
         params, {"quantization": "int4"}, {"kv_quant": "int8", **DENSE},
@@ -3040,7 +3147,7 @@ def main() -> int:
         return 1
     t0 = time.perf_counter()
     phase_device()
-    timed = phase_kernels()
+    timed, floor = phase_kernels()
     launches = phase_engine()
     phase_parity()
     assert set(timed) == set(REPLACES) == set(launches), (
@@ -3053,7 +3160,7 @@ def main() -> int:
          "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
          "library_ms": k["library_ms"], "shape": k["shape"]}
         for name, k in timed.items()
-    ], "seconds": time.perf_counter() - t0})
+    ], "timed_call_floor_ms": floor, "seconds": time.perf_counter() - t0})
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}})

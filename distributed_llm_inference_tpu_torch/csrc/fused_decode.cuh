@@ -1,19 +1,18 @@
 // Fused decode step over int8 K/V with an int8 write-behind tail, for
 // Hopper (sm_90a). Shared by three TPU kernels' replacements, each a
-// geometry policy of the kernels below:
+// geometry policy of the one kernel below, `fused_cluster_kernel`:
 //
 // * `quantized_paged_fused_attention` (distributed_llm_inference_tpu/ops/
 //   paged_attention.py), whose big segment is the int8 page pool read in
-//   place through the page table (BigThenTail<true>, csrc/paged_attention.cu):
-//   one launch, a thread-block cluster a (row, kv head) (below);
+//   place through the page table (BigThenTail<true>, csrc/paged_attention.cu);
 // * `quantized_fused_decode_attention` (distributed_llm_inference_tpu/ops/
 //   quant_attention.py), whose big segment is a contiguous [L, B, Hkv, T, D]
 //   stack, the dense cache's own buffers or the int8 pool's rows gathered
-//   once per window (BigThenTail<false>, csrc/quant_attention.cu): the same
-//   one launch, its 256-wide tiles dealt to the cluster as pieces of 64;
-// * `sink_fused_decode_attention` (the same file), the int8 sink ring: masked
-//   ring tiles, a tile of sinks with a query of its own, then the tail
-//   (csrc/sink_attention.cu): three launches over a scratch.
+//   once per window (BigThenTail<false>, csrc/quant_attention.cu), its
+//   256-wide tiles dealt to the cluster as pieces of 64;
+// * `sink_fused_decode_attention` (the same file), the int8 sink ring
+//   (sink::Ring, csrc/sink_attention.cu): masked ring tiles dealt as
+//   pieces, a tile of sinks scored with a query of its own, then the tail.
 //
 // tail_scatter_kernel at the end is the window's flush into contiguous
 // planes, shared by the dense cache and the sink ring in the same way.
@@ -30,47 +29,34 @@
 // q and p * vs are rounded to bf16 before the two products (int8 K and V are
 // exact in bf16; the products are exact in f32), scores are
 // (q . k) * ks * scale, and the softmax walks the SAME tiles in the same
-// order with the same running max: a tile is one page (Paged) or `tile`
-// positions (contiguous, min(256, T)), and the tail is one tile after them.
-// The running max at each tile decides how p * vs rounds. Tiles that hold
-// no live position are skipped; in the TPU kernel they are exact no-ops
-// (alpha = 1, p = 0). The score of a position is summed in a fixed order
-// (16 products a lane in turn, then a butterfly over the lanes) that the
-// plain version repeats (ops/quant_attention.py:_lane_order_dot): a score
-// one ulp apart can round p * vs to the neighbouring bf16 value, which a
-// short row feels at 1e-3.
+// order with the same running max: a tile is one page (Paged), `tile`
+// positions (contiguous, min(256, T); the sink ring's ring_tile_width), the
+// sinks (the ring), and the tail is one tile after them. The running max at
+// each tile decides how p * vs rounds. Tiles that hold no live position are
+// skipped; in the TPU kernel they are exact no-ops (alpha = 1, p = 0). The
+// score of a position is summed in a fixed order (16 products a lane in
+// turn, then a butterfly over the lanes) that the plain version repeats
+// (ops/quant_attention.py:_lane_order_dot): a score one ulp apart can round
+// p * vs to the neighbouring bf16 value, which a short row feels at 1e-3.
 //
 // The tiles of a row run in parallel and still see the running max of the
 // sequential walk: each tile's max is taken first, and the running max at
 // tile j is the prefix max of the tile maxima, exactly what the walk holds
 // there; each tile's sums are scaled by exp(m_j - m_last) (the product of
-// the walk's alpha factors after it) when they are added up. Two ways:
-//
-// * Three launches (`launch_passes`, the sink ring): 1. one block per
-//   (row, kv head, tile) computes the tile's scores for the G query heads
-//   (K read once for all of them) into scratch, and the tile's max; the
-//   tail's block first quantizes the step's K/V and writes slot `step`;
-//   2. one block per (row, kv head, tile) takes the prefix max,
-//   p = exp(s - m), the tile's sum of p, bf16(p * vs) and its P V, into
-//   scratch; 3. one block per (row, query head) adds the tiles' sums and
-//   normalises. The grid is (B, Hkv, NT), NT fixed by the table.
-// * One launch (`launch_cluster`, the paged and contiguous forms): a
-//   thread-block cluster per (row, kv head) deals the row's pieces of tiles
-//   to its blocks and exchanges their maxima and the sums through
-//   distributed shared memory behind cluster barriers; nothing goes through
-//   device memory but the inputs, the tail slot and the output (see the
-//   section below).
+// the walk's alpha factors after it) when they are added up. One launch
+// (`launch_cluster`): a thread-block cluster per (row, kv head) deals the
+// row's pieces of tiles to its blocks and exchanges their maxima and the
+// sums through distributed shared memory behind cluster barriers; nothing
+// goes through device memory but the inputs, the tail slot and the output
+// (see the section below).
 //
 // `step` is read from device memory, so a CUDA graph that captures the
-// launches stays valid for every step of the window.
+// launch stays valid for every step of the window.
 //
 // What bounds it on this card: bytes (every live K and V byte is read once
-// for a few flops). The three passes add 4 bytes a score of scratch,
-// written and read, D floats a tile, and blocks past a row's live tiles that
-// start only to return; their sums pass stages V with plain loads and runs
-// an n-long loop a thread (7.0x the bytes bound for #6 on an H100,
-// PERF.md). The cluster kernel keeps every stage of a block in flight at
-// once by bulk copies, and splits P V over the warps.
+// for a few flops). The kernel keeps every stage of a block in flight at
+// once by bulk copies, splits P V over the warps, and keeps the scores,
+// maxima and sums on chip: no scratch round trip, no second launch.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -104,16 +90,6 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
 }
 
-// 16 int8 values of one 16-byte word as floats (sign-extended bytes).
-__device__ __forceinline__ void unpack16(uint4 v, float* o) {
-  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      o[4 * i + j] = (float)((int32_t)(w[i] << (24 - 8 * j)) >> 24);
-}
-
 __device__ __forceinline__ float block_max(float v, float* red) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1)
@@ -123,18 +99,6 @@ __device__ __forceinline__ float block_max(float v, float* red) {
   float r = red[0];
 #pragma unroll
   for (int w = 1; w < kWarps; ++w) r = fmaxf(r, red[w]);
-  __syncthreads();
-  return r;
-}
-
-__device__ __forceinline__ float block_sum(float v, float* red) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
-  __syncthreads();
-  float r = red[0];
-#pragma unroll
-  for (int w = 1; w < kWarps; ++w) r += red[w];
   __syncthreads();
   return r;
 }
@@ -158,22 +122,17 @@ struct DenseRows {
   __device__ __forceinline__ size_t row(int pos) const { return pos; }
 };
 
-// What every form passes: the queries, the step's K/V, the tail planes it is
-// quantized into, the output and (three passes) the scratch.
+// What every form passes: the query, the step's K/V, the tail planes it is
+// quantized into, the output.
 struct Common {
   const void *q, *k_new, *v_new;          // [B, Hq, D], [B, Hkv, D] x2
   int8_t *tail_k, *tail_v;                // [L, B, Hkv, KT, D]
   float *tail_ks, *tail_vs;               // [L, B, Hkv, KT]
   const int* step;                        // one int32 in device memory
   void* out;                              // [B, Hq, D]
-  float* scratch;     // the three passes: B * Hq * NT * (W + 3 + D) floats:
-                      // scores [NT, W], tile max, running max, sum of p
-                      // [NT], P V [NT, D] of each (row, query head), in
-                      // that order (null for the cluster kernel)
   int B, Hkv, KT, layer;
-  int NT, W;          // tiles a row may have (tail included), widest tile
-                      // (the cluster kernel: widest piece, a stage's rows)
-  int NP;             // the cluster kernel: pieces a row may have
+  int W;              // widest piece: a stage's rows
+  int NP;             // pieces a row may have
   float scale;
 };
 
@@ -262,17 +221,21 @@ struct AllLive {
   __device__ __forceinline__ bool operator()(int) const { return true; }
 };
 
-// The passes below are written against a geometry policy P, the kernels'
+// The cluster kernel is written against a geometry policy P, the kernel's
 // argument struct (Common and the form's own fields), which provides:
-//   P::Geo geo(b)           a row's tiles; Geo::ntiles counts them;
-//   bool is_tail(geo, j)    tile j is the tail (quantize the step there);
-//   const void* query(geo, j)         the query tile j is scored with;
-//   visit(geo, b, h, j, f)  calls f(rows, vlo, n, live): tile j is
-//                           positions [vlo, vlo + n) of `rows`, valid
-//                           where live(i).
-// csrc/sink_attention.cu has the sink ring's. BigThenTail, the paged and
-// contiguous forms' policy, serves the cluster kernel instead: geo, query
-// and visit_piece (the same over pieces, Geometry::piece).
+//   P::Geo geo(b)            a row's pieces: Geo::npieces counts them,
+//                            Geo::piece(k, vlo, n) gives piece k's positions,
+//                            Geo::tile_last_piece(k) the last piece of the
+//                            tile holding piece k, Geo::step_piece(step) the
+//                            piece holding tail slot `step` (or -1);
+//   int query(geo, k)        the query piece k is scored with: 0 = q, 1 =
+//                            the policy's second (kTwoQueries);
+//   const void* query_ptr(i) query i, [B, Hq, D];
+//   visit_piece(geo, b, h, k, f)  calls f(rows, vlo, n, live): piece k is
+//                            positions [vlo, vlo + n) of `rows`, contiguous
+//                            from rows.row(vlo), valid where live(i).
+// BigThenTail below is the paged and contiguous forms'; sink::Ring
+// (csrc/sink_attention.cu) the sink ring's.
 template <bool Paged>
 struct BigRows;
 template <>
@@ -296,9 +259,10 @@ struct BigRows<false> {
 template <bool Paged>
 struct BigThenTail : Args {
   using Geo = Geometry;
+  static constexpr bool kTwoQueries = false;
   __device__ Geo geo(int b) const { return Geometry(*this, b, Paged); }
-  __device__ const void* query(const Geo&, int) const { return q; }
-  // Piece k (Geo::piece): f(rows, vlo, n, live) as a passes policy's visit.
+  __device__ int query(const Geo&, int) const { return 0; }
+  __device__ const void* query_ptr(int) const { return q; }
   template <class F>
   __device__ void visit_piece(const Geo& g, int b, int h, int k,
                               F&& f) const {
@@ -311,247 +275,16 @@ struct BigThenTail : Args {
   }
 };
 
-// Pass 1, scores of one tile for the G query heads of kv head h. Position
-// `fresh` reads the step's quantized K from shared memory. A position i of
-// the tile for which `is_live(i)` is false (the sink ring's masked slots)
-// reads nothing, scores kNegInf and leaves the tile's max alone.
-template <int G, class Rows, class Live>
-__device__ __forceinline__ void tile_scores(float scale, const Rows& rows,
-                                            int vlo, int n, int fresh,
-                                            const int8_t* fresh_k,
-                                            float fresh_ks,
-                                            const float (&qr)[G][kEPL],
-                                            float* const (&s)[G],
-                                            float (&mloc)[G],
-                                            const Live& is_live) {
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int grp = lane / kLPP;
-  const int sub = lane % kLPP;
-  for (int i0 = warp * kPPW; i0 < n; i0 += kWarps * kPPW) {
-    const int i = i0 + grp;
-    const bool in = i < n;
-    const bool live = in && is_live(i);
-    float kk[kEPL];
-    float ksc = 0.f;
-    if (live) {
-      const int pos = vlo + i;
-      uint4 kw;
-      if (pos == fresh) {
-        kw = reinterpret_cast<const uint4*>(fresh_k)[sub];
-        ksc = fresh_ks;
-      } else {
-        const size_t r = rows.row(pos);
-        kw = reinterpret_cast<const uint4*>(rows.k + r * kD)[sub];
-        ksc = rows.ks[r];
-      }
-      unpack16(kw, kk);
-    } else {
-#pragma unroll
-      for (int e = 0; e < kEPL; ++e) kk[e] = 0.f;
-    }
-#pragma unroll
-    for (int g = 0; g < G; ++g) {
-      float dot = 0.f;
-#pragma unroll
-      for (int e = 0; e < kEPL; ++e) dot += qr[g][e] * kk[e];
-#pragma unroll
-      for (int o = kLPP / 2; o > 0; o >>= 1)
-        dot += __shfl_xor_sync(0xffffffffu, dot, o);
-      if (in && sub == 0) {
-        const float sc = live ? dot * ksc * scale : kNegInf;
-        s[g][i] = sc;
-        mloc[g] = fmaxf(mloc[g], sc);
-      }
-    }
-  }
-}
-
-template <typename T, class P, int G>
-__global__ void __launch_bounds__(kThreads) fused_scores_kernel(P a) {
-  __shared__ __align__(16) int8_t fresh_k[kD];
-  __shared__ float fresh_ks;
-  __shared__ float red[kWarps];
-  const int b = blockIdx.x;
-  const int h = blockIdx.y;
-  const int j = blockIdx.z;
-  const int t = threadIdx.x;
-  const auto geo = a.geo(b);
-  if (j >= geo.ntiles) return;
-  const size_t bh = (size_t)b * a.Hkv + h;
-  const bool is_tail = a.is_tail(geo, j);
-  const int step = *a.step;
-  if (is_tail) {
-    // This step's K/V, quantized as _quantize_kv does, into tail slot
-    // `step` (this block alone writes it) and into shared memory.
-    const float kx = to_f(static_cast<const T*>(a.k_new)[bh * kD + t]);
-    const float vx = to_f(static_cast<const T*>(a.v_new)[bh * kD + t]);
-    const float ksc = fmaxf(block_max(fabsf(kx), red), 1e-8f) / 127.f;
-    const float vsc = fmaxf(block_max(fabsf(vx), red), 1e-8f) / 127.f;
-    const int8_t kq = (int8_t)fminf(fmaxf(rintf(kx / ksc), -127.f), 127.f);
-    const int8_t vq = (int8_t)fminf(fmaxf(rintf(vx / vsc), -127.f), 127.f);
-    const size_t trow = ((size_t)a.layer * a.B + b) * a.Hkv + h;
-    a.tail_k[(trow * a.KT + step) * kD + t] = kq;
-    a.tail_v[(trow * a.KT + step) * kD + t] = vq;
-    if (t == 0) {
-      a.tail_ks[trow * a.KT + step] = ksc;
-      a.tail_vs[trow * a.KT + step] = vsc;
-      fresh_ks = ksc;
-    }
-    fresh_k[t] = kq;
-    __syncthreads();
-  }
-  // The query heads' slices of the tile's query, rounded to bf16 as the TPU
-  // kernel's product does, in the lane layout of tile_scores.
-  const T* qsrc = static_cast<const T*>(a.query(geo, j));
-  const int sub = (t & 31) % kLPP;
-  float qr[G][kEPL];
-#pragma unroll
-  for (int g = 0; g < G; ++g) {
-    const T* qp = qsrc + (bh * G + g) * kD + sub * kEPL;
-#pragma unroll
-    for (int e = 0; e < kEPL; ++e) qr[g][e] = bf16_round(to_f(qp[e]));
-  }
-  float* s[G];
-  float mloc[G];
-#pragma unroll
-  for (int g = 0; g < G; ++g) {
-    s[g] = a.scratch + ((bh * G + g) * a.NT + j) * a.W;
-    mloc[g] = kNegInf;
-  }
-  const int fresh = is_tail ? step : -1;
-  const float fks = is_tail ? fresh_ks : 0.f;
-  const int8_t* fk = fresh_k;
-  a.visit(geo, b, h, j,
-          [&](const auto& rows, int vlo, int n, const auto& live) {
-            tile_scores<G>(a.scale, rows, vlo, n, fresh, fk, fks, qr, s,
-                           mloc, live);
-          });
-  float* tmax = a.scratch + (size_t)a.B * a.Hkv * G * a.NT * a.W;
-#pragma unroll
-  for (int g = 0; g < G; ++g) {
-    const float m = block_max(mloc[g], red);
-    if (t == 0) tmax[(bh * G + g) * a.NT + j] = m;
-  }
-}
-
-// Pass 2, the sums of one tile under the running max at it; a slot that is
-// not live takes p = 0.
-template <class P, int G>
-__global__ void __launch_bounds__(kThreads) fused_sums_kernel(P a) {
-  __shared__ float pw[G][kMaxTile];
-  __shared__ __align__(16) int8_t v[kMaxTile][kD];
-  __shared__ float vsm[kMaxTile];
-  __shared__ float mj[G];
-  __shared__ float red[kWarps];
-  const int b = blockIdx.x;
-  const int h = blockIdx.y;
-  const int j = blockIdx.z;
-  const int t = threadIdx.x;
-  const auto geo = a.geo(b);
-  if (j >= geo.ntiles) return;
-  const size_t bh = (size_t)b * a.Hkv + h;
-  const size_t heads = (size_t)a.B * a.Hkv * G;
-  const float* scores = a.scratch;
-  const float* tmax = scores + heads * a.NT * a.W;
-  float* run_m = const_cast<float*>(tmax) + heads * a.NT;
-  float* sum_l = run_m + heads * a.NT;
-  float* sum_pv = sum_l + heads * a.NT;
-  if (t < G) {
-    float m = kNegInf;
-    for (int k = 0; k <= j; ++k) m = fmaxf(m, tmax[(bh * G + t) * a.NT + k]);
-    mj[t] = m;
-  }
-  a.visit(geo, b, h, j, [&](const auto& rows, int vlo, int n,
-                            const auto& live) {
-    constexpr int kChunks = kD / 16;
-    for (int idx = t; idx < n * kChunks; idx += kThreads) {
-      const int i = idx / kChunks;
-      const int c = idx % kChunks;
-      const size_t r = rows.row(vlo + i);
-      reinterpret_cast<uint4*>(v[i])[c] =
-          reinterpret_cast<const uint4*>(rows.v + r * kD)[c];
-    }
-    for (int i = t; i < n; i += kThreads) vsm[i] = rows.vs[rows.row(vlo + i)];
-    __syncthreads();
-    float lsum[G];
-#pragma unroll
-    for (int g = 0; g < G; ++g) {
-      lsum[g] = 0.f;
-      const float* sg = scores + ((bh * G + g) * a.NT + j) * a.W;
-      for (int i = t; i < n; i += kThreads) {
-        const float p = live(i) ? expf(sg[i] - mj[g]) : 0.f;
-        lsum[g] += p;
-        pw[g][i] = bf16_round(p * vsm[i]);
-      }
-    }
-#pragma unroll
-    for (int g = 0; g < G; ++g) {
-      // block_sum's barriers also publish pw to every thread.
-      const float l = block_sum(lsum[g], red);
-      const size_t o = (bh * G + g) * a.NT + j;
-      float acc = 0.f;
-      for (int i = 0; i < n; ++i) acc += pw[g][i] * (float)v[i][t];
-      sum_pv[o * kD + t] = acc;
-      if (t == 0) {
-        run_m[o] = mj[g];
-        sum_l[o] = l;
-      }
-    }
-  });
-}
-
-// Pass 3, one (row, query head): the tiles' sums, each scaled by
-// exp(m_tile - m_last), normalised.
-template <typename T, class P>
-__global__ void __launch_bounds__(kThreads) fused_combine_kernel(P a, int G) {
-  const int b = blockIdx.x;
-  const int hq = blockIdx.y;
-  const int t = threadIdx.x;
-  const int ntiles = a.geo(b).ntiles;
-  const size_t heads = (size_t)a.B * a.Hkv * G;
-  const float* run_m = a.scratch + heads * a.NT * a.W + heads * a.NT;
-  const float* sum_l = run_m + heads * a.NT;
-  const float* sum_pv = sum_l + heads * a.NT;
-  const size_t o = ((size_t)b * a.Hkv * G + hq) * a.NT;
-  float num = 0.f, den = 0.f;
-  if (ntiles > 0) {
-    const float m_last = run_m[o + ntiles - 1];
-    for (int k = 0; k < ntiles; ++k) {
-      const float w = expf(run_m[o + k] - m_last);
-      num += w * sum_pv[(o + k) * kD + t];
-      den += w * sum_l[o + k];
-    }
-  }
-  // A row with nothing to attend gives zeros.
-  store(static_cast<T*>(a.out) + ((size_t)b * a.Hkv * G + hq) * kD + t,
-        num / fmaxf(den, 1e-20f));
-}
-
-template <typename T, class P, int G>
-int launch_passes(const P& a, cudaStream_t s) {
-  const dim3 grid(a.B, a.Hkv, a.NT);
-  fused_scores_kernel<T, P, G><<<grid, kThreads, 0, s>>>(a);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  fused_sums_kernel<P, G><<<grid, kThreads, 0, s>>>(a);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  fused_combine_kernel<T, P><<<dim3(a.B, a.Hkv * G), kThreads, 0, s>>>(a, G);
-  return static_cast<int>(cudaGetLastError());
-}
-
 // ---------------------------------------------------------------------------
 // One launch: a thread-block cluster a (row, kv head)
 // ---------------------------------------------------------------------------
 //
-// The same walk as the three passes above, in one launch (the paged form,
-// #6, and the contiguous form, #9; the sink ring keeps the passes). A
-// cluster of kCluster blocks serves one (row, kv head); the row's pieces of
-// tiles (Geometry::piece: a page, the paged tail, or up to kPiece positions
-// of a contiguous tile or tail, never across a tile's edge), read from
-// base_len, tail_valid_len and q_positions at run time, are dealt to its
-// blocks in turn (piece k to block k % kCluster), so one fixed grid of
+// A cluster of kCluster blocks serves one (row, kv head); the row's pieces
+// of tiles (Geometry::piece: a page, the paged tail, or up to kPiece
+// positions of a contiguous tile or tail; sink::Ring's: up to 64 positions
+// of a ring tile, the sinks, the tail; never across a tile's edge), read
+// from the per-row vectors at run time, are dealt to its blocks in turn
+// (piece k to block k % kCluster), so one fixed grid of
 // (kCluster, Hkv, B) blocks serves every row length, and a block with no
 // piece only takes part in the exchanges. Pieces narrower than the TPU
 // kernel's 256-wide tiles keep all seven blocks at work on a short row
@@ -563,7 +296,7 @@ int launch_passes(const P& a, cudaStream_t s) {
 //    stages, every stage in flight at once; its V rows follow into the
 //    stages its K rows free, so they arrive while the scores are computed
 //    and exchanged. The scores of the G query heads stay in shared memory,
-//    as in `tile_scores`, and so does each piece's max.
+//    and so does each piece's max.
 // 2. Exchange. Behind a cluster barrier every block reads the piece maxima
 //    of the whole row from the blocks' shared memory (distributed shared
 //    memory), takes their running maxima in order, and gives each piece the
@@ -594,9 +327,13 @@ int launch_passes(const P& a, cudaStream_t s) {
 // order of the f32 sums of P V, l and the combine differs. No scratch in
 // device memory.
 //
-// A policy for this path provides what the passes' policies do (geo,
-// query) and visit_piece, and its pieces' rows must be contiguous from
-// rows.row(vlo) (true of pages, of the tail and of the contiguous stacks).
+// The query's bf16-rounded slices sit in registers (qr) while a piece is
+// scored. A policy with a second query (the sink ring's q_sink, for its
+// sink piece), and the instance that reads K twice, have the queries
+// staged in shared memory, rounded, at the start: the first loads qr from
+// there whenever the next piece takes the other query, so no second
+// register set is held; the second loads qr before each piece it scores,
+// so that no query register is held through the sums.
 
 // 4 int8 (one word, element 0 in the low byte) as exact floats, without
 // conversion instructions: each byte, biased to b + 128, becomes the low
@@ -631,14 +368,16 @@ __host__ __device__ __forceinline__ int cluster_align(int x) {
 // [M][G][W] (or [1][G][W] where `keep` is false), bf16(p * vs) [W][G], the
 // piece maxima [M][G] (and the warps' [M][kWarps][G]) and sizes [M], the
 // row's maxima [NP][G], the step's K/V and scales, the block's sums of l
-// [G], the sources of its loads (rows, scales) [loads][2], the ring's
-// barriers. The warps' P V partials, [kWarps][G][D], then the block's P V
+// [G], the queries' rounded values [1|2][G][D] (where a policy has a
+// second query or K is read twice), the sources of its loads (rows,
+// scales) [loads][2], the ring's barriers. The warps' P V partials, [kWarps][G][D], then the block's P V
 // [G][D] in their first slot, reuse the ring when it is large enough.
 struct ClusterSmem {
-  int stage_bytes, stages, scores, pw, tmax, tmw, tn, pm, fresh, den, srcs,
-      red, bars, bytes;
+  int stage_bytes, stages, scores, pw, tmax, tmw, tn, pm, fresh, den, qs,
+      srcs, red, bars, bytes;
   bool keep;  // the scores of every piece kept from phase 1 to the sums
-  __host__ __device__ ClusterSmem(int W, int M, int NP, int G, bool keep_all)
+  __host__ __device__ ClusterSmem(int W, int M, int NP, int G, bool two_q,
+                                  bool keep_all)
       : keep(keep_all) {
     const int loads = (keep ? 2 : 3) * M;
     stage_bytes = cluster_align(W * kD + W * 4);
@@ -662,6 +401,8 @@ struct ClusterSmem {
     off = fresh + 2 * kD + 16;
     den = cluster_align(off);
     off = den + G * 4;
+    qs = cluster_align(off);
+    off = qs + (two_q ? 2 : keep ? 0 : 1) * G * kD * 4;
     srcs = (off + 7) & ~7;
     off = srcs + loads * 16;
     const int red_bytes = kWarps * G * kD * 4;
@@ -679,21 +420,23 @@ struct ClusterSmem {
 // The layout of a launch: every piece's scores kept where that fits a
 // block, else one piece's (K read twice).
 __host__ __device__ inline ClusterSmem cluster_layout(int W, int M, int NP,
-                                                      int G) {
-  const ClusterSmem keep(W, M, NP, G, true);
-  return keep.bytes <= kSmemLimit ? keep : ClusterSmem(W, M, NP, G, false);
+                                                      int G, bool two_q) {
+  const ClusterSmem keep(W, M, NP, G, two_q, true);
+  return keep.bytes <= kSmemLimit ? keep
+                                  : ClusterSmem(W, M, NP, G, two_q, false);
 }
 
 // Keep: the layout keeps every piece's scores (the instance a launch takes
 // follows cluster_layout). Two instances, so that the one that keeps them
-// holds no query registers past the scores.
+// holds no query registers past the scores. L, the launch's layout, comes
+// as a parameter (its offsets read from the constant bank, not held in
+// registers).
 template <typename T, class P, int G, bool Keep>
 __global__ void __launch_bounds__(kThreads, kClusterBlocksPerSM)
-    fused_cluster_kernel(P a, int M) {
+    fused_cluster_kernel(P a, const ClusterSmem L) {
   static_assert(G == 1 || G == 4, "the instances this kernel is built for");
   extern __shared__ __align__(128) uint8_t csm[];
   __shared__ float red_s[kWarps];
-  const ClusterSmem L = cluster_layout(a.W, M, a.NP, G);
   constexpr bool keep = Keep;
   const int r = hopper::cluster_rank();
   const int h = blockIdx.y;
@@ -834,21 +577,56 @@ __global__ void __launch_bounds__(kThreads, kClusterBlocksPerSM)
   };
 
   // The query heads' slices, rounded to bf16 as the TPU kernel's product
-  // does, in the lane layout of tile_scores.
+  // does, in the lane layout of the scores: lane `sub` of a position holds
+  // elements [16 sub, 16 sub + 16) of each head. Staged (a second query, or
+  // K read twice): the queries go to shared memory first ([nq][G][D]) and
+  // qr is loaded from there, query `held`.
+  constexpr bool staged = P::kTwoQueries || !keep;
   float qr[G][kEPL];
-  {
-    const T* qsrc = static_cast<const T*>(a.query(geo, 0));
+  int held = -1;
+  if constexpr (staged) {
+    float* qs = reinterpret_cast<float*>(csm + L.qs);
 #pragma unroll
-    for (int g = 0; g < G; ++g) {
-      const T* qp = qsrc + (bh * G + g) * kD + sub * kEPL;
+    for (int w = 0; w < (P::kTwoQueries ? 2 : 1); ++w) {
+      const T* qsrc = static_cast<const T*>(a.query_ptr(w));
 #pragma unroll
-      for (int e = 0; e < kEPL; ++e) qr[g][e] = bf16_round(to_f(qp[e]));
+      for (int g = 0; g < G; ++g)
+        qs[(w * G + g) * kD + t] = bf16_round(to_f(qsrc[(bh * G + g) * kD + t]));
     }
+    __syncthreads();
   }
+  auto load_query = [&](int w) {
+    if constexpr (staged) {
+      const float* qs = reinterpret_cast<const float*>(csm + L.qs);
+#pragma unroll
+      for (int g = 0; g < G; ++g)
+#pragma unroll
+        for (int e = 0; e < kEPL; e += 4) {
+          const float4 v = *reinterpret_cast<const float4*>(
+              qs + (w * G + g) * kD + sub * kEPL + e);
+          qr[g][e] = v.x; qr[g][e + 1] = v.y; qr[g][e + 2] = v.z;
+          qr[g][e + 3] = v.w;
+        }
+    } else {
+      const T* qsrc = static_cast<const T*>(a.query_ptr(w));
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        const T* qp = qsrc + (bh * G + g) * kD + sub * kEPL;
+#pragma unroll
+        for (int e = 0; e < kEPL; ++e) qr[g][e] = bf16_round(to_f(qp[e]));
+      }
+    }
+    held = w;
+  };
+  if constexpr (!staged) load_query(0);
   // Scores of piece k, staged at st, for the G query heads (K read once for
   // all) into s_u [G][W]; with `maxima`, the warps' maxima of them into
   // tmw's slot u.
   auto score = [&](int k, uint8_t* st, float* s_u, bool maxima, int u) {
+    if constexpr (staged) {
+      const int w = a.query(geo, k);
+      if (!keep || w != held) load_query(w);
+    }
     a.visit_piece(geo, b, h, k, [&](const auto&, int vlo, int n,
                                     const auto& live) {
       patch(k, vlo, n, st, false);
@@ -1089,14 +867,15 @@ __global__ void __launch_bounds__(kThreads, kClusterBlocksPerSM)
 }
 
 // The cluster launch of fused_cluster_kernel<T, P, G, keep> for `a`: M
-// pieces a block at most, the shared memory it needs set on the kernel.
+// pieces a block at most, the layout and the shared memory it needs set on
+// the kernel.
 // `clusters`, when not null, receives how many such clusters the card holds
 // at once instead of a launch.
 template <typename T, class P, int G>
 int launch_cluster(const P& a, cudaStream_t s, int* clusters = nullptr) {
   constexpr int C = kCluster;
   const int M = (a.NP + C - 1) / C;
-  const ClusterSmem L = cluster_layout(a.W, M, a.NP, G);
+  const ClusterSmem L = cluster_layout(a.W, M, a.NP, G, P::kTwoQueries);
   if (L.bytes > kSmemLimit) return -1;
   auto* kernel = L.keep ? fused_cluster_kernel<T, P, G, true>
                         : fused_cluster_kernel<T, P, G, false>;
@@ -1118,34 +897,32 @@ int launch_cluster(const P& a, cudaStream_t s, int* clusters = nullptr) {
   if (clusters != nullptr)
     return static_cast<int>(cudaOccupancyMaxActiveClusters(
         clusters, reinterpret_cast<const void*>(kernel), &cfg));
-  err = cudaLaunchKernelEx(&cfg, kernel, a, M);
+  err = cudaLaunchKernelEx(&cfg, kernel, a, L);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
 // The cluster launch's plan for pieces of W rows, NP a row, G query heads a
-// kv head (bf16 queries): out[0] blocks a cluster, out[1] pieces a block
-// can hold (M), out[2] ring stages, out[3] bytes a stage, out[4] dynamic
-// shared memory bytes a block, out[5] the clusters the card holds at once,
-// out[6] 1 if every piece's scores are kept (0: K is read twice). Returns
-// 0, -1 outside G in {1, 4} or past a block's shared memory, or the CUDA
-// error of the occupancy query.
-template <bool Paged>
+// kv head (bf16 queries) under the policy P: out[0] blocks a cluster,
+// out[1] pieces a block can hold (M), out[2] ring stages, out[3] bytes a
+// stage, out[4] dynamic shared memory bytes a block, out[5] the clusters
+// the card holds at once, out[6] 1 if every piece's scores are kept (0: K
+// is read twice). Returns 0, -1 outside G in {1, 4} or past a block's
+// shared memory, or the CUDA error of the occupancy query.
+template <class P>
 int cluster_plan(int NP, int W, int G, long long* out) {
   if ((G != 1 && G != 4) || NP < 1 || W < 1) return -1;
   const int M = (NP + kCluster - 1) / kCluster;
-  const ClusterSmem L = cluster_layout(W, M, NP, G);
-  BigThenTail<Paged> a;
+  const ClusterSmem L = cluster_layout(W, M, NP, G, P::kTwoQueries);
+  P a;
   a.NP = NP;
   a.W = W;
   a.B = 1;
   a.Hkv = 1;
   int clusters = 0;
   const int err =
-      G == 1 ? launch_cluster<__nv_bfloat16, BigThenTail<Paged>, 1>(
-                   a, nullptr, &clusters)
-             : launch_cluster<__nv_bfloat16, BigThenTail<Paged>, 4>(
-                   a, nullptr, &clusters);
+      G == 1 ? launch_cluster<__nv_bfloat16, P, 1>(a, nullptr, &clusters)
+             : launch_cluster<__nv_bfloat16, P, 4>(a, nullptr, &clusters);
   if (err != 0) return err;
   out[0] = kCluster;
   out[1] = M;
@@ -1160,16 +937,6 @@ int cluster_plan(int NP, int W, int G, long long* out) {
 // The instances: G in {1, 4} query heads a kv head, q in bf16 (dtype 0) or
 // f32 (1). -1 for any other.
 template <class P>
-int dispatch(const P& a, int G, int dtype, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && G == 1) return launch_passes<__nv_bfloat16, P, 1>(a, s);
-  if (dtype == 0 && G == 4) return launch_passes<__nv_bfloat16, P, 4>(a, s);
-  if (dtype == 1 && G == 1) return launch_passes<float, P, 1>(a, s);
-  if (dtype == 1 && G == 4) return launch_passes<float, P, 4>(a, s);
-  return -1;
-}
-
-template <class P>
 int dispatch_cluster(const P& a, int G, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && G == 1) return launch_cluster<__nv_bfloat16, P, 1>(a, s);
@@ -1179,8 +946,7 @@ int dispatch_cluster(const P& a, int G, int dtype, void* stream) {
   return -1;
 }
 
-// dtype: 0 = bfloat16, 1 = float32 (q, k_new, v_new, out). Both forms take
-// the one-launch cluster kernel. Returns cudaGetLastError() after the
+// dtype: 0 = bfloat16, 1 = float32 (q, k_new, v_new, out). Returns cudaGetLastError() after the
 // launch, or -1 for a shape the kernel is not built for (D = 128, G in
 // {1, 4}, tiles and tail of 1..256, pieces inside one tile each, NP and W
 // that hold every row's pieces, shared memory within a block's 227 KB).

@@ -57,12 +57,10 @@ extern "C" int dli_quantized_fused_decode_attention(
   a.q_pos = static_cast<const int*>(q_pos);
   a.step = static_cast<const int*>(step);
   a.out = out;
-  a.scratch = nullptr;
   if (tile_w < 1 || KT < 1) return -1;
   const int pw = tile_w < fused::kPiece ? tile_w : fused::kPiece;
   a.piece_w = pw;
   a.NP = (T + pw - 1) / pw + (KT + pw - 1) / pw;
-  a.NT = (T + tile_w - 1) / tile_w + 1;
   a.W = pw;
   a.B = B; a.Hkv = Hkv; a.rows = T; a.ps = 0; a.tw = 0; a.tile_w = tile_w;
   a.KT = KT; a.layer = layer; a.window = window; a.scale = scale;
@@ -79,7 +77,7 @@ extern "C" int dli_fused_dense_plan(int T, int tile_w, int KT, int G,
   if (T < 1 || tile_w < 1 || KT < 1) return -1;
   const int pw = tile_w < fused::kPiece ? tile_w : fused::kPiece;
   out[7] = pw;
-  return fused::cluster_plan<false>(
+  return fused::cluster_plan<fused::BigThenTail<false>>(
       (T + pw - 1) / pw + (KT + pw - 1) / pw, pw, G, out);
 }
 

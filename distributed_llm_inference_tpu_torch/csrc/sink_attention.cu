@@ -17,13 +17,23 @@
 //        window-relative position);
 //     3. the tail [L, B, Hkv, KT, D], valid below tail_vlen, with the
 //        step's K/V quantized into slot `step` first.
-//   The three passes of fused_decode.cuh under the policy `Ring` below: a
-//   masked slot reads nothing, scores kNegInf and takes p = 0. A ring tile
-//   past ring_len holds nothing valid and is skipped (an exact no-op in the
-//   TPU kernel's walk). The arithmetic is the TPU kernel's, rounding
-//   included (q and p * vs rounded to bf16 before the products, scores
-//   (q . k) * ks * scale); ops/quant_attention.py:
-//   sink_fused_decode_attention_plain walks the same tiles.
+//   One launch of fused_decode.cuh's cluster kernel under the policy `Ring`
+//   below, a cluster of 7 blocks a (row, kv head). A ring tile is dealt as
+//   pieces of `piece_w` slots (64, or 32 where 64 does not divide the
+//   tile: TR = 1056 has 96-wide tiles), never across its edge, so each
+//   tile's running max stays the walk's; the sinks and the tail are one
+//   piece each, after the ring. Ring tiles, and the slots of the last one,
+//   at or past ring_len hold nothing valid and are not read (exact no-ops
+//   in the TPU kernel's walk); the sinks past sink_len and the tail past
+//   tail_vlen likewise. An evicted slot inside ring_len is read with its
+//   piece, scores kNegInf and takes p = 0, so a piece that is evicted
+//   whole leaves the running max and the sums as they were. The block that
+//   holds the sink piece loads its query registers from q_sink's rounded
+//   values in shared memory for that piece alone. The arithmetic is the
+//   TPU kernel's, rounding included (q and p * vs rounded to bf16 before
+//   the products, scores (q . k) * ks * scale);
+//   ops/quant_attention.py:sink_fused_decode_attention_plain walks the
+//   same tiles.
 // * `sink_tail_flush`: the window's int8 tail merged into the ring planes.
 //   The TPU kernel's blocked read-modify-write (32-slot value and 128-slot
 //   scale blocks, a third visit pinned to block 0 for wrapped windows) is a
@@ -34,80 +44,104 @@
 //   tail_len - skip <= ring_slots.
 //
 // What bounds them on this card: bytes. The step reads each live ring,
-// sink and tail byte once for a few flops a byte (the scratch adds 4 bytes
-// a score, written and read, and D floats a tile); the flush reads each
-// tail byte once and writes it once.
+// sink and tail byte once for a few flops a byte (and the evicted ring
+// slots of a window, at most KT rows, with their pieces); the flush reads
+// each tail byte once and writes it once.
 
 #include "fused_decode.cuh"
 
 namespace sink {
 
+using fused::AllLive;
 using fused::DenseRows;
 using fused::kD;
 
-enum Segment { kRing = 0, kSinks = 1, kTail = 2 };
-
-struct Tile {
-  int seg, lo, n;  // segment, first slot, width
-};
-
-// Validity of slot lo + i of a row's tile.
-struct Live {
-  int seg, lo, ring_len, ptr, evict, ring_slots, sink_len, vlen;
+// Validity of ring slot lo + i of a piece: outside the evicted range,
+// the evict oldest slots from ptr on (mod ring_slots).
+struct RingLive {
+  int lo, ptr, evict, ring_slots;
   __device__ __forceinline__ bool operator()(int i) const {
-    if (seg == kSinks) return i < sink_len;
-    if (seg == kTail) return i < vlen;
     const int slot = lo + i;
-    const int dd = slot - ptr + (slot < ptr ? ring_slots : 0);
-    return slot < ring_len && dd >= evict;
+    return slot - ptr + (slot < ptr ? ring_slots : 0) >= evict;
   }
 };
 
-// The geometry policy of fused_decode.cuh's passes for the sink ring. A
-// row's tiles: its ring tiles below ring_len, then the sinks, then the
-// tail.
+// A row's pieces: ring pieces k < nring, each up to pw slots of one tile
+// below ring_len; then the sinks below sink_len (if any), then the tail
+// below tail_vlen (if any), one piece each.
+struct RingGeo {
+  int len, pw, tw, nring, sink_k, tail_k, nsink, vlen, npieces;
+  int ptr, evict;
+  __device__ void piece(int k, int& vlo, int& n) const {
+    if (k < nring) {
+      vlo = k * pw;
+      n = min(len, vlo + pw) - vlo;
+    } else {
+      vlo = 0;
+      n = k == sink_k ? nsink : vlen;
+    }
+  }
+  __device__ int tile_last_piece(int k) const {
+    if (k >= nring) return k;
+    return min(nring, (k * pw / tw + 1) * (tw / pw)) - 1;
+  }
+  __device__ int step_piece(int step) const {
+    return tail_k >= 0 && step >= 0 && step < vlen ? tail_k : -1;
+  }
+};
+
+// The geometry policy of fused_decode.cuh's cluster kernel for the ring.
 struct Ring : fused::Common {
+  using Geo = RingGeo;
+  static constexpr bool kTwoQueries = true;
   const void* q_sink;                       // [B, Hq, D]
   const int8_t *ring_k, *ring_v;            // [L, B, Hkv, TR, D]
   const float *ring_ks, *ring_vs;           // [L, B, Hkv, TR]
   const int8_t *sink_k, *sink_v;            // [L, B, Hkv, SP, D]
   const float *sink_ks, *sink_vs;           // [L, B, Hkv, SP]
   const int *ring_len, *ring_ptr, *evict, *sink_len, *tail_vlen;
-  int TR, SP, tile_w, ring_slots;
+  int TR, SP, tile_w, piece_w, ring_slots;
 
-  struct Geo {
-    int nring, ntiles;
-  };
   __device__ Geo geo(int b) const {
-    const int len = min(ring_len[b], TR);
-    const int nring = len > 0 ? (len + tile_w - 1) / tile_w : 0;
-    return Geo{nring, nring + 2};
+    Geo g;
+    g.len = max(0, min(ring_len[b], TR));
+    g.pw = piece_w;
+    g.tw = tile_w;
+    g.nring = (g.len + piece_w - 1) / piece_w;
+    g.nsink = max(0, min(sink_len[b], SP));
+    g.vlen = max(0, min(tail_vlen[b], KT));
+    g.sink_k = g.nsink > 0 ? g.nring : -1;
+    g.tail_k = g.vlen > 0 ? g.nring + (g.nsink > 0) : -1;
+    g.npieces = g.nring + (g.nsink > 0) + (g.vlen > 0);
+    g.ptr = ring_ptr[b];
+    g.evict = evict[b];
+    return g;
   }
-  __device__ bool is_tail(const Geo& g, int j) const {
-    return j == g.nring + 1;
+  __device__ int query(const Geo& g, int k) const {
+    return k == g.sink_k ? 1 : 0;
   }
-  __device__ const void* query(const Geo& g, int j) const {
-    return j == g.nring ? q_sink : q;
-  }
-  // The planes of one (layer, row, kv head) of a segment.
-  __device__ DenseRows rows_of(int seg, int b, int h) const {
+  __device__ const void* query_ptr(int w) const { return w ? q_sink : q; }
+  // The planes of one (layer, row, kv head) of the ring or the sinks.
+  __device__ DenseRows rows_of(bool ring, int b, int h) const {
     const size_t r = ((size_t)layer * B + b) * Hkv + h;
-    if (seg == kRing)
+    if (ring)
       return DenseRows{ring_k + r * TR * kD, ring_v + r * TR * kD,
                        ring_ks + r * TR, ring_vs + r * TR};
-    if (seg == kSinks)
-      return DenseRows{sink_k + r * SP * kD, sink_v + r * SP * kD,
-                       sink_ks + r * SP, sink_vs + r * SP};
-    return fused::tail_rows(*this, b, h);
+    return DenseRows{sink_k + r * SP * kD, sink_v + r * SP * kD,
+                     sink_ks + r * SP, sink_vs + r * SP};
   }
   template <class F>
-  __device__ void visit(const Geo& g, int b, int h, int j, F&& f) const {
-    const Tile t = j < g.nring    ? Tile{kRing, j * tile_w, tile_w}
-                   : j == g.nring ? Tile{kSinks, 0, SP}
-                                  : Tile{kTail, 0, KT};
-    f(rows_of(t.seg, b, h), t.lo, t.n,
-      Live{t.seg, t.lo, ring_len[b], ring_ptr[b], evict[b], ring_slots,
-           sink_len[b], min(tail_vlen[b], KT)});
+  __device__ void visit_piece(const Geo& g, int b, int h, int k,
+                              F&& f) const {
+    int vlo, n;
+    g.piece(k, vlo, n);
+    if (k < g.nring)
+      f(rows_of(true, b, h), vlo, n,
+        RingLive{vlo, g.ptr, g.evict, ring_slots});
+    else if (k == g.sink_k)
+      f(rows_of(false, b, h), vlo, n, AllLive());
+    else
+      f(fused::tail_rows(*this, b, h), vlo, n, AllLive());
   }
 };
 
@@ -129,14 +163,32 @@ struct RingDest {
 
 }  // namespace sink
 
+// The pieces and the widest piece of a launch: TR / piece_w ring pieces,
+// the sinks, the tail; W = max(piece_w, SP, KT) rows a stage. False for a
+// shape outside D = 128, tile_w dividing TR, piece_w dividing tile_w, SP
+// and KT in 1..256, 0 < ring_slots <= TR.
+static bool ring_shape(int D, int TR, int SP, int KT, int tile_w,
+                       int piece_w, int ring_slots, int& NP, int& W) {
+  using fused::kMaxTile;
+  if (D != fused::kD || tile_w < 1 || tile_w > kMaxTile || TR % tile_w != 0 ||
+      piece_w < 1 || tile_w % piece_w != 0 || SP < 1 || SP > kMaxTile ||
+      KT < 1 || KT > kMaxTile || ring_slots < 1 || ring_slots > TR)
+    return false;
+  NP = TR / piece_w + 2;
+  W = SP > KT ? SP : KT;
+  if (piece_w > W) W = piece_w;
+  return true;
+}
+
 // q, q_sink [B, Hkv*G, D], k_new / v_new [B, Hkv, D] and out in `dtype`
 // (0 = bf16, 1 = f32); ring planes [L, B, Hkv, TR, D] int8 / [L, B, Hkv, TR]
 // f32, sink planes [L, B, Hkv, SP(, D)], tail planes [L, B, Hkv, KT(, D)];
 // ring_len, ring_ptr, evict, sink_len, tail_vlen [B] int32; step one int32
-// in device memory; `scratch` B * Hkv * G * NT * (W + 3 + D) floats, NT >=
-// TR / tile_w + 2, W >= max(tile_w, SP, KT). Returns cudaGetLastError()
-// after the launches, -1 for a shape outside D = 128, G in {1, 4}, tile_w
-// dividing TR, SP and KT in 1..256.
+// in device memory. One launch of fused_decode.cuh's cluster kernel, ring
+// tiles of tile_w dealt as pieces of piece_w. Returns cudaGetLastError()
+// after the launch, -1 for a shape outside D = 128, G in {1, 4}, tile_w
+// dividing TR, piece_w dividing tile_w, SP and KT in 1..256, or past a
+// block's shared memory.
 extern "C" int dli_sink_fused_decode_attention(
     const void* q, const void* q_sink, const void* k_new, const void* v_new,
     const void* ring_k, const void* ring_ks, const void* ring_v,
@@ -144,17 +196,13 @@ extern "C" int dli_sink_fused_decode_attention(
     const void* sink_v, const void* sink_vs, void* tail_k, void* tail_ks,
     void* tail_v, void* tail_vs, const void* ring_len, const void* ring_ptr,
     const void* evict, const void* sink_len, const void* tail_vlen,
-    const void* step, void* out, void* scratch, int B, int Hkv, int G, int D,
-    int TR, int SP, int KT, int tile_w, int layer, int ring_slots, int NT,
-    int W, float scale, int dtype, void* stream) {
-  using fused::kMaxTile;
+    const void* step, void* out, int B, int Hkv, int G, int D, int TR,
+    int SP, int KT, int tile_w, int piece_w, int layer, int ring_slots,
+    float scale, int dtype, void* stream) {
   if (B <= 0) return 0;
-  if (D != fused::kD || tile_w < 1 || tile_w > kMaxTile || TR % tile_w != 0 ||
-      SP < 1 || SP > kMaxTile || KT < 1 || KT > kMaxTile || ring_slots < 1 ||
-      ring_slots > TR)
-    return -1;
-  if (W < tile_w || W < SP || W < KT || NT < TR / tile_w + 2) return -1;
   sink::Ring a;
+  if (!ring_shape(D, TR, SP, KT, tile_w, piece_w, ring_slots, a.NP, a.W))
+    return -1;
   a.q = q; a.q_sink = q_sink; a.k_new = k_new; a.v_new = v_new;
   a.ring_k = static_cast<const int8_t*>(ring_k);
   a.ring_v = static_cast<const int8_t*>(ring_v);
@@ -175,11 +223,24 @@ extern "C" int dli_sink_fused_decode_attention(
   a.tail_vlen = static_cast<const int*>(tail_vlen);
   a.step = static_cast<const int*>(step);
   a.out = out;
-  a.scratch = static_cast<float*>(scratch);
   a.B = B; a.Hkv = Hkv; a.TR = TR; a.SP = SP; a.KT = KT; a.tile_w = tile_w;
-  a.layer = layer; a.ring_slots = ring_slots; a.NT = NT; a.W = W;
+  a.piece_w = piece_w; a.layer = layer; a.ring_slots = ring_slots;
   a.scale = scale;
-  return fused::dispatch(a, G, dtype, stream);
+  return fused::dispatch_cluster(a, G, dtype, stream);
+}
+
+// The cluster launch of dli_sink_fused_decode_attention at these widths
+// (bf16 queries): fused::cluster_plan's seven values, out[7] the pieces a
+// row may have (NP), out[8] the widest piece (W). Returns 0, -1 for shapes
+// it does not take, or the CUDA error of the occupancy query.
+extern "C" int dli_sink_cluster_plan(int TR, int SP, int KT, int tile_w,
+                                     int piece_w, int G, long long* out) {
+  int NP, W;
+  if (!ring_shape(fused::kD, TR, SP, KT, tile_w, piece_w, TR, NP, W))
+    return -1;
+  out[7] = NP;
+  out[8] = W;
+  return fused::cluster_plan<sink::Ring>(NP, W, G, out);
 }
 
 // ring planes [L, B, Hkv, TR, D] int8 / [L, B, Hkv, TR] f32, tail planes

@@ -39,7 +39,9 @@ says what bounds it; its rounding and tiles are the TPU kernel's, see
 each row's ``tail_len`` tail slots to positions ``base_len + i`` of its
 pages, a direct scatter (the TPU kernel's whole-page read-modify-write with
 clamped visits is a VMEM device that has no use here), nothing on the null
-page 0 or past the table.
+page 0 or past the table: one launch of blocks of a few kv heads of a
+(row, layer) each, every thread's loads issued before its stores
+(``csrc/paged_attention.cu``).
 
 The wrappers launch the kernel for CUDA tensors and raise on anything the
 kernel does not take; they use the plain version only for tensors that lie

@@ -53,7 +53,9 @@ The int8 sink ring (``cache/sink.py:QuantizedSinkKVCache``) adds two more,
 in ``csrc/sink_attention.cu``. ``sink_fused_decode_attention`` replaces
 ``_qsink_kernel``: the fused step as above over three segments in this
 order, the ring in tiles of :func:`ring_tile_width` (its evicted slots
-masked), one tile of sinks scored with a second query, the tail.
+masked), one tile of sinks scored with a second query, the tail; one
+launch of the same cluster kernel, the ring's tiles dealt as pieces of
+:func:`ring_piece_width`, no scratch.
 ``sink_tail_flush`` replaces the TPU kernel of that name: the tail written
 into the ring at slots that wrap mod ``ring_slots``, a direct scatter whose
 bytes equal ``cache/sink.py``'s gather-and-select merge. ``sink_launches``
@@ -84,6 +86,7 @@ __all__ = [
     "sink_tail_flush",
     "sink_tail_flush_plain",
     "ring_tile_width",
+    "ring_piece_width",
     "fused_launches",
     "decode_launches",
     "flush_launches",
@@ -272,14 +275,6 @@ def check_fused_inputs(name, q, k_new, v_new, planes, vectors, step_idx):
         if t_.data_ptr() % 16 and t_.dim() >= 4:
             raise ValueError(f"{name}: {label} must be 16-byte aligned")
     return _DTYPE_CODE[q.dtype]
-
-
-def fused_scratch(heads: int, tiles: int, width: int, d: int, device):
-    """f32 scratch of the kernels' three passes (``csrc/fused_decode.cuh``):
-    per (row, query head) ``tiles`` tiles of ``width`` scores, three
-    per-tile values and a ``d``-wide P V sum."""
-    return torch.empty(heads * tiles * (width + 3 + d), dtype=torch.float32,
-                       device=device)
 
 
 def _tail_planes(tail_k, tail_ks, tail_v, tail_vs, num_l, b, hkv, d):
@@ -658,6 +653,13 @@ def ring_tile_width(tr: int) -> int:
     return 32
 
 
+def ring_piece_width(tile: int) -> int:
+    """The cluster kernel's piece of a ring tile (``csrc/sink_attention.cu``):
+    64 slots where 64 divides the tile, else 32 (tiles are multiples of 32),
+    so that no piece crosses a tile's edge. 256-wide tiles: 64; 96: 32."""
+    return 64 if tile % 64 == 0 else 32
+
+
 def sink_fused_decode_attention_plain(
     q, q_sink, k_new, v_new, big_k, big_ks, big_v, big_vs,
     sink_k, sink_ks, sink_v, sink_vs, tail_k, tail_ks, tail_v, tail_vs,
@@ -796,14 +798,12 @@ def sink_fused_decode_attention(
     if scale is None:
         scale = d**-0.5
     tile = ring_tile_width(t)
-    nt, w = t // tile + 2, max(tile, sp, kt)
     out = torch.empty_like(q)
-    scratch = fused_scratch(b * hq, nt, w, d, q.device)
     fn = _fns.get("sink")
     if fn is None:
         fn = _build.load_library(
             "sink_attention").dli_sink_fused_decode_attention
-        fn.argtypes = [ctypes.c_void_p] * 24 + [ctypes.c_int] * 12 + [
+        fn.argtypes = [ctypes.c_void_p] * 23 + [ctypes.c_int] * 11 + [
             ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fns["sink"] = fn
@@ -817,8 +817,8 @@ def sink_fused_decode_attention(
             tail_vs.data_ptr(), ring_len.data_ptr(), ring_ptr.data_ptr(),
             evict_len.data_ptr(), sink_len.data_ptr(),
             tail_valid_len.data_ptr(), step_idx.data_ptr(), out.data_ptr(),
-            scratch.data_ptr(), b, hkv, hq // hkv, d, t, sp, kt, tile,
-            int(layer_idx), int(ring_slots), nt, w, float(scale), code,
+            b, hkv, hq // hkv, d, t, sp, kt, tile, ring_piece_width(tile),
+            int(layer_idx), int(ring_slots), float(scale), code,
             torch.cuda.current_stream().cuda_stream,
         )
     if err != 0:

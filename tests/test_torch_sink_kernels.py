@@ -19,7 +19,12 @@ and select (the JAX cache's ``_ring_flush_xla``): a pointer near the
 ring's end, sink-bound heads (``skip > 0``), an empty tail, a span that is
 not a multiple of 32. The window: identical tokens and planes, the kernel
 form and the segments form, with a one-token prompt whose tail flushes
-into the sink planes and a row that stops inside a window. The planes the
+into the sink planes and a row that stops inside a window. #11's CUDA
+kernel is one launch of the cluster kernel of ``csrc/fused_decode.cuh``:
+its split of a row into pieces (ring pieces of 64 or 32 slots, the sinks,
+the tail) dealt to 7 blocks is modelled step by step and held to the walk
+(every tile's running max EQUAL, outputs within 2e-5) and to the JAX
+kernel. The planes the
 model computed: int8 values within 1 LSB, scales within 1e-5 relative (the
 projections sum in another order, about 1e-6 relative after some 50
 positions of f32 hidden states)."""
@@ -134,6 +139,208 @@ def test_sink_fused_decode_attention_matches_jax(dtype, g, sinks):
 def test_ring_tile_width_follows_the_tpu_kernel():
     assert [tqa.ring_tile_width(t) for t in (32, 64, 96, 1024, 1056, 160)] == [
         32, 64, 96, 256, 96, 160]
+
+
+def test_ring_piece_width_divides_the_tile():
+    for tr in (32, 64, 96, 160, 1024, 1056, 2048):
+        tile = tqa.ring_tile_width(tr)
+        pw = tqa.ring_piece_width(tile)
+        assert tile % pw == 0 and pw in (32, 64), (tr, tile, pw)
+    assert [tqa.ring_piece_width(tqa.ring_tile_width(t))
+            for t in (1024, 1056)] == [64, 32]
+
+
+# ---------------------------------------------------------------------------
+# #11's one-launch decomposition (csrc/sink_attention.cu, sink::Ring over
+# csrc/fused_decode.cuh's cluster kernel): the ring's tiles of
+# ring_tile_width slots dealt to the cluster's 7 blocks as pieces of
+# ring_piece_width slots below ring_len (never across a tile's edge), then
+# the sinks below sink_len and the tail below tail_valid_len, one piece each
+# (the sinks scored with q_sink); each piece's max exchanged, each tile
+# given the running max at its last piece, each piece's sums scaled by
+# exp(m_j - m_last). Held to the sequential walk of
+# ``sink_fused_decode_attention_plain`` (every tile's running max EQUAL,
+# outputs within 2e-5) and, its tiles all whole, to the JAX kernel in
+# interpret mode.
+# ---------------------------------------------------------------------------
+
+CLUSTER = 7  # fused::kCluster
+NEG = -0.7 * 3.4028234663852886e38
+
+
+def ring_pieces(ring_len, sink_len, vlen, tr, sp, kt):
+    """sink::RingGeo: ``(segment, vlo, n, tile)`` of each piece of a row in
+    the walk's order; ring tiles are numbered by their first slot's tile,
+    the sinks and the tail by the walk's tiles after the ring."""
+    tile = tqa.ring_tile_width(tr)
+    pw = tqa.ring_piece_width(tile)
+    length = max(0, min(ring_len, tr))
+    pieces = [("ring", vlo, min(length, vlo + pw) - vlo, vlo // tile)
+              for vlo in range(0, length, pw)]
+    nsink, vlen = max(0, min(sink_len, sp)), max(0, min(vlen, kt))
+    if nsink:
+        pieces.append(("sink", 0, nsink, tr // tile))
+    if vlen:
+        pieces.append(("tail", 0, vlen, tr // tile + 1))
+    return pieces
+
+
+def ring_cluster_model(q, q_sink, ring, sink, tail, scalars, ring_slots,
+                       layer):
+    """Output ``[B, Hq, D]`` f32 of the pieces dealt to the cluster's
+    blocks, and for every (row, kv head) the running max each tile gets from
+    the exchange beside the sequential walk's ``[(tile, exchange, walk)]``.
+    ``tail`` holds the step's slot already (the plain version wrote it)."""
+    rk, rks, rv, rvs = (x[layer] for x in ring)
+    sk, sks, sv, svs = (x[layer] for x in sink)
+    tk, tks, tv, tvs = (x[layer] for x in tail)
+    b, hq, d = q.shape
+    hkv, tr, sp, kt = rk.shape[1], rk.shape[2], sk.shape[2], tk.shape[2]
+    g = hq // hkv
+    tile = tqa.ring_tile_width(tr)
+    neg = torch.full((g,), NEG)
+    queries = [x.to(torch.bfloat16).float().reshape(b, hkv, g, d)
+               for x in (q, q_sink)]
+    ring_len, ring_ptr, evict, sink_len, vlen = (
+        [int(v) for v in scalars[k]] for k in
+        ("ring_len", "ring_ptr", "evict_len", "sink_len", "tail_valid_len"))
+    out = torch.zeros(b, hkv, g, d)
+    maxima = []
+
+    def ring_live(r, vlo, n):
+        slot = torch.arange(vlo, vlo + n)
+        dd = slot - ring_ptr[r]
+        dd = dd + torch.where(dd < 0, ring_slots, 0)
+        return (slot < ring_len[r]) & (dd >= evict[r])
+
+    for r in range(b):
+        pieces = ring_pieces(ring_len[r], sink_len[r], vlen[r], tr, sp, kt)
+        for h in range(hkv):
+            data = []
+            for seg, vlo, n, _ in pieces:
+                sl = slice(vlo, vlo + n)
+                planes = {"ring": (rk, rks, rv, rvs), "sink": (sk, sks, sv, svs),
+                          "tail": (tk, tks, tv, tvs)}[seg]
+                live = (ring_live(r, vlo, n) if seg == "ring"
+                        else torch.ones(n, dtype=torch.bool))
+                data.append((*(x[r, h, sl] for x in planes), live,
+                             queries[seg == "sink"][r, h]))
+            # 1. scores of each piece (masked slots kNegInf), its max
+            scores = []
+            for k, ks, _, _, live, qb in data:
+                s = tqa._lane_order_dot(qb[None, None], k[None, None])[0, 0]
+                scores.append(torch.where(live[None], s * ks[None] * d**-0.5,
+                                          NEG))
+            # 2. running maxima over the pieces; each tile takes the one at
+            #    its last piece
+            run, m = [], neg
+            for s in scores:
+                m = torch.maximum(m, s.amax(-1))
+                run.append(m)
+            tile_max = {}
+            for k, piece in enumerate(pieces):
+                tile_max[piece[3]] = run[k]
+            # the sequential walk's running max after each tile, over whole
+            # tiles as the plain version walks them
+            walk, m = {}, neg
+            for j in range(tr // tile + 2):
+                if j < tr // tile:
+                    sl, qb = slice(j * tile, (j + 1) * tile), queries[0][r, h]
+                    k, ks = rk[r, h, sl], rks[r, h, sl]
+                    live = ring_live(r, j * tile, tile)
+                elif j == tr // tile:
+                    qb, k, ks = queries[1][r, h], sk[r, h], sks[r, h]
+                    live = torch.arange(sp) < sink_len[r]
+                else:
+                    qb, k, ks = queries[0][r, h], tk[r, h], tks[r, h]
+                    live = torch.arange(kt) < vlen[r]
+                s = tqa._lane_order_dot(qb[None, None], k[None, None])[0, 0]
+                s = torch.where(live[None], s * ks[None] * d**-0.5, NEG)
+                m = torch.maximum(m, s.amax(-1))
+                walk[j] = m
+            maxima.append([(j, tile_max[j], walk[j]) for j in sorted(tile_max)])
+            # 3. each block's sums (piece k on block k % 7), each piece under
+            #    its tile's max, scaled by exp(m_j - m_last); 4. the
+            #    cluster's sum of the blocks'
+            num, den = torch.zeros(g, d), torch.zeros(g)
+            m_last = run[-1] if run else neg
+            for rank in range(CLUSTER):
+                bnum, bden = torch.zeros(g, d), torch.zeros(g)
+                for k in range(rank, len(pieces), CLUSTER):
+                    _, _, v, vs, live, _ = data[k]
+                    mj = tile_max[pieces[k][3]]
+                    p = torch.where(live[None], torch.exp(scores[k] - mj[:, None]),
+                                    0.0)
+                    pw = (p * vs[None, :]).to(torch.bfloat16).float()
+                    w = torch.exp(mj - m_last)
+                    bnum += w[:, None] * (pw @ v.float())
+                    bden += w * p.sum(-1)
+                num += bnum
+                den += bden
+            out[r, h] = num / den.clamp_min(1e-20)[:, None]
+    return out.reshape(b, hq, d), maxima
+
+
+@pytest.mark.parametrize("tr", [1024, 1056])
+@pytest.mark.parametrize("sinks", [4, 0])
+@pytest.mark.parametrize("g", [1, 4])
+def test_ring_cluster_split_matches_the_walk(tr, sinks, g):
+    """Rows: empty (nothing cached, no tail), sink-only (no ring, no tail),
+    tail-only, short (one or two pieces), full with the pointer 3 slots
+    before the ring's end (the evicted range wraps past it), and full with
+    the pointer on a piece's edge and an in-flight tail of 71 that evicts
+    that piece whole (every slot of it masked: an exact no-op); 1 and 4
+    query heads per kv head; TR = 1024 (256-wide tiles, pieces of 64) and
+    1056 (96-wide tiles, pieces of 32)."""
+    rng = np.random.default_rng(tr + 10 * sinks + g)
+    b, kt = 6, 80
+    r = tr - 4 if tr == 1024 else tr - 6     # the ring's span: 1020, 1050
+    ring = [tt(x).clone() for x in int8_planes(rng, (L, b, HKV), tr)]
+    sink = [tt(x).clone() for x in int8_planes(rng, (L, b, HKV), SP)]
+    tail = [tt(x).clone() for x in int8_planes(rng, (L, b, HKV), kt)]
+    base = np.asarray([0, 2, 0, sinks + 40, sinks + 3 * r - 3,
+                       sinks + r + 128], np.int64)
+    tail_len = np.asarray([0, 0, 3, 2, 5, 70], np.int32)
+    alive = np.asarray([0, 0, 1, 1, 1, 1], np.int32)
+    evict = tail_len + alive
+    scalars = {
+        "ring_len": np.clip(base - sinks, 0, r).astype(np.int32),
+        "ring_ptr": (np.maximum(base - sinks, 0) % r).astype(np.int32),
+        "evict_len": evict,
+        "sink_len": np.minimum(base, sinks).astype(np.int32),
+        "tail_valid_len": evict}
+    if sinks == 0:
+        assert scalars["sink_len"].max() == 0
+    q, qs, kn, vn = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+                     for shape in ((b, 1, HKV * g, D), (b, 1, HKV * g, D),
+                                   (b, 1, HKV, D), (b, 1, HKV, D)))
+    step = 2
+    kw = dict(layer_idx=1, step_idx=torch.tensor([step], dtype=torch.int32),
+              ring_slots=r, **{k: tt(v) for k, v in scalars.items()})
+    want, *tail_w = tqa.sink_fused_decode_attention_plain(
+        q, qs, kn, vn, *ring, *sink, *[x.clone() for x in tail], **kw)
+    got, maxima = ring_cluster_model(q[:, 0], qs[:, 0], ring, sink, tail_w,
+                                     scalars, r, 1)
+    np.testing.assert_allclose(got.numpy(), want[:, 0].numpy(), atol=2e-5,
+                               rtol=0)
+    assert (got[0] == 0).all(), "a row with nothing to attend gives zeros"
+    for row in maxima:
+        for _, exchange, walk in row:
+            assert torch.equal(exchange, walk)
+    # The last row's piece from slot 128 lies inside ring_len and is
+    # evicted whole (its pointer is 128, its evict_len past a piece).
+    pw = tqa.ring_piece_width(tqa.ring_tile_width(tr))
+    pieces = ring_pieces(int(scalars["ring_len"][5]), 0, 0, tr, SP, kt)
+    assert ("ring", 128, pw, 128 // tqa.ring_tile_width(tr)) in pieces
+    assert scalars["ring_ptr"][5] == 128 and evict[5] >= pw
+    out_j, *_ = jax_sink_fused(
+        jx(q.numpy()), jx(qs.numpy()), jx(kn.numpy()), jx(vn.numpy()),
+        *[jx(x.numpy()) for x in ring], *[jx(x.numpy()) for x in sink],
+        *[jx(x.numpy()) for x in tail], layer_idx=jnp.int32(1),
+        step_idx=jnp.int32(step), ring_slots=r, interpret=True,
+        **{k: jx(v) for k, v in scalars.items()})
+    np.testing.assert_allclose(got.numpy(), np.asarray(out_j)[:, 0],
+                               atol=2e-5, rtol=0)
 
 
 @pytest.mark.parametrize("kt", [8, 16])

@@ -18,9 +18,24 @@ whole number of ring stages) and with the wrapper's ``mma_plan``; then the
 ring's depth, the source rebuilt with 2, 3, 4 and 6 stages of 16 KB
 (``-DINT4_STAGES``), each shape timed under the plan.
 
+With ``--flush``, `paged_tail_flush` (#7, ``csrc/paged_attention.cu``)
+instead, at `chip_smoke.py`'s timed shape (one window of 32 layers, B = 8,
+KT = 16, every row's window over two pages): the source rebuilt with each
+(words a thread, kv heads a block) of FLUSH_FORMS (``-DPAGED_FLUSH_WORDS``,
+``-DPAGED_FLUSH_HEADS``; heads 0 is the launch's own rule), each form's
+registers (``-Xptxas -v``) reported and its bytes held EQUAL to the plain
+version's, each timed twice in turn, beside the timed call's floor (an
+empty kernel).
+
+With ``--sink``, `sink_fused_decode_attention` (#11) at `chip_smoke.py`'s
+timed shape (B = 8, window 1024 with 4 sinks, TR = 1024, KT = 16), its
+256-wide ring tiles dealt as pieces of each of SINK_PIECES
+(``ring_piece_width`` replaced in turn; 64 is the rule), timed in turns
+(ABBA, three rounds), each output held to the plain version's.
+
 Usage, from the root of a checkout, on a machine with one GPU:
 
-    python tools/torch_cluster_sweep.py [--int4]
+    python tools/torch_cluster_sweep.py [--int4 | --flush | --sink]
 
 Prints the card's name and power limit, then one JSON line per (form, B,
 live length): milliseconds a call for each C (CUDA events, L2 emptied, as
@@ -38,6 +53,10 @@ import sys
 STAGES = (3, 4, 6, 8, 12)
 RING_SOURCES = ("paged_attention", "quant_attention")
 INT4_STAGES = (2, 3, 4, 6)
+# #7's forms: (16-byte words of K and of V a thread, kv heads a block).
+FLUSH_FORMS = ((2, 0), (1, 1), (2, 1), (4, 1), (4, 2), (4, 4), (8, 8))
+# #11's ring pieces: slots of a 256-wide ring tile a piece.
+SINK_PIECES = (64, 32)
 
 
 def build_rings(build, stages=STAGES, sources=RING_SOURCES,
@@ -80,6 +99,12 @@ def main():
         check=True, capture_output=True, text=True).stdout.strip(), flush=True)
     if sys.argv[1:] == ["--int4"]:
         int4_sweep(smoke)
+        return 0
+    if sys.argv[1:] == ["--flush"]:
+        flush_sweep(smoke)
+        return 0
+    if sys.argv[1:] == ["--sink"]:
+        sink_sweep(smoke)
         return 0
     rule = pa.cluster_size
     rng = np.random.default_rng(7)
@@ -237,6 +262,112 @@ def int4_sweep(smoke):
         _build._libs.clear()
         _build._libs.update(saved)
         qm._fns.clear()
+
+
+def flush_sweep(smoke):
+    """#7 under each of FLUSH_FORMS, the rebuilt libraries swapped into the
+    wrapper's cache in turn: its bytes against the plain version's, then
+    two rounds of timings, the floor before and after."""
+    import numpy as np
+    import torch
+
+    from distributed_llm_inference_tpu_torch.ops import _build
+    from distributed_llm_inference_tpu_torch.ops import paged_attention as pa
+
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    started = {}
+    for words, heads in FLUSH_FORMS:
+        out = _build.BUILD_DIR / f"libpaged_attention_flush{words}x{heads}.so"
+        started[words, heads] = out, subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v",
+             f"-DPAGED_FLUSH_WORDS={words}", f"-DPAGED_FLUSH_HEADS={heads}",
+             "-o", str(out), str(_build.CSRC / "paged_attention.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    libs, registers = {}, {}
+    for form, (out, proc) in started.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for the flush form {form}:\n{log}")
+        libs[form] = ctypes.CDLL(str(out))
+        # `-Xptxas -v`: the kernel's registers and spills a thread.
+        registers[form], entry = [], ""
+        for line in log.splitlines():
+            if "Compiling entry" in line:
+                entry = line
+            elif "tail_flush_kernel" in entry and (
+                    "Used" in line or "spill" in line):
+                registers[form].append(line.split("info    :")[-1].strip())
+    rng = np.random.default_rng(99)
+    flush = torch.ones(16 * 1024 * 1024, dtype=torch.int64, device="cuda")
+    b, kt, layers, base_len = 8, smoke.KT, smoke.LLAMA3_8B.num_layers, 2040
+    width = smoke.ladder_pages(base_len + kt)
+    pages = b * width + 1
+    pool = smoke.make_qplanes(rng, (layers, pages, smoke.HKV), smoke.PS)
+    table = smoke.make_table(rng, b, width, pages)
+    tail = smoke.make_qplanes(rng, (layers, b, smoke.HKV), kt)
+    base, tl = smoke.i32([base_len] * b), smoke.i32([kt] * b)
+    want = [p.clone() for p in pool]
+    pa.paged_tail_flush_plain(*want, *tail, table, base, tl)
+    saved = dict(_build._libs)
+
+    def use(form):
+        _build._libs["paged_attention"] = libs[form]
+        pa._fn.pop("flush", None)
+
+    def call():
+        pa.paged_tail_flush(*pool, *tail, table, base, tl)
+
+    got = {}
+    try:
+        for form in FLUSH_FORMS:
+            use(form)
+            mine = [p.clone() for p in pool]
+            pa.paged_tail_flush(*mine, *tail, table, base, tl)
+            torch.cuda.synchronize()
+            got[form] = {"max_abs_err": max(
+                smoke.max_err(a, w) for a, w in zip(mine, want)),
+                "ptxas": registers[form], "ms": []}
+            assert got[form]["max_abs_err"] == 0.0, (form, got[form])
+        floor = [smoke.timed_call_floor_ms(flush)]
+        for _ in range(2):
+            for form in FLUSH_FORMS:
+                use(form)
+                got[form]["ms"].append(smoke.time_ms(call, 50, flush))
+        floor.append(smoke.timed_call_floor_ms(flush))
+    finally:
+        _build._libs.clear()
+        _build._libs.update(saved)
+        pa._fn.pop("flush", None)
+    for (words, heads), g in got.items():
+        print(json.dumps({"words_a_thread": words, "heads_a_block": heads or
+                          "rule", **g}), flush=True)
+    print(json.dumps({"timed_call_floor_ms": floor}), flush=True)
+
+
+def sink_sweep(smoke):
+    """#11 with its ring pieces forced to each of SINK_PIECES, in turns;
+    `time_sink` checks each output against the plain version's."""
+    import numpy as np
+    import torch
+
+    from distributed_llm_inference_tpu_torch.ops import quant_attention as qa
+
+    rule = qa.ring_piece_width
+    flush = torch.ones(16 * 1024 * 1024, dtype=torch.int64, device="cuda")
+    got = {pw: [] for pw in SINK_PIECES}
+    try:
+        for _ in range(3):
+            for pw in (*SINK_PIECES, *SINK_PIECES[::-1]):
+                qa.ring_piece_width = lambda tile, pw=pw: pw
+                out, cases = {}, []
+                smoke.time_sink(out, cases, np.random.default_rng(99), flush)
+                smoke.assert_cases(cases, torch.bfloat16)
+                got[pw].append(out["sink_fused_decode_attention"]["ms"])
+    finally:
+        qa.ring_piece_width = rule
+    for pw, ms in got.items():
+        print(json.dumps({"ring_piece": pw, "rule": pw == rule(256),
+                          "ms": ms}), flush=True)
 
 
 if __name__ == "__main__":

@@ -13,10 +13,15 @@ weights:
   `quantized_paged_fused_attention` (#6, which shares #9's kernel) over
   2032 + 16 tokens, and the decode kernels `paged_attention` (#2),
   `quantized_paged_attention` (#5) and `quantized_decode_attention` (#8)
-  over 2048 tokens at B = 8 and B = 1, each with its launches a call;
-* decode windows (a captured K = 16 window over 8 rows of ~600 tokens):
+  over 2048 tokens at B = 8 and B = 1, `sink_fused_decode_attention` (#11)
+  at phase 2's shape (B = 8, window 1024 with 4 sinks, the tail full) and
+  `paged_tail_flush` (#7, one window of 32 layers), each with its launches
+  a call; and the timed call's floor (an empty kernel);
+* decode windows (a captured K = 16 window over 8 rows of ~600 tokens; on
+  the sink ring 8 streams of window + 7 tokens):
   int4 weights over int8 pages (#6), int4 weights over the int8 dense
-  cache (#9), bf16 weights over bf16 pages (#2), each with the int4
+  cache (#9), bf16 weights over bf16 pages (#2), int4 weights over the
+  int8 sink ring (#11), each with the int4
   matmul's kernels, their milliseconds and launches a window; and K = 1 decode ticks
   over the same rows: bf16 weights over the int8 dense cache at 8 layers
   (#8), int4 weights over int8 pages at 4 layers (#5);
@@ -46,7 +51,8 @@ import sys
 ATTENTION = ("fused_cluster_kernel", "paged_decode_kernel",
              "fused_scores_kernel", "fused_sums_kernel",
              "fused_combine_kernel", "paged_partial_kernel",
-             "paged_combine_kernel", "ragged_kernel", "int4_")
+             "paged_combine_kernel", "ragged_kernel", "int4_",
+             "tail_flush_kernel")
 
 
 def int4_calls(smoke, calls):
@@ -102,10 +108,45 @@ def pinned_ragged_error(smoke):
     return smoke.max_err(got, want)
 
 
+def sink_and_flush_calls(smoke, rng, calls):
+    """#11 at `chip_smoke.py`'s timed shape (B = 8, window 1024 with 4
+    sinks, mid-stream, the tail full) and #7 over one window of 32 layers
+    (every row's window over two pages), bf16, as that script's
+    `time_sink` and `time_fused` draw them."""
+    import torch
+
+    from distributed_llm_inference_tpu_torch.ops import paged_attention as pa
+    from distributed_llm_inference_tpu_torch.ops import quant_attention as qa
+
+    b, kt, sinks, r, tr = 8, smoke.KT, 4, 1020, 1024
+    ring = smoke.make_qplanes(rng, (2, b, smoke.HKV), tr)
+    sink = smoke.make_qplanes(rng, (2, b, smoke.HKV), 32)
+    tail = smoke.make_qplanes(rng, (2, b, smoke.HKV), kt)
+    q, qs = (smoke.normal(rng, (b, 1, smoke.HQ, smoke.D), torch.bfloat16)
+             for _ in range(2))
+    kn, vn = (smoke.normal(rng, (b, 1, smoke.HKV, smoke.D), torch.bfloat16)
+              for _ in range(2))
+    kw = dict(layer_idx=1, step_idx=smoke.i32([kt - 1]), ring_slots=r,
+              **smoke.sink_scalars(smoke.i32([1031] * b),
+                                   smoke.i32([kt - 1] * b),
+                                   smoke.i32([1] * b), sinks, r))
+    calls["#11 TR=1024"] = lambda: qa.sink_fused_decode_attention(
+        q, qs, kn, vn, *ring, *sink, *tail, **kw)
+    layers, base_len = smoke.LLAMA3_8B.num_layers, 2040
+    width = smoke.ladder_pages(base_len + kt)
+    pages = b * width + 1
+    pool = smoke.make_qplanes(rng, (layers, pages, smoke.HKV), smoke.PS)
+    table = smoke.make_table(rng, b, width, pages)
+    ftail = smoke.make_qplanes(rng, (layers, b, smoke.HKV), kt)
+    base, tl = smoke.i32([base_len] * b), smoke.i32([kt] * b)
+    calls["#7 L=32"] = lambda: pa.paged_tail_flush(*pool, *ftail, table,
+                                                   base, tl)
+
+
 def kernel_times(smoke):
-    """#14, #13, #4, #9, #6, #2, #5 and #8 at phase 2's shapes in this tree,
-    bf16: milliseconds a call and launches a call (counted by the
-    profiler)."""
+    """#14, #13, #4, #9, #6, #2, #5, #8, #11 and #7 at phase 2's shapes in
+    this tree, bf16: milliseconds a call and launches a call (counted by
+    the profiler); and the timed call's floor."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -173,7 +214,9 @@ def kernel_times(smoke):
         calls[f"#8 B={rows}"] = (
             lambda planes=planes, qd=qd, lens=lens:
             qa.quantized_decode_attention(qd, *planes, lens))
-    out = {}
+    sink_and_flush_calls(smoke, rng, calls)
+    out = {"floor": {"ms": smoke.time_ms(lambda: torch.cuda._sleep(0), 50,
+                                         flush), "launches": 1}}
     for name, fn in calls.items():
         ms = smoke.time_ms(fn, 20, flush)
         torch.cuda.synchronize()
@@ -207,6 +250,9 @@ def run_tree(root):
             smoke.MAIN_DENSE),
         "bf16 pages": smoke.profile_decode(cfg, params, {}, {},
                                            smoke.MAIN_BF16),
+        "int8 sink": smoke.profile_decode(
+            cfg, params, int4, {"kv_quant": "int8", **smoke.SINK},
+            smoke.MAIN_SINK),
     }
     cfg8, params8 = smoke.depth(params, cfg, 8)
     windows["K=1 int8 dense, 8 layers"] = smoke.profile_decode(

@@ -33,7 +33,8 @@ one line per engine configuration or comparison):
               cluster kernel over the pool and over stacks, and of the
               decode cluster kernel over bf16 and int8 pages and the int8
               dense buffer, of the fused step's cluster kernel over the
-              sink ring and of the pool's tail flush, the ragged
+              sink ring and of the three tail flushes (one kernel
+              template, `csrc/tail_flush.cuh`), the ragged
               kernels' launch plans (C against
               the wrapper's `launch_plan`), the fused step's cluster plans
               (blocks a cluster, ring stages, shared memory; over stacks
@@ -69,7 +70,9 @@ one line per engine configuration or comparison):
               multiples of 64, whose last (row, head) runs to the buffer's
               end, windows, MHA, B = 8 and 1)
               and `fused_tail_flush` (KT = 16 and 48, edge windows; bytes
-              EQUAL); the int8 sink ring's `sink_fused_decode_attention`
+              EQUAL); the three flushes also over planes of other widths
+              (`FLUSH_WIDTHS`: 3 kv heads, head_dim 64 and 256, KT = 80);
+              the int8 sink ring's `sink_fused_decode_attention`
               over four steps of a window (B = 8, KT = 16; the sink phase,
               a partly filled, a just-full and wrapped rings, an evicted
               range across the ring's end, a row that stops; window 1024
@@ -94,7 +97,8 @@ one line per engine configuration or comparison):
               `quantized_decode_attention` are also timed at B = 1, and
               their launches a call counted by the profiler; for the
               flushes four
-              `index_put_` calls;
+              `index_put_` calls, and each flush's registers and spills and
+              the timed call's floor beside its time;
               for the int4 matmuls there is none: a bf16 `torch.matmul` on
               the dequantized weight is shown as a yardstick of its own,
               per projection, at 8 rows and at 1 and 64; for
@@ -214,6 +218,11 @@ LLAMA3_8B = ModelConfig(
 )
 HQ, HKV, D, PS = 32, 8, 128, 64
 KT = 16  # the fused window: decode_steps=None resolves to 16
+# The flushes' other widths (kv heads, head_dim, tail slots) checked in phase
+# 2 beside the main path's 8, 128, 16: a partial last group of kv heads a
+# block (3 heads, 2 a block), 4 heads a block (D = 64), one head a block in
+# three passes (KT = 80), 16 words a row (D = 256).
+FLUSH_WIDTHS = ((3, 128, 16), (8, 64, 16), (3, 64, 80), (2, 256, 48))
 
 # Published peaks of one H100 SXM (dense, no sparsity).
 HBM_BYTES_PER_S = 3.35e12
@@ -374,12 +383,12 @@ def compare_ragged(cases, tag, dtype, q, pool, table, kv_len, num_new, **kw):
     return err
 
 
-def make_qplanes(rng, lead, n):
+def make_qplanes(rng, lead, n, d=D):
     """int8 planes as the cache and the tail store them: ``(k, ks, v,
-    vs)``, ``lead + (n, D)`` int8 and ``lead + (n,)`` f32, quantized per
+    vs)``, ``lead + (n, d)`` int8 and ``lead + (n,)`` f32, quantized per
     (slot, head) from normal data."""
-    k = normal(rng, (*lead, n, D), torch.float32)
-    v = normal(rng, (*lead, n, D), torch.float32)
+    k = normal(rng, (*lead, n, d), torch.float32)
+    v = normal(rng, (*lead, n, d), torch.float32)
     kq, ks = _quantize_kv(k)
     vq, vs = _quantize_kv(v)
     return kq, ks, vq, vs
@@ -437,9 +446,10 @@ def compare_fused(cases, tag, dtype, form, big, base, rng, table=None,
 
 def compare_flush(cases, tag, pool, table, base, tail_len, rng, kt=KT):
     """`paged_tail_flush` (#7) against its plain version on copies of one
-    pool, a tail of ``kt`` slots: every byte of every plane EQUAL. Returns
-    the error (0)."""
-    tail = make_qplanes(rng, (pool[0].shape[0], table.shape[0], HKV), kt)
+    pool, a tail of ``kt`` slots at the pool's widths: every byte of every
+    plane EQUAL. Returns the error (0)."""
+    num_l, _, hkv, _, d = pool[0].shape
+    tail = make_qplanes(rng, (num_l, table.shape[0], hkv), kt, d)
     mine = [p.clone() for p in pool]
     ref = [p.clone() for p in pool]
     pa.paged_tail_flush(*mine, *tail, table, base, tail_len)
@@ -458,7 +468,8 @@ def fused_cases(cases, dtype, rng):
     #7 over mixed tail lengths, windows that straddle a page and an
     unmapped table slot; and KT = 48 over pages of 16 (a tail across three
     or four pages), null table entries (page 0) inside the mapped range,
-    rows that run past the table's width and rows with an empty tail."""
+    rows that run past the table's width and rows with an empty tail; and
+    over planes of the other widths of FLUSH_WIDTHS."""
     width, b = 40, 8
     pages = b * width + 1
     pool = make_qplanes(rng, (2, pages, HKV), PS)
@@ -505,6 +516,12 @@ def fused_cases(cases, dtype, rng):
                   i32([0, 20, 0, 15, 100, 150, 140, 33]),
                   i32([48, 48, 40, 0, 48, 48, 47, 0]), rng, kt=48)
     del pool16
+    for hkv, d, kt in FLUSH_WIDTHS:
+        pool_w = make_qplanes(rng, (2, b * width16 + 1, hkv), ps16, d)
+        compare_flush(cases, f"flush_h{hkv}_d{d}_kt{kt}", pool_w, table16,
+                      i32([0, 20, 0, 15, 100, 150, 140, 33]),
+                      i32([kt, kt, kt - 1, 0, kt, kt, kt // 2, 1]), rng,
+                      kt=kt)
 
 
 def paged_decode_cases(cases, dtype, rng):
@@ -932,7 +949,7 @@ def dense_cases(cases, dtype, rng):
     head-major tensors), and over the mask families of ``flash_masks``; #8 over 2048 positions with rows of 0 to 2048 live
     positions, a sliding window, GQA and MHA; #10 at KT = 16 and 48 with
     in-block, block-spanning, empty, edge-partial, buffer-end and past-end
-    windows."""
+    windows, also over planes of the other widths of FLUSH_WIDTHS."""
     b, s, t = 3, 256, 384
     q = normal(rng, (b, s, HQ, D), dtype)
     k = normal(rng, (b, t, HKV, D), dtype)
@@ -970,6 +987,13 @@ def dense_cases(cases, dtype, rng):
         tail = make_qplanes(rng, (2, bq, HKV), kt)
         compare_qflush(cases, f"qflush_kt{kt}", big, tail,
                        i32([0, 10, 30, 70, tq - 10, tq - kt, tq, 1000]),
+                       i32([kt, kt, 0, 10, kt, kt, 3, 5]))
+    for hkv, d, kt in FLUSH_WIDTHS:
+        t = 400
+        big = make_qplanes(rng, (2, bq, hkv), t, d)
+        tail = make_qplanes(rng, (2, bq, hkv), kt, d)
+        compare_qflush(cases, f"qflush_h{hkv}_d{d}_kt{kt}", big, tail,
+                       i32([0, 10, 30, 70, t - 10, t - kt, t, 300]),
                        i32([kt, kt, 0, 10, kt, kt, 3, 5]))
 
 
@@ -1071,7 +1095,8 @@ def sink_cases(cases, dtype, rng):
     pieces, one of them past the ring's end; over a ring of TR = 90112,
     where the kernel forms the scores twice; #12 over the main ring and r
     = 50 (TR = 64) at KT = 16 and 48, pointers near the ring's end,
-    sink-bound heads, empty and full tails."""
+    sink-bound heads, empty and full tails; and over a ring of r = 90 (TR
+    = 96) at the other widths of FLUSH_WIDTHS."""
     for sinks, r, g in ((4, 1020, HQ // HKV), (4, 1020, 1), (0, 1020, HQ // HKV),
                         (4, 1050, HQ // HKV)):
         tr = -(-r // 32) * 32
@@ -1110,6 +1135,15 @@ def sink_cases(cases, dtype, rng):
                 i32([r - 3, r - 1, 0, 0, 17, r - kt, 5, 0]),
                 i32([0, 0, 1, 3, 0, 0, kt, 0]),
                 i32([kt, kt, kt, 4, 0, kt, kt, 9]), r)
+    for hkv, d, kt in FLUSH_WIDTHS:
+        r = 90                                   # TR = 96 (tail <= ring)
+        big = make_qplanes(rng, (2, 8, hkv), 96, d)
+        tail = make_qplanes(rng, (2, 8, hkv), kt, d)
+        compare_sink_flush(
+            cases, f"qsflush_h{hkv}_d{d}_kt{kt}", big, tail,
+            i32([r - 3, r - 1, 0, 0, 17, r - kt, 5, 0]),
+            i32([0, 0, 1, 3, 0, 0, kt, 0]),
+            i32([kt, kt, kt, 4, 0, kt, kt, 9]), r)
 
 
 def time_ms(fn, iters, flush):
@@ -1191,6 +1225,32 @@ def launches_a_call(fn):
         torch.cuda.synchronize()
     return sum(ev.count for ev in prof.key_averages()
                if any(n in ev.key for n in ATTENTION_KERNELS))
+
+
+def flush_launches(fn):
+    """The device operations (kernels, copies) of one call of the flush
+    ``fn`` and how many of them are ``tail_flush_kernel``, as the profiler
+    counts them; it must be that one kernel alone. The profiler drops
+    records at times, so a session that saw none is profiled again (three
+    at most)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        ops = [ev for ev in prof.key_averages()
+               if ev.device_type == DeviceType.CUDA
+               and ev.self_device_time_total > 0]
+        got = {"device_ops": sum(ev.count for ev in ops),
+               "tail_flush_kernel": sum(ev.count for ev in ops
+                                        if "tail_flush_kernel" in ev.key)}
+        if got["device_ops"]:
+            break
+    assert got == {"device_ops": 1, "tail_flush_kernel": 1}, got
+    return got
 
 
 def time_attention(out, cases, rng, flush, width, pool):
@@ -1486,6 +1546,8 @@ def time_fused(out, cases, rng, flush):
         "library_ms": time_ms(index_put, 20, flush),
         "library": "index_put_ x4 (one per plane) of the same slots",
         "bound_ms": bms, "bound_by": by, "bytes": bytes_moved,
+        "launches_a_call": flush_launches(
+            lambda: pa.paged_tail_flush(*pool, *tail, table, base, tl)),
     }
     del pool, tail
 
@@ -1610,6 +1672,8 @@ def time_dense(out, cases, rng, flush):
         "library_ms": time_ms(index_put, 20, flush),
         "library": "index_put_ x4 (one per plane) of the same slots",
         "bound_ms": bms, "bound_by": by, "bytes": bytes_moved,
+        "launches_a_call": flush_launches(
+            lambda: qa.fused_tail_flush(*big, *tail, base, tl)),
     }
     del big, tail
 
@@ -1687,6 +1751,8 @@ def time_sink(out, cases, rng, flush):
         "library_ms": time_ms(index_put, 20, flush),
         "library": "index_put_ x4 (one per plane) of the same slots",
         "bound_ms": bms, "bound_by": by, "bytes": bytes_moved,
+        "launches_a_call": flush_launches(
+            lambda: qa.sink_tail_flush(*big, *tail, ptr, skip, tl, r)),
     }
     del big, tail
 
@@ -1721,6 +1787,10 @@ def time_kernels():
     assert_cases(cases, torch.bfloat16)
     return out, floor
 
+
+# The flushes (one kernel template, csrc/tail_flush.cuh) -> their numbers.
+FLUSH_NUMBERS = {"paged_tail_flush": "#7", "fused_tail_flush": "#10",
+                 "sink_tail_flush": "#12"}
 
 # Kernel name -> the prefix of its cases in phase 2.
 CASE_PREFIX = {
@@ -1766,10 +1836,13 @@ def cluster_instance(mangled):
 
 
 def flush_instance(mangled):
-    """``tail_flush_kernel<WORDS>`` (#7) -> its label, else None."""
+    """``flush::tail_flush_kernel<WORDS, Dest>`` (#7, #10, #12) -> its
+    label, else None."""
     if "tail_flush_kernelILi" not in mangled:
         return None
-    return f"WORDS={mangled.split('tail_flush_kernelILi')[1][0]}"
+    dest = next(d for d in ("PagedDest", "DenseDest", "RingDest")
+                if d in mangled)
+    return f"WORDS={mangled.split('tail_flush_kernelILi')[1][0]} {dest}"
 
 
 def decode_instance(mangled):
@@ -1987,6 +2060,10 @@ def phase_kernels():
             ptxas["sink_attention"], cluster_instance, 8),
         "tail_flush_kernel (#7)": ptxas_lines(
             ptxas["paged_attention"], flush_instance, 1),
+        "tail_flush_kernel (#10)": ptxas_lines(
+            ptxas["quant_attention"], flush_instance, 1),
+        "tail_flush_kernel (#12)": ptxas_lines(
+            ptxas["sink_attention"], flush_instance, 1),
         "paged_decode_kernel (#2, #5)": ptxas_lines(
             ptxas["paged_attention"], decode_instance, 4),
         "paged_decode_kernel (#8)": ptxas_lines(
@@ -2017,6 +2094,11 @@ def phase_kernels():
     for dtype in (torch.bfloat16, torch.float32):
         errs[dtype] = check_cases(dtype)
     times, floor = time_kernels()
+    # Each flush's registers and spills beside its time.
+    for name, num in FLUSH_NUMBERS.items():
+        (times[name]["ptxas"],) = resources[
+            f"tail_flush_kernel ({num})"].values()
+        times[name]["timed_call_floor_ms"] = floor
     map_us = tensor_map_host_us()
     kernels = []
     for name, prefix in CASE_PREFIX.items():

@@ -14,8 +14,8 @@
 //   (sink::Ring, csrc/sink_attention.cu): masked ring tiles dealt as
 //   pieces, a tile of sinks scored with a query of its own, then the tail.
 //
-// tail_scatter_kernel at the end is the window's flush into contiguous
-// planes, shared by the dense cache and the sink ring in the same way.
+// The window's flushes (the tail into the pool, the dense buffers, the
+// ring) are tail_flush.cuh's kernel.
 //
 // One call is one (layer, step) of a fused K-step decode window. It
 // quantizes the step's new K and V per (row, kv head) exactly as
@@ -966,66 +966,6 @@ int launch(const Args& a, int G, int D, int dtype, void* stream) {
   BigThenTail<Paged> p;
   static_cast<Args&>(p) = a;
   return dispatch_cluster(p, G, dtype, stream);
-}
-
-// The fused window's int8 tail merged into contiguous planes, a direct
-// scatter (the dense cache's flush and the sink ring's). One block per
-// (row, layer) binds its row's destination once, `r = dest.row(b)`, and
-// copies tail slots [r.first, r.end) of row b, 16 bytes a thread, to slot
-// r.slot(i) of the big planes [L, B, Hkv, T, D] (scales [L, B, Hkv, T]
-// beside them); a slot < 0 is skipped. Bound by bytes: each tail byte is
-// read once and written once.
-template <class Dest>
-__global__ void __launch_bounds__(kThreads) tail_scatter_kernel(
-    int8_t* __restrict__ bk, float* __restrict__ bks,
-    int8_t* __restrict__ bv, float* __restrict__ bvs,  // [L, B, Hkv, T(, D)]
-    const int8_t* __restrict__ tk, const float* __restrict__ tks,
-    const int8_t* __restrict__ tv, const float* __restrict__ tvs,  // [L, B, Hkv, KT(, D)]
-    int B, int Hkv, int T, int KT, int D, Dest dest) {
-  const int b = blockIdx.x;
-  const int l = blockIdx.y;
-  const auto r = dest.row(b);
-  const int first = r.first;
-  const int n = min(r.end, KT);
-  const int chunks = D / 16;
-  const int total = max(n - first, 0) * Hkv * chunks;
-  for (int idx = threadIdx.x; idx < total; idx += kThreads) {
-    const int c = idx % chunks;
-    const int h = (idx / chunks) % Hkv;
-    const int i = first + idx / (chunks * Hkv);
-    const int slot = r.slot(i);
-    if (slot < 0) continue;
-    const size_t row = ((size_t)l * B + b) * Hkv + h;
-    const size_t dst = row * T + slot;
-    const size_t src = row * KT + i;
-    reinterpret_cast<uint4*>(bk + dst * D)[c] =
-        reinterpret_cast<const uint4*>(tk + src * D)[c];
-    reinterpret_cast<uint4*>(bv + dst * D)[c] =
-        reinterpret_cast<const uint4*>(tv + src * D)[c];
-    if (c == 0) {
-      bks[dst] = tks[src];
-      bvs[dst] = tvs[src];
-    }
-  }
-}
-
-// Launches tail_scatter_kernel; D a multiple of 16. Returns
-// cudaGetLastError() after the launch, -1 for another D.
-template <class Dest>
-int launch_tail_scatter(void* bk, void* bks, void* bv, void* bvs,
-                        const void* tk, const void* tks, const void* tv,
-                        const void* tvs, int L, int B, int Hkv, int T, int KT,
-                        int D, const Dest& dest, void* stream) {
-  if (L <= 0 || B <= 0) return 0;
-  if (D % 16 != 0) return -1;
-  tail_scatter_kernel<<<dim3(B, L), kThreads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<int8_t*>(bk), static_cast<float*>(bks),
-      static_cast<int8_t*>(bv), static_cast<float*>(bvs),
-      static_cast<const int8_t*>(tk), static_cast<const float*>(tks),
-      static_cast<const int8_t*>(tv), static_cast<const float*>(tvs), B, Hkv,
-      T, KT, D, dest);
-  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace fused

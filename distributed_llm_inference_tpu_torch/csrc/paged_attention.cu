@@ -43,6 +43,7 @@
 #include "decode_attention.cuh"
 #include "fused_decode.cuh"
 #include "paged_decode.cuh"
+#include "tail_flush.cuh"
 
 // bf16 q [B, Hkv*G, D] and pages [P, Hkv, PS, D], table [B, Tw], kv_lens and
 // q_pos [B] int32; out as q, m_out / l_out f32 [B, Hkv, G]. window: 0 = no
@@ -184,158 +185,51 @@ extern "C" int dli_quantized_paged_fused_attention(
 
 namespace {
 
-using decode::kThreads;
-
 // Replaces `paged_tail_flush` (its TPU kernel read-modify-writes whole
-// pages through VMEM, with clamped duplicate visits): a direct scatter of
-// row b's tail slots i < tail_len[b] to positions base_len[b] + i of its
-// pages, scales beside them. Nothing is written for a position past the
-// table or on the null page 0 (nor on an id outside the pool).
-//
-// Bound by bytes (each live tail byte read once and written once), and at
-// the size of one window (L = 32, B = 8, KT = 16: 8.6 MB each way) by
-// latency: 3.35 TB/s needs ~3 MB in flight over a microsecond, and a thread
-// that walks its (slot, head, 16 bytes) items in turn, each a chain of a
-// table read, a load and a store, keeps one item in flight. Here a
-// block takes `hb` kv heads of one (row, layer), hb * KT tail rows that lie
-// contiguous in the tail planes, WORDS 16-byte words of K and of V a thread
-// a pass: each thread first issues the loads of all its words (every tail
-// slot, unconditionally: the planes are in bounds and a window's rows are
-// full but for rows that stopped) and of their rows' scales, then reads
-// base_len, tail_len and the table entry of each word's slot, and stores
-// only then. The launch (dli_paged_tail_flush) takes WORDS = 2 and as many
-// heads a block as one pass covers: at that size 1024 blocks of 54
-// registers a thread, all resident at once (9 an SM), so every byte of the
-// window is in flight before a store waits. One head a block with 4 words
-// (2048 blocks of 72 registers, 7 an SM: two waves) and 8 heads with 8
-// words (256 blocks) were slower on an H100 (tools/torch_cluster_sweep.py
-// --flush rebuilds this source with other PAGED_FLUSH_WORDS and
-// PAGED_FLUSH_HEADS; PERF.md).
-template <int WORDS>
-__global__ void __launch_bounds__(kThreads) tail_flush_kernel(
-    int8_t* __restrict__ pk, float* __restrict__ pks,
-    int8_t* __restrict__ pv, float* __restrict__ pvs,  // [L, P, Hkv, PS(, D)]
-    const int8_t* __restrict__ tk, const float* __restrict__ tks,
-    const int8_t* __restrict__ tv, const float* __restrict__ tvs,  // [L, B, Hkv, KT(, D)]
-    const int* __restrict__ table, const int* __restrict__ base_len,
-    const int* __restrict__ tail_len, int B, int P, int Hkv, int PS, int Tw,
-    int KT, int D, int hb) {
-  const int h0 = blockIdx.x * hb;
-  const int b = blockIdx.y;
-  const int l = blockIdx.z;
-  const int t = threadIdx.x;
-  const int chunks = D / 16;
-  const int total = min(hb, Hkv - h0) * KT;          // tail rows of the block
-  const int rows = kThreads * WORDS / chunks;         // tail rows a pass
-  const size_t src0 = (((size_t)l * B + b) * Hkv + h0) * KT;
-  const uint4* ksrc = reinterpret_cast<const uint4*>(tk + src0 * D);
-  const uint4* vsrc = reinterpret_cast<const uint4*>(tv + src0 * D);
-  // The pool row of the block's tail row j (kv head h0 + j / KT, slot
-  // j % KT), or -1 where nothing is written.
-  auto dest = [&](int j, int start, int n) -> long long {
-    const int i = j % KT;
-    const int pos = start + i;
+// pages through VMEM, with clamped duplicate visits): tail_flush.cuh's
+// kernel with this destination. Row b's tail slot i < tail_len[b] goes to
+// position base_len[b] + i of its pages, scales beside them; nothing is
+// written for a position past the table or on the null page 0 (nor on an
+// id outside the pool).
+struct PagedDest {
+  const int *table, *base_len, *tail_len;
+  int P, Hkv, PS, Tw;
+  struct Row {
+    int start, n;
+  };
+  __device__ Row row(int b) const { return Row{base_len[b], tail_len[b]}; }
+  __device__ long long at(const Row& r, int l, int b, int h, int i) const {
+    const int pos = r.start + i;
     const int slot = pos / PS;
-    if (i >= n || slot >= Tw) return -1;
+    if (i >= r.n || slot >= Tw) return -1;
     const int page = table[(size_t)b * Tw + slot];
     if (page <= 0 || page >= P) return -1;
-    return (((long long)l * P + page) * Hkv + h0 + j / KT) * PS + pos % PS;
-  };
-  for (int r0 = 0; r0 < total; r0 += rows) {
-    const int words = min(rows, total - r0) * chunks;
-    uint4 kw[WORDS], vw[WORDS];
-    float ksw[WORDS], vsw[WORDS];
-#pragma unroll
-    for (int u = 0; u < WORDS; ++u) {
-      const int w = u * kThreads + t;
-      if (w < words) {
-        kw[u] = ksrc[(size_t)r0 * chunks + w];
-        vw[u] = vsrc[(size_t)r0 * chunks + w];
-      }
-      if (w < rows && r0 + w < total) {
-        ksw[u] = tks[src0 + r0 + w];
-        vsw[u] = tvs[src0 + r0 + w];
-      }
-    }
-    const int start = base_len[b];
-    const int n = min(tail_len[b], KT);
-#pragma unroll
-    for (int u = 0; u < WORDS; ++u) {
-      const int w = u * kThreads + t;
-      if (w < words) {
-        const long long dst = dest(r0 + w / chunks, start, n);
-        if (dst >= 0) {
-          reinterpret_cast<uint4*>(pk + dst * D)[w % chunks] = kw[u];
-          reinterpret_cast<uint4*>(pv + dst * D)[w % chunks] = vw[u];
-        }
-      }
-      if (w < rows && r0 + w < total) {
-        const long long dst = dest(r0 + w, start, n);
-        if (dst >= 0) {
-          pks[dst] = ksw[u];
-          pvs[dst] = vsw[u];
-        }
-      }
-    }
+    return (((long long)l * P + page) * Hkv + h) * PS + pos % PS;
   }
-}
-
-// Words a thread and kv heads a block of the launch below (0: as many as
-// one pass covers).
-#ifndef PAGED_FLUSH_WORDS
-#define PAGED_FLUSH_WORDS 2
-#endif
-#ifndef PAGED_FLUSH_HEADS
-#define PAGED_FLUSH_HEADS 0
-#endif
-
-// Launches tail_flush_kernel<WORDS> with hb kv heads a block.
-template <int WORDS>
-int launch_tail_flush(void* pool_k, void* pool_ks, void* pool_v,
-                      void* pool_vs, const void* tail_k, const void* tail_ks,
-                      const void* tail_v, const void* tail_vs,
-                      const void* table, const void* base_len,
-                      const void* tail_len, int L, int B, int P, int Hkv,
-                      int PS, int Tw, int KT, int D, int hb, void* stream) {
-  tail_flush_kernel<WORDS><<<dim3((Hkv + hb - 1) / hb, B, L), kThreads, 0,
-                             static_cast<cudaStream_t>(stream)>>>(
-      static_cast<int8_t*>(pool_k), static_cast<float*>(pool_ks),
-      static_cast<int8_t*>(pool_v), static_cast<float*>(pool_vs),
-      static_cast<const int8_t*>(tail_k), static_cast<const float*>(tail_ks),
-      static_cast<const int8_t*>(tail_v), static_cast<const float*>(tail_vs),
-      static_cast<const int*>(table), static_cast<const int*>(base_len),
-      static_cast<const int*>(tail_len), B, P, Hkv, PS, Tw, KT, D, hb);
-  return static_cast<int>(cudaGetLastError());
-}
+};
 
 }  // namespace
 
 // pool planes [L, P, Hkv, PS, D] int8 / [L, P, Hkv, PS] f32, tail planes
 // [L, B, Hkv, KT, D] / [L, B, Hkv, KT], table [B, Tw], base_len and tail_len
-// [B] int32. D a multiple of 16 up to 16 * 2 * kThreads. One launch of
-// tail_flush_kernel<2>, a block the kv heads of a (row, layer) that one
-// pass of 2 words of K and of V a thread covers (2 at KT = 16, D = 128; at
-// least 1). Returns cudaGetLastError() after the launch, -1 for another D
-// or a grid the card does not take.
+// [B] int32. D a multiple of 16 up to 16 * 2 * 128. One launch of
+// tail_flush.cuh's kernel (launch_tail_flush: 2 words of K and of V a
+// thread, the kv heads of a (row, layer) that one pass covers a block, 2
+// at KT = 16, D = 128). Returns cudaGetLastError() after the launch, -1
+// for another D or a grid the card does not take.
 extern "C" int dli_paged_tail_flush(
     void* pool_k, void* pool_ks, void* pool_v, void* pool_vs,
     const void* tail_k, const void* tail_ks, const void* tail_v,
     const void* tail_vs, const void* table, const void* base_len,
     const void* tail_len, int L, int B, int P, int Hkv, int PS, int Tw,
     int KT, int D, void* stream) {
-  if (L <= 0 || B <= 0 || KT <= 0) return 0;
-  constexpr int kWords = PAGED_FLUSH_WORDS;
-  if (D % 16 != 0 || D / 16 > kWords * kThreads || Hkv < 1 || B > 65535 ||
-      L > 65535)
-    return -1;
-  const int per_head = KT * (D / 16);  // 16-byte words of a head's tail
-  int hb = PAGED_FLUSH_HEADS > 0 ? PAGED_FLUSH_HEADS
-                                 : kWords * kThreads / per_head;
-  hb = hb < 1 ? 1 : hb > Hkv ? Hkv : hb;
-  return launch_tail_flush<kWords>(pool_k, pool_ks, pool_v, pool_vs, tail_k,
-                                   tail_ks, tail_v, tail_vs, table, base_len,
-                                   tail_len, L, B, P, Hkv, PS, Tw, KT, D, hb,
-                                   stream);
+  if (PS < 1) return -1;
+  const PagedDest dest{static_cast<const int*>(table),
+                       static_cast<const int*>(base_len),
+                       static_cast<const int*>(tail_len), P, Hkv, PS, Tw};
+  return flush::launch_tail_flush(pool_k, pool_ks, pool_v, pool_vs, tail_k,
+                                  tail_ks, tail_v, tail_vs, L, B, Hkv, KT, D,
+                                  dest, stream);
 }
 
 // The fused step's cluster launch at these widths (bf16 queries), as

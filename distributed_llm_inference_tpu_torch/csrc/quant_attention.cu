@@ -20,11 +20,14 @@
 //   decode_attention.cuh with no table (row b is its own page of T slots),
 //   everything f32, p * vs included.
 // * `fused_tail_flush`: the fused window's int8 tail merged into the
-//   buffers, a direct scatter (fused_decode.cuh's, below).
+//   buffers, a direct scatter: tail_flush.cuh's kernel, shared with the
+//   pool's flush and the sink ring's, under the destination DenseDest
+//   below.
 
 #include "decode_attention.cuh"
 #include "fused_decode.cuh"
 #include "paged_decode.cuh"
+#include "tail_flush.cuh"
 
 // big stacks [L, B, Hkv, T, D] int8 / [L, B, Hkv, T] f32, tail planes
 // [L, B, Hkv, KT, D] / [L, B, Hkv, KT]; q [B, Hkv*G, D], k_new / v_new
@@ -129,21 +132,20 @@ namespace {
 
 // Replaces `fused_tail_flush` (its TPU kernel read-modify-writes the
 // 32-token value blocks and 128-slot scale blocks a row's window touches,
-// with clamped duplicate visits): a direct scatter, fused_decode.cuh's
-// tail_scatter_kernel. Each of a row's tail_len[b] tail slots goes to
-// position base_len[b] + i of the buffers; nothing is written at or past T.
+// with clamped duplicate visits): tail_flush.cuh's kernel with this
+// destination. Each of a row's tail_len[b] tail slots goes to position
+// base_len[b] + i of the buffers; nothing is written at or past T.
 struct DenseDest {
   const int *base_len, *tail_len;
-  int T;
+  int B, Hkv, T;
   struct Row {
-    int first, end, start, T;
-    __device__ int slot(int i) const {
-      const int pos = start + i;
-      return pos < 0 || pos >= T ? -1 : pos;
-    }
+    int start, n;
   };
-  __device__ Row row(int b) const {
-    return Row{0, tail_len[b], base_len[b], T};
+  __device__ Row row(int b) const { return Row{base_len[b], tail_len[b]}; }
+  __device__ long long at(const Row& r, int l, int b, int h, int i) const {
+    const int pos = r.start + i;
+    if (i >= r.n || pos < 0 || pos >= T) return -1;
+    return (((long long)l * B + b) * Hkv + h) * T + pos;
   }
 };
 
@@ -151,15 +153,17 @@ struct DenseDest {
 
 // big planes [L, B, Hkv, T, D] int8 / [L, B, Hkv, T] f32, tail planes
 // [L, B, Hkv, KT, D] / [L, B, Hkv, KT], base_len and tail_len [B] int32. D a
-// multiple of 16. Returns cudaGetLastError() after the launch.
+// multiple of 16 up to 16 * 2 * 128. One launch of tail_flush.cuh's kernel,
+// as dli_paged_tail_flush's. Returns cudaGetLastError() after the launch,
+// -1 for another D or a grid the card does not take.
 extern "C" int dli_fused_tail_flush(
     void* big_k, void* big_ks, void* big_v, void* big_vs, const void* tail_k,
     const void* tail_ks, const void* tail_v, const void* tail_vs,
     const void* base_len, const void* tail_len, int L, int B, int Hkv, int T,
     int KT, int D, void* stream) {
   const DenseDest dest{static_cast<const int*>(base_len),
-                       static_cast<const int*>(tail_len), T};
-  return fused::launch_tail_scatter(big_k, big_ks, big_v, big_vs, tail_k,
-                                    tail_ks, tail_v, tail_vs, L, B, Hkv, T,
-                                    KT, D, dest, stream);
+                       static_cast<const int*>(tail_len), B, Hkv, T};
+  return flush::launch_tail_flush(big_k, big_ks, big_v, big_vs, tail_k,
+                                  tail_ks, tail_v, tail_vs, L, B, Hkv, KT, D,
+                                  dest, stream);
 }

@@ -1,7 +1,8 @@
 // Kernels over the int8 StreamingLLM sink ring (cache/sink.py:
 // QuantizedSinkKVCache), for Hopper (sm_90a), plain C interface. They
 // replace two TPU kernels of distributed_llm_inference_tpu/ops/
-// quant_attention.py, each an instance of fused_decode.cuh's kernels:
+// quant_attention.py, the step an instance of fused_decode.cuh's cluster
+// kernel, the flush of tail_flush.cuh's kernel:
 //
 // * `_qsink_kernel` behind `sink_fused_decode_attention`: one (layer, step)
 //   of the fused K-step decode window over three segments under one
@@ -37,11 +38,12 @@
 // * `sink_tail_flush`: the window's int8 tail merged into the ring planes.
 //   The TPU kernel's blocked read-modify-write (32-slot value and 128-slot
 //   scale blocks, a third visit pinned to block 0 for wrapped windows) is a
-//   VMEM tiling rule; here fused_decode.cuh's direct scatter with the
-//   destination `RingDest`: tail token i (skip <= i < tail_len) goes to
-//   ring slot (ring_ptr + i - skip) % ring_slots, values and scales written
-//   once, the padding slots [ring_slots, TR) never. No limit on KT beyond
-//   tail_len - skip <= ring_slots.
+//   VMEM tiling rule; here tail_flush.cuh's kernel (shared with the pool's
+//   flush and the dense cache's) under the destination `RingDest`: tail
+//   token i (skip <= i < tail_len) goes to ring slot (ring_ptr + i - skip)
+//   % ring_slots, values and scales written once, the padding slots
+//   [ring_slots, TR) never. No limit on KT beyond tail_len - skip <=
+//   ring_slots.
 //
 // What bounds them on this card: bytes. The step reads each live ring,
 // sink and tail byte once for a few flops a byte (and the evicted ring
@@ -49,6 +51,7 @@
 // each tail byte once and writes it once.
 
 #include "fused_decode.cuh"
+#include "tail_flush.cuh"
 
 namespace sink {
 
@@ -145,19 +148,23 @@ struct Ring : fused::Common {
   }
 };
 
-// The flush's destination: tail token i of row b, skip <= i < tail_len, to
-// ring slot (ring_ptr + i - skip) % ring_slots.
+// The flush's destination (tail_flush.cuh's kernel): tail token i of row
+// b, skip <= i < tail_len, to ring slot (ring_ptr + i - skip) % ring_slots
+// of the ring planes [L, B, Hkv, TR(, D)].
 struct RingDest {
   const int *ring_ptr, *skip, *tail_len;
-  int ring_slots;
+  int B, Hkv, TR, ring_slots;
   struct Row {
-    int first, end, ptr, ring_slots;
-    __device__ int slot(int i) const {
-      return (ptr + i - first) % ring_slots;
-    }
+    int first, end, ptr;
   };
   __device__ Row row(int b) const {
-    return Row{max(skip[b], 0), tail_len[b], ring_ptr[b], ring_slots};
+    return Row{max(skip[b], 0), tail_len[b], ring_ptr[b]};
+  }
+  __device__ long long at(const Row& r, int l, int b, int h, int i) const {
+    if (i < r.first || i >= r.end) return -1;
+    const int slot = (r.ptr + i - r.first) % ring_slots;
+    if (slot < 0) return -1;
+    return (((long long)l * B + b) * Hkv + h) * TR + slot;
   }
 };
 
@@ -246,7 +253,10 @@ extern "C" int dli_sink_cluster_plan(int TR, int SP, int KT, int tile_w,
 // ring planes [L, B, Hkv, TR, D] int8 / [L, B, Hkv, TR] f32, tail planes
 // [L, B, Hkv, KT, D] / [L, B, Hkv, KT], ring_ptr, skip, tail_len [B] int32
 // (0 <= ring_ptr < ring_slots <= TR, tail_len - skip <= ring_slots). D a
-// multiple of 16. Returns cudaGetLastError() after the launch.
+// multiple of 16 up to 16 * 2 * 128. One launch of tail_flush.cuh's
+// kernel, as dli_paged_tail_flush's. Returns cudaGetLastError() after the
+// launch, -1 outside 1 <= ring_slots <= TR, for another D or a grid the
+// card does not take.
 extern "C" int dli_sink_tail_flush(
     void* ring_k, void* ring_ks, void* ring_v, void* ring_vs,
     const void* tail_k, const void* tail_ks, const void* tail_v,
@@ -256,8 +266,9 @@ extern "C" int dli_sink_tail_flush(
   if (ring_slots < 1 || ring_slots > TR) return -1;
   const sink::RingDest dest{static_cast<const int*>(ring_ptr),
                             static_cast<const int*>(skip),
-                            static_cast<const int*>(tail_len), ring_slots};
-  return fused::launch_tail_scatter(ring_k, ring_ks, ring_v, ring_vs, tail_k,
-                                    tail_ks, tail_v, tail_vs, L, B, Hkv, TR,
-                                    KT, D, dest, stream);
+                            static_cast<const int*>(tail_len), B, Hkv, TR,
+                            ring_slots};
+  return flush::launch_tail_flush(ring_k, ring_ks, ring_v, ring_vs, tail_k,
+                                  tail_ks, tail_v, tail_vs, L, B, Hkv, KT, D,
+                                  dest, stream);
 }

@@ -41,7 +41,8 @@ pages, a direct scatter (the TPU kernel's whole-page read-modify-write with
 clamped visits is a VMEM device that has no use here), nothing on the null
 page 0 or past the table: one launch of blocks of a few kv heads of a
 (row, layer) each, every thread's loads issued before its stores
-(``csrc/paged_attention.cu``).
+(``csrc/tail_flush.cuh``, shared with the dense cache's and the sink
+ring's flushes; the destination policy in ``csrc/paged_attention.cu``).
 
 The wrappers launch the kernel for CUDA tensors and raise on anything the
 kernel does not take; they use the plain version only for tensors that lie

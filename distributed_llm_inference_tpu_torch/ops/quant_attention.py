@@ -46,7 +46,10 @@ two bf16 terms (hi and the rest); for f32 queries the walk of
 ``fused_tail_flush`` replaces the TPU kernel of that name:
 the fused window's int8 tail written into the buffers at each row's
 ``base_len``, in place (the TPU kernel aliases them), nothing at or past T;
-the bytes equal ``cache/dense.py:_tail_flush_rows``'s. ``decode_launches``
+the bytes equal ``cache/dense.py:_tail_flush_rows``'s. It is one launch of
+``csrc/tail_flush.cuh``'s kernel, which the pool's flush and the ring's
+share, each a destination policy: blocks of a few kv heads of a (row,
+layer), every thread's loads issued before its stores. ``decode_launches``
 and ``flush_launches`` count their launches.
 
 The int8 sink ring (``cache/sink.py:QuantizedSinkKVCache``) adds two more,
@@ -58,7 +61,8 @@ launch of the same cluster kernel, the ring's tiles dealt as pieces of
 :func:`ring_piece_width`, no scratch.
 ``sink_tail_flush`` replaces the TPU kernel of that name: the tail written
 into the ring at slots that wrap mod ``ring_slots``, a direct scatter whose
-bytes equal ``cache/sink.py``'s gather-and-select merge. ``sink_launches``
+bytes equal ``cache/sink.py``'s gather-and-select merge, one launch of the
+same flush kernel. ``sink_launches``
 and ``sink_flush_launches`` count their launches.
 """
 

@@ -18,14 +18,18 @@ whole number of ring stages) and with the wrapper's ``mma_plan``; then the
 ring's depth, the source rebuilt with 2, 3, 4 and 6 stages of 16 KB
 (``-DINT4_STAGES``), each shape timed under the plan.
 
-With ``--flush``, `paged_tail_flush` (#7, ``csrc/paged_attention.cu``)
-instead, at `chip_smoke.py`'s timed shape (one window of 32 layers, B = 8,
-KT = 16, every row's window over two pages): the source rebuilt with each
-(words a thread, kv heads a block) of FLUSH_FORMS (``-DPAGED_FLUSH_WORDS``,
-``-DPAGED_FLUSH_HEADS``; heads 0 is the launch's own rule), each form's
-registers (``-Xptxas -v``) reported and its bytes held EQUAL to the plain
-version's, each timed twice in turn, beside the timed call's floor (an
-empty kernel).
+With ``--flush``, the three tail flushes, one kernel template under three
+destination policies (``csrc/tail_flush.cuh``): `paged_tail_flush` (#7,
+``csrc/paged_attention.cu``), `fused_tail_flush` (#10,
+``csrc/quant_attention.cu``) and `sink_tail_flush` (#12,
+``csrc/sink_attention.cu``), at `chip_smoke.py`'s timed shapes (one window
+of 32 layers, B = 8, KT = 16: #7 every row's window over two pages, #10
+at 2040 in a 2400-wide buffer, #12 from slot 1013 of a 1020-slot ring,
+across its end): each source rebuilt with each (words a thread, kv heads
+a block) of FLUSH_FORMS (``-DFLUSH_WORDS``, ``-DFLUSH_HEADS``; heads 0 is
+the launch's own rule), each form's registers (``-Xptxas -v``) reported
+and its bytes held EQUAL to the plain version's, each timed twice in
+turn, beside the timed call's floor (an empty kernel) before and after.
 
 With ``--sink``, `sink_fused_decode_attention` (#11) at `chip_smoke.py`'s
 timed shape (B = 8, window 1024 with 4 sinks, TR = 1024, KT = 16), its
@@ -53,7 +57,8 @@ import sys
 STAGES = (3, 4, 6, 8, 12)
 RING_SOURCES = ("paged_attention", "quant_attention")
 INT4_STAGES = (2, 3, 4, 6)
-# #7's forms: (16-byte words of K and of V a thread, kv heads a block).
+# The flushes' forms: (16-byte words of K and of V a thread, kv heads a
+# block).
 FLUSH_FORMS = ((2, 0), (1, 1), (2, 1), (4, 1), (4, 2), (4, 4), (8, 8))
 # #11's ring pieces: slots of a 256-wide ring tile a piece.
 SINK_PIECES = (64, 32)
@@ -264,83 +269,112 @@ def int4_sweep(smoke):
         qm._fns.clear()
 
 
+def flush_calls(smoke, rng):
+    """{flush: (source, wrapper's module, its cached entry, destination
+    planes, the call's other arguments, wrapper, plain version)} at
+    `chip_smoke.py`'s timed shapes."""
+    from distributed_llm_inference_tpu_torch.ops import paged_attention as pa
+    from distributed_llm_inference_tpu_torch.ops import quant_attention as qa
+
+    b, kt, layers, hkv = 8, smoke.KT, smoke.LLAMA3_8B.num_layers, smoke.HKV
+    width = smoke.ladder_pages(2040 + kt)
+    pages = b * width + 1
+    full = smoke.i32([kt] * b)
+    return {
+        "#7": ("paged_attention", pa._fn, "flush",
+               smoke.make_qplanes(rng, (layers, pages, hkv), smoke.PS),
+               (*smoke.make_qplanes(rng, (layers, b, hkv), kt),
+                smoke.make_table(rng, b, width, pages),
+                smoke.i32([2040] * b), full),
+               pa.paged_tail_flush, pa.paged_tail_flush_plain),
+        "#10": ("quant_attention", qa._fns, "flush",
+                smoke.make_qplanes(rng, (layers, b, hkv), 2400),
+                (*smoke.make_qplanes(rng, (layers, b, hkv), kt),
+                 smoke.i32([2040] * b), full),
+                qa.fused_tail_flush, qa.fused_tail_flush_plain),
+        "#12": ("sink_attention", qa._fns, "sink_flush",
+                smoke.make_qplanes(rng, (layers, b, hkv), 1024),
+                (*smoke.make_qplanes(rng, (layers, b, hkv), kt),
+                 smoke.i32([1013] * b), smoke.i32([0] * b), full, 1020),
+                qa.sink_tail_flush, qa.sink_tail_flush_plain),
+    }
+
+
 def flush_sweep(smoke):
-    """#7 under each of FLUSH_FORMS, the rebuilt libraries swapped into the
-    wrapper's cache in turn: its bytes against the plain version's, then
-    two rounds of timings, the floor before and after."""
+    """#7, #10 and #12 under each of FLUSH_FORMS, the rebuilt libraries
+    swapped into the wrappers' caches in turn: their bytes against the
+    plain versions', then two rounds of timings, the floor before and
+    after."""
     import numpy as np
     import torch
 
     from distributed_llm_inference_tpu_torch.ops import _build
-    from distributed_llm_inference_tpu_torch.ops import paged_attention as pa
 
+    rng = np.random.default_rng(99)
+    calls = flush_calls(smoke, rng)
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     started = {}
-    for words, heads in FLUSH_FORMS:
-        out = _build.BUILD_DIR / f"libpaged_attention_flush{words}x{heads}.so"
-        started[words, heads] = out, subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v",
-             f"-DPAGED_FLUSH_WORDS={words}", f"-DPAGED_FLUSH_HEADS={heads}",
-             "-o", str(out), str(_build.CSRC / "paged_attention.cu")],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    for source in {c[0] for c in calls.values()}:
+        for words, heads in FLUSH_FORMS:
+            out = _build.BUILD_DIR / f"lib{source}_flush{words}x{heads}.so"
+            started[source, (words, heads)] = out, subprocess.Popen(
+                [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v",
+                 f"-DFLUSH_WORDS={words}", f"-DFLUSH_HEADS={heads}",
+                 "-o", str(out), str(_build.CSRC / f"{source}.cu")],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     libs, registers = {}, {}
-    for form, (out, proc) in started.items():
+    for key, (out, proc) in started.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for the flush form {form}:\n{log}")
-        libs[form] = ctypes.CDLL(str(out))
+            raise RuntimeError(f"nvcc failed for the flush form {key}:\n{log}")
+        libs[key] = ctypes.CDLL(str(out))
         # `-Xptxas -v`: the kernel's registers and spills a thread.
-        registers[form], entry = [], ""
+        registers[key], entry = [], ""
         for line in log.splitlines():
             if "Compiling entry" in line:
                 entry = line
             elif "tail_flush_kernel" in entry and (
                     "Used" in line or "spill" in line):
-                registers[form].append(line.split("info    :")[-1].strip())
-    rng = np.random.default_rng(99)
+                registers[key].append(line.split("info    :")[-1].strip())
     flush = torch.ones(16 * 1024 * 1024, dtype=torch.int64, device="cuda")
-    b, kt, layers, base_len = 8, smoke.KT, smoke.LLAMA3_8B.num_layers, 2040
-    width = smoke.ladder_pages(base_len + kt)
-    pages = b * width + 1
-    pool = smoke.make_qplanes(rng, (layers, pages, smoke.HKV), smoke.PS)
-    table = smoke.make_table(rng, b, width, pages)
-    tail = smoke.make_qplanes(rng, (layers, b, smoke.HKV), kt)
-    base, tl = smoke.i32([base_len] * b), smoke.i32([kt] * b)
-    want = [p.clone() for p in pool]
-    pa.paged_tail_flush_plain(*want, *tail, table, base, tl)
     saved = dict(_build._libs)
 
-    def use(form):
-        _build._libs["paged_attention"] = libs[form]
-        pa._fn.pop("flush", None)
-
-    def call():
-        pa.paged_tail_flush(*pool, *tail, table, base, tl)
+    def use(name, form):
+        source, cache, entry = calls[name][:3]
+        _build._libs[source] = libs[source, form]
+        cache.pop(entry, None)
 
     got = {}
     try:
-        for form in FLUSH_FORMS:
-            use(form)
-            mine = [p.clone() for p in pool]
-            pa.paged_tail_flush(*mine, *tail, table, base, tl)
-            torch.cuda.synchronize()
-            got[form] = {"max_abs_err": max(
-                smoke.max_err(a, w) for a, w in zip(mine, want)),
-                "ptxas": registers[form], "ms": []}
-            assert got[form]["max_abs_err"] == 0.0, (form, got[form])
+        for name, (source, _, _, dst, args, fn, plain) in calls.items():
+            want = [p.clone() for p in dst]
+            plain(*want, *args)
+            for form in FLUSH_FORMS:
+                use(name, form)
+                mine = [p.clone() for p in dst]
+                fn(*mine, *args)
+                torch.cuda.synchronize()
+                got[name, form] = {"max_abs_err": max(
+                    smoke.max_err(a, w) for a, w in zip(mine, want)),
+                    "ptxas": registers[source, form], "ms": []}
+                assert got[name, form]["max_abs_err"] == 0.0, (
+                    name, form, got[name, form])
         floor = [smoke.timed_call_floor_ms(flush)]
         for _ in range(2):
-            for form in FLUSH_FORMS:
-                use(form)
-                got[form]["ms"].append(smoke.time_ms(call, 50, flush))
+            for name, (_, _, _, dst, args, fn, _) in calls.items():
+                for form in FLUSH_FORMS:
+                    use(name, form)
+                    got[name, form]["ms"].append(smoke.time_ms(
+                        lambda: fn(*dst, *args), 50, flush))
         floor.append(smoke.timed_call_floor_ms(flush))
     finally:
         _build._libs.clear()
         _build._libs.update(saved)
-        pa._fn.pop("flush", None)
-    for (words, heads), g in got.items():
-        print(json.dumps({"words_a_thread": words, "heads_a_block": heads or
-                          "rule", **g}), flush=True)
+        for source, cache, entry, *_ in calls.values():
+            cache.pop(entry, None)
+    for (name, (words, heads)), g in got.items():
+        print(json.dumps({"flush": name, "words_a_thread": words,
+                          "heads_a_block": heads or "rule", **g}), flush=True)
     print(json.dumps({"timed_call_floor_ms": floor}), flush=True)
 
 

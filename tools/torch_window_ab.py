@@ -15,8 +15,10 @@ weights:
   `quantized_paged_attention` (#5) and `quantized_decode_attention` (#8)
   over 2048 tokens at B = 8 and B = 1, `sink_fused_decode_attention` (#11)
   at phase 2's shape (B = 8, window 1024 with 4 sinks, the tail full) and
-  `paged_tail_flush` (#7, one window of 32 layers), each with its launches
-  a call; and the timed call's floor (an empty kernel);
+  the three tail flushes over one window of 32 layers at phase 2's shapes,
+  `paged_tail_flush` (#7), `fused_tail_flush` (#10) and `sink_tail_flush`
+  (#12), each with its launches a call; and the timed call's floor (an
+  empty kernel);
 * decode windows (a captured K = 16 window over 8 rows of ~600 tokens; on
   the sink ring 8 streams of window + 7 tokens):
   int4 weights over int8 pages (#6), int4 weights over the int8 dense
@@ -47,12 +49,12 @@ import sys
 
 # The kernels whose launches a call are counted, by the names the profiler
 # gives them: the decode attention kernels, the ragged kernels, the int4
-# matmul's kernels (either tree's).
+# matmul's kernels, the flushes (either tree's).
 ATTENTION = ("fused_cluster_kernel", "paged_decode_kernel",
              "fused_scores_kernel", "fused_sums_kernel",
              "fused_combine_kernel", "paged_partial_kernel",
              "paged_combine_kernel", "ragged_kernel", "int4_",
-             "tail_flush_kernel")
+             "tail_flush_kernel", "tail_scatter_kernel")
 
 
 def int4_calls(smoke, calls):
@@ -111,8 +113,10 @@ def pinned_ragged_error(smoke):
 def sink_and_flush_calls(smoke, rng, calls):
     """#11 at `chip_smoke.py`'s timed shape (B = 8, window 1024 with 4
     sinks, mid-stream, the tail full) and #7 over one window of 32 layers
-    (every row's window over two pages), bf16, as that script's
-    `time_sink` and `time_fused` draw them."""
+    (every row's window over two pages), #10 over one window at 2040 in a
+    2400-wide buffer and #12 over one window from slot 1013 of a 1020-slot
+    ring (across its end), bf16, as that script's `time_sink`,
+    `time_fused` and `time_dense` draw them."""
     import torch
 
     from distributed_llm_inference_tpu_torch.ops import paged_attention as pa
@@ -141,12 +145,20 @@ def sink_and_flush_calls(smoke, rng, calls):
     base, tl = smoke.i32([base_len] * b), smoke.i32([kt] * b)
     calls["#7 L=32"] = lambda: pa.paged_tail_flush(*pool, *ftail, table,
                                                    base, tl)
+    big = smoke.make_qplanes(rng, (layers, b, smoke.HKV), 2400)
+    dtail = smoke.make_qplanes(rng, (layers, b, smoke.HKV), kt)
+    calls["#10 L=32"] = lambda: qa.fused_tail_flush(*big, *dtail, base, tl)
+    ring32 = smoke.make_qplanes(rng, (layers, b, smoke.HKV), tr)
+    stail = smoke.make_qplanes(rng, (layers, b, smoke.HKV), kt)
+    ptr, skip = smoke.i32([r - 7] * b), smoke.i32([0] * b)
+    calls["#12 L=32"] = lambda: qa.sink_tail_flush(*ring32, *stail, ptr,
+                                                   skip, tl, r)
 
 
 def kernel_times(smoke):
-    """#14, #13, #4, #9, #6, #2, #5, #8, #11 and #7 at phase 2's shapes in
-    this tree, bf16: milliseconds a call and launches a call (counted by
-    the profiler); and the timed call's floor."""
+    """#14, #13, #4, #9, #6, #2, #5, #8, #11, #7, #10 and #12 at phase 2's
+    shapes in this tree, bf16: milliseconds a call and launches a call
+    (counted by the profiler); and the timed call's floor."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile

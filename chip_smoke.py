@@ -170,8 +170,36 @@ one line per engine configuration or comparison):
               (window 256) with flash prefill against without, identical.
 
 Then a line `{"kernels": [...]}` with one entry per kernel (the only line
-with that key: phase 2 lists its results under `checked`), and the last line
-`{"ok": true, "device": {...}}`. Any failing phase raises: exit code non-zero.
+with that key: phase 2 lists its results under `checked`), then phase 5:
+
+5. serve    - a checkpoint loaded and served through the OpenAI gateway.
+              A 2-layer checkpoint at Llama-3-8B widths (bf16, seeded) is
+              written in the HF layout by the port's safetensors writer (an
+              index, two shards, config.json) into a temporary directory
+              under `build/`, deleted at the end pass or fail;
+              `python -m distributed_llm_inference_tpu_torch info` must
+              call it supported with its widths, and `load_model_params`
+              must return every tensor bitwise equal to the written one,
+              transposed (load seconds printed). Then 8 concurrent requests
+              through `ApiServer.start()` over `EngineBackend` on the
+              default engine (bf16 pages, K = 16): token-id prompts of 20
+              to 2100 tokens, 32 new tokens; two SSE streams ending in
+              [DONE], one sampled request, a client that disconnects
+              mid-stream, a `timeout_s` that expires; the first window's
+              capture is held until a request has reached the gateway, so
+              the gateway serves while the driver captures. `/metrics` and
+              `/healthz`, a drain; the launches of the ragged prefill and
+              paged decode kernels; tokens/s, the gateway's p50 TTFT and
+              peak memory. Then the real entry point,
+              `python -m distributed_llm_inference_tpu_torch api --dtype
+              float32`, as a subprocess: 3 greedy requests, one at a time,
+              equal token for token to `InferenceEngine.generate` of the
+              same prompt on the same weights in this process; SIGTERM, a
+              drain, exit 0. Last, `local --quantize int4 --kv-quant int8`
+              on the checkpoint, with the launches of its kernels.
+
+The last line is `{"ok": true, "device": {...}}`. Any failing phase raises:
+exit code non-zero.
 """
 
 from __future__ import annotations
@@ -179,9 +207,14 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import dataclasses
+import http.client
+import io
 import json
+import signal
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -189,15 +222,19 @@ import numpy as np
 import torch
 
 from distributed_llm_inference_tpu_torch.cache.base import window_ladder
+from distributed_llm_inference_tpu_torch import cli
 from distributed_llm_inference_tpu_torch.config import (
     CacheConfig,
     EngineConfig,
     ModelConfig,
     RopeScaling,
+    ServingConfig,
 )
 from distributed_llm_inference_tpu_torch.engine.engine import InferenceEngine
 from distributed_llm_inference_tpu_torch.engine.sampling import SamplingOptions
 from distributed_llm_inference_tpu_torch.models import llama
+from distributed_llm_inference_tpu_torch.serving import ApiServer, EngineBackend
+from distributed_llm_inference_tpu_torch.utils import checkpoint
 from distributed_llm_inference_tpu_torch.cache.dense import _quantize_kv
 from distributed_llm_inference_tpu_torch.ops import _build, quant
 from distributed_llm_inference_tpu_torch.ops import flash_attention as fa
@@ -3187,6 +3224,471 @@ def phase_parity():
 
 
 # ---------------------------------------------------------------------------
+# phase 5: serve — a checkpoint loaded and served through the OpenAI gateway
+# ---------------------------------------------------------------------------
+
+ROOT = Path(__file__).resolve().parent
+PKG = "distributed_llm_inference_tpu_torch"
+SERVE_LAYERS = 2  # full width, cut depth: about 2.9 GB of bf16 files
+# Our name -> (HF key suffix, stored [out, in] and transposed), spelled out
+# here rather than taken from the loader under test.
+HF_KEYS = {
+    "attn_norm": ("input_layernorm.weight", False),
+    "wq": ("self_attn.q_proj.weight", True),
+    "wk": ("self_attn.k_proj.weight", True),
+    "wv": ("self_attn.v_proj.weight", True),
+    "wo": ("self_attn.o_proj.weight", True),
+    "mlp_norm": ("post_attention_layernorm.weight", False),
+    "wg": ("mlp.gate_proj.weight", True),
+    "wu": ("mlp.up_proj.weight", True),
+    "wd": ("mlp.down_proj.weight", True),
+}
+# The gateway's traffic: (prompt length, body fields, what the client
+# does). The first request's window is the first one captured; the rest
+# arrive while the capture is held.
+SERVE_TRAFFIC = (
+    (20, {}, "json"),
+    (2100, {"stream": True}, "sse"),
+    (700, {"stream": True}, "sse"),
+    (300, {"temperature": 0.8, "top_p": 0.9}, "json"),
+    (1500, {}, "json"),
+    (64, {}, "json"),
+    (100, {"stream": True, "max_tokens": 2000}, "disconnect"),
+    (40, {"max_tokens": 2048, "timeout_s": 1.0}, "deadline"),
+)
+SERVE_NEW = 32
+API_PROMPTS = (40, 333, 1200)  # the api subprocess's greedy prompts
+API_NEW = 24
+
+
+def hf_config(cfg):
+    """``config.json`` of ``cfg`` as transformers writes a Llama's."""
+    rs = cfg.rope_scaling
+    return {
+        "architectures": ["LlamaForCausalLM"], "model_type": "llama",
+        "vocab_size": cfg.vocab_size, "hidden_size": cfg.hidden_size,
+        "intermediate_size": cfg.intermediate_size,
+        "num_hidden_layers": cfg.num_layers,
+        "num_attention_heads": cfg.num_heads,
+        "num_key_value_heads": cfg.num_kv_heads, "head_dim": cfg.head_dim,
+        "rms_norm_eps": cfg.rms_norm_eps, "rope_theta": cfg.rope_theta,
+        "max_position_embeddings": cfg.max_position_embeddings,
+        "tie_word_embeddings": False, "attention_bias": False,
+        "torch_dtype": "bfloat16",
+        "rope_scaling": {
+            "rope_type": rs.rope_type, "factor": rs.factor,
+            "low_freq_factor": rs.low_freq_factor,
+            "high_freq_factor": rs.high_freq_factor,
+            "original_max_position_embeddings":
+                rs.original_max_position_embeddings,
+        },
+    }
+
+
+def write_checkpoint(root, cfg, seed, dev):
+    """A bf16 HF checkpoint of ``cfg`` drawn from a seeded generator on
+    ``dev``, written by the port's writer: the embedding and the first half
+    of the layers in one shard, the rest, the final norm and the head in
+    another, an index and config.json. Returns the HF state (on ``dev``)
+    and the seconds the writing took."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def draw(*shape, base=0.0):
+        w = torch.randn(shape, generator=gen, device=dev) * 0.02 + base
+        return w.to(torch.bfloat16)
+
+    h, d, inter = cfg.hidden_size, cfg.head_dim, cfg.intermediate_size
+    state = {"model.embed_tokens.weight": draw(cfg.vocab_size, h)}
+    shapes = {"attn_norm": (h,), "wq": (cfg.num_heads * d, h),
+              "wk": (cfg.num_kv_heads * d, h), "wv": (cfg.num_kv_heads * d, h),
+              "wo": (h, cfg.num_heads * d), "mlp_norm": (h,),
+              "wg": (inter, h), "wu": (inter, h), "wd": (h, inter)}
+    for i in range(cfg.num_layers):
+        for name, (suffix, _) in HF_KEYS.items():
+            state[f"model.layers.{i}.{suffix}"] = draw(
+                *shapes[name], base=1.0 if name.endswith("norm") else 0.0)
+    state["model.norm.weight"] = draw(h, base=1.0)
+    state["lm_head.weight"] = draw(cfg.vocab_size, h)
+
+    def shard_of(key):
+        late = key in ("model.norm.weight", "lm_head.weight") or (
+            key.startswith("model.layers.")
+            and int(key.split(".")[2]) >= cfg.num_layers // 2)
+        return f"model-0000{2 if late else 1}-of-00002.safetensors"
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    weight_map = {k: shard_of(k) for k in state}
+    for shard in sorted(set(weight_map.values())):
+        checkpoint.save_safetensors(
+            {k: v for k, v in state.items() if weight_map[k] == shard},
+            str(Path(root) / shard))
+    total = sum(v.numel() * v.element_size() for v in state.values())
+    (Path(root) / "model.safetensors.index.json").write_text(json.dumps(
+        {"metadata": {"total_size": total}, "weight_map": weight_map}))
+    (Path(root) / "config.json").write_text(json.dumps(hf_config(cfg)))
+    return state, time.perf_counter() - t0
+
+
+def check_info(root, cfg):
+    """The ``info`` subcommand, run as a user would."""
+    r = subprocess.run([sys.executable, "-m", PKG, "info", "--model", root],
+                       cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
+    info = json.loads(r.stdout)
+    want = {"family": "llama", "supported": True,
+            "num_layers": cfg.num_layers, "hidden_size": cfg.hidden_size,
+            "num_heads": cfg.num_heads, "num_kv_heads": cfg.num_kv_heads,
+            "vocab_size": cfg.vocab_size}
+    assert {k: info[k] for k in want} == want, info
+    return info
+
+
+def check_loaded(params, state, cfg):
+    """Every loaded tensor bitwise equal to the written one (transposed
+    where HF stores ``[out, in]``)."""
+    def same(a, b):
+        return a.shape == b.shape and torch.equal(
+            a.view(torch.int16), b.view(torch.int16))
+
+    for i in range(cfg.num_layers):
+        for name, (suffix, transpose) in HF_KEYS.items():
+            w = state[f"model.layers.{i}.{suffix}"]
+            assert same(params["layers"][name][i], w.T if transpose else w), (
+                f"layer {i} {name} differs from the written tensor")
+    assert set(params["layers"]) == set(HF_KEYS)
+    assert same(params["embed"], state["model.embed_tokens.weight"])
+    assert same(params["final_norm"], state["model.norm.weight"])
+    assert same(params["lm_head"], state["lm_head.weight"].T)
+    return 2 + cfg.num_layers * len(HF_KEYS) + 1
+
+
+def http_post(port, body, timeout=600):
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    conn.request("POST", "/v1/completions", json.dumps(body),
+                 {"Content-Type": "application/json"})
+    return conn, conn.getresponse()
+
+
+def http_get(port, path):
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    conn.request("GET", path)
+    resp = conn.getresponse()
+    out = (resp.status, resp.getheader("Content-Type"), resp.read())
+    conn.close()
+    return out
+
+
+def sse_chunks(raw):
+    events = [e.strip()[len(b"data: "):].decode()
+              for e in raw.split(b"\n\n") if e.strip().startswith(b"data: ")]
+    assert events and events[-1] == "[DONE]", "the stream did not end in [DONE]"
+    return [json.loads(e) for e in events[:-1]]
+
+
+def one_request(port, body, kind, vocab):
+    """One client of the gateway: sends ``body`` and checks what comes
+    back for its ``kind``. Returns (tokens received, wire finish reason)."""
+    conn, resp = http_post(port, body)
+    assert resp.status == 200, (resp.status, resp.read())
+    if kind == "disconnect":
+        first = resp.fp.readline()
+        assert first.startswith(b"data: "), first
+        tokens = json.loads(first[len(b"data: "):])["choices"][0]["token_ids"]
+        resp.close()
+        conn.close()  # mid-stream: the gateway must cancel the generation
+        return tokens, None
+    raw = resp.read()
+    conn.close()
+    if kind == "sse":
+        assert resp.getheader("Content-Type") == "text/event-stream"
+        chunks = sse_chunks(raw)
+        toks = [c for c in chunks if c["choices"][0]["token_ids"]]
+        assert [c["seq"] for c in toks] == list(range(len(toks)))
+        assert chunks[-1]["usage"]["completion_tokens"] == len(toks)
+        tokens = [c["choices"][0]["token_ids"][0] for c in toks]
+        reason = chunks[-1]["choices"][0]["finish_reason"]
+    else:
+        doc = json.loads(raw)
+        tokens = doc["choices"][0]["token_ids"]
+        reason = doc["choices"][0]["finish_reason"]
+        assert doc["usage"]["completion_tokens"] == len(tokens)
+    assert all(0 <= t < vocab for t in tokens), "a token out of range"
+    if kind == "deadline":
+        assert reason == "timeout" and len(tokens) < body["max_tokens"], (
+            reason, len(tokens))
+    else:
+        assert reason == "length" and len(tokens) == body["max_tokens"], (
+            kind, reason, len(tokens))
+    return tokens, reason
+
+
+def serve_traffic(engine, vocab, seed):
+    """``SERVE_TRAFFIC`` through ``ApiServer.start()`` over
+    ``EngineBackend``, all requests at once but the first, whose window's
+    capture (where the engine captures) is held until another request has
+    reached the gateway: the gateway parses and submits while the driver
+    captures, and a CUDA call from its thread would fail the capture. Then
+    ``/metrics`` and ``/healthz``, and a drain. Returns the report."""
+    rng = np.random.default_rng(seed)
+    bodies = [dict({"prompt": rng.integers(0, vocab, size=n).tolist(),
+                    "max_tokens": SERVE_NEW}, **fields)
+              for n, fields, _ in SERVE_TRAFFIC]
+    backend = EngineBackend(engine)
+    server = ApiServer(backend, ServingConfig(host="127.0.0.1", port=0))
+    capturing, arrived = threading.Event(), threading.Event()
+    held = []  # requests that reached the engine while the capture was held
+    fused = engine._fused
+    holds = fused is not None and fused.capture
+    if holds:
+        step_fn = fused._step_fn
+
+        def held_step_fn(*args):
+            if not capturing.is_set() and torch.cuda.is_current_stream_capturing():
+                capturing.set()
+                if not arrived.wait(120):
+                    raise RuntimeError("no request reached the gateway "
+                                       "while the first window was captured")
+            return step_fn(*args)
+
+        fused._step_fn = held_step_fn
+    submit, cancel, cancelled = backend.submit, backend.cancel, []
+
+    def watched_submit(*args):
+        h = submit(*args)
+        if capturing.is_set() and not arrived.is_set():
+            held.append(h.gen_id)
+            arrived.set()
+        return h
+
+    def watched_cancel(h):
+        cancelled.append(h.gen_id)
+        cancel(h)
+
+    backend.submit, backend.cancel = watched_submit, watched_cancel
+    results, errors = [None] * len(bodies), []
+
+    def client(i):
+        try:
+            results[i] = one_request(server.port, bodies[i],
+                                     SERVE_TRAFFIC[i][2], vocab)
+        except BaseException as e:  # noqa: BLE001 - re-raised below
+            errors.append((i, e))
+
+    server.start()
+    try:
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(len(bodies))]
+        threads[0].start()
+        if holds:
+            assert capturing.wait(600), "the first window was never captured"
+        for t in threads[1:]:
+            t.start()
+        for t in threads:
+            t.join(timeout=900)
+        wall = time.perf_counter() - t0
+        assert not any(t.is_alive() for t in threads), "a client hung"
+        if errors:
+            raise errors[0][1]
+        deadline = time.monotonic() + 60
+        while backend.active_sessions() and time.monotonic() < deadline:
+            time.sleep(0.01)
+        assert backend.active_sessions() == 0, "a session outlived its client"
+        status, ctype, text = http_get(server.port, "/metrics")
+        assert status == 200 and ctype.startswith("text/plain")
+        text = text.decode()
+        names = ["dli_ttft_seconds", "dli_gateway_tokens_total",
+                 f"dli_http_requests_total {len(bodies)}",
+                 "dli_queue_depth", "dli_active_sessions"]
+        if holds:
+            names.append("dli_decode_graph_captures_total")
+        for name in names:
+            assert name in text, f"/metrics lacks {name}"
+        status, _, health = http_get(server.port, "/healthz")
+        health = json.loads(health)
+        assert status == 200 and health["status"] == "ok", health
+        assert health["breaker"] == "closed", health
+    finally:
+        server.request_shutdown()
+        server.join(timeout=120)
+    assert not server._thread.is_alive(), "the gateway did not drain"
+    assert backend.error is None, backend.error
+    if holds:
+        assert held, "no request arrived during the first capture"
+    m = engine.metrics
+    assert cancelled, "the disconnected stream was never cancelled"
+    assert m.get_counter("sessions_deadline_expired") >= 1, (
+        "the expired request was not reaped by its deadline")
+    return {
+        "requests": len(bodies), "wall_s": wall,
+        "gateway_tokens": m.get_counter("gateway_tokens"),
+        "tokens_per_s": m.get_counter("gateway_tokens") / wall,
+        "ttft_p50_s": m.percentile("ttft", 50),
+        "ttft_p99_s": m.percentile("ttft", 99),
+        "engine_ttft_p50_s": m.percentile("engine_ttft", 50),
+        "requests_held_in_capture": len(held),
+        "graph_captures": m.get_counter("decode_graph_captures"),
+        "cancelled_by_disconnect": len(cancelled),
+        "deadline_expired": m.get_counter("sessions_deadline_expired"),
+        "by_request": [
+            {"prompt": n, "kind": kind, "tokens": len(r[0]), "finish": r[1]}
+            for (n, _, kind), r in zip(SERVE_TRAFFIC, results)],
+    }
+
+
+def read_line(proc, timeout):
+    """The next stdout line of ``proc``, or None after ``timeout`` s."""
+    line = []
+    t = threading.Thread(target=lambda: line.append(proc.stdout.readline()),
+                         daemon=True)
+    t.start()
+    t.join(timeout)
+    return line[0] if line and line[0] else None
+
+
+def api_subprocess(root, cfg, dev, log):
+    """``python -m distributed_llm_inference_tpu_torch api --dtype float32``
+    as a subprocess: 3 greedy requests, one at a time, each equal token for
+    token to ``InferenceEngine.generate`` of the same prompt (the api's
+    engine configuration, one engine, the prompts in the same order) on the
+    same weights loaded in this process; then SIGTERM: a drain, exit 0."""
+    rng = np.random.default_rng(17)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).tolist()
+               for n in API_PROMPTS]
+    t0 = time.perf_counter()
+    with open(log, "w") as err:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", PKG, "api", "--model", root, "--port", "0",
+             "--host", "127.0.0.1", "--dtype", "float32"],
+            cwd=ROOT, stdout=subprocess.PIPE, stderr=err, text=True)
+    try:
+        # The reference, while the subprocess loads.
+        params = checkpoint.load_model_params(root, cfg, torch.float32,
+                                              device=dev)
+        engine = InferenceEngine(
+            cfg, params, EngineConfig(max_batch_size=8, max_seq_len=2048,
+                                      dtype="float32"),
+            CacheConfig(), device=dev)
+        path = {"decode_steps": engine.decode_steps,
+                "decode_kernel": engine.cache.use_kernel}
+        opts = SamplingOptions(max_new_tokens=API_NEW)
+        want = [engine.generate([p], opts)[0] for p in prompts]
+        del engine, params
+        torch.cuda.empty_cache()
+        line = read_line(proc, 600)
+        assert line is not None, (
+            f"api never came up: {Path(log).read_text()[-4000:]}")
+        up = json.loads(line)
+        assert up["event"] == "api_up", up
+        up_s = time.perf_counter() - t0
+        got = []
+        for p in prompts:
+            conn, resp = http_post(up["port"], {"prompt": p,
+                                                "max_tokens": API_NEW})
+            assert resp.status == 200
+            doc = json.loads(resp.read())
+            conn.close()
+            assert doc["choices"][0]["finish_reason"] == "length"
+            got.append(doc["choices"][0]["token_ids"])
+        assert got == want, (
+            "the api's greedy f32 completions differ from generate: "
+            f"{[sum(a == b for a, b in zip(g, w)) for g, w in zip(got, want)]}"
+            " equal tokens")
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=300)
+        assert rc == 0, f"api exited {rc}: {Path(log).read_text()[-4000:]}"
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=60)
+    return {"requests": len(prompts), "prompt_lens": list(API_PROMPTS),
+            "tokens_each": API_NEW, "equal_to_generate": True,
+            "up_s": up_s, "exit_code": rc, **path}
+
+
+LOCAL_INT4 = {"int4_matmul": (qm, "launches"),
+              "int4_matmul_stacked": (qm, "stacked_launches"),
+              "quantized_ragged_paged_attention": (ra, "quantized_launches"),
+              "quantized_paged_fused_attention": (pa, "fused_launches"),
+              "paged_tail_flush": (pa, "flush_launches")}
+
+
+def local_int4(root, vocab):
+    """``local --quantize int4 --kv-quant int8`` on the checkpoint, in this
+    process (so that its kernels' launches can be counted): a 1000-token
+    prompt (the table past 768 slots: the window reads the pool in place),
+    32 new tokens."""
+    ids = np.random.default_rng(23).integers(0, vocab, size=1000).tolist()
+    for module, attr in LOCAL_INT4.values():
+        setattr(module, attr, 0)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(["local", "--model", root, "--prompt-ids",
+                       ",".join(map(str, ids)), "--max-new", "32",
+                       "--quantize", "int4", "--kv-quant", "int8"])
+    launches = {n: getattr(m, a) for n, (m, a) in LOCAL_INT4.items()}
+    assert rc == 0
+    doc = json.loads(out.getvalue().strip().splitlines()[-1])
+    assert doc["event"] == "generated" and len(doc["tokens"]) == 32
+    assert all(0 <= t < vocab for t in doc["tokens"])
+    for name, n in launches.items():
+        assert n > 0, f"local int4/int8 never launched {name}"
+    return {"tokens": len(doc["tokens"]), "seconds": doc["seconds"],
+            "launches": launches}
+
+
+def phase_serve():
+    """A 2-layer checkpoint at Llama-3-8B widths, written, loaded and
+    served (see the module docstring, phase 5)."""
+    cfg = dataclasses.replace(LLAMA3_8B, num_layers=SERVE_LAYERS)
+    report = {"phase": "serve",
+              "model": f"llama-3-8b widths, {SERVE_LAYERS} layers, random "
+                       "bf16 weights from a checkpoint"}
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as root:
+        state, write_s = write_checkpoint(root, cfg, 5, DEV)
+        files = sorted(p.name for p in Path(root).iterdir())
+        report["checkpoint"] = {
+            "files": files, "write_s": write_s,
+            "bytes": sum(p.stat().st_size for p in Path(root).iterdir())}
+        assert checkpoint.load_config(root) == cfg
+        report["info"] = check_info(root, cfg)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params = checkpoint.load_model_params(root, cfg, torch.bfloat16,
+                                              device=DEV)
+        torch.cuda.synchronize()
+        report["load_s"] = time.perf_counter() - t0
+        report["tensors_bitwise_equal"] = check_loaded(params, state, cfg)
+        del state
+        torch.cuda.empty_cache()
+
+        torch.cuda.reset_peak_memory_stats()
+        engine = InferenceEngine(cfg, params, EngineConfig(), CacheConfig(),
+                                 device=DEV)
+        assert engine.decode_steps == 16 and engine._pipelined
+        assert engine.cache.use_kernel and engine.cache.use_ragged
+        for module, attr in MAIN_BF16.values():
+            setattr(module, attr, 0)
+        bf16 = serve_traffic(engine, cfg.vocab_size, 29)
+        bf16["launches"] = {n: getattr(m, a) for n, (m, a) in MAIN_BF16.items()}
+        for name, n in bf16["launches"].items():
+            assert n > 0, f"{name} was never launched while serving"
+        bf16["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+        report["bf16_gateway"] = bf16
+        del engine, params
+        torch.cuda.empty_cache()
+
+        report["api_f32"] = api_subprocess(
+            root, cfg, DEV, str(_build.BUILD_DIR / "serve_api_stderr.log"))
+        assert report["api_f32"]["decode_steps"] == 16
+        assert report["api_f32"]["decode_kernel"]
+        report["local_int4_int8kv"] = local_int4(root, cfg.vocab_size)
+    emit(report)
+
+
+# ---------------------------------------------------------------------------
 
 REPLACES = {
     "paged_attention": "distributed_llm_inference_tpu/ops/paged_attention.py:154",
@@ -3243,6 +3745,7 @@ def main() -> int:
          "library_ms": k["library_ms"], "shape": k["shape"]}
         for name, k in timed.items()
     ], "timed_call_floor_ms": floor, "seconds": time.perf_counter() - t0})
+    phase_serve()
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}})

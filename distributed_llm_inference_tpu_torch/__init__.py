@@ -14,6 +14,7 @@ from .config import (
     LatentConfig,
     ModelConfig,
     RopeScaling,
+    ServingConfig,
 )
 from .utils.device import resolve_device
 
@@ -25,6 +26,7 @@ __all__ = [
     "LatentConfig",
     "ModelConfig",
     "RopeScaling",
+    "ServingConfig",
     "resolve_device",
     "__version__",
 ]

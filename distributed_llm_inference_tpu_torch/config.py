@@ -211,3 +211,41 @@ class EngineConfig:
     act_scales: Optional[Any] = dataclasses.field(
         default=None, hash=False, compare=False
     )
+
+
+@dataclasses.dataclass(frozen=True)
+class ServingConfig:
+    """HTTP gateway policy (``serving/server.py``): admission control,
+    per-request deadlines, and graceful drain for the OpenAI-compatible
+    ``/v1/completions`` front door."""
+
+    host: str = "0.0.0.0"
+    port: int = 8000  # 0 = ephemeral (the bound port is reported after bind)
+    # Admission bound: completions in flight through the gateway (waiting in
+    # the engine queue + decoding). At the bound new requests get 429 with
+    # a Retry-After header instead of growing an unbounded queue.
+    max_queue_depth: int = 64
+    retry_after_s: float = 1.0
+    # Per-request deadline (seconds): the request body's "timeout_s"
+    # overrides the default, capped at the max. An expired deadline cancels
+    # the underlying generation (engine.cancel).
+    default_timeout_s: float = 120.0
+    max_timeout_s: float = 600.0
+    # Cap on a request's max_tokens (an unbounded ask pins a decode slot).
+    max_tokens_cap: int = 2048
+    # Graceful drain (SIGTERM): stop admitting, give in-flight requests this
+    # long to finish, cancel the rest, then exit.
+    drain_timeout_s: float = 30.0
+    # Driver-loop sleep when the engine has no work (seconds).
+    idle_sleep_s: float = 0.002
+    # Reported as the OpenAI "model" field in responses.
+    model_name: str = "distributed-llm-inference-tpu"
+    # Circuit breaker (serving/breaker.py): after this many consecutive
+    # backend failures the gateway fails fast (503 + Retry-After) ...
+    breaker_failure_threshold: int = 5
+    # ... for this long, then admits trial traffic again (half-open) ...
+    breaker_recovery_s: float = 5.0
+    # ... and closes after this many consecutive trial successes.
+    breaker_success_threshold: int = 1
+    # Background backend health-probe period (seconds; 0 disables).
+    breaker_probe_interval_s: float = 1.0

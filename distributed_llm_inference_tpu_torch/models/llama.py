@@ -17,7 +17,7 @@ with its layer index, so that the int4 kernel reads the layer in place.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Optional, Tuple, Union
+from typing import Any, Dict, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -200,6 +200,137 @@ def params_from_numpy(
     }
     if tree.get("lm_head") is not None:
         params["lm_head"] = conv(tree["lm_head"])
+    return params
+
+
+# ---------------------------------------------------------------------------
+# HF checkpoint conversion
+# ---------------------------------------------------------------------------
+
+# HF per-layer key suffix -> (our name, stored [out, in] and transposed).
+_LAYER_KEY_MAP = {
+    "input_layernorm.weight": ("attn_norm", False),
+    "self_attn.q_proj.weight": ("wq", True),
+    "self_attn.k_proj.weight": ("wk", True),
+    "self_attn.v_proj.weight": ("wv", True),
+    "self_attn.o_proj.weight": ("wo", True),
+    "self_attn.q_proj.bias": ("bq", False),
+    "self_attn.k_proj.bias": ("bk", False),
+    "self_attn.v_proj.bias": ("bv", False),
+    "post_attention_layernorm.weight": ("mlp_norm", False),
+    "mlp.gate_proj.weight": ("wg", True),
+    "mlp.up_proj.weight": ("wu", True),
+    "mlp.down_proj.weight": ("wd", True),
+}
+# Per-layer keys of the families that wait -> what they are and their item.
+_WAITING_KEYS = {
+    "block_sparse_moe.": ("MoE layers", "item 8"),
+    "self_attn.kv_b_proj.": ("latent (MLA) attention", "item 10"),
+    "self_attn.kv_a_proj_with_mqa.": ("latent (MLA) attention", "item 10"),
+    "self_attn.o_proj.bias": ("an o_proj bias", "item 8"),
+}
+
+
+def _refuse_waiting_keys(state: Mapping[str, Any], prefix: str) -> None:
+    for key in state:
+        if not key.startswith(prefix):
+            continue
+        for part, (what, item) in _WAITING_KEYS.items():
+            if key[len(prefix):].startswith(part):
+                raise NotImplementedError(
+                    f"{what} ({key}) are not ported yet (ROADMAP.md queue 1, "
+                    f"{item})"
+                )
+
+
+def _on_device(src: torch.Tensor, transpose: bool, dtype, dev) -> torch.Tensor:
+    """``src`` (host, the checkpoint's dtype) as a new contiguous tensor of
+    ``dtype`` on ``dev``, transposed first when asked."""
+    w = src.to(dev)
+    if transpose:
+        w = w.T
+    return torch.empty(w.shape, dtype=dtype, device=dev).copy_(w)
+
+
+def convert_hf_layer(
+    cfg: ModelConfig,
+    state: Mapping[str, torch.Tensor],
+    layer_idx: int,
+    dtype=torch.bfloat16,
+    device: Union[str, torch.device] = "cuda",
+) -> Params:
+    """One HF decoder layer's tensors (``state`` maps full HF keys,
+    ``model.layers.{i}.…``, to host tensors in torch's ``[out, in]`` linear
+    layout) in our naming and ``[in, out]`` layout, on ``device``."""
+    _require_dense(cfg)
+    dev = resolve_device(device)
+    prefix = f"model.layers.{layer_idx}."
+    _refuse_waiting_keys(state, prefix)
+    return {
+        name: _on_device(state[prefix + suffix], transpose, dtype, dev)
+        for suffix, (name, transpose) in _LAYER_KEY_MAP.items()
+        if prefix + suffix in state
+    }
+
+
+def convert_hf_state_dict(
+    cfg: ModelConfig,
+    state: Mapping[str, torch.Tensor],
+    layer_ids: Optional[Sequence[int]] = None,
+    dtype=torch.bfloat16,
+    device: Union[str, torch.device] = "cuda",
+) -> Params:
+    """An HF Llama/Mistral/Qwen2 state dict as our parameters: layers
+    ``layer_ids`` (all, with the embedding, final norm and head, when None)
+    stacked ``[L, ...]`` on ``device``.
+
+    Each stack is allocated once on ``device`` and each layer, converted
+    there (transposed on the device), is copied into its slot: beyond the
+    result the device holds one layer and the host one tensor at a time;
+    the JAX package stacks numpy copies instead."""
+    _require_dense(cfg)
+    dev = resolve_device(device)
+    ids = list(layer_ids) if layer_ids is not None else list(
+        range(cfg.num_layers)
+    )
+    stacks: Params = {}
+    for j, i in enumerate(ids):
+        layer = convert_hf_layer(cfg, state, i, dtype, dev)
+        if j == 0:
+            stacks = {
+                name: torch.empty((len(ids), *w.shape), dtype=dtype, device=dev)
+                for name, w in layer.items()
+            }
+        elif set(layer) != set(stacks):
+            raise KeyError(
+                f"layer {i} has {sorted(layer)}, layer {ids[0]} {sorted(stacks)}"
+            )
+        for name, w in layer.items():
+            stacks[name][j].copy_(w)
+        del layer  # freed before the next layer is converted
+    params: Params = {"layers": stacks}
+    if layer_ids is None:
+        params.update(convert_hf_non_layer(cfg, state, dtype, dev))
+    return params
+
+
+def convert_hf_non_layer(
+    cfg: ModelConfig,
+    state: Mapping[str, torch.Tensor],
+    dtype=torch.bfloat16,
+    device: Union[str, torch.device] = "cuda",
+) -> Params:
+    """The client-side tensors: embedding, final norm and (unless tied to the
+    embedding) the head, on ``device``."""
+    dev = resolve_device(device)
+    params: Params = {
+        "embed": _on_device(
+            state["model.embed_tokens.weight"], False, dtype, dev
+        ),
+        "final_norm": _on_device(state["model.norm.weight"], False, dtype, dev),
+    }
+    if not cfg.tie_word_embeddings and "lm_head.weight" in state:
+        params["lm_head"] = _on_device(state["lm_head.weight"], True, dtype, dev)
     return params
 
 

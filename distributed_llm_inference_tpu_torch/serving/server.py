@@ -1,0 +1,463 @@
+"""The HTTP gateway: raw ``asyncio.start_server`` HTTP/1.1, stdlib-only
+(counterpart of the JAX package's ``serving/server.py``: the same routes,
+status codes, headers and bodies).
+
+One request per connection, ``Connection: close`` throughout — the
+simplest wire discipline that still serves SSE (EOF delimits the stream,
+no chunked encoding needed). Routes:
+
+* ``POST /v1/completions`` — OpenAI-compatible; JSON or SSE
+  (``stream: true``).
+* ``GET /metrics`` — Prometheus text (engine + gateway counters, plus
+  point-in-time queue/session gauges).
+* ``GET /healthz`` — liveness + drain state.
+* ``GET /debug/trace/<id>`` and ``GET /debug/ticks`` answer as the JAX
+  gateway does with tracing off (404 "tracing is disabled";
+  ``{"ticks": []}``): the port's tracing waits (ROADMAP.md queue 1,
+  item 16).
+
+Admission control: at ``ServingConfig.max_queue_depth`` gateway-in-flight
+completions, new ones get 429 + ``Retry-After``. Every request carries a
+deadline (body ``timeout_s`` or the configured default): the engine reaps
+expired generations AND the gateway enforces it client-side, whichever
+comes first. SIGTERM drains: stop accepting, let in-flight requests
+finish inside ``drain_timeout_s``, cancel the rest.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import json
+import signal
+import threading
+import time
+import uuid
+from typing import Optional
+
+from ..config import ServingConfig
+from .backends import Backend, Handle, TokenEvent
+from .breaker import CircuitBreaker
+from .protocol import (
+    BadRequest,
+    completion_chunk,
+    completion_response,
+    error_body,
+    parse_completion_request,
+)
+from .sse import SSE_DONE, sse_event, sse_headers
+
+# Slack added to the client-side wait past the shared deadline, so the
+# engine's own deadline reap (which emits the terminal event with the
+# real finish_reason) normally wins the race.
+_DEADLINE_GRACE_S = 0.5
+
+
+def _retry_after_line(seconds: float) -> str:
+    """A Retry-After header line; sub-second waits keep their fraction
+    while >= 1 s rounds to the integer form proxies expect."""
+    if seconds >= 1:
+        return f"Retry-After: {seconds:.0f}\r\n"
+    return f"Retry-After: {max(seconds, 0.001):.3f}\r\n"
+
+
+def _response(status: str, body: bytes, content_type: str = "application/json",
+              extra: str = "") -> bytes:
+    return (
+        f"HTTP/1.1 {status}\r\n"
+        f"Content-Type: {content_type}\r\n"
+        f"Content-Length: {len(body)}\r\n"
+        "Connection: close\r\n"
+        f"{extra}\r\n"
+    ).encode() + body
+
+
+class ApiServer:
+    """Serves one :class:`Backend` over HTTP. Two run modes:
+
+    * ``serve_forever()`` — foreground, SIGTERM/SIGINT trigger graceful
+      drain (the CLI ``api`` subcommand).
+    * ``start()`` / ``request_shutdown()`` / ``join()`` — background
+      thread owning its own event loop (tests, embedding).
+
+    ``sched_cfg`` (the admission scheduler) and ``trace_cfg`` (request
+    tracing) are not ported yet: passing either raises."""
+
+    def __init__(self, backend: Backend, scfg: Optional[ServingConfig] = None,
+                 tokenizer=None, sched_cfg=None, trace_cfg=None):
+        if sched_cfg is not None:
+            raise NotImplementedError(
+                "sched_cfg (the admission scheduler) is not ported yet "
+                "(ROADMAP.md queue 1, item 15)"
+            )
+        if trace_cfg is not None:
+            raise NotImplementedError(
+                "trace_cfg (request tracing) is not ported yet (ROADMAP.md "
+                "queue 1, item 16)"
+            )
+        self.backend = backend
+        self.scfg = scfg or ServingConfig()
+        self.tokenizer = tokenizer
+        # The breaker shares the backend's Metrics, so its state gauge and
+        # transition counters ride the same /metrics endpoint.
+        self.breaker = CircuitBreaker(
+            failure_threshold=self.scfg.breaker_failure_threshold,
+            recovery_s=self.scfg.breaker_recovery_s,
+            success_threshold=self.scfg.breaker_success_threshold,
+            metrics=backend.metrics,
+        )
+        self.port: Optional[int] = None  # bound port (scfg.port may be 0)
+        self._loop: Optional[asyncio.AbstractEventLoop] = None
+        self._shutdown: Optional[asyncio.Event] = None
+        self._thread: Optional[threading.Thread] = None
+        self._draining = False
+        # Admission accounting is event-loop-confined: every += / -= runs
+        # on the server's own loop, never from another thread.
+        self._inflight = 0
+        self._handles: set = set()
+
+    # -- lifecycle ------------------------------------------------------------
+
+    async def _main(self, ready_cb=None, install_signals: bool = False) -> None:
+        loop = asyncio.get_running_loop()
+        self._loop = loop
+        self._shutdown = asyncio.Event()
+        if install_signals:
+            for sig in (signal.SIGTERM, signal.SIGINT):
+                try:
+                    loop.add_signal_handler(sig, self._shutdown.set)
+                except (NotImplementedError, RuntimeError):
+                    pass  # non-main thread / platform without support
+        server = await asyncio.start_server(
+            self._handle_conn, self.scfg.host, self.scfg.port
+        )
+        self.port = server.sockets[0].getsockname()[1]
+        self.backend.start(loop)
+        probe_task = None
+        if self.scfg.breaker_probe_interval_s > 0:
+            probe_task = loop.create_task(self._probe_loop())
+        if ready_cb is not None:
+            ready_cb(self.port)
+        await self._shutdown.wait()
+        if probe_task is not None:
+            probe_task.cancel()
+
+        # Graceful drain: stop accepting (close the listener — new
+        # connections are refused at the TCP level), let in-flight
+        # requests finish, then cancel stragglers so their streams
+        # terminate and their slots free.
+        self._draining = True
+        server.close()
+        t0 = time.monotonic()
+        while self._inflight > 0 and (
+            time.monotonic() - t0 < self.scfg.drain_timeout_s
+        ):
+            await asyncio.sleep(0.01)
+        for h in list(self._handles):
+            self.backend.cancel(h)
+            # Direct terminal event: the backend's own event may never
+            # come (e.g. its driver already idles), and the handler must
+            # unblock to close its stream.
+            h.queue.put_nowait(TokenEvent(-1, True, "cancelled"))
+        t0 = time.monotonic()
+        while self._inflight > 0 and time.monotonic() - t0 < 2.0:
+            await asyncio.sleep(0.01)
+        # stop() joins the driver thread; doing that on the loop would
+        # freeze the final drain responses still being flushed.
+        await loop.run_in_executor(None, self.backend.stop)
+
+    def serve_forever(self, ready_cb=None) -> None:
+        asyncio.run(self._main(ready_cb=ready_cb, install_signals=True))
+
+    def start(self) -> None:
+        """Run the server on a background thread; returns once bound
+        (``self.port`` is set)."""
+        ready = threading.Event()
+
+        def _run() -> None:
+            asyncio.run(self._main(ready_cb=lambda _p: ready.set()))
+
+        self._thread = threading.Thread(
+            target=_run, name="api-server", daemon=True
+        )
+        self._thread.start()
+        if not ready.wait(timeout=30.0):
+            raise RuntimeError("api server failed to bind within 30s")
+
+    def request_shutdown(self) -> None:
+        """Thread-safe: trigger the graceful drain."""
+        if self._loop is not None and self._shutdown is not None:
+            self._loop.call_soon_threadsafe(self._shutdown.set)
+
+    def join(self, timeout: float = 60.0) -> None:
+        if self._thread is not None:
+            self._thread.join(timeout=timeout)
+
+    async def _probe_loop(self) -> None:
+        """Periodic backend health probe feeding the breaker. Probes run
+        in the executor — a hung backend must stall a worker thread, not
+        the accept loop."""
+        loop = asyncio.get_running_loop()
+        while True:
+            await asyncio.sleep(self.scfg.breaker_probe_interval_s)
+            try:
+                ok = await loop.run_in_executor(None, self.backend.probe)
+            except asyncio.CancelledError:
+                raise
+            except Exception:  # noqa: BLE001 - a failed probe is a signal
+                ok = False
+            self.breaker.record_probe(bool(ok))
+
+    # -- connection handling --------------------------------------------------
+
+    async def _handle_conn(self, reader: asyncio.StreamReader,
+                           writer: asyncio.StreamWriter) -> None:
+        try:
+            await self._handle_request(reader, writer)
+        except (ConnectionError, asyncio.IncompleteReadError):
+            pass  # client went away mid-exchange
+        finally:
+            try:
+                writer.close()
+                await writer.wait_closed()
+            except (ConnectionError, OSError):
+                pass
+
+    async def _handle_request(self, reader, writer) -> None:
+        try:
+            head = await asyncio.wait_for(
+                reader.readuntil(b"\r\n\r\n"), timeout=10.0
+            )
+        except (asyncio.TimeoutError, asyncio.LimitOverrunError,
+                asyncio.IncompleteReadError):
+            return
+        lines = head.decode("latin-1").split("\r\n")
+        parts = lines[0].split(" ")
+        if len(parts) != 3:
+            await self._write(writer, _response(
+                "400 Bad Request",
+                error_body("malformed request line", "invalid_request_error"),
+            ))
+            return
+        method, path = parts[0].upper(), parts[1].split("?", 1)[0]
+        headers = {}
+        for ln in lines[1:]:
+            if ":" in ln:
+                k, v = ln.split(":", 1)
+                headers[k.strip().lower()] = v.strip()
+        body = b""
+        length = int(headers.get("content-length", "0") or "0")
+        if length:
+            body = await reader.readexactly(length)
+
+        if method == "GET" and path == "/healthz":
+            await self._healthz(writer)
+        elif method == "GET" and path == "/metrics":
+            await self._metrics(writer)
+        elif method == "GET" and path.startswith("/debug/trace/"):
+            await self._write(writer, _response(
+                "404 Not Found",
+                error_body("tracing is disabled", "invalid_request_error"),
+            ))
+        elif method == "GET" and path == "/debug/ticks":
+            await self._write(writer, _response(
+                "200 OK", json.dumps({"ticks": []}).encode()))
+        elif method == "POST" and path == "/v1/completions":
+            await self._completions(writer, body)
+        elif path in ("/healthz", "/metrics", "/v1/completions"):
+            await self._write(writer, _response(
+                "405 Method Not Allowed",
+                error_body(f"{method} not allowed on {path}",
+                           "invalid_request_error"),
+            ))
+        else:
+            await self._write(writer, _response(
+                "404 Not Found",
+                error_body(f"no route {path}", "invalid_request_error"),
+            ))
+
+    @staticmethod
+    async def _write(writer, data: bytes) -> None:
+        writer.write(data)
+        await writer.drain()
+
+    async def _healthz(self, writer) -> None:
+        doc = {
+            "status": "draining" if self._draining else "ok",
+            "active_sessions": self.backend.active_sessions(),
+            "queue_depth": self.backend.queue_depth(),
+            "breaker": self.breaker.state,
+        }
+        await self._write(writer, _response("200 OK", json.dumps(doc).encode()))
+
+    async def _metrics(self, writer) -> None:
+        # prometheus() takes the metrics lock and sorts every timing
+        # series — under load that's milliseconds the accept loop and all
+        # live SSE streams would stall for. Gauges are sampled on the loop
+        # (cheap, host state), the render runs in the executor.
+        gauges = {
+            "queue_depth": float(self.backend.queue_depth()),
+            "active_sessions": float(self.backend.active_sessions()),
+            "http_inflight": float(self._inflight),
+        }
+        text = await asyncio.get_running_loop().run_in_executor(
+            None, lambda: self.backend.metrics.prometheus(extra_gauges=gauges)
+        )
+        await self._write(writer, _response(
+            "200 OK", text.encode(),
+            content_type="text/plain; version=0.0.4; charset=utf-8",
+        ))
+
+    # -- completions ----------------------------------------------------------
+
+    async def _completions(self, writer, body: bytes) -> None:
+        self.backend.metrics.counter("http_requests")
+        if self._draining:
+            await self._write(writer, _response(
+                "503 Service Unavailable",
+                error_body("server is draining", "server_error", "draining"),
+            ))
+            return
+        if not self.breaker.allow():
+            # Backend is known-bad: fail fast instead of burning a full
+            # request timeout. Retry-After points at the recovery window.
+            self.backend.metrics.counter("http_503_breaker")
+            await self._write(writer, _response(
+                "503 Service Unavailable",
+                error_body("backend unavailable (circuit open), retry later",
+                           "server_error", "breaker_open"),
+                extra=f"Retry-After: {self.breaker.retry_after():.0f}\r\n",
+            ))
+            return
+        if self._inflight >= self.scfg.max_queue_depth:
+            self.backend.metrics.counter("http_429")
+            await self._write(writer, _response(
+                "429 Too Many Requests",
+                error_body("server is at capacity, retry later",
+                           "rate_limit_error", "queue_full"),
+                extra=_retry_after_line(self.scfg.retry_after_s),
+            ))
+            return
+        try:
+            req = parse_completion_request(body, self.scfg, self.tokenizer)
+        except BadRequest as e:
+            await self._write(writer, _response(
+                "400 Bad Request",
+                error_body(str(e), "invalid_request_error"),
+            ))
+            return
+
+        timeout_s = min(
+            req.timeout_s if req.timeout_s is not None
+            else self.scfg.default_timeout_s,
+            self.scfg.max_timeout_s,
+        )
+        submit_t = time.monotonic()
+        deadline = submit_t + timeout_s
+        self._inflight += 1
+        handle = self.backend.submit(req.prompt, req.options, deadline)
+        self._handles.add(handle)
+        req_id = f"cmpl-{uuid.uuid4().hex[:24]}"
+        created = int(time.time())
+        reason = None
+        try:
+            if req.stream:
+                reason = await self._stream_completion(
+                    writer, req, handle, deadline, submit_t, req_id, created
+                )
+            else:
+                reason = await self._json_completion(
+                    writer, req, handle, deadline, submit_t, req_id, created
+                )
+        finally:
+            self._handles.discard(handle)
+            self._inflight -= 1
+            # Feed the breaker from the real outcome: only backend errors
+            # count as failures (timeouts/cancels/deadlines are request
+            # policy, not backend health; reason None means the handler
+            # itself died mid-write — neutral).
+            if reason is not None:
+                if reason.startswith("error"):
+                    self.breaker.record_failure()
+                else:
+                    self.breaker.record_success()
+
+    async def _next_event(self, handle: Handle, deadline: float,
+                          first: bool, submit_t: float):
+        """Await the next token event; None on client-side deadline
+        expiry (the backend was cancelled). Observes TTFT."""
+        remaining = deadline - time.monotonic() + _DEADLINE_GRACE_S
+        try:
+            ev = await asyncio.wait_for(
+                handle.queue.get(), timeout=max(0.001, remaining)
+            )
+        except asyncio.TimeoutError:
+            self.backend.cancel(handle)
+            return None
+        if first and ev.token >= 0:
+            self.backend.metrics.observe("ttft", time.monotonic() - submit_t)
+        return ev
+
+    async def _json_completion(self, writer, req, handle, deadline,
+                               submit_t, req_id, created) -> str:
+        tokens = []
+        reason = "timeout"
+        while True:
+            ev = await self._next_event(
+                handle, deadline, not tokens, submit_t
+            )
+            if ev is None:
+                break
+            if ev.token >= 0:
+                tokens.append(ev.token)
+            if ev.finished:
+                reason = ev.finish_reason or "stop"
+                break
+        self.backend.metrics.counter("gateway_tokens", len(tokens))
+        payload = json.dumps(completion_response(
+            req_id, created, self.scfg.model_name, tokens, reason,
+            len(req.prompt), self.tokenizer,
+        )).encode()
+        await self._write(writer, _response("200 OK", payload))
+        return reason
+
+    async def _stream_completion(self, writer, req, handle, deadline,
+                                 submit_t, req_id, created) -> str:
+        await self._write(writer, sse_headers())
+        n_tokens = 0
+        reason = "timeout"
+        try:
+            while True:
+                ev = await self._next_event(
+                    handle, deadline, n_tokens == 0, submit_t
+                )
+                if ev is None:
+                    break
+                if ev.token >= 0:
+                    # Every token chunk carries its sequence index, so a
+                    # client can detect any duplicated or lost token.
+                    writer.write(sse_event(completion_chunk(
+                        req_id, created, self.scfg.model_name, ev.token,
+                        None, self.tokenizer,
+                    ), seq=n_tokens))
+                    n_tokens += 1
+                    await writer.drain()
+                if ev.finished:
+                    reason = ev.finish_reason or "stop"
+                    break
+            writer.write(sse_event(completion_chunk(
+                req_id, created, self.scfg.model_name, None, reason,
+                self.tokenizer, usage={
+                    "prompt_tokens": len(req.prompt),
+                    "completion_tokens": n_tokens,
+                    "total_tokens": len(req.prompt) + n_tokens,
+                    "resumed": 0,
+                },
+            )))
+            writer.write(SSE_DONE)
+            await writer.drain()
+        except (ConnectionError, OSError):
+            # Client hung up mid-stream: free the decode slot.
+            self.backend.cancel(handle)
+        finally:
+            self.backend.metrics.counter("gateway_tokens", n_tokens)
+        return reason

@@ -1,22 +1,31 @@
 """Structured metrics and timing (counterpart of the JAX package's
 ``utils/metrics.py``): counters, gauges and latency histories good enough to
-derive tokens/sec, TTFT and batch occupancy. The text exposition for a
-``/metrics`` endpoint comes with the serving gateway.
+derive tokens/sec, TTFT and batch occupancy, and their Prometheus text
+exposition for the gateway's ``/metrics`` endpoint (the JAX package's text,
+line for line).
 """
 
 from __future__ import annotations
 
 import collections
 import contextlib
+import json
+import logging
+import re
 import statistics
 import threading
 import time
-from typing import Dict, List
+from typing import Dict, List, Optional
+
+_PROM_NAME = re.compile(r"[^a-zA-Z0-9_:]")
+
+logger = logging.getLogger("distributed_llm_inference_tpu_torch")
 
 # Every metric name the port emits, declared once: name -> (kind, help).
-# Kinds: ``counter`` (monotonic), ``gauge`` (last write wins), ``summary``
-# (observe()/timer() histories, seconds). Names and meanings are the JAX
-# package's; entries arrive with the module that emits them.
+# Kinds: ``counter`` (monotonic, ``_total`` on /metrics), ``gauge`` (last
+# write wins), ``summary`` (observe()/timer() histories; ``_seconds`` on
+# /metrics). Names and meanings are the JAX package's; entries arrive with
+# the module that emits them; ``*`` entries match suffixed families.
 METRICS = {
     # engine: admission + sessions
     "sessions_submitted": ("counter", "Sessions accepted by submit()"),
@@ -49,6 +58,20 @@ METRICS = {
     "decode_graph_pool_bytes": ("gauge", "Memory reserved by captures"),
     "cache_growths": ("counter", "Page-table widenings"),
     "kv_bytes_per_token": ("gauge", "Stored KV bytes per token, all layers"),
+    # serving gateway
+    "http_requests": ("counter", "Completion requests received"),
+    "http_429": ("counter", "Requests shed at capacity"),
+    "http_503_breaker": ("counter", "Requests failed fast by the breaker"),
+    "ttft": ("summary", "Gateway time to first token"),
+    "gateway_tokens": ("counter", "Tokens delivered to HTTP clients"),
+    "queue_depth": ("gauge", "Backend queue depth at scrape"),
+    "active_sessions": ("gauge", "Live backend sessions at scrape"),
+    "http_inflight": ("gauge", "Gateway in-flight completions"),
+    "engine_ttft": ("summary", "Engine-side TTFT (sync admission)"),
+    # circuit breaker
+    "breaker_state": ("gauge", "0 closed / 1 open / 2 half-open"),
+    "breaker_*_transitions": ("counter", "Breaker transitions into a state"),
+    "breaker_failures_recorded": ("counter", "Failure signals seen"),
 }
 
 
@@ -117,3 +140,53 @@ class Metrics:
                 out[f"{name}_p50_s"] = srt[len(srt) // 2]
                 out[f"{name}_p99_s"] = srt[min(len(srt) - 1, int(0.99 * len(srt)))]
         return out
+
+    def log_snapshot(self) -> None:
+        logger.info("metrics %s", json.dumps(self.snapshot(), sort_keys=True))
+
+    def prometheus(
+        self,
+        prefix: str = "dli",
+        extra_gauges: Optional[Dict[str, float]] = None,
+    ) -> str:
+        """Prometheus text exposition (the ``/metrics`` endpoint body).
+
+        Counters become ``<prefix>_<name>_total`` counters; timings become
+        ``<prefix>_<name>_seconds`` summaries (p50/p99 quantiles + _sum +
+        _count); ``extra_gauges`` are point-in-time gauges (queue depth,
+        active sessions) sampled by the caller and merged over the
+        persistent ``gauge()`` values."""
+
+        def clean(name: str) -> str:
+            return _PROM_NAME.sub("_", f"{prefix}_{name}")
+
+        with self._lock:
+            counters = dict(self._counters)
+            timings = {k: list(v) for k, v in self._timings.items()}
+            gauges = dict(self._gauges)
+        gauges.update(extra_gauges or {})
+        lines: List[str] = []
+        for name in sorted(counters):
+            metric = clean(name) + "_total"
+            lines.append(f"# TYPE {metric} counter")
+            lines.append(f"{metric} {counters[name]:.10g}")
+        for name in sorted(timings):
+            vals = sorted(timings[name])
+            if not vals:
+                continue
+            # Summaries default to seconds; names that already carry their
+            # unit keep it as-is.
+            suffix = "" if name.endswith(("_bytes", "_ms")) else "_seconds"
+            metric = clean(name) + suffix
+            lines.append(f"# TYPE {metric} summary")
+            p50 = vals[len(vals) // 2]
+            p99 = vals[min(len(vals) - 1, int(0.99 * len(vals)))]
+            lines.append(f'{metric}{{quantile="0.5"}} {p50:.10g}')
+            lines.append(f'{metric}{{quantile="0.99"}} {p99:.10g}')
+            lines.append(f"{metric}_sum {sum(vals):.10g}")
+            lines.append(f"{metric}_count {len(vals)}")
+        for name in sorted(gauges):
+            metric = clean(name)
+            lines.append(f"# TYPE {metric} gauge")
+            lines.append(f"{metric} {gauges[name]:.10g}")
+        return "\n".join(lines) + "\n"

@@ -47,6 +47,7 @@ def test_every_module_imports_without_a_gpu_or_compiler():
 
 @pytest.mark.parametrize("cls", [
     "RopeScaling", "LatentConfig", "ModelConfig", "CacheConfig", "EngineConfig",
+    "ServingConfig",
 ])
 def test_config_fields_and_defaults_match_the_reference(cls):
     def spec(c):
@@ -99,6 +100,19 @@ def test_port_mirrors_the_reference_file_names():
         "flash_attention.cu", "int4_matmul.cu", "paged_attention.cu",
         "quant_attention.cu", "ragged_attention.cu", "sink_attention.cu"]
     assert sources == sorted(f"{n}.cu" for n in _build.KERNEL_SOURCES)
+
+
+def test_package_data_ships_every_cuda_source():
+    """``pyproject.toml``'s package data for the port covers every file
+    under ``csrc/`` (the kernels are built from them at first use)."""
+    import tomllib
+
+    with open(ROOT / "pyproject.toml", "rb") as f:
+        data = tomllib.load(f)["tool"]["setuptools"]["package-data"]
+    patterns = data["distributed_llm_inference_tpu_torch"]
+    shipped = {p for pat in patterns for p in PORT.glob(pat)}
+    every = {p for p in (PORT / "csrc").rglob("*") if p.is_file()}
+    assert every and shipped == every
 
 
 def test_chip_smoke_refuses_to_run_without_a_gpu():

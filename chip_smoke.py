@@ -152,9 +152,24 @@ one line per engine configuration or comparison):
               `quantized_decode_attention` / `quantized_paged_attention`
               once a layer (and, over int8 pages, the int4 matmul once a
               call).
-              Last, captured against eager: the same greedy traffic at full
+              Then captured against eager: the same greedy traffic at full
               width and depth in bf16 with the window's step replayed from
               graphs and run eagerly must give identical streams.
+              Last, the later model families at full width, each through
+              the same traffic, checks and profiles, with a summary line
+              (`engine_family`: tokens/s, the K = 16 window's wall and
+              device ms, idle share, peak memory, launches) beside the
+              card's name and power limit: `mixtral8l_int8_dense`
+              (Mixtral-8x7B's layer at 8 layers, as the JAX package's
+              `MIXTRAL_8L`, int8 weights over the int8 dense cache, #9,
+              #10, #3) and `mixtral8l_bf16_pages` (bf16 over bf16 pages,
+              #1, #2), each with its experts' step time (layer 0's
+              `moe_mlp` at 8 rows, times the layers) against the card's
+              bound for their bytes; `mistral7b_swa128_int8_pages`
+              (Mistral-7B, 32 layers, window 128, int8 weights over int8
+              pages: #4, #6, #7 with the window's masks live);
+              `qwen2_mha4l_bf16_pages` (Qwen1.5-7B's widths, q/k/v
+              biases, 32 kv heads, 4 layers, bf16 pages: #1, #2 at G = 1).
 4. parity   - 2 layers of the same widths in f32 (TF32 off): the bf16 pool
               at K = 16, at K = 1 and on the gather path, identical greedy
               streams; int4 weights over the int8 pool, kernels against the
@@ -168,6 +183,14 @@ one line per engine configuration or comparison):
               and captured against eager, identical, and against the
               segments path and K = 1, shown; the model-dtype sink ring
               (window 256) with flash prefill against without, identical.
+              Then 2 layers of Mixtral-8x7B's widths: bf16 pages at K = 16,
+              K = 1 and the gather path, identical; the int8 dense cache
+              with #8 against without at K = 1, identical, K = 16 against
+              K = 1 shown; `moe_mlp_dispatch` at full capacity against the
+              dense combine on a 2048-token prefill, its error printed;
+              and of Mistral-7B's (window 128): bf16 pages with kernels at
+              K = 16 and K = 1 against the gather path, int8 pages with
+              kernels against the gather path at K = 1, identical.
 
 Then a line `{"kernels": [...]}` with one entry per kernel (the only line
 with that key: phase 2 lists its results under `checked`), then phase 5:
@@ -196,7 +219,12 @@ with that key: phase 2 lists its results under `checked`), then phase 5:
               equal token for token to `InferenceEngine.generate` of the
               same prompt on the same weights in this process; SIGTERM, a
               drain, exit 0. Last, `local --quantize int4 --kv-quant int8`
-              on the checkpoint, with the launches of its kernels.
+              on the checkpoint, with the launches of its kernels (#14 at
+              the config's int4 projections a layer a step: 7). Then a
+              1-layer checkpoint at Mixtral-8x7B's widths (`block_sparse_moe`
+              keys, 3.4 GB): `info` supported with 8 experts, a bitwise
+              load (each expert in its slot of the stacks), `local` in bf16
+              and with int4 + int8 KV (#14 at 4 calls a layer a step).
 
 The last line is `{"ok": true, "device": {...}}`. Any failing phase raises:
 exit code non-zero.
@@ -238,6 +266,7 @@ from distributed_llm_inference_tpu_torch.utils import checkpoint
 from distributed_llm_inference_tpu_torch.cache.dense import _quantize_kv
 from distributed_llm_inference_tpu_torch.ops import _build, quant
 from distributed_llm_inference_tpu_torch.ops import flash_attention as fa
+from distributed_llm_inference_tpu_torch.ops import moe
 from distributed_llm_inference_tpu_torch.ops import paged_attention as pa
 from distributed_llm_inference_tpu_torch.ops import quant_attention as qa
 from distributed_llm_inference_tpu_torch.ops import quant_matmul as qm
@@ -284,7 +313,35 @@ PROJECTIONS = {"wq": (4096, 4096), "wk": (4096, 1024), "wv": (4096, 1024),
                "wd": (14336, 4096)}
 HEAD = (4096, 128256)
 
+# The model families of phase 3's later paths. bench.py:1001-1016
+# MIXTRAL_8L of the JAX package's benchmark, restated: Mixtral-8x7B's exact
+# layer (8 experts of width 14336, top-2, 32/8 heads of 128) at 8 of its 32
+# layers (the JAX benchmark's own cut).
+MIXTRAL_8L = ModelConfig(
+    vocab_size=32000, hidden_size=4096, intermediate_size=14336,
+    num_layers=8, num_heads=32, num_kv_heads=8, head_dim=128,
+    rope_theta=1000000.0, max_position_embeddings=4096,
+    num_experts=8, num_experts_per_tok=2, family="mixtral",
+)
+# bench.py:948-960 MISTRAL_7B: Mistral-7B's widths and depth, its sliding
+# window cut to 128 so that the window's masks are live in every phase.
+MISTRAL_7B = ModelConfig(
+    vocab_size=32000, hidden_size=4096, intermediate_size=14336,
+    num_layers=32, num_heads=32, num_kv_heads=8, head_dim=128,
+    rope_theta=10000.0, max_position_embeddings=8192, sliding_window=128,
+    family="mistral",
+)
+# Qwen1.5-7B's published config (HF model_type "qwen2": q/k/v biases, MHA
+# with 32 kv heads), cut to 4 layers.
+QWEN15_7B_4L = ModelConfig(
+    vocab_size=151936, hidden_size=4096, intermediate_size=11008,
+    num_layers=4, num_heads=32, num_kv_heads=32, head_dim=128,
+    rms_norm_eps=1e-6, rope_theta=1000000.0, max_position_embeddings=32768,
+    qkv_bias=True, family="qwen2",
+)
+
 DEV = "cuda"
+CARD = None  # nvidia-smi's "name, power limit", set by phase 1
 SPIN_CYCLES = 10_000_000  # about 5 ms of device spin at 1.7-2 GHz
 
 
@@ -309,6 +366,8 @@ def phase_device():
         check=True, capture_output=True, text=True,
     ).stdout.strip().splitlines()[0]
     print(line, flush=True)
+    global CARD
+    CARD = line
     name, _, limit = line.partition(",")
     emit({"phase": "device", "name": name.strip(),
           "power_limit": limit.strip(),
@@ -442,7 +501,8 @@ def fused_fns(form):
 
 
 def compare_fused(cases, tag, dtype, form, big, base, rng, table=None,
-                  window=None, g=HQ // HKV, steps=4, layer=1, dead=()):
+                  window=None, g=HQ // HKV, steps=4, layer=1, dead=(),
+                  hkv=HKV):
     """The fused step (#6 over the pool ``big`` through ``table``, or #9
     over the stacks ``big``) against its plain version over ``steps`` steps
     of one window on the same inputs, each side with its own copy of the
@@ -452,7 +512,7 @@ def compare_fused(cases, tag, dtype, form, big, base, rng, table=None,
     output must be zeros). Returns the output's error."""
     _, kernel, plain = fused_fns(form)
     b = base.shape[0]
-    tail = make_qplanes(rng, (big[0].shape[0], b, HKV), KT)
+    tail = make_qplanes(rng, (big[0].shape[0], b, hkv), KT)
     tail2 = [t.clone() for t in tail]
     tail_len = torch.zeros(b, dtype=torch.int32, device=DEV)
     alive = torch.ones(b, dtype=torch.int32, device=DEV)
@@ -460,9 +520,9 @@ def compare_fused(cases, tag, dtype, form, big, base, rng, table=None,
     extra = {} if table is None else {"page_table": table}
     err = tail_err = 0.0
     for step in range(steps):
-        q = normal(rng, (b, 1, HKV * g, D), dtype)
-        kn = normal(rng, (b, 1, HKV, D), dtype)
-        vn = normal(rng, (b, 1, HKV, D), dtype)
+        q = normal(rng, (b, 1, hkv * g, D), dtype)
+        kn = normal(rng, (b, 1, hkv, D), dtype)
+        vn = normal(rng, (b, 1, hkv, D), dtype)
         kw = dict(layer_idx=layer, step_idx=i32([step]), base_len=base,
                   tail_valid_len=tail_len + alive, q_positions=base + tail_len,
                   sliding_window=window, **extra)
@@ -2441,7 +2501,8 @@ def int4_cases(cases, dtype, shapes):
     del w
 
 
-def check_engine_shapes(shapes, table_width, quantized, int4):
+def check_engine_shapes(shapes, table_width, quantized, int4, hkv=HKV,
+                        g=HQ // HKV, window=None):
     """The kernels of a run against their plain versions at every dispatch
     shape it made, in bf16 (the run's type) and f32, on mixed lengths.
     ``shapes`` is `AttentionPlan.dispatch_shapes`: ("prefill" or "chunk",
@@ -2455,9 +2516,11 @@ def check_engine_shapes(shapes, table_width, quantized, int4):
     prompt are). With ``int4``: decode rows reach `int4_matmul_stacked` at
     every projection shape, and the head rows of every dispatch (its rows)
     reach `int4_matmul` (many-row prefill projections take the plain
-    unpacked product, no kernel). Returns per kernel and type the largest
-    error and the number of comparisons."""
+    unpacked product, no kernel). ``hkv``, ``g`` and ``window``: the run's
+    kv heads, query heads a kv head and sliding window. Returns per kernel
+    and type the largest error and the number of comparisons."""
     out = {}
+    win = {} if window is None else {"sliding_window": window}
     rows_max = max(sh[1] for sh in shapes)
     kinds = ["qpaged", "qragged"] if quantized else ["paged", "ragged"]
     if int4:
@@ -2465,8 +2528,8 @@ def check_engine_shapes(shapes, table_width, quantized, int4):
     for dtype, label in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
         rng = np.random.default_rng(4321)
         pages = rows_max * table_width + 1
-        pool = (make_qpool(rng, pages) if quantized
-                else make_pool(rng, pages, dtype))
+        pool = (make_qpool(rng, pages, hkv) if quantized
+                else make_pool(rng, pages, dtype, hkv))
         pname, rname = paged_fns(pool)[0], ragged_fns(pool)[0]
         cases = []
         for kind, rows, *rest in sorted(shapes):
@@ -2481,8 +2544,8 @@ def check_engine_shapes(shapes, table_width, quantized, int4):
                 table = make_table(rng, rows, width, pages)
                 compare_paged(
                     cases, f"{pname}_{tag}", dtype,
-                    normal(rng, (rows, 1, HQ, D), dtype), pool,
-                    table, i32(lens))
+                    normal(rng, (rows, 1, hkv * g, D), dtype), pool,
+                    table, i32(lens), **win)
                 if quantized and k_steps > 1:
                     # The fused window's step at this width: its form is
                     # the engine's (in place from 768 slots).
@@ -2491,25 +2554,25 @@ def check_engine_shapes(shapes, table_width, quantized, int4):
                         compare_fused(
                             cases, f"qfusedp_{tag}", dtype, "inplace",
                             [p[None] for p in pool], base, rng, table=table,
-                            layer=0)
+                            window=window, g=g, layer=0, hkv=hkv)
                     else:
                         compare_fused(
                             cases, f"qfusedd_{tag}", dtype, "gathered",
-                            make_qplanes(rng, (1, rows, HKV), slots), base,
-                            rng, layer=0)
+                            make_qplanes(rng, (1, rows, hkv), slots), base,
+                            rng, window=window, g=g, layer=0, hkv=hkv)
                 continue
             s, slots = rest[0], table_width * PS
-            q = normal(rng, (rows, s, HQ, D), dtype)
+            q = normal(rng, (rows, s, hkv * g, D), dtype)
             table = make_table(rng, rows, table_width, pages)
             num_new = rng.integers(1, s + 1, size=rows)
             num_new[0] = s                   # a row with no pad query
             compare_ragged(cases, f"{rname}_{tag}_fresh", dtype, q, pool,
-                           table, i32(num_new), i32(num_new))
+                           table, i32(num_new), i32(num_new), **win)
             if slots > s:
                 start = rng.integers(1, slots - num_new + 1)
                 compare_ragged(cases, f"{rname}_{tag}_continued", dtype, q,
                                pool, table, i32(start + num_new),
-                               i32(num_new))
+                               i32(num_new), **win)
         del pool
         if int4:
             int4_cases(cases, dtype, shapes)
@@ -2680,7 +2743,8 @@ def check_dense_shapes(shapes, dispatch_shapes=(), int4=False):
 
 
 def run_config(label, cfg, params, ekw, ckw, counters, profile=True,
-               traffic=MIXED, one_launch=None, int4_launch=False):
+               traffic=MIXED, one_launch=None, int4_launch=False,
+               model="llama-3-8b widths"):
     """The smoke's traffic through one engine configuration, twice with one
     seed (the streams must repeat); the launch counters in ``counters``
     (name -> (module, attribute)) are zeroed before the first run and read
@@ -2692,9 +2756,11 @@ def run_config(label, cfg, params, ekw, ckw, counters, profile=True,
     kernels are replayed at the shapes recorded in the first run. With
     ``one_launch`` (a kernel's name), the profiled decode tick must launch
     that kernel once a call: once a layer a step. With ``int4_launch`` it
-    must launch the int4 matmul's bf16 kernel once a call, 7 a layer and
-    the head, each step, and no other int4 kernel (no combine). Returns
-    (report, launches)."""
+    must launch the int4 matmul's bf16 kernel once a call, the config's
+    int4 projections a layer (`llama.int4_projections`: 7, or 4 for an MoE
+    config) and the head, each step, and no other int4 kernel (no
+    combine). ``model`` names the widths in the report. Returns (report,
+    launches)."""
     torch.cuda.reset_peak_memory_stats()
     new_tokens, odd = traffic["new_tokens"], traffic.get("odd")
     dense = ckw.get("kind") == "dense"
@@ -2791,7 +2857,7 @@ def run_config(label, cfg, params, ekw, ckw, counters, profile=True,
     assert runs[0]["streams"] == runs[1]["streams"], (
         "two runs with one seed gave different streams")
     report = {"phase": "engine", "config": label,
-              "model": f"llama-3-8b widths, {cfg.num_layers} layers, random weights",
+              "model": f"{model}, {cfg.num_layers} layers, random weights",
               "launches": launches, "repeatable": True,
               "max_memory_allocated": torch.cuda.max_memory_allocated()}
     for i, r in enumerate(runs):
@@ -2806,7 +2872,8 @@ def run_config(label, cfg, params, ekw, ckw, counters, profile=True,
         report["table_width"] = table_width
         report["kernels_at_dispatch_shapes"] = check_engine_shapes(
             shapes, table_width, bool(ckw.get("kv_quant")),
-            ekw.get("quantization") == "int4")
+            ekw.get("quantization") == "int4", hkv=cfg.num_kv_heads,
+            g=cfg.num_heads // cfg.num_kv_heads, window=cfg.sliding_window)
     if profile:
         report["decode_profile"] = profile_decode(cfg, params, ekw, ckw,
                                                   counters)
@@ -2821,7 +2888,8 @@ def run_config(label, cfg, params, ekw, ckw, counters, profile=True,
             want["attention_kernels", one_launch] = cfg.num_layers * steps
         if int4_launch:
             want["int4_kernels", "int4_mma_kernel"] = (
-                (7 * cfg.num_layers + 1) * steps)
+                (len(llama.int4_projections(cfg)) * cfg.num_layers + 1)
+                * steps)
         sessions = []
         while want:
             got = {name: report["decode_profile"][kind].get(
@@ -3022,6 +3090,262 @@ def captured_vs_eager(cfg, params):
           "graph_replays": out[True][2]})
 
 
+# The later model families' paths (phase 3, after the Llama paths): each
+# path's kernels, as for the Llama paths.
+MIXTRAL_DENSE = {"quantized_fused_decode_attention": (qa, "fused_launches"),
+                 "fused_tail_flush": (qa, "flush_launches"), **FLASH}
+MISTRAL_INT8 = {"quantized_paged_fused_attention": (pa, "fused_launches"),
+                "paged_tail_flush": (pa, "flush_launches"), **QRAGGED}
+MOE_KEYS = ("router", "we_g", "we_u", "we_d")
+
+
+def expert_bytes(cfg, itemsize):
+    """Bytes of one layer's expert stacks (gate, up, down) at ``itemsize``
+    bytes a weight."""
+    return 3 * cfg.num_experts * cfg.hidden_size * cfg.intermediate_size * (
+        itemsize)
+
+
+def time_experts(cfg, params, quantized, rows=8):
+    """One decode step's MoE MLPs: layer 0's ``moe_mlp`` on ``rows`` tokens,
+    timed with CUDA events (``time_ms``), times the layers. Beside it the
+    bytes of expert weights a step reads at their stored width and the
+    card's bound for them; with ``quantized`` (int8 stacks, converted to
+    bf16 whole at every call, as the JAX package does) also the bytes the
+    conversion moves: the int8 stacks read, a bf16 copy written and read
+    back."""
+    flush = torch.ones(16 * 1024 * 1024, dtype=torch.int64, device=DEV)
+    lp = {k: params["layers"][k][:1] for k in MOE_KEYS}
+    if quantized:
+        lp = quant.quantize_params({"layers": lp})["layers"]
+    p = {k: v[0] for k, v in lp.items()}
+    gen = torch.Generator(device=DEV).manual_seed(8)
+    x = torch.randn((rows, 1, cfg.hidden_size), generator=gen,
+                    device=DEV).to(torch.bfloat16)
+    layer_ms = time_ms(lambda: moe.moe_mlp(cfg, p, x), 5, flush)
+    stored = expert_bytes(cfg, 1 if quantized else 2) * cfg.num_layers
+    moved = stored + (2 * expert_bytes(cfg, 2) * cfg.num_layers
+                      if quantized else 0)
+    bound_ms = stored / HBM_BYTES_PER_S * 1e3
+    del lp, p, flush
+    torch.cuda.empty_cache()
+    return {"rows": rows, "weights": "int8" if quantized else "bf16",
+            "layer_ms": layer_ms, "step_ms": layer_ms * cfg.num_layers,
+            "expert_bytes_a_step": stored, "bound_ms_a_step": bound_ms,
+            "step_over_bound": layer_ms * cfg.num_layers / bound_ms,
+            "bytes_moved_a_step": moved,
+            "moved_bound_ms_a_step": moved / HBM_BYTES_PER_S * 1e3}
+
+
+def family_summary(label, report, experts=None):
+    """A path's figures on one line, beside the card's name and power
+    limit: tokens/s of both runs, the K = 16 window's wall and device ms
+    and idle share (its decode profile), peak memory, launches; for an MoE
+    path the experts' step time against their bound."""
+    prof = report["decode_profile"]
+    line = {"phase": "engine_family", "config": label, "card": CARD,
+            "model": report["model"],
+            "tokens_per_s": [report["run0"]["tokens_per_s"],
+                             report["run1"]["tokens_per_s"]],
+            "decode_steps": prof["decode_steps"],
+            "window_wall_ms": prof["wall_ms"],
+            "window_device_ms_profiler": prof["device_ms"],
+            "window_device_ms_events": prof["device_ms_events"],
+            "idle_share_profiler": prof["device_idle_share"],
+            "idle_share_events": prof["device_idle_share_events"],
+            "prefill_2048_wall_ms": report["prefill_profile"]["wall_ms"],
+            "peak_bytes_allocated": report["max_memory_allocated"],
+            "launches": report["launches"]}
+    if experts is not None:
+        line["experts"] = experts
+    emit(line)
+
+
+def phase_families():
+    """Phase 3's later paths, each at full width through the smoke's
+    traffic (twice, repeatable, its kernels' counters zeroed and read, its
+    dispatch shapes replayed against the plain versions, a few windows and
+    a prefill profiled): Mixtral-8x7B's layer at 8 layers with int8 weights
+    over the int8 dense cache and in bf16 over bf16 pages; Mistral-7B
+    (window 128, 32 layers) with int8 weights over int8 pages; Qwen1.5-7B
+    (q/k/v biases, 32 kv heads) at 4 layers in bf16 over bf16 pages. Each
+    path's summary line (`engine_family`) follows its report."""
+    gen = torch.Generator(device=DEV)
+    cfg = MIXTRAL_8L
+    params = llama.init_params(cfg, gen.manual_seed(0), torch.bfloat16, DEV)
+    model = "mixtral-8x7b widths"
+    label = "mixtral8l_int8_dense: int8 weights, int8 dense KV, K=16"
+    report, _ = run_config(
+        label, cfg, params, {"quantization": "int8"},
+        {"kv_quant": "int8", **DENSE}, MIXTRAL_DENSE,
+        one_launch="fused_cluster_kernel", model=model)
+    family_summary(label, report, time_experts(cfg, params, True))
+    label = "mixtral8l_bf16_pages: bf16 weights, bf16 pages, K=16"
+    report, _ = run_config(label, cfg, params, {}, {}, MAIN_BF16,
+                           one_launch="paged_decode_kernel", model=model)
+    family_summary(label, report, time_experts(cfg, params, False))
+    del params
+    torch.cuda.empty_cache()
+
+    cfg = MISTRAL_7B
+    params = llama.init_params(cfg, gen.manual_seed(1), torch.bfloat16, DEV)
+    label = ("mistral7b_swa128_int8_pages: int8 weights, int8 pages, "
+             "window 128, K=16")
+    report, _ = run_config(
+        label, cfg, params, {"quantization": "int8"}, {"kv_quant": "int8"},
+        MISTRAL_INT8, one_launch="fused_cluster_kernel",
+        model="mistral-7b widths")
+    family_summary(label, report)
+    del params
+    torch.cuda.empty_cache()
+
+    cfg = QWEN15_7B_4L
+    params = llama.init_params(cfg, gen.manual_seed(2), torch.bfloat16, DEV)
+    for name in ("bq", "bk", "bv"):   # random biases: init's are zeros
+        params["layers"][name].normal_(0.0, 0.5, generator=gen)
+    label = "qwen2_mha4l_bf16_pages: bf16 weights, bf16 pages, K=16"
+    report, _ = run_config(label, cfg, params, {}, {}, MAIN_BF16,
+                           one_launch="paged_decode_kernel",
+                           model="qwen1.5-7b widths")
+    family_summary(label, report)
+    del params
+    torch.cuda.empty_cache()
+
+
+def phase_parity_families():
+    """Phase 4 for the later families, 2 layers of their widths in f32,
+    TF32 off, greedy streams: Mixtral on bf16 pages at K = 16, K = 1 and on
+    the gather path, identical; Mixtral over the int8 dense cache with #8
+    against without at K = 1, identical, and K = 16 against K = 1, the
+    share of equal tokens shown; `moe_mlp_dispatch` at full capacity
+    against the dense combine on a 2048-token prefill, its error printed;
+    Mistral (window 128, live under the 200- and 600-token prompts) on
+    bf16 pages with kernels at K = 16 and K = 1 against the gather path,
+    and on int8 pages with kernels against without at K = 1, identical."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gather = dict(use_pallas_attention=False, ragged_attention=False)
+    k1 = {"decode_steps": 1}
+    report = {"phase": "parity_families",
+              "model": "mixtral-8x7b and mistral-7b widths, 2 layers, f32, "
+                       "tf32 off"}
+
+    cfg = dataclasses.replace(MIXTRAL_8L, num_layers=2)
+    params = llama.init_params(
+        cfg, torch.Generator(device=DEV).manual_seed(1), torch.float32, DEV)
+    before = pa.launches
+    kern16, e16 = parity_run(cfg, params, {}, {})
+    assert e16.decode_steps == 16 and pa.launches > before
+    kern1, _ = parity_run(cfg, params, k1, {})
+    gath, e2 = parity_run(cfg, params, gather, {})
+    assert e2.decode_steps == 1 and not e2.cache.use_kernel
+    assert all(len(x) == 16 for x in kern16)
+    assert kern16 == kern1, "mixtral bf16 pool: K=16 and K=1 streams differ"
+    assert kern1 == gath, "mixtral bf16 pool: kernel and gather streams differ"
+    report["mixtral_bf16_pages"] = {"streams": len(kern16), "tokens_each": 16,
+                                    "k16_equals_k1": True,
+                                    "kernel_equals_gather": True}
+    ckw = {"kv_quant": "int8", **DENSE}
+    before = qa.decode_launches
+    kern1, e1 = parity_run(cfg, params, k1, ckw)
+    assert e1.cache.use_kernel and qa.decode_launches > before
+    plain1, e2 = parity_run(cfg, params, {"use_pallas_attention": False, **k1},
+                            ckw)
+    assert not e2.cache.use_kernel
+    assert kern1 == plain1, "mixtral int8 dense: #8 and plain streams differ"
+    before = (qa.fused_launches, qa.flush_launches)
+    kern16, e16 = parity_run(cfg, params, {}, ckw)
+    assert e16.decode_steps == 16
+    assert qa.fused_launches > before[0] and qa.flush_launches > before[1]
+    share, first = shares(kern16, kern1)
+    report["mixtral_int8_dense"] = {
+        "streams": len(kern1), "tokens_each": 16,
+        "kernel_equals_plain_k1": True,
+        "k16_vs_k1_equal_token_share": share,
+        "k16_vs_k1_first_divergence": first}
+    p = {k: params["layers"][k][0] for k in MOE_KEYS}
+    x = torch.randn((1, 2048, cfg.hidden_size), device=DEV,
+                    generator=torch.Generator(device=DEV).manual_seed(5))
+    dense = moe.moe_mlp(cfg, p, x.reshape(-1, 1, cfg.hidden_size)).reshape(
+        x.shape)
+    full = moe.moe_mlp_dispatch(cfg, p, x,
+                                capacity_factor=float(cfg.num_experts))
+    err = max_err(full, dense)
+    assert err <= TOL[torch.float32], err
+    report["moe_dispatch_full_capacity_vs_dense"] = {
+        "tokens": 2048, "max_abs_err": err, "tolerance": TOL[torch.float32],
+        "max_abs_out": float(dense.abs().max())}
+    del params, p, x, dense, full
+    torch.cuda.empty_cache()
+
+    cfg = dataclasses.replace(MISTRAL_7B, num_layers=2)
+    params = llama.init_params(
+        cfg, torch.Generator(device=DEV).manual_seed(1), torch.float32, DEV)
+    kern16, e16 = parity_run(cfg, params, {}, {})
+    assert e16.decode_steps == 16 and e16.cache.use_kernel
+    kern1, _ = parity_run(cfg, params, k1, {})
+    gath, _ = parity_run(cfg, params, gather, {})
+    assert kern16 == kern1 == gath, (
+        "mistral window 128, bf16 pool: kernel and gather streams differ")
+    ckw = {"kv_quant": "int8"}
+    before = (pa.quantized_launches, ra.quantized_launches)
+    kern1, e1 = parity_run(cfg, params, k1, ckw)
+    assert e1.cache.use_kernel and e1.cache.use_ragged
+    assert pa.quantized_launches > before[0]
+    assert ra.quantized_launches > before[1]
+    gath, e2 = parity_run(cfg, params, {**k1, **gather}, ckw)
+    assert not e2.cache.use_kernel
+    assert kern1 == gath, (
+        "mistral window 128, int8 pool: kernel and gather streams differ")
+    report["mistral_swa128"] = {
+        "streams": len(kern1), "tokens_each": 16, "sliding_window": 128,
+        "bf16_k16_equals_k1_equals_gather": True,
+        "int8_kernel_equals_gather_k1": True}
+    del params
+    torch.cuda.empty_cache()
+    emit(report)
+
+
+def parity_run(cfg, params, ekw, ckw, capture=True):
+    """Phase 4's traffic through one f32 engine configuration: six greedy
+    prompts of 20-200 tokens, 16 new tokens each, then after four steps a
+    600-token one (chunk-admitted beside live decode on the pools, chunked
+    on the dense caches and rings). Returns (streams, engine)."""
+    rng = np.random.default_rng(21)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).tolist()
+               for n in (20, 200, 63, 64, 65, 130)]
+    long_prompt = rng.integers(0, cfg.vocab_size, size=600).tolist()
+    opts = SamplingOptions(max_new_tokens=16)
+    if ckw.get("kind") == "dense":
+        ekw = {**ekw, "decode_windows": (384, 768, 1024)}
+    engine = InferenceEngine(
+        cfg, params,
+        EngineConfig(max_batch_size=4, prefill_buckets=(64, 256),
+                     max_seq_len=1024, dtype="float32", **ekw),
+        CacheConfig(num_pages=128, max_pages_per_session=16, **ckw),
+        device=DEV)
+    if not capture:
+        engine._fused.capture = False
+    client = Client(engine)
+    for p in prompts:
+        client.submit(p, opts)
+    for _ in range(4):
+        client.step()
+    client.submit(long_prompt, opts)
+    streams = client.drain()
+    if engine.allocator is not None:
+        assert engine.allocator.free_count == 127
+    return streams, engine
+
+
+def shares(a, b):
+    """Share of equal tokens of two stream sets, and the first (stream,
+    token) where they part."""
+    equal = sum(x == y for s, t in zip(a, b) for x, y in zip(s, t))
+    first = next(((i, j) for i, (s, t) in enumerate(zip(a, b))
+                  for j, (x, y) in enumerate(zip(s, t)) if x != y), None)
+    return equal / sum(len(s) for s in b), first
+
+
 def phase_parity():
     """Through the whole engine, 2 layers of the same widths in f32, TF32
     off, greedy streams: the bf16 pool at K = 16 and K = 1 and on the gather
@@ -3043,42 +3367,9 @@ def phase_parity():
     cfg = dataclasses.replace(LLAMA3_8B, num_layers=2)
     params = llama.init_params(
         cfg, torch.Generator(device=DEV).manual_seed(1), torch.float32, DEV)
-    rng = np.random.default_rng(21)
-    prompts = [rng.integers(0, cfg.vocab_size, size=n).tolist()
-               for n in (20, 200, 63, 64, 65, 130)]
-    long_prompt = rng.integers(0, cfg.vocab_size, size=600).tolist()
-    opts = SamplingOptions(max_new_tokens=16)
 
     def run(ekw, ckw, capture=True):
-        dense = ckw.get("kind") == "dense"
-        if dense:
-            ekw = {**ekw, "decode_windows": (384, 768, 1024)}
-        engine = InferenceEngine(
-            cfg, params,
-            EngineConfig(max_batch_size=4, prefill_buckets=(64, 256),
-                         max_seq_len=1024, dtype="float32", **ekw),
-            CacheConfig(num_pages=128, max_pages_per_session=16, **ckw),
-            device=DEV)
-        if not capture:
-            engine._fused.capture = False
-        client = Client(engine)
-        for p in prompts:
-            client.submit(p, opts)
-        for _ in range(4):
-            client.step()
-        client.submit(long_prompt, opts)
-        streams = client.drain()
-        if engine.allocator is not None:
-            assert engine.allocator.free_count == 127
-        return streams, engine
-
-    def shares(a, b):
-        """Share of equal tokens of two stream sets, and the first
-        (stream, token) where they part."""
-        equal = sum(x == y for s, t in zip(a, b) for x, y in zip(s, t))
-        first = next(((i, j) for i, (s, t) in enumerate(zip(a, b))
-                      for j, (x, y) in enumerate(zip(s, t)) if x != y), None)
-        return equal / sum(len(s) for s in b), first
+        return parity_run(cfg, params, ekw, ckw, capture)
 
     report = {"phase": "parity",
               "model": "llama-3-8b widths, 2 layers, f32, tf32 off"}
@@ -3261,8 +3552,53 @@ API_PROMPTS = (40, 333, 1200)  # the api subprocess's greedy prompts
 API_NEW = 24
 
 
+# Mixtral's per-layer MoE keys: the router, and each expert's three linears
+# (``w1`` gate, ``w3`` up, ``w2`` down) -> our expert stacks.
+MOE_ROUTER = "block_sparse_moe.gate.weight"
+EXPERT_HF = {"we_g": ("w1", "wg"), "we_u": ("w3", "wu"), "we_d": ("w2", "wd")}
+
+
+def layer_keys(cfg):
+    """One layer's tensors as the HF layout stores them: (our name, expert
+    index or None, HF key suffix, HF shape, stored [out, in] and
+    transposed). A Mixtral layer has the router and each expert's linears
+    in place of the dense MLP's."""
+    h, d, inter = cfg.hidden_size, cfg.head_dim, cfg.intermediate_size
+    shapes = {"attn_norm": (h,), "wq": (cfg.num_heads * d, h),
+              "wk": (cfg.num_kv_heads * d, h), "wv": (cfg.num_kv_heads * d, h),
+              "wo": (h, cfg.num_heads * d), "mlp_norm": (h,),
+              "wg": (inter, h), "wu": (inter, h), "wd": (h, inter)}
+    moe_mlp = cfg.num_experts > 0
+    out = [(name, None, suffix, shapes[name], transpose)
+           for name, (suffix, transpose) in HF_KEYS.items()
+           if not (moe_mlp and name in ("wg", "wu", "wd"))]
+    if moe_mlp:
+        out.append(("router", None, MOE_ROUTER, (cfg.num_experts, h), True))
+        for name, (w, dense) in EXPERT_HF.items():
+            out += [(name, e, f"block_sparse_moe.experts.{e}.{w}.weight",
+                     shapes[dense], True) for e in range(cfg.num_experts)]
+    return out
+
+
 def hf_config(cfg):
-    """``config.json`` of ``cfg`` as transformers writes a Llama's."""
+    """``config.json`` of ``cfg`` as transformers writes a Llama's, or a
+    Mixtral's for an MoE config."""
+    if cfg.num_experts > 0:
+        return {
+            "architectures": ["MixtralForCausalLM"], "model_type": "mixtral",
+            "vocab_size": cfg.vocab_size, "hidden_size": cfg.hidden_size,
+            "intermediate_size": cfg.intermediate_size,
+            "num_hidden_layers": cfg.num_layers,
+            "num_attention_heads": cfg.num_heads,
+            "num_key_value_heads": cfg.num_kv_heads,
+            "head_dim": cfg.head_dim, "rms_norm_eps": cfg.rms_norm_eps,
+            "rope_theta": cfg.rope_theta,
+            "max_position_embeddings": cfg.max_position_embeddings,
+            "num_local_experts": cfg.num_experts,
+            "num_experts_per_tok": cfg.num_experts_per_tok,
+            "sliding_window": None, "tie_word_embeddings": False,
+            "torch_dtype": "bfloat16",
+        }
     rs = cfg.rope_scaling
     return {
         "architectures": ["LlamaForCausalLM"], "model_type": "llama",
@@ -3297,16 +3633,12 @@ def write_checkpoint(root, cfg, seed, dev):
         w = torch.randn(shape, generator=gen, device=dev) * 0.02 + base
         return w.to(torch.bfloat16)
 
-    h, d, inter = cfg.hidden_size, cfg.head_dim, cfg.intermediate_size
+    h = cfg.hidden_size
     state = {"model.embed_tokens.weight": draw(cfg.vocab_size, h)}
-    shapes = {"attn_norm": (h,), "wq": (cfg.num_heads * d, h),
-              "wk": (cfg.num_kv_heads * d, h), "wv": (cfg.num_kv_heads * d, h),
-              "wo": (h, cfg.num_heads * d), "mlp_norm": (h,),
-              "wg": (inter, h), "wu": (inter, h), "wd": (h, inter)}
     for i in range(cfg.num_layers):
-        for name, (suffix, _) in HF_KEYS.items():
+        for name, _, suffix, shape, _ in layer_keys(cfg):
             state[f"model.layers.{i}.{suffix}"] = draw(
-                *shapes[name], base=1.0 if name.endswith("norm") else 0.0)
+                *shape, base=1.0 if name.endswith("norm") else 0.0)
     state["model.norm.weight"] = draw(h, base=1.0)
     state["lm_head.weight"] = draw(cfg.vocab_size, h)
 
@@ -3336,31 +3668,36 @@ def check_info(root, cfg):
                        cwd=ROOT, capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr
     info = json.loads(r.stdout)
-    want = {"family": "llama", "supported": True,
+    want = {"family": cfg.family, "supported": True,
             "num_layers": cfg.num_layers, "hidden_size": cfg.hidden_size,
             "num_heads": cfg.num_heads, "num_kv_heads": cfg.num_kv_heads,
-            "vocab_size": cfg.vocab_size}
+            "vocab_size": cfg.vocab_size, "num_experts": cfg.num_experts}
     assert {k: info[k] for k in want} == want, info
     return info
 
 
 def check_loaded(params, state, cfg):
     """Every loaded tensor bitwise equal to the written one (transposed
-    where HF stores ``[out, in]``)."""
+    where HF stores ``[out, in]``; an expert's in its slot of the stack).
+    Returns the number of tensors compared."""
     def same(a, b):
         return a.shape == b.shape and torch.equal(
             a.view(torch.int16), b.view(torch.int16))
 
+    keys = layer_keys(cfg)
     for i in range(cfg.num_layers):
-        for name, (suffix, transpose) in HF_KEYS.items():
+        for name, e, suffix, _, transpose in keys:
             w = state[f"model.layers.{i}.{suffix}"]
-            assert same(params["layers"][name][i], w.T if transpose else w), (
-                f"layer {i} {name} differs from the written tensor")
-    assert set(params["layers"]) == set(HF_KEYS)
+            got = params["layers"][name][i]
+            if e is not None:
+                got = got[e]
+            assert same(got, w.T if transpose else w), (
+                f"layer {i} {name} {e} differs from the written tensor")
+    assert set(params["layers"]) == {name for name, *_ in keys}
     assert same(params["embed"], state["model.embed_tokens.weight"])
     assert same(params["final_norm"], state["model.norm.weight"])
     assert same(params["lm_head"], state["lm_head.weight"].T)
-    return 2 + cfg.num_layers * len(HF_KEYS) + 1
+    return 2 + cfg.num_layers * len(keys) + 1
 
 
 def http_post(port, body, timeout=600):
@@ -3614,28 +3951,42 @@ LOCAL_INT4 = {"int4_matmul": (qm, "launches"),
               "paged_tail_flush": (pa, "flush_launches")}
 
 
-def local_int4(root, vocab):
-    """``local --quantize int4 --kv-quant int8`` on the checkpoint, in this
-    process (so that its kernels' launches can be counted): a 1000-token
-    prompt (the table past 768 slots: the window reads the pool in place),
-    32 new tokens."""
-    ids = np.random.default_rng(23).integers(0, vocab, size=1000).tolist()
-    for module, attr in LOCAL_INT4.values():
+def local_run(root, cfg, int4):
+    """``local`` on the checkpoint in bf16, or with ``int4`` as ``local
+    --quantize int4 --kv-quant int8``, in this process (so that its
+    kernels' launches can be counted): a 1000-token prompt (the table past
+    768 slots: the int8 window reads the pool in place), 32 new tokens.
+    With int4 the head's kernel (#13) runs once for the prompt and once a
+    step, and the layer-stacked one (#14) once a step for each of the
+    config's int4 projections a layer (`llama.int4_projections`)."""
+    counters = LOCAL_INT4 if int4 else MAIN_BF16
+    ids = np.random.default_rng(23).integers(
+        0, cfg.vocab_size, size=1000).tolist()
+    for module, attr in counters.values():
         setattr(module, attr, 0)
+    argv = ["local", "--model", root, "--prompt-ids", ",".join(map(str, ids)),
+            "--max-new", "32"]
+    if int4:
+        argv += ["--quantize", "int4", "--kv-quant", "int8"]
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
-        rc = cli.main(["local", "--model", root, "--prompt-ids",
-                       ",".join(map(str, ids)), "--max-new", "32",
-                       "--quantize", "int4", "--kv-quant", "int8"])
-    launches = {n: getattr(m, a) for n, (m, a) in LOCAL_INT4.items()}
+        rc = cli.main(argv)
+    launches = {n: getattr(m, a) for n, (m, a) in counters.items()}
     assert rc == 0
     doc = json.loads(out.getvalue().strip().splitlines()[-1])
     assert doc["event"] == "generated" and len(doc["tokens"]) == 32
-    assert all(0 <= t < vocab for t in doc["tokens"])
+    assert all(0 <= t < cfg.vocab_size for t in doc["tokens"])
     for name, n in launches.items():
-        assert n > 0, f"local int4/int8 never launched {name}"
-    return {"tokens": len(doc["tokens"]), "seconds": doc["seconds"],
-            "launches": launches}
+        assert n > 0, f"local never launched {name}"
+    result = {"tokens": len(doc["tokens"]), "seconds": doc["seconds"],
+              "launches": launches}
+    if int4:
+        steps = launches["int4_matmul"] - 1
+        per_step = len(llama.int4_projections(cfg)) * cfg.num_layers
+        assert launches["int4_matmul_stacked"] == per_step * steps, (
+            launches, per_step, steps)
+        result["int4_stacked_calls_a_step"] = per_step
+    return result
 
 
 def phase_serve():
@@ -3684,7 +4035,45 @@ def phase_serve():
             root, cfg, DEV, str(_build.BUILD_DIR / "serve_api_stderr.log"))
         assert report["api_f32"]["decode_steps"] == 16
         assert report["api_f32"]["decode_kernel"]
-        report["local_int4_int8kv"] = local_int4(root, cfg.vocab_size)
+        report["local_int4_int8kv"] = local_run(root, cfg, True)
+    emit(report)
+
+
+SERVE_MOE_LAYERS = 1  # Mixtral-8x7B's widths, one layer: about 3.4 GB of bf16
+
+
+def phase_serve_mixtral():
+    """A 1-layer checkpoint at Mixtral-8x7B widths in the HF layout
+    (``block_sparse_moe`` keys, an index, two shards), written by the port's
+    writer under `build/` and deleted pass or fail: `info` must call it
+    supported with its 8 experts, `load_model_params` must return each
+    tensor bitwise equal to the written one (each expert in its slot of the
+    `[L, E, in, out]` stacks), and `local` runs on it in bf16 and with int4
+    weights over int8 pages (four int4 projections a layer)."""
+    cfg = dataclasses.replace(MIXTRAL_8L, num_layers=SERVE_MOE_LAYERS)
+    report = {"phase": "serve_mixtral", "card": CARD,
+              "model": f"mixtral-8x7b widths, {SERVE_MOE_LAYERS} layer, "
+                       "random bf16 weights from a checkpoint"}
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as root:
+        state, write_s = write_checkpoint(root, cfg, 6, DEV)
+        report["checkpoint"] = {
+            "files": sorted(p.name for p in Path(root).iterdir()),
+            "write_s": write_s,
+            "bytes": sum(p.stat().st_size for p in Path(root).iterdir())}
+        assert checkpoint.load_config(root) == cfg
+        report["info"] = check_info(root, cfg)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params = checkpoint.load_model_params(root, cfg, torch.bfloat16,
+                                              device=DEV)
+        torch.cuda.synchronize()
+        report["load_s"] = time.perf_counter() - t0
+        report["tensors_bitwise_equal"] = check_loaded(params, state, cfg)
+        del state, params
+        torch.cuda.empty_cache()
+        report["local_bf16"] = local_run(root, cfg, False)
+        report["local_int4_int8kv"] = local_run(root, cfg, True)
     emit(report)
 
 
@@ -3733,7 +4122,9 @@ def main() -> int:
     phase_device()
     timed, floor = phase_kernels()
     launches = phase_engine()
+    phase_families()
     phase_parity()
+    phase_parity_families()
     assert set(timed) == set(REPLACES) == set(launches), (
         sorted(timed), sorted(launches))
     emit({"kernels": [
@@ -3746,6 +4137,7 @@ def main() -> int:
         for name, k in timed.items()
     ], "timed_call_floor_ms": floor, "seconds": time.perf_counter() - t0})
     phase_serve()
+    phase_serve_mixtral()
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}})

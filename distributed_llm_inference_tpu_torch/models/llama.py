@@ -1,13 +1,19 @@
 """Llama-family decoder stack as plain functions on tensors (counterpart of
-the JAX package's ``models/llama.py``, dense per-head attention branch).
+the JAX package's ``models/llama.py``, dense per-head attention branch,
+with the SwiGLU MLP or Mixtral's MoE MLP).
 
 Parameters are a plain dict of tensors with every decoder layer's weights
 STACKED on a leading layer axis, as in the JAX package:
 ``embed [V, H]``, ``layers.{attn_norm, wq, wk, wv, wo, mlp_norm, wg, wu, wd
-[, bq, bk, bv]} [L, ...]``, ``final_norm [H]``, optional ``lm_head [H, V]``.
+[, bq, bk, bv, bo]} [L, ...]``, ``final_norm [H]``, optional ``lm_head
+[H, V]``; an MoE config (``num_experts > 0``) has ``router [L, H, E]``,
+``we_g``/``we_u [L, E, H, F]`` and ``we_d [L, E, F, H]`` in place of ``wg``,
+``wu``, ``wd`` (``ops/moe.py``).
 All projections are stored ``[in_features, out_features]``; the forward runs
-each through ``ops/quant.py:matmul``, so a projection may also be a quantized
-leaf (``QuantizedTensor`` int8, ``QuantizedTensor4Split`` int4).
+each through ``ops/quant.py:matmul`` (the experts through
+``ops/quant.py:einsum``), so a projection may also be a quantized leaf
+(``QuantizedTensor`` int8, ``QuantizedTensor4Split`` int4; expert stacks
+stay int8).
 ``block_apply`` walks the layer axis in a Python loop (the JAX package scans
 it) and hands each layer its own slice of the cache's planes (a page pool,
 or dense per-row buffers), which the cache updates in place, and of each
@@ -25,6 +31,7 @@ import torch.nn.functional as F
 
 from ..config import ModelConfig
 from ..ops.attention import gqa_attention
+from ..ops.moe import moe_mlp
 from ..ops.norms import rms_norm
 from ..ops.quant import (
     QuantizedTensor,
@@ -43,10 +50,6 @@ def _require_dense(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             "latent (MLA) attention is not ported yet (ROADMAP.md queue 1, "
             "item 10)"
-        )
-    if cfg.num_experts > 0:
-        raise NotImplementedError(
-            "MoE layers are not ported yet (ROADMAP.md queue 1, item 8)"
         )
 
 
@@ -90,10 +93,17 @@ def init_layer_params(
         "wv": w(h, hkv * d),
         "wo": w(hq * d, h),
         "mlp_norm": torch.ones((num_layers, h), dtype=dtype, device=dev),
-        "wg": w(h, inter),
-        "wu": w(h, inter),
-        "wd": w(inter, h),
     }
+    if cfg.num_experts > 0:
+        e = cfg.num_experts
+        p["router"] = w(h, e)
+        p["we_g"] = w(e, h, inter)
+        p["we_u"] = w(e, h, inter)
+        p["we_d"] = w(e, inter, h)
+    else:
+        p["wg"] = w(h, inter)
+        p["wu"] = w(h, inter)
+        p["wd"] = w(inter, h)
     if cfg.qkv_bias:
         p["bq"] = torch.zeros((num_layers, hq * d), dtype=dtype, device=dev)
         p["bk"] = torch.zeros((num_layers, hkv * d), dtype=dtype, device=dev)
@@ -178,16 +188,19 @@ def params_from_numpy(
             )
         return _numpy_to_torch(a).to(device=dev, dtype=dtype)
 
-    want = {"attn_norm", "wq", "wk", "wv", "wo", "mlp_norm", "wg", "wu", "wd"}
+    want = {"attn_norm", "wq", "wk", "wv", "wo", "mlp_norm"} | (
+        {"router", "we_g", "we_u", "we_d"} if cfg.num_experts > 0
+        else {"wg", "wu", "wd"}
+    )
     layers = {k: conv(v) for k, v in tree["layers"].items()}
     missing = want - set(layers)
     if missing:
         raise ValueError(f"parameter tree lacks layer weights {sorted(missing)}")
-    extra = set(layers) - want - {"bq", "bk", "bv"}
+    extra = set(layers) - want - {"bq", "bk", "bv", "bo"}
     if extra:
-        raise NotImplementedError(
-            f"layer weights {sorted(extra)} belong to a family that is not "
-            "ported yet (ROADMAP.md queue 1, items 8 and 10)"
+        raise ValueError(
+            f"layer weights {sorted(extra)} do not belong to this config "
+            f"(num_experts={cfg.num_experts})"
         )
     if layers["wq"].shape[0] != cfg.num_layers:
         raise ValueError(
@@ -217,17 +230,20 @@ _LAYER_KEY_MAP = {
     "self_attn.q_proj.bias": ("bq", False),
     "self_attn.k_proj.bias": ("bk", False),
     "self_attn.v_proj.bias": ("bv", False),
+    "self_attn.o_proj.bias": ("bo", False),
     "post_attention_layernorm.weight": ("mlp_norm", False),
     "mlp.gate_proj.weight": ("wg", True),
     "mlp.up_proj.weight": ("wu", True),
     "mlp.down_proj.weight": ("wd", True),
 }
+# Mixtral's per-expert linears (HF ``block_sparse_moe.experts.{e}.{w}``,
+# each [out, in]) -> our expert stack.
+_EXPERT_KEY_MAP = {"w1": "we_g", "w3": "we_u", "w2": "we_d"}
+_MOE_PREFIX = "block_sparse_moe."
 # Per-layer keys of the families that wait -> what they are and their item.
 _WAITING_KEYS = {
-    "block_sparse_moe.": ("MoE layers", "item 8"),
     "self_attn.kv_b_proj.": ("latent (MLA) attention", "item 10"),
     "self_attn.kv_a_proj_with_mqa.": ("latent (MLA) attention", "item 10"),
-    "self_attn.o_proj.bias": ("an o_proj bias", "item 8"),
 }
 
 
@@ -243,13 +259,59 @@ def _refuse_waiting_keys(state: Mapping[str, Any], prefix: str) -> None:
                 )
 
 
+def _layer_sources(cfg: ModelConfig, state: Mapping[str, Any], prefix: str):
+    """One HF layer's tensors present in ``state``, as ``(our name, expert
+    index or None, HF tensor, transposed)``; Mixtral's router (``gate``,
+    ``[E, H]``) and experts (``w1``/``w3``/``w2``, expert by expert)
+    included when ``cfg`` has experts, as the JAX conversion takes them."""
+    _refuse_waiting_keys(state, prefix)
+    out = [
+        (name, None, state[prefix + suffix], transpose)
+        for suffix, (name, transpose) in _LAYER_KEY_MAP.items()
+        if prefix + suffix in state
+    ]
+    gate = prefix + _MOE_PREFIX + "gate.weight"
+    if gate in state and cfg.num_experts > 0:
+        out.append(("router", None, state[gate], True))
+        for w, name in _EXPERT_KEY_MAP.items():
+            for e in range(cfg.num_experts):
+                key = f"{prefix}{_MOE_PREFIX}experts.{e}.{w}.weight"
+                out.append((name, e, state[key], True))
+    elif any(k.startswith(prefix + _MOE_PREFIX) for k in state):
+        raise ValueError(
+            f"{prefix}{_MOE_PREFIX}* holds MoE weights but the config has "
+            f"num_experts={cfg.num_experts}"
+        )
+    return out
+
+
+def _fill(dst: torch.Tensor, src: torch.Tensor, transpose: bool) -> None:
+    """Copy ``src`` (host, the checkpoint's dtype) into ``dst`` (a slot of
+    a stack on the device, its dtype), transposed on the device."""
+    w = src.to(dst.device)
+    dst.copy_(w.T if transpose else w)
+
+
 def _on_device(src: torch.Tensor, transpose: bool, dtype, dev) -> torch.Tensor:
     """``src`` (host, the checkpoint's dtype) as a new contiguous tensor of
     ``dtype`` on ``dev``, transposed first when asked."""
-    w = src.to(dev)
-    if transpose:
-        w = w.T
-    return torch.empty(w.shape, dtype=dtype, device=dev).copy_(w)
+    shape = tuple(src.shape[::-1]) if transpose else tuple(src.shape)
+    out = torch.empty(shape, dtype=dtype, device=dev)
+    _fill(out, src, transpose)
+    return out
+
+
+def _allocate(sources, num_layers, num_experts, dtype, dev) -> Params:
+    """Empty stacks ``[L, ([E,]) *shape]`` for ``_layer_sources``."""
+    out: Params = {}
+    for name, e, src, transpose in sources:
+        if name in out:
+            continue
+        shape = tuple(src.shape[::-1]) if transpose else tuple(src.shape)
+        if e is not None:
+            shape = (num_experts, *shape)
+        out[name] = torch.empty((num_layers, *shape), dtype=dtype, device=dev)
+    return out
 
 
 def convert_hf_layer(
@@ -261,16 +323,10 @@ def convert_hf_layer(
 ) -> Params:
     """One HF decoder layer's tensors (``state`` maps full HF keys,
     ``model.layers.{i}.…``, to host tensors in torch's ``[out, in]`` linear
-    layout) in our naming and ``[in, out]`` layout, on ``device``."""
-    _require_dense(cfg)
-    dev = resolve_device(device)
-    prefix = f"model.layers.{layer_idx}."
-    _refuse_waiting_keys(state, prefix)
-    return {
-        name: _on_device(state[prefix + suffix], transpose, dtype, dev)
-        for suffix, (name, transpose) in _LAYER_KEY_MAP.items()
-        if prefix + suffix in state
-    }
+    layout) in our naming and ``[in, out]`` layout, on ``device``; a
+    Mixtral layer's experts stacked ``[E, in, out]``."""
+    stacks = convert_hf_state_dict(cfg, state, [layer_idx], dtype, device)
+    return {name: w[0] for name, w in stacks["layers"].items()}
 
 
 def convert_hf_state_dict(
@@ -280,14 +336,15 @@ def convert_hf_state_dict(
     dtype=torch.bfloat16,
     device: Union[str, torch.device] = "cuda",
 ) -> Params:
-    """An HF Llama/Mistral/Qwen2 state dict as our parameters: layers
-    ``layer_ids`` (all, with the embedding, final norm and head, when None)
-    stacked ``[L, ...]`` on ``device``.
+    """An HF Llama/Mistral/Qwen2/Mixtral state dict as our parameters:
+    layers ``layer_ids`` (all, with the embedding, final norm and head,
+    when None) stacked ``[L, ...]`` on ``device`` (Mixtral's experts
+    ``[L, E, in, out]``).
 
-    Each stack is allocated once on ``device`` and each layer, converted
-    there (transposed on the device), is copied into its slot: beyond the
-    result the device holds one layer and the host one tensor at a time;
-    the JAX package stacks numpy copies instead."""
+    Each stack is allocated once on ``device`` and each (layer[, expert])
+    matrix is copied into its slot, transposed there: beyond the result the
+    device holds one matrix and the host one tensor at a time; the JAX
+    package stacks numpy copies instead."""
     _require_dense(cfg)
     dev = resolve_device(device)
     ids = list(layer_ids) if layer_ids is not None else list(
@@ -295,19 +352,17 @@ def convert_hf_state_dict(
     )
     stacks: Params = {}
     for j, i in enumerate(ids):
-        layer = convert_hf_layer(cfg, state, i, dtype, dev)
+        sources = _layer_sources(cfg, state, f"model.layers.{i}.")
+        names = {name for name, *_ in sources}
         if j == 0:
-            stacks = {
-                name: torch.empty((len(ids), *w.shape), dtype=dtype, device=dev)
-                for name, w in layer.items()
-            }
-        elif set(layer) != set(stacks):
+            stacks = _allocate(sources, len(ids), cfg.num_experts, dtype, dev)
+        elif names != set(stacks):
             raise KeyError(
-                f"layer {i} has {sorted(layer)}, layer {ids[0]} {sorted(stacks)}"
+                f"layer {i} has {sorted(names)}, layer {ids[0]} {sorted(stacks)}"
             )
-        for name, w in layer.items():
-            stacks[name][j].copy_(w)
-        del layer  # freed before the next layer is converted
+        for name, e, src, transpose in sources:
+            slot = stacks[name][j]
+            _fill(slot if e is None else slot[e], src, transpose)
     params: Params = {"layers": stacks}
     if layer_ids is None:
         params.update(convert_hf_non_layer(cfg, state, dtype, dev))
@@ -350,7 +405,8 @@ def _decoder_layer(
     num_new: torch.Tensor,
     attention_fn=gqa_attention,
 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
-    """One decoder layer: pre-norm attention + pre-norm SwiGLU MLP."""
+    """One decoder layer: pre-norm attention + pre-norm SwiGLU (or MoE)
+    MLP."""
     b, s, _ = x.shape
     hq, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
 
@@ -371,21 +427,43 @@ def _decoder_layer(
         layer_state, q, k, v, rope, q_pos, num_new,
         cfg.sliding_window, attention_fn, d**-0.5,
     )
-    x = x + qmatmul(attn.reshape(b, s, hq * d), p["wo"])
-    return _mlp_residual(cfg, p, x), new_state
+    o = qmatmul(attn.reshape(b, s, hq * d), p["wo"])
+    if "bo" in p:
+        o = o + p["bo"]
+    x = x + o
+    return _mlp_residual(cfg, p, x, s, num_new), new_state
 
 
-def _mlp_residual(cfg, p, x):
-    """Pre-norm SwiGLU MLP + residual."""
+def _mlp_residual(cfg, p, x, s, num_new):
+    """Pre-norm MLP + residual: SwiGLU, or the MoE MLP when the config has
+    experts."""
     h2 = rms_norm(x, p["mlp_norm"], cfg.rms_norm_eps)
+    if cfg.num_experts > 0:
+        # Bucket-padding positions (>= num_new) must not consume expert
+        # capacity in the dispatched prefill path.
+        valid = None
+        if s > 1:
+            valid = (
+                torch.arange(s, device=x.device)[None, :] < num_new[:, None]
+            )
+        return x + moe_mlp(cfg, p, h2, valid=valid)
     return x + qmatmul(
         F.silu(qmatmul(h2, p["wg"])) * qmatmul(h2, p["wu"]), p["wd"]
     )
 
 
+def int4_projections(cfg: ModelConfig) -> Tuple[str, ...]:
+    """The layer weights that int4 quantization (``quantize_params(bits=4)``)
+    puts in the half-split layout: seven projections a layer, four for an
+    MoE config, whose expert stacks stay int8."""
+    attn = ("wq", "wk", "wv", "wo")
+    return attn if cfg.num_experts > 0 else attn + ("wg", "wu", "wd")
+
+
 def _split_int4_stacks(layer_params: Params):
-    """Partition the layer dict: half-split int4 stacks are handed to every
-    layer WHOLE (their kernel takes a layer index); everything else is
+    """Partition the layer dict: half-split int4 stacks (the
+    :func:`int4_projections`) are handed to every layer WHOLE (their kernel
+    takes a layer index); everything else, int8 expert stacks included, is
     sliced per layer."""
     whole = {
         k: v for k, v in layer_params.items()

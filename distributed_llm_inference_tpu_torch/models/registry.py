@@ -5,15 +5,16 @@ The decoder stack (``models/llama.py``) is one parameterized program whose
 config switches cover the families; this registry maps an HF ``model_type``
 to that program and each family's quirks, and validates a config against
 them. It lists the same five families as the JAX package, so that a
-checkpoint is ``supported`` in both or in neither; the port's program
-raises ``NotImplementedError`` for the MoE (``mixtral``, ROADMAP.md queue
-1, item 8) and latent (``mla``, item 10) families when they are run.
+checkpoint is ``supported`` in both or in neither; the port's program runs
+four of them and raises ``NotImplementedError`` for the latent family
+(``mla``, ROADMAP.md queue 1, item 10) when it is run.
 
 * ``llama``   — the baseline (GQA, RoPE incl. llama3 scaling, SwiGLU).
 * ``mistral`` — + sliding-window attention (``ModelConfig.sliding_window``).
 * ``qwen2``   — + q/k/v projection biases (``qkv_bias``) and (2.5-era
   configs) tied embeddings.
-* ``mixtral`` — + MoE MLP (``num_experts``/``num_experts_per_tok``).
+* ``mixtral`` — + MoE MLP (``num_experts``/``num_experts_per_tok``,
+  ``ops/moe.py``).
 * ``mla``     — latent (low-rank) KV attention (``ModelConfig.latent``).
 """
 

@@ -33,6 +33,7 @@ __all__ = [
     "quantize_int4_split",
     "w8a8_matmul",
     "matmul",
+    "einsum",
     "quantize_params",
     "QUANTIZED_WEIGHTS",
     "INT4_WEIGHTS",
@@ -230,21 +231,43 @@ def matmul(x: torch.Tensor, w) -> torch.Tensor:
     return x @ w
 
 
+def einsum(spec: str, x: torch.Tensor, w) -> torch.Tensor:
+    """``torch.einsum`` that takes an int8 :class:`QuantizedTensor` too (the
+    MoE expert stacks): the weight converted to x's type whole, the product,
+    then its ``[..., out]`` scale, which needs the weight's non-contracted
+    subscripts LAST in the output (true of the MoE einsums)."""
+    if isinstance(w, QuantizedTensor):
+        y = torch.einsum(spec, x, w.q.to(x.dtype))
+        return y * w.scale.to(x.dtype)
+    return torch.einsum(spec, x, w)
+
+
 def _per_layer(fn, w: torch.Tensor):
-    """``fn`` over a stacked weight one leading index at a time (the
-    temporaries stay one layer large), results stacked back. Quantization is
-    per (layer, output channel), so this equals ``fn(w)``."""
+    """``fn`` over a stacked weight one ``[in, out]`` matrix at a time (a
+    layer's, or a layer's expert's), each result copied into a stack
+    allocated once, so that the temporaries stay one matrix large.
+    Quantization is per (layer, [expert,] output channel), so this equals
+    ``fn(w)``."""
     if w.ndim == 2:
         return fn(w)
-    parts = [fn(w[i]) for i in range(w.shape[0])]
-    first = parts[0]
-    fields = {}
+    first = _per_layer(fn, w[0])
+    cls, fields = type(first), {}
     for f in dataclasses.fields(first):
-        vals = [getattr(p, f.name) for p in parts]
-        fields[f.name] = (
-            torch.stack(vals) if isinstance(vals[0], torch.Tensor) else vals[0]
-        )
-    return type(first)(**fields)
+        v = getattr(first, f.name)
+        if isinstance(v, torch.Tensor):
+            out = torch.empty((w.shape[0], *v.shape), dtype=v.dtype,
+                              device=v.device)
+            out[0].copy_(v)
+            v = out
+        fields[f.name] = v
+    del first
+    for i in range(1, w.shape[0]):
+        part = _per_layer(fn, w[i])
+        for name, v in fields.items():
+            if isinstance(v, torch.Tensor):
+                v[i].copy_(getattr(part, name))
+        del part
+    return cls(**fields)
 
 
 def quantize_params(

@@ -331,15 +331,83 @@ def test_load_without_a_device_raises_on_a_host_without_a_gpu(model_dir):
 
 
 @pytest.mark.parametrize("key,item", [
-    ("model.layers.0.block_sparse_moe.gate.weight", "item 8"),
     ("model.layers.0.self_attn.kv_b_proj.weight", "item 10"),
-    ("model.layers.0.self_attn.o_proj.bias", "item 8"),
+    ("model.layers.0.self_attn.kv_a_proj_with_mqa.weight", "item 10"),
 ])
 def test_waiting_families_raise_with_their_queue_item(key, item):
     state = {k: torch.from_numpy(v) for k, v in _hf_state().items()}
     state[key] = torch.zeros(4)
     with pytest.raises(NotImplementedError, match=f"queue 1, {item}"):
         llama.convert_hf_state_dict(CFG, state, None, torch.float32, "cpu")
+
+
+MOE_CFG = dataclasses.replace(CFG, num_experts=3, num_experts_per_tok=2,
+                              family="mixtral")
+
+
+def _moe_state(seed=1):
+    """A tiny Mixtral's HF state: the Llama layers' attention, each MLP
+    replaced by ``block_sparse_moe``'s router (``gate``, [E, H]) and three
+    experts' ``w1``/``w3`` ([F, H]) and ``w2`` ([H, F])."""
+    r = np.random.RandomState(seed)
+    h, inter = CFG.hidden_size, CFG.intermediate_size
+    state = {k: v for k, v in _hf_state(seed).items() if ".mlp." not in k}
+    for i in range(CFG.num_layers):
+        p = f"model.layers.{i}.block_sparse_moe."
+        state[p + "gate.weight"] = r.randn(3, h)
+        for e in range(3):
+            state[p + f"experts.{e}.w1.weight"] = r.randn(inter, h)
+            state[p + f"experts.{e}.w3.weight"] = r.randn(inter, h)
+            state[p + f"experts.{e}.w2.weight"] = r.randn(h, inter)
+    return {k: v.astype(np.float32) for k, v in state.items()}
+
+
+@pytest.mark.parametrize("key", [
+    "model.layers.0.block_sparse_moe.gate.weight",
+    "model.layers.0.self_attn.o_proj.bias",
+])
+def test_moe_and_o_proj_bias_load_as_the_jax_conversion(key, tmp_path):
+    """The keys that waited: a tiny Mixtral checkpoint (``block_sparse_moe``
+    keys, two shards) and a Llama with an o_proj bias, each loaded by both
+    packages: the port's parameters EQUAL the JAX loader's, experts
+    stacked ``[L, E, in, out]``."""
+    moe = "block_sparse_moe" in key
+    cfg, jc = (MOE_CFG, dataclasses.replace(JCFG, num_experts=3,
+                                            family="mixtral")) if moe else (
+        CFG, JCFG)
+    state = _moe_state() if moe else _hf_state()
+    if not moe:
+        r = np.random.RandomState(5)
+        for i in range(CFG.num_layers):
+            state[f"model.layers.{i}.self_attn.o_proj.bias"] = r.randn(
+                CFG.hidden_size).astype(np.float32)
+    d = tmp_path / "model"
+    d.mkdir()
+    _write_sharded(str(d), state)
+    got = checkpoint.load_model_params(str(d), cfg, torch.float32,
+                                       device="cpu")
+    want = llama.params_from_numpy(cfg, _numpy_tree(
+        jcheckpoint.load_model_params(str(d), jc, jnp.float32)),
+        torch.float32, "cpu")
+    _assert_params_equal(got, want)
+    if moe:
+        assert got["layers"]["we_g"].shape == (4, 3, 16, 32)
+        assert got["layers"]["we_d"].shape == (4, 3, 32, 16)
+        assert got["layers"]["router"].shape == (4, 16, 3)
+        assert torch.equal(
+            got["layers"]["we_d"][2, 1],
+            torch.from_numpy(state["model.layers.2.block_sparse_moe."
+                                   "experts.1.w2.weight"]).T)
+        block = checkpoint.load_block_params(str(d), cfg, [1, 3],
+                                             torch.float32, device="cpu")
+        for name, w in block["layers"].items():
+            assert torch.equal(w, got["layers"][name][[1, 3]]), name
+        with pytest.raises(ValueError, match="num_experts"):
+            llama.convert_hf_state_dict(
+                CFG, {k: torch.from_numpy(v) for k, v in state.items()},
+                None, torch.float32, "cpu")
+    else:
+        assert got["layers"]["bo"].shape == (4, 16)
 
 
 def test_http_models_and_sharded_placement_raise(tmp_path):
@@ -389,6 +457,16 @@ def _mixed_tensors():
     }
 
 
+def _split_safetensors(raw):
+    """(header length, header entries in file order with __metadata__ as a
+    dict, data bytes) of a safetensors file's bytes."""
+    n = int.from_bytes(raw[:8], "little")
+    entries = json.loads(raw[8:8 + n], object_pairs_hook=list)
+    entries = [(k, dict(v) if k == "__metadata__" else v) for k, v in entries]
+    padding = raw[8:8 + n][len(raw[8:8 + n].rstrip(b" ")):]
+    return n, (entries, padding), raw[8 + n:]
+
+
 @pytest.mark.parametrize("metadata", [None, {"format": "pt", "note": "x"}])
 def test_streader_round_trip_and_wheel_bytes(tmp_path, metadata):
     tensors = _mixed_tensors()
@@ -396,7 +474,17 @@ def test_streader_round_trip_and_wheel_bytes(tmp_path, metadata):
     streader.save_file(tensors, str(mine), metadata)
     wheel_save_file({k: v.contiguous() for k, v in tensors.items()},
                     str(wheel), metadata)
-    assert mine.read_bytes() == wheel.read_bytes()
+    # The wheel writes the keys of __metadata__ in a random order (a hash
+    # map, per process): the bytes are equal up to that order. Everything
+    # else (lengths, tensor entries in order, padding, data) is compared
+    # exactly, and the whole file when the order cannot differ.
+    raw_mine, raw_wheel = mine.read_bytes(), wheel.read_bytes()
+    if metadata is None or len(metadata) < 2:
+        assert raw_mine == raw_wheel
+    (n_mine, h_mine, d_mine), (n_wheel, h_wheel, d_wheel) = (
+        _split_safetensors(raw_mine), _split_safetensors(raw_wheel))
+    assert n_mine == n_wheel and d_mine == d_wheel
+    assert h_mine == h_wheel
     back = streader.load_file(str(wheel))
     assert set(back) == set(tensors)
     for k, v in tensors.items():

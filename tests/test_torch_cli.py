@@ -166,3 +166,70 @@ def test_local_without_a_device_fails_on_a_host_without_a_gpu(model_dir):
         pytest.skip("this check is for a machine without a CUDA device")
     with pytest.raises(RuntimeError, match="cuda"):
         cli.main(["local", "--model", model_dir, "--prompt-ids", "1,2"])
+
+
+MOE_CFG = ModelConfig(
+    vocab_size=96, hidden_size=32, intermediate_size=64, num_layers=2,
+    num_heads=4, num_kv_heads=2, head_dim=8, max_position_embeddings=128,
+    num_experts=4, num_experts_per_tok=2, family="mixtral",
+)
+
+
+@pytest.fixture(scope="module")
+def mixtral_dir(tmp_path_factory):
+    """A tiny Mixtral checkpoint in the HF layout (``block_sparse_moe``
+    keys) from the JAX package's random init, the experts scaled up so
+    that routing moves the logits."""
+    d = tmp_path_factory.mktemp("mixtral")
+    params = jllama.init_params(MOE_CFG, jax.random.PRNGKey(3), jnp.float32)
+    lp, state = params["layers"], {}
+    hf = {"attn_norm": "input_layernorm.weight",
+          "wq": "self_attn.q_proj.weight", "wk": "self_attn.k_proj.weight",
+          "wv": "self_attn.v_proj.weight", "wo": "self_attn.o_proj.weight",
+          "mlp_norm": "post_attention_layernorm.weight",
+          "router": "block_sparse_moe.gate.weight"}
+    for i in range(MOE_CFG.num_layers):
+        p = f"model.layers.{i}."
+        for name, key in hf.items():
+            w = np.asarray(lp[name][i])
+            state[p + key] = w.T if w.ndim == 2 else w
+        for name, w in (("we_g", "w1"), ("we_u", "w3"), ("we_d", "w2")):
+            for e in range(MOE_CFG.num_experts):
+                state[p + f"block_sparse_moe.experts.{e}.{w}.weight"] = (
+                    np.asarray(lp[name][i, e]).T * 10)
+    state["model.embed_tokens.weight"] = np.asarray(params["embed"])
+    state["model.norm.weight"] = np.asarray(params["final_norm"])
+    state["lm_head.weight"] = np.asarray(params["lm_head"]).T
+    save_safetensors(state, os.path.join(d, "model.safetensors"))
+    with open(os.path.join(d, "config.json"), "w") as f:
+        json.dump({
+            "model_type": "mixtral", "vocab_size": MOE_CFG.vocab_size,
+            "hidden_size": MOE_CFG.hidden_size,
+            "intermediate_size": MOE_CFG.intermediate_size,
+            "num_hidden_layers": MOE_CFG.num_layers,
+            "num_attention_heads": MOE_CFG.num_heads,
+            "num_key_value_heads": MOE_CFG.num_kv_heads,
+            "head_dim": MOE_CFG.head_dim, "num_local_experts": 4,
+            "num_experts_per_tok": 2,
+        }, f)
+    return str(d)
+
+
+def test_info_on_a_mixtral_checkpoint_equals_the_jax_cli(mixtral_dir, capsys):
+    argv = ["info", "--model", mixtral_dir]
+    got, want = _run(cli.main, argv, capsys), _run(jcli.main, argv, capsys)
+    assert got == want
+    assert got["supported"] and got["family"] == "mixtral"
+    assert got["num_experts"] == 4
+
+
+@pytest.mark.parametrize("quantize", [None, "int4"])
+def test_local_on_a_mixtral_checkpoint_equals_the_jax_cli(mixtral_dir, capsys,
+                                                          quantize):
+    argv = ["local", "--model", mixtral_dir, "--prompt-ids", "5,11,42,7",
+            "--max-new", "6", "--dtype", "float32", "--max-seq-len", "64"]
+    if quantize:
+        argv += ["--quantize", quantize, "--kv-quant", "int8"]
+    got = _run(cli.main, argv + ["--device", "cpu"], capsys)
+    want = _run(jcli.main, argv, capsys)
+    assert got["tokens"] == want["tokens"] and len(got["tokens"]) == 6

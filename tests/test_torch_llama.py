@@ -167,9 +167,6 @@ def test_families_that_wait_raise():
     cfg = ModelConfig(**KW, latent=LatentConfig())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tllama.init_params(cfg, None, torch.float32, "cpu")
-    moe = ModelConfig(**KW, num_experts=4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tllama.init_params(moe, None, torch.float32, "cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             tllama.init_params(ModelConfig(**KW))

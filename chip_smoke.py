@@ -13,7 +13,12 @@ one line per engine configuration or comparison):
 
 1. device   - the card's name and power limit, as `nvidia-smi` gives them.
 2. kernels  - every kernel against its plain PyTorch version on the card, in
-              bf16 and f32, each case with its tolerance: `paged_attention`,
+              bf16 and f32, each case with its tolerance; every attention
+              kernel (#1-#12) also at each of 1 to 8 query heads a kv head
+              and head_dim 64 and 128 (`WIDTHS`, `width_cases`: edge rows,
+              windows, pages of 16/48/128), and timed at Qwen2.5-7B's,
+              Llama-3-70B's and Llama-3.2-1B's widths (`time_widths`);
+              `paged_attention`,
               `ragged_paged_attention` and their int8-page forms
               `quantized_paged_attention`, `quantized_ragged_paged_attention`
               at Llama-3-8B shapes (32 query heads, 8 kv heads, head_dim 128,
@@ -170,6 +175,16 @@ one line per engine configuration or comparison):
               pages: #4, #6, #7 with the window's masks live);
               `qwen2_mha4l_bf16_pages` (Qwen1.5-7B's widths, q/k/v
               biases, 32 kv heads, 4 layers, bf16 pages: #1, #2 at G = 1).
+              Then the head widths, configs built by
+              `ModelConfig.from_hf_config` from their published
+              config.json restated: `qwen25_7b_bf16_pages` (Qwen2.5-7B, 28
+              heads over 4, G = 7, q/k/v biases, 28 layers, bf16 pages: #1,
+              #2), `llama3_70b_int4_int8pages` (Llama-3-70B, G = 8, int4
+              weights made one matrix at a time over int8 pages, all
+              80 layers: #4, #6, #7, #13, #14),
+              `llama32_1b_int4_int8dense` and `llama32_1b_bf16_pages`
+              (Llama-3.2-1B, head_dim 64, tied head, 16 layers: #3, #9,
+              #10, #14; #1, #2), each with its summary line.
 4. parity   - 2 layers of the same widths in f32 (TF32 off): the bf16 pool
               at K = 16, at K = 1 and on the gather path, identical greedy
               streams; int4 weights over the int8 pool, kernels against the
@@ -190,7 +205,13 @@ one line per engine configuration or comparison):
               dense combine on a 2048-token prefill, its error printed;
               and of Mistral-7B's (window 128): bf16 pages with kernels at
               K = 16 and K = 1 against the gather path, int8 pages with
-              kernels against the gather path at K = 1, identical.
+              kernels against the gather path at K = 1, identical. Then 2
+              layers of Qwen2.5-7B's widths (G = 7) and of Llama-3.2-1B's
+              (D = 64): bf16 pages at K = 16, K = 1 and the gather path,
+              identical; int8 pages (Qwen) with kernels against the gather
+              path at K = 1 and the int8 dense cache (Llama) with #8
+              against without at K = 1, identical; their K = 16 against
+              K = 1 shown.
 
 Then a line `{"kernels": [...]}` with one entry per kernel (the only line
 with that key: phase 2 lists its results under `checked`), then phase 5:
@@ -225,6 +246,10 @@ with that key: phase 2 lists its results under `checked`), then phase 5:
               keys, 3.4 GB): `info` supported with 8 experts, a bitwise
               load (each expert in its slot of the stacks), `local` in bf16
               and with int4 + int8 KV (#14 at 4 calls a layer a step).
+              Then a checkpoint at Llama-3.2-1B's full widths and depth
+              (16 layers, head_dim 64, the head tied to the embedding,
+              about 2.5 GB): `info` supported, a bitwise load, `local
+              --quantize int4 --kv-quant int8` on the card.
 
 The last line is `{"ok": true, "device": {...}}`. Any failing phase raises:
 exit code non-zero.
@@ -238,6 +263,7 @@ import dataclasses
 import http.client
 import io
 import json
+import re
 import signal
 import subprocess
 import sys
@@ -339,6 +365,37 @@ QWEN15_7B_4L = ModelConfig(
     rms_norm_eps=1e-6, rope_theta=1000000.0, max_position_embeddings=32768,
     qkv_bias=True, family="qwen2",
 )
+
+# The head-width paths: published configs restated from their config.json
+# (not downloaded) and built as a checkpoint's load builds them.
+# Qwen/Qwen2.5-7B: 28 heads over 4 kv heads (G = 7), q/k/v biases, the
+# sliding window of 131072 as from_hf_config reads it.
+QWEN25_7B = ModelConfig.from_hf_config({
+    "model_type": "qwen2", "vocab_size": 152064, "hidden_size": 3584,
+    "intermediate_size": 18944, "num_hidden_layers": 28,
+    "num_attention_heads": 28, "num_key_value_heads": 4,
+    "rms_norm_eps": 1e-06, "rope_theta": 1000000.0,
+    "max_position_embeddings": 131072, "sliding_window": 131072,
+    "use_sliding_window": False, "max_window_layers": 28,
+    "tie_word_embeddings": False})
+# meta-llama/Meta-Llama-3-70B: 64 heads over 8 (G = 8).
+LLAMA3_70B = ModelConfig.from_hf_config({
+    "model_type": "llama", "vocab_size": 128256, "hidden_size": 8192,
+    "intermediate_size": 28672, "num_hidden_layers": 80,
+    "num_attention_heads": 64, "num_key_value_heads": 8,
+    "rms_norm_eps": 1e-05, "rope_theta": 500000.0,
+    "max_position_embeddings": 8192, "tie_word_embeddings": False})
+# meta-llama/Llama-3.2-1B: 32 heads of 64 over 8 kv heads, the head tied to
+# the embedding, llama3 rope scaling.
+LLAMA32_1B = ModelConfig.from_hf_config({
+    "model_type": "llama", "vocab_size": 128256, "hidden_size": 2048,
+    "intermediate_size": 8192, "num_hidden_layers": 16,
+    "num_attention_heads": 32, "num_key_value_heads": 8, "head_dim": 64,
+    "rms_norm_eps": 1e-05, "rope_theta": 500000.0,
+    "max_position_embeddings": 131072, "tie_word_embeddings": True,
+    "rope_scaling": {"rope_type": "llama3", "factor": 32.0,
+                     "low_freq_factor": 1.0, "high_freq_factor": 4.0,
+                     "original_max_position_embeddings": 8192}})
 
 DEV = "cuda"
 CARD = None  # nvidia-smi's "name, power limit", set by phase 1
@@ -502,7 +559,7 @@ def fused_fns(form):
 
 def compare_fused(cases, tag, dtype, form, big, base, rng, table=None,
                   window=None, g=HQ // HKV, steps=4, layer=1, dead=(),
-                  hkv=HKV):
+                  hkv=HKV, d=D):
     """The fused step (#6 over the pool ``big`` through ``table``, or #9
     over the stacks ``big``) against its plain version over ``steps`` steps
     of one window on the same inputs, each side with its own copy of the
@@ -512,7 +569,7 @@ def compare_fused(cases, tag, dtype, form, big, base, rng, table=None,
     output must be zeros). Returns the output's error."""
     _, kernel, plain = fused_fns(form)
     b = base.shape[0]
-    tail = make_qplanes(rng, (big[0].shape[0], b, hkv), KT)
+    tail = make_qplanes(rng, (big[0].shape[0], b, hkv), KT, d)
     tail2 = [t.clone() for t in tail]
     tail_len = torch.zeros(b, dtype=torch.int32, device=DEV)
     alive = torch.ones(b, dtype=torch.int32, device=DEV)
@@ -520,9 +577,9 @@ def compare_fused(cases, tag, dtype, form, big, base, rng, table=None,
     extra = {} if table is None else {"page_table": table}
     err = tail_err = 0.0
     for step in range(steps):
-        q = normal(rng, (b, 1, hkv * g, D), dtype)
-        kn = normal(rng, (b, 1, hkv, D), dtype)
-        vn = normal(rng, (b, 1, hkv, D), dtype)
+        q = normal(rng, (b, 1, hkv * g, d), dtype)
+        kn = normal(rng, (b, 1, hkv, d), dtype)
+        vn = normal(rng, (b, 1, hkv, d), dtype)
         kw = dict(layer_idx=layer, step_idx=i32([step]), base_len=base,
                   tail_valid_len=tail_len + alive, q_positions=base + tail_len,
                   sliding_window=window, **extra)
@@ -785,16 +842,29 @@ def int4_repeat(cases, tag, x, w, layer=None):
                   0.0))
 
 
+# Projections of the head-width paths' models beside Llama-3-8B's: the
+# int4 kernels' split plans at their shapes (the head the flat form).
+WIDTH_PROJECTIONS = {"qwen2.5-7b_wk": (3584, 512),
+                     "qwen2.5-7b_wq": (3584, 3584),
+                     "llama-3.2-1b_wk": (2048, 512),
+                     "llama-3.2-1b_wg": (2048, 8192),
+                     "llama-3-70b_wg": (8192, 28672),
+                     "llama-3-70b_wd": (28672, 8192),
+                     "llama-3-70b_head": (8192, 128256)}
+
+
 def int4_route_cases(cases, dtype):
     """The int4 kernels at the rows the routing sends them (`ops/quant.py`:
     decode, and calls of at most 256 rows): 1, 8, 64 and 256 rows at
     Llama-3-8B's projection shapes (a stack of 2 layers, layer 1) and the
-    head (the flat form), each call repeated (the same bytes). Drawn after
-    every other int4 case, from a generator of their own."""
+    head (the flat form), then at ``WIDTH_PROJECTIONS``, each call repeated
+    (the same bytes). Drawn after every other int4 case, from a generator
+    of their own."""
     gen = torch.Generator(device=DEV).manual_seed(13)
     shapes = {n: PROJECTIONS[n] for n in ("wq", "wk", "wg", "wd")}
-    for name, (ind, outd) in [*shapes.items(), ("head", HEAD)]:
-        layer = None if name == "head" else 1
+    for name, (ind, outd) in [*shapes.items(), ("head", HEAD),
+                              *WIDTH_PROJECTIONS.items()]:
+        layer = None if name.endswith("head") else 1
         w = int4_weight(gen, (1 if layer is None else 2, ind, outd))
         for rows in (1, 8, 64, 256):
             x = torch.randn((rows, ind), generator=gen, device=DEV).to(dtype)
@@ -897,6 +967,7 @@ def check_cases(dtype):
     quantized_decode_cases(cases, dtype, rng)
     int4_route_cases(cases, dtype)
     pinned_ragged_case(cases, dtype)
+    width_cases(cases, dtype, np.random.default_rng(4321))
     assert_cases(cases, dtype)
     return cases
 
@@ -1112,7 +1183,7 @@ def sink_scalars(base, tail_len, alive, sinks, r):
 
 
 def compare_sink(cases, tag, dtype, ring, sink, base, sinks, r, rng,
-                 g=HQ // HKV, steps=4, layer=1, kt=KT, start=0):
+                 g=HQ // HKV, steps=4, layer=1, kt=KT, start=0, hkv=HKV, d=D):
     """`sink_fused_decode_attention` (#11) against its plain version over
     ``steps`` steps of one window (a tail of ``kt`` slots, the steps from
     slot ``start`` on, every row's tail that long before them) on the same
@@ -1120,14 +1191,14 @@ def compare_sink(cases, tag, dtype, ring, sink, base, sinks, r, rng,
     the tail's int8 values and scales EQUAL. The last row stops after the
     first step. Returns the output's error."""
     b = base.shape[0]
-    tail = make_qplanes(rng, (ring[0].shape[0], b, HKV), kt)
+    tail = make_qplanes(rng, (ring[0].shape[0], b, hkv), kt, d)
     tail2 = [t.clone() for t in tail]
     tail_len = torch.full((b,), start, dtype=torch.int32, device=DEV)
     alive = torch.ones(b, dtype=torch.int32, device=DEV)
     err = tail_err = 0.0
     for step in range(steps):
-        q, qs = (normal(rng, (b, 1, HKV * g, D), dtype) for _ in range(2))
-        kn, vn = (normal(rng, (b, 1, HKV, D), dtype) for _ in range(2))
+        q, qs = (normal(rng, (b, 1, hkv * g, d), dtype) for _ in range(2))
+        kn, vn = (normal(rng, (b, 1, hkv, d), dtype) for _ in range(2))
         kw = dict(layer_idx=layer, step_idx=i32([start + step]), ring_slots=r,
                   **sink_scalars(base, tail_len, alive, sinks, r))
         got = qa.sink_fused_decode_attention(q, qs, kn, vn, *ring, *sink,
@@ -1854,6 +1925,315 @@ def time_sink(out, cases, rng, flush):
     del big, tail
 
 
+# ---------------------------------------------------------------------------
+# phase 2, the head widths: every attention kernel at 1 to 8 query heads a
+# kv head, head_dim 64 and 128
+# ---------------------------------------------------------------------------
+
+# Every (G, D) the attention kernels take. The published groupings are
+# among them: at D = 128, G = 3 (Llama-3.2-3B), 5 (Qwen2.5-14B), 6
+# (Qwen2.5-1.5B), 7 (Qwen2.5-7B), 8 (Llama-3-70B); at D = 64, G = 4
+# (Llama-3.2-1B), 7 (Qwen2.5-0.5B), 8 (TinyLlama); G = 2 is the JAX
+# package's tests' 4 query heads over 2.
+WIDTHS = [(g, d) for d in (128, 64) for g in range(1, 9)]
+# The widths the kernels are timed at beside Llama-3-8B's: (label, kv
+# heads, G, D).
+WIDTH_SHAPES = (("qwen2.5-7b", 4, 7, 128), ("llama-3-70b", 8, 8, 128),
+                ("llama-3.2-1b", 8, 4, 64))
+# The ragged kernels' rows at the widths: a prompt, a chunk of 129 queries
+# from position 300, a decode token, an empty row.
+WIDTH_RAGGED = {"q_start": [0, 300, 990, 0], "num_new": [300, 129, 1, 0],
+                "kv_len": [300, 429, 991, 0]}
+
+
+def width_cases(cases, dtype, rng):
+    """Every attention kernel at every (G, D) of ``WIDTHS`` over 2 kv heads,
+    pages of 16, 48 and 128 in turn: #2 and #5 (B = 8: an empty row, one
+    position, rows at and across a page's edge, long rows; no window, then
+    a window of 37 with the query past the cache or of 300), #1 and #4 (the
+    rows of ``WIDTH_RAGGED``, no window and 77), #3 (S = 256 over T = 384,
+    a mask family of ``flash_masks`` in turn, and a causal window),
+    #8 (T = 200, a window), #6 and #9 (four steps of a window: an empty
+    row, page and piece edges; a window of 37 every other width), #11 (the
+    main path's ring, 4 sinks); the three flushes (#7, #10, #12) at each
+    head_dim. Each case's name carries its ``g{G}_d{D}``."""
+    hkv, b = 2, 8
+    masks = None
+    for i, (g, d) in enumerate(WIDTHS):
+        ps = (16, 48, 128)[i % 3]
+        tag = f"w_g{g}_d{d}_ps{ps}"
+        lens = [0, 1, ps - 1, ps, ps + 1, 300, 700, 1000]
+        width = -(-(max(lens) + KT) // ps) + 1
+        pages = b * width + 1
+        table = make_table(rng, b, width, pages)
+        kv = i32(lens)
+        q = normal(rng, (b, 1, hkv * g, d), dtype)
+        window, qpos = ((37, i32([n + 7 for n in lens])) if g % 2
+                        else (300, None))
+        rows = {k: i32(v) for k, v in WIDTH_RAGGED.items()}
+        qr = normal(rng, (4, max(WIDTH_RAGGED["num_new"]), hkv * g, d), dtype)
+        for pool in (make_pool(rng, pages, dtype, hkv, ps, d),
+                     make_qpool(rng, pages, hkv, ps, d)):
+            pname, rname = paged_fns(pool)[0], ragged_fns(pool)[0]
+            for w, qp in ((None, None), (window, qpos)):
+                compare_paged(cases, f"{pname}_{tag}_window_{w}", dtype, q,
+                              pool, table, kv, sliding_window=w,
+                              q_positions=qp)
+            for w in (None, 77):
+                compare_ragged(cases, f"{rname}_{tag}_window_{w}", dtype, qr,
+                               pool, table[:4], rows["kv_len"],
+                               rows["num_new"], q_start=rows["q_start"],
+                               sliding_window=w)
+            del pool
+        # #3
+        s, t = 256, 384
+        qf = normal(rng, (2, s, hkv * g, d), dtype)
+        kf, vf = (normal(rng, (2, t, hkv, d), dtype) for _ in range(2))
+        if masks is None:
+            masks = list(flash_masks(2, s, t, rng).items())
+        name, mask = masks[i % len(masks)]
+        compare_flash(cases, f"flash_{tag}_{name}", dtype, qf, kf, vf, mask)
+        compare_flash(cases, f"flash_{tag}_window", dtype, qf, kf, vf,
+                      causal(2, s, t, [t, 200], [t - s, 0], 100))
+        # #8
+        td = 200
+        planes = make_qplanes(rng, (b, hkv), td, d)
+        dl = [0, 1, td // 2 + 3, td - 1, 33, td, td // 3, td]
+        compare_qdense(cases, f"qdense_{tag}_window_{window}", dtype,
+                       normal(rng, (b, 1, hkv * g, d), dtype), planes, i32(dl),
+                       sliding_window=window,
+                       q_positions=i32([n + 7 for n in dl]) if g % 2 else None)
+        # #6, #9
+        fw = 37 if g % 2 else None
+        pool = make_qplanes(rng, (2, pages, hkv), ps, d)
+        compare_fused(cases, f"qfusedp_{tag}_window_{fw}", dtype, "inplace",
+                      pool, i32([0, 1, ps - 1, ps, ps + 1, 300, 600, 900]),
+                      rng, table=table, window=fw, g=g, hkv=hkv, d=d,
+                      dead=(0,))
+        stacks = make_qplanes(rng, (2, b, hkv), 640, d)
+        compare_fused(cases, f"qfusedd_{tag}_window_{fw}", dtype, "gathered",
+                      stacks, i32([0, 1, 63, 64, 65, 300, 600, 624]), rng,
+                      window=fw, g=g, hkv=hkv, d=d, dead=(0,))
+        # #11
+        ring = make_qplanes(rng, (2, b, hkv), 1024, d)
+        sink = make_qplanes(rng, (2, b, hkv), 32, d)
+        compare_sink(cases, f"qsink_{tag}", dtype, ring, sink,
+                     sink_rows(4, 1020), 4, 1020, rng, g=g, hkv=hkv, d=d)
+        if g == 1:
+            # The flushes take no query: one check at each head_dim.
+            compare_flush(cases, f"flush_{tag}", pool, table,
+                          i32([0, 1, ps - 1, ps, 60, 300, 600, 900]),
+                          i32([KT, 3, KT, 0, KT, 9, KT, 1]), rng)
+            compare_qflush(cases, f"qflush_{tag}", stacks,
+                           make_qplanes(rng, (2, b, hkv), KT, d),
+                           i32([0, 10, 30, 70, 630, 640 - KT, 640, 300]),
+                           i32([KT, KT, 0, 10, KT, KT, 3, 5]))
+            compare_sink_flush(cases, f"qsflush_{tag}", ring,
+                               make_qplanes(rng, (2, b, hkv), KT, d),
+                               i32([1017, 1019, 0, 0, 17, 1020 - KT, 5, 0]),
+                               i32([0, 0, 1, 3, 0, 0, KT, 0]),
+                               i32([KT, KT, KT, 4, 0, KT, KT, 9]), 1020)
+        del pool, stacks, ring, sink, planes
+
+
+def widths_checked(names):
+    """The (G, D) of the width cases among ``names``, as "G/D" labels."""
+    got = set()
+    for n in names:
+        if "_w_g" in n:
+            g, d = n.split("_w_g")[1].split("_")[:2]
+            got.add((int(g), int(d[1:])))
+    return [f"{g}/{d}" for g, d in sorted(got, key=lambda x: (x[1], x[0]))]
+
+
+def time_widths(flush):
+    """The attention kernels at the three widths of ``WIDTH_SHAPES``, bf16,
+    at the main path's sizes (as :func:`time_attention`, :func:`time_dense`,
+    :func:`time_fused`, :func:`time_sink` time them at Llama-3-8B's):
+    decode #2, #5 at B = 8 over 2048 cached tokens (pages of 64), #8 over a
+    2048-wide buffer, #6 over 2032 + 16 and #9 over 624 + 16, #11 over the
+    1024-slot ring; prefill #1, #4 of one 2048-token prompt, #3 causal over
+    S = T = 2048. Each kernel's output is held to its plain version on the
+    same inputs first; beside its time, the plain version's, the library
+    call's (SDPA on pre-gathered, dequantized K/V; none for #11) and the
+    bound. Returns ``{kernel: {label: entry}}`` and the cases."""
+    dtype, esz, b = torch.bfloat16, 2, 8
+    rng = np.random.default_rng(96)
+    out, cases = {}, []
+
+    def put(kernel, label, entry):
+        out.setdefault(kernel, {})[label] = entry
+
+    for label, hkv, g, d in WIDTH_SHAPES:
+        hq = hkv * g
+        head = f"Hq={hq} Hkv={hkv} G={g} D={d}"
+        width = ladder_pages(2048)
+        pages = b * width + 1
+        for pool in (make_pool(rng, pages, dtype, hkv, PS, d),
+                     make_qpool(rng, pages, hkv, PS, d)):
+            int8 = len(pool) == 4
+            per_slot = 2 * (d + 4) if int8 else 2 * d * esz
+            pname, pkernel, pplain = paged_fns(pool)
+            rname, rkernel, rplain = ragged_fns(pool)
+            table = make_table(rng, b, width, pages)
+            q = normal(rng, (b, 1, hq, d), dtype)
+            lens = i32([2048] * b)
+            kg, vg = dequantized(pool, table)
+            qh = q.permute(0, 2, 1, 3).contiguous()
+            bytes_moved = (b * 2048 * hkv * per_slot + 2 * q.numel() * esz
+                           + 2 * b * hq * 4 + table.numel() * 4 + 2 * b * 4)
+            bms, by = bound(bytes_moved, 4 * b * 2048 * hq * d, dtype)
+            put(pkernel.__name__, label, {
+                "shape": f"B={b} kv=2048 table={width} {head} PS={PS}",
+                "max_abs_err": compare_paged(cases, f"{pname}_wt_{label}",
+                                             dtype, q, pool, table, lens),
+                "ms": time_ms(lambda: pkernel(q, *pool, table, lens), 20, flush),
+                "plain_ms": time_ms(lambda: pplain(q, *pool, table, lens), 3, flush),
+                "library_ms": time_ms(lambda: sdpa(qh, kg, vg, False), 20, flush),
+                "bound_ms": bms, "bound_by": by, "bytes": bytes_moved,
+                "launches_a_call": launches_a_call(
+                    lambda: pkernel(q, *pool, table, lens))})
+            del kg, vg
+            s = 2048
+            table1 = table[:1].contiguous()
+            q = normal(rng, (1, s, hq, d), dtype)
+            one = i32([s])
+            kg, vg = dequantized(pool, table1)
+            qh = q.permute(0, 2, 1, 3).contiguous()
+            flops = 4 * (s * (s + 1) // 2) * hq * d
+            bytes_moved = (s * hkv * per_slot + 2 * q.numel() * esz
+                           + table1.numel() * 4 + 3 * 4)
+            bms, by = bound(bytes_moved, flops, dtype)
+            put(rkernel.__name__, label, {
+                "shape": f"B=1 S={s} table={width} {head} PS={PS}",
+                "max_abs_err": compare_ragged(cases, f"{rname}_wt_{label}",
+                                              dtype, q, pool, table1, one, one),
+                "ms": time_ms(lambda: rkernel(q, *pool, table1, one, one), 5, flush),
+                "plain_ms": time_ms(lambda: rplain(q, *pool, table1, one, one), 2, flush),
+                "library_ms": time_ms(lambda: sdpa(qh, kg, vg, True), 10, flush),
+                "bound_ms": bms, "bound_by": by, "flops": flops})
+            del kg, vg, pool
+        # #3
+        s = t = 2048
+        q = normal(rng, (1, s, hq, d), dtype)
+        k, v = (normal(rng, (1, t, hkv, d), dtype) for _ in range(2))
+        mask = causal(1, s, t, [t], [0])
+        qh, kh, vh = (x.permute(0, 2, 1, 3).contiguous() for x in (q, k, v))
+        flops = 4 * (s * (s + 1) // 2) * hq * d
+        bytes_moved = (2 * q.numel() + 2 * k.numel()) * esz + mask.numel()
+        bms, by = bound(bytes_moved, flops, dtype)
+        put("flash_attention", label, {
+            "shape": f"B=1 S={s} T={t} {head}, causal mask",
+            "max_abs_err": compare_flash(cases, f"flash_wt_{label}", dtype,
+                                         q, k, v, mask),
+            "ms": time_ms(lambda: fa.flash_attention(q, k, v, mask), 10, flush),
+            "plain_ms": time_ms(lambda: fa.flash_attention_plain(q, k, v, mask), 2, flush),
+            "library_ms": time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                qh, kh, vh, attn_mask=mask[:, None], enable_gqa=True), 10, flush),
+            "bound_ms": bms, "bound_by": by, "flops": flops})
+        del q, k, v, qh, kh, vh, mask
+        # #8
+        planes = make_qplanes(rng, (b, hkv), 2048, d)
+        q = normal(rng, (b, 1, hq, d), dtype)
+        lens = i32([2048] * b)
+        kd = (planes[0].to(dtype) * planes[1].to(dtype)[..., None]).contiguous()
+        vd = (planes[2].to(dtype) * planes[3].to(dtype)[..., None]).contiguous()
+        qh = q.permute(0, 2, 1, 3).contiguous()
+        bytes_moved = b * hkv * 2048 * (2 * d + 8) + 2 * q.numel() * esz + 2 * b * 4
+        bms, by = bound(bytes_moved, 4 * b * 2048 * hq * d, dtype)
+        put("quantized_decode_attention", label, {
+            "shape": f"B={b} T=2048 (all live) {head}",
+            "max_abs_err": compare_qdense(cases, f"qdense_wt_{label}", dtype,
+                                          q, planes, lens),
+            "ms": time_ms(lambda: qa.quantized_decode_attention(q, *planes, lens), 20, flush),
+            "plain_ms": time_ms(lambda: qa.quantized_decode_attention_plain(q, *planes, lens), 3, flush),
+            "library_ms": time_ms(lambda: sdpa(qh, kd, vd, False), 20, flush),
+            "bound_ms": bms, "bound_by": by, "bytes": bytes_moved,
+            "launches_a_call": launches_a_call(
+                lambda: qa.quantized_decode_attention(q, *planes, lens))})
+        del planes, kd, vd
+        # #6, #9 at the window's last step, the tail full
+        q = normal(rng, (b, 1, hq, d), dtype)
+        kn, vn = (normal(rng, (b, 1, hkv, d), dtype) for _ in range(2))
+        qh = q.permute(0, 2, 1, 3).contiguous()
+        for form, kvn in (("inplace", 2048), ("gathered", 640)):
+            _, kernel, plain = fused_fns(form)
+            base_len = kvn - KT
+            if form == "inplace":
+                big = make_qplanes(rng, (2, pages, hkv), PS, d)
+                table = make_table(rng, b, width, pages)
+                extra = {"page_table": table}
+                kg, vg = dequantized([p[1] for p in big], table)
+                kg, vg = kg[:, :, :base_len], vg[:, :, :base_len]
+            else:
+                big = make_qplanes(rng, (2, b, hkv), kvn, d)
+                extra = {}
+                kg = big[0][1][:, :, :base_len].to(dtype) * big[1][1][:, :, :base_len].to(dtype)[..., None]
+                vg = big[2][1][:, :, :base_len].to(dtype) * big[3][1][:, :, :base_len].to(dtype)[..., None]
+            tail = make_qplanes(rng, (2, b, hkv), KT, d)
+            tk = tail[0][1].to(dtype) * tail[1][1].to(dtype)[..., None]
+            tv = tail[2][1].to(dtype) * tail[3][1].to(dtype)[..., None]
+            kfull = torch.cat([kg, tk], dim=2).contiguous()
+            vfull = torch.cat([vg, tv], dim=2).contiguous()
+            kw = dict(layer_idx=1, step_idx=i32([KT - 1]),
+                      base_len=i32([base_len] * b), tail_valid_len=i32([KT] * b),
+                      q_positions=i32([kvn - 1] * b), **extra)
+            tail2 = [x.clone() for x in tail]
+            got = kernel(q, kn, vn, *big, *tail, **kw)[0]
+            want = plain(q, kn, vn, *big, *tail2, **kw)[0]
+            torch.cuda.synchronize()
+            err = max_err(got, want)
+            prefix = "qfusedp" if form == "inplace" else "qfusedd"
+            cases.append((f"{prefix}_wt_{label}", err, TOL[dtype]))
+            cases.append((f"{prefix}_wt_{label}_tail_bytes", max(
+                max_err(x, w) for x, w in zip(tail, tail2)), 0.0))
+            bytes_moved = ((b * kvn) * hkv * (2 * d + 8)
+                           + (2 * hq + 2 * hkv) * b * d * esz + 4 * b * 4 + 4)
+            if form == "inplace":
+                bytes_moved += table.numel() * 4
+            bms, by = bound(bytes_moved, 4 * b * kvn * hq * d, dtype)
+            put(kernel.__name__, label, {
+                "shape": f"B={b} kv={kvn} ({base_len} + tail {KT}) {head}"
+                         + (f" PS={PS}" if form == "inplace" else ""),
+                "max_abs_err": err,
+                "ms": time_ms(lambda: kernel(q, kn, vn, *big, *tail, **kw), 20, flush),
+                "plain_ms": time_ms(lambda: plain(q, kn, vn, *big, *tail2, **kw), 2, flush),
+                "library_ms": time_ms(lambda: sdpa(qh, kfull, vfull, False), 20, flush),
+                "bound_ms": bms, "bound_by": by, "bytes": bytes_moved})
+            del big, kg, vg, kfull, vfull, tail, tail2
+        # #11
+        sinks, r, tr = 4, 1020, 1024
+        ring = make_qplanes(rng, (2, b, hkv), tr, d)
+        sink = make_qplanes(rng, (2, b, hkv), 32, d)
+        tail = make_qplanes(rng, (2, b, hkv), KT, d)
+        tail2 = [x.clone() for x in tail]
+        qs = normal(rng, (b, 1, hq, d), dtype)
+        kw = dict(layer_idx=1, step_idx=i32([KT - 1]), ring_slots=r,
+                  **sink_scalars(i32([1031] * b), i32([KT - 1] * b),
+                                 i32([1] * b), sinks, r))
+        got = qa.sink_fused_decode_attention(q, qs, kn, vn, *ring, *sink, *tail, **kw)[0]
+        want = qa.sink_fused_decode_attention_plain(q, qs, kn, vn, *ring, *sink, *tail2, **kw)[0]
+        torch.cuda.synchronize()
+        err = max_err(got, want)
+        cases.append((f"qsink_wt_{label}", err, TOL[dtype]))
+        live = r - KT + sinks + KT
+        bytes_moved = ((b * live + b) * hkv * (2 * d + 8)
+                       + (3 * hq + 2 * hkv) * b * d * esz + 5 * b * 4 + 4)
+        bms, by = bound(bytes_moved, 4 * b * live * hq * d, dtype)
+        put("sink_fused_decode_attention", label, {
+            "shape": f"B={b} window=1024 sinks={sinks} (live {r - KT} ring + {sinks} sinks + {KT} tail) {head}",
+            "max_abs_err": err,
+            "ms": time_ms(lambda: qa.sink_fused_decode_attention(
+                q, qs, kn, vn, *ring, *sink, *tail, **kw), 20, flush),
+            "plain_ms": time_ms(lambda: qa.sink_fused_decode_attention_plain(
+                q, qs, kn, vn, *ring, *sink, *tail2, **kw), 2, flush),
+            "library_ms": None,
+            "bound_ms": bms, "bound_by": by, "bytes": bytes_moved})
+        del ring, sink, tail, tail2
+    assert_cases(cases, dtype)
+    return out, cases
+
+
 def timed_call_floor_ms(flush, iters=50):
     """What :func:`time_ms` reads for an empty kernel (PyTorch's spin
     kernel asked for 0 cycles) behind the same spin and L2 read: the fixed
@@ -1907,29 +2287,28 @@ CASE_PREFIX = {
 
 
 def ragged_instance(mangled):
-    """``ragged_kernel_wgmma<G, int8 pages>`` -> its label, else None."""
-    if "ragged_kernel_wgmmaILi" not in mangled:
+    """``ragged_kernel_wgmma<D, int8 pages>`` -> its label, else None."""
+    got = re.search(r"ragged_kernel_wgmmaILi(\d+)ELb([01])E", mangled)
+    if got is None:
         return None
-    args = mangled.split("ragged_kernel_wgmmaILi")[1]
-    return f"G={args[0]} {'int8' if args[4] == '1' else 'bf16'} pages"
+    return f"D={got[1]} {'int8' if got[2] == '1' else 'bf16'} pages"
 
 
 def flash_instance(mangled):
-    """``flash_kernel_wgmma<G>`` -> its label, else None."""
-    if "flash_kernel_wgmmaILi" not in mangled:
-        return None
-    return f"G={mangled.split('flash_kernel_wgmmaILi')[1][0]}"
+    """``flash_kernel_wgmma<D>`` -> its label, else None."""
+    got = re.search(r"flash_kernel_wgmmaILi(\d+)E", mangled)
+    return None if got is None else f"D={got[1]}"
 
 
 def cluster_instance(mangled):
-    """``fused::fused_cluster_kernel<T, BigThenTail<Paged>, G, Keep>`` ->
-    its label, else None."""
+    """``fused::fused_cluster_kernel<T, Policy, Gp, Keep, D>`` -> its
+    label, else None."""
     if "fused_cluster_kernelI" not in mangled:
         return None
     q = "bf16" if "fused_cluster_kernelI13__nv_bfloat16" in mangled else "f32"
-    last = mangled.split("ELi")[-1]
-    keep = "scores kept" if last[1:].startswith("ELb1") else "K read twice"
-    return f"G={last[0]} {q} q, {keep}"
+    got = re.search(r"ELi(\d+)ELb([01])ELi(\d+)E", mangled)
+    keep = "scores kept" if got[2] == "1" else "K read twice"
+    return f"Gp={got[1]} D={got[3]} {q} q, {keep}"
 
 
 def flush_instance(mangled):
@@ -1943,13 +2322,21 @@ def flush_instance(mangled):
 
 
 def decode_instance(mangled):
-    """``pdec::paged_decode_kernel<G, KV, Rows>`` -> its label, else None."""
-    if "paged_decode_kernelILi" not in mangled:
+    """``pdec::paged_decode_kernel<D, KV, Rows>`` -> its label, else None."""
+    got = re.search(r"paged_decode_kernelILi(\d+)E(13__nv_bfloat16)?", mangled)
+    if got is None:
         return None
-    args = mangled.split("paged_decode_kernelILi")[1]
-    kv = "bf16" if args[2:].startswith("13__nv_bfloat16") else "int8"
-    rows = "dense" if "DenseRows" in args else "pages"
-    return f"G={args[0]} {kv} {rows}"
+    rows = "dense" if "DenseRows" in mangled else "pages"
+    return f"D={got[1]} {'bf16' if got[2] else 'int8'} {rows}"
+
+
+def walk_instance(mangled):
+    """``decode::paged_partial_kernel<T, KV, D, Gp>`` (the f32 walk of #2,
+    #5, #8) -> its label, else None."""
+    got = re.search(r"paged_partial_kernelIf([af])Li(\d+)ELi(\d+)E", mangled)
+    if got is None:
+        return None
+    return f"D={got[2]} Gp={got[3]} {'int8' if got[1] == 'a' else 'f32'} rows"
 
 
 def int4_instance(mangled):
@@ -1960,12 +2347,13 @@ def int4_instance(mangled):
     return f"NT={mangled.split('int4_mma_kernelILi')[1].split('E')[0]}"
 
 
-def sass_counts(cubin, label):
+def sass_counts(binary, label):
     """Instructions of each kernel instance that ``label`` names in the
-    SASS of ``cubin`` (``cuobjdump -sass``): integer-to-float conversions
-    (I2F, I2FP), tensor-core products (HMMA) and all."""
+    SASS of ``binary`` (a built library; ``cuobjdump -sass``):
+    integer-to-float conversions (I2F, I2FP), tensor-core products (HMMA)
+    and all."""
     cuobjdump = str(Path(_build._nvcc()).parent / "cuobjdump")
-    text = subprocess.run([cuobjdump, "-sass", str(cubin)], check=True,
+    text = subprocess.run([cuobjdump, "-sass", str(binary)], check=True,
                           capture_output=True, text=True).stdout
     got, name = {}, None
     for line in text.splitlines():
@@ -1987,7 +2375,8 @@ def sass_counts(cubin, label):
 
 def int4_plans():
     """The bf16 int4 kernel's launch at Llama-3-8B's projections and the
-    head, 1, 8 and 64 rows: the wrapper's ``mma_plan`` and the C side's
+    head and at ``WIDTH_PROJECTIONS``, 1, 8 and 64 rows: the wrapper's
+    ``mma_plan`` and the C side's
     occupancy (``dli_int4_mma_occupancy``: shared memory a block, blocks an
     SM, clusters the card holds at once, registers, spills, x rows staged
     at once)."""
@@ -1997,7 +2386,8 @@ def int4_plans():
     keys = ("smem_bytes", "blocks_an_sm", "clusters_at_once", "registers",
             "spill_bytes", "x_rows_staged")
     plans = {}
-    for name, (ind, outd) in [*PROJECTIONS.items(), ("head", HEAD)]:
+    for name, (ind, outd) in [*PROJECTIONS.items(), ("head", HEAD),
+                              *WIDTH_PROJECTIONS.items()]:
         if name in ("wv", "wu", "wo"):
             continue
         outp = -(-outd // 1024) * 512
@@ -2010,18 +2400,10 @@ def int4_plans():
     return plans
 
 
-def ptxas_text(proc):
-    """The output of a finished ``nvcc -Xptxas -v`` (``ptxas_report``)."""
-    out, _ = proc.communicate()
-    if proc.returncode != 0:
-        raise RuntimeError("nvcc -Xptxas -v failed:\n" + out[-4000:])
-    return out
-
-
 def ptxas_lines(out, label, count):
-    """Registers, shared memory and spills from ``nvcc -Xptxas -v``'s
-    output ``out`` of the ``count`` kernel instances that ``label`` names
-    (mangled name -> label or None)."""
+    """Registers, shared memory and spills from a build's ``-Xptxas -v``
+    report ``out`` (``_build.ptxas_log``) of the ``count`` kernel instances
+    that ``label`` names (mangled name -> label or None)."""
     report, name = {}, None
     for line in out.splitlines():
         if "Compiling entry function" in line:
@@ -2037,50 +2419,50 @@ PLAN_KEYS = ("cluster_blocks", "pieces_a_block", "ring_stages", "stage_bytes",
              "smem_bytes", "clusters_at_once", "scores_kept", "piece_width")
 
 
-def cluster_plan(nt, w, g):
+def cluster_plan(nt, w, g, d=D):
     """The fused step's cluster launch over the pool (#6,
     ``dli_fused_cluster_plan``) at a table of ``nt - 1`` pages, ``w``-slot
-    tiles and ``g`` query heads a kv head."""
+    tiles, ``g`` query heads a kv head and head_dim ``d``."""
     fn = _build.load_library("paged_attention").dli_fused_cluster_plan
-    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
     got = (ctypes.c_longlong * 7)()
-    assert fn(nt, w, g, ctypes.addressof(got)) == 0
+    assert fn(nt, w, g, d, ctypes.addressof(got)) == 0
     return dict(zip(PLAN_KEYS, list(got)))
 
 
-def dense_plan(t, g):
+def dense_plan(t, g, d=D):
     """#9's cluster launch over stacks of ``t`` positions
     (``dli_fused_dense_plan``, tiles of min(256, t), KT = 16)."""
     fn = _build.load_library("quant_attention").dli_fused_dense_plan
-    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
     got = (ctypes.c_longlong * 8)()
-    assert fn(t, min(256, t), KT, g, ctypes.addressof(got)) == 0
+    assert fn(t, min(256, t), KT, g, d, ctypes.addressof(got)) == 0
     return dict(zip(PLAN_KEYS, list(got)))
 
 
-def sink_plan(tr, kt, g):
+def sink_plan(tr, kt, g, d=D):
     """#11's cluster launch over a ring of ``tr`` slots (its tiles of
     ``ring_tile_width``, pieces of ``ring_piece_width``), 32 sink slots, a
     tail of ``kt`` (``dli_sink_cluster_plan``): the plan's values, the
     pieces a row may have and the widest piece."""
     fn = _build.load_library("sink_attention").dli_sink_cluster_plan
-    fn.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_int] * 7 + [ctypes.c_void_p]
     got = (ctypes.c_longlong * 9)()
     tile = qa.ring_tile_width(tr)
-    assert fn(tr, 32, kt, tile, qa.ring_piece_width(tile), g,
+    assert fn(tr, 32, kt, tile, qa.ring_piece_width(tile), g, d,
               ctypes.addressof(got)) == 0
     return dict(zip(PLAN_KEYS[:7] + ("pieces_a_row", "widest_piece"),
                     list(got)))
 
 
-def decode_plan(int8, g, c):
+def decode_plan(int8, d, c):
     """The decode cluster kernel's occupancy (``dli_decode_occupancy``)
-    over bf16 or int8 rows, ``g`` query heads a kv head, clusters of ``c``
+    over bf16 or int8 rows of head_dim ``d`` (any G), clusters of ``c``
     blocks: shared memory a block, blocks an SM, clusters at once."""
     fn = _build.load_library("paged_attention").dli_decode_occupancy
     fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
     got = (ctypes.c_longlong * 3)()
-    assert fn(int(int8), g, c, ctypes.addressof(got)) == 0
+    assert fn(int(int8), d, c, ctypes.addressof(got)) == 0
     return dict(zip(("smem_bytes", "blocks_an_sm", "clusters_at_once"),
                     list(got)))
 
@@ -2090,19 +2472,24 @@ def check_launch_plans():
     ``launch_plan`` at the shapes phase 2 uses."""
     fn = _build.load_library("ragged_attention").dli_ragged_launch_plan
     fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    got = (ctypes.c_longlong * 5)()
+    got = (ctypes.c_longlong * 6)()
     plans = []
-    for s, g, ps, q8 in ((2048, 4, 64, 0), (2048, 4, 64, 1), (640, 1, 48, 1),
-                         (640, 4, 12, 0), (256, 4, 16, 1), (640, 1, 128, 0)):
-        assert fn(s, g, D, ps, q8, ctypes.addressof(got)) == 0
-        plan = ra.launch_plan(1, s, HKV, g, D, ps, 64, bool(q8))
+    for s, g, d, ps, q8 in (
+            (2048, 4, D, 64, 0), (2048, 4, D, 64, 1), (640, 1, D, 48, 1),
+            (640, 4, D, 12, 0), (256, 4, D, 16, 1), (640, 1, D, 128, 0),
+            (2048, 7, 128, 64, 0), (2048, 8, 128, 64, 1), (300, 3, 128, 48, 0),
+            (2048, 4, 64, 64, 0), (2048, 4, 64, 64, 1), (300, 7, 64, 16, 1),
+            (640, 2, 64, 12, 0)):
+        assert fn(s, g, d, ps, q8, ctypes.addressof(got)) == 0
+        plan = ra.launch_plan(1, s, HKV, g, d, ps, 64, bool(q8))
         want = [plan["box_rows"], plan["tiles"], plan["threads"],
-                plan["smem_bytes"], plan["stage_bytes"]]
-        assert list(got) == want, (s, g, ps, q8, list(got), want)
-        plans.append({"S": s, "G": g, "PS": ps, "int8": bool(q8),
-                      "box_rows": want[0], "tiles": want[1],
-                      "threads": want[2], "smem_bytes": want[3],
-                      "stage_bytes": want[4]})
+                plan["smem_bytes"], plan["stage_bytes"],
+                plan["rows_per_query"]]
+        assert list(got) == want, (s, g, d, ps, q8, list(got), want)
+        plans.append({"S": s, "G": g, "D": d, "PS": ps, "int8": bool(q8),
+                      **dict(zip(("box_rows", "tiles", "threads",
+                                  "smem_bytes", "stage_bytes",
+                                  "rows_per_query"), want))})
     return plans
 
 
@@ -2138,23 +2525,20 @@ def tensor_map_host_us(calls=200):
 
 def phase_kernels():
     t0 = time.perf_counter()
-    ptxas = {name: _build.ptxas_report(name) for name in (
-        "ragged_attention", "flash_attention", "paged_attention",
-        "quant_attention", "int4_matmul", "sink_attention")}
     built = _build.build_all()
     build_s = time.perf_counter() - t0
-    ptxas = {name: ptxas_text(proc) for name, proc in ptxas.items()}
+    ptxas = {name: _build.ptxas_log(name) for name in built}
     resources = {
         "ragged_kernel_wgmma": ptxas_lines(
             ptxas["ragged_attention"], ragged_instance, 4),
         "flash_kernel_wgmma": ptxas_lines(
             ptxas["flash_attention"], flash_instance, 2),
         "fused_cluster_kernel (pool, #6)": ptxas_lines(
-            ptxas["paged_attention"], cluster_instance, 8),
+            ptxas["paged_attention"], cluster_instance, 24),
         "fused_cluster_kernel (stacks, #9)": ptxas_lines(
-            ptxas["quant_attention"], cluster_instance, 8),
+            ptxas["quant_attention"], cluster_instance, 24),
         "fused_cluster_kernel (sink ring, #11)": ptxas_lines(
-            ptxas["sink_attention"], cluster_instance, 8),
+            ptxas["sink_attention"], cluster_instance, 24),
         "tail_flush_kernel (#7)": ptxas_lines(
             ptxas["paged_attention"], flush_instance, 1),
         "tail_flush_kernel (#10)": ptxas_lines(
@@ -2165,12 +2549,15 @@ def phase_kernels():
             ptxas["paged_attention"], decode_instance, 4),
         "paged_decode_kernel (#8)": ptxas_lines(
             ptxas["quant_attention"], decode_instance, 2),
+        "paged_partial_kernel (f32 #2, #5)": ptxas_lines(
+            ptxas["paged_attention"], walk_instance, 16),
+        "paged_partial_kernel (f32 #8)": ptxas_lines(
+            ptxas["quant_attention"], walk_instance, 16),
         "int4_mma_kernel (#13, #14, bf16 x)": ptxas_lines(
             ptxas["int4_matmul"], int4_instance, 4)}
     # The bf16 int4 kernel turns nibbles into bf16 by a bit trick: no
     # conversion instruction, products on the tensor cores.
-    int4_sass = sass_counts(_build.BUILD_DIR / "int4_matmul.cubin",
-                            int4_instance)
+    int4_sass = sass_counts(built["int4_matmul"], int4_instance)
     assert len(int4_sass) == 4 and all(
         c["I2F"] == 0 and c["HMMA"] > 0 for c in int4_sass.values()), int4_sass
     plans = check_launch_plans()
@@ -2183,14 +2570,25 @@ def phase_kernels():
     for tr, kt in ((1024, KT), (1056, 48), (1024, 80)):
         for g in (HQ // HKV, 1):
             fused_plan[f"#11 TR={tr} KT={kt} G={g}"] = sink_plan(tr, kt, g)
+    for _, _, g, d in WIDTH_SHAPES:
+        fused_plan[f"#6 table={width} PS={PS} KT={KT} G={g} D={d}"] = (
+            cluster_plan(width + 1, max(PS, KT), g, d))
+        fused_plan[f"#9 T=640 KT={KT} G={g} D={d}"] = dense_plan(640, g, d)
+        fused_plan[f"#11 TR=1024 KT={KT} G={g} D={d}"] = sink_plan(
+            1024, KT, g, d)
     decode_plans = {
-        f"{'int8' if int8 else 'bf16'} G={g} C={c}": decode_plan(int8, g, c)
-        for int8 in (False, True) for g in (HQ // HKV, 1) for c in (2, 4, 8)}
+        f"{'int8' if int8 else 'bf16'} D={d} C={c}": decode_plan(int8, d, c)
+        for int8 in (False, True) for d in (128, 64) for c in (2, 4, 8)}
     torch.backends.cuda.matmul.allow_tf32 = False  # plain f32 stays f32
     errs = {}
     for dtype in (torch.bfloat16, torch.float32):
         errs[dtype] = check_cases(dtype)
     times, floor = time_kernels()
+    width_times, width_cases_timed = time_widths(
+        torch.ones(16 * 1024 * 1024, dtype=torch.int64, device=DEV))
+    for name, by_width in width_times.items():
+        times[name]["at_widths"] = by_width
+    errs[torch.bfloat16] += width_cases_timed
     # Each flush's registers and spills beside its time.
     for name, num in FLUSH_NUMBERS.items():
         (times[name]["ptxas"],) = resources[
@@ -2209,6 +2607,8 @@ def phase_kernels():
                 e for n, e, t in mine if not n.endswith(("_m", "_l")))
             entry[f"tolerance_{label}"] = tol[dtype]
             entry[f"cases_{label}"] = {n: e for n, e, _ in mine}
+            entry[f"widths_checked_{label}"] = widths_checked(
+                n for n, _, _ in mine)
         entry["timed"] = times[name]
         kernels.append(entry)
     emit({"phase": "kernels", "build_s": build_s,
@@ -2220,7 +2620,9 @@ def phase_kernels():
           "ragged_c_call_host_us": map_us,
           "timed_call_floor_ms": floor,
           "checked": kernels})
-    return times, floor
+    checked = {k["name"]: {"bf16": k["widths_checked_bf16"],
+                           "f32": k["widths_checked_f32"]} for k in kernels}
+    return times, floor, checked
 
 
 # ---------------------------------------------------------------------------
@@ -2481,28 +2883,40 @@ def profile_prefill(cfg, params, ekw, ckw, counters, steps=2):
     return out
 
 
-def int4_cases(cases, dtype, shapes):
+def projections(cfg):
+    """A dense layer's projections (in, out) in the order it runs them,
+    and the head's (None when tied to the embedding: no int4 head)."""
+    h, d, inter = cfg.hidden_size, cfg.head_dim, cfg.intermediate_size
+    hq, hkv = cfg.num_heads * d, cfg.num_kv_heads * d
+    return ({"wq": (h, hq), "wk": (h, hkv), "wv": (h, hkv), "wo": (hq, h),
+             "wg": (h, inter), "wu": (h, inter), "wd": (inter, h)},
+            None if cfg.tie_word_embeddings else (h, cfg.vocab_size))
+
+
+def int4_cases(cases, dtype, shapes, cfg):
     """The int4 kernels at a run's dispatch shapes (`AttentionPlan.
-    dispatch_shapes`): decode rows at every projection shape
+    dispatch_shapes`): decode rows at every projection shape of ``cfg``
     (`int4_matmul_stacked`), the head rows of every dispatch
-    (`int4_matmul`)."""
+    (`int4_matmul`, unless the head is tied)."""
     gen = torch.Generator(device=DEV).manual_seed(6)
+    layer, head = projections(cfg)
     decode_rows = sorted({sh[1] for sh in shapes if sh[0] == "decode"})
-    for name, (ind, outd) in PROJECTIONS.items():
+    for name, (ind, outd) in layer.items():
         w = int4_weight(gen, (2, ind, outd))
         for rows in decode_rows:
             x = torch.randn((rows, ind), generator=gen, device=DEV).to(dtype)
             compare_int4(cases, f"decode_{rows}_{name}", dtype, x, w, 1)
         del w
-    w = int4_weight(gen, (1, *HEAD))
+    if head is None:
+        return
+    w = int4_weight(gen, (1, *head))
     for rows in sorted({sh[1] for sh in shapes}):
-        x = torch.randn((rows, HEAD[0]), generator=gen, device=DEV).to(dtype)
+        x = torch.randn((rows, head[0]), generator=gen, device=DEV).to(dtype)
         compare_int4(cases, f"head_{rows}", dtype, x, w)
     del w
 
 
-def check_engine_shapes(shapes, table_width, quantized, int4, hkv=HKV,
-                        g=HQ // HKV, window=None):
+def check_engine_shapes(cfg, shapes, table_width, quantized, int4):
     """The kernels of a run against their plain versions at every dispatch
     shape it made, in bf16 (the run's type) and f32, on mixed lengths.
     ``shapes`` is `AttentionPlan.dispatch_shapes`: ("prefill" or "chunk",
@@ -2516,20 +2930,23 @@ def check_engine_shapes(shapes, table_width, quantized, int4, hkv=HKV,
     prompt are). With ``int4``: decode rows reach `int4_matmul_stacked` at
     every projection shape, and the head rows of every dispatch (its rows)
     reach `int4_matmul` (many-row prefill projections take the plain
-    unpacked product, no kernel). ``hkv``, ``g`` and ``window``: the run's
-    kv heads, query heads a kv head and sliding window. Returns per kernel
-    and type the largest error and the number of comparisons."""
+    unpacked product, no kernel). ``cfg``: the run's model (its kv heads,
+    query heads a kv head, head_dim, sliding window and int4 shapes).
+    Returns per kernel and type the largest error and the number of
+    comparisons."""
     out = {}
+    hkv, d, window = cfg.num_kv_heads, cfg.head_dim, cfg.sliding_window
+    g = cfg.num_heads // hkv
     win = {} if window is None else {"sliding_window": window}
     rows_max = max(sh[1] for sh in shapes)
     kinds = ["qpaged", "qragged"] if quantized else ["paged", "ragged"]
     if int4:
-        kinds += ["int4s", "int4"]
+        kinds += ["int4s"] + ([] if cfg.tie_word_embeddings else ["int4"])
     for dtype, label in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
         rng = np.random.default_rng(4321)
         pages = rows_max * table_width + 1
-        pool = (make_qpool(rng, pages, hkv) if quantized
-                else make_pool(rng, pages, dtype, hkv))
+        pool = (make_qpool(rng, pages, hkv, d=d) if quantized
+                else make_pool(rng, pages, dtype, hkv, d=d))
         pname, rname = paged_fns(pool)[0], ragged_fns(pool)[0]
         cases = []
         for kind, rows, *rest in sorted(shapes):
@@ -2544,7 +2961,7 @@ def check_engine_shapes(shapes, table_width, quantized, int4, hkv=HKV,
                 table = make_table(rng, rows, width, pages)
                 compare_paged(
                     cases, f"{pname}_{tag}", dtype,
-                    normal(rng, (rows, 1, hkv * g, D), dtype), pool,
+                    normal(rng, (rows, 1, hkv * g, d), dtype), pool,
                     table, i32(lens), **win)
                 if quantized and k_steps > 1:
                     # The fused window's step at this width: its form is
@@ -2554,15 +2971,15 @@ def check_engine_shapes(shapes, table_width, quantized, int4, hkv=HKV,
                         compare_fused(
                             cases, f"qfusedp_{tag}", dtype, "inplace",
                             [p[None] for p in pool], base, rng, table=table,
-                            window=window, g=g, layer=0, hkv=hkv)
+                            window=window, g=g, layer=0, hkv=hkv, d=d)
                     else:
                         compare_fused(
                             cases, f"qfusedd_{tag}", dtype, "gathered",
-                            make_qplanes(rng, (1, rows, hkv), slots), base,
-                            rng, window=window, g=g, layer=0, hkv=hkv)
+                            make_qplanes(rng, (1, rows, hkv), slots, d), base,
+                            rng, window=window, g=g, layer=0, hkv=hkv, d=d)
                 continue
             s, slots = rest[0], table_width * PS
-            q = normal(rng, (rows, s, hkv * g, D), dtype)
+            q = normal(rng, (rows, s, hkv * g, d), dtype)
             table = make_table(rng, rows, table_width, pages)
             num_new = rng.integers(1, s + 1, size=rows)
             num_new[0] = s                   # a row with no pad query
@@ -2575,7 +2992,7 @@ def check_engine_shapes(shapes, table_width, quantized, int4, hkv=HKV,
                                i32(num_new), **win)
         del pool
         if int4:
-            int4_cases(cases, dtype, shapes)
+            int4_cases(cases, dtype, shapes, cfg)
         assert_cases(cases, dtype)
         fused = [k for k in ("qfusedp", "qfusedd")
                  if any(n.startswith(k + "_") for n, _, _ in cases)]
@@ -2659,7 +3076,7 @@ class CacheShapes:
             setattr(mod, name, real)
 
 
-def check_dense_shapes(shapes, dispatch_shapes=(), int4=False):
+def check_dense_shapes(cfg, shapes, dispatch_shapes, int4):
     """The dense caches' and the sink ring's kernels against their plain
     versions at every shape a run called them at (:class:`CacheShapes`),
     in bf16 and f32 where the queries' type matters: #3 over rows of mixed
@@ -2668,9 +3085,11 @@ def check_dense_shapes(shapes, dispatch_shapes=(), int4=False):
     window's steps (their tails EQUAL; #11 on the rows of
     :func:`sink_rows`), #10 and #12 at the run's depth (bytes EQUAL); with
     ``int4`` the int4 kernels at the run's ``dispatch_shapes``
-    (:func:`int4_cases`). Returns per kernel and type the largest error and
+    (:func:`int4_cases`). ``cfg``: the run's model (its kv heads, head_dim
+    and int4 shapes). Returns per kernel and type the largest error and
     the number of comparisons."""
     out = {}
+    hkv, d = cfg.num_kv_heads, cfg.head_dim
     for dtype, label in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
         rng = np.random.default_rng(5678)
         cases = []
@@ -2678,9 +3097,9 @@ def check_dense_shapes(shapes, dispatch_shapes=(), int4=False):
             tag = "_".join(str(x) for x in shape)
             if name == "flash_attention":
                 b, s, t, g = shape
-                q = normal(rng, (b, s, HKV * g, D), dtype)
-                k = normal(rng, (b, t, HKV, D), dtype)
-                v = normal(rng, (b, t, HKV, D), dtype)
+                q = normal(rng, (b, s, hkv * g, d), dtype)
+                k = normal(rng, (b, t, hkv, d), dtype)
+                v = normal(rng, (b, t, hkv, d), dtype)
                 lens = rng.integers(1, t + 1, size=b)
                 lens[0] = t
                 q0 = np.maximum(lens - s, 0)
@@ -2693,31 +3112,32 @@ def check_dense_shapes(shapes, dispatch_shapes=(), int4=False):
                 if b > 1:
                     lens[-1] = 0
                 compare_qdense(cases, f"qdense_{tag}", dtype,
-                               normal(rng, (b, 1, HKV * g, D), dtype),
-                               make_qplanes(rng, (b, HKV), t), i32(lens))
+                               normal(rng, (b, 1, hkv * g, d), dtype),
+                               make_qplanes(rng, (b, hkv), t, d), i32(lens))
             elif name == "quantized_fused_decode_attention":
                 b, t, kt, g = shape
                 assert kt == KT
                 base = np.minimum(rng.integers(0, t + 1, size=b), t - KT)
                 compare_fused(cases, f"qfusedd_{tag}", dtype, "gathered",
-                              make_qplanes(rng, (1, b, HKV), t), i32(base),
-                              rng, g=g, layer=0)
+                              make_qplanes(rng, (1, b, hkv), t, d), i32(base),
+                              rng, g=g, layer=0, hkv=hkv, d=d)
             elif name == "sink_fused_decode_attention":
                 b, tr, kt, g, r = shape
                 assert kt == KT and b == 8
                 sinks = 4
                 compare_sink(cases, f"qsink_{tag}", dtype,
-                             make_qplanes(rng, (1, b, HKV), tr),
-                             make_qplanes(rng, (1, b, HKV), 32),
-                             sink_rows(sinks, r), sinks, r, rng, g=g, layer=0)
+                             make_qplanes(rng, (1, b, hkv), tr, d),
+                             make_qplanes(rng, (1, b, hkv), 32, d),
+                             sink_rows(sinks, r), sinks, r, rng, g=g, layer=0,
+                             hkv=hkv, d=d)
             elif name == "sink_tail_flush":
                 if dtype != torch.bfloat16:
                     continue                       # the flush moves bytes
                 num_l, b, tr, kt, r = shape
                 compare_sink_flush(
                     cases, f"qsflush_{tag}",
-                    make_qplanes(rng, (num_l, b, HKV), tr),
-                    make_qplanes(rng, (num_l, b, HKV), kt),
+                    make_qplanes(rng, (num_l, b, hkv), tr, d),
+                    make_qplanes(rng, (num_l, b, hkv), kt, d),
                     i32(rng.integers(0, r, size=b)),
                     i32(rng.integers(0, 3, size=b)),
                     i32(rng.integers(0, kt + 1, size=b)), r)
@@ -2726,11 +3146,11 @@ def check_dense_shapes(shapes, dispatch_shapes=(), int4=False):
                 base = rng.integers(0, t + 1, size=b)
                 base[0] = t - kt // 2              # a window past the end
                 compare_qflush(cases, f"qflush_{tag}",
-                               make_qplanes(rng, (num_l, b, HKV), t),
-                               make_qplanes(rng, (num_l, b, HKV), kt),
+                               make_qplanes(rng, (num_l, b, hkv), t, d),
+                               make_qplanes(rng, (num_l, b, hkv), kt, d),
                                i32(base), i32(rng.integers(0, kt + 1, size=b)))
         if int4:
-            int4_cases(cases, dtype, dispatch_shapes)
+            int4_cases(cases, dtype, dispatch_shapes, cfg)
         assert_cases(cases, dtype)
         for prefix in ("flash", "qdense", "qfusedd", "qflush", "qsink",
                        "qsflush", "int4s", "int4"):
@@ -2744,7 +3164,7 @@ def check_dense_shapes(shapes, dispatch_shapes=(), int4=False):
 
 def run_config(label, cfg, params, ekw, ckw, counters, profile=True,
                traffic=MIXED, one_launch=None, int4_launch=False,
-               model="llama-3-8b widths"):
+               model="llama-3-8b widths", int4_weights=False):
     """The smoke's traffic through one engine configuration, twice with one
     seed (the streams must repeat); the launch counters in ``counters``
     (name -> (module, attribute)) are zeroed before the first run and read
@@ -2759,8 +3179,11 @@ def run_config(label, cfg, params, ekw, ckw, counters, profile=True,
     must launch the int4 matmul's bf16 kernel once a call, the config's
     int4 projections a layer (`llama.int4_projections`: 7, or 4 for an MoE
     config) and the head, each step, and no other int4 kernel (no
-    combine). ``model`` names the widths in the report. Returns (report,
-    launches)."""
+    combine); a head tied to the embedding has no int4 launch. ``model``
+    names the widths in the report. ``int4_weights``: ``params`` hold int4
+    weights already (:func:`int4_params`), which the engine takes as they
+    are. Returns (report, launches)."""
+    int4 = int4_weights or ekw.get("quantization") == "int4"
     torch.cuda.reset_peak_memory_stats()
     new_tokens, odd = traffic["new_tokens"], traffic.get("odd")
     dense = ckw.get("kind") == "dense"
@@ -2867,13 +3290,11 @@ def run_config(label, cfg, params, ekw, ckw, counters, profile=True,
         report["buffer_width"] = table_width
         report["kernel_shapes"] = sorted(recorder.shapes)
         report["kernels_at_dispatch_shapes"] = check_dense_shapes(
-            recorder.shapes, shapes, ekw.get("quantization") == "int4")
+            cfg, recorder.shapes, shapes, int4)
     else:
         report["table_width"] = table_width
         report["kernels_at_dispatch_shapes"] = check_engine_shapes(
-            shapes, table_width, bool(ckw.get("kv_quant")),
-            ekw.get("quantization") == "int4", hkv=cfg.num_kv_heads,
-            g=cfg.num_heads // cfg.num_kv_heads, window=cfg.sliding_window)
+            cfg, shapes, table_width, bool(ckw.get("kv_quant")), int4)
     if profile:
         report["decode_profile"] = profile_decode(cfg, params, ekw, ckw,
                                                   counters)
@@ -2887,8 +3308,9 @@ def run_config(label, cfg, params, ekw, ckw, counters, profile=True,
         if one_launch:
             want["attention_kernels", one_launch] = cfg.num_layers * steps
         if int4_launch:
+            head = 0 if cfg.tie_word_embeddings else 1
             want["int4_kernels", "int4_mma_kernel"] = (
-                (len(llama.int4_projections(cfg)) * cfg.num_layers + 1)
+                (len(llama.int4_projections(cfg)) * cfg.num_layers + head)
                 * steps)
         sessions = []
         while want:
@@ -3210,6 +3632,184 @@ def phase_families():
     family_summary(label, report)
     del params
     torch.cuda.empty_cache()
+
+
+def int4_stack(gen, layers, shape):
+    """``[layers, in, out]`` normal(0, 0.02) weights as ``init_params``
+    draws them, int4 (the half-split layout of ``quantize_params(bits=4)``),
+    drawn and quantized one ``[in, out]`` matrix at a time."""
+    stacks, first = {}, None
+    for i in range(layers):
+        w = (torch.randn(shape, generator=gen, device=DEV) * 0.02).to(
+            torch.bfloat16)
+        part = quant.quantize_int4_split(w)
+        if first is None:
+            first = {f.name: getattr(part, f.name)
+                     for f in dataclasses.fields(part)}
+            stacks = {n: torch.empty((layers, *v.shape), dtype=v.dtype,
+                                     device=DEV)
+                      for n, v in first.items() if isinstance(v, torch.Tensor)}
+        for n, v in stacks.items():
+            v[i].copy_(getattr(part, n))
+        del w, part
+    return quant.QuantizedTensor4Split(**{**first, **stacks})
+
+
+def int4_params(cfg, seed):
+    """Random parameters of ``cfg`` as ``init_params`` and then
+    ``quantize_params(bits=4)`` would give them (int4 projections and head,
+    the embedding and norms in bf16), made one matrix at a time: a model
+    whose bf16 weights do not fit the card (Llama-3-70B's 141 GB) never
+    has them at once."""
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    layer, head = projections(cfg)
+    h, n = cfg.hidden_size, cfg.num_layers
+    params = {
+        "embed": (torch.randn((cfg.vocab_size, h), generator=gen, device=DEV)
+                  * 0.02).to(torch.bfloat16),
+        "layers": {
+            "attn_norm": torch.ones((n, h), dtype=torch.bfloat16, device=DEV),
+            "mlp_norm": torch.ones((n, h), dtype=torch.bfloat16, device=DEV),
+            **{name: int4_stack(gen, n, shape) for name, shape in layer.items()},
+        },
+        "final_norm": torch.ones((h,), dtype=torch.bfloat16, device=DEV),
+    }
+    if head is not None:
+        params["lm_head"] = quant.quantize_int4_split(
+            (torch.randn(head, generator=gen, device=DEV) * 0.02).to(
+                torch.bfloat16))
+    return params
+
+
+def phase_widths():
+    """Phase 3's head-width paths, each at full width through the smoke's
+    traffic (as :func:`phase_families`' paths, twice, repeatable, counters
+    zeroed and read, dispatch shapes replayed, a window and a prefill
+    profiled, one attention launch a call): Qwen2.5-7B (G = 7, q/k/v
+    biases) at its 28 layers in bf16 over bf16 pages (#1, #2); Llama-3-70B
+    (G = 8) with int4 weights over int8 pages at its 80 layers, about 38 GB
+    of int4 weights and heads made one matrix at a time (#4, #6, #7, #13,
+    #14); Llama-3.2-1B (head_dim 64, tied head) at
+    its 16 layers with int4 weights over the int8 dense cache (#3, #9, #10,
+    #14) and in bf16 over bf16 pages (#1, #2). Returns launches by kernel,
+    each from the first of these paths that runs it."""
+    gen = torch.Generator(device=DEV)
+    launches = {}
+
+    def keep(got):
+        for name, n in got.items():
+            launches.setdefault(name, n)
+
+    cfg = QWEN25_7B
+    params = llama.init_params(cfg, gen.manual_seed(3), torch.bfloat16, DEV)
+    for name in ("bq", "bk", "bv"):   # random biases: init's are zeros
+        params["layers"][name].normal_(0.0, 0.5, generator=gen)
+    label = "qwen25_7b_bf16_pages: bf16 weights, bf16 pages, K=16"
+    report, got = run_config(label, cfg, params, {}, {}, MAIN_BF16,
+                             one_launch="paged_decode_kernel",
+                             model="qwen2.5-7b widths (G=7)")
+    family_summary(label, report)
+    keep(got)
+    del params
+    torch.cuda.empty_cache()
+
+    cfg = LLAMA3_70B
+    params = int4_params(cfg, 4)
+    label = "llama3_70b_int4_int8pages: int4 weights, int8 pages, K=16"
+    report, got = run_config(
+        label, cfg, params, {}, {"kv_quant": "int8"}, MAIN_INT4,
+        one_launch="fused_cluster_kernel", int4_launch=True,
+        model="llama-3-70b widths (G=8)", int4_weights=True)
+    family_summary(label, report)
+    keep(got)
+    del params
+    torch.cuda.empty_cache()
+
+    cfg = LLAMA32_1B
+    params = llama.init_params(cfg, gen.manual_seed(5), torch.bfloat16, DEV)
+    label = "llama32_1b_int4_int8dense: int4 weights, int8 dense KV, K=16"
+    tied_dense = {k: v for k, v in MAIN_DENSE.items() if k != "int4_matmul"}
+    report, got = run_config(
+        label, cfg, params, {"quantization": "int4"},
+        {"kv_quant": "int8", **DENSE}, tied_dense,
+        one_launch="fused_cluster_kernel", int4_launch=True,
+        model="llama-3.2-1b widths (D=64)")
+    family_summary(label, report)
+    keep(got)
+    label = "llama32_1b_bf16_pages: bf16 weights, bf16 pages, K=16"
+    report, got = run_config(label, cfg, params, {}, {}, MAIN_BF16,
+                             one_launch="paged_decode_kernel",
+                             model="llama-3.2-1b widths (D=64)")
+    family_summary(label, report)
+    keep(got)
+    del params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_parity_widths():
+    """Phase 4 at the new widths, 2 layers in f32, TF32 off, greedy
+    streams: Qwen2.5-7B's (G = 7) on bf16 pages at K = 16, K = 1 and on the
+    gather path, identical, and on int8 pages with kernels against without
+    at K = 1, identical (K = 16 against K = 1 shown: the fused step rounds
+    p * vs to bf16 as the TPU kernel does); Llama-3.2-1B's (D = 64) on bf16
+    pages the same, and over the int8 dense cache #8 against without at
+    K = 1, identical, K = 16 (#9, #10) against K = 1 shown."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gather = dict(use_pallas_attention=False, ragged_attention=False)
+    k1 = {"decode_steps": 1}
+    report = {"phase": "parity_widths",
+              "model": "qwen2.5-7b and llama-3.2-1b widths, 2 layers, f32, "
+                       "tf32 off"}
+    for name, base in (("qwen25_7b", QWEN25_7B), ("llama32_1b", LLAMA32_1B)):
+        cfg = dataclasses.replace(base, num_layers=2)
+        params = llama.init_params(
+            cfg, torch.Generator(device=DEV).manual_seed(1), torch.float32,
+            DEV)
+        before = (pa.launches, ra.launches)
+        kern16, e16 = parity_run(cfg, params, {}, {})
+        assert e16.decode_steps == 16 and e16.cache.use_kernel
+        assert pa.launches > before[0] and ra.launches > before[1]
+        kern1, _ = parity_run(cfg, params, k1, {})
+        gath, e2 = parity_run(cfg, params, gather, {})
+        assert not e2.cache.use_kernel
+        assert all(len(x) == 16 for x in kern16)
+        assert kern16 == kern1 == gath, (
+            f"{name} bf16 pool: K=16, K=1 and gather streams differ")
+        entry = {"streams": len(kern16), "tokens_each": 16,
+                 "bf16_k16_equals_k1_equals_gather": True}
+        if name == "qwen25_7b":
+            ckw = {"kv_quant": "int8"}
+            before = (pa.quantized_launches, ra.quantized_launches)
+            kern1, e1 = parity_run(cfg, params, k1, ckw)
+            assert e1.cache.use_kernel and e1.cache.use_ragged
+            assert pa.quantized_launches > before[0]
+            assert ra.quantized_launches > before[1]
+            gath, e2 = parity_run(cfg, params, {**k1, **gather}, ckw)
+            assert not e2.cache.use_kernel
+            assert kern1 == gath, "qwen2.5-7b int8 pool: #5 and gather differ"
+            entry["int8_pages_kernel_equals_gather_k1"] = True
+        else:
+            ckw = {"kv_quant": "int8", **DENSE}
+            before = qa.decode_launches
+            kern1, e1 = parity_run(cfg, params, k1, ckw)
+            assert e1.cache.use_kernel and qa.decode_launches > before
+            plain1, e2 = parity_run(
+                cfg, params, {"use_pallas_attention": False, **k1}, ckw)
+            assert not e2.cache.use_kernel
+            assert kern1 == plain1, "llama-3.2-1b int8 dense: #8 and plain differ"
+            entry["int8_dense_kernel_equals_plain_k1"] = True
+        before = (qa.fused_launches + pa.fused_launches)
+        kern16, e16 = parity_run(cfg, params, {}, ckw)
+        assert e16.decode_steps == 16
+        assert qa.fused_launches + pa.fused_launches > before
+        share, first = shares(kern16, kern1)
+        entry["int8_k16_vs_k1_equal_token_share"] = share
+        entry["int8_k16_vs_k1_first_divergence"] = first
+        report[name] = entry
+        del params
+        torch.cuda.empty_cache()
+    emit(report)
 
 
 def phase_parity_families():
@@ -3609,8 +4209,8 @@ def hf_config(cfg):
         "num_key_value_heads": cfg.num_kv_heads, "head_dim": cfg.head_dim,
         "rms_norm_eps": cfg.rms_norm_eps, "rope_theta": cfg.rope_theta,
         "max_position_embeddings": cfg.max_position_embeddings,
-        "tie_word_embeddings": False, "attention_bias": False,
-        "torch_dtype": "bfloat16",
+        "tie_word_embeddings": cfg.tie_word_embeddings,
+        "attention_bias": False, "torch_dtype": "bfloat16",
         "rope_scaling": {
             "rope_type": rs.rope_type, "factor": rs.factor,
             "low_freq_factor": rs.low_freq_factor,
@@ -3640,7 +4240,8 @@ def write_checkpoint(root, cfg, seed, dev):
             state[f"model.layers.{i}.{suffix}"] = draw(
                 *shape, base=1.0 if name.endswith("norm") else 0.0)
     state["model.norm.weight"] = draw(h, base=1.0)
-    state["lm_head.weight"] = draw(cfg.vocab_size, h)
+    if not cfg.tie_word_embeddings:
+        state["lm_head.weight"] = draw(cfg.vocab_size, h)
 
     def shard_of(key):
         late = key in ("model.norm.weight", "lm_head.weight") or (
@@ -3696,6 +4297,9 @@ def check_loaded(params, state, cfg):
     assert set(params["layers"]) == {name for name, *_ in keys}
     assert same(params["embed"], state["model.embed_tokens.weight"])
     assert same(params["final_norm"], state["model.norm.weight"])
+    if cfg.tie_word_embeddings:
+        assert "lm_head" not in params
+        return 2 + cfg.num_layers * len(keys)
     assert same(params["lm_head"], state["lm_head.weight"].T)
     return 2 + cfg.num_layers * len(keys) + 1
 
@@ -3773,6 +4377,18 @@ def serve_traffic(engine, vocab, seed):
               for n, fields, _ in SERVE_TRAFFIC]
     backend = EngineBackend(engine)
     server = ApiServer(backend, ServingConfig(host="127.0.0.1", port=0))
+    # Every engine.step() the driver thread makes, (start, end): the
+    # engine reaps a deadline only between two of them.
+    ticks, step = [], engine.step
+
+    def timed_step():
+        t0 = time.monotonic()
+        try:
+            return step()
+        finally:
+            ticks.append((t0, time.monotonic()))
+
+    engine.step = timed_step
     capturing, arrived = threading.Event(), threading.Event()
     held = []  # requests that reached the engine while the capture was held
     fused = engine._fused
@@ -3855,8 +4471,18 @@ def serve_traffic(engine, vocab, seed):
         assert held, "no request arrived during the first capture"
     m = engine.metrics
     assert cancelled, "the disconnected stream was never cancelled"
+    # The engine reaps a deadline between two steps; a step, or a gap
+    # between steps, longer than the gateway's 0.5 s grace lets the
+    # gateway cancel first. The deadline request is the last to finish,
+    # so the driver has work from the first step to the last.
+    slowest = {k: max(m._timings.get(k) or [0.0])
+               for k in ("prefill", "decode_step", "decode_graph_capture")}
+    slowest["step"] = max(b - a for a, b in ticks)
+    slowest["gap_between_steps"] = max(
+        [b[0] - a[1] for a, b in zip(ticks, ticks[1:])] or [0.0])
     assert m.get_counter("sessions_deadline_expired") >= 1, (
-        "the expired request was not reaped by its deadline")
+        "the expired request was not reaped by its deadline (the engine's "
+        f"slowest calls, s: {slowest})")
     return {
         "requests": len(bodies), "wall_s": wall,
         "gateway_tokens": m.get_counter("gateway_tokens"),
@@ -3868,6 +4494,7 @@ def serve_traffic(engine, vocab, seed):
         "graph_captures": m.get_counter("decode_graph_captures"),
         "cancelled_by_disconnect": len(cancelled),
         "deadline_expired": m.get_counter("sessions_deadline_expired"),
+        "slowest_s": slowest,
         "by_request": [
             {"prompt": n, "kind": kind, "tokens": len(r[0]), "finish": r[1]}
             for (n, _, kind), r in zip(SERVE_TRAFFIC, results)],
@@ -3957,9 +4584,12 @@ def local_run(root, cfg, int4):
     kernels' launches can be counted): a 1000-token prompt (the table past
     768 slots: the int8 window reads the pool in place), 32 new tokens.
     With int4 the head's kernel (#13) runs once for the prompt and once a
-    step, and the layer-stacked one (#14) once a step for each of the
-    config's int4 projections a layer (`llama.int4_projections`)."""
+    step (a head tied to the embedding has none), and the layer-stacked one
+    (#14) once a step for each of the config's int4 projections a layer
+    (`llama.int4_projections`)."""
     counters = LOCAL_INT4 if int4 else MAIN_BF16
+    if int4 and cfg.tie_word_embeddings:
+        counters = {k: v for k, v in counters.items() if k != "int4_matmul"}
     ids = np.random.default_rng(23).integers(
         0, cfg.vocab_size, size=1000).tolist()
     for module, attr in counters.values():
@@ -3981,10 +4611,14 @@ def local_run(root, cfg, int4):
     result = {"tokens": len(doc["tokens"]), "seconds": doc["seconds"],
               "launches": launches}
     if int4:
-        steps = launches["int4_matmul"] - 1
         per_step = len(llama.int4_projections(cfg)) * cfg.num_layers
+        # The prompt gives the first token; the other 31 are decode steps,
+        # run as whole K = 16 windows: 32 steps.
+        steps = -(-31 // KT) * KT
         assert launches["int4_matmul_stacked"] == per_step * steps, (
             launches, per_step, steps)
+        if "int4_matmul" in launches:
+            assert launches["int4_matmul"] == 1 + steps, (launches, steps)
         result["int4_stacked_calls_a_step"] = per_step
     return result
 
@@ -4077,6 +4711,39 @@ def phase_serve_mixtral():
     emit(report)
 
 
+def phase_serve_llama32():
+    """A checkpoint at Llama-3.2-1B's full widths and depth in the HF layout
+    (16 layers of head_dim 64, the head tied to the embedding: no
+    ``lm_head.weight``), written by the port's writer under `build/` and
+    deleted pass or fail: `info` must call it supported, the load must give
+    each tensor bitwise, and `local --quantize int4 --kv-quant int8` serves
+    it on the card (the int8 pool's kernels at head_dim 64)."""
+    cfg = LLAMA32_1B
+    report = {"phase": "serve_llama32", "card": CARD,
+              "model": "llama-3.2-1b widths, 16 layers, tied head, random "
+                       "bf16 weights from a checkpoint"}
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as root:
+        state, write_s = write_checkpoint(root, cfg, 7, DEV)
+        report["checkpoint"] = {
+            "files": sorted(p.name for p in Path(root).iterdir()),
+            "write_s": write_s,
+            "bytes": sum(p.stat().st_size for p in Path(root).iterdir())}
+        assert checkpoint.load_config(root) == cfg
+        report["info"] = check_info(root, cfg)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params = checkpoint.load_model_params(root, cfg, torch.bfloat16,
+                                              device=DEV)
+        torch.cuda.synchronize()
+        report["load_s"] = time.perf_counter() - t0
+        report["tensors_bitwise_equal"] = check_loaded(params, state, cfg)
+        del state, params
+        torch.cuda.empty_cache()
+        report["local_int4_int8kv"] = local_run(root, cfg, True)
+    emit(report)
+
+
 # ---------------------------------------------------------------------------
 
 REPLACES = {
@@ -4120,11 +4787,13 @@ def main() -> int:
         return 1
     t0 = time.perf_counter()
     phase_device()
-    timed, floor = phase_kernels()
+    timed, floor, checked = phase_kernels()
     launches = phase_engine()
     phase_families()
+    width_launches = phase_widths()
     phase_parity()
     phase_parity_families()
+    phase_parity_widths()
     assert set(timed) == set(REPLACES) == set(launches), (
         sorted(timed), sorted(launches))
     emit({"kernels": [
@@ -4133,11 +4802,17 @@ def main() -> int:
          "max_abs_err": k["max_abs_err"],
          "ms": k["ms"], "plain_ms": k["plain_ms"],
          "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
-         "library_ms": k["library_ms"], "shape": k["shape"]}
+         "library_ms": k["library_ms"], "shape": k["shape"],
+         "launches_on_the_width_paths": width_launches.get(name, 0),
+         "widths_checked": checked[name],
+         "at_widths": {w: {key: e[key] for key in (
+             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+             "library_ms", "shape")} for w, e in k.get("at_widths", {}).items()}}
         for name, k in timed.items()
     ], "timed_call_floor_ms": floor, "seconds": time.perf_counter() - t0})
     phase_serve()
     phase_serve_mixtral()
+    phase_serve_llama32()
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}})

@@ -11,6 +11,15 @@
 
 namespace tile {
 
+// log2 of G query heads a kv head rounded up to a power of two: the bf16
+// kernels give a query 1 << group_shift(G) score rows
+// (ops/attention.py:rows_per_query).
+inline int group_shift(int G) {
+  int s = 0;
+  while ((1 << s) < G) ++s;
+  return s;
+}
+
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);

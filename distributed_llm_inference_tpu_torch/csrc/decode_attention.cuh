@@ -14,9 +14,10 @@
 // What bounds it on this card: bytes; what a simple kernel runs into
 // first, though, is instruction issue: with a whole warp on one position,
 // ten shuffle instructions go with every four useful FMAs. Hence a
-// position belongs to a group of 8 lanes, each holding 16 contiguous
-// elements of the K and V slot, loaded 16 bytes at a time (a dot product
-// needs 3 shuffle steps, a warp works on 4 positions per instruction); each
+// position belongs to a group of D / EPL lanes, each holding EPL = 16
+// contiguous elements of the K and V slot, loaded 16 bytes at a time (at
+// D = 128 a dot product needs 3 shuffle steps, a warp works on 4
+// positions per instruction); each
 // lane group keeps its own running (m, l, acc) in f32 registers; a row's
 // positions are split over several blocks (grid z), sized by the wrapper
 // from the table width, and a second small kernel merges their partials.
@@ -24,6 +25,12 @@
 // the V scale the probability before P V (no bf16 rounding), as the TPU
 // kernels `_qpaged_kernel` and `_qdense_kernel` do. The engine's
 // exact-parity runs are the only callers.
+//
+// Built for head_dim 64 and 128 and 1 to 8 query heads a kv head: the
+// instances take the group rounded up to 1, 2, 4 or 8 (Gp) and the heads
+// past G stay zero and are never written. At Gp = 8 a lane holds EPL = 8
+// elements (its 8 heads' queries and sums then fit the registers the
+// 4-head instance uses).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -37,37 +44,49 @@ constexpr int kThreads = kWarps * 32;
 // (m_old - m_new) never becomes inf - inf.
 constexpr float kNegInf = -0.7f * 3.402823466e+38f;
 
-// One 16-byte chunk of global memory as floats.
-template <typename T>
-struct Chunk;
-template <>
-struct Chunk<float> {
-  static constexpr int N = 4;
-  static __device__ __forceinline__ void load(const float* p, float* o) {
-    const float4 v = *reinterpret_cast<const float4*>(p);
-    o[0] = v.x; o[1] = v.y; o[2] = v.z; o[3] = v.w;
-  }
-};
-template <>
-struct Chunk<int8_t> {
-  static constexpr int N = 16;
-  static __device__ __forceinline__ void load(const int8_t* p, float* o) {
-    const uint4 v = *reinterpret_cast<const uint4*>(p);
-    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+// N contiguous elements of global memory (16-byte aligned, N a multiple of
+// 4 floats or of 8 int8) as floats, in 16-byte loads where N allows.
+template <int N>
+__device__ __forceinline__ void load_run(const float* p, float* o) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        o[4 * i + j] = (float)((int32_t)(w[i] << (24 - 8 * j)) >> 24);
+  for (int c = 0; c < N; c += 4) {
+    const float4 v = *reinterpret_cast<const float4*>(p + c);
+    o[c] = v.x; o[c + 1] = v.y; o[c + 2] = v.z; o[c + 3] = v.w;
   }
-};
+}
+
+__device__ __forceinline__ void bytes_to_f32(uint32_t w, float* o) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    o[j] = (float)((int32_t)(w << (24 - 8 * j)) >> 24);
+}
+
+template <int N>
+__device__ __forceinline__ void load_run(const int8_t* p, float* o) {
+  if constexpr (N % 16 == 0) {
+#pragma unroll
+    for (int c = 0; c < N; c += 16) {
+      const uint4 v = *reinterpret_cast<const uint4*>(p + c);
+      bytes_to_f32(v.x, o + c);
+      bytes_to_f32(v.y, o + c + 4);
+      bytes_to_f32(v.z, o + c + 8);
+      bytes_to_f32(v.w, o + c + 12);
+    }
+  } else {
+    static_assert(N == 8, "int8 runs of 8 or of multiples of 16");
+    const uint2 v = *reinterpret_cast<const uint2*>(p);
+    bytes_to_f32(v.x, o);
+    bytes_to_f32(v.y, o + 4);
+  }
+}
 
 __device__ __forceinline__ void store_one(float* p, float v) { *p = v; }
 
 // Partial attention of one (row, kv head) over the positions
-// [split * chunk, (split + 1) * chunk) that are live and inside the window.
-// KV is T, or int8_t with the scale planes ks / vs (null otherwise).
-template <typename T, typename KV, int D, int G>
+// [split * chunk, (split + 1) * chunk) that are live and inside the window,
+// for the G <= Gp query heads of the kv head. KV is T, or int8_t with the
+// scale planes ks / vs (null otherwise).
+template <typename T, typename KV, int D, int Gp>
 __global__ void __launch_bounds__(kThreads) paged_partial_kernel(
     const T* __restrict__ q,          // [B, Hkv*G, D]
     const KV* __restrict__ k_pages,   // [P, Hkv, PS, D]
@@ -80,15 +99,11 @@ __global__ void __launch_bounds__(kThreads) paged_partial_kernel(
     float* __restrict__ part_o,       // [B, Hkv, NS, G, D]
     float* __restrict__ part_m,       // [B, Hkv, NS, G]
     float* __restrict__ part_l,       // [B, Hkv, NS, G]
-    int Hkv, int PS, int Tw, int chunk, float scale, int window) {
-  constexpr int EPL = 16;                 // elements per lane
+    int Hkv, int G, int PS, int Tw, int chunk, float scale, int window) {
+  constexpr int EPL = Gp == 8 ? 8 : 16;  // elements per lane
   constexpr int LPP = D / EPL;            // lanes per position
   constexpr int PPW = 32 / LPP;           // positions per warp instruction
   constexpr bool kQuant = sizeof(KV) == 1;
-  constexpr int CN = Chunk<T>::N;
-  constexpr int NCH = EPL / CN;           // 16-byte chunks of q per lane
-  constexpr int KCN = Chunk<KV>::N;
-  constexpr int KCH = EPL / KCN;          // 16-byte chunks of K or V per lane
   const int b = blockIdx.x;
   const int h = blockIdx.y;
   const int split = blockIdx.z;
@@ -105,17 +120,19 @@ __global__ void __launch_bounds__(kThreads) paged_partial_kernel(
   const int lo = max(first, split * chunk);
   const int hi = min(kv_len, (split + 1) * chunk);
 
-  float qr[G][EPL];
+  float qr[Gp][EPL];
 #pragma unroll
-  for (int g = 0; g < G; ++g)
+  for (int g = 0; g < Gp; ++g) {
+    if (g < G) {
+      load_run<EPL>(q + ((size_t)b * Hq + h * G + g) * D + sub * EPL, qr[g]);
+    } else {
 #pragma unroll
-    for (int c = 0; c < NCH; ++c)
-      Chunk<T>::load(
-          q + ((size_t)b * Hq + h * G + g) * D + sub * EPL + c * CN,
-          qr[g] + c * CN);
-  float m[G], l[G], acc[G][EPL];
+      for (int i = 0; i < EPL; ++i) qr[g][i] = 0.f;
+    }
+  }
+  float m[Gp], l[Gp], acc[Gp][EPL];
 #pragma unroll
-  for (int g = 0; g < G; ++g) {
+  for (int g = 0; g < Gp; ++g) {
     m[g] = kNegInf;
     l[g] = 0.f;
 #pragma unroll
@@ -135,11 +152,8 @@ __global__ void __launch_bounds__(kThreads) paged_partial_kernel(
       const int page = trow != nullptr ? trow[pos / PS] : b;
       const size_t slot = ((size_t)page * Hkv + h) * PS + pos % PS;
       const size_t base = slot * D + sub * EPL;
-#pragma unroll
-      for (int c = 0; c < KCH; ++c) {
-        Chunk<KV>::load(k_pages + base + c * KCN, kk + c * KCN);
-        Chunk<KV>::load(v_pages + base + c * KCN, vv + c * KCN);
-      }
+      load_run<EPL>(k_pages + base, kk);
+      load_run<EPL>(v_pages + base, vv);
       if constexpr (kQuant) {
         ksc = ks[slot];
         vsc = vs[slot];
@@ -149,7 +163,7 @@ __global__ void __launch_bounds__(kThreads) paged_partial_kernel(
       for (int i = 0; i < EPL; ++i) kk[i] = vv[i] = 0.f;
     }
 #pragma unroll
-    for (int g = 0; g < G; ++g) {
+    for (int g = 0; g < Gp; ++g) {
       float dot = 0.f;
 #pragma unroll
       for (int i = 0; i < EPL; ++i) dot += qr[g][i] * kk[i];
@@ -175,7 +189,7 @@ __global__ void __launch_bounds__(kThreads) paged_partial_kernel(
 #pragma unroll
   for (int o = LPP; o < 32; o <<= 1) {
 #pragma unroll
-    for (int g = 0; g < G; ++g) {
+    for (int g = 0; g < Gp; ++g) {
       const float m_o = __shfl_xor_sync(0xffffffffu, m[g], o);
       const float l_o = __shfl_xor_sync(0xffffffffu, l[g], o);
       const float m_new = fmaxf(m[g], m_o);
@@ -192,12 +206,12 @@ __global__ void __launch_bounds__(kThreads) paged_partial_kernel(
   }
 
   // Merge the warps through shared memory and write the block's partial.
-  __shared__ float sm_m[kWarps][G];
-  __shared__ float sm_l[kWarps][G];
-  __shared__ float sm_acc[kWarps][G][D];
+  __shared__ float sm_m[kWarps][Gp];
+  __shared__ float sm_l[kWarps][Gp];
+  __shared__ float sm_acc[kWarps][Gp][D];
   if (grp == 0) {
 #pragma unroll
-    for (int g = 0; g < G; ++g) {
+    for (int g = 0; g < Gp; ++g) {
       if (sub == 0) {
         sm_m[warp][g] = m[g];
         sm_l[warp][g] = l[g];
@@ -273,14 +287,14 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <typename T, typename KV, int D, int G>
-int launch(const Args& a) {
+template <typename T, typename KV, int D, int Gp>
+int launch(int G, const Args& a) {
   dim3 grid(a.B, a.Hkv, a.NS);
-  paged_partial_kernel<T, KV, D, G><<<grid, kThreads, 0, a.stream>>>(
+  paged_partial_kernel<T, KV, D, Gp><<<grid, kThreads, 0, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const KV*>(a.k),
       static_cast<const KV*>(a.v), a.ks, a.vs, a.table, a.kv_lens, a.q_pos,
       a.part_o,
-      a.part_m, a.part_l, a.Hkv, a.PS, a.Tw, a.chunk, a.scale, a.window);
+      a.part_m, a.part_l, a.Hkv, G, a.PS, a.Tw, a.chunk, a.scale, a.window);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   paged_combine_kernel<T><<<dim3(a.B, a.Hkv), kThreads, 0, a.stream>>>(
@@ -289,17 +303,19 @@ int launch(const Args& a) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// G query heads a kv head on the instance of the next power of two.
 template <typename T, typename KV, int D>
 int dispatch_g(int G, const Args& a) {
-  switch (G) {
-    case 1: return launch<T, KV, D, 1>(a);
-    case 4: return launch<T, KV, D, 4>(a);
-  }
+  if (G == 1) return launch<T, KV, D, 1>(G, a);
+  if (G == 2) return launch<T, KV, D, 2>(G, a);
+  if (G >= 3 && G <= 4) return launch<T, KV, D, 4>(G, a);
+  if (G >= 5 && G <= 8) return launch<T, KV, D, 8>(G, a);
   return -1;
 }
 
 template <typename T, typename KV>
 int dispatch_d(int D, int G, const Args& a) {
+  if (D == 64) return dispatch_g<T, KV, 64>(G, a);
   if (D == 128) return dispatch_g<T, KV, 128>(G, a);
   return -1;
 }

@@ -29,17 +29,22 @@
 //   S) or partial. A step is kStep = 128 positions wide, the TPU kernel's
 //   block_k, so p is rounded at the running maxima the TPU kernel and the
 //   plain version hold.
-// * Work tile: 128 score rows a block, 128 / G queries x the G query heads
-//   of one kv head. The block first lists its non-empty steps from the
-//   classes, then walks only those. Two consumer warpgroups own 64 rows
+// * Work tile: 128 score rows a block, 128 / Gp queries x Gp rows a query,
+//   Gp the group of G query heads a kv head rounded up to a power of two:
+//   the rows of heads past G are padding, read as zeros and never written
+//   (Q and the output go through 5-D tensor maps {D, G, Hkv, S, B} whose
+//   boxes of Gp heads run past the group). The block first lists its
+//   non-empty steps from the classes, then walks only those. Two consumer warpgroups own 64 rows
 //   each and share every staged K/V tile; a producer warpgroup feeds them
 //   and gives up registers to them (setmaxnreg).
 // * Staging: a ring of 3 stages of K and V in shared memory with full /
 //   empty mbarriers. One producer thread brings Q once and each listed
 //   step's K and V by TMA through 4-D tensor maps over the strided views
-//   (dimensions ordered by stride, 128-byte swizzle, two 64-column boxes of
-//   128 rows a tile); rows past T (and queries past S) arrive as zeros.
-// * Products on wgmma m64n128k16, bf16 in, f32 accumulators: S = Q K^T with
+//   (dimensions ordered by stride, 128-byte swizzle, D / 64 64-column
+//   boxes of 128 rows a tile); rows past T (and queries past S) arrive as
+//   zeros.
+// * Products on wgmma (m64n128k16 for S, m64nDk16 for P V), bf16 in, f32
+//   accumulators: S = Q K^T with
 //   Q and K K-major in shared memory; P V with P from registers, rounded to
 //   bf16 (the score accumulator's fragment is already the A operand), V
 //   MN-major. The two warpgroups take turns at the tensor cores (named
@@ -61,13 +66,14 @@
 //   __grid_constant__ parameters; prefill runs eagerly.
 //
 // float32 (`flash_kernel_f32`): register-tiled f32 FMAs, 256 threads, 64
-// score rows and 64 positions a step, staging the step's byte mask and
+// score rows (64 / G queries of G rows; the rows past the last whole query
+// idle) and 64 positions a step, staging the step's byte mask and
 // skipping an empty one. Full float32 products: the exact-parity checks of
 // the engine run in this type. Its 64-wide steps change only the order of
 // the sums against the TPU kernel's 128-wide ones.
 //
-// Built for head_dim 128 with 1 or 4 query heads per kv head; a model with
-// other widths adds its instance to dispatch below.
+// Built for head_dim 64 and 128 (template instances) with 1 to 8 query
+// heads per kv head (a run-time argument of both kernels).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -78,6 +84,7 @@
 
 namespace {
 
+using tile::group_shift;
 using tile::pack_bf16;
 using tile::stage_chunk;
 
@@ -91,7 +98,7 @@ struct Args {
   void* out;
   uint32_t* bits;       // bf16: [B, S, 4 nKT] packed mask
   uint8_t* classes;     // bf16: [B, nQT, nKT] tile classes
-  int B, S, T, Hkv;
+  int B, S, T, Hkv, G;
   long long ksb, kst, ksh, vsb, vst, vsh;  // element strides of K and V
   float scale;
   cudaStream_t stream;
@@ -106,7 +113,7 @@ constexpr int kStep = 128;       // kv positions a step (the TPU's block_k)
 constexpr int kWords = kStep / 32;  // packed mask words of a row's step
 constexpr int kConsumers = 256;  // two consumer warpgroups
 constexpr int kThreadsWg = kConsumers + 128;
-constexpr int kRowBytes = 128;   // a staged row: 64 bf16
+constexpr int kRowBytes = 128;   // a staged row of a half: 64 bf16
 constexpr int kHalfBytes = kStep * kRowBytes;  // 128 rows of one half, 16 KB
 constexpr int kStages = 3;
 constexpr int kMaxSteps = 1024;  // kv steps a block can list: T <= 131072
@@ -116,21 +123,23 @@ constexpr uint8_t kEmpty = 0, kFull = 1, kPartial = 2;
 constexpr uint16_t kPartialBit = 0x8000;  // in a listed step: kt | bit
 
 // Shared memory, from a 1024-aligned base (the TMA's and wgmma's 128-byte
-// swizzle repeats every 1024 bytes): Q (two 64-column halves of 128 rows)
-// | a ring of 3 stages, each K's halves then V's | the block's list of
-// non-empty steps and its length | barriers (q_full, full[3], empty[3]).
-// 226 KB of the 227 a block can have.
+// swizzle repeats every 1024 bytes): Q (D / 64 64-column halves of 128
+// rows) | a ring of 3 stages, each K's halves then V's | the block's list
+// of non-empty steps and its length | barriers (q_full, full[3], empty[3]).
+// 226 KB of the 227 a block can have at D = 128.
+template <int D>
 struct WgLayout {
-  static constexpr int kQBytes = 2 * kHalfBytes;
+  static constexpr int kHalves = D / 64;
+  static constexpr int kQBytes = kHalves * kHalfBytes;
   static constexpr int kTile = kQBytes;
-  static constexpr int kTileBytes = 4 * kHalfBytes;
+  static constexpr int kTileBytes = 2 * kHalves * kHalfBytes;
   static constexpr int kList = kTile + kStages * kTileBytes;
   static constexpr int kCount = kList + kMaxSteps * 2;
   static constexpr int kBars = kCount + 16;
   static constexpr int kNumBars = 1 + 2 * kStages;
   static constexpr int kBytes = kBars + kNumBars * 8;
 };
-static_assert(WgLayout::kBytes <= 232448, "shared memory of one block");
+static_assert(WgLayout<128>::kBytes <= 232448, "shared memory of one block");
 
 // 16 mask bytes as 16 bits, byte i -> bit i.
 __device__ __forceinline__ uint32_t pack_bytes(uint4 v) {
@@ -179,25 +188,26 @@ __global__ void mask_tiles_kernel(const uint8_t* __restrict__ mask,
 }
 
 // The consumers' loop over the block's listed steps: warpgroup wg (0 or 1)
-// owns block rows 64 wg .. 64 wg + 63. Every listed step is walked by both
-// warpgroups; the products stay outside any branch, which keeps them
-// pipelined.
-template <int G>
+// owns block rows 64 wg .. 64 wg + 63, row r the query r >> gshift. Every
+// listed step is walked by both warpgroups; the products stay outside any
+// branch, which keeps them pipelined.
+template <int D>
 __device__ __forceinline__ void consume(
     uint8_t* smem, uint64_t* q_full, uint64_t* full, uint64_t* empty,
     const uint16_t* list, int steps, const CUtensorMap* o_map,
-    const uint32_t* __restrict__ bits, int b, int h, int tile_start, int S,
-    int row_words, float scale_log2, int wg, int tid) {
-  constexpr int D = 128;
-  using L = WgLayout;
+    const uint32_t* __restrict__ bits, int b, int h, int gshift,
+    int tile_start, int S, int row_words, float scale_log2, int wg,
+    int tid) {
+  using L = WgLayout<D>;
+  constexpr int kHalves = L::kHalves;
   const int warp = (tid >> 5) & 3;
   const int lane = tid & 31;
   const int g4 = lane >> 2;
   const int t4 = lane & 3;
   const int row0 = wg * 64 + warp * 16 + g4;  // this thread's two rows
   const int row1 = row0 + 8;
-  const int q_rel0 = tile_start + row0 / G;
-  const int q_rel1 = tile_start + row1 / G;
+  const int q_rel0 = tile_start + (row0 >> gshift);
+  const int q_rel1 = tile_start + (row1 >> gshift);
   // The packed mask rows of the two queries (none past S: not visible).
   const uint32_t* bits0 =
       q_rel0 < S ? bits + ((size_t)b * S + q_rel0) * row_words : nullptr;
@@ -208,10 +218,10 @@ __device__ __forceinline__ void consume(
     return smem + L::kTile + (i % kStages) * L::kTileBytes;
   };
 
-  float o[64], s[64];
+  float o[D / 2], s[64];
   uint32_t pa[kStep / 16][4];
 #pragma unroll
-  for (int i = 0; i < 64; ++i) o[i] = 0.f;
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
   float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
   uint32_t mw0[kWords], mw1[kWords];  // a partial step's mask bits
 
@@ -240,13 +250,17 @@ __device__ __forceinline__ void consume(
       o[4 * j + 2] *= alpha1;
       o[4 * j + 3] *= alpha1;
     }
-    const uint8_t* v_t = k_tile(i) + 2 * kHalfBytes;
+    const uint8_t* v_t = k_tile(i) + kHalves * kHalfBytes;
     hopper::wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < kStep / 16; ++kk)
-      hopper::wgmma_m64n128k16_rs_tb(
-          o, pa[kk],
-          hopper::desc_sw128(v_t + kk * 16 * kRowBytes, kHalfBytes, 1024));
+    for (int kk = 0; kk < kStep / 16; ++kk) {
+      const uint64_t desc =
+          hopper::desc_sw128(v_t + kk * 16 * kRowBytes, kHalfBytes, 1024);
+      if constexpr (D == 128)
+        hopper::wgmma_m64n128k16_rs_tb(o, pa[kk], desc);
+      else
+        hopper::wgmma_m64n64k16_rs_tb(o, pa[kk], desc);
+    }
     hopper::wgmma_commit();
   };
   // P in bf16, as the TPU kernel rounds it: the score fragments of n-tiles
@@ -400,9 +414,9 @@ __device__ __forceinline__ void consume(
   hopper::named_sync(4 + wg, 128);
   if ((tid & 127) == 0) {
 #pragma unroll
-    for (int c = 0; c < 2; ++c)
-      hopper::tma_store_4d(o_map, o_s + c * kHalfBytes, c * 64, h * G,
-                           tile_start + wg * 64 / G, b);
+    for (int c = 0; c < kHalves; ++c)
+      hopper::tma_store_5d(o_map, o_s + c * kHalfBytes, c * 64, 0, h,
+                           tile_start + ((wg * 64) >> gshift), b);
     hopper::tma_store_wait();
   }
 }
@@ -412,17 +426,19 @@ __device__ __forceinline__ void consume(
 constexpr int kProducerRegs = 40;
 constexpr int kConsumerRegs = 232;
 
-template <int G>
+template <int D>
 __global__ void __launch_bounds__(kThreadsWg, 1) flash_kernel_wgmma(
-    const __grid_constant__ CUtensorMap q_map,  // q as {D, Hq, S, B}
+    const __grid_constant__ CUtensorMap q_map,  // q as {D, G, Hkv, S, B}
     const __grid_constant__ CUtensorMap k_map,  // K, 4-D, by stride
     const __grid_constant__ CUtensorMap v_map,
     const __grid_constant__ CUtensorMap o_map,  // out, as q's, 64-row boxes
     const uint32_t* __restrict__ bits,          // [B, S, 4 nKT]
     const uint8_t* __restrict__ classes,        // [B, nQT, nKT]
-    int S, int nkt, int k_t_inner, int v_t_inner, float scale_log2) {
-  using L = WgLayout;
-  constexpr int BQ = kBlockRows / G;
+    int S, int gshift, int nkt, int k_t_inner, int v_t_inner,
+    float scale_log2) {
+  using L = WgLayout<D>;
+  constexpr int kHalves = L::kHalves;
+  const int BQ = kBlockRows >> gshift;
 
   extern __shared__ __align__(1024) uint8_t smem[];
   uint16_t* list = reinterpret_cast<uint16_t*>(smem + L::kList);
@@ -478,9 +494,10 @@ __global__ void __launch_bounds__(kThreadsWg, 1) flash_kernel_wgmma(
       // Q once, then each listed step's K and V: per tile two 64-column
       // boxes of 128 rows, coordinates innermost first in the map's order.
       hopper::mbar_arrive_expect_tx(q_full, L::kQBytes);
-      hopper::tma_load_4d(smem, &q_map, q_full, 0, h * G, tile_start, b);
-      hopper::tma_load_4d(smem + kHalfBytes, &q_map, q_full, 64, h * G,
-                          tile_start, b);
+#pragma unroll
+      for (int c = 0; c < kHalves; ++c)
+        hopper::tma_load_5d(smem + c * kHalfBytes, &q_map, q_full, c * 64, 0,
+                            h, tile_start, b);
       for (int i = 0; i < steps; ++i) {
         const int st = i % kStages;
         const int kv0 = (list[i] & ~kPartialBit) * kStep;
@@ -488,7 +505,8 @@ __global__ void __launch_bounds__(kThreadsWg, 1) flash_kernel_wgmma(
         hopper::mbar_arrive_expect_tx(&full[st], L::kTileBytes);
         uint8_t* dst = smem + L::kTile + st * L::kTileBytes;
 #pragma unroll
-        for (int c = 0; c < 2; ++c) {
+        for (int c = 0; c < kHalves; ++c) {
+          uint8_t* vdst = dst + (kHalves + c) * kHalfBytes;
           if (k_t_inner)
             hopper::tma_load_4d(dst + c * kHalfBytes, &k_map, &full[st],
                                 c * 64, kv0, h, b);
@@ -496,29 +514,27 @@ __global__ void __launch_bounds__(kThreadsWg, 1) flash_kernel_wgmma(
             hopper::tma_load_4d(dst + c * kHalfBytes, &k_map, &full[st],
                                 c * 64, h, kv0, b);
           if (v_t_inner)
-            hopper::tma_load_4d(dst + (2 + c) * kHalfBytes, &v_map, &full[st],
-                                c * 64, kv0, h, b);
+            hopper::tma_load_4d(vdst, &v_map, &full[st], c * 64, kv0, h, b);
           else
-            hopper::tma_load_4d(dst + (2 + c) * kHalfBytes, &v_map, &full[st],
-                                c * 64, h, kv0, b);
+            hopper::tma_load_4d(vdst, &v_map, &full[st], c * 64, h, kv0, b);
         }
       }
     }
   } else {
     hopper::setmaxnreg_inc<kConsumerRegs>();
-    consume<G>(smem, q_full, full, empty, list, steps, &o_map, bits, b, h,
-               tile_start, S, nkt * kWords, scale_log2, warp >> 2, tid);
+    consume<D>(smem, q_full, full, empty, list, steps, &o_map, bits, b, h,
+               gshift, tile_start, S, nkt * kWords, scale_log2, warp >> 2,
+               tid);
   }
 }
 
 // A 4-D map over a strided [B, T, Hkv, D] view: D, then T and the head in
 // the order of their strides (time-major or head-major storage), then B.
 // Sets t_inner when T comes before the head.
-int kv_map(CUtensorMap* map, const void* base, int B, int T, int Hkv,
+int kv_map(CUtensorMap* map, const void* base, int B, int T, int Hkv, int D,
            long long sb, long long st, long long sh, int& t_inner) {
-  constexpr uint64_t D = 128;
   t_inner = st <= sh;
-  const uint64_t dims[4] = {D, (uint64_t)(t_inner ? T : Hkv),
+  const uint64_t dims[4] = {(uint64_t)D, (uint64_t)(t_inner ? T : Hkv),
                             (uint64_t)(t_inner ? Hkv : T), (uint64_t)B};
   const uint64_t strides[3] = {(uint64_t)(t_inner ? st : sh) * 2,
                                (uint64_t)(t_inner ? sh : st) * 2,
@@ -538,45 +554,51 @@ int launch_mask_tiles(const uint8_t* mask, uint32_t* bits, uint8_t* classes,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int G>
+template <int D>
 int launch_wgmma(const Args& a) {
-  using L = WgLayout;
-  constexpr int BQ = kBlockRows / G;
-  constexpr uint64_t D = 128;
+  using L = WgLayout<D>;
+  const int gshift = group_shift(a.G);
+  const uint32_t gp = 1u << gshift;
+  const int BQ = kBlockRows >> gshift;
   const int nkt = (a.T + kStep - 1) / kStep;
   if (nkt > kMaxSteps) return -1;
   int err = launch_mask_tiles(a.mask, a.bits, a.classes, a.B, a.S, a.T, BQ,
                               a.stream);
   if (err != 0) return err;
-  const uint64_t Hq = (uint64_t)a.Hkv * G;
+  const uint64_t Hq = (uint64_t)a.Hkv * a.G;
   CUtensorMap q_map, o_map, k_map, v_map;
-  const uint64_t q_dims[4] = {D, Hq, (uint64_t)a.S, (uint64_t)a.B};
-  const uint64_t q_strides[3] = {D * 2, Hq * D * 2,
-                                 (uint64_t)a.S * Hq * D * 2};
-  const uint32_t q_box[4] = {64, (uint32_t)G, (uint32_t)BQ, 1};
-  err = hopper::encode_map(&q_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, a.q,
+  // q and out as {D, G, Hkv, S, B}: a box of gp heads of one kv head and
+  // BQ queries; heads past G read as zeros and are not written.
+  const uint64_t q_dims[5] = {(uint64_t)D, (uint64_t)a.G, (uint64_t)a.Hkv,
+                              (uint64_t)a.S, (uint64_t)a.B};
+  const uint64_t q_strides[4] = {(uint64_t)D * 2, (uint64_t)a.G * D * 2,
+                                 Hq * D * 2, (uint64_t)a.S * Hq * D * 2};
+  const uint32_t q_box[5] = {64, gp, 1, (uint32_t)BQ, 1};
+  err = hopper::encode_map(&q_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5, a.q,
                            q_dims, q_strides, q_box,
                            CU_TENSOR_MAP_SWIZZLE_128B);
   if (err != 0) return err;
-  const uint32_t o_box[4] = {64, (uint32_t)G, (uint32_t)(64 / G), 1};
-  err = hopper::encode_map(&o_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, a.out,
+  const uint32_t o_box[5] = {64, gp, 1, 64 / gp, 1};
+  err = hopper::encode_map(&o_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5, a.out,
                            q_dims, q_strides, o_box,
                            CU_TENSOR_MAP_SWIZZLE_128B);
   if (err != 0) return err;
   int k_t_inner = 0, v_t_inner = 0;
-  err = kv_map(&k_map, a.k, a.B, a.T, a.Hkv, a.ksb, a.kst, a.ksh, k_t_inner);
+  err = kv_map(&k_map, a.k, a.B, a.T, a.Hkv, D, a.ksb, a.kst, a.ksh,
+               k_t_inner);
   if (err != 0) return err;
-  err = kv_map(&v_map, a.v, a.B, a.T, a.Hkv, a.vsb, a.vst, a.vsh, v_t_inner);
+  err = kv_map(&v_map, a.v, a.B, a.T, a.Hkv, D, a.vsb, a.vst, a.vsh,
+               v_t_inner);
   if (err != 0) return err;
 
   cudaError_t cerr = cudaFuncSetAttribute(
-      flash_kernel_wgmma<G>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_kernel_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       L::kBytes);
   if (cerr != cudaSuccess) return static_cast<int>(cerr);
   const dim3 grid(a.Hkv, a.B, (a.S + BQ - 1) / BQ);
-  flash_kernel_wgmma<G><<<grid, kThreadsWg, L::kBytes, a.stream>>>(
-      q_map, k_map, v_map, o_map, a.bits, a.classes, a.S, nkt, k_t_inner,
-      v_t_inner, a.scale * kLog2e);
+  flash_kernel_wgmma<D><<<grid, kThreadsWg, L::kBytes, a.stream>>>(
+      q_map, k_map, v_map, o_map, a.bits, a.classes, a.S, gshift, nkt,
+      k_t_inner, v_t_inner, a.scale * kLog2e);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -584,17 +606,18 @@ int launch_wgmma(const Args& a) {
 // float32: register-tiled FMA products
 // ---------------------------------------------------------------------------
 
-constexpr int kRows = 64;   // score rows per block = (64 / G) queries x G
+constexpr int kRows = 64;   // score rows per block: (64 / G) queries x G
 constexpr int kTile = 64;   // kv positions per step
 constexpr int kThreads = 256;
 constexpr int kPStride = kTile + 1;
 
 // The step's mask tile [BQ][kTile] into shared memory (0 past S or T);
 // returns, in every thread, whether any position of it is visible.
-template <int BQ, int NTHREADS>
+template <int NTHREADS>
 __device__ __forceinline__ bool stage_mask(uint8_t* mask_s,
                                            const uint8_t* mask, int b, int S,
-                                           int T, int tile_start, int kv0) {
+                                           int T, int BQ, int tile_start,
+                                           int kv0) {
   int any = 0;
   for (int idx = threadIdx.x; idx < BQ * kTile; idx += NTHREADS) {
     const int qi = tile_start + idx / kTile;
@@ -608,14 +631,16 @@ __device__ __forceinline__ bool stage_mask(uint8_t* mask_s,
 }
 
 
-template <int D, int G>
+template <int D>
 __global__ void __launch_bounds__(kThreads) flash_kernel_f32(Args a) {
   // Rows padded to an odd stride: the strided reads below (row tx + 16*j of
   // k_s, column tx + 16*jj of v_s) then hit distinct banks.
   constexpr int SW = D + 1;
   constexpr int CPR = D / 4;          // 16-byte chunks per row
-  constexpr int BQ = kRows / G;       // queries per tile
   constexpr int NW = D / 16;          // output columns per thread
+  const int G = a.G;
+  const int BQ = kRows / G;           // queries per tile
+  const int rows = BQ * G;            // score rows in use
 
   extern __shared__ float smem_f32[];
   float* q_s = smem_f32;                     // [kRows][SW]
@@ -640,7 +665,8 @@ __global__ void __launch_bounds__(kThreads) flash_kernel_f32(Args a) {
     const int r = c / CPR;
     const int q_rel = tile_start + r / G;
     const float* src = nullptr;
-    if (q_rel < S) src = q + (((size_t)b * S + q_rel) * Hq + h * G + r % G) * D;
+    if (r < rows && q_rel < S)
+      src = q + (((size_t)b * S + q_rel) * Hq + h * G + r % G) * D;
     stage_chunk(q_s + r * SW, src, c % CPR);
   }
 
@@ -657,7 +683,7 @@ __global__ void __launch_bounds__(kThreads) flash_kernel_f32(Args a) {
   const float* vb = v + (size_t)b * a.vsb + (size_t)h * a.vsh;
   for (int kv0 = 0; kv0 < T; kv0 += kTile) {
     __syncthreads();  // the previous step is done with its tiles
-    if (!stage_mask<BQ, kThreads>(mask_s, a.mask, b, S, T, tile_start, kv0))
+    if (!stage_mask<kThreads>(mask_s, a.mask, b, S, T, BQ, tile_start, kv0))
       continue;
     for (int c = tid; c < kTile * CPR; c += kThreads) {
       const int r = c / CPR;
@@ -696,12 +722,14 @@ __global__ void __launch_bounds__(kThreads) flash_kernel_f32(Args a) {
     // that share ty (a half warp), reduced with shuffles.
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const uint8_t* mrow = mask_s + ((ty * 4 + i) / G) * kTile;
+      // A row past the last query sees nothing.
+      const bool row_ok = ty * 4 + i < rows;
+      const uint8_t* mrow = mask_s + (row_ok ? (ty * 4 + i) / G : 0) * kTile;
       bool valid[4];
       float mx = kNegInf;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        valid[j] = mrow[tx + 16 * j] != 0;
+        valid[j] = row_ok && mrow[tx + 16 * j] != 0;
         s[i][j] = valid[j] ? s[i][j] * a.scale : kNegInf;
         mx = fmaxf(mx, s[i][j]);
       }
@@ -749,7 +777,7 @@ __global__ void __launch_bounds__(kThreads) flash_kernel_f32(Args a) {
   for (int i = 0; i < 4; ++i) {
     const int r = ty * 4 + i;
     const int q_rel = tile_start + r / G;
-    if (q_rel >= S) continue;
+    if (r >= rows || q_rel >= S) continue;
     const float inv = 1.f / fmaxf(l[i], 1e-20f);
     float* orow = out + (((size_t)b * S + q_rel) * Hq + h * G + r % G) * D;
 #pragma unroll
@@ -757,26 +785,26 @@ __global__ void __launch_bounds__(kThreads) flash_kernel_f32(Args a) {
   }
 }
 
-template <int D, int G>
+template <int D>
 int launch_f32(const Args& a) {
-  constexpr int BQ = kRows / G;
+  const int BQ = kRows / a.G;
   const size_t smem_bytes =
       ((size_t)(kRows + 2 * kTile) * (D + 1) + (size_t)kRows * kPStride) *
           sizeof(float) +
       (size_t)BQ * kTile;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_kernel_f32<D, G>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_kernel_f32<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem_bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid((a.S + BQ - 1) / BQ, a.Hkv, a.B);
-  flash_kernel_f32<D, G><<<grid, kThreads, smem_bytes, a.stream>>>(a);
+  flash_kernel_f32<D><<<grid, kThreads, smem_bytes, a.stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int G>
-int dispatch_g(int dtype, const Args& a) {
-  if (dtype == 0) return launch_wgmma<G>(a);
-  if (dtype == 1) return launch_f32<128, G>(a);
+template <int D>
+int dispatch_d(int dtype, const Args& a) {
+  if (dtype == 0) return launch_wgmma<D>(a);
+  if (dtype == 1) return launch_f32<D>(a);
   return -1;
 }
 
@@ -788,33 +816,30 @@ int dispatch_g(int dtype, const Args& a) {
 // [B, S, T] bytes (nonzero = attend); out [B, S, Hkv*G, D]. dtype: 0 =
 // bfloat16, 1 = float32 (q, k, v, out). bf16 also takes the packed mask
 // `bits` [B, S, 4 nKT] int32 and the tile `classes` [B, nQT, nKT] uint8 as
-// scratch, nKT = ceil(T / 128) <= 1024, nQT = ceil(S / (128 / G)); f32
-// ignores them. Returns cudaGetLastError() after the launches, -1 for a
-// shape outside D = 128, G in {1, 4}, nKT <= 1024, or -2 if the driver
-// refused a tensor map.
+// scratch, nKT = ceil(T / 128) <= 1024, nQT = ceil(S / (128 / Gp)), Gp
+// the group rounded up to a power of two; f32 ignores them. Returns
+// cudaGetLastError() after the launches, -1 for a shape outside D in
+// {64, 128}, G in 1..8, nKT <= 1024, or -2 if the driver refused a tensor
+// map.
 extern "C" int dli_flash_attention(
     const void* q, const void* k, const void* v, const void* mask, void* out,
     void* bits, void* classes, int B, int S, int T, int Hkv, int G, int D,
     long long k_sb, long long k_st, long long k_sh, long long v_sb,
     long long v_st, long long v_sh, float scale, int dtype, void* stream) {
   if (B <= 0 || S <= 0) return 0;
-  if (D != 128) return -1;
+  if ((D != 64 && D != 128) || G < 1 || G > 8) return -1;
   Args a;
   a.q = q; a.k = k; a.v = v;
   a.mask = static_cast<const uint8_t*>(mask);
   a.out = out;
   a.bits = static_cast<uint32_t*>(bits);
   a.classes = static_cast<uint8_t*>(classes);
-  a.B = B; a.S = S; a.T = T; a.Hkv = Hkv;
+  a.B = B; a.S = S; a.T = T; a.Hkv = Hkv; a.G = G;
   a.ksb = k_sb; a.kst = k_st; a.ksh = k_sh;
   a.vsb = v_sb; a.vst = v_st; a.vsh = v_sh;
   a.scale = scale;
   a.stream = static_cast<cudaStream_t>(stream);
-  switch (G) {
-    case 1: return dispatch_g<1>(dtype, a);
-    case 4: return dispatch_g<4>(dtype, a);
-  }
-  return -1;
+  return D == 64 ? dispatch_d<64>(dtype, a) : dispatch_d<128>(dtype, a);
 }
 
 // The bf16 kernel's first pass alone: mask [B, S, T] bytes into `bits`

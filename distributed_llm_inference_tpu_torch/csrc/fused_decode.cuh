@@ -57,23 +57,27 @@
 // for a few flops). The kernel keeps every stage of a block in flight at
 // once by bulk copies, splits P V over the warps, and keeps the scores,
 // maxima and sums on chip: no scratch round trip, no second launch.
+//
+// Built for head_dim 64 and 128 (a template argument D) and 1 to 8 query
+// heads a kv head: the instances take the group rounded up to 1, 4 or 8
+// (Gp); the queries of heads past G are zeros, and their scores and sums,
+// computed beside the others, are never written out.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "hopper_tile.cuh"
 
 namespace fused {
 
-constexpr int kD = 128;                // head_dim the kernels are built for
-constexpr int kThreads = 128;          // one thread per output element
+constexpr int kThreads = 128;          // a thread per output element (D 128)
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxTile = 256;          // widest tile (page, stack tile, tail)
 constexpr int kEPL = 16;               // int8 elements per lane (16 bytes)
-constexpr int kLPP = kD / kEPL;        // lanes per position
-constexpr int kPPW = 32 / kLPP;        // positions per warp step
 // ops/attention.py:_NEG_INF, -0.7 * float32 max: finite, so that
 // (m_old - m_new) never becomes inf - inf.
 constexpr float kNegInf = -0.7f * 3.402823466e+38f;
@@ -131,6 +135,7 @@ struct Common {
   const int* step;                        // one int32 in device memory
   void* out;                              // [B, Hq, D]
   int B, Hkv, KT, layer;
+  int G, D;           // query heads a kv head, head_dim
   int W;              // widest piece: a stage's rows
   int NP;             // pieces a row may have
   float scale;
@@ -211,7 +216,7 @@ struct Geometry {
 __device__ __forceinline__ DenseRows tail_rows(const Common& a, int b,
                                                int h) {
   const size_t trow = ((size_t)a.layer * a.B + b) * a.Hkv + h;
-  return DenseRows{a.tail_k + trow * a.KT * kD, a.tail_v + trow * a.KT * kD,
+  return DenseRows{a.tail_k + trow * a.KT * a.D, a.tail_v + trow * a.KT * a.D,
                    a.tail_ks + trow * a.KT, a.tail_vs + trow * a.KT};
 }
 
@@ -242,7 +247,7 @@ template <>
 struct BigRows<true> {
   static __device__ PagedRows make(const Args& a, int b, int h) {
     const size_t lp = (size_t)a.layer * a.rows * a.Hkv * a.ps;
-    return PagedRows{a.big_k + lp * kD, a.big_v + lp * kD, a.big_ks + lp,
+    return PagedRows{a.big_k + lp * a.D, a.big_v + lp * a.D, a.big_ks + lp,
                      a.big_vs + lp, a.table + (size_t)b * a.tw, a.Hkv, h,
                      a.ps};
   }
@@ -251,7 +256,7 @@ template <>
 struct BigRows<false> {
   static __device__ DenseRows make(const Args& a, int b, int h) {
     const size_t r0 = (((size_t)a.layer * a.B + b) * a.Hkv + h) * a.rows;
-    return DenseRows{a.big_k + r0 * kD, a.big_v + r0 * kD, a.big_ks + r0,
+    return DenseRows{a.big_k + r0 * a.D, a.big_v + r0 * a.D, a.big_ks + r0,
                      a.big_vs + r0};
   }
 };
@@ -305,8 +310,9 @@ struct BigThenTail : Args {
 //    walk holds at that tile, exactly.
 // 3. Sums. Each block forms, for its pieces, p = exp(s - m_j) under the
 //    max of the piece's tile j, the sum of p, bf16(p * vs) and its P V (the
-//    warps take positions in turn, each lane 4 columns), each piece's sums
-//    scaled by exp(m_j - m_last) into the block's accumulators.
+//    warps take positions in turn, each lane 4 columns: a warp a position
+//    at D = 128, half a warp at D = 64), each piece's terms scaled by
+//    exp(m_j - m_last) into the block's accumulators.
 // 4. Reduce. Behind a second cluster barrier each block adds up its share
 //    of the output elements over the cluster's blocks, normalises and
 //    writes it; a third barrier keeps every block's shared memory alive
@@ -328,12 +334,14 @@ struct BigThenTail : Args {
 // device memory.
 //
 // The query's bf16-rounded slices sit in registers (qr) while a piece is
-// scored. A policy with a second query (the sink ring's q_sink, for its
-// sink piece), and the instance that reads K twice, have the queries
-// staged in shared memory, rounded, at the start: the first loads qr from
-// there whenever the next piece takes the other query, so no second
-// register set is held; the second loads qr before each piece it scores,
-// so that no query register is held through the sums.
+// scored, 4 heads at a time. A policy with a second query (the sink ring's
+// q_sink, for its sink piece), the instance that reads K twice and the
+// instances of 8 heads have the queries staged in shared memory, rounded,
+// at the start: the first loads qr from there whenever the next piece
+// takes the other query, so no second register set is held; the second
+// loads qr before each piece it scores, so that no query register is held
+// through the sums; the third loads each group of 4 heads before it scores
+// a piece with them, K read from the stage once a group.
 
 // 4 int8 (one word, element 0 in the low byte) as exact floats, without
 // conversion instructions: each byte, biased to b + 128, becomes the low
@@ -362,25 +370,33 @@ __host__ __device__ __forceinline__ int cluster_align(int x) {
   return (x + 127) & ~127;
 }
 
+// Whether the queries are staged in shared memory (see above): a second
+// query, K read twice, or more than 4 heads.
+__host__ __device__ constexpr bool staged_queries(bool two_q, bool keep,
+                                                  int G) {
+  return two_q || !keep || G > 4;
+}
+
 // Dynamic shared memory of one block, the same in every block of a launch,
-// for M pieces a block, NP pieces a row and W rows a piece: a ring of
-// `stages` stages (W rows of D int8, then W f32 scales), the scores
-// [M][G][W] (or [1][G][W] where `keep` is false), bf16(p * vs) [W][G], the
-// piece maxima [M][G] (and the warps' [M][kWarps][G]) and sizes [M], the
-// row's maxima [NP][G], the step's K/V and scales, the block's sums of l
-// [G], the queries' rounded values [1|2][G][D] (where a policy has a
-// second query or K is read twice), the sources of its loads (rows,
-// scales) [loads][2], the ring's barriers. The warps' P V partials, [kWarps][G][D], then the block's P V
-// [G][D] in their first slot, reuse the ring when it is large enough.
+// for M pieces a block, NP pieces a row, W rows a piece, G (the instance's
+// Gp) heads and head_dim D: a ring of `stages` stages (W rows of D int8,
+// then W f32 scales), the scores [M][G][W] (or [1][G][W] where `keep` is
+// false), bf16(p * vs) [W][G], the piece maxima [M][G] (and the warps'
+// [M][kWarps][G]) and sizes [M], the row's maxima [NP][G], the step's K/V
+// and scales, the block's sums of l [G], the queries' rounded values
+// [1|2][G][D] (where they are staged), the sources of its loads (rows,
+// scales) [loads][2], the ring's barriers. The warps' P V partials,
+// [kWarps][G][D], then the block's P V [G][D] in their first slot, reuse
+// the ring when it is large enough.
 struct ClusterSmem {
   int stage_bytes, stages, scores, pw, tmax, tmw, tn, pm, fresh, den, qs,
       srcs, red, bars, bytes;
   bool keep;  // the scores of every piece kept from phase 1 to the sums
-  __host__ __device__ ClusterSmem(int W, int M, int NP, int G, bool two_q,
-                                  bool keep_all)
+  __host__ __device__ ClusterSmem(int W, int M, int NP, int G, int D,
+                                  bool two_q, bool keep_all)
       : keep(keep_all) {
     const int loads = (keep ? 2 : 3) * M;
-    stage_bytes = cluster_align(W * kD + W * 4);
+    stage_bytes = cluster_align(W * D + W * 4);
     stages = kRingBudget / stage_bytes;
     if (stages < 2) stages = 2;
     if (stages > loads) stages = loads;
@@ -398,14 +414,14 @@ struct ClusterSmem {
     pm = off;
     off += NP * G * 4;
     fresh = cluster_align(off);
-    off = fresh + 2 * kD + 16;
+    off = fresh + 2 * D + 16;
     den = cluster_align(off);
     off = den + G * 4;
     qs = cluster_align(off);
-    off = qs + (two_q ? 2 : keep ? 0 : 1) * G * kD * 4;
+    off = qs + (two_q ? 2 : staged_queries(two_q, keep, G) ? 1 : 0) * G * D * 4;
     srcs = (off + 7) & ~7;
     off = srcs + loads * 16;
-    const int red_bytes = kWarps * G * kD * 4;
+    const int red_bytes = kWarps * G * D * 4;
     if (stages * stage_bytes >= red_bytes) {
       red = 0;
     } else {
@@ -420,21 +436,67 @@ struct ClusterSmem {
 // The layout of a launch: every piece's scores kept where that fits a
 // block, else one piece's (K read twice).
 __host__ __device__ inline ClusterSmem cluster_layout(int W, int M, int NP,
-                                                      int G, bool two_q) {
-  const ClusterSmem keep(W, M, NP, G, two_q, true);
-  return keep.bytes <= kSmemLimit ? keep
-                                  : ClusterSmem(W, M, NP, G, two_q, false);
+                                                      int G, int D,
+                                                      bool two_q) {
+  const ClusterSmem keep(W, M, NP, G, D, two_q, true);
+  return keep.bytes <= kSmemLimit
+             ? keep
+             : ClusterSmem(W, M, NP, G, D, two_q, false);
+}
+
+// The butterfly that sums each head's dot product over the LPP lanes of a
+// position (xor LPP / 2, ..., 1), as a reduce-scatter while more than one
+// head is left: each step a lane adds its partner's value of the heads it
+// keeps, every sum in the butterfly's order (a + b on one lane is b + a on
+// the other), so each value is bit for bit the full butterfly's. v holds
+// CNT heads; at the end v[0] holds head butterfly_head<CNT, O>(sub).
+template <int CNT, int O>
+__device__ __forceinline__ void head_butterfly(float* v, int sub) {
+  if constexpr (O > 0) {
+    if constexpr (CNT > 1) {
+      constexpr int H = CNT / 2;
+      const bool hi = (sub & O) != 0;
+#pragma unroll
+      for (int j = 0; j < H; ++j) {
+        const float send = hi ? v[j] : v[H + j];
+        const float keep = hi ? v[H + j] : v[j];
+        v[j] = keep + __shfl_xor_sync(0xffffffffu, send, O);
+      }
+      head_butterfly<H, O / 2>(v, sub);
+    } else {
+      v[0] += __shfl_xor_sync(0xffffffffu, v[0], O);
+      head_butterfly<1, O / 2>(v, sub);
+    }
+  }
+}
+
+// The head of the CNT that head_butterfly<CNT, O> leaves on lane `sub`:
+// the upper half at each step whose bit of sub is set.
+template <int CNT, int O>
+__device__ __forceinline__ int butterfly_head(int sub) {
+  int head = 0;
+#pragma unroll
+  for (int o = O, c = CNT / 2; c > 0 && o > 0; o >>= 1, c >>= 1)
+    if (sub & o) head += c;
+  return head;
 }
 
 // Keep: the layout keeps every piece's scores (the instance a launch takes
 // follows cluster_layout). Two instances, so that the one that keeps them
 // holds no query registers past the scores. L, the launch's layout, comes
 // as a parameter (its offsets read from the constant bank, not held in
-// registers).
-template <typename T, class P, int G, bool Keep>
+// registers). Gp heads (1, 4 or 8) of which a.G are real; D the head_dim.
+template <typename T, class P, int Gp, bool Keep, int D>
 __global__ void __launch_bounds__(kThreads, kClusterBlocksPerSM)
     fused_cluster_kernel(P a, const ClusterSmem L) {
-  static_assert(G == 1 || G == 4, "the instances this kernel is built for");
+  static_assert(Gp == 1 || Gp == 4 || Gp == 8, "the instances of the group");
+  static_assert(D == 64 || D == 128, "the instances of head_dim");
+  constexpr int kLPP = D / kEPL;          // lanes a position
+  constexpr int kPPW = 32 / kLPP;         // positions a warp step
+  constexpr int HG = Gp < 4 ? Gp : 4;     // heads scored at a time
+  constexpr int kGroups = Gp / HG;
+  constexpr int kPVLanes = D / 4;         // lanes a position in P V
+  constexpr int kPVPos = 32 / kPVLanes;   // positions a warp in P V
   extern __shared__ __align__(128) uint8_t csm[];
   __shared__ float red_s[kWarps];
   constexpr bool keep = Keep;
@@ -446,12 +508,13 @@ __global__ void __launch_bounds__(kThreads, kClusterBlocksPerSM)
   const int lane = t & 31;
   const int grp = lane / kLPP;
   const int sub = lane % kLPP;
+  const int G = a.G;
   // The step's K/V element of this thread, loaded before the memory
   // system fills with the ring's copies (only the quantizing block uses
   // them).
   const size_t bh = (size_t)b * a.Hkv + h;
-  const float kx = to_f(static_cast<const T*>(a.k_new)[bh * kD + t]);
-  const float vx = to_f(static_cast<const T*>(a.v_new)[bh * kD + t]);
+  const float kx = t < D ? to_f(static_cast<const T*>(a.k_new)[bh * D + t]) : 0.f;
+  const float vx = t < D ? to_f(static_cast<const T*>(a.v_new)[bh * D + t]) : 0.f;
   const auto geo = a.geo(b);
   const int npieces = geo.npieces;
   // This block's pieces: k = r + u * C, u < mine.
@@ -460,17 +523,17 @@ __global__ void __launch_bounds__(kThreads, kClusterBlocksPerSM)
   // Loads: K of each piece, then V of each (keep), or K of each, then K
   // and V of each in turn (the scores formed again before the sums).
   const int loads = (keep ? 2 : 3) * mine;
-  float* scores = reinterpret_cast<float*>(csm + L.scores);   // [M|1][G][W]
-  float* pw = reinterpret_cast<float*>(csm + L.pw);           // [W][G]
-  float* tmax = reinterpret_cast<float*>(csm + L.tmax);       // [M][G]
-  float* tmw = reinterpret_cast<float*>(csm + L.tmw);         // [M][kWarps][G]
+  float* scores = reinterpret_cast<float*>(csm + L.scores);   // [M|1][Gp][W]
+  float* pw = reinterpret_cast<float*>(csm + L.pw);           // [W][Gp]
+  float* tmax = reinterpret_cast<float*>(csm + L.tmax);       // [M][Gp]
+  float* tmw = reinterpret_cast<float*>(csm + L.tmw);         // [M][kWarps][Gp]
   int* tn = reinterpret_cast<int*>(csm + L.tn);               // [M]
-  float* pm = reinterpret_cast<float*>(csm + L.pm);           // [NP][G]
+  float* pm = reinterpret_cast<float*>(csm + L.pm);           // [NP][Gp]
   int8_t* fresh_k = reinterpret_cast<int8_t*>(csm + L.fresh);
-  int8_t* fresh_v = fresh_k + kD;
-  float* fresh_s = reinterpret_cast<float*>(fresh_v + kD);    // ks, vs
-  float* den_s = reinterpret_cast<float*>(csm + L.den);       // [G]
-  float* red = reinterpret_cast<float*>(csm + L.red);         // [kWarps][G][D]
+  int8_t* fresh_v = fresh_k + D;
+  float* fresh_s = reinterpret_cast<float*>(fresh_v + D);     // ks, vs
+  float* den_s = reinterpret_cast<float*>(csm + L.den);       // [Gp]
+  float* red = reinterpret_cast<float*>(csm + L.red);         // [kWarps][Gp][D]
   uint64_t* srcs = reinterpret_cast<uint64_t*>(csm + L.srcs);  // [loads][2]
   uint64_t* full = reinterpret_cast<uint64_t*>(csm + L.bars);
   const int R = L.stages;
@@ -505,13 +568,13 @@ __global__ void __launch_bounds__(kThreads, kClusterBlocksPerSM)
     load_of(idx, u, is_v);
     const int n = tn[u];
     uint8_t* st = stage(idx);
-    float* sc = reinterpret_cast<float*>(st + a.W * kD);
+    float* sc = reinterpret_cast<float*>(st + a.W * D);
     const float* ssrc = reinterpret_cast<const float*>(srcs[2 * idx + 1]);
     uint64_t* bar = &full[idx % R];
     if (lane == 0) {
-      hopper::mbar_arrive_expect_tx(bar, n * kD);
+      hopper::mbar_arrive_expect_tx(bar, n * D);
       hopper::bulk_load(st, reinterpret_cast<const void*>(srcs[2 * idx]),
-                        n * kD, bar);
+                        n * D, bar);
     }
     for (int i = lane; i < n; i += 32) hopper::cp_async_4(sc + i, ssrc + i, true);
     hopper::cp_async_arrive_noinc(bar);
@@ -529,7 +592,7 @@ __global__ void __launch_bounds__(kThreads, kClusterBlocksPerSM)
                     [&](const auto& rows, int vlo, int n, const auto&) {
                       const size_t r0 = rows.row(vlo);
                       srcs[2 * idx] = reinterpret_cast<uint64_t>(
-                          (is_v ? rows.v : rows.k) + r0 * kD);
+                          (is_v ? rows.v : rows.k) + r0 * D);
                       srcs[2 * idx + 1] = reinterpret_cast<uint64_t>(
                           (is_v ? rows.vs : rows.ks) + r0);
                       if (idx < mine) tn[u] = n;
@@ -542,7 +605,8 @@ __global__ void __launch_bounds__(kThreads, kClusterBlocksPerSM)
   // The step's K/V, quantized as _quantize_kv does, into tail slot `step`
   // (one block alone writes it) and into shared memory: by the block of
   // the piece that holds the slot just before it scores that piece, or by
-  // block 0 at the end of the scores when no piece holds it.
+  // block 0 at the end of the scores when no piece holds it. Threads past
+  // D hold zeros, which leave the maxima as they are.
   const int step = *a.step;
   const int sk = geo.step_piece(step);
   auto quantize = [&]() {
@@ -551,16 +615,18 @@ __global__ void __launch_bounds__(kThreads, kClusterBlocksPerSM)
     const int8_t kq = (int8_t)fminf(fmaxf(rintf(kx / ksc), -127.f), 127.f);
     const int8_t vq = (int8_t)fminf(fmaxf(rintf(vx / vsc), -127.f), 127.f);
     const size_t trow = ((size_t)a.layer * a.B + b) * a.Hkv + h;
-    a.tail_k[(trow * a.KT + step) * kD + t] = kq;
-    a.tail_v[(trow * a.KT + step) * kD + t] = vq;
+    if (t < D) {
+      a.tail_k[(trow * a.KT + step) * D + t] = kq;
+      a.tail_v[(trow * a.KT + step) * D + t] = vq;
+      fresh_k[t] = kq;
+      fresh_v[t] = vq;
+    }
     if (t == 0) {
       a.tail_ks[trow * a.KT + step] = ksc;
       a.tail_vs[trow * a.KT + step] = vsc;
       fresh_s[0] = ksc;
       fresh_s[1] = vsc;
     }
-    fresh_k[t] = kq;
-    fresh_v[t] = vq;
     __syncthreads();
   };
   // Puts the step's row (K or V) into the staged piece that holds slot
@@ -569,133 +635,122 @@ __global__ void __launch_bounds__(kThreads, kClusterBlocksPerSM)
   auto patch = [&](int k, int vlo, int n, uint8_t* st, bool is_v) {
     const int i = step - vlo;
     if (k != sk || i < 0 || i >= n) return;
-    st[i * kD + t] = static_cast<uint8_t>((is_v ? fresh_v : fresh_k)[t]);
+    if (t < D)
+      st[i * D + t] = static_cast<uint8_t>((is_v ? fresh_v : fresh_k)[t]);
     if (t == 0)
-      reinterpret_cast<float*>(st + a.W * kD)[i] = fresh_s[is_v ? 1 : 0];
+      reinterpret_cast<float*>(st + a.W * D)[i] = fresh_s[is_v ? 1 : 0];
     hopper::fence_proxy_async();
     __syncthreads();
   };
 
   // The query heads' slices, rounded to bf16 as the TPU kernel's product
   // does, in the lane layout of the scores: lane `sub` of a position holds
-  // elements [16 sub, 16 sub + 16) of each head. Staged (a second query, or
-  // K read twice): the queries go to shared memory first ([nq][G][D]) and
-  // qr is loaded from there, query `held`.
-  constexpr bool staged = P::kTwoQueries || !keep;
-  float qr[G][kEPL];
-  int held = -1;
+  // elements [16 sub, 16 sub + 16) of each head. Staged: the queries go to
+  // shared memory first ([nq][Gp][D], heads past G zero) and qr is loaded
+  // from there, query `held`, group of heads `held_group`.
+  constexpr bool staged = staged_queries(P::kTwoQueries, keep, Gp);
+  float qr[HG][kEPL];
+  int held = -1, held_group = -1;
   if constexpr (staged) {
     float* qs = reinterpret_cast<float*>(csm + L.qs);
 #pragma unroll
     for (int w = 0; w < (P::kTwoQueries ? 2 : 1); ++w) {
       const T* qsrc = static_cast<const T*>(a.query_ptr(w));
-#pragma unroll
-      for (int g = 0; g < G; ++g)
-        qs[(w * G + g) * kD + t] = bf16_round(to_f(qsrc[(bh * G + g) * kD + t]));
+      for (int e = t; e < Gp * D; e += kThreads) {
+        const int g = e / D;
+        qs[w * Gp * D + e] =
+            g < G ? bf16_round(to_f(qsrc[(bh * G + g) * D + e % D])) : 0.f;
+      }
     }
     __syncthreads();
   }
-  auto load_query = [&](int w) {
+  auto load_query = [&](int w, int hg) {
     if constexpr (staged) {
       const float* qs = reinterpret_cast<const float*>(csm + L.qs);
 #pragma unroll
-      for (int g = 0; g < G; ++g)
+      for (int j = 0; j < HG; ++j)
 #pragma unroll
         for (int e = 0; e < kEPL; e += 4) {
           const float4 v = *reinterpret_cast<const float4*>(
-              qs + (w * G + g) * kD + sub * kEPL + e);
-          qr[g][e] = v.x; qr[g][e + 1] = v.y; qr[g][e + 2] = v.z;
-          qr[g][e + 3] = v.w;
+              qs + (w * Gp + hg * HG + j) * D + sub * kEPL + e);
+          qr[j][e] = v.x; qr[j][e + 1] = v.y; qr[j][e + 2] = v.z;
+          qr[j][e + 3] = v.w;
         }
     } else {
       const T* qsrc = static_cast<const T*>(a.query_ptr(w));
 #pragma unroll
-      for (int g = 0; g < G; ++g) {
-        const T* qp = qsrc + (bh * G + g) * kD + sub * kEPL;
+      for (int j = 0; j < HG; ++j) {
+        const int g = hg * HG + j;
+        const T* qp = qsrc + (bh * G + g) * D + sub * kEPL;
 #pragma unroll
-        for (int e = 0; e < kEPL; ++e) qr[g][e] = bf16_round(to_f(qp[e]));
+        for (int e = 0; e < kEPL; ++e)
+          qr[j][e] = g < G ? bf16_round(to_f(qp[e])) : 0.f;
       }
     }
     held = w;
+    held_group = hg;
   };
-  if constexpr (!staged) load_query(0);
-  // Scores of piece k, staged at st, for the G query heads (K read once for
-  // all) into s_u [G][W]; with `maxima`, the warps' maxima of them into
-  // tmw's slot u.
+  if constexpr (!staged) load_query(0, 0);
+  // Scores of piece k, staged at st, for the Gp query heads into s_u
+  // [Gp][W], HG heads at a time (K read from the stage once a group); with
+  // `maxima`, the warps' maxima of them into tmw's slot u.
   auto score = [&](int k, uint8_t* st, float* s_u, bool maxima, int u) {
-    if constexpr (staged) {
-      const int w = a.query(geo, k);
-      if (!keep || w != held) load_query(w);
-    }
     a.visit_piece(geo, b, h, k, [&](const auto&, int vlo, int n,
                                     const auto& live) {
       patch(k, vlo, n, st, false);
-      const float* sc = reinterpret_cast<const float*>(st + a.W * kD);
-      // The max of the scores this lane writes (head sub / 2 for G = 4,
-      // head 0 on lane 0 of a position for G = 1).
-      float tm = kNegInf;
-      for (int i0 = warp * kPPW; i0 < n; i0 += kWarps * kPPW) {
-        const int i = i0 + grp;
-        const bool in = i < n;
-        const bool lv = in && live(i);
-        float kk[kEPL];
-        float ksc = 0.f;
-        if (lv) {
-          const uint4 w = reinterpret_cast<const uint4*>(st + i * kD)[sub];
-          i8x4_to_f32(w.x, kk);
-          i8x4_to_f32(w.y, kk + 4);
-          i8x4_to_f32(w.z, kk + 8);
-          i8x4_to_f32(w.w, kk + 12);
-          ksc = sc[i];
-        } else {
+      const float* sc = reinterpret_cast<const float*>(st + a.W * D);
+      // Head `head` of a group ends on the lanes whose bits below
+      // kLPP / HG are 0 (the writers).
+      const int head = butterfly_head<HG, kLPP / 2>(sub);
+      const bool writer = (sub & (kLPP / HG - 1)) == 0;
 #pragma unroll
-          for (int e = 0; e < kEPL; ++e) kk[e] = 0.f;
+      for (int hg = 0; hg < kGroups; ++hg) {
+        if constexpr (staged) {
+          const int w = a.query(geo, k);
+          if (!keep || w != held || hg != held_group) load_query(w, hg);
         }
-        float dot[G];
+        // The max of the scores this lane writes: one head of the group.
+        float tm = kNegInf;
+        for (int i0 = warp * kPPW; i0 < n; i0 += kWarps * kPPW) {
+          const int i = i0 + grp;
+          const bool in = i < n;
+          const bool lv = in && live(i);
+          float kk[kEPL];
+          float ksc = 0.f;
+          if (lv) {
+            const uint4 w = reinterpret_cast<const uint4*>(st + i * D)[sub];
+            i8x4_to_f32(w.x, kk);
+            i8x4_to_f32(w.y, kk + 4);
+            i8x4_to_f32(w.z, kk + 8);
+            i8x4_to_f32(w.w, kk + 12);
+            ksc = sc[i];
+          } else {
 #pragma unroll
-        for (int g = 0; g < G; ++g) {
-          dot[g] = 0.f;
-#pragma unroll
-          for (int e = 0; e < kEPL; ++e) dot[g] += qr[g][e] * kk[e];
-        }
-        if constexpr (G == 4) {
-          // The butterfly over the 8 lanes of a position (xor 4, 2, 1) as
-          // a reduce-scatter: each step a lane adds its partner's value of
-          // the heads it keeps, every sum in the butterfly's order (a + b
-          // on one lane is b + a on the other). Head g ends on lanes
-          // 2g, 2g + 1 of the position.
-          const bool hi4 = sub & 4, hi2 = sub & 2;
-          const float x0 = __shfl_xor_sync(0xffffffffu, hi4 ? dot[0] : dot[2], 4);
-          const float x1 = __shfl_xor_sync(0xffffffffu, hi4 ? dot[1] : dot[3], 4);
-          const float a0 = (hi4 ? dot[2] : dot[0]) + x0;
-          const float a1 = (hi4 ? dot[3] : dot[1]) + x1;
-          const float y = __shfl_xor_sync(0xffffffffu, hi2 ? a0 : a1, 2);
-          float c = (hi2 ? a1 : a0) + y;
-          c += __shfl_xor_sync(0xffffffffu, c, 1);
-          if (in && (sub & 1) == 0) {
-            const float sv = lv ? c * ksc * a.scale : kNegInf;
-            s_u[(sub >> 1) * a.W + i] = sv;
-            tm = fmaxf(tm, sv);
+            for (int e = 0; e < kEPL; ++e) kk[e] = 0.f;
           }
-        } else {
+          float dot[HG];
 #pragma unroll
-          for (int o = kLPP / 2; o > 0; o >>= 1)
-            dot[0] += __shfl_xor_sync(0xffffffffu, dot[0], o);
-          if (in && sub == 0) {
+          for (int j = 0; j < HG; ++j) {
+            dot[j] = 0.f;
+#pragma unroll
+            for (int e = 0; e < kEPL; ++e) dot[j] += qr[j][e] * kk[e];
+          }
+          head_butterfly<HG, kLPP / 2>(dot, sub);
+          if (in && writer) {
             const float sv = lv ? dot[0] * ksc * a.scale : kNegInf;
-            s_u[i] = sv;
+            s_u[(hg * HG + head) * a.W + i] = sv;
             tm = fmaxf(tm, sv);
           }
         }
-      }
-      if (maxima) {
-        // Over the warp's positions (lanes 8 apart hold the same head),
-        // then one value a (warp, head) for the piece's max below.
-        tm = fmaxf(tm, __shfl_xor_sync(0xffffffffu, tm, 8));
-        tm = fmaxf(tm, __shfl_xor_sync(0xffffffffu, tm, 16));
-        const bool writer = G == 4 ? (sub & 1) == 0 : sub == 0;
-        if (grp == 0 && writer)
-          tmw[((size_t)u * kWarps + warp) * G + (G == 4 ? sub >> 1 : 0)] = tm;
+        if (maxima) {
+          // Over the warp's positions (lanes kLPP apart hold the same
+          // head), then one value a (warp, head) for the piece's max below.
+#pragma unroll
+          for (int o = kLPP; o < 32; o <<= 1)
+            tm = fmaxf(tm, __shfl_xor_sync(0xffffffffu, tm, o));
+          if (grp == 0 && writer)
+            tmw[((size_t)u * kWarps + warp) * Gp + hg * HG + head] = tm;
+        }
       }
     });
   };
@@ -705,57 +760,61 @@ __global__ void __launch_bounds__(kThreads, kClusterBlocksPerSM)
     const int k = r + u * C;
     if (k == sk) quantize();
     wait_load(u);
-    score(k, stage(u), scores + (keep ? (size_t)u * G * a.W : 0), true, u);
+    score(k, stage(u), scores + (keep ? (size_t)u * Gp * a.W : 0), true, u);
     __syncthreads();  // the stage is read
     if (warp == 0 && u + R < loads) issue(u + R);
   }
   if (sk < 0 && r == 0) quantize();
   // Each piece's max over the warps.
-  for (int e = t; e < mine * G; e += kThreads) {
-    const int u = e / G, g = e % G;
+  for (int e = t; e < mine * Gp; e += kThreads) {
+    const int u = e / Gp, g = e % Gp;
     float m = kNegInf;
 #pragma unroll
     for (int w = 0; w < kWarps; ++w)
-      m = fmaxf(m, tmw[((size_t)u * kWarps + w) * G + g]);
+      m = fmaxf(m, tmw[((size_t)u * kWarps + w) * Gp + g]);
     tmax[e] = m;
   }
 
   // 2. The row's piece maxima from the cluster; their running maxima; each
   //    piece then takes the running max at the end of its tile.
   hopper::cluster_sync();
-  for (int e = t; e < npieces * G; e += kThreads) {
-    const int k = e / G, g = e % G;
-    pm[e] = hopper::cluster_load(tmax + (k / C) * G + g, k % C);
+  for (int e = t; e < npieces * Gp; e += kThreads) {
+    const int k = e / Gp, g = e % Gp;
+    pm[e] = hopper::cluster_load(tmax + (k / C) * Gp + g, k % C);
   }
   __syncthreads();
-  if (warp < G) {
-    // Warp g, head g: the running maxima by a max-scan over the lanes, 32
-    // pieces at a time; then each piece takes the value of its tile's last
-    // piece (which keeps its own, so the pass needs no second buffer).
+  for (int g = warp; g < Gp; g += kWarps) {
+    // Warp w, heads w, w + 4: the running maxima by a max-scan over the
+    // lanes, 32 pieces at a time; then each piece takes the value of its
+    // tile's last piece (which keeps its own, so the pass needs no second
+    // buffer).
     float carry = kNegInf;
     for (int k0 = 0; k0 < npieces; k0 += 32) {
       const int k = k0 + lane;
-      float m = k < npieces ? pm[k * G + warp] : kNegInf;
+      float m = k < npieces ? pm[k * Gp + g] : kNegInf;
 #pragma unroll
       for (int o = 1; o < 32; o <<= 1) {
         const float y = __shfl_up_sync(0xffffffffu, m, o);
         if (lane >= o) m = fmaxf(m, y);
       }
       m = fmaxf(m, carry);
-      if (k < npieces) pm[k * G + warp] = m;
+      if (k < npieces) pm[k * Gp + g] = m;
       carry = __shfl_sync(0xffffffffu, m, 31);
     }
     __syncwarp();
     for (int k = lane; k < npieces; k += 32)
-      pm[k * G + warp] = pm[geo.tile_last_piece(k) * G + warp];
+      pm[k * Gp + g] = pm[geo.tile_last_piece(k) * Gp + g];
   }
   __syncthreads();
 
-  // 3. Sums of each piece under the running max at its tile.
-  float m_last[G], acc[G][4], den[G];
+  // 3. Sums of each piece under the running max at its tile. A lane takes
+  //    4 columns of V at its position of the warp's kPVPos.
+  const int pv_pos = lane / kPVLanes;
+  const int pv_col = lane % kPVLanes;
+  float m_last[Gp], acc[Gp][4], den[Gp];
 #pragma unroll
-  for (int g = 0; g < G; ++g) {
-    m_last[g] = npieces > 0 ? pm[(npieces - 1) * G + g] : kNegInf;
+  for (int g = 0; g < Gp; ++g) {
+    m_last[g] = npieces > 0 ? pm[(npieces - 1) * Gp + g] : kNegInf;
     den[g] = 0.f;
 #pragma unroll
     for (int c = 0; c < 4; ++c) acc[g][c] = 0.f;
@@ -763,7 +822,7 @@ __global__ void __launch_bounds__(kThreads, kClusterBlocksPerSM)
   for (int u = 0; u < mine; ++u) {
     const int k = r + u * C;
     int idx = keep ? mine + u : mine + 2 * u;
-    const float* s_u = scores + (keep ? (size_t)u * G * a.W : 0);
+    const float* s_u = scores + (keep ? (size_t)u * Gp * a.W : 0);
     if constexpr (!keep) {
       // The piece's scores again, from a second copy of its K.
       wait_load(idx);
@@ -777,108 +836,128 @@ __global__ void __launch_bounds__(kThreads, kClusterBlocksPerSM)
     a.visit_piece(geo, b, h, k, [&](const auto&, int vlo, int n,
                                     const auto& live) {
       patch(k, vlo, n, st, true);
-      const float* vsc = reinterpret_cast<const float*>(st + a.W * kD);
-      float mj[G], wj[G];
+      const float* vsc = reinterpret_cast<const float*>(st + a.W * D);
+      float wj[Gp];
 #pragma unroll
-      for (int g = 0; g < G; ++g) {
-        mj[g] = pm[k * G + g];
-        wj[g] = expf(mj[g] - m_last[g]);
+      for (int g = 0; g < Gp; ++g) {
+        const float mj = pm[k * Gp + g];
+        wj[g] = expf(mj - m_last[g]);
         float lsum = 0.f;
         for (int i = t; i < n; i += kThreads) {
-          const float p = live(i) ? expf(s_u[g * a.W + i] - mj[g]) : 0.f;
+          const float p = live(i) ? expf(s_u[g * a.W + i] - mj) : 0.f;
           lsum += p;
-          pw[i * G + g] = bf16_round(p * vsc[i]);
+          pw[i * Gp + g] = bf16_round(p * vsc[i]);
         }
         den[g] += wj[g] * lsum;
       }
       __syncthreads();  // pw
-      float pv[G][4];
+      // P V, HG heads at a time (V read from the stage once a group).
 #pragma unroll
-      for (int g = 0; g < G; ++g)
+      for (int hg = 0; hg < kGroups; ++hg) {
+        float pv[HG][4];
 #pragma unroll
-        for (int c = 0; c < 4; ++c) pv[g][c] = 0.f;
-      for (int i = warp; i < n; i += kWarps) {
-        float v[4];
-        i8x4_to_f32(reinterpret_cast<const uint32_t*>(st + i * kD)[lane], v);
-        float p[G];
-        if constexpr (G == 4) {
-          const float4 p4 = *reinterpret_cast<const float4*>(pw + i * G);
-          p[0] = p4.x; p[1] = p4.y; p[2] = p4.z; p[3] = p4.w;
-        } else {
+        for (int j = 0; j < HG; ++j)
 #pragma unroll
-          for (int g = 0; g < G; ++g) p[g] = pw[i * G + g];
+          for (int c = 0; c < 4; ++c) pv[j][c] = 0.f;
+        for (int i = warp * kPVPos + pv_pos; i < n; i += kWarps * kPVPos) {
+          float v[4];
+          i8x4_to_f32(reinterpret_cast<const uint32_t*>(st + i * D)[pv_col],
+                      v);
+          float p[HG];
+          if constexpr (HG == 4) {
+            const float4 p4 =
+                *reinterpret_cast<const float4*>(pw + i * Gp + hg * HG);
+            p[0] = p4.x; p[1] = p4.y; p[2] = p4.z; p[3] = p4.w;
+          } else {
+#pragma unroll
+            for (int j = 0; j < HG; ++j) p[j] = pw[i * Gp + hg * HG + j];
+          }
+#pragma unroll
+          for (int j = 0; j < HG; ++j)
+#pragma unroll
+            for (int c = 0; c < 4; ++c) pv[j][c] += p[j] * v[c];
         }
 #pragma unroll
-        for (int g = 0; g < G; ++g)
+        for (int j = 0; j < HG; ++j)
 #pragma unroll
-          for (int c = 0; c < 4; ++c) pv[g][c] += p[g] * v[c];
+          for (int c = 0; c < 4; ++c)
+            acc[hg * HG + j][c] += wj[hg * HG + j] * pv[j][c];
       }
-#pragma unroll
-      for (int g = 0; g < G; ++g)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) acc[g][c] += wj[g] * pv[g][c];
     });
     __syncthreads();  // the stage, pw and the scores are read
     if (warp == 0 && idx + R < loads) issue(idx + R);
   }
 
-  // The block's sums: P V over its warps (red, over the drained ring), l
-  // over its threads (a warp's sum into tmw, free since the maxima).
+  // The block's sums: P V over its warps (red, over the drained ring; at
+  // D = 64 a warp's two half-warps first), l over its threads (a warp's
+  // sum into tmw, free since the maxima).
 #pragma unroll
-  for (int g = 0; g < G; ++g) {
-    *reinterpret_cast<float4*>(red + ((size_t)warp * G + g) * kD + 4 * lane) =
-        make_float4(acc[g][0], acc[g][1], acc[g][2], acc[g][3]);
+  for (int g = 0; g < Gp; ++g) {
+#pragma unroll
+    for (int o = kPVLanes; o < 32; o <<= 1)
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        acc[g][c] += __shfl_xor_sync(0xffffffffu, acc[g][c], o);
+    if (pv_pos == 0)
+      *reinterpret_cast<float4*>(red + ((size_t)warp * Gp + g) * D +
+                                 4 * pv_col) =
+          make_float4(acc[g][0], acc[g][1], acc[g][2], acc[g][3]);
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1)
       den[g] += __shfl_xor_sync(0xffffffffu, den[g], o);
-    if (lane == 0) tmw[warp * G + g] = den[g];
+    if (lane == 0) tmw[warp * Gp + g] = den[g];
   }
   __syncthreads();
+  if (t < D) {
 #pragma unroll
-  for (int g = 0; g < G; ++g) {
-    float s = 0.f;
+    for (int g = 0; g < Gp; ++g) {
+      float s = 0.f;
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) s += red[((size_t)w * G + g) * kD + t];
-    red[(size_t)g * kD + t] = s;  // slot of warp 0: only this thread reads it
+      for (int w = 0; w < kWarps; ++w) s += red[((size_t)w * Gp + g) * D + t];
+      red[(size_t)g * D + t] = s;  // slot of warp 0: only this thread reads it
+    }
   }
-  if (t < G) {
+  if (t < Gp) {
     float l = 0.f;
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) l += tmw[w * G + t];
+    for (int w = 0; w < kWarps; ++w) l += tmw[w * Gp + t];
     den_s[t] = l;
   }
 
-  // 4. The cluster's sums of this block's share of the outputs.
+  // 4. The cluster's sums of this block's share of the outputs (the G real
+  //    heads).
   hopper::cluster_sync();
-  const int share = (G * kD + C - 1) / C;
-  const int end = min((r + 1) * share, G * kD);
+  const int share = (G * D + C - 1) / C;
+  const int end = min((r + 1) * share, G * D);
   for (int e = r * share + t; e < end; e += kThreads) {
-    const int g = e / kD;
+    const int g = e / D;
     float num = 0.f, l = 0.f;
     for (int k = 0; k < C; ++k) {
       num += hopper::cluster_load(red + e, k);
       l += hopper::cluster_load(den_s + g, k);
     }
     // A row with nothing to attend gives zeros.
-    store(static_cast<T*>(a.out) + ((size_t)b * a.Hkv + h) * G * kD + e,
-          num / fmaxf(l, 1e-20f));
+    store(static_cast<T*>(a.out) + bh * G * D + e, num / fmaxf(l, 1e-20f));
   }
   hopper::cluster_sync();
 }
 
-// The cluster launch of fused_cluster_kernel<T, P, G, keep> for `a`: M
+// The group's instance: 1, 4 (G = 2..4) or 8 (G = 5..8) heads.
+inline int padded_group(int G) { return G <= 1 ? 1 : G <= 4 ? 4 : 8; }
+
+// The cluster launch of fused_cluster_kernel<T, P, Gp, keep, D> for `a`: M
 // pieces a block at most, the layout and the shared memory it needs set on
 // the kernel.
 // `clusters`, when not null, receives how many such clusters the card holds
 // at once instead of a launch.
-template <typename T, class P, int G>
+template <typename T, class P, int Gp, int D>
 int launch_cluster(const P& a, cudaStream_t s, int* clusters = nullptr) {
   constexpr int C = kCluster;
   const int M = (a.NP + C - 1) / C;
-  const ClusterSmem L = cluster_layout(a.W, M, a.NP, G, P::kTwoQueries);
+  const ClusterSmem L = cluster_layout(a.W, M, a.NP, Gp, D, P::kTwoQueries);
   if (L.bytes > kSmemLimit) return -1;
-  auto* kernel = L.keep ? fused_cluster_kernel<T, P, G, true>
-                        : fused_cluster_kernel<T, P, G, false>;
+  auto* kernel = L.keep ? fused_cluster_kernel<T, P, Gp, true, D>
+                        : fused_cluster_kernel<T, P, Gp, false, D>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L.bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -902,27 +981,61 @@ int launch_cluster(const P& a, cudaStream_t s, int* clusters = nullptr) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// The cluster launch's plan for pieces of W rows, NP a row, G query heads a
-// kv head (bf16 queries) under the policy P: out[0] blocks a cluster,
-// out[1] pieces a block can hold (M), out[2] ring stages, out[3] bytes a
-// stage, out[4] dynamic shared memory bytes a block, out[5] the clusters
-// the card holds at once, out[6] 1 if every piece's scores are kept (0: K
-// is read twice). Returns 0, -1 outside G in {1, 4} or past a block's
-// shared memory, or the CUDA error of the occupancy query.
+// The instances: G in 1..8 query heads a kv head (a.G), head_dim a.D in
+// {64, 128}, q in bf16 (dtype 0) or f32 (1). -1 for any other.
 template <class P>
-int cluster_plan(int NP, int W, int G, long long* out) {
-  if ((G != 1 && G != 4) || NP < 1 || W < 1) return -1;
+int dispatch_cluster(const P& a, int dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (a.G < 1 || a.G > 8 || (a.D != 64 && a.D != 128) ||
+      (dtype != 0 && dtype != 1))
+    return -1;
+  const int gp = padded_group(a.G);
+  auto go = [&](auto t_tag, auto d_tag) -> int {
+    using T = decltype(t_tag);
+    constexpr int D = decltype(d_tag)::value;
+    if (gp == 1) return launch_cluster<T, P, 1, D>(a, s);
+    if (gp == 4) return launch_cluster<T, P, 4, D>(a, s);
+    return launch_cluster<T, P, 8, D>(a, s);
+  };
+  using D64 = std::integral_constant<int, 64>;
+  using D128 = std::integral_constant<int, 128>;
+  if (dtype == 0)
+    return a.D == 64 ? go(__nv_bfloat16(), D64()) : go(__nv_bfloat16(), D128());
+  return a.D == 64 ? go(float(), D64()) : go(float(), D128());
+}
+
+// The cluster launch's plan for pieces of W rows, NP a row, G query heads a
+// kv head at head_dim D (bf16 queries) under the policy P: out[0] blocks a
+// cluster, out[1] pieces a block can hold (M), out[2] ring stages, out[3]
+// bytes a stage, out[4] dynamic shared memory bytes a block, out[5] the
+// clusters the card holds at once, out[6] 1 if every piece's scores are
+// kept (0: K is read twice). Returns 0, -1 outside G in 1..8, D in
+// {64, 128} or past a block's shared memory, or the CUDA error of the
+// occupancy query.
+template <class P>
+int cluster_plan(int NP, int W, int G, int D, long long* out) {
+  if (G < 1 || G > 8 || (D != 64 && D != 128) || NP < 1 || W < 1) return -1;
+  const int gp = padded_group(G);
   const int M = (NP + kCluster - 1) / kCluster;
-  const ClusterSmem L = cluster_layout(W, M, NP, G, P::kTwoQueries);
+  const ClusterSmem L = cluster_layout(W, M, NP, gp, D, P::kTwoQueries);
   P a;
   a.NP = NP;
   a.W = W;
   a.B = 1;
   a.Hkv = 1;
+  a.G = G;
+  a.D = D;
   int clusters = 0;
-  const int err =
-      G == 1 ? launch_cluster<__nv_bfloat16, P, 1>(a, nullptr, &clusters)
-             : launch_cluster<__nv_bfloat16, P, 4>(a, nullptr, &clusters);
+  auto query = [&](auto d_tag) -> int {
+    constexpr int Dc = decltype(d_tag)::value;
+    if (gp == 1)
+      return launch_cluster<__nv_bfloat16, P, 1, Dc>(a, nullptr, &clusters);
+    if (gp == 4)
+      return launch_cluster<__nv_bfloat16, P, 4, Dc>(a, nullptr, &clusters);
+    return launch_cluster<__nv_bfloat16, P, 8, Dc>(a, nullptr, &clusters);
+  };
+  const int err = D == 64 ? query(std::integral_constant<int, 64>())
+                          : query(std::integral_constant<int, 128>());
   if (err != 0) return err;
   out[0] = kCluster;
   out[1] = M;
@@ -934,29 +1047,17 @@ int cluster_plan(int NP, int W, int G, long long* out) {
   return 0;
 }
 
-// The instances: G in {1, 4} query heads a kv head, q in bf16 (dtype 0) or
-// f32 (1). -1 for any other.
-template <class P>
-int dispatch_cluster(const P& a, int G, int dtype, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && G == 1) return launch_cluster<__nv_bfloat16, P, 1>(a, s);
-  if (dtype == 0 && G == 4) return launch_cluster<__nv_bfloat16, P, 4>(a, s);
-  if (dtype == 1 && G == 1) return launch_cluster<float, P, 1>(a, s);
-  if (dtype == 1 && G == 4) return launch_cluster<float, P, 4>(a, s);
-  return -1;
-}
-
-// dtype: 0 = bfloat16, 1 = float32 (q, k_new, v_new, out). Returns cudaGetLastError() after the
-// launch, or -1 for a shape the kernel is not built for (D = 128, G in
-// {1, 4}, tiles and tail of 1..256, pieces inside one tile each, NP and W
-// that hold every row's pieces, shared memory within a block's 227 KB).
+// dtype: 0 = bfloat16, 1 = float32 (q, k_new, v_new, out); a.G and a.D the
+// group and head_dim. Returns cudaGetLastError() after the launch, or -1
+// for a shape the kernel is not built for (D in {64, 128}, G in 1..8,
+// tiles and tail of 1..256, pieces inside one tile each, NP and W that
+// hold every row's pieces, shared memory within a block's 227 KB).
 template <bool Paged>
-int launch(const Args& a, int G, int D, int dtype, void* stream) {
+int launch(const Args& a, int dtype, void* stream) {
   if (a.B <= 0) return 0;
   const int tw = Paged ? a.ps : a.tile_w;
   const int cap = Paged ? a.tw * a.ps : a.rows;
-  if (D != kD || a.KT < 1 || a.KT > kMaxTile || tw < 1 || tw > kMaxTile)
-    return -1;
+  if (a.KT < 1 || a.KT > kMaxTile || tw < 1 || tw > kMaxTile) return -1;
   const int pw = Paged ? a.ps : a.piece_w;
   const int tpw = Paged ? a.KT : a.piece_w;
   if (pw < 1 || (tw % pw != 0 && tw < cap)) return -1;
@@ -965,7 +1066,7 @@ int launch(const Args& a, int G, int D, int dtype, void* stream) {
     return -1;
   BigThenTail<Paged> p;
   static_cast<Args&>(p) = a;
-  return dispatch_cluster(p, G, dtype, stream);
+  return dispatch_cluster(p, dtype, stream);
 }
 
 }  // namespace fused

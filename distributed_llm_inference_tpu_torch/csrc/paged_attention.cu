@@ -31,10 +31,10 @@
 //   (and only those inside the sliding window); a block whose range holds
 //   no live position writes (m = -0.7 * float32 max, l = 0) and leaves.
 //
-// Built for head_dim 128 with 1 or 4 query heads per kv head (MHA, and the
-// Llama-3 grouping this package serves); a model with other widths adds its
-// instance to paged_decode.cuh's dispatch and decode_attention.cuh's
-// dispatch_g / dispatch_d.
+// Built for head_dim 64 and 128 with 1 to 8 query heads per kv head (MHA,
+// and the published GQA groupings up to Llama-3-70B's 8); a model with
+// other widths adds its instance to paged_decode.cuh's dispatch and
+// decode_attention.cuh's dispatch_g / dispatch_d.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -49,8 +49,8 @@
 // q_pos [B] int32; out as q, m_out / l_out f32 [B, Hkv, G]. window: 0 = no
 // sliding window. One launch of paged_decode.cuh's kernel, a cluster of C
 // blocks (1..8) a (row, kv head). Returns cudaGetLastError() after the
-// launch, -1 for a shape outside D = 128, G in {1, 4}, -2 if the driver
-// refused a tensor map.
+// launch, -1 for a shape outside D in {64, 128}, G in 1..8, -2 if the
+// driver refused a tensor map.
 extern "C" int dli_paged_attention_bf16(
     const void* q, const void* k_pages, const void* v_pages,
     const void* table, const void* kv_lens, const void* q_pos, void* out,
@@ -87,17 +87,18 @@ extern "C" int dli_quantized_paged_attention_bf16(
 }
 
 // The occupancy of the cluster kernel over bf16 (int8 = 0) or int8 rows
-// with G query heads a kv head, clusters of C blocks: out[0] shared memory
-// a block, out[1] blocks an SM, out[2] clusters the card holds at once.
-// Returns 0, -1 outside G in {1, 4} and C in 1..8, or a CUDA error.
-extern "C" int dli_decode_occupancy(int int8, int G, int C, long long* out) {
+// of head_dim D (any G: its shared memory does not depend on it), clusters
+// of C blocks: out[0] shared memory a block, out[1] blocks an SM, out[2]
+// clusters the card holds at once. Returns 0, -1 outside D in {64, 128}
+// and C in 1..8, or a CUDA error.
+extern "C" int dli_decode_occupancy(int int8, int D, int C, long long* out) {
   if (C < 1 || C > pdec::kMaxCluster) return -1;
-  if (G == 1)
-    return int8 ? pdec::occupancy<1, int8_t>(C, out)
-                : pdec::occupancy<1, __nv_bfloat16>(C, out);
-  if (G == 4)
-    return int8 ? pdec::occupancy<4, int8_t>(C, out)
-                : pdec::occupancy<4, __nv_bfloat16>(C, out);
+  if (D == 64)
+    return int8 ? pdec::occupancy<64, int8_t>(C, out)
+                : pdec::occupancy<64, __nv_bfloat16>(C, out);
+  if (D == 128)
+    return int8 ? pdec::occupancy<128, int8_t>(C, out)
+                : pdec::occupancy<128, __nv_bfloat16>(C, out);
   return -1;
 }
 
@@ -106,7 +107,7 @@ extern "C" int dli_decode_occupancy(int int8, int G, int C, long long* out) {
 // share a row's positions, `chunk` positions each (NS * chunk >= Tw * PS);
 // part_o / part_m / part_l are f32 scratch of [B, Hkv, NS, G, D] and twice
 // [B, Hkv, NS, G]. Returns cudaGetLastError() after the launches, or -1 for
-// a shape outside D = 128, G in {1, 4}, or another dtype.
+// a shape outside D in {64, 128}, G in 1..8, or another dtype.
 extern "C" int dli_paged_attention(
     const void* q, const void* k_pages, const void* v_pages,
     const void* table, const void* kv_lens, const void* q_pos, void* out,
@@ -150,8 +151,8 @@ extern "C" int dli_quantized_paged_attention(
 // D] tail are passed; `layer` picks the layer, `step` is read from device
 // memory; NT >= Tw + 1 tiles a row and W >= max(PS, KT) size the shared
 // memory. Returns cudaGetLastError() after the launch, -1 for a shape
-// outside D = 128, G in {1, 4}, PS and KT in 1..256, or one whose shared
-// memory does not fit a block.
+// outside D in {64, 128}, G in 1..8, PS and KT in 1..256, or one whose
+// shared memory does not fit a block.
 extern "C" int dli_quantized_paged_fused_attention(
     const void* q, const void* k_new, const void* v_new, const void* pool_k,
     const void* pool_ks, const void* pool_v, const void* pool_vs,
@@ -180,7 +181,8 @@ extern "C" int dli_quantized_paged_fused_attention(
   a.B = B; a.Hkv = Hkv; a.rows = P; a.ps = PS; a.tw = Tw; a.tile_w = PS;
   a.piece_w = PS;
   a.KT = KT; a.layer = layer; a.window = window; a.scale = scale;
-  return fused::launch<true>(a, G, D, dtype, stream);
+  a.G = G; a.D = D;
+  return fused::launch<true>(a, dtype, stream);
 }
 
 namespace {
@@ -234,8 +236,9 @@ extern "C" int dli_paged_tail_flush(
 
 // The fused step's cluster launch at these widths (bf16 queries), as
 // fused::launch_cluster makes it, NT tiles a row (a page each) of W rows:
-// fused::cluster_plan's seven values. Returns 0, -1 outside G in {1, 4},
-// or the CUDA error of the occupancy query.
-extern "C" int dli_fused_cluster_plan(int NT, int W, int G, long long* out) {
-  return fused::cluster_plan<fused::BigThenTail<true>>(NT, W, G, out);
+// fused::cluster_plan's seven values. Returns 0, -1 outside G in 1..8 and
+// D in {64, 128}, or the CUDA error of the occupancy query.
+extern "C" int dli_fused_cluster_plan(int NT, int W, int G, int D,
+                                      long long* out) {
+  return fused::cluster_plan<fused::BigThenTail<true>>(NT, W, G, D, out);
 }

@@ -39,10 +39,12 @@
 //   (fused_decode.cuh): no partials in device memory, no second kernel.
 // * Copies in flight. A producer warp brings each step's K and V by TMA
 //   (cp.async.bulk.tensor.2d over the rows [rows, D], the 128-byte swizzle:
-//   two boxes of 64 columns a bf16 row, one box of 128 an int8 row) into a
-//   ring of stages against full / empty mbarriers, about 96 KB a block in
-//   flight while the consumers work (3 stages of 32 KB in bf16, 6 of 16 KB
-//   in int8). A box has gcd(PS, 64) rows over pages, so it never crosses a
+//   D / 64 boxes of 64 columns a bf16 row, one box of D an int8 row; an
+//   int8 row of D = 64 is staged unswizzled, 64 bytes) into a ring of
+//   stages against full / empty mbarriers, about 96 KB a block in flight
+//   while the consumers work (at D = 128, 3 stages of 32 KB in bf16, 6 of
+//   16 KB in int8; twice as many of half the size at D = 64). A box has
+//   gcd(PS, 64) rows over pages, so it never crosses a
 //   page and any page size works, and 64 rows over the dense buffer, where
 //   a box may run into the next (row, head)'s rows (masked) or past the
 //   buffer's end (the map's extent: zeros). A box with no live position is
@@ -54,8 +56,10 @@
 //   rows at least; a page of fewer has nothing to give it).
 // * Softmax by tile, products on the tensor cores. Each of 4 consumer warps
 //   takes 16 positions of a step and keeps its own running (m, l, acc). The
-//   scores are one mma.sync m16n8k16 product, S^T = Q K^T, with the G query
-//   heads as the rows (padded to 16) and the positions as the columns; its
+//   scores are one mma.sync m16n8k16 product, S^T = Q K^T, with the G <= 8
+//   query heads as the rows (padded to 16: rows g >= G are zeros, computed
+//   and never stored, so G is a run-time argument) and the positions as the
+//   columns; its
 //   accumulator fragment is, lane for lane, the B operand of P V (acc^T =
 //   V^T P^T), so p never leaves the registers. A warp takes one max a head
 //   over its 16 positions (two shuffles), rescales its accumulators once
@@ -70,11 +74,14 @@
 //   feeds which k-step is a permutation of D, and q's fragment is loaded
 //   under the same one (a dot product does not care about the order of D).
 //   V^T: a lane's A fragment pairs two positions of one column of D; the
-//   lane reads its 4 positions' 16 bytes of D and pairs bytes of two
+//   lane reads its 4 positions' D / 8 bytes of D and pairs bytes of two
 //   positions by prmt, so the columns of acc^T are a permutation of D,
 //   undone when the accumulators are written out.
+// * The warps' and the block's states are merged in shared memory over the
+//   drained ring, so a block's shared memory does not grow with G.
 //
-// Built for head_dim 128 with 1 or 4 query heads per kv head.
+// Built for head_dim 64 and 128 (a template argument) with 1 to 8 query
+// heads per kv head (a run-time argument).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -85,7 +92,7 @@
 
 namespace pdec {
 
-constexpr int kD = 128;
+constexpr int kMaxG = 8;                        // query heads an m-tile holds
 constexpr int kWarps = 4;                       // consumer warps
 constexpr int kThreads = (kWarps + 1) * 32;     // and the producer warp
 constexpr int kStep = 64;                       // positions a ring stage
@@ -97,38 +104,57 @@ constexpr int kBlocksPerSM = 2;
 // (m_old - m_new) never becomes inf - inf.
 constexpr float kNegInf = -0.7f * 3.402823466e+38f;
 
-// Stages of the int8 ring. 6 (96 KB) is the most that keeps 2 blocks an
-// SM; tools/torch_cluster_sweep.py rebuilds with other counts to time them.
+// Stages of the int8 ring at D = 128 (twice as many at D = 64). 6 (96 KB)
+// is the most that keeps 2 blocks an SM; tools/torch_cluster_sweep.py
+// rebuilds with other counts to time them.
 #ifndef PDEC_INT8_STAGES
 #define PDEC_INT8_STAGES 6
 #endif
 
-// The ring for K/V of type KV (bf16 or int8): a stage holds a step's K,
-// then its V, each sizeof(KV) swizzled halves of 64 rows x 128 bytes; int8
-// adds the step's K and V scales, f32, in a region of their own.
-template <class KV>
+// The ring for K/V of type KV (bf16 or int8) and head_dim D: a stage holds
+// a step's K, then its V. A bf16 plane is D / 64 swizzled halves of 64 rows
+// x 128 bytes, an int8 one of D = 128 one such half; an int8 plane of
+// D = 64 is 64 rows of 64 bytes, unswizzled. int8 adds the step's K and V
+// scales, f32, in a region of their own.
+template <class KV, int D>
 struct Ring {
   static constexpr bool kInt8 = sizeof(KV) == 1;
-  static constexpr int kPlane = static_cast<int>(sizeof(KV)) * kHalf;
+  static constexpr bool kSwizzled = !kInt8 || D == 128;
+  static constexpr int kRowBytes = D * static_cast<int>(sizeof(KV));
+  static constexpr int kBoxes = kInt8 ? 1 : D / 64;  // TMA boxes a row
+  static constexpr int kBoxCols = kInt8 ? D : 64;
+  static constexpr int kPlane = kStep * kRowBytes;
   static constexpr int kStageBytes = 2 * kPlane;
-  static constexpr int kStages = kInt8 ? PDEC_INT8_STAGES : 3;
+  static constexpr int kStages =
+      (kInt8 ? PDEC_INT8_STAGES : 3) * 128 / D;
   static constexpr int kScaleBytes = kInt8 ? kStages * 2 * kStep * 4 : 0;
+  // Address of the 16-byte chunk `chunk` of row `row` of a staged plane.
+  static __device__ __forceinline__ uint32_t at(uint32_t base, int row,
+                                                int chunk) {
+    if constexpr (kSwizzled)
+      return base + (chunk >> 3) * kHalf + row * 128 +
+             (((chunk & 7) ^ (row & 7)) << 4);
+    else
+      return base + row * kRowBytes + chunk * 16;
+  }
 };
 
 // Shared memory of a block, from a 1024-aligned base (the swizzle repeats
-// every 1024 bytes): the ring, the scales (int8), each warp's (acc [G][D],
-// m [G], l [G]), the block's, the barriers (full, empty).
-template <int G, class KV>
+// every 1024 bytes): the ring, the scales (int8), the barriers (full,
+// empty). Once the ring is drained, its first bytes take each warp's
+// (acc [G][D], m [G], l [G]) and the block's, for G <= kMaxG.
+template <class KV, int D>
 struct Smem {
-  using R = Ring<KV>;
+  using R = Ring<KV, D>;
   static constexpr int kScales = R::kStages * R::kStageBytes;
-  static constexpr int kWarpAcc = kScales + R::kScaleBytes;
-  static constexpr int kWarpML = kWarpAcc + kWarps * G * kD * 4;
-  static constexpr int kBlockAcc = kWarpML + kWarps * 2 * G * 4;
-  static constexpr int kBlockML = kBlockAcc + G * kD * 4;
-  static constexpr int kBars = (kBlockML + 2 * G * 4 + 7) & ~7;
+  static constexpr int kBars = kScales + R::kScaleBytes;
   static constexpr int kBytes = kBars + 2 * R::kStages * 8;
   static constexpr int kAlloc = kBytes + 1024;  // room to align the base
+  static constexpr int kWarpAcc = 0;
+  static constexpr int kWarpML = kWarpAcc + kWarps * kMaxG * D * 4;
+  static constexpr int kBlockAcc = kWarpML + kWarps * 2 * kMaxG * 4;
+  static constexpr int kBlockML = kBlockAcc + kMaxG * D * 4;
+  static_assert(kBlockML + 2 * kMaxG * 4 <= kScales, "merge over the ring");
 };
 
 // Row of the tensor map (and of the scale planes) that holds position `pos`
@@ -176,6 +202,14 @@ __device__ __forceinline__ void lds_128(uint32_t addr, uint32_t (&r)[4]) {
                : "r"(addr));
 }
 
+// 8 bytes of shared memory at `addr` as two words (the other two zero).
+__device__ __forceinline__ void lds_64(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile("ld.shared.v2.u32 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(addr));
+  r[2] = r[3] = 0u;
+}
+
 // c += A B, m16n8k16, bf16 in, f32 accumulators (the mma.sync fragments:
 // a0 = A[g][2t..], a1 = A[g+8][2t..], a2 = A[g][2t+8..], a3 =
 // A[g+8][2t+8..]; b0 = B[2t..][g], b1 = B[2t+8..][g]; c0, c1 = C[g][2t..],
@@ -208,15 +242,7 @@ __device__ __forceinline__ uint32_t pair_bf16(float lo, float hi) {
   return hopper::prmt(__float_as_uint(lo), __float_as_uint(hi), 0x7632);
 }
 
-// Address of the 16-byte chunk `chunk` (0..15 over a bf16 row, 0..7 over an
-// int8 one) of row `row` of a staged tile: 64-row halves of 128 bytes a
-// row, chunk c of a row at c ^ (row % 8).
-__device__ __forceinline__ uint32_t swz(uint32_t base, int row, int chunk) {
-  return base + (chunk >> 3) * kHalf + row * 128 +
-         (((chunk & 7) ^ (row & 7)) << 4);
-}
-
-template <int G, class KV, class Rows>
+template <int D, class KV, class Rows>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSM) paged_decode_kernel(
     const __grid_constant__ CUtensorMap k_map,  // rows [extent, D] of KV
     const __grid_constant__ CUtensorMap v_map,
@@ -229,10 +255,10 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSM) paged_decode_kernel(
     __nv_bfloat16* __restrict__ out,            // [B, Hkv*G, D]
     float* __restrict__ m_out,                  // [B, Hkv, G], or null
     float* __restrict__ l_out,                  // [B, Hkv, G], or null
-    int cap, int box_rows, float scale, int window) {
-  static_assert(G == 1 || G == 4, "the instances this kernel is built for");
-  using R = Ring<KV>;
-  using S = Smem<G, KV>;
+    int G, int cap, int box_rows, float scale, int window) {
+  static_assert(D == 64 || D == 128, "the instances this kernel is built for");
+  using R = Ring<KV, D>;
+  using S = Smem<KV, D>;
   constexpr bool kInt8 = R::kInt8;
   constexpr int kStages = R::kStages;
   extern __shared__ uint8_t smem_raw[];
@@ -272,6 +298,16 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSM) paged_decode_kernel(
 
   float* wacc = reinterpret_cast<float*>(smem + S::kWarpAcc);  // [kWarps][G][D]
   float* wml = reinterpret_cast<float*>(smem + S::kWarpML);    // [kWarps][2][G]
+  // This consumer warp's running state, out of its loop: m and l of head g
+  // (the same on the 4 lanes of a quad; l a partial sum a lane), acc^T
+  // [D x 8 heads] as D / 16 m-tiles of 16 rows of D.
+  const int g = lane >> 2, t = lane & 3;
+  float m_run = kNegInf, l_run = 0.f;
+  float acc[D / 16][4];
+#pragma unroll
+  for (int mt = 0; mt < D / 16; ++mt)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[mt][c] = 0.f;
   if (warp == kWarps) {
     // The producer. The lanes resolve the rows of the block's next 32
     // boxes together (one table read each, in flight at once), then lane 0
@@ -299,14 +335,14 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSM) paged_decode_kernel(
           if (lane == 0) hopper::mbar_arrive_expect_tx(&full[s], R::kStageBytes);
         }
         if (lane == 0) {
-          uint8_t* st = smem + s * R::kStageBytes + r0 * 128;
+          uint8_t* st = smem + s * R::kStageBytes +
+                        r0 * (R::kSwizzled ? 128 : R::kRowBytes);
 #pragma unroll
-          for (int c = 0; c < static_cast<int>(sizeof(KV)); ++c) {
-            constexpr int kCols = kD / static_cast<int>(sizeof(KV));
-            hopper::tma_load_2d(st + c * kHalf, &k_map, &full[s], c * kCols,
-                                row);
+          for (int c = 0; c < R::kBoxes; ++c) {
+            hopper::tma_load_2d(st + c * kHalf, &k_map, &full[s],
+                                c * R::kBoxCols, row);
             hopper::tma_load_2d(st + R::kPlane + c * kHalf, &v_map, &full[s],
-                                c * kCols, row);
+                                c * R::kBoxCols, row);
           }
         }
         if constexpr (kInt8) {
@@ -324,31 +360,21 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSM) paged_decode_kernel(
       __syncwarp();
     }
   } else {
-    const int g = lane >> 2, t = lane & 3;
     // Q as the A operand: the G heads are rows 0..G-1 of 16, so a1 = a3 =
     // 0; qa[k] = (a0, a2) of k-step k. Over int8, k-step k takes the D
-    // pairs (32t + 4k, +1) and (32t + 4k + 2, +3), K's word 8t + k.
-    uint32_t qa[kD / 16][2];
+    // pairs (D/4 t + 4k, +1) and (D/4 t + 4k + 2, +3), K's word D/16 t + k.
+    uint32_t qa[D / 16][2];
     {
       const uint32_t* qp = reinterpret_cast<const uint32_t*>(
-          q + (((size_t)b * Hkv + h) * G + (g < G ? g : 0)) * kD);
+          q + (((size_t)b * Hkv + h) * G + (g < G ? g : 0)) * D);
 #pragma unroll
-      for (int k = 0; k < kD / 16; ++k) {
-        const int w0 = kInt8 ? 16 * t + 2 * k : 8 * k + t;
+      for (int k = 0; k < D / 16; ++k) {
+        const int w0 = kInt8 ? (D / 8) * t + 2 * k : 8 * k + t;
         const int w1 = kInt8 ? w0 + 1 : w0 + 4;
         qa[k][0] = g < G ? qp[w0] : 0u;
         qa[k][1] = g < G ? qp[w1] : 0u;
       }
     }
-    // This warp's running state: m and l of head g (the same on the 4
-    // lanes of a quad; l a partial sum a lane), acc^T [D x 8 heads] as 8
-    // m-tiles of 16 rows of D.
-    float m_run = kNegInf, l_run = 0.f;
-    float acc[kD / 16][4];
-#pragma unroll
-    for (int mt = 0; mt < kD / 16; ++mt)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[mt][c] = 0.f;
     const int wr0 = warp * kWarpRows;
     for (int i = 0; i < mine; ++i) {
       const int s = i % kStages;
@@ -360,16 +386,17 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSM) paged_decode_kernel(
         // S^T = Q K^T: two n-tiles of 8 positions, 8 k-steps over D.
         float sc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
         if constexpr (kInt8) {
-          // Lane (g, t): positions g and 8 + g, bytes 32t.. of D (chunks
-          // 2t, 2t + 1), word k of them for k-step k.
-          uint32_t kw[2][2][4];
+          // Lane (g, t): positions g and 8 + g, bytes D/4 t.. of D (chunks
+          // D/64 t ..), word k of them for k-step k.
+          constexpr int kCh = D / 64;  // 16-byte chunks a lane a position
+          uint32_t kw[2][kCh][4];
 #pragma unroll
           for (int nt = 0; nt < 2; ++nt)
 #pragma unroll
-            for (int c = 0; c < 2; ++c)
-              lds_128(swz(kb, wr0 + 8 * nt + g, 2 * t + c), kw[nt][c]);
+            for (int c = 0; c < kCh; ++c)
+              lds_128(R::at(kb, wr0 + 8 * nt + g, kCh * t + c), kw[nt][c]);
 #pragma unroll
-          for (int k = 0; k < kD / 16; ++k)
+          for (int k = 0; k < D / 16; ++k)
 #pragma unroll
             for (int nt = 0; nt < 2; ++nt) {
               uint32_t b0, b1;
@@ -379,9 +406,9 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSM) paged_decode_kernel(
         } else {
           const int krow = wr0 + ((lane >> 4) << 3) + (lane & 7);
 #pragma unroll
-          for (int k = 0; k < kD / 16; ++k) {
+          for (int k = 0; k < D / 16; ++k) {
             uint32_t kf[4];
-            ldsm_x4(swz(kb, krow, 2 * k + ((lane >> 3) & 1)), kf);
+            ldsm_x4(R::at(kb, krow, 2 * k + ((lane >> 3) & 1)), kf);
             mma_bf16(sc[0], qa[k][0], 0u, qa[k][1], 0u, kf[0], kf[1]);
             mma_bf16(sc[1], qa[k][0], 0u, qa[k][1], 0u, kf[2], kf[3]);
           }
@@ -425,7 +452,7 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSM) paged_decode_kernel(
         const float a_hi = __shfl_sync(0xffffffffu, alpha, 8 * t + 4);
         if (__any_sync(0xffffffffu, a_lo != 1.f || a_hi != 1.f)) {
 #pragma unroll
-          for (int mt = 0; mt < kD / 16; ++mt) {
+          for (int mt = 0; mt < D / 16; ++mt) {
             acc[mt][0] *= a_lo;
             acc[mt][1] *= a_hi;
             acc[mt][2] *= a_lo;
@@ -450,18 +477,23 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSM) paged_decode_kernel(
                           p[3] - __uint_as_float(pb1 & 0xffff0000u));
         }
         if constexpr (kInt8) {
-          // Lane (g, t): bytes 16g.. of D (chunk g) of positions 2t,
-          // 2t + 1, 8 + 2t, 9 + 2t. Row g of m-tile mt is D = 16g + 2mt,
-          // row g + 8 is 16g + 2mt + 1.
+          // Lane (g, t): bytes D/8 g.. of D of positions 2t, 2t + 1,
+          // 8 + 2t, 9 + 2t (16 bytes, chunk g, at D = 128; 8 at D = 64).
+          // Row g of m-tile mt is D = D/8 g + 2mt, row g + 8 is
+          // D/8 g + 2mt + 1.
           uint32_t vw[4][4];
 #pragma unroll
           for (int j = 0; j < 4; ++j) {
-            lds_128(swz(vb, wr0 + 8 * (j >> 1) + 2 * t + (j & 1), g), vw[j]);
+            const int row = wr0 + 8 * (j >> 1) + 2 * t + (j & 1);
+            if constexpr (D == 128)
+              lds_128(R::at(vb, row, g), vw[j]);
+            else
+              lds_64(R::at(vb, row, 0) + 8 * g, vw[j]);
 #pragma unroll
             for (int c = 0; c < 4; ++c) vw[j][c] ^= 0x80808080u;
           }
 #pragma unroll
-          for (int mt = 0; mt < kD / 16; ++mt) {
+          for (int mt = 0; mt < D / 16; ++mt) {
             const int w = mt >> 1, y = 2 * (mt & 1);
             uint32_t a[4];
 #pragma unroll
@@ -476,9 +508,9 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSM) paged_decode_kernel(
         } else {
           const int vrow = wr0 + ((lane >> 4) << 3) + (lane & 7);
 #pragma unroll
-          for (int mt = 0; mt < kD / 16; ++mt) {
+          for (int mt = 0; mt < D / 16; ++mt) {
             uint32_t vf[4];
-            ldsm_x4_t(swz(vb, vrow, 2 * mt + ((lane >> 3) & 1)), vf);
+            ldsm_x4_t(R::at(vb, vrow, 2 * mt + ((lane >> 3) & 1)), vf);
             mma_bf16(acc[mt], vf[0], vf[1], vf[2], vf[3], pb0, pb1);
           }
         }
@@ -486,27 +518,32 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSM) paged_decode_kernel(
       __syncwarp();
       if (lane == 0) hopper::mbar_arrive(&empty[s]);
     }
+  }
+  // The ring is drained (every stage a consumer waited for has landed and
+  // been read): its bytes take the merges.
+  __syncthreads();
+  if (warp < kWarps) {
     // The warp's state into shared memory.
     l_run += __shfl_xor_sync(0xffffffffu, l_run, 1);
     l_run += __shfl_xor_sync(0xffffffffu, l_run, 2);
-    float* my_acc = wacc + warp * G * kD;
+    float* my_acc = wacc + warp * G * D;
     float* my_ml = wml + warp * 2 * G;
     if (t == 0 && g < G) {
       my_ml[g] = m_run;
       my_ml[G + g] = l_run;
     }
 #pragma unroll
-    for (int mt = 0; mt < kD / 16; ++mt) {
+    for (int mt = 0; mt < D / 16; ++mt) {
       // The D of accumulator rows g and g + 8 of m-tile mt.
-      const int d0 = kInt8 ? 16 * g + 2 * mt : 16 * mt + g;
+      const int d0 = kInt8 ? (D / 8) * g + 2 * mt : 16 * mt + g;
       const int d1 = kInt8 ? d0 + 1 : d0 + 8;
       if (2 * t < G) {
-        my_acc[2 * t * kD + d0] = acc[mt][0];
-        my_acc[2 * t * kD + d1] = acc[mt][2];
+        my_acc[2 * t * D + d0] = acc[mt][0];
+        my_acc[2 * t * D + d1] = acc[mt][2];
       }
       if (2 * t + 1 < G) {
-        my_acc[(2 * t + 1) * kD + d0] = acc[mt][1];
-        my_acc[(2 * t + 1) * kD + d1] = acc[mt][3];
+        my_acc[(2 * t + 1) * D + d0] = acc[mt][1];
+        my_acc[(2 * t + 1) * D + d1] = acc[mt][3];
       }
     }
   }
@@ -515,31 +552,31 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSM) paged_decode_kernel(
   // The block's state: its warps' merged.
   float* bacc = reinterpret_cast<float*>(smem + S::kBlockAcc);  // [G][D]
   float* bml = reinterpret_cast<float*>(smem + S::kBlockML);    // [2][G]
-  for (int e = tid; e < G * kD; e += kThreads) {
-    const int g = e / kD;
+  for (int e = tid; e < G * D; e += kThreads) {
+    const int gh = e / D;
     float m = kNegInf;
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) m = fmaxf(m, wml[w * 2 * G + g]);
+    for (int w = 0; w < kWarps; ++w) m = fmaxf(m, wml[w * 2 * G + gh]);
     float num = 0.f, l = 0.f;
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) {
-      const float f = __expf(wml[w * 2 * G + g] - m);
-      num += wacc[(w * G) * kD + e] * f;
-      l += wml[w * 2 * G + G + g] * f;
+      const float f = __expf(wml[w * 2 * G + gh] - m);
+      num += wacc[(w * G) * D + e] * f;
+      l += wml[w * 2 * G + G + gh] * f;
     }
     bacc[e] = num;
-    if (e % kD == 0) {
-      bml[g] = m;
-      bml[G + g] = l;
+    if (e % D == 0) {
+      bml[gh] = m;
+      bml[G + gh] = l;
     }
   }
 
   // The cluster's blocks merged: block r writes its share of the outputs.
   hopper::cluster_sync();
-  const int share = (G * kD + C - 1) / C;
-  const int end = min((r + 1) * share, G * kD);
+  const int share = (G * D + C - 1) / C;
+  const int end = min((r + 1) * share, G * D);
   for (int e = r * share + tid; e < end; e += kThreads) {
-    const int g = e / kD;
+    const int g = e / D;
     float m = kNegInf;
     for (int k = 0; k < C; ++k)
       m = fmaxf(m, hopper::cluster_load(bml + g, k));
@@ -551,8 +588,8 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSM) paged_decode_kernel(
     }
     const size_t o = ((size_t)b * Hkv + h) * G + g;
     // A row with nothing to attend: l = 0 gives zeros.
-    out[o * kD + e % kD] = __float2bfloat16_rn(num / fmaxf(l, 1e-20f));
-    if (e % kD == 0 && m_out != nullptr) {
+    out[o * D + e % D] = __float2bfloat16_rn(num / fmaxf(l, 1e-20f));
+    if (e % D == 0 && m_out != nullptr) {
       m_out[o] = m;
       l_out[o] = l;
     }
@@ -595,28 +632,30 @@ inline cudaLaunchConfig_t launch_config(cudaLaunchAttribute (&attr)[1],
 // planes, null for bf16; m_out / l_out may be null. Returns
 // cudaGetLastError() after the launch, -2 if the driver refused a tensor
 // map.
-template <int G, class KV, class Rows>
+template <int D, class KV, class Rows>
 int launch(const void* q, const void* k, const void* v, const float* ks,
            const float* vs, const Rows& rows, const int* kv_lens,
            const int* q_pos, void* out, float* m_out, float* l_out, int B,
-           int Hkv, int cap, int box_rows, int C, float scale, int window,
-           cudaStream_t stream) {
-  using S = Smem<G, KV>;
-  constexpr uint32_t kCols = kD / sizeof(KV);
+           int Hkv, int G, int cap, int box_rows, int C, float scale,
+           int window, cudaStream_t stream) {
+  using R = Ring<KV, D>;
+  using S = Smem<KV, D>;
   CUtensorMap k_map, v_map;
-  const uint64_t dims[2] = {(uint64_t)kD, (uint64_t)rows.extent()};
-  const uint64_t strides[1] = {kD * sizeof(KV)};
-  const uint32_t box[2] = {kCols, (uint32_t)box_rows};
+  const uint64_t dims[2] = {(uint64_t)D, (uint64_t)rows.extent()};
+  const uint64_t strides[1] = {(uint64_t)R::kRowBytes};
+  const uint32_t box[2] = {(uint32_t)R::kBoxCols, (uint32_t)box_rows};
   const CUtensorMapDataType type = sizeof(KV) == 1
                                        ? CU_TENSOR_MAP_DATA_TYPE_UINT8
                                        : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  const CUtensorMapSwizzle swizzle = R::kSwizzled
+                                         ? CU_TENSOR_MAP_SWIZZLE_128B
+                                         : CU_TENSOR_MAP_SWIZZLE_NONE;
   int err = hopper::encode_map(&k_map, type, 2, k, dims, strides, box,
-                               CU_TENSOR_MAP_SWIZZLE_128B);
+                               swizzle);
   if (err != 0) return err;
-  err = hopper::encode_map(&v_map, type, 2, v, dims, strides, box,
-                           CU_TENSOR_MAP_SWIZZLE_128B);
+  err = hopper::encode_map(&v_map, type, 2, v, dims, strides, box, swizzle);
   if (err != 0) return err;
-  auto* kernel = paged_decode_kernel<G, KV, Rows>;
+  auto* kernel = paged_decode_kernel<D, KV, Rows>;
   cudaError_t cerr = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, S::kAlloc);
   if (cerr != cudaSuccess) return static_cast<int>(cerr);
@@ -625,19 +664,19 @@ int launch(const void* q, const void* k, const void* v, const float* ks,
   cerr = cudaLaunchKernelEx(
       &cfg, kernel, k_map, v_map, static_cast<const __nv_bfloat16*>(q), rows,
       ks, vs, kv_lens, q_pos, static_cast<__nv_bfloat16*>(out), m_out, l_out,
-      cap, box_rows, scale, window);
+      G, cap, box_rows, scale, window);
   if (cerr != cudaSuccess) return static_cast<int>(cerr);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The occupancy of paged_decode_kernel<G, KV, PageRows> (the dense row
-// map's instances take the same resources): out[0] its shared memory a
-// block, out[1] blocks an SM, out[2] clusters of C blocks the card holds at
-// once. Returns 0 or the CUDA error of a query.
-template <int G, class KV>
+// The occupancy of paged_decode_kernel<D, KV, PageRows> (the dense row
+// map's instances take the same resources, and so does every G): out[0]
+// its shared memory a block, out[1] blocks an SM, out[2] clusters of C
+// blocks the card holds at once. Returns 0 or the CUDA error of a query.
+template <int D, class KV>
 int occupancy(int C, long long* out) {
-  using S = Smem<G, KV>;
-  auto* kernel = paged_decode_kernel<G, KV, PageRows>;
+  using S = Smem<KV, D>;
+  auto* kernel = paged_decode_kernel<D, KV, PageRows>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, S::kAlloc);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -656,7 +695,9 @@ int occupancy(int C, long long* out) {
 }
 
 // As launch, G and D checked at run time. Returns -1 for a shape outside
-// D = 128, G in {1, 4}, C in 1..8, or box rows that do not divide 64.
+// D in {64, 128}, G in 1..8, C in 1..8, box rows that do not divide 64, or
+// (int8 rows of D = 64, 64 bytes) an odd number of box rows, whose boxes
+// would land off the 128-byte alignment a TMA destination needs.
 template <class KV, class Rows>
 int dispatch(const void* q, const void* k, const void* v, const float* ks,
              const float* vs, const Rows& rows, const int* kv_lens,
@@ -664,17 +705,17 @@ int dispatch(const void* q, const void* k, const void* v, const float* ks,
              int Hkv, int G, int D, int cap, int box_rows, int C,
              float scale, int window, cudaStream_t stream) {
   if (B <= 0) return 0;
-  if (D != kD || C < 1 || C > kMaxCluster || cap < 1 || box_rows < 1 ||
-      kStep % box_rows != 0)
+  if (G < 1 || G > kMaxG || C < 1 || C > kMaxCluster || cap < 1 ||
+      box_rows < 1 || kStep % box_rows != 0)
     return -1;
-  if (G == 1)
-    return launch<1, KV>(q, k, v, ks, vs, rows, kv_lens, q_pos, out, m_out,
-                         l_out, B, Hkv, cap, box_rows, C, scale, window,
-                         stream);
-  if (G == 4)
-    return launch<4, KV>(q, k, v, ks, vs, rows, kv_lens, q_pos, out, m_out,
-                         l_out, B, Hkv, cap, box_rows, C, scale, window,
-                         stream);
+  if (D == 128)
+    return launch<128, KV>(q, k, v, ks, vs, rows, kv_lens, q_pos, out, m_out,
+                           l_out, B, Hkv, G, cap, box_rows, C, scale, window,
+                           stream);
+  if (D == 64 && (sizeof(KV) == 2 || box_rows % 2 == 0))
+    return launch<64, KV>(q, k, v, ks, vs, rows, kv_lens, q_pos, out, m_out,
+                          l_out, B, Hkv, G, cap, box_rows, C, scale, window,
+                          stream);
   return -1;
 }
 

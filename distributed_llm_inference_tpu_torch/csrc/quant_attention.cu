@@ -35,8 +35,9 @@
 // q_pos [B] int32; step one int32 in device memory; tile_w the TPU
 // kernel's tile, min(256, T). One launch of fused_decode.cuh's cluster
 // kernel, pieces of min(kPiece, tile_w) positions. Returns
-// cudaGetLastError() after the launch, -1 for a shape outside D = 128, G
-// in {1, 4}, tile_w and KT in 1..256, or past a block's shared memory.
+// cudaGetLastError() after the launch, -1 for a shape outside D in
+// {64, 128}, G in 1..8, tile_w and KT in 1..256, or past a block's shared
+// memory.
 extern "C" int dli_quantized_fused_decode_attention(
     const void* q, const void* k_new, const void* v_new, const void* big_k,
     const void* big_ks, const void* big_v, const void* big_vs, void* tail_k,
@@ -67,7 +68,8 @@ extern "C" int dli_quantized_fused_decode_attention(
   a.W = pw;
   a.B = B; a.Hkv = Hkv; a.rows = T; a.ps = 0; a.tw = 0; a.tile_w = tile_w;
   a.KT = KT; a.layer = layer; a.window = window; a.scale = scale;
-  return fused::launch<false>(a, G, D, dtype, stream);
+  a.G = G; a.D = D;
+  return fused::launch<false>(a, dtype, stream);
 }
 
 // The cluster launch of dli_quantized_fused_decode_attention at stacks of T
@@ -75,13 +77,13 @@ extern "C" int dli_quantized_fused_decode_attention(
 // (bf16 queries): fused::cluster_plan's seven values, out[7] the piece
 // width. Returns 0, -1 for shapes it does not take, or the CUDA error of
 // the occupancy query.
-extern "C" int dli_fused_dense_plan(int T, int tile_w, int KT, int G,
+extern "C" int dli_fused_dense_plan(int T, int tile_w, int KT, int G, int D,
                                     long long* out) {
   if (T < 1 || tile_w < 1 || KT < 1) return -1;
   const int pw = tile_w < fused::kPiece ? tile_w : fused::kPiece;
   out[7] = pw;
   return fused::cluster_plan<fused::BigThenTail<false>>(
-      (T + pw - 1) / pw + (KT + pw - 1) / pw, pw, G, out);
+      (T + pw - 1) / pw + (KT + pw - 1) / pw, pw, G, D, out);
 }
 
 // bf16 q [B, Hkv*G, D] and out; k / v int8 [B, Hkv, T, D] and ks / vs f32
@@ -89,8 +91,8 @@ extern "C" int dli_fused_dense_plan(int T, int tile_w, int KT, int G,
 // / l_out f32 [B, Hkv, G] or null. window 0 = none. One launch of
 // paged_decode.cuh's kernel, a cluster of C blocks (1..8) a (row, kv head),
 // boxes of 64 rows over the buffer's B * Hkv * T rows (below 2^31). Returns
-// cudaGetLastError() after the launch, -1 for a shape outside D = 128, G
-// in {1, 4}, -2 if the driver refused a tensor map.
+// cudaGetLastError() after the launch, -1 for a shape outside D in
+// {64, 128}, G in 1..8, -2 if the driver refused a tensor map.
 extern "C" int dli_quantized_decode_attention_bf16(
     const void* q, const void* k, const void* ks, const void* v,
     const void* vs, const void* kv_lens, const void* q_pos, void* out,
@@ -111,7 +113,7 @@ extern "C" int dli_quantized_decode_attention_bf16(
 // `chunk` each (NS * chunk >= T); m_out / l_out f32 [B, Hkv, G]; part_o /
 // part_m / part_l f32 scratch of [B, Hkv, NS, G, D] and twice [B, Hkv, NS,
 // G]. window 0 = none. Returns cudaGetLastError() after the launches, -1
-// for a shape outside D = 128, G in {1, 4}, or another dtype.
+// for a shape outside D in {64, 128}, G in 1..8, or another dtype.
 extern "C" int dli_quantized_decode_attention(
     const void* q, const void* k, const void* ks, const void* v,
     const void* vs, const void* kv_lens, const void* q_pos, void* out,

@@ -19,8 +19,13 @@
 //
 // bfloat16 queries (`ragged_kernel_wgmma`, kernels #1 and #4):
 //
-// * Work tile: 128 score rows a block, 128 / G queries x the G query heads
-//   of one kv head. Two consumer warpgroups own 64 rows each and share every
+// * Work tile: 128 score rows a block, 128 / Gp queries x Gp rows a query,
+//   Gp the group of G query heads a kv head rounded up to a power of two
+//   (G = 3 takes 4 rows a query, G = 5..7 take 8): the rows of heads past G
+//   are padding, read as zeros and never written, since Q comes and the
+//   output goes through 5-D tensor maps {D, G, Hkv, S, B} whose boxes of Gp
+//   heads run past the group. Two consumer warpgroups own 64 rows each and
+//   share every
 //   staged K/V tile; a producer warpgroup feeds them, and gives up registers
 //   to them (setmaxnreg). The block walks the row's
 //   slots 128 at a time (two pages at page size 64), from the first slot the
@@ -35,10 +40,11 @@
 //   crosses a page and any page size works; a bf16 row comes as two boxes of
 //   64 columns (the swizzle's limit), an int8 row as one. A box wholly past
 //   the frontier is asked for at a negative row, which the TMA fills with
-//   zeros. Q comes once a block by TMA through a 4-D map over q [B, S, Hq,
-//   D], so rows past S are zeros.
+//   zeros. Q comes once a block by TMA through the 5-D map over q [B, S, Hq,
+//   D], so rows past S (and heads past G) are zeros.
 // * Products on wgmma, bf16 in, f32 accumulators: S = Q K^T with Q and K
-//   K-major in shared memory (m64n128k16, 8 k-steps over D); P V with P from
+//   K-major in shared memory (m64n128k16, D / 16 k-steps); P V (m64nDk16)
+//   with P from
 //   registers, rounded to bf16 as the TPU kernel rounds it (the score
 //   accumulator's fragment is already the A operand), and V MN-major
 //   (transposed by the instruction). The two warpgroups take turns at the
@@ -76,16 +82,17 @@
 //   and passed as __grid_constant__ parameters; prefill runs eagerly.
 //
 // float32 queries (`ragged_kernel_f32`): register-tiled f32 FMAs, 256
-// threads, 64 score rows and 64 slots a step, each thread a 4 x 4 patch of
+// threads, 64 score rows (64 / G queries of G rows; the rows past the last
+// whole query idle) and 64 slots a step, each thread a 4 x 4 patch of
 // the score tile and 4 rows x D/16 columns of P V, with P going through
 // shared memory. Full float32 products: the exact-parity checks of the
 // engine run in this type, and TF32 would not pass them. Over int8 pages
 // the staging converts rows to f32 and stages the scales beside them; p * vs
 // stays in f32.
 //
-// Built for head_dim 128 with 1 or 4 query heads per kv head (MHA, and the
-// Llama-3 grouping this package serves); a model with other widths adds its
-// instance to dispatch below.
+// Built for head_dim 64 and 128 (a D = 64 row is one 64-column half) with 1
+// to 8 query heads per kv head: the group is a run-time argument of both
+// kernels (the bf16 one reads it as a power-of-two shift, Gp = 2^shift).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -98,6 +105,7 @@
 
 namespace {
 
+using tile::group_shift;
 using tile::pack_bf16;
 using tile::stage_chunk;
 
@@ -118,23 +126,26 @@ constexpr float kLog2e = 1.4426950408889634f;
 static_assert(kBlockRows == kStep, "Q and K/V halves share kHalfBytes");
 
 // Shared memory, from a 1024-aligned base (the TMA's and wgmma's 128-byte
-// swizzle repeats every 1024 bytes). A bf16 tile of 128 rows x D = 128 is
-// two 64-column halves of kHalfBytes; an int8 one is one plane of
-// kHalfBytes.
+// swizzle repeats every 1024 bytes). A bf16 tile of 128 rows x D is D / 64
+// 64-column halves of kHalfBytes; an int8 one is one plane of 128 rows of D
+// bytes.
 //
 // bf16 pages: Q | a ring of 3 stages, each K's halves then V's | barriers.
 // int8 pages: Q | the converted bf16 K/V, 2 stages | the int8 ring, 2
 // stages of K and V planes | the K and V scales of each int8 stage |
-// barriers. 226 KB of the 227 a block can have.
-template <bool Q8>
+// barriers. 226 KB of the 227 a block can have at D = 128, about half at
+// D = 64.
+template <bool Q8, int D>
 struct WgLayout {
+  static constexpr int kHalves = D / 64;  // 64-column halves of a bf16 row
   static constexpr int kStages = Q8 ? 2 : 3;
   static constexpr int kThreads = kConsumers + 128;
-  static constexpr int kQBytes = 2 * kHalfBytes;
+  static constexpr int kQBytes = kHalves * kHalfBytes;
   static constexpr int kTile = kQBytes;  // bf16 K/V stages (ring or converted)
-  static constexpr int kTileBytes = 4 * kHalfBytes;
+  static constexpr int kTileBytes = 2 * kHalves * kHalfBytes;
   static constexpr int kI8 = kTile + kStages * kTileBytes;  // int8 ring (Q8)
-  static constexpr int kI8Bytes = 2 * kHalfBytes;
+  static constexpr int kI8Plane = kStep * D;  // a step's int8 K (or V)
+  static constexpr int kI8Bytes = 2 * kI8Plane;
   static constexpr int kScales = kI8 + (Q8 ? kStages * kI8Bytes : 0);
   static constexpr int kScaleBytes = 2 * kStep * 4;
   static constexpr int kBars = kScales + (Q8 ? kStages * kScaleBytes : 0);
@@ -157,43 +168,45 @@ int box_rows_for(int PS) {  // gcd(PS, 64)
 }
 
 // The consumers' loop over one block's steps: warpgroup wg (0 or 1) owns
-// block rows 64 wg .. 64 wg + 63. `Tiles` says where step i's bf16 K and V
-// lie, waits for them, releases them, and (int8) gives the step's scales.
-// A step past a warpgroup's own frontier (its rows end up to 64 / G queries
-// before the block's) is walked all the same and masked away: the products
-// stay outside any branch, which keeps them pipelined.
-template <int G, bool Q8, typename Tiles>
+// block rows 64 wg .. 64 wg + 63, row r the query r >> gshift. `Tiles` says
+// where step i's bf16 K and V lie, waits for them, releases them, and
+// (int8) gives the step's scales. A step past a warpgroup's own frontier
+// (its rows end up to 64 / Gp queries before the block's) is walked all
+// the same and masked away: the products stay outside any branch, which
+// keeps them pipelined.
+template <int D, bool Q8, typename Tiles>
 __device__ __forceinline__ void consume(
     const Tiles& tiles, const uint8_t* q_s, uint64_t* q_full,
-    const CUtensorMap* o_map, int b, int h,
+    const CUtensorMap* o_map, int b, int h, int gshift,
     int tile_start, int num_new, int q_start, int kv_len, int first,
     int steps, int window, float scale_log2, int wg, int tid) {
-  constexpr int D = 128;
+  constexpr int kHalves = D / 64;
   const int warp = (tid >> 5) & 3;
   const int lane = tid & 31;
   const int g4 = lane >> 2;
   const int t4 = lane & 3;
   const int row0 = wg * 64 + warp * 16 + g4;  // this thread's two rows
   const int row1 = row0 + 8;
-  const int q_rel0 = tile_start + row0 / G;
-  const int q_rel1 = tile_start + row1 / G;
+  const int q_rel0 = tile_start + (row0 >> gshift);
+  const int q_rel1 = tile_start + (row1 >> gshift);
   const int q_pos0 = q_start + q_rel0;
   const int q_pos1 = q_start + q_rel1;
   // The warpgroup's first query and its last real one.
-  const int wq_lo = q_start + tile_start + (wg * 64) / G;
-  const int wq_hi = q_start + min(tile_start + (wg * 64 + 63) / G, num_new - 1);
+  const int wq_lo = q_start + tile_start + ((wg * 64) >> gshift);
+  const int wq_hi =
+      q_start + min(tile_start + ((wg * 64 + 63) >> gshift), num_new - 1);
   // Scores are scaled to the log2 domain: by scale * log2(e) for bf16
   // pages, and per slot by that times the K scale for int8 pages (the
   // softmax below then multiplies by 1).
   const float mult = Q8 ? 1.f : scale_log2;
   const uint8_t* q_wg = q_s + wg * 64 * kRowBytes;
 
-  float o[64], s[64];
+  float o[D / 2], s[64];
   uint32_t pa[kStep / 16][4];
   // int8 pages: the rounding of p * vs to bf16, P V's second operand.
   uint32_t pa_lo[Q8 ? kStep / 16 : 1][4];
 #pragma unroll
-  for (int i = 0; i < 64; ++i) o[i] = 0.f;
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
   float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
 
   // S = Q K^T over the warpgroup's 64 rows and step i's 128 slots.
@@ -223,18 +236,22 @@ __device__ __forceinline__ void consume(
       o[4 * j + 3] *= alpha1;
     }
     const uint8_t* v_t = tiles.v(i);
+    // o += A V over one k-step: m64n128 over both halves of a D = 128 row,
+    // m64n64 over the one half of a D = 64 row.
+    auto pv = [&](const uint32_t (&a)[4], int kk) {
+      const uint64_t desc =
+          hopper::desc_sw128(v_t + kk * 16 * kRowBytes, kHalfBytes, 1024);
+      if constexpr (D == 128)
+        hopper::wgmma_m64n128k16_rs_tb(o, a, desc);
+      else
+        hopper::wgmma_m64n64k16_rs_tb(o, a, desc);
+    };
     hopper::wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < kStep / 16; ++kk)
-      hopper::wgmma_m64n128k16_rs_tb(
-          o, pa[kk],
-          hopper::desc_sw128(v_t + kk * 16 * kRowBytes, kHalfBytes, 1024));
+    for (int kk = 0; kk < kStep / 16; ++kk) pv(pa[kk], kk);
     if constexpr (Q8) {
 #pragma unroll
-      for (int kk = 0; kk < kStep / 16; ++kk)
-        hopper::wgmma_m64n128k16_rs_tb(
-            o, pa_lo[kk],
-            hopper::desc_sw128(v_t + kk * 16 * kRowBytes, kHalfBytes, 1024));
+      for (int kk = 0; kk < kStep / 16; ++kk) pv(pa_lo[kk], kk);
     }
     hopper::wgmma_commit();
   };
@@ -402,24 +419,28 @@ __device__ __forceinline__ void consume(
   hopper::named_sync(4 + wg, 128);
   if ((tid & 127) == 0) {
 #pragma unroll
-    for (int c = 0; c < 2; ++c)
-      hopper::tma_store_4d(o_map, o_s + c * kHalfBytes, c * 64, h * G,
-                           tile_start + wg * 64 / G, b);
+    for (int c = 0; c < kHalves; ++c)
+      hopper::tma_store_5d(o_map, o_s + c * kHalfBytes, c * 64, 0, h,
+                           tile_start + ((wg * 64) >> gshift), b);
     hopper::tma_store_wait();
   }
 }
 
 // bf16 pages: the consumers read the TMA ring's stages in place; K and V
 // of a step arrive and leave together.
+template <int D>
 struct RingTiles {
+  using L = WgLayout<false, D>;
   uint8_t* smem;
   uint64_t* full;
   uint64_t* empty;
-  static constexpr int kStages = WgLayout<false>::kStages;
+  static constexpr int kStages = L::kStages;
   __device__ const uint8_t* k(int i) const {
-    return smem + WgLayout<false>::kTile + (i % kStages) * 4 * kHalfBytes;
+    return smem + L::kTile + (i % kStages) * L::kTileBytes;
   }
-  __device__ const uint8_t* v(int i) const { return k(i) + 2 * kHalfBytes; }
+  __device__ const uint8_t* v(int i) const {
+    return k(i) + L::kHalves * kHalfBytes;
+  }
   __device__ void wait_k(int i) const {
     hopper::mbar_wait(&full[i % kStages], (i / kStages) & 1);
   }
@@ -435,22 +456,25 @@ struct RingTiles {
 // scales beside the int8 ring's stage. A stage's K is released once Q K^T
 // is done and its V once P V is, a step later, so that the converter warps
 // can turn the next int8 K into bf16 while this V is still in use.
+template <int D>
 struct ConvTiles {
+  using L = WgLayout<true, D>;
   uint8_t* smem;
   uint64_t* kfull;
   uint64_t* kempty;
   uint64_t* vfull;
   uint64_t* vempty;
   uint64_t* sempty;
-  static constexpr int kStages = WgLayout<true>::kStages;
+  static constexpr int kStages = L::kStages;
   __device__ const uint8_t* k(int i) const {
-    return smem + WgLayout<true>::kTile + (i % kStages) * 4 * kHalfBytes;
+    return smem + L::kTile + (i % kStages) * L::kTileBytes;
   }
-  __device__ const uint8_t* v(int i) const { return k(i) + 2 * kHalfBytes; }
+  __device__ const uint8_t* v(int i) const {
+    return k(i) + L::kHalves * kHalfBytes;
+  }
   __device__ const float* scales(int i) const {
-    return reinterpret_cast<const float*>(
-        smem + WgLayout<true>::kScales +
-        (i % kStages) * WgLayout<true>::kScaleBytes);
+    return reinterpret_cast<const float*>(smem + L::kScales +
+                                          (i % kStages) * L::kScaleBytes);
   }
   // The (pre-scaled) K scales and the V scales of slots c, c + 1.
   __device__ float2 k_scales(int i, int c) const {
@@ -488,10 +512,10 @@ struct WgRegs {
   static_assert(128 * kProducer + 256 * kConsumer == 384 * 168, "");
 };
 
-template <int G, bool Q8>
-__global__ void __launch_bounds__(WgLayout<Q8>::kThreads, 1)
+template <int D, bool Q8>
+__global__ void __launch_bounds__(WgLayout<Q8, D>::kThreads, 1)
     ragged_kernel_wgmma(
-        const __grid_constant__ CUtensorMap q_map,  // q as {D, Hq, S, B}
+        const __grid_constant__ CUtensorMap q_map,  // q as {D, G, Hkv, S, B}
         const __grid_constant__ CUtensorMap k_map,  // pool rows [P*Hkv*PS, D]
         const __grid_constant__ CUtensorMap v_map,
         const __grid_constant__ CUtensorMap o_map,  // out, as q's, 64-row boxes
@@ -502,11 +526,11 @@ __global__ void __launch_bounds__(WgLayout<Q8>::kThreads, 1)
         const int* __restrict__ q_starts,           // [B]
         const int* __restrict__ num_news,           // [B]
         __nv_bfloat16* __restrict__ out,            // [B, S, Hkv*G, D]
-        int S, int Hkv, int PS, int Tw, int box_rows, float scale_log2,
-        int window) {
-  using L = WgLayout<Q8>;
-  constexpr int D = 128;
-  constexpr int BQ = kBlockRows / G;
+        int S, int Hkv, int G, int gshift, int PS, int Tw, int box_rows,
+        float scale_log2, int window) {
+  using L = WgLayout<Q8, D>;
+  constexpr int kHalves = L::kHalves;
+  const int BQ = kBlockRows >> gshift;  // queries a block, Gp rows each
   constexpr int kStages = L::kStages;
   constexpr int kProducerRegs = WgRegs<Q8>::kProducer;
   constexpr int kConsumerRegs = WgRegs<Q8>::kConsumer;
@@ -537,10 +561,11 @@ __global__ void __launch_bounds__(WgLayout<Q8>::kThreads, 1)
     // Tile of pad queries only (or an empty row): zeros, no page touched.
     for (int c = tid; c < kBlockRows * (D / 8); c += L::kThreads) {
       const int r = c / (D / 8);
-      const int q_rel = tile_start + r / G;
-      if (q_rel < S)
+      const int q_rel = tile_start + (r >> gshift);
+      const int g = r & ((1 << gshift) - 1);
+      if (q_rel < S && g < G)
         *reinterpret_cast<uint4*>(
-            out + (((size_t)b * S + q_rel) * Hq + h * G + r % G) * D +
+            out + (((size_t)b * S + q_rel) * Hq + h * G + g) * D +
             (c % (D / 8)) * 8) = make_uint4(0u, 0u, 0u, 0u);
     }
     return;
@@ -590,9 +615,10 @@ __global__ void __launch_bounds__(WgLayout<Q8>::kThreads, 1)
       const int* trow = table + (size_t)b * Tw;
       if (lane == 0) {
         hopper::mbar_arrive_expect_tx(q_full, L::kQBytes);
-        hopper::tma_load_4d(q_s, &q_map, q_full, 0, h * G, tile_start, b);
-        hopper::tma_load_4d(q_s + kHalfBytes, &q_map, q_full, 64, h * G,
-                            tile_start, b);
+#pragma unroll
+        for (int c = 0; c < kHalves; ++c)
+          hopper::tma_load_5d(q_s + c * kHalfBytes, &q_map, q_full, c * 64, 0,
+                              h, tile_start, b);
       }
       for (int i = 0; i < steps; ++i) {
         const int st = i % kStages;
@@ -625,16 +651,18 @@ __global__ void __launch_bounds__(WgLayout<Q8>::kThreads, 1)
             const int row =
                 pos < end ? (trow[pos / PS] * Hkv + h) * PS + pos % PS
                           : -box_rows;
-            uint8_t* dst = dst0 + r0 * kRowBytes;
             if constexpr (Q8) {
+              uint8_t* dst = dst0 + r0 * D;  // int8 rows of D bytes
               hopper::tma_load_2d(dst, &k_map, &full[st], 0, row);
-              hopper::tma_load_2d(dst + kHalfBytes, &v_map, &full[st], 0, row);
+              hopper::tma_load_2d(dst + L::kI8Plane, &v_map, &full[st], 0,
+                                  row);
             } else {
+              uint8_t* dst = dst0 + r0 * kRowBytes;
 #pragma unroll
-              for (int c = 0; c < 2; ++c) {
+              for (int c = 0; c < kHalves; ++c) {
                 hopper::tma_load_2d(dst + c * kHalfBytes, &k_map, &full[st],
                                     c * 64, row);
-                hopper::tma_load_2d(dst + (2 + c) * kHalfBytes, &v_map,
+                hopper::tma_load_2d(dst + (kHalves + c) * kHalfBytes, &v_map,
                                     &full[st], c * 64, row);
               }
             }
@@ -648,11 +676,12 @@ __global__ void __launch_bounds__(WgLayout<Q8>::kThreads, 1)
       // scale * log2(e). They run beside the consumers' products, which take
       // the converted stages as the bf16 path takes the ring's.
       const int ct = tid - kConsumers - 32;  // 0 .. 95
-      // Chunk c of a plane: row c / 8, 16 int8 at column 16 (c % 8); a
-      // thread's chunks keep c % 8, as 96 is a multiple of 8. Four are
-      // loaded before any is converted, so that their loads overlap.
-      constexpr int kChunks = kStep * 8;
-      const int ch = ct & 7;
+      // Chunk c of a plane: row c / kCPR, 16 int8 at column 16 (c % kCPR);
+      // a thread's chunks keep c % kCPR, as 96 is a multiple of kCPR. Four
+      // are loaded before any is converted, so that their loads overlap.
+      constexpr int kCPR = D / 16;  // 16-byte chunks of an int8 row
+      constexpr int kChunks = kStep * kCPR;
+      const int ch = ct % kCPR;
       const int j = (ch & 3) * 2;  // its first 16-byte chunk in bf16
       auto convert = [&](const uint8_t* src, uint8_t* dst) {
         for (int c0 = ct; c0 < kChunks; c0 += 4 * 96) {
@@ -662,13 +691,13 @@ __global__ void __launch_bounds__(WgLayout<Q8>::kThreads, 1)
             const int c = c0 + u * 96;
             if (c < kChunks)
               v[u] = *reinterpret_cast<const uint4*>(
-                  src + (c >> 3) * kRowBytes + ch * 16);
+                  src + (c / kCPR) * D + ch * 16);
           }
 #pragma unroll
           for (int u = 0; u < 4; ++u) {
             const int c = c0 + u * 96;
             if (c >= kChunks) break;
-            const int row = c >> 3;
+            const int row = c / kCPR;
             uint32_t w[8];
             hopper::i8x4_to_bf16x2(v[u].x, w[0], w[1]);
             hopper::i8x4_to_bf16x2(v[u].y, w[2], w[3]);
@@ -698,7 +727,7 @@ __global__ void __launch_bounds__(WgLayout<Q8>::kThreads, 1)
         __syncwarp();
         if (lane == 0) hopper::mbar_arrive(&kfull[st]);
         hopper::mbar_wait(&vempty[st], parity ^ 1);
-        convert(src + kHalfBytes, dst + 2 * kHalfBytes);
+        convert(src + L::kI8Plane, dst + kHalves * kHalfBytes);
         if (lane == 0) {
           hopper::mbar_arrive(&vfull[st]);
           hopper::mbar_arrive(&empty[st]);
@@ -708,37 +737,42 @@ __global__ void __launch_bounds__(WgLayout<Q8>::kThreads, 1)
   } else {
     hopper::setmaxnreg_inc<kConsumerRegs>();
     if constexpr (Q8)
-      consume<G, true>(ConvTiles{smem, kfull, kempty, vfull, vempty, sempty},
-                       q_s, q_full, &o_map, b, h, tile_start, num_new,
-                       q_start, kv_len, first, steps, window, scale_log2,
-                       warp >> 2, tid);
+      consume<D, true>(
+          ConvTiles<D>{smem, kfull, kempty, vfull, vempty, sempty}, q_s,
+          q_full, &o_map, b, h, gshift, tile_start, num_new, q_start, kv_len,
+          first, steps, window, scale_log2, warp >> 2, tid);
     else
-      consume<G, false>(RingTiles{smem, full, empty}, q_s, q_full, &o_map, b, h,
-                        tile_start, num_new, q_start, kv_len, first, steps,
-                        window, scale_log2, warp >> 2, tid);
+      consume<D, false>(RingTiles<D>{smem, full, empty}, q_s, q_full, &o_map,
+                        b, h, gshift, tile_start, num_new, q_start, kv_len,
+                        first, steps, window, scale_log2, warp >> 2, tid);
   }
 }
 
-template <int G, bool Q8>
+template <int D, bool Q8>
 int launch_wgmma(const void* q, const void* k, const void* v, const float* ks,
                  const float* vs, const int* table, const int* kv_lens,
                  const int* q_starts, const int* num_news, void* out, int B,
-                 int S, int Hkv, int PS, int Tw, float scale, int window,
-                 cudaStream_t stream) {
-  using L = WgLayout<Q8>;
-  constexpr uint64_t D = 128;
+                 int S, int Hkv, int G, int PS, int Tw, float scale,
+                 int window, cudaStream_t stream) {
+  using L = WgLayout<Q8, D>;
+  const int gshift = group_shift(G);
+  const uint32_t gp = 1u << gshift;
   const uint64_t Hq = (uint64_t)Hkv * G;
   CUtensorMap q_map, k_map, v_map;
-  const uint64_t q_dims[4] = {D, Hq, (uint64_t)S, (uint64_t)B};
-  const uint64_t q_strides[3] = {D * 2, Hq * D * 2, (uint64_t)S * Hq * D * 2};
-  const uint32_t q_box[4] = {64, (uint32_t)G, (uint32_t)(kBlockRows / G), 1};
-  int err = hopper::encode_map(&q_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, q,
+  // q and out as {D, G, Hkv, S, B}: a box of gp heads of one kv head and
+  // 128 / gp queries; heads past G read as zeros and are not written.
+  const uint64_t q_dims[5] = {(uint64_t)D, (uint64_t)G, (uint64_t)Hkv,
+                              (uint64_t)S, (uint64_t)B};
+  const uint64_t q_strides[4] = {(uint64_t)D * 2, (uint64_t)G * D * 2,
+                                 Hq * D * 2, (uint64_t)S * Hq * D * 2};
+  const uint32_t q_box[5] = {64, gp, 1, kBlockRows / gp, 1};
+  int err = hopper::encode_map(&q_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5, q,
                                q_dims, q_strides, q_box,
                                CU_TENSOR_MAP_SWIZZLE_128B);
   if (err != 0) return err;
   CUtensorMap o_map;  // one consumer warpgroup's 64 rows
-  const uint32_t o_box[4] = {64, (uint32_t)G, (uint32_t)(64 / G), 1};
-  err = hopper::encode_map(&o_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, out,
+  const uint32_t o_box[5] = {64, gp, 1, 64 / gp, 1};
+  err = hopper::encode_map(&o_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5, out,
                            q_dims, q_strides, o_box,
                            CU_TENSOR_MAP_SWIZZLE_128B);
   if (err != 0) return err;
@@ -746,9 +780,9 @@ int launch_wgmma(const void* q, const void* k, const void* v, const float* ks,
   // wrapper checks that every row a table can name lies below 2^31, which
   // stands in for the extent (rows are only ever asked for by the table).
   const int box_rows = box_rows_for(PS);
-  const uint64_t kv_dims[2] = {D, 1ull << 31};
-  const uint64_t kv_strides[1] = {D * (Q8 ? 1 : 2)};
-  const uint32_t kv_box[2] = {Q8 ? 128u : 64u, (uint32_t)box_rows};
+  const uint64_t kv_dims[2] = {(uint64_t)D, 1ull << 31};
+  const uint64_t kv_strides[1] = {(uint64_t)D * (Q8 ? 1 : 2)};
+  const uint32_t kv_box[2] = {Q8 ? (uint32_t)D : 64u, (uint32_t)box_rows};
   const CUtensorMapDataType kv_type =
       Q8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   const CUtensorMapSwizzle kv_swizzle =
@@ -761,13 +795,14 @@ int launch_wgmma(const void* q, const void* k, const void* v, const float* ks,
   if (err != 0) return err;
 
   cudaError_t cerr = cudaFuncSetAttribute(
-      ragged_kernel_wgmma<G, Q8>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      ragged_kernel_wgmma<D, Q8>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       L::kBytes);
   if (cerr != cudaSuccess) return static_cast<int>(cerr);
-  const dim3 grid(Hkv, B, (S + kBlockRows / G - 1) / (kBlockRows / G));
-  ragged_kernel_wgmma<G, Q8><<<grid, L::kThreads, L::kBytes, stream>>>(
+  const int bq = kBlockRows >> gshift;
+  const dim3 grid(Hkv, B, (S + bq - 1) / bq);
+  ragged_kernel_wgmma<D, Q8><<<grid, L::kThreads, L::kBytes, stream>>>(
       q_map, k_map, v_map, o_map, ks, vs, table, kv_lens, q_starts, num_news,
-      static_cast<__nv_bfloat16*>(out), S, Hkv, PS, Tw, box_rows,
+      static_cast<__nv_bfloat16*>(out), S, Hkv, G, gshift, PS, Tw, box_rows,
       scale * kLog2e, window);
   return static_cast<int>(cudaGetLastError());
 }
@@ -776,7 +811,7 @@ int launch_wgmma(const void* q, const void* k, const void* v, const float* ks,
 // float32: register-tiled FMA products
 // ---------------------------------------------------------------------------
 
-constexpr int kRows = 64;   // score rows per block = (64 / G) queries x G
+constexpr int kRows = 64;   // score rows per block: (64 / G) queries x G
 constexpr int kTile = 64;   // kv positions per step
 
 // The two scales of positions kv0 .. kv0 + kTile - 1 (0 past `end`).
@@ -820,7 +855,7 @@ __device__ __forceinline__ void stage_chunk_i8(float* dst_row,
 }
 
 // KV is float, or int8_t with the scale planes ks / vs.
-template <int D, int G, typename KV>
+template <int D, typename KV>
 __global__ void __launch_bounds__(kThreads) ragged_kernel_f32(
     const float* __restrict__ q,          // [B, S, Hkv*G, D]
     const KV* __restrict__ k_pages,       // [P, Hkv, PS, D]
@@ -832,14 +867,15 @@ __global__ void __launch_bounds__(kThreads) ragged_kernel_f32(
     const int* __restrict__ q_starts,     // [B]
     const int* __restrict__ num_news,     // [B]
     float* __restrict__ out,              // [B, S, Hkv*G, D]
-    int S, int Hkv, int PS, int Tw, float scale, int window) {
+    int S, int Hkv, int G, int PS, int Tw, float scale, int window) {
   // Rows padded to an odd stride: the strided reads below (row tx + 16*j of
   // k_s, column tx + 16*jj of v_s) then hit distinct banks.
   constexpr bool Q8 = sizeof(KV) == 1;
   constexpr int SW = D + 1;
   constexpr int CPR = D / 4;          // 16-byte chunks per row of q
-  constexpr int BQ = kRows / G;       // queries per tile
   constexpr int NW = D / 16;          // output columns per thread
+  const int BQ = kRows / G;           // queries per tile
+  const int rows = BQ * G;            // score rows in use
 
   extern __shared__ float smem_f32[];
   float* q_s = smem_f32;                     // [kRows][SW]
@@ -863,7 +899,7 @@ __global__ void __launch_bounds__(kThreads) ragged_kernel_f32(
 
   if (tile_start >= num_new) {
     // Tile of pad queries only (or an empty row): zeros, no page touched.
-    for (int idx = tid; idx < kRows * D; idx += kThreads) {
+    for (int idx = tid; idx < rows * D; idx += kThreads) {
       const int r = idx / D;
       const int q_rel = tile_start + r / G;
       if (q_rel < S)
@@ -872,12 +908,12 @@ __global__ void __launch_bounds__(kThreads) ragged_kernel_f32(
     return;
   }
 
-  // Stage the query tile once.
+  // Stage the query tile once (zeros in the rows past the last query).
   for (int c = tid; c < kRows * CPR; c += kThreads) {
     const int r = c / CPR;
     const int q_rel = tile_start + r / G;
     const float* src = nullptr;
-    if (q_rel < S)
+    if (r < rows && q_rel < S)
       src = q + (((size_t)b * S + q_rel) * Hq + h * G + r % G) * D;
     stage_chunk(q_s + r * SW, src, c % CPR);
   }
@@ -888,7 +924,8 @@ __global__ void __launch_bounds__(kThreads) ragged_kernel_f32(
   for (int i = 0; i < 4; ++i) {
     m[i] = kNegInf;
     l[i] = 0.f;
-    q_rel_r[i] = tile_start + (ty * 4 + i) / G;
+    // A row past the last query stands for none: past S, never written.
+    q_rel_r[i] = ty * 4 + i < rows ? tile_start + (ty * 4 + i) / G : S;
 #pragma unroll
     for (int jj = 0; jj < NW; ++jj) acc[i][jj] = 0.f;
   }
@@ -1018,26 +1055,26 @@ __global__ void __launch_bounds__(kThreads) ragged_kernel_f32(
   }
 }
 
-template <int D, int G, typename KV>
+template <int D, typename KV>
 int launch_f32(const void* q, const void* k, const void* v, const float* ks,
                const float* vs, const int* table, const int* kv_lens,
                const int* q_starts, const int* num_news, void* out, int B,
-               int S, int Hkv, int PS, int Tw, float scale, int window,
+               int S, int Hkv, int G, int PS, int Tw, float scale, int window,
                cudaStream_t stream) {
-  constexpr int BQ = kRows / G;
+  const int bq = kRows / G;
   const size_t smem_bytes =
       ((size_t)(kRows + 2 * kTile) * (D + 1) + (size_t)kRows * kPStride +
        (sizeof(KV) == 1 ? 2 * kTile : 0)) *
       sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      ragged_kernel_f32<D, G, KV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      ragged_kernel_f32<D, KV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem_bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid((S + BQ - 1) / BQ, Hkv, B);
-  ragged_kernel_f32<D, G, KV><<<grid, kThreads, smem_bytes, stream>>>(
+  dim3 grid((S + bq - 1) / bq, Hkv, B);
+  ragged_kernel_f32<D, KV><<<grid, kThreads, smem_bytes, stream>>>(
       static_cast<const float*>(q), static_cast<const KV*>(k),
       static_cast<const KV*>(v), ks, vs, table, kv_lens, q_starts, num_news,
-      static_cast<float*>(out), S, Hkv, PS, Tw, scale, window);
+      static_cast<float*>(out), S, Hkv, G, PS, Tw, scale, window);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1050,35 +1087,32 @@ struct Args {
   const float *ks, *vs;
   const int *table, *kv_lens, *q_starts, *num_news;
   void* out;
-  int B, S, Hkv, PS, Tw, window;
+  int B, S, Hkv, G, PS, Tw, window;
   float scale;
   cudaStream_t stream;
 };
 
 // BF16 picks the wgmma kernel; Q8 the int8 pages.
-template <bool BF16, bool Q8, int D, int G>
+template <bool BF16, bool Q8, int D>
 int launch(const Args& a) {
   if constexpr (BF16) {
-    static_assert(D == 128, "the wgmma kernel is built for head_dim 128");
-    return launch_wgmma<G, Q8>(a.q, a.k, a.v, a.ks, a.vs, a.table, a.kv_lens,
+    return launch_wgmma<D, Q8>(a.q, a.k, a.v, a.ks, a.vs, a.table, a.kv_lens,
                                a.q_starts, a.num_news, a.out, a.B, a.S, a.Hkv,
-                               a.PS, a.Tw, a.scale, a.window, a.stream);
+                               a.G, a.PS, a.Tw, a.scale, a.window, a.stream);
   } else {
     using KV = typename std::conditional<Q8, int8_t, float>::type;
-    return launch_f32<D, G, KV>(a.q, a.k, a.v, a.ks, a.vs, a.table,
-                                a.kv_lens, a.q_starts, a.num_news, a.out, a.B,
-                                a.S, a.Hkv, a.PS, a.Tw, a.scale, a.window,
-                                a.stream);
+    return launch_f32<D, KV>(a.q, a.k, a.v, a.ks, a.vs, a.table, a.kv_lens,
+                             a.q_starts, a.num_news, a.out, a.B, a.S, a.Hkv,
+                             a.G, a.PS, a.Tw, a.scale, a.window, a.stream);
   }
 }
 
+// The instances: head_dim 64 or 128, 1 to 8 query heads a kv head.
 template <bool BF16, bool Q8>
 int dispatch(int D, int G, const Args& a) {
-  if (D != 128) return -1;
-  switch (G) {
-    case 1: return launch<BF16, Q8, 128, 1>(a);
-    case 4: return launch<BF16, Q8, 128, 4>(a);
-  }
+  if (G < 1 || G > 8) return -1;
+  if (D == 64) return launch<BF16, Q8, 64>(a);
+  if (D == 128) return launch<BF16, Q8, 128>(a);
   return -1;
 }
 
@@ -1097,7 +1131,8 @@ int run(const void* q, const void* k_pages, const void* ks_pages,
   a.q_starts = static_cast<const int*>(q_starts);
   a.num_news = static_cast<const int*>(num_news);
   a.out = out;
-  a.B = B; a.S = S; a.Hkv = Hkv; a.PS = PS; a.Tw = Tw; a.window = window;
+  a.B = B; a.S = S; a.Hkv = Hkv; a.G = G; a.PS = PS; a.Tw = Tw;
+  a.window = window;
   a.scale = scale;
   a.stream = static_cast<cudaStream_t>(stream);
   const bool q8 = ks_pages != nullptr;
@@ -1112,7 +1147,8 @@ int run(const void* q, const void* k_pages, const void* ks_pages,
 
 // dtype: 0 = bfloat16, 1 = float32. window: 0 = no sliding window.
 // Returns cudaGetLastError() after the launch, -1 for a shape outside
-// D = 128, G in {1, 4}, or -2 if the driver refused a tensor map (bf16).
+// D in {64, 128}, G in 1..8, or -2 if the driver refused a tensor map
+// (bf16).
 extern "C" int dli_ragged_paged_attention(
     const void* q, const void* k_pages, const void* v_pages,
     const void* table, const void* kv_lens, const void* q_starts,
@@ -1141,15 +1177,26 @@ extern "C" int dli_quantized_ragged_paged_attention(
 // The bf16 kernel's launch at these widths, as launch_wgmma makes it (the
 // wrapper's `launch_plan` states the same in Python): out[0] rows a box,
 // out[1] query tiles (the grid's z), out[2] threads a block, out[3] dynamic
-// shared memory bytes, out[4] TMA bytes a ring stage receives. Returns 0,
-// or -1 outside D = 128, G in {1, 4}.
+// shared memory bytes, out[4] TMA bytes a ring stage receives, out[5]
+// rows a query (the group rounded up to a power of two). Returns 0, or -1
+// outside D in {64, 128}, G in 1..8.
+template <int D>
+void layout_plan(int q8, long long* out) {
+  out[2] = q8 ? WgLayout<true, D>::kThreads : WgLayout<false, D>::kThreads;
+  out[3] = q8 ? WgLayout<true, D>::kBytes : WgLayout<false, D>::kBytes;
+  out[4] = q8 ? WgLayout<true, D>::kTx : WgLayout<false, D>::kTx;
+}
+
 extern "C" int dli_ragged_launch_plan(int S, int G, int D, int PS, int q8,
                                       long long* out) {
-  if (D != 128 || (G != 1 && G != 4) || PS <= 0) return -1;
+  if ((D != 64 && D != 128) || G < 1 || G > 8 || PS <= 0) return -1;
+  const int gp = 1 << group_shift(G);
   out[0] = box_rows_for(PS);
-  out[1] = (S + kBlockRows / G - 1) / (kBlockRows / G);
-  out[2] = q8 ? WgLayout<true>::kThreads : WgLayout<false>::kThreads;
-  out[3] = q8 ? WgLayout<true>::kBytes : WgLayout<false>::kBytes;
-  out[4] = q8 ? WgLayout<true>::kTx : WgLayout<false>::kTx;
+  out[1] = (S + kBlockRows / gp - 1) / (kBlockRows / gp);
+  if (D == 64)
+    layout_plan<64>(q8, out);
+  else
+    layout_plan<128>(q8, out);
+  out[5] = gp;
   return 0;
 }

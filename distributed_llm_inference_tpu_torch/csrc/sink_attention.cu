@@ -57,7 +57,6 @@ namespace sink {
 
 using fused::AllLive;
 using fused::DenseRows;
-using fused::kD;
 
 // Validity of ring slot lo + i of a piece: outside the evicted range,
 // the evict oldest slots from ptr on (mod ring_slots).
@@ -128,9 +127,9 @@ struct Ring : fused::Common {
   __device__ DenseRows rows_of(bool ring, int b, int h) const {
     const size_t r = ((size_t)layer * B + b) * Hkv + h;
     if (ring)
-      return DenseRows{ring_k + r * TR * kD, ring_v + r * TR * kD,
+      return DenseRows{ring_k + r * TR * D, ring_v + r * TR * D,
                        ring_ks + r * TR, ring_vs + r * TR};
-    return DenseRows{sink_k + r * SP * kD, sink_v + r * SP * kD,
+    return DenseRows{sink_k + r * SP * D, sink_v + r * SP * D,
                      sink_ks + r * SP, sink_vs + r * SP};
   }
   template <class F>
@@ -172,12 +171,13 @@ struct RingDest {
 
 // The pieces and the widest piece of a launch: TR / piece_w ring pieces,
 // the sinks, the tail; W = max(piece_w, SP, KT) rows a stage. False for a
-// shape outside D = 128, tile_w dividing TR, piece_w dividing tile_w, SP
+// shape outside D in {64, 128}, tile_w dividing TR, piece_w dividing tile_w, SP
 // and KT in 1..256, 0 < ring_slots <= TR.
 static bool ring_shape(int D, int TR, int SP, int KT, int tile_w,
                        int piece_w, int ring_slots, int& NP, int& W) {
   using fused::kMaxTile;
-  if (D != fused::kD || tile_w < 1 || tile_w > kMaxTile || TR % tile_w != 0 ||
+  if ((D != 64 && D != 128) || tile_w < 1 || tile_w > kMaxTile ||
+      TR % tile_w != 0 ||
       piece_w < 1 || tile_w % piece_w != 0 || SP < 1 || SP > kMaxTile ||
       KT < 1 || KT > kMaxTile || ring_slots < 1 || ring_slots > TR)
     return false;
@@ -193,7 +193,7 @@ static bool ring_shape(int D, int TR, int SP, int KT, int tile_w,
 // ring_len, ring_ptr, evict, sink_len, tail_vlen [B] int32; step one int32
 // in device memory. One launch of fused_decode.cuh's cluster kernel, ring
 // tiles of tile_w dealt as pieces of piece_w. Returns cudaGetLastError()
-// after the launch, -1 for a shape outside D = 128, G in {1, 4}, tile_w
+// after the launch, -1 for a shape outside D in {64, 128}, G in 1..8, tile_w
 // dividing TR, piece_w dividing tile_w, SP and KT in 1..256, or past a
 // block's shared memory.
 extern "C" int dli_sink_fused_decode_attention(
@@ -232,8 +232,8 @@ extern "C" int dli_sink_fused_decode_attention(
   a.out = out;
   a.B = B; a.Hkv = Hkv; a.TR = TR; a.SP = SP; a.KT = KT; a.tile_w = tile_w;
   a.piece_w = piece_w; a.layer = layer; a.ring_slots = ring_slots;
-  a.scale = scale;
-  return fused::dispatch_cluster(a, G, dtype, stream);
+  a.scale = scale; a.G = G; a.D = D;
+  return fused::dispatch_cluster(a, dtype, stream);
 }
 
 // The cluster launch of dli_sink_fused_decode_attention at these widths
@@ -241,13 +241,13 @@ extern "C" int dli_sink_fused_decode_attention(
 // row may have (NP), out[8] the widest piece (W). Returns 0, -1 for shapes
 // it does not take, or the CUDA error of the occupancy query.
 extern "C" int dli_sink_cluster_plan(int TR, int SP, int KT, int tile_w,
-                                     int piece_w, int G, long long* out) {
+                                     int piece_w, int G, int D,
+                                     long long* out) {
   int NP, W;
-  if (!ring_shape(fused::kD, TR, SP, KT, tile_w, piece_w, TR, NP, W))
-    return -1;
+  if (!ring_shape(D, TR, SP, KT, tile_w, piece_w, TR, NP, W)) return -1;
   out[7] = NP;
   out[8] = W;
-  return fused::cluster_plan<sink::Ring>(NP, W, G, out);
+  return fused::cluster_plan<sink::Ring>(NP, W, G, D, out);
 }
 
 // ring planes [L, B, Hkv, TR, D] int8 / [L, B, Hkv, TR] f32, tail planes

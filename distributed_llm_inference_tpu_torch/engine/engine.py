@@ -63,6 +63,7 @@ from ..cache.sink import QuantizedSinkKVCache, SinkKVCache
 from ..config import CacheConfig, EngineConfig, ModelConfig
 from ..models import llama
 from ..ops import quant
+from ..ops.attention import int8_pages_error, kernel_widths_error
 from ..utils.device import resolve_device, to_device
 from ..utils.metrics import Metrics
 from .graphs import FusedDecode
@@ -93,7 +94,12 @@ class InferenceEngine:
     type, and tests pass ``"cuda"`` with ``device="cpu"`` to route attention
     through the kernel wrappers, which take their plain versions for CPU
     tensors. On a CUDA device each fused decode step is replayed from a
-    CUDA graph (``engine/graphs.py``).
+    CUDA graph (``engine/graphs.py``). On a CUDA device the constructor
+    raises ``NotImplementedError`` for a model whose head_dim or query heads
+    a kv head no attention kernel takes (``ops/attention.py:
+    kernel_widths_error``), and for bf16 over int8 pages of a page size the
+    kernels cannot box (``int8_pages_error``), rather than at the first
+    kernel call.
     """
 
     def __init__(
@@ -136,6 +142,16 @@ class InferenceEngine:
             raise _waits("trace_cfg (spans and the flight recorder)", "item 16")
 
         self.device = resolve_device(device)
+        if self.device.type == "cuda":
+            why = kernel_widths_error(
+                cfg.head_dim, cfg.num_heads // cfg.num_kv_heads)
+            if why is not None:
+                raise NotImplementedError(f"this model's attention: {why}")
+            if (cc.kind == "paged" and cc.kv_quant == "int8"
+                    and ecfg.dtype == "bfloat16"):
+                why = int8_pages_error(cfg.head_dim, cc.page_size)
+                if why is not None:
+                    raise NotImplementedError(f"this cache: {why}")
         # Pin the W8A8 prefill-activation policy for this deployment (module
         # flags, as in the JAX package; EngineConfig is the way to set them).
         if ecfg.act_quant_prefill is not None:

@@ -4,8 +4,11 @@ are traced by JAX itself).
 Each ``csrc/<name>.cu`` has a plain C interface and includes no PyTorch
 header, so ``nvcc`` compiles it in seconds. The shared library lands in a
 directory ``build/`` beside the package, named by a hash of the source, of
-every ``csrc/*.cuh`` header and of the flags, at first use; ``ctypes`` loads it. Nothing here runs at import time: the CPU tests import every module on a
-machine with no compiler.
+every ``csrc/*.cuh`` header and of the flags, at first use; ``ctypes`` loads
+it. Beside it the compiler's ``-Xptxas -v`` report (registers, shared
+memory and spills of every kernel instance) is kept as ``.log``. Nothing
+here runs at import time: the CPU tests import every module on a machine
+with no compiler.
 """
 
 from __future__ import annotations
@@ -24,10 +27,13 @@ KERNEL_SOURCES = (
     "flash_attention", "int4_matmul", "paged_attention", "quant_attention",
     "ragged_attention", "sink_attention",
 )
-COMPILE_FLAGS = (
+# --split-compile=4: the optimizer runs on up to 4 threads a source, so the
+# sources that hold many kernel instances (the fused step's 24 a policy) do
+# not set the build's length alone (chip_smoke.py prints it, `build_s`).
+NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "--split-compile=4", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-NVCC_FLAGS = (*COMPILE_FLAGS, "-shared", "-Xcompiler", "-fPIC")
 
 _libs: Dict[str, ctypes.CDLL] = {}
 
@@ -61,7 +67,12 @@ def _finish(name: str, proc: subprocess.Popen, tmp: Path, out: Path) -> None:
             f"nvcc failed for {name}.cu (exit {proc.returncode}):\n"
             + log.decode(errors="replace")
         )
-    os.replace(tmp, out)  # atomic: a concurrent process sees all or nothing
+    # The report first, then the library (atomic: a concurrent process sees
+    # all or nothing, and a library's report is there before it is).
+    report = tmp.with_suffix(".logtmp")
+    report.write_bytes(log)
+    os.replace(report, out.with_suffix(".log"))
+    os.replace(tmp, out)
 
 
 def build_all(names: Sequence[str] = KERNEL_SOURCES) -> Dict[str, Path]:
@@ -87,17 +98,12 @@ def build_all(names: Sequence[str] = KERNEL_SOURCES) -> Dict[str, Path]:
     return paths
 
 
-def ptxas_report(name: str) -> subprocess.Popen:
-    """Start ``nvcc -Xptxas -v`` on ``csrc/<name>.cu``, device code only
-    (a cubin in the build directory, not loaded). Its output, read from the
-    process's stdout, gives each kernel instance's registers, shared memory
-    and spills."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    return subprocess.Popen(
-        [_nvcc(), *COMPILE_FLAGS, "-Xptxas", "-v", "-cubin",
-         "-o", str(BUILD_DIR / f"{name}.cubin"), str(CSRC / f"{name}.cu")],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-    )
+def ptxas_log(name: str) -> str:
+    """The ``-Xptxas -v`` report of ``csrc/<name>.cu``'s build (each kernel
+    instance's registers, shared memory and spills), built first if its
+    hash is not in the build directory yet."""
+    return build_all([name])[name].with_suffix(".log").read_text(
+        errors="replace")
 
 
 def load_library(name: str) -> ctypes.CDLL:

@@ -15,6 +15,52 @@ import torch
 # uniform row that the mask zeroes again, instead of NaN.
 _NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 
+# The widths every attention kernel (``csrc/``) is built for: the head_dim,
+# and the query heads a kv head, from MHA to Llama-3-70B's 8.
+KERNEL_HEAD_DIMS = (64, 128)
+KERNEL_MAX_GROUP = 8
+
+
+def kernel_widths_error(head_dim: int, group: int) -> Optional[str]:
+    """Why no attention kernel takes ``head_dim`` with ``group`` query
+    heads a kv head, or None when every one does."""
+    if group > KERNEL_MAX_GROUP:
+        return (f"{group} query heads per kv head: the attention kernels "
+                f"take 1 to {KERNEL_MAX_GROUP}; a group of all the query "
+                f"heads (the latent family's) is not ported yet (ROADMAP.md "
+                f"queue 1, item 10)")
+    if group < 1 or head_dim not in KERNEL_HEAD_DIMS:
+        return (f"head_dim {head_dim} with {group} query heads per kv head: "
+                f"the attention kernels are built for "
+                f"{' and '.join(f'head_dim {d}' for d in KERNEL_HEAD_DIMS)}")
+    return None
+
+
+def int8_pages_error(head_dim: int, page_size: int) -> Optional[str]:
+    """Why the bf16 kernels over int8 pages cannot take pages of
+    ``page_size`` rows of ``head_dim``, or None. An int8 row of 64 is 64
+    bytes: boxes of an odd number of rows would land off the 128-byte
+    alignment a TMA destination needs."""
+    if head_dim == 64 and page_size % 2:
+        return (f"int8 pages of head_dim 64 need an even page size, got "
+                f"{page_size}")
+    return None
+
+
+def rows_per_query(group: int) -> int:
+    """Score rows a query takes in the bf16 prefill kernels' blocks of 128
+    (ragged and flash): its kv head's ``group`` query heads, rounded up to a
+    power of two (1, 2, 4 or 8), so that a block and each warpgroup's 64
+    rows hold whole queries."""
+    return 1 << (group - 1).bit_length()
+
+
+def check_kernel_widths(name: str, head_dim: int, group: int) -> None:
+    """Raise ``ValueError`` naming ``name`` for widths no kernel takes."""
+    why = kernel_widths_error(head_dim, group)
+    if why is not None:
+        raise ValueError(f"{name}: {why}")
+
 
 def causal_mask(
     q_positions: torch.Tensor,

@@ -20,7 +20,8 @@ tensors take :func:`flash_attention_plain`, which walks the TPU kernel's
 
 ``csrc/flash_attention.cu`` replaces the TPU kernel ``_flash_kernel``. In
 bf16 a first pass reads the byte mask once (it is shared by every kv head)
-into a bit-packed mask and a class per tile of 128 / G queries by 128
+into a bit-packed mask and a class per tile of 128 / Gp queries (Gp the
+G query heads of a kv head rounded up to a power of two) by 128
 positions (empty, full or partial, :func:`mask_tiles` is its plain
 version); the main kernel then walks, per (query tile, kv head, row), only
 the non-empty 128-wide steps (the TPU kernel's ``block_k``) with the
@@ -42,7 +43,9 @@ from typing import Optional
 import torch
 
 from . import _build
-from .attention import _NEG_INF, gqa_attention
+from .attention import (
+    _NEG_INF, check_kernel_widths, gqa_attention, rows_per_query,
+)
 
 __all__ = ["flash_attention", "flash_attention_plain", "mask_tiles",
            "device_mask_tiles", "launches"]
@@ -176,10 +179,9 @@ def _launch(q, k, v, mask, scale):
     if tuple(v.shape) != tuple(k.shape) or tuple(k.shape) != (b, t, hkv, d):
         raise ValueError(f"{name}: k {tuple(k.shape)}, v {tuple(v.shape)}, "
                          f"q {tuple(q.shape)}")
-    if d != 128 or hq % hkv or hq // hkv not in (1, 4):
-        raise ValueError(
-            f"{name}: the kernel is built for head_dim 128 and 1 or 4 query "
-            f"heads per kv head, got head_dim {d}, {hq} / {hkv} heads")
+    if hq % hkv:
+        raise ValueError(f"{name}: {hq} query heads over {hkv} kv heads")
+    check_kernel_widths(name, d, hq // hkv)
     if mask.dtype != torch.bool or tuple(mask.shape) != (b, s, t):
         raise ValueError(f"{name}: mask {mask.dtype} {tuple(mask.shape)}, "
                          f"want bool {(b, s, t)}")
@@ -199,7 +201,8 @@ def _launch(q, k, v, mask, scale):
     if scale is None:
         scale = d**-0.5
     out = torch.empty_like(q)
-    bits, classes = _tile_scratch(b, s, t, 128 // (hq // hkv), q.device)
+    bits, classes = _tile_scratch(b, s, t, 128 // rows_per_query(hq // hkv),
+                                  q.device)
     with torch.cuda.device(q.device):
         err = _kernel()(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),

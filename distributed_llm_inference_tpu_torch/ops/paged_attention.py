@@ -58,7 +58,7 @@ from typing import Optional
 import torch
 
 from . import _build
-from .attention import _NEG_INF
+from .attention import _NEG_INF, check_kernel_widths, int8_pages_error
 
 __all__ = [
     "paged_attention",
@@ -147,9 +147,10 @@ def _kernel(form: str):
 def check_kernel_inputs(name, q, k_pages, v_pages, page_table, vectors,
                         scales=()):
     """Shared argument checks of the kernel wrappers: one CUDA device,
-    bf16 or f32 queries, contiguous, int32 indices, supported widths. Pools
-    have q's type, or with ``scales`` (``(("ks_pages", ks), ("vs_pages",
-    vs))``) are int8 with f32 ``[P, Hkv, PS]`` scale planes."""
+    bf16 or f32 queries, contiguous, int32 indices, supported widths (head
+    dim 64 or 128, 1 to 8 query heads a kv head). Pools have q's type, or
+    with ``scales`` (``(("ks_pages", ks), ("vs_pages", vs))``) are int8 with
+    f32 ``[P, Hkv, PS]`` scale planes."""
     dev = q.device
     for label, t in (("k_pages", k_pages), ("v_pages", v_pages),
                      ("page_table", page_table), *vectors, *scales):
@@ -181,11 +182,10 @@ def check_kernel_inputs(name, q, k_pages, v_pages, page_table, vectors,
             f"{name}: q {tuple(q.shape)} does not match pools "
             f"{tuple(k_pages.shape)}"
         )
-    if d != 128 or hq // hkv not in (1, 4):
-        raise ValueError(
-            f"{name}: the kernels are built for head_dim 128 and 1 or 4 "
-            f"query heads per kv head, got head_dim {d}, group {hq // hkv}"
-        )
+    check_kernel_widths(name, d, hq // hkv)
+    why = int8_pages_error(d, k_pages.shape[2])
+    if scales and q.dtype == torch.bfloat16 and why is not None:
+        raise ValueError(f"{name}: {why}")
     for label, t in (("page_table", page_table), *vectors):
         if t.dtype != torch.int32:
             raise TypeError(f"{name}: {label} must be int32, got {t.dtype}")

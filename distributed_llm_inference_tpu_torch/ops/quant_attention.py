@@ -74,7 +74,7 @@ from typing import Iterable, Optional, Tuple
 import torch
 
 from . import _build
-from .attention import _NEG_INF
+from .attention import _NEG_INF, check_kernel_widths
 
 __all__ = [
     "quantized_fused_decode_attention",
@@ -239,8 +239,9 @@ def quantized_fused_decode_attention_plain(
 def check_fused_inputs(name, q, k_new, v_new, planes, vectors, step_idx):
     """Argument checks shared by the fused kernels' wrappers: one CUDA
     device, bf16/f32 q, k_new, v_new of one type, int8 planes with f32
-    scale planes, int32 ``[B]`` vectors and step, contiguous, head_dim 128,
-    1 or 4 query heads per kv head. ``planes``: ``(label, tensor, dtype)``."""
+    scale planes, int32 ``[B]`` vectors and step, contiguous, head_dim 64
+    or 128, 1 to 8 query heads per kv head. ``planes``: ``(label, tensor,
+    dtype)``."""
     dev = q.device
     b, s, hq, d = q.shape
     if s != 1:
@@ -253,10 +254,9 @@ def check_fused_inputs(name, q, k_new, v_new, planes, vectors, step_idx):
             raise ValueError(
                 f"{name}: {label} {t_.dtype} {tuple(t_.shape)}, want "
                 f"{q.dtype} {(b, 1, hkv, d)}")
-    if d != 128 or hq % hkv or hq // hkv not in (1, 4):
-        raise ValueError(
-            f"{name}: the kernels are built for head_dim 128 and 1 or 4 "
-            f"query heads per kv head, got head_dim {d}, {hq} / {hkv} heads")
+    if hq % hkv:
+        raise ValueError(f"{name}: {hq} query heads over {hkv} kv heads")
+    check_kernel_widths(name, d, hq // hkv)
     for label, t_, dt in planes:
         if t_.dtype != dt:
             raise TypeError(f"{name}: {label} must be {dt}, got {t_.dtype}")
@@ -470,10 +470,9 @@ def quantized_decode_attention(
     if q.dtype not in _DTYPE_CODE:
         raise TypeError(f"{name}: dtype {q.dtype} (kernel takes bf16, f32)")
     hkv, t = k_q.shape[1], k_q.shape[2]
-    if d != 128 or hq % hkv or hq // hkv not in (1, 4):
-        raise ValueError(
-            f"{name}: the kernels are built for head_dim 128 and 1 or 4 "
-            f"query heads per kv head, got head_dim {d}, {hq} / {hkv} heads")
+    if hq % hkv:
+        raise ValueError(f"{name}: {hq} query heads over {hkv} kv heads")
+    check_kernel_widths(name, d, hq // hkv)
     for label, t_, dt, shape in (
             ("k_q", k_q, torch.int8, (b, hkv, t, d)),
             ("v_q", v_q, torch.int8, (b, hkv, t, d)),

@@ -12,7 +12,11 @@ pad queries exit at once, and pages are read in place (no contiguous
 gather copy). For bf16 queries a block holds 128 score rows in two
 warpgroups that run ``wgmma``, fed by a producer warpgroup that keeps a ring
 of K/V tiles in flight by TMA, in boxes of ``box_rows(page_size)`` rows,
-the heaviest query tiles launched first (:func:`launch_plan`). For f32
+the heaviest query tiles launched first (:func:`launch_plan`); a query
+takes ``rows_per_query(G)`` rows, the G query heads of its kv head padded
+to a power of two, whose padding rows are zeros never written
+(:func:`score_rows`). Head_dim 64 and 128, 1 to 8 query heads a kv head.
+For f32
 the products are register-tiled FMAs, which the engine's exact-parity
 checks need. Over int8 pages K and V are converted to the working type in
 shared memory and the scales apply to the scores (K) and to the
@@ -33,7 +37,8 @@ from typing import Optional
 import torch
 
 from . import _build
-from .attention import _NEG_INF
+from .attention import (
+    _NEG_INF, check_kernel_widths, int8_pages_error, rows_per_query)
 from .paged_attention import check_kernel_inputs, gather_pages, gather_scales
 
 __all__ = [
@@ -46,6 +51,8 @@ __all__ = [
     "quantized_launches",
     "box_rows",
     "tile_of",
+    "rows_per_query",
+    "score_rows",
     "launch_plan",
 ]
 
@@ -73,6 +80,17 @@ def box_rows(page_size: int) -> int:
     return math.gcd(page_size, MAX_BOX_ROWS)
 
 
+def score_rows(group: int):
+    """The (query of the block, head of the group) of each of the bf16
+    kernel's ``BLOCK_ROWS`` score rows, as ``ragged_kernel_wgmma`` reads
+    them (row r: query ``r >> shift``, head ``r & (Gp - 1)``), with None
+    for a padding row (a head past the group: a zero query whose output
+    the 5-D tensor map does not write)."""
+    gp = rows_per_query(group)
+    return [(r // gp, r % gp) if r % gp < group else None
+            for r in range(BLOCK_ROWS)]
+
+
 def tile_of(z: int, tiles: int) -> int:
     """The query tile that the bf16 kernel's blocks at grid index ``z``
     serve: the last tile first. A later tile's causal walk is never
@@ -88,16 +106,21 @@ def launch_plan(batch: int, seq: int, num_kv_heads: int, group: int,
     (its ``dli_ragged_launch_plan`` reports the same numbers): the grid
     ``(Hkv, B, query tiles)`` (tiles launched in :func:`tile_of`'s order),
     the tensor maps (dimensions innermost first, byte strides of the outer
-    dimensions, box), the bytes each ring stage receives and the dynamic
-    shared memory. The pools are viewed as rows
+    dimensions, box; q and out as ``{D, G, Hkv, S, B}``, a box of
+    :func:`rows_per_query` heads), the bytes each ring stage receives and
+    the dynamic shared memory. The pools are viewed as rows
     ``[P * Hkv * PS, D]``; the map's row extent is 2^31, so every row a
     page table can name must lie below it. Raises ``ValueError`` on what
     the launch cannot take."""
     hq = num_kv_heads * group
-    if head_dim != 128 or group not in (1, 4):
-        raise ValueError(f"no bf16 instance for head_dim {head_dim}, group {group}")
+    check_kernel_widths("ragged_paged_attention", head_dim, group)
+    why = int8_pages_error(head_dim, page_size)
+    if quantized and why is not None:
+        raise ValueError(why)
+    gp = rows_per_query(group)
+    halves = head_dim // 64
     rows = box_rows(page_size)
-    tiles = -(-seq // (BLOCK_ROWS // group))
+    tiles = -(-seq // (BLOCK_ROWS // gp))
     pool_rows = num_pages * num_kv_heads * page_size
     if pool_rows > 2**31:
         raise ValueError(
@@ -107,10 +130,11 @@ def launch_plan(batch: int, seq: int, num_kv_heads: int, group: int,
     esz = 1 if quantized else 2
     # Q, then bf16 pages: a ring of 3 stages of K and V; int8 pages: 2
     # converted bf16 stages, 2 int8 stages and their K and V scales. Then
-    # one barrier for Q and 2 (bf16) or 7 (int8) a stage.
+    # one barrier for Q and 2 (bf16) or 7 (int8) a stage. A bf16 tile is
+    # D / 64 halves; an int8 plane is STEP rows of D bytes.
     stages = 2 if quantized else 3
-    stage_tx = (2 if quantized else 4) * _HALF
-    smem = 2 * _HALF + stages * 4 * _HALF
+    stage_tx = 2 * STEP * head_dim if quantized else 2 * halves * _HALF
+    smem = halves * _HALF + stages * 2 * halves * _HALF
     if quantized:
         smem += stages * (stage_tx + 2 * STEP * 4)
     smem += (1 + (7 if quantized else 2) * stages) * 8
@@ -122,13 +146,15 @@ def launch_plan(batch: int, seq: int, num_kv_heads: int, group: int,
         "threads": 384,
         "stages": stages,
         "box_rows": rows,
-        "boxes_per_step": STEP // rows * (1 if quantized else 2) * 2,
-        "q_map": {"dims": (head_dim, hq, seq, batch),
-                  "strides": (head_dim * 2, hq * head_dim * 2,
-                              seq * hq * head_dim * 2),
-                  "box": (64, group, BLOCK_ROWS // group, 1), "swizzle": 128},
+        "rows_per_query": gp,
+        "boxes_per_step": STEP // rows * (1 if quantized else halves) * 2,
+        "q_map": {"dims": (head_dim, group, num_kv_heads, seq, batch),
+                  "strides": (head_dim * 2, group * head_dim * 2,
+                              hq * head_dim * 2, seq * hq * head_dim * 2),
+                  "box": (64, gp, 1, BLOCK_ROWS // gp, 1), "swizzle": 128},
+        "o_box": (64, gp, 1, 64 // gp, 1),
         "kv_map": {"dims": (head_dim, 2**31), "strides": (head_dim * esz,),
-                   "box": (128 if quantized else 64, rows),
+                   "box": (head_dim if quantized else 64, rows),
                    "swizzle": 0 if quantized else 128},
         "stage_bytes": stage_tx,
         "smem_bytes": smem,

@@ -45,6 +45,9 @@ FAMILIES = {
     "mistral": dict(BASE, sliding_window=8, family="mistral"),
     "qwen2": dict(BASE, qkv_bias=True, rope_theta=1e6, family="qwen2"),
     "llama_bo": dict(BASE),
+    # 7 query heads over one kv head (Qwen2.5-7B's grouping): the kernels'
+    # padded group at tiny widths.
+    "gqa7": dict(BASE, num_heads=7, num_kv_heads=1),
 }
 
 

@@ -11,6 +11,8 @@ finish reasons IDENTICAL (helpers and Mixtral's cases in
   K = 16 and K = 1.
 * A Llama config with a random o_proj bias (``bo``), on bf16 pages at
   K = 16 and on the int8 dense cache at K = 1.
+* A Llama config of 7 query heads over one kv head (Qwen2.5-7B's
+  grouping), on bf16 pages (the kernels' route) at K = 16 and K = 1.
 """
 
 import pytest
@@ -31,6 +33,8 @@ CASES = [
     ("llama_bo-bf16_pages-k16", "llama_bo", 16, dict(kernels=True)),
     ("llama_bo-int8_dense-k1", "llama_bo", 1,
      dict(kind="dense", kv_quant="int8", decode_steps=1)),
+    ("gqa7-bf16_pages-k16", "gqa7", 16, dict(kernels=True)),
+    ("gqa7-bf16_pages-k1", "gqa7", 1, dict(kernels=True, decode_steps=1)),
 ]
 
 

@@ -20,7 +20,9 @@ from distributed_llm_inference_tpu.ops.flash_attention import (
     flash_attention as jax_flash,
 )
 from distributed_llm_inference_tpu_torch.ops import flash_attention as tfa
-from distributed_llm_inference_tpu_torch.ops.attention import gqa_attention
+from distributed_llm_inference_tpu_torch.ops.attention import (
+    gqa_attention, rows_per_query,
+)
 
 torch.set_num_threads(1)
 F32 = 2e-5
@@ -193,12 +195,13 @@ def test_mask_tiles_match_the_byte_mask(family, s, t):
 
 
 def walk_listed_tiles(q, k, v, mask, g):
-    """The bf16 kernel's walk in f32: per (row, query tile of 128 / g
-    queries), only the steps ``mask_tiles`` lists, a mask applied only on
-    partial ones, 128-wide steps, online softmax as the TPU kernel's."""
+    """The bf16 kernel's walk in f32: per (row, query tile of 128 / Gp
+    queries, Gp the group rounded up to a power of two), only the steps
+    ``mask_tiles`` lists, a mask applied only on partial ones, 128-wide
+    steps, online softmax as the TPU kernel's."""
     b, s, hq, d = q.shape
     hkv, t = k.shape[2], k.shape[1]
-    bq = 128 // g
+    bq = 128 // rows_per_query(g)
     _, classes = tfa.mask_tiles(mask, bq)
     out = torch.zeros_like(q)
     for bi in range(b):
@@ -228,14 +231,24 @@ def walk_listed_tiles(q, k, v, mask, g):
     return out
 
 
-@pytest.mark.parametrize("family", FAMILIES)
-@pytest.mark.parametrize("g", [4, 1])
-def test_listed_walk_matches_jax(family, g):
+# (g, d, family): 4 and 1 query heads a kv head under every mask family;
+# the groupings 3, 7, 8 (query tiles of 32, 16, 16) and head_dim 64 under
+# one family each.
+WALK_CASES = [(g, 16, family) for g in (4, 1) for family in FAMILIES] + [
+    (3, 16, "window"), (7, 16, "sinks"), (8, 16, "empty_rows"),
+    (4, 64, "causal"), (8, 64, "random")]
+
+
+@pytest.mark.parametrize(
+    "g,d,family", WALK_CASES,
+    ids=[f"{g if d == 16 else f'{g}d{d}'}-{family}"
+         for g, d, family in WALK_CASES])
+def test_listed_walk_matches_jax(g, d, family):
     """Skipping empty tiles and masking only partial ones gives the TPU
     kernel's result (JAX in interpret mode, its 128-wide tiles), and rows
     that see nothing are exact zeros."""
     s, t = 48, 256
-    q, k, v = inputs(11, 2, s, t, 2 * g, 2, 16)
+    q, k, v = inputs(11, 2, s, t, 2 * g, 2, d)
     mask = mask_family(family, 2, s, t, np.random.default_rng(3))
     want = jax_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
                      jnp.asarray(mask), interpret=True)

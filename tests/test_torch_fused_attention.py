@@ -52,10 +52,10 @@ def tt(a, dtype=None):
     return t if dtype is None else t.to(getattr(torch, dtype))
 
 
-def int8_planes(rng, lead, n):
+def int8_planes(rng, lead, n, d=D):
     """int8 values and f32 scales as the cache stores them, ``lead + (n,
-    D)`` / ``lead + (n,)``."""
-    x = rng.standard_normal((2, *lead, n, D)).astype(np.float32)
+    d)`` / ``lead + (n,)``."""
+    x = rng.standard_normal((2, *lead, n, d)).astype(np.float32)
     q, s = jax_quantize_kv(jnp.asarray(x))
     q, s = np.asarray(q), np.asarray(s)
     return q[0], s[0], q[1], s[1]
@@ -296,26 +296,39 @@ def cluster_model(q, pool, tail, table, base, vlen, qpos, window, layer,
     return out.reshape(b, hq, d), maxima
 
 
-@pytest.mark.parametrize("ps", [16, 48, 64])
-@pytest.mark.parametrize("window", [None, 37])
-@pytest.mark.parametrize("blocks", [1, 3, 8])
-def test_cluster_split_matches_the_walk(ps, window, blocks):
+# (ps, window, blocks, g, d): two query heads a kv head over every page
+# size, window and cluster size; and the groupings 3, 7, 8 and head_dim 64
+# (the kernel's 8-head instance scores 4 heads at a time; at D = 64 four
+# lanes hold a position), over pages of 48 and 3 blocks, the windows in
+# turn.
+SPLIT_CASES = [(ps, window, blocks, 2, D) for blocks in (1, 3, 8)
+               for window in (None, 37) for ps in (16, 48, 64)] + [
+    (48, (None, 37)[i % 2], 3, g, d)
+    for i, (g, d) in enumerate(((3, D), (7, D), (8, D), (4, 64), (8, 64)))]
+
+
+@pytest.mark.parametrize(
+    "ps,window,blocks,g,d", SPLIT_CASES,
+    ids=[f"{c}-{w}-{ps}" + ("" if (g, d) == (2, D) else f"-g{g}d{d}")
+         for ps, w, c, g, d in SPLIT_CASES])
+def test_cluster_split_matches_the_walk(ps, window, blocks, g, d):
     """Rows: empty (nothing cached, no tail), tail only, short (fewer tiles
     than blocks), across pages, and long; a window that starts inside a
-    page; one and two query heads per kv head."""
-    rng = np.random.default_rng(ps + blocks + (window or 0))
-    b, width, kt, g = 5, 6, 8, 2
+    page; 2 to 8 query heads per kv head, head_dim 16 and 64."""
+    rng = np.random.default_rng(ps + blocks + (window or 0)
+                                + ((g, d) != (2, D)) * (100 * g + d))
+    b, width, kt = 5, 6, 8
     pages = 1 + b * width
-    pool = [tt(x).clone() for x in int8_planes(rng, (L, pages, HKV), ps)]
-    tail = [tt(x).clone() for x in int8_planes(rng, (L, b, HKV), kt)]
+    pool = [tt(x).clone() for x in int8_planes(rng, (L, pages, HKV), ps, d)]
+    tail = [tt(x).clone() for x in int8_planes(rng, (L, b, HKV), kt, d)]
     tab = tt(table_for(rng, b, width, pages))
     base = torch.tensor([0, 0, 5, ps + 3, width * ps - 2], dtype=torch.int32)
     tail_len = torch.tensor([0, 3, 2, 5, 7], dtype=torch.int32)
     vlen = tail_len + torch.tensor([0, 1, 1, 1, 1], dtype=torch.int32)
     qpos = base + tail_len
     q, kn, vn = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
-                 for shape in ((b, 1, HKV * g, D), (b, 1, HKV, D),
-                               (b, 1, HKV, D)))
+                 for shape in ((b, 1, HKV * g, d), (b, 1, HKV, d),
+                               (b, 1, HKV, d)))
     step = 3
     kw = dict(layer_idx=1, step_idx=torch.tensor([step], dtype=torch.int32),
               page_table=tab, base_len=base, tail_valid_len=vlen,
@@ -442,26 +455,38 @@ def contiguous_cluster_model(q, stacks, tail, base, vlen, qpos, window,
     return out.reshape(b, hq, d), maxima
 
 
-@pytest.mark.parametrize("t", [40, 256, 300, 640])
-@pytest.mark.parametrize("window", [None, 37])
-@pytest.mark.parametrize("g", [1, 4])
-def test_contiguous_cluster_split_matches_the_walk(t, window, g):
+# (t, window, g, d): 1 and 4 query heads a kv head over every stack width
+# and window; the groupings 3, 7, 8 and head_dim 64 over one width and
+# window each.
+CONTIGUOUS_CASES = [(t, window, g, D) for g in (1, 4) for window in (None, 37)
+                    for t in (40, 256, 300, 640)] + [
+    (t, (37, None)[i % 2], g, d)
+    for i, ((g, d), t) in enumerate(zip(
+        ((3, D), (7, D), (8, D), (4, 64), (8, 64)), (256, 300, 40, 40, 640)))]
+
+
+@pytest.mark.parametrize(
+    "t,window,g,d", CONTIGUOUS_CASES,
+    ids=[f"{g if d == D else f'{g}d{d}'}-{w}-{t}"
+         for t, w, g, d in CONTIGUOUS_CASES])
+def test_contiguous_cluster_split_matches_the_walk(t, window, g, d):
     """Rows: empty (nothing cached, no tail), tail only, short (one piece),
     across pieces and tiles, and long (the last tile partial where T is not
-    a multiple of 256); a window that starts inside a piece; 1 and 4 query
-    heads per kv head. Stacks of whole tiles (T = 40, 256) also against the
-    JAX kernel (its interpret mode pads a partial tile with NaN)."""
-    rng = np.random.default_rng(t + 10 * g + (window or 0))
+    a multiple of 256); a window that starts inside a piece; 1 to 8 query
+    heads per kv head, head_dim 16 and 64. Stacks of whole tiles (T = 40,
+    256) also against the JAX kernel (its interpret mode pads a partial
+    tile with NaN)."""
+    rng = np.random.default_rng(t + 10 * g + (window or 0) + (d != D) * d)
     b, kt = 5, 8
-    stacks = [tt(x).clone() for x in int8_planes(rng, (L, b, HKV), t)]
-    tail = [tt(x).clone() for x in int8_planes(rng, (L, b, HKV), kt)]
+    stacks = [tt(x).clone() for x in int8_planes(rng, (L, b, HKV), t, d)]
+    tail = [tt(x).clone() for x in int8_planes(rng, (L, b, HKV), kt, d)]
     base = torch.tensor([0, 0, 5, t // 2 + 3, t - 2], dtype=torch.int32)
     tail_len = torch.tensor([0, 3, 2, 5, 7], dtype=torch.int32)
     vlen = tail_len + torch.tensor([0, 1, 1, 1, 1], dtype=torch.int32)
     qpos = base + tail_len
     q, kn, vn = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
-                 for shape in ((b, 1, HKV * g, D), (b, 1, HKV, D),
-                               (b, 1, HKV, D)))
+                 for shape in ((b, 1, HKV * g, d), (b, 1, HKV, d),
+                               (b, 1, HKV, d)))
     step = 3
     kw = dict(layer_idx=1, step_idx=torch.tensor([step], dtype=torch.int32),
               base_len=base, tail_valid_len=vlen, q_positions=qpos,

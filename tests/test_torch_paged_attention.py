@@ -121,8 +121,9 @@ def test_kernel_input_checks():
     p2 = torch.zeros(8, 2, 8, 128)
     assert check("t", q2, p2, p2, table, vec) == 1
     assert check("t", q2[:, :, :2].contiguous(), p2, p2, table, vec) == 1  # MHA
+    assert check("t", q2[:, :, :4].contiguous(), p2, p2, table, vec) == 1  # G 2
     with pytest.raises(ValueError, match="query heads per kv head"):
-        check("t", q2[:, :, :4].contiguous(), p2, p2, table, vec)  # group of 2
+        check("t", torch.zeros(1, 1, 18, 128), p2, p2, table, vec)  # G 9
     assert check("t", q2.bfloat16(), p2.bfloat16(), p2.bfloat16(), table, vec) == 0
     with pytest.raises(TypeError):
         check("t", q2.half(), p2.half(), p2.half(), table, vec)

@@ -126,10 +126,11 @@ LENS = [0, 5, 40, 130, 600]
 
 
 @functools.lru_cache(maxsize=None)
-def jax_case(ps, g, window, past):
+def jax_case(ps, g, window, past, d=16):
     """Inputs of one case and the Pallas kernel's (out, m, l) on them (the
     cluster sizes of a case share them)."""
-    q, kp, vp, table, lens = case_inputs(ps + 10 * g, ps, g, LENS)
+    q, kp, vp, table, lens = case_inputs(ps + 10 * g + (d != 16) * d, ps, g,
+                                         LENS, d=d)
     qpos = np.maximum(lens - 1, 0) + past
     want, wm, wl = jax_paged_attention(
         jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp), jnp.asarray(table),
@@ -139,17 +140,31 @@ def jax_case(ps, g, window, past):
         np.asarray(x) for x in (want, wm, wl))
 
 
-@pytest.mark.parametrize("ps", [16, 48, 64])
-@pytest.mark.parametrize("g", [1, 4])
-@pytest.mark.parametrize("blocks", [1, 3, 8])
-@pytest.mark.parametrize("window,past", [(None, 0), (37, 0), (100, 9)])
-def test_cluster_split_matches_jax(ps, g, blocks, window, past):
+WINDOWS = [(None, 0), (37, 0), (100, 9)]
+# Every grouping 1 to 8 and head_dim 64 ride on the same split: the 8 rows
+# of the score tile's heads (3, 7, 8 query heads a kv head at head_dim 16;
+# 4 and 8 at 64), over pages of 48 and 3-block clusters, the windows in
+# turn.
+SPLIT_CASES = [
+    (ps, g, 16, blocks, window, past)
+    for window, past in WINDOWS for blocks in (1, 3, 8) for g in (1, 4)
+    for ps in (16, 48, 64)] + [
+    (48, g, d, 3, *WINDOWS[i % 3])
+    for i, (g, d) in enumerate(((3, 16), (7, 16), (8, 16), (4, 64),
+                                (8, 64)))]
+
+
+@pytest.mark.parametrize(
+    "ps,g,d,blocks,window,past", SPLIT_CASES,
+    ids=[f"{w}-{p}-{c}-{g if d == 16 else f'{g}d{d}'}-{ps}"
+         for ps, g, d, c, w, p in SPLIT_CASES])
+def test_cluster_split_matches_jax(ps, g, d, blocks, window, past):
     """The model of the kernel's split against the Pallas kernel: the
     output, ``m`` and ``l``; a sliding window whose start falls inside a
     page and a step, anchored at the row's last position or at
     ``q_positions`` past it (the query ahead of the cache)."""
     (q, kp, vp, table, lens, qpos), (want, wm, wl) = jax_case(
-        ps, g, window, past)
+        ps, g, window, past, d)
     got, gm, gl = decode_model(
         torch.from_numpy(q[:, 0]), torch.from_numpy(kp), torch.from_numpy(vp),
         torch.from_numpy(table), lens, qpos, window, blocks)

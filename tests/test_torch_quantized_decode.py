@@ -118,10 +118,10 @@ def decode_model(q, k, ks, v, vs, lens, qpos, window, blocks):
     return out.reshape(b, hq, d), m, l
 
 
-def quantized(rng, shape):
-    """Normal values ``shape + (D,)`` quantized per leading index as the
+def quantized(rng, shape, d=D):
+    """Normal values ``shape + (d,)`` quantized per leading index as the
     caches store them: (int8 values, f32 scales)."""
-    x = rng.standard_normal((*shape, D)).astype(np.float32)
+    x = rng.standard_normal((*shape, d)).astype(np.float32)
     qv, sc = jdense._quantize_kv(jnp.asarray(x))
     return np.array(qv), np.array(sc)
 
@@ -138,19 +138,27 @@ PAGED_LENS = [0, 1, 40, 130, 600]
 # at the row's last position; one anchored 9 positions past it (the query
 # ahead of the cache).
 WINDOWS = [(None, 0), (37, 0), (100, 9)]
+# The groupings 3, 7 and 8 at the tests' head_dim, and 4 and 8 at 64: the
+# split is the same one, over page sizes and widths of their own, the
+# windows in turn.
+WIDTHS = ((3, D), (7, D), (8, D), (4, 64), (8, 64))
+
+
+def width_id(g, d):
+    return str(g) if d == D else f"{g}d{d}"
 
 
 @functools.lru_cache(maxsize=None)
-def paged_case(ps, g, window, past):
+def paged_case(ps, g, window, past, d=D):
     """Inputs of one paged case and the Pallas kernel's (out, m, l) on
     them (the cluster sizes of a case share them)."""
-    rng = np.random.default_rng(ps + 10 * g)
+    rng = np.random.default_rng(ps + 10 * g + (d != D) * d)
     b = len(PAGED_LENS)
     width = -(-max(PAGED_LENS) // ps) + 1
     pages = b * width + 1
-    q = bf16_values(rng.standard_normal((b, 1, HKV * g, D)).astype(np.float32))
-    kp, ksp = quantized(rng, (pages, HKV, ps))
-    vp, vsp = quantized(rng, (pages, HKV, ps))
+    q = bf16_values(rng.standard_normal((b, 1, HKV * g, d)).astype(np.float32))
+    kp, ksp = quantized(rng, (pages, HKV, ps), d)
+    vp, vsp = quantized(rng, (pages, HKV, ps), d)
     table = (rng.permutation(pages - 1)[: b * width].reshape(b, width)
              + 1).astype(np.int32)
     lens = np.asarray(PAGED_LENS, np.int32)
@@ -171,16 +179,24 @@ def page_rows(pages, table):
     return g.reshape(g.shape[0], g.shape[1], -1, *g.shape[4:])
 
 
-@pytest.mark.parametrize("ps", [1, 16, 48, 64, 128])
-@pytest.mark.parametrize("g", [1, 4])
-@pytest.mark.parametrize("blocks", [1, 2, 8])
-@pytest.mark.parametrize("window,past", WINDOWS)
-def test_paged_split_matches_jax(ps, g, blocks, window, past):
+PAGED_CASES = [
+    (ps, g, D, blocks, window, past)
+    for window, past in WINDOWS for blocks in (1, 2, 8) for g in (1, 4)
+    for ps in (1, 16, 48, 64, 128)] + [
+    (ps, g, d, 2, *WINDOWS[i % 3])
+    for i, ((g, d), ps) in enumerate(zip(WIDTHS, (16, 48, 128, 16, 48)))]
+
+
+@pytest.mark.parametrize(
+    "ps,g,d,blocks,window,past", PAGED_CASES,
+    ids=[f"{w}-{p}-{c}-{width_id(g, d)}-{ps}"
+         for ps, g, d, c, w, p in PAGED_CASES])
+def test_paged_split_matches_jax(ps, g, d, blocks, window, past):
     """#5: the model of the kernel's split over int8 pages against
     ``quantized_paged_attention``'s Pallas kernel: the output, ``m`` and
     ``l``; an empty row is zeros with ``m = _NEG_INF``, ``l = 0``."""
     (q, kp, ksp, vp, vsp, table, lens, qpos), (want, wm, wl) = paged_case(
-        ps, g, window, past)
+        ps, g, window, past, d)
     tab = torch.from_numpy(table)
     got, gm, gl = decode_model(
         torch.from_numpy(q[:, 0]),
@@ -195,15 +211,15 @@ def test_paged_split_matches_jax(ps, g, blocks, window, past):
 
 
 @functools.lru_cache(maxsize=None)
-def dense_case(t, g, window, past):
+def dense_case(t, g, window, past, d=D):
     """Inputs of one dense case (widths not multiples of 64; the last row
     runs to the buffer's end) and the Pallas kernel's output on them."""
-    rng = np.random.default_rng(t + 10 * g)
+    rng = np.random.default_rng(t + 10 * g + (d != D) * d)
     lens = np.asarray([0, 1, t // 2 + 3, t - 1, t], np.int32)
     b = len(lens)
-    q = bf16_values(rng.standard_normal((b, 1, HKV * g, D)).astype(np.float32))
-    k, ks = quantized(rng, (b, HKV, t))
-    v, vs = quantized(rng, (b, HKV, t))
+    q = bf16_values(rng.standard_normal((b, 1, HKV * g, d)).astype(np.float32))
+    k, ks = quantized(rng, (b, HKV, t), d)
+    v, vs = quantized(rng, (b, HKV, t), d)
     qpos = (np.maximum(lens - 1, 0) + past).astype(np.int32)
     want = jax_qdense(
         *(jnp.asarray(a) for a in (q, k, ks, v, vs, lens)),
@@ -211,16 +227,24 @@ def dense_case(t, g, window, past):
     return (q, k, ks, v, vs, lens, qpos), np.asarray(want)
 
 
-@pytest.mark.parametrize("t", [40, 200, 300])
-@pytest.mark.parametrize("g", [1, 4])
-@pytest.mark.parametrize("blocks", [1, 2, 8])
-@pytest.mark.parametrize("window,past", WINDOWS)
-def test_dense_split_matches_jax(t, g, blocks, window, past):
+DENSE_CASES = [
+    (t, g, D, blocks, window, past)
+    for window, past in WINDOWS for blocks in (1, 2, 8) for g in (1, 4)
+    for t in (40, 200, 300)] + [
+    (t, g, d, 2, *WINDOWS[(i + 1) % 3])
+    for i, ((g, d), t) in enumerate(zip(WIDTHS, (200, 40, 300, 200, 40)))]
+
+
+@pytest.mark.parametrize(
+    "t,g,d,blocks,window,past", DENSE_CASES,
+    ids=[f"{w}-{p}-{c}-{width_id(g, d)}-{t}"
+         for t, g, d, c, w, p in DENSE_CASES])
+def test_dense_split_matches_jax(t, g, d, blocks, window, past):
     """#8: the model of the kernel's split over the int8 dense buffer
     against ``quantized_decode_attention``'s Pallas kernel; an empty row is
     zeros. The model's ``m`` and ``l`` are held to a softmax of the whole
     row in f32."""
-    (q, k, ks, v, vs, lens, qpos), want = dense_case(t, g, window, past)
+    (q, k, ks, v, vs, lens, qpos), want = dense_case(t, g, window, past, d)
     kt, kst, vt, vst = (torch.from_numpy(a) for a in (k, ks, v, vs))
     got, gm, gl = decode_model(torch.from_numpy(q[:, 0]), kt, kst, vt, vst,
                                lens, qpos, window, blocks)
@@ -231,9 +255,9 @@ def test_dense_split_matches_jax(t, g, blocks, window, past):
     lo = torch.as_tensor(np.maximum(qpos - window + 1, 0) if window
                          else np.zeros_like(qpos))[:, None]
     valid = (pos < torch.as_tensor(lens)[:, None]) & (pos >= lo)
-    qh = torch.from_numpy(q[:, 0]).reshape(len(lens), HKV, g, D)
+    qh = torch.from_numpy(q[:, 0]).reshape(len(lens), HKV, g, d)
     s = torch.einsum("bhgd,bhtd->bhgt", qh, kt.float()) * kst[:, :, None]
-    s = torch.where(valid[:, None, None], s * D**-0.5, _NEG_INF)
+    s = torch.where(valid[:, None, None], s * d**-0.5, _NEG_INF)
     m = s.amax(-1)
     l = torch.where(valid[:, None, None], torch.exp(s - m[..., None]),
                     0.0).sum(-1)

@@ -173,7 +173,7 @@ def test_box_rows_refuses_empty_pages():
 def walk_steps(tile, group, q_start, num_new, kv_len, window=None):
     """128-slot steps the bf16 kernel's block of query ``tile`` walks, as
     ``ragged_kernel_wgmma`` bounds its walk (0 for a tile of pad queries)."""
-    bq = tra.BLOCK_ROWS // group
+    bq = tra.BLOCK_ROWS // tra.rows_per_query(group)
     start = tile * bq
     if start >= num_new:
         return 0
@@ -183,7 +183,7 @@ def walk_steps(tile, group, q_start, num_new, kv_len, window=None):
     return max(0, -(-(end - first) // tra.STEP))
 
 
-@pytest.mark.parametrize("group", [1, 4])
+@pytest.mark.parametrize("group", [1, 4, 3, 7, 8])
 @pytest.mark.parametrize("q_start,num_new,window", [
     (0, 2048, None), (1500, 600, None), (0, 2048, 700), (0, 300, None)])
 def test_tiles_launch_longest_walk_first(group, q_start, num_new, window):
@@ -210,9 +210,11 @@ def test_launch_plan_at_llama3_widths(quantized):
     assert plan["box_rows"] == 64
     # K and V, two boxes of 64 rows a step, two column halves in bf16.
     assert plan["boxes_per_step"] == (4 if quantized else 8)
+    # q as {D, G, Hkv, S, B}: a box of the group's 4 heads of one kv head.
     assert plan["q_map"] == {
-        "dims": (128, 32, 2048, 2), "strides": (256, 8192, 16777216),
-        "box": (64, 4, 32, 1), "swizzle": 128}
+        "dims": (128, 4, 8, 2048, 2), "strides": (256, 1024, 8192, 16777216),
+        "box": (64, 4, 1, 32, 1), "swizzle": 128}
+    assert plan["o_box"] == (64, 4, 1, 16, 1)
     assert plan["kv_map"]["box"] == ((128, 64) if quantized else (64, 64))
     assert plan["kv_map"]["strides"] == ((128,) if quantized else (256,))
     assert plan["stage_bytes"] == (32768 if quantized else 65536)
@@ -225,7 +227,46 @@ def test_launch_plan_refuses_what_the_kernel_cannot_take():
     with pytest.raises(ValueError, match="2\\^31"):
         tra.launch_plan(1, 16, 8, 4, 128, 64, 2**22 + 1, False)
     with pytest.raises(ValueError, match="head_dim"):
-        tra.launch_plan(1, 16, 8, 4, 64, 64, 10, False)
-    with pytest.raises(ValueError, match="group"):
-        tra.launch_plan(1, 16, 8, 2, 128, 64, 10, False)
+        tra.launch_plan(1, 16, 8, 4, 96, 64, 10, False)
+    with pytest.raises(ValueError, match="queue 1, item 10"):
+        tra.launch_plan(1, 16, 8, 9, 128, 64, 10, False)
+    with pytest.raises(ValueError, match="even page size"):
+        tra.launch_plan(1, 16, 8, 4, 64, 15, 10, True)
     assert tra.launch_plan(1, 128, 8, 1, 128, 64, 10, False)["tiles"] == 1
+
+
+@pytest.mark.parametrize("group,head_dim", [
+    (1, 128), (2, 64), (3, 128), (4, 64), (5, 128), (6, 128), (7, 128),
+    (7, 64), (8, 128), (8, 64)])
+@pytest.mark.parametrize("quantized", [False, True])
+def test_launch_plan_maps_each_score_row(group, head_dim, quantized):
+    """The plan's Q box is the kernel's (query, head) map row for row: a
+    block of 128 score rows holds 128 / Gp queries of Gp rows each, Gp the
+    group rounded up to a power of two; rows of heads past the group are
+    padding (zeros in, never written), at G = 7 one a query, 126 real rows
+    of 128. Each warpgroup's 64 rows hold whole queries, as its output box
+    of 64 / Gp queries says. The bytes follow the head_dim: one 64-column
+    half a row at D = 64."""
+    plan = tra.launch_plan(1, 300, 2, group, head_dim, 48, 40, quantized)
+    gp = plan["rows_per_query"]
+    rows = tra.score_rows(group)
+    assert gp == 1 << (group - 1).bit_length() and 128 % gp == 0
+    assert plan["q_map"]["box"] == (64, gp, 1, 128 // gp, 1)
+    assert plan["o_box"] == (64, gp, 1, 64 // gp, 1)
+    assert plan["q_map"]["dims"][:3] == (head_dim, group, 2)
+    # The box is laid out densely, heads fastest: row r = query r // gp,
+    # head r % gp; the heads the group lacks read as zeros.
+    want = [(r // gp, r % gp) if r % gp < group else None for r in range(128)]
+    assert rows == want
+    real = [r for r in rows if r is not None]
+    assert len(real) == (128 // gp) * group == len(set(real))
+    assert all(q < 128 // gp and h < group for q, h in real)
+    for wg in (0, 1):  # no query is split across the two warpgroups
+        assert {r[0] for r in rows[64 * wg:64 * wg + 64] if r} == set(
+            range(wg * 64 // gp, (wg + 1) * 64 // gp))
+    assert plan["tiles"] == -(-300 // (128 // gp))
+    halves = head_dim // 64
+    assert plan["boxes_per_step"] == 128 // 16 * (1 if quantized else halves) * 2
+    stage = 2 * 128 * head_dim if quantized else 2 * halves * tra._HALF
+    assert plan["stage_bytes"] == stage
+    assert plan["smem_bytes"] <= 232448

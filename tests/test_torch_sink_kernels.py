@@ -63,8 +63,8 @@ def tt(a, dtype=None):
     return t if dtype is None else t.to(getattr(torch, dtype))
 
 
-def int8_planes(rng, lead, n):
-    x = rng.standard_normal((2, *lead, n, D)).astype(np.float32)
+def int8_planes(rng, lead, n, d=D):
+    x = rng.standard_normal((2, *lead, n, d)).astype(np.float32)
     q, s = (np.array(a) for a in jax_quantize_kv(jnp.asarray(x)))
     return q[0], s[0], q[1], s[1]
 
@@ -281,23 +281,32 @@ def ring_cluster_model(q, q_sink, ring, sink, tail, scalars, ring_slots,
     return out.reshape(b, hq, d), maxima
 
 
-@pytest.mark.parametrize("tr", [1024, 1056])
-@pytest.mark.parametrize("sinks", [4, 0])
-@pytest.mark.parametrize("g", [1, 4])
-def test_ring_cluster_split_matches_the_walk(tr, sinks, g):
+# (tr, sinks, g, d): 1 and 4 query heads a kv head over both rings, with
+# sinks and without; the groupings 3, 7, 8 and head_dim 64 with sinks.
+RING_CASES = [(tr, sinks, g, D) for g in (1, 4) for sinks in (4, 0)
+              for tr in (1024, 1056)] + [
+    (tr, 4, g, d) for (g, d), tr in zip(((3, D), (7, D), (8, D), (4, 64)),
+                                        (1056, 1024, 1056, 1024))]
+
+
+@pytest.mark.parametrize(
+    "tr,sinks,g,d", RING_CASES,
+    ids=[f"{g if d == D else f'{g}d{d}'}-{sinks}-{tr}"
+         for tr, sinks, g, d in RING_CASES])
+def test_ring_cluster_split_matches_the_walk(tr, sinks, g, d):
     """Rows: empty (nothing cached, no tail), sink-only (no ring, no tail),
     tail-only, short (one or two pieces), full with the pointer 3 slots
     before the ring's end (the evicted range wraps past it), and full with
     the pointer on a piece's edge and an in-flight tail of 71 that evicts
-    that piece whole (every slot of it masked: an exact no-op); 1 and 4
-    query heads per kv head; TR = 1024 (256-wide tiles, pieces of 64) and
-    1056 (96-wide tiles, pieces of 32)."""
-    rng = np.random.default_rng(tr + 10 * sinks + g)
+    that piece whole (every slot of it masked: an exact no-op); 1 to 8
+    query heads per kv head, head_dim 16 and 64; TR = 1024 (256-wide tiles,
+    pieces of 64) and 1056 (96-wide tiles, pieces of 32)."""
+    rng = np.random.default_rng(tr + 10 * sinks + g + (d != D) * d)
     b, kt = 6, 80
     r = tr - 4 if tr == 1024 else tr - 6     # the ring's span: 1020, 1050
-    ring = [tt(x).clone() for x in int8_planes(rng, (L, b, HKV), tr)]
-    sink = [tt(x).clone() for x in int8_planes(rng, (L, b, HKV), SP)]
-    tail = [tt(x).clone() for x in int8_planes(rng, (L, b, HKV), kt)]
+    ring = [tt(x).clone() for x in int8_planes(rng, (L, b, HKV), tr, d)]
+    sink = [tt(x).clone() for x in int8_planes(rng, (L, b, HKV), SP, d)]
+    tail = [tt(x).clone() for x in int8_planes(rng, (L, b, HKV), kt, d)]
     base = np.asarray([0, 2, 0, sinks + 40, sinks + 3 * r - 3,
                        sinks + r + 128], np.int64)
     tail_len = np.asarray([0, 0, 3, 2, 5, 70], np.int32)
@@ -312,8 +321,8 @@ def test_ring_cluster_split_matches_the_walk(tr, sinks, g):
     if sinks == 0:
         assert scalars["sink_len"].max() == 0
     q, qs, kn, vn = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
-                     for shape in ((b, 1, HKV * g, D), (b, 1, HKV * g, D),
-                                   (b, 1, HKV, D), (b, 1, HKV, D)))
+                     for shape in ((b, 1, HKV * g, d), (b, 1, HKV * g, d),
+                                   (b, 1, HKV, d), (b, 1, HKV, d)))
     step = 2
     kw = dict(layer_idx=1, step_idx=torch.tensor([step], dtype=torch.int32),
               ring_slots=r, **{k: tt(v) for k, v in scalars.items()})

@@ -189,7 +189,7 @@ def ring_sweep(smoke, pa, qa, rng, flush):
             occ = _build._libs["paged_attention"].dli_decode_occupancy
             occ.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
             got = (ctypes.c_longlong * 3)()
-            assert occ(1, 4, 2, ctypes.addressof(got)) == 0
+            assert occ(1, 128, 2, ctypes.addressof(got)) == 0  # D = 128
             print(json.dumps({
                 "int8_stages": n, "smem_bytes": got[0],
                 "blocks_an_sm": got[1], "clusters_of_2_at_once": got[2],

@@ -89,7 +89,20 @@ one line per engine configuration or comparison):
               pointers near the ring's end, sink-bound heads, empty tails;
               bytes EQUAL, the padding slots untouched); last, #4's pinned
               case (seed 0, pages of 48, B = 8: the bf16 excursion that
-              rounding p * vs to bf16 caused). Then the timed call's floor
+              rounding p * vs to bf16 caused). The latent family
+              (`phase_latent_kernels`, a line of its own): the four
+              latent wrappers (#15a-d, `csrc/latent_attention.cu`)
+              against their plain versions at 1, 8 and 16 query heads over
+              lat_dim 576 and 80, f32 pools with bf16 and f32 queries and
+              int8 pools, one B = 8 launch each of `LATENT_RAGGED` (a
+              prompt, a 129-query chunk from 1500, an empty row, one slot,
+              a page edge, a decode token) and of `LATENT_DECODE_LENS`,
+              pages of 16 and 64, a window of 300 and none, m and l beside
+              the output; timed at DeepSeek-V2-Lite's shapes (decode at
+              B = 8 and 1 over 2048 tokens, a 2048-token prompt) beside
+              their plain versions, SDPA over the gathered latent and the
+              bound; `-Xptxas -v` of every latent instance and each
+              block's shared memory. Then the timed call's floor
               (an empty kernel timed as the kernels are), and, at the
               shapes of the main paths, each kernel's
               output against the plain version's on the same inputs and its
@@ -184,7 +197,16 @@ one line per engine configuration or comparison):
               80 layers: #4, #6, #7, #13, #14),
               `llama32_1b_int4_int8dense` and `llama32_1b_bf16_pages`
               (Llama-3.2-1B, head_dim 64, tied head, 16 layers: #3, #9,
-              #10, #14; #1, #2), each with its summary line.
+              #10, #14; #1, #2), each with its summary line. Then the
+              latent family: `deepseek_v2_lite_f32latent_pages` and
+              `deepseek_v2_lite_int8latent_pages` (DeepSeek-V2-Lite from
+              its config.json restated, 16 heads over one 576-wide latent,
+              27 layers, bf16 weights, less what `LATENT_CUTS` lists) at
+              K = 1 on the same traffic: tokens/s, prefill and tick ms,
+              `kv_bytes_per_token`, `latent_decompress_dispatches`, the
+              latent wrappers' launches (> 0), no per-head attention
+              kernel, no plain version and no gather, a decode tick and a
+              prefill profiled (the idle share).
 4. parity   - 2 layers of the same widths in f32 (TF32 off): the bf16 pool
               at K = 16, at K = 1 and on the gather path, identical greedy
               streams; int4 weights over the int8 pool, kernels against the
@@ -211,7 +233,9 @@ one line per engine configuration or comparison):
               identical; int8 pages (Qwen) with kernels against the gather
               path at K = 1 and the int8 dense cache (Llama) with #8
               against without at K = 1, identical; their K = 16 against
-              K = 1 shown.
+              K = 1 shown. Then 2 layers of DeepSeek-V2-Lite's widths over
+              both latent pools: the latent kernels against the gather
+              path at K = 1 and at an explicit K = 4, identical.
 
 Then a line `{"kernels": [...]}` with one entry per kernel (the only line
 with that key: phase 2 lists its results under `checked`), then phase 5:
@@ -249,7 +273,12 @@ with that key: phase 2 lists its results under `checked`), then phase 5:
               Then a checkpoint at Llama-3.2-1B's full widths and depth
               (16 layers, head_dim 64, the head tied to the embedding,
               about 2.5 GB): `info` supported, a bitwise load, `local
-              --quantize int4 --kv-quant int8` on the card.
+              --quantize int4 --kv-quant int8` on the card. Last, a
+              2-layer checkpoint at DeepSeek-V2-Lite's widths in the
+              DeepSeek-V2 layout (q_proj, kv_a_proj_with_mqa,
+              kv_a_layernorm, kv_b_proj, o_proj): `info` supported, a
+              bitwise load (kv_b_proj as wk_b and wv_b), `local` over the
+              f32 and the int8 latent pools.
 
 The last line is `{"ok": true, "device": {...}}`. Any failing phase raises:
 exit code non-zero.
@@ -290,6 +319,10 @@ from distributed_llm_inference_tpu_torch.models import llama
 from distributed_llm_inference_tpu_torch.serving import ApiServer, EngineBackend
 from distributed_llm_inference_tpu_torch.utils import checkpoint
 from distributed_llm_inference_tpu_torch.cache.dense import _quantize_kv
+from distributed_llm_inference_tpu_torch.cache.latent import (
+    LatentPagedKVCache,
+    QuantizedLatentPagedKVCache,
+)
 from distributed_llm_inference_tpu_torch.ops import _build, quant
 from distributed_llm_inference_tpu_torch.ops import flash_attention as fa
 from distributed_llm_inference_tpu_torch.ops import moe
@@ -2760,7 +2793,8 @@ PASS_KERNELS = ("fused_scores_kernel", "fused_sums_kernel",
                 "fused_combine_kernel")
 ATTENTION_KERNELS = ("fused_cluster_kernel", "paged_decode_kernel",
                      *PASS_KERNELS, "paged_partial_kernel",
-                     "paged_combine_kernel")
+                     "paged_combine_kernel", "latent_kernel",
+                     "latent_merge_kernel")
 # The int4 matmul's kernels: bf16 x (one launch a call), f32 x (the
 # CUDA-core kernel, with the combine of its split partials).
 INT4_KERNELS = ("int4_mma_kernel", "int4_matmul_kernel", "int4_combine_kernel")
@@ -4152,6 +4186,10 @@ API_PROMPTS = (40, 333, 1200)  # the api subprocess's greedy prompts
 API_NEW = 24
 
 
+# DeepSeek-V2's latent (MLA) attention keys beside q_proj and o_proj.
+MLA_HF = {"wkv_a": "self_attn.kv_a_proj_with_mqa.weight",
+          "kv_norm": "self_attn.kv_a_layernorm.weight",
+          "kv_b": "self_attn.kv_b_proj.weight"}
 # Mixtral's per-layer MoE keys: the router, and each expert's three linears
 # (``w1`` gate, ``w3`` up, ``w2`` down) -> our expert stacks.
 MOE_ROUTER = "block_sparse_moe.gate.weight"
@@ -4168,6 +4206,21 @@ def layer_keys(cfg):
               "wk": (cfg.num_kv_heads * d, h), "wv": (cfg.num_kv_heads * d, h),
               "wo": (h, cfg.num_heads * d), "mlp_norm": (h,),
               "wg": (inter, h), "wu": (inter, h), "wd": (h, inter)}
+    if cfg.use_latent:
+        # DeepSeek-V2's attention: q_proj of Hq * (nope + rope), the joint
+        # kv_a_proj_with_mqa and its norm, kv_b_proj (split on load into
+        # wk_b and wv_b: "kv_b" here) in place of k_proj and v_proj.
+        lat = cfg.latent
+        dn = lat.nope_head_dim or d
+        shapes["wq"] = (cfg.num_heads * (dn + lat.rope_head_dim), h)
+        mla = [("wkv_a", None, MLA_HF["wkv_a"],
+                (lat.rank + lat.rope_head_dim, h), True),
+               ("kv_norm", None, MLA_HF["kv_norm"], (lat.rank,), False),
+               ("kv_b", None, MLA_HF["kv_b"],
+                (cfg.num_heads * (dn + d), lat.rank), True)]
+        return [(name, None, suffix, shapes[name], transpose)
+                for name, (suffix, transpose) in HF_KEYS.items()
+                if name not in ("wk", "wv")] + mla
     moe_mlp = cfg.num_experts > 0
     out = [(name, None, suffix, shapes[name], transpose)
            for name, (suffix, transpose) in HF_KEYS.items()
@@ -4181,8 +4234,27 @@ def layer_keys(cfg):
 
 
 def hf_config(cfg):
-    """``config.json`` of ``cfg`` as transformers writes a Llama's, or a
-    Mixtral's for an MoE config."""
+    """``config.json`` of ``cfg`` as transformers writes a Llama's, a
+    Mixtral's for an MoE config, or a DeepSeek-V2's (the keys the loader
+    reads) for a latent one."""
+    if cfg.use_latent:
+        lat = cfg.latent
+        return {
+            "architectures": ["DeepseekV2ForCausalLM"],
+            "model_type": "deepseek_v2", "vocab_size": cfg.vocab_size,
+            "hidden_size": cfg.hidden_size,
+            "intermediate_size": cfg.intermediate_size,
+            "num_hidden_layers": cfg.num_layers,
+            "num_attention_heads": cfg.num_heads,
+            "num_key_value_heads": cfg.num_kv_heads,
+            "num_experts_per_tok": cfg.num_experts_per_tok,
+            "kv_lora_rank": lat.rank, "qk_rope_head_dim": lat.rope_head_dim,
+            "qk_nope_head_dim": lat.nope_head_dim,
+            "v_head_dim": cfg.head_dim, "q_lora_rank": None,
+            "rms_norm_eps": cfg.rms_norm_eps, "rope_theta": cfg.rope_theta,
+            "max_position_embeddings": cfg.max_position_embeddings,
+            "tie_word_embeddings": False, "torch_dtype": "bfloat16",
+        }
     if cfg.num_experts > 0:
         return {
             "architectures": ["MixtralForCausalLM"], "model_type": "mixtral",
@@ -4289,19 +4361,34 @@ def check_loaded(params, state, cfg):
     for i in range(cfg.num_layers):
         for name, e, suffix, _, transpose in keys:
             w = state[f"model.layers.{i}.{suffix}"]
+            if name == "kv_b":
+                # [Hq * (dn + D), rank] -> wk_b [rank, Hq, dn], wv_b
+                dn = cfg.latent.nope_head_dim or cfg.head_dim
+                kvb = w.T.reshape(cfg.latent.rank, cfg.num_heads, -1)
+                for part, want in (("wk_b", kvb[..., :dn]),
+                                   ("wv_b", kvb[..., dn:])):
+                    assert same(params["layers"][part][i],
+                                want.contiguous()), (
+                        f"layer {i} {part} differs from kv_b_proj's part")
+                continue
             got = params["layers"][name][i]
             if e is not None:
                 got = got[e]
             assert same(got, w.T if transpose else w), (
                 f"layer {i} {name} {e} differs from the written tensor")
-    assert set(params["layers"]) == {name for name, *_ in keys}
+    names = {name for name, *_ in keys}
+    if "kv_b" in names:
+        names = (names - {"kv_b"}) | {"wk_b", "wv_b"}
+    assert set(params["layers"]) == names
     assert same(params["embed"], state["model.embed_tokens.weight"])
     assert same(params["final_norm"], state["model.norm.weight"])
+    # kv_b_proj is compared as its two parts
+    per_layer = len(keys) + sum(name == "kv_b" for name, *_ in keys)
     if cfg.tie_word_embeddings:
         assert "lm_head" not in params
-        return 2 + cfg.num_layers * len(keys)
+        return 2 + cfg.num_layers * per_layer
     assert same(params["lm_head"], state["lm_head.weight"].T)
-    return 2 + cfg.num_layers * len(keys) + 1
+    return 2 + cfg.num_layers * per_layer + 1
 
 
 def http_post(port, body, timeout=600):
@@ -4578,7 +4665,7 @@ LOCAL_INT4 = {"int4_matmul": (qm, "launches"),
               "paged_tail_flush": (pa, "flush_launches")}
 
 
-def local_run(root, cfg, int4):
+def local_run(root, cfg, int4, counters=None, extra=()):
     """``local`` on the checkpoint in bf16, or with ``int4`` as ``local
     --quantize int4 --kv-quant int8``, in this process (so that its
     kernels' launches can be counted): a 1000-token prompt (the table past
@@ -4587,7 +4674,7 @@ def local_run(root, cfg, int4):
     step (a head tied to the embedding has none), and the layer-stacked one
     (#14) once a step for each of the config's int4 projections a layer
     (`llama.int4_projections`)."""
-    counters = LOCAL_INT4 if int4 else MAIN_BF16
+    counters = counters or (LOCAL_INT4 if int4 else MAIN_BF16)
     if int4 and cfg.tie_word_embeddings:
         counters = {k: v for k, v in counters.items() if k != "int4_matmul"}
     ids = np.random.default_rng(23).integers(
@@ -4598,6 +4685,7 @@ def local_run(root, cfg, int4):
             "--max-new", "32"]
     if int4:
         argv += ["--quantize", "int4", "--kv-quant", "int8"]
+    argv += list(extra)
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
         rc = cli.main(argv)
@@ -4745,6 +4833,492 @@ def phase_serve_llama32():
 
 
 # ---------------------------------------------------------------------------
+# the latent (MLA) family: the four latent wrappers (#15a-d) on
+# csrc/latent_attention.cu, the latent pools, DeepSeek-V2-Lite's widths
+# ---------------------------------------------------------------------------
+
+# deepseek-ai/DeepSeek-V2-Lite's config.json, restated (not downloaded),
+# less its rope_scaling (LATENT_CUTS).
+DEEPSEEK_V2_LITE_HF = {
+    "model_type": "deepseek_v2", "vocab_size": 102400, "hidden_size": 2048,
+    "intermediate_size": 10944, "moe_intermediate_size": 1408,
+    "num_hidden_layers": 27, "num_attention_heads": 16,
+    "num_key_value_heads": 16, "n_routed_experts": 64, "n_shared_experts": 2,
+    "num_experts_per_tok": 6, "first_k_dense_replace": 1,
+    "kv_lora_rank": 512, "q_lora_rank": None, "qk_nope_head_dim": 128,
+    "qk_rope_head_dim": 64, "v_head_dim": 128, "rms_norm_eps": 1e-06,
+    "rope_theta": 10000, "max_position_embeddings": 163840,
+    "tie_word_embeddings": False}
+LATENT_CUTS = (
+    "rope_scaling (yarn, factor 40) dropped: the JAX package raises on yarn",
+    "no routed experts: every layer the dense SwiGLU MLP of "
+    "intermediate_size 10944, as the JAX package reads the config "
+    "(it reads no n_routed_experts)")
+DEEPSEEK_V2_LITE = ModelConfig.from_hf_config(DEEPSEEK_V2_LITE_HF)
+LATENT_WRAPPERS = {
+    "latent_ragged_paged_attention": (ra, "latent_launches"),
+    "quantized_latent_ragged_paged_attention": (
+        ra, "quantized_latent_launches"),
+    "latent_paged_attention": (pa, "latent_launches"),
+    "quantized_latent_paged_attention": (pa, "quantized_latent_launches"),
+}
+LATENT_F32 = {k: LATENT_WRAPPERS[k] for k in (
+    "latent_ragged_paged_attention", "latent_paged_attention")}
+LATENT_INT8 = {k: LATENT_WRAPPERS[k] for k in (
+    "quantized_latent_ragged_paged_attention",
+    "quantized_latent_paged_attention")}
+# The per-head attention kernels' counters: none moves on a latent path.
+PER_HEAD = {f"{m.__name__.rsplit('.', 1)[1]}.{a}": (m, a) for m, a in (
+    (pa, "launches"), (pa, "quantized_launches"), (pa, "fused_launches"),
+    (pa, "flush_launches"), (ra, "launches"), (ra, "quantized_launches"),
+    (fa, "launches"), (qa, "decode_launches"), (qa, "fused_launches"),
+    (qa, "flush_launches"), (qa, "sink_launches"),
+    (qa, "sink_flush_launches"))}
+# Phase 2's rows. Ragged, one B = 8 launch padded to S = 300: a prompt of
+# 300, a 129-query chunk from position 1500, an empty row, one slot, two
+# queries across a page edge, a decode token at 2047, 17 queries from 5, 64
+# from 900. Decode: lengths of 0, 1, a page, a page and one, 1501, 2048, 777
+# and 3.
+LATENT_RAGGED = {"q_start": [0, 1500, 0, 0, 63, 2047, 5, 900],
+                 "num_new": [300, 129, 0, 1, 2, 1, 17, 64]}
+LATENT_DECODE_LENS = [0, 1, None, None, 1501, 2048, 777, 3]
+
+
+def latent_pools(rng, pages, ps, d):
+    """One layer's latent pool [P, 1, PS, d]: f32, and the same quantized
+    per token (int8 + f32 scales) as the int8 pool stores it."""
+    c = normal(rng, (pages, 1, ps, d), torch.float32)
+    q8, s8 = _quantize_kv(c)
+    return (c,), (q8.contiguous(), s8.contiguous())
+
+
+def latent_fns(pool, kind):
+    """(tag, wrapper, plain version) of the latent ``kind`` ("ragged" or
+    "paged") for ``pool``: (c,) f32 or (c, cs) int8."""
+    q8 = len(pool) == 2
+    mod = ra if kind == "ragged" else pa
+    name = (("quantized_" if q8 else "") + "latent_"
+            + ("ragged_paged_attention" if kind == "ragged"
+               else "paged_attention"))
+    tag = ("qlat" if q8 else "lat") + ("rag" if kind == "ragged" else "dec")
+    return tag, getattr(mod, name), getattr(mod, name + "_plain")
+
+
+def compare_latent(cases, tag, kind, q, pool, table, lens, num_new=None,
+                   **kw):
+    """A latent wrapper against its plain version on the same inputs,
+    appended to ``cases`` (decode: m and l too); pad queries and empty rows
+    must come out as exact zeros. Returns the output's max abs error."""
+    _, kernel, plain = latent_fns(pool, kind)
+    tol = TOL[q.dtype]
+    if kind == "ragged":
+        got = kernel(q, *pool, table, lens, num_new, **kw)
+        want = plain(q, *pool, table, lens, num_new, **kw)
+        torch.cuda.synchronize()
+        pad = torch.arange(q.shape[1], device=DEV)[None, :] >= num_new[:, None]
+        if bool(pad.any()):
+            assert float(got[pad].abs().max()) == 0.0, (
+                "pad queries must be zero")
+        err = max_err(got, want)
+        cases.append((tag, err, tol))
+        return err
+    got, gm, gl = kernel(q, *pool, table, lens, return_stats=True, **kw)
+    want, wm, wl = plain(q, *pool, table, lens, return_stats=True, **kw)
+    torch.cuda.synchronize()
+    err = max_err(got, want)
+    cases.append((tag, err, tol))
+    cases.append((tag + "_m", max_err(gm, wm), 1e-4))
+    cases.append((tag + "_l", float(
+        ((gl - wl).abs() / wl.clamp_min(1.0)).max()), 1e-4))
+    empty = lens == 0
+    if bool(empty.any()):
+        assert float(got[empty].abs().max()) == 0.0, "empty row must be zero"
+        assert float(gl[empty].max()) == 0.0
+    return err
+
+
+def latent_cases(rng):
+    """15a-d against their plain versions at G = 1, 8, 16 query heads over
+    lat_dim 576 and 80: f32 pools with bf16 and f32 queries, int8 pools;
+    ``LATENT_RAGGED`` and ``LATENT_DECODE_LENS`` in one B = 8 launch each,
+    pages of 16 and 64, a window of 300 and none (at 64). Returns (name,
+    error, tolerance) cases and the widths each wrapper was held at."""
+    cases, widths = [], {name: set() for name in LATENT_WRAPPERS}
+    rows = {k: i32(v) for k, v in LATENT_RAGGED.items()}
+    lens_r = rows["q_start"] + rows["num_new"]
+    s = max(LATENT_RAGGED["num_new"])
+    for d in (576, 80):
+        for ps, window in ((16, None), (64, None), (64, 300)):
+            width = -(-2048 // ps) + 1
+            pages = 8 * width + 1
+            pools = latent_pools(rng, pages, ps, d)
+            table = make_table(rng, 8, width, pages)
+            lens_d = i32([ps if n is None and i == 2 else ps + 1
+                          if n is None else n
+                          for i, n in enumerate(LATENT_DECODE_LENS)])
+            for g in (1, 8, 16):
+                for dtype in (torch.bfloat16, torch.float32):
+                    q = normal(rng, (8, s, g, d), dtype) * 0.1
+                    qd = normal(rng, (8, 1, g, d), dtype) * 0.1
+                    for pool in pools:
+                        label = (f"d{d}_g{g}_ps{ps}_w{window}_"
+                                 f"{'bf16' if dtype == torch.bfloat16 else 'f32'}")
+                        for kind, args in (
+                                ("ragged", (q, pool, table, lens_r,
+                                            rows["num_new"])),
+                                ("paged", (qd, pool, table, lens_d))):
+                            tag, kernel, _ = latent_fns(pool, kind)
+                            compare_latent(
+                                cases, f"{tag}_{label}", kind, args[0],
+                                *args[1:], sliding_window=window)
+                            widths[kernel.__name__].add(
+                                f"G={g} lat_dim={d}")
+    return cases, {k: sorted(v) for k, v in widths.items()}
+
+
+def latent_bounds(b, s, kv, g, d, q8, causal_rows):
+    """Bytes and operations of one latent call: every live latent read
+    once (int8: its byte values and its f32 scale), q in and out out (bf16),
+    the table; 2 products (K and V are the one latent) of G heads over each
+    visible (query, slot) pair."""
+    per_slot = d + 4 if q8 else 4 * d
+    pairs = causal_rows if causal_rows is not None else b * kv
+    bytes_moved = b * kv * per_slot + 2 * b * s * g * d * 2 + b * 64 * 4
+    flops = 4 * pairs * g * d
+    return bytes_moved, flops
+
+
+def time_latent(out, cases, rng, flush):
+    """15a-d at DeepSeek-V2-Lite's shapes (16 query heads over the 576-wide
+    latent, pages of 64), bf16 queries as the bf16 model gives them:
+    decode at B = 8 and B = 1 over 2048 cached tokens a row, the ragged
+    kernel on one 2048-token prompt. Beside the kernel: its plain version,
+    the library call (``scaled_dot_product_attention`` in f32 over the
+    gathered, dequantized latent, K = V broadcast to the 16 heads) and the
+    bound (``bound``: f32 operations at the CUDA cores' peak)."""
+    g, d, ps, kv = 16, 576, 64, 2048
+    width = kv // ps
+    for pool in latent_pools(rng, 8 * width + 1, ps, d):
+        q8 = len(pool) == 2
+        kind = "int8 latent pool" if q8 else "f32 latent pool"
+        c = pool[0].float() if not q8 else pool[0].float() * pool[1][..., None]
+        for b in (8, 1):
+            table = make_table(rng, b, width, 8 * width + 1)
+            q = normal(rng, (b, 1, g, d), torch.bfloat16) * 0.1
+            lens = i32([kv] * b)
+            tag, kernel, plain = latent_fns(pool, "paged")
+            lat = pa.gather_pages(c, table)                 # [B, T, 1, D]
+            qh = q.float().permute(0, 2, 1, 3).contiguous()
+            kh = lat.permute(0, 2, 1, 3).contiguous()
+            bytes_moved, flops = latent_bounds(b, 1, kv, g, d, q8, None)
+            bms, by = bound(bytes_moved, flops, torch.float32)
+            entry = {
+                "shape": f"B={b} kv={kv} G={g} lat_dim={d} PS={ps} bf16 q, "
+                         f"{kind}",
+                "max_abs_err": compare_latent(
+                    cases, f"{tag}_timed_b{b}", "paged", q, pool, table,
+                    lens),
+                "ms": time_ms(lambda: kernel(q, *pool, table, lens), 20,
+                              flush),
+                "plain_ms": time_ms(lambda: plain(q, *pool, table, lens), 5,
+                                    flush),
+                "library_ms": time_ms(lambda: sdpa(qh, kh, kh, False), 10,
+                                      flush),
+                "bound_ms": bms, "bound_by": by, "bytes": bytes_moved,
+                "flops": flops,
+                "launches_a_call": launches_a_call(
+                    lambda: kernel(q, *pool, table, lens)),
+            }
+            if b == 8:
+                out[kernel.__name__] = entry
+            else:
+                out[kernel.__name__]["at_b1"] = entry
+            del lat, kh
+        s = 2048
+        table1 = make_table(rng, 1, width, 8 * width + 1)
+        q = normal(rng, (1, s, g, d), torch.bfloat16) * 0.1
+        lens1, new1 = i32([s]), i32([s])
+        tag, kernel, plain = latent_fns(pool, "ragged")
+        lat = pa.gather_pages(c, table1)
+        qh = q.float().permute(0, 2, 1, 3).contiguous()
+        kh = lat.permute(0, 2, 1, 3).contiguous()
+        bytes_moved, flops = latent_bounds(1, s, s, g, d, q8,
+                                           s * (s + 1) // 2)
+        bms, by = bound(bytes_moved, flops, torch.float32)
+        out[kernel.__name__] = {
+            "shape": f"B=1 S={s} G={g} lat_dim={d} PS={ps} bf16 q, {kind}",
+            "max_abs_err": compare_latent(
+                cases, f"{tag}_timed", "ragged", q, pool, table1, lens1,
+                new1),
+            "ms": time_ms(lambda: kernel(q, *pool, table1, lens1, new1), 5,
+                          flush),
+            "plain_ms": time_ms(
+                lambda: plain(q, *pool, table1, lens1, new1), 3, flush),
+            "library_ms": time_ms(lambda: sdpa(qh, kh, kh, True), 5, flush),
+            "bound_ms": bms, "bound_by": by, "bytes": bytes_moved,
+            "flops": flops,
+        }
+        del lat, kh, c
+
+
+def latent_instance(mangled):
+    """The latent kernels' instances by their template arguments."""
+    m = re.search(r"latent_kernelI([af])Li(\d+)ELi(\d+)ELb([01])E", mangled)
+    if m:
+        pool = "int8" if m.group(1) == "a" else "f32"
+        form = "decode" if m.group(4) == "1" else "ragged"
+        return f"latent_kernel {form} {pool} D={m.group(2)} R={m.group(3)}"
+    m = re.search(r"latent_merge_kernelILi(\d+)ELi(\d+)E", mangled)
+    if m:
+        return f"latent_merge_kernel D={m.group(1)} R={m.group(2)}"
+    return None
+
+
+def latent_smem():
+    """Dynamic shared memory of each latent block, as the C side sizes it
+    (``dli_latent_smem_bytes``), against the 227 KB a block may have."""
+    fn = _build.load_library("latent_attention").dli_latent_smem_bytes
+    fn.argtypes = [ctypes.c_int] * 4
+    fn.restype = ctypes.c_longlong
+    out = {}
+    for d in (576, 80):
+        for q8 in (0, 1):
+            for g, form in ((16, 1), (8, 1), (4, 1), (16, 0)):
+                n = fn(g, d, form, q8)
+                assert 0 < n <= 232448, (d, q8, g, form, n)
+                out[f"{'decode' if form else 'ragged'} "
+                    f"{'int8' if q8 else 'f32'} D={d} G<={g}"] = n
+    return out
+
+
+def phase_latent_kernels(flush):
+    """Phase 2 for the latent family: ``latent_cases`` (each wrapper against
+    its plain version at every width, both pools, both query types) and
+    ``time_latent`` at DeepSeek-V2-Lite's shapes, the build's ``-Xptxas
+    -v`` for every latent instance and their shared memory. Returns the
+    timed entries by wrapper and the widths each was checked at."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    resources = ptxas_lines(_build.ptxas_log("latent_attention"),
+                            latent_instance, 22)
+    cases, widths = latent_cases(np.random.default_rng(2468))
+    timed = {}
+    time_latent(timed, cases, np.random.default_rng(1357), flush)
+    assert_cases(cases, "latent")
+    for name, entry in timed.items():
+        q8, ragged = name.startswith("quantized"), "ragged" in name
+        prefix = ("qlat" if q8 else "lat") + ("rag_" if ragged else "dec_")
+        mine = [(n, e) for n, e, _ in cases if n.startswith(prefix)]
+        entry["cases"] = {n: e for n, e in mine}
+        entry["max_abs_err_cases"] = max(
+            e for n, e in mine if not n.endswith(("_m", "_l")))
+        form = f"{'ragged' if ragged else 'decode'} {'int8' if q8 else 'f32'}"
+        entry["ptxas"] = {k: v for k, v in resources.items()
+                          if form in k or (not ragged and "merge" in k)}
+    emit({"phase": "latent_kernels", "card": CARD,
+          "tolerance": {"bf16 q": TOL[torch.bfloat16],
+                        "f32 q": TOL[torch.float32], "m": 1e-4,
+                        "l (relative)": 1e-4},
+          "cases": len(cases), "ptxas": resources,
+          "smem_bytes": latent_smem(), "timed": timed,
+          "seconds": time.perf_counter() - t0})
+    return timed, widths
+
+
+def run_latent(label, cfg, params, ckw, counters):
+    """The smoke's traffic (``MIXED``: 12 greedy prompts of 30-1500 tokens,
+    a 3000-token one, two sampled, a cancel, 32 new each) through the
+    engine on a latent pool at its default ``decode_steps`` (1: no
+    write-behind tail), the latent wrappers' counters zeroed before and
+    read after; no per-head attention kernel and no plain version (nor the
+    gather path) may run. Then a decode tick and a prefill dispatch
+    profiled (the device's idle share). Returns (report, launches)."""
+    watch = {**PER_HEAD, **LATENT_WRAPPERS}
+    plain_calls = {"ragged._plain": 0, "paged._plain": 0, "gather": 0}
+
+    def counting(key, fn):
+        def call(*args, **kwargs):
+            plain_calls[key] += 1
+            return fn(*args, **kwargs)
+        return call
+
+    patches = [(ra, "_plain", counting("ragged._plain", ra._plain)),
+               (pa, "_plain", counting("paged._plain", pa._plain))]
+    for cls in (LatentPagedKVCache, QuantizedLatentPagedKVCache):
+        patches.append((cls, "_contiguous_view",
+                        counting("gather", cls.__dict__["_contiguous_view"])))
+    saved = [(obj, name, getattr(obj, name) if obj not in (
+        LatentPagedKVCache, QuantizedLatentPagedKVCache)
+        else obj.__dict__[name]) for obj, name, _ in patches]
+    torch.cuda.reset_peak_memory_stats()
+    for module, attr in watch.values():
+        setattr(module, attr, 0)
+    for obj, name, fn in patches:
+        setattr(obj, name, fn)
+    try:
+        t0 = time.perf_counter()
+        engine = InferenceEngine(
+            cfg, params, EngineConfig(max_batch_size=8),
+            CacheConfig(num_pages=2048, **ckw),
+            generator=torch.Generator().manual_seed(11), device=DEV)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        assert engine.decode_steps == 1 and engine._fused is None
+        assert engine.cache.use_kernel and engine.cache.use_ragged
+        t0 = time.perf_counter()
+        streams, cancelled = drive(engine, cfg.vocab_size, 5,
+                                   MIXED["short_lens"], MIXED["long_len"],
+                                   MIXED["new_tokens"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        for obj, name, fn in saved:
+            setattr(obj, name, fn)
+    got = {n: getattr(m, a) for n, (m, a) in watch.items()}
+    launches = {n: got[n] for n in counters}
+    check_streams(streams, cancelled, MIXED["new_tokens"], cfg.vocab_size)
+    assert engine.allocator.free_count == 2048 - 1, "pages leaked"
+    for name, n in launches.items():
+        assert n > 0, f"{name} was never launched on the path of {label}"
+    ran = {n: v for n, v in got.items() if n in PER_HEAD and v}
+    assert not ran, f"{label}: per-head attention kernels ran: {ran}"
+    assert not any(plain_calls.values()), (
+        f"{label}: plain versions or the gather path ran: {plain_calls}")
+    m = engine.metrics
+    snap = m.snapshot()
+    lat = cfg.latent.lat_dim
+    want_bytes = cfg.num_layers * (lat + 4 if ckw.get("kv_quant")
+                                   else 4 * lat)
+    assert snap["kv_bytes_per_token"] == want_bytes, snap["kv_bytes_per_token"]
+    assert m.get_counter("latent_decompress_dispatches") > 0
+    assert m.get_counter("attn_chunked_rows") > 0, (
+        "the long prompt was not chunk-admitted beside live decode")
+    report = {
+        "phase": "engine", "config": label, "card": CARD,
+        "model": f"deepseek-v2-lite widths, {cfg.num_layers} layers, random "
+                 f"bf16 weights",
+        "cuts": LATENT_CUTS, "launches": launches,
+        "per_head_attention_launches": 0, "plain_or_gather_calls": 0,
+        "engine_init_s": build_s, "wall_s": wall,
+        "generated_tokens": sum(len(s) for s in streams),
+        "tokens_per_s": sum(len(s) for s in streams) / wall,
+        "prefill_dispatches": snap["prefill_count"],
+        "prefill_ms_mean": snap["prefill_mean_s"] * 1e3,
+        "decode_steps": engine.decode_steps,
+        "decode_ticks": snap["decode_step_count"],
+        "decode_tick_ms_mean": snap["decode_step_mean_s"] * 1e3,
+        "decode_tick_ms_p50": snap["decode_step_p50_s"] * 1e3,
+        "chunked_rows": m.get_counter("attn_chunked_rows"),
+        "kv_bytes_per_token": snap["kv_bytes_per_token"],
+        "latent_decompress_dispatches": m.get_counter(
+            "latent_decompress_dispatches"),
+        "max_memory_allocated": torch.cuda.max_memory_allocated(),
+    }
+    del engine
+    torch.cuda.empty_cache()
+    report["decode_profile"] = profile_decode(cfg, params, {}, ckw, counters)
+    report["prefill_profile"] = profile_prefill(cfg, params, {}, ckw,
+                                                counters)
+    emit(report)
+    return report, launches
+
+
+def phase_latent():
+    """Phase 3's latent paths: DeepSeek-V2-Lite's config (from its
+    config.json restated, ``LATENT_CUTS`` listed) at its 27 layers with
+    random bf16 weights (about 2.6 B parameters), over the f32 latent pool
+    (#15a, #15c) and over the int8 one (#15b, #15d). Returns launches by
+    wrapper."""
+    cfg = DEEPSEEK_V2_LITE
+    assert cfg.family == "mla" and cfg.latent.lat_dim == 576
+    assert cfg.num_heads == 16 and cfg.num_experts == 0
+    params = llama.init_params(cfg, torch.Generator(device=DEV).manual_seed(6),
+                               torch.bfloat16, DEV)
+    launches = {}
+    for label, ckw, counters in (
+            ("deepseek_v2_lite_f32latent_pages: bf16 weights, f32 latent "
+             "pages, K=1", {}, LATENT_F32),
+            ("deepseek_v2_lite_int8latent_pages: bf16 weights, int8 latent "
+             "pages, K=1", {"kv_quant": "int8"}, LATENT_INT8)):
+        _, got = run_latent(label, cfg, params, ckw, counters)
+        launches.update(got)
+    del params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_parity_latent():
+    """Phase 4 for the latent family: DeepSeek-V2-Lite's widths at 2 layers
+    in f32, TF32 off, greedy streams: over each latent pool the kernels
+    against the gather path, identical at K = 1 and at an explicit K = 4."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(DEEPSEEK_V2_LITE, num_layers=2)
+    params = llama.init_params(
+        cfg, torch.Generator(device=DEV).manual_seed(1), torch.float32, DEV)
+    gather = dict(use_pallas_attention=False, ragged_attention=False)
+    report = {"phase": "parity_latent", "card": CARD,
+              "model": "deepseek-v2-lite widths, 2 layers, f32, tf32 off"}
+    for pool, ckw, counters in (("f32", {}, LATENT_F32),
+                                ("int8", {"kv_quant": "int8"}, LATENT_INT8)):
+        for k in (1, 4):
+            ekw = {"decode_steps": k}
+            before = {n: getattr(m, a) for n, (m, a) in counters.items()}
+            kern, e1 = parity_run(cfg, params, ekw, ckw)
+            assert e1.decode_steps == k and e1.cache.use_kernel
+            assert all(getattr(m, a) > before[n]
+                       for n, (m, a) in counters.items())
+            gath, e2 = parity_run(cfg, params, {**ekw, **gather}, ckw)
+            assert not e2.cache.use_kernel and not e2.cache.use_ragged
+            assert all(len(x) == 16 for x in kern)
+            assert kern == gath, (
+                f"{pool} latent pool, K={k}: kernels and gather differ")
+            report[f"{pool}_k{k}_kernels_equal_gather"] = True
+    report["streams"], report["tokens_each"] = len(kern), 16
+    del params
+    torch.cuda.empty_cache()
+    emit(report)
+
+
+SERVE_MLA_LAYERS = 2  # DeepSeek-V2-Lite's widths, 2 layers: about 1.2 GB
+
+
+def phase_serve_deepseek():
+    """A 2-layer checkpoint at DeepSeek-V2-Lite's widths in the DeepSeek-V2
+    HF layout (q_proj, kv_a_proj_with_mqa, kv_a_layernorm, kv_b_proj,
+    o_proj, the MLP), written by the port's writer under `build/` and
+    deleted pass or fail: `info` must call it supported, the load must give
+    each tensor bitwise (kv_b_proj as wk_b and wv_b), and `local` serves it
+    over the f32 and the int8 latent pools."""
+    cfg = dataclasses.replace(DEEPSEEK_V2_LITE, num_layers=SERVE_MLA_LAYERS)
+    report = {"phase": "serve_deepseek_v2_lite", "card": CARD,
+              "model": f"deepseek-v2-lite widths, {SERVE_MLA_LAYERS} layers, "
+                       "random bf16 weights from a checkpoint",
+              "cuts": LATENT_CUTS}
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as root:
+        state, write_s = write_checkpoint(root, cfg, 9, DEV)
+        report["checkpoint"] = {
+            "files": sorted(p.name for p in Path(root).iterdir()),
+            "write_s": write_s,
+            "bytes": sum(p.stat().st_size for p in Path(root).iterdir())}
+        assert checkpoint.load_config(root) == cfg
+        report["info"] = check_info(root, cfg)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params = checkpoint.load_model_params(root, cfg, torch.bfloat16,
+                                              device=DEV)
+        torch.cuda.synchronize()
+        report["load_s"] = time.perf_counter() - t0
+        report["tensors_bitwise_equal"] = check_loaded(params, state, cfg)
+        del state, params
+        torch.cuda.empty_cache()
+        report["local_f32_latent"] = local_run(root, cfg, False, LATENT_F32)
+        report["local_int8_latent"] = local_run(
+            root, cfg, False, LATENT_INT8, ("--kv-quant", "int8"))
+    emit(report)
+
+
+# ---------------------------------------------------------------------------
 
 REPLACES = {
     "paged_attention": "distributed_llm_inference_tpu/ops/paged_attention.py:154",
@@ -4761,6 +5335,10 @@ REPLACES = {
     "fused_tail_flush": "distributed_llm_inference_tpu/ops/quant_attention.py:569",
     "sink_fused_decode_attention": "distributed_llm_inference_tpu/ops/quant_attention.py:710",
     "sink_tail_flush": "distributed_llm_inference_tpu/ops/quant_attention.py:1044",
+    "latent_ragged_paged_attention": "distributed_llm_inference_tpu/ops/ragged_attention.py:435",
+    "quantized_latent_ragged_paged_attention": "distributed_llm_inference_tpu/ops/ragged_attention.py:467",
+    "latent_paged_attention": "distributed_llm_inference_tpu/ops/paged_attention.py:445",
+    "quantized_latent_paged_attention": "distributed_llm_inference_tpu/ops/paged_attention.py:469",
 }
 SOURCES = {
     "paged_attention": "distributed_llm_inference_tpu_torch/csrc/paged_attention.cu",
@@ -4777,6 +5355,8 @@ SOURCES = {
     "fused_tail_flush": "distributed_llm_inference_tpu_torch/csrc/quant_attention.cu",
     "sink_fused_decode_attention": "distributed_llm_inference_tpu_torch/csrc/sink_attention.cu",
     "sink_tail_flush": "distributed_llm_inference_tpu_torch/csrc/sink_attention.cu",
+    **{name: "distributed_llm_inference_tpu_torch/csrc/latent_attention.cu"
+       for name in LATENT_WRAPPERS},
 }
 
 
@@ -4788,12 +5368,20 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_device()
     timed, floor, checked = phase_kernels()
+    latent_timed, latent_widths = phase_latent_kernels(
+        torch.ones(16 * 1024 * 1024, dtype=torch.int64, device=DEV))
     launches = phase_engine()
     phase_families()
     width_launches = phase_widths()
+    latent_launches = phase_latent()
     phase_parity()
     phase_parity_families()
     phase_parity_widths()
+    phase_parity_latent()
+    timed.update(latent_timed)
+    launches.update(latent_launches)
+    checked.update({name: {"bf16": w, "f32": w}
+                    for name, w in latent_widths.items()})
     assert set(timed) == set(REPLACES) == set(launches), (
         sorted(timed), sorted(launches))
     emit({"kernels": [
@@ -4813,6 +5401,7 @@ def main() -> int:
     phase_serve()
     phase_serve_mixtral()
     phase_serve_llama32()
+    phase_serve_deepseek()
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}})

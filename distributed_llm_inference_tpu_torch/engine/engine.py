@@ -35,7 +35,11 @@ next tick boundary, scattered into the carry meanwhile.
 What the port serves: a dense Llama-family model in bf16/f32, or with int4
 (half-split) or int8 weights (``EngineConfig.quantization``), over the paged
 or the dense cache or the StreamingLLM sink ring (``CacheConfig.kind``), in
-the model dtype or int8 (``CacheConfig.kv_quant="int8"``). The sink ring
+the model dtype or int8 (``CacheConfig.kv_quant="int8"``); and a latent
+(MLA, DeepSeek-V2) model in bf16/f32 over the latent page pool
+(``cache/latent.py``: f32, or int8 with ``kv_quant="int8"``), which has no
+write-behind tail: ``decode_steps=None`` resolves to 1 there, and K steps
+``model_apply`` K times. The sink ring
 never grows and never fills: its streams run to ``max_new_tokens`` (or a
 bound of 2^20 tokens on the int8 ring, 2^30 on the other), prompts longer
 than the ring span are chunked, and only the int8 ring has the fused
@@ -58,12 +62,14 @@ import torch.nn.functional as F
 
 from ..cache.base import window_ladder
 from ..cache.dense import DenseKVCache, QuantizedDenseKVCache
+from ..cache.latent import LatentPagedKVCache, QuantizedLatentPagedKVCache
 from ..cache.paged import PageAllocator, PagedKVCache, QuantizedPagedKVCache
 from ..cache.sink import QuantizedSinkKVCache, SinkKVCache
 from ..config import CacheConfig, EngineConfig, ModelConfig
 from ..models import llama
 from ..ops import quant
-from ..ops.attention import int8_pages_error, kernel_widths_error
+from ..ops.attention import (
+    int8_pages_error, kernel_widths_error, latent_widths_error)
 from ..utils.device import resolve_device, to_device
 from ..utils.metrics import Metrics
 from .graphs import FusedDecode
@@ -75,6 +81,19 @@ from .session import Session, SessionState
 # The cache kinds of the StreamingLLM sink ring: unbounded streams in fixed
 # memory, so the scheduler's capacity and growth paths skip them.
 _SINK_KINDS = (SinkKVCache, QuantizedSinkKVCache)
+
+
+def _expired(s: Session, now: float) -> bool:
+    """Whether a reap ends ``s`` as a deadline expiry: its deadline had
+    passed when it was first cancelled, or, uncancelled, has passed by
+    ``now``. The gateway cancels a request once its deadline and a grace
+    have run out; whether that cancel or this tick-boundary reap comes
+    first depends only on how long the driver thread was between two
+    ``step()``s, so the cancel's own time decides."""
+    if s.deadline is None:
+        return False
+    when = s.cancel_time if s.cancel_requested else now
+    return when is not None and when >= s.deadline
 
 
 def _waits(what: str, item: str) -> NotImplementedError:
@@ -97,7 +116,8 @@ class InferenceEngine:
     CUDA graph (``engine/graphs.py``). On a CUDA device the constructor
     raises ``NotImplementedError`` for a model whose head_dim or query heads
     a kv head no attention kernel takes (``ops/attention.py:
-    kernel_widths_error``), and for bf16 over int8 pages of a page size the
+    kernel_widths_error``; a latent model's lat_dim and query heads:
+    ``latent_widths_error``), and for bf16 over int8 pages of a page size the
     kernels cannot box (``int8_pages_error``), rather than at the first
     kernel call.
     """
@@ -126,6 +146,24 @@ class InferenceEngine:
             raise ValueError(f"unknown cache kind {cc.kind}")
         if cc.kv_quant not in (None, "int8"):
             raise ValueError(f"unknown kv_quant {cc.kv_quant!r}")
+        if cfg.use_latent:
+            # Latent (MLA) attention stores one [rank + dr] latent a token
+            # in the paged pool only; the mesh programs shard per-head
+            # pools (the JAX engine's limits).
+            if cc.kind != "paged":
+                raise ValueError(
+                    "ModelConfig.latent requires the paged cache "
+                    f"(got kind={cc.kind!r})"
+                )
+            if mesh_cfg is not None:
+                raise ValueError(
+                    "latent KV attention is single-device only (mesh "
+                    "sharding of the latent pool is not implemented)"
+                )
+            if ecfg.quantization is not None:
+                raise _waits(
+                    f"quantization={ecfg.quantization!r} on a latent (mla) "
+                    f"model", "item 20")
         if ecfg.quantization == "int8_outlier":
             raise _waits("quantization='int8_outlier'", "item 6")
         if ecfg.quantization not in (None, "int8", "int4"):
@@ -136,18 +174,18 @@ class InferenceEngine:
             raise _waits("a draft model (speculative decoding)", "item 9")
         if cc.prefix_caching or prefix_cfg is not None:
             raise _waits("prefix caching", "item 11")
-        if cfg.use_latent:
-            raise _waits("a latent (mla) model config", "item 10")
         if trace_cfg is not None:
             raise _waits("trace_cfg (spans and the flight recorder)", "item 16")
 
         self.device = resolve_device(device)
         if self.device.type == "cuda":
-            why = kernel_widths_error(
-                cfg.head_dim, cfg.num_heads // cfg.num_kv_heads)
+            why = (latent_widths_error(cfg.latent.lat_dim, cfg.num_heads)
+                   if cfg.use_latent else kernel_widths_error(
+                       cfg.head_dim, cfg.num_heads // cfg.num_kv_heads))
             if why is not None:
                 raise NotImplementedError(f"this model's attention: {why}")
-            if (cc.kind == "paged" and cc.kv_quant == "int8"
+            if (not cfg.use_latent and cc.kind == "paged"
+                    and cc.kv_quant == "int8"
                     and ecfg.dtype == "bfloat16"):
                 why = int8_pages_error(cfg.head_dim, cc.page_size)
                 if why is not None:
@@ -188,6 +226,9 @@ class InferenceEngine:
             ecfg, cc, metrics=self.metrics,
             backend=attention_backend or self.device.type,
         )
+        # Every dispatch of a latent model reads the stored latents in place
+        # (latent_decompress_dispatches).
+        self.plan.latent = cfg.use_latent
         sel = self.plan.select()
         self._use_pallas = sel.use_pallas
         # Sessions parked mid chunked-prefill (slot held, decode-ineligible;
@@ -247,10 +288,20 @@ class InferenceEngine:
                 max(1, -(-self._windows[0] // cc.page_size))
                 if self._windows else cc.max_pages_per_session
             )
-            cache_cls = QuantizedPagedKVCache if cc.kv_quant else PagedKVCache
+            if cfg.use_latent:
+                # One latent "head" a token: the fused [rank + rope_head_dim]
+                # stored form, f32 (or int8 + f32 scales), read in place by
+                # the latent kernels (K = V = the stored latent).
+                cache_cls = (QuantizedLatentPagedKVCache if cc.kv_quant
+                             else LatentPagedKVCache)
+                heads, width = 1, cfg.latent.lat_dim
+            else:
+                cache_cls = (QuantizedPagedKVCache if cc.kv_quant
+                             else PagedKVCache)
+                heads, width = cfg.num_kv_heads, cfg.head_dim
             self.cache = cache_cls.create(
                 cfg.num_layers, self.batch, cc.num_pages, cc.page_size,
-                self._first_slots, cfg.num_kv_heads, cfg.head_dim, self.dtype,
+                self._first_slots, heads, width, self.dtype,
                 use_kernel=self._use_pallas, use_ragged=sel.use_ragged,
                 device=self.device,
             )
@@ -294,14 +345,20 @@ class InferenceEngine:
         # The write-behind tail (the fused K-step window) needs the cache's
         # tail protocol and the default attention: both dense kinds, the
         # int8 pool always, the model-dtype pool with its decode kernel, the
-        # int8 sink ring, as in the JAX engine (its latent and
-        # pipeline-parallel branches wait with their caches). The model-
-        # dtype sink ring has no tail.
-        tail_capable = self._attention is None and (
-            isinstance(self.cache, (DenseKVCache, QuantizedDenseKVCache,
-                                    QuantizedPagedKVCache,
-                                    QuantizedSinkKVCache))
-            or (isinstance(self.cache, PagedKVCache) and self.cache.use_kernel)
+        # int8 sink ring, as in the JAX engine (its pipeline-parallel branch
+        # waits). The model-dtype sink ring has no tail, and neither have
+        # the latent pools (the tail would rotate the stored form again):
+        # they step model_apply K times.
+        tail_capable = (
+            self._attention is None
+            and not isinstance(self.cache, LatentPagedKVCache)
+            and (
+                isinstance(self.cache, (DenseKVCache, QuantizedDenseKVCache,
+                                        QuantizedPagedKVCache,
+                                        QuantizedSinkKVCache))
+                or (isinstance(self.cache, PagedKVCache)
+                    and self.cache.use_kernel)
+            )
         )
         if tail_capable and isinstance(self.cache, QuantizedSinkKVCache):
             # The window must fit the ring span: tail tokens evicting each
@@ -524,6 +581,8 @@ class InferenceEngine:
         s = self.sessions.get(generation_id)
         if s is None or s.state == SessionState.FINISHED:
             return
+        if s.cancel_time is None:
+            s.cancel_time = time.monotonic()
         s.cancel_requested = True
 
     def step(self) -> List[Tuple[str, int, bool]]:
@@ -694,11 +753,7 @@ class InferenceEngine:
             if gid is None:
                 continue
             s = self.sessions[gid]
-            expired = (
-                not s.cancel_requested
-                and s.deadline is not None
-                and now >= s.deadline
-            )
+            expired = _expired(s, now)
             if (s.cancel_requested or expired) and s.slot is not None:
                 s.state = SessionState.CANCELLED
                 s.finish_reason = "deadline" if expired else "cancelled"
@@ -720,11 +775,11 @@ class InferenceEngine:
             ]:
                 self.waiting.remove(dropped)
                 dropped.state = SessionState.CANCELLED
-                if dropped.cancel_requested:
-                    dropped.finish_reason = "cancelled"
-                else:
+                if _expired(dropped, now):
                     dropped.finish_reason = "deadline"
                     self.metrics.counter("sessions_deadline_expired")
+                else:
+                    dropped.finish_reason = "cancelled"
                 produced.append((dropped.generation_id, -1, True))
             candidates = list(self.waiting)
             if self._admission_order is not None and len(candidates) > 1:

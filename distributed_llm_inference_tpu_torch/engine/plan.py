@@ -104,6 +104,10 @@ class AttentionPlan:
         self._shapes = set()
         # Last dispatch seen by note_dispatch, as (kind, shape, valid).
         self.last_dispatch: Optional[Tuple] = None
+        # Set by the engine when the cache stores the latent (MLA) form:
+        # every dispatch then reads the stored latents in place, which
+        # note_dispatch counts as ``latent_decompress_dispatches``.
+        self.latent = False
 
     # ------------------------------------------------------------------
     # Row classification / shape policy
@@ -224,6 +228,8 @@ class AttentionPlan:
                 self.metrics.counter("attn_dispatch_shapes")
         if self.metrics is None:
             return
+        if self.latent:
+            self.metrics.counter("latent_decompress_dispatches")
         if self.enabled and kind != DECODE:
             self.metrics.counter("attn_ragged_dispatches")
         if valid_tokens is not None:

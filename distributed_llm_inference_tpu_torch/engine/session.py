@@ -41,6 +41,10 @@ class Session:
     # write from cancel() could be stomped by the scheduler's own
     # WAITING→ACTIVE transition mid-admission.
     cancel_requested: bool = False
+    # time.monotonic() of the first cancel() (None: never cancelled). A
+    # cancel that comes after the deadline (the gateway's, once its grace
+    # has run out) still ends the session as a deadline expiry.
+    cancel_time: Optional[float] = None
     slot: Optional[int] = None
     # Absolute time.monotonic() budget: past it the scheduler reaps the
     # session at the next tick boundary exactly like a cancel (the serving

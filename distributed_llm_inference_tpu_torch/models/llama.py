@@ -1,6 +1,7 @@
 """Llama-family decoder stack as plain functions on tensors (counterpart of
-the JAX package's ``models/llama.py``, dense per-head attention branch,
-with the SwiGLU MLP or Mixtral's MoE MLP).
+the JAX package's ``models/llama.py``: per-head attention or the absorbed
+latent (MLA) attention of DeepSeek-V2, with the SwiGLU MLP or Mixtral's MoE
+MLP).
 
 Parameters are a plain dict of tensors with every decoder layer's weights
 STACKED on a leading layer axis, as in the JAX package:
@@ -8,7 +9,10 @@ STACKED on a leading layer axis, as in the JAX package:
 [, bq, bk, bv, bo]} [L, ...]``, ``final_norm [H]``, optional ``lm_head
 [H, V]``; an MoE config (``num_experts > 0``) has ``router [L, H, E]``,
 ``we_g``/``we_u [L, E, H, F]`` and ``we_d [L, E, F, H]`` in place of ``wg``,
-``wu``, ``wd`` (``ops/moe.py``).
+``wu``, ``wd`` (``ops/moe.py``); a latent config (``cfg.use_latent``) has ``wq [L,
+H, Hq * (dn + dr)]``, ``wkv_a [L, H, rank + dr]``, ``kv_norm [L, rank]``,
+``wk_b [L, rank, Hq, dn]`` and ``wv_b [L, rank, Hq, D]`` in place of
+``wq``, ``wk``, ``wv`` (``_latent_attention``).
 All projections are stored ``[in_features, out_features]``; the forward runs
 each through ``ops/quant.py:matmul`` (the experts through
 ``ops/quant.py:einsum``), so a projection may also be a quantized leaf
@@ -39,18 +43,10 @@ from ..ops.quant import (
     QuantizedTensor4SplitView,
 )
 from ..ops.quant import matmul as qmatmul
-from ..ops.rotary import RopeAngles, rope_cos_sin, rope_inv_freq
+from ..ops.rotary import RopeAngles, apply_rope, rope_cos_sin, rope_inv_freq
 from ..utils.device import resolve_device
 
 Params = Dict[str, Any]
-
-
-def _require_dense(cfg: ModelConfig) -> None:
-    if cfg.use_latent:
-        raise NotImplementedError(
-            "latent (MLA) attention is not ported yet (ROADMAP.md queue 1, "
-            "item 10)"
-        )
 
 
 # ---------------------------------------------------------------------------
@@ -77,7 +73,6 @@ def init_layer_params(
     device: Union[str, torch.device] = "cuda",
 ) -> Params:
     """Random (normal 0.02) stacked parameters for ``num_layers`` layers."""
-    _require_dense(cfg)
     dev = resolve_device(device)
     gen = generator if generator is not None else _default_generator(dev)
     h, d = cfg.hidden_size, cfg.head_dim
@@ -86,14 +81,30 @@ def init_layer_params(
     def w(*shape):
         return _normal_stack(gen, num_layers, shape, dtype, dev)
 
-    p = {
-        "attn_norm": torch.ones((num_layers, h), dtype=dtype, device=dev),
-        "wq": w(h, hq * d),
-        "wk": w(h, hkv * d),
-        "wv": w(h, hkv * d),
-        "wo": w(hq * d, h),
-        "mlp_norm": torch.ones((num_layers, h), dtype=dtype, device=dev),
-    }
+    if cfg.use_latent:
+        # The MLA set; see _latent_attention for how each is used.
+        lat = cfg.latent
+        dn, dr = lat.nope_head_dim or d, lat.rope_head_dim
+        p = {
+            "attn_norm": torch.ones((num_layers, h), dtype=dtype, device=dev),
+            "wq": w(h, hq * (dn + dr)),
+            "wkv_a": w(h, lat.rank + dr),
+            "kv_norm": torch.ones((num_layers, lat.rank), dtype=dtype,
+                                  device=dev),
+            "wk_b": w(lat.rank, hq, dn),
+            "wv_b": w(lat.rank, hq, d),
+            "wo": w(hq * d, h),
+            "mlp_norm": torch.ones((num_layers, h), dtype=dtype, device=dev),
+        }
+    else:
+        p = {
+            "attn_norm": torch.ones((num_layers, h), dtype=dtype, device=dev),
+            "wq": w(h, hq * d),
+            "wk": w(h, hkv * d),
+            "wv": w(h, hkv * d),
+            "wo": w(hq * d, h),
+            "mlp_norm": torch.ones((num_layers, h), dtype=dtype, device=dev),
+        }
     if cfg.num_experts > 0:
         e = cfg.num_experts
         p["router"] = w(h, e)
@@ -169,7 +180,6 @@ def params_from_numpy(
     fields: ``{q, scale}``, ``{q, scale_lo, scale_hi, in_dim, out_dim}``)
     become the port's classes and keep their own dtypes: int8 values stay
     int8, scales keep theirs."""
-    _require_dense(cfg)
     dev = resolve_device(device)
 
     def conv(a):
@@ -188,7 +198,10 @@ def params_from_numpy(
             )
         return _numpy_to_torch(a).to(device=dev, dtype=dtype)
 
-    want = {"attn_norm", "wq", "wk", "wv", "wo", "mlp_norm"} | (
+    want = {"attn_norm", "wq", "wo", "mlp_norm"} | (
+        {"wkv_a", "kv_norm", "wk_b", "wv_b"} if cfg.use_latent
+        else {"wk", "wv"}
+    ) | (
         {"router", "we_g", "we_u", "we_d"} if cfg.num_experts > 0
         else {"wg", "wu", "wd"}
     )
@@ -200,7 +213,7 @@ def params_from_numpy(
     if extra:
         raise ValueError(
             f"layer weights {sorted(extra)} do not belong to this config "
-            f"(num_experts={cfg.num_experts})"
+            f"(num_experts={cfg.num_experts}, latent={cfg.use_latent})"
         )
     if layers["wq"].shape[0] != cfg.num_layers:
         raise ValueError(
@@ -240,36 +253,42 @@ _LAYER_KEY_MAP = {
 # each [out, in]) -> our expert stack.
 _EXPERT_KEY_MAP = {"w1": "we_g", "w3": "we_u", "w2": "we_d"}
 _MOE_PREFIX = "block_sparse_moe."
-# Per-layer keys of the families that wait -> what they are and their item.
-_WAITING_KEYS = {
-    "self_attn.kv_b_proj.": ("latent (MLA) attention", "item 10"),
-    "self_attn.kv_a_proj_with_mqa.": ("latent (MLA) attention", "item 10"),
-}
+# DeepSeek-V2's latent (MLA) keys: the joint kv_b_proj, [Hq * (dn + D),
+# rank], splits into wk_b and wv_b ``[rank, Hq, dn]`` / ``[rank, Hq, D]``.
+_KV_B = "self_attn.kv_b_proj.weight"
+_KV_A = "self_attn.kv_a_proj_with_mqa.weight"
+_KV_NORM = "self_attn.kv_a_layernorm.weight"
 
 
-def _refuse_waiting_keys(state: Mapping[str, Any], prefix: str) -> None:
-    for key in state:
-        if not key.startswith(prefix):
-            continue
-        for part, (what, item) in _WAITING_KEYS.items():
-            if key[len(prefix):].startswith(part):
-                raise NotImplementedError(
-                    f"{what} ({key}) are not ported yet (ROADMAP.md queue 1, "
-                    f"{item})"
-                )
+def _latent_sources(cfg: ModelConfig, state: Mapping[str, Any], prefix: str):
+    """A latent layer's MLA tensors, as the JAX conversion takes them (only
+    with ``cfg.use_latent`` and a ``kv_b_proj`` present)."""
+    if not (cfg.use_latent and prefix + _KV_B in state):
+        return []
+    lat = cfg.latent
+    dn = lat.nope_head_dim or cfg.head_dim
+    kvb = state[prefix + _KV_B].T.reshape(lat.rank, cfg.num_heads,
+                                          dn + cfg.head_dim)
+    out = [("wk_b", None, kvb[..., :dn], False),
+           ("wv_b", None, kvb[..., dn:], False)]
+    if prefix + _KV_A in state:
+        out.append(("wkv_a", None, state[prefix + _KV_A], True))
+    if prefix + _KV_NORM in state:
+        out.append(("kv_norm", None, state[prefix + _KV_NORM], False))
+    return out
 
 
 def _layer_sources(cfg: ModelConfig, state: Mapping[str, Any], prefix: str):
     """One HF layer's tensors present in ``state``, as ``(our name, expert
-    index or None, HF tensor, transposed)``; Mixtral's router (``gate``,
-    ``[E, H]``) and experts (``w1``/``w3``/``w2``, expert by expert)
-    included when ``cfg`` has experts, as the JAX conversion takes them."""
-    _refuse_waiting_keys(state, prefix)
+    index or None, HF tensor, transposed)``; a latent layer's MLA tensors
+    (``_latent_sources``), Mixtral's router (``gate``, ``[E, H]``) and
+    experts (``w1``/``w3``/``w2``, expert by expert) included when ``cfg``
+    has them, as the JAX conversion takes them."""
     out = [
         (name, None, state[prefix + suffix], transpose)
         for suffix, (name, transpose) in _LAYER_KEY_MAP.items()
         if prefix + suffix in state
-    ]
+    ] + _latent_sources(cfg, state, prefix)
     gate = prefix + _MOE_PREFIX + "gate.weight"
     if gate in state and cfg.num_experts > 0:
         out.append(("router", None, state[gate], True))
@@ -336,7 +355,8 @@ def convert_hf_state_dict(
     dtype=torch.bfloat16,
     device: Union[str, torch.device] = "cuda",
 ) -> Params:
-    """An HF Llama/Mistral/Qwen2/Mixtral state dict as our parameters:
+    """An HF Llama/Mistral/Qwen2/Mixtral/DeepSeek-V2 state dict as our
+    parameters:
     layers ``layer_ids`` (all, with the embedding, final norm and head,
     when None) stacked ``[L, ...]`` on ``device`` (Mixtral's experts
     ``[L, E, in, out]``).
@@ -345,7 +365,6 @@ def convert_hf_state_dict(
     matrix is copied into its slot, transposed there: beyond the result the
     device holds one matrix and the host one tensor at a time; the JAX
     package stacks numpy copies instead."""
-    _require_dense(cfg)
     dev = resolve_device(device)
     ids = list(layer_ids) if layer_ids is not None else list(
         range(cfg.num_layers)
@@ -405,12 +424,20 @@ def _decoder_layer(
     num_new: torch.Tensor,
     attention_fn=gqa_attention,
 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
-    """One decoder layer: pre-norm attention + pre-norm SwiGLU (or MoE)
-    MLP."""
+    """One decoder layer: pre-norm attention (per-head, or latent) +
+    pre-norm SwiGLU (or MoE) MLP."""
     b, s, _ = x.shape
     hq, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
 
     h = rms_norm(x, p["attn_norm"], cfg.rms_norm_eps)
+    if cfg.use_latent:
+        attn_flat, new_state = _latent_attention(
+            cfg, p, h, layer_state, cache, rope, q_pos, num_new, attention_fn
+        )
+        o = qmatmul(attn_flat, p["wo"])
+        if "bo" in p:
+            o = o + p["bo"]
+        return _mlp_residual(cfg, p, x + o, s, num_new), new_state
     q = qmatmul(h, p["wq"])
     k = qmatmul(h, p["wk"])
     v = qmatmul(h, p["wv"])
@@ -450,6 +477,62 @@ def _mlp_residual(cfg, p, x, s, num_new):
     return x + qmatmul(
         F.silu(qmatmul(h2, p["wg"])) * qmatmul(h2, p["wu"]), p["wd"]
     )
+
+
+def _latent_attention(
+    cfg: ModelConfig,
+    p: Params,
+    h: torch.Tensor,
+    layer_state: Tuple[torch.Tensor, ...],
+    cache,
+    rope: RopeAngles,
+    q_pos: torch.Tensor,
+    num_new: torch.Tensor,
+    attention_fn=gqa_attention,
+) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
+    """Absorbed-MLA attention over the latent cache (the JAX package's
+    ``_latent_attention``).
+
+    The cache stores one fused ``[c ; k_rope]`` latent a token. The key
+    up-projection is absorbed into the query (``q_nope . (w_uk c) =
+    (q_nope w_uk) . c``), so the query handed to the cache is ``[q_nope @
+    wk_b[h] ; q_rope]`` and K is the latent itself (one kv head for all
+    ``Hq`` heads); the value up-projection is deferred past the softmax
+    (``sum_j p_j w_uv c_j = w_uv sum_j p_j c_j``). Rope is applied here, to
+    the rope slices only (``rope`` is built for ``rope_head_dim``,
+    :func:`_rope_dim`); the cache rotates nothing. The scale is ``(dn +
+    dr)**-0.5``, the un-absorbed per-head query width. ``wk_b`` and
+    ``wv_b`` are plain ``torch.einsum`` products, as the JAX package leaves
+    them to XLA."""
+    lat = cfg.latent
+    b, s, _ = h.shape
+    hq, d = cfg.num_heads, cfg.head_dim
+    dn = lat.nope_head_dim or d
+    dr = lat.rope_head_dim
+    rank = lat.rank
+
+    q = qmatmul(h, p["wq"]).reshape(b, s, hq, dn + dr)
+    q_nope, q_rope = q[..., :dn], q[..., dn:]
+    ckv = qmatmul(h, p["wkv_a"])  # [B, S, rank + dr]
+    c = rms_norm(ckv[..., :rank], p["kv_norm"], cfg.rms_norm_eps)
+    k_rope = apply_rope(ckv[..., rank:][:, :, None, :], rope.cos, rope.sin)
+    q_rope = apply_rope(q_rope, rope.cos, rope.sin)
+    q_lat = torch.einsum("bshd,rhd->bshr", q_nope, p["wk_b"])
+    q_eff = torch.cat([q_lat, q_rope], dim=-1)  # [B, S, Hq, rank + dr]
+    # [B, S, 1, rank + dr]: the stored form the cache writes as it is
+    kv = torch.cat([c[:, :, None, :], k_rope], dim=-1)
+    attn, new_state = cache.attend(
+        layer_state, q_eff, kv, kv, rope, q_pos, num_new,
+        None, attention_fn, (dn + dr) ** -0.5,
+    )
+    o = torch.einsum("bshr,rhd->bshd", attn[..., :rank], p["wv_b"])
+    return o.reshape(b, s, hq * d), new_state
+
+
+def _rope_dim(cfg: ModelConfig) -> int:
+    """Rotary table width: the decoupled rope key's under latent (MLA)
+    attention, where only that slice is rotated; else the head dim."""
+    return cfg.latent.rope_head_dim if cfg.use_latent else cfg.head_dim
 
 
 def int4_projections(cfg: ModelConfig) -> Tuple[str, ...]:
@@ -499,9 +582,8 @@ def block_apply(
     (call ``cache.advance(num_new)`` after the last block of the model so
     that several blocks of one pipeline see consistent write offsets).
     """
-    _require_dense(cfg)
     inv_freq = rope_inv_freq(
-        cfg.head_dim, cfg.rope_theta, cfg.rope_scaling, device=x.device
+        _rope_dim(cfg), cfg.rope_theta, cfg.rope_scaling, device=x.device
     )
     q_pos = cache.q_positions(x.shape[1])
     rot_pos = cache.rope_positions(x.shape[1], num_new)
@@ -663,7 +745,7 @@ class DecodeWindow:
                          view_num_big)
         q_pos = view.q_positions(1)
         inv_freq = rope_inv_freq(
-            cfg.head_dim, cfg.rope_theta, cfg.rope_scaling, device=x.device
+            _rope_dim(cfg), cfg.rope_theta, cfg.rope_scaling, device=x.device
         )
         cos, sin = rope_cos_sin(q_pos, inv_freq)
         rope = RopeAngles(inv_freq, cos, sin)

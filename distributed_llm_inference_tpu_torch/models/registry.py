@@ -5,9 +5,10 @@ The decoder stack (``models/llama.py``) is one parameterized program whose
 config switches cover the families; this registry maps an HF ``model_type``
 to that program and each family's quirks, and validates a config against
 them. It lists the same five families as the JAX package, so that a
-checkpoint is ``supported`` in both or in neither; the port's program runs
-four of them and raises ``NotImplementedError`` for the latent family
-(``mla``, ROADMAP.md queue 1, item 10) when it is run.
+checkpoint is ``supported`` in both or in neither, and the port's program
+runs all five: the latent family (``mla``) on the paged cache only, with
+bf16/f32 weights (int4/int8 weights on its layers wait: ROADMAP.md queue 1,
+item 20).
 
 * ``llama``   — the baseline (GQA, RoPE incl. llama3 scaling, SwiGLU).
 * ``mistral`` — + sliding-window attention (``ModelConfig.sliding_window``).
@@ -15,7 +16,8 @@ four of them and raises ``NotImplementedError`` for the latent family
   configs) tied embeddings.
 * ``mixtral`` — + MoE MLP (``num_experts``/``num_experts_per_tok``,
   ``ops/moe.py``).
-* ``mla``     — latent (low-rank) KV attention (``ModelConfig.latent``).
+* ``mla``     — latent (low-rank) KV attention (``ModelConfig.latent``;
+  DeepSeek-V2/V3 checkpoints, ``cache/latent.py``).
 """
 
 from __future__ import annotations

@@ -25,7 +25,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC.parent.parent / "build"
 KERNEL_SOURCES = (
     "flash_attention", "int4_matmul", "paged_attention", "quant_attention",
-    "ragged_attention", "sink_attention",
+    "latent_attention", "ragged_attention", "sink_attention",
 )
 # --split-compile=4: the optimizer runs on up to 4 threads a source, so the
 # sources that hold many kernel instances (the fused step's 24 a policy) do

@@ -26,14 +26,45 @@ def kernel_widths_error(head_dim: int, group: int) -> Optional[str]:
     heads a kv head, or None when every one does."""
     if group > KERNEL_MAX_GROUP:
         return (f"{group} query heads per kv head: the attention kernels "
-                f"take 1 to {KERNEL_MAX_GROUP}; a group of all the query "
-                f"heads (the latent family's) is not ported yet (ROADMAP.md "
-                f"queue 1, item 10)")
+                f"take 1 to {KERNEL_MAX_GROUP}; per-head groups of 9 to 16 "
+                f"(Qwen3-235B's 64 over 4) are not ported yet (ROADMAP.md "
+                f"queue 1, item 18)")
     if group < 1 or head_dim not in KERNEL_HEAD_DIMS:
         return (f"head_dim {head_dim} with {group} query heads per kv head: "
                 f"the attention kernels are built for "
                 f"{' and '.join(f'head_dim {d}' for d in KERNEL_HEAD_DIMS)}")
     return None
+
+
+# The widths the latent kernels (``csrc/latent_attention.cu``) are built
+# for: the stored latent ``rank + rope_head_dim`` (DeepSeek-V2/V3's 512 + 64,
+# and the ``LatentConfig`` defaults' 64 + 16), and the query heads over the
+# one latent head, up to DeepSeek-V2-Lite's 16.
+LATENT_DIMS = (576, 80)
+LATENT_MAX_GROUP = 16
+
+
+def latent_widths_error(lat_dim: int, group: int) -> Optional[str]:
+    """Why no latent kernel takes a stored latent of ``lat_dim`` with
+    ``group`` query heads over it, or None when every one does."""
+    if group > LATENT_MAX_GROUP:
+        return (f"{group} query heads over one latent: the latent kernels "
+                f"take 1 to {LATENT_MAX_GROUP}; DeepSeek-V2/V3's 128 are not "
+                f"ported yet (ROADMAP.md queue 1, item 19)")
+    if group < 1 or lat_dim not in LATENT_DIMS:
+        return (f"a latent of {lat_dim} with {group} query heads: the latent "
+                f"kernels are built for "
+                f"{' and '.join(f'lat_dim {d}' for d in LATENT_DIMS)} (other "
+                f"widths: ROADMAP.md queue 1, item 19)")
+    return None
+
+
+def check_latent_widths(name: str, lat_dim: int, group: int) -> None:
+    """Raise ``ValueError`` naming ``name`` for latent widths no latent
+    kernel takes."""
+    why = latent_widths_error(lat_dim, group)
+    if why is not None:
+        raise ValueError(f"{name}: {why}")
 
 
 def int8_pages_error(head_dim: int, page_size: int) -> Optional[str]:

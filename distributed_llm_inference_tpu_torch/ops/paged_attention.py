@@ -58,7 +58,8 @@ from typing import Optional
 import torch
 
 from . import _build
-from .attention import _NEG_INF, check_kernel_widths, int8_pages_error
+from .attention import (
+    _NEG_INF, check_kernel_widths, check_latent_widths, int8_pages_error)
 
 __all__ = [
     "paged_attention",
@@ -73,6 +74,13 @@ __all__ = [
     "quantized_launches",
     "fused_launches",
     "flush_launches",
+    "latent_paged_attention",
+    "latent_paged_attention_plain",
+    "quantized_latent_paged_attention",
+    "quantized_latent_paged_attention_plain",
+    "latent_launches",
+    "quantized_latent_launches",
+    "latent_split_plan",
 ]
 
 # Kernel launches made by :func:`paged_attention` /
@@ -82,6 +90,10 @@ launches = 0
 quantized_launches = 0
 fused_launches = 0
 flush_launches = 0
+# ... and by :func:`latent_paged_attention` /
+# :func:`quantized_latent_paged_attention`.
+latent_launches = 0
+quantized_latent_launches = 0
 
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
 _MIN_SPLIT = 256  # positions: a block is not worth less
@@ -441,6 +453,241 @@ def quantized_paged_attention(
                   page_table, kv_lengths, scale, sliding_window, q_positions,
                   return_stats, (("ks_pages", ks_pages), ("vs_pages", vs_pages)))
     quantized_launches += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The latent (MLA) pool: K = V = the stored [c ; k_rope] latent
+# ---------------------------------------------------------------------------
+
+# Positions a block of the latent decode kernel takes at least: two of its
+# 32-position tiles, each a (row, split) block loads once for K and V.
+_MIN_LATENT_SPLIT = 128
+_LATENT_TILE = 32
+_MAX_LATENT_SPLITS = 256  # the merge kernel's shared weights
+
+
+def latent_split_plan(device, batch: int, span: int):
+    """How many blocks share one row's ``span`` table positions in the
+    latent decode kernel (``csrc/latent_attention.cu``), and how many
+    positions each takes: about two blocks per SM over the ``batch`` rows
+    (one latent head: a row is one block unless split), at least
+    ``_MIN_LATENT_SPLIT`` positions each, in whole 32-position tiles, at
+    most ``_MAX_LATENT_SPLITS`` blocks a row."""
+    sms = _sm_count.get(device)
+    if sms is None:
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        _sm_count[device] = sms
+    splits = max(1, min(-(-2 * sms // batch), -(-span // _MIN_LATENT_SPLIT),
+                        _MAX_LATENT_SPLITS))
+    chunk = -(-(-(-span // splits)) // _LATENT_TILE) * _LATENT_TILE
+    return -(-span // chunk), chunk
+
+
+def latent_kernel(symbol: str):
+    """A C entry of ``csrc/latent_attention.cu``, its argument types set."""
+    fn = _fn.get(symbol)
+    if fn is None:
+        fn = getattr(_build.load_library("latent_attention"), symbol)
+        pointers, ints, after = {
+            "dli_latent_ragged_attention": (8, 6, 2),
+            "dli_latent_paged_attention": (12, 7, 2),
+        }[symbol]
+        fn.argtypes = [ctypes.c_void_p] * pointers + [ctypes.c_int] * ints + [
+            ctypes.c_float, *[ctypes.c_int] * after, ctypes.c_void_p,
+        ]
+        fn.restype = ctypes.c_int
+        _fn[symbol] = fn
+    return fn
+
+
+def check_latent_inputs(name, q, c_pages, page_table, vectors, cs_pages=None):
+    """Argument checks of the latent wrappers: one CUDA device, bf16 or f32
+    absorbed queries ``[B, S, G, D]``, a pool ``[P, 1, PS, D]`` of f32
+    latents (or int8 with f32 ``cs_pages [P, 1, PS]``), contiguous, int32
+    indices, widths a latent kernel takes (``check_latent_widths``).
+    Returns q's dtype code."""
+    dev = q.device
+    extra = () if cs_pages is None else (("cs_pages", cs_pages),)
+    for label, t in (("c_pages", c_pages), ("page_table", page_table),
+                     *vectors, *extra):
+        if t.device != dev:
+            raise ValueError(f"{name}: {label} on {t.device}, q on {dev}")
+    if q.dtype not in _DTYPE_CODE:
+        raise TypeError(f"{name}: dtype {q.dtype} (kernel takes bf16, f32)")
+    pool_dtype = torch.float32 if cs_pages is None else torch.int8
+    if c_pages.dtype != pool_dtype:
+        raise TypeError(f"{name}: c_pages {c_pages.dtype}, must be "
+                        f"{pool_dtype}")
+    if c_pages.ndim != 4 or c_pages.shape[1] != 1:
+        raise ValueError(f"{name}: c_pages must be [P, 1, PS, D], got "
+                         f"{tuple(c_pages.shape)}")
+    if cs_pages is not None and (
+            cs_pages.dtype != torch.float32
+            or tuple(cs_pages.shape) != tuple(c_pages.shape[:3])):
+        raise ValueError(
+            f"{name}: cs_pages must be f32 {tuple(c_pages.shape[:3])}, got "
+            f"{cs_pages.dtype} {tuple(cs_pages.shape)}")
+    if q.ndim != 4 or q.shape[3] != c_pages.shape[3]:
+        raise ValueError(f"{name}: q {tuple(q.shape)} does not match the "
+                         f"pool {tuple(c_pages.shape)}")
+    check_latent_widths(name, q.shape[3], q.shape[2])
+    for label, t in (("page_table", page_table), *vectors):
+        if t.dtype != torch.int32:
+            raise TypeError(f"{name}: {label} must be int32, got {t.dtype}")
+    b = q.shape[0]
+    if page_table.ndim != 2 or page_table.shape[0] != b:
+        raise ValueError(f"{name}: page_table {tuple(page_table.shape)}")
+    for label, t in vectors:
+        if tuple(t.shape) != (b,):
+            raise ValueError(f"{name}: {label} {tuple(t.shape)}, want ({b},)")
+    for label, t in (("q", q), ("c_pages", c_pages),
+                     ("page_table", page_table), *vectors, *extra):
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {label} must be contiguous")
+    for label, t in (("q", q), ("c_pages", c_pages)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: {label} must be 16-byte aligned")
+    return _DTYPE_CODE[q.dtype]
+
+
+def latent_paged_attention_plain(
+    q: torch.Tensor,
+    c_pages: torch.Tensor,
+    page_table: torch.Tensor,
+    kv_lengths: torch.Tensor,
+    scale: Optional[float] = None,
+    sliding_window: Optional[int] = None,
+    q_positions: Optional[torch.Tensor] = None,
+    return_stats: bool = False,
+):
+    """Plain PyTorch version of :func:`latent_paged_attention`: the plain
+    paged decode with ``K = V = c_pages`` (f32 math, output in q's
+    type)."""
+    return _plain(q, c_pages, c_pages, page_table, kv_lengths, scale,
+                  sliding_window, q_positions, return_stats)
+
+
+def quantized_latent_paged_attention_plain(
+    q: torch.Tensor,
+    c_pages: torch.Tensor,
+    cs_pages: torch.Tensor,
+    page_table: torch.Tensor,
+    kv_lengths: torch.Tensor,
+    scale: Optional[float] = None,
+    sliding_window: Optional[int] = None,
+    q_positions: Optional[torch.Tensor] = None,
+    return_stats: bool = False,
+):
+    """Plain PyTorch version of :func:`quantized_latent_paged_attention`:
+    the scale multiplies the score (K) and the probability before P V (V),
+    in f32."""
+    return _plain(q, c_pages, c_pages, page_table, kv_lengths, scale,
+                  sliding_window, q_positions, return_stats, cs_pages,
+                  cs_pages)
+
+
+def _latent_launch(name, q, c_pages, cs_pages, page_table, kv_lengths, scale,
+                   sliding_window, q_positions, return_stats):
+    """Checks and the two launches of the latent decode kernel (the split
+    positions, then their merge), over scratch allocated here."""
+    b, s, g, d = q.shape
+    if s != 1:
+        raise ValueError(f"{name} is decode-only (S=1), got S={s}")
+    if q_positions is None:
+        # Only the sliding window reads the query positions.
+        q_positions = kv_lengths - 1 if sliding_window else kv_lengths
+    code = check_latent_inputs(
+        name, q, c_pages, page_table,
+        (("kv_lengths", kv_lengths), ("q_positions", q_positions)), cs_pages)
+    page_size, width = c_pages.shape[2], page_table.shape[1]
+    if scale is None:
+        scale = d**-0.5
+    splits, chunk = latent_split_plan(q.device, b, width * page_size)
+    rows = 4 if g <= 4 else 8 if g <= 8 else 16  # the kernel's decode_rows
+    out = torch.empty_like(q)
+    m = torch.empty((b, 1, g), dtype=torch.float32, device=q.device)
+    l = torch.empty_like(m)
+    part_o = torch.empty((b, splits, rows, d), dtype=torch.float32,
+                         device=q.device)
+    part_ml = torch.empty((2, b, splits, rows), dtype=torch.float32,
+                          device=q.device)
+    with torch.cuda.device(q.device):
+        err = latent_kernel("dli_latent_paged_attention")(
+            q.data_ptr(), c_pages.data_ptr(),
+            None if cs_pages is None else cs_pages.data_ptr(),
+            page_table.data_ptr(), kv_lengths.data_ptr(),
+            q_positions.data_ptr(), out.data_ptr(), m.data_ptr(),
+            l.data_ptr(), part_o.data_ptr(), part_ml[0].data_ptr(),
+            part_ml[1].data_ptr(), b, g, d, page_size, width, splits, chunk,
+            float(scale), int(sliding_window or 0), code,
+            torch.cuda.current_stream().cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"{name}: kernel launch failed ({err})")
+    return (out, m, l) if return_stats else out
+
+
+def latent_paged_attention(
+    q: torch.Tensor,
+    c_pages: torch.Tensor,
+    page_table: torch.Tensor,
+    kv_lengths: torch.Tensor,
+    scale: Optional[float] = None,
+    sliding_window: Optional[int] = None,
+    q_positions: Optional[torch.Tensor] = None,
+    return_stats: bool = False,
+):
+    """Absorbed-MLA decode attention over the latent pool, in place.
+
+    ``q``: the absorbed query ``[B, 1, Hq, lat_dim]`` (bf16 or f32);
+    ``c_pages``: ``[P, 1, page_size, lat_dim]`` f32, one layer's fused
+    ``[c ; k_rope]`` latents (rope already on the rope slice); ``K = V =``
+    the stored latent, over one latent head (G = Hq). Otherwise as
+    :func:`paged_attention`: ``(out, m, l)`` with ``return_stats``, ``m``
+    and ``l`` ``[B, 1, Hq]``. All the arithmetic is f32; the output is
+    rounded to q's type. On the card, ``csrc/latent_attention.cu``
+    (lat_dim 576 or 80, 1 to 16 query heads)."""
+    global latent_launches
+    if q.device.type == "cpu":
+        return latent_paged_attention_plain(
+            q, c_pages, page_table, kv_lengths, scale, sliding_window,
+            q_positions, return_stats)
+    if q.device.type != "cuda":
+        raise ValueError(f"latent_paged_attention: unsupported device "
+                         f"{q.device}")
+    out = _latent_launch("latent_paged_attention", q, c_pages, None,
+                         page_table, kv_lengths, scale, sliding_window,
+                         q_positions, return_stats)
+    latent_launches += 1
+    return out
+
+
+def quantized_latent_paged_attention(
+    q: torch.Tensor,
+    c_pages: torch.Tensor,
+    cs_pages: torch.Tensor,
+    page_table: torch.Tensor,
+    kv_lengths: torch.Tensor,
+    scale: Optional[float] = None,
+    sliding_window: Optional[int] = None,
+    q_positions: Optional[torch.Tensor] = None,
+    return_stats: bool = False,
+):
+    """As :func:`latent_paged_attention` over the int8 latent pool with
+    per-token f32 scales (``cs_pages``: ``[P, 1, page_size]``)."""
+    global quantized_latent_launches
+    if q.device.type == "cpu":
+        return quantized_latent_paged_attention_plain(
+            q, c_pages, cs_pages, page_table, kv_lengths, scale,
+            sliding_window, q_positions, return_stats)
+    if q.device.type != "cuda":
+        raise ValueError(f"quantized_latent_paged_attention: unsupported "
+                         f"device {q.device}")
+    out = _latent_launch("quantized_latent_paged_attention", q, c_pages,
+                         cs_pages, page_table, kv_lengths, scale,
+                         sliding_window, q_positions, return_stats)
+    quantized_latent_launches += 1
     return out
 
 

@@ -39,7 +39,9 @@ import torch
 from . import _build
 from .attention import (
     _NEG_INF, check_kernel_widths, int8_pages_error, rows_per_query)
-from .paged_attention import check_kernel_inputs, gather_pages, gather_scales
+from .paged_attention import (
+    check_kernel_inputs, check_latent_inputs, gather_pages, gather_scales,
+    latent_kernel)
 
 __all__ = [
     "ragged_paged_attention",
@@ -54,12 +56,22 @@ __all__ = [
     "rows_per_query",
     "score_rows",
     "launch_plan",
+    "latent_ragged_paged_attention",
+    "latent_ragged_paged_attention_plain",
+    "quantized_latent_ragged_paged_attention",
+    "quantized_latent_ragged_paged_attention_plain",
+    "latent_launches",
+    "quantized_latent_launches",
 ]
 
 # Kernel launches made by :func:`ragged_paged_attention` /
 # :func:`quantized_ragged_paged_attention` in this process.
 launches = 0
 quantized_launches = 0
+# ... and by :func:`latent_ragged_paged_attention` /
+# :func:`quantized_latent_ragged_paged_attention`.
+latent_launches = 0
+quantized_latent_launches = 0
 
 _fn = {}
 
@@ -371,6 +383,141 @@ def quantized_ragged_paged_attention(
                   sliding_window,
                   (("ks_pages", ks_pages), ("vs_pages", vs_pages)))
     quantized_launches += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The latent (MLA) pool: K = V = the stored [c ; k_rope] latent
+# ---------------------------------------------------------------------------
+
+
+def latent_ragged_paged_attention_plain(
+    q: torch.Tensor,
+    c_pages: torch.Tensor,
+    page_table: torch.Tensor,
+    kv_lengths: torch.Tensor,
+    num_new: torch.Tensor,
+    q_start: Optional[torch.Tensor] = None,
+    scale: Optional[float] = None,
+    sliding_window: Optional[int] = None,
+):
+    """Plain PyTorch version of :func:`latent_ragged_paged_attention`: the
+    plain ragged attention with ``K = V = c_pages`` (f32 math, output in
+    q's type)."""
+    return _plain(q, c_pages, c_pages, page_table, kv_lengths, num_new,
+                  q_start, scale, sliding_window)
+
+
+def quantized_latent_ragged_paged_attention_plain(
+    q: torch.Tensor,
+    c_pages: torch.Tensor,
+    cs_pages: torch.Tensor,
+    page_table: torch.Tensor,
+    kv_lengths: torch.Tensor,
+    num_new: torch.Tensor,
+    q_start: Optional[torch.Tensor] = None,
+    scale: Optional[float] = None,
+    sliding_window: Optional[int] = None,
+):
+    """Plain PyTorch version of
+    :func:`quantized_latent_ragged_paged_attention`: the scale multiplies
+    the score (K) and the probability before P V (V), in f32."""
+    return _plain(q, c_pages, c_pages, page_table, kv_lengths, num_new,
+                  q_start, scale, sliding_window, cs_pages, cs_pages)
+
+
+def _latent_launch(name, q, c_pages, cs_pages, page_table, kv_lengths,
+                   num_new, q_start, scale, sliding_window):
+    if q_start is None:
+        q_start = kv_lengths - num_new
+    code = check_latent_inputs(
+        name, q, c_pages, page_table,
+        (("kv_lengths", kv_lengths), ("num_new", num_new),
+         ("q_start", q_start)), cs_pages)
+    b, s, g, d = q.shape
+    if scale is None:
+        scale = d**-0.5
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        err = latent_kernel("dli_latent_ragged_attention")(
+            q.data_ptr(), c_pages.data_ptr(),
+            None if cs_pages is None else cs_pages.data_ptr(),
+            page_table.data_ptr(), kv_lengths.data_ptr(), q_start.data_ptr(),
+            num_new.data_ptr(), out.data_ptr(), b, s, g, d,
+            c_pages.shape[2], page_table.shape[1], float(scale),
+            int(sliding_window or 0), code,
+            torch.cuda.current_stream().cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"{name}: kernel launch failed ({err})")
+    return out
+
+
+def latent_ragged_paged_attention(
+    q: torch.Tensor,
+    c_pages: torch.Tensor,
+    page_table: torch.Tensor,
+    kv_lengths: torch.Tensor,
+    num_new: torch.Tensor,
+    q_start: Optional[torch.Tensor] = None,
+    scale: Optional[float] = None,
+    sliding_window: Optional[int] = None,
+    block_q: Optional[int] = None,
+):
+    """Absorbed-MLA ragged attention reading the latent pool in place.
+
+    ``c_pages``: ``[P, 1, page_size, lat_dim]`` f32, one layer's fused
+    ``[c ; k_rope]`` latents (rope already on the rope slice); ``q``: the
+    absorbed query ``[B, S, Hq, lat_dim]`` (bf16 or f32). Attention runs
+    with ``K = V =`` the stored latent over one latent head (G = Hq);
+    otherwise the arguments are :func:`ragged_paged_attention`'s. Output
+    ``[B, S, Hq, lat_dim]`` in q's type, pad queries zeroed; all the
+    arithmetic is f32. On the card, ``csrc/latent_attention.cu`` (lat_dim
+    576 or 80, 1 to 16 query heads). ``block_q`` is accepted for signature
+    parity with the JAX function."""
+    global latent_launches
+    del block_q
+    if q.device.type == "cpu":
+        return latent_ragged_paged_attention_plain(
+            q, c_pages, page_table, kv_lengths, num_new, q_start, scale,
+            sliding_window)
+    if q.device.type != "cuda":
+        raise ValueError(f"latent_ragged_paged_attention: unsupported "
+                         f"device {q.device}")
+    out = _latent_launch("latent_ragged_paged_attention", q, c_pages, None,
+                         page_table, kv_lengths, num_new, q_start, scale,
+                         sliding_window)
+    latent_launches += 1
+    return out
+
+
+def quantized_latent_ragged_paged_attention(
+    q: torch.Tensor,
+    c_pages: torch.Tensor,
+    cs_pages: torch.Tensor,
+    page_table: torch.Tensor,
+    kv_lengths: torch.Tensor,
+    num_new: torch.Tensor,
+    q_start: Optional[torch.Tensor] = None,
+    scale: Optional[float] = None,
+    sliding_window: Optional[int] = None,
+    block_q: Optional[int] = None,
+):
+    """As :func:`latent_ragged_paged_attention` over the int8 latent pool
+    (``cs_pages``: ``[P, 1, page_size]`` per-token f32 scales)."""
+    global quantized_latent_launches
+    del block_q
+    if q.device.type == "cpu":
+        return quantized_latent_ragged_paged_attention_plain(
+            q, c_pages, cs_pages, page_table, kv_lengths, num_new, q_start,
+            scale, sliding_window)
+    if q.device.type != "cuda":
+        raise ValueError(f"quantized_latent_ragged_paged_attention: "
+                         f"unsupported device {q.device}")
+    out = _latent_launch("quantized_latent_ragged_paged_attention", q,
+                         c_pages, cs_pages, page_table, kv_lengths, num_new,
+                         q_start, scale, sliding_window)
+    quantized_latent_launches += 1
     return out
 
 

@@ -57,7 +57,11 @@ METRICS = {
     "decode_graphs": ("gauge", "Captured decode steps alive"),
     "decode_graph_pool_bytes": ("gauge", "Memory reserved by captures"),
     "cache_growths": ("counter", "Page-table widenings"),
+    # latent (MLA) KV compression (cache/latent.py)
     "kv_bytes_per_token": ("gauge", "Stored KV bytes per token, all layers"),
+    "latent_decompress_dispatches": (
+        "counter", "Attention dispatches reading the latent stored form"
+    ),
     # serving gateway
     "http_requests": ("counter", "Completion requests received"),
     "http_429": ("counter", "Requests shed at capacity"),

@@ -19,6 +19,7 @@ from safetensors import safe_open
 from safetensors.torch import save_file as wheel_save_file
 
 from distributed_llm_inference_tpu import config as jcfg
+from distributed_llm_inference_tpu.models import llama as jllama
 from distributed_llm_inference_tpu.models import registry as jregistry
 from distributed_llm_inference_tpu.utils import checkpoint as jcheckpoint
 from distributed_llm_inference_tpu_torch import config as tcfg
@@ -330,15 +331,56 @@ def test_load_without_a_device_raises_on_a_host_without_a_gpu(model_dir):
             call()
 
 
-@pytest.mark.parametrize("key,item", [
-    ("model.layers.0.self_attn.kv_b_proj.weight", "item 10"),
-    ("model.layers.0.self_attn.kv_a_proj_with_mqa.weight", "item 10"),
+MLA_MODEL = dict(MODEL, num_kv_heads=4, family="mla")
+MLA_LATENT = dict(rank=8, rope_head_dim=4, nope_head_dim=6)
+
+
+def _mla_state(seed=2):
+    """A tiny DeepSeek-V2's HF state: the Llama layers with q_proj [Hq *
+    (dn + dr), H], kv_a_proj_with_mqa [rank + dr, H], kv_a_layernorm
+    [rank] and kv_b_proj [Hq * (dn + D), rank] in place of k/v_proj."""
+    r = np.random.RandomState(seed)
+    h, d, hq = CFG.hidden_size, CFG.head_dim, CFG.num_heads
+    rank, dr, dn = (MLA_LATENT[k] for k in
+                    ("rank", "rope_head_dim", "nope_head_dim"))
+    state = {k: v for k, v in _hf_state(seed).items()
+             if ".k_proj." not in k and ".v_proj." not in k}
+    for i in range(CFG.num_layers):
+        p = f"model.layers.{i}.self_attn."
+        state[p + "q_proj.weight"] = r.randn(hq * (dn + dr), h)
+        state[p + "kv_a_proj_with_mqa.weight"] = r.randn(rank + dr, h)
+        state[p + "kv_a_layernorm.weight"] = r.randn(rank)
+        state[p + "kv_b_proj.weight"] = r.randn(hq * (dn + d), rank)
+    return {k: v.astype(np.float32) for k, v in state.items()}
+
+
+@pytest.mark.parametrize("key,names", [
+    ("model.layers.0.self_attn.kv_b_proj.weight", ("wk_b", "wv_b")),
+    ("model.layers.0.self_attn.kv_a_proj_with_mqa.weight", ("wkv_a",)),
 ])
-def test_waiting_families_raise_with_their_queue_item(key, item):
-    state = {k: torch.from_numpy(v) for k, v in _hf_state().items()}
-    state[key] = torch.zeros(4)
-    with pytest.raises(NotImplementedError, match=f"queue 1, {item}"):
-        llama.convert_hf_state_dict(CFG, state, None, torch.float32, "cpu")
+def test_waiting_families_raise_with_their_queue_item(key, names):
+    """The latent (MLA) keys, which waited for ROADMAP.md queue 1, item 10,
+    now load: a DeepSeek-V2 state converts EQUAL to the JAX conversion,
+    the weights made from ``key`` included, and a per-head config ignores
+    them as the JAX conversion does."""
+    np_state = _mla_state()
+    state = {k: torch.from_numpy(v) for k, v in np_state.items()}
+    cfg = tcfg.ModelConfig(**MLA_MODEL, latent=tcfg.LatentConfig(**MLA_LATENT))
+    jc = jcfg.ModelConfig(**MLA_MODEL,
+                          latent=jcfg.LatentConfig(**MLA_LATENT))
+    got = llama.convert_hf_state_dict(cfg, state, None, torch.float32, "cpu")
+    want = jllama.convert_hf_state_dict(jc, np_state, None, jnp.float32)
+    assert set(got["layers"]) == set(want["layers"]) >= set(names)
+    for name in got["layers"]:
+        np.testing.assert_array_equal(got["layers"][name].numpy(),
+                                      np.asarray(want["layers"][name]))
+    llama_state = dict(_hf_state(), **{key: np_state[key]})
+    per_head = llama.convert_hf_state_dict(
+        CFG, {k: torch.from_numpy(v) for k, v in llama_state.items()}, None,
+        torch.float32, "cpu")
+    jper = jllama.convert_hf_state_dict(JCFG, llama_state, None, jnp.float32)
+    assert set(per_head["layers"]) == set(jper["layers"])
+    assert not set(per_head["layers"]) & set(names)
 
 
 MOE_CFG = dataclasses.replace(CFG, num_experts=3, num_experts_per_tok=2,

@@ -355,7 +355,9 @@ WAITING = [
     ("mesh_cfg", dict(mesh_cfg=object())),
     ("draft", dict(draft=(None, None))),
     ("prefix_caching", dict(cache=dict(prefix_caching=True))),
-    ("latent", dict(model=dict(latent=tcfg.LatentConfig()))),
+    # The latent family runs (item 10); int8/int4 weights on it wait.
+    ("latent", dict(model=dict(latent=tcfg.LatentConfig(), family="mla"),
+                    engine=dict(quantization="int8"))),
     ("trace_cfg", dict(trace_cfg=object())),
 ]
 

@@ -1,9 +1,11 @@
 """The attention kernels' widths at the wrappers, with a stub library: every
 wrapper launches its kernel for 1 to 8 query heads a kv head at head_dim 64
 and 128, passes those widths to the C entry, and raises for 9 query heads a
-kv head (naming ROADMAP.md queue 1, item 10) and for head_dim 96 and 256;
-no call of a tensor on the card ever takes the plain version. And the
-engine refuses such a model when it is built on the card.
+kv head (naming ROADMAP.md queue 1, item 18) and for head_dim 96 and 256;
+the four latent wrappers take 1, 8 and 16 query heads over lat_dim 576 and
+80 and raise for 17 and 128 heads (item 19) and lat_dim 64; no call of a
+tensor on the card ever takes the plain version. And the engine refuses
+such a model, per-head or latent, when it is built on the card.
 
 No card here: the tensors are CPU tensors that report a CUDA device
 (``OnCard``), factories asked for that device make CPU tensors of the same
@@ -29,7 +31,7 @@ from distributed_llm_inference_tpu_torch.ops import ragged_attention as tra
 torch.set_num_threads(1)
 CARD = torch.device("cuda", 0)
 WIDTHS = [(g, d) for d in (64, 128) for g in range(1, 9)]
-REFUSED = [(9, 128, "queue 1, item 10"), (4, 96, "head_dim 96"),
+REFUSED = [(9, 128, "queue 1, item 18"), (4, 96, "head_dim 96"),
            (4, 256, "head_dim 256")]
 
 
@@ -94,11 +96,17 @@ def card(monkeypatch):
     def plain(*args, **kwargs):
         raise AssertionError("a tensor on the card took the plain version")
 
+    for mod, counter in LATENT_WRAPPERS.values():
+        monkeypatch.setattr(mod, counter, getattr(mod, counter))
     for mod, names in (
             (tpa, ("paged_attention_plain", "quantized_paged_attention_plain",
-                   "quantized_paged_fused_attention_plain")),
+                   "quantized_paged_fused_attention_plain",
+                   "latent_paged_attention_plain",
+                   "quantized_latent_paged_attention_plain")),
             (tra, ("ragged_paged_attention_plain",
-                   "quantized_ragged_paged_attention_plain")),
+                   "quantized_ragged_paged_attention_plain",
+                   "latent_ragged_paged_attention_plain",
+                   "quantized_latent_ragged_paged_attention_plain")),
             (tfa, ("flash_attention_plain",)),
             (tqa, ("quantized_decode_attention_plain",
                    "quantized_fused_decode_attention_plain",
@@ -267,7 +275,7 @@ MODEL = dict(vocab_size=64, hidden_size=36, intermediate_size=48,
 
 
 @pytest.mark.parametrize("widths,dtype,cache,match", [
-    (dict(), "float32", None, r"ROADMAP\.md queue 1, item 10"),
+    (dict(), "float32", None, r"ROADMAP\.md queue 1, item 18"),
     (dict(num_heads=2, num_kv_heads=1, head_dim=96, hidden_size=192),
      "float32", None, "head_dim 96"),
     (dict(num_heads=4, num_kv_heads=1, head_dim=64, hidden_size=256),
@@ -303,3 +311,86 @@ def test_engine_takes_every_width_on_the_cpu():
         device="cpu")
     out = engine.generate([[1, 2, 3]], SamplingOptions(max_new_tokens=2))
     assert len(out[0]) == 2
+
+
+# The latent (MLA) wrappers: one kv head, G = every query head, D = lat_dim.
+LATENT_WRAPPERS = {
+    "latent_ragged_paged_attention": (tra, "latent_launches"),
+    "quantized_latent_ragged_paged_attention": (
+        tra, "quantized_latent_launches"),
+    "latent_paged_attention": (tpa, "latent_launches"),
+    "quantized_latent_paged_attention": (tpa, "quantized_latent_launches"),
+}
+
+
+def _latent(name, g, d, window=None):
+    """One call of the latent wrapper ``name``: 2 rows over pages of 16,
+    bf16 queries (3 a row on the ragged ones)."""
+    q8 = name.startswith("quantized")
+    ragged = "ragged" in name
+    q = _zeros((B, 3 if ragged else 1, g, d), torch.bfloat16)
+    pools = ((_zeros((9, 1, PS, d), torch.int8), _zeros((9, 1, PS)))
+             if q8 else (_zeros((9, 1, PS, d)),))
+    table, lens = _i32([[1, 2, 3, 4], [5, 6, 7, 8]]), _i32([40, 3])
+    fn = getattr(LATENT_WRAPPERS[name][0], name)
+    if ragged:
+        return fn(q, *pools, table, lens, _i32([3, 1]), sliding_window=window)
+    return fn(q, *pools, table, lens, sliding_window=window,
+              return_stats=True)
+
+
+LATENT_WIDTHS = [(16, 576), (1, 576), (8, 80)]
+
+
+@pytest.mark.parametrize("g,d", LATENT_WIDTHS,
+                         ids=[f"g{g}_d{d}" for g, d in LATENT_WIDTHS])
+@pytest.mark.parametrize("name", list(LATENT_WRAPPERS))
+def test_latent_wrappers_launch_on_the_card(card, name, g, d):
+    """One C call of ``csrc/latent_attention.cu`` with the widths, the
+    window and the scale plane (null over the f32 pool), one launch
+    counted; decode rows of 64 table positions take one split each."""
+    mod, counter = LATENT_WRAPPERS[name]
+    before = getattr(mod, counter)
+    out = _latent(name, g, d, window=300)
+    out = out[0] if isinstance(out, tuple) else out
+    assert out.dtype == torch.bfloat16 and out.shape[-2:] == (g, d)
+    assert getattr(mod, counter) == before + 1
+    (symbol, args), = card.calls
+    if "ragged" in name:
+        assert symbol == "dli_latent_ragged_attention"
+        assert args[8:14] == (B, 3, g, d, PS, 4)  # B S G D PS Tw
+    else:
+        assert symbol == "dli_latent_paged_attention"
+        assert args[12:19] == (B, g, d, PS, 4, 1, 64)  # ... splits chunk
+    assert args[-3:-1] == (300, 0)  # the window, bf16
+    assert (args[2] is None) == (not name.startswith("quantized"))
+
+
+LATENT_REFUSED = [(17, 576, r"ROADMAP\.md queue 1, item 19"),
+                  (128, 576, r"ROADMAP\.md queue 1, item 19"),
+                  (16, 64, "lat_dim 576 and lat_dim 80")]
+
+
+@pytest.mark.parametrize("g,d,match", LATENT_REFUSED,
+                         ids=[f"g{g}_d{d}" for g, d, _ in LATENT_REFUSED])
+@pytest.mark.parametrize("name", list(LATENT_WRAPPERS))
+def test_latent_wrappers_refuse_other_widths(card, name, g, d, match):
+    mod, counter = LATENT_WRAPPERS[name]
+    before = getattr(mod, counter)
+    with pytest.raises(ValueError, match=match):
+        _latent(name, g, d)
+    assert card.calls == [] and getattr(mod, counter) == before
+
+
+@pytest.mark.parametrize("heads,rank", [(128, 512), (16, 448)],
+                         ids=["g128_deepseek_v2", "lat_dim_512"])
+def test_engine_refuses_latent_widths_no_kernel_takes_on_the_card(
+        monkeypatch, heads, rank):
+    monkeypatch.setattr(tengine, "resolve_device", lambda device: CARD)
+    cfg = tcfg.ModelConfig(
+        vocab_size=64, hidden_size=64, intermediate_size=64, num_layers=1,
+        num_heads=heads, num_kv_heads=1, head_dim=16, family="mla",
+        latent=tcfg.LatentConfig(rank=rank, rope_head_dim=64))
+    with pytest.raises(NotImplementedError,
+                       match=r"ROADMAP\.md queue 1, item 19"):
+        tengine.InferenceEngine(cfg, {}, tcfg.EngineConfig(dtype="float32"))

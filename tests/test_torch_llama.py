@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from distributed_llm_inference_tpu.cache.paged import PagedKVCache as JaxCache
+from distributed_llm_inference_tpu.config import LatentConfig as JaxLatentConfig
 from distributed_llm_inference_tpu.config import ModelConfig as JaxModelConfig
 from distributed_llm_inference_tpu.config import RopeScaling as JaxRopeScaling
 from distributed_llm_inference_tpu.models import llama as jllama
@@ -164,9 +165,19 @@ def test_config_variants(extra):
 
 
 def test_families_that_wait_raise():
-    cfg = ModelConfig(**KW, latent=LatentConfig())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tllama.init_params(cfg, None, torch.float32, "cpu")
+    """The latent family runs now: its init is the JAX package's MLA
+    parameter set, shape for shape. Without a card the default device
+    still raises."""
+    lat = LatentConfig()
+    cfg = ModelConfig(**KW, latent=lat, family="mla")
+    params = tllama.init_params(cfg, None, torch.float32, "cpu")
+    jp = jllama.init_params(
+        JaxModelConfig(**KW, latent=JaxLatentConfig(), family="mla"),
+        jax.random.PRNGKey(0), jnp.float32)
+    assert {k: tuple(v.shape) for k, v in params["layers"].items()} == {
+        k: tuple(v.shape) for k, v in jp["layers"].items()}
+    assert params["layers"]["wk_b"].shape[2:] == (
+        KW["num_heads"], KW["head_dim"]) and lat.lat_dim == 80
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             tllama.init_params(ModelConfig(**KW))

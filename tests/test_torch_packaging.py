@@ -97,8 +97,9 @@ def test_port_mirrors_the_reference_file_names():
 
     sources = sorted(p.name for p in (PORT / "csrc").glob("*.cu"))
     assert sources == [
-        "flash_attention.cu", "int4_matmul.cu", "paged_attention.cu",
-        "quant_attention.cu", "ragged_attention.cu", "sink_attention.cu"]
+        "flash_attention.cu", "int4_matmul.cu", "latent_attention.cu",
+        "paged_attention.cu", "quant_attention.cu", "ragged_attention.cu",
+        "sink_attention.cu"]
     assert sources == sorted(f"{n}.cu" for n in _build.KERNEL_SOURCES)
 
 

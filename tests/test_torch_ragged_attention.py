@@ -228,7 +228,7 @@ def test_launch_plan_refuses_what_the_kernel_cannot_take():
         tra.launch_plan(1, 16, 8, 4, 128, 64, 2**22 + 1, False)
     with pytest.raises(ValueError, match="head_dim"):
         tra.launch_plan(1, 16, 8, 4, 96, 64, 10, False)
-    with pytest.raises(ValueError, match="queue 1, item 10"):
+    with pytest.raises(ValueError, match="queue 1, item 18"):
         tra.launch_plan(1, 16, 8, 9, 128, 64, 10, False)
     with pytest.raises(ValueError, match="even page size"):
         tra.launch_plan(1, 16, 8, 4, 64, 15, 10, True)

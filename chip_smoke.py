@@ -98,11 +98,20 @@ one line per engine configuration or comparison):
               prompt, a 129-query chunk from 1500, an empty row, one slot,
               a page edge, a decode token) and of `LATENT_DECODE_LENS`,
               pages of 16 and 64, a window of 300 and none, m and l beside
-              the output; timed at DeepSeek-V2-Lite's shapes (decode at
-              B = 8 and 1 over 2048 tokens, a 2048-token prompt) beside
+              the output (the ragged wrappers with bf16 q at 576 on the
+              tensor-core instance, `latent_wgmma_kernel`, the rest on the
+              CUDA-core kernel); the instance's precision
+              (`latent_precision`: unscaled q over latents of 8, every
+              element within one bf16 step of the plain version's f32
+              output, a one-pass bf16 control that must miss it); timed at DeepSeek-V2-Lite's shapes (decode
+              at B = 8 and 1 over 2048 tokens, a 2048-token prompt) beside
               their plain versions, SDPA over the gathered latent and the
-              bound; `-Xptxas -v` of every latent instance and each
-              block's shared memory. Then the timed call's floor
+              bound (the prompt: the tensor-core passes' bound and the f32
+              CUDA-core one, and the CUDA-core kernel timed beside the
+              tensor-core one); `-Xptxas -v` of every latent instance (0
+              spills asserted for the tensor-core ones), each block's
+              shared memory, the tensor-core launch plan against the
+              wrapper's. Then the timed call's floor
               (an empty kernel timed as the kernels are), and, at the
               shapes of the main paths, each kernel's
               output against the plain version's on the same inputs and its
@@ -204,9 +213,11 @@ one line per engine configuration or comparison):
               27 layers, bf16 weights, less what `LATENT_CUTS` lists) at
               K = 1 on the same traffic: tokens/s, prefill and tick ms,
               `kv_bytes_per_token`, `latent_decompress_dispatches`, the
-              latent wrappers' launches (> 0), no per-head attention
-              kernel, no plain version and no gather, a decode tick and a
-              prefill profiled (the idle share).
+              latent wrappers' launches (> 0, every ragged one on the
+              tensor-core instance), no per-head attention kernel, no
+              plain version and no gather, a decode tick and a prefill
+              profiled (the idle share; the prefill's latent kernel ms,
+              one launch a layer).
 4. parity   - 2 layers of the same widths in f32 (TF32 off): the bf16 pool
               at K = 16, at K = 1 and on the gather path, identical greedy
               streams; int4 weights over the int8 pool, kernels against the
@@ -2794,7 +2805,7 @@ PASS_KERNELS = ("fused_scores_kernel", "fused_sums_kernel",
 ATTENTION_KERNELS = ("fused_cluster_kernel", "paged_decode_kernel",
                      *PASS_KERNELS, "paged_partial_kernel",
                      "paged_combine_kernel", "latent_kernel",
-                     "latent_merge_kernel")
+                     "latent_merge_kernel", "latent_wgmma_kernel")
 # The int4 matmul's kernels: bf16 x (one launch a call), f32 x (the
 # CUDA-core kernel, with the combine of its split partials).
 INT4_KERNELS = ("int4_mma_kernel", "int4_matmul_kernel", "int4_combine_kernel")
@@ -4867,6 +4878,13 @@ LATENT_F32 = {k: LATENT_WRAPPERS[k] for k in (
 LATENT_INT8 = {k: LATENT_WRAPPERS[k] for k in (
     "quantized_latent_ragged_paged_attention",
     "quantized_latent_paged_attention")}
+# The tensor-core instance's own counts (bf16 q at lat_dim 576), beside its
+# wrapper's.
+LATENT_WGMMA = {
+    "latent_ragged_paged_attention": (ra, "latent_wgmma_launches"),
+    "quantized_latent_ragged_paged_attention": (
+        ra, "quantized_latent_wgmma_launches"),
+}
 # The per-head attention kernels' counters: none moves on a latent path.
 PER_HEAD = {f"{m.__name__.rsplit('.', 1)[1]}.{a}": (m, a) for m, a in (
     (pa, "launches"), (pa, "quantized_launches"), (pa, "fused_launches"),
@@ -4937,18 +4955,33 @@ def compare_latent(cases, tag, kind, q, pool, table, lens, num_new=None,
     return err
 
 
+def latent_instance_of(kind, dtype, d):
+    """Which instance a latent wrapper of ``kind`` launches for queries of
+    ``dtype`` over lat_dim ``d``."""
+    if kind == "ragged" and ra.latent_ragged_entry(dtype, d) == (
+            "dli_latent_ragged_wgmma"):
+        return "tensor cores"
+    return "CUDA cores"
+
+
 def latent_cases(rng):
     """15a-d against their plain versions at G = 1, 8, 16 query heads over
     lat_dim 576 and 80: f32 pools with bf16 and f32 queries, int8 pools;
     ``LATENT_RAGGED`` and ``LATENT_DECODE_LENS`` in one B = 8 launch each,
-    pages of 16 and 64, a window of 300 and none (at 64). Returns (name,
-    error, tolerance) cases and the widths each wrapper was held at."""
-    cases, widths = [], {name: set() for name in LATENT_WRAPPERS}
+    pages of 16 and 64, a window of 300 and none (at 64), and at lat_dim
+    576 pages of 6 with the window (the tensor-core instance then copies
+    the pool a row at a time: no page holds a whole piece). The ragged
+    wrappers take bf16 q at 576 on the tensor-core instance, the rest on
+    the CUDA-core kernel. Returns (name, error, tolerance) cases and the
+    widths each wrapper was held at, by query type and instance."""
+    cases = []
+    widths = {name: {"bf16": set(), "f32": set()} for name in LATENT_WRAPPERS}
     rows = {k: i32(v) for k, v in LATENT_RAGGED.items()}
     lens_r = rows["q_start"] + rows["num_new"]
     s = max(LATENT_RAGGED["num_new"])
     for d in (576, 80):
-        for ps, window in ((16, None), (64, None), (64, 300)):
+        for ps, window in ((16, None), (64, None), (64, 300),
+                           *(((6, 300),) if d == 576 else ())):
             width = -(-2048 // ps) + 1
             pages = 8 * width + 1
             pools = latent_pools(rng, pages, ps, d)
@@ -4971,21 +5004,35 @@ def latent_cases(rng):
                             compare_latent(
                                 cases, f"{tag}_{label}", kind, args[0],
                                 *args[1:], sliding_window=window)
-                            widths[kernel.__name__].add(
-                                f"G={g} lat_dim={d}")
-    return cases, {k: sorted(v) for k, v in widths.items()}
+                            widths[kernel.__name__][label.rsplit("_", 1)[1]].add(
+                                f"G={g} lat_dim={d} "
+                                f"({latent_instance_of(kind, dtype, d)})")
+    return cases, {k: {t: sorted(w) for t, w in v.items()}
+                   for k, v in widths.items()}
+
+
+# bf16 passes over the latent that f32-grade products from bf16 hi + lo
+# terms need (one pass: 2 G d operations a (query, position) pair). f32
+# pool: Q K_hi + Q K_lo, then p_hi V_hi + p_hi V_lo + p_lo V_hi (p_lo V_lo
+# is about 2^-32 of the result: not needed, although the tensor-core
+# instance runs it, its hi and lo rows meeting both terms of p in the same
+# k-steps); int8 pool (exact in bf16): Q K, (p vs)_hi V + (p vs)_lo V.
+LATENT_PASSES = {False: 5, True: 3}
 
 
 def latent_bounds(b, s, kv, g, d, q8, causal_rows):
     """Bytes and operations of one latent call: every live latent read
     once (int8: its byte values and its f32 scale), q in and out out (bf16),
     the table; 2 products (K and V are the one latent) of G heads over each
-    visible (query, slot) pair."""
+    visible (query, slot) pair. Returns the bytes, those 2 products'
+    operations (the f32 work of the CUDA-core kernel) and the bf16
+    operations of the passes that f32-grade products on the tensor cores
+    need (``LATENT_PASSES``)."""
     per_slot = d + 4 if q8 else 4 * d
     pairs = causal_rows if causal_rows is not None else b * kv
     bytes_moved = b * kv * per_slot + 2 * b * s * g * d * 2 + b * 64 * 4
     flops = 4 * pairs * g * d
-    return bytes_moved, flops
+    return bytes_moved, flops, LATENT_PASSES[q8] * 2 * pairs * g * d
 
 
 def time_latent(out, cases, rng, flush):
@@ -4995,7 +5042,11 @@ def time_latent(out, cases, rng, flush):
     kernel on one 2048-token prompt. Beside the kernel: its plain version,
     the library call (``scaled_dot_product_attention`` in f32 over the
     gathered, dequantized latent, K = V broadcast to the 16 heads) and the
-    bound (``bound``: f32 operations at the CUDA cores' peak)."""
+    bound: decode, f32 operations at the CUDA cores' peak; the prompt (the
+    tensor-core instance), the bf16 passes that f32-grade products need
+    (``LATENT_PASSES``) at the tensor cores' peak, with
+    the f32 CUDA-core bound beside it and the CUDA-core kernel timed at the
+    same shape."""
     g, d, ps, kv = 16, 576, 64, 2048
     width = kv // ps
     for pool in latent_pools(rng, 8 * width + 1, ps, d):
@@ -5010,7 +5061,7 @@ def time_latent(out, cases, rng, flush):
             lat = pa.gather_pages(c, table)                 # [B, T, 1, D]
             qh = q.float().permute(0, 2, 1, 3).contiguous()
             kh = lat.permute(0, 2, 1, 3).contiguous()
-            bytes_moved, flops = latent_bounds(b, 1, kv, g, d, q8, None)
+            bytes_moved, flops, _ = latent_bounds(b, 1, kv, g, d, q8, None)
             bms, by = bound(bytes_moved, flops, torch.float32)
             entry = {
                 "shape": f"B={b} kv={kv} G={g} lat_dim={d} PS={ps} bf16 q, "
@@ -5042,27 +5093,185 @@ def time_latent(out, cases, rng, flush):
         lat = pa.gather_pages(c, table1)
         qh = q.float().permute(0, 2, 1, 3).contiguous()
         kh = lat.permute(0, 2, 1, 3).contiguous()
-        bytes_moved, flops = latent_bounds(1, s, s, g, d, q8,
-                                           s * (s + 1) // 2)
-        bms, by = bound(bytes_moved, flops, torch.float32)
+        bytes_moved, flops, tc_flops = latent_bounds(1, s, s, g, d, q8,
+                                                     s * (s + 1) // 2)
+        bms, by = bound(bytes_moved, tc_flops, torch.bfloat16)
+        f32_ms, f32_by = bound(bytes_moved, flops, torch.float32)
+        call = (q, *pool, table1, lens1, new1)
+        cargs = (q, pool, table1, lens1, new1)
+        assert latent_instance_of("ragged", q.dtype, d) == "tensor cores"
+        before = getattr(*LATENT_WGMMA[kernel.__name__])
         out[kernel.__name__] = {
             "shape": f"B=1 S={s} G={g} lat_dim={d} PS={ps} bf16 q, {kind}",
+            "instance": "latent_wgmma_kernel (tensor cores)",
             "max_abs_err": compare_latent(
-                cases, f"{tag}_timed", "ragged", q, pool, table1, lens1,
-                new1),
-            "ms": time_ms(lambda: kernel(q, *pool, table1, lens1, new1), 5,
-                          flush),
-            "plain_ms": time_ms(
-                lambda: plain(q, *pool, table1, lens1, new1), 3, flush),
+                cases, f"{tag}_timed", "ragged", *cargs),
+            "ms": time_ms(lambda: kernel(*call), 5, flush),
+            "plain_ms": time_ms(lambda: plain(*call), 3, flush),
             "library_ms": time_ms(lambda: sdpa(qh, kh, kh, True), 5, flush),
+            # the least time of the work: the bf16 passes that f32-grade
+            # products need at the tensor cores' peak; beside it the two
+            # products in f32 at the CUDA cores' peak (the CUDA-core
+            # kernel's work)
             "bound_ms": bms, "bound_by": by, "bytes": bytes_moved,
-            "flops": flops,
+            "flops": tc_flops, "tensor_core_passes": LATENT_PASSES[q8],
+            "bound_ms_tensor_cores": bms,
+            "bound_ms_f32_cuda_cores": f32_ms,
+            "bound_by_f32_cuda_cores": f32_by, "flops_f32": flops,
+            "launches_a_call": launches_a_call(lambda: kernel(*call)),
         }
+        out[kernel.__name__]["tensor_core_launches_timed"] = (
+            getattr(*LATENT_WGMMA[kernel.__name__]) - before)
+        # The CUDA-core kernel at the same shape, in the same call (its
+        # entry still takes bf16 q at 576; the wrapper sends that to the
+        # tensor-core instance).
+        saved = ra.latent_ragged_entry
+        ra.latent_ragged_entry = lambda dtype, dim: "dli_latent_ragged_attention"
+        try:
+            out[kernel.__name__]["cuda_core_kernel"] = {
+                "max_abs_err": compare_latent(
+                    cases, f"cuda_cores_{tag}_timed", "ragged", *cargs),
+                "ms": time_ms(lambda: kernel(*call), 5, flush)}
+        finally:
+            ra.latent_ragged_entry = saved
         del lat, kh, c
+
+
+# The tensor-core instance's precision, on data that shows it: q unscaled
+# (N(0, 1)), latents N(0, 8^2) and a scale of 1/96, so scores spread by
+# about 2 (a few positions carry a query) and the short rows' outputs reach
+# |out| >= 4 (2-4% of all), where one bf16 step (2^-5) is past the 2e-2
+# tolerance.
+# (G, page size, window) over ``LATENT_RAGGED``'s rows, both pools; then
+# the 2048-token prompt at 16 heads.
+LATENT_PRECISION = {"q": 1.0, "latent": 8.0, "scale": 1 / 96,
+                    "cases": ((16, 64, None), (16, 16, 300), (8, 64, 300),
+                              (1, 16, None))}
+
+
+def bf16_steps(got, want):
+    """``|got - want|`` per element in bf16 steps of ``max(|want|, rms /
+    16)`` (rms: the root mean square of want over its query head's row, so
+    that an element near zero is held to its row's scale, not to a step
+    that no f32 product can meet); rows of zeros left out. Returns the
+    largest, and the largest beyond the correctly rounded value (``|got -
+    want| - |bf16(want) - want|``, 0 where got is want rounded)."""
+    got, want = got.double(), want.double()
+    rms = want.pow(2).mean(-1, keepdim=True).sqrt()
+    ref = torch.maximum(want.abs(), rms / 16).clamp_min(1e-30)
+    step = torch.exp2(torch.floor(torch.log2(ref)) - 7)
+    live = (rms > 0).expand_as(want)
+    err = (got - want).abs() / step
+    rounded = (want.to(torch.bfloat16).double() - want).abs() / step
+    return float(err[live].max()), float((err - rounded)[live].max())
+
+
+def latent_one_pass(q, pool, table, lens, num_new, scale, window):
+    """What a one-pass bf16 kernel would compute: the plain version's f32
+    math with each product operand rounded once to bf16 (f32 pool: the
+    latent, as K and as V; both pools: p * vs before P V; l sums p). The
+    control that the precision check must fail. Output in q's type."""
+    b, s = q.shape[:2]
+    lat = pa.gather_pages(pool[0], table).float()[:, :, 0]     # [B, T, D]
+    if len(pool) == 1:
+        lat = lat.to(torch.bfloat16).float()
+    scores = torch.einsum("bsgd,btd->bgst", q.float(), lat)
+    vs = None
+    if len(pool) == 2:
+        vs = pa.gather_scales(pool[1], table)[:, :, 0]         # [B, T]
+        scores = scores * vs[:, None, None, :]
+    scores = scores * scale
+    rel = torch.arange(s, device=DEV)
+    qpos = (lens - num_new)[:, None] + rel[None]
+    pos = torch.arange(lat.shape[1], device=DEV)[None, None]
+    valid = ((pos < lens[:, None, None]) & (pos <= qpos[:, :, None])
+             & (rel[None, :, None] < num_new[:, None, None]))
+    if window:
+        valid = valid & (pos > qpos[:, :, None] - window)
+    valid = valid[:, None]
+    scores = torch.where(valid, scores, -torch.inf)
+    m = scores.amax(-1, keepdim=True).clamp_min(-1e30)
+    p = torch.where(valid, torch.exp(scores - m), 0.0)
+    l = p.sum(-1, keepdim=True)
+    if vs is not None:
+        p = p * vs[:, None, None, :]
+    out = torch.einsum("bgst,btd->bsgd", p.to(torch.bfloat16).float(), lat)
+    return (out / l.clamp_min(1e-20).permute(0, 2, 1, 3)).to(q.dtype)
+
+
+def latent_precision(rng):
+    """The tensor-core instance against the plain version's f32 output
+    (f32 queries: the same math, unrounded) on ``LATENT_PRECISION``'s data,
+    per element within one bf16 step (``bf16_steps``); beside it the one-pass
+    control (``latent_one_pass``), which must miss that step, held against
+    the same f32 output. Returns {wrapper: report}."""
+    cfg = LATENT_PRECISION
+    d = 576
+    rows = {k: i32(v) for k, v in LATENT_RAGGED.items()}
+    lens_r = rows["q_start"] + rows["num_new"]
+    s_r = max(LATENT_RAGGED["num_new"])
+    out = {}
+    for g, ps, window, shape in (
+            *((g, ps, w, "ragged") for g, ps, w in cfg["cases"]),
+            (16, 64, None, "prompt")):
+        b, s = (8, s_r) if shape == "ragged" else (1, 2048)
+        width = -(-2048 // ps) + 1
+        pages = b * width + 1
+        c = normal(rng, (pages, 1, ps, d), torch.float32) * cfg["latent"]
+        q8, s8 = _quantize_kv(c)
+        table = make_table(rng, b, width, pages)
+        if shape == "ragged":
+            lens, new = lens_r, rows["num_new"]
+        else:
+            lens, new = i32([s]), i32([s])
+        q = normal(rng, (b, s, g, d), torch.bfloat16) * cfg["q"]
+        for pool in ((c,), (q8.contiguous(), s8.contiguous())):
+            tag, kernel, plain = latent_fns(pool, "ragged")
+            assert latent_instance_of("ragged", q.dtype, d) == "tensor cores"
+            kw = {"scale": cfg["scale"], "sliding_window": window}
+            got = kernel(q, *pool, table, lens, new, **kw)
+            want = plain(q.float(), *pool, table, lens, new, **kw)
+            ctl = latent_one_pass(q, pool, table, lens, new, cfg["scale"],
+                                  window)
+            torch.cuda.synchronize()
+            pad = torch.arange(s, device=DEV)[None, :] >= new[:, None]
+            if bool(pad.any()):
+                assert float(got[pad].abs().max()) == 0.0
+            err, beyond = bf16_steps(got, want)
+            ctl_err, ctl_beyond = bf16_steps(ctl, want)
+            label = f"{shape}_g{g}_ps{ps}_w{window}"
+            big = float((want.abs() >= 4).float().mean())
+            assert big > 0, (tag, label, "no |out| >= 4")
+            assert err <= 1.0, (
+                f"{tag} {label}: {err} bf16 steps from the f32 output")
+            assert ctl_err > 1.0 and ctl_err >= 4 * err, (
+                f"{tag} {label}: the one-pass control {ctl_err} steps, the "
+                f"kernel {err}: the check cannot tell them apart")
+            rep = out.setdefault(kernel.__name__, {
+                "data": {k: v for k, v in cfg.items() if k != "cases"},
+                "limit_bf16_steps": 1.0, "cases": {}})
+            rep["cases"][label] = {
+                "bf16_steps": err, "beyond_rounding": beyond,
+                "one_pass_bf16_steps": ctl_err,
+                "one_pass_beyond_rounding": ctl_beyond,
+                "share_abs_out_ge_4": big,
+                "max_abs_err": max_err(got, want),
+                "one_pass_max_abs_err": max_err(ctl, want)}
+            del got, want, ctl
+    for rep in out.values():
+        cases = rep["cases"].values()
+        rep["max_bf16_steps"] = max(c["bf16_steps"] for c in cases)
+        rep["min_one_pass_bf16_steps"] = min(
+            c["one_pass_bf16_steps"] for c in cases)
+    return out
 
 
 def latent_instance(mangled):
     """The latent kernels' instances by their template arguments."""
+    m = re.search(r"latent_wgmma_kernelI([af])E", mangled)
+    if m:
+        pool = "int8" if m.group(1) == "a" else "f32"
+        return f"latent_wgmma_kernel ragged {pool} D=576 (tensor cores)"
     m = re.search(r"latent_kernelI([af])Li(\d+)ELi(\d+)ELb([01])E", mangled)
     if m:
         pool = "int8" if m.group(1) == "a" else "f32"
@@ -5074,10 +5283,18 @@ def latent_instance(mangled):
     return None
 
 
+WGMMA_PLAN_KEYS = ("query_tiles", "queries_a_block", "threads",
+                   "smem_bytes", "stages", "pieces", "piece_positions",
+                   "step")
+
+
 def latent_smem():
     """Dynamic shared memory of each latent block, as the C side sizes it
-    (``dli_latent_smem_bytes``), against the 227 KB a block may have."""
-    fn = _build.load_library("latent_attention").dli_latent_smem_bytes
+    (``dli_latent_smem_bytes``; the tensor-core instance's from
+    ``dli_latent_wgmma_plan``, which must equal the wrapper's
+    ``latent_wgmma_plan``), against the 227 KB a block may have."""
+    lib = _build.load_library("latent_attention")
+    fn = lib.dli_latent_smem_bytes
     fn.argtypes = [ctypes.c_int] * 4
     fn.restype = ctypes.c_longlong
     out = {}
@@ -5088,6 +5305,18 @@ def latent_smem():
                 assert 0 < n <= 232448, (d, q8, g, form, n)
                 out[f"{'decode' if form else 'ragged'} "
                     f"{'int8' if q8 else 'f32'} D={d} G<={g}"] = n
+    plan = lib.dli_latent_wgmma_plan
+    plan.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    plan.restype = ctypes.c_int
+    for q8 in (0, 1):
+        for s, g in ((2048, 16), (300, 16), (300, 8), (300, 3), (300, 1)):
+            got = (ctypes.c_longlong * len(WGMMA_PLAN_KEYS))()
+            assert plan(s, g, q8, ctypes.addressof(got)) == 0
+            want = ra.latent_wgmma_plan(s, g, bool(q8))
+            assert list(got) == [want[k] for k in WGMMA_PLAN_KEYS], (
+                list(got), want)
+            assert 0 < got[3] <= 232448
+        out[f"ragged {'int8' if q8 else 'f32'} D=576 (tensor cores)"] = got[3]
     return out
 
 
@@ -5100,8 +5329,13 @@ def phase_latent_kernels(flush):
     torch.backends.cuda.matmul.allow_tf32 = False
     t0 = time.perf_counter()
     resources = ptxas_lines(_build.ptxas_log("latent_attention"),
-                            latent_instance, 22)
+                            latent_instance, 24)
+    for name, lines in resources.items():
+        if "tensor cores" in name:
+            assert any("0 bytes spill stores, 0 bytes spill loads" in x
+                       for x in lines), (name, lines)
     cases, widths = latent_cases(np.random.default_rng(2468))
+    precision = latent_precision(np.random.default_rng(97531))
     timed = {}
     time_latent(timed, cases, np.random.default_rng(1357), flush)
     assert_cases(cases, "latent")
@@ -5115,6 +5349,12 @@ def phase_latent_kernels(flush):
         form = f"{'ragged' if ragged else 'decode'} {'int8' if q8 else 'f32'}"
         entry["ptxas"] = {k: v for k, v in resources.items()
                           if form in k or (not ragged and "merge" in k)}
+        if ragged:
+            entry["precision"] = precision[name]
+            entry["instances"] = {
+                "bf16 q, lat_dim 576": "latent_wgmma_kernel (tensor cores)",
+                "f32 q, lat_dim 576 and 80; bf16 q, lat_dim 80":
+                    "latent_kernel (CUDA cores)"}
     emit({"phase": "latent_kernels", "card": CARD,
           "tolerance": {"bf16 q": TOL[torch.bfloat16],
                         "f32 q": TOL[torch.float32], "m": 1e-4,
@@ -5125,15 +5365,20 @@ def phase_latent_kernels(flush):
     return timed, widths
 
 
-def run_latent(label, cfg, params, ckw, counters):
+def run_latent(label, cfg, params, ckw, counters, wgmma):
     """The smoke's traffic (``MIXED``: 12 greedy prompts of 30-1500 tokens,
     a 3000-token one, two sampled, a cancel, 32 new each) through the
     engine on a latent pool at its default ``decode_steps`` (1: no
     write-behind tail), the latent wrappers' counters zeroed before and
     read after; no per-head attention kernel and no plain version (nor the
-    gather path) may run. Then a decode tick and a prefill dispatch
-    profiled (the device's idle share). Returns (report, launches)."""
+    gather path) may run, and the ragged wrapper's launches must all be the
+    tensor-core instance's (``wgmma``: its count). Then a decode tick and a
+    prefill dispatch profiled (the device's idle share; the prefill's latent
+    kernel ms, one tensor-core launch a layer). Returns (report,
+    launches)."""
     watch = {**PER_HEAD, **LATENT_WRAPPERS}
+    for module, attr in wgmma.values():
+        setattr(module, attr, 0)
     plain_calls = {"ragged._plain": 0, "paged._plain": 0, "gather": 0}
 
     def counting(key, fn):
@@ -5176,6 +5421,11 @@ def run_latent(label, cfg, params, ckw, counters):
             setattr(obj, name, fn)
     got = {n: getattr(m, a) for n, (m, a) in watch.items()}
     launches = {n: got[n] for n in counters}
+    tensor_core = {n: getattr(m, a) for n, (m, a) in wgmma.items()}
+    for name, n in tensor_core.items():
+        assert n == launches[name] > 0, (
+            f"{label}: {name} launched {launches[name]}, of them {n} on the "
+            f"tensor-core instance")
     check_streams(streams, cancelled, MIXED["new_tokens"], cfg.vocab_size)
     assert engine.allocator.free_count == 2048 - 1, "pages leaked"
     for name, n in launches.items():
@@ -5198,6 +5448,7 @@ def run_latent(label, cfg, params, ckw, counters):
         "model": f"deepseek-v2-lite widths, {cfg.num_layers} layers, random "
                  f"bf16 weights",
         "cuts": LATENT_CUTS, "launches": launches,
+        "tensor_core_launches": tensor_core,
         "per_head_attention_launches": 0, "plain_or_gather_calls": 0,
         "engine_init_s": build_s, "wall_s": wall,
         "generated_tokens": sum(len(s) for s in streams),
@@ -5219,6 +5470,19 @@ def run_latent(label, cfg, params, ckw, counters):
     report["decode_profile"] = profile_decode(cfg, params, {}, ckw, counters)
     report["prefill_profile"] = profile_prefill(cfg, params, {}, ckw,
                                                 counters)
+    # The prefill's latent kernel as the profiler saw it (the counts above
+    # are the proof of the route: the profiler drops records at times).
+    prof = report["prefill_profile"]
+    latent = prof["attention_kernels"].get("latent_wgmma_kernel")
+    assert "latent_kernel" not in prof["attention_kernels"], (
+        f"{label}: the prefill ran the CUDA-core kernel")
+    report["prefill_latent_kernel"] = latent
+    if latent is not None:
+        report["prefill_latent_kernel_share"] = (
+            latent["ms"] / prof["device_ms"])
+        print(f"{label}: prefill [1, 2048] latent_wgmma_kernel "
+              f"{latent['ms']:.6f} ms ({latent['launches']} launches) of "
+              f"{prof['device_ms']:.6f} device ms", flush=True)
     emit(report)
     return report, launches
 
@@ -5228,23 +5492,25 @@ def phase_latent():
     config.json restated, ``LATENT_CUTS`` listed) at its 27 layers with
     random bf16 weights (about 2.6 B parameters), over the f32 latent pool
     (#15a, #15c) and over the int8 one (#15b, #15d). Returns launches by
-    wrapper."""
+    wrapper and, of the ragged ones, the tensor-core instance's."""
     cfg = DEEPSEEK_V2_LITE
     assert cfg.family == "mla" and cfg.latent.lat_dim == 576
     assert cfg.num_heads == 16 and cfg.num_experts == 0
     params = llama.init_params(cfg, torch.Generator(device=DEV).manual_seed(6),
                                torch.bfloat16, DEV)
-    launches = {}
+    launches, tensor_core = {}, {}
     for label, ckw, counters in (
             ("deepseek_v2_lite_f32latent_pages: bf16 weights, f32 latent "
              "pages, K=1", {}, LATENT_F32),
             ("deepseek_v2_lite_int8latent_pages: bf16 weights, int8 latent "
              "pages, K=1", {"kv_quant": "int8"}, LATENT_INT8)):
-        _, got = run_latent(label, cfg, params, ckw, counters)
+        wgmma = {n: LATENT_WGMMA[n] for n in counters if n in LATENT_WGMMA}
+        report, got = run_latent(label, cfg, params, ckw, counters, wgmma)
         launches.update(got)
+        tensor_core.update(report["tensor_core_launches"])
     del params
     torch.cuda.empty_cache()
-    return launches
+    return launches, tensor_core
 
 
 def phase_parity_latent():
@@ -5373,15 +5639,16 @@ def main() -> int:
     launches = phase_engine()
     phase_families()
     width_launches = phase_widths()
-    latent_launches = phase_latent()
+    latent_launches, tensor_core_launches = phase_latent()
     phase_parity()
     phase_parity_families()
     phase_parity_widths()
     phase_parity_latent()
     timed.update(latent_timed)
     launches.update(latent_launches)
-    checked.update({name: {"bf16": w, "f32": w}
-                    for name, w in latent_widths.items()})
+    for name, n in tensor_core_launches.items():
+        timed[name]["tensor_core_launches"] = n
+    checked.update(latent_widths)
     assert set(timed) == set(REPLACES) == set(launches), (
         sorted(timed), sorted(launches))
     emit({"kernels": [
@@ -5393,6 +5660,13 @@ def main() -> int:
          "library_ms": k["library_ms"], "shape": k["shape"],
          "launches_on_the_width_paths": width_launches.get(name, 0),
          "widths_checked": checked[name],
+         **{key: k[key] for key in (
+             "instances", "tensor_core_launches", "bound_ms_f32_cuda_cores",
+             "cuda_core_kernel") if key in k},
+         **({"precision_bf16_steps": {
+             "max": k["precision"]["max_bf16_steps"],
+             "one_pass_control_min": k["precision"][
+                 "min_one_pass_bf16_steps"]}} if "precision" in k else {}),
          "at_widths": {w: {key: e[key] for key in (
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms", "shape")} for w, e in k.get("at_widths", {}).items()}}

@@ -7,7 +7,9 @@
 // prefill, on the same blocks as the ragged kernels) and fused_decode.cuh
 // (the fused decode step over the page pool, one cluster a (row, kv head))
 // and int4_matmul.cu (the int4 matmul's bf16 instance: a TMA ring of packed
-// tiles, the split over input rows summed in a cluster).
+// tiles, the split over input rows summed in a cluster) and
+// latent_attention.cu (the ragged latent kernel's tensor-core instance:
+// bulk copies of latent rows, one swizzled tile read as K and as V).
 //
 // Tensor maps are encoded with cuTensorMapEncodeTiled, reached through
 // cudaGetDriverEntryPoint: the libraries link only the CUDA runtime, never
@@ -410,6 +412,69 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs_tb(float (&d)[32],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
+// D[64 x 32] += A[64 x 16] B[32 x 16]^T, both K-major in shared memory
+// (the latent kernel's scores over a step's 32 tile rows): d[4j..4j+3] at
+// columns 8j + 2t, 8j + 2t + 1 of rows g and g + 8, j < 4.
+__device__ __forceinline__ void wgmma_m64n32k16_ss(float (&d)[16],
+                                                   uint64_t desc_a,
+                                                   uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, %16, %17, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : HOPPER_D8(0), HOPPER_D8(8)
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
+// As wgmma_m64n32k16_ss, D = A B (reads nothing of d).
+__device__ __forceinline__ void wgmma_m64n32k16_ss_first(float (&d)[16],
+                                                         uint64_t desc_a,
+                                                         uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, %16, %17, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : HOPPER_O8(0), HOPPER_O8(8)
+      : "l"(desc_a), "l"(desc_b), "r"(0));
+}
+
+#define HOPPER_R96                                                      \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "  \
+  "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "   \
+  "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "   \
+  "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "   \
+  "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, "   \
+  "%67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "   \
+  "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, "   \
+  "%93, %94, %95}"
+
+// As wgmma_m64n128k16_rs_tb, 192 columns wide (three 64-column blocks of
+// an MN-major B, LBO apart: a third of the latent's 576): d[4j..4j+3] at
+// columns 8j + 2t, 8j + 2t + 1, j < 24.
+__device__ __forceinline__ void wgmma_m64n192k16_rs_tb(float (&d)[96],
+                                                       const uint32_t (&a)[4],
+                                                       uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 " HOPPER_R96
+      ", {%96, %97, %98, %99}, %100, p, 1, 1, 1;\n"
+      "}\n"
+      : HOPPER_D64, HOPPER_D8(64), HOPPER_D8(72), HOPPER_D8(80),
+        HOPPER_D8(88)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+#undef HOPPER_R96
 #undef HOPPER_D32
 #undef HOPPER_R32
 #undef HOPPER_D8

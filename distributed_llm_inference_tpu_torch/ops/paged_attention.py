@@ -491,6 +491,7 @@ def latent_kernel(symbol: str):
         fn = getattr(_build.load_library("latent_attention"), symbol)
         pointers, ints, after = {
             "dli_latent_ragged_attention": (8, 6, 2),
+            "dli_latent_ragged_wgmma": (8, 6, 2),
             "dli_latent_paged_attention": (12, 7, 2),
         }[symbol]
         fn.argtypes = [ctypes.c_void_p] * pointers + [ctypes.c_int] * ints + [

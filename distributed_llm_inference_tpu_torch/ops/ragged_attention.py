@@ -62,6 +62,10 @@ __all__ = [
     "quantized_latent_ragged_paged_attention_plain",
     "latent_launches",
     "quantized_latent_launches",
+    "latent_ragged_entry",
+    "latent_wgmma_plan",
+    "latent_wgmma_launches",
+    "quantized_latent_wgmma_launches",
 ]
 
 # Kernel launches made by :func:`ragged_paged_attention` /
@@ -72,6 +76,9 @@ quantized_launches = 0
 # :func:`quantized_latent_ragged_paged_attention`.
 latent_launches = 0
 quantized_latent_launches = 0
+# ... of them, those of the tensor-core instance (bf16 q at lat_dim 576).
+latent_wgmma_launches = 0
+quantized_latent_wgmma_launches = 0
 
 _fn = {}
 
@@ -426,8 +433,58 @@ def quantized_latent_ragged_paged_attention_plain(
                   q_start, scale, sliding_window, cs_pages, cs_pages)
 
 
+# The tensor-core instance (``latent_wgmma_kernel``): bf16 queries at this
+# lat_dim (DeepSeek-V2/V3's 512 + 64), 64 score rows a block.
+WGMMA_LAT_DIM = 576
+_WGMMA_ROWS, _WGMMA_WGS, _WGMMA_TILE_ROWS = 64, 3, 32
+
+
+def latent_ragged_entry(dtype: torch.dtype, lat_dim: int) -> str:
+    """The C entry of ``csrc/latent_attention.cu`` that takes ragged
+    latent attention for queries of ``dtype`` over a latent of ``lat_dim``:
+    the tensor-core instance for bf16 at lat_dim 576, else the CUDA-core
+    kernel (f32 queries, which the engine's exact-stream checks need, and
+    lat_dim 80). Widths neither takes are refused before this is asked."""
+    if dtype == torch.bfloat16 and lat_dim == WGMMA_LAT_DIM:
+        return "dli_latent_ragged_wgmma"
+    return "dli_latent_ragged_attention"
+
+
+def latent_wgmma_plan(seq: int, group: int, quantized: bool) -> dict:
+    """The tensor-core instance's launch as ``csrc/latent_attention.cu``
+    makes it (its ``dli_latent_wgmma_plan`` reports the same numbers): a
+    block holds 64 score rows, ``64 >> gshift`` queries of
+    ``rows_per_query(group)`` rows each (padding heads are zeros, never
+    written); the grid's x is the query tiles, launched last tile first;
+    three consumer warpgroups own 192 of the 576 columns each (their third
+    of Q K^T's depth and of P V's columns) and a producer warpgroup feeds
+    them a tile of 32 rows a step: 32 positions of the int8 pool, or 16 of
+    the f32 pool as a hi and a lo row each. The shared memory is Q, the
+    ring of converted tiles, the raw ring the bulk copies land in (pieces
+    of 9216 bytes), the partial scores, the int8 scales (each converted
+    stage's K and V scales, each raw piece's) and the barriers."""
+    gshift = (group - 1).bit_length()
+    per = _WGMMA_ROWS >> gshift
+    d = WGMMA_LAT_DIM
+    step = _WGMMA_TILE_ROWS if quantized else _WGMMA_TILE_ROWS // 2
+    stages = 3
+    piece, pieces = (16, 2) if quantized else (4, 3)
+    row_bytes = d * (1 if quantized else 4)
+    smem = (_WGMMA_ROWS * d * 2 + stages * _WGMMA_TILE_ROWS * d * 2
+            + pieces * piece * row_bytes
+            + _WGMMA_WGS * 128 * 2 * (step // 4) * 4
+            + ((2 * stages * step + pieces * piece) * 4 if quantized else 0)
+            + (2 * pieces + 2 * stages) * 8)
+    return {"query_tiles": -(-seq // per), "queries_a_block": per,
+            "threads": (_WGMMA_WGS + 1) * 128, "smem_bytes": smem,
+            "stages": stages, "pieces": pieces, "piece_positions": piece,
+            "step": step, "rows_per_query": 1 << gshift,
+            "columns_a_warpgroup": d // _WGMMA_WGS}
+
+
 def _latent_launch(name, q, c_pages, cs_pages, page_table, kv_lengths,
                    num_new, q_start, scale, sliding_window):
+    global latent_wgmma_launches, quantized_latent_wgmma_launches
     if q_start is None:
         q_start = kv_lengths - num_new
     code = check_latent_inputs(
@@ -435,11 +492,15 @@ def _latent_launch(name, q, c_pages, cs_pages, page_table, kv_lengths,
         (("kv_lengths", kv_lengths), ("num_new", num_new),
          ("q_start", q_start)), cs_pages)
     b, s, g, d = q.shape
+    entry = latent_ragged_entry(q.dtype, d)
+    if entry == "dli_latent_ragged_wgmma" and c_pages.data_ptr() % 16:
+        # the bulk copies read pool rows from 16-byte aligned addresses
+        raise ValueError(f"{name}: c_pages must be 16-byte aligned")
     if scale is None:
         scale = d**-0.5
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
-        err = latent_kernel("dli_latent_ragged_attention")(
+        err = latent_kernel(entry)(
             q.data_ptr(), c_pages.data_ptr(),
             None if cs_pages is None else cs_pages.data_ptr(),
             page_table.data_ptr(), kv_lengths.data_ptr(), q_start.data_ptr(),
@@ -450,6 +511,11 @@ def _latent_launch(name, q, c_pages, cs_pages, page_table, kv_lengths,
         )
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed ({err})")
+    if entry == "dli_latent_ragged_wgmma":
+        if cs_pages is None:
+            latent_wgmma_launches += 1
+        else:
+            quantized_latent_wgmma_launches += 1
     return out
 
 
@@ -473,8 +539,11 @@ def latent_ragged_paged_attention(
     otherwise the arguments are :func:`ragged_paged_attention`'s. Output
     ``[B, S, Hq, lat_dim]`` in q's type, pad queries zeroed; all the
     arithmetic is f32. On the card, ``csrc/latent_attention.cu`` (lat_dim
-    576 or 80, 1 to 16 query heads). ``block_q`` is accepted for signature
-    parity with the JAX function."""
+    576 or 80, 1 to 16 query heads): bf16 queries at lat_dim 576 on the
+    tensor cores, with f32-grade products from bf16 hi + lo terms
+    (:func:`latent_wgmma_plan`), f32 queries and lat_dim 80 on the CUDA
+    cores (:func:`latent_ragged_entry`). ``block_q`` is accepted for
+    signature parity with the JAX function."""
     global latent_launches
     del block_q
     if q.device.type == "cpu":

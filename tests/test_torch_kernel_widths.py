@@ -3,8 +3,10 @@ wrapper launches its kernel for 1 to 8 query heads a kv head at head_dim 64
 and 128, passes those widths to the C entry, and raises for 9 query heads a
 kv head (naming ROADMAP.md queue 1, item 18) and for head_dim 96 and 256;
 the four latent wrappers take 1, 8 and 16 query heads over lat_dim 576 and
-80 and raise for 17 and 128 heads (item 19) and lat_dim 64; no call of a
-tensor on the card ever takes the plain version. And the engine refuses
+80 and raise for 17 and 128 heads (item 19) and lat_dim 64, the ragged ones
+through the tensor-core entry for bf16 q at lat_dim 576 and the CUDA-core
+one for f32 q and lat_dim 80; no call of a tensor on the card ever takes
+the plain version. And the engine refuses
 such a model, per-head or latent, when it is built on the card.
 
 No card here: the tensors are CPU tensors that report a CUDA device
@@ -323,12 +325,13 @@ LATENT_WRAPPERS = {
 }
 
 
-def _latent(name, g, d, window=None):
+def _latent(name, g, d, window=None, dtype=torch.bfloat16):
     """One call of the latent wrapper ``name``: 2 rows over pages of 16,
-    bf16 queries (3 a row on the ragged ones)."""
+    bf16 queries unless ``dtype`` says otherwise (3 a row on the ragged
+    ones)."""
     q8 = name.startswith("quantized")
     ragged = "ragged" in name
-    q = _zeros((B, 3 if ragged else 1, g, d), torch.bfloat16)
+    q = _zeros((B, 3 if ragged else 1, g, d), dtype)
     pools = ((_zeros((9, 1, PS, d), torch.int8), _zeros((9, 1, PS)))
              if q8 else (_zeros((9, 1, PS, d)),))
     table, lens = _i32([[1, 2, 3, 4], [5, 6, 7, 8]]), _i32([40, 3])
@@ -348,7 +351,9 @@ LATENT_WIDTHS = [(16, 576), (1, 576), (8, 80)]
 def test_latent_wrappers_launch_on_the_card(card, name, g, d):
     """One C call of ``csrc/latent_attention.cu`` with the widths, the
     window and the scale plane (null over the f32 pool), one launch
-    counted; decode rows of 64 table positions take one split each."""
+    counted; decode rows of 64 table positions take one split each. The
+    ragged wrappers take the tensor-core entry for bf16 q at lat_dim 576,
+    the CUDA-core one at lat_dim 80."""
     mod, counter = LATENT_WRAPPERS[name]
     before = getattr(mod, counter)
     out = _latent(name, g, d, window=300)
@@ -357,13 +362,58 @@ def test_latent_wrappers_launch_on_the_card(card, name, g, d):
     assert getattr(mod, counter) == before + 1
     (symbol, args), = card.calls
     if "ragged" in name:
-        assert symbol == "dli_latent_ragged_attention"
+        assert symbol == ("dli_latent_ragged_wgmma" if d == 576
+                          else "dli_latent_ragged_attention")
         assert args[8:14] == (B, 3, g, d, PS, 4)  # B S G D PS Tw
     else:
         assert symbol == "dli_latent_paged_attention"
         assert args[12:19] == (B, g, d, PS, 4, 1, 64)  # ... splits chunk
     assert args[-3:-1] == (300, 0)  # the window, bf16
     assert (args[2] is None) == (not name.startswith("quantized"))
+
+
+# (query dtype, lat_dim) -> the ragged C entry: the tensor-core instance
+# takes bf16 at 576 only; f32 q (the exact-stream checks) and lat_dim 80
+# keep the CUDA-core kernel.
+LATENT_ROUTES = [
+    (torch.bfloat16, 576, "dli_latent_ragged_wgmma"),
+    (torch.float32, 576, "dli_latent_ragged_attention"),
+    (torch.bfloat16, 80, "dli_latent_ragged_attention"),
+    (torch.float32, 80, "dli_latent_ragged_attention"),
+]
+
+
+@pytest.mark.parametrize("dtype,d,symbol", LATENT_ROUTES,
+                         ids=[f"{str(t)[6:]}_d{d}" for t, d, _ in
+                              LATENT_ROUTES])
+@pytest.mark.parametrize("g", [1, 16])
+@pytest.mark.parametrize("name", ["latent_ragged_paged_attention",
+                                  "quantized_latent_ragged_paged_attention"])
+def test_latent_ragged_routes_by_query_dtype_and_lat_dim(card, name, g,
+                                                        dtype, d, symbol):
+    """The ragged latent wrappers pick their C entry from (q's dtype,
+    lat_dim) alone, over either pool: one call, the dtype code passed, q's
+    dtype out, one launch counted, no plain version."""
+    mod, counter = LATENT_WRAPPERS[name]
+    before = getattr(mod, counter)
+    out = _latent(name, g, d, dtype=dtype)
+    assert out.dtype == dtype and out.shape == (B, 3, g, d)
+    assert getattr(mod, counter) == before + 1
+    (got, args), = card.calls
+    assert got == symbol == tra.latent_ragged_entry(dtype, d)
+    assert args[-2] == (0 if dtype == torch.bfloat16 else 1)
+    assert (args[2] is None) == (not name.startswith("quantized"))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("g,d", [(17, 576), (16, 64)])
+def test_latent_ragged_refuses_widths_neither_instance_takes(card, g, d,
+                                                             dtype):
+    """Neither the tensor-core instance nor the CUDA-core kernel takes 17
+    heads or lat_dim 64: the wrapper raises before any C call."""
+    with pytest.raises(ValueError, match="item 19|lat_dim 576"):
+        _latent("latent_ragged_paged_attention", g, d, dtype=dtype)
+    assert card.calls == []
 
 
 LATENT_REFUSED = [(17, 576, r"ROADMAP\.md queue 1, item 19"),

@@ -98,16 +98,19 @@ one line per engine configuration or comparison):
               prompt, a 129-query chunk from 1500, an empty row, one slot,
               a page edge, a decode token) and of `LATENT_DECODE_LENS`,
               pages of 16 and 64, a window of 300 and none, m and l beside
-              the output (the ragged wrappers with bf16 q at 576 on the
-              tensor-core instance, `latent_wgmma_kernel`, the rest on the
-              CUDA-core kernel); the instance's precision
-              (`latent_precision`: unscaled q over latents of 8, every
-              element within one bf16 step of the plain version's f32
-              output, a one-pass bf16 control that must miss it); timed at DeepSeek-V2-Lite's shapes (decode
-              at B = 8 and 1 over 2048 tokens, a 2048-token prompt) beside
-              their plain versions, SDPA over the gathered latent and the
-              bound (the prompt: the tensor-core passes' bound and the f32
-              CUDA-core one, and the CUDA-core kernel timed beside the
+              the output (bf16 q at 576 on the tensor-core instances,
+              `latent_wgmma_kernel` for the ragged wrappers and
+              `latent_decode_tc_kernel` for the decode ones, their counts
+              checked case by case; the rest on the CUDA-core kernel); the
+              instances' precision (`latent_precision`: unscaled q over
+              latents of 8, every element within one bf16 step of the plain
+              version's f32 output, a one-pass bf16 control that must miss
+              it, ragged and decode, both pools); timed at DeepSeek-V2-Lite's
+              shapes (decode at B = 8 and 1 over 2048 tokens, one launch a
+              call, a 2048-token prompt) beside their plain versions, SDPA
+              over the gathered latent and the bound (the bytes against
+              the tensor-core passes', and the f32 CUDA-core one beside it;
+              the CUDA-core kernel timed in the same call beside the
               tensor-core one); `-Xptxas -v` of every latent instance (0
               spills asserted for the tensor-core ones), each block's
               shared memory, the tensor-core launch plan against the
@@ -213,8 +216,8 @@ one line per engine configuration or comparison):
               27 layers, bf16 weights, less what `LATENT_CUTS` lists) at
               K = 1 on the same traffic: tokens/s, prefill and tick ms,
               `kv_bytes_per_token`, `latent_decompress_dispatches`, the
-              latent wrappers' launches (> 0, every ragged one on the
-              tensor-core instance), no per-head attention kernel, no
+              latent wrappers' launches (> 0, every one on a tensor-core
+              instance), no per-head attention kernel, no
               plain version and no gather, a decode tick and a prefill
               profiled (the idle share; the prefill's latent kernel ms,
               one launch a layer).
@@ -2805,7 +2808,8 @@ PASS_KERNELS = ("fused_scores_kernel", "fused_sums_kernel",
 ATTENTION_KERNELS = ("fused_cluster_kernel", "paged_decode_kernel",
                      *PASS_KERNELS, "paged_partial_kernel",
                      "paged_combine_kernel", "latent_kernel",
-                     "latent_merge_kernel", "latent_wgmma_kernel")
+                     "latent_merge_kernel", "latent_wgmma_kernel",
+                     "latent_decode_tc_kernel")
 # The int4 matmul's kernels: bf16 x (one launch a call), f32 x (the
 # CUDA-core kernel, with the combine of its split partials).
 INT4_KERNELS = ("int4_mma_kernel", "int4_matmul_kernel", "int4_combine_kernel")
@@ -4878,12 +4882,16 @@ LATENT_F32 = {k: LATENT_WRAPPERS[k] for k in (
 LATENT_INT8 = {k: LATENT_WRAPPERS[k] for k in (
     "quantized_latent_ragged_paged_attention",
     "quantized_latent_paged_attention")}
-# The tensor-core instance's own counts (bf16 q at lat_dim 576), beside its
-# wrapper's.
-LATENT_WGMMA = {
+# The tensor-core instances' own counts (bf16 q at lat_dim 576), beside
+# their wrappers': the ragged ones' `latent_wgmma_kernel`, the decode ones'
+# `latent_decode_tc_kernel`.
+LATENT_TENSOR_CORES = {
     "latent_ragged_paged_attention": (ra, "latent_wgmma_launches"),
     "quantized_latent_ragged_paged_attention": (
         ra, "quantized_latent_wgmma_launches"),
+    "latent_paged_attention": (pa, "latent_decode_tc_launches"),
+    "quantized_latent_paged_attention": (
+        pa, "quantized_latent_decode_tc_launches"),
 }
 # The per-head attention kernels' counters: none moves on a latent path.
 PER_HEAD = {f"{m.__name__.rsplit('.', 1)[1]}.{a}": (m, a) for m, a in (
@@ -4961,6 +4969,9 @@ def latent_instance_of(kind, dtype, d):
     if kind == "ragged" and ra.latent_ragged_entry(dtype, d) == (
             "dli_latent_ragged_wgmma"):
         return "tensor cores"
+    if kind == "paged" and pa.latent_decode_entry(dtype, d) == (
+            "dli_latent_decode_tc"):
+        return "tensor cores"
     return "CUDA cores"
 
 
@@ -4970,9 +4981,11 @@ def latent_cases(rng):
     ``LATENT_RAGGED`` and ``LATENT_DECODE_LENS`` in one B = 8 launch each,
     pages of 16 and 64, a window of 300 and none (at 64), and at lat_dim
     576 pages of 6 with the window (the tensor-core instance then copies
-    the pool a row at a time: no page holds a whole piece). The ragged
-    wrappers take bf16 q at 576 on the tensor-core instance, the rest on
-    the CUDA-core kernel. Returns (name, error, tolerance) cases and the
+    the pool a row at a time: no page holds a whole piece). bf16 q at 576
+    runs on the tensor-core instances (the ragged wrappers'
+    ``latent_wgmma_kernel``, the decode ones' ``latent_decode_tc_kernel``),
+    the rest on the CUDA-core kernel: each case's instance is read from
+    the tensor-core counts. Returns (name, error, tolerance) cases and the
     widths each wrapper was held at, by query type and instance."""
     cases = []
     widths = {name: {"bf16": set(), "f32": set()} for name in LATENT_WRAPPERS}
@@ -5001,12 +5014,17 @@ def latent_cases(rng):
                                             rows["num_new"])),
                                 ("paged", (qd, pool, table, lens_d))):
                             tag, kernel, _ = latent_fns(pool, kind)
+                            tc = LATENT_TENSOR_CORES[kernel.__name__]
+                            before = getattr(*tc)
                             compare_latent(
                                 cases, f"{tag}_{label}", kind, args[0],
                                 *args[1:], sliding_window=window)
+                            instance = latent_instance_of(kind, dtype, d)
+                            ran = getattr(*tc) - before  # one kernel call
+                            assert ran == (instance == "tensor cores"), (
+                                tag, label, instance, ran)
                             widths[kernel.__name__][label.rsplit("_", 1)[1]].add(
-                                f"G={g} lat_dim={d} "
-                                f"({latent_instance_of(kind, dtype, d)})")
+                                f"G={g} lat_dim={d} ({instance})")
     return cases, {k: {t: sorted(w) for t, w in v.items()}
                    for k, v in widths.items()}
 
@@ -5039,14 +5057,16 @@ def time_latent(out, cases, rng, flush):
     """15a-d at DeepSeek-V2-Lite's shapes (16 query heads over the 576-wide
     latent, pages of 64), bf16 queries as the bf16 model gives them:
     decode at B = 8 and B = 1 over 2048 cached tokens a row, the ragged
-    kernel on one 2048-token prompt. Beside the kernel: its plain version,
-    the library call (``scaled_dot_product_attention`` in f32 over the
-    gathered, dequantized latent, K = V broadcast to the 16 heads) and the
-    bound: decode, f32 operations at the CUDA cores' peak; the prompt (the
-    tensor-core instance), the bf16 passes that f32-grade products need
-    (``LATENT_PASSES``) at the tensor cores' peak, with
-    the f32 CUDA-core bound beside it and the CUDA-core kernel timed at the
-    same shape."""
+    kernel on one 2048-token prompt, each on its tensor-core instance.
+    Beside the kernel: its plain version, the library call
+    (``scaled_dot_product_attention`` in f32 over the gathered, dequantized
+    latent, K = V broadcast to the 16 heads), the bound (the larger of the
+    bytes and the bf16 passes that f32-grade products need,
+    ``LATENT_PASSES``, at the tensor cores' peak), the f32 CUDA-core bound
+    beside it, and the CUDA-core kernel timed at the same shape in the
+    same call (its entry forced, as the wrapper no longer takes it for bf16
+    q at 576); decode: the instance timed again after it, one launch a
+    call."""
     g, d, ps, kv = 16, 576, 64, 2048
     width = kv // ps
     for pool in latent_pools(rng, 8 * width + 1, ps, d):
@@ -5061,25 +5081,60 @@ def time_latent(out, cases, rng, flush):
             lat = pa.gather_pages(c, table)                 # [B, T, 1, D]
             qh = q.float().permute(0, 2, 1, 3).contiguous()
             kh = lat.permute(0, 2, 1, 3).contiguous()
-            bytes_moved, flops, _ = latent_bounds(b, 1, kv, g, d, q8, None)
-            bms, by = bound(bytes_moved, flops, torch.float32)
+            bytes_moved, flops, tc_flops = latent_bounds(b, 1, kv, g, d, q8,
+                                                         None)
+            bms, by = bound(bytes_moved, tc_flops, torch.bfloat16)
+            f32_ms, f32_by = bound(bytes_moved, flops, torch.float32)
+
+            def call():
+                return kernel(q, *pool, table, lens)
+
+            assert latent_instance_of("paged", q.dtype, d) == "tensor cores"
+            tc = LATENT_TENSOR_CORES[kernel.__name__]
+            before = getattr(*tc)
             entry = {
                 "shape": f"B={b} kv={kv} G={g} lat_dim={d} PS={ps} bf16 q, "
                          f"{kind}",
+                "instance": "latent_decode_tc_kernel (tensor cores)",
+                "cluster": pa.latent_cluster_size(q.device, b, kv, q8),
                 "max_abs_err": compare_latent(
                     cases, f"{tag}_timed_b{b}", "paged", q, pool, table,
                     lens),
-                "ms": time_ms(lambda: kernel(q, *pool, table, lens), 20,
-                              flush),
+                "ms": time_ms(call, 20, flush),
                 "plain_ms": time_ms(lambda: plain(q, *pool, table, lens), 5,
                                     flush),
                 "library_ms": time_ms(lambda: sdpa(qh, kh, kh, False), 10,
                                       flush),
+                # the least time of the work: its bytes against the bf16
+                # passes that f32-grade products need at the tensor cores'
+                # peak; beside it the two products in f32 at the CUDA
+                # cores' peak (the CUDA-core kernel's work)
                 "bound_ms": bms, "bound_by": by, "bytes": bytes_moved,
-                "flops": flops,
-                "launches_a_call": launches_a_call(
-                    lambda: kernel(q, *pool, table, lens)),
+                "flops": tc_flops, "tensor_core_passes": LATENT_PASSES[q8],
+                "bound_ms_tensor_core_passes":
+                    tc_flops / PEAK_FLOPS[torch.bfloat16] * 1e3,
+                "bound_ms_f32_cuda_cores": f32_ms,
+                "bound_by_f32_cuda_cores": f32_by, "flops_f32": flops,
+                "launches_a_call": launches_a_call(call),
             }
+            entry["tensor_core_launches_timed"] = getattr(*tc) - before
+            assert entry["tensor_core_launches_timed"] > 0
+            assert entry["launches_a_call"] == 1, entry["launches_a_call"]
+            # The CUDA-core kernel and its merge at the same shape, in
+            # the same call, then the tensor-core instance again.
+            saved = pa.latent_decode_entry
+            pa.latent_decode_entry = (
+                lambda dtype, dim: "dli_latent_paged_attention")
+            try:
+                entry["cuda_core_kernel"] = {
+                    "max_abs_err": compare_latent(
+                        cases, f"cuda_cores_{tag}_timed_b{b}", "paged", q,
+                        pool, table, lens),
+                    "ms": time_ms(call, 20, flush),
+                    "launches_a_call": launches_a_call(call)}
+            finally:
+                pa.latent_decode_entry = saved
+            entry["ms_again"] = time_ms(call, 20, flush)
             if b == 8:
                 out[kernel.__name__] = entry
             else:
@@ -5100,7 +5155,7 @@ def time_latent(out, cases, rng, flush):
         call = (q, *pool, table1, lens1, new1)
         cargs = (q, pool, table1, lens1, new1)
         assert latent_instance_of("ragged", q.dtype, d) == "tensor cores"
-        before = getattr(*LATENT_WGMMA[kernel.__name__])
+        before = getattr(*LATENT_TENSOR_CORES[kernel.__name__])
         out[kernel.__name__] = {
             "shape": f"B=1 S={s} G={g} lat_dim={d} PS={ps} bf16 q, {kind}",
             "instance": "latent_wgmma_kernel (tensor cores)",
@@ -5121,7 +5176,7 @@ def time_latent(out, cases, rng, flush):
             "launches_a_call": launches_a_call(lambda: kernel(*call)),
         }
         out[kernel.__name__]["tensor_core_launches_timed"] = (
-            getattr(*LATENT_WGMMA[kernel.__name__]) - before)
+            getattr(*LATENT_TENSOR_CORES[kernel.__name__]) - before)
         # The CUDA-core kernel at the same shape, in the same call (its
         # entry still takes bf16 q at 576; the wrapper sends that to the
         # tensor-core instance).
@@ -5137,13 +5192,14 @@ def time_latent(out, cases, rng, flush):
         del lat, kh, c
 
 
-# The tensor-core instance's precision, on data that shows it: q unscaled
+# The tensor-core instances' precision, on data that shows it: q unscaled
 # (N(0, 1)), latents N(0, 8^2) and a scale of 1/96, so scores spread by
 # about 2 (a few positions carry a query) and the short rows' outputs reach
 # |out| >= 4 (2-4% of all), where one bf16 step (2^-5) is past the 2e-2
 # tolerance.
-# (G, page size, window) over ``LATENT_RAGGED``'s rows, both pools; then
-# the 2048-token prompt at 16 heads.
+# (G, page size, window) over ``LATENT_RAGGED``'s rows and, for the decode
+# instance, over ``LATENT_DECODE_LENS``', both pools; then the 2048-token
+# prompt at 16 heads.
 LATENT_PRECISION = {"q": 1.0, "latent": 8.0, "scale": 1 / 96,
                     "cases": ((16, 64, None), (16, 16, 300), (8, 64, 300),
                               (1, 16, None))}
@@ -5200,11 +5256,13 @@ def latent_one_pass(q, pool, table, lens, num_new, scale, window):
 
 
 def latent_precision(rng):
-    """The tensor-core instance against the plain version's f32 output
+    """The tensor-core instances against the plain version's f32 output
     (f32 queries: the same math, unrounded) on ``LATENT_PRECISION``'s data,
     per element within one bf16 step (``bf16_steps``); beside it the one-pass
-    control (``latent_one_pass``), which must miss that step, held against
-    the same f32 output. Returns {wrapper: report}."""
+    control (``latent_one_pass``; decode rows as one new token each), which
+    must miss that step, held against the same f32 output: the ragged
+    instance, and the decode one on the same cases over decode rows.
+    Returns {wrapper: report}."""
     cfg = LATENT_PRECISION
     d = 576
     rows = {k: i32(v) for k, v in LATENT_RAGGED.items()}
@@ -5213,8 +5271,10 @@ def latent_precision(rng):
     out = {}
     for g, ps, window, shape in (
             *((g, ps, w, "ragged") for g, ps, w in cfg["cases"]),
-            (16, 64, None, "prompt")):
-        b, s = (8, s_r) if shape == "ragged" else (1, 2048)
+            (16, 64, None, "prompt"),
+            *((g, ps, w, "decode") for g, ps, w in cfg["cases"])):
+        b, s = ((8, s_r) if shape == "ragged" else (1, 2048)
+                if shape == "prompt" else (8, 1))
         width = -(-2048 // ps) + 1
         pages = b * width + 1
         c = normal(rng, (pages, 1, ps, d), torch.float32) * cfg["latent"]
@@ -5222,15 +5282,22 @@ def latent_precision(rng):
         table = make_table(rng, b, width, pages)
         if shape == "ragged":
             lens, new = lens_r, rows["num_new"]
-        else:
+        elif shape == "prompt":
             lens, new = i32([s]), i32([s])
+        else:
+            lens = i32([ps if n is None and i == 2 else ps + 1
+                        if n is None else n
+                        for i, n in enumerate(LATENT_DECODE_LENS)])
+            new = (lens > 0).to(torch.int32)
         q = normal(rng, (b, s, g, d), torch.bfloat16) * cfg["q"]
+        kind = "paged" if shape == "decode" else "ragged"
         for pool in ((c,), (q8.contiguous(), s8.contiguous())):
-            tag, kernel, plain = latent_fns(pool, "ragged")
-            assert latent_instance_of("ragged", q.dtype, d) == "tensor cores"
+            tag, kernel, plain = latent_fns(pool, kind)
+            assert latent_instance_of(kind, q.dtype, d) == "tensor cores"
             kw = {"scale": cfg["scale"], "sliding_window": window}
-            got = kernel(q, *pool, table, lens, new, **kw)
-            want = plain(q.float(), *pool, table, lens, new, **kw)
+            args = (table, lens) if kind == "paged" else (table, lens, new)
+            got = kernel(q, *pool, *args, **kw)
+            want = plain(q.float(), *pool, *args, **kw)
             ctl = latent_one_pass(q, pool, table, lens, new, cfg["scale"],
                                   window)
             torch.cuda.synchronize()
@@ -5272,6 +5339,10 @@ def latent_instance(mangled):
     if m:
         pool = "int8" if m.group(1) == "a" else "f32"
         return f"latent_wgmma_kernel ragged {pool} D=576 (tensor cores)"
+    m = re.search(r"latent_decode_tc_kernelI([af])E", mangled)
+    if m:
+        pool = "int8" if m.group(1) == "a" else "f32"
+        return f"latent_decode_tc_kernel decode {pool} D=576 (tensor cores)"
     m = re.search(r"latent_kernelI([af])Li(\d+)ELi(\d+)ELb([01])E", mangled)
     if m:
         pool = "int8" if m.group(1) == "a" else "f32"
@@ -5286,13 +5357,20 @@ def latent_instance(mangled):
 WGMMA_PLAN_KEYS = ("query_tiles", "queries_a_block", "threads",
                    "smem_bytes", "stages", "pieces", "piece_positions",
                    "step")
+DECODE_TC_PLAN_KEYS = ("threads", "smem_bytes", "raw_steps",
+                       "converted_steps", "step", "converted_row_bytes",
+                       "max_cluster", "columns_a_warp")
 
 
 def latent_smem():
     """Dynamic shared memory of each latent block, as the C side sizes it
-    (``dli_latent_smem_bytes``; the tensor-core instance's from
-    ``dli_latent_wgmma_plan``, which must equal the wrapper's
-    ``latent_wgmma_plan``), against the 227 KB a block may have."""
+    (``dli_latent_smem_bytes``; the tensor-core instances' from
+    ``dli_latent_wgmma_plan`` and ``dli_latent_decode_plan``, which must
+    equal the wrappers' ``latent_wgmma_plan`` and ``latent_decode_plan``),
+    against the 227 KB a block may have; and the clusters of each size of
+    the decode instance the card holds at once (``latent_cluster_fit``,
+    which sizes its clusters). Returns (shared memory bytes by block,
+    clusters by size)."""
     lib = _build.load_library("latent_attention")
     fn = lib.dli_latent_smem_bytes
     fn.argtypes = [ctypes.c_int] * 4
@@ -5317,7 +5395,22 @@ def latent_smem():
                 list(got), want)
             assert 0 < got[3] <= 232448
         out[f"ragged {'int8' if q8 else 'f32'} D=576 (tensor cores)"] = got[3]
-    return out
+    dplan = lib.dli_latent_decode_plan
+    dplan.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    dplan.restype = ctypes.c_int
+    fits = {}
+    for q8 in (0, 1):
+        got = (ctypes.c_longlong * len(DECODE_TC_PLAN_KEYS))()
+        assert dplan(q8, ctypes.addressof(got)) == 0
+        want = pa.latent_decode_plan(bool(q8))
+        assert list(got) == [want[k] for k in DECODE_TC_PLAN_KEYS], (
+            list(got), want)
+        assert 0 < got[1] <= 232448
+        pool = "int8" if q8 else "f32"
+        out[f"decode {pool} D=576 (tensor cores)"] = got[1]
+        fits[pool] = {c: pa.latent_cluster_fit(DEV, bool(q8), c)
+                      for c in range(1, 17)}
+    return out, fits
 
 
 def phase_latent_kernels(flush):
@@ -5329,7 +5422,7 @@ def phase_latent_kernels(flush):
     torch.backends.cuda.matmul.allow_tf32 = False
     t0 = time.perf_counter()
     resources = ptxas_lines(_build.ptxas_log("latent_attention"),
-                            latent_instance, 24)
+                            latent_instance, 26)
     for name, lines in resources.items():
         if "tensor cores" in name:
             assert any("0 bytes spill stores, 0 bytes spill loads" in x
@@ -5349,19 +5442,30 @@ def phase_latent_kernels(flush):
         form = f"{'ragged' if ragged else 'decode'} {'int8' if q8 else 'f32'}"
         entry["ptxas"] = {k: v for k, v in resources.items()
                           if form in k or (not ragged and "merge" in k)}
-        if ragged:
-            entry["precision"] = precision[name]
-            entry["instances"] = {
-                "bf16 q, lat_dim 576": "latent_wgmma_kernel (tensor cores)",
-                "f32 q, lat_dim 576 and 80; bf16 q, lat_dim 80":
-                    "latent_kernel (CUDA cores)"}
+        entry["precision"] = precision[name]
+        entry["instances"] = {
+            "bf16 q, lat_dim 576":
+                "latent_wgmma_kernel (tensor cores)" if ragged
+                else "latent_decode_tc_kernel (tensor cores, one launch)",
+            "f32 q, lat_dim 576 and 80; bf16 q, lat_dim 80":
+                "latent_kernel (CUDA cores)" if ragged
+                else "latent_kernel + latent_merge_kernel (CUDA cores)"}
+    smem, fits = latent_smem()
     emit({"phase": "latent_kernels", "card": CARD,
           "tolerance": {"bf16 q": TOL[torch.bfloat16],
                         "f32 q": TOL[torch.float32], "m": 1e-4,
                         "l (relative)": 1e-4},
           "cases": len(cases), "ptxas": resources,
-          "smem_bytes": latent_smem(), "timed": timed,
+          "smem_bytes": smem, "decode_clusters_held": fits, "timed": timed,
           "seconds": time.perf_counter() - t0})
+    for name, entry in timed.items():
+        if "ragged" not in name:
+            for e in (entry, entry["at_b1"]):
+                print(f"{name} {e['shape']}: {e['ms']:.6f} ms "
+                      f"(again {e['ms_again']:.6f}; C = {e['cluster']}), "
+                      f"the CUDA-core kernel {e['cuda_core_kernel']['ms']:.6f}, "
+                      f"bound {e['bound_ms']:.6f} ({e['bound_by']})",
+                      flush=True)
     return timed, widths
 
 
@@ -5371,11 +5475,12 @@ def run_latent(label, cfg, params, ckw, counters, wgmma):
     engine on a latent pool at its default ``decode_steps`` (1: no
     write-behind tail), the latent wrappers' counters zeroed before and
     read after; no per-head attention kernel and no plain version (nor the
-    gather path) may run, and the ragged wrapper's launches must all be the
-    tensor-core instance's (``wgmma``: its count). Then a decode tick and a
-    prefill dispatch profiled (the device's idle share; the prefill's latent
-    kernel ms, one tensor-core launch a layer). Returns (report,
-    launches)."""
+    gather path) may run, and every latent wrapper's launches must all be
+    its tensor-core instance's (``wgmma``: their counts). Then a decode tick
+    and a prefill dispatch profiled (the device's idle share; the tick's
+    decode kernel ms, one launch a layer and no merge kernel; the
+    prefill's latent kernel ms, one tensor-core launch a layer). Returns
+    (report, launches)."""
     watch = {**PER_HEAD, **LATENT_WRAPPERS}
     for module, attr in wgmma.values():
         setattr(module, attr, 0)
@@ -5468,6 +5573,18 @@ def run_latent(label, cfg, params, ckw, counters, wgmma):
     del engine
     torch.cuda.empty_cache()
     report["decode_profile"] = profile_decode(cfg, params, {}, ckw, counters)
+    tick = report["decode_profile"]
+    assert not {"latent_kernel", "latent_merge_kernel"} & set(
+        tick["attention_kernels"]), (
+        f"{label}: the decode tick ran the CUDA-core kernel or its merge")
+    dec = tick["attention_kernels"].get("latent_decode_tc_kernel")
+    report["decode_latent_kernel"] = dec
+    print(f"{label}: decode tick (8 rows of ~600) latent_decode_tc_kernel "
+          f"{dec['ms'] if dec else 'not recorded'} ms "
+          f"({dec['launches'] if dec else 0} launches), no merge; "
+          f"{tick['kernels']} kernels, device {tick['device_ms']:.6f} ms, "
+          f"wall {tick['wall_ms']:.6f} ms, idle "
+          f"{tick['device_idle_share']:.6f}", flush=True)
     report["prefill_profile"] = profile_prefill(cfg, params, {}, ckw,
                                                 counters)
     # The prefill's latent kernel as the profiler saw it (the counts above
@@ -5504,7 +5621,7 @@ def phase_latent():
              "pages, K=1", {}, LATENT_F32),
             ("deepseek_v2_lite_int8latent_pages: bf16 weights, int8 latent "
              "pages, K=1", {"kv_quant": "int8"}, LATENT_INT8)):
-        wgmma = {n: LATENT_WGMMA[n] for n in counters if n in LATENT_WGMMA}
+        wgmma = {n: LATENT_TENSOR_CORES[n] for n in counters}
         report, got = run_latent(label, cfg, params, ckw, counters, wgmma)
         launches.update(got)
         tensor_core.update(report["tensor_core_launches"])
@@ -5662,7 +5779,10 @@ def main() -> int:
          "widths_checked": checked[name],
          **{key: k[key] for key in (
              "instances", "tensor_core_launches", "bound_ms_f32_cuda_cores",
-             "cuda_core_kernel") if key in k},
+             "cuda_core_kernel", "launches_a_call", "cluster") if key in k},
+         **({"at_b1": {key: k["at_b1"][key] for key in (
+             "ms", "bound_ms", "bound_by", "cuda_core_kernel", "cluster")
+             if key in k["at_b1"]}} if "at_b1" in k else {}),
          **({"precision_bf16_steps": {
              "max": k["precision"]["max_bf16_steps"],
              "one_pass_control_min": k["precision"][

@@ -21,8 +21,11 @@
 // f32 products, as the per-head f32 kernels do.
 //
 // What bounds it on this card. Decode (B = 8 over 2048 tokens at D = 576,
-// G = 16): 37.7 MB of f32 latents, 11 us at 3.35 TB/s, and 0.60 GFLOP, 9 us
-// at the CUDA cores' 67 TFLOP/s: both, nearly equally. A ragged prefill of
+// G = 16): bytes. 37.7 MB of f32 latents, 11 us at 3.35 TB/s (9.5 MB over
+// the int8 pool, 2.8 us), against 0.60 GFLOP, 9 us at the CUDA cores' 67
+// TFLOP/s, or, for the bf16 passes that f32-grade products need on the
+// tensor cores, 1.5 us (5 passes, f32 pool) and 0.9 us (3, int8). A ragged
+// prefill of
 // 2048 queries: operations (77 GFLOP, 1.15 ms in f32 on the CUDA cores;
 // on the tensor cores the bf16 passes that f32-grade products need, 5 over
 // the f32 pool (0.1955 ms) and 3 over the int8 one (0.1173 ms)).
@@ -78,6 +81,60 @@
 //   finite kNegInf) run between steps, since beside the products they held
 //   P's fragments and the scores live at once, past the 160 registers.
 //
+// The decode form with bf16 queries at lat_dim 576 (latent_decode_tc_kernel,
+// in namespace dec below) runs on the tensor cores. The design:
+//
+// * One launch a call, no scratch. A thread-block cluster of C blocks (1 to
+//   16; 16 needs the non-portable cluster attribute) serves one row. The
+//   row's live positions [lo, hi), after the kv length and the window, are
+//   cut into steps of 16 positions from lo rounded down to 16 and dealt to
+//   the blocks at run time (block r takes steps r, r + C, ...), so the
+//   split follows the live length, not the table's width. The wrapper
+//   chooses C from the batch (B x C near the SM count) and shrinks it until
+//   the card holds the batch's clusters at once (a cluster's blocks share
+//   one GPC: on an H100 7 clusters of 10-16 blocks fit, 9 of 9, 15 of 8).
+//   The blocks merge (O, m, l) through distributed shared memory between
+//   two cluster barriers, block r writing its share of the columns: no
+//   partials in device memory, no second kernel.
+// * Warps: a producer, four converters and four consumers (288 threads,
+//   one block an SM). The producer brings a step's 16 pool rows by one
+//   bulk copy where the page holds the step whole (a page size a multiple
+//   of 16; int8: and the 16 scales by another), else by one copy a row
+//   (int8: the scales by cp.async onto the same barrier): a copy never
+//   crosses a page, and pages of 6 work. Its lanes read the page table four
+//   pairs of steps ahead. The converters turn each landed step into bf16
+//   rows (f32: a hi tile of bf16(x) and a lo tile of bf16(x - hi); int8:
+//   the bytes, exact in bf16, by hopper::i8x4_to_bf16x2), positions outside
+//   [lo, hi) zeros. One converted tile serves as K and as V.
+// * Products on the tensor cores, f32-grade, no TF32: mma.sync m16n8k16
+//   with the G <= 16 query heads as the 16 rows (padding rows zero, never
+//   written), the positions of a step as two n-tiles. Q K^T: K's B
+//   fragments by ldmatrix; int8 one pass (q bf16, K exact), f32 two (Q K_hi
+//   + Q K_lo). P V: p (int8: p vs) as bf16 hi + lo A fragments straight
+//   from the score fragments, V's B fragments by ldmatrix.trans; int8 two
+//   passes, f32 three (p_hi V_hi + p_hi V_lo + p_lo V_hi: p_lo V_lo, about
+//   2^-32 of the result, is not run): chip_smoke.py's LATENT_PASSES, 3 and
+//   5. About 2^-17 of each operand is left before the output's bf16
+//   rounding. The K scale multiplies the score, the V scale p before P V,
+//   l sums p.
+// * The 576-wide accumulator (288 registers a lane in one warp) is split by
+//   columns: consumer warp w owns 144 (its quarter of Q K^T's depth and of
+//   P V's columns; 72 registers of O). Each computes its partial scores
+//   over its depth, and the four partials meet in shared memory, summed in
+//   warp order, so that every warp holds the same S, m, l and P (computing
+//   S whole in each warp would quadruple Q K^T and its reads for nothing).
+//   A step's products for step i + 1 are issued before step i's exchange,
+//   softmax and P V.
+// * Shared memory: Q 18,688; the converted ring, 3 steps of 37,376 (f32) or
+//   6 of 18,688 (int8); the raw ring, 2 steps of 36,864 (f32) or 8 of 9,216
+//   (int8); two buffers of partial scores, 8,192; the scales and barriers:
+//   212,816 bytes (f32), 213,856 (int8). A converted row is 1168 bytes (a
+//   stride of 4 mod 32 words: ldmatrix's 8 rows fall on distinct banks);
+//   the converters' reads and writes are laid out so that theirs do too.
+//   After the walk the converted ring holds the block's state for the
+//   merge. Registers (-Xptxas -v): 165 (f32) / 159 (int8) a thread, 0
+//   spills.
+//
 // The other forms are simple kernels that are right: no TMA, no tensor
 // cores, which are later work for them. Their design:
 //
@@ -106,7 +163,7 @@
 //   (o, m, l) into the output and the stats.
 //
 // These forms take f32 queries (the engine's exact-stream checks need f32
-// products), lat_dim 80, and the decode rows.
+// products) and lat_dim 80, ragged and decode.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -1299,6 +1356,675 @@ void plan(int S, int gshift, long long* out) {
 
 }  // namespace wg
 
+// ---------------------------------------------------------------------------
+// bf16 queries at lat_dim 576: the decode form on the tensor cores
+// ---------------------------------------------------------------------------
+
+namespace dec {
+
+constexpr int kD = 576;
+constexpr int kWarps = 4;                    // consumer warps
+constexpr int kConvWarps = 4;                // converter warps
+constexpr int kThreads = (kWarps + kConvWarps + 1) * 32;  // + the producer
+constexpr int kProducer = kWarps + kConvWarps;            // its warp
+constexpr int kCols = kD / kWarps;           // columns a consumer warp owns
+constexpr int kKSteps = kCols / 16;          // its k-steps of Q K^T
+constexpr int kStep = 16;                    // positions a step
+constexpr int kMaxCluster = 16;
+// A converted row: 576 bf16 and 16 bytes of padding, a stride of 4 mod 32
+// words, so that ldmatrix's 8 rows of 16 bytes fall on distinct banks.
+constexpr int kTRow = kD * 2 + 16;
+constexpr int kTile = kStep * kTRow;         // a step's converted tile
+static_assert(kCols % 16 == 0 && kD % kWarps == 0, "column split");
+static_assert((kTRow / 4) % 32 == 4, "converted row stride");
+
+// Shared memory: Q [16][kTRow] bf16 | the converted ring (f32 pool: a hi
+// and a lo tile a step) | the raw ring (a step's pool rows as the bulk
+// copies land them) | the partial scores, two buffers | (int8) each raw
+// step's scales, then each converted step's | the barriers. Once the walk
+// is done the converted ring's first bytes take the block's state: O
+// [16][kD] f32, then m [16] and l [16].
+template <typename KV>
+struct Layout {
+  static constexpr bool kQ8 = sizeof(KV) == 1;
+  static constexpr int kRowBytes = kD * (int)sizeof(KV);
+  static constexpr int kRawBytes = kStep * kRowBytes;
+  static constexpr int kRaws = kQ8 ? 8 : 2;
+  static constexpr int kConvBytes = (kQ8 ? 1 : 2) * kTile;
+  static constexpr int kConvs = kQ8 ? 6 : 3;
+  static constexpr int kQ = 0;
+  static constexpr int kConv = 16 * kTRow;
+  static constexpr int kRaw = kConv + kConvs * kConvBytes;
+  static constexpr int kX = kRaw + kRaws * kRawBytes;
+  static constexpr int kXBytes = 2 * kWarps * 2 * 32 * 16;
+  static constexpr int kScales = kX + kXBytes;
+  static constexpr int kConvScales = kScales + (kQ8 ? kRaws * kStep * 4 : 0);
+  static constexpr int kBars =
+      kConvScales + (kQ8 ? kConvs * kStep * 4 : 0);
+  // raw full / empty, converted full / empty
+  static constexpr int kNumBars = 2 * kRaws + 2 * kConvs;
+  static constexpr int kBytes = kBars + kNumBars * 8;
+  static constexpr int kState = kConv;
+  static constexpr int kStateML = kState + 16 * kD * 4;
+  static_assert(kStateML + 2 * 16 * 4 <= kRaw, "the state over the ring");
+  static_assert((3 * kMaxCluster + 1) * 16 * 4 <= kXBytes,
+                "the merge's (m, l) and weights over the partial scores");
+  static_assert(kConv % 16 == 0 && kRaw % 16 == 0 && kBars % 8 == 0,
+                "alignment");
+  static_assert(kBytes <= 232448, "shared memory of a block");
+};
+
+// c += A B, m16n8k16, bf16 in, f32 accumulators (mma.sync fragments: a0 =
+// A[g][2t..], a1 = A[g+8][2t..], a2 = A[g][2t+8..], a3 = A[g+8][2t+8..];
+// b0 = B[2t..][g], b1 = B[2t+8..][g]; c0, c1 = C[g][2t..], c2, c3 =
+// C[g+8][2t..]; g = lane / 4, t = lane % 4).
+__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
+                                    uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// (x, y) as bf16x2 (x in the low half), and the rest of each as another.
+__device__ __forceinline__ void split2(float x, float y, uint32_t& hi,
+                                       uint32_t& lo) {
+  hi = wg::bf16x2_bits(__floats2bfloat162_rn(x, y));
+  lo = wg::bf16x2_bits(__floats2bfloat162_rn(
+      x - __uint_as_float(hi << 16), y - __uint_as_float(hi & 0xffff0000u)));
+}
+
+// The producer warp: two steps at a time, 16 positions a half warp (lane
+// / 16 its step), the pool rows resolved four pairs ahead. Where a page
+// holds whole steps (a page size a multiple of 16: a step starts on a
+// multiple of 16), a step is one bulk copy of its 16 consecutive pool rows
+// (int8: and one of their 16 scales), counted in bytes on the raw slot's
+// full barrier; rows of dead positions come along, and the converters zero
+// them. Else each live row is a copy of its own (int8: its scale by
+// cp.async, zeros for a dead row, then the lane's arrival). A copy never
+// crosses a page, and any page size works.
+template <typename KV>
+__device__ __forceinline__ void produce(const Params& p, uint8_t* smem,
+                                        uint64_t* full, uint64_t* empty,
+                                        int b, int r, int C, int lo, int hi,
+                                        int first, int mine, bool whole,
+                                        int lane) {
+  using L = Layout<KV>;
+  const int* trow = p.table + (size_t)b * p.Tw;
+  const char* pool = static_cast<const char*>(p.pool);
+  const int e = lane / kStep, jr = lane % kStep;
+  // A whole step's first row, or this lane's live row; -1 for none.
+  auto row_of = [&](int i) {
+    const int pos = first + (r + i * C) * kStep + jr;
+    if (i >= mine) return -1;
+    if (whole) return jr == 0 ? trow[pos / p.PS] * p.PS + pos % p.PS : -1;
+    return pos >= lo && pos < hi ? trow[pos / p.PS] * p.PS + pos % p.PS : -1;
+  };
+  // The rows of the next kAhead pairs of steps, their table reads in
+  // flight together.
+  constexpr int kAhead = 4;
+  int ahead[kAhead];
+#pragma unroll
+  for (int a = 0; a < kAhead; ++a) ahead[a] = row_of(2 * a + e);
+  for (int i0 = 0; i0 < mine; i0 += 2) {
+    const int i = i0 + e;
+    const int cur = ahead[0];
+#pragma unroll
+    for (int a = 0; a + 1 < kAhead; ++a) ahead[a] = ahead[a + 1];
+    ahead[kAhead - 1] = row_of(i + 2 * kAhead);
+    const uint32_t live = __ballot_sync(0xffffffffu, cur >= 0);
+    if (i < mine) {
+      const int slot = i % L::kRaws;
+      uint8_t* dst = smem + L::kRaw + slot * L::kRawBytes;
+      float* dsc = reinterpret_cast<float*>(smem + L::kScales) + slot * kStep;
+      hopper::mbar_wait(&empty[slot], ((i / L::kRaws) & 1) ^ 1);
+      if (whole) {
+        if (jr == 0) {
+          hopper::mbar_arrive_expect_tx(
+              &full[slot], L::kRawBytes + (L::kQ8 ? kStep * 4 : 0));
+          hopper::bulk_load(dst, pool + (size_t)cur * L::kRowBytes,
+                            L::kRawBytes, &full[slot]);
+          if constexpr (L::kQ8)
+            hopper::bulk_load(dsc, p.scales + cur, kStep * 4, &full[slot]);
+        }
+      } else {
+        if (jr == 0)
+          hopper::mbar_arrive_expect_tx(
+              &full[slot],
+              __popc((live >> (kStep * e)) & 0xffffu) * L::kRowBytes);
+        __syncwarp(e ? 0xffff0000u : 0x0000ffffu);
+        if (cur >= 0)
+          hopper::bulk_load(dst + jr * L::kRowBytes,
+                            pool + (size_t)cur * L::kRowBytes, L::kRowBytes,
+                            &full[slot]);
+        if constexpr (L::kQ8) {
+          hopper::cp_async_4(dsc + jr, p.scales + max(cur, 0), cur >= 0);
+          hopper::cp_async_arrive_noinc(&full[slot]);
+        }
+      }
+    }
+  }
+}
+
+// The converter warps (ct = 0..127): each landed raw step into a converted
+// tile, as bf16 rows of kTRow bytes; positions outside [lo, hi) become
+// zeros (their probabilities are 0, and 0 * V must stay finite). f32: x =
+// hi + lo, hi = bf16(x) into the hi tile, lo = bf16(x - hi) into the lo
+// tile. int8: the byte values, exact in bf16 (hopper::i8x4_to_bf16x2), and
+// the step's scales.
+template <typename KV>
+__device__ __forceinline__ void convert(uint8_t* smem, uint64_t* raw_full,
+                                        uint64_t* raw_empty,
+                                        uint64_t* conv_full,
+                                        uint64_t* conv_empty, int r, int C,
+                                        int lo, int hi, int first, int mine,
+                                        int ct, int lane) {
+  using L = Layout<KV>;
+  constexpr int kLanes = kConvWarps * 32;
+  for (int i = 0; i < mine; ++i) {
+    const int rs = i % L::kRaws, cs = i % L::kConvs;
+    const int s0 = first + (r + i * C) * kStep;
+    hopper::mbar_wait(&conv_empty[cs], ((i / L::kConvs) & 1) ^ 1);
+    hopper::mbar_wait(&raw_full[rs], (i / L::kRaws) & 1);
+    const uint8_t* raw = smem + L::kRaw + rs * L::kRawBytes;
+    uint8_t* dst = smem + L::kConv + cs * L::kConvBytes;
+    if constexpr (L::kQ8) {
+      // Lane ct: row ct / 8, bytes 72 (ct % 8) .. + 71 of it as 9 reads of
+      // 8 (a half warp's reads, and a quarter warp's writes of 16, fall on
+      // distinct banks).
+      const int row = ct >> 3, seg = ct & 7;
+      const bool live = s0 + row >= lo && s0 + row < hi;
+      const uint2* src =
+          reinterpret_cast<const uint2*>(raw + row * kD + seg * 72);
+      uint4* out = reinterpret_cast<uint4*>(dst + row * kTRow + seg * 144);
+#pragma unroll
+      for (int j = 0; j < 9; ++j) {
+        uint4 v = make_uint4(0u, 0u, 0u, 0u);
+        if (live) {
+          const uint2 x = src[j];
+          hopper::i8x4_to_bf16x2(x.x, v.x, v.y);
+          hopper::i8x4_to_bf16x2(x.y, v.z, v.w);
+        }
+        out[j] = v;
+      }
+      if (ct < kStep) {
+        const int pos = s0 + ct;
+        reinterpret_cast<float*>(smem + L::kConvScales)[cs * kStep + ct] =
+            pos >= lo && pos < hi
+                ? reinterpret_cast<const float*>(smem + L::kScales)[rs * kStep + ct]
+                : 0.f;
+      }
+    } else {
+      // Lane ct: rows ct / 16 and 8 + ct / 16, float4 ct % 16 + 16 j of
+      // each (a quarter warp's reads and a half warp's writes contiguous).
+#pragma unroll
+      for (int pass = 0; pass < 2; ++pass) {
+        const int row = (ct >> 4) + 8 * pass, seg = ct & 15;
+        const bool live = s0 + row >= lo && s0 + row < hi;
+        const float4* src =
+            reinterpret_cast<const float4*>(raw + row * (kD * 4)) + seg;
+        uint2* hi_out = reinterpret_cast<uint2*>(dst + row * kTRow) + seg;
+        uint2* lo_out =
+            reinterpret_cast<uint2*>(dst + kTile + row * kTRow) + seg;
+#pragma unroll
+        for (int j = 0; j < kD / 64; ++j) {
+          const float4 v = live ? src[16 * j] : make_float4(0.f, 0.f, 0.f, 0.f);
+          uint32_t h0, l0, h1, l1;
+          split2(v.x, v.y, h0, l0);
+          split2(v.z, v.w, h1, l1);
+          hi_out[16 * j] = make_uint2(h0, h1);
+          lo_out[16 * j] = make_uint2(l0, l1);
+        }
+      }
+    }
+    __syncwarp();
+    if (lane == 0) {
+      hopper::mbar_arrive(&raw_empty[rs]);
+      hopper::mbar_arrive(&conv_full[cs]);
+    }
+  }
+}
+
+// A consumer warp (w = 0..3): columns [w kCols, (w + 1) kCols) of Q K^T's
+// depth and of P V's output, for the 16 score rows (head g, g + 8; rows
+// past G are zeros, never written). A step: its partial S over its
+// columns (2 n-tiles of 8 positions, K by ldmatrix from the converted
+// tile), the four partials summed through shared memory in warp order
+// (every warp then holds the same S, m, l and P), the online softmax, P V
+// on its columns (18 n-tiles, V by ldmatrix.trans from the same tile);
+// then the block's state written to shared memory once every warp is done.
+template <typename KV>
+__device__ __forceinline__ void consume(const Params& p, uint8_t* smem,
+                                        uint64_t* conv_full,
+                                        uint64_t* conv_empty, int b, int r,
+                                        int C, int lo, int hi, int first,
+                                        int mine, int w, int lane) {
+  using L = Layout<KV>;
+  constexpr bool kQ8 = L::kQ8;
+  const int g = lane >> 2, t = lane & 3;
+
+  // This warp's columns of Q, zeros for heads past G (rows of kTRow bytes:
+  // no other warp reads them).
+  {
+    const __nv_bfloat16* q =
+        static_cast<const __nv_bfloat16*>(p.q) + (size_t)b * p.G * kD;
+#pragma unroll
+    for (int it = 0; it < 16 * kCols / 8 / 32; ++it) {
+      const int idx = it * 32 + lane;
+      const int row = idx / (kCols / 8), c8 = idx % (kCols / 8);
+      const int col = w * kCols + c8 * 8;
+      uint4 v = make_uint4(0u, 0u, 0u, 0u);
+      if (row < p.G)
+        v = *reinterpret_cast<const uint4*>(q + row * kD + col);
+      *reinterpret_cast<uint4*>(smem + L::kQ + row * kTRow + col * 2) = v;
+    }
+    __syncwarp();
+  }
+  // ldmatrix lane addresses: matrix m = lane / 8, its row lane % 8. Q's A
+  // fragment (m: rows + 8 (m & 1), k + 8 (m >> 1)); K's B fragments of the
+  // two n-tiles (m: positions + 8 (m >> 1), k + 8 (m & 1)); V's (.trans;
+  // m: positions + 8 (m & 1), columns + 8 (m >> 1)).
+  const int mi = lane >> 3, mr = lane & 7;
+  const uint32_t q_at = hopper::smem_u32(smem + L::kQ) +
+                        (mr + ((mi & 1) << 3)) * kTRow +
+                        (w * kCols + ((mi >> 1) << 3)) * 2;
+  const uint32_t k_at = (mr + ((mi >> 1) << 3)) * kTRow +
+                        (w * kCols + ((mi & 1) << 3)) * 2;
+  const uint32_t v_at = (mr + ((mi & 1) << 3)) * kTRow +
+                        (w * kCols + ((mi >> 1) << 3)) * 2;
+
+  float o[kCols / 8][4];
+#pragma unroll
+  for (int n = 0; n < kCols / 8; ++n)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) o[n][c] = 0.f;
+  float m_run[2] = {kNegInf, kNegInf}, l_run[2] = {0.f, 0.f};
+  float4* xb = reinterpret_cast<float4*>(smem + L::kX);
+  const float* scl = reinterpret_cast<const float*>(smem + L::kConvScales);
+  const float minus_inf = __uint_as_float(0xff800000u);
+
+  // This warp's partial S of step i, issued: n-tile j is positions 8 j ..
+  // 8 j + 7; an accumulator a k-step parity and (f32) a term, so that no
+  // product waits on the one before it. Step i + 1's products are issued
+  // before step i's exchange, softmax and P V, and run beside them.
+  float acc[2][kQ8 ? 1 : 2][2][4];
+  auto issue_qk = [&](int i) {
+    const int cs = i % L::kConvs;
+    hopper::mbar_wait(&conv_full[cs], (i / L::kConvs) & 1);
+    const uint32_t tile =
+        hopper::smem_u32(smem + L::kConv + cs * L::kConvBytes);
+#pragma unroll
+    for (int a = 0; a < 2; ++a)
+#pragma unroll
+      for (int e = 0; e < (kQ8 ? 1 : 2); ++e)
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) acc[a][e][j][c] = 0.f;
+#pragma unroll
+    for (int k = 0; k < kKSteps; ++k) {
+      uint32_t qa[4], kf[4];
+      ldsm_x4(q_at + k * 32, qa);
+      ldsm_x4(tile + k_at + k * 32, kf);
+      mma(acc[k & 1][0][0], qa, kf[0], kf[1]);
+      mma(acc[k & 1][0][1], qa, kf[2], kf[3]);
+      if constexpr (!kQ8) {
+        ldsm_x4(tile + kTile + k_at + k * 32, kf);
+        mma(acc[k & 1][1][0], qa, kf[0], kf[1]);
+        mma(acc[k & 1][1][1], qa, kf[2], kf[3]);
+      }
+    }
+  };
+  if (mine > 0) issue_qk(0);
+
+  for (int i = 0; i < mine; ++i) {
+    const int cs = i % L::kConvs;
+    const int s0 = first + (r + i * C) * kStep;
+    const uint32_t tile =
+        hopper::smem_u32(smem + L::kConv + cs * L::kConvBytes);
+    float s[2][4];
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        s[j][c] = acc[0][0][j][c] + acc[1][0][j][c];
+        if constexpr (!kQ8)
+          s[j][c] += acc[0][kQ8 ? 0 : 1][j][c] + acc[1][kQ8 ? 0 : 1][j][c];
+      }
+    if (i + 1 < mine) issue_qk(i + 1);
+
+    // The four partials summed in warp order (buffer i & 1: a warp writes
+    // step i + 2's partial only after every warp passed step i + 1's
+    // barrier, so after every read of step i's).
+    float4* xs = xb + (i & 1) * kWarps * 2 * 32;
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+      xs[(w * 2 + j) * 32 + lane] = make_float4(s[j][0], s[j][1], s[j][2],
+                                                s[j][3]);
+    hopper::named_sync(1, kWarps * 32);
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const float4 x0 = xs[j * 32 + lane];
+      const float4 x1 = xs[(2 + j) * 32 + lane];
+      const float4 x2 = xs[(4 + j) * 32 + lane];
+      const float4 x3 = xs[(6 + j) * 32 + lane];
+      s[j][0] = ((x0.x + x1.x) + x2.x) + x3.x;
+      s[j][1] = ((x0.y + x1.y) + x2.y) + x3.y;
+      s[j][2] = ((x0.z + x1.z) + x2.z) + x3.z;
+      s[j][3] = ((x0.w + x1.w) + x2.w) + x3.w;
+    }
+
+    // The online softmax. Element c of n-tile j: head g + 8 (c >> 1),
+    // position 8 j + 2 t + (c & 1) of the step.
+    float mx[2] = {minus_inf, minus_inf};
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int at = 8 * j + 2 * t + (c & 1);
+        const int pos = s0 + at;
+        // The TPU kernel's order: (q . k) * ks, then * scale.
+        float x = s[j][c];
+        if constexpr (kQ8) x *= scl[cs * kStep + at];
+        x = pos >= lo && pos < hi ? x * p.scale : minus_inf;
+        s[j][c] = x;
+        mx[c >> 1] = fmaxf(mx[c >> 1], x);
+      }
+    float alpha[2];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 1));
+      mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 2));
+      const float m_new = fmaxf(m_run[hh], mx[hh]);
+      alpha[hh] = __expf(m_run[hh] - m_new);
+      m_run[hh] = m_new;
+    }
+    float sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        float pr = __expf(s[j][c] - m_run[c >> 1]);
+        sum[c >> 1] += pr;
+        if constexpr (kQ8) pr *= scl[cs * kStep + 8 * j + 2 * t + (c & 1)];
+        s[j][c] = pr;
+      }
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) l_run[hh] = l_run[hh] * alpha[hh] + sum[hh];
+    if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) {
+#pragma unroll
+      for (int n = 0; n < kCols / 8; ++n) {
+        o[n][0] *= alpha[0];
+        o[n][1] *= alpha[0];
+        o[n][2] *= alpha[1];
+        o[n][3] *= alpha[1];
+      }
+    }
+
+    // O += P V: P (int8: p vs) as bf16 hi + lo A fragments (the score
+    // fragments are, lane for lane, P's: a0 / a1 from n-tile 0, a2 / a3
+    // from n-tile 1); V's B fragments of two n-tiles an ldmatrix.trans.
+    uint32_t ph[4], pl[4];
+    split2(s[0][0], s[0][1], ph[0], pl[0]);
+    split2(s[0][2], s[0][3], ph[1], pl[1]);
+    split2(s[1][0], s[1][1], ph[2], pl[2]);
+    split2(s[1][2], s[1][3], ph[3], pl[3]);
+#pragma unroll
+    for (int cp = 0; cp < kCols / 16; ++cp) {
+      uint32_t vf[4];
+      ldsm_x4_t(tile + v_at + cp * 32, vf);
+      mma(o[2 * cp], ph, vf[0], vf[1]);
+      mma(o[2 * cp + 1], ph, vf[2], vf[3]);
+      mma(o[2 * cp], pl, vf[0], vf[1]);
+      mma(o[2 * cp + 1], pl, vf[2], vf[3]);
+      if constexpr (!kQ8) {
+        uint32_t vl[4];
+        ldsm_x4_t(tile + kTile + v_at + cp * 32, vl);
+        mma(o[2 * cp], ph, vl[0], vl[1]);
+        mma(o[2 * cp + 1], ph, vl[2], vl[3]);
+      }
+    }
+    __syncwarp();
+    if (lane == 0) hopper::mbar_arrive(&conv_empty[cs]);
+  }
+
+  // l's partial sums across the quad; then, with every warp of the block
+  // done with the rings, the state into the converted ring's bytes.
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    l_run[hh] += __shfl_xor_sync(0xffffffffu, l_run[hh], 1);
+    l_run[hh] += __shfl_xor_sync(0xffffffffu, l_run[hh], 2);
+  }
+  hopper::named_sync(2, kThreads);
+  float* state = reinterpret_cast<float*>(smem + L::kState);
+  float* sml = reinterpret_cast<float*>(smem + L::kStateML);
+#pragma unroll
+  for (int n = 0; n < kCols / 8; ++n) {
+    const int col = w * kCols + 8 * n + 2 * t;
+    *reinterpret_cast<float2*>(state + g * kD + col) =
+        make_float2(o[n][0], o[n][1]);
+    *reinterpret_cast<float2*>(state + (g + 8) * kD + col) =
+        make_float2(o[n][2], o[n][3]);
+  }
+  if (w == 0 && t == 0) {
+    sml[g] = m_run[0];
+    sml[g + 8] = m_run[1];
+    sml[16 + g] = l_run[0];
+    sml[16 + g + 8] = l_run[1];
+  }
+}
+
+// One block: rank r of the cluster of C that serves row b. The row's live
+// positions [lo, hi) (hi = min(kv_len, Tw PS), lo from the window anchored
+// at q_positions), in steps of 16 from lo rounded down to 16, are dealt to
+// the blocks in turn (block r takes steps r, r + C, ...); each block walks
+// its own, then the cluster merges the blocks' (O, m, l) through
+// distributed shared memory, block r writing its share of the columns.
+// Every block runs to the end: the cluster's barriers count them all.
+template <typename KV>
+__global__ void __launch_bounds__(kThreads, 1)
+    latent_decode_tc_kernel(const Params p, float* m_out, float* l_out) {
+  using L = Layout<KV>;
+  extern __shared__ __align__(16) uint8_t smem[];
+  uint64_t* raw_full = reinterpret_cast<uint64_t*>(smem + L::kBars);
+  uint64_t* raw_empty = raw_full + L::kRaws;
+  uint64_t* conv_full = raw_empty + L::kRaws;
+  uint64_t* conv_empty = conv_full + L::kConvs;
+  const int C = gridDim.x;
+  const int r = hopper::cluster_rank();
+  const int b = blockIdx.y;
+  const int tid = threadIdx.x;
+  // The warp index, broadcast so that the compiler sees it warp-uniform.
+  const int warp = __shfl_sync(0xffffffffu, tid >> 5, 0);
+  const int lane = tid & 31;
+
+  const int hi = min(p.kv_lens[b], p.Tw * p.PS);
+  const int lo = p.window > 0 ? max(0, p.q_pos0[b] - p.window + 1) : 0;
+  const int first = lo & ~(kStep - 1);
+  const int nsteps = hi > lo ? (hi - first + kStep - 1) / kStep : 0;
+  const int mine = nsteps > r ? (nsteps - r + C - 1) / C : 0;
+
+  // Pages of a multiple of 16 rows hold whole steps: one copy a step.
+  const bool whole = p.PS % kStep == 0;
+  if (tid == 0) {
+    for (int s = 0; s < L::kRaws; ++s) {
+      // int8 rows copied one by one: and the 16 lanes of the step after
+      // their scale copies
+      hopper::mbar_init(&raw_full[s], L::kQ8 && !whole ? 1 + kStep : 1);
+      hopper::mbar_init(&raw_empty[s], kConvWarps);
+    }
+    for (int s = 0; s < L::kConvs; ++s) {
+      hopper::mbar_init(&conv_full[s], kConvWarps);
+      hopper::mbar_init(&conv_empty[s], kWarps);
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+  if (warp == kProducer) {
+    produce<KV>(p, smem, raw_full, raw_empty, b, r, C, lo, hi, first, mine,
+                whole, lane);
+    hopper::named_sync(2, kThreads);
+  } else if (warp >= kWarps) {
+    convert<KV>(smem, raw_full, raw_empty, conv_full, conv_empty, r, C, lo,
+                hi, first, mine, tid - kWarps * 32, lane);
+    hopper::named_sync(2, kThreads);
+  } else {
+    consume<KV>(p, smem, conv_full, conv_empty, b, r, C, lo, hi, first,
+                mine, warp, lane);
+  }
+  __syncthreads();
+
+  // The merge: every block's (m, l) of each head read once into the
+  // partial scores' bytes, the weights exp(m_k - M) and the total l, a head
+  // a thread; then block r's share of the columns, 4 at a time, each item's
+  // reads of every block's O issued together and summed in rank order.
+  const float* state = reinterpret_cast<const float*>(smem + L::kState);
+  const float* sml = reinterpret_cast<const float*>(smem + L::kStateML);
+  float* ml = reinterpret_cast<float*>(smem + L::kX);  // [2][C][16]
+  float* wts = ml + 2 * kMaxCluster * 16;              // [C][16], l [16]
+  hopper::cluster_sync();
+  for (int idx = tid; idx < C * 16; idx += kThreads) {
+    const int k = idx >> 4, g = idx & 15;
+    const float mk = hopper::cluster_load(sml + g, k);
+    const float lk = hopper::cluster_load(sml + 16 + g, k);
+    ml[idx] = mk;
+    ml[kMaxCluster * 16 + idx] = lk;
+  }
+  __syncthreads();
+  if (tid < p.G) {
+    float mx = kNegInf;
+    for (int k = 0; k < C; ++k) mx = fmaxf(mx, ml[k * 16 + tid]);
+    float l = 0.f;
+    for (int k = 0; k < C; ++k) {
+      const float f = __expf(ml[k * 16 + tid] - mx);
+      wts[k * 16 + tid] = f;
+      l = fmaf(ml[kMaxCluster * 16 + k * 16 + tid], f, l);
+    }
+    wts[kMaxCluster * 16 + tid] = l;
+    if (r == 0) {
+      m_out[(size_t)b * p.G + tid] = mx;
+      l_out[(size_t)b * p.G + tid] = l;
+    }
+  }
+  __syncthreads();
+  constexpr int kC4 = kD / 4;
+  const int share = (kC4 + C - 1) / C;
+  const int c_lo = min(r * share, kC4), n_c = min(kC4, c_lo + share) - c_lo;
+  __nv_bfloat16* out =
+      static_cast<__nv_bfloat16*>(p.out) + (size_t)b * p.G * kD;
+  for (int it = tid; it < p.G * n_c; it += kThreads) {
+    const int g = it / n_c, c4 = c_lo + it % n_c;
+    float4 v[kMaxCluster];
+#pragma unroll
+    for (int k = 0; k < kMaxCluster; ++k)
+      if (k < C) v[k] = hopper::cluster_load4(state + g * kD + 4 * c4, k);
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int k = 0; k < kMaxCluster; ++k) {
+      if (k < C) {
+        const float f = wts[k * 16 + g];
+        acc.x = fmaf(v[k].x, f, acc.x);
+        acc.y = fmaf(v[k].y, f, acc.y);
+        acc.z = fmaf(v[k].z, f, acc.z);
+        acc.w = fmaf(v[k].w, f, acc.w);
+      }
+    }
+    // A row with nothing to attend: l = 0 gives zeros.
+    const float inv = 1.f / fmaxf(wts[kMaxCluster * 16 + g], 1e-20f);
+    *reinterpret_cast<uint2*>(out + g * kD + 4 * c4) = make_uint2(
+        wg::bf16x2_bits(__floats2bfloat162_rn(acc.x * inv, acc.y * inv)),
+        wg::bf16x2_bits(__floats2bfloat162_rn(acc.z * inv, acc.w * inv)));
+  }
+  hopper::cluster_sync();
+}
+
+template <typename KV>
+cudaError_t attributes() {
+  static const cudaError_t err = [] {
+    auto* kernel = latent_decode_tc_kernel<KV>;
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        Layout<KV>::kBytes);
+    if (e != cudaSuccess) return e;
+    return cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  }();
+  return err;
+}
+
+// The launch of a grid of (C, B) blocks in clusters of C; `attr` holds the
+// cluster's dimension.
+template <typename KV>
+cudaLaunchConfig_t config(cudaLaunchAttribute (&attr)[1], int C, int B,
+                          cudaStream_t stream) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(C, B, 1);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = Layout<KV>::kBytes;
+  cfg.stream = stream;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+template <typename KV>
+int launch(const Params& p, int B, int C, float* m, float* l,
+           cudaStream_t stream) {
+  cudaError_t err = attributes<KV>();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = config<KV>(attr, C, B, stream);
+  err = cudaLaunchKernelEx(&cfg, latent_decode_tc_kernel<KV>, p, m, l);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename KV>
+int clusters(int C) {
+  cudaError_t err = attributes<KV>();
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = config<KV>(attr, C, 1, 0);
+  int n = 0;
+  err = cudaOccupancyMaxActiveClusters(&n, latent_decode_tc_kernel<KV>, &cfg);
+  return err == cudaSuccess ? n : -static_cast<int>(err);
+}
+
+template <typename KV>
+void plan(long long* out) {
+  using L = Layout<KV>;
+  out[0] = kThreads;
+  out[1] = L::kBytes;
+  out[2] = L::kRaws;
+  out[3] = L::kConvs;
+  out[4] = kStep;
+  out[5] = kTRow;
+  out[6] = kMaxCluster;
+  out[7] = kCols;
+}
+
+}  // namespace dec
+
 }  // namespace
 
 // Ragged latent attention. q, out: [B, S, G, D] (dtype 0 = bfloat16, 1 =
@@ -1408,3 +2134,52 @@ extern "C" long long dli_latent_smem_bytes(int G, int D, int decode, int q8) {
   if (q8) return D == 576 ? smem_of<int8_t, 576>(r) : smem_of<int8_t, 80>(r);
   return D == 576 ? smem_of<float, 576>(r) : smem_of<float, 80>(r);
 }
+
+// Decode latent attention on the tensor cores (latent_decode_tc_kernel):
+// bf16 q (dtype 0) [B, 1, G, 576], 1 to 16 query heads, over the f32 pool
+// or the int8 one (`scales` non-null), pool and scales 16-byte aligned; out
+// [B, 1, G, 576] bf16, m and l [B, G] f32; q_positions [B] int32 (read only
+// under a window). One launch of B clusters of C (1..16) blocks, no
+// scratch. Returns cudaGetLastError() after the launch, or -1 outside
+// those widths.
+extern "C" int dli_latent_decode_tc(
+    const void* q, const void* pool, const void* scales, const void* table,
+    const void* kv_lens, const void* q_positions, void* out, void* m,
+    void* l, int B, int G, int D, int PS, int Tw, int C, float scale,
+    int window, int dtype, void* stream) {
+  if (D != dec::kD || dtype != 0 || G < 1 || G > 16 || C < 1 ||
+      C > dec::kMaxCluster || PS < 1 || Tw < 1)
+    return -1;
+  if (B <= 0) return 0;
+  const Params p = make_params(q, pool, scales, table, kv_lens, q_positions,
+                               nullptr, out, 1, G, PS, Tw, scale, window,
+                               dtype);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* mo = static_cast<float*>(m);
+  float* lo = static_cast<float*>(l);
+  return scales != nullptr ? dec::launch<int8_t>(p, B, C, mo, lo, st)
+                           : dec::launch<float>(p, B, C, mo, lo, st);
+}
+
+// Clusters of C blocks of latent_decode_tc_kernel (over the int8 pool if
+// q8) the card holds at once (cudaOccupancyMaxActiveClusters), or minus a
+// CUDA error, or -1 for C outside 1..16.
+extern "C" int dli_latent_decode_clusters(int C, int q8) {
+  if (C < 1 || C > dec::kMaxCluster) return -1;
+  return q8 ? dec::clusters<int8_t>(C) : dec::clusters<float>(C);
+}
+
+// The tensor-core decode instance's layout, as dec::Layout makes it (the
+// wrapper's `latent_decode_plan` states the same in Python): out[0]
+// threads a block, out[1] dynamic shared memory bytes, out[2] raw steps of
+// the ring, out[3] converted steps, out[4] positions a step, out[5] bytes
+// a converted row, out[6] the largest cluster, out[7] columns a consumer
+// warp.
+extern "C" int dli_latent_decode_plan(int q8, long long* out) {
+  if (q8)
+    dec::plan<int8_t>(out);
+  else
+    dec::plan<float>(out);
+  return 0;
+}
+

@@ -35,6 +35,13 @@ blocks and exchanges their maxima and sums through distributed shared
 memory, with no scratch in device memory (``csrc/fused_decode.cuh``, which
 says what bounds it; its rounding and tiles are the TPU kernel's, see
 ``ops/quant_attention.py``).
+The latent decode wrappers (``latent_paged_attention``,
+``quantized_latent_paged_attention``) call ``_paged_kernel`` /
+``_qpaged_kernel`` in JAX with K = V = the latent pool; here they have
+kernels of their own in ``csrc/latent_attention.cu``: for bf16 queries at
+lat_dim 576 one launch of a thread-block cluster a row over the latent
+pool in place, products on the tensor cores; else a split kernel and its
+merge on the CUDA cores.
 ``paged_tail_flush`` replaces the TPU kernel of the same name: it writes
 each row's ``tail_len`` tail slots to positions ``base_len + i`` of its
 pages, a direct scatter (the TPU kernel's whole-page read-modify-write with
@@ -46,8 +53,11 @@ ring's flushes; the destination policy in ``csrc/paged_attention.cu``).
 
 The wrappers launch the kernel for CUDA tensors and raise on anything the
 kernel does not take; they use the plain version only for tensors that lie
-on the CPU. ``launches``, ``quantized_launches``, ``fused_launches`` and
-``flush_launches`` count kernel launches (and nothing else).
+on the CPU. ``launches``, ``quantized_launches``, ``fused_launches``,
+``flush_launches``, ``latent_launches`` and ``quantized_latent_launches``
+count kernel calls (and nothing else); ``latent_decode_tc_launches`` and
+``quantized_latent_decode_tc_launches`` those of them on the tensor-core
+decode instance.
 """
 
 from __future__ import annotations
@@ -80,7 +90,12 @@ __all__ = [
     "quantized_latent_paged_attention_plain",
     "latent_launches",
     "quantized_latent_launches",
+    "latent_decode_tc_launches",
+    "quantized_latent_decode_tc_launches",
     "latent_split_plan",
+    "latent_decode_entry",
+    "latent_decode_plan",
+    "latent_cluster_size",
 ]
 
 # Kernel launches made by :func:`paged_attention` /
@@ -94,11 +109,23 @@ flush_launches = 0
 # :func:`quantized_latent_paged_attention`.
 latent_launches = 0
 quantized_latent_launches = 0
+# ... of them on the tensor-core decode instance (bf16 q at lat_dim 576).
+latent_decode_tc_launches = 0
+quantized_latent_decode_tc_launches = 0
 
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
 _MIN_SPLIT = 256  # positions: a block is not worth less
 _fn = {}
 _sm_count = {}
+
+
+def _sms(device) -> int:
+    """The SM count of ``device``, asked once."""
+    sms = _sm_count.get(device)
+    if sms is None:
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        _sm_count[device] = sms
+    return sms
 
 
 def split_plan(device, pairs: int, span: int):
@@ -107,10 +134,7 @@ def split_plan(device, pairs: int, span: int):
     ``pairs``, at least ``_MIN_SPLIT`` positions each, in whole 64s. Sized
     from the table width, which the host knows, not from the lengths, which
     live on the device."""
-    sms = _sm_count.get(device)
-    if sms is None:
-        sms = torch.cuda.get_device_properties(device).multi_processor_count
-        _sm_count[device] = sms
+    sms = _sms(device)
     num = max(1, min(-(-2 * sms // pairs), -(-span // _MIN_SPLIT)))
     chunk = -(-(-(-span // num)) // 64) * 64
     return num, chunk
@@ -123,11 +147,7 @@ def cluster_size(device, pairs: int, span: int) -> int:
     portable cluster), and no more than the 64-position steps of ``span``
     positions (a table's, or a dense buffer's width). The steps a block
     takes follow the live length at run time."""
-    sms = _sm_count.get(device)
-    if sms is None:
-        sms = torch.cuda.get_device_properties(device).multi_processor_count
-        _sm_count[device] = sms
-    return max(1, min(8, sms // pairs, -(-span // 64)))
+    return max(1, min(8, _sms(device) // pairs, -(-span // 64)))
 
 
 # C entry of each decode form: (symbol, pointer arguments, int arguments
@@ -469,19 +489,101 @@ _MAX_LATENT_SPLITS = 256  # the merge kernel's shared weights
 
 def latent_split_plan(device, batch: int, span: int):
     """How many blocks share one row's ``span`` table positions in the
-    latent decode kernel (``csrc/latent_attention.cu``), and how many
+    CUDA-core latent decode kernel (``csrc/latent_attention.cu``: f32
+    queries and lat_dim 80), and how many
     positions each takes: about two blocks per SM over the ``batch`` rows
     (one latent head: a row is one block unless split), at least
     ``_MIN_LATENT_SPLIT`` positions each, in whole 32-position tiles, at
     most ``_MAX_LATENT_SPLITS`` blocks a row."""
-    sms = _sm_count.get(device)
-    if sms is None:
-        sms = torch.cuda.get_device_properties(device).multi_processor_count
-        _sm_count[device] = sms
+    sms = _sms(device)
     splits = max(1, min(-(-2 * sms // batch), -(-span // _MIN_LATENT_SPLIT),
                         _MAX_LATENT_SPLITS))
     chunk = -(-(-(-span // splits)) // _LATENT_TILE) * _LATENT_TILE
     return -(-span // chunk), chunk
+
+
+# The tensor-core decode instance (``latent_decode_tc_kernel``): bf16
+# queries at this lat_dim (DeepSeek-V2/V3's 512 + 64).
+DECODE_TC_LAT_DIM = 576
+_DECODE_TC_MAX_CLUSTER = 16
+_DECODE_TC_STEP = 16
+_cluster_fit = {}
+
+
+def latent_decode_entry(dtype: torch.dtype, lat_dim: int) -> str:
+    """The C entry of ``csrc/latent_attention.cu`` that takes decode
+    latent attention for queries of ``dtype`` over a latent of ``lat_dim``:
+    the tensor-core instance for bf16 at lat_dim 576, else the CUDA-core
+    kernel and its merge (f32 queries, which the engine's exact-stream
+    checks need, and lat_dim 80). Widths neither takes are refused before
+    this is asked."""
+    if dtype == torch.bfloat16 and lat_dim == DECODE_TC_LAT_DIM:
+        return "dli_latent_decode_tc"
+    return "dli_latent_paged_attention"
+
+
+def latent_decode_plan(quantized: bool) -> dict:
+    """The tensor-core decode instance's block as ``csrc/latent_attention.cu``
+    lays it out (its ``dli_latent_decode_plan`` reports the same numbers):
+    three consumer warps, 192 of the 576 columns each (their third of Q
+    K^T's depth and of P V's columns), four converter warps and a producer
+    warp; a step of 16 positions. The shared memory is Q, the ring of
+    converted steps (bf16 rows of 576 + 8 values, a stride of 4 mod 32
+    words so that ldmatrix reads free of bank conflicts; the f32 pool a hi
+    and a lo tile a step), the ring of raw steps (pool rows as the bulk
+    copies land them), two buffers of partial scores, the int8 scales and
+    the barriers; after the walk the converted ring's first bytes hold the
+    block's (O, m, l) for the cluster's merge."""
+    d, warps, step = DECODE_TC_LAT_DIM, 4, _DECODE_TC_STEP
+    row = d * 2 + 16
+    tile = step * row
+    raw_bytes = step * d * (1 if quantized else 4)
+    raws, convs = (8, 6) if quantized else (2, 3)
+    conv_bytes = (1 if quantized else 2) * tile
+    x_bytes = 2 * warps * 2 * 32 * 16
+    smem = (16 * row + convs * conv_bytes + raws * raw_bytes + x_bytes
+            + ((raws + convs) * step * 4 if quantized else 0)
+            + 2 * (raws + convs) * 8)
+    return {"threads": (warps + 4 + 1) * 32, "smem_bytes": smem,
+            "raw_steps": raws, "converted_steps": convs, "step": step,
+            "converted_row_bytes": row,
+            "max_cluster": _DECODE_TC_MAX_CLUSTER,
+            "columns_a_warp": d // warps, "state_bytes": 16 * d * 4 + 128,
+            "converted_ring_bytes": convs * conv_bytes}
+
+
+def latent_cluster_fit(device, quantized: bool, cluster: int) -> int:
+    """How many clusters of ``cluster`` blocks of the tensor-core decode
+    instance the card holds at once (``cudaOccupancyMaxActiveClusters``,
+    asked once a width): a cluster's blocks share one GPC."""
+    key = (device, quantized, cluster)
+    n = _cluster_fit.get(key)
+    if n is None:
+        fn = _build.load_library("latent_attention").dli_latent_decode_clusters
+        fn.argtypes = [ctypes.c_int, ctypes.c_int]
+        fn.restype = ctypes.c_int
+        with torch.cuda.device(device):
+            n = fn(cluster, int(quantized))
+        if n < 0:
+            raise RuntimeError(
+                f"latent decode: cluster occupancy query failed ({n})")
+        _cluster_fit[key] = n
+    return n
+
+
+def latent_cluster_size(device, batch: int, span: int,
+                        quantized: bool) -> int:
+    """Blocks of the tensor-core decode instance's cluster for one row:
+    about one block an SM over the ``batch`` rows (B x C near the SM
+    count), at most 16 (the non-portable cluster) and the 16-position steps
+    of ``span`` table positions, and no more than lets the card hold the
+    batch's clusters at once. The steps each block takes follow the live
+    length at run time."""
+    c = max(1, min(_DECODE_TC_MAX_CLUSTER, _sms(device) // batch,
+                   -(-span // _DECODE_TC_STEP)))
+    while c > 1 and latent_cluster_fit(device, quantized, c) < batch:
+        c -= 1
+    return c
 
 
 def latent_kernel(symbol: str):
@@ -493,6 +595,7 @@ def latent_kernel(symbol: str):
             "dli_latent_ragged_attention": (8, 6, 2),
             "dli_latent_ragged_wgmma": (8, 6, 2),
             "dli_latent_paged_attention": (12, 7, 2),
+            "dli_latent_decode_tc": (9, 6, 2),
         }[symbol]
         fn.argtypes = [ctypes.c_void_p] * pointers + [ctypes.c_int] * ints + [
             ctypes.c_float, *[ctypes.c_int] * after, ctypes.c_void_p,
@@ -590,8 +693,11 @@ def quantized_latent_paged_attention_plain(
 
 def _latent_launch(name, q, c_pages, cs_pages, page_table, kv_lengths, scale,
                    sliding_window, q_positions, return_stats):
-    """Checks and the two launches of the latent decode kernel (the split
-    positions, then their merge), over scratch allocated here."""
+    """Checks and the launch of the latent decode kernel: for bf16 q at
+    lat_dim 576 one launch of the tensor-core instance (a cluster a row,
+    no scratch); else the CUDA-core kernel's two (the split positions,
+    then their merge), over scratch allocated here."""
+    global latent_decode_tc_launches, quantized_latent_decode_tc_launches
     b, s, g, d = q.shape
     if s != 1:
         raise ValueError(f"{name} is decode-only (S=1), got S={s}")
@@ -604,11 +710,35 @@ def _latent_launch(name, q, c_pages, cs_pages, page_table, kv_lengths, scale,
     page_size, width = c_pages.shape[2], page_table.shape[1]
     if scale is None:
         scale = d**-0.5
-    splits, chunk = latent_split_plan(q.device, b, width * page_size)
-    rows = 4 if g <= 4 else 8 if g <= 8 else 16  # the kernel's decode_rows
     out = torch.empty_like(q)
     m = torch.empty((b, 1, g), dtype=torch.float32, device=q.device)
     l = torch.empty_like(m)
+    if latent_decode_entry(q.dtype, d) == "dli_latent_decode_tc":
+        quantized = cs_pages is not None
+        if quantized and cs_pages.data_ptr() % 16:
+            # a step's 16 scales come by one bulk copy
+            raise ValueError(f"{name}: cs_pages must be 16-byte aligned")
+        cluster = latent_cluster_size(q.device, b, width * page_size,
+                                      quantized)
+        with torch.cuda.device(q.device):
+            err = latent_kernel("dli_latent_decode_tc")(
+                q.data_ptr(), c_pages.data_ptr(),
+                None if cs_pages is None else cs_pages.data_ptr(),
+                page_table.data_ptr(), kv_lengths.data_ptr(),
+                q_positions.data_ptr(), out.data_ptr(), m.data_ptr(),
+                l.data_ptr(), b, g, d, page_size, width, cluster,
+                float(scale), int(sliding_window or 0), code,
+                torch.cuda.current_stream().cuda_stream,
+            )
+        if err != 0:
+            raise RuntimeError(f"{name}: kernel launch failed ({err})")
+        if quantized:
+            quantized_latent_decode_tc_launches += 1
+        else:
+            latent_decode_tc_launches += 1
+        return (out, m, l) if return_stats else out
+    splits, chunk = latent_split_plan(q.device, b, width * page_size)
+    rows = 4 if g <= 4 else 8 if g <= 8 else 16  # the kernel's decode_rows
     part_o = torch.empty((b, splits, rows, d), dtype=torch.float32,
                          device=q.device)
     part_ml = torch.empty((2, b, splits, rows), dtype=torch.float32,
@@ -648,7 +778,11 @@ def latent_paged_attention(
     :func:`paged_attention`: ``(out, m, l)`` with ``return_stats``, ``m``
     and ``l`` ``[B, 1, Hq]``. All the arithmetic is f32; the output is
     rounded to q's type. On the card, ``csrc/latent_attention.cu``
-    (lat_dim 576 or 80, 1 to 16 query heads)."""
+    (lat_dim 576 or 80, 1 to 16 query heads): bf16 queries at lat_dim 576
+    on the tensor cores, one cluster launch a call with f32-grade products
+    from bf16 hi + lo terms (:func:`latent_decode_plan`,
+    :func:`latent_cluster_size`); f32 queries and lat_dim 80 on the CUDA
+    cores, a split kernel and its merge (:func:`latent_decode_entry`)."""
     global latent_launches
     if q.device.type == "cpu":
         return latent_paged_attention_plain(

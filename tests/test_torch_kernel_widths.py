@@ -3,10 +3,10 @@ wrapper launches its kernel for 1 to 8 query heads a kv head at head_dim 64
 and 128, passes those widths to the C entry, and raises for 9 query heads a
 kv head (naming ROADMAP.md queue 1, item 18) and for head_dim 96 and 256;
 the four latent wrappers take 1, 8 and 16 query heads over lat_dim 576 and
-80 and raise for 17 and 128 heads (item 19) and lat_dim 64, the ragged ones
-through the tensor-core entry for bf16 q at lat_dim 576 and the CUDA-core
-one for f32 q and lat_dim 80; no call of a tensor on the card ever takes
-the plain version. And the engine refuses
+80 and raise for 17 and 128 heads (item 19) and lat_dim 64, through the
+tensor-core entries (ragged and decode) for bf16 q at lat_dim 576 and the
+CUDA-core ones for f32 q and lat_dim 80; no call of a tensor on the card
+ever takes the plain version. And the engine refuses
 such a model, per-head or latent, when it is built on the card.
 
 No card here: the tensors are CPU tensors that report a CUDA device
@@ -98,8 +98,15 @@ def card(monkeypatch):
     def plain(*args, **kwargs):
         raise AssertionError("a tensor on the card took the plain version")
 
-    for mod, counter in LATENT_WRAPPERS.values():
+    for mod, counter in (*LATENT_WRAPPERS.values(),
+                         (tra, "latent_wgmma_launches"),
+                         (tra, "quantized_latent_wgmma_launches"),
+                         (tpa, "latent_decode_tc_launches"),
+                         (tpa, "quantized_latent_decode_tc_launches")):
         monkeypatch.setattr(mod, counter, getattr(mod, counter))
+    # The card holds 132 // C clusters of C decode blocks.
+    monkeypatch.setattr(tpa, "latent_cluster_fit",
+                        lambda device, quantized, c: 132 // c)
     for mod, names in (
             (tpa, ("paged_attention_plain", "quantized_paged_attention_plain",
                    "quantized_paged_fused_attention_plain",
@@ -351,9 +358,9 @@ LATENT_WIDTHS = [(16, 576), (1, 576), (8, 80)]
 def test_latent_wrappers_launch_on_the_card(card, name, g, d):
     """One C call of ``csrc/latent_attention.cu`` with the widths, the
     window and the scale plane (null over the f32 pool), one launch
-    counted; decode rows of 64 table positions take one split each. The
-    ragged wrappers take the tensor-core entry for bf16 q at lat_dim 576,
-    the CUDA-core one at lat_dim 80."""
+    counted. bf16 q at lat_dim 576 takes the tensor-core entries (decode:
+    a cluster of 4 blocks for a table of 64 positions, four 16-position
+    steps), lat_dim 80 the CUDA-core ones (decode: one split of 64)."""
     mod, counter = LATENT_WRAPPERS[name]
     before = getattr(mod, counter)
     out = _latent(name, g, d, window=300)
@@ -365,6 +372,9 @@ def test_latent_wrappers_launch_on_the_card(card, name, g, d):
         assert symbol == ("dli_latent_ragged_wgmma" if d == 576
                           else "dli_latent_ragged_attention")
         assert args[8:14] == (B, 3, g, d, PS, 4)  # B S G D PS Tw
+    elif d == 576:
+        assert symbol == "dli_latent_decode_tc"
+        assert args[9:15] == (B, g, d, PS, 4, 4)  # B G D PS Tw cluster
     else:
         assert symbol == "dli_latent_paged_attention"
         assert args[12:19] == (B, g, d, PS, 4, 1, 64)  # ... splits chunk
@@ -401,6 +411,44 @@ def test_latent_ragged_routes_by_query_dtype_and_lat_dim(card, name, g,
     assert getattr(mod, counter) == before + 1
     (got, args), = card.calls
     assert got == symbol == tra.latent_ragged_entry(dtype, d)
+    assert args[-2] == (0 if dtype == torch.bfloat16 else 1)
+    assert (args[2] is None) == (not name.startswith("quantized"))
+
+
+# (query dtype, lat_dim) -> the decode C entry: the tensor-core instance
+# (one launch, no scratch) takes bf16 at 576 only; f32 q and lat_dim 80 keep
+# the CUDA-core kernel and its merge.
+DECODE_ROUTES = [
+    (torch.bfloat16, 576, "dli_latent_decode_tc"),
+    (torch.float32, 576, "dli_latent_paged_attention"),
+    (torch.bfloat16, 80, "dli_latent_paged_attention"),
+    (torch.float32, 80, "dli_latent_paged_attention"),
+]
+
+
+@pytest.mark.parametrize("dtype,d,symbol", DECODE_ROUTES,
+                         ids=[f"{str(t)[6:]}_d{d}" for t, d, _ in
+                              DECODE_ROUTES])
+@pytest.mark.parametrize("g", [1, 16])
+@pytest.mark.parametrize("name", ["latent_paged_attention",
+                                  "quantized_latent_paged_attention"])
+def test_latent_decode_routes_by_query_dtype_and_lat_dim(card, name, g,
+                                                        dtype, d, symbol):
+    """The decode latent wrappers pick their C entry from (q's dtype,
+    lat_dim) alone, over either pool: one call, the dtype code passed, q's
+    dtype out, m and l, one launch counted (and, on the tensor-core entry,
+    one on its own count), no plain version."""
+    mod, counter = LATENT_WRAPPERS[name]
+    tc = ("quantized_" if name.startswith("quantized") else "") + (
+        "latent_decode_tc_launches")
+    before, tc_before = getattr(mod, counter), getattr(tpa, tc)
+    out, m, l = _latent(name, g, d, dtype=dtype)
+    assert out.dtype == dtype and out.shape == (B, 1, g, d)
+    assert m.shape == l.shape == (B, 1, g)
+    assert getattr(mod, counter) == before + 1
+    assert getattr(tpa, tc) == tc_before + (symbol == "dli_latent_decode_tc")
+    (got, args), = card.calls
+    assert got == symbol == tpa.latent_decode_entry(dtype, d)
     assert args[-2] == (0 if dtype == torch.bfloat16 else 1)
     assert (args[2] is None) == (not name.startswith("quantized"))
 

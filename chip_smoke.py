@@ -220,7 +220,31 @@ one line per engine configuration or comparison):
               instance), no per-head attention kernel, no
               plain version and no gather, a decode tick and a prefill
               profiled (the idle share; the prefill's latent kernel ms,
-              one launch a layer).
+              one launch a layer). Then prefix caching (`phase_prefix`):
+              #1, #2, #4, #5 and #15b's tensor-core instance against their
+              plain versions at the rows it gives them (a one-query
+              copy-on-write row at n - 1, suffixes from a page boundary
+              1536 deep, decode rows whose tables name the same 24 pages);
+              `llama3_8b_prefix_bf16_pages` and `_int8_pages` (full depth,
+              K = 16, sharing on): a writer over a 1536-token system
+              prompt, seven more suffixes of 40-300 tokens while it
+              decodes, then the bare prompt (the copy-on-write split) and
+              the first again, then two prompts over a second system
+              prompt in one tick; twice, streams and `prefix_*` counters
+              repeated, the launches of #1 / #2 or #4 / #6 / #7 read; a
+              cold engine on the same traffic (the share of equal
+              tokens), the hit prefill's device ms against the cold one's
+              and the first-token logits of one prompt on both within
+              `PREFIX_LOGIT_TOL`; the spill engine (bf16 pages, a 50-page
+              pool, a 1 GiB arena: a 2800-token prompt evicts the system
+              prompt's pages, which reload bit for bit; `read_page` timed
+              where the engine calls it); `deepseek_v2_lite_prefix_int8latent`
+              (4 layers, a 1024-token shared prompt, every #15b launch on
+              `latent_wgmma_kernel`). Then `phase_outlier`:
+              `llama3_8b_8l_int8outlier_int8pages` (int8 weights with 32
+              fp outlier channels, 8 layers, int8 pages, K = 16) through
+              the traffic and profiles above, with its `engine_family`
+              line; no product takes the W8A8 route.
 4. parity   - 2 layers of the same widths in f32 (TF32 off): the bf16 pool
               at K = 16, at K = 1 and on the gather path, identical greedy
               streams; int4 weights over the int8 pool, kernels against the
@@ -249,10 +273,18 @@ one line per engine configuration or comparison):
               against without at K = 1, identical; their K = 16 against
               K = 1 shown. Then 2 layers of DeepSeek-V2-Lite's widths over
               both latent pools: the latent kernels against the gather
-              path at K = 1 and at an explicit K = 4, identical.
+              path at K = 1 and at an explicit K = 4, identical. Last,
+              prefix caching (`phase_parity_prefix`), 2 layers: sharing on
+              (a 14-page pool, a spill arena) against off, greedy and
+              sampled, over the model-dtype and int8 pages (K = 16) and
+              the f32 latent pool: the JAX tests' sequence, a spill and a
+              reload, identical streams; `int8_outlier` over int8 pages at
+              K = 16 against K = 1, the share of equal tokens.
 
 Then a line `{"kernels": [...]}` with one entry per kernel (the only line
-with that key: phase 2 lists its results under `checked`), then phase 5:
+with that key: phase 2 lists its results under `checked`; each entry also
+carries its launches on the prefix paths and on the int8_outlier path),
+then phase 5:
 
 5. serve    - a checkpoint loaded and served through the OpenAI gateway.
               A 2-layer checkpoint at Llama-3-8B widths (bf16, seeded) is
@@ -300,6 +332,7 @@ exit code non-zero.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import ctypes
 import dataclasses
@@ -320,10 +353,12 @@ import torch
 
 from distributed_llm_inference_tpu_torch.cache.base import window_ladder
 from distributed_llm_inference_tpu_torch import cli
+from distributed_llm_inference_tpu_torch.cache.paged import PageAllocator
 from distributed_llm_inference_tpu_torch.config import (
     CacheConfig,
     EngineConfig,
     ModelConfig,
+    PrefixConfig,
     RopeScaling,
     ServingConfig,
 )
@@ -2809,7 +2844,9 @@ ATTENTION_KERNELS = ("fused_cluster_kernel", "paged_decode_kernel",
                      *PASS_KERNELS, "paged_partial_kernel",
                      "paged_combine_kernel", "latent_kernel",
                      "latent_merge_kernel", "latent_wgmma_kernel",
-                     "latent_decode_tc_kernel")
+                     "latent_decode_tc_kernel",
+                     # #1 / #4 (both instances), for the prefill profiles.
+                     "ragged_kernel")
 # The int4 matmul's kernels: bf16 x (one launch a call), f32 x (the
 # CUDA-core kernel, with the combine of its split partials).
 INT4_KERNELS = ("int4_mma_kernel", "int4_matmul_kernel", "int4_combine_kernel")
@@ -5702,6 +5739,560 @@ def phase_serve_deepseek():
 
 
 # ---------------------------------------------------------------------------
+# phases 3 and 4: prefix caching (copy-on-write shared pages, the host spill
+# tier) and int8 weights with fp outlier channels
+# ---------------------------------------------------------------------------
+
+PREFIX_SYS = 1536        # the shared system prompt: 24 full pages of 64
+# Eight suffixes of 40-300 tokens (64 and 128 end on a page boundary).
+PREFIX_SUFFIXES = (40, 300, 75, 128, 64, 211, 150, 99)
+PREFIX_NEW = 32
+PREFIX_HIT_SUFFIX = 200  # the timed hit: the system prompt + 200 fresh tokens
+PREFIX_LONG = 2800       # the spill engine's distinct prompt
+PREFIX_SPILL_PAGES = 50  # its pool: 49 pages of 8 MiB at Llama-3-8B widths
+PREFIX_SPILL_BYTES = 1 << 30
+# The hit prefill's first-token logits against the cold engine's for the
+# same prompt (bf16, 32 layers): the shared pages hold the same K/V bit for
+# bit (the writer's prefill ran the cold one's dispatch width), the suffix
+# rows differ by rounding (another GEMM width, another query tiling).
+PREFIX_LOGIT_TOL = 0.05  # max |logit difference| over max |logit|
+# #1 / #4 at the prefix paths' rows, one B = 4 launch: the copy-on-write
+# split (1 query at n - 1 = 1535, inside the last shared page), a 300-token
+# suffix and a 40-token one starting on the page boundary at 1536, one
+# query inside a page; the tables share their first 24 pages.
+PREFIX_ROWS = {"q_start": [1535, 1536, 1536, 1000],
+               "num_new": [1, 300, 40, 1]}
+PREFIX_BF16 = MAIN_BF16
+PREFIX_INT8 = {"quantized_paged_fused_attention": (pa, "fused_launches"),
+               "paged_tail_flush": (pa, "flush_launches"), **QRAGGED}
+
+
+def shared_table(rng, batch, width, num_pages, shared):
+    """:func:`make_table` whose rows all name row 0's first ``shared``
+    pages, as sessions sharing a prefix do."""
+    table = make_table(rng, batch, width, num_pages)
+    table[:, :shared] = table[0, :shared]
+    return table
+
+
+def prefix_kernel_cases(dtype):
+    """#1, #4 at ``PREFIX_ROWS`` and #2, #5 over decode rows whose tables
+    name the same 24 pages (lengths 1536-1900), against their plain
+    versions; #15b's tensor-core instance (bf16 q, lat_dim 576) at the
+    latent path's rows (a split at 1023, suffixes from the 16-page
+    boundary at 1024, one query inside a page), which must take it.
+    Returns (name, error, tolerance) cases."""
+    rng = np.random.default_rng(2024)
+    cases = []
+    q_start = i32(PREFIX_ROWS["q_start"])
+    num_new = i32(PREFIX_ROWS["num_new"])
+    kv_len = q_start + num_new
+    width = -(-int(kv_len.max()) // PS) + 1
+    pages = 8 * width + 1
+    table = shared_table(rng, 4, width, pages, PREFIX_SYS // PS)
+    q = normal(rng, (4, max(PREFIX_ROWS["num_new"]), HQ, D), dtype)
+    qd = normal(rng, (8, 1, HQ, D), dtype)
+    table8 = shared_table(rng, 8, width, pages, PREFIX_SYS // PS)
+    lens8 = i32([1536, 1537, 1576, 1600, 1663, 1664, 1836, 1900])
+    for pool in (make_pool(rng, pages, dtype), make_qpool(rng, pages)):
+        rname, pname = ragged_fns(pool)[0], paged_fns(pool)[0]
+        compare_ragged(cases, f"prefix_{rname}", dtype, q, pool, table,
+                       kv_len, num_new, q_start=q_start)
+        compare_paged(cases, f"prefix_{pname}_shared_pages", dtype, qd, pool,
+                      table8, lens8)
+    lat_new = i32([1, 300, 40, 1])
+    lat_len = i32([1024, 1324, 1064, 501])
+    width = -(-1324 // PS) + 1
+    pages = 4 * width + 1
+    _, pool8 = latent_pools(rng, pages, PS, 576)
+    lat_table = shared_table(rng, 4, width, pages, 1024 // PS)
+    before = ra.quantized_latent_wgmma_launches
+    compare_latent(cases, "prefix_qlatrag", "ragged",
+                   normal(rng, (4, 300, 16, 576), dtype) * 0.1, pool8,
+                   lat_table, lat_len, lat_new)
+    ran = ra.quantized_latent_wgmma_launches - before
+    assert ran == (1 if dtype == torch.bfloat16 else 0), ran
+    assert_cases(cases, dtype)
+    return cases
+
+
+def prefix_engine(cfg, params, ckw, prefix=True, spill=0, num_pages=2048,
+                  **ekw):
+    return InferenceEngine(
+        cfg, params, EngineConfig(max_batch_size=8, **ekw),
+        CacheConfig(num_pages=num_pages, prefix_caching=prefix, **ckw),
+        prefix_cfg=PrefixConfig(spill_bytes_max=spill),
+        generator=torch.Generator().manual_seed(11), device=DEV)
+
+
+def prefix_counters(engine):
+    return {k: v for k, v in engine.metrics.snapshot().items()
+            if k.startswith("prefix_")}
+
+
+def prefix_traffic(engine, vocab, seed, sys_len=PREFIX_SYS,
+                   suffixes=PREFIX_SUFFIXES, new_tokens=PREFIX_NEW):
+    """The prefix paths' traffic, greedy: one writer (the system prompt and
+    its first suffix) admitted alone; once it decodes, the other suffixes'
+    prompts, which attach to its pages; after they finish, the bare system
+    prompt (every page matched: the copy-on-write split) and the first
+    prompt again; last, two prompts over a second system prompt submitted
+    together (the sharer admitted in the writer's tick, its prefill
+    enqueued right behind the writer's). Returns (system prompt, prompts,
+    streams)."""
+    rng = np.random.default_rng(seed)
+    system = rng.integers(0, vocab, size=sys_len).tolist()
+    prompts = [system + rng.integers(0, vocab, size=n).tolist()
+               for n in suffixes]
+    greedy = SamplingOptions(max_new_tokens=new_tokens)
+    client = Client(engine)
+    client.submit(prompts[0], greedy)
+    steps = 0
+    while not client.streams[client.order[0]]:
+        client.step()
+        steps += 1
+        assert steps < 100, "the writer never started"
+    for p in prompts[1:]:
+        client.submit(p, greedy)
+    streams = client.drain()
+    client = Client(engine)
+    client.submit(system, greedy)
+    client.submit(prompts[0], greedy)
+    streams += client.drain()
+    second = rng.integers(0, vocab, size=sys_len).tolist()
+    client = Client(engine)
+    for n in suffixes[:2]:
+        client.submit(second + rng.integers(0, vocab, size=n).tolist(),
+                      greedy)
+    streams += client.drain()
+    assert all(len(s) == new_tokens for s in streams), [len(s) for s in streams]
+    assert all(0 <= t < vocab for s in streams for t in s)
+    return system, prompts, streams
+
+
+def first_logits(engine, prompt):
+    """Admit ``prompt`` alone into the idle ``engine`` for one token; the
+    last position's logits of its final prefill dispatch, in f32."""
+    seen = []
+    real = llama.model_apply
+
+    def spy(*args, **kwargs):
+        out = real(*args, **kwargs)
+        if kwargs.get("head") == "last":
+            seen.append(out[0][0, -1].float().clone())
+        return out
+
+    llama.model_apply = spy
+    try:
+        engine.generate([prompt], SamplingOptions(max_new_tokens=1))
+    finally:
+        llama.model_apply = real
+    return seen[-1]
+
+
+def hit_prefill(engine, vocab, system, seed):
+    """A decode-free admission of the system prompt + ``PREFIX_HIT_SUFFIX``
+    fresh tokens (one [1, 200] dispatch on a hit), profiled as phase 3
+    profiles prefills (:func:`profile_steps`: host clock, profiler, CUDA
+    events behind a spin); a new suffix each step."""
+    rng = np.random.default_rng(seed)
+
+    def submit():
+        engine.submit(system + rng.integers(
+            0, vocab, size=PREFIX_HIT_SUFFIX).tolist(),
+            SamplingOptions(max_new_tokens=1))
+
+    submit()
+    engine.step()  # warm-up
+    out = profile_steps(engine, submit, 2)
+    assert not engine.has_work()
+    return out
+
+
+def run_prefix(label, cfg, params, ckw, counters):
+    """``prefix_traffic`` through the engine at the default K = 16
+    (captured, pipelined, overlapped admission) with ``prefix_caching`` and
+    sharing on, twice with one seed (the streams and counters must repeat),
+    the path's counters zeroed before the first run and read after it;
+    then a cold engine (prefix caching off) on the same traffic (the share
+    of equal greedy tokens), the hit prefill's device ms against the cold
+    one's for the same prompts, and the first-token logits of one such
+    prompt on both. Returns (report, launches)."""
+    torch.cuda.reset_peak_memory_stats()
+    runs = []
+    for attempt in range(2):
+        engine = prefix_engine(cfg, params, ckw)
+        assert engine.decode_steps == KT and engine._pipelined
+        assert engine.cache.use_kernel and engine.cache.use_ragged
+        if attempt == 0:
+            for module, attr in counters.values():
+                setattr(module, attr, 0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        system, prompts, streams = prefix_traffic(engine, cfg.vocab_size, 5)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if attempt == 0:
+            launches = {n: getattr(m, a) for n, (m, a) in counters.items()}
+        got = prefix_counters(engine)
+        runs.append((streams, {k: v for k, v in got.items()
+                               if not k.endswith("_s")}, wall, engine))
+        if attempt == 0:
+            del engine
+            torch.cuda.empty_cache()
+    streams, counts, wall, engine = runs[1]
+    assert runs[0][0] == streams, "two runs with one seed: streams differ"
+    assert runs[0][1] == counts, "two runs with one seed: counters differ"
+    for name, n in launches.items():
+        assert n > 0, f"{name} was never launched on the path of {label}"
+    shared_pages = PREFIX_SYS // PS
+    # Seven sharers, the bare prompt, the first again, the same-tick sharer.
+    assert counts["prefix_pages_shared"] >= 10 * shared_pages - 1, counts
+    assert counts["prefix_cached_tokens"] >= 10 * PREFIX_SYS - 1, counts
+    assert counts["prefix_cow_copies"] >= 1, counts
+    assert engine.allocator.free_count == 2048 - 1, "pages leaked"
+    n_prompts = len(streams)
+    hit = hit_prefill(engine, cfg.vocab_size, system, 31)
+    probe = system + np.random.default_rng(37).integers(
+        0, cfg.vocab_size, size=PREFIX_HIT_SUFFIX).tolist()
+    hit_logits = first_logits(engine, probe)
+    peak = torch.cuda.max_memory_allocated()
+    del engine, runs
+    torch.cuda.empty_cache()
+    cold = prefix_engine(cfg, params, ckw, prefix=False)
+    _, _, cold_streams = prefix_traffic(cold, cfg.vocab_size, 5)
+    share, first = shares(streams, cold_streams)
+    cold_prof = hit_prefill(cold, cfg.vocab_size, system, 31)
+    cold_logits = first_logits(cold, probe)
+    del cold
+    torch.cuda.empty_cache()
+    err = float((hit_logits - cold_logits).abs().max())
+    scale = float(cold_logits.abs().max())
+    assert err <= PREFIX_LOGIT_TOL * scale, (
+        f"{label}: hit logits differ by {err} (max |logit| {scale})")
+    same_top = int(hit_logits.argmax()) == int(cold_logits.argmax())
+    report = {
+        "phase": "engine_prefix", "config": label, "card": CARD,
+        "model": f"llama-3-8b widths, {cfg.num_layers} layers, random bf16 "
+                 f"weights",
+        "traffic": {"system_tokens": PREFIX_SYS, "suffixes": PREFIX_SUFFIXES,
+                    "new_tokens": PREFIX_NEW, "prompts": n_prompts},
+        "launches": launches, "repeatable": True, "prefix_counters": counts,
+        "wall_s": wall,
+        "tokens_per_s": sum(len(s) for s in streams) / wall,
+        "cold_equal_token_share": share, "cold_first_divergence": first,
+        "hit_prefill": {k: hit[k] for k in (
+            "wall_ms", "device_ms", "device_ms_events", "device_idle_share",
+            "kernels")},
+        "cold_prefill": {k: cold_prof[k] for k in (
+            "wall_ms", "device_ms", "device_ms_events", "device_idle_share",
+            "kernels")},
+        # The kernels' sum (the profiler) and the span of the step behind a
+        # spin (the events, which also take in the card's idle time).
+        "hit_over_cold_device_ms_profiler": hit["device_ms"]
+        / cold_prof["device_ms"],
+        "hit_over_cold_device_ms_events": hit["device_ms_events"]
+        / cold_prof["device_ms_events"],
+        "hit_prefill_attention": hit["attention_kernels"],
+        "cold_prefill_attention": cold_prof["attention_kernels"],
+        "first_logits_max_abs_err": err, "first_logits_max_abs": scale,
+        "first_logits_tolerance": PREFIX_LOGIT_TOL * scale,
+        "first_logits_same_argmax": same_top,
+        "max_memory_allocated": peak,
+    }
+    emit(report)
+    return report, launches
+
+
+def run_prefix_spill(cfg, params, counters):
+    """The spill engine over bf16 pages: a pool of ``PREFIX_SPILL_PAGES``
+    and a 1 GiB arena. The system prompt and its first suffix, then a
+    distinct ``PREFIX_LONG``-token prompt whose pages evict the system
+    prompt's into the arena (each ``read_page`` timed where the engine
+    calls it, inside admission and growth), then the first prompt again,
+    which reloads them. Every reloaded page must read back bit for bit what
+    was spilled. Returns (report, launches)."""
+    torch.cuda.reset_peak_memory_stats()
+    engine = prefix_engine(cfg, params, {}, spill=PREFIX_SPILL_BYTES,
+                           num_pages=PREFIX_SPILL_PAGES)
+    reads = []
+    real_read = engine.cache.read_page
+
+    def timed_read(page):
+        t0 = time.perf_counter()
+        tiles = real_read(page)
+        reads.append((time.perf_counter() - t0) * 1e3)
+        return tiles
+
+    engine.cache.read_page = timed_read
+    for module, attr in counters.values():
+        setattr(module, attr, 0)
+    rng = np.random.default_rng(5)
+    system = rng.integers(0, cfg.vocab_size, size=PREFIX_SYS).tolist()
+    prompt = system + rng.integers(0, cfg.vocab_size,
+                                   size=PREFIX_SUFFIXES[0]).tolist()
+    opts = SamplingOptions(max_new_tokens=PREFIX_NEW)
+    t0 = time.perf_counter()
+    first = engine.generate([prompt], opts)[0]
+    engine.generate([rng.integers(0, cfg.vocab_size,
+                                  size=PREFIX_LONG).tolist()], opts)
+    spilled_pages = engine.metrics.get_counter("prefix_spilled_pages")
+    assert spilled_pages > 0, "nothing was spilled"
+    keys = PageAllocator.chain_keys(system, PS)
+    spilled = {k: {n: t.clone() for n, t in engine._spill.peek(k).items()}
+               for k in keys if k in engine._spill}
+    assert spilled, "no page of the system prompt was spilled"
+    again = engine.generate([prompt], opts)[0]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {n: getattr(m, a) for n, (m, a) in counters.items()}
+    counts = prefix_counters(engine)
+    assert counts["prefix_spill_reloads"] > 0, counts
+    assert counts.get("prefix_reload_errors", 0) == 0, counts
+    equal = 0
+    for key, tiles in spilled.items():
+        page = engine.allocator.peek(key)
+        assert page is not None, "a spilled page of the prompt was not reloaded"
+        back = real_read(page)
+        assert all(torch.equal(back[n], t) for n, t in tiles.items()), (
+            "a reloaded page differs from its spilled tiles")
+        equal += 1
+    page_bytes = sum(t.nbytes for t in next(iter(spilled.values())).values())
+    reload_ms = engine.metrics._timings["prefix_reload_ms"]
+    report = {
+        "phase": "engine_prefix_spill", "card": CARD,
+        "config": "llama3_8b_prefix_spill_bf16_pages: bf16 weights, bf16 "
+                  f"pages, {PREFIX_SPILL_PAGES}-page pool, 1 GiB arena, K=16",
+        "model": f"llama-3-8b widths, {cfg.num_layers} layers, random bf16 "
+                 f"weights",
+        "launches": launches, "prefix_counters": counts, "wall_s": wall,
+        "page_bytes": page_bytes,
+        "read_page_ms": {"calls": len(reads), "mean": float(np.mean(reads)),
+                         "max": float(np.max(reads))},
+        "reload_ms_a_page": {"calls": len(reload_ms),
+                             "mean": float(np.mean(reload_ms)),
+                             "max": float(np.max(reload_ms))},
+        "reloaded_pages_bitwise_equal": equal,
+        "stream_after_reload_equals_first": again == first,
+        "max_memory_allocated": torch.cuda.max_memory_allocated(),
+    }
+    del engine
+    torch.cuda.empty_cache()
+    emit(report)
+    return report, launches
+
+
+def run_prefix_latent(counters, wgmma):
+    """DeepSeek-V2-Lite's widths at 4 layers (``LATENT_CUTS`` and a cut of
+    depth) over the int8 latent pool with prefix caching, K = 1: a writer
+    over a 1024-token shared prompt (16 pages), then 3 more suffixes while
+    it decodes, then the bare prompt (the copy-on-write split) and the
+    first again. Every #15b launch on its tensor-core instance; the share
+    of equal tokens against a cold engine. Returns (report, launches)."""
+    cfg = dataclasses.replace(DEEPSEEK_V2_LITE, num_layers=4)
+    params = llama.init_params(cfg, torch.Generator(device=DEV).manual_seed(6),
+                               torch.bfloat16, DEV)
+    torch.cuda.reset_peak_memory_stats()
+    watch = {**counters, **{f"{n}.tensor_cores": v for n, v in wgmma.items()}}
+    for module, attr in watch.values():
+        setattr(module, attr, 0)
+    ckw = {"kv_quant": "int8"}
+    engine = prefix_engine(cfg, params, ckw)
+    assert engine.decode_steps == 1 and engine.cache.use_ragged
+    t0 = time.perf_counter()
+    _, _, streams = prefix_traffic(engine, cfg.vocab_size, 9, sys_len=1024,
+                                   suffixes=PREFIX_SUFFIXES[:4])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = {n: getattr(m, a) for n, (m, a) in watch.items()}
+    launches = {n: got[n] for n in counters}
+    for name in wgmma:
+        assert got[f"{name}.tensor_cores"] == launches[name] > 0, got
+    counts = prefix_counters(engine)
+    assert counts["prefix_cow_copies"] >= 1 and counts[
+        "prefix_pages_shared"] > 0, counts
+    assert engine.allocator.free_count == 2048 - 1, "pages leaked"
+    del engine
+    cold = prefix_engine(cfg, params, ckw, prefix=False)
+    _, _, cold_streams = prefix_traffic(cold, cfg.vocab_size, 9, sys_len=1024,
+                                        suffixes=PREFIX_SUFFIXES[:4])
+    share, first = shares(streams, cold_streams)
+    report = {
+        "phase": "engine_prefix", "card": CARD,
+        "config": "deepseek_v2_lite_prefix_int8latent: bf16 weights, int8 "
+                  "latent pages, 4 layers, K=1",
+        "model": f"deepseek-v2-lite widths, {cfg.num_layers} layers, random "
+                 f"bf16 weights", "cuts": LATENT_CUTS,
+        "launches": launches,
+        "tensor_core_launches": {n: got[f"{n}.tensor_cores"] for n in wgmma},
+        "prefix_counters": {k: v for k, v in counts.items()
+                            if not k.endswith("_s")},
+        "wall_s": wall, "cold_equal_token_share": share,
+        "cold_first_divergence": first,
+        "max_memory_allocated": torch.cuda.max_memory_allocated(),
+    }
+    del cold, params
+    torch.cuda.empty_cache()
+    emit(report)
+    return report, launches
+
+
+def phase_prefix():
+    """Phase 3's prefix-caching paths at Llama-3-8B widths and full depth
+    (32 layers, random bf16 weights, pages of 64, K = 16 captured and
+    pipelined, sharing on): ``llama3_8b_prefix_bf16_pages`` (#1, #2) and
+    ``llama3_8b_prefix_int8_pages`` (#4, #6, #7), each with
+    :func:`run_prefix`; the spill engine over bf16 pages; then
+    ``deepseek_v2_lite_prefix_int8latent`` (#15b, #15d). First, the
+    kernels at the rows these paths give them (:func:`prefix_kernel_cases`).
+    Returns launches by kernel, summed over the paths."""
+    checked = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        checked[str(dtype)] = {n: e for n, e, _ in prefix_kernel_cases(dtype)}
+    emit({"phase": "prefix_kernels", "card": CARD, "cases": checked,
+          "tolerance": {str(k): v for k, v in TOL.items()}})
+    cfg = LLAMA3_8B
+    params = llama.init_params(
+        cfg, torch.Generator(device=DEV).manual_seed(0), torch.bfloat16, DEV)
+    launches = collections.Counter()
+    for label, ckw, counters in (
+            ("llama3_8b_prefix_bf16_pages: bf16 weights, bf16 pages, K=16, "
+             "prefix sharing", {}, PREFIX_BF16),
+            ("llama3_8b_prefix_int8_pages: bf16 weights, int8 pages, K=16, "
+             "prefix sharing", {"kv_quant": "int8"}, PREFIX_INT8)):
+        launches.update(run_prefix(label, cfg, params, ckw, counters)[1])
+    launches.update(run_prefix_spill(cfg, params, PREFIX_BF16)[1])
+    del params
+    torch.cuda.empty_cache()
+    launches.update(run_prefix_latent(
+        LATENT_INT8, {n: LATENT_TENSOR_CORES[n] for n in LATENT_INT8})[1])
+    return dict(launches)
+
+
+OUTLIER_LAYERS = 8
+
+
+def phase_outlier():
+    """``llama3_8b_8l_int8outlier_int8pages``: Llama-3-8B widths at 8
+    layers, int8 weights with 32 fp outlier input channels a projection
+    (``quantization="int8_outlier"``, chosen by weight-row absmax) over int8
+    pages, K = 16 captured, through :func:`run_config` (the smoke's
+    traffic twice, repeatable; #4, #6, #7 launched; a window and a prefill
+    profiled) and its ``engine_family`` line. No product of an outlier
+    weight may take the W8A8 route. Returns the path's launches."""
+    cfg = dataclasses.replace(LLAMA3_8B, num_layers=OUTLIER_LAYERS)
+    params = llama.init_params(
+        cfg, torch.Generator(device=DEV).manual_seed(0), torch.bfloat16, DEV)
+    w8a8 = [0]
+    real = quant.w8a8_matmul
+
+    def counted(x, w):
+        w8a8[0] += 1
+        return real(x, w)
+
+    quant.w8a8_matmul = counted
+    label = ("llama3_8b_8l_int8outlier_int8pages: int8 weights with 32 "
+             "outlier channels, int8 pages, K=16")
+    try:
+        report, launches = run_config(
+            label, cfg, params, {"quantization": "int8_outlier"},
+            {"kv_quant": "int8"}, MISTRAL_INT8,
+            one_launch="fused_cluster_kernel", model="llama-3-8b widths")
+    finally:
+        quant.w8a8_matmul = real
+    assert w8a8[0] == 0, "an outlier weight's product took the W8A8 route"
+    family_summary(label, report)
+    del params
+    torch.cuda.empty_cache()
+    return launches
+
+
+PREFIX_PARITY_SYS = 384     # 6 pages
+PREFIX_PARITY_LONG = 640    # 10 pages: evicts into the arena
+
+
+def prefix_parity_streams(engine, vocab, opts):
+    """The JAX tests' sequence (p1, p2, the bare system prompt, p1) one
+    prompt at a time, then a distinct long prompt (which evicts the system
+    prompt's pages into the arena where the pool is small) and p1 again
+    (which reloads them)."""
+    rng = np.random.default_rng(41)
+    system = rng.integers(0, vocab, size=PREFIX_PARITY_SYS).tolist()
+    p1 = system + rng.integers(0, vocab, size=2).tolist()
+    p2 = system + rng.integers(0, vocab, size=3).tolist()
+    long_prompt = rng.integers(0, vocab, size=PREFIX_PARITY_LONG).tolist()
+    return [engine.generate([p], opts)[0]
+            for p in (p1, p2, system, p1, long_prompt, p1)]
+
+
+def phase_parity_prefix():
+    """Phase 4 for prefix caching, f32, TF32 off, 2 layers: the JAX
+    contract, exact: streams with sharing on (a 14-page pool and a spill
+    arena) equal streams with sharing off, greedy and sampled, over the
+    model-dtype pages and int8 pages (kernels on, K = 16) at Llama-3-8B's
+    widths and over the f32 latent pool (K = 1) at DeepSeek-V2-Lite's; the
+    copy-on-write split, spills and reloads must have run. Then int8
+    weights with outlier channels over int8 pages, K = 16 against K = 1,
+    the share of equal tokens shown."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    report = {"phase": "parity_prefix", "card": CARD}
+    gen = torch.Generator(device=DEV)
+    for model, base, seed in (("llama-3-8b", LLAMA3_8B, 1),
+                              ("deepseek-v2-lite", DEEPSEEK_V2_LITE, 1)):
+        cfg = dataclasses.replace(base, num_layers=2)
+        params = llama.init_params(cfg, gen.manual_seed(seed), torch.float32,
+                                   DEV)
+        pools = ((("f32_latent", {}),) if cfg.use_latent else
+                 (("model_dtype", {}), ("int8", {"kv_quant": "int8"})))
+        for pool, ckw in pools:
+            for mode, opts in (
+                    ("greedy", SamplingOptions(max_new_tokens=5)),
+                    ("sampled", SamplingOptions(max_new_tokens=5,
+                                                temperature=0.8, top_k=20))):
+                out = {}
+                for on in (True, False):
+                    engine = InferenceEngine(
+                        cfg, params,
+                        EngineConfig(max_batch_size=4,
+                                     prefill_buckets=(64, 256),
+                                     max_seq_len=1024, dtype="float32"),
+                        CacheConfig(num_pages=14 if on else 64,
+                                    max_pages_per_session=16,
+                                    prefix_caching=on, **ckw),
+                        prefix_cfg=PrefixConfig(
+                            spill_bytes_max=(1 << 28) if on else 0),
+                        generator=torch.Generator().manual_seed(3),
+                        device=DEV)
+                    assert engine.cache.use_kernel
+                    out[on] = prefix_parity_streams(engine, cfg.vocab_size,
+                                                    opts)
+                    if on:
+                        counts = prefix_counters(engine)
+                    del engine
+                assert out[True] == out[False], (
+                    f"{model} {pool} {mode}: sharing on and off differ")
+                for key in ("prefix_cow_copies", "prefix_spilled_pages",
+                            "prefix_spill_reloads"):
+                    assert counts.get(key, 0) > 0, (model, pool, mode, counts)
+                report[f"{model}_{pool}_{mode}"] = {
+                    "sharing_equals_off": True, "streams": len(out[True]),
+                    **{k: v for k, v in counts.items() if not k.endswith("_s")}}
+        if not cfg.use_latent:
+            ekw, ckw = {"quantization": "int8_outlier"}, {"kv_quant": "int8"}
+            kern16, e16 = parity_run(cfg, params, ekw, ckw)
+            assert e16.decode_steps == KT
+            kern1, _ = parity_run(cfg, params, {**ekw, "decode_steps": 1}, ckw)
+            share, first = shares(kern16, kern1)
+            report["int8_outlier_int8kv"] = {
+                "streams": len(kern1), "tokens_each": 16,
+                "k16_vs_k1_equal_token_share": share,
+                "k16_vs_k1_first_divergence": first}
+        del params
+        torch.cuda.empty_cache()
+    emit(report)
+
+
+# ---------------------------------------------------------------------------
 
 REPLACES = {
     "paged_attention": "distributed_llm_inference_tpu/ops/paged_attention.py:154",
@@ -5757,10 +6348,13 @@ def main() -> int:
     phase_families()
     width_launches = phase_widths()
     latent_launches, tensor_core_launches = phase_latent()
+    prefix_launches = phase_prefix()
+    outlier_launches = phase_outlier()
     phase_parity()
     phase_parity_families()
     phase_parity_widths()
     phase_parity_latent()
+    phase_parity_prefix()
     timed.update(latent_timed)
     launches.update(latent_launches)
     for name, n in tensor_core_launches.items():
@@ -5776,6 +6370,8 @@ def main() -> int:
          "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
          "library_ms": k["library_ms"], "shape": k["shape"],
          "launches_on_the_width_paths": width_launches.get(name, 0),
+         "launches_on_the_prefix_paths": prefix_launches.get(name, 0),
+         "launches_on_the_int8_outlier_path": outlier_launches.get(name, 0),
          "widths_checked": checked[name],
          **{key: k[key] for key in (
              "instances", "tensor_core_launches", "bound_ms_f32_cuda_cores",

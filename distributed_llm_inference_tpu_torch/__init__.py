@@ -13,6 +13,7 @@ from .config import (
     EngineConfig,
     LatentConfig,
     ModelConfig,
+    PrefixConfig,
     RopeScaling,
     ServingConfig,
 )
@@ -25,6 +26,7 @@ __all__ = [
     "EngineConfig",
     "LatentConfig",
     "ModelConfig",
+    "PrefixConfig",
     "RopeScaling",
     "ServingConfig",
     "resolve_device",

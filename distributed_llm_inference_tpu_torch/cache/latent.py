@@ -21,8 +21,10 @@ Two consequences, as in the JAX cache:
 The pool, the table and the lengths are updated in place, as in the port's
 ``cache/paged.py``; ``select_row(s)`` views share the planes (the int8
 pool's scale plane too), so ``merge_row(s)`` writes back only the table and
-the lengths. The planes' export and ingest wait (ROADMAP.md queue 1, items
-12 and 14).
+the lengths. Whole pages move through the parent's ``copy_page``,
+``read_page`` and ``write_page`` (prefix caching: ``PLANE_FIELDS`` names
+``c``, and ``cs`` on the int8 pool); a row's planes' export and ingest
+wait (ROADMAP.md queue 1, items 12 and 14).
 """
 
 from __future__ import annotations

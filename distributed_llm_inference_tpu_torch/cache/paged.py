@@ -394,6 +394,67 @@ class PagedKVCache(GatherAttendMixin):
         self.lengths.index_copy_(0, dst, sub.lengths.index_select(0, src))
         return self
 
+    # -- whole-page operations (prefix caching: CoW splits, the spill tier) --
+    #
+    # Every plane of PLANE_FIELDS, written INTO the existing pool storage: a
+    # captured decode window reads the pools at the addresses it was
+    # captured with, so rebinding a pool tensor here would leave its replays
+    # reading a stale pool.
+
+    def copy_page(self, dst: int, src: int) -> "PagedKVCache":
+        """Duplicate page ``src`` into ``dst`` across every plane — the
+        device half of a copy-on-write split, enqueued on the current
+        stream. The table and lengths are untouched (the scheduler remaps
+        the splitting session's slot itself)."""
+        for f in self.PLANE_FIELDS.values():
+            pool = getattr(self, f)
+            pool[:, dst].copy_(pool[:, src])
+        return self
+
+    def read_page(self, page: int) -> Dict[str, torch.Tensor]:
+        """Host copies of one page's tiles in STORED form, keyed by plane
+        name: ``{"k": [L, Hkv, PS, D], "v": ...}``, plus ``ks``/``vs``
+        ``[L, Hkv, PS]`` f32 scales on the int8 pool (``c``/``cs`` on the
+        latent pools), in the pool's dtypes. On a CUDA pool the copy waits
+        for everything enqueued before it, so the tiles are settled
+        content."""
+        out = {}
+        for name, f in self.PLANE_FIELDS.items():
+            tile = getattr(self, f)[:, page]
+            out[name] = torch.empty(tile.shape, dtype=tile.dtype).copy_(tile)
+        return out
+
+    def write_page(self, page: int, tiles) -> "PagedKVCache":
+        """Install :meth:`read_page`-form tiles (host tensors, or numpy
+        arrays) at ``page`` (the spill tier's reload). Validates plane
+        names, shapes and dtypes of every tile and raises ``ValueError`` on
+        any mismatch before the pool is touched: a corrupted arena entry is
+        rejected here, before it can poison the pool."""
+        want = set(self.PLANE_FIELDS)
+        if set(tiles) != want:
+            raise ValueError(
+                f"page tiles {sorted(tiles)} do not match this pool "
+                f"(want {sorted(want)})"
+            )
+        staged = []
+        for name, f in self.PLANE_FIELDS.items():
+            pool = getattr(self, f)
+            tile = _host_tensor(tiles[name])
+            expect = tuple(pool.shape[:1] + pool.shape[2:])
+            if tuple(tile.shape) != expect:
+                raise ValueError(
+                    f"page tile {name!r} shape {tuple(tile.shape)} != {expect}"
+                )
+            if tile.dtype != pool.dtype:
+                raise ValueError(
+                    f"page tile {name!r} dtype {_dtype_name(tile.dtype)} != "
+                    f"{_dtype_name(pool.dtype)}"
+                )
+            staged.append((pool, tile))
+        for pool, tile in staged:
+            pool[:, page].copy_(tile)
+        return self
+
     def assign_pages(self, row: int, pages, start_slot: int = 0) -> "PagedKVCache":
         """Install allocator-chosen page ids for a row, from ``start_slot``."""
         pages = torch.as_tensor(pages, dtype=torch.int32, device=self.device)
@@ -407,6 +468,24 @@ class PagedKVCache(GatherAttendMixin):
             to_device(rows, torch.int64, dev), to_device(slots, torch.int64, dev),
         ] = to_device(pages, torch.int32, dev)
         return self
+
+
+def _dtype_name(dtype) -> str:
+    """``torch.float32`` -> ``"float32"``: numpy's name for the same type."""
+    return str(dtype).removeprefix("torch.")
+
+
+def _host_tensor(tile) -> torch.Tensor:
+    """A page tile as a torch tensor: torch tensors pass as they are; numpy
+    arrays are viewed (bfloat16, which numpy holds as an extension type,
+    through its 16-bit pattern)."""
+    if isinstance(tile, torch.Tensor):
+        return tile
+    arr = np.asarray(tile)
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(
+            np.ascontiguousarray(arr).view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(np.ascontiguousarray(arr))
 
 
 class QuantizedPagedKVCache(PagedKVCache):

@@ -242,8 +242,8 @@ def _engine_flags(p: argparse.ArgumentParser) -> None:
                    help="int8 KV cache (paged/dense/sink): halves KV bytes")
     p.add_argument("--quantize", default=None,
                    choices=("int8", "int4", "int8_outlier"),
-                   help="weight quantization (int8_outlier: not ported yet, "
-                        "ROADMAP.md queue 1, item 6)")
+                   help="weight quantization (int8_outlier: int8 with 32 fp "
+                        "outlier input channels a projection)")
     p.add_argument("--max-sessions", type=int, default=8)
     p.add_argument("--max-seq-len", type=int, default=2048)
     p.add_argument("--dtype", default="bfloat16")

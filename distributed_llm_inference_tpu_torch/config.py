@@ -140,8 +140,9 @@ class CacheConfig:
     """KV-cache policy. The port serves ``kind="paged"``, ``kind="dense"``
     and ``kind="sink"`` (the StreamingLLM ring of ``window_length`` slots,
     ``num_sink_tokens`` of them sinks), each in the model dtype or with
-    ``kv_quant="int8"``; ``prefix_caching`` waits (``ROADMAP.md`` queue
-    1)."""
+    ``kv_quant="int8"``. ``prefix_caching`` (paged only) shares full prompt
+    pages between sessions by content; :class:`PrefixConfig` sets its
+    policy."""
 
     kind: str = "paged"  # "paged" | "sink" | "dense"
     kv_quant: Optional[str] = None  # None | "int8"
@@ -164,7 +165,8 @@ class EngineConfig:
     max_seq_len: int = 4096
     max_new_tokens: int = 512
     dtype: str = "bfloat16"
-    # None | "int8" | "int4" | "int8_outlier" (not ported yet).
+    # None | "int8" | "int4" | "int8_outlier" (int8 with ``outlier_channels``
+    # fp input channels a projection, chosen by ``act_scales`` when given).
     quantization: Optional[str] = None
     # Width ladder of the attended span: a paged table starts narrow and
     # gains columns, dense buffers start at the first rung and regrow, as
@@ -211,6 +213,30 @@ class EngineConfig:
     act_scales: Optional[Any] = dataclasses.field(
         default=None, hash=False, compare=False
     )
+
+
+@dataclasses.dataclass(frozen=True)
+class PrefixConfig:
+    """Prefix/KV reuse policy (``prefixstore/``): copy-on-write shared
+    prefix pages inside one engine, a bounded host-memory spill tier for
+    evicted prefix pages, and the routing knobs of a fleet's gateways (kept
+    for parity; the fleet is not ported). The engine-level layers need
+    ``CacheConfig.prefix_caching`` (paged cache)."""
+
+    # Live copy-on-write sharing: sessions register their full prompt pages
+    # at ADMISSION (not just at release), so concurrent sessions sharing a
+    # prefix attach to the same device pages; a session whose write offset
+    # lands inside a shared page splits it copy-on-write first.
+    prefix_share: bool = True
+    # Host spill arena byte budget for evicted prefix pages (stored form:
+    # int8 + scales or the pool's dtype). 0 disables spilling.
+    spill_bytes_max: int = 0
+    # Gateway backends route a request to the node advertising the longest
+    # matching prefix head (falling back to least-loaded).
+    route_by_prefix: bool = True
+    # Minimum matched prefix TOKENS before prefix-aware routing overrides
+    # the least-loaded choice.
+    min_shared_tokens: int = 0
 
 
 @dataclasses.dataclass(frozen=True)

@@ -33,7 +33,8 @@ prefills are enqueued behind it and their first tokens are fetched at the
 next tick boundary, scattered into the carry meanwhile.
 
 What the port serves: a dense Llama-family model in bf16/f32, or with int4
-(half-split) or int8 weights (``EngineConfig.quantization``), over the paged
+(half-split), int8 or int8-with-outlier-channels weights
+(``EngineConfig.quantization``), over the paged
 or the dense cache or the StreamingLLM sink ring (``CacheConfig.kind``), in
 the model dtype or int8 (``CacheConfig.kv_quant="int8"``); and a latent
 (MLA, DeepSeek-V2) model in bf16/f32 over the latent page pool
@@ -43,7 +44,11 @@ write-behind tail: ``decode_steps=None`` resolves to 1 there, and K steps
 never grows and never fills: its streams run to ``max_new_tokens`` (or a
 bound of 2^20 tokens on the int8 ring, 2^30 on the other), prompts longer
 than the ring span are chunked, and only the int8 ring has the fused
-window (when its span holds K tokens). The constructor raises
+window (when its span holds K tokens). Prefix caching
+(``CacheConfig.prefix_caching``, policy in :class:`PrefixConfig`) shares
+full prompt pages of the paged pools (all four kinds) between sessions by
+content, copy-on-write, with an optional host spill tier
+(``prefixstore/``). The constructor raises
 ``NotImplementedError``, naming the ``ROADMAP.md`` queue item, for every
 feature that waits.
 """
@@ -54,6 +59,7 @@ import collections
 import math
 import threading
 import time
+import weakref
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -65,7 +71,7 @@ from ..cache.dense import DenseKVCache, QuantizedDenseKVCache
 from ..cache.latent import LatentPagedKVCache, QuantizedLatentPagedKVCache
 from ..cache.paged import PageAllocator, PagedKVCache, QuantizedPagedKVCache
 from ..cache.sink import QuantizedSinkKVCache, SinkKVCache
-from ..config import CacheConfig, EngineConfig, ModelConfig
+from ..config import CacheConfig, EngineConfig, ModelConfig, PrefixConfig
 from ..models import llama
 from ..ops import quant
 from ..ops.attention import (
@@ -146,6 +152,10 @@ class InferenceEngine:
             raise ValueError(f"unknown cache kind {cc.kind}")
         if cc.kv_quant not in (None, "int8"):
             raise ValueError(f"unknown kv_quant {cc.kv_quant!r}")
+        if cc.prefix_caching and cc.kind != "paged":
+            raise ValueError(
+                f"prefix_caching requires the paged cache (got kind={cc.kind!r})"
+            )
         if cfg.use_latent:
             # Latent (MLA) attention stores one [rank + dr] latent a token
             # in the paged pool only; the mesh programs shard per-head
@@ -164,16 +174,12 @@ class InferenceEngine:
                 raise _waits(
                     f"quantization={ecfg.quantization!r} on a latent (mla) "
                     f"model", "item 20")
-        if ecfg.quantization == "int8_outlier":
-            raise _waits("quantization='int8_outlier'", "item 6")
-        if ecfg.quantization not in (None, "int8", "int4"):
+        if ecfg.quantization not in (None, "int8", "int4", "int8_outlier"):
             raise ValueError(f"unknown quantization {ecfg.quantization!r}")
         if mesh_cfg is not None:
             raise _waits("mesh_cfg (sharded serving)", "item 12")
         if draft is not None:
             raise _waits("a draft model (speculative decoding)", "item 9")
-        if cc.prefix_caching or prefix_cfg is not None:
-            raise _waits("prefix caching", "item 11")
         if trace_cfg is not None:
             raise _waits("trace_cfg (spans and the flight recorder)", "item 16")
 
@@ -200,8 +206,16 @@ class InferenceEngine:
             # Quantized where the weights lie (the engine's device), one
             # layer of one stack at a time. A single device takes the
             # half-split int4 layout, as the JAX engine does without a mesh.
+            # int8_outlier: LLM.int8()-style fp input channels a projection,
+            # chosen by calibration activation absmax (act_scales) when
+            # given, else by weight-row absmax.
+            qkw = {}
+            if ecfg.quantization == "int8_outlier":
+                qkw["outlier_channels"] = ecfg.outlier_channels
+                if ecfg.act_scales is not None:
+                    qkw["act_scales"] = ecfg.act_scales
             params = quant.quantize_params(
-                params, bits=4 if ecfg.quantization == "int4" else 8,
+                params, bits=4 if ecfg.quantization == "int4" else 8, **qkw,
             )
         self.params = params
         self.generator = (
@@ -209,6 +223,13 @@ class InferenceEngine:
             else torch.Generator().manual_seed(0)
         )
         self.metrics = Metrics()
+        self.pcfg = prefix_cfg or PrefixConfig()
+        # Prefix caching's host spill arena (paged + prefix_caching + a
+        # spill budget only) and the cumulative prompt-token reuse ratio
+        # behind the prefix_hit_rate gauge.
+        self._spill = None
+        self._prefix_seen = 0
+        self._prefix_hits = 0
         # Scheduler lock: slots/cache/allocator are mutated only by
         # step()/collect_finished() under this lock (single writer).
         # submit()/cancel() are deliberately LOCK-FREE — step() holds the
@@ -306,6 +327,21 @@ class InferenceEngine:
                 device=self.device,
             )
             self.allocator = PageAllocator(cc.num_pages)
+            if cc.prefix_caching and self.pcfg.spill_bytes_max > 0:
+                # Registered prefix pages evicted by the refcount-aware LRU
+                # snapshot their stored-form tiles into a bounded host
+                # arena; a later admission whose chain reaches the key
+                # reloads them with one host-to-device copy a plane.
+                from ..prefixstore import HostSpillArena
+
+                self._spill = HostSpillArena(self.pcfg.spill_bytes_max)
+                # Through a weak reference: the allocator must not keep the
+                # engine alive. An engine in a reference cycle dies when the
+                # cyclic collector runs, at a time no one chose, maybe while
+                # another engine captures a CUDA graph.
+                engine = weakref.ref(self)
+                self.allocator.on_evict = (
+                    lambda page, key: engine()._spill_page(page, key))
         # Stored KV bytes per token over every plane (values and, for the
         # int8 kinds, the scale planes): a plane's bytes past its two
         # leading axes, over the slots they hold (a page, or a row's T).
@@ -394,7 +430,8 @@ class InferenceEngine:
         # ``_admit_pend`` charges one in-flight token per row. Device
         # programs and key order are those of the synchronous path.
         self._inflight_admits: List[Tuple[List[Session], torch.Tensor,
-                                          torch.Tensor, object]] = []
+                                          torch.Tensor, object,
+                                          List[int]]] = []
         self._admit_pend = np.zeros(self.batch, np.int32)
         self._pipelined = ecfg.pipelined_ticks and K > 1 and tail_capable
         # Batched admission gathers and scatters rows (select_rows /
@@ -762,7 +799,7 @@ class InferenceEngine:
                 self._release(s)
                 produced.append((gid, -1, True))
         self._shrink_if_idle()
-        admitted: List[Session] = []
+        admitted: List[Tuple[Session, int]] = []
         free_slots = [i for i in range(self.batch) if self.slots[i] is None]
         candidates: List[Session] = []
         if free_slots and self.waiting:
@@ -816,9 +853,37 @@ class InferenceEngine:
                 self.metrics.counter("sessions_rejected")
                 continue
             self._ensure_capacity(len(s.prompt) + 1)
+            shared_len = 0
             if self.allocator is not None:
-                need = math.ceil((len(s.prompt) + 1) / self.ccfg.page_size)
-                if need > self.allocator.free_count:
+                ps = self.ccfg.page_size
+                n = len(s.prompt)
+                need = math.ceil((n + 1) / ps)
+                shared: List[int] = []
+                cow = False
+                if self.ccfg.prefix_caching:
+                    if s.prefix_keys is None:
+                        s.prefix_keys = PageAllocator.chain_keys(s.prompt, ps)
+                    # With CoW sharing every FULL prompt page is eligible: a
+                    # fully matched final page is split copy-on-write below
+                    # so the last prompt token (whose logits seed the first
+                    # sample) recomputes into a private copy. Without it,
+                    # cap so the last token's page is never shared.
+                    cap = n // ps if self.pcfg.prefix_share else (n - 1) // ps
+                    shared = self.allocator.lookup(s.prefix_keys[:cap])
+                    if self._spill is not None and len(shared) < cap:
+                        shared = self._reload_spilled(s.prefix_keys, shared,
+                                                      cap)
+                    # n > 1: a fully shared 1-token prompt (page_size 1)
+                    # would leave nothing to prefill, no logits to sample
+                    # from: it drops the match and recomputes instead.
+                    cow = bool(shared) and len(shared) * ps == n and n > 1
+                    if not cow and shared and len(shared) * ps == n:
+                        self.allocator.free([shared.pop()])
+                # CoW takes one extra page for the private copy of the fully
+                # shared final page.
+                if need - len(shared) + cow > self.allocator.free_count:
+                    if shared:
+                        self.allocator.free(shared)  # return the refs
                     break  # pool pressure: hold the queue, retry next tick
             # Reset the row BEFORE installing pages (reset wipes the row's
             # page table); the installs are queued and flushed once, right
@@ -827,48 +892,88 @@ class InferenceEngine:
                 torch.arange(self.batch, device=self.device) == slot
             )
             if self.allocator is not None:
-                s.pages = self.allocator.alloc(need)  # owned: _release frees
+                fresh = self.allocator.alloc(need - len(shared) + cow)
+                s.pages = shared + fresh  # owned: _release frees
+                if cow:
+                    # Copy-on-write split: the write offset (skip = n-1)
+                    # lands INSIDE the last shared page, so the first fresh
+                    # page takes its table slot. The device copy is deferred
+                    # to dispatch time (_run_prefill), behind any same-tick
+                    # writer's prefill; the source ref waits on s.cow_src.
+                    k = len(shared) - 1
+                    s.cow_src = s.pages[k]
+                    s.pages[k] = s.pages.pop(k + 1)
+                    self.metrics.counter("prefix_cow_copies")
                 for i, pg in enumerate(s.pages):
                     self._queue_install(slot, i, pg)
+                shared_len = n - 1 if cow else len(shared) * ps
+                if shared_len:
+                    self.cache.lengths[slot] = shared_len
+                    self.metrics.counter("prefix_pages_shared", len(shared))
+                if self.ccfg.prefix_caching:
+                    self._note_prefix(n, shared_len)
+                    if self.pcfg.prefix_share:
+                        # Register-at-admission: this session's full prompt
+                        # pages become shareable NOW, so concurrent sessions
+                        # attach to them while the writer decodes. Safe on
+                        # one stream: owned pages hold refs >= 1 (never
+                        # evicted), and a same-tick sharer dispatches after
+                        # the writer (groups before singles, singles in
+                        # admission order, a sharer has skip > 0: a single).
+                        for i, key in enumerate(s.prefix_keys):
+                            if i >= len(s.pages):
+                                break
+                            self.allocator.register(s.pages[i], key)
             self.waiting.remove(s)
             s.slot = slot
             s.state = SessionState.ACTIVE
             self.slots[slot] = s.generation_id
-            admitted.append(s)
+            admitted.append((s, shared_len))
         self._dispatch_prefills(admitted, produced)
 
     def _dispatch_prefills(self, admitted, produced) -> None:
-        """Prefill freshly admitted sessions: same-bucket groups of >= 2
-        prompts that need no chunking go through ONE batched dispatch each;
-        the rest keep the single-row path."""
+        """Prefill freshly admitted ``(session, skip)`` pairs: same-bucket
+        groups of >= 2 prompts that need no chunking and skip no shared
+        prefix go through ONE batched dispatch each; the rest keep the
+        single-row path. Groups dispatch before singles, so a same-tick
+        writer's prefill is enqueued before any sharer's."""
         if not admitted:
             return
-        singles: List[Session] = []
+        singles: List[Tuple[Session, int]] = []
         groups: Dict[int, List[Session]] = {}
         chunk_cap = self._max_chunk()
-        for s in admitted:
-            if self._batch_admission and len(s.prompt) <= chunk_cap:
+        for s, skip in admitted:
+            if (self._batch_admission and skip == 0
+                    and len(s.prompt) <= chunk_cap):
                 groups.setdefault(
                     self._bucket_for(len(s.prompt)), []
                 ).append(s)
             else:
-                singles.append(s)
+                singles.append((s, skip))
         for bucket, group in groups.items():
             if len(group) < 2:
-                singles.extend(group)
+                singles.extend((s, 0) for s in group)
                 continue
             while group:
                 self._prefill_group(group[:8], bucket, produced)
                 group = group[8:]
-        for s in singles:
+        if any(skip for _, skip in singles):
+            # A sharer may have attached to pages a same-tick writer has yet
+            # to prefill: singles then go in admission order, which puts
+            # every writer first. (The JAX engine appends a lone bucket's
+            # writer after the singles, so there a same-tick sharer reads
+            # the writer's pages before they are written.)
+            rank = {id(s): i for i, (s, _) in enumerate(admitted)}
+            singles.sort(key=lambda e: rank[id(e[0])])
+        for s, skip in singles:
             # Long greedy prompts may park for chunk/decode co-scheduling
             # instead of a monolithic synchronous prefill; _chunk_admit draws
             # the session's key HERE — the same stream position the
             # synchronous path would consume — so parking never perturbs the
             # engine's key order.
-            if self._chunk_admit(s):
+            if self._chunk_admit(s, skip):
                 continue
-            self._run_prefill(s, produced)
+            self._run_prefill(s, produced, skip)
 
     def _overlap_ok(self) -> bool:
         """Overlap THIS admission with the in-flight tick? Requires the
@@ -891,13 +996,14 @@ class InferenceEngine:
             return False
         return True
 
-    def _defer_admit(self, group, toks_dev, rows) -> None:
+    def _defer_admit(self, group, toks_dev, rows, skips) -> None:
         """Record an overlapped admission: the prefill is enqueued; the
         sampled first tokens stay on the device, scatter into the pipelined
         carry (the next tick consumes them with no host round trip), and
         start their copy to pinned host memory. ``_admit_pend`` charges one
         in-flight token per row; ``_resolve_pending`` delivers at the next
-        tick boundary."""
+        tick boundary. ``skips``: each session's shared-prefix tokens, for
+        its ``prefill_tokens`` count then."""
         toks_dev = toks_dev.reshape(-1)
         self._carry_scatter(toks_dev, rows)
         host, ready = self._to_host(toks_dev)
@@ -907,7 +1013,8 @@ class InferenceEngine:
             s.prefill_dispatch_t = now
             self._carry_ok[s.slot] = True
             self._admit_pend[s.slot] = 1
-        self._inflight_admits.append((list(group), toks_dev, host, ready))
+        self._inflight_admits.append(
+            (list(group), toks_dev, host, ready, list(skips)))
         self.metrics.counter("admit_overlap_sessions", len(group))
         self.metrics.gauge(
             "admit_overlap_inflight", float(len(self._inflight_admits))
@@ -982,25 +1089,39 @@ class InferenceEngine:
                 # Everything above was enqueued only; the token fetch waits
                 # for the next tick boundary.
                 self.metrics.counter("batched_prefills", k)
-                self._defer_admit(group, toks, rows)
+                self._defer_admit(group, toks, rows, [0] * k)
                 return
             toks = toks.cpu().numpy()  # the one sync of this admission
         self.metrics.counter("batched_prefills", k)
         self.metrics.counter("admit_sync_sessions", k)
         for i, s in enumerate(group):
-            self._finish_prefill(s, int(toks[i]), produced)
+            self._finish_prefill(s, int(toks[i]), produced, 0)
 
-    def _run_prefill(self, s: Session, produced) -> None:
+    def _cow_copy(self, s: Session, skip: int) -> None:
+        """Enqueue the deferred copy-on-write split of ``s``'s fully shared
+        final page into its private page, then drop the parked source ref.
+        Done at dispatch time, not at admission: on the one stream, the
+        copy then follows any same-tick writer's prefill of the source."""
+        if s.cow_src is None:
+            return
+        self.cache.copy_page(s.pages[skip // self.ccfg.page_size], s.cow_src)
+        self.allocator.free([s.cow_src])
+        s.cow_src = None
+
+    def _run_prefill(self, s: Session, produced, skip: int = 0) -> None:
         """Chunked, padded prefill of one admitted session; samples the
-        first generated token from the final chunk."""
+        first generated token from the final chunk. ``skip`` tokens at the
+        head are already in the cache (shared prefix pages): the row's
+        write offset (``lengths``) was set past them at admission."""
         self._flush_installs()  # prefill writes through the page table
+        self._cow_copy(s, skip)
         chunk_cap = self._max_chunk()
         prompt = np.asarray(s.prompt, np.int32)
         sp = SamplingParams.create(
             1, s.options.temperature, s.options.top_k, s.options.top_p,
             self.device,
         )
-        offset = 0
+        offset = skip
         stride = self.plan.prefill_stride(chunk_cap)
         with self.metrics.timer("prefill"):
             while len(prompt) - offset > stride:
@@ -1019,12 +1140,13 @@ class InferenceEngine:
         if self._overlap_ok():
             # Single-row admissions defer the token fetch exactly like the
             # batched path.
-            self._defer_admit([s], token, np.asarray([s.slot], np.int32))
+            self._defer_admit([s], token, np.asarray([s.slot], np.int32),
+                              [skip])
             return
         self.metrics.counter("admit_sync_sessions")
-        self._finish_prefill(s, int(token), produced)
+        self._finish_prefill(s, int(token), produced, skip)
 
-    def _chunk_admit(self, s: Session) -> bool:
+    def _chunk_admit(self, s: Session, skip: int) -> bool:
         """Park an admitted long GREEDY prompt for chunk/decode
         co-scheduling instead of a monolithic synchronous prefill: the
         session holds its slot (decode-ineligible) while _chunk_dispatch
@@ -1034,8 +1156,15 @@ class InferenceEngine:
         enough, and at least one OTHER live row to ride beside; alone, the
         standalone prefill is strictly better for TTFT)."""
         if not self.plan.co_schedule_ok(
-            len(s.prompt), s.options.temperature, self._max_chunk()
+            len(s.prompt) - skip, s.options.temperature, self._max_chunk()
         ):
+            return False
+        if self.ccfg.prefix_caching and self.pcfg.prefix_share:
+            # Register-at-admission already made this prompt's pages
+            # shareable; stretching the writes over ticks would let a later
+            # admission attach to pages whose KV is not written yet. Keep
+            # the synchronous path (its writer-before-sharer dispatch order
+            # is what makes register-at-admission safe).
             return False
         # Park only when another row is decode-LIVE (first token already
         # sampled — a same-tick co-admission that has not prefilled yet does
@@ -1049,9 +1178,11 @@ class InferenceEngine:
         )
         if not others:
             return False
+        # The deferred CoW split goes before any chunk writes this row.
+        self._cow_copy(s, skip)
         s.chunking = True
-        s.chunk_off = 0
-        s.chunk_skip = 0
+        s.chunk_off = skip
+        s.chunk_skip = skip
         # Draw the admission key NOW — the stream position the synchronous
         # prefill would have consumed — and park it for the final chunk's
         # sample, so co-scheduling never perturbs the engine's key order.
@@ -1113,15 +1244,16 @@ class InferenceEngine:
             s.parked_key = None
             self._chunking.remove(s)
             if self._overlap_ok():
-                self._defer_admit([s], token, np.asarray([s.slot], np.int32))
+                self._defer_admit([s], token, np.asarray([s.slot], np.int32),
+                                  [s.chunk_skip])
                 continue
             self.metrics.counter("admit_sync_sessions")
             # int(): the one sync per admission, as in _run_prefill.
-            self._finish_prefill(s, int(token), produced)
+            self._finish_prefill(s, int(token), produced, s.chunk_skip)
 
-    def _finish_prefill(self, s, token, produced):
+    def _finish_prefill(self, s, token, produced, skip):
         self._deliver(s, int(token), produced)
-        self.metrics.counter("prefill_tokens", len(s.prompt))
+        self.metrics.counter("prefill_tokens", len(s.prompt) - skip)
 
     def _dispatch_tick(self, produced, prev):
         """Enqueue the next fused K-step tick from the device-resident
@@ -1243,7 +1375,7 @@ class InferenceEngine:
         if prev is None and not admits:
             return
         with self.metrics.timer("decode_resolve"):
-            for _, _, _, ready in admits:
+            for _, _, _, ready, _ in admits:
                 if ready is not None:
                     ready.synchronize()
             if prev is not None and prev[4] is not None:
@@ -1252,7 +1384,7 @@ class InferenceEngine:
             self._admit_pend[:] = 0
             self.metrics.gauge("admit_overlap_inflight", 0.0)
             now = time.monotonic()
-            for group, _, host, _ in admits:
+            for group, _, host, _, skips in admits:
                 toks = host.numpy().reshape(-1)
                 for i, s in enumerate(group):
                     s.prefill_inflight = False
@@ -1261,7 +1393,7 @@ class InferenceEngine:
                             "admit_to_merge", now - s.prefill_dispatch_t
                         )
                         s.prefill_dispatch_t = None
-                    self._finish_prefill(s, int(toks[i]), produced)
+                    self._finish_prefill(s, int(toks[i]), produced, skips[i])
         if prev is None:
             return
         host, budget, active, gids, _ = prev
@@ -1423,7 +1555,11 @@ class InferenceEngine:
         self.metrics.counter("sessions_finished")
 
     def _release(self, s: Session) -> None:
-        if s.chunking:
+        # A session reaped mid chunked-prefill has INCOMPLETE prompt KV
+        # (only chunk_off tokens written): its pages must not be registered
+        # as shareable prefix content below.
+        partial = s.chunking
+        if partial:
             s.chunking = False
             s.parked_key = None
         if s in self._chunking:
@@ -1434,6 +1570,180 @@ class InferenceEngine:
             # next tenant must be fed its own.
             self._carry_ok[s.slot] = False
             s.slot = None
+        if s.cow_src is not None:
+            # A parked copy-on-write source ref (normally dropped when the
+            # prefill enqueues the copy).
+            self.allocator.free([s.cow_src])
+            s.cow_src = None
         if s.pages:
+            if self.ccfg.prefix_caching and not partial:
+                # Content-address the pages fully covered by PROMPT tokens
+                # so later sessions with the same prefix reuse their KV
+                # (pages touching generated tokens depend on sampling).
+                ps = self.ccfg.page_size
+                if s.prefix_keys is None:
+                    s.prefix_keys = PageAllocator.chain_keys(s.prompt, ps)
+                for i, key in enumerate(s.prefix_keys):
+                    if i < len(s.pages):
+                        self.allocator.register(s.pages[i], key)
             self.allocator.free(s.pages)
             s.pages = []
+
+    # -- prefix/KV reuse (prefixstore/) -----------------------------------------
+
+    def _note_prefix(self, total: int, reused: int) -> None:
+        """Prefix-reuse accounting of every admission: the
+        ``prefix_cached_tokens`` counter and the cumulative token-weighted
+        ``prefix_hit_rate`` gauge (spill reloads land in the shared
+        pages)."""
+        self._prefix_seen += total
+        self._prefix_hits += reused
+        if reused:
+            self.metrics.counter("prefix_cached_tokens", reused)
+        if self._prefix_seen:
+            self.metrics.gauge(
+                "prefix_hit_rate", self._prefix_hits / self._prefix_seen
+            )
+
+    def _spill_page(self, page: int, key: bytes) -> None:
+        """Allocator ``on_evict`` hook: snapshot an evicted registered
+        prefix page's stored-form tiles into the host arena (under the
+        scheduler lock, inside ``alloc``, BEFORE the page returns to the
+        free list, so its content is still valid; on a card ``read_page``
+        waits for the work enqueued before it)."""
+        tiles = self.cache.read_page(page)
+        if self._spill.put(key, tiles):
+            self.metrics.counter("prefix_spilled_pages")
+        self.metrics.gauge("prefix_spill_bytes", float(self._spill.bytes_used))
+
+    def _reload_spilled(self, keys, shared: List[int], cap: int) -> List[int]:
+        """Extend a device-registry prefix match with host-arena reloads:
+        walk ``keys[len(shared):cap]``, re-checking the registry first (an
+        earlier admission may have reloaded a key), then writing arena tiles
+        into a fresh page. A rejected (corrupted) entry degrades to
+        recompute from that point. Returned pages are referenced like
+        ``lookup``'s."""
+        while len(shared) < cap:
+            key = keys[len(shared)]
+            page = self.allocator.lookup_one(key)
+            if page is None:
+                tiles = self._spill.take(key)
+                if tiles is None:
+                    break
+                t0 = time.perf_counter()
+                try:
+                    [page] = self.allocator.alloc(1)
+                except MemoryError:
+                    self._spill.put(key, tiles)  # park it for a calmer tick
+                    break
+                try:
+                    self.cache.write_page(page, tiles)
+                except ValueError:
+                    # Corrupted arena entry: rejected before it can poison
+                    # the pool; recompute covers the rest of the prompt.
+                    self.allocator.free([page])
+                    self.metrics.counter("prefix_reload_errors")
+                    break
+                self.allocator.register(page, key)
+                self.metrics.counter("prefix_spill_reloads")
+                self.metrics.observe(
+                    "prefix_reload_ms", (time.perf_counter() - t0) * 1e3
+                )
+            shared.append(page)
+        self.metrics.gauge("prefix_spill_bytes", float(self._spill.bytes_used))
+        return shared
+
+    def advertised_prefix_heads(self, limit: int = 1024) -> List[str]:
+        """Hex chain keys this engine can serve a prefix hit from (device
+        registry, then spill arena), newest-biased and bounded."""
+        if self.allocator is None or not self.ccfg.prefix_caching:
+            return []
+        with self._lock:
+            keys = self.allocator.registered_keys(limit)
+            if self._spill is not None:
+                dev = set(keys)
+                keys += [k for k in self._spill.keys() if k not in dev]
+        return [k.hex() for k in keys[-limit:]]
+
+    def prefix_match_tokens(self, prompt) -> int:
+        """Longest locally cached prefix of ``prompt`` in TOKENS
+        (page-granular), WITHOUT taking page references: a routing probe."""
+        if self.allocator is None or not self.ccfg.prefix_caching:
+            return 0
+        ps = self.ccfg.page_size
+        keys = PageAllocator.chain_keys(prompt, ps)
+        matched = 0
+        with self._lock:
+            for key in keys:
+                if self.allocator.peek(key) is None and not (
+                    self._spill is not None and key in self._spill
+                ):
+                    break
+                matched += ps
+        return matched
+
+    def export_prefix_pages(self, prompt):
+        """Stored-form tiles of the longest locally cached prefix of
+        ``prompt`` (device registry pages, then spill-arena entries),
+        page-granular, WITHOUT taking page references. Returns ``(page_size,
+        [(chain_key, tiles), ...])``; empty when prefix caching is off or
+        nothing matches. Tiles round-trip verbatim through
+        :meth:`import_prefix_pages`."""
+        if self.allocator is None or not self.ccfg.prefix_caching:
+            return self.ccfg.page_size, []
+        ps = self.ccfg.page_size
+        keys = PageAllocator.chain_keys(prompt, ps)
+        items = []
+        with self._lock:
+            for key in keys:
+                page = self.allocator.peek(key)
+                if page is not None:
+                    items.append((key, self.cache.read_page(page)))
+                    continue
+                tiles = (self._spill.peek(key)
+                         if self._spill is not None else None)
+                if tiles is None:
+                    break
+                items.append((key, tiles))
+        return ps, items
+
+    def import_prefix_pages(self, page_size: int, items) -> int:
+        """Install exported prefix pages into this engine's pool: each page
+        lands registered at refcount 0, servable to prefix-matching
+        admissions and evictable under pressure like a page a released
+        session left behind. Already-resident keys are skipped; under pool
+        pressure tiles park in the arena instead; a tile mismatch raises
+        ``ValueError`` after freeing the staged page. Returns the pages made
+        servable."""
+        if self.allocator is None or not self.ccfg.prefix_caching:
+            return 0
+        if int(page_size) != self.ccfg.page_size:
+            raise ValueError(
+                f"page-ship size {page_size} != pool page size "
+                f"{self.ccfg.page_size}")
+        installed = 0
+        with self._lock:
+            for key, tiles in items:
+                if self.allocator.peek(key) is not None:
+                    continue  # already device-resident
+                if self._spill is not None and key in self._spill:
+                    continue  # already arena-resident
+                try:
+                    [page] = self.allocator.alloc(1)
+                except MemoryError:
+                    if self._spill is not None and self._spill.put(key, tiles):
+                        installed += 1  # servable from the arena
+                        continue
+                    break
+                try:
+                    self.cache.write_page(page, tiles)
+                except ValueError:
+                    self.allocator.free([page])
+                    self.metrics.counter("prefix_reload_errors")
+                    raise
+                self.allocator.register(page, key)
+                self.allocator.free([page])  # registered, refcount 0
+                installed += 1
+        if installed:
+            self.metrics.counter("fleet_pages_imported", installed)
+        return installed

@@ -3,9 +3,8 @@
 
 A session is one generation stream. Device state is integer-slot-indexed
 (batch row, page table); everything string-keyed lives here on the host.
-Fields that belong to features the port does not serve yet (prefix caching,
-overlapped admission, disaggregated serving, resume, tracing) stay, unused,
-so the later slices find them.
+Fields that belong to features the port does not serve yet (disaggregated
+serving, resume, tracing) stay, unused, so the later slices find them.
 """
 
 from __future__ import annotations

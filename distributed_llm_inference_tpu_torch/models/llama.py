@@ -16,8 +16,8 @@ H, Hq * (dn + dr)]``, ``wkv_a [L, H, rank + dr]``, ``kv_norm [L, rank]``,
 All projections are stored ``[in_features, out_features]``; the forward runs
 each through ``ops/quant.py:matmul`` (the experts through
 ``ops/quant.py:einsum``), so a projection may also be a quantized leaf
-(``QuantizedTensor`` int8, ``QuantizedTensor4Split`` int4; expert stacks
-stay int8).
+(``QuantizedTensor`` int8, ``QuantizedTensorOutlier`` int8 with fp outlier
+channels, ``QuantizedTensor4Split`` int4; expert stacks stay int8).
 ``block_apply`` walks the layer axis in a Python loop (the JAX package scans
 it) and hands each layer its own slice of the cache's planes (a page pool,
 or dense per-row buffers), which the cache updates in place, and of each
@@ -39,6 +39,7 @@ from ..ops.moe import moe_mlp
 from ..ops.norms import rms_norm
 from ..ops.quant import (
     QuantizedTensor,
+    QuantizedTensorOutlier,
     QuantizedTensor4Split,
     QuantizedTensor4SplitView,
 )
@@ -175,9 +176,10 @@ def params_from_numpy(
     numpy arrays (same keys, same ``[in, out]`` layout, layers stacked
     ``[L, ...]``): a straight copy onto ``device`` in ``dtype``.
 
-    Quantized leaves (the JAX package's ``QuantizedTensor`` and
-    ``QuantizedTensor4Split`` with numpy fields, or mappings of the same
-    fields: ``{q, scale}``, ``{q, scale_lo, scale_hi, in_dim, out_dim}``)
+    Quantized leaves (the JAX package's ``QuantizedTensor``,
+    ``QuantizedTensorOutlier`` and ``QuantizedTensor4Split`` with numpy
+    fields, or mappings of the same fields: ``{q, scale}``, ``{q, scale,
+    outlier_idx, outlier_w}``, ``{q, scale_lo, scale_hi, in_dim, out_dim}``)
     become the port's classes and keep their own dtypes: int8 values stay
     int8, scales keep theirs."""
     dev = resolve_device(device)
@@ -193,9 +195,15 @@ def params_from_numpy(
                     in_dim=int(_field(a, "in_dim")),
                     out_dim=int(_field(a, "out_dim")),
                 )
-            return QuantizedTensor(
-                q=q, scale=_numpy_to_torch(_field(a, "scale")).to(dev)
-            )
+            scale = _numpy_to_torch(_field(a, "scale")).to(dev)
+            if _field(a, "outlier_idx") is not None:
+                return QuantizedTensorOutlier(
+                    q=q, scale=scale,
+                    outlier_idx=_numpy_to_torch(
+                        _field(a, "outlier_idx")).to(dev),
+                    outlier_w=_numpy_to_torch(_field(a, "outlier_w")).to(dev),
+                )
+            return QuantizedTensor(q=q, scale=scale)
         return _numpy_to_torch(a).to(device=dev, dtype=dtype)
 
     want = {"attn_norm", "wq", "wo", "mlp_norm"} | (

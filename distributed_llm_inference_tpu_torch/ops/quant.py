@@ -1,7 +1,8 @@
 """Weight-only int8 / int4 quantization (counterpart of the JAX package's
-``ops/quant.py``: symmetric int8 with per-output-channel scales, int4 in the
-half-split layout of ``ops/quant_matmul.py``, the W8A8 prefill product, and
-the ``matmul`` that takes any of them).
+``ops/quant.py``: symmetric int8 with per-output-channel scales, int8 with
+LLM.int8()-style fp outlier channels, int4 in the half-split layout of
+``ops/quant_matmul.py``, the W8A8 prefill product, and the ``matmul`` that
+takes any of them).
 
 Quantization is a transform of the parameter dict: each projection matrix
 becomes a :class:`QuantizedTensor` (int8 values + per-output-channel scales,
@@ -9,16 +10,16 @@ bf16 by default) or a :class:`QuantizedTensor4Split` (packed int4 + f32
 per-channel scales). Quantized values and scales are byte-identical to the
 JAX package's for the same weights.
 
-What waits (``ROADMAP.md`` queue 1, item 6): the grouped int4 layout
-(``QuantizedTensor4``, only tensor-parallel meshes take it), the
-``int8_outlier`` decomposition and ``einsum`` (MoE).
+What waits (``ROADMAP.md`` queue 1, item 6, done with item 12): the
+grouped int4 layout (``QuantizedTensor4``), which only tensor-parallel
+meshes take.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 
@@ -27,9 +28,11 @@ from .quant_matmul import pack_int4_split, unpack_int4_split
 
 __all__ = [
     "QuantizedTensor",
+    "QuantizedTensorOutlier",
     "QuantizedTensor4Split",
     "QuantizedTensor4SplitView",
     "quantize_int8",
+    "quantize_int8_outlier",
     "quantize_int4_split",
     "w8a8_matmul",
     "matmul",
@@ -69,6 +72,40 @@ class QuantizedTensor:
 
     def __getitem__(self, i) -> "QuantizedTensor":
         return QuantizedTensor(self.q[i], self.scale[i])
+
+
+@dataclasses.dataclass
+class QuantizedTensorOutlier:
+    """Mixed-precision int8: LLM.int8()-style outlier decomposition. A FIXED
+    number K of input channels is carried at full precision and ZEROED in
+    the int8 body; the product adds ``x[..., idx] @ outlier_w`` back, a
+    ``[rows, K] x [K, out]`` side product.
+
+    ``q``/``scale``: as :class:`QuantizedTensor` (outlier rows zeroed);
+    ``outlier_idx``: int32 ``[..., K]`` input-channel indices;
+    ``outlier_w``: ``[..., K, out]`` original rows in the scale dtype.
+
+    Not a :class:`QuantizedTensor` subclass on purpose: :func:`matmul` sends
+    prefill-shaped products of that class to :func:`w8a8_matmul`, a route
+    the JAX package never takes for this one.
+    """
+
+    q: torch.Tensor
+    scale: torch.Tensor
+    outlier_idx: torch.Tensor
+    outlier_w: torch.Tensor
+
+    @property
+    def shape(self):
+        return tuple(self.q.shape)
+
+    @property
+    def dtype(self):
+        return self.outlier_w.dtype
+
+    def __getitem__(self, i) -> "QuantizedTensorOutlier":
+        return QuantizedTensorOutlier(self.q[i], self.scale[i],
+                                      self.outlier_idx[i], self.outlier_w[i])
 
 
 @dataclasses.dataclass
@@ -135,6 +172,46 @@ def quantize_int8(w: torch.Tensor, scale_dtype=torch.bfloat16) -> QuantizedTenso
     return QuantizedTensor(q=q, scale=scale.squeeze(-2).to(scale_dtype))
 
 
+def quantize_int8_outlier(
+    w: torch.Tensor,
+    num_outliers: int = 32,
+    act_scales: Optional[torch.Tensor] = None,
+    scale_dtype=torch.bfloat16,
+) -> QuantizedTensorOutlier:
+    """Outlier-decomposed symmetric int8 of ``[..., in, out]``.
+
+    ``act_scales`` (``[..., in]``, or one ``[in]`` vector for every layer of
+    a stack: per-input-channel activation absmax from a calibration pass)
+    picks the channels by the activations that flow through them, as
+    LLM.int8() does; without it the proxy is each weight row's absmax (the
+    rows that dominate the column absmax, and so the quantization step).
+    The top K by that score, in ``torch.topk``'s descending order."""
+    *lead, in_dim, _ = w.shape
+    k = min(num_outliers, in_dim)
+    wf = w.float()
+    score = (
+        torch.as_tensor(act_scales, device=w.device).float()
+        if act_scales is not None
+        else wf.abs().amax(dim=-1)
+    )  # [..., in]
+    score = score.expand(*lead, in_dim)
+    idx = torch.topk(score, k, dim=-1).indices  # [..., k]
+    outlier_w = torch.gather(
+        wf, -2, idx[..., None].expand(*idx.shape, wf.shape[-1]))
+    mask = torch.zeros(score.shape, dtype=torch.bool, device=w.device)
+    mask.scatter_(-1, idx, True)
+    body = wf.masked_fill(mask[..., None], 0.0)
+    amax = body.abs().amax(dim=-2, keepdim=True)
+    scale = amax.clamp_min(1e-8) / 127.0
+    q = torch.clamp(torch.round(body / scale), -127, 127).to(torch.int8)
+    return QuantizedTensorOutlier(
+        q=q,
+        scale=scale.squeeze(-2).to(scale_dtype),
+        outlier_idx=idx.to(torch.int32),
+        outlier_w=outlier_w.to(scale_dtype),
+    )
+
+
 def quantize_int4_split(w: torch.Tensor) -> QuantizedTensor4Split:
     """Symmetric per-output-channel int4 in the half-split layout. Scales are
     always f32: the kernel multiplies them in at its f32 epilogue."""
@@ -186,6 +263,10 @@ def matmul(x: torch.Tensor, w) -> torch.Tensor:
     prefill-shaped calls on a CUDA device, which take :func:`w8a8_matmul`
     (the JAX package's gate is "on a TPU"; here it is "on a CUDA device",
     the same rule ``engine/plan.py`` follows for its kernels).
+    :class:`QuantizedTensorOutlier`: the same body (never W8A8) plus the
+    outlier channels' product ``x[..., idx] @ outlier_w``; the gather is
+    one ``index_select`` with the index on the device, so a captured decode
+    step replays it.
     Half-split int4: decode rows and calls of at most 256 rows go through the
     CUDA kernel (``int4_matmul_stacked`` for a layer view, ``int4_matmul``
     for a 2-D weight); many-row (prefill) calls unpack the weight and take a
@@ -200,6 +281,10 @@ def matmul(x: torch.Tensor, w) -> torch.Tensor:
         and x.device.type == "cuda"
     ):
         return w8a8_matmul(x, w)
+    if isinstance(w, QuantizedTensorOutlier):
+        y = (x @ w.q.to(x.dtype)) * w.scale.to(x.dtype)
+        xo = torch.index_select(x, -1, w.outlier_idx)
+        return y + xo @ w.outlier_w.to(x.dtype)
     if isinstance(w, QuantizedTensor):
         y = x @ w.q.to(x.dtype)
         return y * w.scale.to(x.dtype)
@@ -242,15 +327,16 @@ def einsum(spec: str, x: torch.Tensor, w) -> torch.Tensor:
     return torch.einsum(spec, x, w)
 
 
-def _per_layer(fn, w: torch.Tensor):
+def _per_layer(fn, w: torch.Tensor, aux: Optional[torch.Tensor] = None):
     """``fn`` over a stacked weight one ``[in, out]`` matrix at a time (a
     layer's, or a layer's expert's), each result copied into a stack
     allocated once, so that the temporaries stay one matrix large.
     Quantization is per (layer, [expert,] output channel), so this equals
-    ``fn(w)``."""
+    ``fn(w)``. ``aux`` (``w``'s leading dims + ``[in]``) is sliced with
+    ``w`` and handed to ``fn`` as its second argument."""
     if w.ndim == 2:
-        return fn(w)
-    first = _per_layer(fn, w[0])
+        return fn(w) if aux is None else fn(w, aux)
+    first = _per_layer(fn, w[0], None if aux is None else aux[0])
     cls, fields = type(first), {}
     for f in dataclasses.fields(first):
         v = getattr(first, f.name)
@@ -262,7 +348,7 @@ def _per_layer(fn, w: torch.Tensor):
         fields[f.name] = v
     del first
     for i in range(1, w.shape[0]):
-        part = _per_layer(fn, w[i])
+        part = _per_layer(fn, w[i], None if aux is None else aux[i])
         for name, v in fields.items():
             if isinstance(v, torch.Tensor):
                 v[i].copy_(getattr(part, name))
@@ -276,6 +362,8 @@ def quantize_params(
     scale_dtype=torch.bfloat16,
     bits: int = 8,
     int4_layout: str = "split",
+    outlier_channels: int = 0,
+    act_scales: Optional[Dict[str, Any]] = None,
 ) -> Dict[str, Any]:
     """Quantize the named weights of a parameter dict (full model or block
     only); everything else passes through unchanged. Each weight is
@@ -284,7 +372,13 @@ def quantize_params(
     ``bits=4`` puts the dense projections (:data:`INT4_WEIGHTS`) in the
     half-split int4 layout (the single-device layout of the JAX engine);
     other named weights, and int4 weights with an odd output width, stay
-    int8. ``int4_layout="grouped"`` waits (``ROADMAP.md`` queue 1, item 6).
+    int8. ``int4_layout="grouped"`` waits (``ROADMAP.md`` queue 1, item 6,
+with item 12).
+    ``outlier_channels > 0`` (bits=8) puts the dense projections in the
+    LLM.int8()-style outlier form (:func:`quantize_int8_outlier`) with that
+    many fp channels; ``act_scales`` maps a weight name to its
+    per-input-channel calibration absmax (``[in]`` shared by every layer,
+    or ``[L, in]``). MoE expert stacks stay plain int8.
     """
     if bits not in (4, 8):
         raise ValueError(f"bits must be 4 or 8, got {bits}")
@@ -299,6 +393,18 @@ def quantize_params(
     def quantize_one(name, w):
         if bits == 4 and name in INT4_WEIGHTS and w.shape[-1] % 2 == 0:
             return _per_layer(quantize_int4_split, w)
+        if outlier_channels > 0 and name in INT4_WEIGHTS:
+            calib = (act_scales or {}).get(name)
+            if calib is None:
+                return _per_layer(
+                    lambda a: quantize_int8_outlier(
+                        a, outlier_channels, None, scale_dtype), w)
+            # One [in] vector serves every layer of the stack.
+            calib = torch.as_tensor(calib, device=w.device).float().expand(
+                w.shape[:-1])
+            return _per_layer(
+                lambda a, c: quantize_int8_outlier(
+                    a, outlier_channels, c, scale_dtype), w, calib)
         return _per_layer(lambda a: quantize_int8(a, scale_dtype), w)
 
     out: Dict[str, Any] = {}

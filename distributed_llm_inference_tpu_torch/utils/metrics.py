@@ -41,6 +41,17 @@ METRICS = {
     "prefill": ("summary", "Prefill dispatch latency"),
     "prefill_tokens": ("counter", "Prompt tokens prefilled"),
     "batched_prefills": ("counter", "Prefills served by batched dispatch"),
+    "prefix_cached_tokens": ("counter", "Prompt tokens served from prefix cache"),
+    # prefixstore: CoW sharing / host spill tier
+    "prefix_hit_rate": ("gauge", "Cumulative fraction of prompt tokens reused"),
+    "prefix_pages_shared": ("counter", "Shared prefix-page attachments"),
+    "prefix_cow_copies": ("counter", "Copy-on-write splits of shared pages"),
+    "prefix_spill_bytes": ("gauge", "Host spill arena bytes resident"),
+    "prefix_spilled_pages": ("counter", "Prefix pages spilled to host DRAM"),
+    "prefix_spill_reloads": ("counter", "Prefix pages reloaded from the arena"),
+    "prefix_reload_ms": ("summary", "Host->device prefix page reload time"),
+    "prefix_reload_errors": ("counter", "Arena entries rejected at reload"),
+    "fleet_pages_imported": ("counter", "Shipped prefix pages installed"),
     # engine: attention plan (ragged mixed-phase dispatch — engine/plan.py)
     "attn_dispatch_shapes": ("counter", "First-seen attention dispatch shapes"),
     "attn_ragged_dispatches": ("counter", "Prefill-family ragged dispatches"),

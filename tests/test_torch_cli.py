@@ -153,9 +153,14 @@ def test_waiting_flags_exit_with_their_queue_item(model_dir, extra, item):
 
 
 def test_waiting_engine_options_and_http_models_exit_non_zero(model_dir, capsys):
-    rc = cli.main(["local", "--model", model_dir, "--device", "cpu",
-                   "--prompt-ids", "1,2", "--quantize", "int8_outlier"])
-    assert rc == 2 and "queue 1, item 6" in capsys.readouterr().err
+    # int8 weights with outlier channels are served now: the same tokens as
+    # the JAX cli's.
+    argv = ["local", "--model", model_dir, "--prompt-ids", "5,11,42",
+            "--max-new", "6", "--dtype", "float32", "--max-seq-len", "64",
+            "--quantize", "int8_outlier"]
+    got = _run(cli.main, argv + ["--device", "cpu"], capsys)
+    want = _run(jcli.main, argv, capsys)
+    assert got["tokens"] == want["tokens"] and len(got["tokens"]) == 6
     with pytest.raises(SystemExit) as e:
         cli.main(["info", "--model", "https://example.invalid/llama"])
     assert "HTTP" in str(e.value.code)

@@ -351,10 +351,8 @@ def test_plan_selects_the_kernels_for_the_int8_pool():
 
 
 WAITING = [
-    ("quantization", dict(engine=dict(quantization="int8_outlier"))),
     ("mesh_cfg", dict(mesh_cfg=object())),
     ("draft", dict(draft=(None, None))),
-    ("prefix_caching", dict(cache=dict(prefix_caching=True))),
     # The latent family runs (item 10); int8/int4 weights on it wait.
     ("latent", dict(model=dict(latent=tcfg.LatentConfig(), family="mla"),
                     engine=dict(quantization="int8"))),

@@ -47,7 +47,7 @@ def test_every_module_imports_without_a_gpu_or_compiler():
 
 @pytest.mark.parametrize("cls", [
     "RopeScaling", "LatentConfig", "ModelConfig", "CacheConfig", "EngineConfig",
-    "ServingConfig",
+    "ServingConfig", "PrefixConfig",
 ])
 def test_config_fields_and_defaults_match_the_reference(cls):
     def spec(c):

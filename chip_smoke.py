@@ -89,7 +89,15 @@ one line per engine configuration or comparison):
               pointers near the ring's end, sink-bound heads, empty tails;
               bytes EQUAL, the padding slots untouched); last, #4's pinned
               case (seed 0, pages of 48, B = 8: the bf16 excursion that
-              rounding p * vs to bf16 caused). The latent family
+              rounding p * vs to bf16 caused). The verify shape of
+              speculative decoding (`phase_verify_kernels`, a line of its
+              own): #1 and #4 at B = 8, S = k + 1 = 5 (`VERIFY_ROWS`: rows
+              of 5, 1 and 0 new tokens over 600-2048 cached ones, pages of
+              64) at Llama-3-8B's and Llama-3.2-1B's widths, bf16 and f32
+              queries, bf16 / f32 and int8 pools, pad queries and the empty
+              row exact zeros; each timed beside its plain version, SDPA on
+              the gathered K/V under the verify's mask, and the bound. The
+              latent family
               (`phase_latent_kernels`, a line of its own): the four
               latent wrappers (#15a-d, `csrc/latent_attention.cu`)
               against their plain versions at 1, 8 and 16 query heads over
@@ -244,7 +252,25 @@ one line per engine configuration or comparison):
               `llama3_8b_8l_int8outlier_int8pages` (int8 weights with 32
               fp outlier channels, 8 layers, int8 pages, K = 16) through
               the traffic and profiles above, with its `engine_family`
-              line; no product takes the W8A8 route.
+              line; no product takes the W8A8 route. Then speculative
+              decoding (`phase_speculative`, k = 4, 3 fused rounds a tick,
+              pipelined): `llama3_8b_spec_bf16_pages` and `_int8_pages`
+              (Llama-3-8B at 32 layers, bf16 weights, drafted by a random
+              model at Llama-3.2-1B's widths, 16 layers, another seed) and
+              `llama32_1b_self_draft_bf16_pages` (Llama-3.2-1B drafted by
+              itself): 8 rows of the smoke's prompt lengths, 6 greedy
+              speculative, 1 greedy plain, 1 sampled, 64 new tokens each;
+              tokens/s, tick ms, `spec_stats` and the acceptance rate, the
+              launches (#1 / #4 required), the draft cache's bytes and the
+              peak memory; the plain engine on the same traffic (tokens/s,
+              the share of equal greedy tokens: bf16 near-ties may flip);
+              a speculative tick profiled (#1 / #4 once a layer a round,
+              no decode kernel inside a speculative tick; one round
+              captured and replayed), for the bf16 pair beside the plain
+              K = 16 window over the same 8 rows of 600 tokens; then a
+              run of the
+              first pair with the adaptive controller on (256 new tokens a
+              row; its `spec_adapt_*` counters).
 4. parity   - 2 layers of the same widths in f32 (TF32 off): the bf16 pool
               at K = 16, at K = 1 and on the gather path, identical greedy
               streams; int4 weights over the int8 pool, kernels against the
@@ -279,11 +305,19 @@ one line per engine configuration or comparison):
               sampled, over the model-dtype and int8 pages (K = 16) and
               the f32 latent pool: the JAX tests' sequence, a spill and a
               reload, identical streams; `int8_outlier` over int8 pages at
-              K = 16 against K = 1, the share of equal tokens.
+              K = 16 against K = 1, the share of equal tokens. Last,
+              speculative decoding (`phase_parity_speculative`): 2 layers
+              at Llama-3-8B's widths drafted by 1 layer at Llama-3.2-1B's
+              and by itself, through the fused rounds and the synchronous
+              tick, over the model-dtype pages (K = 16 between speculative
+              ticks), int8 pages and the int8 dense cache (K = 1 on both
+              sides), streams identical to the plain engine's; the
+              self-draft accepts every proposal.
 
 Then a line `{"kernels": [...]}` with one entry per kernel (the only line
 with that key: phase 2 lists its results under `checked`; each entry also
-carries its launches on the prefix paths and on the int8_outlier path),
+carries its launches on the prefix paths, on the int8_outlier path and on
+the speculative paths; #1 and #4 their cases at the verify shape),
 then phase 5:
 
 5. serve    - a checkpoint loaded and served through the OpenAI gateway.
@@ -1466,15 +1500,21 @@ def pool_bytes_per_slot(pool):
 
 def launches_a_call(fn):
     """Decode attention kernels (``ATTENTION_KERNELS``) that one call of
-    ``fn`` launches, as the profiler counts them."""
+    ``fn`` launches, as the profiler counts them. The profiler drops
+    records at times, so a session that saw none is profiled again (three
+    at most), as in ``flush_launches``."""
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
+    for _ in range(3):
         torch.cuda.synchronize()
-    return sum(ev.count for ev in prof.key_averages()
-               if any(n in ev.key for n in ATTENTION_KERNELS))
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        got = sum(ev.count for ev in prof.key_averages()
+                  if any(n in ev.key for n in ATTENTION_KERNELS))
+        if got:
+            return got
+    return got
 
 
 def flush_launches(fn):
@@ -6293,6 +6333,381 @@ def phase_parity_prefix():
 
 
 # ---------------------------------------------------------------------------
+# speculative decoding (queue 1, item 9): the verify shape in phase 2, the
+# speculative paths in phase 3, their parity in phase 4
+# ---------------------------------------------------------------------------
+
+SPEC_K = 4
+# The verify's rows: k + 1 = 5 queries a speculative row, 1 a row riding the
+# verify as a plain decode (its 4 pad queries must come out zero and write
+# nothing), 0 an inactive row; 600-2048 tokens cached, pages of 64.
+VERIFY_ROWS = {"num_new": [5, 5, 1, 5, 0, 5, 1, 5],
+               "kv_len": [600, 2048, 1337, 905, 1500, 1999, 1280, 1024]}
+# (model, kv heads, query heads a kv head, head_dim): Llama-3-8B's and
+# Llama-3.2-1B's widths, the target and the draft of phase 3.
+VERIFY_WIDTHS = (("llama-3-8b", HKV, HQ // HKV, D),
+                 ("llama-3.2-1b", LLAMA32_1B.num_kv_heads,
+                  LLAMA32_1B.num_heads // LLAMA32_1B.num_kv_heads,
+                  LLAMA32_1B.head_dim))
+
+
+def verify_mask(kv_len, num_new, s, t):
+    """The (query, slot) pairs the verify attends: ``[B, S, T]`` bool."""
+    q_rel = torch.arange(s, device=DEV)[None, :]
+    q_pos = (kv_len - num_new)[:, None] + q_rel
+    pos = torch.arange(t, device=DEV)[None, None, :]
+    return ((pos < kv_len[:, None, None]) & (pos <= q_pos[:, :, None])
+            & (q_rel < num_new[:, None])[:, :, None])
+
+
+def phase_verify_kernels(flush):
+    """#1 and #4 at the verify shape of a speculative tick (B = 8, S = k + 1
+    = 5, ``VERIFY_ROWS``) at ``VERIFY_WIDTHS``, bf16 and f32 queries, against
+    their plain versions (pad queries and the empty row exact zeros), each
+    case timed beside its plain version, SDPA on the gathered K/V (the
+    verify's mask; a pad query may see slot 0, so that SDPA's rows stay
+    finite) and the bound for the work this data needs (the live rows' K/V
+    once, q in and out; 4 operations a (query, slot, head, channel) pair).
+    Returns the timed entries by wrapper and case."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(2121)
+    b, s = 8, SPEC_K + 1
+    num_new, kv_len = i32(VERIFY_ROWS["num_new"]), i32(VERIFY_ROWS["kv_len"])
+    width = -(-int(kv_len.max()) // PS) + 1
+    pages = b * width + 1
+    table = make_table(rng, b, width, pages)
+    t = width * PS
+    mask = verify_mask(kv_len, num_new, s, t)
+    pairs = int(mask.sum())
+    live = int(kv_len[num_new > 0].sum())
+    sdpa_mask = mask.clone()
+    sdpa_mask[..., 0] = True
+    sdpa_mask = sdpa_mask[:, None]
+    cases, timed = [], {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for model, hkv, g, d in VERIFY_WIDTHS:
+            hq = hkv * g
+            q = normal(rng, (b, s, hq, d), dtype)
+            qh = q.permute(0, 2, 1, 3).contiguous()
+            for pool in (make_pool(rng, pages, dtype, hkv, PS, d),
+                         make_qpool(rng, pages, hkv, PS, d)):
+                rname, kernel, plain = ragged_fns(pool)
+                kind = "int8 pages" if len(pool) == 4 else f"{str(dtype)[6:]} pages"
+                tag = f"verify_{rname}_{model}_{str(dtype)[6:]}"
+                err = compare_ragged(cases, tag, dtype, q, pool, table,
+                                     kv_len, num_new)
+                kg, vg = (x.to(dtype) for x in dequantized(pool, table))
+                esz = q.element_size()
+                per_slot = 2 * (d + 4) if len(pool) == 4 else 2 * d * esz
+                bytes_moved = (live * hkv * per_slot + 2 * q.numel() * esz
+                               + table.numel() * 4 + 3 * b * 4)
+                bms, by = bound(bytes_moved, 4 * pairs * hq * d, dtype)
+                timed.setdefault(kernel.__name__, {})[
+                    f"{model} {str(dtype)[6:]} q"] = {
+                    "shape": f"B={b} S={s} num_new={VERIFY_ROWS['num_new']} "
+                             f"kv={VERIFY_ROWS['kv_len']} table={width} "
+                             f"Hq={hq} Hkv={hkv} D={d} PS={PS} "
+                             f"{str(dtype)[6:]} q, {kind}",
+                    "max_abs_err": err, "tolerance": TOL[dtype],
+                    "ms": time_ms(lambda: kernel(q, *pool, table, kv_len,
+                                                 num_new), 20, flush),
+                    "plain_ms": time_ms(lambda: plain(
+                        q, *pool, table, kv_len, num_new), 5, flush),
+                    "library_ms": time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                        qh, kg, vg, attn_mask=sdpa_mask, enable_gqa=True),
+                        20, flush),
+                    "bound_ms": bms, "bound_by": by, "bytes": bytes_moved,
+                    "pairs": pairs,
+                    "score_rows_live_of_a_block": s * ra.rows_per_query(g)}
+                del kg, vg
+    assert_cases(cases, "verify")
+    emit({"phase": "verify_kernels", "card": CARD,
+          "tolerance": {str(k): v for k, v in TOL.items()},
+          "cases": {n: e for n, e, _ in cases}, "timed": timed,
+          "seconds": time.perf_counter() - t0})
+    return timed
+
+
+SPEC_NEW = 64
+SPEC_LENS = MIXED["short_lens"][:8]  # 30, 1500 and six of 30-1500
+# The kernels whose launches the speculative paths report: the verify's (#1,
+# #4) and, for the plain ticks between speculative ones, the decode forms.
+SPEC_COUNTERS = {
+    **RAGGED, **QRAGGED, "paged_attention": (pa, "launches"),
+    "quantized_paged_attention": (pa, "quantized_launches"),
+    "quantized_paged_fused_attention": (pa, "fused_launches"),
+    "paged_tail_flush": (pa, "flush_launches")}
+
+
+def spec_options(i, new):
+    """Row ``i`` of the speculative traffic: rows 0-5 greedy and
+    speculative, row 6 greedy and plain, row 7 sampled (and plain)."""
+    if i == 7:
+        return SamplingOptions(max_new_tokens=new, temperature=0.8, top_p=0.9)
+    return SamplingOptions(max_new_tokens=new, speculative=i < 6)
+
+
+def spec_engine(cfg, params, draft, ckw, **ekw):
+    return InferenceEngine(
+        cfg, params,
+        EngineConfig(max_batch_size=8, speculative_k=SPEC_K, **ekw),
+        CacheConfig(num_pages=2048, **ckw), draft=draft,
+        generator=torch.Generator().manual_seed(13), device=DEV)
+
+
+def spec_traffic(engine, vocab, new, lens=SPEC_LENS):
+    """The eight rows of :func:`spec_options` at once, one prompt of each of
+    ``lens``; returns (streams, wall seconds)."""
+    rng = np.random.default_rng(29)
+    client = Client(engine)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i, n in enumerate(lens):
+        client.submit(rng.integers(0, vocab, size=n).tolist(),
+                      spec_options(i, new))
+    streams = client.drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    for i, toks in enumerate(streams):
+        assert len(toks) == new and all(0 <= x < vocab for x in toks), i
+    return streams, wall
+
+
+def profile_spec(cfg, params, draft, ckw, counters, ticks=2):
+    """A speculative tick (``draft`` given) or, with ``draft=None``, the
+    plain engine's K = 16 window, on the same eight rows of about 600
+    cached tokens (rows as :func:`spec_options`), through
+    :func:`profile_steps`; the table is held at 1024 slots, so that no
+    widening falls among the measured ticks."""
+    engine = spec_engine(cfg, params, draft, ckw, decode_windows=(1024,),
+                         speculative_adaptive=False)
+    rng = np.random.default_rng(31)
+    for i in range(8):
+        engine.submit(rng.integers(0, cfg.vocab_size, size=600).tolist(),
+                      spec_options(i, 400))
+    for _ in range(4):
+        engine.step()  # admission, prefill, the first ticks (captures)
+    stats0 = dict(engine.spec_stats)
+    tokens0 = engine.metrics.get_counter("decode_tokens")
+    out = profile_steps(engine, lambda: None, ticks, counters)
+    out["tokens_per_tick"] = (engine.metrics.get_counter("decode_tokens")
+                              - tokens0) / (3 * ticks)
+    if draft is not None:
+        out["rounds_per_tick"] = engine.spec_rounds
+        out["spec_stats_during"] = {
+            k: engine.spec_stats[k] - stats0[k] for k in stats0}
+    else:
+        out["decode_steps"] = engine.decode_steps
+    del engine
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_spec(label, cfg, params, draft, ckw, need, plain_share=True,
+             adaptive=False, new=SPEC_NEW, plain_profile=False):
+    """The speculative traffic through one configuration (``spec_rounds``
+    fused rounds a tick, pipelined, k = 4): the launch counters zeroed just
+    before and read just after, each kernel of ``need`` launched; the
+    streams against the plain engine's on the same traffic (the share of
+    equal greedy tokens: bf16 near-ties may flip); then a speculative tick
+    profiled, with ``plain_profile`` beside the plain K = 16 window.
+    Returns (report, launches)."""
+    torch.cuda.reset_peak_memory_stats()
+    engine = spec_engine(cfg, params, draft, ckw,
+                         speculative_adaptive=adaptive)
+    assert engine.spec_rounds == 16 // (SPEC_K + 1) and not engine._pipelined
+    assert engine.cache.use_kernel and engine.cache.use_ragged
+    for module, attr in SPEC_COUNTERS.values():
+        setattr(module, attr, 0)
+    streams, wall = spec_traffic(engine, cfg.vocab_size, new)
+    launches = {n: getattr(m, a) for n, (m, a) in SPEC_COUNTERS.items()}
+    for name in need:
+        assert launches[name] > 0, f"{name} was never launched on {label}"
+    m, st = engine.metrics, dict(engine.spec_stats)
+    snap = m.snapshot()
+    assert st["steps"] > 0 and st["proposed"] == SPEC_K * st["steps"]
+    assert m.get_counter("spec_round_graph_captures") > 0
+    report = {
+        "phase": "speculative", "config": label, "card": CARD,
+        "model": f"target {cfg.num_layers} layers, draft "
+                 f"{draft[0].num_layers} layers, random weights",
+        "speculative_k": SPEC_K, "spec_rounds": engine.spec_rounds,
+        "traffic": {"prompt_lens": SPEC_LENS, "new_tokens": new,
+                    "rows": "6 greedy speculative, 1 greedy plain, 1 sampled"},
+        "wall_s": wall, "tokens_per_s": 8 * new / wall,
+        "spec_stats": st,
+        "acceptance_rate": st["accepted"] / max(st["proposed"], 1),
+        "decode_ticks": snap["decode_step_count"],
+        "decode_tick_ms_mean": snap["decode_step_mean_s"] * 1e3,
+        "decode_resolve_ms_mean": snap.get("decode_resolve_mean_s", 0.0) * 1e3,
+        "prefill_ms_mean": snap["prefill_mean_s"] * 1e3,
+        "launches": launches,
+        "round_graph_captures": m.get_counter("spec_round_graph_captures"),
+        "round_graph_replays": m.get_counter("spec_round_graph_replays"),
+        "round_graph_capture_s_max": max(m._timings["spec_round_graph_capture"]),
+        "draft_cache_bytes": sum(t.numel() * t.element_size()
+                                 for t in engine.draft_cache.layer_stacks),
+        "max_memory_allocated": torch.cuda.max_memory_allocated()}
+    if adaptive:
+        report["spec_adapt"] = {k: m.get_counter(k) for k in (
+            "spec_adapt_window_resets", "spec_adapt_probes",
+            "spec_adapt_suspensions")}
+        report["spec_adapt_mode_at_end"] = engine._spec_ctl["mode"]
+    del engine
+    torch.cuda.empty_cache()
+    if plain_share:
+        plain = spec_engine(cfg, params, None, ckw)
+        want, plain_wall = spec_traffic(plain, cfg.vocab_size, new)
+        del plain
+        torch.cuda.empty_cache()
+        share, first = shares(streams[:7], want[:7])
+        report["plain_engine"] = {
+            "tokens_per_s": 8 * new / plain_wall,
+            "greedy_equal_token_share": share, "first_divergence": first}
+    if not adaptive:
+        prof = profile_spec(cfg, params, draft, ckw, SPEC_COUNTERS)
+        per_tick = prof["kernel_launches_per_step"]
+        verify = "quantized_ragged_paged_attention" if ckw.get(
+            "kv_quant") else "ragged_paged_attention"
+        # Every round's verify runs the ragged kernel once a layer; no
+        # decode kernel runs inside a speculative tick.
+        assert per_tick[verify] == cfg.num_layers * prof["rounds_per_tick"], (
+            per_tick)
+        for name in ("paged_attention", "quantized_paged_attention",
+                     "quantized_paged_fused_attention"):
+            assert per_tick[name] == 0, (name, per_tick)
+        report["spec_tick_profile"] = prof
+        if plain_profile:
+            report["plain_window_profile"] = profile_spec(
+                cfg, params, None, ckw, SPEC_COUNTERS)
+    emit(report)
+    return report, launches
+
+
+def phase_speculative():
+    """Phase 3's speculative paths (bf16 weights, k = 4, 3 fused rounds a
+    tick, pipelined; the traffic of :func:`spec_options`, 64 new tokens a
+    row): ``llama3_8b_spec_bf16_pages`` (Llama-3-8B at 32 layers over bf16
+    pages, #1 at every verify, drafted by a random model at Llama-3.2-1B's
+    widths, 16 layers, another seed), ``llama3_8b_spec_int8_pages`` (the
+    same over int8 pages, #4), ``llama32_1b_self_draft_bf16_pages``
+    (Llama-3.2-1B at 16 layers drafted by itself: the same tensors), and a
+    short adaptive run of the first pair (256 new tokens a row, the
+    controller on: its counters). Returns the launches by kernel, summed
+    over the runs."""
+    cfg = LLAMA3_8B
+    params = llama.init_params(
+        cfg, torch.Generator(device=DEV).manual_seed(0), torch.bfloat16, DEV)
+    dcfg = LLAMA32_1B
+    dparams = llama.init_params(
+        dcfg, torch.Generator(device=DEV).manual_seed(5), torch.bfloat16, DEV)
+    launches = collections.Counter()
+    for label, ckw, need in (
+            ("llama3_8b_spec_bf16_pages: bf16 weights, bf16 pages, k=4, "
+             "draft at llama-3.2-1b widths", {}, ("ragged_paged_attention",)),
+            ("llama3_8b_spec_int8_pages: bf16 weights, int8 pages, k=4, "
+             "draft at llama-3.2-1b widths", {"kv_quant": "int8"},
+             ("quantized_ragged_paged_attention",))):
+        launches.update(run_spec(label, cfg, params, (dcfg, dparams), ckw,
+                                 need, plain_profile=not ckw)[1])
+    launches.update(run_spec(
+        "llama3_8b_spec_bf16_pages_adaptive: the controller on",
+        cfg, params, (dcfg, dparams), {}, ("ragged_paged_attention",),
+        plain_share=False, adaptive=True, new=256)[1])
+    del params
+    torch.cuda.empty_cache()
+    report, got = run_spec(
+        "llama32_1b_self_draft_bf16_pages: bf16 weights, bf16 pages, k=4, "
+        "the target as its own draft", dcfg, dparams, (dcfg, dparams), {},
+        ("ragged_paged_attention",))
+    launches.update(got)
+    del dparams
+    torch.cuda.empty_cache()
+    return dict(launches)
+
+
+def spec_parity_streams(engine, vocab):
+    """Phase 4's speculative traffic: six prompts of 20-600 tokens, 16 new
+    tokens each, rows 0, 2, 4 and 5 speculative."""
+    rng = np.random.default_rng(43)
+    subs = [engine._submit_session(
+        rng.integers(0, vocab, size=n).tolist(),
+        SamplingOptions(max_new_tokens=16, speculative=i in (0, 2, 4, 5)))
+        for i, n in enumerate((20, 600, 63, 130, 64, 200))]
+    while engine.has_work():
+        engine.step()
+    return [s.generated for s in subs]
+
+
+def phase_parity_speculative():
+    """Phase 4 for speculative decoding, f32, TF32 off: Llama-3-8B's widths
+    at 2 layers drafted by Llama-3.2-1B's at 1 layer and by itself; the
+    speculative streams through the pipelined rounds and the synchronous
+    tick are IDENTICAL to the plain greedy engine's over the model-dtype
+    pages (K = 16 windows between speculative ticks), int8 pages and the
+    int8 dense cache (K = 1 on both sides: a K-step window reads its own
+    tail unquantized); over the model-dtype pages the self-draft accepts
+    every proposal (over int8 KV the draft's dense cache is not quantized,
+    so it need not: its acceptance is shown), and over the model-dtype
+    pages the rounds run eagerly give the streams and ``spec_stats`` of the
+    captured ones."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(LLAMA3_8B, num_layers=2)
+    params = llama.init_params(
+        cfg, torch.Generator(device=DEV).manual_seed(1), torch.float32, DEV)
+    dcfg = dataclasses.replace(LLAMA32_1B, num_layers=1)
+    dparams = llama.init_params(
+        dcfg, torch.Generator(device=DEV).manual_seed(2), torch.float32, DEV)
+    report = {"phase": "parity_speculative", "card": CARD}
+
+    def make(ekw, ckw, draft):
+        return InferenceEngine(
+            cfg, params,
+            EngineConfig(max_batch_size=4, prefill_buckets=(64, 256),
+                         max_seq_len=1024, dtype="float32",
+                         speculative_k=SPEC_K, **ekw),
+            CacheConfig(num_pages=128, max_pages_per_session=16, **ckw),
+            draft=draft, device=DEV)
+
+    for pool, ekw, ckw in (
+            ("model_dtype_pages", {}, {}),
+            ("int8_pages", {"decode_steps": 1}, {"kv_quant": "int8"}),
+            ("int8_dense", {"decode_steps": 1},
+             {"kind": "dense", "kv_quant": "int8"})):
+        plain = spec_parity_streams(make(ekw, ckw, None), cfg.vocab_size)
+        for pipelined in (True, False):
+            for which, draft in (("draft", (dcfg, dparams)),
+                                 ("self_draft", (cfg, params))):
+                engine = make({**ekw, "pipelined_ticks": pipelined,
+                               "speculative_rounds": 3}, ckw, draft)
+                got = spec_parity_streams(engine, cfg.vocab_size)
+                st = dict(engine.spec_stats)
+                mode = "rounds" if pipelined else "synchronous"
+                assert got == plain, f"{pool} {mode} {which}: streams differ"
+                assert st["steps"] > 0, (pool, mode, which, st)
+                if which == "self_draft" and not ckw:
+                    assert st["accepted"] == st["proposed"], (pool, mode, st)
+                entry = {"equal_to_plain": True, **st}
+                if pipelined:
+                    captures = engine.metrics.get_counter(
+                        "spec_round_graph_captures")
+                    assert captures > 0, (pool, which)
+                    entry["round_graph_captures"] = captures
+                if pipelined and not ckw and which == "draft":
+                    eager = make({**ekw, "speculative_rounds": 3}, ckw, draft)
+                    eager._rounds.capture = False
+                    assert spec_parity_streams(eager, cfg.vocab_size) == got
+                    assert eager.spec_stats == st, (pool, which)
+                    entry["eager_rounds_equal"] = True
+                    del eager
+                report[f"{pool}_{mode}_{which}"] = entry
+                del engine
+        torch.cuda.empty_cache()
+    emit(report)
+
+
+# ---------------------------------------------------------------------------
 
 REPLACES = {
     "paged_attention": "distributed_llm_inference_tpu/ops/paged_attention.py:154",
@@ -6344,18 +6759,24 @@ def main() -> int:
     timed, floor, checked = phase_kernels()
     latent_timed, latent_widths = phase_latent_kernels(
         torch.ones(16 * 1024 * 1024, dtype=torch.int64, device=DEV))
+    verify_timed = phase_verify_kernels(
+        torch.ones(16 * 1024 * 1024, dtype=torch.int64, device=DEV))
     launches = phase_engine()
     phase_families()
     width_launches = phase_widths()
     latent_launches, tensor_core_launches = phase_latent()
     prefix_launches = phase_prefix()
     outlier_launches = phase_outlier()
+    spec_launches = phase_speculative()
     phase_parity()
     phase_parity_families()
     phase_parity_widths()
     phase_parity_latent()
     phase_parity_prefix()
+    phase_parity_speculative()
     timed.update(latent_timed)
+    for name, by_case in verify_timed.items():
+        timed[name]["at_verify_shape"] = by_case
     launches.update(latent_launches)
     for name, n in tensor_core_launches.items():
         timed[name]["tensor_core_launches"] = n
@@ -6372,6 +6793,7 @@ def main() -> int:
          "launches_on_the_width_paths": width_launches.get(name, 0),
          "launches_on_the_prefix_paths": prefix_launches.get(name, 0),
          "launches_on_the_int8_outlier_path": outlier_launches.get(name, 0),
+         "launches_on_the_speculative_paths": spec_launches.get(name, 0),
          "widths_checked": checked[name],
          **{key: k[key] for key in (
              "instances", "tensor_core_launches", "bound_ms_f32_cuda_cores",
@@ -6383,6 +6805,10 @@ def main() -> int:
              "max": k["precision"]["max_bf16_steps"],
              "one_pass_control_min": k["precision"][
                  "min_one_pass_bf16_steps"]}} if "precision" in k else {}),
+         **({"at_verify_shape": {c: {key: e[key] for key in (
+             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+             "library_ms", "shape")} for c, e in k["at_verify_shape"].items()}}
+            if "at_verify_shape" in k else {}),
          "at_widths": {w: {key: e[key] for key in (
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms", "shape")} for w, e in k.get("at_widths", {}).items()}}

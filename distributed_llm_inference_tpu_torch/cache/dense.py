@@ -217,6 +217,17 @@ class _DenseRowsMixin(GatherAttendMixin):
         view.lengths = lengths
         return view
 
+    def narrowed(self, width: int):
+        """A view of every row's first ``width`` positions: its buffers are
+        slices of this cache's (writes land in place) and its ``lengths``
+        IS this cache's, so attention reads ``width`` positions while the
+        buffers keep their size."""
+        return self._view(
+            [p.narrow(self.TIME_AXIS + 1, 0, width)
+             for p in self.layer_stacks],
+            self.lengths,
+        )
+
     def select_row(self, row: int):
         """Batch-1 view of one row: its buffers are slices of this cache's,
         so a prefill through the view writes in place; ``lengths`` is a

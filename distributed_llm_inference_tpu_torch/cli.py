@@ -36,8 +36,6 @@ from typing import List, Optional, Tuple
 # Flags of features that wait (argparse dest -> flag, ROADMAP.md queue 1
 # item). Each defaults to None (or False), so "given" is "not None/False".
 _WAITING_FLAGS = {
-    "speculative_draft": ("--speculative-draft (speculative decoding)",
-                          "item 9"),
     "profile_dir": ("--profile-dir (device and host traces)", "item 17"),
     "relay": ("--relay (the distributed tier)", "item 13"),
     "client_batch": ("--client-batch (the distributed tier)", "item 13"),
@@ -119,21 +117,33 @@ def cmd_local(args) -> int:
     _refuse_waiting(args)
     _check_model(args)
     prompt, tok = _resolve_prompt(args)
+    if args.speculative_draft and args.temperature:
+        raise SystemExit("--speculative-draft is greedy-only "
+                         "(remove --temperature)")
     cfg = checkpoint.load_config(args.model)
     params = checkpoint.load_model_params(
         args.model, cfg, _torch_dtype(args.dtype),
         cache_dir=args.weights_cache, device=args.device,
     )
     t0 = time.monotonic()
+    draft = None
+    if args.speculative_draft:
+        dcfg = checkpoint.load_config(args.speculative_draft)
+        draft = (dcfg, checkpoint.load_model_params(
+            args.speculative_draft, dcfg, _torch_dtype(args.dtype),
+            cache_dir=args.weights_cache, device=args.device,
+        ))
     engine = InferenceEngine(
         cfg, params,
         EngineConfig(
             max_batch_size=args.max_sessions, max_seq_len=args.max_seq_len,
             max_new_tokens=args.max_new, dtype=args.dtype,
             quantization=args.quantize or ("int8" if args.int8 else None),
+            speculative_k=args.speculative_k if draft else 0,
             decode_steps=args.decode_steps,
         ),
         CacheConfig(kind=args.cache, kv_quant=args.kv_quant),
+        draft=draft,
         device=args.device,
     )
     out = engine.generate(
@@ -141,6 +151,7 @@ def cmd_local(args) -> int:
         SamplingOptions(
             temperature=args.temperature, max_new_tokens=args.max_new,
             eos_token_id=args.eos if args.eos is not None else -1,
+            speculative=draft is not None,
         ),
     )[0]
     doc = {
@@ -148,6 +159,13 @@ def cmd_local(args) -> int:
         "seconds": round(time.monotonic() - t0, 3),
         "metrics": engine.metrics.snapshot(),
     }
+    if draft is not None:
+        st = engine.spec_stats
+        doc["speculative"] = {
+            **st,
+            "acceptance_rate": round(st["accepted"] / max(st["proposed"], 1),
+                                     4),
+        }
     if tok is not None:
         doc["text"] = tok.decode(out)
     print(json.dumps(doc), flush=True)
@@ -278,8 +296,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "every K steps). Default: auto — 16 where the fused "
                         "tail path composes, else 1")
     l.add_argument("--speculative-draft", default=None,
-                   help="not ported yet (ROADMAP.md queue 1, item 9)")
-    l.add_argument("--speculative-k", type=int, default=4)
+                   help="draft checkpoint dir: greedy speculative decoding "
+                        "(same vocabulary as --model)")
+    l.add_argument("--speculative-k", type=int, default=4,
+                   help="draft proposals a round")
     l.add_argument("--profile-dir", default=None,
                    help="not ported yet (ROADMAP.md queue 1, item 17)")
     l.set_defaults(fn=cmd_local)

@@ -199,7 +199,9 @@ class EngineConfig:
     pipelined_ticks: bool = True
     overlap_admission: bool = True
     overlap_admission_max_inflight: int = 4
-    # speculative decoding (not ported yet)
+    # Speculative decoding (an engine built with a draft model): proposals
+    # a round, the adaptive controller's knobs, fused rounds a dispatch
+    # (None: max(1, (decode_steps or 16) // (speculative_k + 1))).
     speculative_k: int = 0  # 0 = disabled
     speculative_adaptive: bool = True
     speculative_probe_below: Optional[float] = None

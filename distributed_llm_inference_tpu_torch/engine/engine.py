@@ -48,9 +48,15 @@ window (when its span holds K tokens). Prefix caching
 (``CacheConfig.prefix_caching``, policy in :class:`PrefixConfig`) shares
 full prompt pages of the paged pools (all four kinds) between sessions by
 content, copy-on-write, with an optional host spill tier
-(``prefixstore/``). The constructor raises
-``NotImplementedError``, naming the ``ROADMAP.md`` queue item, for every
-feature that waits.
+(``prefixstore/``). Speculative decoding (``draft=(draft_cfg,
+draft_params)``): greedy sessions that opt in (``SamplingOptions.
+speculative``) get ``EngineConfig.speculative_k`` draft proposals a round,
+verified by ONE target forward over ``k + 1`` positions a row, with the
+other rows riding the same forward as one-token decodes; the tokens equal
+plain greedy decoding. With ``pipelined_ticks`` a tick runs ``spec_rounds``
+rounds on the device and the host fetches their packed result once, one
+``step()`` later. The constructor raises ``NotImplementedError``, naming
+the ``ROADMAP.md`` queue item, for every feature that waits.
 """
 
 from __future__ import annotations
@@ -78,7 +84,7 @@ from ..ops.attention import (
     int8_pages_error, kernel_widths_error, latent_widths_error)
 from ..utils.device import resolve_device, to_device
 from ..utils.metrics import Metrics
-from .graphs import FusedDecode
+from .graphs import FusedDecode, SpeculativeRounds
 from .plan import AttentionPlan
 from .sampling import SamplingOptions, SamplingParams, sample
 from .session import Session, SessionState
@@ -178,8 +184,6 @@ class InferenceEngine:
             raise ValueError(f"unknown quantization {ecfg.quantization!r}")
         if mesh_cfg is not None:
             raise _waits("mesh_cfg (sharded serving)", "item 12")
-        if draft is not None:
-            raise _waits("a draft model (speculative decoding)", "item 9")
         if trace_cfg is not None:
             raise _waits("trace_cfg (spans and the flight recorder)", "item 16")
 
@@ -433,11 +437,78 @@ class InferenceEngine:
                                           torch.Tensor, object,
                                           List[int]]] = []
         self._admit_pend = np.zeros(self.batch, np.int32)
-        self._pipelined = ecfg.pipelined_ticks and K > 1 and tail_capable
+        # A draft-model engine keeps the synchronous flow: its speculative
+        # ticks pipeline on their own (_speculative_rounds_tick).
+        self._pipelined = (ecfg.pipelined_ticks and K > 1 and tail_capable
+                           and draft is None)
         # Batched admission gathers and scatters rows (select_rows /
         # merge_rows): the model-dtype sink ring has neither, so its
         # admissions prefill one row at a time, as in the JAX engine.
         self._batch_admission = hasattr(self.cache, "select_rows")
+
+        # -- speculative decoding (a draft model) -----------------------------
+        self.draft = None
+        self.spec_stats = {"proposed": 0, "accepted": 0, "steps": 0}
+        self._spec_pending = None
+        if draft is not None:
+            self._init_draft(draft)
+
+    def _init_draft(self, draft) -> None:
+        """The draft model's state: its dense cache in the model dtype at
+        ``max_seq_len``, the fused rounds' state and device carries, and the
+        adaptive controller. Refuses what the JAX engine refuses, in its
+        words."""
+        dcfg, dparams = draft
+        if dcfg.vocab_size != self.cfg.vocab_size:
+            raise ValueError("draft and target must share a vocabulary")
+        if isinstance(self.cache, _SINK_KINDS):
+            raise ValueError(
+                "speculative decoding needs rollback-capable caches "
+                "(dense/paged); the sink ring evicts on write"
+            )
+        ecfg = self.ecfg
+        sk = ecfg.speculative_k
+        if sk < 1:
+            raise ValueError(
+                f"speculative_k must be >= 1 with a draft model, got {sk}"
+            )
+        self.draft = (dcfg, dparams)
+        # Created at full width once: it never moves, so a captured round
+        # stays valid across ticks.
+        self.draft_cache = DenseKVCache.create(
+            dcfg.num_layers, self.batch, ecfg.max_seq_len, dcfg.num_kv_heads,
+            dcfg.head_dim, self.dtype, device=self.device,
+        )
+        # Fused rounds a speculative tick (_spec_round_fn).
+        self.spec_rounds = (
+            ecfg.speculative_rounds if ecfg.speculative_rounds is not None
+            else max(1, (ecfg.decode_steps or 16) // (sk + 1))
+        )
+        self._rounds = SpeculativeRounds(self.batch, sk, self.spec_rounds,
+                                         self.device, self.metrics)
+        self._draft_ladder = window_ladder(ecfg.max_seq_len)
+        self._draft_view = None
+        # The pipelined rounds' state: the device-resident token carry of
+        # the in-flight tick, and the draft's pending catch-up pair (token,
+        # mask) that the next round's first draft step consumes.
+        self._spec_carry: Optional[torch.Tensor] = None
+        self._spec_catch = None
+        self._spec_carry_ok = np.zeros(self.batch, np.bool_)
+        # The adaptive controller (config.py's speculative_probe_* knobs):
+        # mode "spec" | "probe_plain" | "plain" | "probe_spec"; rates are
+        # tokens/s a resident speculative row over windows of probe_len
+        # ticks. The clock is injectable: tests drive the window's wall time.
+        self._spec_suspended = False
+        self._spec_clock = time.monotonic
+        self._spec_ctl = {
+            "mode": "spec", "win_t0": None, "win_tok0": 0.0,
+            "win_ticks": 0, "spec_rate": None, "plain_rate": None,
+            "cooldown": 0, "stat0": dict(self.spec_stats),
+            "tpr_ema": None,
+            # The resident set at the window's start: churn mid-window
+            # re-baselines the window.
+            "comp": None,
+        }
 
     # -- device programs (eager) ----------------------------------------------
 
@@ -506,6 +577,151 @@ class InferenceEngine:
             alive = alive & (nxt != eos_ids) & (i + 1 < budget)
             tok = nxt[:, None]
         return torch.stack(emits)
+
+    # -- the draft model's programs (eager; the draft attends by the gather
+    # path over its dense cache, as the JAX draft takes XLA) ----------------
+
+    def _draft_prefill(self, tokens, row: int, n_valid: int) -> None:
+        """One chunk of a row's stream into the draft cache (no head)."""
+        dcfg, dparams = self.draft
+        sub = self.draft_cache.select_row(row)
+        llama.model_apply(dcfg, dparams, tokens, sub, self._i32([n_valid]),
+                          head="none")
+        self.draft_cache.merge_row(sub, row)
+
+    def _draft_propose(self, tokens, active) -> torch.Tensor:
+        """``k`` greedy draft tokens for every active row (``[k, B]``); the
+        draft cache advances ``k`` on active rows."""
+        dcfg, dparams = self.draft
+        num_new = active.to(torch.int32)
+        tok, toks = tokens, []
+        for _ in range(self.ecfg.speculative_k):
+            logits, _ = llama.model_apply(dcfg, dparams, tok,
+                                          self.draft_cache, num_new)
+            nxt = torch.argmax(logits[:, 0], -1).to(torch.int32)
+            toks.append(nxt)
+            tok = nxt[:, None]
+        return torch.stack(toks)
+
+    def _draft_catchup(self, tokens, mask) -> None:
+        """Feed ``tokens`` ``[B, 1]`` to the draft cache where ``mask``."""
+        dcfg, dparams = self.draft
+        llama.model_apply(dcfg, dparams, tokens, self.draft_cache,
+                          mask.to(torch.int32), head="none")
+
+    def _verify(self, tokens, prop, spec, num_new, key, sp):
+        """ONE target forward over ``[last, p1..pk]`` (speculative rows,
+        ``num_new = k + 1``) and ``[last, pad...]`` (the other rows, ``num_new
+        = 1``; inactive rows 0): on the paged pools the cache's multi-token
+        route, the ragged kernels on the card. Returns the argmax at every
+        position ``[B, k + 1]`` and the position-0 sample (the other rows'
+        token); the cache advanced by ``num_new`` (the caller rolls the
+        speculative rows back)."""
+        seq = torch.cat([tokens, torch.where(spec[:, None], prop.T, 0)], 1)
+        logits, _ = llama.model_apply(self.cfg, self.params, seq, self.cache,
+                                      num_new, **self._mkw)
+        preds = torch.argmax(logits, -1).to(torch.int32)
+        return preds, sample(logits[:, 0], key, sp)
+
+    def _spec_round_fn(self, tokens, spec, active, eos_ids, budget, key, sp,
+                       catch_tok, catch, width):
+        """``spec_rounds`` fused propose -> verify -> accept rounds
+        (:meth:`_spec_round`), every decision on the device; on a card one
+        round is replayed from a CUDA graph (``engine/graphs.py:
+        SpeculativeRounds``). Nothing here waits for the host. Returns
+        ``(pack [R, B, k + 3] int32, tok_carry [B, 1], catch_tok [B, 1],
+        catch [B])``: per round the emitted tokens (``k + 1`` slots, -1
+        padded), the accepted count and whether the row speculated, in ONE
+        tensor so the host fetches once.
+
+        ``catch_tok`` / ``catch`` carry the draft's pending catch-up: on
+        full acceptance the draft never consumed its own last proposal, so
+        the next round's first draft step consumes ``[p_k, tok]`` as a
+        2-position forward (``num_new = 1 + catch``), across ticks too.
+
+        The draft attends the first ``width`` positions of its cache (a
+        view, :meth:`DenseKVCache.narrowed`): a rung of the default window
+        ladder that holds every row's tick."""
+        self._draft_view = self.draft_cache.narrowed(width)
+        return self._rounds.run(
+            self.cache.window_anchor, width, self._spec_round, tokens, spec,
+            active, eos_ids, budget, key, sp, catch_tok, catch)
+
+    def _spec_round(self, st) -> None:
+        """One round on the state ``st`` (a :class:`SpeculativeRounds`), in
+        place: draft proposals, ONE target forward over ``[tok, p1..pk]``,
+        acceptance, EOS and budget stops, the target's and the draft's
+        rollback (``lengths`` decrements), the pending catch-up. A sampled
+        plain row riding the rounds draws with the round index as its step,
+        so no two rounds of a tick reuse a draw."""
+        dcfg, dparams = self.draft
+        sk = self.ecfg.speculative_k
+        b, dev = self.batch, self.device
+        i32 = torch.int32
+        jidx = torch.arange(sk + 1, dtype=i32, device=dev)[None, :]
+        tok, alive, spec, ctok, cm = st.tok, st.alive, st.spec, st.ctok, st.cm
+        palive = (alive & spec).to(i32)
+        cmi = cm.to(i32)
+        # The first draft step folds the pending catch-up in: rows with cm
+        # consume [p_k, tok], the rest [tok, pad]; the next-token logits sit
+        # at position num_new - 1 = cm.
+        first_seq = torch.where(cm[:, None], torch.cat([ctok, tok], 1),
+                                F.pad(tok, (0, 1)))
+        draft = self._draft_view
+        lgd, _ = llama.model_apply(dcfg, dparams, first_seq, draft,
+                                   palive * (1 + cmi))
+        at = cmi.long()[:, None, None].expand(-1, 1, lgd.shape[-1])
+        nxt = torch.argmax(torch.gather(lgd, 1, at)[:, 0], -1).to(i32)
+        props = [nxt]
+        for _ in range(sk - 1):
+            lgd, _ = llama.model_apply(dcfg, dparams, nxt[:, None], draft,
+                                       palive)
+            nxt = torch.argmax(lgd[:, 0], -1).to(i32)
+            props.append(nxt)
+        prop = torch.stack(props, 1)                             # [B, k]
+        seq = torch.cat([tok, torch.where(spec[:, None], prop, 0)], 1)
+        num_new = torch.where(alive, torch.where(spec, sk + 1, 1), 0).to(i32)
+        lg, _ = llama.model_apply(self.cfg, self.params, seq, self.cache,
+                                  num_new, **self._mkw)
+        preds = torch.argmax(lg, -1).to(i32)                     # [B, k + 1]
+        sampled = sample(lg[:, 0], st.key, st.sp, st.step)
+
+        # The longest agreeing prefix, then the target's own token.
+        agree = (prop == preds[:, :sk]).to(i32)
+        acc = torch.cumprod(agree, 1).sum(1).to(i32)             # [B]
+        at_acc = torch.gather(preds, 1, acc.long()[:, None])
+        cand = torch.where(jidx < acc[:, None], F.pad(prop, (0, 1)), at_acc)
+        plain = F.pad(sampled[:, None], (0, sk))
+        cand = torch.where(spec[:, None], cand, plain)
+
+        count = torch.where(spec, acc + 1, 1).to(i32) * alive.to(i32)
+        # EOS: truncate at the first emitted EOS; budget: at the row's
+        # remaining allowance.
+        first_eos = torch.where(cand == st.eos[:, None], jidx, sk + 2).amin(1)
+        count = torch.minimum(count, first_eos + 1)
+        count = torch.minimum(count, (st.budget - st.used).clamp_min(0))
+        hit_eos = first_eos < count
+
+        # Rollback: the verify wrote num_new positions; the accepted state
+        # is base + count in the target AND the draft (both hold [..., tok,
+        # emitted[:count - 1]]; the next round feeds emitted[count - 1]).
+        self.cache.lengths.sub_(num_new - count)
+        self.draft_cache.lengths.sub_(palive * (sk - count).clamp_min(0))
+        # Full acceptance: the draft never consumed its last proposal; it
+        # becomes the pending catch-up. Rows that did not speculate this
+        # round keep theirs.
+        new_ctok = torch.gather(cand, 1,
+                                (count - 2).clamp_min(0).long()[:, None])
+        last = torch.gather(cand, 1, (count - 1).clamp_min(0).long()[:, None])
+        emit = torch.where(jidx < count[:, None], cand, -1)
+        st.pack.index_copy_(0, st.step.long(), torch.cat(
+            [emit, acc[:, None], palive[:, None]], 1)[None])
+        st.ctok.copy_(torch.where(palive[:, None] == 1, new_ctok, ctok))
+        st.cm.copy_(torch.where(palive == 1, count == sk + 1, cm))
+        st.tok.copy_(torch.where(count[:, None] > 0, last, tok))
+        st.alive.copy_(alive & ~hit_eos & (st.used + count < st.budget))
+        st.used.add_(count)
+        st.step.add_(1)
 
     # -- capacity ---------------------------------------------------------------
 
@@ -651,6 +867,12 @@ class InferenceEngine:
                     for gid in self.slots
                 ):
                     self._decode_tick(produced)
+                elif self._spec_pending is not None:
+                    # Every session left with a speculative tick in flight
+                    # and nothing was admitted: _decode_tick will not run
+                    # to drain it, so resolve it here (else has_work()
+                    # would report the orphaned tick forever).
+                    self._spec_flush(produced)
         return produced
 
     def has_work(self) -> bool:
@@ -660,6 +882,7 @@ class InferenceEngine:
                 or any(s is not None for s in self.slots)
                 or self._pending is not None
                 or bool(self._inflight_admits)
+                or self._spec_pending is not None
             )
 
     def active_sessions(self) -> int:
@@ -891,6 +1114,10 @@ class InferenceEngine:
             self.cache.reset_rows(
                 torch.arange(self.batch, device=self.device) == slot
             )
+            if self.draft is not None:
+                self.draft_cache.reset_rows(
+                    torch.arange(self.batch, device=self.device) == slot
+                )
             if self.allocator is not None:
                 fresh = self.allocator.alloc(need - len(shared) + cow)
                 s.pages = shared + fresh  # owned: _release frees
@@ -1154,7 +1381,10 @@ class InferenceEngine:
         beside the live decode batch. Returns False — caller runs the
         synchronous path — unless eligible (ragged mode on, greedy, long
         enough, and at least one OTHER live row to ride beside; alone, the
-        standalone prefill is strictly better for TTFT)."""
+        standalone prefill is strictly better for TTFT); never with a draft
+        model (its prompt mirror and speculative ticks take whole prompts)."""
+        if self.draft is not None:
+            return False
         if not self.plan.co_schedule_ok(
             len(s.prompt) - skip, s.options.temperature, self._max_chunk()
         ):
@@ -1254,6 +1484,164 @@ class InferenceEngine:
     def _finish_prefill(self, s, token, produced, skip):
         self._deliver(s, int(token), produced)
         self.metrics.counter("prefill_tokens", len(s.prompt) - skip)
+        if s.slot is not None and self._session_speculative(s):
+            # Mirror the FULL prompt into the draft cache (no prefix sharing
+            # there; proposals start right after the prompt).
+            self._draft_mirror(s.prompt, s.slot)
+
+    def _draft_mirror(self, tokens, slot: int) -> None:
+        """Chunked prefill of ``tokens`` into the draft cache's ``slot``
+        row: the admission-time prompt mirror and the adaptive resume's
+        resync share it, so their chunking cannot drift apart."""
+        tokens = np.asarray(tokens, np.int32)
+        cap = self.ecfg.prefill_buckets[-1]
+        off = 0
+        while len(tokens) - off > cap:
+            chunk = tokens[off : off + cap]
+            self._draft_prefill(self._i32(chunk[None, :]), slot, len(chunk))
+            off += cap
+        rest = tokens[off:]
+        padded = np.zeros((1, self._bucket_for(len(rest))), np.int32)
+        padded[0, : len(rest)] = rest
+        self._draft_prefill(self._i32(padded), slot, len(rest))
+
+    def _session_wants_spec(self, s: Session) -> bool:
+        return (
+            self.draft is not None
+            and s.options.speculative
+            and s.options.temperature == 0.0
+        )
+
+    def _session_speculative(self, s: Session) -> bool:
+        """Speculating NOW: wants it, and the adaptive controller has not
+        suspended speculation engine-wide (the greedy streams are the same
+        either way)."""
+        return self._session_wants_spec(s) and not self._spec_suspended
+
+    # -- adaptive speculation (a throughput A/B controller) ---------------
+
+    def _draft_resync_all(self) -> None:
+        """Re-mirror every speculative session's accepted stream (prompt +
+        generated[:-1]) into the draft cache: plain ticks advanced the
+        sessions without the draft."""
+        for slot, gid in enumerate(self.slots):
+            if gid is None:
+                continue
+            s = self.sessions[gid]
+            if not self._session_wants_spec(s):
+                continue
+            self.draft_cache.reset_rows(
+                torch.arange(self.batch, device=self.device) == slot)
+            self._draft_mirror(list(s.prompt) + s.generated[:-1], slot)
+
+    def _spec_suspend(self, produced) -> None:
+        if self._spec_pending is not None:
+            self._spec_flush(produced)
+        self._spec_suspended = True
+
+    def _spec_resume(self) -> None:
+        self._draft_resync_all()
+        # Fresh tokens next dispatch; the device-carried catch-up pair is
+        # gated off with the carry (the resync consumed everything).
+        self._spec_carry_ok[:] = False
+        self._spec_suspended = False
+
+    def _decode_tokens_total(self) -> float:
+        return self.metrics.get_counter("decode_tokens")
+
+    def _spec_adapt(self, produced) -> None:
+        """Windowed throughput controller (config.py's speculative_probe_*
+        knobs): measures tokens/s a resident speculative row on the current
+        path over windows of ``probe_len`` ticks; when the speculative
+        tokens-per-round sags below the break-even band it probes the plain
+        path, serves whichever measured faster, and re-probes speculation
+        every ``probe_period`` ticks. The streams are the same in both
+        modes."""
+        if self.draft is None or not self.ecfg.speculative_adaptive:
+            return
+        c = self._spec_ctl
+        nspec = sum(
+            1 for g in self.slots
+            if g is not None and self._session_wants_spec(self.sessions[g])
+        )
+        if nspec == 0:
+            # Disengaged: the next engaged window must not span this gap.
+            c["win_t0"] = None
+            return
+        now = self._spec_clock()
+        tokens = self._decode_tokens_total()
+        comp = tuple(self.slots)
+        if comp != c.get("comp"):
+            # The resident set changed mid-window: its tokens/s would mix
+            # two sets and bias the comparison, so the window starts again.
+            c["comp"] = comp
+            if c["win_t0"] is not None:
+                self.metrics.counter("spec_adapt_window_resets")
+            c.update(win_t0=now, win_tok0=tokens, win_ticks=0,
+                     stat0=dict(self.spec_stats))
+            return
+        if c["win_t0"] is None or c.get("skip", 0) > 0:
+            # (Re-)baseline after a gap and for the first tick after a mode
+            # change, which carries the change's flushed and resynced work.
+            c["skip"] = max(0, c.get("skip", 0) - 1)
+            c.update(win_t0=now, win_tok0=tokens, win_ticks=0,
+                     stat0=dict(self.spec_stats))
+            return
+        c["win_ticks"] += 1
+        if c["win_ticks"] < max(2, self.ecfg.speculative_probe_len):
+            return
+        # Window boundary: fold this window's rate a resident speculative
+        # row into the mode's EMA (occupancy may differ between windows).
+        rate = ((tokens - c["win_tok0"]) / max(now - c["win_t0"], 1e-9)
+                / nspec)
+        mode = c["mode"]
+        rkey = ("plain_rate" if mode in ("probe_plain", "plain")
+                else "spec_rate")
+        c[rkey] = rate if c[rkey] is None else 0.5 * c[rkey] + 0.5 * rate
+        if mode in ("spec", "probe_spec"):
+            steps_d = self.spec_stats["steps"] - c["stat0"]["steps"]
+            if steps_d > 0:
+                tpr = 1.0 + (self.spec_stats["accepted"]
+                             - c["stat0"]["accepted"]) / steps_d
+                c["tpr_ema"] = tpr if c["tpr_ema"] is None else (
+                    0.5 * c["tpr_ema"] + 0.5 * tpr)
+        c.update(win_t0=now, win_tok0=tokens, win_ticks=0,
+                 stat0=dict(self.spec_stats))
+        c["cooldown"] = max(0, c["cooldown"] - 1)
+
+        k = self.ecfg.speculative_k
+        gate = (self.ecfg.speculative_probe_below
+                if self.ecfg.speculative_probe_below is not None
+                else 0.55 * (k + 1))
+        period_windows = max(
+            1, self.ecfg.speculative_probe_period
+            // max(2, self.ecfg.speculative_probe_len))
+        if mode == "spec":
+            if (c["tpr_ema"] is not None and c["tpr_ema"] < gate
+                    and c["cooldown"] == 0):
+                self._spec_suspend(produced)
+                c.update(mode="probe_plain", win_t0=None, skip=1)
+                self.metrics.counter("spec_adapt_probes")
+        elif mode == "probe_plain":
+            # One full window of plain measured: decide.
+            if c["plain_rate"] > (c["spec_rate"] or 0.0):
+                c["mode"] = "plain"
+                self.metrics.counter("spec_adapt_suspensions")
+            else:
+                self._spec_resume()
+                c.update(mode="spec", win_t0=None, skip=1)
+            c["cooldown"] = period_windows
+        elif mode == "plain":
+            if c["cooldown"] == 0:
+                self._spec_resume()
+                c.update(mode="probe_spec", win_t0=None, skip=1)
+        elif mode == "probe_spec":
+            if (c["spec_rate"] or 0.0) >= (c["plain_rate"] or 0.0):
+                c["mode"] = "spec"
+            else:
+                self._spec_suspend(produced)
+                c.update(mode="plain", win_t0=None, skip=1)
+            c["cooldown"] = period_windows
 
     def _dispatch_tick(self, produced, prev):
         """Enqueue the next fused K-step tick from the device-resident
@@ -1426,7 +1814,20 @@ class InferenceEngine:
 
     def _decode_tick(self, produced) -> None:
         """The synchronous tick: K steps (K = ``decode_steps``) for every
-        decode-eligible row, fetched and delivered before returning."""
+        decode-eligible row, fetched and delivered before returning. With a
+        draft model and a speculative session resident, a speculative tick
+        instead (the fused, pipelined rounds with ``pipelined_ticks``)."""
+        if self.draft is not None:
+            self._spec_adapt(produced)
+            if any(g is not None
+                   and self._session_speculative(self.sessions[g])
+                   for g in self.slots):
+                if self.ecfg.pipelined_ticks:
+                    return self._speculative_rounds_tick(produced)
+                return self._speculative_tick(produced)
+            if self._spec_pending is not None:
+                # The last speculative session left with a tick in flight.
+                self._spec_flush(produced)
         K = self.decode_steps
         tokens = np.zeros((self.batch, 1), np.int32)
         opts: List[SamplingOptions] = [SamplingOptions()] * self.batch
@@ -1531,6 +1932,290 @@ class InferenceEngine:
             return None
         return cap
 
+    # -- speculative ticks ------------------------------------------------
+
+    def _spec_rounds_capacity_ok(self, pend_b=None) -> bool:
+        """The fused rounds cannot grow pages or finish sessions mid-tick,
+        so every resident session must have room for the worst case: ``R *
+        (k + 1)`` positions (each round's verify writes k + 1 before the
+        rollback trims it) plus the in-flight tick's. Grows pages and
+        buffers up front; returns False (the synchronous tick, which grows
+        and degrades round by round) when a row falls short."""
+        worst = self.spec_rounds * (self.ecfg.speculative_k + 1)
+        for slot, gid in enumerate(self.slots):
+            if gid is None:
+                continue
+            s = self.sessions[gid]
+            need = s.total_len + worst + (
+                int(pend_b[slot]) if pend_b is not None else 0)
+            if self.allocator is not None:
+                if self._grow_pages(s, need - s.total_len) < need:
+                    return False
+            elif need > self.ecfg.max_seq_len:
+                return False
+        if self._windows and self.allocator is None:
+            live = [self.sessions[g] for g in self.slots if g is not None]
+            if live:
+                self._ensure_capacity(
+                    max(s.total_len for s in live) + worst + (
+                        int(pend_b.max()) if pend_b is not None else 0))
+        return True
+
+    def _speculative_rounds_tick(self, produced) -> None:
+        """Fused, pipelined speculation: each ``step()`` enqueues
+        ``spec_rounds`` rounds (:meth:`_spec_round_fn`) from the
+        device-resident token carry and THEN resolves the previous tick's
+        packed result, whose copy to pinned memory overlapped the new tick.
+        The streams equal :meth:`_speculative_tick`'s; events arrive one
+        ``step()`` later."""
+        prev = self._spec_pending
+        if not self._spec_rounds_capacity_ok(self._spec_pend(prev)):
+            # Drain the pipeline first, then the synchronous tick, which
+            # grows and finishes sessions round by round.
+            self._spec_flush(produced)
+            return self._speculative_tick(produced)
+        self._spec_pending = self._spec_dispatch(prev)
+        self._spec_resolve(produced, prev)
+
+    def _spec_pend(self, prev):
+        """Conservative in-flight tokens a slot (0 where the slot's tenant
+        changed since the dispatch)."""
+        if prev is None:
+            return np.zeros((self.batch,), np.int32)
+        return np.where(
+            np.array([g == pg for g, pg in zip(self.slots, prev[5])]),
+            prev[4], 0)
+
+    def _spec_flush(self, produced) -> None:
+        """Resolve the in-flight speculative tick (the pipeline's drain)."""
+        prev = self._spec_pending
+        self._spec_pending = None
+        self._spec_resolve(produced, prev)
+
+    def _spec_dispatch(self, prev):
+        """Enqueue one fused multi-round tick; returns the pending record
+        ``(host pack, copy event, active, spec, pend, slots)`` or None.
+        Budgets are conservative against the in-flight tick, as
+        :meth:`_dispatch_tick`'s."""
+        k, b = self.ecfg.speculative_k, self.batch
+        pend_b = self._spec_pend(prev)
+        fresh = np.zeros((b, 1), np.int32)
+        use_carry = np.zeros((b,), np.bool_)
+        opts: List[SamplingOptions] = [SamplingOptions()] * b
+        spec = np.zeros((b,), np.bool_)
+        budget = np.zeros((b,), np.int32)
+        for slot, gid in enumerate(self.slots):
+            if gid is None:
+                continue
+            s = self.sessions[gid]
+            fresh[slot, 0] = s.last_token
+            use_carry[slot] = self._spec_carry_ok[slot]
+            opts[slot] = s.options
+            spec[slot] = self._session_speculative(s)
+            budget[slot] = max(0, s.options.max_new_tokens
+                               - len(s.generated) - int(pend_b[slot]))
+        active = np.array([g is not None for g in self.slots],
+                          np.bool_) & (budget > 0)
+        if not active.any():
+            return None
+        sp = SamplingParams.stack(opts, self.device)
+        eos_ids = np.asarray([o.eos_token_id for o in opts], np.int32)
+        carry_dev = to_device(use_carry, torch.bool, self.device)
+        tokens = self._i32(fresh)
+        if self._spec_carry is not None:
+            tokens = torch.where(carry_dev[:, None], self._spec_carry, tokens)
+        if self._spec_catch is None:
+            ctok = torch.zeros((b, 1), dtype=torch.int32, device=self.device)
+            cmask = torch.zeros((b,), dtype=torch.bool, device=self.device)
+        else:
+            # A row whose carry is off (a fresh admission) has a freshly
+            # mirrored draft row: no pending catch-up.
+            ctok, cmask = self._spec_catch
+            cmask = cmask & carry_dev
+        # The draft's attended width: every row's tokens, the in-flight
+        # tick's and this tick's R rounds of k + 1 fit below it.
+        need = max(self.sessions[g].total_len + int(pend_b[i])
+                   for i, g in enumerate(self.slots) if g is not None)
+        need += self.spec_rounds * (k + 1)
+        width = next((w for w in self._draft_ladder if w >= need),
+                     self.ecfg.max_seq_len)
+        self._flush_installs()
+        with self.metrics.timer("decode_step"):
+            pack, tok, ctok, cmask = self._spec_round_fn(
+                tokens, to_device(spec, torch.bool, self.device),
+                to_device(active, torch.bool, self.device),
+                self._i32(eos_ids), self._i32(budget), self._next_key(), sp,
+                ctok, cmask, width)
+        self._spec_carry = tok
+        self._spec_catch = (ctok, cmask)
+        self._spec_carry_ok = self._spec_carry_ok | active
+        host, ready = self._to_host(pack)  # the tick's one fetch
+        # The tick delivers at most min(R * (k + 1), budget) a row.
+        pend = np.minimum(self.spec_rounds * (k + 1), budget).astype(
+            np.int32) * active
+        return (host, ready, active, spec, pend, list(self.slots))
+
+    def _spec_resolve(self, produced, prev) -> None:
+        """Deliver the previous speculative tick's tokens (its packed copy
+        overlapped the tick just dispatched)."""
+        if prev is None:
+            return
+        host, ready, active, spec, _, gids = prev
+        k = self.ecfg.speculative_k
+        with self.metrics.timer("decode_resolve"):
+            if ready is not None:
+                ready.synchronize()
+        pack = host.numpy()                                 # [R, B, k + 3]
+        emits = pack[:, :, : k + 1]
+        accs, palive = pack[:, :, k + 1], pack[:, :, k + 2]
+        delivered_total = 0
+        for slot, gid in enumerate(gids):
+            if gid is None or not active[slot]:
+                continue
+            s = self.sessions.get(gid)
+            if s is None or self.slots[slot] != gid:
+                continue  # cancelled/reaped since dispatch
+            in_graph = int((emits[:, slot] != -1).sum())
+            delivered = 0
+            for r in range(emits.shape[0]):
+                for j in range(k + 1):
+                    if s.state != SessionState.ACTIVE:
+                        break
+                    tok = int(emits[r, slot, j])
+                    if tok == -1:
+                        break
+                    self._deliver(s, tok, produced)
+                    delivered += 1
+            delivered_total += delivered
+            if delivered < in_graph:
+                # A host-side stop mid-pack: the device carry lies past the
+                # session's true last token.
+                self._spec_carry_ok[slot] = False
+            if spec[slot]:
+                rounds_run = int(palive[:, slot].sum())
+                self.spec_stats["proposed"] += k * rounds_run
+                self.spec_stats["accepted"] += int(
+                    (accs[:, slot] * palive[:, slot]).sum())
+                self.spec_stats["steps"] += rounds_run
+        self.metrics.counter("decode_tokens", delivered_total)
+
+    def _speculative_tick(self, produced) -> None:
+        """The synchronous speculative tick: draft proposals, then ONE
+        target forward over ``[last, p1..pk]`` for speculative rows (the
+        others ride it as one-token decodes), acceptance on the host,
+        rollback by ``lengths``. A speculative row short of ``k + 1``
+        positions decodes plainly this tick and its draft is caught up."""
+        k, b = self.ecfg.speculative_k, self.batch
+        tokens = np.zeros((b, 1), np.int32)
+        opts: List[SamplingOptions] = [SamplingOptions()] * b
+        spec = np.zeros((b,), np.bool_)
+        for slot, gid in enumerate(self.slots):
+            if gid is None:
+                continue
+            s = self.sessions[gid]
+            tokens[slot, 0] = s.last_token
+            opts[slot] = s.options
+            spec[slot] = self._session_speculative(s)
+        # Capacity disables speculation a row: k + 1 positions, or 1.
+        for slot, gid in enumerate(self.slots):
+            if gid is None:
+                continue
+            s = self.sessions[gid]
+            if self.allocator is not None:
+                cap = self._grow_pages_for(s, (k + 1) if spec[slot] else 1,
+                                           produced)
+                if cap is None:
+                    continue
+            else:
+                cap = self.ecfg.max_seq_len
+                if s.total_len + 1 > cap:
+                    self._finish(s, "capacity", produced)
+                    continue
+            if spec[slot] and s.total_len + k + 1 > cap:
+                spec[slot] = False
+
+        active = np.array([g is not None for g in self.slots], np.bool_)
+        if not active.any():
+            return
+        if self._windows:
+            self._ensure_capacity(max(
+                self.sessions[g].total_len + ((k + 1) if spec[i] else 1)
+                for i, g in enumerate(self.slots) if g is not None
+            ))
+        tokens_dev = self._i32(tokens)
+        spec_dev = to_device(spec, torch.bool, self.device)
+        if (active & spec).any():
+            prop_d = self._draft_propose(
+                tokens_dev, to_device(active & spec, torch.bool, self.device))
+        else:
+            # Every speculative row was capacity-disabled: no draft steps
+            # (the verify is a plain batched decode with k unused positions).
+            prop_d = torch.zeros((k, b), dtype=torch.int32, device=self.device)
+        num_new = np.where(active, np.where(spec, k + 1, 1), 0).astype(
+            np.int32)
+        sp = SamplingParams.stack(opts, self.device)
+        self._flush_installs()
+        with self.metrics.timer("decode_step"):
+            preds_d, sampled_d = self._verify(
+                tokens_dev, prop_d, spec_dev, self._i32(num_new),
+                self._next_key(), sp)
+            # The tick's one fetch: proposals, argmaxes and samples together.
+            got = torch.cat([prop_d.T, preds_d, sampled_d[:, None]],
+                            1).cpu().numpy()
+        prop, preds, sampled = got[:, :k], got[:, k : 2 * k + 1], got[:, -1]
+
+        rollback = np.zeros((b,), np.int32)
+        d_rollback = np.zeros((b,), np.int32)
+        catch_mask = np.zeros((b,), np.bool_)
+        catch_tok = np.zeros((b, 1), np.int32)
+        delivered = 0
+        for slot, gid in enumerate(list(self.slots)):
+            if gid is None or not active[slot]:
+                continue
+            s = self.sessions[gid]
+            if spec[slot]:
+                a = 0
+                while a < k and prop[slot, a] == preds[slot, a]:
+                    a += 1
+                emitted = [int(t) for t in prop[slot, :a]]
+                emitted.append(int(preds[slot, a]))
+                rollback[slot] = k - a
+                if a == k:
+                    # Full acceptance: the draft never consumed its own
+                    # last proposal; caught up below.
+                    catch_mask[slot] = True
+                    catch_tok[slot, 0] = prop[slot, -1]
+                else:
+                    d_rollback[slot] = k - a - 1
+                self.spec_stats["proposed"] += k
+                self.spec_stats["accepted"] += a
+                self.spec_stats["steps"] += 1
+            else:
+                emitted = [int(sampled[slot])]
+            for t in emitted:
+                if s.state != SessionState.ACTIVE:
+                    break
+                self._deliver(s, t, produced)
+                delivered += 1
+            if (not spec[slot] and self._session_speculative(s)
+                    and s.state == SessionState.ACTIVE):
+                # A speculative session that decoded plainly (capacity): its
+                # draft row did not see the consumed token; feed it, or every
+                # later proposal is out of place.
+                catch_mask[slot] = True
+                catch_tok[slot, 0] = tokens[slot, 0]
+        self.metrics.counter("decode_tokens", delivered)
+
+        # Roll lengths back to the true sequence (rejected positions become
+        # invisible); the draft over-ran by k - a - 1 on partial acceptance.
+        if rollback.any():
+            self.cache.lengths.sub_(self._i32(rollback))
+        if d_rollback.any():
+            self.draft_cache.lengths.sub_(self._i32(d_rollback))
+        if catch_mask.any():
+            self._draft_catchup(self._i32(catch_tok),
+                                to_device(catch_mask, torch.bool, self.device))
+
     def _deliver(self, s: Session, token: int, produced) -> None:
         if s.cancel_requested or s.state == SessionState.CANCELLED:
             return  # cancelled mid-step; the scheduler reaps the slot next tick
@@ -1569,6 +2254,8 @@ class InferenceEngine:
             # The device carry holds THIS session's last token; the slot's
             # next tenant must be fed its own.
             self._carry_ok[s.slot] = False
+            if self.draft is not None:
+                self._spec_carry_ok[s.slot] = False
             s.slot = None
         if s.cow_src is not None:
             # A parked copy-on-write source ref (normally dropped when the

@@ -31,6 +31,13 @@ Launch counters: a captured launch runs at every replay, not at capture.
 So the counters that the kernel wrappers raised while being captured are
 taken back after the capture, and added again at every replay: they count
 the kernels that ran.
+
+:class:`SpeculativeRounds` does the same for the rounds of a speculative
+tick: one round (draft proposals, the target's verify, acceptance and
+rollback, all on the device) captured and replayed ``spec_rounds`` times,
+keyed by ``all_greedy`` and the draft view's width under the target cache's
+anchor (the draft's dense cache is created at full width once and never
+moves; a round attends a view of its first positions).
 """
 
 from __future__ import annotations
@@ -60,6 +67,42 @@ LAUNCH_COUNTERS = (
 
 def _counts() -> Tuple[int, ...]:
     return tuple(getattr(m, a) for m, a in LAUNCH_COUNTERS)
+
+
+def capture_step(step, pool, metrics, name: str):
+    """Run ``step`` once for real on a side stream (a first step, and the
+    warm-up a capture needs), then capture it into a graph in ``pool``.
+    The launch counters raised by the capture are taken back. Returns
+    ``((graph, counter deltas), bytes the capture reserved)``; ``name``
+    is the metric prefix (``<name>_captures``, ``<name>_capture``)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step()
+    torch.cuda.current_stream().wait_stream(side)
+    t0 = time.perf_counter()
+    before = _counts()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, pool=pool):
+        # Read here: entering the capture empties the allocator's cache.
+        reserved = torch.cuda.memory_reserved()
+        step()
+    deltas = tuple(a - b for a, b in zip(_counts(), before))
+    for (m, a), d in zip(LAUNCH_COUNTERS, deltas):
+        setattr(m, a, getattr(m, a) - d)
+    metrics.counter(f"{name}_captures")
+    metrics.observe(f"{name}_capture", time.perf_counter() - t0)
+    return (graph, deltas), torch.cuda.memory_reserved() - reserved
+
+
+def replay(entry, times: int) -> None:
+    """Replay a captured step ``times`` times; its kernels' launch counters
+    rise as if each replay had launched them."""
+    graph, deltas = entry
+    for _ in range(times):
+        graph.replay()
+        for (m, a), d in zip(LAUNCH_COUNTERS, deltas):
+            setattr(m, a, getattr(m, a) + d)
 
 
 class FusedDecode:
@@ -150,41 +193,108 @@ class FusedDecode:
             entry = self._graphs.get(gkey)
             done = 0
             if entry is None:
-                entry = self._capture(step)
+                entry, grown = capture_step(step, self._pool, self.metrics,
+                                            "decode_graph")
                 self._graphs[gkey] = entry
+                self._pool_bytes += grown
+                self.metrics.gauge("decode_graphs", float(len(self._graphs)))
+                self.metrics.gauge("decode_graph_pool_bytes",
+                                   float(self._pool_bytes))
                 done = 1
-            graph, deltas = entry
-            for _ in range(done, self.num_steps):
-                graph.replay()
-                for (m, a), d in zip(LAUNCH_COUNTERS, deltas):
-                    setattr(m, a, getattr(m, a) + d)
+            replay(entry, self.num_steps - done)
             self.metrics.counter("decode_graph_replays", self.num_steps - done)
         return win.end().clone()
 
-    def _capture(self, step):
-        """Run ``step`` once for real on a side stream (the window's first
-        step, and the warm-up the capture needs), then capture it."""
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            step()
-        torch.cuda.current_stream().wait_stream(side)
-        t0 = time.perf_counter()
-        before = _counts()
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, pool=self._pool):
-            # Read here: entering the capture empties the allocator's cache.
-            reserved = torch.cuda.memory_reserved()
-            step()
-        deltas = tuple(a - b for a, b in zip(_counts(), before))
-        for (m, a), d in zip(LAUNCH_COUNTERS, deltas):
-            setattr(m, a, getattr(m, a) - d)
-        self._pool_bytes += torch.cuda.memory_reserved() - reserved
-        self.metrics.counter("decode_graph_captures")
-        self.metrics.observe("decode_graph_capture", time.perf_counter() - t0)
-        self.metrics.gauge("decode_graphs", float(len(self._graphs) + 1))
-        self.metrics.gauge("decode_graph_pool_bytes", float(self._pool_bytes))
-        return graph, deltas
-
     def graph_count(self) -> int:
         return len(self._graphs)
+
+
+class SpeculativeRounds:
+    """The device state of a speculative tick's fused rounds, updated in
+    place round by round: each row's next token ``[B, 1]``, whether it is
+    still alive, the tokens it used of its budget, the draft's pending
+    catch-up pair (token ``[B, 1]``, mask), the round index (one int32 on
+    the device: the sampler's step and the row of the packed result), and
+    the packed result ``[R, B, k + 3]``; constant over a tick, the
+    speculative mask, EOS ids, budgets, the sampling key and parameters.
+
+    :meth:`run` loads a tick's inputs and runs ``round_fn(self)`` R times:
+    eagerly on a CPU device or with ``capture`` off; on a CUDA device one
+    round is captured (the first runs for real, then the graph replays the
+    rest), keyed by ``all_greedy`` and the width of the draft cache's view
+    that the rounds attend (``width``), and every graph goes when the
+    target cache's ``window_anchor`` changes. ``round_fn`` must read and write
+    only these tensors and the caches, in place, and never wait for the
+    host."""
+
+    def __init__(self, batch: int, k: int, rounds: int,
+                 device: torch.device, metrics):
+        self.rounds = rounds
+        self.metrics = metrics
+        self.capture = device.type == "cuda"
+
+        def zeros(shape, dtype=torch.int32):
+            return torch.zeros(shape, dtype=dtype, device=device)
+
+        self.tok, self.ctok = zeros((batch, 1)), zeros((batch, 1))
+        self.alive, self.cm = zeros((batch,), torch.bool), zeros(
+            (batch,), torch.bool)
+        self.spec = zeros((batch,), torch.bool)
+        self.used, self.eos, self.budget = (zeros((batch,)), zeros((batch,)),
+                                            zeros((batch,)))
+        self.step = zeros((1,))
+        self.key = zeros((1,), torch.int64)
+        self.sp = SamplingParams(
+            temperature=zeros((batch,), torch.float32),
+            top_k=zeros((batch,)),
+            top_p=torch.ones((batch,), dtype=torch.float32, device=device),
+        )
+        self.pack = zeros((rounds, batch, k + 3))
+        self._anchor = None
+        self._graphs: Dict[Tuple[bool, int], Tuple] = {}
+        self._pool = torch.cuda.graph_pool_handle() if self.capture else None
+
+    def run(self, anchor, width: int, round_fn, tokens, spec, active, eos,
+            budget, key: int, sp: SamplingParams, catch_tok, catch):
+        """One tick of R rounds; returns copies of ``(pack, tok, catch_tok,
+        catch)``."""
+        if anchor is not self._anchor:
+            self._graphs.clear()
+            self._anchor = anchor
+            if self.capture:
+                self._pool = torch.cuda.graph_pool_handle()
+        self.tok.copy_(tokens)
+        self.spec.copy_(spec)
+        self.alive.copy_(active)
+        self.eos.copy_(eos)
+        self.budget.copy_(budget)
+        self.key.fill_(key)
+        self.sp.temperature.copy_(sp.temperature)
+        self.sp.top_k.copy_(sp.top_k)
+        self.sp.top_p.copy_(sp.top_p)
+        self.sp.all_greedy = sp.all_greedy
+        self.ctok.copy_(catch_tok)
+        self.cm.copy_(catch)
+        self.used.zero_()
+        self.step.zero_()
+
+        def step():
+            round_fn(self)
+
+        if not self.capture:
+            for _ in range(self.rounds):
+                step()
+        else:
+            gkey = (sp.all_greedy, width)
+            entry = self._graphs.get(gkey)
+            done = 0
+            if entry is None:
+                entry, _ = capture_step(step, self._pool, self.metrics,
+                                        "spec_round_graph")
+                self._graphs[gkey] = entry
+                done = 1
+            replay(entry, self.rounds - done)
+            self.metrics.counter("spec_round_graph_replays",
+                                 self.rounds - done)
+        return (self.pack.clone(), self.tok.clone(), self.ctok.clone(),
+                self.cm.clone())

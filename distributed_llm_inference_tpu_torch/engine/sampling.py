@@ -67,8 +67,8 @@ class SamplingOptions:
     top_p: float = 1.0
     max_new_tokens: int = 128
     eos_token_id: int = -1  # -1 = never stop on EOS
-    # Opt in to draft-model speculative decoding (not ported yet: the engine
-    # refuses a draft model, so the flag has no effect).
+    # Opt in to draft-model speculative decoding (greedy rows of an engine
+    # built with a draft; elsewhere the flag has no effect).
     speculative: bool = False
 
 

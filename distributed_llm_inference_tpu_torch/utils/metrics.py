@@ -67,12 +67,19 @@ METRICS = {
     "decode_graph_capture": ("summary", "Capture time of one decode step"),
     "decode_graphs": ("gauge", "Captured decode steps alive"),
     "decode_graph_pool_bytes": ("gauge", "Memory reserved by captures"),
+    "spec_round_graph_captures": ("counter", "Speculative rounds captured"),
+    "spec_round_graph_replays": ("counter", "Captured rounds replayed"),
+    "spec_round_graph_capture": ("summary", "Capture time of one round"),
     "cache_growths": ("counter", "Page-table widenings"),
     # latent (MLA) KV compression (cache/latent.py)
     "kv_bytes_per_token": ("gauge", "Stored KV bytes per token, all layers"),
     "latent_decompress_dispatches": (
         "counter", "Attention dispatches reading the latent stored form"
     ),
+    # engine: speculative decoding
+    "spec_adapt_window_resets": ("counter", "Adaptive-k A/B window resets"),
+    "spec_adapt_probes": ("counter", "Adaptive-k probe windows started"),
+    "spec_adapt_suspensions": ("counter", "Speculation suspensions (low accept)"),
     # serving gateway
     "http_requests": ("counter", "Completion requests received"),
     "http_429": ("counter", "Requests shed at capacity"),

@@ -126,7 +126,6 @@ def test_api_subprocess_answers_and_drains_on_sigterm(model_dir):
 
 
 @pytest.mark.parametrize("extra,item", [
-    (["local", "--speculative-draft", "d"], "item 9"),
     (["local", "--profile-dir", "p"], "item 17"),
     (["api", "--relay", ":1"], "item 13"),
     (["api", "--client-batch", "4"], "item 13"),

@@ -352,7 +352,6 @@ def test_plan_selects_the_kernels_for_the_int8_pool():
 
 WAITING = [
     ("mesh_cfg", dict(mesh_cfg=object())),
-    ("draft", dict(draft=(None, None))),
     # The latent family runs (item 10); int8/int4 weights on it wait.
     ("latent", dict(model=dict(latent=tcfg.LatentConfig(), family="mla"),
                     engine=dict(quantization="int8"))),

@@ -5,7 +5,7 @@
 same outlier channels, and int8 values, scales and outlier rows within one
 rounding step; ``matmul`` agrees; the engines' greedy streams over int8
 pages are IDENTICAL at ``decode_steps`` 1 and 4 (float32, the plain
-attention route on both)."""
+attention route on both), and at 16 on the plain route and the kernels'."""
 
 import jax
 import jax.numpy as jnp
@@ -152,5 +152,35 @@ def test_engine_streams_equal_the_jax_engine(decode_steps):
     want = jax_engine.generate(prompts, JaxOptions(max_new_tokens=9,
                                                    eos_token_id=-1))
     got = port.generate(prompts, SamplingOptions(max_new_tokens=9,
+                                                 eos_token_id=-1))
+    assert got == want
+
+
+@pytest.mark.parametrize("kernels", [False, True])
+def test_engine_k16_streams_equal_the_jax_engine(kernels):
+    """The fused window at its default K = 16 over int8 pages: the port's
+    greedy streams equal the JAX engine's, on the plain attention route and
+    on the kernels' (``use_pallas_attention`` on both: the Pallas kernels
+    in interpret mode, the port's wrappers' plain versions). A K = 16
+    stream that departs from K = 1 on the card is the reference's int8-tail
+    behaviour, not the port's."""
+    e = dict(max_batch_size=4, prefill_buckets=(8, 16, 32), max_seq_len=64,
+             dtype="float32", ragged_attention=True, decode_steps=16,
+             quantization="int8_outlier", outlier_channels=8,
+             use_pallas_attention=kernels)
+    c = dict(kind="paged", page_size=8, num_pages=48,
+             max_pages_per_session=8, kv_quant="int8")
+    jax_engine = JaxEngine(jcfg.ModelConfig(**MODEL), JPARAMS,
+                           jcfg.EngineConfig(**e), jcfg.CacheConfig(**c))
+    port = InferenceEngine(tcfg.ModelConfig(**MODEL), TPARAMS,
+                           tcfg.EngineConfig(**e), tcfg.CacheConfig(**c),
+                           device="cpu",
+                           attention_backend="cuda" if kernels else None)
+    assert port.cache.use_kernel == kernels and port._fused is not None
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, 256, size=n).tolist() for n in (5, 19, 11)]
+    want = jax_engine.generate(prompts, JaxOptions(max_new_tokens=20,
+                                                   eos_token_id=-1))
+    got = port.generate(prompts, SamplingOptions(max_new_tokens=20,
                                                  eos_token_id=-1))
     assert got == want

@@ -270,7 +270,27 @@ one line per engine configuration or comparison):
               K = 16 window over the same 8 rows of 600 tokens; then a
               run of the
               first pair with the adaptive controller on (256 new tokens a
-              row; its `spec_adapt_*` counters).
+              row; its `spec_adapt_*` counters). Then sharded serving
+              (`parallel/`): `phase_mesh`, NCCL at world size 1 and
+              `MeshConfig()`, Llama-3-8B's widths at 8 layers over bf16
+              pages, K = 16 captured, the smoke's 12 greedy prompts of
+              30-1500 tokens, 32 new each: streams bit-equal to the
+              meshless engine's (given the mesh engine's dispatch policy:
+              its plan off, one row a prefill), #1 / #2 required, the
+              collectives a captured step issues (17 all_reduce, 1
+              all_gather) and the captured graph's nodes by type (CUDA's
+              debug dump: at one rank NCCL enqueues no work for an in-place
+              all_reduce), a window profiled beside the meshless one's;
+              `phase_mesh_two_ranks`, where `nvidia-smi` reads compute mode
+              Default: two spawned processes share the card over gloo
+              (CUDA tensors staged through host memory, no capture), f32 at
+              2 layers of Llama-3-70B's widths under tp = 2 then pp = 2 (8
+              greedy prompts of 30-600 tokens, 16 new each) with streams
+              equal to the meshless engine's, then bf16 at 8 layers under
+              tp = 2: the first-token logits' max error, the share of
+              equal greedy tokens, each rank's #1 / #2 launches, peak
+              memory and weight bytes, tokens/s of the two ranks
+              time-sharing the card (no scaling figure).
 4. parity   - 2 layers of the same widths in f32 (TF32 off): the bf16 pool
               at K = 16, at K = 1 and on the gather path, identical greedy
               streams; int4 weights over the int8 pool, kernels against the
@@ -316,8 +336,9 @@ one line per engine configuration or comparison):
 
 Then a line `{"kernels": [...]}` with one entry per kernel (the only line
 with that key: phase 2 lists its results under `checked`; each entry also
-carries its launches on the prefix paths, on the int8_outlier path and on
-the speculative paths; #1 and #4 their cases at the verify shape),
+carries its launches on the prefix paths, on the int8_outlier path, on
+the speculative paths and on the mesh paths; #1 and #4 their cases at the
+verify shape),
 then phase 5:
 
 5. serve    - a checkpoint loaded and served through the OpenAI gateway.
@@ -391,13 +412,15 @@ from distributed_llm_inference_tpu_torch.cache.paged import PageAllocator
 from distributed_llm_inference_tpu_torch.config import (
     CacheConfig,
     EngineConfig,
+    MeshConfig,
     ModelConfig,
     PrefixConfig,
     RopeScaling,
     ServingConfig,
 )
 from distributed_llm_inference_tpu_torch.engine.engine import InferenceEngine
-from distributed_llm_inference_tpu_torch.engine.sampling import SamplingOptions
+from distributed_llm_inference_tpu_torch.engine.sampling import (
+    SamplingOptions, SamplingParams)
 from distributed_llm_inference_tpu_torch.models import llama
 from distributed_llm_inference_tpu_torch.serving import ApiServer, EngineBackend
 from distributed_llm_inference_tpu_torch.utils import checkpoint
@@ -413,6 +436,7 @@ from distributed_llm_inference_tpu_torch.ops import paged_attention as pa
 from distributed_llm_inference_tpu_torch.ops import quant_attention as qa
 from distributed_llm_inference_tpu_torch.ops import quant_matmul as qm
 from distributed_llm_inference_tpu_torch.ops import ragged_attention as ra
+from distributed_llm_inference_tpu_torch.parallel import comm, init_distributed
 
 # bench.py:48 LLAMA3_8B of the JAX package's benchmark, restated.
 LLAMA3_8B = ModelConfig(
@@ -2949,7 +2973,8 @@ def profile_steps(engine, before_step, steps, counters=None):
     return out
 
 
-def profile_decode(cfg, params, ekw, ckw, counters, ticks=5):
+def profile_decode(cfg, params, ekw, ckw, counters, ticks=5, mesh_cfg=None,
+                   policy=None):
     """Where a decode tick's time goes, for a full batch of 8 rows of about
     600 cached tokens each (on the sink ring, streams of window + 7 tokens
     at the start, the JAX package's `sink_1k` measurement: the ring full,
@@ -2960,8 +2985,11 @@ def profile_decode(cfg, params, ekw, ckw, counters, ticks=5):
     engine = InferenceEngine(
         cfg, params,
         EngineConfig(max_batch_size=8, decode_windows=(1024,), **ekw),
-        CacheConfig(num_pages=2048, **ckw),
-        generator=torch.Generator().manual_seed(3), device=DEV)
+        CacheConfig(**{"num_pages": 2048, **ckw}),
+        generator=torch.Generator().manual_seed(3), device=DEV,
+        mesh_cfg=mesh_cfg)
+    if policy is not None:
+        policy(engine)
     rng = np.random.default_rng(17)
     k = engine.decode_steps
     n = ckw["window_length"] + 7 if ckw.get("kind") == "sink" else 600
@@ -6709,6 +6737,398 @@ def phase_parity_speculative():
 
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# sharded serving (parallel/): the engine under a mesh
+# ---------------------------------------------------------------------------
+
+MESH_COUNTERS = SLICE1  # #2 (paged_attention) and #1 (ragged_paged_attention)
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def mesh_policy(engine):
+    """A meshless engine given the mesh engine's dispatch policy: its
+    attention plan off (no ragged pad widths, no chunk co-scheduling) and
+    one row a prefill, as every mesh engine has (``engine/engine.py``), so
+    that the two differ only by the mesh. Returns the engine."""
+    engine.plan.enabled = False
+    engine._batch_admission = False
+    return engine
+
+
+def mesh_traffic(engine, vocab, lens, new, seed):
+    """``lens`` greedy prompts at once, ``new`` tokens each; returns the
+    streams by submission and the wall seconds."""
+    rng = np.random.default_rng(seed)
+    client = Client(engine)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for n in lens:
+        client.submit(rng.integers(0, vocab, size=n).tolist(),
+                      SamplingOptions(max_new_tokens=new))
+    streams = client.drain()
+    torch.cuda.synchronize()
+    return streams, time.perf_counter() - t0
+
+
+def graph_nodes(graph, path):
+    """Node counts of a captured graph from CUDA's debug dump (one DOT line
+    a node): nodes by type, NCCL's kernel nodes (by the kernel's name) and
+    the NCCL kernels' names."""
+    graph.debug_dump(str(path))
+    nodes = [line for line in Path(path).read_text(errors="replace")
+             .splitlines() if re.match(r'\s*"?graph_\d+_node_\d+"?\s*\[', line)]
+    types = collections.Counter(
+        (re.findall(r'label="\{?\s*([A-Z_]+)', n) or ["?"])[0] for n in nodes)
+    return {
+        "nodes": len(nodes), "by_type": dict(types),
+        "nccl_kernel_nodes": sum("KERNEL" in n and "nccl" in n
+                                 for n in nodes),
+        "nccl_kernels": sorted({k for n in nodes
+                                for k in re.findall(r"nccl\w+", n)}),
+    }
+
+
+def phase_mesh():
+    """Sharded serving at world size 1 over NCCL: ``init_process_group
+    ("nccl")`` with one rank and ``MeshConfig()``, Llama-3-8B's widths at 8
+    layers over bf16 pages, K = 16 captured, the smoke's traffic (12
+    greedy prompts of 30-1500 tokens, 32 new tokens each). Every collective
+    of the mesh paths runs over its group of one, inside the captured
+    window: the graph's nodes are counted from CUDA's debug dump. The
+    greedy streams must be bit-equal to the meshless engine's on the same
+    weights (given the mesh engine's dispatch policy, :func:`mesh_policy`);
+    #1 / #2 must run on the mesh path; a decode tick is profiled beside the
+    meshless engine's. Returns the mesh path's launches by kernel."""
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(LLAMA3_8B, num_layers=8)
+    params = llama.init_params(
+        cfg, torch.Generator(device=DEV).manual_seed(0), torch.bfloat16, DEV)
+    init_distributed("nccl", f"tcp://127.0.0.1:{free_port()}", 1, 0, DEV)
+    lens = [30, 1500] + _lens
+    report = {"phase": "mesh", "card": CARD, "backend": "nccl",
+              "world_size": 1, "mesh": "MeshConfig() (dp=pp=ep=tp=sp=1)",
+              "model": "llama-3-8b widths, 8 layers, bf16, random weights",
+              "cache": "bf16 pages of 64", "traffic": {
+                  "prompt_lens": lens, "new_tokens": 32}}
+    try:
+        def engine(mesh_cfg):
+            e = InferenceEngine(
+                cfg, params, EngineConfig(max_batch_size=8),
+                CacheConfig(num_pages=2048),
+                generator=torch.Generator().manual_seed(11), device=DEV,
+                mesh_cfg=mesh_cfg)
+            assert e.decode_steps == 16 and e._fused.capture
+            assert e.cache.use_kernel and e.cache.use_ragged
+            return e
+
+        plain = mesh_policy(engine(None))
+        want, plain_wall = mesh_traffic(plain, cfg.vocab_size, lens, 32, 5)
+        plain_captures = plain.metrics.get_counter("decode_graph_captures")
+        del plain
+        mesh = engine(MeshConfig())
+        assert not mesh.plan.enabled and not mesh._batch_admission
+        mesh._fused.graph_debug = True
+        for module, attr in MESH_COUNTERS.values():
+            setattr(module, attr, 0)
+        comm.calls.clear()
+        got, wall = mesh_traffic(mesh, cfg.vocab_size, lens, 32, 5)
+        launches = {n: getattr(m, a) for n, (m, a) in MESH_COUNTERS.items()}
+        calls = dict(comm.calls)
+        for name in MESH_COUNTERS:
+            assert launches[name] > 0, f"{name} never ran on the mesh path"
+        assert got == want, "mesh streams differ from the meshless engine's"
+        m = mesh.metrics
+        windows = m.snapshot()["decode_step_count"]
+        captures = m.get_counter("decode_graph_captures")
+        assert captures > 0
+        nodes = {}
+        for (width, greedy), (graph, _) in mesh._fused._graphs.items():
+            got_nodes = graph_nodes(graph, Path(tempfile.mkdtemp()) / "g.dot")
+            nodes[f"width {width}"] = got_nodes
+        assert nodes, "no captured window graph alive"
+        # The step issues 2 all_reduces a layer, the embedding's and the
+        # head's all_gather; at one rank NCCL enqueues no work for an
+        # in-place all_reduce, so the graph's NCCL kernel nodes are
+        # reported beside the collectives the step issues.
+        per_step = calls_per_captured_step(mesh)
+        assert per_step["all_reduce"] == 2 * cfg.num_layers + 1, per_step
+        assert per_step["all_gather"] == 1, per_step
+        report.update({
+            "streams_bit_equal_to_meshless": True,
+            "meshless_decode_graph_captures": plain_captures,
+            "decode_windows": windows, "decode_graph_captures": captures,
+            "collectives_issued_on_the_mesh_path": calls,
+            "collectives_a_captured_step": per_step,
+            "graph_nodes_by_width": nodes,
+            "launches": launches,
+            "launches_per_window": {n: v / windows
+                                    for n, v in launches.items()},
+            "wall_s": wall, "meshless_wall_s": plain_wall,
+            "tokens_per_s": len(lens) * 32 / wall,
+            "meshless_tokens_per_s": len(lens) * 32 / plain_wall})
+        del mesh
+        torch.cuda.empty_cache()
+        report["window_profile"] = profile_decode(
+            cfg, params, {}, {"num_pages": 2048}, MESH_COUNTERS, ticks=3,
+            mesh_cfg=MeshConfig())
+        report["meshless_window_profile"] = profile_decode(
+            cfg, params, {}, {"num_pages": 2048}, MESH_COUNTERS, ticks=3,
+            policy=mesh_policy)
+    finally:
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
+    del params
+    torch.cuda.empty_cache()
+    report["seconds"] = time.perf_counter() - t0
+    emit(report)
+    return launches
+
+
+def calls_per_captured_step(engine):
+    """The collectives one fused step issues, counted on an eager step run
+    outside any graph through the engine's own window machinery."""
+    comm.calls.clear()
+    fused = engine._fused
+    capture, fused.capture = fused.capture, False
+    steps, fused.num_steps = fused.num_steps, 1
+    try:
+        b = engine._nrows
+        zeros = torch.zeros((b,), dtype=torch.int32, device=DEV)
+        sp = SamplingParams.create(b, device=DEV)
+        fused.run(engine.cache, torch.zeros((b, 1), dtype=torch.int32,
+                                            device=DEV),
+                  torch.zeros((b,), dtype=torch.bool, device=DEV), 0, sp,
+                  zeros - 1, zeros)
+    finally:
+        fused.capture, fused.num_steps = capture, steps
+    return dict(comm.calls)
+
+
+# Llama-3-70B's widths at 2 layers (f32) and 8 layers (bf16) for the two
+# ranks that share the card.
+MESH2_LENS = np.random.default_rng(31).integers(30, 600, size=8).tolist()
+
+
+def host_params(cfg, seed, dtype):
+    """Random weights drawn on the card, moved to host memory stack by
+    stack (the engine under a mesh cuts each rank's slice there and copies
+    only that to the card)."""
+    params = llama.init_params(
+        cfg, torch.Generator(device=DEV).manual_seed(seed), dtype, DEV)
+
+    def host(tree):
+        if isinstance(tree, dict):
+            return {k: host(v) for k, v in tree.items()}
+        return tree.cpu()
+
+    out = host(params)
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh2_engine(cfg, params, dtype, mesh_cfg=None):
+    return InferenceEngine(
+        cfg, params, EngineConfig(max_batch_size=8, dtype=dtype,
+                                  prefill_buckets=(128, 512, 1024)),
+        CacheConfig(num_pages=256, page_size=64),
+        generator=torch.Generator().manual_seed(11), device=DEV,
+        mesh_cfg=mesh_cfg)
+
+
+def mesh_rank(rank, init_method, queue):
+    """One of the two ranks that share the card over gloo (a child
+    process): f32 streams at 2 layers under tp = 2 and pp = 2, then bf16 at
+    8 layers under tp = 2. Puts its report on ``queue``."""
+    import torch.distributed as dist
+
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        init_distributed("gloo", init_method, 2, rank, "cuda:0")
+        out = {"rank": rank}
+
+        def drawn(cfg, seed, dtype):
+            # The full trees are drawn on the card one rank at a time (it
+            # holds one at once) and kept in host memory; each engine cuts
+            # its rank's slice there.
+            t0 = time.perf_counter()
+            params = None
+            for r in range(2):
+                if r == rank:
+                    params = host_params(cfg, seed, dtype)
+                dist.barrier()
+            out.setdefault("draw_s", []).append(time.perf_counter() - t0)
+            return params
+
+        f32 = dataclasses.replace(LLAMA3_70B, num_layers=2)
+        params = drawn(f32, 21, torch.float32)
+        for kw in ({"tp": 2}, {"pp": 2}):
+            for module, attr in MESH_COUNTERS.values():
+                setattr(module, attr, 0)
+            t0 = time.perf_counter()
+            engine = mesh2_engine(f32, params, "float32", MeshConfig(**kw))
+            out.setdefault("build_s", []).append(time.perf_counter() - t0)
+            streams, wall = mesh_traffic(engine, f32.vocab_size, MESH2_LENS,
+                                         16, 9)
+            out[f"f32_{'_'.join(f'{k}{v}' for k, v in kw.items())}"] = {
+                "streams": streams, "wall_s": wall,
+                "decode_steps": engine.decode_steps,
+                "captured": engine._fused is not None and engine._fused.capture,
+                "launches": {n: getattr(m, a)
+                             for n, (m, a) in MESH_COUNTERS.items()}}
+            del engine
+            torch.cuda.empty_cache()
+        del params
+        bf16 = dataclasses.replace(LLAMA3_70B, num_layers=8)
+        params = drawn(bf16, 22, torch.bfloat16)
+        for module, attr in MESH_COUNTERS.values():
+            setattr(module, attr, 0)
+        torch.cuda.reset_peak_memory_stats()
+        engine = mesh2_engine(bf16, params, "bfloat16", MeshConfig(tp=2))
+        del params
+        logits = first_logits(engine, list(range(1, 200)))
+        engine.collect_finished()
+        streams, wall = mesh_traffic(engine, bf16.vocab_size, MESH2_LENS, 16,
+                                     9)
+        out["bf16_tp2"] = {
+            # numpy: a tensor on the queue would be shared by a file
+            # descriptor that dies with this process.
+            "first_logits": logits.cpu().numpy(), "streams": streams,
+            "wall_s": wall,
+            "launches": {n: getattr(m, a)
+                         for n, (m, a) in MESH_COUNTERS.items()},
+            "max_memory_allocated": torch.cuda.max_memory_allocated(),
+            "weight_bytes": sum(
+                t.numel() * t.element_size() for t in (
+                    *engine.params["layers"].values(), engine.params["embed"],
+                    engine.params["lm_head"], engine.params["final_norm"]))}
+        del engine
+        dist.barrier()
+        dist.destroy_process_group()
+        queue.put(out)
+    except BaseException:
+        import traceback
+
+        queue.put({"rank": rank, "error": traceback.format_exc()})
+
+
+def phase_mesh_two_ranks():
+    """Two processes share the one card over gloo (only where the card's
+    compute mode is Default): (a) f32, 2 layers at Llama-3-70B's widths
+    (each rank 32 / 4 heads: G = 8), tp = 2 then pp = 2 over f32 pages, 8
+    greedy prompts of 30-600 tokens, 16 new tokens each: the streams must
+    equal the meshless engine's (TF32 off; the mesh engine's dispatch
+    policy, :func:`mesh_policy`); (b) bf16, 8 layers at those widths, tp =
+    2: the first-token logits' max error and the share of equal greedy
+    tokens against the meshless engine, each rank's #1 / #2 launches, peak
+    memory and weight bytes, and tokens/s of two ranks time-sharing one
+    card (no scaling figure). Gloo cannot be captured: the K = 16 window
+    runs eagerly there. Returns the launches by kernel, both ranks summed."""
+    t0 = time.perf_counter()
+    mode = subprocess.run(
+        ["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True).stdout.strip()
+    report = {"phase": "mesh_two_ranks", "card": CARD, "compute_mode": mode,
+              "backend": "gloo (CUDA tensors staged through host memory)"}
+    if mode.splitlines()[0].strip() != "Default":
+        print(f"compute mode {mode!r}: the two-rank rig was not run",
+              flush=True)
+        report["run"] = False
+        emit(report)
+        return {}
+    torch.backends.cuda.matmul.allow_tf32 = False
+    want = {}
+    f32 = dataclasses.replace(LLAMA3_70B, num_layers=2)
+    params = llama.init_params(
+        f32, torch.Generator(device=DEV).manual_seed(21), torch.float32, DEV)
+    want["f32"], _ = mesh_traffic(
+        mesh_policy(mesh2_engine(f32, params, "float32")), f32.vocab_size,
+        MESH2_LENS, 16, 9)
+    del params
+    torch.cuda.empty_cache()
+    bf16 = dataclasses.replace(LLAMA3_70B, num_layers=8)
+    params = llama.init_params(
+        bf16, torch.Generator(device=DEV).manual_seed(22), torch.bfloat16, DEV)
+    plain = mesh_policy(mesh2_engine(bf16, params, "bfloat16"))
+    want_logits = first_logits(plain, list(range(1, 200)))
+    plain.collect_finished()
+    want["bf16"], plain_wall = mesh_traffic(plain, bf16.vocab_size,
+                                            MESH2_LENS, 16, 9)
+    del plain, params
+    torch.cuda.empty_cache()
+    torch.backends.cuda.matmul.allow_tf32 = True
+
+    import multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    queue = ctx.Queue()
+    init = f"tcp://127.0.0.1:{free_port()}"
+    report["meshless_s"] = time.perf_counter() - t0
+    t_spawn = time.perf_counter()
+    procs = [ctx.Process(target=mesh_rank, args=(r, init, queue))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    try:
+        outs = [queue.get(timeout=600) for _ in procs]
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.terminate()
+                p.join()
+    outs.sort(key=lambda o: o["rank"])
+    for o in outs:
+        assert "error" not in o, o["error"]
+    report["ranks_s"] = time.perf_counter() - t_spawn
+    report["draw_s_by_rank"] = [o["draw_s"] for o in outs]
+    report["engine_build_s_by_rank"] = [o["build_s"] for o in outs]
+    launches = collections.Counter()
+    for o in outs:
+        for key in ("f32_tp2", "f32_pp2", "bf16_tp2"):
+            launches.update(o[key]["launches"])
+    for key in ("f32_tp2", "f32_pp2"):
+        for o in outs:
+            assert o[key]["streams"] == want["f32"], (
+                f"{key}: rank {o['rank']}'s streams differ from the "
+                "meshless engine's")
+        report[key] = {
+            "streams_equal_to_meshless": True, "decode_steps":
+            outs[0][key]["decode_steps"], "captured": outs[0][key]["captured"],
+            "wall_s": [o[key]["wall_s"] for o in outs],
+            "launches_by_rank": [o[key]["launches"] for o in outs]}
+    b = outs[0]["bf16_tp2"]
+    assert outs[1]["bf16_tp2"]["streams"] == b["streams"]
+    share, first = shares(b["streams"], want["bf16"])
+    report["bf16_tp2"] = {
+        "model": "llama-3-70b widths, 8 layers, bf16, tp=2",
+        "first_token_logits_max_abs_err": max_err(
+            torch.from_numpy(b["first_logits"]), want_logits.cpu()),
+        "first_token_logits_max_abs": float(want_logits.abs().max()),
+        "greedy_equal_token_share": share, "first_divergence": first,
+        "launches_by_rank": [o["bf16_tp2"]["launches"] for o in outs],
+        "max_memory_allocated_by_rank": [
+            o["bf16_tp2"]["max_memory_allocated"] for o in outs],
+        "weight_bytes_by_rank": [o["bf16_tp2"]["weight_bytes"] for o in outs],
+        "tokens_per_s_two_ranks_time_sharing_one_card": (
+            len(MESH2_LENS) * 16 / max(o["bf16_tp2"]["wall_s"] for o in outs)),
+        "meshless_tokens_per_s": len(MESH2_LENS) * 16 / plain_wall}
+    for o in outs:
+        for name in MESH_COUNTERS:
+            assert o["bf16_tp2"]["launches"][name] > 0, (name, o["rank"])
+    report["seconds"] = time.perf_counter() - t0
+    emit(report)
+    return dict(launches)
+
+
 REPLACES = {
     "paged_attention": "distributed_llm_inference_tpu/ops/paged_attention.py:154",
     "ragged_paged_attention": "distributed_llm_inference_tpu/ops/ragged_attention.py:252",
@@ -6768,6 +7188,8 @@ def main() -> int:
     prefix_launches = phase_prefix()
     outlier_launches = phase_outlier()
     spec_launches = phase_speculative()
+    mesh_launches = collections.Counter(phase_mesh())
+    mesh_launches.update(phase_mesh_two_ranks())
     phase_parity()
     phase_parity_families()
     phase_parity_widths()
@@ -6794,6 +7216,7 @@ def main() -> int:
          "launches_on_the_prefix_paths": prefix_launches.get(name, 0),
          "launches_on_the_int8_outlier_path": outlier_launches.get(name, 0),
          "launches_on_the_speculative_paths": spec_launches.get(name, 0),
+         "launches_on_the_mesh_paths": mesh_launches.get(name, 0),
          "widths_checked": checked[name],
          **{key: k[key] for key in (
              "instances", "tensor_core_launches", "bound_ms_f32_cuda_cores",

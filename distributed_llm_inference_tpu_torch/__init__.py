@@ -12,6 +12,7 @@ from .config import (
     CacheConfig,
     EngineConfig,
     LatentConfig,
+    MeshConfig,
     ModelConfig,
     PrefixConfig,
     RopeScaling,
@@ -25,6 +26,7 @@ __all__ = [
     "CacheConfig",
     "EngineConfig",
     "LatentConfig",
+    "MeshConfig",
     "ModelConfig",
     "PrefixConfig",
     "RopeScaling",

@@ -241,6 +241,27 @@ class _DenseRowsMixin(GatherAttendMixin):
         self.lengths[row:row + 1] = sub.lengths
         return self
 
+    def row_range(self, r0: int, r1: int):
+        """A view of rows ``[r0, r1)`` whose planes and ``lengths`` are
+        views of this cache's: writes land in place (a pipeline's
+        microbatch, ``parallel/pipeline.py``)."""
+        return self._view([p[:, r0:r1] for p in self.layer_stacks],
+                          self.lengths[r0:r1])
+
+    def _ingest(self, planes, n_valid):
+        """Install ring-prefill planes (each ``[L, B, ...]`` with its time
+        axis where this cache's planes have theirs) as the rows' prefix,
+        cropped or zero-padded to ``max_len``; ``lengths`` <- ``n_valid``
+        (an int, or ``[B]``). In place: returns this cache."""
+        ax = self.TIME_AXIS + 1
+        for plane, src in zip(self.layer_stacks, planes):
+            n = min(src.shape[ax], plane.shape[ax])
+            plane.zero_()
+            plane.narrow(ax, 0, n).copy_(src.narrow(ax, 0, n))
+        self.lengths.copy_(torch.as_tensor(n_valid, dtype=torch.int32)
+                           .to(self.device).expand_as(self.lengths))
+        return self
+
     def select_rows(self, rows: Sequence[int]):
         """A compact copy of ``rows`` (host ints). Padding entries use an
         OUT-OF-RANGE row index: the gather clamps it (its ``num_new = 0``
@@ -345,6 +366,15 @@ class DenseKVCache(_DenseRowsMixin):
         self._write(layer_v, v_new, num_new)
         mask = self._mask(q, q_pos, num_new, sliding_window)
         return q_rot, layer_k, layer_v, mask, layer_state
+
+    def ingest_row(self, ks, vs, n_valid):
+        """Install ring-prefill KV, ``[L, B, S, Hkv, D]`` with keys already
+        rotated (``parallel/ring.py:ring_prefill``; ``B`` this cache's
+        batch, 1 for the engine's ``select_row`` view), as the rows'
+        prefix; ``lengths`` <- ``n_valid``. ``S`` beyond ``max_len`` is
+        cropped (ring buckets round up past the buffer; callers keep
+        ``n_valid <= max_len``)."""
+        return self._ingest((ks, vs), n_valid)
 
     # -- write-behind tail (fused multi-step decode) --------------------------
 
@@ -519,6 +549,16 @@ class QuantizedDenseKVCache(_DenseRowsMixin):
         v_all = (layer_v.to(dt) * layer_vs[..., None].to(dt)).transpose(1, 2)
         mask = self._mask(q, q_pos, num_new, sliding_window)
         return q_rot, k_all, v_all, mask, layer_state
+
+    def ingest_row(self, ks, vs, n_valid):
+        """Ring-prefill ingest (cf. :meth:`DenseKVCache.ingest_row`): the
+        ``[L, B, S, Hkv, D]`` ring KV quantized per (token, head) and laid
+        out head-major."""
+        k_q, k_s = _quantize_kv(ks)  # [L, B, S, H, D] / [L, B, S, H]
+        v_q, v_s = _quantize_kv(vs)
+        return self._ingest(
+            (k_q.movedim(2, 3), v_q.movedim(2, 3), k_s.transpose(2, 3),
+             v_s.transpose(2, 3)), n_valid)
 
     # -- write-behind tail (fused multi-step decode) --------------------------
 

@@ -24,7 +24,7 @@ pool's scale plane too), so ``merge_row(s)`` writes back only the table and
 the lengths. Whole pages move through the parent's ``copy_page``,
 ``read_page`` and ``write_page`` (prefix caching: ``PLANE_FIELDS`` names
 ``c``, and ``cs`` on the int8 pool); a row's planes' export and ingest
-wait (ROADMAP.md queue 1, items 12 and 14).
+wait for disaggregation (ROADMAP.md queue 1, item 14).
 """
 
 from __future__ import annotations
@@ -154,7 +154,7 @@ class LatentPagedKVCache(PagedKVCache):
     def ingest_latent_row(self, planes, n_valid, first_slot=0):
         raise NotImplementedError(
             "installing latent planes (ingest_latent_row) is not ported yet "
-            "(ROADMAP.md queue 1, item 12)"
+            "(ROADMAP.md queue 1, item 14)"
         )
 
     # -- write-behind tail: never used (the engine's tail gate leaves latent

@@ -368,6 +368,56 @@ class PagedKVCache(GatherAttendMixin):
         self.lengths[row : row + 1] = sub.lengths
         return self
 
+    def row_range(self, r0: int, r1: int) -> "PagedKVCache":
+        """A view of rows ``[r0, r1)`` over the same pool, its table and
+        ``lengths`` views of this cache's (a pipeline's microbatch,
+        ``parallel/pipeline.py``; the pool passes through whole)."""
+        return self._view(self.page_table[r0:r1], self.lengths[r0:r1])
+
+    def ingest_row(self, ks, vs, n_valid, first_slot: int = 0):
+        """Install ring-prefill KV ``[L, 1, S, Hkv, D]`` (keys rotated) into
+        the pool through a batch-1 ``select_row`` view: the contiguous KV is
+        cut into page-size pieces, each written to the page of its table
+        slot; ``merge_row`` writes the length back. Only the run this
+        ingest owns is written, slots ``[first_slot, ceil(n_valid /
+        page_size))``: slots below ``first_slot`` map shared prefix pages
+        whose content is resident, and the null page past the run is never
+        read."""
+        return self._ingest_planes(
+            {"k_pages": ks, "v_pages": vs}, n_valid, first_slot)
+
+    def _ingest_planes(self, planes, n_valid, first_slot: int = 0):
+        """The ring-ingest write pattern of every pool kind: each
+        contiguous plane ``[L, 1, S, H(, D)]`` in page tiles to this row's
+        table slots, then the length. Batch-1 views only: a multi-row cache
+        would give ``n_valid`` to rows whose pages received nothing."""
+        if self.lengths.shape[0] != 1:
+            raise ValueError(
+                "paged ingest_row needs a batch-1 select_row view, got "
+                f"batch {self.lengths.shape[0]}"
+            )
+        ps = self.page_size
+        slots = self.page_table.shape[1]
+        n = int(n_valid)
+        owned = torch.arange(first_slot, min(slots, -(-n // ps)),
+                             device=self.device)
+        if owned.numel():
+            pages = self.page_table[0].index_select(0, owned).long()
+            for name, a in planes.items():
+                pool = getattr(self, name)
+                s = a.shape[2]
+                width = slots * ps
+                a = a[:, 0, :width]
+                if s < width:
+                    a = torch.cat([a, a.new_zeros(
+                        (a.shape[0], width - s, *a.shape[2:]))], 1)
+                # [L, slots * ps, H(, D)] -> [L, slots, H, ps(, D)]
+                tiles = a.reshape(a.shape[0], slots, ps, *a.shape[2:])
+                tiles = tiles.movedim(2, 3)
+                pool[:, pages] = tiles.index_select(1, owned).to(pool.dtype)
+        self.lengths.fill_(n)
+        return self
+
     def select_rows(self, rows: Sequence[int]) -> "PagedKVCache":
         """Compact multi-row view for the batched-admission prefill. Padding
         entries are out-of-range rows, clamped here and dropped on merge. A
@@ -552,6 +602,16 @@ class QuantizedPagedKVCache(PagedKVCache):
             use_kernel=use_kernel,
             use_ragged=use_ragged,
         )
+
+    def ingest_row(self, ks, vs, n_valid, first_slot: int = 0):
+        """Ring-prefill ingest, the int8 pool's form: per-(token, head)
+        int8 values and f32 scale planes (cf.
+        ``QuantizedDenseKVCache.ingest_row``)."""
+        k_q, k_s = _quantize_kv(ks)  # [L, 1, S, H, D] / [L, 1, S, H]
+        v_q, v_s = _quantize_kv(vs)
+        return self._ingest_planes(
+            {"k_pages": k_q, "v_pages": v_q, "ks_pages": k_s,
+             "vs_pages": v_s}, n_valid, first_slot)
 
     def _scatter_q(self, layer_k, layer_v, layer_ks, layer_vs, k_rot, v_new,
                    q_pos, num_new):

@@ -136,6 +136,33 @@ class ModelConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """Logical device mesh of one sharded deployment: the degrees of data
+    (``dp``), pipeline (``pp``), expert (``ep``), tensor (``tp``) and
+    sequence (``sp``) parallelism. The port lays it over the ranks of a
+    ``torch.distributed`` job, one rank a device, in the order of
+    :attr:`axis_names` (``parallel/mesh.py:build_mesh``)."""
+
+    dp: int = 1
+    pp: int = 1
+    tp: int = 1
+    sp: int = 1  # sequence/context parallel degree
+    ep: int = 1  # expert parallel degree (MoE experts sharded across devices)
+
+    @property
+    def axis_names(self) -> Tuple[str, ...]:
+        return ("dp", "pp", "ep", "tp", "sp")
+
+    @property
+    def shape(self) -> Tuple[int, ...]:
+        return (self.dp, self.pp, self.ep, self.tp, self.sp)
+
+    @property
+    def num_devices(self) -> int:
+        return self.dp * self.pp * self.ep * self.tp * self.sp
+
+
+@dataclasses.dataclass(frozen=True)
 class CacheConfig:
     """KV-cache policy. The port serves ``kind="paged"``, ``kind="dense"``
     and ``kind="sink"`` (the StreamingLLM ring of ``window_length`` slots,

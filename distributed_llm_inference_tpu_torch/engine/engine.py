@@ -55,8 +55,15 @@ verified by ONE target forward over ``k + 1`` positions a row, with the
 other rows riding the same forward as one-token decodes; the tokens equal
 plain greedy decoding. With ``pipelined_ticks`` a tick runs ``spec_rounds``
 rounds on the device and the host fetches their packed result once, one
-``step()`` later. The constructor raises ``NotImplementedError``, naming
-the ``ROADMAP.md`` queue item, for every feature that waits.
+``step()`` later. Sharded serving (``mesh_cfg``, ``parallel/``): one
+process a device, every rank running this scheduler over the same
+submissions in the same order (the caller's part, cancels included), each
+holding its shard of the weights and its cache: heads over tp, layers over
+pp (the GPipe pipeline for every forward), rows over dp (the sampled
+tokens gathered so every scheduler sees every row), experts over ep, and
+prompts past ``ring_prefill_threshold`` prefilled over the sp ring. The
+constructor raises ``NotImplementedError``, naming the ``ROADMAP.md``
+queue item, for every feature that waits.
 """
 
 from __future__ import annotations
@@ -82,6 +89,7 @@ from ..models import llama
 from ..ops import quant
 from ..ops.attention import (
     int8_pages_error, kernel_widths_error, latent_widths_error)
+from ..parallel import comm
 from ..utils.device import resolve_device, to_device
 from ..utils.metrics import Metrics
 from .graphs import FusedDecode, SpeculativeRounds
@@ -114,8 +122,62 @@ def _waits(what: str, item: str) -> NotImplementedError:
     )
 
 
+def _check_mesh(cfg, ecfg, cc, mesh_cfg, draft) -> None:
+    """The mesh refusals, in the JAX engine's words, and what waits; all of
+    them before any process group is touched."""
+    if mesh_cfg.sp != 1:
+        # sp is a PREFILL-side program (parallel/ring.py): prompts past the
+        # ring threshold prefill sequence-sharded over sp, then hand their
+        # KV to the (sp-replicated) decode path.
+        if mesh_cfg.pp != 1:
+            raise ValueError(
+                "sp>1 ring prefill does not compose with pp serving "
+                f"(got {mesh_cfg})"
+            )
+        if cc.kind not in ("dense", "paged"):
+            raise ValueError(
+                "sp>1 ring prefill requires a dense or paged cache "
+                "kind (contiguous ring KV ingest; the sink ring "
+                f"evicts on write; got kind={cc.kind!r})"
+            )
+    if mesh_cfg.pp > 1 and cc.kind not in ("dense", "paged"):
+        raise ValueError(
+            f"pp>1 serving requires the dense or paged cache "
+            f"(got {cc.kind!r})"
+        )
+    if ecfg.max_batch_size % (mesh_cfg.pp * mesh_cfg.dp) != 0:
+        raise ValueError(
+            f"max_batch_size {ecfg.max_batch_size} must divide by pp*dp = "
+            f"{mesh_cfg.pp}*{mesh_cfg.dp} (microbatch row groups)"
+        )
+    if mesh_cfg.pp > 1 and cfg.num_layers % mesh_cfg.pp != 0:
+        raise ValueError(
+            f"num_layers {cfg.num_layers} not divisible by "
+            f"pp={mesh_cfg.pp}"
+        )
+    from ..parallel.tp import validate_tp
+
+    validate_tp(cfg, mesh_cfg.tp, ep=mesh_cfg.ep)
+    if ecfg.quantization == "int4" and (mesh_cfg.tp > 1 or mesh_cfg.pp > 1):
+        # The JAX engine switches int4 to its grouped layout there (the
+        # half-split packing does not column-shard).
+        raise _waits("int4 weights under a tp or pp mesh", "item 22")
+    if cc.prefix_caching:
+        raise _waits("prefix caching under a mesh", "item 22")
+    if draft is not None:
+        raise _waits("a draft model under a mesh", "item 22")
+
+
 class InferenceEngine:
-    """Single-device continuous-batching engine over one model replica.
+    """Continuous-batching engine over one model replica, on one device or,
+    with ``mesh_cfg`` (a :class:`MeshConfig`), as one rank of a sharded
+    deployment: the ``torch.distributed`` job must have
+    ``mesh_cfg.num_devices`` ranks (``parallel.init_distributed``), and the
+    mesh refusals of the JAX engine, in its words, come before any process
+    group is touched. Under gloo the K-step window runs eagerly (gloo calls
+    cannot be captured); under NCCL its step is captured with its
+    collectives. A rank's attention runs the cache's kernels over its own
+    heads, with the plan of the JAX mesh engine (``plan.enabled`` off).
 
     ``generator`` is the root of the engine's randomness: a CPU
     ``torch.Generator`` from which one sampling key is drawn per dispatch
@@ -183,7 +245,7 @@ class InferenceEngine:
         if ecfg.quantization not in (None, "int8", "int4", "int8_outlier"):
             raise ValueError(f"unknown quantization {ecfg.quantization!r}")
         if mesh_cfg is not None:
-            raise _waits("mesh_cfg (sharded serving)", "item 12")
+            _check_mesh(cfg, ecfg, cc, mesh_cfg, draft)
         if trace_cfg is not None:
             raise _waits("trace_cfg (spans and the flight recorder)", "item 16")
 
@@ -206,6 +268,12 @@ class InferenceEngine:
             quant.ACT_QUANT_PREFILL = ecfg.act_quant_prefill
         if ecfg.act_quant_min_seq is not None:
             quant.ACT_QUANT_MIN_SEQ = ecfg.act_quant_min_seq
+        if ecfg.quantization is not None and mesh_cfg is not None and (
+                getattr(params, "cut_for", None) is not None):
+            raise ValueError(
+                "a mesh engine quantizes the whole tree before cutting it "
+                "(per-channel scales span the whole contracted axis): pass "
+                "the whole parameters, not a rank's slice")
         if ecfg.quantization is not None:
             # Quantized where the weights lie (the engine's device), one
             # layer of one stack at a time. A single device takes the
@@ -221,6 +289,25 @@ class InferenceEngine:
             params = quant.quantize_params(
                 params, bits=4 if ecfg.quantization == "int4" else 8, **qkw,
             )
+        # Sharded serving (``parallel/``): this rank's mesh, its slice of
+        # the weights (cut on the host, then copied to the device), its
+        # config (its heads, MLP features and layers) and its rows of the
+        # batch. Every rank runs this same scheduler over the same
+        # submissions; a dp rank computes only its rows.
+        self.mesh = None
+        self._use_pp = False
+        self._row0, self._nrows = 0, ecfg.max_batch_size
+        if mesh_cfg is not None:
+            from ..parallel import build_mesh, tp
+
+            self.mesh = build_mesh(mesh_cfg, self.device)
+            self._use_pp = mesh_cfg.pp > 1
+            params = tp.shard_params(params, self.mesh, self._use_pp)
+            _, self._nrows, _ = tp.local_cache_shape(
+                cfg.num_layers, ecfg.max_batch_size, cfg.num_kv_heads,
+                self.mesh.shape)
+            self._row0 = self.mesh.index("dp") * self._nrows
+            cfg = self.cfg = tp.local_model_config(cfg, self.mesh.shape)
         self.params = params
         self.generator = (
             generator if generator is not None
@@ -256,6 +343,13 @@ class InferenceEngine:
         self.plan.latent = cfg.use_latent
         sel = self.plan.select()
         self._use_pallas = sel.use_pallas
+        if self.mesh is not None:
+            # The JAX mesh engine turns its plan off: no ragged pad widths,
+            # no chunk co-scheduling, so the mesh engine's dispatches (and
+            # its events, tick by tick) are the JAX mesh engine's. The
+            # kernels stay those selected for the device: on a card every
+            # rank attends over its own heads through the cache's kernels.
+            self.plan.enabled = False
         # Sessions parked mid chunked-prefill (slot held, decode-ineligible;
         # advanced by _chunk_dispatch on the decode cadence).
         self._chunking: List[Session] = []
@@ -270,13 +364,13 @@ class InferenceEngine:
             first = self._windows[0] if self._windows else ecfg.max_seq_len
             if cc.kv_quant:
                 self.cache = QuantizedDenseKVCache.create(
-                    cfg.num_layers, self.batch, first, cfg.num_kv_heads,
+                    cfg.num_layers, self._nrows, first, cfg.num_kv_heads,
                     cfg.head_dim, self.dtype, use_kernel=self._use_pallas,
                     device=self.device,
                 )
             else:
                 self.cache = DenseKVCache.create(
-                    cfg.num_layers, self.batch, first, cfg.num_kv_heads,
+                    cfg.num_layers, self._nrows, first, cfg.num_kv_heads,
                     cfg.head_dim, self.dtype, device=self.device,
                 )
             self.allocator = None
@@ -287,14 +381,14 @@ class InferenceEngine:
             self._windows = ()
             if cc.kv_quant:
                 self.cache = QuantizedSinkKVCache.create(
-                    cfg.num_layers, self.batch, cc.window_length,
+                    cfg.num_layers, self._nrows, cc.window_length,
                     cc.num_sink_tokens, cfg.num_kv_heads, cfg.head_dim,
                     self.dtype, use_kernel=self._use_pallas,
                     device=self.device,
                 )
             else:
                 self.cache = SinkKVCache.create(
-                    cfg.num_layers, self.batch, cc.window_length,
+                    cfg.num_layers, self._nrows, cc.window_length,
                     cc.num_sink_tokens, cfg.num_kv_heads, cfg.head_dim,
                     self.dtype, device=self.device,
                 )
@@ -303,8 +397,11 @@ class InferenceEngine:
             # The gather path materializes [B, table_width * page_size, ...]
             # per layer, so its traffic tracks the TABLE WIDTH: start narrow
             # and pad columns as sessions lengthen (the pool never moves);
-            # max_pages_per_session is the cap.
-            self._windows = self._window_ladder(
+            # max_pages_per_session is the cap. Under a pp or dp mesh the
+            # table keeps its full width, as in the JAX engine.
+            grow_ok = mesh_cfg is None or (mesh_cfg.pp == 1
+                                           and mesh_cfg.dp == 1)
+            self._windows = () if not grow_ok else self._window_ladder(
                 cap=min(ecfg.max_seq_len,
                         cc.max_pages_per_session * cc.page_size),
                 strict=False,
@@ -325,7 +422,7 @@ class InferenceEngine:
                              else PagedKVCache)
                 heads, width = cfg.num_kv_heads, cfg.head_dim
             self.cache = cache_cls.create(
-                cfg.num_layers, self.batch, cc.num_pages, cc.page_size,
+                cfg.num_layers, self._nrows, cc.num_pages, cc.page_size,
                 self._first_slots, heads, width, self.dtype,
                 use_kernel=self._use_pallas, use_ragged=sel.use_ragged,
                 device=self.device,
@@ -391,6 +488,7 @@ class InferenceEngine:
         # they step model_apply K times.
         tail_capable = (
             self._attention is None
+            and not self._use_pp
             and not isinstance(self.cache, LatentPagedKVCache)
             and (
                 isinstance(self.cache, (DenseKVCache, QuantizedDenseKVCache,
@@ -413,9 +511,30 @@ class InferenceEngine:
         )
         K = self.decode_steps
         self._fused = (
-            FusedDecode(cfg, self.params, K, self.batch, self.device,
-                        self.metrics)
+            FusedDecode(cfg, self.params, K, self._nrows, self.device,
+                        self.metrics, self.mesh, self._row0)
             if tail_capable and K > 1 else None
+        )
+        # pp > 1: every batched model forward runs the GPipe-staged
+        # pipeline over the stage's layers (microbatches of pp rows);
+        # a single-row prefill runs it with one microbatch.
+        self._block_fn = self._prefill_block_fn = None
+        if self._use_pp:
+            from ..parallel.pipeline import pipeline_block_apply
+
+            def pp_block(num_microbatches):
+                def block_fn(cfg_, layers, x, cache, num_new, attention_fn,
+                             mesh):
+                    return pipeline_block_apply(
+                        cfg_, layers, x, cache, num_new, attention_fn, mesh,
+                        num_microbatches)
+                return block_fn
+
+            self._block_fn = pp_block(None)
+            self._prefill_block_fn = pp_block(1)
+        self._mesh_kw = (
+            {} if self.mesh is None
+            else {"mesh": self.mesh, "block_fn": self._block_fn}
         )
 
         # -- pipelined decode ticks -------------------------------------------
@@ -443,8 +562,12 @@ class InferenceEngine:
                            and draft is None)
         # Batched admission gathers and scatters rows (select_rows /
         # merge_rows): the model-dtype sink ring has neither, so its
-        # admissions prefill one row at a time, as in the JAX engine.
-        self._batch_admission = hasattr(self.cache, "select_rows")
+        # admissions prefill one row at a time, as in the JAX engine, and
+        # so do mesh engines (their rows lie on different dp ranks).
+        self._batch_admission = (self.mesh is None
+                                 and hasattr(self.cache, "select_rows"))
+        # Ring (sequence-parallel) prefill of long prompts over sp.
+        self._sp = 1 if mesh_cfg is None else mesh_cfg.sp
 
         # -- speculative decoding (a draft model) -----------------------------
         self.draft = None
@@ -517,6 +640,8 @@ class InferenceEngine:
 
     def _prefill(self, tokens, row: int, n_valid: int, key, sp) -> torch.Tensor:
         """One row's (final) prefill chunk; samples at its last position."""
+        if self.mesh is not None:
+            return self._row_prefill(tokens, row, n_valid, key, sp)
         sub = self.cache.select_row(row)
         logits, sub = llama.model_apply(
             self.cfg, self.params, tokens, sub, self._i32([n_valid]),
@@ -528,6 +653,9 @@ class InferenceEngine:
     def _prefill_ns(self, tokens, row: int, n_valid: int) -> None:
         """Chunked-prefill interior: fill the cache; the head is skipped
         entirely (an interior chunk samples nothing)."""
+        if self.mesh is not None:
+            self._row_prefill(tokens, row, n_valid)
+            return
         sub = self.cache.select_row(row)
         _, sub = llama.model_apply(
             self.cfg, self.params, tokens, sub, self._i32([n_valid]),
@@ -549,11 +677,61 @@ class InferenceEngine:
         return sample(logits[:, 0], key, sp)
 
     def _decode(self, tokens, active, key, sp) -> torch.Tensor:
+        if self.mesh is not None:
+            r0, r1 = self._row0, self._row0 + self._nrows
+            tokens, active, sp = tokens[r0:r1], active[r0:r1], sp.rows(r0, r1)
         logits, _ = llama.model_apply(
             self.cfg, self.params, tokens, self.cache,
-            active.to(torch.int32), **self._mkw,
+            active.to(torch.int32), **self._mkw, **self._mesh_kw,
         )
-        return sample(logits[:, 0], key, sp)
+        return self._gather_rows(sample(logits[:, 0], key, sp, 0, self._row0))
+
+    # -- the mesh's row groups ------------------------------------------------
+
+    def _gather_rows(self, t: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        """A mesh rank's tensor of its rows, assembled over ``dp`` into the
+        whole batch's along ``dim`` (every scheduler sees every row)."""
+        if self.mesh is None:
+            return t
+        return comm.all_gather(t, self.mesh.axis("dp"), dim)
+
+    def _local_row_mask(self, slot: int) -> torch.Tensor:
+        """``[rows]`` bool over this rank's rows: True at ``slot`` if it is
+        one of them."""
+        return torch.arange(self._nrows, device=self.device) == (
+            slot - self._row0)
+
+    def _row_prefill(self, tokens, row: int, n_valid: int, key=None,
+                     sp=None, ring: bool = False):
+        """A mesh engine's single-row prefill chunk: the row's dp group
+        computes it (through the pipeline, one microbatch, under pp; over
+        the sp ring when ``ring``) and, when ``key`` is given, samples the
+        token at its last position and broadcasts it over dp. Returns the
+        token (``[1]`` int32) or None."""
+        owner, local = divmod(row, self._nrows)
+        tok = torch.zeros((1,), dtype=torch.int32, device=self.device)
+        if owner == self.mesh.index("dp"):
+            n = self._i32([n_valid])
+            sub = self.cache.select_row(local)
+            if ring:
+                from ..parallel.ring import ring_prefill
+
+                logits, ks, vs = ring_prefill(self.cfg, self.params, tokens,
+                                              n, self.mesh)
+                sub.ingest_row(ks, vs, n_valid)
+            else:
+                logits, sub = llama.model_apply(
+                    self.cfg, self.params, tokens, sub, n,
+                    head="last" if key is not None else "none", **self._mkw,
+                    mesh=self.mesh, block_fn=self._prefill_block_fn,
+                )
+            self.cache.merge_row(sub, local)
+            if key is not None:
+                tok = sample(logits[:, 0], key, sp)
+        if key is None:
+            return None
+        comm.broadcast(tok, self.mesh.axis("dp"), owner)
+        return tok[0]
 
     def _decode_k(self, tokens, active, key, sp, eos_ids, budget):
         """``K`` fused decode steps in one dispatch (the JAX engine's
@@ -563,20 +741,24 @@ class InferenceEngine:
 
         Tail-capable caches run the write-behind window
         (``engine/graphs.py``); the others step ``model_apply`` K times."""
+        if self.mesh is not None:
+            r0, r1 = self._row0, self._row0 + self._nrows
+            tokens, active, sp = tokens[r0:r1], active[r0:r1], sp.rows(r0, r1)
+            eos_ids, budget = eos_ids[r0:r1], budget[r0:r1]
         if self._fused is not None:
-            return self._fused.run(self.cache, tokens, active, key, sp,
-                                   eos_ids, budget)
+            return self._gather_rows(self._fused.run(
+                self.cache, tokens, active, key, sp, eos_ids, budget), 1)
         tok, alive, emits = tokens, active, []
         for i in range(self.decode_steps):
             logits, _ = llama.model_apply(
                 self.cfg, self.params, tok, self.cache, alive.to(torch.int32),
-                **self._mkw,
+                **self._mkw, **self._mesh_kw,
             )
-            nxt = sample(logits[:, 0], key, sp, i)
+            nxt = sample(logits[:, 0], key, sp, i, self._row0)
             emits.append(torch.where(alive, nxt, -1))
             alive = alive & (nxt != eos_ids) & (i + 1 < budget)
             tok = nxt[:, None]
-        return torch.stack(emits)
+        return self._gather_rows(torch.stack(emits), 1)
 
     # -- the draft model's programs (eager; the draft attends by the gather
     # path over its dense cache, as the JAX draft takes XLA) ----------------
@@ -771,9 +953,12 @@ class InferenceEngine:
     def _flush_installs(self) -> None:
         if not self._pending_installs:
             return
-        rows, slots_, pages = zip(*self._pending_installs)
+        # A mesh rank's table holds its own rows only.
+        mine = [(r - self._row0, sl, pg) for r, sl, pg in self._pending_installs
+                if 0 <= r - self._row0 < self._nrows]
         self._pending_installs = []
-        self.cache.assign_pages_batch(rows, slots_, pages)
+        if mine:
+            self.cache.assign_pages_batch(*zip(*mine))
 
     # -- public API -------------------------------------------------------------
 
@@ -986,7 +1171,7 @@ class InferenceEngine:
             if self.cache.max_len > self._windows[0]:
                 c = self.cache
                 self.cache = type(c).create(
-                    self.cfg.num_layers, self.batch, self._windows[0],
+                    self.cfg.num_layers, self._nrows, self._windows[0],
                     self.cfg.num_kv_heads, self.cfg.head_dim, self.dtype,
                     device=self.device,
                     **({"use_kernel": c.use_kernel}
@@ -1111,9 +1296,7 @@ class InferenceEngine:
             # Reset the row BEFORE installing pages (reset wipes the row's
             # page table); the installs are queued and flushed once, right
             # before the prefill dispatch.
-            self.cache.reset_rows(
-                torch.arange(self.batch, device=self.device) == slot
-            )
+            self.cache.reset_rows(self._local_row_mask(slot))
             if self.draft is not None:
                 self.draft_cache.reset_rows(
                     torch.arange(self.batch, device=self.device) == slot
@@ -1213,6 +1396,7 @@ class InferenceEngine:
             self.ecfg.overlap_admission
             and self._pipelined
             and self._pending is not None
+            and self.mesh is None
         ):
             return False
         if (
@@ -1348,6 +1532,21 @@ class InferenceEngine:
             1, s.options.temperature, s.options.top_k, s.options.top_p,
             self.device,
         )
+        if self._sp > 1 and skip == 0 and len(prompt) > self._ring_threshold():
+            # Sequence-parallel: the whole prompt in one dispatch, each sp
+            # rank computing bucket / sp positions; the ring's KV goes into
+            # the row through the cache's ingest_row, and decode proceeds
+            # as after a chunked prefill. Synchronous, as in the JAX engine.
+            padded = np.zeros((1, self._ring_bucket(len(prompt))), np.int32)
+            padded[0, : len(prompt)] = prompt
+            with self.metrics.timer("prefill"):
+                token = self._row_prefill(
+                    self._i32(padded), s.slot, len(prompt), self._next_key(),
+                    sp, ring=True)
+            self.metrics.counter("ring_prefills")
+            self.metrics.counter("admit_sync_sessions")
+            self._finish_prefill(s, int(token), produced, skip)
+            return
         offset = skip
         stride = self.plan.prefill_stride(chunk_cap)
         with self.metrics.timer("prefill"):
@@ -1373,6 +1572,21 @@ class InferenceEngine:
         self.metrics.counter("admit_sync_sessions")
         self._finish_prefill(s, int(token), produced, skip)
 
+    def _ring_threshold(self) -> int:
+        thr = self.ecfg.ring_prefill_threshold
+        return thr if thr is not None else self.ecfg.prefill_buckets[-1]
+
+    def _ring_bucket(self, n: int) -> int:
+        """Padded ring length for an ``n``-token prompt: the doubling ladder
+        above the largest prefill bucket, capped at ``max_seq_len`` (the
+        ingest crops anything above it), rounded up to a multiple of the
+        ``sp`` degree."""
+        b = self.ecfg.prefill_buckets[-1]
+        while b < n:
+            b *= 2
+        b = min(b, max(n, self.ecfg.max_seq_len))
+        return -(-b // self._sp) * self._sp
+
     def _chunk_admit(self, s: Session, skip: int) -> bool:
         """Park an admitted long GREEDY prompt for chunk/decode
         co-scheduling instead of a monolithic synchronous prefill: the
@@ -1383,7 +1597,7 @@ class InferenceEngine:
         enough, and at least one OTHER live row to ride beside; alone, the
         standalone prefill is strictly better for TTFT); never with a draft
         model (its prompt mirror and speculative ticks take whole prompts)."""
-        if self.draft is not None:
+        if self.mesh is not None or self.draft is not None:
             return False
         if not self.plan.co_schedule_ok(
             len(s.prompt) - skip, s.options.temperature, self._max_chunk()

@@ -69,12 +69,13 @@ def _counts() -> Tuple[int, ...]:
     return tuple(getattr(m, a) for m, a in LAUNCH_COUNTERS)
 
 
-def capture_step(step, pool, metrics, name: str):
+def capture_step(step, pool, metrics, name: str, debug: bool = False):
     """Run ``step`` once for real on a side stream (a first step, and the
     warm-up a capture needs), then capture it into a graph in ``pool``.
     The launch counters raised by the capture are taken back. Returns
     ``((graph, counter deltas), bytes the capture reserved)``; ``name``
-    is the metric prefix (``<name>_captures``, ``<name>_capture``)."""
+    is the metric prefix (``<name>_captures``, ``<name>_capture``);
+    ``debug`` keeps the graph's debug record (``CUDAGraph.debug_dump``)."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -82,11 +83,18 @@ def capture_step(step, pool, metrics, name: str):
     torch.cuda.current_stream().wait_stream(side)
     t0 = time.perf_counter()
     before = _counts()
-    graph = torch.cuda.CUDAGraph()
+    if debug:
+        # The graph itself is kept past its instantiation, for debug_dump.
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        graph.enable_debug_mode()
+    else:
+        graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph, pool=pool):
         # Read here: entering the capture empties the allocator's cache.
         reserved = torch.cuda.memory_reserved()
         step()
+    if debug:
+        graph.instantiate()
     deltas = tuple(a - b for a, b in zip(_counts(), before))
     for (m, a), d in zip(LAUNCH_COUNTERS, deltas):
         setattr(m, a, getattr(m, a) - d)
@@ -110,17 +118,33 @@ class FusedDecode:
 
     ``capture``: replay each step from a CUDA graph, on for a CUDA device.
     Set to False before the first window, the same steps run eagerly (the
-    captured-against-eager check); a CPU device runs them eagerly. The
-    inputs of :meth:`run` are copied into tensors owned here, so the
-    caller's may be freed or reused at once."""
+    captured-against-eager check); a CPU device runs them eagerly.
+
+    Under a ``mesh`` (``parallel/mesh.py``) the window runs this rank's
+    shard over its ``batch`` rows, rows ``row0..`` of the engine's batch
+    (the sampler draws what the whole batch would draw there), and each
+    step holds the tensor-parallel collectives: under ``nccl`` they are
+    captured into the step's graph with the rest (the step's eager first
+    run warms the communicator up first); ``gloo`` calls cannot be
+    captured, so under ``gloo`` ``capture`` is False and the window runs
+    eagerly. The inputs of :meth:`run` are copied into tensors owned here,
+    so the caller's may be freed or reused at once.
+
+    ``graph_debug``: captures keep CUDA's debug record of their graph, so
+    that ``debug_dump`` can list its nodes (the collectives among them).
+    Set before the first window."""
 
     def __init__(self, cfg, params, num_steps: int, batch: int,
-                 device: torch.device, metrics):
+                 device: torch.device, metrics, mesh=None, row0: int = 0):
         self.cfg = cfg
         self.params = params
         self.num_steps = num_steps
         self.metrics = metrics
-        self.capture = device.type == "cuda"
+        self.mesh = mesh
+        self.row0 = row0
+        self.capture = device.type == "cuda" and (
+            mesh is None or mesh.backend == "nccl")
+        self.graph_debug = False
         self.key = torch.zeros((1,), dtype=torch.int64, device=device)
         self.eos = torch.zeros((batch,), dtype=torch.int32, device=device)
         self.budget = torch.zeros((batch,), dtype=torch.int32, device=device)
@@ -138,7 +162,7 @@ class FusedDecode:
     def _step_fn(self, i, logits, alive):
         """Sampling, EOS stops and budgets of one step, all on the device
         (the JAX engine's ``step_fn``)."""
-        nxt = sample(logits, self.key, self.sp, i)
+        nxt = sample(logits, self.key, self.sp, i, self.row0)
         emitted = torch.where(alive, nxt, -1)
         alive = alive & (nxt != self.eos) & (i + 1 < self.budget)
         return nxt, alive.to(torch.int32), alive, emitted
@@ -183,7 +207,7 @@ class FusedDecode:
         win.begin(tokens, active, active.to(torch.int32))
 
         def step():
-            win.step(self.cfg, self.params, self._step_fn)
+            win.step(self.cfg, self.params, self._step_fn, self.mesh)
 
         if not self.capture:
             for _ in range(self.num_steps):
@@ -194,7 +218,7 @@ class FusedDecode:
             done = 0
             if entry is None:
                 entry, grown = capture_step(step, self._pool, self.metrics,
-                                            "decode_graph")
+                                            "decode_graph", self.graph_debug)
                 self._graphs[gkey] = entry
                 self._pool_bytes += grown
                 self.metrics.gauge("decode_graphs", float(len(self._graphs)))

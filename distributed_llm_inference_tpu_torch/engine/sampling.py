@@ -45,6 +45,12 @@ class SamplingParams:
             [SamplingOptions(temperature, top_k, top_p)] * batch, device
         )
 
+    def rows(self, r0: int, r1: int) -> "SamplingParams":
+        """Rows ``[r0, r1)`` (a data-parallel rank's row group); the host
+        flag stays the whole batch's, so every rank takes the same path."""
+        return SamplingParams(self.temperature[r0:r1], self.top_k[r0:r1],
+                              self.top_p[r0:r1], self.all_greedy)
+
     @staticmethod
     def stack(rows, device: Union[str, torch.device] = "cpu") -> "SamplingParams":
         def col(name, dt):
@@ -113,15 +119,17 @@ def _mix32(x: torch.Tensor) -> torch.Tensor:
 
 
 def uniforms(key: torch.Tensor, step: torch.Tensor, batch: int,
-             vocab: int) -> torch.Tensor:
+             vocab: int, row0: int = 0) -> torch.Tensor:
     """Uniforms in (0, 1), ``[batch, vocab]`` f32, a pure function of
     ``(key, step, row, vocab index)``: ``key`` one int64 (the dispatch's
-    key), ``step`` one int32 (the step index), both on the device."""
+    key), ``step`` one int32 (the step index), both on the device; the rows
+    are ``row0 .. row0 + batch - 1`` of the engine's batch (a data-parallel
+    rank's row group draws what the whole batch would draw there)."""
     dev = key.device
     k = key.reshape(1).long()
     lo, hi = k & _M32, (k >> 32) & _M32
     seed = _mix32(lo ^ _mix32(hi ^ _mix32(step.reshape(1).long() & _M32)))
-    rows = torch.arange(batch, dtype=torch.int64, device=dev)
+    rows = torch.arange(row0, row0 + batch, dtype=torch.int64, device=dev)
     row_seed = _mix32(seed ^ _mix32(rows + 0x3C6EF372))          # [B]
     cols = torch.arange(vocab, dtype=torch.int64, device=dev)
     h = _mix32(_mix32(row_seed[:, None] ^ ((cols * 0x9E3779B1) & _M32)))
@@ -133,6 +141,7 @@ def sample(
     key: Union[int, torch.Tensor, None],
     params: SamplingParams,
     step: Union[int, torch.Tensor] = 0,
+    row0: int = 0,
 ) -> torch.Tensor:
     """Draw one token per row from ``logits [B, V]`` → ``[B]`` int32.
 
@@ -142,7 +151,8 @@ def sample(
     int32 tensors on the logits' device (a captured step reads them there).
     Stochastic rows take a Gumbel-max over :func:`uniforms` of ``(key,
     step)`` of the temperature-scaled, top-k/top-p filtered logits: the same
-    inputs give the same tokens, eager or replayed from a CUDA graph. An
+    inputs give the same tokens, eager or replayed from a CUDA graph;
+    ``logits`` are rows ``row0..`` of the engine's batch. An
     all-greedy batch never touches ``key`` and contains no full-vocab
     sort."""
     greedy = torch.argmax(logits, dim=-1).to(torch.int32)
@@ -156,7 +166,7 @@ def sample(
     temp = params.temperature.clamp_min(1e-6)[:, None]
     scaled = logits.float() / temp
     scaled = _filter_top_k_top_p(scaled, params.top_k, params.top_p)
-    u = uniforms(key, step, logits.shape[0], logits.shape[1])
+    u = uniforms(key, step, logits.shape[0], logits.shape[1], row0)
     drawn = torch.argmax(scaled - torch.log(-torch.log(u)), dim=-1).to(
         torch.int32)
     return torch.where(params.temperature > 0.0, drawn, greedy)

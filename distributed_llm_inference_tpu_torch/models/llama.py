@@ -45,6 +45,7 @@ from ..ops.quant import (
 )
 from ..ops.quant import matmul as qmatmul
 from ..ops.rotary import RopeAngles, apply_rope, rope_cos_sin, rope_inv_freq
+from ..parallel import comm
 from ..utils.device import resolve_device
 
 Params = Dict[str, Any]
@@ -431,9 +432,13 @@ def _decoder_layer(
     q_pos: torch.Tensor,
     num_new: torch.Tensor,
     attention_fn=gqa_attention,
+    mesh=None,
 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
     """One decoder layer: pre-norm attention (per-head, or latent) +
-    pre-norm SwiGLU (or MoE) MLP."""
+    pre-norm SwiGLU (or MoE) MLP. Under a ``mesh`` (``parallel/mesh.py``)
+    ``cfg`` and ``p`` are this rank's tensor-parallel shard: its heads and
+    MLP features; the row-parallel ``wo`` and ``wd`` products are summed
+    over ``tp`` and the ``bo`` bias is added once, after the sum."""
     b, s, _ = x.shape
     hq, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
 
@@ -445,7 +450,7 @@ def _decoder_layer(
         o = qmatmul(attn_flat, p["wo"])
         if "bo" in p:
             o = o + p["bo"]
-        return _mlp_residual(cfg, p, x + o, s, num_new), new_state
+        return _mlp_residual(cfg, p, x + o, s, num_new, mesh), new_state
     q = qmatmul(h, p["wq"])
     k = qmatmul(h, p["wk"])
     v = qmatmul(h, p["wv"])
@@ -463,15 +468,18 @@ def _decoder_layer(
         cfg.sliding_window, attention_fn, d**-0.5,
     )
     o = qmatmul(attn.reshape(b, s, hq * d), p["wo"])
+    if mesh is not None:
+        comm.all_reduce(o, mesh.axis("tp"))
     if "bo" in p:
         o = o + p["bo"]
     x = x + o
-    return _mlp_residual(cfg, p, x, s, num_new), new_state
+    return _mlp_residual(cfg, p, x, s, num_new, mesh), new_state
 
 
-def _mlp_residual(cfg, p, x, s, num_new):
+def _mlp_residual(cfg, p, x, s, num_new, mesh=None):
     """Pre-norm MLP + residual: SwiGLU, or the MoE MLP when the config has
-    experts."""
+    experts; under a ``mesh`` the row-parallel down projection's partial
+    sums (and the experts' over ``ep``) are summed over ``tp``."""
     h2 = rms_norm(x, p["mlp_norm"], cfg.rms_norm_eps)
     if cfg.num_experts > 0:
         # Bucket-padding positions (>= num_new) must not consume expert
@@ -481,10 +489,13 @@ def _mlp_residual(cfg, p, x, s, num_new):
             valid = (
                 torch.arange(s, device=x.device)[None, :] < num_new[:, None]
             )
-        return x + moe_mlp(cfg, p, h2, valid=valid)
-    return x + qmatmul(
-        F.silu(qmatmul(h2, p["wg"])) * qmatmul(h2, p["wu"]), p["wd"]
-    )
+        y = moe_mlp(cfg, p, h2, valid=valid, mesh=mesh)
+    else:
+        y = qmatmul(F.silu(qmatmul(h2, p["wg"])) * qmatmul(h2, p["wu"]),
+                    p["wd"])
+    if mesh is not None:
+        comm.all_reduce(y, mesh.axis("tp"))
+    return x + y
 
 
 def _latent_attention(
@@ -580,6 +591,7 @@ def block_apply(
     cache,
     num_new: torch.Tensor,
     attention_fn=gqa_attention,
+    mesh=None,
 ):
     """Run a block of decoder layers over hidden states: hidden states in,
     hidden states out. ``cache`` holds stacked per-layer pools with leading
@@ -605,7 +617,8 @@ def block_apply(
         p.update(_int4_views(whole_w, i))
         layer_state = tuple(stack[i] for stack in stacks)
         x, _ = _decoder_layer(
-            cfg, p, x, layer_state, cache, rope, q_pos, num_new, attention_fn
+            cfg, p, x, layer_state, cache, rope, q_pos, num_new, attention_fn,
+            mesh,
         )
     return x, cache
 
@@ -618,6 +631,8 @@ def model_apply(
     num_new: torch.Tensor,
     attention_fn=gqa_attention,
     head: str = "all",
+    mesh=None,
+    block_fn=None,
 ):
     """Full model forward: embed → layers → final norm → logits.
 
@@ -628,28 +643,59 @@ def model_apply(
     ``num_new == 0`` still yields a token's worth of logits, which callers
     discard); "none" skips the head (chunked-prefill interiors), returning
     ``None`` logits.
+
+    ``mesh``: this rank's place in a sharded deployment (``params`` and
+    ``cfg`` its shard, ``parallel/tp.py``); the embedding is vocab-parallel
+    and the head's logits are gathered over ``tp``, so every rank returns
+    the whole ``[..., V]``. ``block_fn`` replaces :func:`block_apply` (same
+    signature and contract, ``mesh`` passed on), as the pipeline does
+    (``parallel/pipeline.py``).
     """
-    x = F.embedding(tokens.long(), params["embed"])
-    x, cache = block_apply(
-        cfg, params["layers"], x, cache, num_new, attention_fn
+    x = embed(params, tokens, mesh)
+    x, cache = (block_fn or block_apply)(
+        cfg, params["layers"], x, cache, num_new, attention_fn, mesh
     )
     if head == "none":
         return None, cache.advance(num_new)
     if head == "last":
         idx = (num_new - 1).clamp_min(0).long()[:, None, None]
         x = torch.gather(x, 1, idx.expand(-1, 1, x.shape[-1]))
-    logits = apply_head(cfg, params, x)
+    logits = apply_head(cfg, params, x, mesh)
     return logits, cache.advance(num_new)
 
 
-def apply_head(cfg: ModelConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
+def embed(params: Params, tokens: torch.Tensor, mesh=None) -> torch.Tensor:
+    """Token embeddings ``[..., H]``. Under a ``mesh`` the table is this
+    rank's vocab rows (``tp``): tokens outside them look up zeros, and the
+    ``all_reduce`` over ``tp`` assembles each token's row from its owner
+    (one non-zero term, so the sum is exact)."""
+    table = params["embed"]
+    if mesh is None:
+        return F.embedding(tokens.long(), table)
+    tp = mesh.axis("tp")
+    rows = table.shape[0]
+    local = tokens.long() - tp.index * rows
+    mine = (local >= 0) & (local < rows)
+    x = F.embedding(local.clamp(0, rows - 1), table)
+    x = torch.where(mine[..., None], x, torch.zeros((), dtype=x.dtype,
+                                                     device=x.device))
+    return comm.all_reduce(x, tp)
+
+
+def apply_head(cfg: ModelConfig, params: Params, x: torch.Tensor,
+               mesh=None) -> torch.Tensor:
     """Final norm + lm_head (tied to the embedding when absent): ``[..., H]``
-    hidden states → fp32 logits ``[..., V]``."""
+    hidden states → fp32 logits ``[..., V]``. Under a ``mesh`` the head is
+    column-parallel: each rank's ``[..., V / tp]`` logits are gathered over
+    ``tp``, so every rank samples the same token."""
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
     head = params.get("lm_head")
     if head is None:
         head = params["embed"].T
-    return qmatmul(x, head).float()
+    logits = qmatmul(x, head).float()
+    if mesh is not None:
+        logits = comm.all_gather(logits, mesh.axis("tp"), dim=-1)
+    return logits
 
 
 # ---------------------------------------------------------------------------
@@ -741,13 +787,16 @@ class DecodeWindow:
         else:
             self.big = self.cache.layer_stacks
 
-    def step(self, cfg: ModelConfig, params: Params, step_fn) -> None:
+    def step(self, cfg: ModelConfig, params: Params, step_fn,
+             mesh=None) -> None:
         """One fused decode step. ``step_fn(i, logits, state)`` → ``(next
         tokens [B], next num_new [B] int32, state, emit [B])`` with ``i``
         the step index tensor; ``num_new`` must not increase (a stopped row
-        stays stopped), so each row's tail slots stay contiguous."""
+        stays stopped), so each row's tail slots stay contiguous. Under a
+        ``mesh`` the step holds the tensor-parallel collectives of
+        :func:`model_apply`."""
         cache = self.cache
-        x = F.embedding(self.tokens.long(), params["embed"])
+        x = embed(params, self.tokens, mesh)
         view_num_big = len(self.big) + 1 if self.whole_big else len(self.big)
         view = _TailView(cache, cache.lengths, self.tail_len, self.step_idx,
                          view_num_big)
@@ -771,9 +820,9 @@ class DecodeWindow:
                 tail_state = tuple(t[i] for t in self.tail)
             x, _ = _decoder_layer(
                 cfg, p, x, (*big_state, *tail_state), view, rope, q_pos,
-                self.num_new,
+                self.num_new, mesh=mesh,
             )
-        logits = apply_head(cfg, params, x)
+        logits = apply_head(cfg, params, x, mesh)
         nxt, num_new, state, emit = step_fn(self.step_idx, logits[:, 0],
                                             self.state)
         self.emits.index_copy_(0, self.step_idx.long(),
@@ -800,6 +849,7 @@ def multi_decode_apply(
     step_fn,
     init_state: torch.Tensor,
     init_num_new: torch.Tensor,
+    mesh=None,
 ):
     """``num_steps`` fused decode steps with a write-behind KV tail
     (counterpart of the JAX package's ``multi_decode_apply``).
@@ -816,5 +866,5 @@ def multi_decode_apply(
     win = DecodeWindow(cache, num_steps, init_state)
     win.begin(tokens, init_state, init_num_new)
     for _ in range(num_steps):
-        win.step(cfg, params, step_fn)
+        win.step(cfg, params, step_fn, mesh)
     return win.end(), cache

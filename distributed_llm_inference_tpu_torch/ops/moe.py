@@ -25,9 +25,12 @@ package leaves them to XLA outside any Pallas kernel. int8 expert stacks
 (``ops/quant.py:QuantizedTensor``, scales ``[E, out]``) are converted to
 the activation type whole at every call, as the JAX package does.
 
-Expert parallelism (the experts sharded over an ``ep`` mesh axis, the
-combine then a sum across devices) waits for the port's multi-GPU slice
-(``ROADMAP.md`` queue 1, item 12): these functions take no mesh.
+Expert parallelism: under a ``mesh`` (``parallel/mesh.py``) a rank holds
+``E / ep`` consecutive experts (``parallel/tp.py``: ``we_g``/``we_u``/
+``we_d`` over ``ep``), the router is replicated and scores every expert,
+each rank computes its own experts' share of the combine, and the shares
+are summed over ``ep`` (an ``all_reduce``; the JAX package's GSPMD
+contraction over the sharded expert axis).
 """
 
 from __future__ import annotations
@@ -38,6 +41,7 @@ import torch
 import torch.nn.functional as F
 
 from ..config import ModelConfig
+from ..parallel import comm
 from . import quant
 
 __all__ = ["moe_mlp", "moe_mlp_dispatch", "router_weights"]
@@ -90,7 +94,16 @@ def router_weights(
     return combine.scatter_(-1, top_i, top_p)
 
 
-def moe_mlp(cfg: ModelConfig, p, x: torch.Tensor, valid=None) -> torch.Tensor:
+def _local_experts(p, mesh):
+    """``(first, count)`` of the experts this rank holds: all of them
+    without a mesh."""
+    w = p["we_g"]
+    count = (w.q if isinstance(w, quant.QuantizedTensor) else w).shape[0]
+    return (0 if mesh is None else mesh.index("ep") * count), count
+
+
+def moe_mlp(cfg: ModelConfig, p, x: torch.Tensor, valid=None,
+            mesh=None) -> torch.Tensor:
     """SwiGLU expert MLPs + weighted combine.
 
     ``p["router"]``: ``[H, E]``; ``p["we_g"]``/``p["we_u"]``: ``[E, H, F]``;
@@ -98,12 +111,16 @@ def moe_mlp(cfg: ModelConfig, p, x: torch.Tensor, valid=None) -> torch.Tensor:
     The dense combine unless ``cfg.moe_capacity_factor`` is set and the
     call has S >= 16 positions, which takes :func:`moe_mlp_dispatch`;
     ``valid`` (``[B, S]`` bool) marks real tokens there, so that
-    bucket-padding positions consume no expert capacity."""
+    bucket-padding positions consume no expert capacity. Under a ``mesh``
+    the rank's experts' share, summed over ``ep``."""
     if cfg.moe_capacity_factor is not None and x.shape[1] >= 16:
-        return moe_mlp_dispatch(cfg, p, x, cfg.moe_capacity_factor, valid)
+        return moe_mlp_dispatch(cfg, p, x, cfg.moe_capacity_factor, valid,
+                                mesh=mesh)
     b, s, h = x.shape
-    e, n = cfg.num_experts, b * s
-    combine = router_weights(cfg, x, p["router"]).to(x.dtype).reshape(n, e)
+    n = b * s
+    e0, e = _local_experts(p, mesh)
+    combine = router_weights(cfg, x, p["router"]).to(x.dtype).reshape(
+        n, cfg.num_experts)[:, e0:e0 + e]
     # The JAX package's "bsh,ehf->bsef" over the tokens flattened, with the
     # expert axis given to x as a broadcast batch axis: torch.einsum then
     # runs one batched product over the stacks as they lie, where the JAX
@@ -114,7 +131,10 @@ def moe_mlp(cfg: ModelConfig, p, x: torch.Tensor, valid=None) -> torch.Tensor:
     t = F.silu(t).mul_(u)
     del u
     y = quant.einsum("nef,efh->neh", t, p["we_d"])
-    return torch.einsum("ne,neh->nh", combine, y).reshape(b, s, h)
+    out = torch.einsum("ne,neh->nh", combine, y).reshape(b, s, h)
+    if mesh is not None:
+        comm.all_reduce(out, mesh.axis("ep"))
+    return out
 
 
 def moe_mlp_dispatch(
@@ -124,6 +144,7 @@ def moe_mlp_dispatch(
     capacity_factor: float = 2.0,
     valid=None,
     capacity=None,
+    mesh=None,
 ) -> torch.Tensor:
     """Sorted (capacity-based) expert dispatch, the prefill MoE path.
 
@@ -134,6 +155,9 @@ def moe_mlp_dispatch(
     past an expert's capacity are dropped. Invalid (``valid`` False)
     tokens route to a sentinel expert ``E``, which the stable sort parks
     after every real expert's group: padding never evicts a real token.
+    Under a ``mesh`` the rank fills and computes its own experts' slots
+    only; the pairs routed elsewhere contribute zero here, and the ranks'
+    sums add up over ``ep``.
     """
     b, s, h = x.shape
     e, k = cfg.num_experts, cfg.num_experts_per_tok
@@ -168,7 +192,8 @@ def moe_mlp_dispatch(
     slot_valid = slot_pos < group_end[:, None]
     slot_tok = sorted_t[slot_pos.clamp(0, n * k - 1)]           # [E, C]
 
-    gathered = xf[slot_tok] * slot_valid[..., None].to(x.dtype)
+    e0, el = _local_experts(p, mesh)
+    gathered = (xf[slot_tok] * slot_valid[..., None].to(x.dtype))[e0:e0 + el]
     # The JAX package's "ech,ehf->ecf" with the output's expert axis second,
     # so that an int8 stack's [E, out] scale broadcasts at the end (its
     # _expert_matmul): [C, E, F], a view of the batched product's [E, C, F].
@@ -177,11 +202,14 @@ def moe_mlp_dispatch(
     y = quant.einsum("cef,efh->ceh", F.silu(t) * u, p["we_d"])   # [C, E, H]
 
     # Back to pair order (undo the sort), then a dense [N, k] combine.
-    kept = pos_in_group < c
-    pair_out_sorted = y[pos_in_group.clamp(0, c - 1), expert] * kept[
+    kept = (pos_in_group < c) & (expert >= e0) & (expert < e0 + el)
+    pair_out_sorted = y[pos_in_group.clamp(0, c - 1),
+                        (expert - e0).clamp(0, el - 1)] * kept[
         :, None
     ].to(x.dtype)                                                # [N*k, H]
     inv = torch.argsort(order)
     pair_out = pair_out_sorted[inv].reshape(n, k, h)
     out = torch.einsum("nk,nkh->nh", top_p.float(), pair_out.float())
+    if mesh is not None:
+        comm.all_reduce(out, mesh.axis("ep"))
     return out.reshape(b, s, h).to(x.dtype)

@@ -10,9 +10,9 @@ bf16 by default) or a :class:`QuantizedTensor4Split` (packed int4 + f32
 per-channel scales). Quantized values and scales are byte-identical to the
 JAX package's for the same weights.
 
-What waits (``ROADMAP.md`` queue 1, item 6, done with item 12): the
-grouped int4 layout (``QuantizedTensor4``), which only tensor-parallel
-meshes take.
+What waits (``ROADMAP.md`` queue 1, item 6, done with item 22): the
+grouped int4 layout (``QuantizedTensor4``), which only tensor- and
+pipeline-parallel meshes take.
 """
 
 from __future__ import annotations
@@ -373,7 +373,7 @@ def quantize_params(
     half-split int4 layout (the single-device layout of the JAX engine);
     other named weights, and int4 weights with an odd output width, stay
     int8. ``int4_layout="grouped"`` waits (``ROADMAP.md`` queue 1, item 6,
-with item 12).
+    with item 22).
     ``outlier_channels > 0`` (bits=8) puts the dense projections in the
     LLM.int8()-style outlier form (:func:`quantize_int8_outlier`) with that
     many fp channels; ``act_scales`` maps a weight name to its

@@ -45,6 +45,7 @@ __all__ = [
     "load_config",
     "save_safetensors",
     "shard_put",
+    "load_sharded_params",
 ]
 
 INDEX_FILE_PATTERNS = (
@@ -336,9 +337,64 @@ def load_config(
 
 
 def shard_put(params: Dict[str, Any], mesh, use_pp: bool = False):
-    """Place loaded params onto a mesh with their TP/PP shardings: waits for
-    the port's multi-GPU slice."""
-    raise NotImplementedError(
-        "sharded placement (shard_put) is not ported yet (ROADMAP.md queue "
-        "1, item 12)"
-    )
+    """This rank's slice of a loaded parameter tree on ``mesh.device``, cut
+    by the tp/ep/pp sharding rules (``parallel/tp.py``) on the host before
+    anything is copied: host tensors, numpy arrays or views of mapped
+    checkpoint files (the counterpart of the JAX ``shard_put``, which
+    places the tree with its shardings)."""
+    from ..parallel import tp
+
+    return tp.shard_params(params, mesh, use_pp)
+
+
+def load_sharded_params(
+    model_dir: str,
+    cfg: ModelConfig,
+    mesh,
+    dtype=torch.bfloat16,
+    resolve: Optional[Callable[[str], Optional[str]]] = None,
+) -> Dict[str, Any]:
+    """This rank's slice of an HF checkpoint's parameters, read through the
+    port's mmap reader: only the shard files that hold this ``pp`` stage's
+    layers are opened, and each tensor is cut to the rank's part (its tp
+    heads and features, its ep experts) as a view of the mapped file, in
+    our ``[in, out]`` layout, before it is copied to ``mesh.device`` in
+    ``dtype``. Equal to :func:`shard_put` of the whole loaded tree; an
+    engine under the same mesh takes it as it is."""
+    from ..parallel import tp
+
+    shape = mesh.shape
+    index = {n: mesh.index(n) for n in shape}
+    dev = mesh.device
+    per = cfg.num_layers // shape["pp"]
+    ids = list(range(index["pp"] * per, (index["pp"] + 1) * per))
+    state = _state_views(model_dir, ids, True, resolve)
+    specs = tp.layer_pspecs()
+    experts = cfg.num_experts // shape["ep"]
+    e0 = index["ep"] * experts
+    layers: Dict[str, torch.Tensor] = {}
+    for j, i in enumerate(ids):
+        for name, e, src, transpose in llama._layer_sources(
+                cfg, state, f"model.layers.{i}."):
+            spec = specs[name][1:]
+            if e is not None:
+                if not e0 <= e < e0 + experts:
+                    continue
+                spec = spec[1:]
+            piece = tp._cut(src.T if transpose else src, spec, shape, index)
+            if name not in layers:
+                lead = (per,) if e is None else (per, experts)
+                layers[name] = torch.empty((*lead, *piece.shape), dtype=dtype,
+                                           device=dev)
+            slot = layers[name][j] if e is None else layers[name][j][e - e0]
+            slot.copy_(piece)
+    params: Dict[str, Any] = {
+        "layers": layers,
+        "embed": tp._cut(state["model.embed_tokens.weight"], ("tp", None),
+                         shape, index).to(dev, dtype).contiguous(),
+        "final_norm": state["model.norm.weight"].to(dev, dtype).contiguous(),
+    }
+    if not cfg.tie_word_embeddings and "lm_head.weight" in state:
+        params["lm_head"] = tp._cut(state["lm_head.weight"].T, (None, "tp"),
+                                    shape, index).to(dev, dtype).contiguous()
+    return tp.RankParams(params, shape, index, shape["pp"] > 1)

@@ -41,6 +41,7 @@ METRICS = {
     "prefill": ("summary", "Prefill dispatch latency"),
     "prefill_tokens": ("counter", "Prompt tokens prefilled"),
     "batched_prefills": ("counter", "Prefills served by batched dispatch"),
+    "ring_prefills": ("counter", "Prefills served by the ring pipeline"),
     "prefix_cached_tokens": ("counter", "Prompt tokens served from prefix cache"),
     # prefixstore: CoW sharing / host spill tier
     "prefix_hit_rate": ("gauge", "Cumulative fraction of prompt tokens reused"),

@@ -453,10 +453,25 @@ def test_moe_and_o_proj_bias_load_as_the_jax_conversion(key, tmp_path):
 
 
 def test_http_models_and_sharded_placement_raise(tmp_path):
+    """HTTP models wait; sharded placement runs (item 12) and refuses to
+    cut a rank's slice for another rank."""
+    import types
+
     with pytest.raises(NotImplementedError, match="HTTP"):
         checkpoint.load_config("https://example.invalid/llama")
-    with pytest.raises(NotImplementedError, match="queue 1, item 12"):
-        checkpoint.shard_put({}, None)
+
+    def rank(i):
+        shape = dict(dp=1, pp=1, ep=1, tp=2, sp=1)
+        index = dict(dp=0, pp=0, ep=0, tp=i, sp=0)
+        return types.SimpleNamespace(shape=shape, index=index.__getitem__,
+                                     device="cpu")
+
+    tree = {"embed": torch.arange(32.0).reshape(8, 4),
+            "final_norm": torch.ones(4)}
+    mine = checkpoint.shard_put(tree, rank(1))
+    assert torch.equal(mine["embed"], tree["embed"][4:])
+    with pytest.raises(ValueError, match="slice cut for"):
+        checkpoint.shard_put(mine, rank(0))
 
 
 @pytest.mark.parametrize("model_type", [

@@ -50,9 +50,10 @@ PROMPT_LENS = [5, 12, 7, 0]         # row 3 is idle: no prompt, no decode
 BUDGET = np.asarray([4, 2, 4, 0], np.int32)
 
 
-def setup(quantized, use_kernel, width):
+def setup(quantized, use_kernel, width, with_jax=True):
     """Both caches with the same pages mapped and the same prompts
-    prefilled; returns (jax cache, port cache, first tokens [B, 1])."""
+    prefilled; returns (jax cache, port cache, first tokens [B, 1]); the
+    JAX cache is None without ``with_jax``."""
     jcls, tcls = (JaxQCache, QuantizedPagedKVCache) if quantized else (
         JaxCache, PagedKVCache)
     args = (MODEL["num_layers"], B, PAGES, PS, width, MODEL["num_kv_heads"],
@@ -67,12 +68,34 @@ def setup(quantized, use_kernel, width):
     for r, n in enumerate(PROMPT_LENS):
         tokens[r, :n] = rng.integers(0, 256, size=n)
     n_new = np.asarray(PROMPT_LENS, np.int32)
-    _, jc = jllama.model_apply(JCFG, JPARAMS, jnp.asarray(tokens), jc,
-                               jnp.asarray(n_new))
+    if with_jax:
+        _, jc = jllama.model_apply(JCFG, JPARAMS, jnp.asarray(tokens), jc,
+                                   jnp.asarray(n_new))
+    else:
+        jc = None
     _, tc = tllama.model_apply(TCFG, TPARAMS, torch.from_numpy(tokens), tc,
                                torch.from_numpy(n_new))
     first = rng.integers(0, 256, size=(B, 1)).astype(np.int32)
     return jc, tc, first
+
+
+def run_port(quantized, use_kernel, width):
+    """The port's window alone (a free run: its tokens, which
+    :func:`run_both` holds to the JAX package's)."""
+    _, tc, first = setup(quantized, use_kernel, width, with_jax=False)
+    active = np.asarray([n > 0 for n in PROMPT_LENS])
+    budget_t = torch.from_numpy(BUDGET)
+
+    def tstep(i, logits, alive):
+        nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+        emitted = torch.where(alive, nxt, -1)
+        alive = alive & (i + 1 < budget_t)
+        return nxt, alive.to(torch.int32), alive, emitted
+
+    got, _ = tllama.multi_decode_apply(
+        TCFG, TPARAMS, torch.from_numpy(first), tc, K, tstep,
+        torch.from_numpy(active), torch.from_numpy(active.astype(np.int32)))
+    return got
 
 
 def run_both(quantized, use_kernel, width, eos=-1):
@@ -166,7 +189,7 @@ def test_int8_pool_segments_forms(use_kernel, width, calls):
 
 
 def test_eos_stops_a_row_inside_the_window():
-    free = run_both(quantized=True, use_kernel=True, width=4)
+    free = run_port(quantized=True, use_kernel=True, width=4)
     eos = int(free[1, 0])            # row 0's second token
     got = run_both(quantized=True, use_kernel=True, width=4, eos=eos)
     assert got[1, 0] == eos and (got[2:, 0] == -1).all()

@@ -40,7 +40,9 @@ TPARAMS = tllama.params_from_numpy(
 
 
 def engines(batch=4, chunk=None, num_pages=64, kv_quant=None,
-            attention_backend="cuda", **ekw):
+            attention_backend="cuda", with_jax=True, **ekw):
+    """The JAX engine (None without ``with_jax``) and the port's on one
+    paged configuration."""
     e = dict(max_batch_size=batch, prefill_buckets=(8, 16, 32), max_seq_len=64,
              dtype="float32", ragged_attention=True, prefill_chunk_tokens=chunk,
              decode_steps=1, pipelined_ticks=False, **ekw)
@@ -48,7 +50,7 @@ def engines(batch=4, chunk=None, num_pages=64, kv_quant=None,
              max_pages_per_session=8, kv_quant=kv_quant)
     jax_engine = JaxEngine(
         jcfg.ModelConfig(**MODEL), JPARAMS, jcfg.EngineConfig(**e),
-        jcfg.CacheConfig(**c))
+        jcfg.CacheConfig(**c)) if with_jax else None
     port = InferenceEngine(
         tcfg.ModelConfig(**MODEL), TPARAMS, tcfg.EngineConfig(**e),
         tcfg.CacheConfig(**c), device="cpu",
@@ -170,8 +172,9 @@ def test_long_prompt_chunk_admitted_beside_live_decode():
 
 def test_cancel_eos_and_length_finishes():
     ps = prompts(5, seed=3)
-    free_run, _ = engines()
-    streams = free_run.generate(ps, JaxOptions(max_new_tokens=10))
+    # A free run of the port picks the EOS (the parity run checks both).
+    _, free_run = engines(with_jax=False)
+    streams = free_run.generate(ps, SamplingOptions(max_new_tokens=10))
     eos = streams[0][3]  # session 0 will stop at its 4th token (or earlier)
     script = [
         {"submit": [
@@ -281,7 +284,8 @@ _QUANT_WANT = {}
 def test_quantized_serving_matches_jax(quantization, backend):
     kw = dict(chunk=16, chunk_decode_share=0.5, kv_quant="int8",
               quantization=quantization)
-    jax_engine, port = engines(attention_backend=backend, **kw)
+    jax_engine, port = engines(attention_backend=backend,
+                               with_jax=quantization not in _QUANT_WANT, **kw)
     if quantization not in _QUANT_WANT:
         _QUANT_WANT[quantization] = (
             drive(jax_engine, JaxOptions, QUANT_SCRIPT),
@@ -351,7 +355,9 @@ def test_plan_selects_the_kernels_for_the_int8_pool():
 
 
 WAITING = [
-    ("mesh_cfg", dict(mesh_cfg=object())),
+    # Sharded serving runs (item 12); int4 weights under tp or pp wait.
+    ("mesh_cfg", dict(mesh_cfg=tcfg.MeshConfig(tp=2),
+                      engine=dict(quantization="int4"))),
     # The latent family runs (item 10); int8/int4 weights on it wait.
     ("latent", dict(model=dict(latent=tcfg.LatentConfig(), family="mla"),
                     engine=dict(quantization="int8"))),

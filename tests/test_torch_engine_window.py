@@ -45,11 +45,8 @@ TPARAMS = tllama.params_from_numpy(
     torch.float32, "cpu")
 
 
-def engines(kernels=True, kv_quant=None, num_pages=64, max_pages=8,
+def configs(kernels=True, kv_quant=None, num_pages=64, max_pages=8,
             chunk=None, **ekw):
-    """The JAX engine and the port's on one configuration. ``kernels``:
-    the decode kernel route on both (``use_pallas_attention``), else the
-    default plan (the JAX engine's and the port's CPU plan alike)."""
     e = dict(max_batch_size=4, prefill_buckets=(8, 16, 32), max_seq_len=64,
              dtype="float32", ragged_attention=True, prefill_chunk_tokens=chunk,
              **ekw)
@@ -57,13 +54,26 @@ def engines(kernels=True, kv_quant=None, num_pages=64, max_pages=8,
         e["use_pallas_attention"] = True
     c = dict(kind="paged", page_size=8, num_pages=num_pages,
              max_pages_per_session=max_pages, kv_quant=kv_quant)
-    jax_engine = JaxEngine(
-        jcfg.ModelConfig(**MODEL), JPARAMS, jcfg.EngineConfig(**e),
-        jcfg.CacheConfig(**c))
-    port = InferenceEngine(
+    return e, c, kernels
+
+
+def port_engine(**kw):
+    e, c, kernels = configs(**kw)
+    return InferenceEngine(
         tcfg.ModelConfig(**MODEL), TPARAMS, tcfg.EngineConfig(**e),
         tcfg.CacheConfig(**c), device="cpu",
         attention_backend="cuda" if kernels else None)
+
+
+def engines(**kw):
+    """The JAX engine and the port's on one configuration. ``kernels``:
+    the decode kernel route on both (``use_pallas_attention``), else the
+    default plan (the JAX engine's and the port's CPU plan alike)."""
+    e, c, _ = configs(**kw)
+    jax_engine = JaxEngine(
+        jcfg.ModelConfig(**MODEL), JPARAMS, jcfg.EngineConfig(**e),
+        jcfg.CacheConfig(**c))
+    port = port_engine(**kw)
     assert port.decode_steps == jax_engine.decode_steps
     assert port._pipelined == jax_engine._pipelined
     return jax_engine, port
@@ -143,9 +153,9 @@ def script_mixed(eos):
 def eos_token(**kw):
     """A token that session 0 of :func:`script_mixed` emits mid-stream,
     from a free run of the port (the parity run then checks both)."""
-    _, port = engines(**kw)
     ps = prompts(8, seed=3)
-    out = port.generate([ps[0]], SamplingOptions(max_new_tokens=14))
+    out = port_engine(**kw).generate([ps[0]],
+                                     SamplingOptions(max_new_tokens=14))
     return out[0][5]
 
 

@@ -31,7 +31,19 @@ KW = dict(vocab_size=256, hidden_size=64, intermediate_size=160, num_layers=3,
 B, P, PS, T = 3, 32, 8, 5
 
 
+_MODELS = {}
+
+
 def models(**extra):
+    """The JAX and port configurations and parameters (built once for each
+    ``extra``; no test writes to them)."""
+    key = repr(sorted(extra.items()))
+    if key not in _MODELS:
+        _MODELS[key] = _models(**extra)
+    return _MODELS[key]
+
+
+def _models(**extra):
     jkw, tkw = dict(KW, **extra), dict(KW, **extra)
     if "rope_scaling" in extra:
         jkw["rope_scaling"] = JaxRopeScaling(**extra["rope_scaling"])
@@ -86,17 +98,41 @@ def test_params_cross_over_unchanged():
     assert abs(float(mine["layers"]["wd"].std()) - 0.02) < 2e-3
 
 
+_JAX_RUNS = {}
+
+
+def jax_prefill_then_decode(head, tokens, num_new, steps, active):
+    """The JAX side of :func:`test_logits_prefill_then_decode`, the same for
+    both of the port's routes (computed once a ``head``): the prefill's
+    logits, each decode step's, and the lengths after the prefill."""
+    if head not in _JAX_RUNS:
+        jcfg, jparams, tcfg, _ = models()
+        _, jc = caches(tcfg, False)
+        jl, jc = jllama.model_apply(jcfg, jparams, jnp.asarray(tokens), jc,
+                                    jnp.asarray(num_new), head=head)
+        out = [np.asarray(jl), np.asarray(jc.lengths)]
+        for tok in steps:
+            jl, jc = jllama.model_apply(jcfg, jparams, jnp.asarray(tok), jc,
+                                        jnp.asarray(active))
+            out.append(np.asarray(jl))
+        _JAX_RUNS[head] = out
+    return _JAX_RUNS[head]
+
+
 @pytest.mark.parametrize("head", ["all", "last"])
 @pytest.mark.parametrize("use_kernels", [False, True])
 def test_logits_prefill_then_decode(head, use_kernels):
     jcfg, jparams, tcfg, tparams = models()
-    tc, jc = caches(tcfg, use_kernels)
+    tc, _ = caches(tcfg, use_kernels)
     rng = np.random.default_rng(1)
     s = 12
     tokens = rng.integers(0, 256, size=(B, s)).astype(np.int32)
     num_new = np.asarray([12, 5, 0], np.int32)  # a full, a short, an idle row
-    jl, jc = jllama.model_apply(
-        jcfg, jparams, jnp.asarray(tokens), jc, jnp.asarray(num_new), head=head)
+    steps = [rng.integers(0, 256, size=(B, 1)).astype(np.int32)
+             for _ in range(3)]
+    active = np.asarray([1, 1, 0], np.int32)
+    jl, jlengths, *jsteps = jax_prefill_then_decode(head, tokens, num_new,
+                                                    steps, active)
     tl, tc2 = tllama.model_apply(
         tcfg, tparams, torch.as_tensor(tokens), tc, torch.as_tensor(num_new),
         head=head)
@@ -105,18 +141,13 @@ def test_logits_prefill_then_decode(head, use_kernels):
     assert tl.shape == (B, s if head == "all" else 1, 256)
     valid = (np.arange(s)[None, :] < num_new[:, None]) if head == "all" else (
         np.ones((B, 1), bool))
-    np.testing.assert_allclose(
-        tl.numpy()[valid], np.asarray(jl)[valid], atol=ATOL)
-    np.testing.assert_array_equal(tc.lengths.numpy(), np.asarray(jc.lengths))
-    for step in range(3):
-        tok = rng.integers(0, 256, size=(B, 1)).astype(np.int32)
-        active = np.asarray([1, 1, 0], np.int32)
-        jl, jc = jllama.model_apply(
-            jcfg, jparams, jnp.asarray(tok), jc, jnp.asarray(active))
+    np.testing.assert_allclose(tl.numpy()[valid], jl[valid], atol=ATOL)
+    np.testing.assert_array_equal(tc.lengths.numpy(), jlengths)
+    for step, (tok, jl) in enumerate(zip(steps, jsteps)):
         tl, _ = tllama.model_apply(
             tcfg, tparams, torch.as_tensor(tok), tc, torch.as_tensor(active))
         np.testing.assert_allclose(
-            tl.numpy()[:2], np.asarray(jl)[:2], atol=ATOL, err_msg=f"step {step}")
+            tl.numpy()[:2], jl[:2], atol=ATOL, err_msg=f"step {step}")
     assert tc.lengths.tolist() == [15, 8, 0]
 
 

@@ -36,6 +36,12 @@ def test_no_module_imports_jax_or_the_jax_package(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
+def test_the_walk_covers_the_sharded_serving_modules():
+    walked = {p.relative_to(PORT).as_posix() for p in PORT.rglob("*.py")}
+    assert {f"parallel/{m}.py" for m in (
+        "__init__", "comm", "mesh", "tp", "pipeline", "ring")} <= walked
+
+
 def test_every_module_imports_without_a_gpu_or_compiler():
     for path in sorted(PORT.rglob("*.py")):
         rel = path.relative_to(ROOT).with_suffix("")
@@ -47,7 +53,7 @@ def test_every_module_imports_without_a_gpu_or_compiler():
 
 @pytest.mark.parametrize("cls", [
     "RopeScaling", "LatentConfig", "ModelConfig", "CacheConfig", "EngineConfig",
-    "ServingConfig", "PrefixConfig",
+    "ServingConfig", "PrefixConfig", "MeshConfig",
 ])
 def test_config_fields_and_defaults_match_the_reference(cls):
     def spec(c):
@@ -90,7 +96,7 @@ def test_from_hf_config_matches_the_reference():
 def test_port_mirrors_the_reference_file_names():
     for path in PORT.rglob("*.py"):
         rel = path.relative_to(PORT)
-        if rel.name in ("_build.py", "device.py", "graphs.py"):
+        if rel.name in ("_build.py", "device.py", "graphs.py", "comm.py"):
             continue  # no JAX counterpart
         assert (REFERENCE / rel).exists(), f"{rel} has no counterpart"
     from distributed_llm_inference_tpu_torch.ops import _build

@@ -472,21 +472,30 @@ def test_multi_decode_apply_matches_jax(use_kernel, calls):
     rng = np.random.default_rng(5)
     tokens = rng.integers(0, 64, (3, 30)).astype(np.int32)
     n = np.asarray([30, 1, 17], np.int32)
-    _, jc = jllama.model_apply(JCFG, JPARAMS, jnp.asarray(tokens), jc,
-                               jnp.asarray(n))
+    # The JAX side jitted, one program for the three windows (the budget an
+    # argument): its tokens and planes equal its eager run's.
+    _, jc = jax.jit(lambda c: jllama.model_apply(
+        JCFG, JPARAMS, jnp.asarray(tokens), c, jnp.asarray(n)))(jc)
     _, tc = tllama.model_apply(TCFG, TPARAMS, tt(tokens), tc, tt(n))
     first = rng.integers(0, 64, (3, 1)).astype(np.int32)
     jt, ttok = jnp.asarray(first), tt(first)
+
+    @jax.jit
+    def jwindow(tok, cache, active, budget):
+        def jstep(i, logits, alive):
+            nxt = jnp.argmax(logits, axis=-1).astype(jnp.int32)
+            emitted = jnp.where(alive, nxt, -1)
+            alive = alive & (i + 1 < budget)
+            return nxt, alive.astype(jnp.int32), alive, emitted
+
+        return jllama.multi_decode_apply(
+            JCFG, JPARAMS, tok, cache, k_steps, jstep, active,
+            active.astype(jnp.int32))
+
     for w in range(3):
         budget = np.asarray([k_steps, k_steps, 2 if w == 1 else
                              (k_steps if w == 0 else 0)], np.int32)
         active = budget > 0
-
-        def jstep(i, logits, alive, _b=jnp.asarray(budget)):
-            nxt = jnp.argmax(logits, axis=-1).astype(jnp.int32)
-            emitted = jnp.where(alive, nxt, -1)
-            alive = alive & (i + 1 < _b)
-            return nxt, alive.astype(jnp.int32), alive, emitted
 
         def tstep(i, logits, alive, _b=tt(budget)):
             nxt = torch.argmax(logits, dim=-1).to(torch.int32)
@@ -494,9 +503,7 @@ def test_multi_decode_apply_matches_jax(use_kernel, calls):
             alive = alive & (i + 1 < _b)
             return nxt, alive.to(torch.int32), alive, emitted
 
-        want, jc = jllama.multi_decode_apply(
-            JCFG, JPARAMS, jt, jc, k_steps, jstep, jnp.asarray(active),
-            jnp.asarray(active.astype(np.int32)))
+        want, jc = jwindow(jt, jc, jnp.asarray(active), jnp.asarray(budget))
         got, tc = tllama.multi_decode_apply(
             TCFG, TPARAMS, ttok, tc, k_steps, tstep, tt(active),
             tt(active.astype(np.int32)))
